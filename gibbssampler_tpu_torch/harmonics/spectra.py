@@ -1,0 +1,80 @@
+"""Power-spectrum conventions: D_ell <-> C_ell, binning, beams.
+
+PyTorch counterpart of ``gibbssampler_tpu.harmonics.spectra`` (the parts
+the centered polarization path uses).  Functions broadcast over leading
+batch axes (chains first); bins are static numpy int arrays of ell
+breakpoints, bin b covering [bins[b], bins[b+1]).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+__all__ = ["dl_to_cl_factor", "dl_to_cl", "bin_index", "unfold_bins",
+           "bin_sum", "gauss_beam"]
+
+
+@functools.lru_cache(maxsize=None)
+def _dl_to_cl_factor_np(lmax: int) -> np.ndarray:
+    """scale[l] with C_l = D_l * scale[l]; scale[0] = scale[1] = 0 (the
+    monopole and dipole are fixed to zero throughout)."""
+    ell = np.arange(lmax + 1, dtype=np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        scale = 2.0 * np.pi / (ell * (ell + 1.0))
+    scale[:2] = 0.0
+    return scale
+
+
+def dl_to_cl_factor(lmax: int, dtype=torch.float32,
+                    device=None) -> torch.Tensor:
+    return torch.as_tensor(_dl_to_cl_factor_np(lmax), dtype=dtype,
+                           device=device)
+
+
+def dl_to_cl(dl: torch.Tensor, lmax: int | None = None) -> torch.Tensor:
+    """D_ell -> C_ell = D_ell * 2 pi / (l (l+1)), with l = 0, 1 zeroed."""
+    if lmax is None:
+        lmax = dl.shape[-1] - 1
+    return dl * dl_to_cl_factor(lmax, dl.dtype, dl.device)
+
+
+def bin_index(bins: np.ndarray, lmax: int) -> np.ndarray:
+    """bin_of[l] for l = 0..lmax; ells outside [bins[0], bins[-1]) map to -1."""
+    bins = np.asarray(bins)
+    ells = np.arange(lmax + 1)
+    idx = np.searchsorted(bins, ells, side="right") - 1
+    idx[(ells < bins[0]) | (ells >= bins[-1])] = -1
+    return idx.astype(np.int64)
+
+
+def unfold_bins(binned: torch.Tensor, bins: np.ndarray,
+                lmax: int) -> torch.Tensor:
+    """(..., nbins) binned D_ell -> (..., lmax+1) per-ell D_ell; ells
+    outside the binned range (the fixed monopole/dipole) get 0."""
+    idx = bin_index(bins, lmax)
+    src = torch.as_tensor(np.maximum(idx, 0), device=binned.device)
+    keep = torch.as_tensor(idx >= 0, device=binned.device)
+    return torch.where(keep, binned[..., src], 0.0)
+
+
+def bin_sum(per_ell: torch.Tensor, bins: np.ndarray,
+            lmax: int) -> torch.Tensor:
+    """Sum per-ell values within each bin -> (..., nbins)."""
+    idx = bin_index(bins, lmax)
+    nbins = len(bins) - 1
+    onehot = (idx[:, None] == np.arange(nbins)[None, :]).astype(np.float64)
+    return per_ell @ torch.as_tensor(onehot, dtype=per_ell.dtype,
+                                     device=per_ell.device)
+
+
+def gauss_beam(fwhm_radians: float, lmax: int, dtype=torch.float32,
+               device=None) -> torch.Tensor:
+    """Gaussian beam window b_l = exp(-l(l+1) sigma^2 / 2),
+    sigma = fwhm / sqrt(8 ln 2) (healpy.gauss_beam equivalent)."""
+    ell = np.arange(lmax + 1, dtype=np.float64)
+    sigma = fwhm_radians / np.sqrt(8.0 * np.log(2.0))
+    return torch.as_tensor(np.exp(-0.5 * ell * (ell + 1.0) * sigma ** 2),
+                           dtype=dtype, device=device)

@@ -1,0 +1,52 @@
+"""Carry a dataset and sampler state of the JAX package across to the port.
+
+The JAX model's fields arrive as plain numpy arrays (the caller converts
+them with ``np.asarray``), so this module needs no jax.  The port rebuilds
+its own operator tables from the grid; ``ops.with_cut_decomposition`` then
+recomputes the cut rows the same way the JAX package does.
+
+    arrays = {"d": ..., "tau": ..., "q_map": ..., "omega": float,
+              "bl": ..., "spin": int, "theta": ..., "weights": ...,
+              "phi0": ..., "nphi": int}
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.model import SkyModel
+from .ops.noise import NoiseModel
+from .schemes.gibbs import GibbsState
+from .sht.grids import SphereGrid
+from .sht.transform import SHT
+
+__all__ = ["model_from_numpy", "state_from_numpy"]
+
+
+def model_from_numpy(arrays: dict, device="cpu",
+                     dtype=torch.float64) -> SkyModel:
+    """Build the port's SkyModel (full grid, no cut decomposition) from the
+    JAX model's fields given as numpy arrays."""
+    grid = SphereGrid(name="interop",
+                      theta=np.asarray(arrays["theta"], dtype=np.float64),
+                      weights=np.asarray(arrays["weights"], dtype=np.float64),
+                      nphi=int(arrays["nphi"]),
+                      phi0=np.asarray(arrays["phi0"], dtype=np.float64))
+    spin = int(arrays["spin"])
+    bl = np.asarray(arrays["bl"])
+    sht = SHT(grid, bl.shape[0] - 1, dtype=dtype, spin2=(spin == 2),
+              device=device)
+    t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    noise = NoiseModel(tau=t(arrays["tau"]), q_map=t(arrays["q_map"]),
+                       omega=float(arrays["omega"]))
+    d = arrays.get("d")
+    return SkyModel(sht=sht, noise=noise, bl=t(bl), spin=spin,
+                    d=None if d is None else t(d))
+
+
+def state_from_numpy(s, dl, device="cpu", dtype=torch.float64) -> GibbsState:
+    """GibbsState from (nchains, nfields, nstate) ``s`` and a per-field
+    sequence of (nchains, nbins_f) binned D_ell."""
+    t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return GibbsState(s=t(s), dl=tuple(t(x) for x in dl))

@@ -1,0 +1,250 @@
+"""The forward model d = A B s + n as a bundle of operators (PyTorch
+counterpart of ``gibbssampler_tpu.ops.model``, Gauss-Legendre grid,
+spin 0 and spin 2).
+
+- state ``s``     : (..., nfields, nstate) grid-packed alm
+- pixel data ``d``: (nfields, nrings, nphi) maps (T, or Q/U)
+
+Leading axes of ``s`` (the chains) are batch axes: every operator maps them
+through, and every scalar it returns (log-likelihoods) is one value per
+leading index, reduced over the field, slot and pixel axes only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..harmonics.gridstate import (almxfl_state, ell_mask_state,
+                                   expand_cl_state, nstate)
+from ..sht.grids import SphereGrid, subgrid_rows
+from ..sht.transform import SHT
+from .noise import NoiseModel
+
+__all__ = ["SkyModel", "with_cut_decomposition"]
+
+# the JAX package's default bound for the sparse-hole split
+# (GS_SPARSE_MAX_FRAC): masks whose azimuthally non-uniform pixels cover at
+# most this share of the sky are split there, which the port does not do yet
+_SPARSE_MAX_FRAC = 0.15
+
+
+@dataclass(frozen=True)
+class SkyModel:
+    """Operators for one observed dataset (beam, noise, mask, SHT).
+
+    spin = 0: nfields = 1 (T).  spin = 2: nfields = 2 (E, B alm; Q, U maps).
+    """
+
+    sht: SHT
+    noise: NoiseModel
+    bl: torch.Tensor                      # (lmax+1,) beam window
+    spin: int
+    d: Optional[torch.Tensor] = None      # observed maps (nfields, nr, nphi)
+
+    # cut-sky complement decomposition (with_cut_decomposition): on a
+    # quadrature grid with uniform unmasked noise A^T diag(tau_bar q) A =
+    # (tau_bar/omega) I exactly, so every masked pixel-diagonal operator is
+    # an exact harmonic diagonal minus a correction on the masked rings only
+    cut_sht: Optional[SHT] = None
+    d_cut: Optional[torch.Tensor] = None   # d on cut rows (nf, ncut, nphi)
+    w_cut: Optional[torch.Tensor] = None   # q (tau_bar - tau) on cut rows >= 0
+    cut_c0: Optional[torch.Tensor] = None  # scalar: d^T N0^-1 d
+    cut_c1: Optional[torch.Tensor] = None  # (nfields, nstate): A^T N0^-1 d
+
+    def __post_init__(self):
+        if self.spin not in (0, 2):
+            raise NotImplementedError(
+                f"spin={self.spin}: the port supports spin 0 and spin 2")
+
+    @property
+    def lmax(self) -> int:
+        return self.sht.lmax
+
+    @property
+    def nfields(self) -> int:
+        return {0: 1, 2: 2}[self.spin]
+
+    @property
+    def nstate(self) -> int:
+        return nstate(self.lmax)
+
+    @property
+    def has_cut(self) -> bool:
+        return self.cut_sht is not None
+
+    def ell_mask(self, dtype=None) -> torch.Tensor:
+        """(nstate,) 1 on valid slots with l >= 2."""
+        return torch.as_tensor(ell_mask_state(self.lmax, lmin=2),
+                               dtype=dtype or self.sht.dtype,
+                               device=self.sht.device)
+
+    def _op_valid_mask(self, dtype) -> torch.Tensor:
+        """(nfields, nstate) mask of the slots the synthesis acts on: l >= 0
+        for spin-0 fields, l >= 2 for spin-2 fields."""
+        lmin = 0 if self.spin == 0 else 2
+        m = torch.as_tensor(ell_mask_state(self.lmax, lmin=lmin), dtype=dtype,
+                            device=self.sht.device)
+        return m.expand(self.nfields, -1)
+
+    # ---- primitive operators -------------------------------------------
+
+    def beam(self, s: torch.Tensor) -> torch.Tensor:
+        """B s (diagonal per-ell, identical for every field)."""
+        return almxfl_state(s, self.bl.to(s.dtype), self.lmax)
+
+    def _synthesis_with(self, sht: SHT, s: torch.Tensor) -> torch.Tensor:
+        """A s through the full grid's or the cut rings' transform:
+        (..., nfields, nstate) -> (..., nfields, nr, nphi)."""
+        if self.spin == 0:
+            return sht.synthesis_state(s[..., 0, :])[..., None, :, :]
+        q, u = sht.synthesis_spin2_state(s[..., 0, :], s[..., 1, :])
+        return torch.stack([q, u], dim=-3)
+
+    def _adjoint_with(self, sht: SHT, f: torch.Tensor) -> torch.Tensor:
+        """A^T f: (..., nfields, nr, nphi) -> (..., nfields, nstate)."""
+        if self.spin == 0:
+            return sht.adjoint_synthesis_state(f[..., 0, :, :])[..., None, :]
+        e, b = sht.adjoint_synthesis_spin2_state(f[..., 0, :, :],
+                                                 f[..., 1, :, :])
+        return torch.stack([e, b], dim=-2)
+
+    def synthesis(self, s: torch.Tensor) -> torch.Tensor:
+        return self._synthesis_with(self.sht, s)
+
+    def adjoint_synthesis(self, f: torch.Tensor) -> torch.Tensor:
+        return self._adjoint_with(self.sht, f)
+
+    def forward(self, s: torch.Tensor) -> torch.Tensor:
+        """A B s: the noiseless sky seen by the instrument."""
+        return self.synthesis(self.beam(s))
+
+    def project_data(self, f: torch.Tensor) -> torch.Tensor:
+        """B^T A^T f = B A^T f (B diagonal)."""
+        return self.beam(self.adjoint_synthesis(f))
+
+    # ---- composite operators -------------------------------------------
+
+    def bt_ninv_d(self, d: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """B A^T N^-1 d: the data term of the CR mean, once per dataset."""
+        d = self.d if d is None else d
+        return self.project_data(self.noise.inv_noise * d)
+
+    def q_apply(self, s: torch.Tensor, inv_cvar: torch.Tensor) -> torch.Tensor:
+        """Q s = C^-1 s + B A^T N^-1 A B s (full-grid transforms)."""
+        mask = self.ell_mask(s.dtype)
+        s = s * mask
+        out = inv_cvar * s + self.project_data(
+            self.noise.inv_noise * self.forward(s))
+        return out * mask
+
+    def harmonic_noise_diag(self) -> torch.Tensor:
+        """(nfields, nstate) exact diagonal of B A^T N^-1 A B on the full
+        sky: g_f b_l^2 with g_f = tau_f / omega."""
+        bl2 = expand_cl_state(self.bl.to(self.sht.dtype) ** 2, self.lmax)
+        g = self.noise.tau_max / self.noise.omega
+        return g[:, None] * bl2[None, :]
+
+    # ---- cut-sky complement operators ------------------------------------
+
+    def synthesis_cut(self, s: torch.Tensor) -> torch.Tensor:
+        """A s restricted to the cut rings (..., nfields, ncut, nphi)."""
+        return self._synthesis_with(self.cut_sht, s)
+
+    def adjoint_synthesis_cut(self, f_cut: torch.Tensor) -> torch.Tensor:
+        """A_cut^T f (exact transpose of synthesis_cut)."""
+        return self._adjoint_with(self.cut_sht, f_cut)
+
+    def synthesis_cut_sp(self, s: torch.Tensor):
+        """(A_cut s, None): the port has no sparse-hole point set."""
+        return self.synthesis_cut(s), None
+
+    def _w_corr(self, sb: torch.Tensor) -> torch.Tensor:
+        """A_cut^T (w_cut A_cut u): the masked correction operator."""
+        return self.adjoint_synthesis_cut(self.w_cut * self.synthesis_cut(sb))
+
+    def q_apply_cut(self, s: torch.Tensor, inv_cvar: torch.Tensor):
+        """Exact masked Q apply via the complement decomposition:
+        Q s = (C^-1 + tau_bar/omega b_l^2) s - B A_cut^T (w_cut A_cut B s)."""
+        mask = self.ell_mask(s.dtype)
+        s = s * mask
+        corr = self.beam(self._w_corr(self.beam(s)))
+        diag = inv_cvar + self.harmonic_noise_diag().to(s.dtype)
+        return (diag * s - corr) * mask
+
+    def cut_data_terms(self):
+        """(c0, c1) of the complement likelihood identity
+        -1/2 (d - A u)^T N0^-1 (d - A u) = -c0/2 + <c1, u> - tau_bar/(2 om)
+        ||u||^2 with N0^-1 = tau_bar q.  One full adjoint, once per dataset."""
+        n0 = self.noise.field_bcast(self.noise.tau_max) * self.noise.q_map
+        c0 = (n0 * self.d * self.d).sum()
+        c1 = self.adjoint_synthesis(n0 * self.d)
+        return c0, c1
+
+    def data_loglike_cut(self, u: torch.Tensor,
+                         au_cut: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """-1/2 (d - A u)^T N^-1 (d - A u) via the complement identity, one
+        value per leading (chain) index; ``u`` is the beam-applied state.
+        Pass ``au_cut = synthesis_cut(u)`` when already computed."""
+        u = u * self._op_valid_mask(u.dtype)
+        if au_cut is None:
+            au_cut = self.synthesis_cut(u)
+        g = (self.noise.tau_max / self.noise.omega).to(u.dtype)
+        quad = (g[:, None] * u * u).sum(dim=(-2, -1))
+        cross = (self.cut_c1 * u).sum(dim=(-2, -1))
+        r_cut = self.d_cut - au_cut
+        cut = (self.w_cut * r_cut * r_cut).sum(dim=(-3, -2, -1))
+        return -0.5 * self.cut_c0 + cross - 0.5 * quad + 0.5 * cut
+
+
+def with_cut_decomposition(model: SkyModel) -> SkyModel:
+    """Attach the cut-sky complement decomposition to a masked model.
+
+    Requires per-field noise that is uniform on unmasked pixels.  The
+    masked rings ("cut" rows: any pixel with tau < tau_max) get their own
+    SHT; masked operators then cost one transform over those rings instead
+    of the full sphere.  Exact on the Gauss-Legendre quadrature grid.
+
+    Masks that the JAX package splits into an azimuthal floor plus sparse
+    holes (non-uniform pixels covering at most 15% of the sky) raise: the
+    sparse split is not ported yet."""
+    if not isinstance(model.sht.grid, SphereGrid):
+        raise ValueError("cut decomposition needs an iso-latitude "
+                         "quadrature grid")
+    tau = model.noise.tau.detach().cpu().numpy()          # (nf, nr, nphi)
+    q = model.noise.q_map.detach().cpu().numpy()
+    tau_bar = tau.reshape(tau.shape[0], -1).max(axis=1)
+    w = q * (tau_bar[:, None, None] - tau)
+    tol = 1e-12 * tau_bar.max()
+    rows = np.where(np.any(w > tol, axis=(0, 2)))[0]
+    if rows.size == 0:
+        raise ValueError("model has no masked pixels; cut decomposition "
+                         "is pointless on the full sky")
+    w_floor = w.min(axis=2)
+    w_sp = np.maximum(w - w_floor[:, :, None], 0.0)
+    w_sp[w_sp <= tol] = 0.0
+    sp_pix = np.any(w_sp > 0.0, axis=0)
+    n_sp = int(sp_pix.sum())
+    if 0 < n_sp <= _SPARSE_MAX_FRAC * sp_pix.size:
+        raise NotImplementedError(
+            f"mask has {n_sp} azimuthally non-uniform pixels "
+            f"({n_sp / sp_pix.size:.3f} of the sky): it needs the "
+            "floor + sparse-hole split, which the port does not have yet")
+    w_cut = w[:, rows, :]
+    sht = model.sht
+    dt, dev = sht.dtype, sht.device
+    cut_sht = SHT(subgrid_rows(sht.grid, rows), sht.lmax, dtype=dt,
+                  spin2=(model.spin == 2), device=dev)
+    d_cut = (None if model.d is None else torch.as_tensor(
+        model.d.detach().cpu().numpy()[..., rows, :], dtype=dt, device=dev))
+    out = dataclasses.replace(
+        model, cut_sht=cut_sht, d_cut=d_cut,
+        w_cut=torch.as_tensor(w_cut, dtype=dt, device=dev))
+    if model.d is not None:
+        c0, c1 = out.cut_data_terms()
+        out = dataclasses.replace(out, cut_c0=c0, cut_c1=c1)
+    return out

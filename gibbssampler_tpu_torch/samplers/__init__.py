@@ -1,0 +1,9 @@
+"""Conditional samplers: constrained realizations and the C_ell step."""
+
+from .cr import (noise_pool_spec, CRInfo, exact_cr, aux_gibbs_cr, mala_cr,
+                 aux_then_mala_cr)
+from .cls_samplers import standard_gamma, invgamma_dl, centered_cls_sample
+
+__all__ = ["noise_pool_spec", "CRInfo", "exact_cr", "aux_gibbs_cr",
+           "mala_cr", "aux_then_mala_cr",
+           "standard_gamma", "invgamma_dl", "centered_cls_sample"]

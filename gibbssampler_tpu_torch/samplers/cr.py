@@ -1,0 +1,221 @@
+"""Constrained-realization (CR) conditional samplers (PyTorch counterpart of
+``gibbssampler_tpu.samplers.cr``: the exact and the aux-Gibbs + MALA
+methods).
+
+Draws s | C_ell, d  ~  N(Q^-1 b, Q^-1),   Q = C^-1 + B A^T N^-1 A B.
+
+State ``s_old`` and ``var_cls`` are (..., nfields, nstate) grid-packed
+tensors whose leading axes are chains; every log-target, log-ratio and
+accept is one value per chain.  Gaussian variates come from a pre-drawn
+noise pool ``{kind: (nchains, K, *shape)}`` when one is given (the schemes
+draw one per iteration, ``schemes.gibbs.GibbsScheme.draw_noise_pool``) and
+otherwise from the ``gen`` generator; the MALA accept uniform may be
+injected as ``u`` (one per chain), so that a test can feed both packages
+the same numbers.  Slots with var_cls = 0 stay exactly 0.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..harmonics.gridstate import expand_cl_state
+from ..ops.model import SkyModel
+
+__all__ = ["noise_pool_spec", "CRInfo", "exact_cr", "aux_gibbs_cr",
+           "mala_cr", "aux_then_mala_cr"]
+
+# mu = max(N^-1) + eps for the aux field without the cut decomposition
+# (the reference's ConstrainedRealization.py:44)
+_AUX_EPS = 1e-7
+
+
+def noise_pool_spec(method: str, opts: dict) -> dict:
+    """Number of pre-drawn N(0,1) fields each CR method consumes per step,
+    by kind: "state" (nfields, nstate) and "aux" (the auxiliary pixel
+    field: the cut rows under the cut decomposition, the full grid
+    otherwise)."""
+    n_g = int(opts.get("n_gibbs", 1))
+    return {
+        "exact": {"state": 1},
+        "aux_mala": {"state": n_g + 1, "aux": n_g},
+    }[method]
+
+
+class _Pool:
+    """Cursor over a pre-drawn noise dict {kind: (nchains, K, *shape)}."""
+
+    def __init__(self, noise):
+        self.noise = noise
+        self._i = {}
+
+    def take(self, kind):
+        """The next field of ``kind``: (nchains, *shape)."""
+        j = self._i.get(kind, 0)
+        self._i[kind] = j + 1
+        return self.noise[kind][:, j]
+
+
+def _as_pool(noise):
+    if isinstance(noise, _Pool):
+        return noise
+    return _Pool(noise) if noise else None
+
+
+def _safe_inv(v):
+    return torch.where(v > 0, 1.0 / torch.where(v > 0, v, 1.0), 0.0)
+
+
+def _active(var_cls):
+    return (var_cls > 0).to(var_cls.dtype)
+
+
+def _normal(gen, shape, like):
+    return torch.randn(shape, generator=gen, dtype=like.dtype,
+                       device=like.device)
+
+
+class CRInfo(NamedTuple):
+    accept: torch.Tensor   # (nchains,) 1.0 where the move was accepted
+    extra: torch.Tensor    # (nchains,) algorithm-specific (MH log-ratio)
+
+
+def _batch_shape(var_cls, s_old=None):
+    shape = var_cls.shape if s_old is None else torch.broadcast_shapes(
+        var_cls.shape, s_old.shape)
+    return tuple(shape[:-2])
+
+
+def exact_cr(model: SkyModel, var_cls, bt_ninv_d, noise=None, gen=None):
+    """Full-sky exact draw: Sigma = (C^-1 + g b_l^2)^-1 elementwise."""
+    inv_cvar = _safe_inv(var_cls)
+    hdiag = model.harmonic_noise_diag().to(var_cls.dtype)
+    sigma = _safe_inv(inv_cvar + hdiag) * _active(var_cls)
+    pool = _as_pool(noise)
+    xi = pool.take("state") if pool else _normal(gen, var_cls.shape, var_cls)
+    s = sigma * bt_ninv_d + torch.sqrt(sigma) * xi
+    batch = _batch_shape(var_cls)
+    return s, CRInfo(accept=var_cls.new_ones(batch),
+                     extra=var_cls.new_zeros(batch))
+
+
+def _aux_ops(model: SkyModel, var_cls):
+    """The pixel gap operator (mu - N^-1), the harmonic posterior variance
+    Sigma = (C^-1 + mu_bar/omega b_l^2)^-1, and the forward/project maps of
+    the two aux conditionals.
+
+    With the cut decomposition attached mu is exactly max(N^-1): the gap
+    vanishes off the masked rings, the auxiliary field lives on the cut
+    rings only and both conditionals run through cut-ring transforms."""
+    noise = model.noise
+    dt = var_cls.dtype
+    inv_cvar = _safe_inv(var_cls)
+    bl2 = expand_cl_state(model.bl.to(dt) ** 2, model.lmax)
+    if model.has_cut:
+        gap = model.w_cut.to(dt)
+        mu_bar = noise.tau_max.to(dt)
+        fwd = lambda s: model.synthesis_cut(model.beam(s))
+        proj = lambda v: model.beam(model.adjoint_synthesis_cut(v))
+    else:
+        mu_bar = noise.tau_max.to(dt) + _AUX_EPS     # (nfields,)
+        gap = (noise.q_map * (noise.field_bcast(mu_bar)
+                              - noise.tau)).to(dt).clamp_min(0.0)
+        fwd = model.forward
+        proj = model.project_data
+    hdiag = (mu_bar[:, None] / noise.omega) * bl2[None, :]
+    sigma = _safe_inv(inv_cvar + hdiag) * _active(var_cls)
+    return gap, sigma, fwd, proj
+
+
+def aux_gibbs_cr(model: SkyModel, var_cls, bt_ninv_d, s_old,
+                 n_gibbs: int = 1, noise=None, gen=None):
+    """Auxiliary-variable Gibbs: augment with the pixel field
+    v | s ~ N((mu - N^-1) A B s, mu - N^-1); then s | v, d is diagonal in
+    harmonic space.  ``n_gibbs`` sweeps per call."""
+    gap, sigma, fwd, proj = _aux_ops(model, var_cls)
+    pool = _as_pool(noise)
+    s = s_old * _active(var_cls)
+    batch = _batch_shape(var_cls, s_old)
+    for _ in range(n_gibbs):
+        if pool:
+            xi_v, xi_s = pool.take("aux"), pool.take("state")
+        else:
+            xi_v = _normal(gen, batch + tuple(gap.shape), s)
+            xi_s = _normal(gen, s.shape, s)
+        v = gap * fwd(s) + torch.sqrt(gap) * xi_v
+        s = sigma * (proj(v) + bt_ninv_d) + torch.sqrt(sigma) * xi_s
+    return s, CRInfo(accept=s.new_ones(batch), extra=s.new_zeros(batch))
+
+
+def mala_cr(model: SkyModel, var_cls, bt_ninv_d, s_old, tau: float = 0.02,
+            noise=None, gen=None, u=None):
+    """Preconditioned MALA: s' = s + tau Sigma grad + sqrt(2 tau Sigma) xi,
+    Sigma = full-sky posterior diagonal, Metropolis-adjusted.
+
+    Each state's forward map is computed once and shared between the
+    gradient and the log-target; with the cut decomposition both run
+    through cut-ring transforms.  ``u``: optional (nchains,) accept
+    uniforms."""
+    inv_cvar = _safe_inv(var_cls)
+    hdiag = model.harmonic_noise_diag().to(var_cls.dtype)
+    act = _active(var_cls)
+    sigma = _safe_inv(inv_cvar + hdiag) * act
+
+    if model.has_cut:
+        def fwd_grad_logp(x):
+            """one cut synthesis + one cut adjoint -> (gradient, log target)."""
+            ub = model.beam(x)
+            au_cut, _ = model.synthesis_cut_sp(ub)
+            corr = model.adjoint_synthesis_cut(model.w_cut * au_cut)
+            qs = hdiag * x - model.beam(corr)
+            grad = (-inv_cvar * x - qs + bt_ninv_d) * act
+            logp = (-0.5 * (inv_cvar * x * x).sum(dim=(-2, -1))
+                    + model.data_loglike_cut(ub, au_cut))
+            return grad, logp
+    else:
+        inv_noise = model.noise.inv_noise
+
+        def fwd_grad_logp(x):
+            """forward once -> (gradient, log target)."""
+            fwd = model.forward(x)
+            resid = model.d - fwd
+            qs = model.project_data(inv_noise * fwd)
+            grad = (-inv_cvar * x - qs + bt_ninv_d) * act
+            logp = (-0.5 * (inv_cvar * x * x).sum(dim=(-2, -1))
+                    - 0.5 * (inv_noise * resid * resid).sum(dim=(-3, -2, -1)))
+            return grad, logp
+
+    pool = _as_pool(noise)
+    s = s_old * act
+    batch = _batch_shape(var_cls, s_old)
+    g, logp_s = fwd_grad_logp(s)
+    xi = pool.take("state") if pool else _normal(gen, s.shape, s)
+    prop_mean = s + tau * sigma * g
+    s_prop = prop_mean + torch.sqrt(2.0 * tau * sigma) * xi
+    g_prop, logp_p = fwd_grad_logp(s_prop)
+    rev_mean = s_prop + tau * sigma * g_prop
+    inv_step = _safe_inv(2.0 * tau * sigma)
+
+    def logq(x_to, mean):
+        return -0.5 * (inv_step * (x_to - mean) ** 2).sum(dim=(-2, -1))
+
+    log_ratio = (logp_p - logp_s
+                 + logq(s, rev_mean) - logq(s_prop, prop_mean))
+    if u is None:
+        u = torch.rand(batch, generator=gen, dtype=s.dtype, device=s.device)
+    acc = torch.log(u) < log_ratio
+    s_new = torch.where(acc[..., None, None], s_prop, s)
+    return s_new, CRInfo(accept=acc.to(s.dtype), extra=log_ratio.to(s.dtype))
+
+
+def aux_then_mala_cr(model: SkyModel, var_cls, bt_ninv_d, s_old,
+                     n_gibbs: int = 1, tau: float = 0.02, noise=None,
+                     gen=None, u=None):
+    """One auxiliary-Gibbs sweep followed by a MALA step (the reference's
+    "Composition !" branch)."""
+    pool = _as_pool(noise)
+    s, _ = aux_gibbs_cr(model, var_cls, bt_ninv_d, s_old, n_gibbs=n_gibbs,
+                        noise=pool, gen=gen)
+    return mala_cr(model, var_cls, bt_ninv_d, s, tau=tau, noise=pool,
+                   gen=gen, u=u)

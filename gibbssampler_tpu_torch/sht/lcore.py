@@ -1,0 +1,129 @@
+"""Legendre-stage core of the transforms (PyTorch counterpart of
+``gibbssampler_tpu.sht.lcore``, dense-table path).
+
+The latitude stage is a per-m contraction between the triangular
+(m, l, ring) operator tables and (..., m, l) alm grids.  Each table is one
+dense (L, L, nr) tensor on the device; the kernels of
+``sht.legendre_kernels`` skip its zero triangle (l < m) themselves, which
+replaces the JAX package's 128-wide m-block wedge slices.  The
+``_lsynth_stack`` / ``_ladj_stack`` pair below is the only route to the
+Legendre stage: it folds every leading axis (chains, fields, re/im) into the
+kernels' batch axis C.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..harmonics.gridstate import state_masks
+from .legendre_kernels import legendre_adj_tri, legendre_synth_tri
+
+__all__ = ["LegendreCore"]
+
+
+class LegendreCore:
+    """Mixin holding the Legendre contraction and the state packing."""
+
+    def _init_core(self, lmax: int, dtype, device):
+        self.lmax = lmax
+        self.dtype = dtype
+        self.device = torch.device(device)
+        sm = state_masks(lmax)
+        self.pack_in = torch.as_tensor(sm.in_scale, dtype=dtype,
+                                       device=self.device)
+        self.pack_out = torch.as_tensor(sm.out_scale, dtype=dtype,
+                                        device=self.device)
+
+    def _table(self, tab) -> torch.Tensor:
+        """fp64 numpy (L, L, nr) table -> contiguous device tensor."""
+        return torch.as_tensor(tab, dtype=self.dtype,
+                               device=self.device).contiguous()
+
+    # -- state <-> grid packing (reshape + diagonal scale) -----------------
+
+    def _state_grids(self, x: torch.Tensor) -> torch.Tensor:
+        """Grid-packed state (..., nstate) -> scaled (..., 2, L, L) grids."""
+        L = self.lmax + 1
+        g = x.reshape(x.shape[:-1] + (2, L, L)).to(self.dtype)
+        return g * self.pack_in
+
+    def _grids_to_state(self, g2: torch.Tensor) -> torch.Tensor:
+        """Stacked (..., 2, L, L) true Re/Im grids -> grid-packed state."""
+        L = self.lmax + 1
+        return (g2 * self.pack_out).reshape(g2.shape[:-3] + (2 * L * L,))
+
+    # -- contraction cores -------------------------------------------------
+
+    def _lsynth_stack(self, lam: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
+        """(..., c, L, L) [.., m, l] grids -> F (..., c, nr, L) [.., r, m]."""
+        L = self.lmax + 1
+        batch = g2.shape[:-2]
+        C = math.prod(batch)
+        x = g2.reshape(C, L, L).permute(1, 0, 2).contiguous()    # (m, C, l)
+        out = legendre_synth_tri(lam, x)                          # (m, nr, C)
+        nr = out.shape[1]
+        return out.permute(2, 1, 0).reshape(batch + (nr, L))
+
+    def _ladj_stack(self, lam: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """(..., c, nr, L) [.., r, m] ring grids -> (..., c, L, L) alm grids."""
+        L = self.lmax + 1
+        batch = g.shape[:-2]
+        nr = g.shape[-2]
+        C = math.prod(batch)
+        gk = g.reshape(C, nr, L).permute(2, 1, 0).contiguous()   # (m, nr, C)
+        out = legendre_adj_tri(lam, gk)                           # (m, C, l)
+        return out.permute(1, 0, 2).reshape(batch + (L, L))
+
+    def _ladj2(self, lam, Gre, Gim):
+        """(Gre, Gim) (..., nr, L) -> (are, aim) (..., L, L) grids."""
+        a = self._ladj_stack(lam, torch.stack([Gre, Gim], dim=-3))
+        return a[..., 0, :, :], a[..., 1, :, :]
+
+    # -- spin-2 Legendre stages --------------------------------------------
+
+    def _spin2_stacks(self, e_state, b_state):
+        """(ap, am) Legendre-stage input stacks of a+ = -(E + iB),
+        a- = -(E - iB)."""
+        eg = self._state_grids(e_state)
+        bg = self._state_grids(b_state)
+        ere, eim = eg[..., 0, :, :], eg[..., 1, :, :]
+        bre, bim = bg[..., 0, :, :], bg[..., 1, :, :]
+        ap = torch.stack([-(ere - bim), -(eim + bre)], dim=-3)
+        am = torch.stack([-(ere + bim), -(eim - bre)], dim=-3)
+        return ap, am
+
+    def _spin2_F_stacks(self, ap, am):
+        """(ap, am) stacks -> (Fp_re, Fp_im, Fm_re, Fm_im) through the
+        spin-2 tables."""
+        Fp = self._lsynth_stack(self.lam_p2, ap)
+        Fm = self._lsynth_stack(self.lam_m2, am)
+        return (Fp[..., 0, :, :], Fp[..., 1, :, :],
+                Fm[..., 0, :, :], Fm[..., 1, :, :])
+
+    def _spin2_F(self, e_state, b_state):
+        """(E, B) grid-packed states -> (Fp_re, Fp_im, Fm_re, Fm_im) ring
+        Fourier coefficients of a+ through lam+2 and a- through lam-2."""
+        return self._spin2_F_stacks(*self._spin2_stacks(e_state, b_state))
+
+    def _spin2_agrids(self, Cp_re, Cp_im, Cm_re, Cm_im):
+        """Ring coefficients -> (ap_re, ap_im, am_re, am_im) alm grids (the
+        Legendre adjoint of ``_spin2_F``; C- enters conjugated)."""
+        ap_re, ap_im = self._ladj2(self.lam_p2, Cp_re, Cp_im)
+        am_re, am_im = self._ladj2(self.lam_m2, Cm_re, -Cm_im)
+        return ap_re, ap_im, am_re, am_im
+
+    def _spin2_recombine(self, ap_re, ap_im, am_re, am_im):
+        """(a+, a-) grids -> (E, B) grid-packed states:
+        E = -(a+ + a-)/2, B = i (a+ - a-)/2."""
+        e_re, e_im = -0.5 * (ap_re + am_re), -0.5 * (ap_im + am_im)
+        b_re, b_im = -0.5 * (ap_im - am_im), 0.5 * (ap_re - am_re)
+        return (self._grids_to_state(torch.stack([e_re, e_im], dim=-3)),
+                self._grids_to_state(torch.stack([b_re, b_im], dim=-3)))
+
+    def _spin2_alm(self, Cp_re, Cp_im, Cm_re, Cm_im):
+        """Ring Fourier coefficients C+ = sum (Q+iU) e^{-im phi},
+        C- = sum (Q+iU) e^{+im phi} -> (E, B) grid-packed states."""
+        return self._spin2_recombine(
+            *self._spin2_agrids(Cp_re, Cp_im, Cm_re, Cm_im))

@@ -1,0 +1,207 @@
+"""Spherical-harmonic transforms, spin-0 and spin-2 (PyTorch counterpart of
+``gibbssampler_tpu.sht.transform``, ``fft_mode="matmul"``).
+
+  synthesis  (alm -> map):  per-m Legendre contraction  ->  azimuthal stage
+  analysis   (map -> alm):  azimuthal stage             ->  weighted Legendre
+
+The Legendre stage goes through the hand-written kernels
+(``sht.lcore`` -> ``sht.legendre_kernels``).  The azimuthal stage is the
+folded real cos/sin DFT as a ``torch.matmul``: a plain matrix product that
+the JAX package left to XLA.  On the Gauss-Legendre grid ``analysis`` is the
+exact inverse of ``synthesis`` and ``adjoint_synthesis`` its exact
+transpose.  The alm format is the grid-packed state (harmonics.gridstate);
+maps are (..., nrings, nphi) real tensors, with any leading batch axes.
+
+Precision: importing this module sets
+``torch.backends.cuda.matmul.allow_tf32 = False`` and
+``torch.backends.cudnn.allow_tf32 = False``, so that float32 matrix
+products on the card run in full float32 and not in TF32 (about three
+decimal digits), which would break the A / A^T transpose pairing the
+samplers rely on.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .grids import SphereGrid, gauss_legendre_grid
+from .lcore import LegendreCore
+from .legendre import legendre_table, spin2_lambda_tables
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__all__ = ["SHT", "make_sht"]
+
+
+class SHT(LegendreCore):
+    """Operator tables for one (grid, lmax, dtype) on one device."""
+
+    def __init__(self, grid: SphereGrid, lmax: int, dtype=torch.float32,
+                 spin2: bool = False, device="cpu"):
+        self.grid = grid
+        self._init_core(lmax, dtype, device)
+        L = lmax + 1
+        if grid.nphi < 2 * lmax + 2:
+            raise ValueError(
+                f"grid nphi={grid.nphi} too small for lmax={lmax}; "
+                f"need >= {2 * lmax + 2}")
+        dev = self.device
+        self.lam0 = self._table(legendre_table(lmax, np.cos(grid.theta)))
+        # quadrature weights including the 2 pi / nphi azimuthal factor
+        self.wq = torch.as_tensor(grid.weights * (2.0 * np.pi / grid.nphi),
+                                  dtype=dtype, device=dev)
+        self.nphi = grid.nphi
+        self.nrings = grid.nrings
+        # per-ring, per-m phase rotation for the first-pixel offset phi0
+        m = np.arange(L)
+        ang = np.outer(grid.phi0, m)                 # (nr, L)
+        self.has_phase = bool(np.any(grid.phi0 != 0.0))
+        self.phase_cos = torch.as_tensor(np.cos(ang), dtype=dtype, device=dev)
+        self.phase_sin = torch.as_tensor(np.sin(ang), dtype=dtype, device=dev)
+        # azimuthal DFT matrices folded over the reflection j <-> nphi - j:
+        # columns j = 0..nphi/2 only; f[j] = C[j] - S[j], f[n - j] = C[j] + S[j]
+        nh = grid.nphi // 2 + 1
+        ang2 = 2.0 * np.pi * np.outer(m, np.arange(nh)) / grid.nphi
+        self.nphi_half = nh
+        self.dft_cos = torch.as_tensor(np.cos(ang2), dtype=dtype, device=dev)
+        self.dft_sin = torch.as_tensor(np.sin(ang2), dtype=dtype, device=dev)
+        # (2 - delta_m0) and (1 - delta_m0) weights of the real series
+        self.cm = torch.full((L,), 2.0, dtype=dtype, device=dev)
+        self.cm[0] = 1.0
+        self.pos = torch.ones((L,), dtype=dtype, device=dev)
+        self.pos[0] = 0.0
+        self.lam_p2 = self.lam_m2 = None
+        if spin2:
+            lp, lm_ = spin2_lambda_tables(lmax, grid.theta)
+            self.lam_p2 = self._table(lp)
+            self.lam_m2 = self._table(lm_)
+
+    # -- azimuthal stage (real arithmetic) ---------------------------------
+
+    def _rot(self, Fre, Fim, sign=+1):
+        """Rotate ring Fourier coefficients by e^{sign * i m phi0_r}."""
+        if not self.has_phase:
+            return Fre, Fim
+        c, s = self.phase_cos, sign * self.phase_sin
+        return Fre * c - Fim * s, Fre * s + Fim * c
+
+    def _unfold_half(self, lo, hi):
+        """f over all nphi columns from the half-range results:
+        f[j] = lo[j] (j = 0..n/2), f[n - j] = hi[j] (j = 1..n/2 - 1)."""
+        return torch.cat([lo, hi[..., 1:-1].flip(-1)], dim=-1)
+
+    def _fold_half(self, maps):
+        """(u, v) with u[j] = f[j] + f[n-j], v[j] = f[j] - f[n-j]
+        (j = 0 and n/2 self-paired): the transpose of _unfold_half."""
+        lo = maps[..., : self.nphi_half]
+        rev = maps[..., self.nphi_half - 1:].flip(-1)
+        hi = F.pad(rev[..., :-1], (1, 1))
+        return lo + hi, lo - hi
+
+    def _ring_ifft_real(self, Fre, Fim):
+        """f[.., r, j] = sum_m (2 - delta_m0) (Fre cos(m phi_j) - Fim sin)."""
+        Fre, Fim = self._rot(Fre, Fim, +1)
+        C = torch.matmul(Fre * self.cm, self.dft_cos)
+        S = torch.matmul(Fim * self.cm, self.dft_sin)
+        return self._unfold_half(C - S, C + S)
+
+    def _ring_fft_real(self, maps):
+        """G_m = sum_j f e^{-i m phi_j}; returns (Gre, Gim), (..., nr, L)."""
+        u, v = self._fold_half(maps.to(self.dtype))
+        Gre = torch.matmul(u, self.dft_cos.T)
+        Gim = -torch.matmul(v, self.dft_sin.T)
+        return self._rot(Gre, Gim, -1)
+
+    # -- spin 0 ------------------------------------------------------------
+
+    def synthesis_state(self, x: torch.Tensor) -> torch.Tensor:
+        """A: grid-packed alm state (..., nstate) -> map (..., nr, nphi)."""
+        F_ = self._lsynth_stack(self.lam0, self._state_grids(x))
+        return self._ring_ifft_real(F_[..., 0, :, :], F_[..., 1, :, :])
+
+    def _analysis_core_state(self, maps, ring_w):
+        Gre, Gim = self._ring_fft_real(maps)
+        G = torch.stack([Gre * ring_w[:, None], Gim * ring_w[:, None]], dim=-3)
+        return self._grids_to_state(self._ladj_stack(self.lam0, G))
+
+    def analysis_state(self, maps: torch.Tensor) -> torch.Tensor:
+        """Exact inverse of synthesis_state on a quadrature grid."""
+        return self._analysis_core_state(maps, self.wq)
+
+    def adjoint_synthesis_state(self, maps: torch.Tensor) -> torch.Tensor:
+        """A^T: exact transpose of ``synthesis_state`` w.r.t. the plain
+        pixel and state dot products."""
+        return self._analysis_core_state(maps, torch.ones_like(self.wq))
+
+    # -- spin 2 ------------------------------------------------------------
+
+    def _require_spin2(self):
+        if self.lam_p2 is None:
+            raise ValueError("SHT built without spin2=True")
+
+    def synthesis_spin2_state(self, e_state: torch.Tensor,
+                              b_state: torch.Tensor):
+        """(E, B) grid-packed alm states -> (Q, U) maps.
+
+        Q + iU = sum_lm a+_{lm} 2Y_lm with a+ = -(E + iB), a- = -(E - iB);
+        negative m through the reality relations, all arithmetic real."""
+        self._require_spin2()
+        return self._spin2_maps_from_F(*self._spin2_F(e_state, b_state))
+
+    def _spin2_maps_from_F(self, Fp_re, Fp_im, Fm_re, Fm_im):
+        """(F+, F-) ring Fourier coefficients (..., nr, L) -> (Q, U) maps."""
+        Fp_re, Fp_im = self._rot(Fp_re, Fp_im, +1)
+        Fm_re, Fm_im = self._rot(Fm_re, Fm_im, +1)
+        # P(phi) = sum_{m>=0} F+ e^{im phi} + sum_{m>0} conj(F-) e^{-im phi}
+        Are = Fp_re + Fm_re * self.pos
+        Aim = Fp_im + Fm_im * self.pos
+        Bre = Fp_re - Fm_re * self.pos
+        Bim = Fp_im - Fm_im * self.pos
+        qc = torch.matmul(Are, self.dft_cos)
+        qs = torch.matmul(Aim, self.dft_sin)
+        us = torch.matmul(Bre, self.dft_sin)
+        uc = torch.matmul(Bim, self.dft_cos)
+        q = self._unfold_half(qc - qs, qc + qs)
+        u = self._unfold_half(uc + us, uc - us)
+        return q, u
+
+    def _spin2_ring_coefs(self, q_maps, u_maps):
+        """(Q, U) maps -> unweighted (Cp_re, Cp_im, Cm_re, Cm_im) ring
+        coefficients C+ = sum_j (Q + iU) e^{-im phi_j},
+        C- = sum_j (Q + iU) e^{+im phi_j}."""
+        qu_, qv_ = self._fold_half(q_maps.to(self.dtype))
+        uu_, uv_ = self._fold_half(u_maps.to(self.dtype))
+        qc = torch.matmul(qu_, self.dft_cos.T)
+        qs = torch.matmul(qv_, self.dft_sin.T)
+        uc = torch.matmul(uu_, self.dft_cos.T)
+        us = torch.matmul(uv_, self.dft_sin.T)
+        Cp_re, Cp_im = self._rot(qc + us, uc - qs, -1)
+        Cm_re, Cm_im = self._rot(qc - us, uc + qs, +1)
+        return Cp_re, Cp_im, Cm_re, Cm_im
+
+    def _analysis_spin2_core(self, q_maps, u_maps, ring_w):
+        self._require_spin2()
+        w = ring_w[:, None]
+        Cp_re, Cp_im, Cm_re, Cm_im = self._spin2_ring_coefs(q_maps, u_maps)
+        # a+_{lm} = sum_r w 2lam_lm C+ ; a-_{lm} = sum_r w -2lam_lm conj(C-)
+        return self._spin2_alm(Cp_re * w, Cp_im * w, Cm_re * w, Cm_im * w)
+
+    def analysis_spin2_state(self, q_maps, u_maps):
+        """Exact inverse: (Q, U) maps -> (E, B) grid-packed alm states."""
+        return self._analysis_spin2_core(q_maps, u_maps, self.wq)
+
+    def adjoint_synthesis_spin2_state(self, q_maps, u_maps):
+        """Exact transpose of synthesis_spin2_state w.r.t. plain dots."""
+        return self._analysis_spin2_core(q_maps, u_maps,
+                                         torch.ones_like(self.wq))
+
+
+def make_sht(lmax: int, grid: SphereGrid | None = None, dtype=torch.float32,
+             spin2: bool = False, device="cpu") -> SHT:
+    """Build an SHT for ``lmax`` (Gauss-Legendre grid by default)."""
+    if grid is None:
+        grid = gauss_legendre_grid(lmax)
+    return SHT(grid, lmax, dtype=dtype, spin2=spin2, device=device)

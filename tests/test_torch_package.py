@@ -1,0 +1,56 @@
+"""The PyTorch port stands alone: it never imports jax."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import t64, tri_table
+from gibbssampler_tpu_torch.sht import legendre_kernels as lk
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "gibbssampler_tpu_torch"
+
+
+def test_import_leaves_jax_out():
+    code = ("import importlib, pkgutil, sys\n"
+            "import gibbssampler_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] == 'jax'"
+            " or k.startswith('gibbssampler_tpu.')))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_no_jax_import_in_sources():
+    pat = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    bad = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
+    assert not bad, bad
+
+
+def test_cpu_wrappers_take_plain_version_and_launch_nothing():
+    lk.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    lam = t64(tri_table(5, 3))
+    x = t64(rng.normal(size=(5, 2, 5)))
+    g = t64(rng.normal(size=(5, 3, 2)))
+    assert torch.equal(lk.legendre_synth_tri(lam, x),
+                       lk.legendre_synth_tri_plain(lam, x))
+    assert torch.equal(lk.legendre_adj_tri(lam, g),
+                       lk.legendre_adj_tri_plain(lam, g))
+    assert (lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches) \
+        == (0, 0)
+
+
+def test_wrappers_reject_mismatched_shapes():
+    lam = t64(tri_table(5, 3))
+    with pytest.raises(ValueError):
+        lk.legendre_synth_tri(lam, t64(np.zeros((5, 2, 4))))
+    with pytest.raises(ValueError):
+        lk.legendre_adj_tri(lam, t64(np.zeros((5, 4, 2))))

@@ -1,0 +1,88 @@
+"""Helpers of the PyTorch port's parity tests (tests/test_torch_*.py).
+
+The same inputs, made with numpy from a seed, go through the JAX package
+and the port; arrays cross between the two only as numpy.  Everything runs
+in float64 on the CPU with one torch thread (the suite runs several pytest
+workers side by side).  jax is imported only inside the helpers that build
+JAX models, so the card cases also run where jax is not installed
+(``python -m pytest --noconftest tests/test_torch_legendre_kernels.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gibbssampler_tpu_torch.interop import model_from_numpy
+from gibbssampler_tpu_torch.ops import with_cut_decomposition
+
+torch.set_num_threads(1)
+
+LMAX = 10
+
+
+def t64(a) -> torch.Tensor:
+    """numpy / jax array -> float64 CPU tensor."""
+    return torch.as_tensor(np.array(a), dtype=torch.float64)
+
+
+def n(a) -> np.ndarray:
+    """tensor / jax array -> numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def tri_table(L, nr, seed=0, integer=False) -> np.ndarray:
+    """(L, L, nr) float64 table [m, l, r], zero for l < m.  ``integer``
+    draws small integers, whose products and sums every float type holds
+    exactly (so a float32-output kernel compares at float64 tolerance)."""
+    rng = np.random.default_rng(seed)
+    lam = (rng.integers(-3, 4, size=(L, L, nr)).astype(np.float64) if integer
+           else rng.normal(size=(L, L, nr)))
+    return lam * (np.arange(L)[None, :, None] >= np.arange(L)[:, None, None])
+
+
+def make_masked(spin=0, sigma2=1.0, band=0.3, seed=0, fwhm=0.05, lmax=LMAX):
+    """The JAX model pair of tests/test_cut.py::make_masked: a band-masked
+    dataset on the GL grid, plain and with the cut decomposition."""
+    import jax
+    import jax.numpy as jnp
+    from gibbssampler_tpu.inference import example_dl, simulate_dataset
+    from gibbssampler_tpu.ops import with_cut_decomposition as jax_cut
+    from gibbssampler_tpu.sht import gauss_legendre_grid
+    grid = gauss_legendre_grid(lmax)
+    lat = np.abs(np.pi / 2 - grid.theta)
+    keep = (lat > band).astype(np.float64)
+    mask = np.broadcast_to(keep[:, None], (grid.nrings, grid.nphi))
+    fields = (example_dl(lmax, amp=10.0)[None] if spin == 0 else
+              np.stack([example_dl(lmax, "ee", amp=10.0),
+                        example_dl(lmax, "bb", amp=10.0)]))
+    model, _ = simulate_dataset(jax.random.PRNGKey(seed), lmax, spin=spin,
+                                dl_fields=fields, noise_sigma2=sigma2,
+                                fwhm_radians=fwhm, mask=mask,
+                                dtype=jnp.float64)
+    return model, jax_cut(model), fields
+
+
+def jax_model_arrays(model) -> dict:
+    """The fields ``interop.model_from_numpy`` takes, from a JAX SkyModel."""
+    g = model.sht.grid
+    return {"d": np.asarray(model.d), "tau": np.asarray(model.noise.tau),
+            "q_map": np.asarray(model.noise.q_map),
+            "omega": model.noise.omega, "bl": np.asarray(model.bl),
+            "spin": model.spin, "theta": g.theta, "weights": g.weights,
+            "phi0": g.phi0, "nphi": g.nphi}
+
+
+def port_model(jax_model, cut=False):
+    """The port's model of the same dataset (optionally cut-decomposed)."""
+    m = model_from_numpy(jax_model_arrays(jax_model))
+    return with_cut_decomposition(m) if cut else m
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; skips the test where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
+    return torch.device("cuda", 0)
