@@ -8,11 +8,16 @@ non-zero:
 
 1. needs torch.cuda.is_available(); prints the card's name and power limit
    (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader);
-2. builds the CUDA kernels from gibbssampler_tpu_torch/csrc (nvcc, sm_90a);
-3. compares each kernel with its plain PyTorch version on the card at the
-   JAX package's Pallas test shapes, a ragged shape and the main-path
-   shapes, in float32 and float64, checks adjointness, and times kernel
-   and plain version at the main-path shapes;
+2. builds the CUDA kernels from gibbssampler_tpu_torch/csrc (one nvcc per
+   source, started together, sm_90a) and prints ptxas's registers, spills
+   and shared memory for every kernel;
+3. compares each kernel with its plain PyTorch version (true float32) on
+   the card at the JAX package's Pallas test shapes, a ragged shape, the
+   main-path shapes and a batch of 200, in float32 (<= 1e-5 max|ref|) and
+   float64 (<= 1e-12), with contiguous operands and with the strided views
+   the main path passes, the outputs given NaN-filled memory; checks
+   adjointness; and times kernel and plain version at L 513, C 256 and 65
+   or 513 rings, with TFLOP/s and GB/s against the data sheet's peaks;
 4. checks the lmax-512 transforms in float32 (round trip and the cut
    transform's adjointness) and one scheme step at a small size, card
    against CPU on the same injected variates;
@@ -78,68 +83,137 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def x_view(x):
+    """x as ``_lsynth_stack`` passes it: the (m, C, l) view of (C, m, l)
+    grids."""
+    return x.transpose(0, 1).contiguous().transpose(0, 1)
+
+
+def g_view(g):
+    """g as ``_ladj_stack`` passes it: the (m, r, C) view of an (m, C, r)
+    copy."""
+    return g.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def work(name, L, nr, C, itemsize=4):
+    """(FLOPs of the triangle, bytes that must move) of one call: the batch
+    and table halves read once, the output written once (the adjoint's
+    zeros of l < m included)."""
+    tri = L * (L + 1) // 2
+    if name == "legendre_synth_tri":
+        nbytes = C * tri + nr * tri + L * nr * C
+    else:
+        nbytes = nr * tri + L * nr * C + C * L * L
+    return 2 * nr * C * tri, nbytes * itemsize
+
+
+def phase_build(lk):
+    """Build every kernel source (nvcc in parallel); print ptxas's report
+    of each kernel and the float32 kernels' dynamic shared memory."""
+    t0 = time.time()
+    built = lk.build()
+    print(f"built {', '.join(os.path.relpath(so) for so, _ in built.values())}"
+          f" in {time.time() - t0:.1f} s", flush=True)
+    keys = ("Compiling entry function", "spill", "Used")
+    for _, report in built.values():
+        for ln in report.splitlines():
+            if any(k in ln for k in keys):
+                print(f"  ptxas: {ln.strip()}", flush=True)
+    print(f"  float32 kernels' dynamic shared memory (bytes): "
+          f"{lk.f32_dynamic_smem()}", flush=True)
+
+
 def phase_kernels(torch, lk, dev, card):
-    """Kernel vs plain on the card; returns the main-path records."""
+    """Kernel vs plain on the card, contiguous and in the main path's
+    layouts; returns the main-path records."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the plain versions must run in true float32 (allow_tf32 is on)")
     gen = torch.Generator(device=dev).manual_seed(0)
     shapes = [(16, 12, 8), (37, 19, 10), (LMAX + 1, 65, 2 * NCHAINS),
-              (LMAX + 1, LMAX + 1, 2 * NCHAINS)]
+              (LMAX + 1, 65, 200), (LMAX + 1, LMAX + 1, 2 * NCHAINS)]
     tols = {torch.float32: 1e-5, torch.float64: 1e-12}
     rec = {}
     for L, nr, C in shapes:
         for dtype, tol in tols.items():
             lam = tri_table(torch, L, nr, dtype, dev, gen)
-            x = torch.randn((L, C, L), generator=gen, dtype=dtype, device=dev)
-            g = torch.randn((L, nr, C), generator=gen, dtype=dtype, device=dev)
-            errs = {}
-            for name, kern, plain, b in (
-                    ("legendre_synth_tri", lk.legendre_synth_tri,
-                     lk.legendre_synth_tri_plain, x),
-                    ("legendre_adj_tri", lk.legendre_adj_tri,
-                     lk.legendre_adj_tri_plain, g)):
-                out, ref = kern(lam, b), plain(lam, b)
-                torch.cuda.synchronize()
-                err = float((out - ref).abs().max())
-                scale = float(ref.abs().max())
-                check(err <= tol * scale,
-                      f"{name} L={L} nr={nr} C={C} {dtype}: max|err| {err} "
-                      f"> {tol} * {scale}")
-                errs[name] = err
-            # <K1 x, y> = <x, K2 y>, y = K1 x + noise so the dot is large
-            y = (lk.legendre_synth_tri_plain(lam, x)
-                 + torch.randn((L, nr, C), generator=gen, dtype=dtype,
-                               device=dev))
-            lhs = float((lk.legendre_synth_tri(lam, x).double()
-                         * y.double()).sum())
-            rhs = float((x.double()
-                         * lk.legendre_adj_tri(lam, y).double()).sum())
-            rel = abs(lhs - rhs) / abs(lhs)
-            check(rel <= (1e-5 if dtype == torch.float32 else 1e-12),
-                  f"adjointness L={L} nr={nr} C={C} {dtype}: {rel}")
-            print(f"kernels L={L} nr={nr} C={C} {str(dtype)[6:]}: max|err| "
-                  f"synth {errs['legendre_synth_tri']:.3e} adj "
-                  f"{errs['legendre_adj_tri']:.3e} (<= {tol} max|ref|), "
-                  f"adjointness {rel:.2e}", flush=True)
-            if L == LMAX + 1 and dtype == torch.float32:
-                reps = 20 if nr == 65 else 5
-                for name, kern, plain, b in (
+            x0 = torch.randn((L, C, L), generator=gen, dtype=dtype, device=dev)
+            g0 = torch.randn((L, nr, C), generator=gen, dtype=dtype, device=dev)
+            # y = K1 x + noise, so that <K1 x, y> is large
+            y0 = (lk.legendre_synth_tri_plain(lam, x0)
+                  + torch.randn((L, nr, C), generator=gen, dtype=dtype,
+                                device=dev))
+            for lay, (x, g, y) in {
+                    "contiguous": (x0, g0, y0),
+                    "state views": (x_view(x0), g_view(g0), g_view(y0))
+            }.items():
+                errs, rels = {}, {}
+                for name, kern, plain, b, shape in (
                         ("legendre_synth_tri", lk.legendre_synth_tri,
-                         lk.legendre_synth_tri_plain, x),
+                         lk.legendre_synth_tri_plain, x, (L, nr, C)),
                         ("legendre_adj_tri", lk.legendre_adj_tri,
-                         lk.legendre_adj_tri_plain, g)):
-                    # plain, kernel, kernel, plain
-                    p1 = time_ms(torch, lambda: plain(lam, b), reps)
-                    k1 = time_ms(torch, lambda: kern(lam, b), reps)
-                    k2 = time_ms(torch, lambda: kern(lam, b), reps)
-                    p2 = time_ms(torch, lambda: plain(lam, b), reps)
-                    ms, pms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
-                    print(f"time {name} L={L} nr={nr} C={C} float32: "
-                          f"kernel {ms:.4f} ms, plain einsum {pms:.4f} ms "
-                          f"[{card}]", flush=True)
-                    if nr == 65:
-                        rec[name] = {"max_abs_err": errs[name], "ms": ms,
-                                     "plain_ms": pms}
-            del lam, x, g, y
+                         lk.legendre_adj_tri_plain, g, (C, L, L))):
+                    # NaN in the memory the output will be given: the kernel
+                    # must write every element, the adjoint's l < m zeros too
+                    torch.full(shape, float("nan"), dtype=dtype, device=dev)
+                    out = kern(lam, b)
+                    ref = plain(lam, b)
+                    torch.cuda.synchronize()
+                    err = float((out - ref).abs().max())
+                    scale = float(ref.abs().max())
+                    check(err <= tol * scale,
+                          f"{name} L={L} nr={nr} C={C} {dtype} {lay}: "
+                          f"max|err| {err} > {tol} * {scale}")
+                    errs[name] = err
+                    rels[name] = err / scale
+                lhs = float((lk.legendre_synth_tri(lam, x).double()
+                             * y.double()).sum())
+                rhs = float((x.double()
+                             * lk.legendre_adj_tri(lam, y).double()).sum())
+                rel = abs(lhs - rhs) / abs(lhs)
+                check(rel <= (1e-5 if dtype == torch.float32 else 1e-12),
+                      f"adjointness L={L} nr={nr} C={C} {dtype} {lay}: {rel}")
+                print(f"kernels L={L} nr={nr} C={C} {str(dtype)[6:]} {lay}: "
+                      f"max|err|/max|ref| synth "
+                      f"{rels['legendre_synth_tri']:.2e} adj "
+                      f"{rels['legendre_adj_tri']:.2e} (<= {tol}), "
+                      f"adjointness {rel:.2e}", flush=True)
+                if (L == LMAX + 1 and C == 2 * NCHAINS
+                        and dtype == torch.float32):
+                    rec.update(time_kernels(torch, lk, lam, x, g, lay, card,
+                                            errs))
+            del lam, x0, g0, y0, x, g, y
     torch.cuda.empty_cache()
+    return rec
+
+
+def time_kernels(torch, lk, lam, x, g, lay, card, errs):
+    """Kernel and plain times (plain, kernel, kernel, plain) with rates;
+    returns the records of the main-path shape and layout."""
+    L, nr, C = lam.shape[0], lam.shape[2], x.shape[1]
+    reps = 20 if nr == 65 else 5
+    rec = {}
+    for name, kern, plain, b in (
+            ("legendre_synth_tri", lk.legendre_synth_tri,
+             lk.legendre_synth_tri_plain, x),
+            ("legendre_adj_tri", lk.legendre_adj_tri,
+             lk.legendre_adj_tri_plain, g)):
+        p1 = time_ms(torch, lambda: plain(lam, b), reps)
+        k1 = time_ms(torch, lambda: kern(lam, b), reps)
+        k2 = time_ms(torch, lambda: kern(lam, b), reps)
+        p2 = time_ms(torch, lambda: plain(lam, b), reps)
+        ms, pms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+        flops, nbytes = work(name, L, nr, C)
+        tflops, gbs = flops / ms * 1e-9, nbytes / ms * 1e-6
+        print(f"time {name} L={L} nr={nr} C={C} float32 {lay}: kernel "
+              f"{ms:.4f} ms, plain einsum {pms:.4f} ms; kernel "
+              f"{tflops:.2f} TFLOP/s on the triangle ({tflops / 67:.1%} of "
+              f"67 fp32 FMA; 3xTF32 {3 * tflops / 495:.1%} of 495 TF32), "
+              f"{gbs:.0f} GB/s ({gbs / 3350:.1%} of 3350) [{card}]",
+              flush=True)
+        if nr == 65 and lay == "state views":
+            rec[name] = {"design": "3xtf32-mma.sync",
+                         "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
+                         "tflops": tflops}
     return rec
 
 
@@ -333,13 +407,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gibbssampler_tpu_torch.sht import legendre_kernels as lk
 
-    t0 = time.time()
-    so, report = lk.build()
-    regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
-    print(f"built {os.path.relpath(so)} in {time.time() - t0:.1f} s", flush=True)
-    for ln in regs:
-        print(f"  ptxas: {ln}", flush=True)
-
+    phase_build(lk)
     rec = phase_kernels(torch, lk, dev, card)
     sht = phase_sht(torch, dev)
     phase_small_step(torch, dev)

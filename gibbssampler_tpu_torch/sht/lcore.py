@@ -61,20 +61,22 @@ class LegendreCore:
         L = self.lmax + 1
         batch = g2.shape[:-2]
         C = math.prod(batch)
-        x = g2.reshape(C, L, L).permute(1, 0, 2).contiguous()    # (m, C, l)
-        out = legendre_synth_tri(lam, x)                          # (m, nr, C)
+        x = g2.reshape(C, L, L).transpose(0, 1)     # (m, C, l) view, no copy
+        out = legendre_synth_tri(lam, x)            # (m, nr, C)
         nr = out.shape[1]
         return out.permute(2, 1, 0).reshape(batch + (nr, L))
 
     def _ladj_stack(self, lam: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-        """(..., c, nr, L) [.., r, m] ring grids -> (..., c, L, L) alm grids."""
+        """(..., c, nr, L) [.., r, m] ring grids -> (..., c, L, L) alm grids,
+        contiguous."""
         L = self.lmax + 1
         batch = g.shape[:-2]
         nr = g.shape[-2]
         C = math.prod(batch)
-        gk = g.reshape(C, nr, L).permute(2, 1, 0).contiguous()   # (m, nr, C)
-        out = legendre_adj_tri(lam, gk)                           # (m, C, l)
-        return out.permute(1, 0, 2).reshape(batch + (L, L))
+        # one copy into (m, C, r) order, passed as the (m, r, C) view
+        gk = g.reshape(C, nr, L).permute(2, 0, 1).contiguous().transpose(1, 2)
+        out = legendre_adj_tri(lam, gk)   # (m, C, l) view of a (C, m, l) tensor
+        return out.transpose(0, 1).reshape(batch + (L, L))
 
     def _ladj2(self, lam, Gre, Gim):
         """(Gre, Gim) (..., nr, L) -> (are, aim) (..., L, L) grids."""

@@ -2,17 +2,27 @@
 plain PyTorch versions.
 
 Counterparts of ``gibbssampler_tpu/sht/pallas_legendre.py`` with the same
-names, layouts and math:
+names and math:
 
     legendre_synth_tri(lam, x):  out[m, r, c] = sum_{l >= m} lam[m, l, r] x[m, c, l]
     legendre_adj_tri(lam, g):    out[m, c, l] = sum_r lam[m, l, r] g[m, r, c]
                                  (zero for l < m)
 
-    lam (L, L, nr) [m, l, r], zero for l < m;  x (L, C, L);  g (L, nr, C).
+    lam (L, L, nr) [m, l, r], contiguous, zero for l < m;
+    x (L, C, L) with unit stride on l (any m and c strides);
+    g (L, nr, C) with unit stride on r or on c.
 
-The kernels (``csrc/legendre_tri.cu``; design and bounds are noted there)
-are compiled with nvcc for sm_90a at first use, into ``_build/`` beside the
-package, keyed by a hash of the source, and loaded with ctypes.  A wrapper
+Synthesis returns a contiguous (L, nr, C) tensor; the adjoint returns its
+(L, C, L) result as a view of a contiguous (C, L, L) [c, m, l] buffer, the
+order of the state's grids.  So ``sht.lcore`` passes the state's grids as a
+permuted view, and gets them back the same way, without copying the batch.
+Any other layout raises ``ValueError``, on the CPU as on the card.
+
+The kernels (``csrc/``; design and bounds are noted in each source) are
+compiled with nvcc for sm_90a at first use, into ``_build/`` beside the
+package, keyed by a hash of every source and the flags, and loaded with
+ctypes: ``legendre_tri.cu`` holds the float32 kernels (3xTF32 on the tensor
+cores), ``legendre_tri_f64.cu`` the float64 ones (FMA pipes).  A wrapper
 takes the plain ``torch.einsum`` version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises.  Each wrapper counts its
 kernel launches in ``<wrapper>.launches``.
@@ -31,14 +41,25 @@ import torch
 
 __all__ = ["legendre_synth_tri", "legendre_adj_tri",
            "legendre_synth_tri_plain", "legendre_adj_tri_plain",
-           "build", "reset_launch_counts"]
+           "build", "f32_dynamic_smem", "reset_launch_counts"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "legendre_tri.cu"
+_CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
-_ENTRY = ("legendre_synth_tri_f32", "legendre_synth_tri_f64",
-          "legendre_adj_tri_f32", "legendre_adj_tri_f64")
-_lib = None
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SYNTH_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 2 + [_P]
+_ADJ_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 5 + [_P]
+# source (csrc/<stem>.cu) -> its entry points and their argument types
+_LIBS = {
+    "legendre_tri": {"legendre_synth_tri_f32": _SYNTH_ARGS,
+                     "legendre_adj_tri_f32": _ADJ_ARGS,
+                     "legendre_tri_f32_smem": [_I]},
+    "legendre_tri_f64": {"legendre_synth_tri_f64": _SYNTH_ARGS,
+                         "legendre_adj_tri_f64": _ADJ_ARGS},
+}
+_fns: dict = {}
 
 
 def _nvcc() -> str:
@@ -52,35 +73,62 @@ def _nvcc() -> str:
     return str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build() -> tuple[pathlib.Path, str]:
-    """Compile ``csrc/legendre_tri.cu`` (once per source hash) and load it.
-    Returns (path of the shared library, the compiler's report; empty when
-    an existing build was reused)."""
-    global _lib
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    so = _BUILD_DIR / f"legendre_tri_{tag}.so"
-    report = ""
-    if not so.exists():
+def _build_tag() -> str:
+    """Hash of the nvcc flags and every source under ``csrc/``."""
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for p in sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")]):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> dict:
+    """Compile the kernel sources that have no build for the current
+    sources and flags (one nvcc each, all started together) and load them.
+    Returns {source stem: (path of the shared library, the compiler's
+    report, with ptxas's registers and shared memory per kernel; empty when
+    an existing build was reused)}."""
+    tag = _build_tag()
+    sos = {stem: _BUILD_DIR / f"{stem}_{tag}.so" for stem in _LIBS}
+    reports = dict.fromkeys(sos, "")
+    procs = {}
+    for stem, so in sos.items():
+        if so.exists():
+            continue
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
+               str(_CSRC / f"{stem}.cu")]
+        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       tmp)
+    failed = []
+    for stem, (proc, tmp) in procs.items():
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-        report = proc.stdout + proc.stderr
-    if _lib is None:
-        lib = ctypes.CDLL(str(so))
-        for name in _ENTRY:
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return so, report
+            failed.append(f"{stem}.cu ({proc.returncode}):\n{out}{err}")
+        else:
+            os.replace(tmp, sos[stem])
+            reports[stem] = out + err
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    if not _fns:
+        for stem, entries in _LIBS.items():
+            lib = ctypes.CDLL(str(sos[stem]))
+            for name, argtypes in entries.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _fns[name] = fn
+    return {stem: (sos[stem], reports[stem]) for stem in sos}
+
+
+def f32_dynamic_smem() -> dict:
+    """Dynamic shared memory (bytes) of each float32 kernel; builds first."""
+    if not _fns:
+        build()
+    fn = _fns["legendre_tri_f32_smem"]
+    return {"synth": fn(0), "adj unit-r g": fn(1), "adj unit-c g": fn(2)}
 
 
 def reset_launch_counts() -> None:
@@ -104,62 +152,91 @@ def legendre_adj_tri_plain(lam: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 # wrappers
 # ---------------------------------------------------------------------------
 
+def _unit(t: torch.Tensor, dim: int) -> bool:
+    return t.stride(dim) == 1 or t.shape[dim] == 1
+
+
+def _check_layout(kind: str, lam: torch.Tensor, b: torch.Tensor) -> None:
+    """Shapes and the layouts the kernels take; raises ValueError."""
+    L, L2, nr = lam.shape
+    C = b.shape[1] if kind == "synth" else b.shape[-1]
+    want = (L, C, L) if kind == "synth" else (L, nr, C)
+    if L != L2 or tuple(b.shape) != want:
+        raise ValueError(f"legendre_{kind}_tri: lam {tuple(lam.shape)} and "
+                         f"{tuple(b.shape)} do not match (L, L, nr), "
+                         f"{'(L, C, L)' if kind == 'synth' else '(L, nr, C)'}")
+    if not lam.is_contiguous():
+        raise ValueError(f"legendre_{kind}_tri: lam must be contiguous")
+    if kind == "synth" and not _unit(b, 2):
+        raise ValueError(f"legendre_synth_tri: x strides {b.stride()}; the "
+                         "l axis must have unit stride")
+    if kind == "adj" and not (_unit(b, 1) or _unit(b, 2)):
+        raise ValueError(f"legendre_adj_tri: g strides {b.stride()}; the r "
+                         "or the c axis must have unit stride")
+
+
 def _launch(kind: str, lam: torch.Tensor, b: torch.Tensor,
-            out_shape: tuple) -> torch.Tensor:
+            out: torch.Tensor) -> None:
+    if not _fns:
+        build()
+    fn = _fns[f"legendre_{kind}_tri_"
+              f"{'f32' if lam.dtype == torch.float32 else 'f64'}"]
+    L, _, nr = lam.shape
+    # strides of size-1 axes are free in torch; the kernels index them at 0
+    sb = [1 if size == 1 else s for size, s in zip(b.shape, b.stride())]
+    if kind == "synth":
+        C, args = b.shape[1], sb[:2]
+    else:
+        C, args = b.shape[2], sb + [out.stride(0), out.stride(1)]
+    with torch.cuda.device(lam.device):
+        stream = torch.cuda.current_stream(lam.device).cuda_stream
+        err = fn(lam.data_ptr(), b.data_ptr(), out.data_ptr(), L, nr, C,
+                 *args, stream)
+    if err != 0:
+        raise RuntimeError(f"legendre_{kind}_tri: kernel launch failed with "
+                           f"CUDA error {err}")
+
+
+def _check_card(kind: str, lam: torch.Tensor, b: torch.Tensor) -> None:
     if lam.device != b.device or lam.device.type != "cuda":
         raise ValueError(f"legendre_{kind}_tri: tensors on {lam.device} and "
                          f"{b.device}; both must be on one CUDA device")
     if lam.dtype != b.dtype or lam.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"legendre_{kind}_tri: dtypes {lam.dtype}, {b.dtype}; "
                         "the kernel takes float32 or float64, the same for both")
-    if not (lam.is_contiguous() and b.is_contiguous()):
-        raise ValueError(f"legendre_{kind}_tri: inputs must be contiguous")
-    L, _, nr = lam.shape
-    C = out_shape[1] if kind == "adj" else out_shape[2]
-    out = torch.empty(out_shape, dtype=lam.dtype, device=lam.device)
-    if out.numel() == 0:
-        return out
-    if _lib is None:
-        build()
-    suffix = "f32" if lam.dtype == torch.float32 else "f64"
-    fn = getattr(_lib, f"legendre_{kind}_tri_{suffix}")
-    with torch.cuda.device(lam.device):
-        stream = torch.cuda.current_stream(lam.device).cuda_stream
-        err = fn(lam.data_ptr(), b.data_ptr(), out.data_ptr(), L, nr, C,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"legendre_{kind}_tri: kernel launch failed with "
-                           f"CUDA error {err}")
-    return out
 
 
 def legendre_synth_tri(lam: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """out[m, r, c] = sum_{l >= m} lam[m, l, r] x[m, c, l].
-    lam: (L, L, nr); x: (L, C, L) -> (L, nr, C)."""
-    L, L2, nr = lam.shape
-    C = x.shape[1]
-    if L != L2 or tuple(x.shape) != (L, C, L):
-        raise ValueError(f"legendre_synth_tri: lam {tuple(lam.shape)} and x "
-                         f"{tuple(x.shape)} do not match (L, L, nr), (L, C, L)")
+    lam: (L, L, nr); x: (L, C, L), unit stride on l -> (L, nr, C)."""
+    _check_layout("synth", lam, x)
     if lam.device.type == "cpu" and x.device.type == "cpu":
         return legendre_synth_tri_plain(lam, x)
-    out = _launch("synth", lam, x, (L, nr, C))
-    legendre_synth_tri.launches += 1
+    _check_card("synth", lam, x)
+    L, _, nr = lam.shape
+    out = torch.empty((L, nr, x.shape[1]), dtype=lam.dtype, device=lam.device)
+    if out.numel():
+        _launch("synth", lam, x, out)
+        legendre_synth_tri.launches += 1
     return out
 
 
 def legendre_adj_tri(lam: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """out[m, c, l] = sum_r lam[m, l, r] g[m, r, c], zero for l < m.
-    lam: (L, L, nr); g: (L, nr, C) -> (L, C, L)."""
-    L, L2, nr = lam.shape
-    C = g.shape[-1]
-    if L != L2 or tuple(g.shape) != (L, nr, C):
-        raise ValueError(f"legendre_adj_tri: lam {tuple(lam.shape)} and g "
-                         f"{tuple(g.shape)} do not match (L, L, nr), (L, nr, C)")
+    lam: (L, L, nr); g: (L, nr, C), unit stride on r or c -> (L, C, L),
+    a view of a contiguous (C, L, L) tensor."""
+    _check_layout("adj", lam, g)
     if lam.device.type == "cpu" and g.device.type == "cpu":
-        return legendre_adj_tri_plain(lam, g)
-    out = _launch("adj", lam, g, (L, C, L))
-    legendre_adj_tri.launches += 1
+        # the kernel's layout: (C, L, L) memory
+        return legendre_adj_tri_plain(lam, g).transpose(0, 1).contiguous() \
+            .transpose(0, 1)
+    _check_card("adj", lam, g)
+    L, C = lam.shape[0], g.shape[2]
+    out = torch.empty((C, L, L), dtype=lam.dtype,
+                      device=lam.device).transpose(0, 1)
+    if out.numel():
+        _launch("adj", lam, g, out)
+        legendre_adj_tri.launches += 1
     return out
 
 

@@ -95,3 +95,74 @@ def test_round_trip_and_adjointness(pair):
     lhs = float((aq * t64(q)).sum() + (au * t64(u)).sum())
     rhs = float((t64(e) * ae).sum() + (t64(b) * ab).sum())
     assert abs(lhs - rhs) <= 1e-12 * abs(lhs)
+
+
+def _cut_pair(lmax, band):
+    """The JAX package's SHT and the port's on the same cut subgrid of the
+    GL grid (the rings with |lat| <= band, as the cut decomposition takes)."""
+    from gibbssampler_tpu.sht import SHT as JaxSHT
+    from gibbssampler_tpu.sht import gauss_legendre_grid as jax_gl
+    from gibbssampler_tpu.sht.grids import subgrid_rows as jax_subgrid
+    from gibbssampler_tpu_torch.sht import SHT, gauss_legendre_grid, subgrid_rows
+    jg, tg = jax_gl(lmax), gauss_legendre_grid(lmax)
+    if band is not None:
+        rows = np.where(np.abs(np.pi / 2 - tg.theta) <= band)[0]
+        jg, tg = jax_subgrid(jg, rows), subgrid_rows(tg, rows)
+    return (JaxSHT(jg, lmax, dtype=jnp.float64, spin2=True),
+            SHT(tg, lmax, dtype=t64(0.0).dtype, spin2=True))
+
+
+@pytest.mark.parametrize("band", [None, 0.3], ids=["full", "cut"])
+def test_transforms_match_jax_on_full_and_cut_grids(band):
+    """Through the Legendre stage's strided views: spin-0 and spin-2
+    synthesis and adjoint synthesis equal the JAX package's (lmax 32)."""
+    lmax = 32
+    js, ts = _cut_pair(lmax, band)
+    rng = np.random.default_rng(12)
+    k = 3
+    x = rng.normal(size=(k, nstate(lmax))) * ell_mask_state(lmax, 0)
+    e, b = (rng.normal(size=(k, nstate(lmax))) * ell_mask_state(lmax, 2)
+            for _ in range(2))
+    f, q, u = (rng.normal(size=(k, ts.nrings, ts.nphi)) for _ in range(3))
+    pairs = [(ts.synthesis_state(t64(x)),
+              js.synthesis_state(jnp.asarray(x))),
+             (ts.adjoint_synthesis_state(t64(f)),
+              js.adjoint_synthesis_state(jnp.asarray(f)))]
+    pairs += zip(ts.synthesis_spin2_state(t64(e), t64(b)),
+                 js.synthesis_spin2_state(jnp.asarray(e), jnp.asarray(b)))
+    pairs += zip(ts.adjoint_synthesis_spin2_state(t64(q), t64(u)),
+                 js.adjoint_synthesis_spin2_state(jnp.asarray(q),
+                                                  jnp.asarray(u)))
+    for mine, ref in pairs:
+        np.testing.assert_allclose(n(mine), n(ref), rtol=0, atol=ATOL)
+
+
+def test_legendre_stage_passes_state_views(pair, monkeypatch):
+    """``_lsynth_stack`` hands the kernels the state's grids as a strided
+    (m, C, l) view, without a copy; ``_ladj_stack`` hands them g with unit
+    stride on r and returns contiguous state-order grids."""
+    from gibbssampler_tpu_torch.sht import lcore
+    from gibbssampler_tpu_torch.sht import legendre_kernels as lk
+    _, ts = pair
+    seen = {}
+
+    def recording(name, fn):
+        def wrapped(lam, b):
+            seen[name] = b
+            return fn(lam, b)
+        return wrapped
+
+    monkeypatch.setattr(lcore, "legendre_synth_tri",
+                        recording("x", lk.legendre_synth_tri))
+    monkeypatch.setattr(lcore, "legendre_adj_tri",
+                        recording("g", lk.legendre_adj_tri))
+    L = LMAX + 1
+    grids = t64(np.random.default_rng(13).normal(size=(3, 2, L, L)))
+    ts._lsynth_stack(ts.lam0, grids)
+    x = seen["x"]
+    assert x.shape == (L, 6, L) and x.stride() == (L, L * L, 1)
+    assert x.data_ptr() == grids.data_ptr()
+    G = t64(np.random.default_rng(14).normal(size=(3, 2, ts.nrings, L)))
+    a = ts._ladj_stack(ts.lam0, G)
+    assert seen["g"].shape == (L, ts.nrings, 6) and seen["g"].stride(1) == 1
+    assert a.shape == (3, 2, L, L) and a.is_contiguous()
