@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py          (from the repository root; one card)
+    python3 chip_smoke.py             (from the repository root; one card)
+    python3 chip_smoke.py --profile   (adds a torch.profiler table of the
+                                       ASIS slice)
 
 Phases, each reported on its own lines; any failure raises and exits
 non-zero:
@@ -19,14 +21,25 @@ non-zero:
    adjointness; and times kernel and plain version at L 513, C 256 and 65
    or 513 rings, with TFLOP/s and GB/s against the data sheet's peaks;
 4. checks the lmax-512 transforms in float32 (round trip and the cut
-   transform's adjointness) and one scheme step at a small size, card
-   against CPU on the same injected variates;
-5. runs the slice: the centered aux-Gibbs + MALA sampler on a band-masked
-   polarized sky at lmax 512 (GL grid 513 x 1026, cut decomposition over
-   65 rings), 128 chains, the initial CR draw, 10 warm-up and 50 timed
-   iterations; checks the D_ell, the acceptance and the kernel launch
-   counts, and reports ms/iter and median pooled ESS/s;
-6. prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
+   transform's adjointness), and one CenteredGibbs and one ASISGibbs step
+   at lmax 16 in float64, card against CPU on the same injected variates
+   (<= 1e-9, MH accepts equal);
+5. on a band-masked polarized sky at lmax 512 (GL grid 513 x 1026, cut
+   decomposition over 65 rings, float32, 128 chains) runs two paths, each
+   with the kernel launch counts set to 0 before it and read after it:
+   the centered aux-Gibbs + MALA slice, and the flagship ASIS slice
+   (aux_mala CR, inverse-gamma draw, whiten, the table-engine blocked MH
+   with bench.py's bins, blocks and tuned sigmas, recenter); each the
+   initial CR draw, 10 warm-up and 50 timed iterations; checks the D_ell,
+   the acceptances and the exact launch counts per iteration, and reports
+   ms/iter, the MH step's ms/iter (CUDA events), median pooled and BB-tail
+   ESS/s, per-chain ESS per iteration and peak memory;
+6. one MH sweep at full width in float64 (4 chains, the slice's final
+   whitened maps): the table engine against the direct nc_cls_sample on
+   the same uniforms (D_ell <= 1e-9, accepts equal), and the float32
+   log-likelihood's rounding against float64 over all chains;
+7. prints the kernels' JSON line (launches summed over both paths), then
+   {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX; the port is imported from this file's
 directory.
@@ -45,6 +58,18 @@ NCHAINS = 128
 N_WARM = 10
 N_TIMED = 50
 PER_ITER = 6          # spin-2 cut transforms of each kind per aux_mala step
+# per ASIS iteration: synthesis 6 (CR) + 6 (MH: u0 and the two big blocks,
+# two tables each), adjoint 6 (CR)
+ASIS_PER_ITER = (12, 6)
+# bench.py's flagship binning: BB unit bins up to l = 396, then wide bins;
+# a 277-bin big block, then single-bin blocks (12 chunks of them)
+ASIS_UNIT_TO = 396
+ASIS_WIDE = [396, 398, 400, 402, 406, 410, 415, 420, 425, 430, 435, 440, 445,
+             460, 475, 495, LMAX + 1]
+ASIS_BIG = 277
+ASIS_CHUNKS = 12
+CUT_RINGS = 65
+BB_TAIL_FROM = 300    # bench.py's BB-tail ESS: bins from l = 300
 
 
 def check(cond, msg):
@@ -260,15 +285,10 @@ def phase_sht(torch, dev):
     return sht
 
 
-def phase_small_step(torch, dev):
-    """One CenteredGibbs step at lmax 16 in float64, card against CPU, on
-    the same dataset and injected variates: the kernels inside the path."""
+def small_dataset(torch, lmax):
+    """The lmax-16 band-masked polarized dataset of the small-step phase,
+    as the numpy fields ``interop.model_from_numpy`` takes."""
     from gibbssampler_tpu_torch.inference import example_dl, simulate_dataset
-    from gibbssampler_tpu_torch.interop import model_from_numpy
-    from gibbssampler_tpu_torch.ops import with_cut_decomposition
-    from gibbssampler_tpu_torch.schemes import CenteredGibbs
-    from gibbssampler_tpu_torch.schemes.gibbs import GibbsState
-    lmax, nch = 16, 4
     gen = torch.Generator().manual_seed(2)
     dls = np.stack([example_dl(lmax, "ee"), example_dl(lmax, "bb")])
     nr = lmax + 1
@@ -284,46 +304,85 @@ def phase_small_step(torch, dev):
               "omega": cpu_model.noise.omega, "bl": cpu_model.bl.numpy(),
               "spin": 2, "theta": g.theta, "weights": g.weights,
               "phi0": g.phi0, "nphi": g.nphi}
-    bins = np.array([2, 4, 7, 11, 17])
-    nb = len(bins) - 1
-    dl0 = [np.tile([d[lo:hi].mean() for lo, hi in zip(bins[:-1], bins[1:])],
-                   (nch, 1)) for d in dls]
-    rng = np.random.default_rng(3)
-    outs = []
-    for device in ("cpu", dev):
-        model = with_cut_decomposition(model_from_numpy(arrays, device))
-        scheme = CenteredGibbs(model, [bins, bins], cr_method="aux_mala",
-                               cr_options={"n_gibbs": 1, "tau": 0.02})
-        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
-        if not outs:
-            var = scheme.var_cls(tuple(t(d) for d in dl0)).cpu().numpy()
-            s0 = np.sqrt(var) * rng.normal(size=var.shape)
-            pool = {"state": rng.normal(size=(nch, 2, 2, model.nstate)),
-                    "aux": rng.normal(size=(nch, 1) + tuple(model.w_cut.shape))}
-            u = rng.uniform(size=nch)
-            gam = [rng.gamma(3.0, size=(nch, nb)) for _ in range(2)]
-        state = GibbsState(s=t(s0), dl=tuple(t(d) for d in dl0))
-        new, info = scheme.step(state, noise={k: t(v) for k, v in pool.items()},
-                                u=t(u), gammas=tuple(t(x) for x in gam))
-        outs.append([new.s.cpu().numpy(), new.dl[0].cpu().numpy(),
-                     new.dl[1].cpu().numpy(),
-                     info["cr_accept"].cpu().numpy()])
-    worst = 0.0
-    for a, b in zip(*outs):
-        err = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-300))
-        worst = max(worst, err)
-    check(worst <= 1e-9, f"small-step card vs CPU rel err {worst} > 1e-9")
-    print(f"small step lmax={lmax} {nch} chains float64: card vs CPU max rel "
-          f"err {worst:.2e}", flush=True)
+    return arrays, dls
 
 
-def phase_slice(torch, lk, sht, dev, card):
-    """The main path at full width; returns (launch counts, metrics)."""
-    from gibbssampler_tpu_torch.diagnostics import summarize_chains
+def phase_small_steps(torch, dev):
+    """One CenteredGibbs and one ASISGibbs step at lmax 16 in float64, card
+    against CPU, on the same dataset and injected variates: the kernels
+    inside both paths, and the MH table engine on the card."""
+    from gibbssampler_tpu_torch.interop import model_from_numpy
+    from gibbssampler_tpu_torch.ops import with_cut_decomposition
+    from gibbssampler_tpu_torch.schemes import ASISGibbs, CenteredGibbs
+    from gibbssampler_tpu_torch.schemes.gibbs import GibbsState
+    lmax, nch = 16, 4
+    arrays, dls = small_dataset(torch, lmax)
+    cbins = np.array([2, 4, 7, 11, 17])
+    abins = [np.arange(2, lmax + 2), np.array([2, 3, 4, 5, 6, 7, 8, 9, 10,
+                                               12, 15, 17])]
+    ablocks = [[(0, lmax - 1)], [(0, 4)] + [(i, i + 1) for i in range(4, 11)]]
+    opts = {"n_gibbs": 1, "tau": 0.02}
+    for name in ("centered", "asis"):
+        bins = [cbins, cbins] if name == "centered" else abins
+        dl0 = [np.tile([d[lo:hi].mean() for lo, hi in zip(b[:-1], b[1:])],
+                       (nch, 1)) for d, b in zip(dls, bins)]
+        rng = np.random.default_rng(3)
+        outs = []
+        for device in ("cpu", dev):
+            model = with_cut_decomposition(model_from_numpy(arrays, device))
+            if name == "centered":
+                scheme = CenteredGibbs(model, bins, cr_method="aux_mala",
+                                       cr_options=opts)
+            else:
+                scheme = ASISGibbs(model, bins, ablocks,
+                                   [0.3 * d[0] for d in dl0],
+                                   cr_method="aux_mala", cr_options=opts)
+                check(scheme._use_cut_mh, "small ASIS step off the table "
+                      "engine")
+            t = lambda a: torch.as_tensor(a, dtype=torch.float64,
+                                          device=device)
+            if not outs:
+                var = scheme.var_cls(tuple(t(d) for d in dl0)).cpu().numpy()
+                s0 = np.sqrt(var) * rng.normal(size=var.shape)
+                inj = {"noise": {"state": rng.normal(size=(nch, 2, 2,
+                                                           model.nstate)),
+                                 "aux": rng.normal(size=(nch, 1) + tuple(
+                                     model.w_cut.shape))},
+                       "u": rng.uniform(size=nch),
+                       "gammas": [rng.gamma(3.0, size=(nch, len(b) - 1))
+                                  for b in bins]}
+                if name == "asis":
+                    ntot = sum(len(b) - 1 for b in bins)
+                    inj["u_prop"] = rng.uniform(size=(nch, 1, ntot))
+                    inj["u_acc"] = rng.uniform(size=(nch, 1, sum(
+                        map(len, ablocks))))
+            kw = {k: ({kk: t(vv) for kk, vv in v.items()} if k == "noise"
+                      else tuple(t(x) for x in v) if k == "gammas"
+                      else t(v)) for k, v in inj.items()}
+            state = GibbsState(s=t(s0), dl=tuple(t(d) for d in dl0))
+            new, info = scheme.step(state, **kw)
+            out = [new.s, *new.dl, info["cr_accept"], *info.get(
+                "mh_accept", ())]
+            outs.append([x.cpu().numpy() for x in out])
+        worst = 0.0
+        for a, b in zip(*outs):
+            err = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-300))
+            worst = max(worst, err)
+        check(worst <= 1e-9, f"small {name} step card vs CPU rel err {worst} "
+              "> 1e-9")
+        if name == "asis":
+            for a, b in zip(outs[0][4:], outs[1][4:]):
+                check(np.array_equal(a, b), "small ASIS step: MH accepts "
+                      "differ between card and CPU")
+        print(f"small {name} step lmax={lmax} {nch} chains float64: card vs "
+              f"CPU max rel err {worst:.2e}", flush=True)
+
+
+def phase_dataset(torch, sht, dev):
+    """The main path's dataset: band-masked polarized sky at lmax 512 on
+    the GL grid, cut decomposition over 65 rings, float32."""
     from gibbssampler_tpu_torch.inference import example_dl, simulate_dataset
     from gibbssampler_tpu_torch.ops import with_cut_decomposition
-    from gibbssampler_tpu_torch.schemes import CenteredGibbs
-    lk.reset_launch_counts()
     t0 = time.time()
     gen = torch.Generator(device=dev).manual_seed(0)
     lat = np.abs(np.pi / 2 - sht.grid.theta)
@@ -335,23 +394,32 @@ def phase_slice(torch, lk, sht, dev, card):
                                 dtype=torch.float32, device=dev, sht=sht,
                                 gen=gen)
     model = with_cut_decomposition(model)
-    check(model.cut_sht.nrings == 65,
-          f"{model.cut_sht.nrings} cut rings, expected 65")
-    bins = planck_bins(LMAX)
-    scheme = CenteredGibbs(model, [bins, bins], cr_method="aux_mala",
-                           cr_options={"n_gibbs": 1, "tau": 0.02})
-    dl0 = tuple(np.array([d[lo:hi].mean() for lo, hi in zip(bins[:-1],
-                                                             bins[1:])])
-                for d in dls)
+    check(model.cut_sht.nrings == CUT_RINGS,
+          f"{model.cut_sht.nrings} cut rings, expected {CUT_RINGS}")
+    check(model.cut_w_uniform and model.cut_w_equal_fields,
+          "band mask: cut weights not uniform")
     torch.cuda.synchronize()
-    print(f"slice set-up (simulate, cut decomposition over "
-          f"{model.cut_sht.nrings} rings, scheme): {time.time() - t0:.1f} s",
+    print(f"dataset set-up (simulate, cut decomposition over "
+          f"{model.cut_sht.nrings} rings): {time.time() - t0:.1f} s",
           flush=True)
-    t0 = time.time()
+    return model, dls
+
+
+def binned_mean(per_ell, bins):
+    return np.array([per_ell[lo:hi].mean() for lo, hi in zip(bins[:-1],
+                                                             bins[1:])])
+
+
+def run_slice(torch, lk, scheme, dl0, dev):
+    """Drive one scheme's main path: the launch counts set to 0, the
+    initial CR draw and N_WARM warm-up iterations, then N_TIMED timed
+    ones, the counts read just after.  Returns (warm, out, wall, launches
+    of the whole path, launches of the timed run)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    lk.reset_launch_counts()
     warm = scheme.run(dl0, n_iter=N_WARM, nchains=NCHAINS, gen=gen)
     torch.cuda.synchronize()
-    print(f"initial CR draw + {N_WARM} warm-up iterations x {NCHAINS} chains: "
-          f"{time.time() - t0:.1f} s", flush=True)
     before = (lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
@@ -359,35 +427,253 @@ def phase_slice(torch, lk, sht, dev, card):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = (lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches)
-    for name, b, a in zip(("synth", "adj"), before, launches):
-        check(a - b == PER_ITER * N_TIMED,
-              f"{name} launches in the timed run {a - b}, expected "
-              f"{PER_ITER} x {N_TIMED}")
+    timed = tuple(a - b for a, b in zip(launches, before))
+    return warm, out, wall, launches, timed
+
+
+def check_chains(torch, warm, out, bins_list):
     dl_all = [np.concatenate([warm["dl_chains"][f].cpu().numpy(),
                               out["dl_chains"][f].cpu().numpy()], axis=1)
               for f in range(2)]
     for f, dl in enumerate(dl_all):
-        check(dl.shape == (NCHAINS, N_WARM + N_TIMED, len(bins) - 1),
+        check(dl.shape == (NCHAINS, N_WARM + N_TIMED, len(bins_list[f]) - 1),
               f"dl_chains[{f}] shape {dl.shape}")
         check(np.isfinite(dl).all() and (dl > 0).all(),
               f"dl_chains[{f}] has non-finite or non-positive values")
     acc = float(out["cr_accept"].mean())
     check(acc > 0.0, "mean MALA acceptance is 0")
-    ess = np.concatenate([
-        summarize_chains(out["dl_chains"][f].cpu().numpy(),
-                         burn_frac=0.2)["ess"] for f in range(2)])
-    ms = wall / N_TIMED * 1e3
-    ess_s = float(np.median(ess)) / wall
+    return acc
+
+
+def ess_metrics(out, bins_list, wall):
+    """Median pooled ESS/s over both fields, BB-tail (bins from
+    BB_TAIL_FROM) ESS/s and per-chain ESS per iteration, as bench.py defines them."""
+    from gibbssampler_tpu_torch.diagnostics import summarize_chains
+    ess = [summarize_chains(out["dl_chains"][f].cpu().numpy(),
+                            burn_frac=0.2)["ess"] for f in range(2)]
+    tail = np.asarray(bins_list[-1])[:-1] >= BB_TAIL_FROM
+    check(tail.any(), f"no BB bin from l = {BB_TAIL_FROM}")
+    bb_tail = float(np.median(ess[-1][tail])) / wall
+    med = float(np.median(np.concatenate(ess)))
+    return med / wall, bb_tail, med / (0.8 * N_TIMED * NCHAINS)
+
+
+def phase_centered_slice(torch, lk, model, dls, dev, card):
+    """The centered aux_mala slice at full width; returns its launches."""
+    from gibbssampler_tpu_torch.schemes import CenteredGibbs
+    bins = planck_bins(LMAX)
+    scheme = CenteredGibbs(model, [bins, bins], cr_method="aux_mala",
+                           cr_options={"n_gibbs": 1, "tau": 0.02})
+    dl0 = tuple(binned_mean(d, bins) for d in dls)
+    warm, out, wall, launches, timed = run_slice(torch, lk, scheme, dl0, dev)
+    for name, n in zip(("synth", "adj"), timed):
+        check(n == PER_ITER * N_TIMED,
+              f"centered {name} launches in the timed run {n}, expected "
+              f"{PER_ITER} x {N_TIMED}")
+    acc = check_chains(torch, warm, out, [bins, bins])
+    ess_s = ess_metrics(out, [bins, bins], wall)[0]
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(f"slice lmax={LMAX} {NCHAINS} chains centered aux_mala: "
-          f"{ms:.2f} ms/iter over {N_TIMED} iterations; mean MALA acceptance "
-          f"{acc:.4f}; median pooled ESS/s {ess_s:.3f} ({N_TIMED} "
-          f"iterations, burn 20%); peak device memory {peak:.2f} GiB "
-          f"[{card}]", flush=True)
-    print(f"launches in the main path: legendre_synth_tri {launches[0]}, "
+          f"{wall / N_TIMED * 1e3:.2f} ms/iter over {N_TIMED} iterations; "
+          f"mean MALA acceptance {acc:.4f}; median pooled ESS/s {ess_s:.3f} "
+          f"({N_TIMED} iterations, burn 20%); peak device memory "
+          f"{peak:.2f} GiB [{card}]", flush=True)
+    print(f"launches in the centered path: legendre_synth_tri {launches[0]}, "
           f"legendre_adj_tri {launches[1]} ({PER_ITER} each per iteration)",
           flush=True)
     return launches
+
+
+def asis_setup(torch, model, dls):
+    """bench.py's flagship ASIS configuration: EE unit bins in one block,
+    BB unit bins to 396 then 16 wide bins, a 277-bin big block and 133
+    single-bin blocks, the tuned proposal sigmas, aux_mala CR."""
+    from gibbssampler_tpu_torch.interop import tuned_proposal_sigmas
+    from gibbssampler_tpu_torch.schemes import ASISGibbs
+    bins_ee = np.arange(2, LMAX + 2)
+    bins_bb = np.array(list(range(2, ASIS_UNIT_TO)) + ASIS_WIDE)
+    nb_ee, nb_bb = len(bins_ee) - 1, len(bins_bb) - 1
+    blocks = [[(0, nb_ee)],
+              [(0, ASIS_BIG)] + [(i, i + 1) for i in range(ASIS_BIG, nb_bb)]]
+    sig = tuned_proposal_sigmas(
+        os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "tuned_proposals.json"), "asis", "gl", LMAX,
+        [nb_ee, nb_bb])
+    t0 = time.time()
+    scheme = ASISGibbs(model, [bins_ee, bins_bb], blocks, sig, n_iter_mh=1,
+                       cr_method="aux_mala",
+                       cr_options={"n_gibbs": 1, "tau": 0.02})
+    check(scheme._use_cut_mh, "the ASIS scheme is off the table engine")
+    torch.cuda.synchronize()
+    print(f"ASIS scheme set-up ({len(scheme.mh_plan.chunks)} singles chunks "
+          f"of <= {max(len(c.j_idx) for c in scheme.mh_plan.chunks)} ells, "
+          f"tables on the card): {time.time() - t0:.1f} s", flush=True)
+    dl0 = tuple(binned_mean(d, b) for d, b in zip(dls, (bins_ee, bins_bb)))
+    return scheme, dl0
+
+
+def phase_asis_slice(torch, lk, model, dls, dev, card, profile):
+    """The flagship ASIS slice at full width; returns (launches, scheme,
+    final state)."""
+    scheme, dl0 = asis_setup(torch, model, dls)
+    mh_events = []
+    mh_step = scheme.mh_step
+
+    def timed_mh_step(*args, **kwargs):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        res = mh_step(*args, **kwargs)
+        ev[1].record()
+        mh_events.append(ev)
+        return res
+
+    scheme.mh_step = timed_mh_step
+    warm, out, wall, launches, timed = run_slice(torch, lk, scheme, dl0, dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    for name, n, per in zip(("synth", "adj"), timed, ASIS_PER_ITER):
+        check(n == per * N_TIMED, f"ASIS {name} launches in the timed run "
+              f"{n}, expected {per} x {N_TIMED}")
+    mh_ms = float(np.mean([a.elapsed_time(b)
+                           for a, b in mh_events[-N_TIMED:]]))
+    scheme.mh_step = mh_step
+    bins_list = scheme.bins_list
+    acc = check_chains(torch, warm, out, bins_list)
+    mh = [out["mh_accept"][f].cpu().numpy() for f in range(2)]
+    for f, a in enumerate(mh):
+        check(a.shape == (NCHAINS, N_TIMED, len(scheme.blocks_list[f])),
+              f"mh_accept[{f}] shape {a.shape}")
+        check(0.0 < a.mean() < 1.0, f"MH acceptance of field {f} is "
+              f"{a.mean()}, not in (0, 1)")
+    ess_s, bb_tail, per_chain = ess_metrics(out, bins_list, wall)
+    print(f"slice lmax={LMAX} {NCHAINS} chains ASIS (aux_mala CR + table-"
+          f"engine blocked MH): {wall / N_TIMED * 1e3:.2f} ms/iter over "
+          f"{N_TIMED} iterations; MH step {mh_ms:.2f} ms/iter (CUDA events) "
+          f"[{card}]", flush=True)
+    print(f"ASIS acceptance: MALA {acc:.4f}; MH EE block {mh[0].mean():.4f}, "
+          f"BB big block {mh[1][..., 0].mean():.4f}, BB singles "
+          f"{mh[1][..., 1:].mean():.4f} (BB all blocks {mh[1].mean():.4f}) "
+          f"[{card}]", flush=True)
+    print(f"ASIS ESS ({N_TIMED} iterations, burn 20%): median pooled ESS/s "
+          f"{ess_s:.3f}; bb_tail_ess_per_s {bb_tail:.3f}; "
+          f"per_chain_ess_per_iter {per_chain:.5f}; peak device memory "
+          f"{peak:.2f} GiB [{card}]", flush=True)
+    print(f"launches in the ASIS path: legendre_synth_tri {launches[0]}, "
+          f"legendre_adj_tri {launches[1]} ({ASIS_PER_ITER[0]} and "
+          f"{ASIS_PER_ITER[1]} per iteration)", flush=True)
+    if profile:
+        profile_asis(torch, scheme, out["final_state"], dl0, dev, card)
+    return launches, scheme, out["final_state"]
+
+
+def profile_asis(torch, scheme, state, dl0, dev, card, n_iter=5):
+    """torch.profiler over n_iter ASIS iterations: the top kernels by
+    device time and the device's busy share of the wall clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(5)
+    scheme.run(dl0, n_iter=2, gen=gen, state=state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        scheme.run(dl0, n_iter=n_iter, gen=gen, state=state)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    dev_time = lambda e: (getattr(e, "self_device_time_total", 0)
+                          or getattr(e, "self_cuda_time_total", 0))
+    # device-side rows only (kernels and copies; the aten:: rows repeat
+    # their kernels' time)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_time(e) > 0]
+    rows.sort(key=lambda e: -dev_time(e))
+    dev_us = sum(dev_time(e) for e in rows)
+    print(f"profile ASIS {n_iter} iterations: {wall / n_iter * 1e3:.2f} "
+          f"ms/iter under the profiler; device self time "
+          f"{dev_us / n_iter / 1e3:.2f} ms/iter = "
+          f"{dev_us * 1e-6 / wall:.1%} of the wall clock [{card}]",
+          flush=True)
+    for e in rows[:30]:
+        print(f"  {dev_time(e) / n_iter / 1e3:8.3f} ms/iter "
+              f"{dev_time(e) / dev_us:6.1%} "
+              f"{e.count // n_iter:6d} calls/iter  {e.key[:90]}", flush=True)
+
+
+def cast_cut_model(torch, model, dtype):
+    """The cut operators and data terms of ``model`` in ``dtype`` (the cut
+    rings' transform rebuilt in that precision; the full grid's transform,
+    which the MH step does not use, is kept)."""
+    import dataclasses
+    from gibbssampler_tpu_torch.sht import SHT
+    c = lambda x: x.to(dtype)
+    cut = SHT(model.cut_sht.grid, LMAX, dtype=dtype, spin2=True,
+              device=model.cut_sht.device)
+    noise = dataclasses.replace(model.noise, tau=c(model.noise.tau),
+                                q_map=c(model.noise.q_map))
+    return dataclasses.replace(
+        model, noise=noise, bl=c(model.bl), d=c(model.d), cut_sht=cut,
+        d_cut=c(model.d_cut), w_cut=c(model.w_cut), cut_c0=c(model.cut_c0),
+        cut_c1=c(model.cut_c1))
+
+
+def phase_mh_sweep(torch, scheme, state, dev, card, nch=4):
+    """One MH sweep at full width in float64 (the main path's bins, blocks
+    and sigmas; the slice's final whitened maps of ``nch`` chains): the
+    table engine against the direct nc_cls_sample on the same injected
+    uniforms.  Also the float32 rounding of the log-likelihood over all
+    chains of the slice's final state."""
+    from gibbssampler_tpu_torch.samplers import cls_samplers as cs
+    f64 = torch.float64
+    t0 = time.time()
+    m64 = cast_cut_model(torch, scheme.model, f64)
+    bins, blocks, sig = (scheme.bins_list, scheme.blocks_list,
+                         scheme.prop_sigma_list)
+    s_nc32 = cs.whiten(state.s, state.dl, bins, LMAX)
+    ll32 = cs.make_nc_log_likelihood(scheme.model, bins)(state.dl, s_nc32)
+    ll64 = cs.make_nc_log_likelihood(m64, bins)(
+        tuple(d.to(f64) for d in state.dl), s_nc32.to(f64))
+    dll = (ll32.to(f64) - ll64).abs().cpu().numpy()
+    dl = tuple(d[:nch].to(f64) for d in state.dl)
+    s_nc = s_nc32[:nch].to(f64)
+    del s_nc32
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ntot, nblocks = sum(len(b) - 1 for b in bins), sum(map(len, blocks))
+    up = torch.rand((nch, 1, ntot), generator=gen, dtype=f64, device=dev)
+    ua = torch.rand((nch, 1, nblocks), generator=gen, dtype=f64, device=dev)
+    plan = cs.CutMHPlan(m64, bins, blocks, sig, dtype=f64)
+    check(len(plan.chunks) == ASIS_CHUNKS
+          and any(c.segj is not None for c in plan.chunks),
+          f"full-width chunking: expected {ASIS_CHUNKS} chunks with wide "
+          "bins")
+    torch.cuda.synchronize()
+    t1 = time.time()
+    fast = cs.nc_cls_sample_cut(dl, s_nc, m64, bins, blocks, sig, u_prop=up,
+                                u_acc=ua, plan=plan)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    direct = cs.nc_cls_sample(dl, s_nc, cs.make_nc_log_likelihood(m64, bins),
+                              bins, blocks, sig, u_prop=up, u_acc=ua)
+    torch.cuda.synchronize()
+    t3 = time.time()
+    err = max(float(((a - b).abs() / b.abs()).max())
+              for a, b in zip(fast[0], direct[0]))
+    check(err <= 1e-9, f"full-width MH sweep: table engine vs direct D_ell "
+          f"rel err {err} > 1e-9")
+    for f in range(2):
+        check(torch.equal(fast[1].accept[f], direct[1].accept[f]),
+              f"full-width MH sweep: accepts of field {f} differ")
+    dll_end = float((fast[1].log_like - direct[1].log_like).abs().max())
+    acc = np.concatenate([a.cpu().numpy().ravel() for a in fast[1].accept])
+    print(f"MH sweep lmax={LMAX} {nch} chains float64 ({len(plan.chunks)} "
+          f"chunks, {nblocks} blocks): table engine vs direct D_ell max rel "
+          f"err {err:.2e}, accepts equal (mean {acc.mean():.4f}), final "
+          f"log-likelihood |diff| {dll_end:.2e}; table engine "
+          f"{(t2 - t1) * 1e3:.1f} ms, direct {(t3 - t2) * 1e3:.1f} ms "
+          f"(set-up {t1 - t0:.1f} s) [{card}]", flush=True)
+    print(f"float32 log-likelihood rounding at the slice's final state "
+          f"({len(dll)} chains): |ll32 - ll64| median {np.median(dll):.3f}, "
+          f"max {dll.max():.3f} nats (|ll| ~ {float(ll64.abs().mean()):.4g}) "
+          f"[{card}]", flush=True)
 
 
 def main():
@@ -410,8 +696,13 @@ def main():
     phase_build(lk)
     rec = phase_kernels(torch, lk, dev, card)
     sht = phase_sht(torch, dev)
-    phase_small_step(torch, dev)
-    launches = phase_slice(torch, lk, sht, dev, card)
+    phase_small_steps(torch, dev)
+    model, dls = phase_dataset(torch, sht, dev)
+    launches_c = phase_centered_slice(torch, lk, model, dls, dev, card)
+    launches_a, scheme, state = phase_asis_slice(
+        torch, lk, model, dls, dev, card, "--profile" in sys.argv[1:])
+    phase_mh_sweep(torch, scheme, state, dev, card)
+    launches = [a + b for a, b in zip(launches_c, launches_a)]
 
     src = "gibbssampler_tpu_torch/csrc/legendre_tri.cu"
     kernels = [

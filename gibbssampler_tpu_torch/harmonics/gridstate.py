@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .packing import index_maps, nflat
-from .spectra import dl_to_cl
+from .spectra import device_constant, dl_to_cl
 
 __all__ = [
     "nstate",
@@ -89,8 +89,8 @@ def expand_cl_state(cl: torch.Tensor, lmax: int) -> torch.Tensor:
     """Per-ell values (..., lmax+1) -> per-slot values (..., nstate);
     invalid slots get 0."""
     L = lmax + 1
-    valid = torch.as_tensor(state_masks(lmax).valid, dtype=cl.dtype,
-                            device=cl.device)
+    valid = device_constant(("valid", lmax), lambda: state_masks(lmax).valid,
+                            cl.dtype, cl.device)
     out = cl[..., None, None, :] * valid
     return out.reshape(cl.shape[:-1] + (2 * L * L,))
 
@@ -115,8 +115,9 @@ def alm2cl_state(x: torch.Tensor, lmax: int,
     other = x if y is None else y
     prod = (x * other).reshape(x.shape[:-1] + (2, L, L))
     sums = prod.sum(dim=(-3, -2))
-    counts = torch.as_tensor(2.0 * np.arange(L) + 1.0, dtype=x.dtype,
-                             device=x.device)
+    counts = device_constant(("counts", lmax),
+                             lambda: 2.0 * np.arange(L) + 1.0, x.dtype,
+                             x.device)
     return sums / counts
 
 

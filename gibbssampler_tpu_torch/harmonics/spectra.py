@@ -13,8 +13,23 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["dl_to_cl_factor", "dl_to_cl", "bin_index", "unfold_bins",
-           "bin_sum", "gauss_beam"]
+__all__ = ["device_constant", "dl_to_cl_factor", "dl_to_cl", "bin_index",
+           "unfold_bins", "bin_sum", "gauss_beam"]
+
+_DEVICE_CONSTANTS: dict = {}
+
+
+def device_constant(key: tuple, make, dtype, device) -> torch.Tensor:
+    """The constant table ``make()`` (a numpy array) on ``device`` in
+    ``dtype``, copied there once and cached under ``key``: the iteration
+    loop then makes no host-to-device copy (each of which would also wait
+    for the stream).  Callers must not write into the result."""
+    k = (key, dtype, torch.device(device))
+    t = _DEVICE_CONSTANTS.get(k)
+    if t is None:
+        t = torch.as_tensor(np.asarray(make()), dtype=dtype, device=device)
+        _DEVICE_CONSTANTS[k] = t
+    return t
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,8 +45,9 @@ def _dl_to_cl_factor_np(lmax: int) -> np.ndarray:
 
 def dl_to_cl_factor(lmax: int, dtype=torch.float32,
                     device=None) -> torch.Tensor:
-    return torch.as_tensor(_dl_to_cl_factor_np(lmax), dtype=dtype,
-                           device=device)
+    return device_constant(("dl_to_cl", lmax),
+                           lambda: _dl_to_cl_factor_np(lmax), dtype,
+                           device if device is not None else "cpu")
 
 
 def dl_to_cl(dl: torch.Tensor, lmax: int | None = None) -> torch.Tensor:
@@ -54,20 +70,24 @@ def unfold_bins(binned: torch.Tensor, bins: np.ndarray,
                 lmax: int) -> torch.Tensor:
     """(..., nbins) binned D_ell -> (..., lmax+1) per-ell D_ell; ells
     outside the binned range (the fixed monopole/dipole) get 0."""
-    idx = bin_index(bins, lmax)
-    src = torch.as_tensor(np.maximum(idx, 0), device=binned.device)
-    keep = torch.as_tensor(idx >= 0, device=binned.device)
+    key = (lmax, np.asarray(bins, dtype=np.int64).tobytes())
+    idx = lambda: bin_index(bins, lmax)
+    src = device_constant(("unfold_src",) + key,
+                          lambda: np.maximum(idx(), 0), torch.int64,
+                          binned.device)
+    keep = device_constant(("unfold_keep",) + key, lambda: idx() >= 0,
+                           torch.bool, binned.device)
     return torch.where(keep, binned[..., src], 0.0)
 
 
 def bin_sum(per_ell: torch.Tensor, bins: np.ndarray,
             lmax: int) -> torch.Tensor:
     """Sum per-ell values within each bin -> (..., nbins)."""
-    idx = bin_index(bins, lmax)
-    nbins = len(bins) - 1
-    onehot = (idx[:, None] == np.arange(nbins)[None, :]).astype(np.float64)
-    return per_ell @ torch.as_tensor(onehot, dtype=per_ell.dtype,
-                                     device=per_ell.device)
+    key = ("bin_onehot", lmax, np.asarray(bins, dtype=np.int64).tobytes())
+    onehot = lambda: (bin_index(bins, lmax)[:, None]
+                      == np.arange(len(bins) - 1)[None, :])
+    return per_ell @ device_constant(key, onehot, per_ell.dtype,
+                                     per_ell.device)
 
 
 def gauss_beam(fwhm_radians: float, lmax: int, dtype=torch.float32,

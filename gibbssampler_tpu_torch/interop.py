@@ -8,9 +8,14 @@ recomputes the cut rows the same way the JAX package does.
     arrays = {"d": ..., "tau": ..., "q_map": ..., "omega": float,
               "bl": ..., "spin": int, "theta": ..., "weights": ...,
               "phi0": ..., "nphi": int}
+
+``tuned_proposal_sigmas`` reads the tuned MH proposal scales that the JAX
+package's tuning run stored in ``tuned_proposals.json``.
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
@@ -21,7 +26,7 @@ from .schemes.gibbs import GibbsState
 from .sht.grids import SphereGrid
 from .sht.transform import SHT
 
-__all__ = ["model_from_numpy", "state_from_numpy"]
+__all__ = ["model_from_numpy", "state_from_numpy", "tuned_proposal_sigmas"]
 
 
 def model_from_numpy(arrays: dict, device="cpu",
@@ -50,3 +55,22 @@ def state_from_numpy(s, dl, device="cpu", dtype=torch.float64) -> GibbsState:
     sequence of (nchains, nbins_f) binned D_ell."""
     t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
     return GibbsState(s=t(s), dl=tuple(t(x) for x in dl))
+
+
+def tuned_proposal_sigmas(path, scheme: str, grid: str, lmax: int,
+                          nbins) -> list:
+    """The per-field proposal std devs of the record of ``path`` (a
+    ``tuned_proposals.json``) whose scheme, grid, lmax and per-field bin
+    counts all match, as float64 arrays: the match rule of ``bench.py``.
+    Raises ``LookupError`` when no record matches; it never falls back to
+    another scale."""
+    with open(path) as f:
+        data = json.load(f)
+    recs = data.get("records", [data]) if isinstance(data, dict) else data
+    want = [int(n) for n in nbins]
+    for rec in recs:
+        if (rec.get("scheme") == scheme and rec.get("grid") == grid
+                and rec.get("lmax") == lmax and rec.get("nbins") == want):
+            return [np.asarray(x, dtype=np.float64) for x in rec["sig"]]
+    raise LookupError(f"{path}: no tuned proposal record for scheme "
+                      f"{scheme!r}, grid {grid!r}, lmax {lmax}, nbins {want}")

@@ -21,6 +21,7 @@ import torch
 
 from ..harmonics.gridstate import (almxfl_state, ell_mask_state,
                                    expand_cl_state, nstate)
+from ..harmonics.spectra import device_constant
 from ..sht.grids import SphereGrid, subgrid_rows
 from ..sht.transform import SHT
 from .noise import NoiseModel
@@ -55,6 +56,11 @@ class SkyModel:
     w_cut: Optional[torch.Tensor] = None   # q (tau_bar - tau) on cut rows >= 0
     cut_c0: Optional[torch.Tensor] = None  # scalar: d^T N0^-1 d
     cut_c1: Optional[torch.Tensor] = None  # (nfields, nstate): A^T N0^-1 d
+    # static flags of w_cut that select the blocked-MH engine: the cut
+    # weights are constant along each ring (azimuthally uniform), and equal
+    # across the map components
+    cut_w_uniform: bool = False
+    cut_w_equal_fields: bool = False
 
     def __post_init__(self):
         if self.spin not in (0, 2):
@@ -79,16 +85,17 @@ class SkyModel:
 
     def ell_mask(self, dtype=None) -> torch.Tensor:
         """(nstate,) 1 on valid slots with l >= 2."""
-        return torch.as_tensor(ell_mask_state(self.lmax, lmin=2),
-                               dtype=dtype or self.sht.dtype,
-                               device=self.sht.device)
+        return device_constant(("ell_mask", self.lmax, 2),
+                               lambda: ell_mask_state(self.lmax, lmin=2),
+                               dtype or self.sht.dtype, self.sht.device)
 
     def _op_valid_mask(self, dtype) -> torch.Tensor:
         """(nfields, nstate) mask of the slots the synthesis acts on: l >= 0
         for spin-0 fields, l >= 2 for spin-2 fields."""
         lmin = 0 if self.spin == 0 else 2
-        m = torch.as_tensor(ell_mask_state(self.lmax, lmin=lmin), dtype=dtype,
-                            device=self.sht.device)
+        m = device_constant(("ell_mask", self.lmax, lmin),
+                            lambda: ell_mask_state(self.lmax, lmin=lmin),
+                            dtype, self.sht.device)
         return m.expand(self.nfields, -1)
 
     # ---- primitive operators -------------------------------------------
@@ -186,10 +193,17 @@ class SkyModel:
         return c0, c1
 
     def data_loglike_cut(self, u: torch.Tensor,
-                         au_cut: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         au_cut: Optional[torch.Tensor] = None,
+                         au_sp: Optional[torch.Tensor] = None) -> torch.Tensor:
         """-1/2 (d - A u)^T N^-1 (d - A u) via the complement identity, one
         value per leading (chain) index; ``u`` is the beam-applied state.
-        Pass ``au_cut = synthesis_cut(u)`` when already computed."""
+        Pass ``au_cut = synthesis_cut(u)`` when already computed.  ``au_sp``
+        (the sparse-hole values) must be None: the port has no sparse
+        split."""
+        if au_sp is not None:
+            raise NotImplementedError(
+                "au_sp: the port's cut decomposition has no sparse-hole "
+                "point set")
         u = u * self._op_valid_mask(u.dtype)
         if au_cut is None:
             au_cut = self.synthesis_cut(u)
@@ -243,7 +257,11 @@ def with_cut_decomposition(model: SkyModel) -> SkyModel:
         model.d.detach().cpu().numpy()[..., rows, :], dtype=dt, device=dev))
     out = dataclasses.replace(
         model, cut_sht=cut_sht, d_cut=d_cut,
-        w_cut=torch.as_tensor(w_cut, dtype=dt, device=dev))
+        w_cut=torch.as_tensor(w_cut, dtype=dt, device=dev),
+        cut_w_uniform=bool(np.allclose(w_cut, w_cut[:, :, :1], rtol=0,
+                                       atol=0)),
+        cut_w_equal_fields=bool(np.allclose(w_cut, w_cut[:1], rtol=0,
+                                            atol=0)))
     if model.d is not None:
         c0, c1 = out.cut_data_terms()
         out = dataclasses.replace(out, cut_c0=c0, cut_c1=c1)

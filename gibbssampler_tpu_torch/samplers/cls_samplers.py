@@ -1,26 +1,43 @@
-"""Power-spectrum conditional samplers: the binned conjugate inverse-gamma
-draw of the centered scheme (PyTorch counterpart of
-``gibbssampler_tpu.samplers.cls_samplers.invgamma_dl`` and
-``centered_cls_sample``).
+"""Power-spectrum conditional samplers (PyTorch counterpart of
+``gibbssampler_tpu.samplers.cls_samplers``):
 
-The gamma variates come from ``standard_gamma``, a Marsaglia-Tsang
-rejection sampler written on ``torch.randn`` / ``torch.rand`` with an
-explicit ``torch.Generator`` (``torch.distributions.Gamma.sample`` takes
-none), or are injected, so that a test can feed both packages the same
-numbers.
+- the binned conjugate inverse-gamma draw of the centered scheme
+  (``invgamma_dl``, ``centered_cls_sample``);
+- blocked Metropolis-within-Gibbs over binned D_ell with truncated-normal
+  proposals on the non-centered (whitened) parametrization: the direct
+  ``nc_cls_sample``, one likelihood evaluation per block, and its rank-one
+  table-domain fast path ``nc_cls_sample_cut`` for cut-decomposition
+  models;
+- the ASIS ``whiten`` / ``recenter`` transforms.
+
+Every function takes tensors whose leading axes are chains.  Random numbers
+are injectable, so that a test can feed both packages the same numbers, or
+come from an explicit ``torch.Generator``:
+
+- gamma variates of the conjugate draw come from ``standard_gamma``, a
+  Marsaglia-Tsang rejection sampler on ``torch.randn`` / ``torch.rand``
+  (``torch.distributions.Gamma.sample`` takes no generator);
+- the MH step takes, per sweep, one U(0,1) per bin for the proposals
+  (``u_prop``, (..., n_iter, nbins_total)) and one per block for the
+  accept decisions (``u_acc``, (..., n_iter, nblocks)).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from ..harmonics.gridstate import alm2cl_state
-from ..harmonics.spectra import bin_sum
+from ..harmonics.gridstate import (alm2cl_state, almxfl_state, state_masks,
+                                   variance_expansion_state)
+from ..harmonics.spectra import bin_sum, dl_to_cl_factor, unfold_bins
 
-__all__ = ["standard_gamma", "invgamma_dl", "centered_cls_sample"]
+__all__ = ["standard_gamma", "invgamma_dl", "centered_cls_sample",
+           "propose_truncnorm", "truncnorm_logratio", "NCClsInfo",
+           "make_nc_log_likelihood", "nc_cls_sample", "CutMHPlan",
+           "nc_cls_sample_cut", "whiten", "recenter"]
 
 
 def standard_gamma(alpha: torch.Tensor, gen=None) -> torch.Tensor:
@@ -79,3 +96,626 @@ def centered_cls_sample(s: torch.Tensor, bins_list: Sequence[np.ndarray],
         gammas = (None,) * len(bins_list)
     return tuple(invgamma_dl(s[..., f, :], bins, lmax, gamma=g, gen=gen)
                  for f, (bins, g) in enumerate(zip(bins_list, gammas)))
+
+
+# ---------------------------------------------------------------------------
+# Non-centered blocked Metropolis-within-Gibbs
+# ---------------------------------------------------------------------------
+
+def propose_truncnorm(x, sigma, u=None, gen=None):
+    """x' ~ N(x, sigma^2) truncated to [0, inf), one U(0,1) per element.
+
+    The JAX package's recipe (``jax.random.truncated_normal``), so that an
+    injected ``u = jax.random.uniform(key, x.shape)`` reproduces its draw
+    to rounding: a = erf(lower / sqrt 2), v = max(a, a + u (1 - a)),
+    z = sqrt 2 erfinv(v), clipped to (lower, max float]."""
+    lower = -x / sigma
+    if u is None:
+        u = torch.rand(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+    sqrt2 = math.sqrt(2.0)
+    a = torch.special.erf(lower / sqrt2)
+    v = torch.maximum(a, u * (1.0 - a) + a)
+    z = sqrt2 * torch.special.erfinv(v)
+    lo = torch.nextafter(lower, torch.full_like(lower, math.inf))
+    hi = torch.full_like(lower, torch.finfo(x.dtype).max)
+    return x + sigma * torch.clamp(z, min=lo, max=hi)
+
+
+def truncnorm_logratio(x_old, x_new, sigma):
+    """log q(old | new) - log q(new | old) for the truncated-normal kernel:
+    only the truncation normalizers survive."""
+    return (torch.special.log_ndtr(x_old / sigma)
+            - torch.special.log_ndtr(x_new / sigma))
+
+
+def _dl_tuple_to_var(dl_tuple, bins_list, lmax, dtype):
+    """Per-field binned D_ell (..., nbins_f) -> (..., nfields, nstate) prior
+    variance."""
+    return torch.stack([
+        variance_expansion_state(unfold_bins(dl.to(dtype), bins, lmax), lmax)
+        for dl, bins in zip(dl_tuple, bins_list)], dim=-2)
+
+
+def whiten(s, dl_tuple, bins_list, lmax):
+    """s_nc = C^-1/2 s (slots with C = 0 stay 0)."""
+    var = _dl_tuple_to_var(dl_tuple, bins_list, lmax, s.dtype)
+    inv_sqrt = torch.where(var > 0, 1.0 / torch.sqrt(
+        torch.where(var > 0, var, 1.0)), 0.0)
+    return s * inv_sqrt
+
+
+def recenter(s_nc, dl_tuple, bins_list, lmax):
+    """s = C^{1/2} s_nc."""
+    var = _dl_tuple_to_var(dl_tuple, bins_list, lmax, s_nc.dtype)
+    return torch.sqrt(var) * s_nc
+
+
+def make_nc_log_likelihood(model, bins_list, all_sph: bool = False):
+    """log L(dl_tuple; s_nc) of the non-centered parametrization, one value
+    per chain: the masked likelihood through the cut-sky complement
+    identity (``SkyModel.data_loglike_cut``).  The JAX package's pixel-path
+    and harmonic ("all_sph") likelihoods are not ported."""
+    if all_sph:
+        raise NotImplementedError(
+            "all_sph: the port has only the cut-sky complement likelihood")
+    if not model.has_cut:
+        raise NotImplementedError(
+            "the non-centered likelihood needs a cut-decomposition model in "
+            "the port (the full-grid pixel path is not ported)")
+    lmax = model.lmax
+
+    def log_like(dl_tuple, s_nc):
+        var = _dl_tuple_to_var(dl_tuple, bins_list, lmax, s_nc.dtype)
+        return model.data_loglike_cut(model.beam(torch.sqrt(var) * s_nc))
+
+    return log_like
+
+
+class NCClsInfo(NamedTuple):
+    accept: tuple             # per-field (..., nblocks_f) accept means
+    log_like: torch.Tensor    # (...,)
+
+
+def _block_table(blocks_list, sizes):
+    """(nblocks, ntot) float64 one-hot rows of the blocks, field by field."""
+    offs = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
+    rows = []
+    for f, blocks in enumerate(blocks_list):
+        for (lo, hi) in blocks:
+            r = np.zeros(int(offs[-1]))
+            r[offs[f] + lo: offs[f] + hi] = 1.0
+            rows.append(r)
+    return np.stack(rows), offs
+
+
+def _sigma_vec(prop_sigma_list, sizes, dtype, device):
+    return torch.cat([torch.as_tensor(np.broadcast_to(
+        np.asarray(p, dtype=np.float64), (n,)).copy(), dtype=dtype,
+        device=device) for p, n in zip(prop_sigma_list, sizes)])
+
+
+def _mh_uniforms(batch, n_iter, ntot, nblocks, like, u_prop, u_acc, gen):
+    """The sweep uniforms: injected, or drawn from ``gen``."""
+    kw = dict(generator=gen, dtype=like.dtype, device=like.device)
+    if u_prop is None:
+        u_prop = torch.rand(batch + (n_iter, ntot), **kw)
+    if u_acc is None:
+        u_acc = torch.rand(batch + (n_iter, nblocks), **kw)
+    return u_prop.to(like.dtype), u_acc.to(like.dtype)
+
+
+def _split_accepts(accs, blocks_list):
+    """(n_iter, ..., nblocks) indicators -> per-field (..., nblocks_f)
+    means over the sweeps."""
+    acc_mean = accs.mean(dim=0)
+    out, i0 = [], 0
+    for blocks in blocks_list:
+        out.append(acc_mean[..., i0: i0 + len(blocks)])
+        i0 += len(blocks)
+    return tuple(out)
+
+
+def nc_cls_sample(dl_tuple, s_nc, log_like_fn, bins_list, blocks_list,
+                  prop_sigma_list, n_iter: int = 1, u_prop=None, u_acc=None,
+                  gen=None):
+    """Blocked MH sweep(s) over binned D_ell given the whitened map s_nc.
+
+    blocks_list[f]     : (start, stop) bin-index ranges of field f
+    prop_sigma_list[f] : (nbins_f,) proposal std devs
+    n_iter             : MH sweeps per call
+
+    Per sweep: propose every bin once (truncated normal), then accept or
+    reject block by block, field by field, each decision with one
+    likelihood evaluation.  The direct path, and the oracle of
+    ``nc_cls_sample_cut``."""
+    dt = dl_tuple[0].dtype
+    dev = dl_tuple[0].device
+    nfields = len(dl_tuple)
+    sizes = [int(d.shape[-1]) for d in dl_tuple]
+    table, offs = _block_table(blocks_list, sizes)
+    bmask = torch.as_tensor(table, dtype=dt, device=dev)
+    nblocks, ntot = table.shape
+    sigma = _sigma_vec(prop_sigma_list, sizes, dt, dev)
+
+    def split_fields(dvec):
+        return tuple(dvec[..., offs[f]: offs[f + 1]] for f in range(nfields))
+
+    dl = torch.cat([d.to(dt) for d in dl_tuple], dim=-1)
+    batch = tuple(dl.shape[:-1])
+    u_prop, u_acc = _mh_uniforms(batch, n_iter, ntot, nblocks, dl, u_prop,
+                                 u_acc, gen)
+    ll = log_like_fn(dl_tuple, s_nc)
+    accs = []
+    for it in range(n_iter):
+        props = propose_truncnorm(dl, sigma, u_prop[..., it, :])
+        lr_vec = truncnorm_logratio(dl, props, sigma)
+        log_u = torch.log(u_acc[..., it, :])
+        acc_it = []
+        for b in range(nblocks):
+            cand = torch.where(bmask[b] > 0, props, dl)
+            ll_cand = log_like_fn(split_fields(cand), s_nc)
+            qcorr = (bmask[b] * lr_vec).sum(-1)
+            acc = log_u[..., b] < ll_cand - ll + qcorr
+            dl = torch.where(acc[..., None], cand, dl)
+            ll = torch.where(acc, ll_cand, ll)
+            acc_it.append(acc.to(dt))
+        accs.append(torch.stack(acc_it, dim=-1))
+    return split_fields(dl), NCClsInfo(
+        accept=_split_accepts(torch.stack(accs), blocks_list), log_like=ll)
+
+
+def _per_ell(y, lmax):
+    """(..., nstate) -> (..., L) sums over the (part, m) axes."""
+    L = lmax + 1
+    return y.reshape(y.shape[:-1] + (2, L, L)).sum(dim=(-3, -2))
+
+
+def _mdomain_eligible(model) -> bool:
+    """Static eligibility of the m-domain singles sweep: azimuthally
+    uniform cut weights and a cut-ring nphi >= 2 lmax, so that the ring
+    Parseval identity is exact."""
+    cut = model.cut_sht
+    return (getattr(model, "cut_w_uniform", False)
+            and cut is not None
+            and getattr(cut, "nphi", 0) >= 2 * model.lmax)
+
+
+# chunk size of the singles sweep: at most this many bins AND this many
+# selected ells per chunk (bounds the chunk's live (..., L, J, J) tensors)
+_MDOMAIN_CHUNK = 16
+
+
+def _prepare_mchunks(singles, single_rows, bins_list,
+                     chunk_size: int | None = None):
+    """Static chunking of the single-bin blocks for the m-domain sweep:
+    field-pure chunks of at most chunk_size bins AND at most chunk_size
+    selected ells (wide bins count by their ell width), each described by
+    (field, j_idx, seg, gbins, rows) with j_idx the chunk's selected ells
+    and seg the (J, nb) segment matrix (None when all bins are single
+    ells)."""
+    if chunk_size is None:
+        chunk_size = _MDOMAIN_CHUNK
+    groups = []
+    cur = None
+    for (f, lo, gi), row in zip(singles, single_rows):
+        bins_f = np.asarray(bins_list[f])
+        js = list(range(int(bins_f[lo]), int(bins_f[lo + 1])))
+        if cur is None or cur["f"] != f or len(cur["gbins"]) >= chunk_size \
+                or len(cur["j"]) >= chunk_size:
+            cur = {"f": f, "j": [], "wid": [], "gbins": [], "rows": []}
+            groups.append(cur)
+        cur["j"].extend(js)
+        cur["wid"].append(len(js))
+        cur["gbins"].append(gi)
+        cur["rows"].append(row)
+    out = []
+    for c in groups:
+        j_idx = np.asarray(c["j"], dtype=np.int64)
+        nb = len(c["gbins"])
+        if all(w == 1 for w in c["wid"]):
+            seg = None
+        else:
+            seg = np.zeros((len(j_idx), nb))
+            k = 0
+            for b, w in enumerate(c["wid"]):
+                seg[k: k + w, b] = 1.0
+                k += w
+        out.append((c["f"], j_idx, seg,
+                    np.asarray(c["gbins"]), np.asarray(c["rows"])))
+    return out
+
+
+def _prepare_mgrids(model, t, fields):
+    """The Legendre-stage input grids of the per-bin components t_f, once
+    per field the chunks use: {field: ("s0"|"s2", grid, sign_p, sign_m)}."""
+    cut = model.cut_sht
+    grids = {}
+    for f in sorted(fields):
+        if model.spin == 0:
+            grids[f] = ("s0", cut._state_grids(t[..., 0, :]), 1.0, 1.0)
+        else:
+            g, sp, sm = cut.lsel_grid_spin2_single(t[..., f, :],
+                                                   "e" if f == 0 else "b")
+            grids[f] = ("s2", g, sp, sm)
+    return grids
+
+
+def _prepare_tchunks(model, cut, mchunks, w1, dt, nyq: bool = False):
+    """Per-chunk ell-pair weight tables of the table-domain reductions.
+
+    The w-weighted dot product of two per-bin components factorizes
+    through the ring Parseval identity into ell-pair tables contracted
+    against per-(m, ell) state products,
+
+        <a_i, a_j>_w = nphi sum_m C_ij(m) [Wpp + pos_m Wmm](m, li, lj),
+        W__(m, l, l') = sum_r w_r lam_(m,l,r) lam_(m,l',r),
+
+    so no per-bin (ring, m) planes are ever built.  Returns per chunk
+    (kind, lamA, lamB, W, omega).  The JAX package's ``nyq`` column path
+    (nphi = 2 lmax, HEALPix belt rows) is not ported."""
+    if nyq:
+        raise NotImplementedError(
+            "nphi = 2 lmax: the table engine's Nyquist-column path is not "
+            "ported")
+    n = float(cut.nphi)
+    L = model.lmax + 1
+    pos = cut.pos.to(dt)
+    out = []
+    for (f, j_idx, seg, gbins, rows) in mchunks:
+        if model.spin == 0:
+            lam0_j = cut.lsel_table(cut.lam0, j_idx).to(dt)      # (L, J, r)
+            W00 = torch.einsum("mjr,mkr->mjk", lam0_j * w1, lam0_j)
+            omega = np.full((2, L), 2.0 * n)
+            omega[0, 0] = n
+            omega[1, 0] = 0.0
+            out.append(("s0", lam0_j, None, W00,
+                        torch.as_tensor(omega, dtype=dt, device=w1.device)))
+        else:
+            lamp_j = cut.lsel_table(cut.lam_p2, j_idx).to(dt)
+            lamm_j = cut.lsel_table(cut.lam_m2, j_idx).to(dt)
+            Wpp = torch.einsum("mjr,mkr->mjk", lamp_j * w1, lamp_j)
+            Wmm = torch.einsum("mjr,mkr->mjk", lamm_j * w1, lamm_j)
+            out.append(("s2", lamp_j, lamm_j,
+                        n * (Wpp + pos[:, None, None] * Wmm), None))
+    return out
+
+
+class _TChunk(NamedTuple):
+    """One chunk of single-bin blocks, its gather indices and tables on the
+    device."""
+    f: int
+    j_idx: torch.Tensor        # (J,) selected ells
+    segj: torch.Tensor | None  # (J, nb) segment matrix of wide bins
+    gbins: torch.Tensor        # (nb,) global bin indices
+    rows: torch.Tensor         # (nb,) block rows
+    kind: str
+    lamA: torch.Tensor         # (L, J, nr)
+    lamB: torch.Tensor | None
+    W: torch.Tensor            # (L, J, J)
+    omega: torch.Tensor | None
+
+
+class CutMHPlan:
+    """The static part of ``nc_cls_sample_cut`` for one model, binning,
+    blocking and proposal scale, built once on the model's device: block
+    table and order, the chunking of the single-bin blocks, their gather
+    indices and the ell-pair W tables of the table-domain engine.  These
+    depend only on the model, the bins and the blocks (the JAX package
+    rebuilds them inside ``jit`` on every call; the values are the same).
+
+    Raises ``NotImplementedError`` wherever the JAX package would take an
+    engine the port does not have: the coefficient m-domain engine
+    (``mdomain="m"``, or w_cut not equal across map components), the
+    phi-domain engine (``mdomain=False``, no single-bin blocks, or w_cut
+    not azimuthally uniform), the sparse-hole corrections, ring phases, the
+    Nyquist column (nphi = 2 lmax) and the PNCP identity re-centering."""
+
+    def __init__(self, model, bins_list, blocks_list, prop_sigma_list,
+                 mdomain="auto", l_cut_identity=None, dtype=None):
+        if not model.has_cut:
+            raise ValueError(
+                "nc_cls_sample_cut needs a cut-decomposition model")
+        if l_cut_identity is not None:
+            raise NotImplementedError(
+                "l_cut_identity (PNCP identity re-centering) is not ported")
+        cut = model.cut_sht
+        dt = dtype or cut.dtype
+        dev = cut.device
+        lmax = model.lmax
+        L = lmax + 1
+        self.model = model
+        self.dtype = dt
+        self.bins_list = tuple(np.asarray(b, dtype=np.int64)
+                               for b in bins_list)
+        self.blocks_list = tuple(tuple((int(lo), int(hi)) for lo, hi in bl)
+                                 for bl in blocks_list)
+        self.sizes = [len(b) - 1 for b in self.bins_list]
+        table, self.offs = _block_table(self.blocks_list, self.sizes)
+        self.nblocks, self.ntot = table.shape
+        self.bmask = torch.as_tensor(table, dtype=dt, device=dev)
+        self.sigma = _sigma_vec(prop_sigma_list, self.sizes, dt, dev)
+
+        order, singles, brow = [], [], 0
+        for f, blocks in enumerate(self.blocks_list):
+            for (lo, hi) in blocks:
+                if hi - lo == 1:
+                    order.append(("single", f, brow))
+                    singles.append((f, lo, int(self.offs[f]) + lo))
+                else:
+                    order.append(("big", f, brow))
+                brow += 1
+        kinds = [k for (k, *_r) in order]
+        if "single" in kinds and "big" in kinds[kinds.index("single"):]:
+            raise ValueError("nc_cls_sample_cut requires all multi-bin "
+                             "blocks to precede the single-bin blocks; use "
+                             "nc_cls_sample for this blocking")
+        self.big_rows = [row for (k, _f, row) in order if k == "big"]
+        single_rows = [row for (k, _f, row) in order if k == "single"]
+
+        # the engine the JAX package would pick, refused where not ported
+        if mdomain not in ("auto", True):
+            raise NotImplementedError(
+                f"mdomain={mdomain!r}: only the table-domain engine is "
+                "ported (\"m\" pins the coefficient engine, False the "
+                "phi-domain engine)")
+        if not singles:
+            raise NotImplementedError(
+                "no single-bin blocks: the JAX package runs the phi-domain "
+                "sweep, which is not ported; use nc_cls_sample")
+        if getattr(model, "has_sparse", False):
+            raise NotImplementedError("sparse-hole corrections are not "
+                                      "ported")
+        if not _mdomain_eligible(model):
+            raise NotImplementedError(
+                "w_cut is not azimuthally uniform (or nphi < 2 lmax): the "
+                "JAX package runs the phi-domain sweep, which is not ported")
+        if not getattr(model, "cut_w_equal_fields", False):
+            raise NotImplementedError(
+                "w_cut differs between map components: the JAX package "
+                "runs the coefficient m-domain engine, which is not ported")
+        if getattr(cut, "has_phase", False):
+            raise NotImplementedError("ring phases (phi0 != 0) in the table "
+                                      "engine are not ported")
+        nyq = cut.nphi == 2 * lmax
+
+        mchunks = _prepare_mchunks(singles, single_rows, self.bins_list)
+        self.pwc, self.pws = cut.ring_dot_weights()
+        self.pwc, self.pws = self.pwc.to(dt), self.pws.to(dt)
+        self.w1 = model.w_cut[0, :, 0].to(dt)              # (ncut,) uniform
+        self.pos = cut.pos.to(dt)
+        self.cmv = torch.full((L,), 2.0, dtype=dt, device=dev)
+        self.cmv[0] = 1.0
+        tpre = _prepare_tchunks(model, cut, mchunks, self.w1, dt, nyq=nyq)
+        idx = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                        device=dev)
+        self.chunks = [
+            _TChunk(f=f, j_idx=idx(j_idx),
+                    segj=(None if seg is None else
+                          torch.as_tensor(seg, dtype=dt, device=dev)),
+                    gbins=idx(gbins), rows=idx(rows), kind=kind, lamA=lamA,
+                    lamB=lamB, W=W, omega=omega)
+            for (f, j_idx, seg, gbins, rows), (kind, lamA, lamB, W, omega)
+            in zip(mchunks, tpre)]
+        self.fields = sorted({c.f for c in self.chunks})
+
+        # per-call harmonic constants: the per-bin component filter and the
+        # valid-slot mask
+        fac = dl_to_cl_factor(lmax, dt, dev)
+        self.tfl = model.bl.to(dt) * torch.sqrt(fac)
+        self.valid = torch.as_tensor(state_masks(lmax).valid, dtype=dt,
+                                     device=dev)               # (2, L, L)
+        self.g = (model.noise.tau_max / model.noise.omega).to(dt)
+
+    def u_of(self, dlcat, tv):
+        """u(dl) = sqrt(C_l(dl)) t over the fields: (..., nfields, nstate)
+        from the concatenated binned D_ell and the valid-masked components
+        ``tv``."""
+        lmax = self.model.lmax
+        L = lmax + 1
+        parts = []
+        for f, bins in enumerate(self.bins_list):
+            dl_f = dlcat[..., self.offs[f]: self.offs[f + 1]]
+            per_ell = unfold_bins(dl_f, bins, lmax)
+            tf = tv[..., f, :]
+            parts.append((tf.reshape(tf.shape[:-1] + (2, L, L))
+                          * torch.sqrt(per_ell)[..., None, None, :])
+                         .reshape(tf.shape))
+        return torch.stack(parts, dim=-2)
+
+
+def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
+                      prop_sigma_list, n_iter: int = 1, mdomain="auto",
+                      l_cut_identity=None, u_prop=None, u_acc=None, gen=None,
+                      plan: CutMHPlan | None = None):
+    """Rank-one fast path of :func:`nc_cls_sample` for cut-decomposition
+    models: the same Markov kernel on the same uniforms, scalar-cost
+    single-bin blocks.
+
+    The whitened likelihood is quadratic in u(dl) = B sqrt(var(dl)) s_nc,
+    and u is linear in the per-bin sqrt(D_i) with mutually orthogonal
+    per-bin components t_i (disjoint ell supports),
+
+        u = sum_i sqrt(D_i) t_i,   t_i = B sqrt(2 pi / l(l+1)) s_nc|_{bin i},
+
+    so a single-bin block's candidate changes u by gamma t_i (gamma =
+    sqrt(D') - sqrt(D)) and its log-likelihood change is
+
+        dll = gamma (alpha_i - sqrt(D_i) beta_i - <w r, A t_i>)
+              + gamma^2 (q_i - beta_i) / 2
+
+    with alpha_i = <c1, t_i>, beta_i = g ||t_i||^2, q_i = ||sqrt(w) A t_i||^2
+    and r the cut residual, carried as its ring sums (Rc, Rs).  Multi-bin
+    ("big") blocks are evaluated directly (one cut synthesis each), then the
+    singles run chunk by chunk in the table domain: q_i, the in-chunk Gram
+    G_ij = <a_i, a_j>_w and rho_i = <r, a_i>_w from the ell-pair W tables,
+    then a scalar scan with cwr_i = rho_i - sum_{j<i} gamma_j G_ij.
+
+    ``plan``: the static part (:class:`CutMHPlan`), built here when not
+    given.  ``u_prop`` / ``u_acc``: injected sweep uniforms (module
+    docstring)."""
+    dt = dl_tuple[0].dtype
+    if plan is None:
+        plan = CutMHPlan(model, bins_list, blocks_list, prop_sigma_list,
+                         mdomain=mdomain, l_cut_identity=l_cut_identity,
+                         dtype=dt)
+    elif plan.dtype != dt or plan.model is not model:
+        raise ValueError("plan was built for another model or dtype")
+    lmax = model.lmax
+    cut = model.cut_sht
+    nfields = len(dl_tuple)
+    offs = plan.offs
+
+    # ---- per-call precomputation (depends on s_nc) ------------------------
+    t = almxfl_state(s_nc.to(dt), plan.tfl, lmax)           # (..., nf, nstate)
+    L = lmax + 1
+    tv = (t.reshape(t.shape[:-1] + (2, L, L)) * plan.valid).reshape(t.shape)
+    alpha = torch.cat([
+        bin_sum(_per_ell(model.cut_c1[f].to(dt) * t[..., f, :], lmax), bins,
+                lmax) for f, bins in enumerate(plan.bins_list)], dim=-1)
+    beta = torch.cat([
+        plan.g[f] * bin_sum(_per_ell(t[..., f, :] * t[..., f, :], lmax),
+                            bins, lmax)
+        for f, bins in enumerate(plan.bins_list)], dim=-1)
+    grids = _prepare_mgrids(model, t, plan.fields)
+
+    dlcat = torch.cat([d.to(dt) for d in dl_tuple], dim=-1)
+    batch = tuple(dlcat.shape[:-1])
+    u_prop, u_acc = _mh_uniforms(batch, n_iter, plan.ntot, plan.nblocks,
+                                 dlcat, u_prop, u_acc, gen)
+    d_cut = model.d_cut.to(dt)
+    u0 = plan.u_of(dlcat, tv)
+    au0 = model.synthesis_cut(u0)
+    ll = model.data_loglike_cut(u0, au0)
+    Rc, Rs = cut.ring_cs_of_maps(d_cut - au0)              # (..., nf, nr, L)
+    accs = []
+    for it in range(n_iter):
+        dlcat, ll, Rc, Rs, acc_it = _sweep_t(
+            plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc, Rs,
+            u_prop[..., it, :], u_acc[..., it, :])
+        accs.append(acc_it)
+    dl_out = tuple(dlcat[..., offs[f]: offs[f + 1]] for f in range(nfields))
+    return dl_out, NCClsInfo(
+        accept=_split_accepts(torch.stack(accs), plan.blocks_list),
+        log_like=ll)
+
+
+def _sweep_t(plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc,
+             Rs, up, ua):
+    """One table-domain sweep over every chain: propose, the big blocks,
+    then the singles chunk by chunk.  Returns (dlcat, ll, Rc, Rs, accs)."""
+    cut = model.cut_sht
+    dt = dlcat.dtype
+    props = propose_truncnorm(dlcat, plan.sigma, up)
+    lr_vec = truncnorm_logratio(dlcat, props, plan.sigma)
+    log_u = torch.log(ua)                                   # (..., nblocks)
+    accs = torch.zeros_like(log_u)
+
+    for row in plan.big_rows:
+        mb = plan.bmask[row]
+        cand = torch.where(mb > 0, props, dlcat)
+        u_c = plan.u_of(cand, tv)
+        au_c = model.synthesis_cut(u_c)
+        ll_c = model.data_loglike_cut(u_c, au_c)
+        qcorr = (mb * lr_vec).sum(-1)
+        acc = log_u[..., row] < ll_c - ll + qcorr
+        dlcat = torch.where(acc[..., None], cand, dlcat)
+        ll = torch.where(acc, ll_c, ll)
+        Rc_c, Rs_c = cut.ring_cs_of_maps(d_cut - au_c)
+        a3 = acc[..., None, None, None]
+        Rc = torch.where(a3, Rc_c, Rc)
+        Rs = torch.where(a3, Rs_c, Rs)
+        accs[..., row] = acc.to(dt)
+
+    w1, pos, pwc, pws = plan.w1, plan.pos, plan.pwc, plan.pws
+    for ch in plan.chunks:
+        _kind, gmat, sp, sm = grids[ch.f]
+        gsel = gmat[..., ch.j_idx]                          # (..., 2, L, J)
+        if ch.kind == "s0":
+            gw = gsel * ch.omega[:, :, None]
+            CM = torch.einsum("...cml,...cmk->...mlk", gw, gsel)
+            Gl = torch.einsum("...mlk,mlk->...lk", CM, ch.W)
+            RcF, RsF = Rc[..., 0, :, :], Rs[..., 0, :, :]
+            U0re = torch.einsum("mjr,...rm->...mj", ch.lamA,
+                                RcF * w1[:, None])
+            U0im = -torch.einsum("mjr,...rm->...mj", ch.lamA,
+                                 RsF * w1[:, None])
+            rho_l = (torch.einsum("...mj,...mj,m->...j", gsel[..., 0, :, :],
+                                  U0re, plan.cmv)
+                     + torch.einsum("...mj,...mj,m->...j",
+                                    gsel[..., 1, :, :], U0im, plan.cmv))
+        else:
+            CM = torch.einsum("...cml,...cmk->...mlk", gsel, gsel)
+            Gl = torch.einsum("...mlk,mlk->...lk", CM, ch.W)
+            wb = w1[:, None]
+            RcQ, RsQ = Rc[..., 0, :, :], Rs[..., 0, :, :]
+            RcU, RsU = Rc[..., 1, :, :], Rs[..., 1, :, :]
+            Spre = wb * (RcQ + RsU)
+            Spim = wb * (RcU - RsQ)
+            Smre = wb * (RcQ - RsU)
+            Smim = -wb * (RsQ + RcU)
+            Upre = torch.einsum("mjr,...rm->...mj", ch.lamA, Spre)
+            Upim = torch.einsum("mjr,...rm->...mj", ch.lamA, Spim)
+            Umre = torch.einsum("mjr,...rm->...mj", ch.lamB, Smre)
+            Umim = torch.einsum("mjr,...rm->...mj", ch.lamB, Smim)
+            posj = pos[:, None]
+            Xre = sp * Upre + sm * posj * Umre
+            Xim = sp * Upim + sm * posj * Umim
+            rho_l = ((gsel[..., 0, :, :] * Xre).sum(-2)
+                     + (gsel[..., 1, :, :] * Xim).sum(-2))
+        if ch.segj is None:
+            G, rho = Gl, rho_l
+        else:
+            G = ch.segj.T @ Gl @ ch.segj
+            rho = rho_l @ ch.segj
+        q_c = torch.diagonal(G, dim1=-2, dim2=-1)
+
+        # the scalar scan: everything but the cross term sum_{j<k} gacc_j
+        # G_kj is fixed at the chunk's start, so each step is an addcmul,
+        # a compare, a select and a rank-one update of the running cross
+        # terms c (no host sync)
+        gb = ch.gbins
+        D = dlcat[..., gb]
+        P = props[..., gb]
+        sD = torch.sqrt(D)
+        gamma = torch.sqrt(P) - sD
+        be = beta[..., gb]
+        base = (gamma * (alpha[..., gb] - sD * be - rho)
+                + 0.5 * gamma * gamma * (q_c - be))
+        thr = log_u[..., ch.rows] - lr_vec[..., gb]
+        c = torch.zeros_like(base)
+        dll_s, acc_s = [], []
+        for k in range(gb.shape[0]):
+            dll = torch.addcmul(base[..., k], gamma[..., k], c[..., k])
+            acc = dll > thr[..., k]
+            gk = torch.where(acc, gamma[..., k], 0.0)
+            c = torch.addcmul(c, gk[..., None], G[..., :, k])
+            dll_s.append(dll)
+            acc_s.append(acc)
+        dll = torch.stack(dll_s, dim=-1)
+        acc = torch.stack(acc_s, dim=-1)
+        gacc = torch.where(acc, gamma, 0.0)
+        ll = ll + torch.where(acc, dll, 0.0).sum(-1)
+        dlcat = dlcat.index_copy(-1, gb, torch.where(acc, P, D))
+        accs = accs.index_copy(-1, ch.rows, acc.to(dt))
+
+        # fold the accepted moves into the residual: r <- r - sum_i gamma_i a_i
+        gl = gacc if ch.segj is None else gacc @ ch.segj.T
+        gg = gsel * gl[..., None, None, :]
+        if ch.kind == "s0":
+            Fc = torch.einsum("mjr,...cmj->...crm", ch.lamA, gg)
+            Rc0 = Rc[..., 0, :, :] - (pwc * plan.cmv) * Fc[..., 0, :, :]
+            Rs0 = Rs[..., 0, :, :] + (pws * plan.cmv) * Fc[..., 1, :, :]
+            Rc, Rs = Rc0[..., None, :, :], Rs0[..., None, :, :]
+        else:
+            Fp = torch.einsum("mjr,...cmj->...crm", ch.lamA, gg) * sp
+            Fm = torch.einsum("mjr,...cmj->...crm", ch.lamB, gg) * sm
+            Are = Fp[..., 0, :, :] + pos * Fm[..., 0, :, :]
+            Aim = Fp[..., 1, :, :] + pos * Fm[..., 1, :, :]
+            Bre = Fp[..., 0, :, :] - pos * Fm[..., 0, :, :]
+            Bim = Fp[..., 1, :, :] - pos * Fm[..., 1, :, :]
+            # (Qc, Qs, Uc, Us) = (Are, -Aim, Bim, Bre)
+            Rc = torch.stack([Rc[..., 0, :, :] - pwc * Are,
+                              Rc[..., 1, :, :] - pwc * Bim], dim=-3)
+            Rs = torch.stack([Rs[..., 0, :, :] + pws * Aim,
+                              Rs[..., 1, :, :] - pws * Bre], dim=-3)
+    return dlcat, ll, Rc, Rs, accs

@@ -1,5 +1,7 @@
 """Gibbs sampling schemes."""
 
-from .gibbs import GibbsState, GibbsScheme, CenteredGibbs, CR_METHODS
+from .gibbs import (GibbsState, GibbsScheme, CenteredGibbs, ASISGibbs,
+                    CR_METHODS)
 
-__all__ = ["GibbsState", "GibbsScheme", "CenteredGibbs", "CR_METHODS"]
+__all__ = ["GibbsState", "GibbsScheme", "CenteredGibbs", "ASISGibbs",
+           "CR_METHODS"]

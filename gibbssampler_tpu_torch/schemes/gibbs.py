@@ -1,5 +1,5 @@
 """Gibbs sampling schemes (PyTorch counterpart of
-``gibbssampler_tpu.schemes.gibbs``: the centered scheme).
+``gibbssampler_tpu.schemes.gibbs``: the centered scheme and ASIS).
 
 Chains are the leading axis of every tensor, so one call of ``step``
 advances all of them; the iteration loop is a plain Python loop.  Random
@@ -20,7 +20,8 @@ from ..ops.model import SkyModel
 from ..samplers import cls_samplers as cls_mod
 from ..samplers import cr as cr_mod
 
-__all__ = ["GibbsState", "GibbsScheme", "CenteredGibbs", "CR_METHODS"]
+__all__ = ["GibbsState", "GibbsScheme", "CenteredGibbs", "ASISGibbs",
+           "CR_METHODS"]
 
 
 class GibbsState(NamedTuple):
@@ -113,22 +114,29 @@ class GibbsScheme:
         the initial CR draw (or from ``state``).
 
         Returns per-field D_ell chains (nchains, n_iter, nbins_f), the CR
-        accept history (nchains, n_iter) and the final state."""
+        accept history (nchains, n_iter), for a scheme with an MH step the
+        per-field block accept history ``mh_accept`` (nchains, n_iter,
+        nblocks_f), and the final state."""
         if state is None:
             state = self.init_state(dl_init_tuple, nchains, gen)
         nchains = state.s.shape[0]
-        dls, accs = [], []
+        infos = []
         for _ in range(n_iter):
             pool = self.draw_noise_pool(nchains, gen)
             state, info = self.step(state, noise=pool, gen=gen)
-            dls.append(info["dl"])
-            accs.append(info["cr_accept"])
-        return {
-            "dl_chains": tuple(torch.stack([d[f] for d in dls], dim=1)
-                               for f in range(len(self.bins_list))),
-            "cr_accept": torch.stack(accs, dim=1),
+            infos.append(info)
+        nf = len(self.bins_list)
+        out = {
+            "dl_chains": tuple(torch.stack([i["dl"][f] for i in infos], dim=1)
+                               for f in range(nf)),
+            "cr_accept": torch.stack([i["cr_accept"] for i in infos], dim=1),
             "final_state": state,
         }
+        if infos and "mh_accept" in infos[0]:
+            out["mh_accept"] = tuple(
+                torch.stack([i["mh_accept"][f] for i in infos], dim=1)
+                for f in range(nf))
+        return out
 
 
 class CenteredGibbs(GibbsScheme):
@@ -146,3 +154,87 @@ class CenteredGibbs(GibbsScheme):
                                          gammas=gammas, gen=gen)
         return GibbsState(s=s, dl=dl), {"dl": dl,
                                         "cr_accept": cr_info.accept}
+
+
+def _cut_mh_eligible(model, blocks_list, all_sph: bool) -> bool:
+    """True when the rank-one blocked-MH fast path applies: cut model,
+    pixel-domain likelihood, at least one single-bin block, and every
+    multi-bin block preceding the single-bin ones."""
+    if not getattr(model, "has_cut", False) or all_sph:
+        return False
+    kinds = [hi - lo == 1 for blocks in blocks_list for (lo, hi) in blocks]
+    if not any(kinds):
+        return False
+    first_single = kinds.index(True)
+    return all(kinds[first_single:])
+
+
+MH_FAST = ("auto", "off")
+
+
+class ASISGibbs(GibbsScheme):
+    """Ancillarity-sufficiency interweaving: centered CR -> centered
+    inverse-gamma draw -> whiten -> non-centered blocked-MH D_ell draw ->
+    recenter.  State.s holds the centered map.
+
+    ``mh_fast``: "auto" takes the rank-one table-domain engine
+    (``nc_cls_sample_cut``) when ``_cut_mh_eligible`` holds, "off" the
+    direct ``nc_cls_sample``.  The JAX package's "phi" (phi-domain engine)
+    is not ported and raises, as does any engine ``CutMHPlan`` refuses.
+    The engine's static tables are built once, here."""
+
+    def __init__(self, model, bins_list, blocks_list, prop_sigma_list,
+                 n_iter_mh: int = 1, all_sph: bool = False,
+                 mh_fast: str = "auto", **kw):
+        super().__init__(model, bins_list, **kw)
+        if mh_fast == "phi":
+            raise NotImplementedError(
+                'mh_fast="phi": the phi-domain engine is not ported')
+        if mh_fast not in MH_FAST:
+            raise ValueError(f"mh_fast={mh_fast!r}; one of {MH_FAST}")
+        self.blocks_list = tuple(tuple((int(lo), int(hi)) for lo, hi in bl)
+                                 for bl in blocks_list)
+        self.prop_sigma_list = tuple(np.asarray(p, dtype=np.float64)
+                                     for p in prop_sigma_list)
+        self.n_iter_mh = n_iter_mh
+        self.mh_fast = mh_fast
+        self.log_like = cls_mod.make_nc_log_likelihood(
+            model, self.bins_list, all_sph=all_sph)
+        self._use_cut_mh = (mh_fast != "off"
+                            and _cut_mh_eligible(model, self.blocks_list,
+                                                 all_sph))
+        self.mh_plan = (cls_mod.CutMHPlan(model, self.bins_list,
+                                          self.blocks_list,
+                                          self.prop_sigma_list)
+                        if self._use_cut_mh else None)
+
+    def mh_step(self, dl, s_nc, u_prop=None, u_acc=None, gen=None):
+        """The blocked-MH D_ell step given the whitened map: the table
+        engine when eligible, else the direct evaluation."""
+        if self._use_cut_mh:
+            return cls_mod.nc_cls_sample_cut(
+                dl, s_nc, self.model, self.bins_list, self.blocks_list,
+                self.prop_sigma_list, n_iter=self.n_iter_mh, u_prop=u_prop,
+                u_acc=u_acc, gen=gen, plan=self.mh_plan)
+        return cls_mod.nc_cls_sample(
+            dl, s_nc, self.log_like, self.bins_list, self.blocks_list,
+            self.prop_sigma_list, n_iter=self.n_iter_mh, u_prop=u_prop,
+            u_acc=u_acc, gen=gen)
+
+    def step(self, state: GibbsState, noise=None, gen=None, u=None,
+             gammas=None, u_prop=None, u_acc=None):
+        """One iteration of every chain.  Injectable variates as in
+        ``CenteredGibbs.step``, plus the MH step's ``u_prop`` (nchains,
+        n_iter_mh, nbins_total) and ``u_acc`` (nchains, n_iter_mh,
+        nblocks) uniforms."""
+        s, cr_info = self._cr_step(state.s, self.var_cls(state.dl), noise,
+                                   gen, u)
+        dl_c = cls_mod.centered_cls_sample(s, self.bins_list, self.lmax,
+                                           gammas=gammas, gen=gen)
+        s_nc = cls_mod.whiten(s, dl_c, self.bins_list, self.lmax)
+        dl, mh_info = self.mh_step(dl_c, s_nc, u_prop=u_prop, u_acc=u_acc,
+                                   gen=gen)
+        s = cls_mod.recenter(s_nc, dl, self.bins_list, self.lmax)
+        return GibbsState(s=s, dl=dl), {"dl": dl,
+                                        "cr_accept": cr_info.accept,
+                                        "mh_accept": mh_info.accept}

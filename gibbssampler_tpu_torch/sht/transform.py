@@ -198,6 +198,68 @@ class SHT(LegendreCore):
         return self._analysis_spin2_core(q_maps, u_maps,
                                          torch.ones_like(self.wq))
 
+    # -- ring half-spectrum (m-domain) representation -----------------------
+    #
+    # A synthesized map restricted to one ring is a finite cos/sin series in
+    # the ring angle theta_j = 2 pi j / nphi,
+    #     f[j] = sum_m  C_m cos(m theta_j) + S_m sin(m theta_j),
+    # and with mmax <= nphi/2 the ring pixel dot product of two such series
+    # is exact in the coefficients (discrete Parseval):
+    #     sum_j f g = pw_cos . (C C') + pw_sin . (S S').
+    # The blocked-MH table engine (samplers.cls_samplers) does its per-bin
+    # likelihood algebra in this basis.
+
+    def ring_dot_weights(self):
+        """(pw_cos, pw_sin) Parseval weights of the ring pixel dot product
+        in the cos/sin half-spectrum basis (m = 0, and the Nyquist column
+        2 m = nphi, carry pw_cos = nphi, pw_sin = 0)."""
+        n = self.nphi
+        L = self.lmax + 1
+        if n < 2 * self.lmax:
+            raise ValueError(
+                f"ring-domain dot products need nphi >= 2 lmax "
+                f"(nphi={n}, lmax={self.lmax}): cross-mode aliasing")
+        pwc = np.full(L, n / 2.0)
+        pws = np.full(L, n / 2.0)
+        pwc[0], pws[0] = float(n), 0.0
+        if 2 * self.lmax == n:
+            pwc[self.lmax], pws[self.lmax] = float(n), 0.0
+        return (torch.as_tensor(pwc, dtype=self.dtype, device=self.device),
+                torch.as_tensor(pws, dtype=self.dtype, device=self.device))
+
+    def ring_cs_of_maps(self, maps: torch.Tensor):
+        """(..., nr, nphi) pixel maps -> (Rc, Rs) raw ring sums
+        Rc_m = sum_j f cos(m theta_j), Rs_m = sum_j f sin(m theta_j), each
+        (..., nr, L), so that sum_j f a = sum_m (Cc Rc + Cs Rs) for any
+        half-spectrum series a with coefficients (Cc, Cs)."""
+        u, v = self._fold_half(maps.to(self.dtype))
+        return (torch.matmul(u, self.dft_cos.T),
+                torch.matmul(v, self.dft_sin.T))
+
+    def lsel_table(self, lam: torch.Tensor, j_idx) -> torch.Tensor:
+        """The (L, J, nr) slice of a dense (L, L, nr) table at the selected
+        ells ``j_idx`` (zero where m > ell, as the table itself is)."""
+        idx = torch.as_tensor(np.asarray(j_idx, dtype=np.int64),
+                              device=lam.device)
+        return lam[:, idx, :]
+
+    def lsel_grid_spin2_single(self, state: torch.Tensor, which: str):
+        """The Legendre-stage input grid of a single-field spin-2 input (the
+        other field zero), shared by both spin-2 tables.
+
+        For E-only input (B = 0): ap = am = -(g_re, g_im) = -g, so the grid
+        is g with signs (-1, -1).  For B-only (E = 0): ap = (g_im, -g_re)
+        and am = -ap: the swapped grid with signs (+1, -1).  Returns
+        (grid (..., 2, L, L), sign_p, sign_m)."""
+        self._require_spin2()
+        g = self._state_grids(state)
+        if which == "e":
+            return g, -1.0, -1.0
+        if which != "b":
+            raise ValueError(which)
+        gsw = torch.stack([g[..., 1, :, :], -g[..., 0, :, :]], dim=-3)
+        return gsw, 1.0, -1.0
+
 
 def make_sht(lmax: int, grid: SphereGrid | None = None, dtype=torch.float32,
              spin2: bool = False, device="cpu") -> SHT:

@@ -3,12 +3,14 @@ package's (float64, CPU)."""
 
 import numpy as np
 import jax.numpy as jnp
+import torch
 
 from torch_parity import n, t64
 from gibbssampler_tpu import harmonics as jh
 from gibbssampler_tpu.diagnostics import summarize_chains as jax_summary
 from gibbssampler_tpu.inference import example_dl as jax_example_dl
 from gibbssampler_tpu_torch import harmonics as th
+from gibbssampler_tpu_torch.harmonics import spectra as tspectra
 from gibbssampler_tpu_torch.diagnostics import summarize_chains
 from gibbssampler_tpu_torch.inference import example_dl
 
@@ -58,3 +60,24 @@ def test_example_dl_and_summaries_match():
     a, b = summarize_chains(chains), jax_summary(chains)
     for k in b:
         np.testing.assert_allclose(a[k], b[k], rtol=1e-14)
+
+
+def test_constant_tables_are_copied_once():
+    """The helpers' constant tables (dl -> cl factor, unfold gathers, bin
+    sums, valid-slot masks) reach a device once: repeated calls add nothing
+    to the cache and return the cached tensor."""
+    dl = t64(np.abs(np.random.default_rng(2).normal(size=(2, LMAX + 1))))
+    binned = t64(np.ones((2, len(BINS) - 1)))
+
+    def calls():
+        th.variance_expansion_state(dl, LMAX)
+        th.unfold_bins(binned, BINS, LMAX)
+        th.bin_sum(dl, BINS, LMAX)
+        th.alm2cl_state(th.expand_cl_state(dl, LMAX), LMAX)
+
+    calls()
+    before = dict(tspectra._DEVICE_CONSTANTS)
+    calls()
+    assert tspectra._DEVICE_CONSTANTS == before
+    assert th.dl_to_cl_factor(LMAX, torch.float64) is \
+        th.dl_to_cl_factor(LMAX, torch.float64)

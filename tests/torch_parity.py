@@ -80,6 +80,32 @@ def port_model(jax_model, cut=False):
     return with_cut_decomposition(m) if cut else m
 
 
+def jax_mh_uniforms(key, n_iter, ntot, nblocks):
+    """The uniforms the JAX blocked-MH samplers draw from ``key``, as the
+    port takes them: (n_iter, ntot) proposal uniforms and (n_iter,
+    nblocks) block-accept uniforms.  Per sweep key k: kp, ka = split(k);
+    truncated_normal(kp) draws uniform(kp, (ntot,)); block b's uniform is
+    uniform(split(ka, nblocks)[b])."""
+    import jax
+    import jax.numpy as jnp
+    up, ua = [], []
+    for k in jax.random.split(key, n_iter):
+        kp, ka = jax.random.split(k)
+        up.append(np.asarray(jax.random.uniform(kp, (ntot,),
+                                                dtype=jnp.float64)))
+        ua.append(np.asarray(jax.vmap(
+            lambda kk: jax.random.uniform(kk, dtype=jnp.float64))(
+                jax.random.split(ka, nblocks))))
+    return np.stack(up), np.stack(ua)
+
+
+def valid_normal(rng, shape, lmax, lmin=2) -> np.ndarray:
+    """N(0, 1) state values on the valid slots with l >= lmin, 0 elsewhere
+    (a whitened map's support)."""
+    from gibbssampler_tpu_torch.harmonics import ell_mask_state
+    return rng.normal(size=shape) * ell_mask_state(lmax, lmin)
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; skips the test where there is none."""
