@@ -15,15 +15,19 @@ non-zero:
    and shared memory for every kernel;
 3. compares each kernel with its plain PyTorch version (true float32) on
    the card at the JAX package's Pallas test shapes, a ragged shape, the
-   main-path shapes and a batch of 200, in float32 (<= 1e-5 max|ref|) and
-   float64 (<= 1e-12), with contiguous operands and with the strided views
-   the main path passes, the outputs given NaN-filled memory; checks
-   adjointness; and times kernel and plain version at L 513, C 256 and 65
-   or 513 rings, with TFLOP/s and GB/s against the data sheet's peaks;
+   main-path shapes (65 band rings, 83 floor rings and 211 point rows of
+   the planckish mask, 513 rings) and a batch of 200, in float32 (<= 1e-5
+   max|ref|) and float64 (<= 1e-12), with contiguous operands and with the
+   strided views the main path passes, the outputs given NaN-filled
+   memory; checks adjointness; and times kernel and plain version (one
+   torch.einsum call) at L 513, C 256 and each main-path row count, with
+   TFLOP/s, GB/s and the bound: the larger of the bytes over 3.35 TB/s and
+   the FLOPs over the 3xTF32 rate, 495 / 3 TFLOP/s;
 4. checks the lmax-512 transforms in float32 (round trip and the cut
-   transform's adjointness), and one CenteredGibbs and one ASISGibbs step
-   at lmax 16 in float64, card against CPU on the same injected variates
-   (<= 1e-9, MH accepts equal);
+   transform's adjointness), and at lmax 16 in float64, card against CPU
+   on the same injected variates (<= 1e-9, MH accepts equal), one
+   CenteredGibbs and one ASISGibbs step on a band mask and one ASISGibbs
+   step on a holey mask (the floor + sparse-hole split);
 5. on a band-masked polarized sky at lmax 512 (GL grid 513 x 1026, cut
    decomposition over 65 rings, float32, 128 chains) runs two paths, each
    with the kernel launch counts set to 0 before it and read after it:
@@ -38,8 +42,13 @@ non-zero:
    whitened maps): the table engine against the direct nc_cls_sample on
    the same uniforms (D_ell <= 1e-9, accepts equal), and the float32
    log-likelihood's rounding against float64 over all chains;
-7. prints the kernels' JSON line (launches summed over both paths), then
-   {"ok": true, "device": {...}} last.
+7. the same ASIS slice and float64 sweep on bench.py's planckish mask (an
+   apodized band plus 200 point-source holes): checks the split's 83
+   floor rings, 1547 hole pixels and 211 x 64 point rows, and the exact
+   launch counts per iteration (each cut transform fused with the point
+   set's);
+8. prints the kernels' JSON line (launches summed over the three paths),
+   then {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX; the port is imported from this file's
 directory.
@@ -70,11 +79,63 @@ ASIS_BIG = 277
 ASIS_CHUNKS = 12
 CUT_RINGS = 65
 BB_TAIL_FROM = 300    # bench.py's BB-tail ESS: bins from l = 300
+# bench.py's planckish GL mask at lmax 512: its floor + sparse-hole split
+# has 83 floor rings and 1547 hole pixels in 211 point rows of width 64;
+# per ASIS iteration every cut transform is fused with the point set's,
+# two tables each on both
+PLANCKISH_FLOOR_RINGS = 83
+PLANCKISH_HOLE_PIX = 1547
+PLANCKISH_POINT_ROWS = (211, 64)
+PLANCKISH_PER_ITER = (24, 12)
+# the kernels' timed row counts: band cut rings, planckish floor rings and
+# point rows, the full grid
+TIMED_NR = (CUT_RINGS, PLANCKISH_FLOOR_RINGS, PLANCKISH_POINT_ROWS[0],
+            LMAX + 1)
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
+TF32X3_FLOPS_PER_S = 495e12 / 3      # 3 TF32 tensor-core products each
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def planckish_mask(grid, nholes=200, seed=5):
+    """bench.py's planckish GL mask (bench.py:190-211): an apodized
+    +-11.5 deg band with a 3 deg cosine ramp, plus ``nholes`` holes of
+    0.35 deg radius at random positions over the sphere."""
+    lat = np.abs(np.pi / 2 - grid.theta)
+    b0, apo = np.radians(11.5), np.radians(3.0)
+    x = np.clip((lat - b0) / apo, 0.0, 1.0)
+    keep = 0.5 - 0.5 * np.cos(np.pi * x)
+    mask = np.broadcast_to(keep[:, None], (grid.nrings, grid.nphi)).copy()
+    rng = np.random.default_rng(seed)
+    rhole = np.radians(0.35)
+    phi = 2.0 * np.pi * np.arange(grid.nphi) / grid.nphi
+    ct, st = np.cos(grid.theta), np.sin(grid.theta)
+    for _ in range(nholes):
+        ct0 = rng.uniform(-1.0, 1.0)
+        st0 = np.sqrt(1.0 - ct0 * ct0)
+        ph0 = rng.uniform(0.0, 2.0 * np.pi)
+        cosd = (ct0 * ct[:, None]
+                + st0 * st[:, None] * np.cos(phi[None, :] - ph0))
+        mask[cosd > np.cos(rhole)] = 0.0
+    return mask
+
+
+def holey_mask(grid, seed=3, nholes=6, band=0.25, apo=0.15):
+    """An apodized band and square holes at random positions: the
+    planckish shape at toy scale (tests/test_sparse.py::holey_mask)."""
+    lat = np.abs(np.pi / 2 - grid.theta)
+    x = np.clip((lat - band) / apo, 0.0, 1.0)
+    keep = 0.5 - 0.5 * np.cos(np.pi * x)
+    mask = np.broadcast_to(keep[:, None], (grid.nrings, grid.nphi)).copy()
+    rng = np.random.default_rng(seed)
+    for _ in range(nholes):
+        r = rng.integers(0, grid.nrings)
+        c = rng.integers(0, grid.nphi)
+        mask[max(0, r - 1): r + 2, max(0, c - 1): c + 2] = 0.0
+    return mask
 
 
 def planck_bins(lmax):
@@ -132,6 +193,15 @@ def work(name, L, nr, C, itemsize=4):
     return 2 * nr * C * tri, nbytes * itemsize
 
 
+def bound(flops, nbytes):
+    """(ms, what bounds it): the least time of one float32 call, the
+    larger of its bytes over the HBM rate and its FLOPs over the 3xTF32
+    rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TF32X3_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_build(lk):
     """Build every kernel source (nvcc in parallel); print ptxas's report
     of each kernel and the float32 kernels' dynamic shared memory."""
@@ -154,8 +224,8 @@ def phase_kernels(torch, lk, dev, card):
     check(not torch.backends.cuda.matmul.allow_tf32,
           "the plain versions must run in true float32 (allow_tf32 is on)")
     gen = torch.Generator(device=dev).manual_seed(0)
-    shapes = [(16, 12, 8), (37, 19, 10), (LMAX + 1, 65, 2 * NCHAINS),
-              (LMAX + 1, 65, 200), (LMAX + 1, LMAX + 1, 2 * NCHAINS)]
+    shapes = ([(16, 12, 8), (37, 19, 10), (LMAX + 1, CUT_RINGS, 200)]
+              + [(LMAX + 1, nr, 2 * NCHAINS) for nr in TIMED_NR])
     tols = {torch.float32: 1e-5, torch.float64: 1e-12}
     rec = {}
     for L, nr, C in shapes:
@@ -204,18 +274,19 @@ def phase_kernels(torch, lk, dev, card):
                       f"adjointness {rel:.2e}", flush=True)
                 if (L == LMAX + 1 and C == 2 * NCHAINS
                         and dtype == torch.float32):
-                    rec.update(time_kernels(torch, lk, lam, x, g, lay, card,
-                                            errs))
+                    for name, r in time_kernels(torch, lk, lam, x, g, lay,
+                                                card, errs).items():
+                        rec.setdefault(name, {})[nr] = r
             del lam, x0, g0, y0, x, g, y
     torch.cuda.empty_cache()
     return rec
 
 
 def time_kernels(torch, lk, lam, x, g, lay, card, errs):
-    """Kernel and plain times (plain, kernel, kernel, plain) with rates;
-    returns the records of the main-path shape and layout."""
+    """Kernel and plain times (plain, kernel, kernel, plain) with rates
+    and the bound; returns the records of the main path's layout."""
     L, nr, C = lam.shape[0], lam.shape[2], x.shape[1]
-    reps = 20 if nr == 65 else 5
+    reps = 5 if nr == LMAX + 1 else 20
     rec = {}
     for name, kern, plain, b in (
             ("legendre_synth_tri", lk.legendre_synth_tri,
@@ -229,16 +300,21 @@ def time_kernels(torch, lk, lam, x, g, lay, card, errs):
         ms, pms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
         flops, nbytes = work(name, L, nr, C)
         tflops, gbs = flops / ms * 1e-9, nbytes / ms * 1e-6
+        bound_ms, bound_by = bound(flops, nbytes)
         print(f"time {name} L={L} nr={nr} C={C} float32 {lay}: kernel "
-              f"{ms:.4f} ms, plain einsum {pms:.4f} ms; kernel "
+              f"{ms:.4f} ms, plain einsum {pms:.4f} ms; bound {bound_ms:.4f} "
+              f"ms ({bound_by}), {bound_ms / ms:.1%} of it reached; kernel "
               f"{tflops:.2f} TFLOP/s on the triangle ({tflops / 67:.1%} of "
               f"67 fp32 FMA; 3xTF32 {3 * tflops / 495:.1%} of 495 TF32), "
               f"{gbs:.0f} GB/s ({gbs / 3350:.1%} of 3350) [{card}]",
               flush=True)
-        if nr == 65 and lay == "state views":
+        if lay == "state views":
+            # the plain version is itself the one library call that
+            # computes the function (torch.einsum in true float32)
             rec[name] = {"design": "3xtf32-mma.sync",
                          "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
-                         "tflops": tflops}
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": pms, "tflops": tflops}
     return rec
 
 
@@ -285,19 +361,24 @@ def phase_sht(torch, dev):
     return sht
 
 
-def small_dataset(torch, lmax):
-    """The lmax-16 band-masked polarized dataset of the small-step phase,
-    as the numpy fields ``interop.model_from_numpy`` takes."""
+def small_dataset(torch, lmax, holey=False):
+    """The lmax-16 band-masked (or holey-masked) polarized dataset of the
+    small-step phase, as the numpy fields ``interop.model_from_numpy``
+    takes."""
     from gibbssampler_tpu_torch.inference import example_dl, simulate_dataset
+    from gibbssampler_tpu_torch.sht import gauss_legendre_grid
     gen = torch.Generator().manual_seed(2)
     dls = np.stack([example_dl(lmax, "ee"), example_dl(lmax, "bb")])
-    nr = lmax + 1
-    theta = np.arccos(np.polynomial.legendre.leggauss(nr)[0][::-1])
-    keep = (np.abs(np.pi / 2 - theta) > 0.2).astype(np.float64)
-    mask = np.broadcast_to(keep[:, None], (nr, 2 * lmax + 2))
+    grid = gauss_legendre_grid(lmax)
+    if holey:
+        mask = holey_mask(grid)
+    else:
+        keep = (np.abs(np.pi / 2 - grid.theta) > 0.2).astype(np.float64)
+        mask = np.broadcast_to(keep[:, None], (grid.nrings, grid.nphi))
     cpu_model, _ = simulate_dataset(lmax, 2, dls, 0.2 ** 2,
                                     fwhm_radians=np.radians(0.5), mask=mask,
-                                    dtype=torch.float64, gen=gen)
+                                    dtype=torch.float64, device="cpu",
+                                    gen=gen)
     g = cpu_model.sht.grid
     arrays = {"d": cpu_model.d.numpy(), "tau": cpu_model.noise.tau.numpy(),
               "q_map": cpu_model.noise.q_map.numpy(),
@@ -308,21 +389,23 @@ def small_dataset(torch, lmax):
 
 
 def phase_small_steps(torch, dev):
-    """One CenteredGibbs and one ASISGibbs step at lmax 16 in float64, card
-    against CPU, on the same dataset and injected variates: the kernels
-    inside both paths, and the MH table engine on the card."""
+    """One CenteredGibbs and one ASISGibbs step on a band mask and one
+    ASISGibbs step on a holey mask (floor + sparse-hole split) at lmax 16
+    in float64, card against CPU, on the same dataset and injected
+    variates: the kernels inside every path, the point-set transform and
+    the MH table engine on the card."""
     from gibbssampler_tpu_torch.interop import model_from_numpy
     from gibbssampler_tpu_torch.ops import with_cut_decomposition
     from gibbssampler_tpu_torch.schemes import ASISGibbs, CenteredGibbs
     from gibbssampler_tpu_torch.schemes.gibbs import GibbsState
     lmax, nch = 16, 4
-    arrays, dls = small_dataset(torch, lmax)
     cbins = np.array([2, 4, 7, 11, 17])
     abins = [np.arange(2, lmax + 2), np.array([2, 3, 4, 5, 6, 7, 8, 9, 10,
                                                12, 15, 17])]
     ablocks = [[(0, lmax - 1)], [(0, 4)] + [(i, i + 1) for i in range(4, 11)]]
     opts = {"n_gibbs": 1, "tau": 0.02}
-    for name in ("centered", "asis"):
+    for name in ("centered", "asis", "asis holey"):
+        arrays, dls = small_dataset(torch, lmax, holey=(name == "asis holey"))
         bins = [cbins, cbins] if name == "centered" else abins
         dl0 = [np.tile([d[lo:hi].mean() for lo, hi in zip(b[:-1], b[1:])],
                        (nch, 1)) for d, b in zip(dls, bins)]
@@ -330,6 +413,8 @@ def phase_small_steps(torch, dev):
         outs = []
         for device in ("cpu", dev):
             model = with_cut_decomposition(model_from_numpy(arrays, device))
+            check(model.has_sparse == (name == "asis holey"),
+                  f"small {name} step: sparse split {model.has_sparse}")
             if name == "centered":
                 scheme = CenteredGibbs(model, bins, cr_method="aux_mala",
                                        cr_options=opts)
@@ -344,14 +429,17 @@ def phase_small_steps(torch, dev):
             if not outs:
                 var = scheme.var_cls(tuple(t(d) for d in dl0)).cpu().numpy()
                 s0 = np.sqrt(var) * rng.normal(size=var.shape)
-                inj = {"noise": {"state": rng.normal(size=(nch, 2, 2,
-                                                           model.nstate)),
-                                 "aux": rng.normal(size=(nch, 1) + tuple(
-                                     model.w_cut.shape))},
+                pool = {"state": rng.normal(size=(nch, 2, 2, model.nstate)),
+                        "aux": rng.normal(size=(nch, 1)
+                                          + tuple(model.w_cut.shape))}
+                if model.has_sparse:
+                    pool["sp"] = rng.normal(size=(nch, 1)
+                                            + tuple(model.w_sp.shape))
+                inj = {"noise": pool,
                        "u": rng.uniform(size=nch),
                        "gammas": [rng.gamma(3.0, size=(nch, len(b) - 1))
                                   for b in bins]}
-                if name == "asis":
+                if name != "centered":
                     ntot = sum(len(b) - 1 for b in bins)
                     inj["u_prop"] = rng.uniform(size=(nch, 1, ntot))
                     inj["u_acc"] = rng.uniform(size=(nch, 1, sum(
@@ -370,7 +458,7 @@ def phase_small_steps(torch, dev):
             worst = max(worst, err)
         check(worst <= 1e-9, f"small {name} step card vs CPU rel err {worst} "
               "> 1e-9")
-        if name == "asis":
+        if name != "centered":
             for a, b in zip(outs[0][4:], outs[1][4:]):
                 check(np.array_equal(a, b), "small ASIS step: MH accepts "
                       "differ between card and CPU")
@@ -402,6 +490,37 @@ def phase_dataset(torch, sht, dev):
     print(f"dataset set-up (simulate, cut decomposition over "
           f"{model.cut_sht.nrings} rings): {time.time() - t0:.1f} s",
           flush=True)
+    return model, dls
+
+
+def phase_planckish_dataset(torch, sht, dev):
+    """The planckish dataset: the same sky under bench.py's planckish mask,
+    float32; checks the floor + sparse-hole split's exact sizes."""
+    from gibbssampler_tpu_torch.inference import example_dl, simulate_dataset
+    from gibbssampler_tpu_torch.ops import with_cut_decomposition
+    t0 = time.time()
+    mask = planckish_mask(sht.grid)
+    t1 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dls = np.stack([example_dl(LMAX, "ee"), example_dl(LMAX, "bb")])
+    model, _ = simulate_dataset(LMAX, 2, dls, 0.2 ** 2,
+                                fwhm_radians=np.radians(0.5), mask=mask,
+                                dtype=torch.float32, device=dev, sht=sht,
+                                gen=gen)
+    model = with_cut_decomposition(model)
+    sp = model.sp_sht
+    check(model.has_sparse, "planckish mask: no sparse split")
+    got = (model.cut_sht.nrings, sp.nslots, (sp.nrows, sp.p))
+    want = (PLANCKISH_FLOOR_RINGS, PLANCKISH_HOLE_PIX, PLANCKISH_POINT_ROWS)
+    check(got == want, f"planckish split (floor rings, hole pixels, point "
+          f"rows) {got}, expected {want}")
+    check(model.cut_w_uniform and model.cut_w_equal_fields,
+          "planckish floor: cut weights not uniform")
+    torch.cuda.synchronize()
+    print(f"planckish dataset: f_sky {mask.mean():.4f}, floor over "
+          f"{got[0]} rings, {got[1]} hole pixels in {sp.nrows} x {sp.p} "
+          f"point rows; mask {t1 - t0:.1f} s, set-up {time.time() - t1:.1f} "
+          "s", flush=True)
     return model, dls
 
 
@@ -512,9 +631,11 @@ def asis_setup(torch, model, dls):
     return scheme, dl0
 
 
-def phase_asis_slice(torch, lk, model, dls, dev, card, profile):
-    """The flagship ASIS slice at full width; returns (launches, scheme,
-    final state)."""
+def phase_asis_slice(torch, lk, model, dls, dev, card, profile,
+                     label="ASIS", per_iter=ASIS_PER_ITER):
+    """The flagship ASIS slice at full width, ``per_iter`` (synthesis,
+    adjoint) launches per iteration; returns (launches, scheme, final
+    state)."""
     scheme, dl0 = asis_setup(torch, model, dls)
     mh_events = []
     mh_step = scheme.mh_step
@@ -531,9 +652,9 @@ def phase_asis_slice(torch, lk, model, dls, dev, card, profile):
     scheme.mh_step = timed_mh_step
     warm, out, wall, launches, timed = run_slice(torch, lk, scheme, dl0, dev)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    for name, n, per in zip(("synth", "adj"), timed, ASIS_PER_ITER):
-        check(n == per * N_TIMED, f"ASIS {name} launches in the timed run "
-              f"{n}, expected {per} x {N_TIMED}")
+    for name, n, per in zip(("synth", "adj"), timed, per_iter):
+        check(n == per * N_TIMED, f"{label} {name} launches in the timed "
+              f"run {n}, expected {per} x {N_TIMED}")
     mh_ms = float(np.mean([a.elapsed_time(b)
                            for a, b in mh_events[-N_TIMED:]]))
     scheme.mh_step = mh_step
@@ -543,30 +664,30 @@ def phase_asis_slice(torch, lk, model, dls, dev, card, profile):
     for f, a in enumerate(mh):
         check(a.shape == (NCHAINS, N_TIMED, len(scheme.blocks_list[f])),
               f"mh_accept[{f}] shape {a.shape}")
-        check(0.0 < a.mean() < 1.0, f"MH acceptance of field {f} is "
-              f"{a.mean()}, not in (0, 1)")
+        check(0.0 < a.mean() < 1.0, f"{label} MH acceptance of field {f} "
+              f"is {a.mean()}, not in (0, 1)")
     ess_s, bb_tail, per_chain = ess_metrics(out, bins_list, wall)
-    print(f"slice lmax={LMAX} {NCHAINS} chains ASIS (aux_mala CR + table-"
-          f"engine blocked MH): {wall / N_TIMED * 1e3:.2f} ms/iter over "
-          f"{N_TIMED} iterations; MH step {mh_ms:.2f} ms/iter (CUDA events) "
-          f"[{card}]", flush=True)
-    print(f"ASIS acceptance: MALA {acc:.4f}; MH EE block {mh[0].mean():.4f}, "
-          f"BB big block {mh[1][..., 0].mean():.4f}, BB singles "
-          f"{mh[1][..., 1:].mean():.4f} (BB all blocks {mh[1].mean():.4f}) "
-          f"[{card}]", flush=True)
-    print(f"ASIS ESS ({N_TIMED} iterations, burn 20%): median pooled ESS/s "
-          f"{ess_s:.3f}; bb_tail_ess_per_s {bb_tail:.3f}; "
+    print(f"slice lmax={LMAX} {NCHAINS} chains {label} (aux_mala CR + "
+          f"table-engine blocked MH): {wall / N_TIMED * 1e3:.2f} ms/iter "
+          f"over {N_TIMED} iterations; MH step {mh_ms:.2f} ms/iter (CUDA "
+          f"events) [{card}]", flush=True)
+    print(f"{label} acceptance: MALA {acc:.4f}; MH EE block "
+          f"{mh[0].mean():.4f}, BB big block {mh[1][..., 0].mean():.4f}, BB "
+          f"singles {mh[1][..., 1:].mean():.4f} (BB all blocks "
+          f"{mh[1].mean():.4f}) [{card}]", flush=True)
+    print(f"{label} ESS ({N_TIMED} iterations, burn 20%): median pooled "
+          f"ESS/s {ess_s:.3f}; bb_tail_ess_per_s {bb_tail:.3f}; "
           f"per_chain_ess_per_iter {per_chain:.5f}; peak device memory "
           f"{peak:.2f} GiB [{card}]", flush=True)
-    print(f"launches in the ASIS path: legendre_synth_tri {launches[0]}, "
-          f"legendre_adj_tri {launches[1]} ({ASIS_PER_ITER[0]} and "
-          f"{ASIS_PER_ITER[1]} per iteration)", flush=True)
+    print(f"launches in the {label} path: legendre_synth_tri {launches[0]}, "
+          f"legendre_adj_tri {launches[1]} ({per_iter[0]} and "
+          f"{per_iter[1]} per iteration)", flush=True)
     if profile:
-        profile_asis(torch, scheme, out["final_state"], dl0, dev, card)
+        profile_asis(torch, scheme, out["final_state"], dl0, dev, card, label)
     return launches, scheme, out["final_state"]
 
 
-def profile_asis(torch, scheme, state, dl0, dev, card, n_iter=5):
+def profile_asis(torch, scheme, state, dl0, dev, card, label, n_iter=5):
     """torch.profiler over n_iter ASIS iterations: the top kernels by
     device time and the device's busy share of the wall clock."""
     from torch.autograd import DeviceType
@@ -588,7 +709,7 @@ def profile_asis(torch, scheme, state, dl0, dev, card, n_iter=5):
             if e.device_type == DeviceType.CUDA and dev_time(e) > 0]
     rows.sort(key=lambda e: -dev_time(e))
     dev_us = sum(dev_time(e) for e in rows)
-    print(f"profile ASIS {n_iter} iterations: {wall / n_iter * 1e3:.2f} "
+    print(f"profile {label} {n_iter} iterations: {wall / n_iter * 1e3:.2f} "
           f"ms/iter under the profiler; device self time "
           f"{dev_us / n_iter / 1e3:.2f} ms/iter = "
           f"{dev_us * 1e-6 / wall:.1%} of the wall clock [{card}]",
@@ -601,22 +722,27 @@ def profile_asis(torch, scheme, state, dl0, dev, card, n_iter=5):
 
 def cast_cut_model(torch, model, dtype):
     """The cut operators and data terms of ``model`` in ``dtype`` (the cut
-    rings' transform rebuilt in that precision; the full grid's transform,
-    which the MH step does not use, is kept)."""
+    rings' and the point set's transforms rebuilt in that precision; the
+    full grid's transform, which the MH step does not use, is kept)."""
     import dataclasses
-    from gibbssampler_tpu_torch.sht import SHT
-    c = lambda x: x.to(dtype)
-    cut = SHT(model.cut_sht.grid, LMAX, dtype=dtype, spin2=True,
-              device=model.cut_sht.device)
+    from gibbssampler_tpu_torch.sht import SHT, PointSHT
+    c = lambda x: None if x is None else x.to(dtype)
+    dev = model.cut_sht.device
+    cut = SHT(model.cut_sht.grid, LMAX, dtype=dtype, spin2=True, device=dev)
+    sp = model.sp_sht
+    if sp is not None:
+        sp = PointSHT(sp.theta, sp.phi, sp.valid.cpu().numpy(), LMAX,
+                      dtype=dtype, spin0=False, spin2=True, device=dev)
     noise = dataclasses.replace(model.noise, tau=c(model.noise.tau),
                                 q_map=c(model.noise.q_map))
     return dataclasses.replace(
         model, noise=noise, bl=c(model.bl), d=c(model.d), cut_sht=cut,
         d_cut=c(model.d_cut), w_cut=c(model.w_cut), cut_c0=c(model.cut_c0),
-        cut_c1=c(model.cut_c1))
+        cut_c1=c(model.cut_c1), sp_sht=sp, d_sp=c(model.d_sp),
+        w_sp=c(model.w_sp))
 
 
-def phase_mh_sweep(torch, scheme, state, dev, card, nch=4):
+def phase_mh_sweep(torch, scheme, state, dev, card, label="", nch=4):
     """One MH sweep at full width in float64 (the main path's bins, blocks
     and sigmas; the slice's final whitened maps of ``nch`` chains): the
     table engine against the direct nc_cls_sample on the same injected
@@ -664,14 +790,16 @@ def phase_mh_sweep(torch, scheme, state, dev, card, nch=4):
               f"full-width MH sweep: accepts of field {f} differ")
     dll_end = float((fast[1].log_like - direct[1].log_like).abs().max())
     acc = np.concatenate([a.cpu().numpy().ravel() for a in fast[1].accept])
-    print(f"MH sweep lmax={LMAX} {nch} chains float64 ({len(plan.chunks)} "
-          f"chunks, {nblocks} blocks): table engine vs direct D_ell max rel "
-          f"err {err:.2e}, accepts equal (mean {acc.mean():.4f}), final "
+    print(f"MH sweep{label} lmax={LMAX} {nch} chains float64 "
+          f"({len(plan.chunks)} chunks, {nblocks} blocks): table engine vs "
+          f"direct D_ell max rel err {err:.2e}, accepts equal (mean "
+          f"{acc.mean():.4f}), final "
           f"log-likelihood |diff| {dll_end:.2e}; table engine "
           f"{(t2 - t1) * 1e3:.1f} ms, direct {(t3 - t2) * 1e3:.1f} ms "
           f"(set-up {t1 - t0:.1f} s) [{card}]", flush=True)
-    print(f"float32 log-likelihood rounding at the slice's final state "
-          f"({len(dll)} chains): |ll32 - ll64| median {np.median(dll):.3f}, "
+    print(f"float32 log-likelihood rounding{label} at the slice's final "
+          f"state ({len(dll)} chains): |ll32 - ll64| median "
+          f"{np.median(dll):.3f}, "
           f"max {dll.max():.3f} nats (|ll| ~ {float(ll64.abs().mean()):.4g}) "
           f"[{card}]", flush=True)
 
@@ -699,20 +827,31 @@ def main():
     phase_small_steps(torch, dev)
     model, dls = phase_dataset(torch, sht, dev)
     launches_c = phase_centered_slice(torch, lk, model, dls, dev, card)
+    profile = "--profile" in sys.argv[1:]
     launches_a, scheme, state = phase_asis_slice(
-        torch, lk, model, dls, dev, card, "--profile" in sys.argv[1:])
+        torch, lk, model, dls, dev, card, profile)
     phase_mh_sweep(torch, scheme, state, dev, card)
-    launches = [a + b for a, b in zip(launches_c, launches_a)]
+    del model, scheme, state
+    torch.cuda.empty_cache()
+    model, dls = phase_planckish_dataset(torch, sht, dev)
+    launches_p, scheme, state = phase_asis_slice(
+        torch, lk, model, dls, dev, card, profile, label="planckish ASIS",
+        per_iter=PLANCKISH_PER_ITER)
+    phase_mh_sweep(torch, scheme, state, dev, card, label=" planckish")
+    launches = [a + b + c for a, b, c in zip(launches_c, launches_a,
+                                             launches_p)]
 
     src = "gibbssampler_tpu_torch/csrc/legendre_tri.cu"
-    kernels = [
-        {"name": "legendre_synth_tri", "route": "cuda", "source": src,
-         "replaces": "gibbssampler_tpu/sht/pallas_legendre.py:52",
-         "launches": launches[0], **rec["legendre_synth_tri"]},
-        {"name": "legendre_adj_tri", "route": "cuda", "source": src,
-         "replaces": "gibbssampler_tpu/sht/pallas_legendre.py:106",
-         "launches": launches[1], **rec["legendre_adj_tri"]},
-    ]
+    kernels = []
+    for i, (name, line) in enumerate((("legendre_synth_tri", 52),
+                                      ("legendre_adj_tri", 106))):
+        # the top-level times are those at the band's cut rings; every
+        # main-path row count is listed under "by_nr"
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": "gibbssampler_tpu/sht/pallas_legendre.py:"
+                                    f"{line}",
+                        "launches": launches[i], **rec[name][CUT_RINGS],
+                        "by_nr": {str(nr): r for nr, r in rec[name].items()}})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched by the main path")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -38,7 +38,7 @@ def example_dl(lmax: int, kind: str = "tt", amp: float = 1000.0) -> np.ndarray:
 
 def simulate_dataset(lmax: int, spin: int, dl_fields, noise_sigma2,
                      fwhm_radians: float = 0.0, mask=None,
-                     dtype=torch.float32, device="cpu",
+                     dtype=torch.float32, device="cuda",
                      sht: SHT | None = None,
                      gen: torch.Generator | None = None):
     """Simulate d = A B s + n and return (SkyModel, truth dict).

@@ -29,7 +29,7 @@ from .sht.transform import SHT
 __all__ = ["model_from_numpy", "state_from_numpy", "tuned_proposal_sigmas"]
 
 
-def model_from_numpy(arrays: dict, device="cpu",
+def model_from_numpy(arrays: dict, device="cuda",
                      dtype=torch.float64) -> SkyModel:
     """Build the port's SkyModel (full grid, no cut decomposition) from the
     JAX model's fields given as numpy arrays."""
@@ -50,7 +50,8 @@ def model_from_numpy(arrays: dict, device="cpu",
                     d=None if d is None else t(d))
 
 
-def state_from_numpy(s, dl, device="cpu", dtype=torch.float64) -> GibbsState:
+def state_from_numpy(s, dl, device="cuda",
+                     dtype=torch.float64) -> GibbsState:
     """GibbsState from (nchains, nfields, nstate) ``s`` and a per-field
     sequence of (nchains, nbins_f) binned D_ell."""
     t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)

@@ -37,7 +37,7 @@ class NoiseModel:
 
     @classmethod
     def white(cls, sigma2, grid, nfields: int, mask=None,
-              dtype=torch.float32, device="cpu"):
+              dtype=torch.float32, device="cuda"):
         """Uniform white noise of variance sigma2 (scalar or per field) on an
         iso-latitude grid; optional (nrings, nphi) mask in [0, 1]."""
         omega = 4.0 * np.pi / grid.npix

@@ -33,6 +33,7 @@ import torch
 from ..harmonics.gridstate import (alm2cl_state, almxfl_state, state_masks,
                                    variance_expansion_state)
 from ..harmonics.spectra import bin_sum, dl_to_cl_factor, unfold_bins
+from ..sht.transform import SPIN2_SINGLE_SIGNS
 
 __all__ = ["standard_gamma", "invgamma_dl", "centered_cls_sample",
            "propose_truncnorm", "truncnorm_logratio", "NCClsInfo",
@@ -393,22 +394,25 @@ class _TChunk(NamedTuple):
     lamB: torch.Tensor | None
     W: torch.Tensor            # (L, J, J)
     omega: torch.Tensor | None
+    sp_tab: torch.Tensor | None  # (J, 2L, nmaps S) hole-point slot tables
 
 
 class CutMHPlan:
     """The static part of ``nc_cls_sample_cut`` for one model, binning,
     blocking and proposal scale, built once on the model's device: block
     table and order, the chunking of the single-bin blocks, their gather
-    indices and the ell-pair W tables of the table-domain engine.  These
-    depend only on the model, the bins and the blocks (the JAX package
-    rebuilds them inside ``jit`` on every call; the values are the same).
+    indices, the ell-pair W tables of the table-domain engine and, for a
+    model with the sparse split, the hole points' per-chunk slot tables
+    (``PointSHT.flat_tables_spin*``).  These depend only on the model, the
+    bins and the blocks (the JAX package rebuilds them inside ``jit`` on
+    every call; the values are the same).
 
     Raises ``NotImplementedError`` wherever the JAX package would take an
     engine the port does not have: the coefficient m-domain engine
     (``mdomain="m"``, or w_cut not equal across map components), the
     phi-domain engine (``mdomain=False``, no single-bin blocks, or w_cut
-    not azimuthally uniform), the sparse-hole corrections, ring phases, the
-    Nyquist column (nphi = 2 lmax) and the PNCP identity re-centering."""
+    not azimuthally uniform), ring phases, the Nyquist column
+    (nphi = 2 lmax) and the PNCP identity re-centering."""
 
     def __init__(self, model, bins_list, blocks_list, prop_sigma_list,
                  mdomain="auto", l_cut_identity=None, dtype=None):
@@ -462,9 +466,6 @@ class CutMHPlan:
             raise NotImplementedError(
                 "no single-bin blocks: the JAX package runs the phi-domain "
                 "sweep, which is not ported; use nc_cls_sample")
-        if getattr(model, "has_sparse", False):
-            raise NotImplementedError("sparse-hole corrections are not "
-                                      "ported")
         if not _mdomain_eligible(model):
             raise NotImplementedError(
                 "w_cut is not azimuthally uniform (or nphi < 2 lmax): the "
@@ -488,12 +489,27 @@ class CutMHPlan:
         tpre = _prepare_tchunks(model, cut, mchunks, self.w1, dt, nyq=nyq)
         idx = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64),
                                         device=dev)
+        # the sparse split: the hole residual and weights on the flat slot
+        # axis, (..., nmaps * nslots), and per chunk the slot tables
+        self.spt = model.sp_sht
+        if self.spt is not None:
+            self.d_sp = model.d_sp.to(dt)
+            self.w_sp_flat = self.spt.flat_of(model.w_sp.to(dt)).flatten(-2)
+
+        def sp_tab(f, j_idx):
+            if self.spt is None:
+                return None
+            if model.spin == 0:
+                return self.spt.flat_tables_spin0(j_idx, dt)
+            return self.spt.flat_tables_spin2(
+                *SPIN2_SINGLE_SIGNS["e" if f == 0 else "b"], j_idx, dt)
+
         self.chunks = [
             _TChunk(f=f, j_idx=idx(j_idx),
                     segj=(None if seg is None else
                           torch.as_tensor(seg, dtype=dt, device=dev)),
                     gbins=idx(gbins), rows=idx(rows), kind=kind, lamA=lamA,
-                    lamB=lamB, W=W, omega=omega)
+                    lamB=lamB, W=W, omega=omega, sp_tab=sp_tab(f, j_idx))
             for (f, j_idx, seg, gbins, rows), (kind, lamA, lamB, W, omega)
             in zip(mchunks, tpre)]
         self.fields = sorted({c.f for c in self.chunks})
@@ -522,6 +538,13 @@ class CutMHPlan:
                          .reshape(tf.shape))
         return torch.stack(parts, dim=-2)
 
+    def flat_resid(self, au_sp):
+        """The hole residual d_sp - A_sp u on the flat slot axis,
+        (..., nmaps * nslots); None without the sparse split."""
+        if au_sp is None:
+            return None
+        return self.spt.flat_of(self.d_sp - au_sp).flatten(-2)
+
 
 def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
                       prop_sigma_list, n_iter: int = 1, mdomain="auto",
@@ -544,7 +567,10 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
               + gamma^2 (q_i - beta_i) / 2
 
     with alpha_i = <c1, t_i>, beta_i = g ||t_i||^2, q_i = ||sqrt(w) A t_i||^2
-    and r the cut residual, carried as its ring sums (Rc, Rs).  Multi-bin
+    and r the cut residual, carried as its ring sums (Rc, Rs).  Under the
+    sparse split every per-bin scalar gains its hole-point term (q_i +=
+    ||sqrt(w_sp) A_sp t_i||^2, the Gram and rho likewise), and the hole
+    residual is carried on the flat slot axis (Rp).  Multi-bin
     ("big") blocks are evaluated directly (one cut synthesis each), then the
     singles run chunk by chunk in the table domain: q_i, the in-chunk Gram
     G_ij = <a_i, a_j>_w and rho_i = <r, a_i>_w from the ell-pair W tables,
@@ -584,14 +610,15 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
                                  dlcat, u_prop, u_acc, gen)
     d_cut = model.d_cut.to(dt)
     u0 = plan.u_of(dlcat, tv)
-    au0 = model.synthesis_cut(u0)
-    ll = model.data_loglike_cut(u0, au0)
+    au0, au_sp0 = model.synthesis_cut_sp(u0)
+    ll = model.data_loglike_cut(u0, au0, au_sp0)
     Rc, Rs = cut.ring_cs_of_maps(d_cut - au0)              # (..., nf, nr, L)
+    Rp = plan.flat_resid(au_sp0)                           # (..., nf S)
     accs = []
     for it in range(n_iter):
-        dlcat, ll, Rc, Rs, acc_it = _sweep_t(
+        dlcat, ll, Rc, Rs, Rp, acc_it = _sweep_t(
             plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc, Rs,
-            u_prop[..., it, :], u_acc[..., it, :])
+            Rp, u_prop[..., it, :], u_acc[..., it, :])
         accs.append(acc_it)
     dl_out = tuple(dlcat[..., offs[f]: offs[f + 1]] for f in range(nfields))
     return dl_out, NCClsInfo(
@@ -600,9 +627,11 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
 
 
 def _sweep_t(plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc,
-             Rs, up, ua):
+             Rs, Rp, up, ua):
     """One table-domain sweep over every chain: propose, the big blocks,
-    then the singles chunk by chunk.  Returns (dlcat, ll, Rc, Rs, accs)."""
+    then the singles chunk by chunk.  ``Rp`` is the flat hole residual
+    (None without the sparse split).  Returns (dlcat, ll, Rc, Rs, Rp,
+    accs)."""
     cut = model.cut_sht
     dt = dlcat.dtype
     props = propose_truncnorm(dlcat, plan.sigma, up)
@@ -614,8 +643,8 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc,
         mb = plan.bmask[row]
         cand = torch.where(mb > 0, props, dlcat)
         u_c = plan.u_of(cand, tv)
-        au_c = model.synthesis_cut(u_c)
-        ll_c = model.data_loglike_cut(u_c, au_c)
+        au_c, au_sp_c = model.synthesis_cut_sp(u_c)
+        ll_c = model.data_loglike_cut(u_c, au_c, au_sp_c)
         qcorr = (mb * lr_vec).sum(-1)
         acc = log_u[..., row] < ll_c - ll + qcorr
         dlcat = torch.where(acc[..., None], cand, dlcat)
@@ -624,6 +653,8 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc,
         a3 = acc[..., None, None, None]
         Rc = torch.where(a3, Rc_c, Rc)
         Rs = torch.where(a3, Rs_c, Rs)
+        if Rp is not None:
+            Rp = torch.where(acc[..., None], plan.flat_resid(au_sp_c), Rp)
         accs[..., row] = acc.to(dt)
 
     w1, pos, pwc, pws = plan.w1, plan.pos, plan.pwc, plan.pws
@@ -667,6 +698,15 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc,
         else:
             G = ch.segj.T @ Gl @ ch.segj
             rho = rho_l @ ch.segj
+        if Rp is not None:
+            # hole-point terms on the flat slot axis: the per-bin values
+            # come from the chunk's slot tables and the gathered grid
+            # columns, with no per-chain (row, L) planes
+            a_sp = plan.spt.flat_values(gsel, ch.sp_tab, ch.segj)
+            G = G + torch.einsum("...ix,...jx->...ij", a_sp * plan.w_sp_flat,
+                                 a_sp)
+            rho = rho + torch.einsum("...ix,...x->...i", a_sp,
+                                     plan.w_sp_flat * Rp)
         q_c = torch.diagonal(G, dim1=-2, dim2=-1)
 
         # the scalar scan: everything but the cross term sum_{j<k} gacc_j
@@ -718,4 +758,6 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc,
                               Rc[..., 1, :, :] - pwc * Bim], dim=-3)
             Rs = torch.stack([Rs[..., 0, :, :] + pws * Aim,
                               Rs[..., 1, :, :] - pws * Bre], dim=-3)
-    return dlcat, ll, Rc, Rs, accs
+        if Rp is not None:
+            Rp = Rp - torch.einsum("...i,...ix->...x", gacc, a_sp)
+    return dlcat, ll, Rc, Rs, Rp, accs

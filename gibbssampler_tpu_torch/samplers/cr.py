@@ -33,13 +33,14 @@ _AUX_EPS = 1e-7
 
 def noise_pool_spec(method: str, opts: dict) -> dict:
     """Number of pre-drawn N(0,1) fields each CR method consumes per step,
-    by kind: "state" (nfields, nstate) and "aux" (the auxiliary pixel
-    field: the cut rows under the cut decomposition, the full grid
-    otherwise)."""
+    by kind: "state" (nfields, nstate), "aux" (the auxiliary pixel field:
+    the cut rows under the cut decomposition, the full grid otherwise) and
+    "sp" (the auxiliary field's hole-point block; drawn only for models
+    with the sparse split)."""
     n_g = int(opts.get("n_gibbs", 1))
     return {
         "exact": {"state": 1},
-        "aux_mala": {"state": n_g + 1, "aux": n_g},
+        "aux_mala": {"state": n_g + 1, "aux": n_g, "sp": n_g},
     }[method]
 
 
@@ -103,26 +104,37 @@ def exact_cr(model: SkyModel, var_cls, bt_ninv_d, noise=None, gen=None):
 def _aux_ops(model: SkyModel, var_cls):
     """The pixel gap operator (mu - N^-1), the harmonic posterior variance
     Sigma = (C^-1 + mu_bar/omega b_l^2)^-1, and the forward/project maps of
-    the two aux conditionals.
+    the two aux conditionals.  The gap, the output of ``fwd`` and the input
+    of ``proj`` are tuples of parts, each part with its own auxiliary
+    field.
 
     With the cut decomposition attached mu is exactly max(N^-1): the gap
     vanishes off the masked rings, the auxiliary field lives on the cut
-    rings only and both conditionals run through cut-ring transforms."""
+    rings only and both conditionals run through cut-ring transforms.
+    With the sparse split the gap has two parts, w_floor and w_sp, with
+    independent auxiliary fields (the product of two augmentations targets
+    the same posterior), through the fused ``synthesis_cut_sp`` /
+    ``adjoint_cut_sp`` pair."""
     noise = model.noise
     dt = var_cls.dtype
     inv_cvar = _safe_inv(var_cls)
     bl2 = expand_cl_state(model.bl.to(dt) ** 2, model.lmax)
-    if model.has_cut:
-        gap = model.w_cut.to(dt)
+    if model.has_sparse:
+        gap = (model.w_cut.to(dt), model.w_sp.to(dt))
         mu_bar = noise.tau_max.to(dt)
-        fwd = lambda s: model.synthesis_cut(model.beam(s))
-        proj = lambda v: model.beam(model.adjoint_synthesis_cut(v))
+        fwd = lambda s: model.synthesis_cut_sp(model.beam(s))
+        proj = lambda v: model.beam(model.adjoint_cut_sp(*v))
+    elif model.has_cut:
+        gap = (model.w_cut.to(dt),)
+        mu_bar = noise.tau_max.to(dt)
+        fwd = lambda s: (model.synthesis_cut(model.beam(s)),)
+        proj = lambda v: model.beam(model.adjoint_synthesis_cut(v[0]))
     else:
         mu_bar = noise.tau_max.to(dt) + _AUX_EPS     # (nfields,)
-        gap = (noise.q_map * (noise.field_bcast(mu_bar)
-                              - noise.tau)).to(dt).clamp_min(0.0)
-        fwd = model.forward
-        proj = model.project_data
+        gap = ((noise.q_map * (noise.field_bcast(mu_bar)
+                               - noise.tau)).to(dt).clamp_min(0.0),)
+        fwd = lambda s: (model.forward(s),)
+        proj = lambda v: model.project_data(v[0])
     hdiag = (mu_bar[:, None] / noise.omega) * bl2[None, :]
     sigma = _safe_inv(inv_cvar + hdiag) * _active(var_cls)
     return gap, sigma, fwd, proj
@@ -132,18 +144,21 @@ def aux_gibbs_cr(model: SkyModel, var_cls, bt_ninv_d, s_old,
                  n_gibbs: int = 1, noise=None, gen=None):
     """Auxiliary-variable Gibbs: augment with the pixel field
     v | s ~ N((mu - N^-1) A B s, mu - N^-1); then s | v, d is diagonal in
-    harmonic space.  ``n_gibbs`` sweeps per call."""
+    harmonic space.  ``n_gibbs`` sweeps per call; per sweep the variates
+    are taken in the order aux, sp (split models), state."""
     gap, sigma, fwd, proj = _aux_ops(model, var_cls)
     pool = _as_pool(noise)
     s = s_old * _active(var_cls)
     batch = _batch_shape(var_cls, s_old)
     for _ in range(n_gibbs):
         if pool:
-            xi_v, xi_s = pool.take("aux"), pool.take("state")
+            xi_v = [pool.take(k) for k in ("aux", "sp")[:len(gap)]]
+            xi_s = pool.take("state")
         else:
-            xi_v = _normal(gen, batch + tuple(gap.shape), s)
+            xi_v = [_normal(gen, batch + tuple(g.shape), s) for g in gap]
             xi_s = _normal(gen, s.shape, s)
-        v = gap * fwd(s) + torch.sqrt(gap) * xi_v
+        v = tuple(g * f + torch.sqrt(g) * x
+                  for g, f, x in zip(gap, fwd(s), xi_v))
         s = sigma * (proj(v) + bt_ninv_d) + torch.sqrt(sigma) * xi_s
     return s, CRInfo(accept=s.new_ones(batch), extra=s.new_zeros(batch))
 
@@ -164,14 +179,17 @@ def mala_cr(model: SkyModel, var_cls, bt_ninv_d, s_old, tau: float = 0.02,
 
     if model.has_cut:
         def fwd_grad_logp(x):
-            """one cut synthesis + one cut adjoint -> (gradient, log target)."""
+            """one cut synthesis + one cut adjoint (fused with the point
+            pair under the sparse split) -> (gradient, log target)."""
             ub = model.beam(x)
-            au_cut, _ = model.synthesis_cut_sp(ub)
-            corr = model.adjoint_synthesis_cut(model.w_cut * au_cut)
+            au_cut, au_sp = model.synthesis_cut_sp(ub)
+            corr = model.adjoint_cut_sp(model.w_cut * au_cut,
+                                        None if au_sp is None
+                                        else model.w_sp * au_sp)
             qs = hdiag * x - model.beam(corr)
             grad = (-inv_cvar * x - qs + bt_ninv_d) * act
             logp = (-0.5 * (inv_cvar * x * x).sum(dim=(-2, -1))
-                    + model.data_loglike_cut(ub, au_cut))
+                    + model.data_loglike_cut(ub, au_cut, au_sp))
             return grad, logp
     else:
         inv_noise = model.noise.inv_noise

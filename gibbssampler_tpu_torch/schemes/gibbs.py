@@ -93,15 +93,18 @@ class GibbsScheme:
     def draw_noise_pool(self, nchains: int,
                         gen: torch.Generator | None = None) -> dict:
         """Pre-draw the CR step's Gaussian fields for all chains:
-        {kind: (nchains, K, *shape)}."""
+        {kind: (nchains, K, *shape)}, kind by kind in the order state, aux,
+        sp (the hole-point block, for models with the sparse split only)."""
         spec = cr_mod.noise_pool_spec(self.cr_method, self.cr_options)
         m = self.model
         shapes = {"state": (m.nfields, m.nstate),
                   "aux": tuple(m.w_cut.shape) if m.has_cut
                   else tuple(m.noise.tau.shape)}
+        if m.has_sparse:
+            shapes["sp"] = tuple(m.w_sp.shape)
         return {kind: torch.randn((nchains, k) + shapes[kind], generator=gen,
                                   dtype=m.sht.dtype, device=self.device)
-                for kind, k in spec.items()}
+                for kind, k in spec.items() if kind in shapes}
 
     def step(self, state: GibbsState, noise=None, gen=None, u=None,
              gammas=None):

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..harmonics.gridstate import state_masks
@@ -35,11 +36,24 @@ class LegendreCore:
                                        device=self.device)
         self.pack_out = torch.as_tensor(sm.out_scale, dtype=dtype,
                                         device=self.device)
+        # (2 - delta_m0) and (1 - delta_m0) weights of the real series
+        m = np.arange(lmax + 1)
+        self.cm = torch.as_tensor(np.where(m == 0, 1.0, 2.0), dtype=dtype,
+                                  device=self.device)
+        self.pos = torch.as_tensor(np.where(m == 0, 0.0, 1.0), dtype=dtype,
+                                   device=self.device)
 
     def _table(self, tab) -> torch.Tensor:
         """fp64 numpy (L, L, nr) table -> contiguous device tensor."""
         return torch.as_tensor(tab, dtype=self.dtype,
                                device=self.device).contiguous()
+
+    def lsel_table(self, lam: torch.Tensor, j_idx) -> torch.Tensor:
+        """The (L, J, nr) slice of a dense (L, L, nr) table at the selected
+        ells ``j_idx`` (zero where m > ell, as the table itself is)."""
+        idx = torch.as_tensor(np.asarray(j_idx, dtype=np.int64),
+                              device=lam.device)
+        return lam[:, idx, :]
 
     # -- state <-> grid packing (reshape + diagonal scale) -----------------
 

@@ -35,12 +35,16 @@ torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["SHT", "make_sht"]
 
+# (sign_p, sign_m) of ``SHT.lsel_grid_spin2_single`` for an E-only and a
+# B-only input
+SPIN2_SINGLE_SIGNS = {"e": (-1.0, -1.0), "b": (1.0, -1.0)}
+
 
 class SHT(LegendreCore):
     """Operator tables for one (grid, lmax, dtype) on one device."""
 
     def __init__(self, grid: SphereGrid, lmax: int, dtype=torch.float32,
-                 spin2: bool = False, device="cpu"):
+                 spin2: bool = False, device="cuda"):
         self.grid = grid
         self._init_core(lmax, dtype, device)
         L = lmax + 1
@@ -68,11 +72,6 @@ class SHT(LegendreCore):
         self.nphi_half = nh
         self.dft_cos = torch.as_tensor(np.cos(ang2), dtype=dtype, device=dev)
         self.dft_sin = torch.as_tensor(np.sin(ang2), dtype=dtype, device=dev)
-        # (2 - delta_m0) and (1 - delta_m0) weights of the real series
-        self.cm = torch.full((L,), 2.0, dtype=dtype, device=dev)
-        self.cm[0] = 1.0
-        self.pos = torch.ones((L,), dtype=dtype, device=dev)
-        self.pos[0] = 0.0
         self.lam_p2 = self.lam_m2 = None
         if spin2:
             lp, lm_ = spin2_lambda_tables(lmax, grid.theta)
@@ -117,24 +116,32 @@ class SHT(LegendreCore):
 
     # -- spin 0 ------------------------------------------------------------
 
-    def synthesis_state(self, x: torch.Tensor) -> torch.Tensor:
-        """A: grid-packed alm state (..., nstate) -> map (..., nr, nphi)."""
-        F_ = self._lsynth_stack(self.lam0, self._state_grids(x))
+    def synthesis_from_grids(self, g0: torch.Tensor) -> torch.Tensor:
+        """Spin-0 synthesis from a prebuilt ``_state_grids`` array (shared
+        by a cut / point-set transform pair)."""
+        F_ = self._lsynth_stack(self.lam0, g0)
         return self._ring_ifft_real(F_[..., 0, :, :], F_[..., 1, :, :])
 
-    def _analysis_core_state(self, maps, ring_w):
+    def synthesis_state(self, x: torch.Tensor) -> torch.Tensor:
+        """A: grid-packed alm state (..., nstate) -> map (..., nr, nphi)."""
+        return self.synthesis_from_grids(self._state_grids(x))
+
+    def _spin0_agrids(self, maps, ring_w=None):
+        """Spin-0 analysis (ring weights ``ring_w``) or adjoint (None) up to
+        the alm grids (..., 2, L, L), summable across transforms."""
         Gre, Gim = self._ring_fft_real(maps)
-        G = torch.stack([Gre * ring_w[:, None], Gim * ring_w[:, None]], dim=-3)
-        return self._grids_to_state(self._ladj_stack(self.lam0, G))
+        if ring_w is not None:
+            Gre, Gim = Gre * ring_w[:, None], Gim * ring_w[:, None]
+        return self._ladj_stack(self.lam0, torch.stack([Gre, Gim], dim=-3))
 
     def analysis_state(self, maps: torch.Tensor) -> torch.Tensor:
         """Exact inverse of synthesis_state on a quadrature grid."""
-        return self._analysis_core_state(maps, self.wq)
+        return self._grids_to_state(self._spin0_agrids(maps, self.wq))
 
     def adjoint_synthesis_state(self, maps: torch.Tensor) -> torch.Tensor:
         """A^T: exact transpose of ``synthesis_state`` w.r.t. the plain
         pixel and state dot products."""
-        return self._analysis_core_state(maps, torch.ones_like(self.wq))
+        return self._grids_to_state(self._spin0_agrids(maps))
 
     # -- spin 2 ------------------------------------------------------------
 
@@ -236,13 +243,6 @@ class SHT(LegendreCore):
         return (torch.matmul(u, self.dft_cos.T),
                 torch.matmul(v, self.dft_sin.T))
 
-    def lsel_table(self, lam: torch.Tensor, j_idx) -> torch.Tensor:
-        """The (L, J, nr) slice of a dense (L, L, nr) table at the selected
-        ells ``j_idx`` (zero where m > ell, as the table itself is)."""
-        idx = torch.as_tensor(np.asarray(j_idx, dtype=np.int64),
-                              device=lam.device)
-        return lam[:, idx, :]
-
     def lsel_grid_spin2_single(self, state: torch.Tensor, which: str):
         """The Legendre-stage input grid of a single-field spin-2 input (the
         other field zero), shared by both spin-2 tables.
@@ -253,16 +253,15 @@ class SHT(LegendreCore):
         (grid (..., 2, L, L), sign_p, sign_m)."""
         self._require_spin2()
         g = self._state_grids(state)
-        if which == "e":
-            return g, -1.0, -1.0
-        if which != "b":
+        if which not in SPIN2_SINGLE_SIGNS:
             raise ValueError(which)
-        gsw = torch.stack([g[..., 1, :, :], -g[..., 0, :, :]], dim=-3)
-        return gsw, 1.0, -1.0
+        if which == "b":
+            g = torch.stack([g[..., 1, :, :], -g[..., 0, :, :]], dim=-3)
+        return (g, *SPIN2_SINGLE_SIGNS[which])
 
 
 def make_sht(lmax: int, grid: SphereGrid | None = None, dtype=torch.float32,
-             spin2: bool = False, device="cpu") -> SHT:
+             spin2: bool = False, device="cuda") -> SHT:
     """Build an SHT for ``lmax`` (Gauss-Legendre grid by default)."""
     if grid is None:
         grid = gauss_legendre_grid(lmax)

@@ -70,7 +70,7 @@ def test_asis_step_matches_jax_over_iterations(masked, monkeypatch):
     s0 = np.sqrt(var) * np.random.default_rng(0).normal(size=var.shape)
     jstate = JaxState(s=jnp.asarray(s0), dl=tuple(jnp.asarray(d)
                                                   for d in dls))
-    tstate = state_from_numpy(s0, dls)
+    tstate = state_from_numpy(s0, dls, device="cpu")
     alphas = [_alpha(b) for b in BINS]
     ntot = sum(len(b) - 1 for b in BINS)
     nblocks = sum(map(len, BLOCKS))
@@ -149,7 +149,7 @@ def test_asis_runs_end_to_end():
     dls = np.stack([example_dl(lmax, "ee"), example_dl(lmax, "bb")])
     model, _ = simulate_dataset(lmax, 2, dls, 0.2 ** 2,
                                 fwhm_radians=np.radians(0.5), mask=mask,
-                                dtype=torch.float64, gen=gen)
+                                dtype=torch.float64, device="cpu", gen=gen)
     model = with_cut_decomposition(model)
     assert model.cut_w_uniform and model.cut_w_equal_fields
     dl0 = [np.array([d[lo:hi].mean() for lo, hi in zip(b[:-1], b[1:])])

@@ -3,20 +3,22 @@ there is no NVIDIA GPU).  No jax here, so they also run where jax is not
 installed: ``python -m pytest --noconftest -q tests/test_torch_card.py``.
 
 One ASIS iteration at lmax 12 in float64, on the card and on the CPU from
-the same dataset and injected variates: the Legendre kernels inside the
-CR step and the MH step's syntheses, and the table engine's contractions
-on the card, against the CPU's plain versions."""
+the same dataset and injected variates, on a band mask and on a holey mask
+(the floor + sparse-hole split): the Legendre kernels inside the CR step
+and the MH step's syntheses, the point-set transform and the table
+engine's contractions on the card, against the CPU's plain versions."""
 
 import numpy as np
 import pytest
 import torch
 
-from torch_parity import cuda_device, n  # noqa: F401
+from torch_parity import cuda_device, holey_mask, n  # noqa: F401
 from gibbssampler_tpu_torch.inference import example_dl, simulate_dataset
 from gibbssampler_tpu_torch.interop import model_from_numpy
 from gibbssampler_tpu_torch.ops import with_cut_decomposition
 from gibbssampler_tpu_torch.schemes import ASISGibbs
 from gibbssampler_tpu_torch.schemes.gibbs import GibbsState
+from gibbssampler_tpu_torch.sht import gauss_legendre_grid
 from gibbssampler_tpu_torch.sht import legendre_kernels as lk
 
 LMAX = 12
@@ -26,17 +28,20 @@ BLOCKS = [[(0, 11)], [(0, 3)] + [(i, i + 1) for i in range(3, 9)]]
 OPTS = {"n_gibbs": 1, "tau": 0.02}
 
 
-def _arrays():
-    """The band-masked polarized dataset as ``model_from_numpy`` takes it."""
+def _arrays(kind):
+    """The band- or holey-masked polarized dataset as ``model_from_numpy``
+    takes it."""
     gen = torch.Generator().manual_seed(0)
-    nr = LMAX + 1
-    theta = np.arccos(np.polynomial.legendre.leggauss(nr)[0][::-1])
-    keep = (np.abs(np.pi / 2 - theta) > 0.2).astype(np.float64)
-    mask = np.broadcast_to(keep[:, None], (nr, 2 * LMAX + 2))
+    grid = gauss_legendre_grid(LMAX)
+    if kind == "band":
+        keep = (np.abs(np.pi / 2 - grid.theta) > 0.2).astype(np.float64)
+        mask = np.broadcast_to(keep[:, None], (grid.nrings, grid.nphi))
+    else:
+        mask = holey_mask(grid, nholes=4)
     dls = np.stack([example_dl(LMAX, "ee"), example_dl(LMAX, "bb")])
     m, _ = simulate_dataset(LMAX, 2, dls, 0.2 ** 2,
                             fwhm_radians=np.radians(0.5), mask=mask,
-                            dtype=torch.float64, gen=gen)
+                            dtype=torch.float64, device="cpu", gen=gen)
     g = m.sht.grid
     arrays = {"d": n(m.d), "tau": n(m.noise.tau), "q_map": n(m.noise.q_map),
               "omega": m.noise.omega, "bl": n(m.bl), "spin": 2,
@@ -45,9 +50,16 @@ def _arrays():
     return arrays, dls
 
 
+# launches per ASIS iteration: the CR step's 3 cut syntheses and 3 cut
+# adjoints and the MH step's 3 syntheses (u0 and two big blocks), two tables
+# each, and twice that with the point set beside the floor rings
+LAUNCHES = {"band": (12, 6), "holey": (24, 12)}
+
+
 @pytest.mark.cuda
-def test_asis_step_card_matches_cpu(cuda_device):
-    arrays, dls = _arrays()
+@pytest.mark.parametrize("kind", sorted(LAUNCHES))
+def test_asis_step_card_matches_cpu(cuda_device, kind):
+    arrays, dls = _arrays(kind)
     dl0 = [np.tile([d[lo:hi].mean() for lo, hi in zip(b[:-1], b[1:])],
                    (NCH, 1)) for d, b in zip(dls, BINS)]
     rng = np.random.default_rng(1)
@@ -55,6 +67,7 @@ def test_asis_step_card_matches_cpu(cuda_device):
     outs = []
     for device in ("cpu", cuda_device):
         model = with_cut_decomposition(model_from_numpy(arrays, device))
+        assert model.has_sparse == (kind == "holey")
         scheme = ASISGibbs(model, BINS, BLOCKS, [0.3 * d[0] for d in dl0],
                            cr_method="aux_mala", cr_options=OPTS)
         assert scheme._use_cut_mh
@@ -63,10 +76,13 @@ def test_asis_step_card_matches_cpu(cuda_device):
             var = n(scheme.var_cls(tuple(t(d) for d in dl0)))
             s0 = np.sqrt(var) * rng.normal(size=var.shape)
             ntot = sum(len(b) - 1 for b in BINS)
-            inj = {"noise": {"state": rng.normal(size=(NCH, 2, 2,
-                                                       model.nstate)),
-                             "aux": rng.normal(size=(NCH, 1) + tuple(
-                                 model.w_cut.shape))},
+            pool = {"state": rng.normal(size=(NCH, 2, 2, model.nstate)),
+                    "aux": rng.normal(size=(NCH, 1)
+                                      + tuple(model.w_cut.shape))}
+            if model.has_sparse:
+                pool["sp"] = rng.normal(size=(NCH, 1)
+                                        + tuple(model.w_sp.shape))
+            inj = {"noise": pool,
                    "u": rng.uniform(size=NCH),
                    "gammas": [rng.gamma(3.0, size=(NCH, len(b) - 1))
                               for b in BINS],
@@ -84,9 +100,7 @@ def test_asis_step_card_matches_cpu(cuda_device):
                     lk.legendre_adj_tri.launches)
         outs.append([n(x) for x in (new.s, *new.dl, info["cr_accept"],
                                     *info["mh_accept"])])
-    # aux sweep 1 + MALA 2 cut syntheses and adjoints, MH 3 syntheses; two
-    # tables each
-    assert launches == (12, 6)
+    assert launches == LAUNCHES[kind]
     for a, b in zip(outs[0][:4], outs[1][:4]):
         np.testing.assert_allclose(b, a, rtol=1e-9,
                                    atol=1e-9 * np.abs(a).max())

@@ -239,7 +239,7 @@ def _refusal_cases(tc, fields):
     bins, blocks, sig, dl0 = _setup(fields, BB_BINS["wide"])
     grid = tc.cut_sht.grid
     phased = SHT(dataclasses.replace(grid, phi0=np.full(grid.nrings, 0.1)),
-                 LMAX, dtype=torch.float64, spin2=True)
+                 LMAX, dtype=torch.float64, spin2=True, device="cpu")
     nb_bb = len(bins[1]) - 1
     return {
         "mdomain m": (tc, blocks, dict(mdomain="m")),
@@ -270,17 +270,19 @@ def test_engines_not_ported_raise(pol, case):
 
 
 def test_other_refusals(pol):
-    """Nyquist column, sparse-hole values, the phi engine, the non-cut and
-    harmonic likelihoods raise NotImplementedError; a big block after a
-    single raises ValueError, as in JAX."""
+    """Nyquist column, the phi engine, the non-cut and harmonic likelihoods
+    raise NotImplementedError; a big block after a single raises
+    ValueError, as in JAX; a model without holes ignores ``au_sp``, as
+    JAX's does."""
     _, tc, fields = pol
     bins, blocks, sig, _ = _setup(fields, BB_BINS["unit"])
     with pytest.raises(NotImplementedError):
         tcs._prepare_tchunks(tc, tc.cut_sht, [], torch.ones(1), torch.float64,
                              nyq=True)
-    u = torch.zeros((2, tc.nstate), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        tc.data_loglike_cut(u, au_sp=torch.zeros(1))
+    assert not tc.has_sparse
+    u = t64(valid_normal(np.random.default_rng(8), (2, 2, tc.nstate), LMAX))
+    assert torch.equal(tc.data_loglike_cut(u, au_sp=torch.zeros(1)),
+                       tc.data_loglike_cut(u))
     with pytest.raises(NotImplementedError):
         ASISGibbs(tc, bins, blocks, sig, mh_fast="phi")
     with pytest.raises(NotImplementedError):

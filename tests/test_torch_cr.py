@@ -132,7 +132,7 @@ def test_centered_step_matches_jax(masked):
         u.append(_mala_uniform(k1))
         for f, kf in enumerate(jax.random.split(k2, 2)):
             gam[f].append(np.asarray(jax.random.gamma(kf, alpha)))
-    new, info = tsch.step(state_from_numpy(s, dls),
+    new, info = tsch.step(state_from_numpy(s, dls, device="cpu"),
                           noise={k: t64(v) for k, v in pool.items()},
                           u=t64(u), gammas=tuple(t64(g) for g in gam))
     _check(new.s, np.stack([np.asarray(r[0].s) for r in ref]), "s")
@@ -173,7 +173,7 @@ def test_mala_acceptance_and_invariance():
     model, _ = simulate_dataset(jax.random.PRNGKey(0), lmax, spin=0,
                                 dl_fields=dl[None], noise_sigma2=1.0,
                                 mask=mask, dtype=jnp.float64)
-    tm = model_from_numpy(jax_model_arrays(model))
+    tm = model_from_numpy(jax_model_arrays(model), device="cpu")
     var = n(variance_expansion_state(t64(dl), lmax))[None]
     inv = np.where(var > 0, 1.0 / np.where(var > 0, var, 1.0), 0.0)
     act = np.flatnonzero(var[0] > 0)

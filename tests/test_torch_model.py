@@ -87,11 +87,25 @@ def test_data_loglike_cut_exact(spin):
 
 
 def test_sparse_mask_raises():
-    """A mask with point holes needs the floor + sparse split, not ported."""
+    """A band mask with one point hole off the band takes the floor +
+    sparse split by default: the floor keeps the band's rows and uniform
+    weights, the hole becomes the point set, and the split likelihood
+    equals the unsplit one.  (The name is kept from when the port refused
+    such masks.)"""
     model, _, _ = make_masked(spin=2)
     arrays = jax_model_arrays(model)
     tau = arrays["tau"].copy()
     tau[:, 2, 3] = 0.0                          # one hole off the band
     arrays["tau"] = tau
-    with pytest.raises(NotImplementedError, match="sparse"):
-        with_cut_decomposition(model_from_numpy(arrays))
+    m = model_from_numpy(arrays, device="cpu")
+    split = with_cut_decomposition(m)
+    plain = with_cut_decomposition(m, sparse_split=False)
+    assert split.has_sparse and not plain.has_sparse
+    assert split.cut_w_uniform and split.cut_w_equal_fields
+    assert split.cut_sht.nrings == plain.cut_sht.nrings - 1
+    assert (split.sp_sht.nrows, split.sp_sht.nslots) == (1, 1)
+    x = t64(np.random.default_rng(3).normal(size=(2, 2, m.nstate))
+            * n(m.ell_mask()))
+    u = split.beam(x)
+    np.testing.assert_allclose(n(split.data_loglike_cut(u)),
+                               n(plain.data_loglike_cut(u)), rtol=1e-12)

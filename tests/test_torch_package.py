@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: it never imports jax."""
+"""The PyTorch port stands alone: it never imports jax, and its entry
+points run on the card unless the caller asks for the CPU."""
 
+import inspect
 import pathlib
 import re
 import subprocess
@@ -10,6 +12,10 @@ import pytest
 import torch
 
 from torch_parity import t64, tri_table
+from gibbssampler_tpu_torch.inference import simulate_dataset
+from gibbssampler_tpu_torch.interop import model_from_numpy, state_from_numpy
+from gibbssampler_tpu_torch.ops import NoiseModel
+from gibbssampler_tpu_torch.sht import SHT, PointSHT, make_sht
 from gibbssampler_tpu_torch.sht import legendre_kernels as lk
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "gibbssampler_tpu_torch"
@@ -54,3 +60,28 @@ def test_wrappers_reject_mismatched_shapes():
         lk.legendre_synth_tri(lam, t64(np.zeros((5, 2, 4))))
     with pytest.raises(ValueError):
         lk.legendre_adj_tri(lam, t64(np.zeros((5, 4, 2))))
+
+
+ENTRY_POINTS = {"SHT": SHT, "make_sht": make_sht, "PointSHT": PointSHT,
+                "simulate_dataset": simulate_dataset,
+                "NoiseModel.white": NoiseModel.white,
+                "model_from_numpy": model_from_numpy,
+                "state_from_numpy": state_from_numpy}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name):
+    """Every entry point that places tensors takes device="cuda" by
+    default; the CPU is used only where the caller asks for it."""
+    params = inspect.signature(ENTRY_POINTS[name]).parameters
+    assert params["device"].default == "cuda"
+
+
+def test_default_device_has_no_cpu_fallback():
+    """Without a card the default fails loudly, as torch does; with one the
+    tables land on it."""
+    if torch.cuda.is_available():
+        assert make_sht(4).lam0.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make_sht(4)

@@ -19,7 +19,7 @@ ATOL = 1e-12
 @pytest.fixture(scope="module")
 def pair():
     js = jax_make_sht(LMAX, dtype=jnp.float64, spin2=True)
-    ts = make_sht(LMAX, dtype=t64(0.0).dtype, spin2=True)
+    ts = make_sht(LMAX, dtype=t64(0.0).dtype, spin2=True, device="cpu")
     return js, ts
 
 
@@ -109,7 +109,7 @@ def _cut_pair(lmax, band):
         rows = np.where(np.abs(np.pi / 2 - tg.theta) <= band)[0]
         jg, tg = jax_subgrid(jg, rows), subgrid_rows(tg, rows)
     return (JaxSHT(jg, lmax, dtype=jnp.float64, spin2=True),
-            SHT(tg, lmax, dtype=t64(0.0).dtype, spin2=True))
+            SHT(tg, lmax, dtype=t64(0.0).dtype, spin2=True, device="cpu"))
 
 
 @pytest.mark.parametrize("band", [None, 0.3], ids=["full", "cut"])

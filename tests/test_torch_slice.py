@@ -44,7 +44,7 @@ def test_slice_matches_jax_over_iterations():
     s0 = np.sqrt(var) * np.random.default_rng(0).normal(size=var.shape)
     jstate = JaxState(s=jnp.asarray(s0), dl=tuple(jnp.asarray(d)
                                                   for d in dl0))
-    tstate = state_from_numpy(s0, dl0)
+    tstate = state_from_numpy(s0, dl0, device="cpu")
     ell = jnp.arange(LMAX + 1, dtype=jnp.float64)
     alpha = jax_bin_sum(2.0 * ell + 1.0, BINS, LMAX) / 2.0 - 1.0
     alpha = jnp.where(alpha <= 0, 1.0, alpha)
@@ -89,7 +89,7 @@ def test_slice_runs_end_to_end():
     dls = np.stack([example_dl(lmax, "ee"), example_dl(lmax, "bb")])
     model, _ = simulate_dataset(lmax, 2, dls, 0.2 ** 2,
                                 fwhm_radians=np.radians(0.5), mask=mask,
-                                dtype=torch.float64, gen=gen)
+                                dtype=torch.float64, device="cpu", gen=gen)
     model = with_cut_decomposition(model)
     assert 0 < model.cut_sht.nrings < nr
     bins = np.array([2, 5, 9, 13])

@@ -74,10 +74,47 @@ def jax_model_arrays(model) -> dict:
             "phi0": g.phi0, "nphi": g.nphi}
 
 
-def port_model(jax_model, cut=False):
-    """The port's model of the same dataset (optionally cut-decomposed)."""
-    m = model_from_numpy(jax_model_arrays(jax_model))
-    return with_cut_decomposition(m) if cut else m
+def port_model(jax_model, cut=False, sparse_split=None):
+    """The port's model of the same dataset on the CPU (optionally
+    cut-decomposed, with ``sparse_split`` as in with_cut_decomposition)."""
+    m = model_from_numpy(jax_model_arrays(jax_model), device="cpu")
+    return with_cut_decomposition(m, sparse_split) if cut else m
+
+
+def holey_mask(grid, seed=3, nholes=6, band=0.25, apo=0.15):
+    """Apodized band + square holes at random positions: the planckish
+    shape at toy scale (tests/test_sparse.py::holey_mask)."""
+    lat = np.abs(np.pi / 2 - grid.theta)
+    x = np.clip((lat - band) / apo, 0.0, 1.0)
+    keep = 0.5 - 0.5 * np.cos(np.pi * x)
+    mask = np.broadcast_to(keep[:, None], (grid.nrings, grid.nphi)).copy()
+    rng = np.random.default_rng(seed)
+    for _ in range(nholes):
+        r = rng.integers(0, grid.nrings)
+        c = rng.integers(0, grid.nphi)
+        mask[max(0, r - 1): r + 2, max(0, c - 1): c + 2] = 0.0
+    return mask
+
+
+def make_holey(spin=2, sigma2=0.5, seed=0, lmax=16, mask=None):
+    """The JAX model pair of tests/test_sparse.py::make_holey: a dataset on
+    the GL grid under ``holey_mask`` (or ``mask``), plain and with the
+    floor + sparse-hole split."""
+    import jax
+    import jax.numpy as jnp
+    from gibbssampler_tpu.inference import example_dl, simulate_dataset
+    from gibbssampler_tpu.ops import with_cut_decomposition as jax_cut
+    from gibbssampler_tpu.sht import gauss_legendre_grid
+    grid = gauss_legendre_grid(lmax)
+    mask = holey_mask(grid) if mask is None else mask
+    fields = (example_dl(lmax, amp=10.0)[None] if spin == 0 else
+              np.stack([example_dl(lmax, "ee", amp=10.0),
+                        example_dl(lmax, "bb", amp=10.0)]))
+    model, _ = simulate_dataset(jax.random.PRNGKey(seed), lmax, spin=spin,
+                                dl_fields=fields, noise_sigma2=sigma2,
+                                fwhm_radians=0.05, mask=mask,
+                                dtype=jnp.float64)
+    return model, jax_cut(model, sparse_split=True), fields
 
 
 def jax_mh_uniforms(key, n_iter, ntot, nblocks):
@@ -112,3 +149,26 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
     return torch.device("cuda", 0)
+
+
+def planckish_mask(grid, nholes=200, seed=5):
+    """bench.py's planckish GL mask (bench.py:190-211): an apodized
+    +-11.5 deg band with a 3 deg cosine ramp, plus ``nholes`` holes of
+    0.35 deg radius at random positions over the sphere."""
+    lat = np.abs(np.pi / 2 - grid.theta)
+    b0, apo = np.radians(11.5), np.radians(3.0)
+    x = np.clip((lat - b0) / apo, 0.0, 1.0)
+    keep = 0.5 - 0.5 * np.cos(np.pi * x)
+    mask = np.broadcast_to(keep[:, None], (grid.nrings, grid.nphi)).copy()
+    rng = np.random.default_rng(seed)
+    rhole = np.radians(0.35)
+    phi = 2.0 * np.pi * np.arange(grid.nphi) / grid.nphi
+    ct, st = np.cos(grid.theta), np.sin(grid.theta)
+    for _ in range(nholes):
+        ct0 = rng.uniform(-1.0, 1.0)
+        st0 = np.sqrt(1.0 - ct0 * ct0)
+        ph0 = rng.uniform(0.0, 2.0 * np.pi)
+        cosd = (ct0 * ct[:, None]
+                + st0 * st[:, None] * np.cos(phi[None, :] - ph0))
+        mask[cosd > np.cos(rhole)] = 0.0
+    return mask
