@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py             (from the repository root; one card)
-    python3 chip_smoke.py --profile   (adds a torch.profiler table of the
+    python3 chip_smoke.py --profile   (adds a torch.profiler table of each
                                        ASIS slice)
 
 Phases, each reported on its own lines; any failure raises and exits
@@ -16,18 +16,23 @@ non-zero:
 3. compares each kernel with its plain PyTorch version (true float32) on
    the card at the JAX package's Pallas test shapes, a ragged shape, the
    main-path shapes (65 band rings, 83 floor rings and 211 point rows of
-   the planckish mask, 513 rings) and a batch of 200, in float32 (<= 1e-5
-   max|ref|) and float64 (<= 1e-12), with contiguous operands and with the
-   strided views the main path passes, the outputs given NaN-filled
-   memory; checks adjointness; and times kernel and plain version (one
-   torch.einsum call) at L 513, C 256 and each main-path row count, with
-   TFLOP/s, GB/s and the bound: the larger of the bytes over 3.35 TB/s and
-   the FLOPs over the 3xTF32 rate, 495 / 3 TFLOP/s;
+   the planckish mask, 193 floor rings and 391 point rows of the HEALPix
+   planckish mask, the 513-ring GL and the 1023-ring HEALPix grids) and a
+   batch of 200, in float32 (<= 1e-5 max|ref|) and float64 (<= 1e-12),
+   with contiguous operands and with the strided views the main path
+   passes, the outputs given NaN-filled memory; checks adjointness; and
+   times kernel and plain version (one torch.einsum call) at L 513, C 256
+   and each main-path row count, with TFLOP/s, GB/s and the bound: the
+   larger of the bytes over 3.35 TB/s and the FLOPs over the 3xTF32 rate,
+   495 / 3 TFLOP/s;
 4. checks the lmax-512 transforms in float32 (round trip and the cut
-   transform's adjointness), and at lmax 16 in float64, card against CPU
-   on the same injected variates (<= 1e-9, MH accepts equal), one
-   CenteredGibbs and one ASISGibbs step on a band mask and one ASISGibbs
-   step on a holey mask (the floor + sparse-hole split);
+   transform's adjointness, on GL rings and on the HEALPix floor's 193
+   belt rows at nphi 1024 = 2 lmax), and at lmax 16 in float64, card
+   against CPU on the same injected variates (<= 1e-9, MH accepts equal),
+   one CenteredGibbs and one ASISGibbs step on a band mask, one ASISGibbs
+   step on a holey mask (the floor + sparse-hole split) and one on a holey
+   HEALPix mask at nside 8 (padded layout, cap-ring holes in the point set,
+   the table engine's ring-phase and Nyquist paths);
 5. on a band-masked polarized sky at lmax 512 (GL grid 513 x 1026, cut
    decomposition over 65 rings, float32, 128 chains) runs two paths, each
    with the kernel launch counts set to 0 before it and read after it:
@@ -47,7 +52,15 @@ non-zero:
    floor rings, 1547 hole pixels and 211 x 64 point rows, and the exact
    launch counts per iteration (each cut transform fused with the point
    set's);
-8. prints the kernels' JSON line (launches summed over the three paths),
+8. with the GL models freed, the HEALPix planckish path (bench.py's
+   BENCH_GRID=healpix BENCH_MASK=planckish): nside 256 in the padded
+   layout, the same sky under bench.py's HEALPix planckish mask; checks the
+   split's 193 floor rings at nphi 1024 (97 phased), 1140 hole pixels (434
+   on cap rings) in 391 x 8 point rows and the floor transform against the
+   full 1023-ring synthesis at the floor pixels; runs the ASIS slice with
+   bench.py's analytic proposal sigmas (no tuned record for this grid) and
+   the float64 table-engine sweep against the direct path;
+9. prints the kernels' JSON line (launches summed over the four paths),
    then {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX; the port is imported from this file's
@@ -87,10 +100,25 @@ PLANCKISH_FLOOR_RINGS = 83
 PLANCKISH_HOLE_PIX = 1547
 PLANCKISH_POINT_ROWS = (211, 64)
 PLANCKISH_PER_ITER = (24, 12)
-# the kernels' timed row counts: band cut rings, planckish floor rings and
-# point rows, the full grid
-TIMED_NR = (CUT_RINGS, PLANCKISH_FLOOR_RINGS, PLANCKISH_POINT_ROWS[0],
-            LMAX + 1)
+# bench.py's HEALPix planckish path: nside lmax / 2 (4 nside - 1 = 1023
+# rings), padded layout.  Its split has the floor over 193 belt rings
+# (415-607) at nphi 4 nside = 2 lmax, 97 of them with phi0 != 0, and 1140
+# hole pixels, 434 of them on cap rings, in 391 point rows of width 8; the
+# launches per iteration are the GL planckish path's
+NSIDE = LMAX // 2
+HEALPIX_RINGS = 4 * NSIDE - 1
+HEALPIX_FLOOR_RINGS = 193
+HEALPIX_PHASED_ROWS = 97
+HEALPIX_HOLE_PIX = 1140
+HEALPIX_CAP_HOLE_PIX = 434
+HEALPIX_POINT_ROWS = (391, 8)
+HEALPIX_PER_ITER = (24, 12)
+# the kernels' timed row counts: band cut rings, planckish floor rings,
+# HEALPix floor rings, planckish point rows, HEALPix point rows, the GL and
+# the HEALPix full grids
+TIMED_NR = (CUT_RINGS, PLANCKISH_FLOOR_RINGS, HEALPIX_FLOOR_RINGS,
+            PLANCKISH_POINT_ROWS[0], HEALPIX_POINT_ROWS[0], LMAX + 1,
+            HEALPIX_RINGS)
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 TF32X3_FLOPS_PER_S = 495e12 / 3      # 3 TF32 tensor-core products each
 
@@ -120,6 +148,38 @@ def planckish_mask(grid, nholes=200, seed=5):
         cosd = (ct0 * ct[:, None]
                 + st0 * st[:, None] * np.cos(phi[None, :] - ph0))
         mask[cosd > np.cos(rhole)] = 0.0
+    return mask
+
+
+def healpix_planckish_mask(nside, nholes=200, seed=5):
+    """bench.py's planckish HEALPix mask (bench.py:160-178) in RING order:
+    the same band, ramp and holes as ``planckish_mask`` at the HEALPix
+    pixel centres."""
+    from gibbssampler_tpu_torch.sht import pix2ang_ring
+    theta, phi = pix2ang_ring(nside, np.arange(12 * nside * nside))
+    lat = np.abs(np.pi / 2 - theta)
+    b0, apo = np.radians(11.5), np.radians(3.0)
+    x = np.clip((lat - b0) / apo, 0.0, 1.0)
+    mask = 0.5 - 0.5 * np.cos(np.pi * x)
+    rng = np.random.default_rng(seed)
+    rhole = np.radians(0.35)
+    ct, st = np.cos(theta), np.sin(theta)
+    for _ in range(nholes):
+        ct0 = rng.uniform(-1.0, 1.0)
+        st0 = np.sqrt(1.0 - ct0 * ct0)
+        ph0 = rng.uniform(0.0, 2.0 * np.pi)
+        mask[ct0 * ct + st0 * st * np.cos(phi - ph0) > np.cos(rhole)] = 0.0
+    return mask
+
+
+def holey_healpix_mask(nside):
+    """A 20 deg band plus holes on the first (cap) ring, in the belt and on
+    the south cap, in RING order (tests/test_sparse.py::make_holey_healpix)."""
+    from gibbssampler_tpu_torch.sht import galactic_band_mask
+    mask = galactic_band_mask(nside, 20.0)
+    mask[0:4] = 0.0
+    mask[200:203] = 0.0
+    mask[-3:] = 0.0
     return mask
 
 
@@ -286,7 +346,7 @@ def time_kernels(torch, lk, lam, x, g, lay, card, errs):
     """Kernel and plain times (plain, kernel, kernel, plain) with rates
     and the bound; returns the records of the main path's layout."""
     L, nr, C = lam.shape[0], lam.shape[2], x.shape[1]
-    reps = 5 if nr == LMAX + 1 else 20
+    reps = 5 if nr > LMAX else 20
     rec = {}
     for name, kern, plain, b in (
             ("legendre_synth_tri", lk.legendre_synth_tri,
@@ -318,10 +378,28 @@ def time_kernels(torch, lk, lam, x, g, lay, card, errs):
     return rec
 
 
-def phase_sht(torch, dev):
+def cut_adjointness(torch, cut, e, b, gen):
+    """|<A (e, b), y> - <(e, b), A^T y>| / |<A (e, b), y>| of a spin-2 cut
+    transform, y = A (e, b) + noise, accumulated in float64."""
+    q, u = cut.synthesis_spin2_state(e, b)
+    q2 = q + torch.randn(q.shape, generator=gen, dtype=q.dtype,
+                         device=q.device)
+    u2 = u + torch.randn(u.shape, generator=gen, dtype=u.dtype,
+                         device=u.device)
+    ae, ab = cut.adjoint_synthesis_spin2_state(q2, u2)
+    lhs = float((q.double() * q2.double()).sum()
+                + (u.double() * u2.double()).sum())
+    rhs = float((e.double() * ae.double()).sum()
+                + (b.double() * ab.double()).sum())
+    return abs(lhs - rhs) / abs(lhs)
+
+
+def phase_sht(torch, dev, hp_mask):
     """lmax-512 float32 transforms on the card; returns the full SHT."""
     from gibbssampler_tpu_torch.harmonics import ell_mask_state, nstate
-    from gibbssampler_tpu_torch.sht import SHT, make_sht, subgrid_rows
+    from gibbssampler_tpu_torch.ops import healpix_cut_weights
+    from gibbssampler_tpu_torch.sht import (SHT, SphereGrid, healpix_layout,
+                                            make_sht, subgrid_rows)
     t0 = time.time()
     sht = make_sht(LMAX, dtype=torch.float32, spin2=True, device=dev)
     print(f"sht lmax={LMAX} grid {sht.nrings}x{sht.nphi}: tables built in "
@@ -345,55 +423,76 @@ def phase_sht(torch, dev):
     rows = np.where(lat <= 0.2)[0]
     cut = SHT(subgrid_rows(sht.grid, rows), LMAX, dtype=torch.float32,
               spin2=True, device=dev)
-    q, u = cut.synthesis_spin2_state(e, b)
-    q2 = q + torch.randn(q.shape, generator=gen, **f32)
-    u2 = u + torch.randn(u.shape, generator=gen, **f32)
-    ae, ab = cut.adjoint_synthesis_spin2_state(q2, u2)
-    lhs = float((q.double() * q2.double()).sum()
-                + (u.double() * u2.double()).sum())
-    rhs = float((e.double() * ae.double()).sum()
-                + (b.double() * ab.double()).sum())
-    rel = abs(lhs - rhs) / abs(lhs)
+    rel = cut_adjointness(torch, cut, e, b, gen)
     check(rel <= 1e-5, f"cut transform adjointness {rel} > 1e-5")
+    # the HEALPix floor transform of bench.py's planckish mask: its belt
+    # rows (the host-side split only) at nphi 2 lmax, with their phi0
+    lay = healpix_layout(NSIDE, "padded")
+    geo = lay.geo
+    hp_rows = healpix_cut_weights(lay, hp_mask[lay.src_of][None] * lay.valid,
+                                  lay.valid)[0]
+    hcut = SHT(SphereGrid(name="healpix floor", theta=geo.theta[hp_rows],
+                          weights=np.ones(hp_rows.size), nphi=lay.nb,
+                          phi0=geo.phi0[hp_rows]),
+               LMAX, dtype=torch.float32, spin2=True, device=dev,
+               allow_aliasing=True)
+    check(hcut.nphi == 2 * LMAX and hcut.has_phase,
+          "HEALPix floor transform: not at nphi 2 lmax with phased rows")
+    hrel = cut_adjointness(torch, hcut, e, b, gen)
+    check(hrel <= 1e-5, f"HEALPix floor transform adjointness {hrel} > 1e-5")
     print(f"sht float32: round trip max rel err spin2 {rt2:.2e} spin0 "
           f"{rt0:.2e}; cut transform ({rows.size} rings) adjointness "
-          f"{rel:.2e}", flush=True)
+          f"{rel:.2e}; HEALPix nside {NSIDE} floor transform "
+          f"({hp_rows.size} belt rows, nphi {hcut.nphi}) adjointness "
+          f"{hrel:.2e}", flush=True)
     return sht
 
 
-def small_dataset(torch, lmax, holey=False):
-    """The lmax-16 band-masked (or holey-masked) polarized dataset of the
-    small-step phase, as the numpy fields ``interop.model_from_numpy``
-    takes."""
+def small_dataset(torch, lmax, kind="band"):
+    """The lmax-16 band-masked, holey-masked or HEALPix holey-masked
+    (nside lmax / 2, padded layout) polarized dataset of the small-step
+    phase, as the numpy fields ``interop.model_from_numpy`` takes."""
     from gibbssampler_tpu_torch.inference import example_dl, simulate_dataset
-    from gibbssampler_tpu_torch.sht import gauss_legendre_grid
+    from gibbssampler_tpu_torch.sht import gauss_legendre_grid, make_healpix_sht
     gen = torch.Generator().manual_seed(2)
     dls = np.stack([example_dl(lmax, "ee"), example_dl(lmax, "bb")])
-    grid = gauss_legendre_grid(lmax)
-    if holey:
-        mask = holey_mask(grid)
+    sht = None
+    if kind == "healpix":
+        sht = make_healpix_sht(lmax // 2, lmax, dtype=torch.float64,
+                               spin2=True, layout="padded", device="cpu")
+        mask = holey_healpix_mask(lmax // 2)
     else:
-        keep = (np.abs(np.pi / 2 - grid.theta) > 0.2).astype(np.float64)
-        mask = np.broadcast_to(keep[:, None], (grid.nrings, grid.nphi))
+        grid = gauss_legendre_grid(lmax)
+        if kind == "holey":
+            mask = holey_mask(grid)
+        else:
+            keep = (np.abs(np.pi / 2 - grid.theta) > 0.2).astype(np.float64)
+            mask = np.broadcast_to(keep[:, None], (grid.nrings, grid.nphi))
     cpu_model, _ = simulate_dataset(lmax, 2, dls, 0.2 ** 2,
                                     fwhm_radians=np.radians(0.5), mask=mask,
                                     dtype=torch.float64, device="cpu",
-                                    gen=gen)
-    g = cpu_model.sht.grid
+                                    sht=sht, gen=gen)
     arrays = {"d": cpu_model.d.numpy(), "tau": cpu_model.noise.tau.numpy(),
               "q_map": cpu_model.noise.q_map.numpy(),
               "omega": cpu_model.noise.omega, "bl": cpu_model.bl.numpy(),
-              "spin": 2, "theta": g.theta, "weights": g.weights,
-              "phi0": g.phi0, "nphi": g.nphi}
+              "spin": 2}
+    if kind == "healpix":
+        arrays.update(grid="healpix", nside=lmax // 2, layout="padded")
+    else:
+        g = cpu_model.sht.grid
+        arrays.update(theta=g.theta, weights=g.weights, phi0=g.phi0,
+                      nphi=g.nphi)
     return arrays, dls
 
 
 def phase_small_steps(torch, dev):
-    """One CenteredGibbs and one ASISGibbs step on a band mask and one
-    ASISGibbs step on a holey mask (floor + sparse-hole split) at lmax 16
-    in float64, card against CPU, on the same dataset and injected
-    variates: the kernels inside every path, the point-set transform and
-    the MH table engine on the card."""
+    """One CenteredGibbs and one ASISGibbs step on a band mask, one
+    ASISGibbs step on a holey mask (floor + sparse-hole split) and one on a
+    holey HEALPix mask (nside 8, padded layout, cap-ring holes in the point
+    set) at lmax 16 in float64, card against CPU, on the same dataset and
+    injected variates: the kernels inside every path, the point-set
+    transform and the MH table engine (on HEALPix with its ring-phase and
+    Nyquist paths) on the card."""
     from gibbssampler_tpu_torch.interop import model_from_numpy
     from gibbssampler_tpu_torch.ops import with_cut_decomposition
     from gibbssampler_tpu_torch.schemes import ASISGibbs, CenteredGibbs
@@ -404,8 +503,10 @@ def phase_small_steps(torch, dev):
                                                12, 15, 17])]
     ablocks = [[(0, lmax - 1)], [(0, 4)] + [(i, i + 1) for i in range(4, 11)]]
     opts = {"n_gibbs": 1, "tau": 0.02}
-    for name in ("centered", "asis", "asis holey"):
-        arrays, dls = small_dataset(torch, lmax, holey=(name == "asis holey"))
+    kinds = {"centered": "band", "asis": "band", "asis holey": "holey",
+             "asis healpix holey": "healpix"}
+    for name, kind in kinds.items():
+        arrays, dls = small_dataset(torch, lmax, kind)
         bins = [cbins, cbins] if name == "centered" else abins
         dl0 = [np.tile([d[lo:hi].mean() for lo, hi in zip(b[:-1], b[1:])],
                        (nch, 1)) for d, b in zip(dls, bins)]
@@ -413,7 +514,7 @@ def phase_small_steps(torch, dev):
         outs = []
         for device in ("cpu", dev):
             model = with_cut_decomposition(model_from_numpy(arrays, device))
-            check(model.has_sparse == (name == "asis holey"),
+            check(model.has_sparse == (kind != "band"),
                   f"small {name} step: sparse split {model.has_sparse}")
             if name == "centered":
                 scheme = CenteredGibbs(model, bins, cr_method="aux_mala",
@@ -424,6 +525,12 @@ def phase_small_steps(torch, dev):
                                    cr_method="aux_mala", cr_options=opts)
                 check(scheme._use_cut_mh, "small ASIS step off the table "
                       "engine")
+                if kind == "healpix":
+                    plan = scheme.mh_plan
+                    check(plan.ph_c is not None
+                          and all(c.lnyq is not None for c in plan.chunks),
+                          "small HEALPix ASIS step off the table engine's "
+                          "ring-phase and Nyquist paths")
             t = lambda a: torch.as_tensor(a, dtype=torch.float64,
                                           device=device)
             if not outs:
@@ -524,6 +631,68 @@ def phase_planckish_dataset(torch, sht, dev):
     return model, dls
 
 
+def phase_healpix_dataset(torch, dev, mask):
+    """The HEALPix planckish dataset: the same sky on the nside-256 grid
+    (padded layout) under bench.py's HEALPix planckish mask, float32.
+    Checks the split's exact sizes and the floor transform against the full
+    grid's synthesis at the floor pixels."""
+    from gibbssampler_tpu_torch.harmonics import ell_mask_state, nstate
+    from gibbssampler_tpu_torch.inference import example_dl, simulate_dataset
+    from gibbssampler_tpu_torch.ops import (healpix_cut_weights,
+                                            with_cut_decomposition)
+    from gibbssampler_tpu_torch.sht import make_healpix_sht
+    t0 = time.time()
+    hsht = make_healpix_sht(NSIDE, LMAX, dtype=torch.float32, spin2=True,
+                            layout="padded", device=dev)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dls = np.stack([example_dl(LMAX, "ee"), example_dl(LMAX, "bb")])
+    model, _ = simulate_dataset(LMAX, 2, dls, 0.2 ** 2,
+                                fwhm_radians=np.radians(0.5), mask=mask,
+                                dtype=torch.float32, device=dev, sht=hsht,
+                                gen=gen)
+    model = with_cut_decomposition(model)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    cut, sp, geo = model.cut_sht, model.sp_sht, hsht.geo
+    check(model.has_sparse, "HEALPix planckish mask: no sparse split")
+    on_caps = (sp.theta < geo.theta[NSIDE - 1]) | (
+        sp.theta > geo.theta[3 * NSIDE - 1])
+    cap_pix = int(sp.valid.sum(dim=1).cpu().numpy()[on_caps].sum())
+    got = (cut.nrings, cut.nphi, int((cut.grid.phi0 != 0).sum()), sp.nslots,
+           cap_pix, (sp.nrows, sp.p))
+    want = (HEALPIX_FLOOR_RINGS, 2 * LMAX, HEALPIX_PHASED_ROWS,
+            HEALPIX_HOLE_PIX, HEALPIX_CAP_HOLE_PIX, HEALPIX_POINT_ROWS)
+    check(got == want, f"HEALPix planckish split (floor rings, nphi, phased "
+          f"rows, hole pixels, on caps, point rows) {got}, expected {want}")
+    check(model.cut_w_uniform and model.cut_w_equal_fields,
+          "HEALPix planckish floor: cut weights not uniform")
+    # the floor transform (193 rows) against the full 1023-ring synthesis
+    # at the floor pixels, float32
+    idx = healpix_cut_weights(hsht.lay, model.noise.tau.cpu().numpy(),
+                              model.noise.q_map.cpu().numpy())[1]
+    g = torch.Generator(device=dev).manual_seed(3)
+    m2 = torch.as_tensor(ell_mask_state(LMAX, 2), dtype=torch.float32,
+                         device=dev)
+    s = torch.randn((2, 2, nstate(LMAX)), generator=g, dtype=torch.float32,
+                    device=dev) * m2
+    full = model.synthesis(s)[..., torch.as_tensor(idx, device=dev)]
+    err = float((model.synthesis_cut(s) - full).abs().max()
+                / full.abs().max())
+    check(err <= 5e-5, f"HEALPix floor synthesis vs the full grid's at the "
+          f"floor pixels: rel err {err} > 5e-5")
+    torch.cuda.synchronize()
+    print(f"HEALPix planckish dataset nside {NSIDE} ({HEALPIX_RINGS} rings, "
+          f"{geo.npix} pixels, {hsht.npadded} padded slots): f_sky "
+          f"{mask.mean():.4f}, floor over {got[0]} belt rings at nphi "
+          f"{got[1]} ({got[2]} phased), {got[3]} hole pixels ({got[4]} on "
+          f"cap rings) in {sp.nrows} x {sp.p} point rows; floor vs full "
+          f"synthesis rel err {err:.2e}; full-grid tables {t1 - t0:.1f} s, "
+          f"simulate + cut decomposition {t2 - t1:.1f} s", flush=True)
+    return model, dls
+
+
 def binned_mean(per_ell, bins):
     return np.array([per_ell[lo:hi].mean() for lo, hi in zip(bins[:-1],
                                                              bins[1:])])
@@ -603,21 +772,31 @@ def phase_centered_slice(torch, lk, model, dls, dev, card):
     return launches
 
 
-def asis_setup(torch, model, dls):
+def asis_setup(torch, model, dls, grid="gl"):
     """bench.py's flagship ASIS configuration: EE unit bins in one block,
     BB unit bins to 396 then 16 wide bins, a 277-bin big block and 133
-    single-bin blocks, the tuned proposal sigmas, aux_mala CR."""
+    single-bin blocks, aux_mala CR; the tuned proposal sigmas on GL, and on
+    HEALPix, which has no tuned record, bench.py's analytic seeds
+    (bench.py:273-276: each field's f_sky, not rescaled for ASIS)."""
     from gibbssampler_tpu_torch.interop import tuned_proposal_sigmas
+    from gibbssampler_tpu_torch.parallel.adapt import analytic_proposal_sigma
     from gibbssampler_tpu_torch.schemes import ASISGibbs
     bins_ee = np.arange(2, LMAX + 2)
     bins_bb = np.array(list(range(2, ASIS_UNIT_TO)) + ASIS_WIDE)
     nb_ee, nb_bb = len(bins_ee) - 1, len(bins_bb) - 1
     blocks = [[(0, nb_ee)],
               [(0, ASIS_BIG)] + [(i, i + 1) for i in range(ASIS_BIG, nb_bb)]]
-    sig = tuned_proposal_sigmas(
-        os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                     "tuned_proposals.json"), "asis", "gl", LMAX,
-        [nb_ee, nb_bb])
+    if grid == "healpix":
+        f_sky = model.noise.f_sky.cpu().numpy()
+        sig = [analytic_proposal_sigma(model.bl.cpu().numpy(), 0.2 ** 2,
+                                       model.noise.omega, LMAX, b,
+                                       f_sky=float(f_sky[f]))
+               for f, b in enumerate((bins_ee, bins_bb))]
+    else:
+        sig = tuned_proposal_sigmas(
+            os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tuned_proposals.json"), "asis", grid, LMAX,
+            [nb_ee, nb_bb])
     t0 = time.time()
     scheme = ASISGibbs(model, [bins_ee, bins_bb], blocks, sig, n_iter_mh=1,
                        cr_method="aux_mala",
@@ -632,11 +811,14 @@ def asis_setup(torch, model, dls):
 
 
 def phase_asis_slice(torch, lk, model, dls, dev, card, profile,
-                     label="ASIS", per_iter=ASIS_PER_ITER):
+                     label="ASIS", per_iter=ASIS_PER_ITER, grid="gl"):
     """The flagship ASIS slice at full width, ``per_iter`` (synthesis,
     adjoint) launches per iteration; returns (launches, scheme, final
-    state)."""
-    scheme, dl0 = asis_setup(torch, model, dls)
+    state).  With the tuned sigmas every field's MH acceptance is held to
+    (0, 1); with the analytic seeds (HEALPix) the single-bin blocks' are,
+    and a field whose joint block never accepts is reported, not
+    failed."""
+    scheme, dl0 = asis_setup(torch, model, dls, grid)
     mh_events = []
     mh_step = scheme.mh_step
 
@@ -664,8 +846,12 @@ def phase_asis_slice(torch, lk, model, dls, dev, card, profile,
     for f, a in enumerate(mh):
         check(a.shape == (NCHAINS, N_TIMED, len(scheme.blocks_list[f])),
               f"mh_accept[{f}] shape {a.shape}")
-        check(0.0 < a.mean() < 1.0, f"{label} MH acceptance of field {f} "
-              f"is {a.mean()}, not in (0, 1)")
+        check(0.0 <= a.mean() < 1.0 if grid == "healpix"
+              else 0.0 < a.mean() < 1.0, f"{label} MH acceptance of field "
+              f"{f} is {a.mean()}")
+    singles = mh[1][..., 1:].mean()
+    check(0.0 < singles < 1.0, f"{label} MH acceptance of the BB singles "
+          f"is {singles}, not in (0, 1)")
     ess_s, bb_tail, per_chain = ess_metrics(out, bins_list, wall)
     print(f"slice lmax={LMAX} {NCHAINS} chains {label} (aux_mala CR + "
           f"table-engine blocked MH): {wall / N_TIMED * 1e3:.2f} ms/iter "
@@ -673,7 +859,7 @@ def phase_asis_slice(torch, lk, model, dls, dev, card, profile,
           f"events) [{card}]", flush=True)
     print(f"{label} acceptance: MALA {acc:.4f}; MH EE block "
           f"{mh[0].mean():.4f}, BB big block {mh[1][..., 0].mean():.4f}, BB "
-          f"singles {mh[1][..., 1:].mean():.4f} (BB all blocks "
+          f"singles {singles:.4f} (BB all blocks "
           f"{mh[1].mean():.4f}) [{card}]", flush=True)
     print(f"{label} ESS ({N_TIMED} iterations, burn 20%): median pooled "
           f"ESS/s {ess_s:.3f}; bb_tail_ess_per_s {bb_tail:.3f}; "
@@ -728,7 +914,8 @@ def cast_cut_model(torch, model, dtype):
     from gibbssampler_tpu_torch.sht import SHT, PointSHT
     c = lambda x: None if x is None else x.to(dtype)
     dev = model.cut_sht.device
-    cut = SHT(model.cut_sht.grid, LMAX, dtype=dtype, spin2=True, device=dev)
+    cut = SHT(model.cut_sht.grid, LMAX, dtype=dtype, spin2=True, device=dev,
+              allow_aliasing=model.cut_sht.allow_aliasing)
     sp = model.sp_sht
     if sp is not None:
         sp = PointSHT(sp.theta, sp.phi, sp.valid.cpu().numpy(), LMAX,
@@ -771,6 +958,13 @@ def phase_mh_sweep(torch, scheme, state, dev, card, label="", nch=4):
           and any(c.segj is not None for c in plan.chunks),
           f"full-width chunking: expected {ASIS_CHUNKS} chunks with wide "
           "bins")
+    # on HEALPix the floor rows sit at nphi 2 lmax, some of them phased:
+    # the sweep takes the ring-phase and Nyquist-column paths
+    nyq = m64.cut_sht.nphi == 2 * LMAX
+    check((plan.ph_c is not None) == m64.cut_sht.has_phase
+          and all((c.lnyq is not None) == nyq for c in plan.chunks),
+          "full-width MH plan: ring-phase / Nyquist paths not as the cut "
+          "rows need")
     torch.cuda.synchronize()
     t1 = time.time()
     fast = cs.nc_cls_sample_cut(dl, s_nc, m64, bins, blocks, sig, u_prop=up,
@@ -823,7 +1017,8 @@ def main():
 
     phase_build(lk)
     rec = phase_kernels(torch, lk, dev, card)
-    sht = phase_sht(torch, dev)
+    hp_mask = healpix_planckish_mask(NSIDE)
+    sht = phase_sht(torch, dev, hp_mask)
     phase_small_steps(torch, dev)
     model, dls = phase_dataset(torch, sht, dev)
     launches_c = phase_centered_slice(torch, lk, model, dls, dev, card)
@@ -838,8 +1033,17 @@ def main():
         torch, lk, model, dls, dev, card, profile, label="planckish ASIS",
         per_iter=PLANCKISH_PER_ITER)
     phase_mh_sweep(torch, scheme, state, dev, card, label=" planckish")
-    launches = [a + b + c for a, b, c in zip(launches_c, launches_a,
-                                             launches_p)]
+    del model, scheme, state, sht
+    torch.cuda.empty_cache()
+    model, dls = phase_healpix_dataset(torch, dev, hp_mask)
+    launches_h, scheme, state = phase_asis_slice(
+        torch, lk, model, dls, dev, card, profile,
+        label="HEALPix planckish ASIS", per_iter=HEALPIX_PER_ITER,
+        grid="healpix")
+    phase_mh_sweep(torch, scheme, state, dev, card,
+                   label=" HEALPix planckish")
+    launches = [sum(n) for n in zip(launches_c, launches_a, launches_p,
+                                    launches_h)]
 
     src = "gibbssampler_tpu_torch/csrc/legendre_tri.cu"
     kernels = []

@@ -1,7 +1,7 @@
-"""Dataset simulation on the Gauss-Legendre grid (PyTorch counterpart of
-``gibbssampler_tpu.inference.simulate``): theory D_ell -> beam-smoothed
-Gaussian sky -> white noise -> optional mask, drawn from an explicit
-``torch.Generator``."""
+"""Dataset simulation on the Gauss-Legendre or HEALPix grid (PyTorch
+counterpart of ``gibbssampler_tpu.inference.simulate``): theory D_ell ->
+beam-smoothed Gaussian sky -> white noise -> optional mask, drawn from an
+explicit ``torch.Generator``."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from ..harmonics.gridstate import almxfl_state, variance_expansion_state
 from ..harmonics.spectra import gauss_beam
 from ..ops.model import SkyModel
 from ..ops.noise import NoiseModel
+from ..sht.healpix import HealpixSHT
 from ..sht.transform import SHT, make_sht
 
 __all__ = ["example_dl", "simulate_dataset"]
@@ -39,19 +40,30 @@ def example_dl(lmax: int, kind: str = "tt", amp: float = 1000.0) -> np.ndarray:
 def simulate_dataset(lmax: int, spin: int, dl_fields, noise_sigma2,
                      fwhm_radians: float = 0.0, mask=None,
                      dtype=torch.float32, device="cuda",
-                     sht: SHT | None = None,
+                     sht: SHT | HealpixSHT | None = None,
                      gen: torch.Generator | None = None):
     """Simulate d = A B s + n and return (SkyModel, truth dict).
 
-    dl_fields: (nfields, lmax+1) D_ell; mask: optional (nrings, nphi)."""
+    dl_fields: (nfields, lmax+1) D_ell; mask: optional (nrings, nphi) on an
+    iso-latitude grid, or (npix,) in RING order on HEALPix (in either map
+    layout; the padded layout takes it through ``from_ring``)."""
     if sht is None:
         sht = make_sht(lmax, dtype=dtype, spin2=(spin == 2), device=device)
     dev = sht.device
     bl = (gauss_beam(fwhm_radians, lmax, dtype=dtype, device=dev)
           if fwhm_radians > 0 else torch.ones(lmax + 1, dtype=dtype, device=dev))
     nf = {0: 1, 2: 2}[spin]
-    noise = NoiseModel.white(noise_sigma2, sht.grid, nfields=nf, mask=mask,
-                             dtype=dtype, device=dev)
+    mask_t = (None if mask is None
+              else torch.as_tensor(np.array(mask), dtype=dtype, device=dev))
+    if isinstance(sht, HealpixSHT):
+        noise = NoiseModel.white_healpix(noise_sigma2, sht.geo, nfields=nf,
+                                         mask=mask, dtype=dtype, sht=sht,
+                                         device=dev)
+        if mask_t is not None and sht.layout == "padded":
+            mask_t = sht.from_ring(mask_t)
+    else:
+        noise = NoiseModel.white(noise_sigma2, sht.grid, nfields=nf,
+                                 mask=mask, dtype=dtype, device=dev)
     dl = torch.as_tensor(np.asarray(dl_fields), dtype=dtype, device=dev)
     var = variance_expansion_state(dl, lmax)
     alm_true = torch.sqrt(var) * torch.randn(var.shape, generator=gen,
@@ -63,7 +75,7 @@ def simulate_dataset(lmax: int, spin: int, dl_fields, noise_sigma2,
                       0.0)
     d = sky + std * torch.randn(sky.shape, generator=gen, dtype=dtype,
                                 device=dev)
-    if mask is not None:
-        d = d * torch.as_tensor(np.array(mask), dtype=dtype, device=dev)
+    if mask_t is not None:
+        d = d * mask_t
     model = SkyModel(sht=sht, noise=noise, bl=bl, spin=spin, d=d)
     return model, {"alm_true": alm_true, "dl_true": dl, "sky": sky}

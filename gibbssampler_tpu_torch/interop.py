@@ -9,6 +9,10 @@ recomputes the cut rows the same way the JAX package does.
               "bl": ..., "spin": int, "theta": ..., "weights": ...,
               "phi0": ..., "nphi": int}
 
+A HEALPix model gives the grid as {"grid": "healpix", "nside": int,
+"layout": "ring" | "padded"} in place of theta, weights, phi0 and nphi;
+its maps are flat vectors in that layout.
+
 ``tuned_proposal_sigmas`` reads the tuned MH proposal scales that the JAX
 package's tuning run stored in ``tuned_proposals.json``.
 """
@@ -24,6 +28,7 @@ from .ops.model import SkyModel
 from .ops.noise import NoiseModel
 from .schemes.gibbs import GibbsState
 from .sht.grids import SphereGrid
+from .sht.healpix import make_healpix_sht
 from .sht.transform import SHT
 
 __all__ = ["model_from_numpy", "state_from_numpy", "tuned_proposal_sigmas"]
@@ -33,15 +38,22 @@ def model_from_numpy(arrays: dict, device="cuda",
                      dtype=torch.float64) -> SkyModel:
     """Build the port's SkyModel (full grid, no cut decomposition) from the
     JAX model's fields given as numpy arrays."""
-    grid = SphereGrid(name="interop",
-                      theta=np.asarray(arrays["theta"], dtype=np.float64),
-                      weights=np.asarray(arrays["weights"], dtype=np.float64),
-                      nphi=int(arrays["nphi"]),
-                      phi0=np.asarray(arrays["phi0"], dtype=np.float64))
     spin = int(arrays["spin"])
     bl = np.asarray(arrays["bl"])
-    sht = SHT(grid, bl.shape[0] - 1, dtype=dtype, spin2=(spin == 2),
-              device=device)
+    lmax = bl.shape[0] - 1
+    if arrays.get("grid") == "healpix":
+        sht = make_healpix_sht(int(arrays["nside"]), lmax, dtype=dtype,
+                               spin2=(spin == 2),
+                               layout=arrays.get("layout", "ring"),
+                               device=device)
+    else:
+        grid = SphereGrid(
+            name="interop",
+            theta=np.asarray(arrays["theta"], dtype=np.float64),
+            weights=np.asarray(arrays["weights"], dtype=np.float64),
+            nphi=int(arrays["nphi"]),
+            phi0=np.asarray(arrays["phi0"], dtype=np.float64))
+        sht = SHT(grid, lmax, dtype=dtype, spin2=(spin == 2), device=device)
     t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
     noise = NoiseModel(tau=t(arrays["tau"]), q_map=t(arrays["q_map"]),
                        omega=float(arrays["omega"]))

@@ -1,9 +1,11 @@
 """The forward model d = A B s + n as a bundle of operators (PyTorch
-counterpart of ``gibbssampler_tpu.ops.model``, Gauss-Legendre grid,
-spin 0 and spin 2).
+counterpart of ``gibbssampler_tpu.ops.model``, Gauss-Legendre and HEALPix
+grids, spin 0 and spin 2).
 
 - state ``s``     : (..., nfields, nstate) grid-packed alm
-- pixel data ``d``: (nfields, nrings, nphi) maps (T, or Q/U)
+- pixel data ``d``: (nfields, *pix) maps (T, or Q/U); pix is (nrings,
+  nphi) on an iso-latitude grid and (npix,) on HEALPix.  The cut rings'
+  and the point set's maps are (nrows, ncols) on either grid.
 
 Leading axes of ``s`` (the chains) are batch axes: every operator maps them
 through, and every scalar it returns (log-likelihoods) is one value per
@@ -13,6 +15,7 @@ leading index, reduced over the field, slot and pixel axes only.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -23,11 +26,13 @@ from ..harmonics.gridstate import (almxfl_state, ell_mask_state,
                                    expand_cl_state, nstate)
 from ..harmonics.spectra import device_constant
 from ..sht.grids import SphereGrid, subgrid_rows
+from ..sht.healpix import HealpixSHT
 from ..sht.points import PointSHT, group_points_by_ring
 from ..sht.transform import SHT
 from .noise import NoiseModel
 
-__all__ = ["SkyModel", "cut_weights", "with_cut_decomposition"]
+__all__ = ["SkyModel", "cut_weights", "healpix_belt_rows",
+           "healpix_cut_weights", "with_cut_decomposition"]
 
 # the JAX package's default bound for the floor + sparse-hole split
 # (GS_SPARSE_MAX_FRAC): masks whose azimuthally non-uniform pixels cover at
@@ -46,7 +51,7 @@ class SkyModel:
     noise: NoiseModel
     bl: torch.Tensor                      # (lmax+1,) beam window
     spin: int
-    d: Optional[torch.Tensor] = None      # observed maps (nfields, nr, nphi)
+    d: Optional[torch.Tensor] = None      # observed maps (nfields, *pix)
 
     # cut-sky complement decomposition (with_cut_decomposition): on a
     # quadrature grid with uniform unmasked noise A^T diag(tau_bar q) A =
@@ -88,6 +93,12 @@ class SkyModel:
         return nstate(self.lmax)
 
     @property
+    def map_ndim(self) -> int:
+        """Pixel-array rank of the full grid's maps: 2 for (nrings, nphi)
+        grids, 1 for HEALPix."""
+        return getattr(self.sht, "map_ndim", 2)
+
+    @property
     def has_cut(self) -> bool:
         return self.cut_sht is not None
 
@@ -116,20 +127,25 @@ class SkyModel:
         """B s (diagonal per-ell, identical for every field)."""
         return almxfl_state(s, self.bl.to(s.dtype), self.lmax)
 
-    def _synthesis_with(self, sht: SHT, s: torch.Tensor) -> torch.Tensor:
-        """A s through the full grid's or the cut rings' transform:
-        (..., nfields, nstate) -> (..., nfields, nr, nphi)."""
+    def _synthesis_with(self, sht, s: torch.Tensor) -> torch.Tensor:
+        """A s through the full grid's, the cut rings' or the point set's
+        transform: (..., nfields, nstate) -> (..., nfields, *pix), pix the
+        transform's map axes ((nr, nphi), (nrows, p), or (npix,) on
+        HEALPix)."""
+        nd = getattr(sht, "map_ndim", 2)
         if self.spin == 0:
-            return sht.synthesis_state(s[..., 0, :])[..., None, :, :]
-        q, u = sht.synthesis_spin2_state(s[..., 0, :], s[..., 1, :])
-        return torch.stack([q, u], dim=-3)
+            maps = [sht.synthesis_state(s[..., 0, :])]
+        else:
+            maps = list(sht.synthesis_spin2_state(s[..., 0, :], s[..., 1, :]))
+        return torch.stack(maps, dim=-(nd + 1))
 
-    def _adjoint_with(self, sht: SHT, f: torch.Tensor) -> torch.Tensor:
-        """A^T f: (..., nfields, nr, nphi) -> (..., nfields, nstate)."""
+    def _adjoint_with(self, sht, f: torch.Tensor) -> torch.Tensor:
+        """A^T f: (..., nfields, *pix) -> (..., nfields, nstate)."""
+        nd = getattr(sht, "map_ndim", 2)
+        field = lambda i: f.select(f.ndim - nd - 1, i)
         if self.spin == 0:
-            return sht.adjoint_synthesis_state(f[..., 0, :, :])[..., None, :]
-        e, b = sht.adjoint_synthesis_spin2_state(f[..., 0, :, :],
-                                                 f[..., 1, :, :])
+            return sht.adjoint_synthesis_state(field(0))[..., None, :]
+        e, b = sht.adjoint_synthesis_spin2_state(field(0), field(1))
         return torch.stack([e, b], dim=-2)
 
     def synthesis(self, s: torch.Tensor) -> torch.Tensor:
@@ -275,11 +291,21 @@ class SkyModel:
         return out
 
 
+def _sparse_auto(n_sp: int, npix: int, sparse_split) -> bool:
+    """Whether to take the floor + sparse-hole split: forced by
+    ``sparse_split``, or automatic when sparse pixels exist and cover at
+    most the JAX package's default share of the sky."""
+    if sparse_split is not None:
+        return bool(sparse_split) and n_sp > 0
+    return 0 < n_sp <= _SPARSE_MAX_FRAC * npix
+
+
 def cut_weights(tau: np.ndarray, q: np.ndarray, sparse_split=None):
-    """The host-side part of :func:`with_cut_decomposition`: from the flat
-    inverse noise ``tau`` (nf, nr, nphi) and the relative pixel areas ``q``
-    (nr, 1), the cut rows, their weights w_cut (nf, nrows, nphi) and the
-    sparse weights w_sp (nf, nr, nphi), None without the split."""
+    """The host-side part of :func:`with_cut_decomposition` on an
+    iso-latitude grid: from the flat inverse noise ``tau`` (nf, nr, nphi)
+    and the relative pixel areas ``q`` (nr, 1), the cut rows, their weights
+    w_cut (nf, nrows, nphi) and the sparse weights w_sp (nf, nr, nphi),
+    None without the split."""
     tau_bar = tau.reshape(tau.shape[0], -1).max(axis=1)
     w = q * (tau_bar[:, None, None] - tau)
     tol = 1e-12 * tau_bar.max()
@@ -292,9 +318,7 @@ def cut_weights(tau: np.ndarray, q: np.ndarray, sparse_split=None):
     w_sp = np.maximum(w - w_floor[:, :, None], 0.0)
     w_sp[w_sp <= tol] = 0.0
     n_sp = int(np.any(w_sp > 0.0, axis=0).sum())
-    split = (bool(sparse_split) and n_sp > 0 if sparse_split is not None
-             else 0 < n_sp <= _SPARSE_MAX_FRAC * w_sp[0].size)
-    if not split:
+    if not _sparse_auto(n_sp, w_sp[0].size, sparse_split):
         return any_rows, w[:, any_rows, :], None
     rows = np.where(np.any(w_floor > tol, axis=0))[0]
     if rows.size == 0:
@@ -307,6 +331,176 @@ def cut_weights(tau: np.ndarray, q: np.ndarray, sparse_split=None):
     return rows, w_cut, w_sp
 
 
+def healpix_belt_rows(lay, cols):
+    """Map flat pixel positions (in the map layout of ``lay``, a
+    ``sht.HealpixLayout``) to the equatorial-belt rings holding them.
+    Returns (rows, idx): global ring indices and the (nrows, 4 nside)
+    layout positions of each ring's pixels.  Raises if a position lies on
+    a cap ring: caps have other ring lengths and cannot share the
+    uniform-nphi cut transform."""
+    cols = np.asarray(cols)
+    nb = lay.nb
+    if lay.layout == "padded":
+        belt_lo = lay.belt_off
+        on_belt = (cols >= belt_lo) & (cols < belt_lo + lay.nbelt * nb)
+        ring_of = (cols - belt_lo) // nb + lay.ncap
+    else:
+        start = lay.geo.ring_start
+        ring_of = np.searchsorted(start, cols, side="right") - 1
+        on_belt = (ring_of >= lay.ncap) & (ring_of < lay.ncap + lay.nbelt)
+    if not on_belt.all():
+        raise ValueError("HEALPix cut decomposition without the sparse "
+                         "split supports masks on equatorial-belt rings "
+                         "only (cap rings have varying ring lengths)")
+    rows = np.unique(ring_of)
+    ring_pix = lay.geo.ring_start[rows][:, None] + np.arange(nb)[None, :]
+    return rows, lay.layout_of_ring[ring_pix]
+
+
+def healpix_cut_weights(lay, tau: np.ndarray, q: np.ndarray,
+                        sparse_split=None):
+    """The host-side part of the HEALPix cut decomposition, for the map
+    layout ``lay`` (a ``sht.HealpixLayout``): from the flat inverse noise
+    ``tau`` (nf, npix_layout) and ``q`` (npix_layout,), returns (rows, idx,
+    w_cut, sparse): the floor's global belt-ring indices, the (nrows,
+    4 nside) layout positions of their pixels, w_cut (nf, nrows, 4 nside)
+    and, with the split, sparse = (w_sp (nf, npix_layout), ring, phi,
+    layout position) of each hole pixel in RING order (None without it).
+
+    The floor is the per-ring azimuthal minimum over the belt rings only;
+    everything else, cap-ring holes included, goes to the sparse set.
+    Without the split a masked pixel off the belt raises ValueError."""
+    geo = lay.geo
+    tau_bar = tau.max(axis=1)
+    w = np.maximum(q * (tau_bar[:, None] - tau), 0.0)
+    tol = 1e-12 * tau_bar.max()
+    cols = np.where(np.any(w > tol, axis=0))[0]
+    if cols.size == 0:
+        raise ValueError("model has no masked pixels; cut decomposition "
+                         "is pointless on the full sky")
+    nb, nf = lay.nb, w.shape[0]
+    ring_start = geo.ring_start
+    pix_of = lay.layout_of_ring
+    w_ring = w[:, pix_of]                              # (nf, npix) RING order
+    ring_of = np.searchsorted(ring_start, np.arange(geo.npix),
+                              side="right") - 1
+    # per-ring azimuthal floor over the belt rings (contiguous in RING order)
+    belt_lo = lay.ncap
+    s0 = int(ring_start[belt_lo])
+    w_floor = np.zeros((nf, geo.nrings))
+    w_floor[:, belt_lo: belt_lo + lay.nbelt] = w_ring[
+        :, s0: s0 + lay.nbelt * nb].reshape(nf, lay.nbelt, nb).min(axis=2)
+    w_sp_ring = np.maximum(w_ring - w_floor[:, ring_of], 0.0)
+    w_sp_ring[w_sp_ring <= tol] = 0.0
+    sp_pix = np.any(w_sp_ring > 0.0, axis=0)
+    if not _sparse_auto(int(sp_pix.sum()), geo.npix, sparse_split):
+        rows, idx = healpix_belt_rows(lay, cols)
+        return rows, idx, w[:, idx], None
+    rows = np.where(np.any(w_floor > tol, axis=0))[0]
+    if rows.size == 0:
+        rows = np.array([belt_lo + lay.nbelt // 2])
+        w_floor = np.zeros_like(w_floor)
+    idx = pix_of[ring_start[rows][:, None] + np.arange(nb)[None, :]]
+    w_cut = np.broadcast_to(w_floor[:, rows, None], (nf, rows.size, nb))
+    rp = np.where(sp_pix)[0]                           # RING-order pixels
+    r_of = ring_of[rp]
+    phi = geo.phi0[r_of] + 2.0 * np.pi * (rp - ring_start[r_of]) \
+        / geo.nphi[r_of]
+    w_sp = np.zeros_like(w)
+    w_sp[:, pix_of] = w_sp_ring
+    return rows, idx, w_cut, (w_sp, r_of, phi, pix_of[rp])
+
+
+def _attach_sparse(model, out, w_sp_flat, d_flat, ring_idx, theta, phi,
+                   flat_idx):
+    """The point-set transform over the hole pixels, with w_sp and d_sp
+    gathered from the (nf, npix_flat) host arrays ``w_sp_flat`` and
+    ``d_flat`` at ``flat_idx``."""
+    sht = model.sht
+    dt, dev = sht.dtype, sht.device
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                  device=dev)
+    theta_rows, phi_pad, valid, gidx = group_points_by_ring(
+        ring_idx, theta, phi, flat_idx)
+    sp_sht = PointSHT(theta_rows, phi_pad, valid, sht.lmax, dtype=dt,
+                      spin0=(model.spin == 0), spin2=(model.spin == 2),
+                      device=dev)
+    return dataclasses.replace(
+        out, sp_sht=sp_sht, w_sp=t(w_sp_flat[:, gidx] * valid),
+        d_sp=None if d_flat is None else t(d_flat[:, gidx] * valid))
+
+
+def _host(x):
+    return None if x is None else x.detach().cpu().numpy()
+
+
+def _with_cut(model, cut_sht, d_cut, w_cut):
+    """``model`` with the cut rows' transform, data and weights, and the
+    static flags of w_cut that select the blocked-MH engine."""
+    dt, dev = model.sht.dtype, model.sht.device
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                  device=dev)
+    return dataclasses.replace(
+        model, cut_sht=cut_sht, d_cut=None if d_cut is None else t(d_cut),
+        w_cut=t(w_cut),
+        cut_w_uniform=bool(np.allclose(w_cut, w_cut[:, :, :1], rtol=0,
+                                       atol=0)),
+        cut_w_equal_fields=bool(np.allclose(w_cut, w_cut[:1], rtol=0,
+                                            atol=0)))
+
+
+def _quadrature_cut(model: SkyModel, sparse_split) -> SkyModel:
+    rows, w_cut, w_sp = cut_weights(_host(model.noise.tau),
+                                    _host(model.noise.q_map), sparse_split)
+    sht = model.sht
+    d_np = _host(model.d)
+    cut_sht = SHT(subgrid_rows(sht.grid, rows), sht.lmax, dtype=sht.dtype,
+                  spin2=(model.spin == 2), device=sht.device)
+    out = _with_cut(model, cut_sht,
+                    None if d_np is None else d_np[..., rows, :], w_cut)
+    if w_sp is not None:
+        grid = sht.grid
+        nf = w_sp.shape[0]
+        rr, cc = np.nonzero(np.any(w_sp > 0.0, axis=0))
+        out = _attach_sparse(
+            model, out, w_sp.reshape(nf, -1),
+            None if d_np is None else d_np.reshape(nf, -1), rr,
+            grid.theta[rr], grid.phi0[rr] + 2.0 * np.pi * cc / grid.nphi,
+            rr * grid.nphi + cc)
+    return out
+
+
+def _healpix_cut(model: SkyModel, sparse_split) -> SkyModel:
+    """The HEALPix cut: the floor over belt rings, which share one nphi =
+    4 nside = 2 lmax and are iso-latitude, through a plain ``SHT`` over
+    those rows with their phi0, built with ``allow_aliasing=True``; with
+    the split the rest, cap-ring holes included, through the point set."""
+    sht = model.sht
+    lay, geo = sht.lay, sht.geo
+    rows, idx, w_cut, sparse = healpix_cut_weights(
+        lay, _host(model.noise.tau), _host(model.noise.q_map), sparse_split)
+    nb = lay.nb
+    tag = hashlib.sha1(rows.tobytes()).hexdigest()[:10]
+    cut_grid = SphereGrid(
+        name=f"hpbelt{sht.nside}_rows{rows.size}_{tag}",
+        theta=geo.theta[rows],
+        # weights such that pixel_area is the uniform HEALPix pixel area
+        # (only analysis would read them, and the aliased grid has none)
+        weights=np.full(rows.size, geo.pixel_area * nb / (2.0 * np.pi)),
+        nphi=nb, phi0=geo.phi0[rows])
+    cut_sht = SHT(cut_grid, sht.lmax, dtype=sht.dtype,
+                  spin2=(model.spin == 2), device=sht.device,
+                  allow_aliasing=True)
+    d_np = _host(model.d)
+    out = _with_cut(model, cut_sht, None if d_np is None else d_np[..., idx],
+                    w_cut)
+    if sparse is not None:
+        w_sp, r_of, phi, flat_idx = sparse
+        out = _attach_sparse(model, out, w_sp, d_np, r_of, geo.theta[r_of],
+                             phi, flat_idx)
+    return out
+
+
 def with_cut_decomposition(model: SkyModel,
                            sparse_split: Optional[bool] = None) -> SkyModel:
     """Attach the cut-sky complement decomposition to a masked model.
@@ -314,7 +508,7 @@ def with_cut_decomposition(model: SkyModel,
     Requires per-field noise that is uniform on unmasked pixels.  The
     masked rings ("cut" rows: any pixel with tau < tau_max) get their own
     SHT; masked operators then cost one transform over those rings instead
-    of the full sphere.  Exact on the Gauss-Legendre quadrature grid.
+    of the full sphere.
 
     ``sparse_split``: the azimuthal-floor + sparse-hole split for masks
     that are not azimuthally uniform (an apodized band plus point-source
@@ -323,42 +517,23 @@ def with_cut_decomposition(model: SkyModel,
     table engine stays eligible) and the remainder, supported on the hole
     pixels only, a point-set transform (``sht.points.PointSHT``).  None
     (the default) splits when sparse pixels exist and cover at most 15% of
-    the sky; True / False force the split on / off."""
-    if not isinstance(model.sht.grid, SphereGrid):
+    the sky; True / False force the split on / off.
+
+    - On an iso-latitude quadrature grid (Gauss-Legendre) the decomposition
+      is exact.
+    - On HEALPix the floor runs over belt rings only (``_healpix_cut``) and
+      the identity A^T diag(tau_bar q) A = (tau_bar/omega) I holds only to
+      the grid's quadrature error (about 1e-2 relative near lmax =
+      2 nside), the approximation the HEALPix sampler makes everywhere;
+      the pieces supported on the masked pixels stay exact.  Without the
+      split a mask off the belt rings raises ValueError."""
+    if isinstance(model.sht, HealpixSHT):
+        out = _healpix_cut(model, sparse_split)
+    elif isinstance(model.sht.grid, SphereGrid):
+        out = _quadrature_cut(model, sparse_split)
+    else:
         raise ValueError("cut decomposition needs an iso-latitude "
-                         "quadrature grid")
-    rows, w_cut, w_sp = cut_weights(model.noise.tau.detach().cpu().numpy(),
-                                    model.noise.q_map.detach().cpu().numpy(),
-                                    sparse_split)
-    sht = model.sht
-    dt, dev = sht.dtype, sht.device
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                                  device=dev)
-    d_np = None if model.d is None else model.d.detach().cpu().numpy()
-    cut_sht = SHT(subgrid_rows(sht.grid, rows), sht.lmax, dtype=dt,
-                  spin2=(model.spin == 2), device=dev)
-    out = dataclasses.replace(
-        model, cut_sht=cut_sht,
-        d_cut=None if d_np is None else t(d_np[..., rows, :]),
-        w_cut=t(w_cut),
-        cut_w_uniform=bool(np.allclose(w_cut, w_cut[:, :, :1], rtol=0,
-                                       atol=0)),
-        cut_w_equal_fields=bool(np.allclose(w_cut, w_cut[:1], rtol=0,
-                                            atol=0)))
-    if w_sp is not None:
-        grid = sht.grid
-        rr, cc = np.nonzero(np.any(w_sp > 0.0, axis=0))
-        theta_rows, phi_pad, valid, gidx = group_points_by_ring(
-            rr, grid.theta[rr], grid.phi0[rr] + 2.0 * np.pi * cc / grid.nphi,
-            rr * grid.nphi + cc)
-        nf = w_sp.shape[0]
-        sp_sht = PointSHT(theta_rows, phi_pad, valid, sht.lmax, dtype=dt,
-                          spin0=(model.spin == 0), spin2=(model.spin == 2),
-                          device=dev)
-        out = dataclasses.replace(
-            out, sp_sht=sp_sht, w_sp=t(w_sp.reshape(nf, -1)[:, gidx] * valid),
-            d_sp=None if d_np is None
-            else t(d_np.reshape(nf, -1)[:, gidx] * valid))
+                         "quadrature grid or a HEALPix grid")
     if model.d is not None:
         c0, c1 = out.cut_data_terms()
         out = dataclasses.replace(out, cut_c0=c0, cut_c1=c1)

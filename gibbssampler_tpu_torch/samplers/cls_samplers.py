@@ -351,33 +351,51 @@ def _prepare_tchunks(model, cut, mchunks, w1, dt, nyq: bool = False):
         <a_i, a_j>_w = nphi sum_m C_ij(m) [Wpp + pos_m Wmm](m, li, lj),
         W__(m, l, l') = sum_r w_r lam_(m,l,r) lam_(m,l',r),
 
-    so no per-bin (ring, m) planes are ever built.  Returns per chunk
-    (kind, lamA, lamB, W, omega).  The JAX package's ``nyq`` column path
-    (nphi = 2 lmax, HEALPix belt rows) is not ported."""
-    if nyq:
-        raise NotImplementedError(
-            "nphi = 2 lmax: the table engine's Nyquist-column path is not "
-            "ported")
+    so no per-bin (ring, m) planes are ever built.  Ring phases rotate the
+    (re, im) coefficient pairs jointly and the like-component pairing is
+    rotation-invariant, so the tables hold on phased rows too; only the
+    pairings with the raw ring sums (rho, the residual updates) need the
+    rotation, in the sweep.
+
+    ``nyq``: the rows sit at nphi = 2 lmax, where the m = lmax column
+    carries (pw_cos, pw_sin) = (nphi, 0) and the uniform pairing above is
+    wrong.  The column is zeroed out of the tables here and its exact
+    contribution added by its own path in the sweep, from the raw lambda
+    column(s) each chunk carries.  Returns per chunk (kind, lamA, lamB, W,
+    omega, lnyq): lnyq is None, the (J, nr) spin-0 column, or the (lam+2,
+    lam-2) pair of spin-2 columns."""
     n = float(cut.nphi)
     L = model.lmax + 1
     pos = cut.pos.to(dt)
     out = []
     for (f, j_idx, seg, gbins, rows) in mchunks:
+        # lsel_table gathers a fresh (L, J, nr) tensor: zeroing its Nyquist
+        # row leaves the transform's table as it is
         if model.spin == 0:
             lam0_j = cut.lsel_table(cut.lam0, j_idx).to(dt)      # (L, J, r)
+            lnyq = None
+            if nyq:
+                lnyq = lam0_j[L - 1].clone()
+                lam0_j[L - 1] = 0.0
             W00 = torch.einsum("mjr,mkr->mjk", lam0_j * w1, lam0_j)
             omega = np.full((2, L), 2.0 * n)
             omega[0, 0] = n
             omega[1, 0] = 0.0
             out.append(("s0", lam0_j, None, W00,
-                        torch.as_tensor(omega, dtype=dt, device=w1.device)))
+                        torch.as_tensor(omega, dtype=dt, device=w1.device),
+                        lnyq))
         else:
             lamp_j = cut.lsel_table(cut.lam_p2, j_idx).to(dt)
             lamm_j = cut.lsel_table(cut.lam_m2, j_idx).to(dt)
+            lnyq = None
+            if nyq:
+                lnyq = (lamp_j[L - 1].clone(), lamm_j[L - 1].clone())
+                lamp_j[L - 1] = 0.0
+                lamm_j[L - 1] = 0.0
             Wpp = torch.einsum("mjr,mkr->mjk", lamp_j * w1, lamp_j)
             Wmm = torch.einsum("mjr,mkr->mjk", lamm_j * w1, lamm_j)
             out.append(("s2", lamp_j, lamm_j,
-                        n * (Wpp + pos[:, None, None] * Wmm), None))
+                        n * (Wpp + pos[:, None, None] * Wmm), None, lnyq))
     return out
 
 
@@ -394,6 +412,7 @@ class _TChunk(NamedTuple):
     lamB: torch.Tensor | None
     W: torch.Tensor            # (L, J, J)
     omega: torch.Tensor | None
+    lnyq: object               # None, or the Nyquist lambda column(s)
     sp_tab: torch.Tensor | None  # (J, 2L, nmaps S) hole-point slot tables
 
 
@@ -401,9 +420,10 @@ class CutMHPlan:
     """The static part of ``nc_cls_sample_cut`` for one model, binning,
     blocking and proposal scale, built once on the model's device: block
     table and order, the chunking of the single-bin blocks, their gather
-    indices, the ell-pair W tables of the table-domain engine and, for a
-    model with the sparse split, the hole points' per-chunk slot tables
-    (``PointSHT.flat_tables_spin*``).  These depend only on the model, the
+    indices, the ell-pair W tables of the table-domain engine, the cut
+    rows' phase factors (phi0 != 0) and Nyquist columns (nphi = 2 lmax)
+    and, for a model with the sparse split, the hole points' per-chunk slot
+    tables (``PointSHT.flat_tables_spin*``).  These depend only on the model, the
     bins and the blocks (the JAX package rebuilds them inside ``jit`` on
     every call; the values are the same).
 
@@ -411,8 +431,7 @@ class CutMHPlan:
     engine the port does not have: the coefficient m-domain engine
     (``mdomain="m"``, or w_cut not equal across map components), the
     phi-domain engine (``mdomain=False``, no single-bin blocks, or w_cut
-    not azimuthally uniform), ring phases, the Nyquist column
-    (nphi = 2 lmax) and the PNCP identity re-centering."""
+    not azimuthally uniform) and the PNCP identity re-centering."""
 
     def __init__(self, model, bins_list, blocks_list, prop_sigma_list,
                  mdomain="auto", l_cut_identity=None, dtype=None):
@@ -474,10 +493,14 @@ class CutMHPlan:
             raise NotImplementedError(
                 "w_cut differs between map components: the JAX package "
                 "runs the coefficient m-domain engine, which is not ported")
-        if getattr(cut, "has_phase", False):
-            raise NotImplementedError("ring phases (phi0 != 0) in the table "
-                                      "engine are not ported")
         nyq = cut.nphi == 2 * lmax
+        # the raw ring sums rotate into the unrotated-F pairing basis by
+        # the cut rows' phase factors
+        self.ph_c = self.ph_s = None
+        if cut.has_phase:
+            self.ph_c = cut.phase_cos.to(dt)               # (ncut, L)
+            self.ph_s = cut.phase_sin.to(dt)
+        self.nphi = float(cut.nphi)
 
         mchunks = _prepare_mchunks(singles, single_rows, self.bins_list)
         self.pwc, self.pws = cut.ring_dot_weights()
@@ -509,8 +532,10 @@ class CutMHPlan:
                     segj=(None if seg is None else
                           torch.as_tensor(seg, dtype=dt, device=dev)),
                     gbins=idx(gbins), rows=idx(rows), kind=kind, lamA=lamA,
-                    lamB=lamB, W=W, omega=omega, sp_tab=sp_tab(f, j_idx))
-            for (f, j_idx, seg, gbins, rows), (kind, lamA, lamB, W, omega)
+                    lamB=lamB, W=W, omega=omega, lnyq=lnyq,
+                    sp_tab=sp_tab(f, j_idx))
+            for (f, j_idx, seg, gbins, rows), (kind, lamA, lamB, W, omega,
+                                               lnyq)
             in zip(mchunks, tpre)]
         self.fields = sorted({c.f for c in self.chunks})
 
@@ -658,28 +683,76 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc,
         accs[..., row] = acc.to(dt)
 
     w1, pos, pwc, pws = plan.w1, plan.pos, plan.pwc, plan.pws
+    ph_c, ph_s, nphi = plan.ph_c, plan.ph_s, plan.nphi
+    L = model.lmax + 1
+
+    def rot(re, im):
+        """(re, im) rotated by the cut rows' phase e^{i m phi0}."""
+        if ph_c is None:
+            return re, im
+        return re * ph_c - im * ph_s, re * ph_s + im * ph_c
+
     for ch in plan.chunks:
         _kind, gmat, sp, sm = grids[ch.f]
         gsel = gmat[..., ch.j_idx]                          # (..., 2, L, J)
+        if ch.lnyq is not None:
+            # the Nyquist column's grid entries, (..., J, 1) against the
+            # (J, nr) lambda columns
+            g_nre = gsel[..., 0, L - 1, :, None]
+            g_nim = gsel[..., 1, L - 1, :, None]
+            if ph_c is not None:
+                pcn, psn = ph_c[:, L - 1], ph_s[:, L - 1]     # (nr,)
         if ch.kind == "s0":
             gw = gsel * ch.omega[:, :, None]
             CM = torch.einsum("...cml,...cmk->...mlk", gw, gsel)
             Gl = torch.einsum("...mlk,mlk->...lk", CM, ch.W)
             RcF, RsF = Rc[..., 0, :, :], Rs[..., 0, :, :]
+            # the raw ring sums in the pairing basis of the unrotated F
+            Rct, Rst = rot(RcF, RsF)
             U0re = torch.einsum("mjr,...rm->...mj", ch.lamA,
-                                RcF * w1[:, None])
+                                Rct * w1[:, None])
             U0im = -torch.einsum("mjr,...rm->...mj", ch.lamA,
-                                 RsF * w1[:, None])
+                                 Rst * w1[:, None])
             rho_l = (torch.einsum("...mj,...mj,m->...j", gsel[..., 0, :, :],
                                   U0re, plan.cmv)
                      + torch.einsum("...mj,...mj,m->...j",
                                     gsel[..., 1, :, :], U0im, plan.cmv))
+            if ch.lnyq is not None:
+                # the exact Nyquist (m = lmax) term: local cos coefficient
+                # Ccn = 2 (Fre c - Fim s), pairing weight pw_cos = nphi,
+                # sin column zero
+                Fre_n = g_nre * ch.lnyq                     # (..., J, nr)
+                Fim_n = g_nim * ch.lnyq
+                Ccn = 2.0 * (Fre_n if ph_c is None
+                             else Fre_n * pcn - Fim_n * psn)
+                Gl = Gl + nphi * torch.einsum("...jr,r,...kr->...jk", Ccn,
+                                              w1, Ccn)
+                rho_l = rho_l + torch.einsum("...jr,...r->...j", Ccn,
+                                             w1 * RcF[..., :, L - 1])
         else:
             CM = torch.einsum("...cml,...cmk->...mlk", gsel, gsel)
             Gl = torch.einsum("...mlk,mlk->...lk", CM, ch.W)
             wb = w1[:, None]
-            RcQ, RsQ = Rc[..., 0, :, :], Rs[..., 0, :, :]
-            RcU, RsU = Rc[..., 1, :, :], Rs[..., 1, :, :]
+            RcQ_, RsQ_ = Rc[..., 0, :, :], Rs[..., 0, :, :]
+            RcU_, RsU_ = Rc[..., 1, :, :], Rs[..., 1, :, :]
+            RcQ, RsQ = rot(RcQ_, RsQ_)
+            RcU, RsU = rot(RcU_, RsU_)
+            if ch.lnyq is not None:
+                # the chunk's local Q / U cos coefficients at m = lmax
+                # (pos_lmax = 1)
+                lpn, lmn = ch.lnyq
+                Are_n = sp * g_nre * lpn + sm * g_nre * lmn
+                Aim_n = sp * g_nim * lpn + sm * g_nim * lmn
+                Bre_n = sp * g_nre * lpn - sm * g_nre * lmn
+                Bim_n = sp * g_nim * lpn - sm * g_nim * lmn
+                if ph_c is None:
+                    Qcn, Ucn = Are_n, Bim_n
+                else:
+                    Qcn = Are_n * pcn - Aim_n * psn
+                    Ucn = Bre_n * psn + Bim_n * pcn
+                Gl = Gl + nphi * (
+                    torch.einsum("...jr,r,...kr->...jk", Qcn, w1, Qcn)
+                    + torch.einsum("...jr,r,...kr->...jk", Ucn, w1, Ucn))
             Spre = wb * (RcQ + RsU)
             Spim = wb * (RcU - RsQ)
             Smre = wb * (RcQ - RsU)
@@ -693,6 +766,12 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc,
             Xim = sp * Upim + sm * posj * Umim
             rho_l = ((gsel[..., 0, :, :] * Xre).sum(-2)
                      + (gsel[..., 1, :, :] * Xim).sum(-2))
+            if ch.lnyq is not None:
+                rho_l = rho_l + (
+                    torch.einsum("...jr,...r->...j", Qcn,
+                                 w1 * RcQ_[..., :, L - 1])
+                    + torch.einsum("...jr,...r->...j", Ucn,
+                                   w1 * RcU_[..., :, L - 1]))
         if ch.segj is None:
             G, rho = Gl, rho_l
         else:
@@ -743,19 +822,29 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc,
         gg = gsel * gl[..., None, None, :]
         if ch.kind == "s0":
             Fc = torch.einsum("mjr,...cmj->...crm", ch.lamA, gg)
-            Rc0 = Rc[..., 0, :, :] - (pwc * plan.cmv) * Fc[..., 0, :, :]
-            Rs0 = Rs[..., 0, :, :] + (pws * plan.cmv) * Fc[..., 1, :, :]
+            Fre_u, Fim_u = rot(Fc[..., 0, :, :], Fc[..., 1, :, :])
+            Rc0 = Rc[..., 0, :, :] - (pwc * plan.cmv) * Fre_u
+            Rs0 = Rs[..., 0, :, :] + (pws * plan.cmv) * Fim_u
+            if ch.lnyq is not None:
+                Rc0[..., L - 1] -= nphi * torch.einsum("...j,...jr->...r",
+                                                       gl, Ccn)
             Rc, Rs = Rc0[..., None, :, :], Rs0[..., None, :, :]
         else:
             Fp = torch.einsum("mjr,...cmj->...crm", ch.lamA, gg) * sp
             Fm = torch.einsum("mjr,...cmj->...crm", ch.lamB, gg) * sm
-            Are = Fp[..., 0, :, :] + pos * Fm[..., 0, :, :]
-            Aim = Fp[..., 1, :, :] + pos * Fm[..., 1, :, :]
-            Bre = Fp[..., 0, :, :] - pos * Fm[..., 0, :, :]
-            Bim = Fp[..., 1, :, :] - pos * Fm[..., 1, :, :]
+            Are, Aim = rot(Fp[..., 0, :, :] + pos * Fm[..., 0, :, :],
+                           Fp[..., 1, :, :] + pos * Fm[..., 1, :, :])
+            Bre, Bim = rot(Fp[..., 0, :, :] - pos * Fm[..., 0, :, :],
+                           Fp[..., 1, :, :] - pos * Fm[..., 1, :, :])
             # (Qc, Qs, Uc, Us) = (Are, -Aim, Bim, Bre)
-            Rc = torch.stack([Rc[..., 0, :, :] - pwc * Are,
-                              Rc[..., 1, :, :] - pwc * Bim], dim=-3)
+            RcQ = Rc[..., 0, :, :] - pwc * Are
+            RcU = Rc[..., 1, :, :] - pwc * Bim
+            if ch.lnyq is not None:
+                RcQ[..., L - 1] -= nphi * torch.einsum("...j,...jr->...r",
+                                                       gl, Qcn)
+                RcU[..., L - 1] -= nphi * torch.einsum("...j,...jr->...r",
+                                                       gl, Ucn)
+            Rc = torch.stack([RcQ, RcU], dim=-3)
             Rs = torch.stack([Rs[..., 0, :, :] + pws * Aim,
                               Rs[..., 1, :, :] - pws * Bre], dim=-3)
         if Rp is not None:

@@ -193,6 +193,8 @@ def mala_cr(model: SkyModel, var_cls, bt_ninv_d, s_old, tau: float = 0.02,
             return grad, logp
     else:
         inv_noise = model.noise.inv_noise
+        # the field and pixel axes of the full grid's maps
+        pix_axes = tuple(range(-(model.map_ndim + 1), 0))
 
         def fwd_grad_logp(x):
             """forward once -> (gradient, log target)."""
@@ -201,7 +203,7 @@ def mala_cr(model: SkyModel, var_cls, bt_ninv_d, s_old, tau: float = 0.02,
             qs = model.project_data(inv_noise * fwd)
             grad = (-inv_cvar * x - qs + bt_ninv_d) * act
             logp = (-0.5 * (inv_cvar * x * x).sum(dim=(-2, -1))
-                    - 0.5 * (inv_noise * resid * resid).sum(dim=(-3, -2, -1)))
+                    - 0.5 * (inv_noise * resid * resid).sum(dim=pix_axes))
             return grad, logp
 
     pool = _as_pool(noise)

@@ -41,14 +41,22 @@ SPIN2_SINGLE_SIGNS = {"e": (-1.0, -1.0), "b": (1.0, -1.0)}
 
 
 class SHT(LegendreCore):
-    """Operator tables for one (grid, lmax, dtype) on one device."""
+    """Operator tables for one (grid, lmax, dtype) on one device.
+
+    ``allow_aliasing``: synthesis (pointwise evaluation) and its transpose
+    are exact on any nphi; only analysis as the inverse needs
+    nphi > 2 lmax.  With the flag a grid with nphi <= 2 lmax + 1 is taken
+    for synthesis and its adjoint (the floor transform over HEALPix belt
+    rows, nphi = 2 lmax), and ``analysis_*`` raise."""
 
     def __init__(self, grid: SphereGrid, lmax: int, dtype=torch.float32,
-                 spin2: bool = False, device="cuda"):
+                 spin2: bool = False, device="cuda",
+                 allow_aliasing: bool = False):
         self.grid = grid
+        self.allow_aliasing = bool(allow_aliasing)
         self._init_core(lmax, dtype, device)
         L = lmax + 1
-        if grid.nphi < 2 * lmax + 2:
+        if grid.nphi < 2 * lmax + 2 and not allow_aliasing:
             raise ValueError(
                 f"grid nphi={grid.nphi} too small for lmax={lmax}; "
                 f"need >= {2 * lmax + 2}")
@@ -134,8 +142,15 @@ class SHT(LegendreCore):
             Gre, Gim = Gre * ring_w[:, None], Gim * ring_w[:, None]
         return self._ladj_stack(self.lam0, torch.stack([Gre, Gim], dim=-3))
 
+    def _refuse_aliased_analysis(self):
+        if self.allow_aliasing:
+            raise ValueError("analysis is not an inverse on an aliased "
+                             "(nphi <= 2 lmax) grid; only synthesis and "
+                             "adjoint_synthesis are exact here")
+
     def analysis_state(self, maps: torch.Tensor) -> torch.Tensor:
         """Exact inverse of synthesis_state on a quadrature grid."""
+        self._refuse_aliased_analysis()
         return self._grids_to_state(self._spin0_agrids(maps, self.wq))
 
     def adjoint_synthesis_state(self, maps: torch.Tensor) -> torch.Tensor:
@@ -198,6 +213,7 @@ class SHT(LegendreCore):
 
     def analysis_spin2_state(self, q_maps, u_maps):
         """Exact inverse: (Q, U) maps -> (E, B) grid-packed alm states."""
+        self._refuse_aliased_analysis()
         return self._analysis_spin2_core(q_maps, u_maps, self.wq)
 
     def adjoint_synthesis_spin2_state(self, q_maps, u_maps):

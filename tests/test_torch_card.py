@@ -3,22 +3,26 @@ there is no NVIDIA GPU).  No jax here, so they also run where jax is not
 installed: ``python -m pytest --noconftest -q tests/test_torch_card.py``.
 
 One ASIS iteration at lmax 12 in float64, on the card and on the CPU from
-the same dataset and injected variates, on a band mask and on a holey mask
-(the floor + sparse-hole split): the Legendre kernels inside the CR step
+the same dataset and injected variates, on a band mask, on a holey mask
+(the floor + sparse-hole split) and on a holey HEALPix mask at nside 6 in
+the padded layout (belt-row floor at nphi = 2 lmax with phased rows,
+cap-ring holes in the point set): the Legendre kernels inside the CR step
 and the MH step's syntheses, the point-set transform and the table
-engine's contractions on the card, against the CPU's plain versions."""
+engine's contractions (with its ring-phase and Nyquist paths on HEALPix)
+on the card, against the CPU's plain versions."""
 
 import numpy as np
 import pytest
 import torch
 
-from torch_parity import cuda_device, holey_mask, n  # noqa: F401
+from torch_parity import (cuda_device, holey_healpix_mask,  # noqa: F401
+                          holey_mask, n)
 from gibbssampler_tpu_torch.inference import example_dl, simulate_dataset
 from gibbssampler_tpu_torch.interop import model_from_numpy
 from gibbssampler_tpu_torch.ops import with_cut_decomposition
 from gibbssampler_tpu_torch.schemes import ASISGibbs
 from gibbssampler_tpu_torch.schemes.gibbs import GibbsState
-from gibbssampler_tpu_torch.sht import gauss_legendre_grid
+from gibbssampler_tpu_torch.sht import gauss_legendre_grid, make_healpix_sht
 from gibbssampler_tpu_torch.sht import legendre_kernels as lk
 
 LMAX = 12
@@ -29,31 +33,41 @@ OPTS = {"n_gibbs": 1, "tau": 0.02}
 
 
 def _arrays(kind):
-    """The band- or holey-masked polarized dataset as ``model_from_numpy``
-    takes it."""
+    """The band-, holey- or HEALPix-holey-masked polarized dataset as
+    ``model_from_numpy`` takes it."""
     gen = torch.Generator().manual_seed(0)
-    grid = gauss_legendre_grid(LMAX)
-    if kind == "band":
-        keep = (np.abs(np.pi / 2 - grid.theta) > 0.2).astype(np.float64)
-        mask = np.broadcast_to(keep[:, None], (grid.nrings, grid.nphi))
+    sht = None
+    if kind == "healpix":
+        sht = make_healpix_sht(LMAX // 2, LMAX, dtype=torch.float64,
+                               spin2=True, layout="padded", device="cpu")
+        mask = holey_healpix_mask(LMAX // 2)
     else:
-        mask = holey_mask(grid, nholes=4)
+        grid = gauss_legendre_grid(LMAX)
+        if kind == "band":
+            keep = (np.abs(np.pi / 2 - grid.theta) > 0.2).astype(np.float64)
+            mask = np.broadcast_to(keep[:, None], (grid.nrings, grid.nphi))
+        else:
+            mask = holey_mask(grid, nholes=4)
     dls = np.stack([example_dl(LMAX, "ee"), example_dl(LMAX, "bb")])
     m, _ = simulate_dataset(LMAX, 2, dls, 0.2 ** 2,
                             fwhm_radians=np.radians(0.5), mask=mask,
-                            dtype=torch.float64, device="cpu", gen=gen)
-    g = m.sht.grid
+                            dtype=torch.float64, device="cpu", sht=sht,
+                            gen=gen)
     arrays = {"d": n(m.d), "tau": n(m.noise.tau), "q_map": n(m.noise.q_map),
-              "omega": m.noise.omega, "bl": n(m.bl), "spin": 2,
-              "theta": g.theta, "weights": g.weights, "phi0": g.phi0,
-              "nphi": g.nphi}
+              "omega": m.noise.omega, "bl": n(m.bl), "spin": 2}
+    if kind == "healpix":
+        arrays.update(grid="healpix", nside=LMAX // 2, layout="padded")
+    else:
+        g = m.sht.grid
+        arrays.update(theta=g.theta, weights=g.weights, phi0=g.phi0,
+                      nphi=g.nphi)
     return arrays, dls
 
 
 # launches per ASIS iteration: the CR step's 3 cut syntheses and 3 cut
 # adjoints and the MH step's 3 syntheses (u0 and two big blocks), two tables
 # each, and twice that with the point set beside the floor rings
-LAUNCHES = {"band": (12, 6), "holey": (24, 12)}
+LAUNCHES = {"band": (12, 6), "holey": (24, 12), "healpix": (24, 12)}
 
 
 @pytest.mark.cuda
@@ -67,7 +81,7 @@ def test_asis_step_card_matches_cpu(cuda_device, kind):
     outs = []
     for device in ("cpu", cuda_device):
         model = with_cut_decomposition(model_from_numpy(arrays, device))
-        assert model.has_sparse == (kind == "holey")
+        assert model.has_sparse == (kind != "band")
         scheme = ASISGibbs(model, BINS, BLOCKS, [0.3 * d[0] for d in dl0],
                            cr_method="aux_mala", cr_options=OPTS)
         assert scheme._use_cut_mh

@@ -1,8 +1,9 @@
 """The port's non-centered blocked-MH D_ell step against the JAX package
 (float64, CPU): the truncated-normal proposal, whiten / recenter, the
 direct ``nc_cls_sample`` and the table-domain ``nc_cls_sample_cut`` on the
-same uniforms, the fast path against the port's own direct path, the
-engines the port refuses, and the proposal-scale helpers.
+same uniforms (also on phased cut rows and at the Nyquist column), the fast
+path against the port's own direct path, the engines the port refuses, and
+the proposal-scale helpers.
 
 The uniforms are recomputed here from the ``jax.random.split``s the JAX
 samplers make (``torch_parity.jax_mh_uniforms``) and handed to the port.
@@ -235,11 +236,75 @@ def test_table_engine_matches_own_direct_path(request, monkeypatch, sky, bb):
     _check(fast[1].log_like, n(direct[1].log_like), "log_like")
 
 
+def _cut_rows_variant(mc, tc, kind):
+    """The JAX and port cut models with their cut rows replaced, the same in
+    both packages: "phased" gives every row phi0 = 0.1; "nyquist" cuts the
+    rows to nphi = 2 lmax (an aliased grid, whose m = lmax column is the
+    Nyquist column), with phi0 = 0.1 on every other row."""
+    from gibbssampler_tpu.sht import SHT as JaxSHT
+    grid = tc.cut_sht.grid
+    phi0 = np.full(grid.nrings, 0.1)
+    if kind == "nyquist":
+        phi0[::2] = 0.0
+        grid = dataclasses.replace(grid, nphi=2 * LMAX, phi0=phi0)
+    else:
+        grid = dataclasses.replace(grid, phi0=phi0)
+    spin2 = tc.spin == 2
+    jcut = JaxSHT(grid, LMAX, dtype=jnp.float64, spin2=spin2,
+                  allow_aliasing=True)
+    tcut = SHT(grid, LMAX, dtype=torch.float64, spin2=spin2, device="cpu",
+               allow_aliasing=True)
+    nphi = grid.nphi
+    mc = dataclasses.replace(mc, cut_sht=jcut, d_cut=mc.d_cut[..., :nphi],
+                             w_cut=mc.w_cut[..., :nphi])
+    tc = dataclasses.replace(tc, cut_sht=tcut, d_cut=tc.d_cut[..., :nphi],
+                             w_cut=tc.w_cut[..., :nphi])
+    return mc, tc
+
+
+@pytest.mark.parametrize("sky,kind", [("pol", "phased"), ("temp", "phased"),
+                                      ("pol", "nyquist"),
+                                      ("temp", "nyquist")])
+def test_table_engine_on_phased_and_nyquist_rows(request, monkeypatch, sky,
+                                                 kind):
+    """The table engine's ring-phase path (raw ring sums rotated into the
+    unrotated-F basis) and its Nyquist-column path (the m = lmax column
+    zeroed out of the tables, its exact terms added per chunk) against
+    JAX's nc_cls_sample_cut on the same keys and the port's direct
+    nc_cls_sample on the same uniforms."""
+    mc, tc, fields = request.getfixturevalue(sky)
+    mc, tc = _cut_rows_variant(mc, tc, kind)
+    monkeypatch.setattr(jcs, "_MDOMAIN_CHUNK", 3)
+    monkeypatch.setattr(tcs, "_MDOMAIN_CHUNK", 3)
+    bins, blocks, sig, dl0 = _setup(fields, BB_BINS["wide"])
+    keys, dls, s_nc, up, ua = _inputs(mc, bins, blocks, dl0, 2, 6)
+    ref = jax.jit(jax.vmap(lambda k, d, s: jcs.nc_cls_sample_cut(
+        k, d, s, mc, bins, blocks, sig, n_iter=2)))(
+            keys, tuple(jnp.asarray(d) for d in dls), jnp.asarray(s_nc))
+    plan = tcs.CutMHPlan(tc, bins, blocks, sig, dtype=torch.float64)
+    assert plan.ph_c is not None
+    assert all((c.lnyq is not None) == (kind == "nyquist")
+               for c in plan.chunks)
+    dlt = tuple(t64(d) for d in dls)
+    dl, info = tcs.nc_cls_sample_cut(dlt, t64(s_nc), tc, bins, blocks, sig,
+                                     n_iter=2, u_prop=up, u_acc=ua,
+                                     plan=plan)
+    direct = tcs.nc_cls_sample(dlt, t64(s_nc), tcs.make_nc_log_likelihood(
+        tc, bins), bins, blocks, sig, n_iter=2, u_prop=up, u_acc=ua)
+    for f in range(len(bins)):
+        _check(dl[f], ref[0][f], f"dl[{f}]")
+        _check(dl[f], n(direct[0][f]), f"dl[{f}] vs direct")
+        np.testing.assert_array_equal(n(info.accept[f]),
+                                      np.asarray(ref[1].accept[f]))
+        np.testing.assert_array_equal(n(info.accept[f]),
+                                      n(direct[1].accept[f]))
+    _check(info.log_like, ref[1].log_like, "log_like")
+    acc = np.concatenate([n(a).ravel() for a in info.accept])
+    assert 0.0 < acc.mean() < 1.0
+
+
 def _refusal_cases(tc, fields):
     bins, blocks, sig, dl0 = _setup(fields, BB_BINS["wide"])
-    grid = tc.cut_sht.grid
-    phased = SHT(dataclasses.replace(grid, phi0=np.full(grid.nrings, 0.1)),
-                 LMAX, dtype=torch.float64, spin2=True, device="cpu")
     nb_bb = len(bins[1]) - 1
     return {
         "mdomain m": (tc, blocks, dict(mdomain="m")),
@@ -250,12 +315,11 @@ def _refusal_cases(tc, fields):
                           blocks, {}),
         "w not equal": (dataclasses.replace(tc, cut_w_equal_fields=False),
                         blocks, {}),
-        "ring phases": (dataclasses.replace(tc, cut_sht=phased), blocks, {}),
     }, bins, sig
 
 
 REFUSALS = ["mdomain m", "mdomain False", "PNCP identity", "no singles",
-            "w not uniform", "w not equal", "ring phases"]
+            "w not uniform", "w not equal"]
 
 
 @pytest.mark.parametrize("case", REFUSALS)
@@ -270,15 +334,25 @@ def test_engines_not_ported_raise(pol, case):
 
 
 def test_other_refusals(pol):
-    """Nyquist column, the phi engine, the non-cut and harmonic likelihoods
-    raise NotImplementedError; a big block after a single raises
-    ValueError, as in JAX; a model without holes ignores ``au_sp``, as
-    JAX's does."""
-    _, tc, fields = pol
+    """The phi engine, the non-cut and harmonic likelihoods raise
+    NotImplementedError; a big block after a single raises ValueError, as
+    in JAX; a model without holes ignores ``au_sp``, as JAX's does.  The
+    Nyquist-column preparation zeroes the m = lmax row of each chunk's
+    tables and carries it raw, as JAX's does."""
+    mc, tc, fields = pol
     bins, blocks, sig, _ = _setup(fields, BB_BINS["unit"])
-    with pytest.raises(NotImplementedError):
-        tcs._prepare_tchunks(tc, tc.cut_sht, [], torch.ones(1), torch.float64,
-                             nyq=True)
+    chunks = [(1, np.array([10, 11, LMAX]), None, None, None)]
+    w1 = tc.w_cut[0, :, 0]
+    mine = tcs._prepare_tchunks(tc, tc.cut_sht, chunks, w1, torch.float64,
+                                nyq=True)
+    ref = jcs._prepare_tchunks(mc, mc.cut_sht, chunks,
+                               jnp.asarray(n(w1)), jnp.float64, nyq=True)
+    for (kind, lamA, lamB, W, _om, lnyq), rk in zip(mine, ref):
+        assert kind == rk[0] == "s2"
+        for a, r in ((lamA, rk[1]), (lamB, rk[2]), (W, rk[3]),
+                     (lnyq[0], rk[5][0]), (lnyq[1], rk[5][1])):
+            _check(a, r, "nyquist tables", rtol=1e-13)
+        assert not n(lamA[LMAX]).any() and n(lnyq[0]).any()
     assert not tc.has_sparse
     u = t64(valid_normal(np.random.default_rng(8), (2, 2, tc.nstate), LMAX))
     assert torch.equal(tc.data_loglike_cut(u, au_sp=torch.zeros(1)),

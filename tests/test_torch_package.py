@@ -15,7 +15,8 @@ from torch_parity import t64, tri_table
 from gibbssampler_tpu_torch.inference import simulate_dataset
 from gibbssampler_tpu_torch.interop import model_from_numpy, state_from_numpy
 from gibbssampler_tpu_torch.ops import NoiseModel
-from gibbssampler_tpu_torch.sht import SHT, PointSHT, make_sht
+from gibbssampler_tpu_torch.sht import (SHT, HealpixSHT, PointSHT,
+                                        make_healpix_sht, make_sht)
 from gibbssampler_tpu_torch.sht import legendre_kernels as lk
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "gibbssampler_tpu_torch"
@@ -63,8 +64,11 @@ def test_wrappers_reject_mismatched_shapes():
 
 
 ENTRY_POINTS = {"SHT": SHT, "make_sht": make_sht, "PointSHT": PointSHT,
+                "HealpixSHT": HealpixSHT,
+                "make_healpix_sht": make_healpix_sht,
                 "simulate_dataset": simulate_dataset,
                 "NoiseModel.white": NoiseModel.white,
+                "NoiseModel.white_healpix": NoiseModel.white_healpix,
                 "model_from_numpy": model_from_numpy,
                 "state_from_numpy": state_from_numpy}
 

@@ -65,13 +65,19 @@ def make_masked(spin=0, sigma2=1.0, band=0.3, seed=0, fwhm=0.05, lmax=LMAX):
 
 
 def jax_model_arrays(model) -> dict:
-    """The fields ``interop.model_from_numpy`` takes, from a JAX SkyModel."""
+    """The fields ``interop.model_from_numpy`` takes, from a JAX SkyModel
+    on the Gauss-Legendre or the HEALPix grid."""
+    out = {"d": np.asarray(model.d), "tau": np.asarray(model.noise.tau),
+           "q_map": np.asarray(model.noise.q_map),
+           "omega": model.noise.omega, "bl": np.asarray(model.bl),
+           "spin": model.spin}
+    if hasattr(model.sht, "geo"):
+        out.update(grid="healpix", nside=model.sht.nside,
+                   layout=model.sht.layout)
+        return out
     g = model.sht.grid
-    return {"d": np.asarray(model.d), "tau": np.asarray(model.noise.tau),
-            "q_map": np.asarray(model.noise.q_map),
-            "omega": model.noise.omega, "bl": np.asarray(model.bl),
-            "spin": model.spin, "theta": g.theta, "weights": g.weights,
-            "phi0": g.phi0, "nphi": g.nphi}
+    out.update(theta=g.theta, weights=g.weights, phi0=g.phi0, nphi=g.nphi)
+    return out
 
 
 def port_model(jax_model, cut=False, sparse_split=None):
@@ -171,4 +177,85 @@ def planckish_mask(grid, nholes=200, seed=5):
         cosd = (ct0 * ct[:, None]
                 + st0 * st[:, None] * np.cos(phi[None, :] - ph0))
         mask[cosd > np.cos(rhole)] = 0.0
+    return mask
+
+
+def make_masked_healpix(spin=2, sigma2=0.5, band_deg=20.0, seed=0,
+                        fwhm=0.05, nside=8, layout="padded"):
+    """The JAX model pair of tests/test_cut.py::make_masked_healpix: a
+    dataset on the HEALPix grid under a +-band_deg galactic band (whole
+    belt rings), plain and with the cut decomposition."""
+    import jax
+    import jax.numpy as jnp
+    from gibbssampler_tpu.inference import example_dl, simulate_dataset
+    from gibbssampler_tpu.ops import with_cut_decomposition as jax_cut
+    from gibbssampler_tpu.sht.healpix import make_healpix_sht
+    from gibbssampler_tpu.sht.healpix_pix import galactic_band_mask
+    lmax = 2 * nside
+    sht = make_healpix_sht(nside, lmax, dtype=jnp.float64,
+                           spin2=(spin >= 2), layout=layout)
+    mask = galactic_band_mask(nside, band_deg)
+    fields = (example_dl(lmax, amp=10.0)[None] if spin == 0 else
+              np.stack([example_dl(lmax, "ee", amp=10.0),
+                        example_dl(lmax, "bb", amp=10.0)]))
+    model, _ = simulate_dataset(jax.random.PRNGKey(seed), lmax, spin=spin,
+                                dl_fields=fields, noise_sigma2=sigma2,
+                                fwhm_radians=fwhm, mask=mask,
+                                dtype=jnp.float64, sht=sht)
+    return model, jax_cut(model), fields
+
+
+def holey_healpix_mask(nside=8):
+    """tests/test_sparse.py::make_holey_healpix's mask: a 20 deg band plus
+    holes on a cap ring (all of the first ring), in the belt and on the
+    south cap, in RING order."""
+    from gibbssampler_tpu_torch.sht import galactic_band_mask
+    mask = galactic_band_mask(nside, 20.0)
+    mask[0:4] = 0.0
+    mask[200:203] = 0.0
+    mask[-3:] = 0.0
+    return mask
+
+
+def make_holey_healpix(spin=2, sigma2=0.5, seed=0, layout="padded",
+                       sparse_split=True):
+    """The JAX model of tests/test_sparse.py::make_holey_healpix (nside 8,
+    lmax 16), plain and with the cut decomposition (split by default)."""
+    import jax
+    import jax.numpy as jnp
+    from gibbssampler_tpu.inference import example_dl, simulate_dataset
+    from gibbssampler_tpu.ops import with_cut_decomposition as jax_cut
+    from gibbssampler_tpu.sht.healpix import make_healpix_sht
+    nside, lmax = 8, 16
+    sht = make_healpix_sht(nside, lmax, dtype=jnp.float64,
+                           spin2=(spin >= 2), layout=layout)
+    fields = (example_dl(lmax, amp=10.0)[None] if spin == 0 else
+              np.stack([example_dl(lmax, "ee", amp=10.0),
+                        example_dl(lmax, "bb", amp=10.0)]))
+    model, _ = simulate_dataset(jax.random.PRNGKey(seed), lmax, spin=spin,
+                                dl_fields=fields, noise_sigma2=sigma2,
+                                fwhm_radians=0.1,
+                                mask=holey_healpix_mask(nside),
+                                dtype=jnp.float64, sht=sht)
+    return model, jax_cut(model, sparse_split=sparse_split), fields
+
+
+def planckish_healpix_mask(nside, nholes=200, seed=5):
+    """bench.py's planckish HEALPix mask (bench.py:160-178) in RING order:
+    an apodized +-11.5 deg band with a 3 deg cosine ramp, plus ``nholes``
+    holes of 0.35 deg radius at random positions over the sphere."""
+    from gibbssampler_tpu_torch.sht import pix2ang_ring
+    theta, phi = pix2ang_ring(nside, np.arange(12 * nside * nside))
+    lat = np.abs(np.pi / 2 - theta)
+    b0, apo = np.radians(11.5), np.radians(3.0)
+    x = np.clip((lat - b0) / apo, 0.0, 1.0)
+    mask = 0.5 - 0.5 * np.cos(np.pi * x)
+    rng = np.random.default_rng(seed)
+    rhole = np.radians(0.35)
+    ct, st = np.cos(theta), np.sin(theta)
+    for _ in range(nholes):
+        ct0 = rng.uniform(-1.0, 1.0)
+        st0 = np.sqrt(1.0 - ct0 * ct0)
+        ph0 = rng.uniform(0.0, 2.0 * np.pi)
+        mask[ct0 * ct + st0 * st * np.cos(phi - ph0) > np.cos(rhole)] = 0.0
     return mask
