@@ -34,20 +34,30 @@ non-zero:
    HEALPix mask at nside 8 (padded layout, cap-ring holes in the point set,
    the table engine's ring-phase and Nyquist paths);
 5. on a band-masked polarized sky at lmax 512 (GL grid 513 x 1026, cut
-   decomposition over 65 rings, float32, 128 chains) runs two paths, each
-   with the kernel launch counts set to 0 before it and read after it:
-   the centered aux-Gibbs + MALA slice, and the flagship ASIS slice
+   decomposition over 65 rings, float32, 128 chains) runs four paths,
+   each with the kernel launch counts set to 0 before it and read after
+   it: the centered aux-Gibbs + MALA slice; the flagship ASIS slice
    (aux_mala CR, inverse-gamma draw, whiten, the table-engine blocked MH
-   with bench.py's bins, blocks and tuned sigmas, recenter); each the
-   initial CR draw, 10 warm-up and 50 timed iterations; checks the D_ell,
-   the acceptances and the exact launch counts per iteration, and reports
-   ms/iter, the MH step's ms/iter (CUDA events), median pooled and BB-tail
-   ESS/s, per-chain ESS per iteration and peak memory;
-6. one MH sweep at full width in float64 (4 chains, the slice's final
-   whitened maps): the table engine against the direct nc_cls_sample on
-   the same uniforms (D_ell <= 1e-9, accepts equal), and the float32
-   log-likelihood's rounding against float64 over all chains;
-7. the same ASIS slice and float64 sweep on bench.py's planckish mask (an
+   with bench.py's bins and blocks and the port's tuned record, recenter);
+   the same ASIS slice with the overrelaxed CR and its record; and a short
+   warm-up adaptation (adapt_segments, 2 segments x 10 iterations x 32
+   chains from the analytic seeds), which must move each block's scale
+   the way its acceptance asks while the MH plan and its tables stay the
+   same objects.  Each slice runs the initial CR draw, 10 warm-up and 50
+   timed iterations; checks the D_ell, the exact launch counts per
+   iteration and that the MH acceptances of the EE block, the BB big
+   block and the BB singles lie in [0.15, 0.6]; and reports ms/iter, the
+   MH step's ms/iter (CUDA events), median pooled and BB-tail ESS/s,
+   per-chain ESS per iteration and peak memory;
+6. at the ASIS slice's final state: one MH sweep at full width in float64
+   (4 chains): the table engine against the direct nc_cls_sample on the
+   same uniforms (D_ell <= 1e-9, accepts equal); the float32
+   log-likelihood's rounding against float64; and the float32 rounding of
+   the two log-ratios the accept tests compare with a uniform, the first
+   big-block candidate's and one MALA move's, over all chains, in the form
+   the sampler uses (every difference formed before its reduction) and in
+   the old form (differences of O(1e6)-term totals), against float64;
+7. the same ASIS slice and float64 checks on bench.py's planckish mask (an
    apodized band plus 200 point-source holes): checks the split's 83
    floor rings, 1547 hole pixels and 211 x 64 point rows, and the exact
    launch counts per iteration (each cut transform fused with the point
@@ -58,13 +68,15 @@ non-zero:
    split's 193 floor rings at nphi 1024 (97 phased), 1140 hole pixels (434
    on cap rings) in 391 x 8 point rows and the floor transform against the
    full 1023-ring synthesis at the floor pixels; runs the ASIS slice with
-   bench.py's analytic proposal sigmas (no tuned record for this grid) and
-   the float64 table-engine sweep against the direct path;
-9. prints the kernels' JSON line (launches summed over the four paths),
+   its tuned record and the float64 checks;
+9. prints the kernels' JSON line (launches summed over the six paths),
    then {"ok": true, "device": {...}} last.
 
-It imports nothing of JAX; the port is imported from this file's
-directory.
+The configurations come from gibbssampler_tpu_torch.flagship, the
+proposal scales from the port's records (gibbssampler_tpu_torch/
+tuned_proposals.json, written by python -m gibbssampler_tpu_torch.tune); a
+missing record fails the run.  It imports nothing of JAX; the port is
+imported from this file's directory.
 """
 
 import json
@@ -80,16 +92,23 @@ NCHAINS = 128
 N_WARM = 10
 N_TIMED = 50
 PER_ITER = 6          # spin-2 cut transforms of each kind per aux_mala step
-# per ASIS iteration: synthesis 6 (CR) + 6 (MH: u0 and the two big blocks,
-# two tables each), adjoint 6 (CR)
+# per ASIS iteration: synthesis 6 (CR) + 6 (MH: u0 and the moves of the two
+# big blocks, two tables each), adjoint 6 (CR)
 ASIS_PER_ITER = (12, 6)
-# bench.py's flagship binning: BB unit bins up to l = 396, then wide bins;
-# a 277-bin big block, then single-bin blocks (12 chunks of them)
-ASIS_UNIT_TO = 396
-ASIS_WIDE = [396, 398, 400, 402, 406, 410, 415, 420, 425, 430, 435, 440, 445,
-             460, 475, 495, LMAX + 1]
+# with the overrelaxed CR (one sweep): synthesis 4 (the initial aux draw and
+# the sweep's) + 6 (MH), adjoint 4
+OVERRELAX_PER_ITER = (10, 4)
+# bench.py's flagship binning: EE unit bins in one block; BB unit bins up to
+# l = 396, then 16 wide bins; a 277-bin big block, then 133 single-bin
+# blocks (12 chunks of them)
+ASIS_NBINS = (511, 410)
 ASIS_BIG = 277
 ASIS_CHUNKS = 12
+# the MH acceptances of the EE block, the BB big block and the BB singles
+# (their mean) with the tuned records
+ACCEPT_WINDOW = (0.15, 0.6)
+# the warm-up adaptation phase: segments, iterations per segment, chains
+ADAPT = (2, 10, 32)
 CUT_RINGS = 65
 BB_TAIL_FROM = 300    # bench.py's BB-tail ESS: bins from l = 300
 # bench.py's planckish GL mask at lmax 512: its floor + sparse-hole split
@@ -128,50 +147,6 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def planckish_mask(grid, nholes=200, seed=5):
-    """bench.py's planckish GL mask (bench.py:190-211): an apodized
-    +-11.5 deg band with a 3 deg cosine ramp, plus ``nholes`` holes of
-    0.35 deg radius at random positions over the sphere."""
-    lat = np.abs(np.pi / 2 - grid.theta)
-    b0, apo = np.radians(11.5), np.radians(3.0)
-    x = np.clip((lat - b0) / apo, 0.0, 1.0)
-    keep = 0.5 - 0.5 * np.cos(np.pi * x)
-    mask = np.broadcast_to(keep[:, None], (grid.nrings, grid.nphi)).copy()
-    rng = np.random.default_rng(seed)
-    rhole = np.radians(0.35)
-    phi = 2.0 * np.pi * np.arange(grid.nphi) / grid.nphi
-    ct, st = np.cos(grid.theta), np.sin(grid.theta)
-    for _ in range(nholes):
-        ct0 = rng.uniform(-1.0, 1.0)
-        st0 = np.sqrt(1.0 - ct0 * ct0)
-        ph0 = rng.uniform(0.0, 2.0 * np.pi)
-        cosd = (ct0 * ct[:, None]
-                + st0 * st[:, None] * np.cos(phi[None, :] - ph0))
-        mask[cosd > np.cos(rhole)] = 0.0
-    return mask
-
-
-def healpix_planckish_mask(nside, nholes=200, seed=5):
-    """bench.py's planckish HEALPix mask (bench.py:160-178) in RING order:
-    the same band, ramp and holes as ``planckish_mask`` at the HEALPix
-    pixel centres."""
-    from gibbssampler_tpu_torch.sht import pix2ang_ring
-    theta, phi = pix2ang_ring(nside, np.arange(12 * nside * nside))
-    lat = np.abs(np.pi / 2 - theta)
-    b0, apo = np.radians(11.5), np.radians(3.0)
-    x = np.clip((lat - b0) / apo, 0.0, 1.0)
-    mask = 0.5 - 0.5 * np.cos(np.pi * x)
-    rng = np.random.default_rng(seed)
-    rhole = np.radians(0.35)
-    ct, st = np.cos(theta), np.sin(theta)
-    for _ in range(nholes):
-        ct0 = rng.uniform(-1.0, 1.0)
-        st0 = np.sqrt(1.0 - ct0 * ct0)
-        ph0 = rng.uniform(0.0, 2.0 * np.pi)
-        mask[ct0 * ct + st0 * st * np.cos(phi - ph0) > np.cos(rhole)] = 0.0
-    return mask
-
-
 def holey_healpix_mask(nside):
     """A 20 deg band plus holes on the first (cap) ring, in the belt and on
     the south cap, in RING order (tests/test_sparse.py::make_holey_healpix)."""
@@ -196,16 +171,6 @@ def holey_mask(grid, seed=3, nholes=6, band=0.25, apo=0.15):
         c = rng.integers(0, grid.nphi)
         mask[max(0, r - 1): r + 2, max(0, c - 1): c + 2] = 0.0
     return mask
-
-
-def planck_bins(lmax):
-    """Unit bins to l = 50, then 10 wide to 200 and 30 wide beyond."""
-    edges = list(range(2, min(51, lmax + 2)))
-    l = edges[-1]
-    while l < lmax + 1:
-        l = min(l + (10 if l < 200 else 30), lmax + 1)
-        edges.append(l)
-    return np.array(edges)
 
 
 def tri_table(torch, L, nr, dtype, dev, gen):
@@ -573,22 +538,13 @@ def phase_small_steps(torch, dev):
               f"CPU max rel err {worst:.2e}", flush=True)
 
 
-def phase_dataset(torch, sht, dev):
-    """The main path's dataset: band-masked polarized sky at lmax 512 on
-    the GL grid, cut decomposition over 65 rings, float32."""
-    from gibbssampler_tpu_torch.inference import example_dl, simulate_dataset
-    from gibbssampler_tpu_torch.ops import with_cut_decomposition
+def phase_dataset(torch, sht):
+    """The main path's dataset (flagship GL band): band-masked polarized
+    sky at lmax 512 on the GL grid, cut decomposition over 65 rings,
+    float32."""
+    from gibbssampler_tpu_torch import flagship
     t0 = time.time()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    lat = np.abs(np.pi / 2 - sht.grid.theta)
-    keep = (lat > 0.2).astype(np.float64)
-    mask = np.broadcast_to(keep[:, None], (sht.nrings, sht.nphi))
-    dls = np.stack([example_dl(LMAX, "ee"), example_dl(LMAX, "bb")])
-    model, _ = simulate_dataset(LMAX, 2, dls, 0.2 ** 2,
-                                fwhm_radians=np.radians(0.5), mask=mask,
-                                dtype=torch.float32, device=dev, sht=sht,
-                                gen=gen)
-    model = with_cut_decomposition(model)
+    model, dls, _ = flagship.dataset("gl", "band", LMAX, sht=sht)
     check(model.cut_sht.nrings == CUT_RINGS,
           f"{model.cut_sht.nrings} cut rings, expected {CUT_RINGS}")
     check(model.cut_w_uniform and model.cut_w_equal_fields,
@@ -600,21 +556,13 @@ def phase_dataset(torch, sht, dev):
     return model, dls
 
 
-def phase_planckish_dataset(torch, sht, dev):
-    """The planckish dataset: the same sky under bench.py's planckish mask,
-    float32; checks the floor + sparse-hole split's exact sizes."""
-    from gibbssampler_tpu_torch.inference import example_dl, simulate_dataset
-    from gibbssampler_tpu_torch.ops import with_cut_decomposition
+def phase_planckish_dataset(torch, sht):
+    """The planckish dataset (flagship GL planckish): the same sky under
+    bench.py's planckish mask, float32; checks the floor + sparse-hole
+    split's exact sizes."""
+    from gibbssampler_tpu_torch import flagship
     t0 = time.time()
-    mask = planckish_mask(sht.grid)
-    t1 = time.time()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    dls = np.stack([example_dl(LMAX, "ee"), example_dl(LMAX, "bb")])
-    model, _ = simulate_dataset(LMAX, 2, dls, 0.2 ** 2,
-                                fwhm_radians=np.radians(0.5), mask=mask,
-                                dtype=torch.float32, device=dev, sht=sht,
-                                gen=gen)
-    model = with_cut_decomposition(model)
+    model, dls, mask = flagship.dataset("gl", "planckish", LMAX, sht=sht)
     sp = model.sp_sht
     check(model.has_sparse, "planckish mask: no sparse split")
     got = (model.cut_sht.nrings, sp.nslots, (sp.nrows, sp.p))
@@ -626,33 +574,25 @@ def phase_planckish_dataset(torch, sht, dev):
     torch.cuda.synchronize()
     print(f"planckish dataset: f_sky {mask.mean():.4f}, floor over "
           f"{got[0]} rings, {got[1]} hole pixels in {sp.nrows} x {sp.p} "
-          f"point rows; mask {t1 - t0:.1f} s, set-up {time.time() - t1:.1f} "
-          "s", flush=True)
+          f"point rows; mask and set-up {time.time() - t0:.1f} s",
+          flush=True)
     return model, dls
 
 
-def phase_healpix_dataset(torch, dev, mask):
+def phase_healpix_dataset(torch, dev):
     """The HEALPix planckish dataset: the same sky on the nside-256 grid
     (padded layout) under bench.py's HEALPix planckish mask, float32.
     Checks the split's exact sizes and the floor transform against the full
     grid's synthesis at the floor pixels."""
+    from gibbssampler_tpu_torch import flagship
     from gibbssampler_tpu_torch.harmonics import ell_mask_state, nstate
-    from gibbssampler_tpu_torch.inference import example_dl, simulate_dataset
-    from gibbssampler_tpu_torch.ops import (healpix_cut_weights,
-                                            with_cut_decomposition)
-    from gibbssampler_tpu_torch.sht import make_healpix_sht
+    from gibbssampler_tpu_torch.ops import healpix_cut_weights
     t0 = time.time()
-    hsht = make_healpix_sht(NSIDE, LMAX, dtype=torch.float32, spin2=True,
-                            layout="padded", device=dev)
+    hsht = flagship.flagship_sht("healpix", LMAX, dev)
     torch.cuda.synchronize()
     t1 = time.time()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    dls = np.stack([example_dl(LMAX, "ee"), example_dl(LMAX, "bb")])
-    model, _ = simulate_dataset(LMAX, 2, dls, 0.2 ** 2,
-                                fwhm_radians=np.radians(0.5), mask=mask,
-                                dtype=torch.float32, device=dev, sht=hsht,
-                                gen=gen)
-    model = with_cut_decomposition(model)
+    model, dls, mask = flagship.dataset("healpix", "planckish", LMAX,
+                                        sht=hsht)
     torch.cuda.synchronize()
     t2 = time.time()
     cut, sp, geo = model.cut_sht, model.sp_sht, hsht.geo
@@ -689,13 +629,9 @@ def phase_healpix_dataset(torch, dev, mask):
           f"{got[1]} ({got[2]} phased), {got[3]} hole pixels ({got[4]} on "
           f"cap rings) in {sp.nrows} x {sp.p} point rows; floor vs full "
           f"synthesis rel err {err:.2e}; full-grid tables {t1 - t0:.1f} s, "
-          f"simulate + cut decomposition {t2 - t1:.1f} s", flush=True)
+          f"mask, simulate and cut decomposition {t2 - t1:.1f} s",
+          flush=True)
     return model, dls
-
-
-def binned_mean(per_ell, bins):
-    return np.array([per_ell[lo:hi].mean() for lo, hi in zip(bins[:-1],
-                                                             bins[1:])])
 
 
 def run_slice(torch, lk, scheme, dl0, dev):
@@ -748,6 +684,7 @@ def ess_metrics(out, bins_list, wall):
 
 def phase_centered_slice(torch, lk, model, dls, dev, card):
     """The centered aux_mala slice at full width; returns its launches."""
+    from gibbssampler_tpu_torch.flagship import binned_mean, planck_bins
     from gibbssampler_tpu_torch.schemes import CenteredGibbs
     bins = planck_bins(LMAX)
     scheme = CenteredGibbs(model, [bins, bins], cr_method="aux_mala",
@@ -772,53 +709,46 @@ def phase_centered_slice(torch, lk, model, dls, dev, card):
     return launches
 
 
-def asis_setup(torch, model, dls, grid="gl"):
-    """bench.py's flagship ASIS configuration: EE unit bins in one block,
-    BB unit bins to 396 then 16 wide bins, a 277-bin big block and 133
-    single-bin blocks, aux_mala CR; the tuned proposal sigmas on GL, and on
-    HEALPix, which has no tuned record, bench.py's analytic seeds
-    (bench.py:273-276: each field's f_sky, not rescaled for ASIS)."""
-    from gibbssampler_tpu_torch.interop import tuned_proposal_sigmas
-    from gibbssampler_tpu_torch.parallel.adapt import analytic_proposal_sigma
-    from gibbssampler_tpu_torch.schemes import ASISGibbs
-    bins_ee = np.arange(2, LMAX + 2)
-    bins_bb = np.array(list(range(2, ASIS_UNIT_TO)) + ASIS_WIDE)
-    nb_ee, nb_bb = len(bins_ee) - 1, len(bins_bb) - 1
-    blocks = [[(0, nb_ee)],
-              [(0, ASIS_BIG)] + [(i, i + 1) for i in range(ASIS_BIG, nb_bb)]]
-    if grid == "healpix":
-        f_sky = model.noise.f_sky.cpu().numpy()
-        sig = [analytic_proposal_sigma(model.bl.cpu().numpy(), 0.2 ** 2,
-                                       model.noise.omega, LMAX, b,
-                                       f_sky=float(f_sky[f]))
-               for f, b in enumerate((bins_ee, bins_bb))]
-    else:
-        sig = tuned_proposal_sigmas(
-            os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "tuned_proposals.json"), "asis", grid, LMAX,
-            [nb_ee, nb_bb])
+def asis_setup(torch, model, dls, grid, mask, cr="aux_mala"):
+    """bench.py's flagship ASIS configuration (``flagship.asis_setup``):
+    EE unit bins in one block, BB unit bins to 396 then 16 wide bins, a
+    277-bin big block and 133 single-bin blocks, the port's tuned record
+    of (grid, mask, cr); checks the sizes and that the MH step runs on the
+    table engine."""
+    from gibbssampler_tpu_torch import flagship
     t0 = time.time()
-    scheme = ASISGibbs(model, [bins_ee, bins_bb], blocks, sig, n_iter_mh=1,
-                       cr_method="aux_mala",
-                       cr_options={"n_gibbs": 1, "tau": 0.02})
+    scheme, dl0 = flagship.asis_setup(model, dls, grid, mask, cr)
+    check(tuple(len(b) - 1 for b in scheme.bins_list) == ASIS_NBINS
+          and scheme.blocks_list[1][0] == (0, ASIS_BIG)
+          and len(scheme.blocks_list[1]) == 1 + ASIS_NBINS[1] - ASIS_BIG,
+          "flagship bins and blocks")
     check(scheme._use_cut_mh, "the ASIS scheme is off the table engine")
     torch.cuda.synchronize()
-    print(f"ASIS scheme set-up ({len(scheme.mh_plan.chunks)} singles chunks "
-          f"of <= {max(len(c.j_idx) for c in scheme.mh_plan.chunks)} ells, "
-          f"tables on the card): {time.time() - t0:.1f} s", flush=True)
-    dl0 = tuple(binned_mean(d, b) for d, b in zip(dls, (bins_ee, bins_bb)))
+    print(f"ASIS {grid} {mask} {cr} scheme set-up "
+          f"({len(scheme.mh_plan.chunks)} singles chunks of <= "
+          f"{max(len(c.j_idx) for c in scheme.mh_plan.chunks)} ells, tables "
+          f"on the card; the tuned record of ({grid}, {mask}, {cr})): "
+          f"{time.time() - t0:.1f} s", flush=True)
     return scheme, dl0
 
 
-def phase_asis_slice(torch, lk, model, dls, dev, card, profile,
-                     label="ASIS", per_iter=ASIS_PER_ITER, grid="gl"):
-    """The flagship ASIS slice at full width, ``per_iter`` (synthesis,
-    adjoint) launches per iteration; returns (launches, scheme, final
-    state).  With the tuned sigmas every field's MH acceptance is held to
-    (0, 1); with the analytic seeds (HEALPix) the single-bin blocks' are,
-    and a field whose joint block never accepts is reported, not
-    failed."""
-    scheme, dl0 = asis_setup(torch, model, dls, grid)
+def mh_acceptances(out):
+    """(EE block, BB big block, mean of the BB singles) MH acceptances of a
+    run."""
+    mh = [out["mh_accept"][f].cpu().numpy() for f in range(2)]
+    return (float(mh[0].mean()), float(mh[1][..., 0].mean()),
+            float(mh[1][..., 1:].mean()))
+
+
+def phase_asis_slice(torch, lk, model, dls, dev, card, profile, grid,
+                     mask, cr="aux_mala", per_iter=ASIS_PER_ITER):
+    """The flagship ASIS slice at full width with the tuned record of
+    (grid, mask, cr), ``per_iter`` (synthesis, adjoint) launches per
+    iteration; the MH acceptances of the EE block, the BB big block and
+    the BB singles held to ACCEPT_WINDOW.  Returns (launches, scheme, D_ell
+    start, final state)."""
+    label = f"ASIS {grid} {mask} {cr}"
+    scheme, dl0 = asis_setup(torch, model, dls, grid, mask, cr)
     mh_events = []
     mh_step = scheme.mh_step
 
@@ -839,28 +769,27 @@ def phase_asis_slice(torch, lk, model, dls, dev, card, profile,
               f"run {n}, expected {per} x {N_TIMED}")
     mh_ms = float(np.mean([a.elapsed_time(b)
                            for a, b in mh_events[-N_TIMED:]]))
-    scheme.mh_step = mh_step
+    del scheme.mh_step
     bins_list = scheme.bins_list
     acc = check_chains(torch, warm, out, bins_list)
-    mh = [out["mh_accept"][f].cpu().numpy() for f in range(2)]
-    for f, a in enumerate(mh):
-        check(a.shape == (NCHAINS, N_TIMED, len(scheme.blocks_list[f])),
-              f"mh_accept[{f}] shape {a.shape}")
-        check(0.0 <= a.mean() < 1.0 if grid == "healpix"
-              else 0.0 < a.mean() < 1.0, f"{label} MH acceptance of field "
-              f"{f} is {a.mean()}")
-    singles = mh[1][..., 1:].mean()
-    check(0.0 < singles < 1.0, f"{label} MH acceptance of the BB singles "
-          f"is {singles}, not in (0, 1)")
+    for f in range(2):
+        shape = tuple(out["mh_accept"][f].shape)
+        check(shape == (NCHAINS, N_TIMED, len(scheme.blocks_list[f])),
+              f"mh_accept[{f}] shape {shape}")
+    ee, bb_big, singles = mh_acceptances(out)
+    lo, hi = ACCEPT_WINDOW
+    for what, a in (("EE block", ee), ("BB big block", bb_big),
+                    ("BB singles", singles)):
+        check(lo <= a <= hi, f"{label} MH acceptance of the {what} {a:.4f} "
+              f"outside [{lo}, {hi}]")
     ess_s, bb_tail, per_chain = ess_metrics(out, bins_list, wall)
-    print(f"slice lmax={LMAX} {NCHAINS} chains {label} (aux_mala CR + "
+    print(f"slice lmax={LMAX} {NCHAINS} chains {label} ({cr} CR + "
           f"table-engine blocked MH): {wall / N_TIMED * 1e3:.2f} ms/iter "
           f"over {N_TIMED} iterations; MH step {mh_ms:.2f} ms/iter (CUDA "
           f"events) [{card}]", flush=True)
-    print(f"{label} acceptance: MALA {acc:.4f}; MH EE block "
-          f"{mh[0].mean():.4f}, BB big block {mh[1][..., 0].mean():.4f}, BB "
-          f"singles {singles:.4f} (BB all blocks "
-          f"{mh[1].mean():.4f}) [{card}]", flush=True)
+    print(f"{label} acceptance: CR {acc:.4f}; MH EE block {ee:.4f}, BB big "
+          f"block {bb_big:.4f}, BB singles {singles:.4f} (each in "
+          f"[{lo}, {hi}]) [{card}]", flush=True)
     print(f"{label} ESS ({N_TIMED} iterations, burn 20%): median pooled "
           f"ESS/s {ess_s:.3f}; bb_tail_ess_per_s {bb_tail:.3f}; "
           f"per_chain_ess_per_iter {per_chain:.5f}; peak device memory "
@@ -870,7 +799,92 @@ def phase_asis_slice(torch, lk, model, dls, dev, card, profile,
           f"{per_iter[1]} per iteration)", flush=True)
     if profile:
         profile_asis(torch, scheme, out["final_state"], dl0, dev, card, label)
-    return launches, scheme, out["final_state"]
+    return launches, scheme, dl0, out["final_state"]
+
+
+def plan_pointers(plan):
+    """data_ptr() of the plan's sigma and of every table it holds."""
+    ptrs = [plan.sigma.data_ptr(), plan.bmask.data_ptr()]
+    for c in plan.chunks:
+        ptrs += [x.data_ptr() for x in (c.j_idx, c.segj, c.gbins, c.rows,
+                                        c.lamA, c.lamB, c.W, c.omega,
+                                        c.sp_tab) if x is not None]
+    return ptrs
+
+
+def phase_adapt(torch, lk, scheme, dl0, dev, card):
+    """adapt_segments on the band's ASIS scheme from the analytic seeds
+    (ADAPT segments x iterations x chains): each block's scale moves the
+    way its segment's acceptance asks, the scales are swapped in place
+    (the same plan, the same table pointers, the plan's sigma equal to the
+    scales); returns the launches."""
+    from gibbssampler_tpu_torch import flagship
+    from gibbssampler_tpu_torch.parallel import adapt_segments
+    n_seg, seg_iters, nch = ADAPT
+    plan = scheme.mh_plan
+    ptrs = plan_pointers(plan)
+    seeds = flagship.analytic_sigmas(scheme.model, scheme.bins_list)
+    used, outs, made = [], [], []
+    run = scheme.run
+
+    def recording_run(*args, **kwargs):
+        used.append([s.copy() for s in scheme.prop_sigma_list])
+        outs.append(run(*args, **kwargs))
+        return outs[-1]
+
+    def make_scheme(sig):
+        made.append(1)
+        scheme.set_proposal_sigmas(sig)
+        return scheme
+
+    scheme.run = recording_run
+    gen = torch.Generator(device=dev).manual_seed(3)
+    torch.cuda.synchronize()
+    lk.reset_launch_counts()
+    t0 = time.time()
+    sig, _, _ = adapt_segments(make_scheme, gen, dl0, seeds,
+                               n_segments=n_seg, seg_iters=seg_iters,
+                               nchains=nch)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = (lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches)
+    del scheme.run
+    check(len(made) == 1 and len(outs) == n_seg,
+          f"adapt_segments built the scheme {len(made)} times and ran "
+          f"{len(outs)} segments")
+    check(all(np.array_equal(a, b) for a, b in zip(used[0], seeds)),
+          "adaptation did not start from the analytic seeds")
+    lo, hi = 0.2, 0.5
+    for k, out in enumerate(outs):
+        after = used[k + 1] if k + 1 < n_seg else sig
+        for f, blocks in enumerate(scheme.blocks_list):
+            acc = out["mh_accept"][f].cpu().numpy().reshape(
+                -1, len(blocks)).mean(axis=0)
+            for (b0, _), a in zip(blocks, acc):
+                r = after[f][b0] / used[k][f][b0]
+                want = r < 1.0 if a < lo else r > 1.0 if a > hi else r == 1.0
+                check(want, f"adaptation segment {k}, field {f}, block "
+                      f"at bin {b0}: acceptance {a:.3f} but scale x{r:.3f}")
+        ee, bb_big, singles = mh_acceptances(out)
+        print(f"adaptation segment {k} ({seg_iters} iterations x {nch} "
+              f"chains): MH EE block {ee:.4f}, BB big block {bb_big:.4f}, "
+              f"BB singles {singles:.4f}; scales "
+              f"x{after[0][0] / used[k][0][0]:.3f} (EE), "
+              f"x{after[1][0] / used[k][1][0]:.3f} (BB big)", flush=True)
+    # the last segment's scales were swapped in by adapt_segments, the
+    # adapted ones are swapped in here
+    for want in (used[-1], sig):
+        check(np.array_equal(plan.sigma.cpu().numpy(),
+                             np.concatenate(want).astype(np.float32)),
+              "the plan's sigma is not the scales swapped in")
+        scheme.set_proposal_sigmas(sig)
+    check(scheme.mh_plan is plan and plan_pointers(plan) == ptrs,
+          "adaptation rebuilt the MH plan or moved its tables")
+    print(f"adaptation: {n_seg} segments in {wall:.1f} s; plan and "
+          f"{len(ptrs)} table pointers unchanged, plan sigma = the scales "
+          f"swapped in; launches legendre_synth_tri {launches[0]}, "
+          f"legendre_adj_tri {launches[1]} [{card}]", flush=True)
+    return launches
 
 
 def profile_asis(torch, scheme, state, dl0, dev, card, label, n_iter=5):
@@ -929,12 +943,63 @@ def cast_cut_model(torch, model, dtype):
         w_sp=c(model.w_sp))
 
 
+def log_ratio_errors(torch, scheme, state, m64, plan64, gen):
+    """|D32 - D64| over all chains, in nats, of the two log-ratios the
+    accept tests compare with a uniform, at the slice's final state: the
+    first big block's candidate (the EE block; D = log L(candidate) - log
+    L(current) of the whitened map) and one MALA move (its MH log-ratio),
+    each in float32 in the form the sampler uses (``CutMHPlan.big_dll``,
+    ``mala_log_ratio``) and in the old form (differences of the two
+    states' totals), against float64 (``m64`` and ``plan64``: the same
+    model and MH plan in float64) on the same candidate.  Returns {name:
+    (new errors, old errors)}."""
+    from gibbssampler_tpu_torch.samplers import cls_samplers as cs
+    from gibbssampler_tpu_torch.samplers import cr as cr_mod
+    f64 = torch.float64
+    model, plan = scheme.model, scheme.mh_plan
+    bins = scheme.bins_list
+    s_nc = cs.whiten(state.s, state.dl, bins, LMAX)
+    dl = torch.cat(state.dl, dim=-1)
+    up = torch.rand(dl.shape, generator=gen, dtype=dl.dtype, device=dl.device)
+    cand = torch.where(plan.bmask[plan.big_rows[0]] > 0,
+                       cs.propose_truncnorm(dl, plan.sigma, up), dl)
+
+    def big(p, mdl, s, d, c):
+        _, tv = p.components(s)
+        u = p.u_of(d, tv)
+        au, au_sp = mdl.synthesis_cut_sp(u)
+        new = p.big_dll(tv, d, c, u, au, au_sp)[0]
+        old = mdl.data_loglike_cut(p.u_of(c, tv)) - mdl.data_loglike_cut(
+            u, au, au_sp)
+        return new, old
+
+    new32, old32 = big(plan, model, s_nc, dl, cand)
+    ref = big(plan64, m64, s_nc.to(f64), dl.to(f64), cand.to(f64))[0]
+    out = {"big block": ((new32.to(f64) - ref).abs(),
+                         (old32.to(f64) - ref).abs())}
+    del s_nc
+    var = scheme.var_cls(state.dl)
+    s = state.s * (var > 0)
+    xi = torch.randn(s.shape, generator=gen, dtype=s.dtype, device=s.device)
+    tau = scheme.cr_options["tau"]
+    bt = scheme.bt_ninv_d
+    s_prop = cr_mod.mala_cr(model, var, bt, s, tau=tau, accept=False,
+                            noise={"state": xi[:, None]})[0]
+    new32, old32 = (cr_mod.mala_log_ratio(model, var, bt, s, s_prop, tau,
+                                          exact=e) for e in (True, False))
+    ref = cr_mod.mala_log_ratio(m64, var.to(f64), bt.to(f64), s.to(f64),
+                                s_prop.to(f64), tau)
+    out["MALA"] = ((new32.to(f64) - ref).abs(), (old32.to(f64) - ref).abs())
+    return {k: tuple(e.cpu().numpy() for e in v) for k, v in out.items()}
+
+
 def phase_mh_sweep(torch, scheme, state, dev, card, label="", nch=4):
     """One MH sweep at full width in float64 (the main path's bins, blocks
     and sigmas; the slice's final whitened maps of ``nch`` chains): the
     table engine against the direct nc_cls_sample on the same injected
-    uniforms.  Also the float32 rounding of the log-likelihood over all
-    chains of the slice's final state."""
+    uniforms.  Also the float32 rounding of the log-likelihood, and of the
+    two accept tests' log-ratios (``log_ratio_errors``), over all chains of
+    the slice's final state; returns the latter."""
     from gibbssampler_tpu_torch.samplers import cls_samplers as cs
     f64 = torch.float64
     t0 = time.time()
@@ -946,14 +1011,15 @@ def phase_mh_sweep(torch, scheme, state, dev, card, label="", nch=4):
     ll64 = cs.make_nc_log_likelihood(m64, bins)(
         tuple(d.to(f64) for d in state.dl), s_nc32.to(f64))
     dll = (ll32.to(f64) - ll64).abs().cpu().numpy()
+    plan = cs.CutMHPlan(m64, bins, blocks, sig, dtype=f64)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    lr_err = log_ratio_errors(torch, scheme, state, m64, plan, gen)
     dl = tuple(d[:nch].to(f64) for d in state.dl)
     s_nc = s_nc32[:nch].to(f64)
     del s_nc32
-    gen = torch.Generator(device=dev).manual_seed(9)
     ntot, nblocks = sum(len(b) - 1 for b in bins), sum(map(len, blocks))
     up = torch.rand((nch, 1, ntot), generator=gen, dtype=f64, device=dev)
     ua = torch.rand((nch, 1, nblocks), generator=gen, dtype=f64, device=dev)
-    plan = cs.CutMHPlan(m64, bins, blocks, sig, dtype=f64)
     check(len(plan.chunks) == ASIS_CHUNKS
           and any(c.segj is not None for c in plan.chunks),
           f"full-width chunking: expected {ASIS_CHUNKS} chunks with wide "
@@ -996,6 +1062,14 @@ def phase_mh_sweep(torch, scheme, state, dev, card, label="", nch=4):
           f"{np.median(dll):.3f}, "
           f"max {dll.max():.3f} nats (|ll| ~ {float(ll64.abs().mean()):.4g}) "
           f"[{card}]", flush=True)
+    for what, (new, old) in lr_err.items():
+        print(f"float32 log-ratio rounding{label}, {what} ({len(new)} "
+              f"chains): |D32 - D64| median {np.median(new):.3g}, max "
+              f"{new.max():.3g} nats (exact form); median {np.median(old):.3g}"
+              f", max {old.max():.3g} nats (old form: differences of totals)"
+              f"; median ratio {np.median(new) / np.median(old):.3g} "
+              f"[{card}]", flush=True)
+    return lr_err
 
 
 def main():
@@ -1015,35 +1089,49 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gibbssampler_tpu_torch.sht import legendre_kernels as lk
 
+    from gibbssampler_tpu_torch import flagship
+
     phase_build(lk)
     rec = phase_kernels(torch, lk, dev, card)
-    hp_mask = healpix_planckish_mask(NSIDE)
+    hp_mask = flagship.healpix_planckish_mask(NSIDE)
     sht = phase_sht(torch, dev, hp_mask)
     phase_small_steps(torch, dev)
-    model, dls = phase_dataset(torch, sht, dev)
-    launches_c = phase_centered_slice(torch, lk, model, dls, dev, card)
     profile = "--profile" in sys.argv[1:]
-    launches_a, scheme, state = phase_asis_slice(
-        torch, lk, model, dls, dev, card, profile)
-    phase_mh_sweep(torch, scheme, state, dev, card)
+    launches, lr_err = {}, {}
+    model, dls = phase_dataset(torch, sht)
+    launches["centered"] = phase_centered_slice(torch, lk, model, dls, dev,
+                                                card)
+    launches["ASIS GL band"], scheme, dl0, state = phase_asis_slice(
+        torch, lk, model, dls, dev, card, profile, "gl", "band")
+    lr_err["GL band"] = phase_mh_sweep(torch, scheme, state, dev, card)
+    launches["ASIS GL band overrelax"] = phase_asis_slice(
+        torch, lk, model, dls, dev, card, profile, "gl", "band",
+        cr="overrelax", per_iter=OVERRELAX_PER_ITER)[0]
+    launches["adaptation"] = phase_adapt(torch, lk, scheme, dl0, dev, card)
     del model, scheme, state
     torch.cuda.empty_cache()
-    model, dls = phase_planckish_dataset(torch, sht, dev)
-    launches_p, scheme, state = phase_asis_slice(
-        torch, lk, model, dls, dev, card, profile, label="planckish ASIS",
+    model, dls = phase_planckish_dataset(torch, sht)
+    launches["ASIS GL planckish"], scheme, _, state = phase_asis_slice(
+        torch, lk, model, dls, dev, card, profile, "gl", "planckish",
         per_iter=PLANCKISH_PER_ITER)
-    phase_mh_sweep(torch, scheme, state, dev, card, label=" planckish")
+    lr_err["GL planckish"] = phase_mh_sweep(torch, scheme, state, dev, card,
+                                            label=" planckish")
     del model, scheme, state, sht
     torch.cuda.empty_cache()
-    model, dls = phase_healpix_dataset(torch, dev, hp_mask)
-    launches_h, scheme, state = phase_asis_slice(
-        torch, lk, model, dls, dev, card, profile,
-        label="HEALPix planckish ASIS", per_iter=HEALPIX_PER_ITER,
-        grid="healpix")
-    phase_mh_sweep(torch, scheme, state, dev, card,
-                   label=" HEALPix planckish")
-    launches = [sum(n) for n in zip(launches_c, launches_a, launches_p,
-                                    launches_h)]
+    model, dls = phase_healpix_dataset(torch, dev)
+    launches["ASIS HEALPix planckish"], scheme, _, state = phase_asis_slice(
+        torch, lk, model, dls, dev, card, profile, "healpix", "planckish",
+        per_iter=HEALPIX_PER_ITER)
+    lr_err["HEALPix planckish"] = phase_mh_sweep(
+        torch, scheme, state, dev, card, label=" HEALPix planckish")
+    # the exact log-ratios: at most a tenth of the old form's rounding
+    for cfg, errs in lr_err.items():
+        for what, (new, old) in errs.items():
+            check(np.median(new) <= 0.1 * np.median(old),
+                  f"{cfg} {what} log-ratio: float32 rounding median "
+                  f"{np.median(new):.3g} nats, not a tenth of the old "
+                  f"form's {np.median(old):.3g}")
+    launches = [sum(n) for n in zip(*launches.values())]
 
     src = "gibbssampler_tpu_torch/csrc/legendre_tri.cu"
     kernels = []

@@ -14,7 +14,10 @@ A HEALPix model gives the grid as {"grid": "healpix", "nside": int,
 its maps are flat vectors in that layout.
 
 ``tuned_proposal_sigmas`` reads the tuned MH proposal scales that the JAX
-package's tuning run stored in ``tuned_proposals.json``.
+package's tuning run stored in ``tuned_proposals.json``;
+``port_tuned_proposal_sigmas`` reads the port's own records
+(``gibbssampler_tpu_torch/tuned_proposals.json``, written by
+``python -m gibbssampler_tpu_torch.tune``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from .sht.grids import SphereGrid
 from .sht.healpix import make_healpix_sht
 from .sht.transform import SHT
 
-__all__ = ["model_from_numpy", "state_from_numpy", "tuned_proposal_sigmas"]
+__all__ = ["model_from_numpy", "state_from_numpy", "tuned_proposal_sigmas",
+           "port_tuned_proposal_sigmas", "RECORD_KEYS", "record_key"]
 
 
 def model_from_numpy(arrays: dict, device="cuda",
@@ -70,6 +74,12 @@ def state_from_numpy(s, dl, device="cuda",
     return GibbsState(s=t(s), dl=tuple(t(x) for x in dl))
 
 
+def _records(path) -> list:
+    with open(path) as f:
+        data = json.load(f)
+    return data.get("records", [data]) if isinstance(data, dict) else data
+
+
 def tuned_proposal_sigmas(path, scheme: str, grid: str, lmax: int,
                           nbins) -> list:
     """The per-field proposal std devs of the record of ``path`` (a
@@ -77,13 +87,35 @@ def tuned_proposal_sigmas(path, scheme: str, grid: str, lmax: int,
     counts all match, as float64 arrays: the match rule of ``bench.py``.
     Raises ``LookupError`` when no record matches; it never falls back to
     another scale."""
-    with open(path) as f:
-        data = json.load(f)
-    recs = data.get("records", [data]) if isinstance(data, dict) else data
     want = [int(n) for n in nbins]
-    for rec in recs:
+    for rec in _records(path):
         if (rec.get("scheme") == scheme and rec.get("grid") == grid
                 and rec.get("lmax") == lmax and rec.get("nbins") == want):
             return [np.asarray(x, dtype=np.float64) for x in rec["sig"]]
     raise LookupError(f"{path}: no tuned proposal record for scheme "
                       f"{scheme!r}, grid {grid!r}, lmax {lmax}, nbins {want}")
+
+
+# the fields that identify one of the port's tuned records
+RECORD_KEYS = ("scheme", "grid", "mask", "lmax", "nbins", "cr")
+
+
+def record_key(scheme: str, grid: str, mask: str, lmax: int, nbins,
+               cr: str) -> dict:
+    """The identifying fields (``RECORD_KEYS``) of one of the port's tuned
+    records."""
+    return dict(zip(RECORD_KEYS, (scheme, grid, mask, int(lmax),
+                                  [int(n) for n in nbins], cr)))
+
+
+def port_tuned_proposal_sigmas(path, scheme: str, grid: str, mask: str,
+                               lmax: int, nbins, cr: str) -> list:
+    """The per-field proposal std devs of the port's record of ``path``
+    whose scheme, grid, mask, lmax, per-field bin counts and CR method all
+    match, as float64 arrays.  Raises ``LookupError`` when none matches; it
+    never falls back to another record or scale."""
+    key = record_key(scheme, grid, mask, lmax, nbins, cr)
+    for rec in _records(path):
+        if all(rec.get(k) == v for k, v in key.items()):
+            return [np.asarray(x, dtype=np.float64) for x in rec["sig"]]
+    raise LookupError(f"{path}: no tuned proposal record for {key}")

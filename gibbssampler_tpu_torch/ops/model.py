@@ -290,6 +290,43 @@ class SkyModel:
             out = out + 0.5 * (self.w_sp * r_sp * r_sp).sum(dim=(-3, -2, -1))
         return out
 
+    def data_loglike_cut_delta(self, u: torch.Tensor, au_cut: torch.Tensor,
+                               au_sp: Optional[torch.Tensor], du: torch.Tensor,
+                               adu_cut: torch.Tensor,
+                               adu_sp: Optional[torch.Tensor]) -> torch.Tensor:
+        """data_loglike_cut(u + du) - data_loglike_cut(u), one value per
+        leading (chain) index, given the beam-applied state ``u`` with its
+        cut (and hole) maps and the move ``du`` with its own maps ``adu_* =
+        synthesis_*(du)``.
+
+        The difference is formed term by term before any reduction,
+
+            <c1, du> - 1/2 <g du, 2 u + du>
+            + 1/2 sum w_cut A du (A du - 2 r_cut) [+ the same on the holes],
+
+        r the residual of ``u``, and each sum is accumulated in float64: the
+        O(1e6)-term totals of the two states, which cancel to O(1), are
+        never formed."""
+        mask = self._op_valid_mask(u.dtype)
+        u, du = u * mask, du * mask
+        g = (self.noise.tau_max / self.noise.omega).to(u.dtype)
+        state = (-2, -1)
+        out = (_sum64(self.cut_c1 * du, state)
+               - 0.5 * _sum64(g[:, None] * du * (2.0 * u + du), state)
+               + 0.5 * _sum64(self.w_cut * adu_cut
+                              * (adu_cut - 2.0 * (self.d_cut - au_cut)),
+                              (-3, -2, -1)))
+        if self.has_sparse:
+            out = out + 0.5 * _sum64(self.w_sp * adu_sp
+                                     * (adu_sp - 2.0 * (self.d_sp - au_sp)),
+                                     (-3, -2, -1))
+        return out.to(u.dtype)
+
+
+def _sum64(x: torch.Tensor, dims) -> torch.Tensor:
+    """Sum over ``dims`` accumulated in float64."""
+    return x.sum(dim=dims, dtype=torch.float64)
+
 
 def _sparse_auto(n_sp: int, npix: int, sparse_split) -> bool:
     """Whether to take the floor + sparse-hole split: forced by

@@ -1,15 +1,16 @@
 """Conditional samplers: constrained realizations and the C_ell step."""
 
-from .cr import (noise_pool_spec, CRInfo, exact_cr, aux_gibbs_cr, mala_cr,
-                 aux_then_mala_cr)
+from .cr import (noise_pool_spec, CRInfo, exact_cr, aux_gibbs_cr,
+                 overrelax_cr, mala_cr, mala_log_ratio, aux_then_mala_cr)
 from .cls_samplers import (standard_gamma, invgamma_dl, centered_cls_sample,
                            propose_truncnorm, truncnorm_logratio, NCClsInfo,
-                           make_nc_log_likelihood, nc_cls_sample, CutMHPlan,
+                           NCLogLike, make_nc_log_likelihood, nc_cls_sample,
+                           CutMHPlan,
                            nc_cls_sample_cut, whiten, recenter)
 
 __all__ = ["noise_pool_spec", "CRInfo", "exact_cr", "aux_gibbs_cr",
-           "mala_cr", "aux_then_mala_cr",
+           "overrelax_cr", "mala_cr", "mala_log_ratio", "aux_then_mala_cr",
            "standard_gamma", "invgamma_dl", "centered_cls_sample",
            "propose_truncnorm", "truncnorm_logratio", "NCClsInfo",
-           "make_nc_log_likelihood", "nc_cls_sample", "CutMHPlan",
+           "NCLogLike", "make_nc_log_likelihood", "nc_cls_sample", "CutMHPlan",
            "nc_cls_sample_cut", "whiten", "recenter"]

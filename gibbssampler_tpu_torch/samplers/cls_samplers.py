@@ -37,8 +37,8 @@ from ..sht.transform import SPIN2_SINGLE_SIGNS
 
 __all__ = ["standard_gamma", "invgamma_dl", "centered_cls_sample",
            "propose_truncnorm", "truncnorm_logratio", "NCClsInfo",
-           "make_nc_log_likelihood", "nc_cls_sample", "CutMHPlan",
-           "nc_cls_sample_cut", "whiten", "recenter"]
+           "NCLogLike", "make_nc_log_likelihood", "nc_cls_sample",
+           "CutMHPlan", "nc_cls_sample_cut", "whiten", "recenter"]
 
 
 def standard_gamma(alpha: torch.Tensor, gen=None) -> torch.Tensor:
@@ -151,11 +151,52 @@ def recenter(s_nc, dl_tuple, bins_list, lmax):
     return torch.sqrt(var) * s_nc
 
 
-def make_nc_log_likelihood(model, bins_list, all_sph: bool = False):
+class NCLogLike:
     """log L(dl_tuple; s_nc) of the non-centered parametrization, one value
-    per chain: the masked likelihood through the cut-sky complement
-    identity (``SkyModel.data_loglike_cut``).  The JAX package's pixel-path
-    and harmonic ("all_sph") likelihoods are not ported."""
+    per chain, through the cut-sky complement identity: calling it gives
+    the total (``SkyModel.data_loglike_cut``); ``at`` and ``delta`` give
+    the total and then exact log-ratios between spectra
+    (``SkyModel.data_loglike_cut_delta``), carrying the beam-applied state
+    u = B sqrt(var(dl)) s_nc and its cut (and hole) maps."""
+
+    def __init__(self, model, bins_list):
+        self.model = model
+        self.bins_list = bins_list
+
+    def _u(self, dl_tuple, s_nc):
+        var = _dl_tuple_to_var(dl_tuple, self.bins_list, self.model.lmax,
+                               s_nc.dtype)
+        return self.model.beam(torch.sqrt(var) * s_nc)
+
+    def __call__(self, dl_tuple, s_nc):
+        return self.model.data_loglike_cut(self._u(dl_tuple, s_nc))
+
+    def at(self, dl_tuple, s_nc):
+        """(log L, carry) at ``dl_tuple``; carry = (u, au_cut, au_sp)."""
+        u = self._u(dl_tuple, s_nc)
+        au_cut, au_sp = self.model.synthesis_cut_sp(u)
+        return (self.model.data_loglike_cut(u, au_cut, au_sp),
+                (u, au_cut, au_sp))
+
+    def delta(self, carry, dl_old, dl_new, s_nc):
+        """(log L(dl_new) - log L(dl_old), carry at dl_new), ``carry`` the
+        one at ``dl_old``: one synthesis of the move, none of a total."""
+        u, au_cut, au_sp = carry
+        lmax, dt = self.model.lmax, s_nc.dtype
+        sq = lambda d: torch.sqrt(_dl_tuple_to_var(d, self.bins_list, lmax,
+                                                   dt))
+        du = self.model.beam((sq(dl_new) - sq(dl_old)) * s_nc)
+        adu_cut, adu_sp = self.model.synthesis_cut_sp(du)
+        dll = self.model.data_loglike_cut_delta(u, au_cut, au_sp, du,
+                                                adu_cut, adu_sp)
+        return dll, (u + du, au_cut + adu_cut,
+                     None if au_sp is None else au_sp + adu_sp)
+
+
+def make_nc_log_likelihood(model, bins_list, all_sph: bool = False):
+    """The non-centered log-likelihood (:class:`NCLogLike`) of a
+    cut-decomposition model.  The JAX package's pixel-path and harmonic
+    ("all_sph") likelihoods are not ported."""
     if all_sph:
         raise NotImplementedError(
             "all_sph: the port has only the cut-sky complement likelihood")
@@ -163,13 +204,15 @@ def make_nc_log_likelihood(model, bins_list, all_sph: bool = False):
         raise NotImplementedError(
             "the non-centered likelihood needs a cut-decomposition model in "
             "the port (the full-grid pixel path is not ported)")
-    lmax = model.lmax
+    return NCLogLike(model, bins_list)
 
-    def log_like(dl_tuple, s_nc):
-        var = _dl_tuple_to_var(dl_tuple, bins_list, lmax, s_nc.dtype)
-        return model.data_loglike_cut(model.beam(torch.sqrt(var) * s_nc))
 
-    return log_like
+def _select(acc, new, old):
+    """Per chain: ``new`` where ``acc`` else ``old`` (None stays None)."""
+    if new is None:
+        return None
+    return torch.where(acc.reshape(acc.shape + (1,) * (new.ndim - acc.ndim)),
+                       new, old)
 
 
 class NCClsInfo(NamedTuple):
@@ -226,8 +269,9 @@ def nc_cls_sample(dl_tuple, s_nc, log_like_fn, bins_list, blocks_list,
     n_iter             : MH sweeps per call
 
     Per sweep: propose every bin once (truncated normal), then accept or
-    reject block by block, field by field, each decision with one
-    likelihood evaluation.  The direct path, and the oracle of
+    reject block by block, field by field, each decision on the exact
+    log-ratio of one synthesis of the move (``log_like_fn``, an
+    :class:`NCLogLike`).  The direct path, and the oracle of
     ``nc_cls_sample_cut``."""
     dt = dl_tuple[0].dtype
     dev = dl_tuple[0].device
@@ -245,7 +289,7 @@ def nc_cls_sample(dl_tuple, s_nc, log_like_fn, bins_list, blocks_list,
     batch = tuple(dl.shape[:-1])
     u_prop, u_acc = _mh_uniforms(batch, n_iter, ntot, nblocks, dl, u_prop,
                                  u_acc, gen)
-    ll = log_like_fn(dl_tuple, s_nc)
+    ll, carry = log_like_fn.at(dl_tuple, s_nc)
     accs = []
     for it in range(n_iter):
         props = propose_truncnorm(dl, sigma, u_prop[..., it, :])
@@ -254,11 +298,13 @@ def nc_cls_sample(dl_tuple, s_nc, log_like_fn, bins_list, blocks_list,
         acc_it = []
         for b in range(nblocks):
             cand = torch.where(bmask[b] > 0, props, dl)
-            ll_cand = log_like_fn(split_fields(cand), s_nc)
+            dll, carry_c = log_like_fn.delta(carry, split_fields(dl),
+                                             split_fields(cand), s_nc)
             qcorr = (bmask[b] * lr_vec).sum(-1)
-            acc = log_u[..., b] < ll_cand - ll + qcorr
+            acc = log_u[..., b] < dll + qcorr
             dl = torch.where(acc[..., None], cand, dl)
-            ll = torch.where(acc, ll_cand, ll)
+            ll = torch.where(acc, ll + dll, ll)
+            carry = tuple(_select(acc, c, o) for c, o in zip(carry_c, carry))
             acc_it.append(acc.to(dt))
         accs.append(torch.stack(acc_it, dim=-1))
     return split_fields(dl), NCClsInfo(
@@ -417,15 +463,16 @@ class _TChunk(NamedTuple):
 
 
 class CutMHPlan:
-    """The static part of ``nc_cls_sample_cut`` for one model, binning,
-    blocking and proposal scale, built once on the model's device: block
+    """The static part of ``nc_cls_sample_cut`` for one model, binning and
+    blocking, built once on the model's device: the proposal scale, block
     table and order, the chunking of the single-bin blocks, their gather
     indices, the ell-pair W tables of the table-domain engine, the cut
     rows' phase factors (phi0 != 0) and Nyquist columns (nphi = 2 lmax)
     and, for a model with the sparse split, the hole points' per-chunk slot
-    tables (``PointSHT.flat_tables_spin*``).  These depend only on the model, the
-    bins and the blocks (the JAX package rebuilds them inside ``jit`` on
-    every call; the values are the same).
+    tables (``PointSHT.flat_tables_spin*``).  These depend only on the
+    model, the bins and the blocks (the JAX package rebuilds them inside
+    ``jit`` on every call; the values are the same).  The proposal scale ``sigma`` is
+    replaced in place by ``set_sigma``, which rebuilds nothing.
 
     Raises ``NotImplementedError`` wherever the JAX package would take an
     engine the port does not have: the coefficient m-domain engine
@@ -547,21 +594,62 @@ class CutMHPlan:
                                      device=dev)               # (2, L, L)
         self.g = (model.noise.tau_max / model.noise.omega).to(dt)
 
+    def set_sigma(self, prop_sigma_list):
+        """Replace the proposal scales in place: the same ``sigma`` tensor,
+        every table of the plan untouched."""
+        self.sigma.copy_(_sigma_vec(prop_sigma_list, self.sizes,
+                                    self.sigma.dtype, self.sigma.device))
+
+    def components(self, s_nc):
+        """The per-bin components t = B sqrt(2 pi / l(l+1)) s_nc and their
+        valid-masked copy tv, (..., nfields, nstate) each."""
+        lmax = self.model.lmax
+        L = lmax + 1
+        t = almxfl_state(s_nc.to(self.dtype), self.tfl, lmax)
+        tv = (t.reshape(t.shape[:-1] + (2, L, L)) * self.valid).reshape(
+            t.shape)
+        return t, tv
+
+    def _sqrt_per_ell(self, dlcat, f):
+        """sqrt(D_ell) of field f per ell from the concatenated binned
+        D_ell."""
+        return torch.sqrt(unfold_bins(dlcat[..., self.offs[f]:
+                                            self.offs[f + 1]],
+                                      self.bins_list[f], self.model.lmax))
+
+    def _scale(self, tv, facs):
+        """Field f of tv times the per-ell factor facs[f]: (..., nfields,
+        nstate)."""
+        L = self.model.lmax + 1
+        parts = []
+        for f, fac in enumerate(facs):
+            tf = tv[..., f, :]
+            parts.append((tf.reshape(tf.shape[:-1] + (2, L, L))
+                          * fac[..., None, None, :]).reshape(tf.shape))
+        return torch.stack(parts, dim=-2)
+
     def u_of(self, dlcat, tv):
         """u(dl) = sqrt(C_l(dl)) t over the fields: (..., nfields, nstate)
         from the concatenated binned D_ell and the valid-masked components
         ``tv``."""
-        lmax = self.model.lmax
-        L = lmax + 1
-        parts = []
-        for f, bins in enumerate(self.bins_list):
-            dl_f = dlcat[..., self.offs[f]: self.offs[f + 1]]
-            per_ell = unfold_bins(dl_f, bins, lmax)
-            tf = tv[..., f, :]
-            parts.append((tf.reshape(tf.shape[:-1] + (2, L, L))
-                          * torch.sqrt(per_ell)[..., None, None, :])
-                         .reshape(tf.shape))
-        return torch.stack(parts, dim=-2)
+        return self._scale(tv, [self._sqrt_per_ell(dlcat, f)
+                                for f in range(len(self.bins_list))])
+
+    def du_of(self, dl_new, dl_old, tv):
+        """u(dl_new) - u(dl_old), formed per ell before the product with
+        tv (exactly 0 on the bins where the two agree)."""
+        return self._scale(tv, [self._sqrt_per_ell(dl_new, f)
+                                - self._sqrt_per_ell(dl_old, f)
+                                for f in range(len(self.bins_list))])
+
+    def big_dll(self, tv, dl_old, dl_new, u, au_cut, au_sp):
+        """The exact log-likelihood ratio of a multi-bin block's candidate:
+        (dll, du, A_cut du, A_sp du), one synthesis of the move du."""
+        du = self.du_of(dl_new, dl_old, tv)
+        adu_cut, adu_sp = self.model.synthesis_cut_sp(du)
+        dll = self.model.data_loglike_cut_delta(u, au_cut, au_sp, du,
+                                                adu_cut, adu_sp)
+        return dll, du, adu_cut, adu_sp
 
     def flat_resid(self, au_sp):
         """The hole residual d_sp - A_sp u on the flat slot axis,
@@ -596,7 +684,9 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
     sparse split every per-bin scalar gains its hole-point term (q_i +=
     ||sqrt(w_sp) A_sp t_i||^2, the Gram and rho likewise), and the hole
     residual is carried on the flat slot axis (Rp).  Multi-bin
-    ("big") blocks are evaluated directly (one cut synthesis each), then the
+    ("big") blocks are evaluated directly, each on the exact log-ratio of
+    one cut synthesis of its move (``CutMHPlan.big_dll``; u and its maps
+    are synthesized once per sweep), then the
     singles run chunk by chunk in the table domain: q_i, the in-chunk Gram
     G_ij = <a_i, a_j>_w and rho_i = <r, a_i>_w from the ell-pair W tables,
     then a scalar scan with cwr_i = rho_i - sum_{j<i} gamma_j G_ij.
@@ -617,9 +707,7 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
     offs = plan.offs
 
     # ---- per-call precomputation (depends on s_nc) ------------------------
-    t = almxfl_state(s_nc.to(dt), plan.tfl, lmax)           # (..., nf, nstate)
-    L = lmax + 1
-    tv = (t.reshape(t.shape[:-1] + (2, L, L)) * plan.valid).reshape(t.shape)
+    t, tv = plan.components(s_nc)                          # (..., nf, nstate)
     alpha = torch.cat([
         bin_sum(_per_ell(model.cut_c1[f].to(dt) * t[..., f, :], lmax), bins,
                 lmax) for f, bins in enumerate(plan.bins_list)], dim=-1)
@@ -634,16 +722,19 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
     u_prop, u_acc = _mh_uniforms(batch, n_iter, plan.ntot, plan.nblocks,
                                  dlcat, u_prop, u_acc, gen)
     d_cut = model.d_cut.to(dt)
-    u0 = plan.u_of(dlcat, tv)
-    au0, au_sp0 = model.synthesis_cut_sp(u0)
-    ll = model.data_loglike_cut(u0, au0, au_sp0)
-    Rc, Rs = cut.ring_cs_of_maps(d_cut - au0)              # (..., nf, nr, L)
-    Rp = plan.flat_resid(au_sp0)                           # (..., nf S)
     accs = []
     for it in range(n_iter):
+        # the state the big blocks move from, with its maps: once per
+        # sweep (the singles carry only the residual's ring sums)
+        u = plan.u_of(dlcat, tv)
+        au, au_sp = model.synthesis_cut_sp(u)
+        if it == 0:
+            ll = model.data_loglike_cut(u, au, au_sp)
+            Rc, Rs = cut.ring_cs_of_maps(d_cut - au)         # (..., nf, nr, L)
+            Rp = plan.flat_resid(au_sp)                      # (..., nf S)
         dlcat, ll, Rc, Rs, Rp, acc_it = _sweep_t(
-            plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc, Rs,
-            Rp, u_prop[..., it, :], u_acc[..., it, :])
+            plan, model, grids, t, tv, alpha, beta, dlcat, ll, (u, au, au_sp),
+            Rc, Rs, Rp, u_prop[..., it, :], u_acc[..., it, :])
         accs.append(acc_it)
     dl_out = tuple(dlcat[..., offs[f]: offs[f + 1]] for f in range(nfields))
     return dl_out, NCClsInfo(
@@ -651,12 +742,12 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
         log_like=ll)
 
 
-def _sweep_t(plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc,
+def _sweep_t(plan, model, grids, t, tv, alpha, beta, dlcat, ll, state, Rc,
              Rs, Rp, up, ua):
     """One table-domain sweep over every chain: propose, the big blocks,
-    then the singles chunk by chunk.  ``Rp`` is the flat hole residual
-    (None without the sparse split).  Returns (dlcat, ll, Rc, Rs, Rp,
-    accs)."""
+    then the singles chunk by chunk.  ``state`` is (u, A_cut u, A_sp u) at
+    ``dlcat``; ``Rp`` is the flat hole residual (None without the sparse
+    split).  Returns (dlcat, ll, Rc, Rs, Rp, accs)."""
     cut = model.cut_sht
     dt = dlcat.dtype
     props = propose_truncnorm(dlcat, plan.sigma, up)
@@ -664,22 +755,25 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, d_cut, dlcat, ll, Rc,
     log_u = torch.log(ua)                                   # (..., nblocks)
     accs = torch.zeros_like(log_u)
 
+    u, au, au_sp = state
     for row in plan.big_rows:
         mb = plan.bmask[row]
         cand = torch.where(mb > 0, props, dlcat)
-        u_c = plan.u_of(cand, tv)
-        au_c, au_sp_c = model.synthesis_cut_sp(u_c)
-        ll_c = model.data_loglike_cut(u_c, au_c, au_sp_c)
+        # the exact log-ratio from one synthesis of the move; the residual
+        # ring sums and the hole residual move by the move's maps
+        dll, du, adu, adu_sp = plan.big_dll(tv, dlcat, cand, u, au, au_sp)
         qcorr = (mb * lr_vec).sum(-1)
-        acc = log_u[..., row] < ll_c - ll + qcorr
+        acc = log_u[..., row] < dll + qcorr
         dlcat = torch.where(acc[..., None], cand, dlcat)
-        ll = torch.where(acc, ll_c, ll)
-        Rc_c, Rs_c = cut.ring_cs_of_maps(d_cut - au_c)
-        a3 = acc[..., None, None, None]
-        Rc = torch.where(a3, Rc_c, Rc)
-        Rs = torch.where(a3, Rs_c, Rs)
+        ll = torch.where(acc, ll + dll, ll)
+        u = _select(acc, u + du, u)
+        au = _select(acc, au + adu, au)
+        au_sp = _select(acc, None if au_sp is None else au_sp + adu_sp, au_sp)
+        Rc_d, Rs_d = cut.ring_cs_of_maps(adu)
+        Rc = _select(acc, Rc - Rc_d, Rc)
+        Rs = _select(acc, Rs - Rs_d, Rs)
         if Rp is not None:
-            Rp = torch.where(acc[..., None], plan.flat_resid(au_sp_c), Rp)
+            Rp = _select(acc, Rp - plan.spt.flat_of(adu_sp).flatten(-2), Rp)
         accs[..., row] = acc.to(dt)
 
     w1, pos, pwc, pws = plan.w1, plan.pos, plan.pwc, plan.pws

@@ -1,6 +1,7 @@
 """Constrained-realization (CR) conditional samplers (PyTorch counterpart of
-``gibbssampler_tpu.samplers.cr``: the exact and the aux-Gibbs + MALA
-methods).
+``gibbssampler_tpu.samplers.cr``: the exact draw and the auxiliary-variable
+family, aux-Gibbs, overrelaxation, MALA / ULA and aux-Gibbs + MALA; the CG
+methods are not ported).
 
 Draws s | C_ell, d  ~  N(Q^-1 b, Q^-1),   Q = C^-1 + B A^T N^-1 A B.
 
@@ -24,7 +25,7 @@ from ..harmonics.gridstate import expand_cl_state
 from ..ops.model import SkyModel
 
 __all__ = ["noise_pool_spec", "CRInfo", "exact_cr", "aux_gibbs_cr",
-           "mala_cr", "aux_then_mala_cr"]
+           "overrelax_cr", "mala_cr", "mala_log_ratio", "aux_then_mala_cr"]
 
 # mu = max(N^-1) + eps for the aux field without the cut decomposition
 # (the reference's ConstrainedRealization.py:44)
@@ -40,6 +41,10 @@ def noise_pool_spec(method: str, opts: dict) -> dict:
     n_g = int(opts.get("n_gibbs", 1))
     return {
         "exact": {"state": 1},
+        "aux_gibbs": {"state": n_g, "aux": n_g, "sp": n_g},
+        "overrelax": {"state": 2 * n_g, "aux": 1 + n_g, "sp": 1 + n_g},
+        "mala": {"state": 1},
+        "ula": {"state": 1},
         "aux_mala": {"state": n_g + 1, "aux": n_g, "sp": n_g},
     }[method]
 
@@ -163,70 +168,193 @@ def aux_gibbs_cr(model: SkyModel, var_cls, bt_ninv_d, s_old,
     return s, CRInfo(accept=s.new_ones(batch), extra=s.new_zeros(batch))
 
 
-def mala_cr(model: SkyModel, var_cls, bt_ninv_d, s_old, tau: float = 0.02,
-            noise=None, gen=None, u=None):
-    """Preconditioned MALA: s' = s + tau Sigma grad + sqrt(2 tau Sigma) xi,
-    Sigma = full-sky posterior diagonal, Metropolis-adjusted.
+def overrelax_cr(model: SkyModel, var_cls, bt_ninv_d, s_old,
+                 alpha: float = -0.995, n_gibbs: int = 1, noise=None,
+                 gen=None):
+    """Overrelaxed auxiliary sampler: one plain v | s draw to define the
+    auxiliary chain state, then ``n_gibbs`` overrelaxed sweeps of
+    (s | v, v | s, s | v) with
+    x <- m + alpha (x - m) + sqrt(1 - alpha^2) sqrt(Sigma) xi.
+    Variates in the JAX package's order: the initial aux (and sp), then per
+    sweep state, aux (and sp), state."""
+    gap, sigma, fwd, proj = _aux_ops(model, var_cls)
+    pool = _as_pool(noise)
+    s = s_old * _active(var_cls)
+    batch = _batch_shape(var_cls, s_old)
+    sq = torch.sqrt(torch.tensor(1.0 - alpha * alpha, dtype=s.dtype))
+    sqrt_sigma = torch.sqrt(sigma)
 
-    Each state's forward map is computed once and shared between the
-    gradient and the log-target; with the cut decomposition both run
-    through cut-ring transforms.  ``u``: optional (nchains,) accept
-    uniforms."""
+    def xi_state():
+        return pool.take("state") if pool else _normal(gen, s.shape, s)
+
+    def xi_aux():
+        if pool:
+            return [pool.take(k) for k in ("aux", "sp")[:len(gap)]]
+        return [_normal(gen, batch + tuple(g.shape), s) for g in gap]
+
+    v = tuple(g * f + torch.sqrt(g) * x
+              for g, f, x in zip(gap, fwd(s), xi_aux()))
+    for _ in range(n_gibbs):
+        m = sigma * (proj(v) + bt_ninv_d)
+        s = m + alpha * (s - m) + sq * sqrt_sigma * xi_state()
+        v = tuple(g * f + alpha * (vv - g * f) + sq * torch.sqrt(g) * x
+                  for g, f, vv, x in zip(gap, fwd(s), v, xi_aux()))
+        m = sigma * (proj(v) + bt_ninv_d)
+        s = m + alpha * (s - m) + sq * sqrt_sigma * xi_state()
+    return s, CRInfo(accept=s.new_ones(batch), extra=s.new_zeros(batch))
+
+
+class _MalaOps(NamedTuple):
+    """The pieces of the preconditioned MALA step (``_mala_ops``)."""
+    inv_cvar: torch.Tensor
+    sigma: torch.Tensor      # the proposal scale: full-sky posterior diagonal
+    act: torch.Tensor        # 1 on the active slots
+    fwd: object              # x -> the forward maps of x
+    grad: object             # (x, maps) -> the log-target's gradient
+    ll: object               # (x, maps) -> the log-likelihood, as a total
+    dll: object              # (x, maps, dx, dmaps) -> its exact change
+
+
+def _mala_ops(model: SkyModel, var_cls, bt_ninv_d) -> _MalaOps:
+    """The MALA step's pieces for ``model``.  With the cut decomposition
+    the maps are the cut rows' (and the hole points'), through cut-ring
+    transforms; otherwise the full grid's."""
     inv_cvar = _safe_inv(var_cls)
     hdiag = model.harmonic_noise_diag().to(var_cls.dtype)
     act = _active(var_cls)
     sigma = _safe_inv(inv_cvar + hdiag) * act
 
     if model.has_cut:
-        def fwd_grad_logp(x):
-            """one cut synthesis + one cut adjoint (fused with the point
-            pair under the sparse split) -> (gradient, log target)."""
-            ub = model.beam(x)
-            au_cut, au_sp = model.synthesis_cut_sp(ub)
+        def fwd(x):
+            """(A_cut B x, A_sp B x): one cut synthesis (fused with the
+            point set's under the sparse split)."""
+            return model.synthesis_cut_sp(model.beam(x))
+
+        def grad(x, maps):
+            """one cut adjoint (fused likewise)."""
+            au_cut, au_sp = maps
             corr = model.adjoint_cut_sp(model.w_cut * au_cut,
                                         None if au_sp is None
                                         else model.w_sp * au_sp)
             qs = hdiag * x - model.beam(corr)
-            grad = (-inv_cvar * x - qs + bt_ninv_d) * act
-            logp = (-0.5 * (inv_cvar * x * x).sum(dim=(-2, -1))
-                    + model.data_loglike_cut(ub, au_cut, au_sp))
-            return grad, logp
+            return (-inv_cvar * x - qs + bt_ninv_d) * act
+
+        def ll(x, maps):
+            return model.data_loglike_cut(model.beam(x), *maps)
+
+        def dll(x, maps, dx, dmaps):
+            return model.data_loglike_cut_delta(model.beam(x), *maps,
+                                                model.beam(dx), *dmaps)
     else:
         inv_noise = model.noise.inv_noise
         # the field and pixel axes of the full grid's maps
         pix_axes = tuple(range(-(model.map_ndim + 1), 0))
 
-        def fwd_grad_logp(x):
-            """forward once -> (gradient, log target)."""
-            fwd = model.forward(x)
-            resid = model.d - fwd
-            qs = model.project_data(inv_noise * fwd)
-            grad = (-inv_cvar * x - qs + bt_ninv_d) * act
-            logp = (-0.5 * (inv_cvar * x * x).sum(dim=(-2, -1))
-                    - 0.5 * (inv_noise * resid * resid).sum(dim=pix_axes))
-            return grad, logp
+        def fwd(x):
+            return (model.forward(x),)
 
-    pool = _as_pool(noise)
-    s = s_old * act
-    batch = _batch_shape(var_cls, s_old)
-    g, logp_s = fwd_grad_logp(s)
-    xi = pool.take("state") if pool else _normal(gen, s.shape, s)
-    prop_mean = s + tau * sigma * g
-    s_prop = prop_mean + torch.sqrt(2.0 * tau * sigma) * xi
-    g_prop, logp_p = fwd_grad_logp(s_prop)
-    rev_mean = s_prop + tau * sigma * g_prop
-    inv_step = _safe_inv(2.0 * tau * sigma)
+        def grad(x, maps):
+            qs = model.project_data(inv_noise * maps[0])
+            return (-inv_cvar * x - qs + bt_ninv_d) * act
+
+        def ll(x, maps):
+            resid = model.d - maps[0]
+            return -0.5 * (inv_noise * resid * resid).sum(dim=pix_axes)
+
+        def dll(x, maps, dx, dmaps):
+            """-1/2 sum N^-1 [(r - A B dx)^2 - r^2], r the residual of x,
+            formed term by term."""
+            adx = dmaps[0]
+            return -0.5 * _sum64(inv_noise * adx * (adx - 2.0 * (
+                model.d - maps[0])), pix_axes).to(x.dtype)
+
+    return _MalaOps(inv_cvar, sigma, act, fwd, grad, ll, dll)
+
+
+def _sum64(x, dims):
+    """Sum over ``dims`` accumulated in float64."""
+    return x.sum(dim=dims, dtype=torch.float64)
+
+
+def _mala_log_ratio(ops: _MalaOps, tau, s, maps_s, g_s, s_prop):
+    """The MH log-ratio of the MALA move s -> s_prop, every difference
+    formed term by term before its reduction and accumulated in float64:
+    the log-target's change from one synthesis of the move (the proposal's
+    maps are the state's plus the move's), and the proposal densities'
+    pair as one sum of (a - b)(a + b)."""
+    ds = s_prop - s
+    dmaps = ops.fwd(ds)
+    maps_p = tuple(None if a is None else a + b for a, b in zip(maps_s, dmaps))
+    g_p = ops.grad(s_prop, maps_p)
+    inv_step = _safe_inv(2.0 * tau * ops.sigma)
+    # log q(s | s_prop) - log q(s_prop | s) = -1/2 sum inv_step (a^2 - b^2)
+    a = s - (s_prop + tau * ops.sigma * g_p)
+    b = s_prop - (s + tau * ops.sigma * g_s)
+    state = (-2, -1)
+    log_ratio = (-0.5 * _sum64(ops.inv_cvar * ds * (2.0 * s + ds), state)
+                 + ops.dll(s, maps_s, ds, dmaps).to(torch.float64)
+                 - 0.5 * _sum64(inv_step * (a - b) * (a + b), state))
+    return log_ratio.to(s.dtype)
+
+
+def mala_log_ratio(model: SkyModel, var_cls, bt_ninv_d, s, s_prop,
+                   tau: float = 0.02, exact: bool = True):
+    """The MH log-ratio of the MALA move s -> s_prop (both already zero
+    off the active slots), one value per chain: the form ``mala_cr``
+    accepts on, or with ``exact=False`` the JAX package's form, the
+    differences of four totals (two log-targets, two proposal densities),
+    the reference that the exact form's float32 rounding is measured
+    against."""
+    ops = _mala_ops(model, var_cls, bt_ninv_d)
+    maps_s = ops.fwd(s)
+    g_s = ops.grad(s, maps_s)
+    if exact:
+        return _mala_log_ratio(ops, tau, s, maps_s, g_s, s_prop)
+    maps_p = ops.fwd(s_prop)
+    g_p = ops.grad(s_prop, maps_p)
+    inv_step = _safe_inv(2.0 * tau * ops.sigma)
+
+    def logp(x, maps):
+        return (-0.5 * (ops.inv_cvar * x * x).sum(dim=(-2, -1))
+                + ops.ll(x, maps))
 
     def logq(x_to, mean):
         return -0.5 * (inv_step * (x_to - mean) ** 2).sum(dim=(-2, -1))
 
-    log_ratio = (logp_p - logp_s
-                 + logq(s, rev_mean) - logq(s_prop, prop_mean))
+    return (logp(s_prop, maps_p) - logp(s, maps_s)
+            + logq(s, s_prop + tau * ops.sigma * g_p)
+            - logq(s_prop, s + tau * ops.sigma * g_s))
+
+
+def mala_cr(model: SkyModel, var_cls, bt_ninv_d, s_old, tau: float = 0.02,
+            accept: bool = True, noise=None, gen=None, u=None):
+    """Preconditioned MALA: s' = s + tau Sigma grad + sqrt(2 tau Sigma) xi,
+    Sigma = full-sky posterior diagonal, Metropolis-adjusted.  With
+    ``accept=False`` it returns the unadjusted (ULA) proposal.
+
+    Each state's forward maps are computed once and shared between the
+    gradient and the log-target; the proposal's are the state's plus one
+    synthesis of the move, from which the log-ratio is formed exactly
+    (``_mala_log_ratio``).  With the cut decomposition both run through
+    cut-ring transforms.  ``u``: optional (nchains,) accept uniforms."""
+    ops = _mala_ops(model, var_cls, bt_ninv_d)
+    pool = _as_pool(noise)
+    s = s_old * ops.act
+    batch = _batch_shape(var_cls, s_old)
+    maps_s = ops.fwd(s)
+    g = ops.grad(s, maps_s)
+    xi = pool.take("state") if pool else _normal(gen, s.shape, s)
+    s_prop = (s + tau * ops.sigma * g
+              + torch.sqrt(2.0 * tau * ops.sigma) * xi)
+    if not accept:
+        return s_prop, CRInfo(accept=s.new_ones(batch),
+                              extra=s.new_zeros(batch))
+    log_ratio = _mala_log_ratio(ops, tau, s, maps_s, g, s_prop)
     if u is None:
         u = torch.rand(batch, generator=gen, dtype=s.dtype, device=s.device)
     acc = torch.log(u) < log_ratio
     s_new = torch.where(acc[..., None, None], s_prop, s)
-    return s_new, CRInfo(accept=acc.to(s.dtype), extra=log_ratio.to(s.dtype))
+    return s_new, CRInfo(accept=acc.to(s.dtype), extra=log_ratio)
 
 
 def aux_then_mala_cr(model: SkyModel, var_cls, bt_ninv_d, s_old,

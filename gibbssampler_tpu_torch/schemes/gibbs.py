@@ -29,20 +29,43 @@ class GibbsState(NamedTuple):
     dl: tuple             # per-field (nchains, nbins_f) binned D_ell
 
 
-CR_METHODS = ("exact", "aux_mala")
+CR_METHODS = ("exact", "aux_gibbs", "overrelax", "mala", "ula", "aux_mala")
+# the JAX package's CG-based methods, not ported
+_CR_NOT_PORTED = ("cg", "rjpo", "pcn")
 
 
 def _make_cr_step(method: str, model: SkyModel, bt_ninv_d, opts: dict):
     """Bind a CR method name to a (s, var_cls, noise=None, gen=None,
-    u=None) -> (s, CRInfo) function; ``u`` is the MALA accept uniform."""
+    u=None) -> (s, CRInfo) function, with the JAX package's option names
+    and defaults; ``u`` is the MALA accept uniform."""
+    n_gibbs = opts.get("n_gibbs", 1)
+    tau = opts.get("tau", 0.02)
     if method == "exact":
         return lambda s, var, noise=None, gen=None, u=None: cr_mod.exact_cr(
             model, var, bt_ninv_d, noise=noise, gen=gen)
+    if method == "aux_gibbs":
+        return lambda s, var, noise=None, gen=None, u=None: \
+            cr_mod.aux_gibbs_cr(model, var, bt_ninv_d, s, n_gibbs=n_gibbs,
+                                noise=noise, gen=gen)
+    if method == "overrelax":
+        return lambda s, var, noise=None, gen=None, u=None: \
+            cr_mod.overrelax_cr(model, var, bt_ninv_d, s,
+                                alpha=opts.get("alpha", -0.995),
+                                n_gibbs=n_gibbs, noise=noise, gen=gen)
+    if method in ("mala", "ula"):
+        accept = (True if method == "mala"
+                  else opts.get("ula_mh_correct", True))
+        return lambda s, var, noise=None, gen=None, u=None: cr_mod.mala_cr(
+            model, var, bt_ninv_d, s, tau=tau, accept=accept, noise=noise,
+            gen=gen, u=u)
     if method == "aux_mala":
         return lambda s, var, noise=None, gen=None, u=None: \
-            cr_mod.aux_then_mala_cr(
-                model, var, bt_ninv_d, s, n_gibbs=opts.get("n_gibbs", 1),
-                tau=opts.get("tau", 0.02), noise=noise, gen=gen, u=u)
+            cr_mod.aux_then_mala_cr(model, var, bt_ninv_d, s,
+                                    n_gibbs=n_gibbs, tau=tau, noise=noise,
+                                    gen=gen, u=u)
+    if method in _CR_NOT_PORTED:
+        raise NotImplementedError(f"CR method {method!r} (CG-based) is not "
+                                  "ported")
     raise ValueError(f"unknown CR method {method!r}; one of {CR_METHODS}")
 
 
@@ -197,8 +220,8 @@ class ASISGibbs(GibbsScheme):
             raise ValueError(f"mh_fast={mh_fast!r}; one of {MH_FAST}")
         self.blocks_list = tuple(tuple((int(lo), int(hi)) for lo, hi in bl)
                                  for bl in blocks_list)
-        self.prop_sigma_list = tuple(np.asarray(p, dtype=np.float64)
-                                     for p in prop_sigma_list)
+        self.mh_plan = None
+        self.prop_sigma_list = prop_sigma_list
         self.n_iter_mh = n_iter_mh
         self.mh_fast = mh_fast
         self.log_like = cls_mod.make_nc_log_likelihood(
@@ -210,6 +233,30 @@ class ASISGibbs(GibbsScheme):
                                           self.blocks_list,
                                           self.prop_sigma_list)
                         if self._use_cut_mh else None)
+
+    @property
+    def prop_sigma_list(self) -> tuple:
+        """Per-field (nbins_f,) proposal std devs of the MH step; assigning
+        it goes through ``set_proposal_sigmas``."""
+        return self._prop_sigma_list
+
+    @prop_sigma_list.setter
+    def prop_sigma_list(self, sig_list):
+        self.set_proposal_sigmas(sig_list)
+
+    def set_proposal_sigmas(self, sig_list):
+        """Swap the proposal scales of both MH engines: ``prop_sigma_list``
+        and, in place, the table engine plan's ``sigma``.  The plan and its
+        tables stay as they are (nothing is rebuilt)."""
+        if len(sig_list) != len(self.bins_list):
+            raise ValueError(f"{len(sig_list)} proposal scale vectors for "
+                             f"{len(self.bins_list)} fields")
+        sig = tuple(np.array(np.broadcast_to(np.asarray(p, dtype=np.float64),
+                                             (len(b) - 1,)))
+                    for p, b in zip(sig_list, self.bins_list))
+        self._prop_sigma_list = sig
+        if self.mh_plan is not None:
+            self.mh_plan.set_sigma(sig)
 
     def mh_step(self, dl, s_nc, u_prop=None, u_acc=None, gen=None):
         """The blocked-MH D_ell step given the whitened map: the table
