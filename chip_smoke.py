@@ -637,12 +637,15 @@ def phase_healpix_dataset(torch, dev):
 def run_slice(torch, lk, scheme, dl0, dev):
     """Drive one scheme's main path: the launch counts set to 0, the
     initial CR draw and N_WARM warm-up iterations, then N_TIMED timed
-    ones, the counts read just after.  Returns (warm, out, wall, launches
-    of the whole path, launches of the timed run)."""
+    ones, the counts read just after.  The chains start as
+    ``flagship.start_state`` starts them.  Returns (warm, out, wall,
+    launches of the whole path, launches of the timed run)."""
+    from gibbssampler_tpu_torch.flagship import start_state
     gen = torch.Generator(device=dev).manual_seed(1)
     torch.cuda.synchronize()
     lk.reset_launch_counts()
-    warm = scheme.run(dl0, n_iter=N_WARM, nchains=NCHAINS, gen=gen)
+    warm = scheme.run(dl0, n_iter=N_WARM, gen=gen,
+                      state=start_state(scheme, dl0, NCHAINS, gen))
     torch.cuda.synchronize()
     before = (lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -968,7 +971,7 @@ def log_ratio_errors(torch, scheme, state, m64, plan64, gen):
         _, tv = p.components(s)
         u = p.u_of(d, tv)
         au, au_sp = mdl.synthesis_cut_sp(u)
-        new = p.big_dll(tv, d, c, u, au, au_sp)[0]
+        new = p.big_dll(tv, d, c, u, au, au_sp, p.big_fields[0])[0]
         old = mdl.data_loglike_cut(p.u_of(c, tv)) - mdl.data_loglike_cut(
             u, au, au_sp)
         return new, old

@@ -35,13 +35,13 @@ from .inference import example_dl, simulate_dataset
 from .interop import port_tuned_proposal_sigmas
 from .ops import with_cut_decomposition
 from .parallel.adapt import analytic_proposal_sigma
-from .schemes import ASISGibbs
+from .schemes import ASISGibbs, CenteredGibbs
 from .sht import galactic_band_mask, make_healpix_sht, make_sht, pix2ang_ring
 
 __all__ = ["RECORDS", "GRIDS", "MASKS", "CR_OPTIONS", "planckish_mask",
            "healpix_planckish_mask", "planck_bins", "binned_mean",
            "flagship_sht", "flagship_mask", "dataset", "asis_bins_blocks",
-           "analytic_sigmas", "asis_setup", "build"]
+           "analytic_sigmas", "asis_setup", "start_state", "build"]
 
 RECORDS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "tuned_proposals.json")
@@ -204,6 +204,20 @@ def asis_setup(model, dls, grid: str, mask: str, cr: str = "aux_mala",
                        cr_options=CR_OPTIONS[cr])
     dl0 = tuple(binned_mean(d, b) for d, b in zip(dls, bins))
     return scheme, dl0
+
+
+def start_state(scheme, dl0, nchains: int, gen=None):
+    """The chains' start at ``dl0``: the scheme's initial CR draw, but for
+    the overrelaxed CR the aux_mala draw (bench.py's default CR).  From
+    s = 0 an overrelaxed sweep gives s ~ (1 - alpha) m with a tenth of the
+    posterior's spread, so the inverse-gamma draw that follows shrinks the
+    noise-dominated bins' D_ell a hundredfold, and the slowly mixing chains
+    carry that start for hundreds of iterations."""
+    if scheme.cr_method == "overrelax":
+        scheme = CenteredGibbs(scheme.model, scheme.bins_list,
+                               cr_method="aux_mala",
+                               cr_options=CR_OPTIONS["aux_mala"])
+    return scheme.init_state(dl0, nchains, gen)
 
 
 def build(grid: str, mask: str, cr: str = "aux_mala", device="cuda",

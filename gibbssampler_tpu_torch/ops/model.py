@@ -293,39 +293,49 @@ class SkyModel:
     def data_loglike_cut_delta(self, u: torch.Tensor, au_cut: torch.Tensor,
                                au_sp: Optional[torch.Tensor], du: torch.Tensor,
                                adu_cut: torch.Tensor,
-                               adu_sp: Optional[torch.Tensor]) -> torch.Tensor:
+                               adu_sp: Optional[torch.Tensor],
+                               field: Optional[int] = None) -> torch.Tensor:
         """data_loglike_cut(u + du) - data_loglike_cut(u), one value per
         leading (chain) index, given the beam-applied state ``u`` with its
         cut (and hole) maps and the move ``du`` with its own maps ``adu_* =
-        synthesis_*(du)``.
+        synthesis_*(du)``.  ``field``: the one field where ``du`` is not
+        zero, when there is one (the state terms then run over it alone).
 
         The difference is formed term by term before any reduction,
 
-            <c1, du> - 1/2 <g du, 2 u + du>
-            + 1/2 sum w_cut A du (A du - 2 r_cut) [+ the same on the holes],
+            <du, c1 - g/2 (2 u + du)>
+            + <w_cut A du, A du / 2 + A u - d_cut> [+ the same on the holes],
 
-        r the residual of ``u``, and each sum is accumulated in float64: the
-        O(1e6)-term totals of the two states, which cancel to O(1), are
-        never formed."""
-        mask = self._op_valid_mask(u.dtype)
-        u, du = u * mask, du * mask
-        g = (self.noise.tau_max / self.noise.omega).to(u.dtype)
-        state = (-2, -1)
-        out = (_sum64(self.cut_c1 * du, state)
-               - 0.5 * _sum64(g[:, None] * du * (2.0 * u + du), state)
-               + 0.5 * _sum64(self.w_cut * adu_cut
-                              * (adu_cut - 2.0 * (self.d_cut - au_cut)),
-                              (-3, -2, -1)))
+        and each sum is reduced along its last axis in ``du``'s precision and
+        in float64 beyond (``sum_last_f64``): the O(1e6)-term totals of the
+        two states, which cancel to O(1), are never formed."""
+        mask = self._op_valid_mask(du.dtype)
+        g = (self.noise.tau_max / self.noise.omega).to(du.dtype)
+        c1 = self.cut_c1
+        if field is None:
+            g, nd = g[:, None], 2
+        else:
+            u, du, mask = u[..., field, :], du[..., field, :], mask[field]
+            c1, g, nd = c1[field], g[field], 1
+        du = du * mask
+        out = sum_last_f64(du * torch.addcmul(c1, torch.add(du, u, alpha=2.0),
+                                              g, value=-0.5), nd)
+        out = out + sum_last_f64(self.w_cut * adu_cut * torch.add(
+            au_cut, adu_cut, alpha=0.5).sub_(self.d_cut), 3)
         if self.has_sparse:
-            out = out + 0.5 * _sum64(self.w_sp * adu_sp
-                                     * (adu_sp - 2.0 * (self.d_sp - au_sp)),
-                                     (-3, -2, -1))
-        return out.to(u.dtype)
+            out = out + sum_last_f64(self.w_sp * adu_sp * torch.add(
+                au_sp, adu_sp, alpha=0.5).sub_(self.d_sp), 3)
+        return out.to(du.dtype)
 
 
-def _sum64(x: torch.Tensor, dims) -> torch.Tensor:
-    """Sum over ``dims`` accumulated in float64."""
-    return x.sum(dim=dims, dtype=torch.float64)
+def sum_last_f64(x: torch.Tensor, ndims: int) -> torch.Tensor:
+    """The sum over the last ``ndims`` axes, in float64: the last axis is
+    reduced in ``x``'s precision, the partial sums in float64 (no float64
+    copy of ``x`` is made)."""
+    x = x.sum(dim=-1)
+    if ndims == 1:
+        return x.to(torch.float64)
+    return x.sum(dim=tuple(range(-(ndims - 1), 0)), dtype=torch.float64)
 
 
 def _sparse_auto(n_sp: int, npix: int, sparse_split) -> bool:

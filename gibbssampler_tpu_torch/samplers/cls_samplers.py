@@ -520,6 +520,7 @@ class CutMHPlan:
                              "blocks to precede the single-bin blocks; use "
                              "nc_cls_sample for this blocking")
         self.big_rows = [row for (k, _f, row) in order if k == "big"]
+        self.big_fields = [f for (k, f, _row) in order if k == "big"]
         single_rows = [row for (k, _f, row) in order if k == "single"]
 
         # the engine the JAX package would pick, refused where not ported
@@ -635,20 +636,28 @@ class CutMHPlan:
         return self._scale(tv, [self._sqrt_per_ell(dlcat, f)
                                 for f in range(len(self.bins_list))])
 
-    def du_of(self, dl_new, dl_old, tv):
-        """u(dl_new) - u(dl_old), formed per ell before the product with
-        tv (exactly 0 on the bins where the two agree)."""
-        return self._scale(tv, [self._sqrt_per_ell(dl_new, f)
-                                - self._sqrt_per_ell(dl_old, f)
-                                for f in range(len(self.bins_list))])
+    def du_of(self, dl_new, dl_old, tv, field):
+        """u(dl_new) - u(dl_old) for a move of ``field``'s D_ell alone: the
+        per-ell factor sqrt(D_new) - sqrt(D_old), formed before the product
+        with tv (exactly 0 on the bins where the two agree), and zero on
+        the other fields."""
+        L = self.model.lmax + 1
+        tf = tv[..., field, :]
+        fac = (self._sqrt_per_ell(dl_new, field)
+               - self._sqrt_per_ell(dl_old, field))
+        du = torch.zeros_like(tv)
+        du[..., field, :] = (tf.reshape(tf.shape[:-1] + (2, L, L))
+                             * fac[..., None, None, :]).reshape(tf.shape)
+        return du
 
-    def big_dll(self, tv, dl_old, dl_new, u, au_cut, au_sp):
-        """The exact log-likelihood ratio of a multi-bin block's candidate:
-        (dll, du, A_cut du, A_sp du), one synthesis of the move du."""
-        du = self.du_of(dl_new, dl_old, tv)
+    def big_dll(self, tv, dl_old, dl_new, u, au_cut, au_sp, field):
+        """The exact log-likelihood ratio of a multi-bin block's candidate,
+        the block on ``field``: (dll, du, A_cut du, A_sp du), one synthesis
+        of the move du."""
+        du = self.du_of(dl_new, dl_old, tv, field)
         adu_cut, adu_sp = self.model.synthesis_cut_sp(du)
         dll = self.model.data_loglike_cut_delta(u, au_cut, au_sp, du,
-                                                adu_cut, adu_sp)
+                                                adu_cut, adu_sp, field)
         return dll, du, adu_cut, adu_sp
 
     def flat_resid(self, au_sp):
@@ -746,8 +755,9 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, dlcat, ll, state, Rc,
              Rs, Rp, up, ua):
     """One table-domain sweep over every chain: propose, the big blocks,
     then the singles chunk by chunk.  ``state`` is (u, A_cut u, A_sp u) at
-    ``dlcat``; ``Rp`` is the flat hole residual (None without the sparse
-    split).  Returns (dlcat, ll, Rc, Rs, Rp, accs)."""
+    ``dlcat``, owned by the sweep (u is updated in place); ``Rp`` is the
+    flat hole residual (None without the sparse split).  Returns (dlcat,
+    ll, Rc, Rs, Rp, accs)."""
     cut = model.cut_sht
     dt = dlcat.dtype
     props = propose_truncnorm(dlcat, plan.sigma, up)
@@ -756,19 +766,24 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, dlcat, ll, state, Rc,
     accs = torch.zeros_like(log_u)
 
     u, au, au_sp = state
-    for row in plan.big_rows:
+    big = list(zip(plan.big_rows, plan.big_fields))
+    for i, (row, f) in enumerate(big):
         mb = plan.bmask[row]
         cand = torch.where(mb > 0, props, dlcat)
         # the exact log-ratio from one synthesis of the move; the residual
         # ring sums and the hole residual move by the move's maps
-        dll, du, adu, adu_sp = plan.big_dll(tv, dlcat, cand, u, au, au_sp)
+        dll, du, adu, adu_sp = plan.big_dll(tv, dlcat, cand, u, au, au_sp, f)
         qcorr = (mb * lr_vec).sum(-1)
         acc = log_u[..., row] < dll + qcorr
         dlcat = torch.where(acc[..., None], cand, dlcat)
         ll = torch.where(acc, ll + dll, ll)
-        u = _select(acc, u + du, u)
-        au = _select(acc, au + adu, au)
-        au_sp = _select(acc, None if au_sp is None else au_sp + adu_sp, au_sp)
+        # what a later big block reads: u on its own field, and the maps
+        if f in plan.big_fields[i + 1:]:
+            u[..., f, :].addcmul_(du[..., f, :], acc.to(dt)[..., None])
+        if i + 1 < len(big):
+            au = _select(acc, au + adu, au)
+            au_sp = _select(acc, None if au_sp is None else au_sp + adu_sp,
+                            au_sp)
         Rc_d, Rs_d = cut.ring_cs_of_maps(adu)
         Rc = _select(acc, Rc - Rc_d, Rc)
         Rs = _select(acc, Rs - Rs_d, Rs)

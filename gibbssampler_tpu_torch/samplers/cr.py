@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ..harmonics.gridstate import expand_cl_state
-from ..ops.model import SkyModel
+from ..ops.model import SkyModel, sum_last_f64
 
 __all__ = ["noise_pool_spec", "CRInfo", "exact_cr", "aux_gibbs_cr",
            "overrelax_cr", "mala_cr", "mala_log_ratio", "aux_then_mala_cr"]
@@ -262,38 +262,36 @@ def _mala_ops(model: SkyModel, var_cls, bt_ninv_d) -> _MalaOps:
             return -0.5 * (inv_noise * resid * resid).sum(dim=pix_axes)
 
         def dll(x, maps, dx, dmaps):
-            """-1/2 sum N^-1 [(r - A B dx)^2 - r^2], r the residual of x,
-            formed term by term."""
+            """-1/2 sum N^-1 [(r - A B dx)^2 - r^2] = -sum N^-1 A B dx
+            (A B dx / 2 + A B x - d), formed term by term."""
             adx = dmaps[0]
-            return -0.5 * _sum64(inv_noise * adx * (adx - 2.0 * (
-                model.d - maps[0])), pix_axes).to(x.dtype)
+            return -sum_last_f64(inv_noise * adx * torch.add(
+                maps[0], adx, alpha=0.5).sub_(model.d),
+                model.map_ndim + 1).to(x.dtype)
 
     return _MalaOps(inv_cvar, sigma, act, fwd, grad, ll, dll)
 
 
-def _sum64(x, dims):
-    """Sum over ``dims`` accumulated in float64."""
-    return x.sum(dim=dims, dtype=torch.float64)
-
-
 def _mala_log_ratio(ops: _MalaOps, tau, s, maps_s, g_s, s_prop):
     """The MH log-ratio of the MALA move s -> s_prop, every difference
-    formed term by term before its reduction and accumulated in float64:
-    the log-target's change from one synthesis of the move (the proposal's
-    maps are the state's plus the move's), and the proposal densities'
-    pair as one sum of (a - b)(a + b)."""
+    formed term by term before its reduction (``sum_last_f64``): the
+    log-target's change from one synthesis of the move (the proposal's maps
+    are the state's plus the move's), and the proposal densities' pair,
+
+        log q(s | s') - log q(s' | s) = -1/2 sum (a^2 - b^2) / (2 tau Sigma)
+            = -1/2 sum (g' + g) (ds + tau/2 Sigma (g' - g)),
+
+    with a = s - s' - tau Sigma g', b = s' - s - tau Sigma g, ds = s' - s."""
     ds = s_prop - s
     dmaps = ops.fwd(ds)
     maps_p = tuple(None if a is None else a + b for a, b in zip(maps_s, dmaps))
     g_p = ops.grad(s_prop, maps_p)
-    inv_step = _safe_inv(2.0 * tau * ops.sigma)
-    # log q(s | s_prop) - log q(s_prop | s) = -1/2 sum inv_step (a^2 - b^2)
-    a = s - (s_prop + tau * ops.sigma * g_p)
-    b = s_prop - (s + tau * ops.sigma * g_s)
-    state = (-2, -1)
-    log_ratio = (-0.5 * _sum64(ops.inv_cvar * ds * (2.0 * s + ds), state)
-                 + ops.dll(s, maps_s, ds, dmaps).to(torch.float64)
-                 - 0.5 * _sum64(inv_step * (a - b) * (a + b), state))
+    # the prior's change, inv_cvar ds (2 s + ds), and the proposal pair's
+    terms = ops.inv_cvar * ds * torch.add(ds, s, alpha=2.0)
+    terms.addcmul_(g_p + g_s, torch.addcmul(ds, ops.sigma, g_p - g_s,
+                                            value=0.5 * tau))
+    log_ratio = (-0.5 * sum_last_f64(terms, 2)
+                 + ops.dll(s, maps_s, ds, dmaps).to(torch.float64))
     return log_ratio.to(s.dtype)
 
 

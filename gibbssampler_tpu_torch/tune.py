@@ -7,8 +7,9 @@ counterpart of ``tools/tune_flagship.py``.
 
 Builds the flagship configuration (``flagship.build``) from bench.py's
 analytic seeds, then runs warm-up segments of ``--nchains`` chains and
-``--seg-iters`` iterations, each started afresh at the previous segment's
-pooled last D_ell, and after each segment rescales every MH block's
+``--seg-iters`` iterations, each started afresh (``flagship.start_state``)
+at the previous segment's pooled last D_ell, and after each segment
+rescales every MH block's
 proposal scale by the pure multiplicative rule of
 ``parallel.adapt.rescale_sigmas`` (window 0.2-0.5).  Logs each segment's
 acceptances of the EE block, the BB big block and the BB singles, with
@@ -93,7 +94,9 @@ def tune(grid: str, mask: str, cr: str, device="cuda", lmax: int = 512,
         scheme.set_proposal_sigmas(sig)
         sync()
         t0 = time.time()
-        out = scheme.run(dl0, n_iter=seg_iters, nchains=nchains, gen=gen)
+        out = scheme.run(dl0, n_iter=seg_iters, gen=gen,
+                         state=flagship.start_state(scheme, dl0, nchains,
+                                                    gen))
         sync()
         ms = (time.time() - t0) / seg_iters * 1e3
         sig, acc = rescale_sigmas(sig, out, blocks)

@@ -211,6 +211,34 @@ def test_table_engine_matches_jax(request, monkeypatch, sky, bb):
     assert 0.0 < acc.mean() < 1.0
 
 
+def test_table_engine_two_big_blocks_in_a_field_match_jax(pol, monkeypatch):
+    """Two multi-bin EE blocks before the BB blocks: the second EE block
+    reads the state u as the first one left it (carried in place on its
+    field) and the maps of both; against JAX over n_iter = 2."""
+    mc, tc, fields = pol
+    monkeypatch.setattr(jcs, "_MDOMAIN_CHUNK", 3)
+    monkeypatch.setattr(tcs, "_MDOMAIN_CHUNK", 3)
+    bins, blocks, sig, dl0 = _setup(fields, BB_BINS["wide"])
+    blocks[0] = [(0, 5), (5, len(bins[0]) - 1)]
+    sig[0] = 0.1 * dl0[0]
+    keys, dls, s_nc, up, ua = _inputs(mc, bins, blocks, dl0, 2, 8)
+    ref = jax.jit(jax.vmap(lambda k, d, s: jcs.nc_cls_sample_cut(
+        k, d, s, mc, bins, blocks, sig, n_iter=2)))(
+            keys, tuple(jnp.asarray(d) for d in dls), jnp.asarray(s_nc))
+    plan = tcs.CutMHPlan(tc, bins, blocks, sig, dtype=torch.float64)
+    assert plan.big_fields == [0, 0, 1]
+    dl, info = tcs.nc_cls_sample_cut(tuple(t64(d) for d in dls), t64(s_nc),
+                                     tc, bins, blocks, sig, n_iter=2,
+                                     u_prop=up, u_acc=ua, plan=plan)
+    for f in range(2):
+        _check(dl[f], ref[0][f], f"dl[{f}]")
+        np.testing.assert_array_equal(n(info.accept[f]),
+                                      np.asarray(ref[1].accept[f]))
+    _check(info.log_like, ref[1].log_like, "log_like")
+    # the first EE block accepted somewhere, so the carry was read
+    assert n(info.accept[0])[..., 0].max() == 1.0
+
+
 @pytest.mark.parametrize("sky,bb", CASES)
 def test_table_engine_matches_own_direct_path(request, monkeypatch, sky, bb):
     """The port's fast path against its own direct nc_cls_sample on the

@@ -1,6 +1,9 @@
-"""The port's CR step and centered Gibbs iteration against the JAX package
-on the same injected variates (float64, CPU), and a statistical check of
-its MALA step.
+"""The port's CR steps and centered Gibbs iteration against the JAX package
+on the same injected variates (float64, CPU): aux-Gibbs + MALA, and the
+auxiliary family aux-Gibbs, overrelaxation, MALA and ULA on band, holey GL
+and holey HEALPix cut models, with three ASIS iterations on the
+overrelaxed CR; a statistical check of the MALA step; and the float32
+rounding of the accept tests' exact log-ratios against the old form's.
 
 Both packages get the same noise pool, made with numpy; the MALA accept
 uniforms and the gamma variates are recomputed here from the same
@@ -13,17 +16,24 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from torch_parity import jax_model_arrays, make_masked, n, port_model, t64
+from torch_parity import (jax_mh_uniforms, jax_model_arrays, make_holey,
+                          make_holey_healpix, make_masked, n, port_model, t64,
+                          valid_normal)
 from gibbssampler_tpu.harmonics.spectra import bin_sum as jax_bin_sum
 from gibbssampler_tpu.inference import example_dl, simulate_dataset
 from gibbssampler_tpu.samplers import aux_then_mala_cr as jax_aux_mala
+from gibbssampler_tpu.samplers import cr as jcr
+from gibbssampler_tpu.schemes import ASISGibbs as JaxASIS
 from gibbssampler_tpu.schemes import CenteredGibbs as JaxCentered
 from gibbssampler_tpu.schemes import GibbsState as JaxState
 from gibbssampler_tpu_torch.harmonics import variance_expansion_state
 from gibbssampler_tpu_torch.interop import model_from_numpy, state_from_numpy
+from gibbssampler_tpu_torch.ops import with_cut_decomposition
 from gibbssampler_tpu_torch.samplers import aux_then_mala_cr, mala_cr
+from gibbssampler_tpu_torch.samplers import cls_samplers as tcs
+from gibbssampler_tpu_torch.samplers import cr as tcr
 from gibbssampler_tpu_torch.samplers.cls_samplers import standard_gamma
-from gibbssampler_tpu_torch.schemes import CenteredGibbs
+from gibbssampler_tpu_torch.schemes import ASISGibbs, CenteredGibbs
 
 LMAX = 10
 NCH = 3
@@ -196,3 +206,247 @@ def test_mala_acceptance_and_invariance():
     scale = float(np.sqrt(ref.var(0)).max())
     np.testing.assert_allclose(m_new[0, 2:40], m_ref[0, 2:40],
                                atol=6 * scale / np.sqrt(nch))
+
+
+# ---------------------------------------------------------------------------
+# The auxiliary CR family on band, holey GL and holey HEALPix cut models
+# ---------------------------------------------------------------------------
+
+CUT_MODELS = {
+    "band": lambda: make_masked(spin=2, sigma2=0.5)[1:],
+    "holey": lambda: make_holey(2)[1:],
+    "holey_healpix": lambda: make_holey_healpix(2)[1:],
+}
+
+
+@pytest.fixture(scope="module")
+def cut_models():
+    """{name: (JAX cut model, port cut model, fields)}, built on first use."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            mc, fields = CUT_MODELS[name]()
+            cache[name] = (mc, port_model(mc, cut=True), fields)
+        return cache[name]
+    return get
+
+
+def _family_inputs(mc, fields, n_gibbs, seed):
+    """Per-chain prior variances, start states and a noise pool with room
+    for every method at ``n_gibbs`` sweeps."""
+    from gibbssampler_tpu.harmonics import variance_expansion_state as jvar
+    rng = np.random.default_rng(seed)
+    lmax = mc.lmax
+    var = np.stack([np.asarray(jvar(jnp.asarray(f), lmax)) for f in fields])
+    var = var[None] * np.exp(0.2 * rng.normal(size=(NCH, 1, 1)))
+    s_old = np.sqrt(var) * rng.normal(size=var.shape)
+    pool = {"state": rng.normal(size=(NCH, 2 * n_gibbs, mc.nfields,
+                                      mc.nstate)),
+            "aux": rng.normal(size=(NCH, 1 + n_gibbs) + tuple(mc.w_cut.shape))}
+    if mc.has_sparse:
+        pool["sp"] = rng.normal(size=(NCH, 1 + n_gibbs)
+                                + tuple(mc.w_sp.shape))
+    return var, s_old, pool
+
+
+@pytest.mark.parametrize("name", sorted(CUT_MODELS))
+@pytest.mark.parametrize("method", ["aux_gibbs", "overrelax", "mala", "ula"])
+def test_aux_cr_family_matches_jax(cut_models, name, method):
+    """aux_gibbs_cr (2 sweeps), overrelax_cr (alpha -0.995, 2 sweeps: the
+    variates in JAX's order), mala_cr and the ULA step (mala_cr with
+    accept=False) of every chain at once against JAX's vmapped functions on
+    the same pools (and MALA accept uniforms): states, accepts and
+    CRInfo.extra to 1e-9."""
+    mc, tc, fields = cut_models(name)
+    n_gibbs = 2
+    var, s_old, pool = _family_inputs(mc, fields, n_gibbs, 3)
+    bt = mc.bt_ninv_d()
+    keys = jax.random.split(jax.random.PRNGKey(4), NCH)
+    tpool = {k: t64(v) for k, v in pool.items()}
+    tbt = tc.bt_ninv_d()
+    if method == "aux_gibbs":
+        fn = lambda k, v, s, p: jcr.aux_gibbs_cr(k, mc, v, bt, s,
+                                                 n_gibbs=n_gibbs, noise=p)
+        mine = tcr.aux_gibbs_cr(tc, t64(var), tbt, t64(s_old),
+                                n_gibbs=n_gibbs, noise=tpool)
+    elif method == "overrelax":
+        fn = lambda k, v, s, p: jcr.overrelax_cr(k, mc, v, bt, s,
+                                                 alpha=-0.995,
+                                                 n_gibbs=n_gibbs, noise=p)
+        mine = tcr.overrelax_cr(tc, t64(var), tbt, t64(s_old), alpha=-0.995,
+                                n_gibbs=n_gibbs, noise=tpool)
+    else:
+        accept = method == "mala"
+        fn = lambda k, v, s, p: jcr.mala_cr(k, mc, v, bt, s, tau=0.5,
+                                            accept=accept, noise=p)
+        # mala_cr(key): kp, ka = split(key); the accept uniform from ka
+        u = t64([float(jax.random.uniform(jax.random.split(k)[1],
+                                          dtype=jnp.float64)) for k in keys])
+        mine = tcr.mala_cr(tc, t64(var), tbt, t64(s_old), tau=0.5,
+                           accept=accept, noise=tpool, u=u)
+    ref = jax.vmap(fn)(keys, jnp.asarray(var), jnp.asarray(s_old),
+                       {k: jnp.asarray(v) for k, v in pool.items()})
+    _check(mine[0], ref[0], f"{method} state")
+    _check(mine[1].extra, ref[1].extra, f"{method} extra")
+    np.testing.assert_array_equal(n(mine[1].accept), np.asarray(
+        ref[1].accept))
+
+
+def test_asis_steps_match_jax_with_overrelax(masked, monkeypatch):
+    """Three ASISGibbs iterations with cr="overrelax" (bench.py's options:
+    alpha -0.995, one sweep): the JAX scheme's vmapped step and the port's
+    batched step on the same pools, gamma variates and MH uniforms agree at
+    every iteration; the MH accepts are equal."""
+    from gibbssampler_tpu.samplers import cls_samplers as jcs
+    mc, tc, fields = masked
+    monkeypatch.setattr(jcs, "_MDOMAIN_CHUNK", 2)
+    monkeypatch.setattr(tcs, "_MDOMAIN_CHUNK", 2)
+    bins = [BINS, BINS]
+    blocks = [[(0, 5)], [(0, 2)] + [(i, i + 1) for i in range(2, 5)]]
+    dl0 = [np.array([f[lo:hi].mean() for lo, hi in zip(BINS[:-1], BINS[1:])])
+           for f in fields]
+    sig = [0.3 * d for d in dl0]
+    opts = {"alpha": -0.995, "n_gibbs": 1}
+    kw = dict(n_iter_mh=1, cr_method="overrelax", cr_options=opts)
+    jsch = JaxASIS(mc, bins, blocks, sig, **kw)
+    tsch = ASISGibbs(tc, bins, blocks, sig, **kw)
+    assert jsch._use_cut_mh and tsch._use_cut_mh
+    assert set(tsch.draw_noise_pool(NCH, torch.Generator())) == {"state",
+                                                                 "aux"}
+    jstep = jax.jit(jax.vmap(jsch.step))
+    dls = tuple(np.tile(d, (NCH, 1)) for d in dl0)
+    var = np.asarray(jax.vmap(jsch.var_cls)(tuple(jnp.asarray(d)
+                                                  for d in dls)))
+    s0 = np.sqrt(var) * np.random.default_rng(0).normal(size=var.shape)
+    jstate = JaxState(s=jnp.asarray(s0), dl=tuple(jnp.asarray(d)
+                                                  for d in dls))
+    tstate = state_from_numpy(s0, dls, device="cpu")
+    ell = jnp.arange(LMAX + 1, dtype=jnp.float64)
+    alpha = jnp.where(jax_bin_sum(2.0 * ell + 1.0, BINS, LMAX) / 2.0 - 1.0
+                      <= 0, 1.0,
+                      jax_bin_sum(2.0 * ell + 1.0, BINS, LMAX) / 2.0 - 1.0)
+    ntot, nblocks = 2 * (len(BINS) - 1), sum(map(len, blocks))
+    rng = np.random.default_rng(1)
+    for it in range(3):
+        pool = {"state": rng.normal(size=(NCH, 2, 2, tc.nstate)),
+                "aux": rng.normal(size=(NCH, 2) + tuple(tc.w_cut.shape))}
+        keys = jax.random.split(jax.random.PRNGKey(200 + it), NCH)
+        jstate, jinfo = jstep(keys, jstate,
+                              {k: jnp.asarray(v) for k, v in pool.items()})
+        # step(key): k1 -> the CR step (pool only), k2 -> gammas, k3 -> MH
+        gam, up, ua = [[], []], [], []
+        for key in keys:
+            _, k2, k3 = jax.random.split(key, 3)
+            for f, kf in enumerate(jax.random.split(k2, 2)):
+                gam[f].append(np.asarray(jax.random.gamma(kf, alpha)))
+            p_, a_ = jax_mh_uniforms(k3, 1, ntot, nblocks)
+            up.append(p_)
+            ua.append(a_)
+        tstate, tinfo = tsch.step(
+            tstate, noise={k: t64(v) for k, v in pool.items()},
+            gammas=tuple(t64(g) for g in gam), u_prop=t64(up), u_acc=t64(ua))
+        _check(tstate.s, jstate.s, f"iteration {it} s")
+        for f in range(2):
+            _check(tstate.dl[f], jstate.dl[f], f"iteration {it} dl[{f}]")
+            np.testing.assert_array_equal(n(tinfo["mh_accept"][f]),
+                                          np.asarray(jinfo["mh_accept"][f]))
+
+
+def test_cg_methods_are_refused(masked):
+    """The CG-based methods are not ported: building a scheme with one
+    raises NotImplementedError; an unknown name raises ValueError."""
+    _, tc, _ = masked
+    for method in ("cg", "rjpo", "pcn"):
+        with pytest.raises(NotImplementedError):
+            CenteredGibbs(tc, [BINS, BINS], cr_method=method)
+    with pytest.raises(ValueError):
+        CenteredGibbs(tc, [BINS, BINS], cr_method="gibbs")
+
+
+# ---------------------------------------------------------------------------
+# float32: the exact log-ratios against the old form's
+# ---------------------------------------------------------------------------
+
+def _models_32_64(lmax=16):
+    """A band-masked flagship-like sky (amp 1000, noise 0.2^2) whose fields
+    are rounded to float32, as one float32 and one float64 cut model with
+    the same parameters."""
+    from gibbssampler_tpu_torch.inference import (example_dl as t_dl,
+                                                  simulate_dataset as t_sim)
+    gen = torch.Generator().manual_seed(0)
+    theta = np.arccos(np.polynomial.legendre.leggauss(lmax + 1)[0][::-1])
+    keep = (np.abs(np.pi / 2 - theta) > 0.2).astype(np.float64)
+    mask = np.broadcast_to(keep[:, None], (lmax + 1, 2 * lmax + 2))
+    dls = np.stack([t_dl(lmax, "ee"), t_dl(lmax, "bb")])
+    model, _ = t_sim(lmax, 2, dls, 0.2 ** 2, fwhm_radians=np.radians(0.5),
+                     mask=mask, dtype=torch.float64, device="cpu", gen=gen)
+    g = model.sht.grid
+    r32 = lambda a: np.asarray(a, dtype=np.float32).astype(np.float64)
+    arrays = {"d": r32(model.d), "tau": r32(model.noise.tau),
+              "q_map": r32(model.noise.q_map), "omega": model.noise.omega,
+              "bl": r32(model.bl), "spin": 2, "theta": g.theta,
+              "weights": g.weights, "phi0": g.phi0, "nphi": g.nphi}
+    return dls, [with_cut_decomposition(model_from_numpy(arrays, "cpu", dt))
+                 for dt in (torch.float32, torch.float64)]
+
+
+def test_float32_log_ratios_beat_the_old_form():
+    """On a small cut model in float32: the first big block's log-ratio
+    (CutMHPlan.big_dll) and the MALA log-ratio (mala_log_ratio), each
+    against the same log-ratio in float64 on the same candidate, are at
+    least as close as the old form's (differences of float32 totals) in
+    the median over 16 chains, and within 1e-3 nats (tolerance)."""
+    lmax, nch = 16, 16
+    dls, (m32, m64) = _models_32_64(lmax)
+    bins = [np.arange(2, lmax + 2)] * 2
+    blocks = [[(0, 15)], [(0, 10)] + [(i, i + 1) for i in range(10, 15)]]
+    dl0 = np.concatenate([[d[lo:hi].mean() for lo, hi in zip(b[:-1], b[1:])]
+                          for d, b in zip(dls, bins)])
+    rng = np.random.default_rng(1)
+    dl = dl0 * np.exp(0.1 * rng.normal(size=(nch, dl0.size)))
+    s_nc = valid_normal(rng, (nch, 2, m32.nstate), lmax)
+    sig = [0.05 * dl0[:15], 0.05 * dl0[15:]]
+    up = rng.uniform(size=dl.shape)
+    errs = {}
+    vals = []
+    for m, dt in ((m32, torch.float32), (m64, torch.float64)):
+        plan = tcs.CutMHPlan(m, bins, blocks, sig, dtype=dt)
+        d = torch.as_tensor(dl, dtype=dt)
+        cand = torch.where(plan.bmask[0] > 0, tcs.propose_truncnorm(
+            d, plan.sigma, torch.as_tensor(up, dtype=dt)), d)
+        if dt == torch.float32:
+            cand32 = cand
+        else:
+            cand = cand32.to(dt)
+        _, tv = plan.components(torch.as_tensor(s_nc, dtype=dt))
+        u = plan.u_of(d, tv)
+        au, au_sp = m.synthesis_cut_sp(u)
+        new = plan.big_dll(tv, d, cand, u, au, au_sp, plan.big_fields[0])[0]
+        old = m.data_loglike_cut(plan.u_of(cand, tv)) - m.data_loglike_cut(
+            u, au, au_sp)
+        vals.append((new.double(), old.double()))
+    ref = vals[1][0]
+    errs["big block"] = [n((v - ref).abs()) for v in vals[0]]
+    var = np.stack([n(variance_expansion_state(t64(f), lmax)) for f in dls])
+    s = np.sqrt(var) * valid_normal(rng, (nch, 2, m32.nstate), lmax)
+    xi = rng.normal(size=s.shape)
+    out = []
+    for m, dt in ((m32, torch.float32), (m64, torch.float64)):
+        tt = lambda a: torch.as_tensor(a, dtype=dt)
+        v = tt(var).expand(nch, -1, -1)
+        bt = m.bt_ninv_d()
+        if dt == torch.float32:
+            s_prop = tcr.mala_cr(m, v, bt, tt(s), tau=0.02, accept=False,
+                                 noise={"state": tt(xi)[:, None]})[0]
+            out += [tcr.mala_log_ratio(m, v, bt, tt(s) * (v > 0), s_prop,
+                                       0.02, exact=e).double()
+                    for e in (True, False)]
+        else:
+            out.append(tcr.mala_log_ratio(m, v, bt, tt(s) * (v > 0),
+                                          s_prop.to(dt), 0.02))
+    errs["MALA"] = [n((x - out[2]).abs()) for x in out[:2]]
+    for what, (new, old) in errs.items():
+        assert np.median(new) <= np.median(old), (what, np.median(new),
+                                                  np.median(old))
+        assert new.max() <= 1e-3, (what, new.max())

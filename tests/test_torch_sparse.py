@@ -320,8 +320,9 @@ def test_planckish_split_counts_at_lmax_512():
 # CR steps on injected pools
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("method,n_gibbs", [("exact", 1), ("aux_mala", 1),
-                                            ("aux_mala", 2)])
+@pytest.mark.parametrize("method,n_gibbs", [
+    ("exact", 1), ("aux_mala", 1), ("aux_mala", 2), ("aux_gibbs", 2),
+    ("overrelax", 1), ("overrelax", 3), ("mala", 1), ("ula", 1)])
 def test_noise_pool_spec_matches_jax(method, n_gibbs):
     assert tcr.noise_pool_spec(method, {"n_gibbs": n_gibbs}) == \
         jcr.noise_pool_spec(method, {"n_gibbs": n_gibbs})
