@@ -1076,6 +1076,7 @@ def phase_mh_sweep(torch, scheme, state, dev, card, label="", nch=4):
 
 
 def main():
+    t_start = time.time()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1149,6 +1150,8 @@ def main():
                         "by_nr": {str(nr): r for nr, r in rec[name].items()}})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched by the main path")
+    print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "
+          f"[{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

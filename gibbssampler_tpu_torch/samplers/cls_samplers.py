@@ -618,36 +618,29 @@ class CutMHPlan:
                                             self.offs[f + 1]],
                                       self.bins_list[f], self.model.lmax))
 
-    def _scale(self, tv, facs):
-        """Field f of tv times the per-ell factor facs[f]: (..., nfields,
-        nstate)."""
+    def _scale(self, tf, fac):
+        """One field's components tf times its per-ell factor fac."""
         L = self.model.lmax + 1
-        parts = []
-        for f, fac in enumerate(facs):
-            tf = tv[..., f, :]
-            parts.append((tf.reshape(tf.shape[:-1] + (2, L, L))
-                          * fac[..., None, None, :]).reshape(tf.shape))
-        return torch.stack(parts, dim=-2)
+        return (tf.reshape(tf.shape[:-1] + (2, L, L))
+                * fac[..., None, None, :]).reshape(tf.shape)
 
     def u_of(self, dlcat, tv):
         """u(dl) = sqrt(C_l(dl)) t over the fields: (..., nfields, nstate)
         from the concatenated binned D_ell and the valid-masked components
         ``tv``."""
-        return self._scale(tv, [self._sqrt_per_ell(dlcat, f)
-                                for f in range(len(self.bins_list))])
+        return torch.stack([self._scale(tv[..., f, :],
+                                        self._sqrt_per_ell(dlcat, f))
+                            for f in range(len(self.bins_list))], dim=-2)
 
     def du_of(self, dl_new, dl_old, tv, field):
         """u(dl_new) - u(dl_old) for a move of ``field``'s D_ell alone: the
         per-ell factor sqrt(D_new) - sqrt(D_old), formed before the product
         with tv (exactly 0 on the bins where the two agree), and zero on
         the other fields."""
-        L = self.model.lmax + 1
-        tf = tv[..., field, :]
-        fac = (self._sqrt_per_ell(dl_new, field)
-               - self._sqrt_per_ell(dl_old, field))
         du = torch.zeros_like(tv)
-        du[..., field, :] = (tf.reshape(tf.shape[:-1] + (2, L, L))
-                             * fac[..., None, None, :]).reshape(tf.shape)
+        du[..., field, :] = self._scale(
+            tv[..., field, :], self._sqrt_per_ell(dl_new, field)
+            - self._sqrt_per_ell(dl_old, field))
         return du
 
     def big_dll(self, tv, dl_old, dl_new, u, au_cut, au_sp, field):
