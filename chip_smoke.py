@@ -24,15 +24,21 @@ non-zero:
    times kernel and plain version (one torch.einsum call) at L 513, C 256
    and each main-path row count, with TFLOP/s, GB/s and the bound: the
    larger of the bytes over 3.35 TB/s and the FLOPs over the 3xTF32 rate,
-   495 / 3 TFLOP/s;
+   495 / 3 TFLOP/s; and times the float64 kernels against their float64
+   einsum at the CG phase's shapes (the 65 cut rings and the 513-ring full
+   grid, 32 columns), with the bound of the bytes over 3.35 TB/s or the
+   FLOPs over the 67 TFLOP/s float64 tensor-core peak;
 4. checks the lmax-512 transforms in float32 (round trip and the cut
    transform's adjointness, on GL rings and on the HEALPix floor's 193
    belt rows at nphi 1024 = 2 lmax), and at lmax 16 in float64, card
-   against CPU on the same injected variates (<= 1e-9, MH accepts equal),
-   one CenteredGibbs and one ASISGibbs step on a band mask, one ASISGibbs
-   step on a holey mask (the floor + sparse-hole split) and one on a holey
-   HEALPix mask at nside 8 (padded layout, cap-ring holes in the point set,
-   the table engine's ring-phase and Nyquist paths);
+   against CPU on the same injected variates (<= 1e-9, CR and MH accepts
+   equal), one step each of: CenteredGibbs with the aux_mala, cg, rjpo and
+   pcn CRs on a band mask and with cg on a holey mask (the floor +
+   sparse-hole split); ASISGibbs on the band mask, on the holey mask and
+   on a holey HEALPix mask at nside 8 (padded layout, cap-ring holes in the
+   point set, the table engine's ring-phase and Nyquist paths);
+   NonCenteredGibbs; and PNCPGibbs on the table engine (EE fully centered,
+   BB non-centered from l = 10);
 5. on a band-masked polarized sky at lmax 512 (GL grid 513 x 1026, cut
    decomposition over 65 rings, float32, 128 chains) runs four paths,
    each with the kernel launch counts set to 0 before it and read after
@@ -53,24 +59,42 @@ non-zero:
    (4 chains): the table engine against the direct nc_cls_sample on the
    same uniforms (D_ell <= 1e-9, accepts equal); the float32
    log-likelihood's rounding against float64; and the float32 rounding of
-   the two log-ratios the accept tests compare with a uniform, the first
-   big-block candidate's and one MALA move's, over all chains, in the form
-   the sampler uses (every difference formed before its reduction) and in
-   the old form (differences of O(1e6)-term totals), against float64;
-7. the same ASIS slice and float64 checks on bench.py's planckish mask (an
+   the log-ratios the accept tests compare with a uniform, the first
+   big-block candidate's, one MALA move's and one pCN move's, over all
+   chains, in the form the sampler uses (every difference formed before
+   its reduction) and in the old form (differences of O(1e6)-term totals),
+   against float64 (the exact pCN form's under 0.1 nats);
+7. bench.py's PNCP configuration (BENCH_SCHEME=pncp, BENCH_LCUT none,300)
+   on the same dataset with its tuned record: EE fully centered, BB
+   single-bin blocks from l = 300 on the table engine with the identity
+   re-centering below l_cut; the slice as in phase 5 (8 + 6 launches per
+   iteration, the BB singles' acceptance in [0.15, 0.6]), then one float64
+   MH sweep at full width, the table engine against the direct path on
+   the PNCP likelihood;
+8. the CG family at full width in float64 (the band dataset, 16 chains,
+   the prior of the true spectrum in unit bins): cg_cr at tol 1e-5 and
+   1e-6 (every chain converged, per-chain iterations beside the JAX
+   package's record, ms per solve and per iteration, 2 + 2 launches per
+   iteration, the true residual), rjpo_cr at 1e-5 from the CG draw, the
+   mixed-precision ladder (float32 apply on the 3xTF32 kernels, float64
+   vectors and true residuals, replacement every 10) at both tolerances,
+   and a CenteredGibbs slice with the cg CR (the initial draw and 3
+   iterations);
+9. the same ASIS slice and float64 checks on bench.py's planckish mask (an
    apodized band plus 200 point-source holes): checks the split's 83
    floor rings, 1547 hole pixels and 211 x 64 point rows, and the exact
    launch counts per iteration (each cut transform fused with the point
    set's);
-8. with the GL models freed, the HEALPix planckish path (bench.py's
+10. with the GL models freed, the HEALPix planckish path (bench.py's
    BENCH_GRID=healpix BENCH_MASK=planckish): nside 256 in the padded
    layout, the same sky under bench.py's HEALPix planckish mask; checks the
    split's 193 floor rings at nphi 1024 (97 phased), 1140 hole pixels (434
    on cap rings) in 391 x 8 point rows and the floor transform against the
    full 1023-ring synthesis at the floor pixels; runs the ASIS slice with
    its tuned record and the float64 checks;
-9. prints the kernels' JSON line (launches summed over the six paths),
-   then {"ok": true, "device": {...}} last.
+11. prints the kernels' JSON line, the float32 and the float64 kernels
+   each with their launches summed over the paths, then {"ok": true,
+   "device": {...}} last.
 
 The configurations come from gibbssampler_tpu_torch.flagship, the
 proposal scales from the port's records (gibbssampler_tpu_torch/
@@ -138,8 +162,35 @@ HEALPIX_PER_ITER = (24, 12)
 TIMED_NR = (CUT_RINGS, PLANCKISH_FLOOR_RINGS, HEALPIX_FLOOR_RINGS,
             PLANCKISH_POINT_ROWS[0], HEALPIX_POINT_ROWS[0], LMAX + 1,
             HEALPIX_RINGS)
+# the CG phase (float64 on the band's cut rings, unit bins at the true
+# spectrum, as tools/cg_scale.py sets it up): chains, tolerances, the cap,
+# the mixed ladder's replacement cadence, and the JAX package's record for
+# the 11.5 deg band at lmax 512 in float64, lockstep max over 8 chains
+# (docs/CG512_TABLE.txt)
+CG_CHAINS = 16
+CG_TOLS = (1e-5, 1e-6)
+CG_MAXITER = 4000
+CG_REPLACE_EVERY = 10
+CG_JAX_ITERS = {1e-5: 234, 1e-6: 351}
+CG_SLICE_ITERS = 3
+# bench.py's PNCP configuration (BENCH_SCHEME=pncp, BENCH_LCUT none,300): the
+# ASIS bins, EE fully centered (no block), BB single-bin blocks from l = 300
+# (bins 298-409); per iteration synthesis 6 (CR) + 2 (MH: u0), adjoint 6
+PNCP_LCUT = (513, 300)
+PNCP_SINGLES = 112
+PNCP_PER_ITER = (8, 6)
+# the pCN move of the float32 rounding check, and its limit in nats for
+# the exact form
+PCN_BETA = 0.1
+PCN_EXACT_LIMIT = 0.1
+# the float64 kernels' timed shapes: the CG phase's cut rings and full grid
+# at its chains' column count
+F64_TIMED = ((CUT_RINGS, 2 * CG_CHAINS), (LMAX + 1, 2 * CG_CHAINS))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 TF32X3_FLOPS_PER_S = 495e12 / 3      # 3 TF32 tensor-core products each
+# H100 SXM float64 tensor-core peak; the float64 kernels run on the FMA
+# pipes, whose peak is about half of it
+FP64_FLOPS_PER_S = 67e12
 
 
 def check(cond, msg):
@@ -218,12 +269,12 @@ def work(name, L, nr, C, itemsize=4):
     return 2 * nr * C * tri, nbytes * itemsize
 
 
-def bound(flops, nbytes):
-    """(ms, what bounds it): the least time of one float32 call, the
-    larger of its bytes over the HBM rate and its FLOPs over the 3xTF32
-    rate."""
+def bound(flops, nbytes, flops_per_s=TF32X3_FLOPS_PER_S):
+    """(ms, what bounds it): the least time of one call, the larger of its
+    bytes over the HBM rate and its FLOPs over ``flops_per_s`` (the 3xTF32
+    rate for float32, the float64 tensor-core peak for float64)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / TF32X3_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -245,14 +296,15 @@ def phase_build(lk):
 
 def phase_kernels(torch, lk, dev, card):
     """Kernel vs plain on the card, contiguous and in the main path's
-    layouts; returns the main-path records."""
+    layouts; returns the main-path records, float32 and float64."""
     check(not torch.backends.cuda.matmul.allow_tf32,
           "the plain versions must run in true float32 (allow_tf32 is on)")
     gen = torch.Generator(device=dev).manual_seed(0)
     shapes = ([(16, 12, 8), (37, 19, 10), (LMAX + 1, CUT_RINGS, 200)]
-              + [(LMAX + 1, nr, 2 * NCHAINS) for nr in TIMED_NR])
+              + [(LMAX + 1, nr, 2 * NCHAINS) for nr in TIMED_NR]
+              + [(LMAX + 1, nr, C) for nr, C in F64_TIMED])
     tols = {torch.float32: 1e-5, torch.float64: 1e-12}
-    rec = {}
+    rec, rec64 = {}, {}
     for L, nr, C in shapes:
         for dtype, tol in tols.items():
             lam = tri_table(torch, L, nr, dtype, dev, gen)
@@ -297,21 +349,24 @@ def phase_kernels(torch, lk, dev, card):
                       f"{rels['legendre_synth_tri']:.2e} adj "
                       f"{rels['legendre_adj_tri']:.2e} (<= {tol}), "
                       f"adjointness {rel:.2e}", flush=True)
-                if (L == LMAX + 1 and C == 2 * NCHAINS
-                        and dtype == torch.float32):
+                if L == LMAX + 1 and (
+                        (C == 2 * NCHAINS and dtype == torch.float32)
+                        or ((nr, C) in F64_TIMED and dtype == torch.float64)):
+                    into = rec if dtype == torch.float32 else rec64
                     for name, r in time_kernels(torch, lk, lam, x, g, lay,
                                                 card, errs).items():
-                        rec.setdefault(name, {})[nr] = r
+                        into.setdefault(name, {})[nr] = r
             del lam, x0, g0, y0, x, g, y
     torch.cuda.empty_cache()
-    return rec
+    return rec, rec64
 
 
 def time_kernels(torch, lk, lam, x, g, lay, card, errs):
     """Kernel and plain times (plain, kernel, kernel, plain) with rates
     and the bound; returns the records of the main path's layout."""
     L, nr, C = lam.shape[0], lam.shape[2], x.shape[1]
-    reps = 5 if nr > LMAX else 20
+    f32 = lam.dtype == torch.float32
+    reps = 5 if nr > LMAX and f32 else 20
     rec = {}
     for name, kern, plain, b in (
             ("legendre_synth_tri", lk.legendre_synth_tri,
@@ -323,20 +378,25 @@ def time_kernels(torch, lk, lam, x, g, lay, card, errs):
         k2 = time_ms(torch, lambda: kern(lam, b), reps)
         p2 = time_ms(torch, lambda: plain(lam, b), reps)
         ms, pms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
-        flops, nbytes = work(name, L, nr, C)
+        flops, nbytes = work(name, L, nr, C, lam.element_size())
         tflops, gbs = flops / ms * 1e-9, nbytes / ms * 1e-6
-        bound_ms, bound_by = bound(flops, nbytes)
-        print(f"time {name} L={L} nr={nr} C={C} float32 {lay}: kernel "
-              f"{ms:.4f} ms, plain einsum {pms:.4f} ms; bound {bound_ms:.4f} "
-              f"ms ({bound_by}), {bound_ms / ms:.1%} of it reached; kernel "
-              f"{tflops:.2f} TFLOP/s on the triangle ({tflops / 67:.1%} of "
-              f"67 fp32 FMA; 3xTF32 {3 * tflops / 495:.1%} of 495 TF32), "
+        bound_ms, bound_by = bound(
+            flops, nbytes, TF32X3_FLOPS_PER_S if f32 else FP64_FLOPS_PER_S)
+        rate = (f"({tflops / 67:.1%} of 67 fp32 FMA; 3xTF32 "
+                f"{3 * tflops / 495:.1%} of 495 TF32)" if f32 else
+                f"({tflops / 33.5:.1%} of 33.5 fp64 FMA, {tflops / 67:.1%} "
+                f"of 67 fp64 tensor-core)")
+        print(f"time {name} L={L} nr={nr} C={C} {str(lam.dtype)[6:]} {lay}: "
+              f"kernel {ms:.4f} ms, plain einsum {pms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it "
+              f"reached; kernel {tflops:.2f} TFLOP/s on the triangle {rate}, "
               f"{gbs:.0f} GB/s ({gbs / 3350:.1%} of 3350) [{card}]",
               flush=True)
         if lay == "state views":
             # the plain version is itself the one library call that
-            # computes the function (torch.einsum in true float32)
-            rec[name] = {"design": "3xtf32-mma.sync",
+            # computes the function (torch.einsum in true float32 or in
+            # float64)
+            rec[name] = {"design": "3xtf32-mma.sync" if f32 else "fp64-fma",
                          "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": pms, "tflops": tflops}
@@ -450,72 +510,103 @@ def small_dataset(torch, lmax, kind="band"):
     return arrays, dls
 
 
+# the small card-vs-CPU steps: name -> (mask, scheme, CR method)
+SMALL_STEPS = {
+    "centered": ("band", "centered", "aux_mala"),
+    "asis": ("band", "asis", "aux_mala"),
+    "asis holey": ("holey", "asis", "aux_mala"),
+    "asis healpix holey": ("healpix", "asis", "aux_mala"),
+    "centered cg": ("band", "centered", "cg"),
+    "centered rjpo": ("band", "centered", "rjpo"),
+    "centered pcn": ("band", "centered", "pcn"),
+    "centered cg holey": ("holey", "centered", "cg"),
+    "noncentered": ("band", "noncentered", "aux_mala"),
+    "pncp": ("band", "pncp", "aux_mala"),
+}
+
+
+def small_scheme(torch, model, name, kind, cr, bins, blocks, sig):
+    """The small-step phase's scheme ``name`` on ``model``; checks that the
+    blocked-MH schemes run on the table engine (PNCP with its identity
+    re-centering; on HEALPix with the ring-phase and Nyquist paths)."""
+    from gibbssampler_tpu_torch.schemes import (ASISGibbs, CenteredGibbs,
+                                                NonCenteredGibbs, PNCPGibbs)
+    kw = dict(cr_method=cr, cr_options={"n_gibbs": 1, "tau": 0.02}
+              if cr == "aux_mala" else {})
+    if kind == "centered":
+        return CenteredGibbs(model, bins, **kw)
+    if kind == "pncp":
+        # EE fully centered, BB non-centered from l = 10
+        scheme = PNCPGibbs(model, bins, blocks, sig,
+                           l_cut=(int(bins[0][-1]), 10), **kw)
+        check(scheme.mh_plan is not None and scheme.mh_plan.lowm is not None
+              and scheme.blocks_list[0] == (), "small PNCP step off the "
+              "table engine's identity re-centering")
+    else:
+        cls = ASISGibbs if kind == "asis" else NonCenteredGibbs
+        scheme = cls(model, bins, blocks, sig, **kw)
+    check(scheme._use_cut_mh, f"small {name} step off the table engine")
+    if model.noise.pix_ndim == 1:
+        plan = scheme.mh_plan
+        check(plan.ph_c is not None
+              and all(c.lnyq is not None for c in plan.chunks),
+              f"small {name} step off the table engine's ring-phase and "
+              "Nyquist paths")
+    return scheme
+
+
 def phase_small_steps(torch, dev):
-    """One CenteredGibbs and one ASISGibbs step on a band mask, one
-    ASISGibbs step on a holey mask (floor + sparse-hole split) and one on a
-    holey HEALPix mask (nside 8, padded layout, cap-ring holes in the point
-    set) at lmax 16 in float64, card against CPU, on the same dataset and
-    injected variates: the kernels inside every path, the point-set
-    transform and the MH table engine (on HEALPix with its ring-phase and
-    Nyquist paths) on the card."""
+    """One step of each scheme of SMALL_STEPS at lmax 16 in float64, card
+    against CPU, on the same dataset and injected variates: CenteredGibbs
+    with the aux_mala, cg, rjpo and pcn CRs (cg on a holey mask too),
+    ASISGibbs on a band, a holey (floor + sparse-hole split) and a holey
+    HEALPix mask (nside 8, padded layout, cap-ring holes in the point set),
+    NonCenteredGibbs and PNCPGibbs (EE fully centered, BB non-centered from
+    l = 10, the table engine's identity re-centering): the kernels inside
+    every path, the CG solver, the point-set transform and the MH table
+    engine (on HEALPix with its ring-phase and Nyquist paths) on the
+    card."""
     from gibbssampler_tpu_torch.interop import model_from_numpy
     from gibbssampler_tpu_torch.ops import with_cut_decomposition
-    from gibbssampler_tpu_torch.schemes import ASISGibbs, CenteredGibbs
     from gibbssampler_tpu_torch.schemes.gibbs import GibbsState
     lmax, nch = 16, 4
     cbins = np.array([2, 4, 7, 11, 17])
     abins = [np.arange(2, lmax + 2), np.array([2, 3, 4, 5, 6, 7, 8, 9, 10,
                                                12, 15, 17])]
     ablocks = [[(0, lmax - 1)], [(0, 4)] + [(i, i + 1) for i in range(4, 11)]]
-    opts = {"n_gibbs": 1, "tau": 0.02}
-    kinds = {"centered": "band", "asis": "band", "asis holey": "holey",
-             "asis healpix holey": "healpix"}
-    for name, kind in kinds.items():
-        arrays, dls = small_dataset(torch, lmax, kind)
-        bins = [cbins, cbins] if name == "centered" else abins
+    data = {}
+    for name, (mask, kind, cr) in SMALL_STEPS.items():
+        if mask not in data:
+            data[mask] = small_dataset(torch, lmax, mask)
+        arrays, dls = data[mask]
+        bins = [cbins, cbins] if kind == "centered" else abins
         dl0 = [np.tile([d[lo:hi].mean() for lo, hi in zip(b[:-1], b[1:])],
                        (nch, 1)) for d, b in zip(dls, bins)]
+        sig = [0.3 * d[0] for d in dl0]
         rng = np.random.default_rng(3)
         outs = []
         for device in ("cpu", dev):
             model = with_cut_decomposition(model_from_numpy(arrays, device))
-            check(model.has_sparse == (kind != "band"),
+            check(model.has_sparse == (mask != "band"),
                   f"small {name} step: sparse split {model.has_sparse}")
-            if name == "centered":
-                scheme = CenteredGibbs(model, bins, cr_method="aux_mala",
-                                       cr_options=opts)
-            else:
-                scheme = ASISGibbs(model, bins, ablocks,
-                                   [0.3 * d[0] for d in dl0],
-                                   cr_method="aux_mala", cr_options=opts)
-                check(scheme._use_cut_mh, "small ASIS step off the table "
-                      "engine")
-                if kind == "healpix":
-                    plan = scheme.mh_plan
-                    check(plan.ph_c is not None
-                          and all(c.lnyq is not None for c in plan.chunks),
-                          "small HEALPix ASIS step off the table engine's "
-                          "ring-phase and Nyquist paths")
+            scheme = small_scheme(torch, model, name, kind, cr, bins,
+                                  ablocks, sig)
             t = lambda a: torch.as_tensor(a, dtype=torch.float64,
                                           device=device)
             if not outs:
                 var = scheme.var_cls(tuple(t(d) for d in dl0)).cpu().numpy()
                 s0 = np.sqrt(var) * rng.normal(size=var.shape)
-                pool = {"state": rng.normal(size=(nch, 2, 2, model.nstate)),
-                        "aux": rng.normal(size=(nch, 1)
-                                          + tuple(model.w_cut.shape))}
-                if model.has_sparse:
-                    pool["sp"] = rng.normal(size=(nch, 1)
-                                            + tuple(model.w_sp.shape))
-                inj = {"noise": pool,
-                       "u": rng.uniform(size=nch),
-                       "gammas": [rng.gamma(3.0, size=(nch, len(b) - 1))
-                                  for b in bins]}
-                if name != "centered":
+                pool = {k: rng.normal(size=tuple(v.shape)) for k, v in
+                        scheme.draw_noise_pool(nch).items()}
+                inj = {"noise": pool, "u": rng.uniform(size=nch)}
+                if kind != "noncentered":
+                    inj["gammas"] = [rng.gamma(3.0, size=(nch, len(b) - 1))
+                                     for b in bins]
+                if kind != "centered":
                     ntot = sum(len(b) - 1 for b in bins)
                     inj["u_prop"] = rng.uniform(size=(nch, 1, ntot))
                     inj["u_acc"] = rng.uniform(size=(nch, 1, sum(
-                        map(len, ablocks))))
+                        map(len, scheme.blocks_list))))
             kw = {k: ({kk: t(vv) for kk, vv in v.items()} if k == "noise"
                       else tuple(t(x) for x in v) if k == "gammas"
                       else t(v)) for k, v in inj.items()}
@@ -526,16 +617,18 @@ def phase_small_steps(torch, dev):
             outs.append([x.cpu().numpy() for x in out])
         worst = 0.0
         for a, b in zip(*outs):
-            err = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-300))
-            worst = max(worst, err)
+            if a.size:     # PNCP's EE has no MH block
+                err = float(np.abs(a - b).max()
+                            / max(np.abs(a).max(), 1e-300))
+                worst = max(worst, err)
         check(worst <= 1e-9, f"small {name} step card vs CPU rel err {worst} "
               "> 1e-9")
-        if name != "centered":
-            for a, b in zip(outs[0][4:], outs[1][4:]):
-                check(np.array_equal(a, b), "small ASIS step: MH accepts "
-                      "differ between card and CPU")
-        print(f"small {name} step lmax={lmax} {nch} chains float64: card vs "
-              f"CPU max rel err {worst:.2e}", flush=True)
+        for a, b in zip(outs[0][3:], outs[1][3:]):
+            check(np.array_equal(a, b), f"small {name} step: CR or MH "
+                  "accepts differ between card and CPU")
+        print(f"small {name} step ({cr} CR) lmax={lmax} {nch} chains "
+              f"float64: card vs CPU max rel err {worst:.2e}, CR accepts "
+              f"{outs[0][3].mean():.2f}", flush=True)
 
 
 def phase_dataset(torch, sht):
@@ -743,15 +836,11 @@ def mh_acceptances(out):
             float(mh[1][..., 1:].mean()))
 
 
-def phase_asis_slice(torch, lk, model, dls, dev, card, profile, grid,
-                     mask, cr="aux_mala", per_iter=ASIS_PER_ITER):
-    """The flagship ASIS slice at full width with the tuned record of
-    (grid, mask, cr), ``per_iter`` (synthesis, adjoint) launches per
-    iteration; the MH acceptances of the EE block, the BB big block and
-    the BB singles held to ACCEPT_WINDOW.  Returns (launches, scheme, D_ell
-    start, final state)."""
-    label = f"ASIS {grid} {mask} {cr}"
-    scheme, dl0 = asis_setup(torch, model, dls, grid, mask, cr)
+def run_timed_mh_slice(torch, lk, scheme, dl0, dev, label, per_iter):
+    """``run_slice`` with CUDA events around every ``scheme.mh_step``;
+    checks ``per_iter`` (synthesis, adjoint) launches per timed iteration.
+    Returns run_slice's results and the MH step's mean ms over the timed
+    iterations."""
     mh_events = []
     mh_step = scheme.mh_step
 
@@ -766,13 +855,27 @@ def phase_asis_slice(torch, lk, model, dls, dev, card, profile, grid,
 
     scheme.mh_step = timed_mh_step
     warm, out, wall, launches, timed = run_slice(torch, lk, scheme, dl0, dev)
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del scheme.mh_step
     for name, n, per in zip(("synth", "adj"), timed, per_iter):
         check(n == per * N_TIMED, f"{label} {name} launches in the timed "
               f"run {n}, expected {per} x {N_TIMED}")
     mh_ms = float(np.mean([a.elapsed_time(b)
                            for a, b in mh_events[-N_TIMED:]]))
-    del scheme.mh_step
+    return warm, out, wall, launches, timed, mh_ms
+
+
+def phase_asis_slice(torch, lk, model, dls, dev, card, profile, grid,
+                     mask, cr="aux_mala", per_iter=ASIS_PER_ITER):
+    """The flagship ASIS slice at full width with the tuned record of
+    (grid, mask, cr), ``per_iter`` (synthesis, adjoint) launches per
+    iteration; the MH acceptances of the EE block, the BB big block and
+    the BB singles held to ACCEPT_WINDOW.  Returns (launches, scheme, D_ell
+    start, final state)."""
+    label = f"ASIS {grid} {mask} {cr}"
+    scheme, dl0 = asis_setup(torch, model, dls, grid, mask, cr)
+    warm, out, wall, launches, timed, mh_ms = run_timed_mh_slice(
+        torch, lk, scheme, dl0, dev, label, per_iter)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     bins_list = scheme.bins_list
     acc = check_chains(torch, warm, out, bins_list)
     for f in range(2):
@@ -947,13 +1050,13 @@ def cast_cut_model(torch, model, dtype):
 
 
 def log_ratio_errors(torch, scheme, state, m64, plan64, gen):
-    """|D32 - D64| over all chains, in nats, of the two log-ratios the
-    accept tests compare with a uniform, at the slice's final state: the
-    first big block's candidate (the EE block; D = log L(candidate) - log
-    L(current) of the whitened map) and one MALA move (its MH log-ratio),
-    each in float32 in the form the sampler uses (``CutMHPlan.big_dll``,
-    ``mala_log_ratio``) and in the old form (differences of the two
-    states' totals), against float64 (``m64`` and ``plan64``: the same
+    """|D32 - D64| over all chains, in nats, of the log-ratios the accept
+    tests compare with a uniform, at the slice's final state: the first big
+    block's candidate (the EE block; D = log L(candidate) - log L(current)
+    of the whitened map), one MALA move and one pCN move (beta PCN_BETA;
+    their MH log-ratios), each in float32 in the form the sampler uses
+    (``CutMHPlan.big_dll``, ``mala_log_ratio``, ``pcn_log_ratio``) and in
+    the old form (differences of the two states' totals), against float64 (``m64`` and ``plan64``: the same
     model and MH plan in float64) on the same candidate.  Returns {name:
     (new errors, old errors)}."""
     from gibbssampler_tpu_torch.samplers import cls_samplers as cs
@@ -993,6 +1096,15 @@ def log_ratio_errors(torch, scheme, state, m64, plan64, gen):
     ref = cr_mod.mala_log_ratio(m64, var.to(f64), bt.to(f64), s.to(f64),
                                 s_prop.to(f64), tau)
     out["MALA"] = ((new32.to(f64) - ref).abs(), (old32.to(f64) - ref).abs())
+    # one pCN move: the exact form and the JAX package's difference of the
+    # two states' totals
+    xi = torch.randn(s.shape, generator=gen, dtype=s.dtype, device=s.device)
+    s_prop = cr_mod.pcn_cr(model, var, bt, s, beta=PCN_BETA, noise={
+        "state": xi[:, None]}, u=torch.zeros(s.shape[0], device=s.device))[0]
+    new32, old32 = (cr_mod.pcn_log_ratio(model, s, s_prop, exact=e)
+                    for e in (True, False))
+    ref = cr_mod.pcn_log_ratio(m64, s.to(f64), s_prop.to(f64))
+    out["pCN"] = ((new32.to(f64) - ref).abs(), (old32.to(f64) - ref).abs())
     return {k: tuple(e.cpu().numpy() for e in v) for k, v in out.items()}
 
 
@@ -1075,6 +1187,263 @@ def phase_mh_sweep(torch, scheme, state, dev, card, label="", nch=4):
     return lr_err
 
 
+def phase_pncp_slice(torch, lk, model, dls, dev, card):
+    """bench.py's PNCP configuration (``flagship.pncp_setup``, the port's
+    tuned record of (pncp, gl, band, aux_mala, l_cut)) at full width: the
+    initial draw, N_WARM warm-up and N_TIMED timed iterations of NCHAINS
+    chains; exact launch counts per iteration, the BB singles' MH
+    acceptance held to ACCEPT_WINDOW.  Returns (launches, scheme, final
+    state)."""
+    from gibbssampler_tpu_torch import flagship
+    label = "PNCP GL band aux_mala"
+    t0 = time.time()
+    scheme, dl0 = flagship.pncp_setup(model, dls, "gl", "band", "aux_mala")
+    check(tuple(len(b) - 1 for b in scheme.bins_list) == ASIS_NBINS
+          and scheme.l_cut == PNCP_LCUT and scheme.blocks_list[0] == ()
+          and len(scheme.blocks_list[1]) == PNCP_SINGLES
+          and all(hi - lo == 1 for lo, hi in scheme.blocks_list[1]),
+          f"PNCP bins, l_cut and blocks: l_cut {scheme.l_cut}, "
+          f"{len(scheme.blocks_list[1])} BB blocks")
+    plan = scheme.mh_plan
+    check(scheme._use_cut_mh and plan.lowm is not None
+          and plan.big_rows == [], "PNCP off the table engine's identity "
+          "re-centering, or with a big block")
+    torch.cuda.synchronize()
+    print(f"{label} scheme set-up (l_cut {scheme.l_cut}, "
+          f"{len(plan.chunks)} singles chunks, the tuned record): "
+          f"{time.time() - t0:.1f} s", flush=True)
+    warm, out, wall, launches, _, mh_ms = run_timed_mh_slice(
+        torch, lk, scheme, dl0, dev, label, PNCP_PER_ITER)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    acc = check_chains(torch, warm, out, scheme.bins_list)
+    mh = [out["mh_accept"][f].cpu().numpy() for f in range(2)]
+    check(mh[0].shape == (NCHAINS, N_TIMED, 0)
+          and mh[1].shape == (NCHAINS, N_TIMED, PNCP_SINGLES),
+          f"PNCP mh_accept shapes {mh[0].shape}, {mh[1].shape}")
+    singles = float(mh[1].mean())
+    lo, hi = ACCEPT_WINDOW
+    check(lo <= singles <= hi, f"{label} MH acceptance of the BB singles "
+          f"{singles:.4f} outside [{lo}, {hi}]")
+    ess_s, bb_tail, per_chain = ess_metrics(out, scheme.bins_list, wall)
+    print(f"slice lmax={LMAX} {NCHAINS} chains {label} (EE centered, BB "
+          f"non-centered from l = {scheme.l_cut[1]}): "
+          f"{wall / N_TIMED * 1e3:.2f} ms/iter over {N_TIMED} iterations; "
+          f"MH step {mh_ms:.2f} ms/iter (CUDA events) [{card}]", flush=True)
+    print(f"{label} acceptance: CR {acc:.4f}; MH BB singles {singles:.4f} "
+          f"(in [{lo}, {hi}]) [{card}]", flush=True)
+    print(f"{label} ESS ({N_TIMED} iterations, burn 20%): median pooled "
+          f"ESS/s {ess_s:.3f}; bb_tail_ess_per_s {bb_tail:.3f}; "
+          f"per_chain_ess_per_iter {per_chain:.5f}; peak device memory "
+          f"{peak:.2f} GiB [{card}]", flush=True)
+    print(f"launches in the {label} path: legendre_synth_tri {launches[0]}, "
+          f"legendre_adj_tri {launches[1]} ({PNCP_PER_ITER[0]} and "
+          f"{PNCP_PER_ITER[1]} per iteration)", flush=True)
+    return launches, scheme, out["final_state"]
+
+
+def phase_pncp_sweep(torch, scheme, state, dev, card, nch=4):
+    """One PNCP MH sweep at full width in float64 (the slice's bins, blocks
+    and sigmas; its final state's high-l whitened maps of ``nch`` chains):
+    the table engine with the identity re-centering below l_cut against
+    the direct nc_cls_sample on the PNCP likelihood (prior variance 1
+    below l_cut), on the same injected uniforms."""
+    from gibbssampler_tpu_torch.samplers import cls_samplers as cs
+    f64 = torch.float64
+    t0 = time.time()
+    m64 = cast_cut_model(torch, scheme.model, f64)
+    bins, blocks, sig = (scheme.bins_list, scheme.blocks_list,
+                         scheme.prop_sigma_list)
+    dl = tuple(d[:nch].to(f64) for d in state.dl)
+    var_h = scheme._var_high(dl, f64)
+    s_pnc = state.s[:nch].to(f64) * torch.where(
+        var_h > 0, 1.0 / torch.sqrt(torch.where(var_h > 0, var_h, 1.0)), 0.0)
+    plan = cs.CutMHPlan(m64, bins, blocks, sig, l_cut_identity=scheme.l_cut,
+                        dtype=f64)
+    like = cs.NCLogLike(m64, bins, "cut", var_fn=scheme._var_high)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ntot, nblocks = sum(len(b) - 1 for b in bins), sum(map(len, blocks))
+    up = torch.rand((nch, 1, ntot), generator=gen, dtype=f64, device=dev)
+    ua = torch.rand((nch, 1, nblocks), generator=gen, dtype=f64, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    fast = cs.nc_cls_sample_cut(dl, s_pnc, m64, bins, blocks, sig, u_prop=up,
+                                u_acc=ua, plan=plan)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    direct = cs.nc_cls_sample(dl, s_pnc, like, bins, blocks, sig, u_prop=up,
+                              u_acc=ua)
+    torch.cuda.synchronize()
+    t3 = time.time()
+    err = max(float(((a - b).abs() / b.abs()).max())
+              for a, b in zip(fast[0], direct[0]))
+    check(err <= 1e-9, f"full-width PNCP MH sweep: table engine vs direct "
+          f"D_ell rel err {err} > 1e-9")
+    for f in range(2):
+        check(torch.equal(fast[1].accept[f], direct[1].accept[f]),
+              f"full-width PNCP MH sweep: accepts of field {f} differ")
+    dll_end = float((fast[1].log_like - direct[1].log_like).abs().max())
+    acc = fast[1].accept[1].cpu().numpy()
+    print(f"PNCP MH sweep lmax={LMAX} {nch} chains float64 "
+          f"({len(plan.chunks)} chunks, {nblocks} blocks, l_cut_identity "
+          f"{scheme.l_cut}): table engine vs direct D_ell max rel err "
+          f"{err:.2e}, accepts equal (mean {acc.mean():.4f}), final "
+          f"log-likelihood |diff| {dll_end:.2e}; table engine "
+          f"{(t2 - t1) * 1e3:.1f} ms, direct {(t3 - t2) * 1e3:.1f} ms "
+          f"(set-up {t1 - t0:.1f} s) [{card}]", flush=True)
+
+
+def counts(lk):
+    """(float32 synthesis, float32 adjoint, float64 synthesis, float64
+    adjoint) launches since the counts were last set to 0."""
+    s, a = lk.legendre_synth_tri, lk.legendre_adj_tri
+    return (s.launches - s.launches_f64, a.launches - a.launches_f64,
+            s.launches_f64, a.launches_f64)
+
+
+def cuda_ms(torch, fn):
+    """(fn(), its ms between two CUDA events)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return out, ev[0].elapsed_time(ev[1])
+
+
+def phase_cg(torch, lk, dev, card):
+    """The CG family at full width: the band dataset in float64 (GL 513 x
+    1026, cut over 65 rings), CG_CHAINS chains, the prior of the true
+    spectrum in unit bins (tools/cg_scale.py's set-up).  cg_cr at each of
+    CG_TOLS (per-chain iterations, all converged, ms per solve and per
+    iteration, launches = 2 + 2 per iteration, the true residual
+    recomputed); rjpo_cr at 1e-5 from the 1e-6 draw (its acceptance); the
+    mixed ladder (cg_solve with a float32 apply on the 3xTF32 kernels,
+    float64 vectors, the float64 apply for the true residuals, replacement
+    every CG_REPLACE_EVERY) at each tolerance; and a CenteredGibbs slice
+    with cr_method "cg": the initial draw and CG_SLICE_ITERS iterations.
+    The launch counts are set to 0 before and read after; returns them
+    (``counts``)."""
+    from gibbssampler_tpu_torch import flagship
+    from gibbssampler_tpu_torch.ops import cg_solve
+    from gibbssampler_tpu_torch.samplers import cr as cr_mod
+    from gibbssampler_tpu_torch.schemes import CenteredGibbs
+    f64 = torch.float64
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the mixed ladder's float32 apply must run in true float32")
+    t0 = time.time()
+    m64, dls, _ = flagship.dataset("gl", "band", LMAX, dev, f64)
+    check(m64.cut_sht.nrings == CUT_RINGS and m64.cut_sht.dtype == f64,
+          "CG phase: the float64 cut decomposition")
+    ubins = np.arange(2, LMAX + 2)
+    scheme = CenteredGibbs(m64, [ubins, ubins], cr_method="cg",
+                           cr_options={"cg_maxiter": CG_MAXITER})
+    dl0 = tuple(d[2:] for d in dls)
+    var = scheme.var_cls(tuple(torch.as_tensor(d, dtype=f64, device=dev)
+                               .expand(CG_CHAINS, -1) for d in dl0))
+    bt = scheme.bt_ninv_d
+    inv = torch.where(var > 0, 1.0 / torch.where(var > 0, var, 1.0), 0.0)
+    pre = cr_mod.cr_precond(m64, var)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    pool = scheme.draw_noise_pool(CG_CHAINS, gen)
+    m32 = cast_cut_model(torch, m64, torch.float32)
+    inv32 = inv.float()
+    n_hi = [0]
+
+    def op64(v):
+        n_hi[0] += 1
+        return m64.q_apply_cut(v, inv)
+
+    def op32(v):
+        return m32.q_apply_cut(v, inv32)
+
+    def true_resid(b, x):
+        r = b - m64.q_apply_cut(x, inv)
+        return (r.norm(dim=(-2, -1)) / b.norm(dim=(-2, -1))).cpu().numpy()
+
+    torch.cuda.synchronize()
+    print(f"CG phase set-up (float64 band dataset, cut over "
+          f"{m64.cut_sht.nrings} rings, {CG_CHAINS} chains; float32 cut "
+          f"operator): {time.time() - t0:.1f} s", flush=True)
+    lk.reset_launch_counts()
+    b = cr_mod.fluctuated_rhs(m64, var, bt, noise=pool)
+    draws = {}
+    for tol in CG_TOLS:
+        before = counts(lk)
+        (x, info), ms = cuda_ms(torch, lambda: cr_mod.cg_cr(
+            m64, var, bt, tol=tol, maxiter=CG_MAXITER, noise=pool))
+        d = tuple(a - c for a, c in zip(counts(lk), before))
+        its = info.extra.cpu().numpy().astype(np.int64)
+        n = int(its.max())
+        check(d == (0, 0, 2 * n, 2 + 2 * n), f"cg_cr tol {tol}: launches "
+              f"{d}, expected (0, 0, 2 x {n}, 2 + 2 x {n})")
+        check((its < CG_MAXITER).all(), f"cg_cr tol {tol}: chains at the "
+              f"cap of {CG_MAXITER} iterations: {its}")
+        res = true_resid(b, x)
+        check(res.max() <= 2 * tol, f"cg_cr tol {tol}: true residual "
+              f"{res.max():.3g} > 2 x tol")
+        draws[tol] = x
+        print(f"CG float64 tol {tol:g}: iterations max {n}, median "
+              f"{float(np.median(its)):.1f} (the JAX package's record, "
+              f"lockstep max over 8 chains: {CG_JAX_ITERS[tol]}), every "
+              f"chain converged; {ms:.1f} ms per solve of {CG_CHAINS} chains, "
+              f"{ms / n:.3f} ms per iteration; true ||b - Qx||/||b|| max "
+              f"{res.max():.3g}; launches synthesis {d[2]}, adjoint {d[3]} "
+              f"(float64 kernels) [{card}]", flush=True)
+    before = counts(lk)
+    (_, rinfo), ms = cuda_ms(torch, lambda: cr_mod.rjpo_cr(
+        m64, var, bt, draws[CG_TOLS[-1]], tol=1e-5, maxiter=CG_MAXITER,
+        noise=scheme.draw_noise_pool(CG_CHAINS, gen), gen=gen))
+    d = tuple(a - c for a, c in zip(counts(lk), before))
+    # fluctuated_rhs's full-grid adjoint, then the start's residual, the
+    # iterations and the final residual: one cut synthesis and adjoint each
+    n_rj = d[2] // 2 - 2
+    check(d[:2] == (0, 0) and d[2] % 2 == 0 and d[3] == d[2] + 2,
+          f"rjpo_cr launches {d}")
+    racc = rinfo.accept.cpu().numpy()
+    print(f"RJPO float64 tol 1e-5 from the tol-1e-6 CG draw: acceptance "
+          f"{racc.mean():.4f} ({int(racc.sum())} of {CG_CHAINS}); "
+          f"log-ratio median {float(rinfo.extra.median()):.3g}; {ms:.1f} ms, "
+          f"{n_rj} iterations by the launch count [{card}]", flush=True)
+    for tol in CG_TOLS:
+        before, n_hi[0] = counts(lk), 0
+        (x, info), ms = cuda_ms(torch, lambda: cg_solve(
+            op32, b, precond_diag=pre, tol=tol, maxiter=CG_MAXITER,
+            ndim_sys=2, apply_dtype=torch.float32, operator_hi=op64,
+            replace_every=CG_REPLACE_EVERY))
+        d = tuple(a - c for a, c in zip(counts(lk), before))
+        its = info.iterations.cpu().numpy()
+        n = int(its.max())
+        check(d == (2 * n, 2 * n, 2 * n_hi[0], 2 * n_hi[0]),
+              f"mixed ladder tol {tol}: launches {d}, expected 2 x {n} "
+              f"float32 and 2 x {n_hi[0]} float64")
+        res = true_resid(b, x)
+        conv = info.converged.cpu().numpy()
+        print(f"CG mixed ladder (float32 apply, float64 vectors, "
+              f"replacement every {CG_REPLACE_EVERY}) tol {tol:g}: "
+              f"iterations max {n}, median {float(np.median(its)):.1f}; "
+              f"converged {int(conv.sum())} of {CG_CHAINS}; {ms:.1f} ms per "
+              f"solve, {ms / n:.3f} ms per iteration; {n_hi[0]} float64 "
+              f"applies; true ||b - Qx||/||b|| max {res.max():.3g} [{card}]",
+              flush=True)
+    before = counts(lk)
+    out, ms = cuda_ms(torch, lambda: scheme.run(
+        dl0, n_iter=CG_SLICE_ITERS, nchains=CG_CHAINS, gen=gen))
+    d = tuple(a - c for a, c in zip(counts(lk), before))
+    for f in range(2):
+        dl = out["dl_chains"][f].cpu().numpy()
+        check(dl.shape == (CG_CHAINS, CG_SLICE_ITERS, len(ubins) - 1)
+              and np.isfinite(dl).all() and (dl > 0).all(),
+              f"CG slice dl_chains[{f}]: shape {dl.shape} or non-finite")
+    launches = counts(lk)
+    print(f"CenteredGibbs cg slice float64 ({CG_CHAINS} chains, the initial "
+          f"draw and {CG_SLICE_ITERS} iterations, cg_tol 1e-6): {ms:.1f} ms, "
+          f"{ms / (CG_SLICE_ITERS + 1):.1f} ms per CG draw; launches "
+          f"synthesis {d[2]}, adjoint {d[3]}; the CG path's launches "
+          f"float32 {launches[:2]}, float64 {launches[2:]} [{card}]",
+          flush=True)
+    return launches
+
+
 def main():
     t_start = time.time()
     import torch
@@ -1096,7 +1465,7 @@ def main():
     from gibbssampler_tpu_torch import flagship
 
     phase_build(lk)
-    rec = phase_kernels(torch, lk, dev, card)
+    rec, rec64 = phase_kernels(torch, lk, dev, card)
     hp_mask = flagship.healpix_planckish_mask(NSIDE)
     sht = phase_sht(torch, dev, hp_mask)
     phase_small_steps(torch, dev)
@@ -1112,7 +1481,14 @@ def main():
         torch, lk, model, dls, dev, card, profile, "gl", "band",
         cr="overrelax", per_iter=OVERRELAX_PER_ITER)[0]
     launches["adaptation"] = phase_adapt(torch, lk, scheme, dl0, dev, card)
+    del scheme, state
+    launches["PNCP GL band"], scheme, state = phase_pncp_slice(
+        torch, lk, model, dls, dev, card)
+    phase_pncp_sweep(torch, scheme, state, dev, card)
     del model, scheme, state
+    torch.cuda.empty_cache()
+    cg_launches = phase_cg(torch, lk, dev, card)
+    launches["CG"] = cg_launches[:2]
     torch.cuda.empty_cache()
     model, dls = phase_planckish_dataset(torch, sht)
     launches["ASIS GL planckish"], scheme, _, state = phase_asis_slice(
@@ -1128,26 +1504,38 @@ def main():
         per_iter=HEALPIX_PER_ITER)
     lr_err["HEALPix planckish"] = phase_mh_sweep(
         torch, scheme, state, dev, card, label=" HEALPix planckish")
-    # the exact log-ratios: at most a tenth of the old form's rounding
+    # the exact log-ratios: at most a tenth of the old form's rounding; the
+    # pCN one under PCN_EXACT_LIMIT nats
     for cfg, errs in lr_err.items():
         for what, (new, old) in errs.items():
             check(np.median(new) <= 0.1 * np.median(old),
                   f"{cfg} {what} log-ratio: float32 rounding median "
                   f"{np.median(new):.3g} nats, not a tenth of the old "
                   f"form's {np.median(old):.3g}")
-    launches = [sum(n) for n in zip(*launches.values())]
+        new = errs["pCN"][0]
+        check(new.max() <= PCN_EXACT_LIMIT, f"{cfg} pCN exact log-ratio: "
+              f"float32 rounding max {new.max():.3g} > {PCN_EXACT_LIMIT}")
+    launches = [sum(n) for n in zip(*launches.values())] + list(
+        cg_launches[2:])
 
-    src = "gibbssampler_tpu_torch/csrc/legendre_tri.cu"
     kernels = []
+    # (name, TPU source line, kernel source, records, launches): the
+    # float32 kernels' top-level times are those at the band's cut rings,
+    # the float64 kernels' those at the CG phase's cut rings and chains;
+    # every main-path row count is listed under "by_nr"
     for i, (name, line) in enumerate((("legendre_synth_tri", 52),
                                       ("legendre_adj_tri", 106))):
-        # the top-level times are those at the band's cut rings; every
-        # main-path row count is listed under "by_nr"
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": "gibbssampler_tpu/sht/pallas_legendre.py:"
-                                    f"{line}",
-                        "launches": launches[i], **rec[name][CUT_RINGS],
-                        "by_nr": {str(nr): r for nr, r in rec[name].items()}})
+        for src, recs, n in (
+                ("gibbssampler_tpu_torch/csrc/legendre_tri.cu", rec,
+                 launches[i]),
+                ("gibbssampler_tpu_torch/csrc/legendre_tri_f64.cu", rec64,
+                 launches[2 + i])):
+            kernels.append({
+                "name": name if recs is rec else f"{name}_f64",
+                "route": "cuda", "source": src,
+                "replaces": f"gibbssampler_tpu/sht/pallas_legendre.py:{line}",
+                "launches": n, **recs[name][CUT_RINGS],
+                "by_nr": {str(nr): r for nr, r in recs[name].items()}})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched by the main path")
     print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "

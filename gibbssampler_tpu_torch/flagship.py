@@ -1,5 +1,6 @@
-"""bench.py's flagship ASIS configurations on the port: the counterpart of
-``bench.py``'s ``build()`` (bench.py:141-355) with BENCH_SCHEME=asis.
+"""bench.py's flagship configurations on the port: the counterpart of
+``bench.py``'s ``build()`` (bench.py:141-355) with BENCH_SCHEME=asis and
+BENCH_SCHEME=pncp.
 
 A polarized E/B sky (``example_dl``, amp 1000) at lmax 512, noise
 variance 0.2^2 per pixel, a 0.5 deg beam, float32, simulated from a seed
@@ -14,13 +15,17 @@ and cut-decomposed, on one of
 
 sampled by ``ASISGibbs`` with bench.py's bins and blocks (EE unit bins in
 one block; BB unit bins to l = 396 then 16 wide bins, a 277-bin block and
-133 single-bin blocks) and one of its two CR methods (``CR_OPTIONS``).
+133 single-bin blocks), or by ``PNCPGibbs`` on the same bins with a
+per-field l_cut (bench.py's BENCH_LCUT, default "none,300": EE fully
+centered with no block, BB single-bin blocks from l = 300), and one of
+bench.py's two CR methods (``CR_OPTIONS``).
 The proposal scales come from the port's tuned records
 (``tuned_proposals.json`` beside this file, written by
 ``python -m gibbssampler_tpu_torch.tune``), keyed by scheme, grid, mask,
-lmax, bin counts and CR method; a missing record raises ``LookupError``.
-``seed=True`` takes bench.py's analytic seeds instead (bench.py:273-276),
-which is where the tuner starts.  Below lmax 396 the bins follow
+lmax, bin counts, CR method and (PNCP) l_cut; a missing record raises
+``LookupError``.  ``seed=True`` takes bench.py's analytic seeds instead
+(bench.py:273-276, divided by sqrt(block width) for PNCP, bench.py:337-
+345), which is where the tuner starts.  Below lmax 396 the bins follow
 bench.py's smoke-test rule (unit BB bins, a big block of 2/3 of them).
 """
 
@@ -34,14 +39,15 @@ import torch
 from .inference import example_dl, simulate_dataset
 from .interop import port_tuned_proposal_sigmas
 from .ops import with_cut_decomposition
-from .parallel.adapt import analytic_proposal_sigma
-from .schemes import ASISGibbs, CenteredGibbs
+from .parallel.adapt import analytic_proposal_sigma, block_widths
+from .schemes import ASISGibbs, CenteredGibbs, PNCPGibbs
 from .sht import galactic_band_mask, make_healpix_sht, make_sht, pix2ang_ring
 
 __all__ = ["RECORDS", "GRIDS", "MASKS", "CR_OPTIONS", "planckish_mask",
            "healpix_planckish_mask", "planck_bins", "binned_mean",
            "flagship_sht", "flagship_mask", "dataset", "asis_bins_blocks",
-           "analytic_sigmas", "asis_setup", "start_state", "build"]
+           "analytic_sigmas", "asis_setup", "PNCP_LCUT", "pncp_bins_blocks",
+           "pncp_setup", "start_state", "build"]
 
 RECORDS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "tuned_proposals.json")
@@ -57,6 +63,8 @@ BB_UNIT_TO = 396
 BB_WIDE = [396, 398, 400, 402, 406, 410, 415, 420, 425, 430, 435, 440, 445,
            460, 475, 495]
 BB_BIG = 277
+# bench.py's default BENCH_LCUT: EE fully centered, BB non-centered from 300
+PNCP_LCUT = ("none", 300)
 
 
 def planckish_mask(grid, nholes=200, seed=5):
@@ -206,6 +214,45 @@ def asis_setup(model, dls, grid: str, mask: str, cr: str = "aux_mala",
     return scheme, dl0
 
 
+def pncp_bins_blocks(lmax: int, lcut=PNCP_LCUT):
+    """bench.py's PNCP configuration (bench.py:324-336): the ASIS bins, the
+    per-field l_cut ("none" is the field's last bin edge: fully centered)
+    and the blocks above it, one joint EE block (none when EE is fully
+    centered) and BB single-bin blocks.  Returns (bins, l_cut, blocks);
+    ValueError when an l_cut is not a bin boundary."""
+    bins, _ = asis_bins_blocks(lmax)
+    lc = [int(b[-1]) if c == "none" else int(c) for c, b in zip(lcut, bins)]
+    cbs = [int(np.searchsorted(b, c)) for b, c in zip(bins, lc)]
+    if any(cb >= len(b) or b[cb] != c for b, c, cb in zip(bins, lc, cbs)):
+        raise ValueError(f"lcut={lcut}: {lc} must be bin boundaries")
+    nb_ee, nb_bb = len(bins[0]) - 1, len(bins[1]) - 1
+    blocks = [[] if cbs[0] >= nb_ee else [(cbs[0], nb_ee)],
+              [(i, i + 1) for i in range(cbs[1], nb_bb)]]
+    return bins, lc, blocks
+
+
+def pncp_setup(model, dls, grid: str, mask: str, cr: str = "aux_mala",
+               seed: bool = False, records=RECORDS, lcut=PNCP_LCUT):
+    """bench.py's PNCPGibbs scheme on ``model`` and its D_ell start: the
+    port's tuned record for (grid, mask, cr, l_cut), or with ``seed`` the
+    analytic seeds divided by sqrt(block width)."""
+    if cr not in CR_OPTIONS:
+        raise ValueError(f"cr={cr!r}; one of {tuple(CR_OPTIONS)}")
+    lmax = model.lmax
+    bins, lc, blocks = pncp_bins_blocks(lmax, lcut)
+    if seed:
+        sig = [s / np.sqrt(block_widths(bl, len(s)))
+               for s, bl in zip(analytic_sigmas(model, bins), blocks)]
+    else:
+        sig = port_tuned_proposal_sigmas(records, "pncp", grid, mask, lmax,
+                                         [len(b) - 1 for b in bins], cr,
+                                         l_cut=lc)
+    scheme = PNCPGibbs(model, bins, blocks, sig, l_cut=lc, n_iter_mh=1,
+                       cr_method=cr, cr_options=CR_OPTIONS[cr])
+    dl0 = tuple(binned_mean(d, b) for d, b in zip(dls, bins))
+    return scheme, dl0
+
+
 def start_state(scheme, dl0, nchains: int, gen=None):
     """The chains' start at ``dl0``: the scheme's initial CR draw, but for
     the overrelaxed CR the aux_mala draw (bench.py's default CR).  From
@@ -222,8 +269,13 @@ def start_state(scheme, dl0, nchains: int, gen=None):
 
 def build(grid: str, mask: str, cr: str = "aux_mala", device="cuda",
           lmax: int = 512, seed: bool = False, records=RECORDS,
-          dtype=torch.float32):
-    """The flagship ASIS scheme for (grid, mask, cr) on its dataset and its
-    D_ell start: (scheme, dl0)."""
+          dtype=torch.float32, scheme: str = "asis", lcut=PNCP_LCUT):
+    """bench.py's ``scheme`` ("asis" or "pncp", with its per-field
+    ``lcut``) for (grid, mask, cr) on its dataset, and its D_ell start:
+    (scheme, dl0)."""
+    if scheme not in ("asis", "pncp"):
+        raise ValueError(f"scheme={scheme!r}; one of asis, pncp")
     model, dls, _ = dataset(grid, mask, lmax, device, dtype)
+    if scheme == "pncp":
+        return pncp_setup(model, dls, grid, mask, cr, seed, records, lcut)
     return asis_setup(model, dls, grid, mask, cr, seed, records)

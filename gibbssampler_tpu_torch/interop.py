@@ -97,24 +97,28 @@ def tuned_proposal_sigmas(path, scheme: str, grid: str, lmax: int,
 
 
 # the fields that identify one of the port's tuned records
-RECORD_KEYS = ("scheme", "grid", "mask", "lmax", "nbins", "cr")
+RECORD_KEYS = ("scheme", "grid", "mask", "lmax", "nbins", "cr", "l_cut")
 
 
 def record_key(scheme: str, grid: str, mask: str, lmax: int, nbins,
-               cr: str) -> dict:
+               cr: str, l_cut=None) -> dict:
     """The identifying fields (``RECORD_KEYS``) of one of the port's tuned
-    records."""
+    records; ``l_cut`` (PNCP, one value per field) is None for ASIS."""
     return dict(zip(RECORD_KEYS, (scheme, grid, mask, int(lmax),
-                                  [int(n) for n in nbins], cr)))
+                                  [int(n) for n in nbins], cr,
+                                  None if l_cut is None
+                                  else [int(c) for c in l_cut])))
 
 
 def port_tuned_proposal_sigmas(path, scheme: str, grid: str, mask: str,
-                               lmax: int, nbins, cr: str) -> list:
+                               lmax: int, nbins, cr: str,
+                               l_cut=None) -> list:
     """The per-field proposal std devs of the port's record of ``path``
-    whose scheme, grid, mask, lmax, per-field bin counts and CR method all
-    match, as float64 arrays.  Raises ``LookupError`` when none matches; it
-    never falls back to another record or scale."""
-    key = record_key(scheme, grid, mask, lmax, nbins, cr)
+    whose scheme, grid, mask, lmax, per-field bin counts, CR method and
+    l_cut all match (a record without l_cut has None), as float64 arrays.
+    Raises ``LookupError`` when none matches; it never falls back to
+    another record or scale."""
+    key = record_key(scheme, grid, mask, lmax, nbins, cr, l_cut)
     for rec in _records(path):
         if all(rec.get(k) == v for k, v in key.items()):
             return [np.asarray(x, dtype=np.float64) for x in rec["sig"]]

@@ -106,6 +106,11 @@ class NoiseModel:
         area = torch.broadcast_to(self.q_map, self.tau.shape[1:])
         return (occ * area).sum(dim=self._pix_axes) / area.sum()
 
+    def harmonic_white_level(self) -> torch.Tensor:
+        """(nfields,) g such that A^T N^-1 A = g I when the mask is trivial
+        and tau is uniform: g = tau / omega."""
+        return self.tau_max / self.omega
+
     def field_bcast(self, v: torch.Tensor) -> torch.Tensor:
         """Broadcast a (nfields,) vector over the pixel axes."""
         return v.reshape(v.shape + (1,) * self.pix_ndim)

@@ -104,9 +104,11 @@ def rescale_sigmas(sig, out, blocks_list, target_accept=(0.2, 0.5)):
         fac = np.ones(len(sig[f]))
         acc_b = None
         if "mh_accept" in out and blocks_list is not None:
-            # (nchains, n_iter, nblocks_f) -> per-block acceptance
-            acc_b = _host(out["mh_accept"][f]).reshape(
-                -1, len(blocks_list[f])).mean(axis=0)
+            # (nchains, n_iter, nblocks_f) -> per-block acceptance (none
+            # for a field without blocks)
+            nb = len(blocks_list[f])
+            acc_b = (_host(out["mh_accept"][f]).reshape(-1, nb).mean(axis=0)
+                     if nb else np.zeros(0))
             for (blo, bhi), a in zip(blocks_list[f], acc_b):
                 fac[blo:bhi] = factor(float(a))
         elif "mh_accept" in out:

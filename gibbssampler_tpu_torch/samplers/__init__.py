@@ -1,16 +1,20 @@
 """Conditional samplers: constrained realizations and the C_ell step."""
 
-from .cr import (noise_pool_spec, CRInfo, exact_cr, aux_gibbs_cr,
-                 overrelax_cr, mala_cr, mala_log_ratio, aux_then_mala_cr)
+from .cr import (noise_pool_spec, CRInfo, exact_cr, cg_cr, rjpo_cr,
+                 aux_gibbs_cr, overrelax_cr, mala_cr, mala_log_ratio,
+                 aux_then_mala_cr, pcn_cr, pcn_log_ratio, fluctuated_rhs,
+                 cr_precond)
 from .cls_samplers import (standard_gamma, invgamma_dl, centered_cls_sample,
                            propose_truncnorm, truncnorm_logratio, NCClsInfo,
                            NCLogLike, make_nc_log_likelihood, nc_cls_sample,
                            CutMHPlan,
                            nc_cls_sample_cut, whiten, recenter)
 
-__all__ = ["noise_pool_spec", "CRInfo", "exact_cr", "aux_gibbs_cr",
-           "overrelax_cr", "mala_cr", "mala_log_ratio", "aux_then_mala_cr",
-           "standard_gamma", "invgamma_dl", "centered_cls_sample",
-           "propose_truncnorm", "truncnorm_logratio", "NCClsInfo",
-           "NCLogLike", "make_nc_log_likelihood", "nc_cls_sample", "CutMHPlan",
-           "nc_cls_sample_cut", "whiten", "recenter"]
+__all__ = ["noise_pool_spec", "CRInfo", "exact_cr", "cg_cr", "rjpo_cr",
+           "aux_gibbs_cr", "overrelax_cr", "mala_cr", "mala_log_ratio",
+           "aux_then_mala_cr", "pcn_cr", "pcn_log_ratio", "fluctuated_rhs",
+           "cr_precond", "standard_gamma", "invgamma_dl",
+           "centered_cls_sample", "propose_truncnorm", "truncnorm_logratio",
+           "NCClsInfo", "NCLogLike", "make_nc_log_likelihood",
+           "nc_cls_sample", "CutMHPlan", "nc_cls_sample_cut", "whiten",
+           "recenter"]

@@ -30,9 +30,11 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..harmonics.gridstate import (alm2cl_state, almxfl_state, state_masks,
+from ..harmonics.gridstate import (alm2cl_state, almxfl_state,
+                                   expand_cl_state, state_masks,
                                    variance_expansion_state)
 from ..harmonics.spectra import bin_sum, dl_to_cl_factor, unfold_bins
+from ..ops.model import sum_last_f64
 from ..sht.transform import SPIN2_SINGLE_SIGNS
 
 __all__ = ["standard_gamma", "invgamma_dl", "centered_cls_sample",
@@ -153,58 +155,101 @@ def recenter(s_nc, dl_tuple, bins_list, lmax):
 
 class NCLogLike:
     """log L(dl_tuple; s_nc) of the non-centered parametrization, one value
-    per chain, through the cut-sky complement identity: calling it gives
-    the total (``SkyModel.data_loglike_cut``); ``at`` and ``delta`` give
-    the total and then exact log-ratios between spectra
-    (``SkyModel.data_loglike_cut_delta``), carrying the beam-applied state
-    u = B sqrt(var(dl)) s_nc and its cut (and hole) maps."""
+    per chain, as a function of u = B sqrt(var(dl)) s_nc.  Calling it gives
+    the total; ``at`` and ``delta`` give the total and then exact
+    log-ratios between spectra, carrying u and its maps.  Three forms:
 
-    def __init__(self, model, bins_list):
+    - "cut": the cut-sky complement identity (``SkyModel.data_loglike_cut``
+      and ``data_loglike_cut_delta``), maps = the cut (and hole) maps;
+    - "pix": the full grid's -1/2 sum N^-1 (d - A u)^2, maps = (A u,);
+    - "sph": the harmonic form on the full sky, -g/2 sum (d_alm - u)^2 with
+      g = ``noise.harmonic_white_level()``, no maps.
+
+    Each delta is formed term by term from the move's own synthesis and
+    reduced in float64 beyond the last axis (``sum_last_f64``).
+    ``var_fn(dl_tuple, dtype)``: the prior variance (default C(dl); the
+    PNCP scheme's is 1 below l_cut)."""
+
+    def __init__(self, model, bins_list, kind="cut", d_alm=None,
+                 var_fn=None):
+        if kind not in ("cut", "pix", "sph"):
+            raise ValueError(f"kind={kind!r}; one of cut, pix, sph")
+        if kind == "sph" and d_alm is None:
+            raise ValueError("all_sph likelihood needs precomputed d_alm")
         self.model = model
         self.bins_list = bins_list
+        self.kind = kind
+        self.d_alm = d_alm
+        self.var_fn = var_fn or (lambda dl, dt: _dl_tuple_to_var(
+            dl, bins_list, model.lmax, dt))
 
     def _u(self, dl_tuple, s_nc):
-        var = _dl_tuple_to_var(dl_tuple, self.bins_list, self.model.lmax,
-                               s_nc.dtype)
-        return self.model.beam(torch.sqrt(var) * s_nc)
+        return self.model.beam(torch.sqrt(self.var_fn(dl_tuple, s_nc.dtype))
+                               * s_nc)
+
+    def _maps(self, u):
+        m = self.model
+        if self.kind == "cut":
+            return m.synthesis_cut_sp(u)
+        return (m.synthesis(u),) if self.kind == "pix" else ()
+
+    def _ll(self, u, maps):
+        m = self.model
+        if self.kind == "cut":
+            return m.data_loglike_cut(u, *maps)
+        if self.kind == "pix":
+            r = m.d - maps[0]
+            return -0.5 * (m.noise.inv_noise * r * r).sum(
+                dim=tuple(range(-(m.map_ndim + 1), 0)))
+        g = m.noise.harmonic_white_level().to(u.dtype)[:, None]
+        r = self.d_alm - u
+        return -0.5 * (g * r * r).sum(dim=(-2, -1))
+
+    def _dll(self, u, maps, du, dmaps):
+        m = self.model
+        if self.kind == "cut":
+            return m.data_loglike_cut_delta(u, *maps, du, *dmaps)
+        if self.kind == "pix":
+            adu = dmaps[0]
+            return -sum_last_f64(m.noise.inv_noise * adu * torch.add(
+                maps[0], adu, alpha=0.5).sub_(m.d),
+                m.map_ndim + 1).to(du.dtype)
+        g = m.noise.harmonic_white_level().to(u.dtype)[:, None]
+        return -sum_last_f64(g * du * torch.add(u, du, alpha=0.5).sub_(
+            self.d_alm), 2).to(du.dtype)
 
     def __call__(self, dl_tuple, s_nc):
-        return self.model.data_loglike_cut(self._u(dl_tuple, s_nc))
+        u = self._u(dl_tuple, s_nc)
+        return self._ll(u, self._maps(u))
 
     def at(self, dl_tuple, s_nc):
-        """(log L, carry) at ``dl_tuple``; carry = (u, au_cut, au_sp)."""
+        """(log L, carry) at ``dl_tuple``; carry = (u, *maps)."""
         u = self._u(dl_tuple, s_nc)
-        au_cut, au_sp = self.model.synthesis_cut_sp(u)
-        return (self.model.data_loglike_cut(u, au_cut, au_sp),
-                (u, au_cut, au_sp))
+        maps = self._maps(u)
+        return self._ll(u, maps), (u, *maps)
 
     def delta(self, carry, dl_old, dl_new, s_nc):
         """(log L(dl_new) - log L(dl_old), carry at dl_new), ``carry`` the
         one at ``dl_old``: one synthesis of the move, none of a total."""
-        u, au_cut, au_sp = carry
-        lmax, dt = self.model.lmax, s_nc.dtype
-        sq = lambda d: torch.sqrt(_dl_tuple_to_var(d, self.bins_list, lmax,
-                                                   dt))
-        du = self.model.beam((sq(dl_new) - sq(dl_old)) * s_nc)
-        adu_cut, adu_sp = self.model.synthesis_cut_sp(du)
-        dll = self.model.data_loglike_cut_delta(u, au_cut, au_sp, du,
-                                                adu_cut, adu_sp)
-        return dll, (u + du, au_cut + adu_cut,
-                     None if au_sp is None else au_sp + adu_sp)
+        u, *maps = carry
+        dt = s_nc.dtype
+        du = self.model.beam((torch.sqrt(self.var_fn(dl_new, dt))
+                              - torch.sqrt(self.var_fn(dl_old, dt))) * s_nc)
+        dmaps = self._maps(du)
+        dll = self._dll(u, maps, du, dmaps)
+        return dll, (u + du, *(None if a is None else a + b
+                               for a, b in zip(maps, dmaps)))
 
 
-def make_nc_log_likelihood(model, bins_list, all_sph: bool = False):
-    """The non-centered log-likelihood (:class:`NCLogLike`) of a
-    cut-decomposition model.  The JAX package's pixel-path and harmonic
-    ("all_sph") likelihoods are not ported."""
+def make_nc_log_likelihood(model, bins_list, all_sph: bool = False,
+                           d_alm=None):
+    """The non-centered log-likelihood (:class:`NCLogLike`): the harmonic
+    form with ``all_sph`` (full sky; needs ``d_alm``, the data's alm), else
+    the cut-sky complement form on a cut-decomposition model, else the
+    full grid's pixel form."""
     if all_sph:
-        raise NotImplementedError(
-            "all_sph: the port has only the cut-sky complement likelihood")
-    if not model.has_cut:
-        raise NotImplementedError(
-            "the non-centered likelihood needs a cut-decomposition model in "
-            "the port (the full-grid pixel path is not ported)")
-    return NCLogLike(model, bins_list)
+        return NCLogLike(model, bins_list, "sph", d_alm=d_alm)
+    return NCLogLike(model, bins_list, "cut" if model.has_cut else "pix")
 
 
 def _select(acc, new, old):
@@ -474,20 +519,26 @@ class CutMHPlan:
     ``jit`` on every call; the values are the same).  The proposal scale ``sigma`` is
     replaced in place by ``set_sigma``, which rebuilds nothing.
 
+    ``l_cut_identity`` (the PNCP scheme): an int, or one value per field
+    (a sequence or an ndarray); the slots with l < l_cut of each field are
+    re-centered by the identity, u = B s_nc there, whatever D_ell.  The
+    plan holds the low-ell mask and its complement; each call adds the
+    fixed u_base = B (s_nc low) to the state u(dl) and so to u0 and the
+    residual it starts from.  The blocks must touch bins at l >= l_cut
+    only (``PNCPGibbs`` keeps those), so the singles' components, their
+    chunk gathers and the big blocks' moves are those of the plain engine.
+
     Raises ``NotImplementedError`` wherever the JAX package would take an
     engine the port does not have: the coefficient m-domain engine
-    (``mdomain="m"``, or w_cut not equal across map components), the
+    (``mdomain="m"``, or w_cut not equal across map components) and the
     phi-domain engine (``mdomain=False``, no single-bin blocks, or w_cut
-    not azimuthally uniform) and the PNCP identity re-centering."""
+    not azimuthally uniform)."""
 
     def __init__(self, model, bins_list, blocks_list, prop_sigma_list,
                  mdomain="auto", l_cut_identity=None, dtype=None):
         if not model.has_cut:
             raise ValueError(
                 "nc_cls_sample_cut needs a cut-decomposition model")
-        if l_cut_identity is not None:
-            raise NotImplementedError(
-                "l_cut_identity (PNCP identity re-centering) is not ported")
         cut = model.cut_sht
         dt = dtype or cut.dtype
         dev = cut.device
@@ -594,6 +645,19 @@ class CutMHPlan:
         self.valid = torch.as_tensor(state_masks(lmax).valid, dtype=dt,
                                      device=dev)               # (2, L, L)
         self.g = (model.noise.tau_max / model.noise.omega).to(dt)
+        # the identity re-centering below l_cut: (nfields, nstate) masks
+        self.lowm = self.him = None
+        if l_cut_identity is not None:
+            nf = len(self.bins_list)
+            lcs = ([int(l_cut_identity)] * nf if np.ndim(l_cut_identity) == 0
+                   else [int(c) for c in l_cut_identity])
+            if len(lcs) != nf:
+                raise ValueError(f"l_cut_identity={l_cut_identity}: need one "
+                                 f"value or one per field ({nf})")
+            low = torch.as_tensor(np.stack([np.arange(L) < lc for lc in lcs]),
+                                  dtype=dt, device=dev)
+            self.lowm = expand_cl_state(low, lmax)
+            self.him = 1.0 - self.lowm
 
     def set_sigma(self, prop_sigma_list):
         """Replace the proposal scales in place: the same ``sigma`` tensor,
@@ -624,13 +688,22 @@ class CutMHPlan:
         return (tf.reshape(tf.shape[:-1] + (2, L, L))
                 * fac[..., None, None, :]).reshape(tf.shape)
 
-    def u_of(self, dlcat, tv):
+    def base(self, s_nc):
+        """u_base = B (s_nc low), the identity re-centered part of u below
+        l_cut; None without ``l_cut_identity``."""
+        if self.lowm is None:
+            return None
+        return almxfl_state(s_nc.to(self.dtype) * self.lowm,
+                            self.model.bl.to(self.dtype), self.model.lmax)
+
+    def u_of(self, dlcat, tv, u_base=None):
         """u(dl) = sqrt(C_l(dl)) t over the fields: (..., nfields, nstate)
         from the concatenated binned D_ell and the valid-masked components
-        ``tv``."""
-        return torch.stack([self._scale(tv[..., f, :],
-                                        self._sqrt_per_ell(dlcat, f))
-                            for f in range(len(self.bins_list))], dim=-2)
+        ``tv``; with ``u_base`` (``base``), u_base + him u(dl)."""
+        u = torch.stack([self._scale(tv[..., f, :],
+                                     self._sqrt_per_ell(dlcat, f))
+                         for f in range(len(self.bins_list))], dim=-2)
+        return u if u_base is None else u_base + self.him * u
 
     def du_of(self, dl_new, dl_old, tv, field):
         """u(dl_new) - u(dl_old) for a move of ``field``'s D_ell alone: the
@@ -710,6 +783,7 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
 
     # ---- per-call precomputation (depends on s_nc) ------------------------
     t, tv = plan.components(s_nc)                          # (..., nf, nstate)
+    u_base = plan.base(s_nc)
     alpha = torch.cat([
         bin_sum(_per_ell(model.cut_c1[f].to(dt) * t[..., f, :], lmax), bins,
                 lmax) for f, bins in enumerate(plan.bins_list)], dim=-1)
@@ -728,7 +802,7 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
     for it in range(n_iter):
         # the state the big blocks move from, with its maps: once per
         # sweep (the singles carry only the residual's ring sums)
-        u = plan.u_of(dlcat, tv)
+        u = plan.u_of(dlcat, tv, u_base)
         au, au_sp = model.synthesis_cut_sp(u)
         if it == 0:
             ll = model.data_loglike_cut(u, au, au_sp)

@@ -1,31 +1,36 @@
 """Constrained-realization (CR) conditional samplers (PyTorch counterpart of
-``gibbssampler_tpu.samplers.cr``: the exact draw and the auxiliary-variable
-family, aux-Gibbs, overrelaxation, MALA / ULA and aux-Gibbs + MALA; the CG
-methods are not ported).
+``gibbssampler_tpu.samplers.cr``: the exact draw, the CG family (plain CG,
+RJPO, pCN) and the auxiliary-variable family (aux-Gibbs, overrelaxation,
+MALA / ULA, aux-Gibbs + MALA)).
 
 Draws s | C_ell, d  ~  N(Q^-1 b, Q^-1),   Q = C^-1 + B A^T N^-1 A B.
 
 State ``s_old`` and ``var_cls`` are (..., nfields, nstate) grid-packed
-tensors whose leading axes are chains; every log-target, log-ratio and
-accept is one value per chain.  Gaussian variates come from a pre-drawn
-noise pool ``{kind: (nchains, K, *shape)}`` when one is given (the schemes
-draw one per iteration, ``schemes.gibbs.GibbsScheme.draw_noise_pool``) and
-otherwise from the ``gen`` generator; the MALA accept uniform may be
-injected as ``u`` (one per chain), so that a test can feed both packages
-the same numbers.  Slots with var_cls = 0 stay exactly 0.
+tensors whose leading axes are chains; every log-target, log-ratio, accept
+and CG iteration count is one value per chain.  Gaussian variates come from
+a pre-drawn noise pool ``{kind: (nchains, K, *shape)}`` when one is given
+(the schemes draw one per iteration, ``schemes.gibbs.GibbsScheme.
+draw_noise_pool``) and otherwise from the ``gen`` generator; the MH accept
+uniform of MALA, RJPO and pCN may be injected as ``u`` (one per chain), so
+that a test can feed both packages the same numbers.  Slots with var_cls =
+0 stay exactly 0.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from ..harmonics.gridstate import expand_cl_state
+from ..ops.cg import cg_solve
 from ..ops.model import SkyModel, sum_last_f64
 
-__all__ = ["noise_pool_spec", "CRInfo", "exact_cr", "aux_gibbs_cr",
-           "overrelax_cr", "mala_cr", "mala_log_ratio", "aux_then_mala_cr"]
+__all__ = ["noise_pool_spec", "CRInfo", "exact_cr", "fluctuated_rhs",
+           "cr_precond", "cg_cr", "rjpo_cr", "aux_gibbs_cr", "overrelax_cr",
+           "mala_cr", "mala_log_ratio", "aux_then_mala_cr", "pcn_cr",
+           "pcn_log_ratio"]
 
 # mu = max(N^-1) + eps for the aux field without the cut decomposition
 # (the reference's ConstrainedRealization.py:44)
@@ -35,17 +40,21 @@ _AUX_EPS = 1e-7
 def noise_pool_spec(method: str, opts: dict) -> dict:
     """Number of pre-drawn N(0,1) fields each CR method consumes per step,
     by kind: "state" (nfields, nstate), "aux" (the auxiliary pixel field:
-    the cut rows under the cut decomposition, the full grid otherwise) and
+    the cut rows under the cut decomposition, the full grid otherwise),
     "sp" (the auxiliary field's hole-point block; drawn only for models
-    with the sparse split)."""
+    with the sparse split) and "pix" (the full pixel grid,
+    ``model.noise.tau.shape``)."""
     n_g = int(opts.get("n_gibbs", 1))
     return {
         "exact": {"state": 1},
+        "cg": {"state": 1, "pix": 1},
+        "rjpo": {"state": 1, "pix": 1},
         "aux_gibbs": {"state": n_g, "aux": n_g, "sp": n_g},
         "overrelax": {"state": 2 * n_g, "aux": 1 + n_g, "sp": 1 + n_g},
         "mala": {"state": 1},
         "ula": {"state": 1},
         "aux_mala": {"state": n_g + 1, "aux": n_g, "sp": n_g},
+        "pcn": {"state": 1},
     }[method]
 
 
@@ -84,7 +93,8 @@ def _normal(gen, shape, like):
 
 class CRInfo(NamedTuple):
     accept: torch.Tensor   # (nchains,) 1.0 where the move was accepted
-    extra: torch.Tensor    # (nchains,) algorithm-specific (MH log-ratio)
+    extra: torch.Tensor    # (nchains,) algorithm-specific (CG iterations,
+                           # MH log-ratio)
 
 
 def _batch_shape(var_cls, s_old=None):
@@ -104,6 +114,91 @@ def exact_cr(model: SkyModel, var_cls, bt_ninv_d, noise=None, gen=None):
     batch = _batch_shape(var_cls)
     return s, CRInfo(accept=var_cls.new_ones(batch),
                      extra=var_cls.new_zeros(batch))
+
+
+def fluctuated_rhs(model: SkyModel, var_cls, bt_ninv_d, noise=None,
+                   gen=None):
+    """b = B A^T N^-1 d + C^-1/2 om0 + B A^T N^-1/2 om1: the random RHS whose
+    exact solve is a draw from N(Q^-1 b_mean, Q^-1) (perturbation-
+    optimization, the plain CG and RJPO steps).  om0 is a "state" field,
+    om1 a "pix" field on the full grid, whose adjoint runs over every ring
+    even on a cut model."""
+    pool = _as_pool(noise)
+    inv_cvar = _safe_inv(var_cls)
+    if pool:
+        om0, om1 = pool.take("state"), pool.take("pix")
+    else:
+        om0 = _normal(gen, var_cls.shape, var_cls)
+        om1 = _normal(gen, _batch_shape(var_cls)
+                      + tuple(model.noise.tau.shape), var_cls)
+    b = bt_ninv_d + torch.sqrt(inv_cvar) * om0
+    b = b + model.project_data(torch.sqrt(model.noise.inv_noise) * om1)
+    return b * _active(var_cls)
+
+
+def cr_precond(model: SkyModel, var_cls, fsky_scale=True):
+    """Diagonal preconditioner 1/(C^-1 + f_sky g b_l^2) (qcinv's diag_cl
+    analogue)."""
+    inv_cvar = _safe_inv(var_cls)
+    hdiag = model.harmonic_noise_diag().to(var_cls.dtype)
+    if fsky_scale:
+        hdiag = hdiag * model.noise.f_sky[:, None].to(var_cls.dtype)
+    return _safe_inv(inv_cvar + hdiag) * _active(var_cls)
+
+
+def _q_op(model: SkyModel, inv_cvar):
+    """The CG operator: the cut-ring complement form when attached, else
+    the plain masked apply."""
+    if model.has_cut:
+        return lambda x: model.q_apply_cut(x, inv_cvar)
+    return lambda x: model.q_apply(x, inv_cvar)
+
+
+def cg_cr(model: SkyModel, var_cls, bt_ninv_d, s_old=None, tol=1e-6,
+          maxiter=4000, noise=None, gen=None):
+    """Perturbation-optimization CG draw, seeded at zero; treated as exact.
+    ``CRInfo.extra`` holds each chain's CG iterations."""
+    inv_cvar = _safe_inv(var_cls)
+    b = fluctuated_rhs(model, var_cls, bt_ninv_d, noise=noise, gen=gen)
+    x, info = cg_solve(_q_op(model, inv_cvar), b,
+                       precond_diag=cr_precond(model, var_cls), tol=tol,
+                       maxiter=maxiter, ndim_sys=2)
+    x = x * _active(var_cls)
+    return x, CRInfo(accept=x.new_ones(info.iterations.shape),
+                     extra=info.iterations.to(x.dtype))
+
+
+def rjpo_cr(model: SkyModel, var_cls, bt_ninv_d, s_old, tol=1e-5,
+            maxiter=4000, noise=None, gen=None, u=None):
+    """RJPO: solve the fluctuated system approximately and Metropolis-
+    correct with its residual,
+
+        log alpha = -<r, s_old - s_hat>,   r = b - Q s_hat.
+
+    The solver starts at MINUS the current state, as the reference does.
+    The sign matters: CG leaves its final residual orthogonal to the
+    Krylov span, in which s_hat - x0 lies, so log alpha = <r, x0 - s_old>
+    vanishes identically for x0 = +s_old (every truncated solve would be
+    accepted uncorrected); with x0 = -s_old it is <r, -2 s_old>, a real
+    measure of the unconverged residual.  The log-ratio is accumulated in
+    float64 (``sum_last_f64``); ``u``: optional (nchains,) accept
+    uniforms."""
+    inv_cvar = _safe_inv(var_cls)
+    act = _active(var_cls)
+    b = fluctuated_rhs(model, var_cls, bt_ninv_d, noise=noise, gen=gen)
+    op = _q_op(model, inv_cvar)
+    s_hat, _ = cg_solve(op, b, x0=-s_old * act,
+                        precond_diag=cr_precond(model, var_cls), tol=tol,
+                        maxiter=maxiter, ndim_sys=2)
+    s_hat = s_hat * act
+    r = b - op(s_hat)
+    log_ratio = (-sum_last_f64(r * (s_old - s_hat), 2)).to(s_hat.dtype)
+    if u is None:
+        u = torch.rand(log_ratio.shape, generator=gen, dtype=s_hat.dtype,
+                       device=s_hat.device)
+    acc = torch.log(u) < log_ratio
+    s_new = torch.where(acc[..., None, None], s_hat, s_old)
+    return s_new, CRInfo(accept=acc.to(s_hat.dtype), extra=log_ratio)
 
 
 def _aux_ops(model: SkyModel, var_cls):
@@ -204,6 +299,52 @@ def overrelax_cr(model: SkyModel, var_cls, bt_ninv_d, s_old,
     return s, CRInfo(accept=s.new_ones(batch), extra=s.new_zeros(batch))
 
 
+class _LikeOps(NamedTuple):
+    """The data log-likelihood of a state x through its forward maps
+    (``_like_ops``)."""
+    fwd: object              # x -> the forward maps of x
+    ll: object               # (x, maps) -> the log-likelihood, as a total
+    dll: object              # (x, maps, dx, dmaps) -> its exact change
+
+
+def _like_ops(model: SkyModel) -> _LikeOps:
+    """With the cut decomposition the maps are the cut rows' (and the hole
+    points'), through cut-ring transforms; otherwise the full grid's."""
+    if model.has_cut:
+        def fwd(x):
+            """(A_cut B x, A_sp B x): one cut synthesis (fused with the
+            point set's under the sparse split)."""
+            return model.synthesis_cut_sp(model.beam(x))
+
+        def ll(x, maps):
+            return model.data_loglike_cut(model.beam(x), *maps)
+
+        def dll(x, maps, dx, dmaps):
+            return model.data_loglike_cut_delta(model.beam(x), *maps,
+                                                model.beam(dx), *dmaps)
+        return _LikeOps(fwd, ll, dll)
+
+    inv_noise = model.noise.inv_noise
+    # the field and pixel axes of the full grid's maps
+    pix_axes = tuple(range(-(model.map_ndim + 1), 0))
+
+    def fwd(x):
+        return (model.forward(x),)
+
+    def ll(x, maps):
+        resid = model.d - maps[0]
+        return -0.5 * (inv_noise * resid * resid).sum(dim=pix_axes)
+
+    def dll(x, maps, dx, dmaps):
+        """-1/2 sum N^-1 [(r - A B dx)^2 - r^2] = -sum N^-1 A B dx
+        (A B dx / 2 + A B x - d), formed term by term."""
+        adx = dmaps[0]
+        return -sum_last_f64(inv_noise * adx * torch.add(
+            maps[0], adx, alpha=0.5).sub_(model.d),
+            model.map_ndim + 1).to(x.dtype)
+    return _LikeOps(fwd, ll, dll)
+
+
 class _MalaOps(NamedTuple):
     """The pieces of the preconditioned MALA step (``_mala_ops``)."""
     inv_cvar: torch.Tensor
@@ -216,60 +357,28 @@ class _MalaOps(NamedTuple):
 
 
 def _mala_ops(model: SkyModel, var_cls, bt_ninv_d) -> _MalaOps:
-    """The MALA step's pieces for ``model``.  With the cut decomposition
-    the maps are the cut rows' (and the hole points'), through cut-ring
-    transforms; otherwise the full grid's."""
+    """The MALA step's pieces for ``model`` (maps as in ``_like_ops``)."""
     inv_cvar = _safe_inv(var_cls)
     hdiag = model.harmonic_noise_diag().to(var_cls.dtype)
     act = _active(var_cls)
     sigma = _safe_inv(inv_cvar + hdiag) * act
+    like = _like_ops(model)
 
     if model.has_cut:
-        def fwd(x):
-            """(A_cut B x, A_sp B x): one cut synthesis (fused with the
-            point set's under the sparse split)."""
-            return model.synthesis_cut_sp(model.beam(x))
-
         def grad(x, maps):
-            """one cut adjoint (fused likewise)."""
+            """one cut adjoint (fused with the point set's)."""
             au_cut, au_sp = maps
             corr = model.adjoint_cut_sp(model.w_cut * au_cut,
                                         None if au_sp is None
                                         else model.w_sp * au_sp)
             qs = hdiag * x - model.beam(corr)
             return (-inv_cvar * x - qs + bt_ninv_d) * act
-
-        def ll(x, maps):
-            return model.data_loglike_cut(model.beam(x), *maps)
-
-        def dll(x, maps, dx, dmaps):
-            return model.data_loglike_cut_delta(model.beam(x), *maps,
-                                                model.beam(dx), *dmaps)
     else:
-        inv_noise = model.noise.inv_noise
-        # the field and pixel axes of the full grid's maps
-        pix_axes = tuple(range(-(model.map_ndim + 1), 0))
-
-        def fwd(x):
-            return (model.forward(x),)
-
         def grad(x, maps):
-            qs = model.project_data(inv_noise * maps[0])
+            qs = model.project_data(model.noise.inv_noise * maps[0])
             return (-inv_cvar * x - qs + bt_ninv_d) * act
 
-        def ll(x, maps):
-            resid = model.d - maps[0]
-            return -0.5 * (inv_noise * resid * resid).sum(dim=pix_axes)
-
-        def dll(x, maps, dx, dmaps):
-            """-1/2 sum N^-1 [(r - A B dx)^2 - r^2] = -sum N^-1 A B dx
-            (A B dx / 2 + A B x - d), formed term by term."""
-            adx = dmaps[0]
-            return -sum_last_f64(inv_noise * adx * torch.add(
-                maps[0], adx, alpha=0.5).sub_(model.d),
-                model.map_ndim + 1).to(x.dtype)
-
-    return _MalaOps(inv_cvar, sigma, act, fwd, grad, ll, dll)
+    return _MalaOps(inv_cvar, sigma, act, like.fwd, grad, like.ll, like.dll)
 
 
 def _mala_log_ratio(ops: _MalaOps, tau, s, maps_s, g_s, s_prop):
@@ -365,3 +474,41 @@ def aux_then_mala_cr(model: SkyModel, var_cls, bt_ninv_d, s_old,
                         noise=pool, gen=gen)
     return mala_cr(model, var_cls, bt_ninv_d, s, tau=tau, noise=pool,
                    gen=gen, u=u)
+
+
+def pcn_log_ratio(model: SkyModel, s, s_prop, exact: bool = True):
+    """The MH log-ratio log L(s') - log L(s) of a pCN move (both states
+    already zero off the active slots), one value per chain.  ``pcn_cr``
+    accepts on the exact form: the state's maps and one synthesis of the
+    move, every difference formed before its reduction (through
+    ``SkyModel.data_loglike_cut_delta`` on a cut model, term by term on the
+    full grid).  ``exact=False`` gives the JAX package's form, the
+    difference of the two states' totals, the reference that the exact
+    form's float32 rounding is measured against."""
+    like = _like_ops(model)
+    maps = like.fwd(s)
+    if exact:
+        ds = s_prop - s
+        return like.dll(s, maps, ds, like.fwd(ds)).to(s.dtype)
+    return like.ll(s_prop, like.fwd(s_prop)) - like.ll(s, maps)
+
+
+def pcn_cr(model: SkyModel, var_cls, bt_ninv_d, s_old, beta: float = 0.1,
+           noise=None, gen=None, u=None):
+    """Preconditioned Crank-Nicolson step: the prior-reversible proposal
+    s' = sqrt(1 - beta^2) s + beta C^{1/2} xi, accepted on the likelihood
+    ratio alone (``pcn_log_ratio``).  ``u``: optional (nchains,) accept
+    uniforms."""
+    act = _active(var_cls)
+    s = s_old * act
+    pool = _as_pool(noise)
+    xi = pool.take("state") if pool else _normal(gen, s.shape, s)
+    s_prop = (math.sqrt(1.0 - beta * beta) * s
+              + beta * torch.sqrt(var_cls) * xi) * act
+    log_ratio = pcn_log_ratio(model, s, s_prop)
+    if u is None:
+        u = torch.rand(log_ratio.shape, generator=gen, dtype=s.dtype,
+                       device=s.device)
+    acc = torch.log(u) < log_ratio
+    s_new = torch.where(acc[..., None, None], s_prop, s)
+    return s_new, CRInfo(accept=acc.to(s.dtype), extra=log_ratio)

@@ -1,7 +1,7 @@
 """Gibbs sampling schemes."""
 
-from .gibbs import (GibbsState, GibbsScheme, CenteredGibbs, ASISGibbs,
-                    CR_METHODS)
+from .gibbs import (GibbsState, GibbsScheme, CenteredGibbs, NonCenteredGibbs,
+                    ASISGibbs, PNCPGibbs, CR_METHODS)
 
-__all__ = ["GibbsState", "GibbsScheme", "CenteredGibbs", "ASISGibbs",
-           "CR_METHODS"]
+__all__ = ["GibbsState", "GibbsScheme", "CenteredGibbs", "NonCenteredGibbs",
+           "ASISGibbs", "PNCPGibbs", "CR_METHODS"]

@@ -1,5 +1,6 @@
 """Gibbs sampling schemes (PyTorch counterpart of
-``gibbssampler_tpu.schemes.gibbs``: the centered scheme and ASIS).
+``gibbssampler_tpu.schemes.gibbs``: centered, non-centered, ASIS and
+PNCP).
 
 Chains are the leading axis of every tensor, so one call of ``step``
 advances all of them; the iteration loop is a plain Python loop.  Random
@@ -14,14 +15,14 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..harmonics.gridstate import variance_expansion_state
+from ..harmonics.gridstate import expand_cl_state, variance_expansion_state
 from ..harmonics.spectra import unfold_bins
 from ..ops.model import SkyModel
 from ..samplers import cls_samplers as cls_mod
 from ..samplers import cr as cr_mod
 
-__all__ = ["GibbsState", "GibbsScheme", "CenteredGibbs", "ASISGibbs",
-           "CR_METHODS"]
+__all__ = ["GibbsState", "GibbsScheme", "CenteredGibbs", "NonCenteredGibbs",
+           "ASISGibbs", "PNCPGibbs", "CR_METHODS"]
 
 
 class GibbsState(NamedTuple):
@@ -29,20 +30,28 @@ class GibbsState(NamedTuple):
     dl: tuple             # per-field (nchains, nbins_f) binned D_ell
 
 
-CR_METHODS = ("exact", "aux_gibbs", "overrelax", "mala", "ula", "aux_mala")
-# the JAX package's CG-based methods, not ported
-_CR_NOT_PORTED = ("cg", "rjpo", "pcn")
+CR_METHODS = ("exact", "cg", "rjpo", "aux_gibbs", "overrelax", "mala", "ula",
+              "aux_mala", "pcn")
 
 
 def _make_cr_step(method: str, model: SkyModel, bt_ninv_d, opts: dict):
     """Bind a CR method name to a (s, var_cls, noise=None, gen=None,
     u=None) -> (s, CRInfo) function, with the JAX package's option names
-    and defaults; ``u`` is the MALA accept uniform."""
+    and defaults; ``u`` is the MH accept uniform of MALA, RJPO and pCN."""
     n_gibbs = opts.get("n_gibbs", 1)
     tau = opts.get("tau", 0.02)
+    maxiter = opts.get("cg_maxiter", 4000)
     if method == "exact":
         return lambda s, var, noise=None, gen=None, u=None: cr_mod.exact_cr(
             model, var, bt_ninv_d, noise=noise, gen=gen)
+    if method == "cg":
+        return lambda s, var, noise=None, gen=None, u=None: cr_mod.cg_cr(
+            model, var, bt_ninv_d, tol=opts.get("cg_tol", 1e-6),
+            maxiter=maxiter, noise=noise, gen=gen)
+    if method == "rjpo":
+        return lambda s, var, noise=None, gen=None, u=None: cr_mod.rjpo_cr(
+            model, var, bt_ninv_d, s, tol=opts.get("cg_tol", 1e-5),
+            maxiter=maxiter, noise=noise, gen=gen, u=u)
     if method == "aux_gibbs":
         return lambda s, var, noise=None, gen=None, u=None: \
             cr_mod.aux_gibbs_cr(model, var, bt_ninv_d, s, n_gibbs=n_gibbs,
@@ -63,9 +72,10 @@ def _make_cr_step(method: str, model: SkyModel, bt_ninv_d, opts: dict):
             cr_mod.aux_then_mala_cr(model, var, bt_ninv_d, s,
                                     n_gibbs=n_gibbs, tau=tau, noise=noise,
                                     gen=gen, u=u)
-    if method in _CR_NOT_PORTED:
-        raise NotImplementedError(f"CR method {method!r} (CG-based) is not "
-                                  "ported")
+    if method == "pcn":
+        return lambda s, var, noise=None, gen=None, u=None: cr_mod.pcn_cr(
+            model, var, bt_ninv_d, s, beta=opts.get("beta", 0.1),
+            noise=noise, gen=gen, u=u)
     raise ValueError(f"unknown CR method {method!r}; one of {CR_METHODS}")
 
 
@@ -116,13 +126,15 @@ class GibbsScheme:
     def draw_noise_pool(self, nchains: int,
                         gen: torch.Generator | None = None) -> dict:
         """Pre-draw the CR step's Gaussian fields for all chains:
-        {kind: (nchains, K, *shape)}, kind by kind in the order state, aux,
-        sp (the hole-point block, for models with the sparse split only)."""
+        {kind: (nchains, K, *shape)}, kind by kind in the order of
+        ``noise_pool_spec``: state, pix (the full grid), aux, sp (the
+        hole-point block, for models with the sparse split only)."""
         spec = cr_mod.noise_pool_spec(self.cr_method, self.cr_options)
         m = self.model
         shapes = {"state": (m.nfields, m.nstate),
                   "aux": tuple(m.w_cut.shape) if m.has_cut
-                  else tuple(m.noise.tau.shape)}
+                  else tuple(m.noise.tau.shape),
+                  "pix": tuple(m.noise.tau.shape)}
         if m.has_sparse:
             shapes["sp"] = tuple(m.w_sp.shape)
         return {kind: torch.randn((nchains, k) + shapes[kind], generator=gen,
@@ -198,20 +210,21 @@ def _cut_mh_eligible(model, blocks_list, all_sph: bool) -> bool:
 MH_FAST = ("auto", "off")
 
 
-class ASISGibbs(GibbsScheme):
-    """Ancillarity-sufficiency interweaving: centered CR -> centered
-    inverse-gamma draw -> whiten -> non-centered blocked-MH D_ell draw ->
-    recenter.  State.s holds the centered map.
+class _BlockedMHGibbs(GibbsScheme):
+    """Machinery of the schemes with a non-centered blocked-MH D_ell step
+    (non-centered, ASIS, PNCP): the blocks, the proposal scales and the two
+    engines.
 
     ``mh_fast``: "auto" takes the rank-one table-domain engine
     (``nc_cls_sample_cut``) when ``_cut_mh_eligible`` holds, "off" the
-    direct ``nc_cls_sample``.  The JAX package's "phi" (phi-domain engine)
-    is not ported and raises, as does any engine ``CutMHPlan`` refuses.
-    The engine's static tables are built once, here."""
+    direct ``nc_cls_sample`` on ``log_like``.  The JAX package's "phi"
+    (phi-domain engine) is not ported and raises, as does any engine
+    ``CutMHPlan`` refuses.  The engine's static tables are built once,
+    here."""
 
     def __init__(self, model, bins_list, blocks_list, prop_sigma_list,
-                 n_iter_mh: int = 1, all_sph: bool = False,
-                 mh_fast: str = "auto", **kw):
+                 n_iter_mh: int = 1, all_sph: bool = False, d_alm=None,
+                 mh_fast: str = "auto", l_cut_identity=None, **kw):
         super().__init__(model, bins_list, **kw)
         if mh_fast == "phi":
             raise NotImplementedError(
@@ -223,16 +236,22 @@ class ASISGibbs(GibbsScheme):
         self.mh_plan = None
         self.prop_sigma_list = prop_sigma_list
         self.n_iter_mh = n_iter_mh
+        self.all_sph = all_sph
         self.mh_fast = mh_fast
-        self.log_like = cls_mod.make_nc_log_likelihood(
-            model, self.bins_list, all_sph=all_sph)
+        self.log_like = self._log_like(all_sph, d_alm)
         self._use_cut_mh = (mh_fast != "off"
                             and _cut_mh_eligible(model, self.blocks_list,
                                                  all_sph))
         self.mh_plan = (cls_mod.CutMHPlan(model, self.bins_list,
                                           self.blocks_list,
-                                          self.prop_sigma_list)
+                                          self.prop_sigma_list,
+                                          l_cut_identity=l_cut_identity)
                         if self._use_cut_mh else None)
+
+    def _log_like(self, all_sph, d_alm):
+        """The direct engine's likelihood."""
+        return cls_mod.make_nc_log_likelihood(self.model, self.bins_list,
+                                              all_sph=all_sph, d_alm=d_alm)
 
     @property
     def prop_sigma_list(self) -> tuple:
@@ -271,6 +290,39 @@ class ASISGibbs(GibbsScheme):
             self.prop_sigma_list, n_iter=self.n_iter_mh, u_prop=u_prop,
             u_acc=u_acc, gen=gen)
 
+
+class NonCenteredGibbs(_BlockedMHGibbs):
+    """CR step re-expressed non-centered + blocked-MH D_ell step: recenter
+    -> CR -> whiten -> blocked MH.  State.s holds the whitened map s_nc.
+    ``all_sph`` takes the harmonic likelihood on the full sky (``d_alm``,
+    the data's alm), which the table engine does not run."""
+
+    def init_state(self, dl_init_tuple, nchains: int,
+                   gen: torch.Generator | None = None) -> GibbsState:
+        st = super().init_state(dl_init_tuple, nchains, gen)
+        return GibbsState(s=cls_mod.whiten(st.s, st.dl, self.bins_list,
+                                           self.lmax), dl=st.dl)
+
+    def step(self, state: GibbsState, noise=None, gen=None, u=None,
+             u_prop=None, u_acc=None):
+        """One iteration of every chain.  Injectable variates as in
+        ``ASISGibbs.step`` (no gamma variates: no conjugate draw)."""
+        s, cr_info = self._cr_step(
+            cls_mod.recenter(state.s, state.dl, self.bins_list, self.lmax),
+            self.var_cls(state.dl), noise, gen, u)
+        s_nc = cls_mod.whiten(s, state.dl, self.bins_list, self.lmax)
+        dl, mh_info = self.mh_step(state.dl, s_nc, u_prop=u_prop,
+                                   u_acc=u_acc, gen=gen)
+        return GibbsState(s=s_nc, dl=dl), {"dl": dl,
+                                           "cr_accept": cr_info.accept,
+                                           "mh_accept": mh_info.accept}
+
+
+class ASISGibbs(_BlockedMHGibbs):
+    """Ancillarity-sufficiency interweaving: centered CR -> centered
+    inverse-gamma draw -> whiten -> non-centered blocked-MH D_ell draw ->
+    recenter.  State.s holds the centered map."""
+
     def step(self, state: GibbsState, noise=None, gen=None, u=None,
              gammas=None, u_prop=None, u_acc=None):
         """One iteration of every chain.  Injectable variates as in
@@ -285,6 +337,83 @@ class ASISGibbs(GibbsScheme):
         dl, mh_info = self.mh_step(dl_c, s_nc, u_prop=u_prop, u_acc=u_acc,
                                    gen=gen)
         s = cls_mod.recenter(s_nc, dl, self.bins_list, self.lmax)
+        return GibbsState(s=s, dl=dl), {"dl": dl,
+                                        "cr_accept": cr_info.accept,
+                                        "mh_accept": mh_info.accept}
+
+
+class PNCPGibbs(_BlockedMHGibbs):
+    """Partially non-centered parametrization: the multipoles below l_cut
+    sampled centered (the conjugate inverse-gamma draw), those above
+    non-centered (blocked MH).
+
+    ``l_cut``: one int, or one value per field (a sequence or an ndarray);
+    each must be a bin boundary of its field (ValueError otherwise).  A
+    field whose l_cut is its last bin edge is sampled fully centered (no
+    MH block).  Only the blocks at or above each field's cut bin are kept.
+    The table engine runs with the identity re-centering below l_cut
+    (``CutMHPlan(l_cut_identity=l_cut)``); the direct path (``mh_fast=
+    "off"``, or a model without the cut decomposition) on a likelihood of
+    the same kind with the prior variance ``_var_high``."""
+
+    def __init__(self, model, bins_list, blocks_list, prop_sigma_list,
+                 l_cut, n_iter_mh: int = 1, all_sph: bool = False,
+                 mh_fast: str = "auto", **kw):
+        bins = [np.asarray(b, dtype=np.int64) for b in bins_list]
+        lcs = (tuple(int(c) for c in l_cut) if np.ndim(l_cut)
+               else (int(l_cut),) * len(bins))
+        if len(lcs) != len(bins):
+            raise ValueError(f"l_cut={l_cut}: need one value or one per "
+                             f"field ({len(bins)})")
+        cut_bin = []
+        for b, lc in zip(bins, lcs):
+            if lc not in list(b):
+                raise ValueError(
+                    f"l_cut={lc} must be a bin boundary (got bins={b})")
+            cut_bin.append(int(np.searchsorted(b, lc)))
+        self.l_cut = lcs
+        self.cut_bin = tuple(cut_bin)
+        blocks = [[(lo, hi) for (lo, hi) in bl if lo >= cb]
+                  for bl, cb in zip(blocks_list, self.cut_bin)]
+        super().__init__(model, bins_list, blocks, prop_sigma_list,
+                         n_iter_mh=n_iter_mh, all_sph=all_sph,
+                         mh_fast=mh_fast, l_cut_identity=lcs, **kw)
+
+    def _log_like(self, all_sph, d_alm):
+        return cls_mod.NCLogLike(self.model, self.bins_list,
+                                 "cut" if self.model.has_cut else "pix",
+                                 var_fn=self._var_high)
+
+    def _var_high(self, dl_tuple, dtype):
+        """Prior variance with 1 on the valid l < l_cut slots (identity
+        re-centering; invalid layout slots keep variance 0), one low-ell
+        mask row per field."""
+        var = cls_mod._dl_tuple_to_var(dl_tuple, self.bins_list, self.lmax,
+                                       dtype)
+        low = torch.as_tensor(np.stack([np.arange(self.lmax + 1) < lc
+                                        for lc in self.l_cut]),
+                              dtype=dtype, device=var.device)
+        return torch.where(expand_cl_state(low, self.lmax) > 0, 1.0, var)
+
+    def step(self, state: GibbsState, noise=None, gen=None, u=None,
+             gammas=None, u_prop=None, u_acc=None):
+        """One iteration of every chain: centered CR, the conjugate draw
+        kept below each field's cut bin, whiten the high multipoles,
+        blocked MH, recenter.  Injectable variates as in
+        ``ASISGibbs.step``."""
+        s, cr_info = self._cr_step(state.s, self.var_cls(state.dl), noise,
+                                   gen, u)
+        dl_c = cls_mod.centered_cls_sample(s, self.bins_list, self.lmax,
+                                           gammas=gammas, gen=gen)
+        dl = tuple(torch.where(torch.arange(d.shape[-1], device=d.device)
+                               < cb, d, old)
+                   for d, old, cb in zip(dl_c, state.dl, self.cut_bin))
+        var_h = self._var_high(dl, s.dtype)
+        s_pnc = s * torch.where(var_h > 0, 1.0 / torch.sqrt(
+            torch.where(var_h > 0, var_h, 1.0)), 0.0)
+        dl, mh_info = self.mh_step(dl, s_pnc, u_prop=u_prop, u_acc=u_acc,
+                                   gen=gen)
+        s = torch.sqrt(self._var_high(dl, s.dtype)) * s_pnc
         return GibbsState(s=s, dl=dl), {"dl": dl,
                                         "cr_accept": cr_info.accept,
                                         "mh_accept": mh_info.accept}

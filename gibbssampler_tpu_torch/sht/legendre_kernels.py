@@ -25,7 +25,8 @@ ctypes: ``legendre_tri.cu`` holds the float32 kernels (3xTF32 on the tensor
 cores), ``legendre_tri_f64.cu`` the float64 ones (FMA pipes).  A wrapper
 takes the plain ``torch.einsum`` version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises.  Each wrapper counts its
-kernel launches in ``<wrapper>.launches``.
+kernel launches in ``<wrapper>.launches``, and those of the float64 kernel
+alone also in ``<wrapper>.launches_f64``.
 """
 
 from __future__ import annotations
@@ -132,8 +133,8 @@ def f32_dynamic_smem() -> dict:
 
 
 def reset_launch_counts() -> None:
-    legendre_synth_tri.launches = 0
-    legendre_adj_tri.launches = 0
+    for fn in (legendre_synth_tri, legendre_adj_tri):
+        fn.launches = fn.launches_f64 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +219,7 @@ def legendre_synth_tri(lam: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if out.numel():
         _launch("synth", lam, x, out)
         legendre_synth_tri.launches += 1
+        legendre_synth_tri.launches_f64 += lam.dtype == torch.float64
     return out
 
 
@@ -237,8 +239,8 @@ def legendre_adj_tri(lam: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if out.numel():
         _launch("adj", lam, g, out)
         legendre_adj_tri.launches += 1
+        legendre_adj_tri.launches_f64 += lam.dtype == torch.float64
     return out
 
 
-legendre_synth_tri.launches = 0
-legendre_adj_tri.launches = 0
+reset_launch_counts()

@@ -339,29 +339,36 @@ def test_flagship_bins_and_blocks_follow_bench():
 
 
 def test_committed_records_have_provenance():
-    """gibbssampler_tpu_torch/tuned_proposals.json holds the four card-tuned
-    records (aux_mala on GL band, GL planckish and HEALPix planckish;
-    overrelax on GL band) at lmax 512, each with 511 / 410 scales, its
-    per-segment acceptances, its run's sizes, dtype, card and commit."""
+    """gibbssampler_tpu_torch/tuned_proposals.json holds the five card-tuned
+    records (ASIS aux_mala on GL band, GL planckish and HEALPix planckish;
+    ASIS overrelax on GL band; PNCP aux_mala on GL band with bench.py's
+    l_cut) at lmax 512, each with 511 / 410 scales, its per-segment
+    per-block acceptances, its run's sizes, dtype, card and commit."""
     path = ROOT / "gibbssampler_tpu_torch" / "tuned_proposals.json"
     recs = json.loads(path.read_text())["records"]
-    keys = {(r["grid"], r["mask"], r["cr"]) for r in recs}
-    assert keys >= {("gl", "band", "aux_mala"), ("gl", "planckish", "aux_mala"),
-                    ("healpix", "planckish", "aux_mala"),
-                    ("gl", "band", "overrelax")}
+    keys = {(r["scheme"], r["grid"], r["mask"], r["cr"]) for r in recs}
+    assert keys >= {("asis", "gl", "band", "aux_mala"),
+                    ("asis", "gl", "planckish", "aux_mala"),
+                    ("asis", "healpix", "planckish", "aux_mala"),
+                    ("asis", "gl", "band", "overrelax"),
+                    ("pncp", "gl", "band", "aux_mala")}
+    # per field: blocks and l_cut of each scheme's flagship configuration
+    blocks = {"asis": ([1, 134], None), "pncp": ([0, 112], [513, 300])}
     for r in recs:
-        assert r["scheme"] == "asis" and r["lmax"] == 512
+        nblocks, l_cut = blocks[r["scheme"]]
+        assert r["lmax"] == 512 and r.get("l_cut") == l_cut
         assert [len(s) for s in r["sig"]] == r["nbins"] == [511, 410]
         assert all(np.all(np.asarray(s) > 0) for s in r["sig"])
         assert len(r["accept_per_block_per_segment"]) == r["segments"]
         assert [len(a) for a in r["accept_per_block_per_segment"][-1]] \
-            == [1, 134]
+            == nblocks
         assert r["dtype"] == "float32" and r["nchains"] > 0 \
             and r["seg_iters"] > 0
         assert "H100" in r["card"] and " W" in r["card"]
         assert len(r["commit"]) == 40
-        sig = port_tuned_proposal_sigmas(path, "asis", r["grid"], r["mask"],
-                                         512, [511, 410], r["cr"])
+        sig = port_tuned_proposal_sigmas(path, r["scheme"], r["grid"],
+                                         r["mask"], 512, [511, 410], r["cr"],
+                                         l_cut=l_cut)
         np.testing.assert_array_equal(sig[1], r["sig"][1])
 
 

@@ -2,7 +2,10 @@
 there is no NVIDIA GPU).  No jax here, so they also run where jax is not
 installed: ``python -m pytest --noconftest -q tests/test_torch_card.py``.
 
-One ASIS iteration at lmax 12 in float64, on the card and on the CPU from
+One CenteredGibbs iteration with the CG CR and one PNCPGibbs iteration on
+the table engine (identity re-centering below l_cut), band mask, lmax 12,
+float64, card against CPU on the same injected variates, with the CG
+iterations per chain equal.  One ASIS iteration at lmax 12 in float64, on the card and on the CPU from
 the same dataset and injected variates, on a band mask, on a holey mask
 (the floor + sparse-hole split) and on a holey HEALPix mask at nside 6 in
 the padded layout (belt-row floor at nphi = 2 lmax with phased rows,
@@ -20,7 +23,9 @@ from torch_parity import (cuda_device, holey_healpix_mask,  # noqa: F401
 from gibbssampler_tpu_torch.inference import example_dl, simulate_dataset
 from gibbssampler_tpu_torch.interop import model_from_numpy
 from gibbssampler_tpu_torch.ops import with_cut_decomposition
-from gibbssampler_tpu_torch.schemes import ASISGibbs
+from gibbssampler_tpu_torch.samplers import cr as cr_mod
+from gibbssampler_tpu_torch.schemes import (ASISGibbs, CenteredGibbs,
+                                            PNCPGibbs)
 from gibbssampler_tpu_torch.schemes.gibbs import GibbsState
 from gibbssampler_tpu_torch.sht import gauss_legendre_grid, make_healpix_sht
 from gibbssampler_tpu_torch.sht import legendre_kernels as lk
@@ -119,4 +124,90 @@ def test_asis_step_card_matches_cpu(cuda_device, kind):
         np.testing.assert_allclose(b, a, rtol=1e-9,
                                    atol=1e-9 * np.abs(a).max())
     for a, b in zip(outs[0][4:], outs[1][4:]):
+        np.testing.assert_array_equal(b, a)
+
+
+# PNCP: EE non-centered from l = 4 in one block, BB single-bin blocks from
+# l = 6; per iteration the CR step's 3 + 3 cut transforms and the MH step's
+# 2 syntheses (u0 and the EE block's move), two tables each
+PNCP_LCUT = (4, 6)
+PNCP_BLOCKS = [[(2, 11)], [(i, i + 1) for i in range(4, 9)]]
+PNCP_LAUNCHES = (10, 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["cg", "pncp"])
+def test_cg_and_pncp_steps_card_match_cpu(cuda_device, scheme):
+    """One CenteredGibbs step with cr_method "cg" (and its cg_cr draw alone:
+    per-chain iterations equal; launches, a full-grid adjoint of two
+    tables and one cut synthesis and adjoint per iteration), or one
+    PNCPGibbs step on the table engine, card against CPU."""
+    arrays, dls = _arrays("band")
+    cbins = [np.array([2, 4, 7, 10, 13])] * 2
+    bins = cbins if scheme == "cg" else BINS
+    dl0 = [np.tile([d[lo:hi].mean() for lo, hi in zip(b[:-1], b[1:])],
+                   (NCH, 1)) for d, b in zip(dls, bins)]
+    rng = np.random.default_rng(2)
+    inj, outs, iters = None, [], []
+    for device in ("cpu", cuda_device):
+        model = with_cut_decomposition(model_from_numpy(arrays, device))
+        if scheme == "cg":
+            sch = CenteredGibbs(model, bins, cr_method="cg")
+        else:
+            sch = PNCPGibbs(model, bins, PNCP_BLOCKS,
+                            [0.3 * d[0] for d in dl0], l_cut=PNCP_LCUT,
+                            cr_method="aux_mala", cr_options=OPTS)
+            assert sch._use_cut_mh and sch.mh_plan.lowm is not None
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+        if inj is None:
+            var = n(sch.var_cls(tuple(t(d) for d in dl0)))
+            s0 = np.sqrt(var) * rng.normal(size=var.shape)
+            pool = {"state": rng.normal(size=(NCH, 2, 2, model.nstate))}
+            if scheme == "cg":
+                pool["pix"] = rng.normal(size=(NCH, 1)
+                                         + tuple(model.noise.tau.shape))
+            else:
+                pool["aux"] = rng.normal(size=(NCH, 1)
+                                         + tuple(model.w_cut.shape))
+            inj = {"noise": pool, "u": rng.uniform(size=NCH),
+                   "gammas": [rng.gamma(3.0, size=(NCH, len(b) - 1))
+                              for b in bins]}
+            if scheme == "pncp":
+                inj["u_prop"] = rng.uniform(size=(NCH, 1, sum(
+                    len(b) - 1 for b in bins)))
+                inj["u_acc"] = rng.uniform(size=(NCH, 1, sum(
+                    map(len, sch.blocks_list))))
+        kw = {k: ({kk: t(vv) for kk, vv in v.items()} if k == "noise"
+                  else tuple(t(x) for x in v) if k == "gammas" else t(v))
+              for k, v in inj.items()}
+        state = GibbsState(s=t(s0), dl=tuple(t(d) for d in dl0))
+        if scheme == "cg":
+            var_t = sch.var_cls(state.dl)
+            lk.reset_launch_counts()
+            x, info = cr_mod.cg_cr(model, var_t, sch.bt_ninv_d,
+                                   noise={"state": kw["noise"]["state"][:, :1],
+                                          "pix": kw["noise"]["pix"]})
+            its = n(info.extra)
+            iters.append(its)
+            launches = (lk.legendre_synth_tri.launches,
+                        lk.legendre_adj_tri.launches)
+            want = (2 * int(its.max()), 2 + 2 * int(its.max()))
+        else:
+            want = PNCP_LAUNCHES
+        if scheme == "pncp":
+            lk.reset_launch_counts()
+        new, info = sch.step(state, **kw)
+        if scheme == "pncp":
+            launches = (lk.legendre_synth_tri.launches,
+                        lk.legendre_adj_tri.launches)
+        outs.append([n(a) for a in (new.s, *new.dl, info["cr_accept"],
+                                    *info.get("mh_accept", ()))])
+    assert launches == want
+    if scheme == "cg":
+        np.testing.assert_array_equal(iters[1], iters[0])
+        assert (iters[0] > 0).all()
+    for a, b in zip(outs[0][:3], outs[1][:3]):
+        np.testing.assert_allclose(b, a, rtol=1e-9,
+                                   atol=1e-9 * np.abs(a).max())
+    for a, b in zip(outs[0][3:], outs[1][3:]):
         np.testing.assert_array_equal(b, a)

@@ -337,7 +337,6 @@ def _refusal_cases(tc, fields):
     return {
         "mdomain m": (tc, blocks, dict(mdomain="m")),
         "mdomain False": (tc, blocks, dict(mdomain=False)),
-        "PNCP identity": (tc, blocks, dict(l_cut_identity=5)),
         "no singles": (tc, [blocks[0], [(0, nb_bb)]], {}),
         "w not uniform": (dataclasses.replace(tc, cut_w_uniform=False),
                           blocks, {}),
@@ -346,8 +345,8 @@ def _refusal_cases(tc, fields):
     }, bins, sig
 
 
-REFUSALS = ["mdomain m", "mdomain False", "PNCP identity", "no singles",
-            "w not uniform", "w not equal"]
+REFUSALS = ["mdomain m", "mdomain False", "no singles", "w not uniform",
+            "w not equal"]
 
 
 @pytest.mark.parametrize("case", REFUSALS)
@@ -362,9 +361,11 @@ def test_engines_not_ported_raise(pol, case):
 
 
 def test_other_refusals(pol):
-    """The phi engine, the non-cut and harmonic likelihoods raise
-    NotImplementedError; a big block after a single raises ValueError, as
-    in JAX; a model without holes ignores ``au_sp``, as JAX's does.  The
+    """The phi engine raises NotImplementedError; the likelihood of a model
+    without the cut decomposition takes the pixel form, the harmonic one
+    (all_sph) needs ``d_alm``; a big block after a single raises
+    ValueError, as in JAX; a model without holes ignores ``au_sp``, as
+    JAX's does.  The
     Nyquist-column preparation zeroes the m = lmax row of each chunk's
     tables and carries it raw, as JAX's does."""
     mc, tc, fields = pol
@@ -387,11 +388,13 @@ def test_other_refusals(pol):
                        tc.data_loglike_cut(u))
     with pytest.raises(NotImplementedError):
         ASISGibbs(tc, bins, blocks, sig, mh_fast="phi")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tcs.make_nc_log_likelihood(tc, bins, all_sph=True)
+    assert tcs.make_nc_log_likelihood(tc, bins, all_sph=True,
+                                      d_alm=u).kind == "sph"
+    assert tcs.make_nc_log_likelihood(tc, bins).kind == "cut"
     full = dataclasses.replace(tc, cut_sht=None)
-    with pytest.raises(NotImplementedError):
-        tcs.make_nc_log_likelihood(full, bins)
+    assert tcs.make_nc_log_likelihood(full, bins).kind == "pix"
     with pytest.raises(ValueError):
         tcs.CutMHPlan(tc, bins, [blocks[0], [(5, 6), (0, 3)]], sig)
 

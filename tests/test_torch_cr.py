@@ -353,17 +353,6 @@ def test_asis_steps_match_jax_with_overrelax(masked, monkeypatch):
                                           np.asarray(jinfo["mh_accept"][f]))
 
 
-def test_cg_methods_are_refused(masked):
-    """The CG-based methods are not ported: building a scheme with one
-    raises NotImplementedError; an unknown name raises ValueError."""
-    _, tc, _ = masked
-    for method in ("cg", "rjpo", "pcn"):
-        with pytest.raises(NotImplementedError):
-            CenteredGibbs(tc, [BINS, BINS], cr_method=method)
-    with pytest.raises(ValueError):
-        CenteredGibbs(tc, [BINS, BINS], cr_method="gibbs")
-
-
 # ---------------------------------------------------------------------------
 # float32: the exact log-ratios against the old form's
 # ---------------------------------------------------------------------------
