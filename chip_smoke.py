@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py             (from the repository root; one card)
     python3 chip_smoke.py --profile   (adds a torch.profiler table of each
-                                       ASIS slice)
+                                       ASIS and PNCP slice and of one CG
+                                       solve)
 
 Phases, each reported on its own lines; any failure raises and exits
 non-zero:
@@ -163,11 +164,11 @@ TIMED_NR = (CUT_RINGS, PLANCKISH_FLOOR_RINGS, HEALPIX_FLOOR_RINGS,
             PLANCKISH_POINT_ROWS[0], HEALPIX_POINT_ROWS[0], LMAX + 1,
             HEALPIX_RINGS)
 # the CG phase (float64 on the band's cut rings, unit bins at the true
-# spectrum, as tools/cg_scale.py sets it up): chains, tolerances, the cap,
-# the mixed ladder's replacement cadence, and the JAX package's record for
-# the 11.5 deg band at lmax 512 in float64, lockstep max over 8 chains
-# (docs/CG512_TABLE.txt)
-CG_CHAINS = 16
+# spectrum, as tools/cg_scale.py sets it up): chains (8, as that record),
+# tolerances, the cap, the mixed ladder's replacement cadence, and the JAX
+# package's record for the 11.5 deg band at lmax 512 in float64, lockstep
+# max over 8 chains (docs/CG512_TABLE.txt)
+CG_CHAINS = 8
 CG_TOLS = (1e-5, 1e-6)
 CG_MAXITER = 4000
 CG_REPLACE_EVERY = 10
@@ -180,7 +181,7 @@ PNCP_LCUT = (513, 300)
 PNCP_SINGLES = 112
 PNCP_PER_ITER = (8, 6)
 # the pCN move of the float32 rounding check, and its limit in nats for
-# the exact form
+# the exact form at the ASIS band slice's final state
 PCN_BETA = 0.1
 PCN_EXACT_LIMIT = 0.1
 # the float64 kernels' timed shapes: the CG phase's cut rings and full grid
@@ -525,7 +526,7 @@ SMALL_STEPS = {
 }
 
 
-def small_scheme(torch, model, name, kind, cr, bins, blocks, sig):
+def small_scheme(model, name, kind, cr, bins, blocks, sig):
     """The small-step phase's scheme ``name`` on ``model``; checks that the
     blocked-MH schemes run on the table engine (PNCP with its identity
     re-centering; on HEALPix with the ring-phase and Nyquist paths)."""
@@ -589,8 +590,7 @@ def phase_small_steps(torch, dev):
             model = with_cut_decomposition(model_from_numpy(arrays, device))
             check(model.has_sparse == (mask != "band"),
                   f"small {name} step: sparse split {model.has_sparse}")
-            scheme = small_scheme(torch, model, name, kind, cr, bins,
-                                  ablocks, sig)
+            scheme = small_scheme(model, name, kind, cr, bins, ablocks, sig)
             t = lambda a: torch.as_tensor(a, dtype=torch.float64,
                                           device=device)
             if not outs:
@@ -994,17 +994,24 @@ def phase_adapt(torch, lk, scheme, dl0, dev, card):
 
 
 def profile_asis(torch, scheme, state, dl0, dev, card, label, n_iter=5):
-    """torch.profiler over n_iter ASIS iterations: the top kernels by
-    device time and the device's busy share of the wall clock."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """torch.profiler over n_iter iterations of a blocked-MH scheme."""
     gen = torch.Generator(device=dev).manual_seed(5)
     scheme.run(dl0, n_iter=2, gen=gen, state=state)
+    profile_rows(torch, lambda: scheme.run(dl0, n_iter=n_iter, gen=gen,
+                                           state=state), n_iter, card, label)
+
+
+def profile_rows(torch, fn, n_iter, card, label):
+    """torch.profiler over ``fn`` (``n_iter`` iterations of something): the
+    top kernels by device time per iteration and the device's busy share
+    of the wall clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        scheme.run(dl0, n_iter=n_iter, gen=gen, state=state)
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     dev_time = lambda e: (getattr(e, "self_device_time_total", 0)
@@ -1104,7 +1111,8 @@ def log_ratio_errors(torch, scheme, state, m64, plan64, gen):
     new32, old32 = (cr_mod.pcn_log_ratio(model, s, s_prop, exact=e)
                     for e in (True, False))
     ref = cr_mod.pcn_log_ratio(m64, s.to(f64), s_prop.to(f64))
-    out["pCN"] = ((new32.to(f64) - ref).abs(), (old32.to(f64) - ref).abs())
+    out["pCN"] = ((new32.to(f64) - ref).abs(), (old32.to(f64) - ref).abs(),
+                  ref.abs())
     return {k: tuple(e.cpu().numpy() for e in v) for k, v in out.items()}
 
 
@@ -1177,17 +1185,19 @@ def phase_mh_sweep(torch, scheme, state, dev, card, label="", nch=4):
           f"{np.median(dll):.3f}, "
           f"max {dll.max():.3f} nats (|ll| ~ {float(ll64.abs().mean()):.4g}) "
           f"[{card}]", flush=True)
-    for what, (new, old) in lr_err.items():
+    for what, (new, old, *size) in lr_err.items():
+        scale = (f"; |D64| median {np.median(size[0]):.4g} nats" if size
+                 else "")
         print(f"float32 log-ratio rounding{label}, {what} ({len(new)} "
               f"chains): |D32 - D64| median {np.median(new):.3g}, max "
               f"{new.max():.3g} nats (exact form); median {np.median(old):.3g}"
               f", max {old.max():.3g} nats (old form: differences of totals)"
-              f"; median ratio {np.median(new) / np.median(old):.3g} "
+              f"; median ratio {np.median(new) / np.median(old):.3g}{scale} "
               f"[{card}]", flush=True)
     return lr_err
 
 
-def phase_pncp_slice(torch, lk, model, dls, dev, card):
+def phase_pncp_slice(torch, lk, model, dls, dev, card, profile):
     """bench.py's PNCP configuration (``flagship.pncp_setup``, the port's
     tuned record of (pncp, gl, band, aux_mala, l_cut)) at full width: the
     initial draw, N_WARM warm-up and N_TIMED timed iterations of NCHAINS
@@ -1238,6 +1248,8 @@ def phase_pncp_slice(torch, lk, model, dls, dev, card):
     print(f"launches in the {label} path: legendre_synth_tri {launches[0]}, "
           f"legendre_adj_tri {launches[1]} ({PNCP_PER_ITER[0]} and "
           f"{PNCP_PER_ITER[1]} per iteration)", flush=True)
+    if profile:
+        profile_asis(torch, scheme, out["final_state"], dl0, dev, card, label)
     return launches, scheme, out["final_state"]
 
 
@@ -1310,7 +1322,7 @@ def cuda_ms(torch, fn):
     return out, ev[0].elapsed_time(ev[1])
 
 
-def phase_cg(torch, lk, dev, card):
+def phase_cg(torch, lk, dev, card, profile):
     """The CG family at full width: the band dataset in float64 (GL 513 x
     1026, cut over 65 rings), CG_CHAINS chains, the prior of the true
     spectrum in unit bins (tools/cg_scale.py's set-up).  cg_cr at each of
@@ -1347,11 +1359,15 @@ def phase_cg(torch, lk, dev, card):
     pool = scheme.draw_noise_pool(CG_CHAINS, gen)
     m32 = cast_cut_model(torch, m64, torch.float32)
     inv32 = inv.float()
-    n_hi = [0]
+    n_hi, hist = [0], []
 
     def op64(v):
+        """The mixed ladder's float64 apply; records ||b - Q v|| / ||b||
+        of every chain at each call (the replacements' true residuals)."""
         n_hi[0] += 1
-        return m64.q_apply_cut(v, inv)
+        q = m64.q_apply_cut(v, inv)
+        hist.append((b - q).norm(dim=(-2, -1)) / b.norm(dim=(-2, -1)))
+        return q
 
     def op32(v):
         return m32.q_apply_cut(v, inv32)
@@ -1366,7 +1382,7 @@ def phase_cg(torch, lk, dev, card):
           f"operator): {time.time() - t0:.1f} s", flush=True)
     lk.reset_launch_counts()
     b = cr_mod.fluctuated_rhs(m64, var, bt, noise=pool)
-    draws = {}
+    draws, n_at = {}, {}
     for tol in CG_TOLS:
         before = counts(lk)
         (x, info), ms = cuda_ms(torch, lambda: cr_mod.cg_cr(
@@ -1381,7 +1397,7 @@ def phase_cg(torch, lk, dev, card):
         res = true_resid(b, x)
         check(res.max() <= 2 * tol, f"cg_cr tol {tol}: true residual "
               f"{res.max():.3g} > 2 x tol")
-        draws[tol] = x
+        draws[tol], n_at[tol] = x, n
         print(f"CG float64 tol {tol:g}: iterations max {n}, median "
               f"{float(np.median(its)):.1f} (the JAX package's record, "
               f"lockstep max over 8 chains: {CG_JAX_ITERS[tol]}), every "
@@ -1389,6 +1405,20 @@ def phase_cg(torch, lk, dev, card):
               f"{ms / n:.3f} ms per iteration; true ||b - Qx||/||b|| max "
               f"{res.max():.3g}; launches synthesis {d[2]}, adjoint {d[3]} "
               f"(float64 kernels) [{card}]", flush=True)
+    if profile:
+        profile_rows(torch, lambda: cr_mod.cg_cr(
+            m64, var, bt, tol=CG_TOLS[0], maxiter=CG_MAXITER, noise=pool),
+            n_at[CG_TOLS[0]], card,
+            f"cg_cr float64 tol {CG_TOLS[0]:g} (per CG iteration)")
+    # the float32 apply against the float64 one, on the right-hand side and
+    # on the solution (relative 2-norm of the difference, per chain)
+    op_err = [float(((op32(v.float()).double() - m64.q_apply_cut(v, inv))
+                     .norm(dim=(-2, -1)) / m64.q_apply_cut(v, inv)
+                     .norm(dim=(-2, -1))).max())
+              for v in (b, draws[CG_TOLS[-1]])]
+    print(f"float32 cut Q apply against float64: relative error max "
+          f"{op_err[0]:.3g} on b, {op_err[1]:.3g} on the solution [{card}]",
+          flush=True)
     before = counts(lk)
     (_, rinfo), ms = cuda_ms(torch, lambda: cr_mod.rjpo_cr(
         m64, var, bt, draws[CG_TOLS[-1]], tol=1e-5, maxiter=CG_MAXITER,
@@ -1406,6 +1436,7 @@ def phase_cg(torch, lk, dev, card):
           f"{n_rj} iterations by the launch count [{card}]", flush=True)
     for tol in CG_TOLS:
         before, n_hi[0] = counts(lk), 0
+        hist.clear()
         (x, info), ms = cuda_ms(torch, lambda: cg_solve(
             op32, b, precond_diag=pre, tol=tol, maxiter=CG_MAXITER,
             ndim_sys=2, apply_dtype=torch.float32, operator_hi=op64,
@@ -1418,13 +1449,23 @@ def phase_cg(torch, lk, dev, card):
               f"float32 and 2 x {n_hi[0]} float64")
         res = true_resid(b, x)
         conv = info.converged.cpu().numpy()
+        # the replacements' true residuals (the last apply is the final
+        # choice's): where each chain's best was first reached, and how
+        # many distinct values its last 100 replacements took
+        h = torch.stack(hist[:-1]).cpu().numpy()
+        worst = int(np.argmax(h.min(axis=0)))
+        first = int(np.argmin(h[:, worst]))
+        tail = len(np.unique(np.round(h[-100:, worst], 12)))
         print(f"CG mixed ladder (float32 apply, float64 vectors, "
               f"replacement every {CG_REPLACE_EVERY}) tol {tol:g}: "
               f"iterations max {n}, median {float(np.median(its)):.1f}; "
               f"converged {int(conv.sum())} of {CG_CHAINS}; {ms:.1f} ms per "
               f"solve, {ms / n:.3f} ms per iteration; {n_hi[0]} float64 "
-              f"applies; true ||b - Qx||/||b|| max {res.max():.3g} [{card}]",
-              flush=True)
+              f"applies; true ||b - Qx||/||b|| max {res.max():.3g}; the "
+              f"worst chain's best true residual {h[first, worst]:.3g} first "
+              f"at apply {first + 1} of {len(h)}, its last "
+              f"{min(100, len(h))} replacements at {tail} distinct "
+              f"values [{card}]", flush=True)
     before = counts(lk)
     out, ms = cuda_ms(torch, lambda: scheme.run(
         dl0, n_iter=CG_SLICE_ITERS, nchains=CG_CHAINS, gen=gen))
@@ -1483,11 +1524,11 @@ def main():
     launches["adaptation"] = phase_adapt(torch, lk, scheme, dl0, dev, card)
     del scheme, state
     launches["PNCP GL band"], scheme, state = phase_pncp_slice(
-        torch, lk, model, dls, dev, card)
+        torch, lk, model, dls, dev, card, profile)
     phase_pncp_sweep(torch, scheme, state, dev, card)
     del model, scheme, state
     torch.cuda.empty_cache()
-    cg_launches = phase_cg(torch, lk, dev, card)
+    cg_launches = phase_cg(torch, lk, dev, card, profile)
     launches["CG"] = cg_launches[:2]
     torch.cuda.empty_cache()
     model, dls = phase_planckish_dataset(torch, sht)
@@ -1507,14 +1548,14 @@ def main():
     # the exact log-ratios: at most a tenth of the old form's rounding; the
     # pCN one under PCN_EXACT_LIMIT nats
     for cfg, errs in lr_err.items():
-        for what, (new, old) in errs.items():
+        for what, (new, old, *_) in errs.items():
             check(np.median(new) <= 0.1 * np.median(old),
                   f"{cfg} {what} log-ratio: float32 rounding median "
                   f"{np.median(new):.3g} nats, not a tenth of the old "
                   f"form's {np.median(old):.3g}")
-        new = errs["pCN"][0]
-        check(new.max() <= PCN_EXACT_LIMIT, f"{cfg} pCN exact log-ratio: "
-              f"float32 rounding max {new.max():.3g} > {PCN_EXACT_LIMIT}")
+    new = lr_err["GL band"]["pCN"][0]
+    check(new.max() <= PCN_EXACT_LIMIT, f"GL band pCN exact log-ratio: "
+          f"float32 rounding max {new.max():.3g} > {PCN_EXACT_LIMIT}")
     launches = [sum(n) for n in zip(*launches.values())] + list(
         cg_launches[2:])
 

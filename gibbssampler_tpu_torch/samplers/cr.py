@@ -156,7 +156,8 @@ def _q_op(model: SkyModel, inv_cvar):
 
 def cg_cr(model: SkyModel, var_cls, bt_ninv_d, s_old=None, tol=1e-6,
           maxiter=4000, noise=None, gen=None):
-    """Perturbation-optimization CG draw, seeded at zero; treated as exact.
+    """Perturbation-optimization CG draw, seeded at zero (``s_old`` is
+    unused, as in the JAX package's signature); treated as exact.
     ``CRInfo.extra`` holds each chain's CG iterations."""
     inv_cvar = _safe_inv(var_cls)
     b = fluctuated_rhs(model, var_cls, bt_ninv_d, noise=noise, gen=gen)

@@ -378,6 +378,10 @@ class PNCPGibbs(_BlockedMHGibbs):
         super().__init__(model, bins_list, blocks, prop_sigma_list,
                          n_iter_mh=n_iter_mh, all_sph=all_sph,
                          mh_fast=mh_fast, l_cut_identity=lcs, **kw)
+        # (nfields, nstate) True on the slots with l < l_cut
+        low = np.stack([np.arange(self.lmax + 1) < lc for lc in lcs])
+        self._low = expand_cl_state(torch.as_tensor(
+            low, dtype=model.sht.dtype, device=self.device), self.lmax) > 0
 
     def _log_like(self, all_sph, d_alm):
         return cls_mod.NCLogLike(self.model, self.bins_list,
@@ -390,10 +394,7 @@ class PNCPGibbs(_BlockedMHGibbs):
         mask row per field."""
         var = cls_mod._dl_tuple_to_var(dl_tuple, self.bins_list, self.lmax,
                                        dtype)
-        low = torch.as_tensor(np.stack([np.arange(self.lmax + 1) < lc
-                                        for lc in self.l_cut]),
-                              dtype=dtype, device=var.device)
-        return torch.where(expand_cl_state(low, self.lmax) > 0, 1.0, var)
+        return torch.where(self._low, 1.0, var)
 
     def step(self, state: GibbsState, noise=None, gen=None, u=None,
              gammas=None, u_prop=None, u_acc=None):

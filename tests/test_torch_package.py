@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from torch_parity import t64, tri_table
+from gibbssampler_tpu_torch import flagship, tune
 from gibbssampler_tpu_torch.inference import simulate_dataset
 from gibbssampler_tpu_torch.interop import model_from_numpy, state_from_numpy
 from gibbssampler_tpu_torch.ops import NoiseModel
@@ -70,7 +71,11 @@ ENTRY_POINTS = {"SHT": SHT, "make_sht": make_sht, "PointSHT": PointSHT,
                 "NoiseModel.white": NoiseModel.white,
                 "NoiseModel.white_healpix": NoiseModel.white_healpix,
                 "model_from_numpy": model_from_numpy,
-                "state_from_numpy": state_from_numpy}
+                "state_from_numpy": state_from_numpy,
+                "flagship.flagship_sht": flagship.flagship_sht,
+                "flagship.dataset": flagship.dataset,
+                "flagship.build": flagship.build,
+                "tune.tune": tune.tune}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
