@@ -27,7 +27,7 @@ non-zero:
    larger of the bytes over 3.35 TB/s and the FLOPs over the 3xTF32 rate,
    495 / 3 TFLOP/s; and times the float64 kernels against their float64
    einsum at the CG phase's shapes (the 65 cut rings and the 513-ring full
-   grid, 32 columns), with the bound of the bytes over 3.35 TB/s or the
+   grid, 16 columns), with the bound of the bytes over 3.35 TB/s or the
    FLOPs over the 67 TFLOP/s float64 tensor-core peak;
 4. checks the lmax-512 transforms in float32 (round trip and the cut
    transform's adjointness, on GL rings and on the HEALPix floor's 193
@@ -72,7 +72,7 @@ non-zero:
    iteration, the BB singles' acceptance in [0.15, 0.6]), then one float64
    MH sweep at full width, the table engine against the direct path on
    the PNCP likelihood;
-8. the CG family at full width in float64 (the band dataset, 16 chains,
+8. the CG family at full width in float64 (the band dataset, 8 chains,
    the prior of the true spectrum in unit bins): cg_cr at tol 1e-5 and
    1e-6 (every chain converged, per-chain iterations beside the JAX
    package's record, ms per solve and per iteration, 2 + 2 launches per
