@@ -27,8 +27,9 @@ non-zero:
    larger of the bytes over 3.35 TB/s and the FLOPs over the 3xTF32 rate,
    495 / 3 TFLOP/s; and times the float64 kernels against their float64
    einsum at the CG phase's shapes (the 65 cut rings and the 513-ring full
-   grid, 16 columns), with the bound of the bytes over 3.35 TB/s or the
-   FLOPs over the 67 TFLOP/s float64 tensor-core peak;
+   grid, 16 and 32 columns), with the bound of the bytes over 3.35 TB/s or
+   the FLOPs over the 67 TFLOP/s float64 tensor-core peak; and checks the
+   float64 kernels alone at an even L with odd nr and at 1 and 17 columns;
 4. checks the lmax-512 transforms in float32 (round trip and the cut
    transform's adjointness, on GL rings and on the HEALPix floor's 193
    belt rows at nphi 1024 = 2 lmax), and at lmax 16 in float64, card
@@ -185,12 +186,17 @@ PNCP_PER_ITER = (8, 6)
 PCN_BETA = 0.1
 PCN_EXACT_LIMIT = 0.1
 # the float64 kernels' timed shapes: the CG phase's cut rings and full grid
-# at its chains' column count
-F64_TIMED = ((CUT_RINGS, 2 * CG_CHAINS), (LMAX + 1, 2 * CG_CHAINS))
+# at its chains' column count (the first two: the main-path records), and
+# at twice it
+F64_TIMED = ((CUT_RINGS, 2 * CG_CHAINS), (LMAX + 1, 2 * CG_CHAINS),
+             (CUT_RINGS, 4 * CG_CHAINS), (LMAX + 1, 4 * CG_CHAINS))
+# float64-only correctness shapes: an even L with odd nr (the odd m's table
+# slabs start on an 8-byte, not a 16-byte, boundary) and ragged columns
+F64_EXTRA = ((64, 33, 16), (37, 19, 1), (37, 19, 17))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 TF32X3_FLOPS_PER_S = 495e12 / 3      # 3 TF32 tensor-core products each
-# H100 SXM float64 tensor-core peak; the float64 kernels run on the FMA
-# pipes, whose peak is about half of it
+# H100 SXM float64 tensor-core peak; the float64 kernels stream the table
+# on the FMA pipes, whose peak is about half of it
 FP64_FLOPS_PER_S = 67e12
 
 
@@ -293,6 +299,9 @@ def phase_build(lk):
                 print(f"  ptxas: {ln.strip()}", flush=True)
     print(f"  float32 kernels' dynamic shared memory (bytes): "
           f"{lk.f32_dynamic_smem()}", flush=True)
+    for nr, C in F64_TIMED:
+        print(f"  float64 kernels' threads and dynamic shared memory "
+              f"(bytes) at nr {nr}, C {C}: {lk.f64_plan(nr, C)}", flush=True)
 
 
 def phase_kernels(torch, lk, dev, card):
@@ -301,13 +310,16 @@ def phase_kernels(torch, lk, dev, card):
     check(not torch.backends.cuda.matmul.allow_tf32,
           "the plain versions must run in true float32 (allow_tf32 is on)")
     gen = torch.Generator(device=dev).manual_seed(0)
-    shapes = ([(16, 12, 8), (37, 19, 10), (LMAX + 1, CUT_RINGS, 200)]
-              + [(LMAX + 1, nr, 2 * NCHAINS) for nr in TIMED_NR]
-              + [(LMAX + 1, nr, C) for nr, C in F64_TIMED])
     tols = {torch.float32: 1e-5, torch.float64: 1e-12}
+    shapes = ([(L, nr, C, tuple(tols)) for L, nr, C in
+               [(16, 12, 8), (37, 19, 10), (LMAX + 1, CUT_RINGS, 200)]
+               + [(LMAX + 1, nr, 2 * NCHAINS) for nr in TIMED_NR]]
+              + [(LMAX + 1, nr, C, (torch.float64,)) for nr, C in F64_TIMED]
+              + [(*s, (torch.float64,)) for s in F64_EXTRA])
     rec, rec64 = {}, {}
-    for L, nr, C in shapes:
-        for dtype, tol in tols.items():
+    for L, nr, C, dtypes in shapes:
+        for dtype in dtypes:
+            tol = tols[dtype]
             lam = tri_table(torch, L, nr, dtype, dev, gen)
             x0 = torch.randn((L, C, L), generator=gen, dtype=dtype, device=dev)
             g0 = torch.randn((L, nr, C), generator=gen, dtype=dtype, device=dev)
@@ -354,9 +366,12 @@ def phase_kernels(torch, lk, dev, card):
                         (C == 2 * NCHAINS and dtype == torch.float32)
                         or ((nr, C) in F64_TIMED and dtype == torch.float64)):
                     into = rec if dtype == torch.float32 else rec64
+                    # keyed by nr at the main path's columns
+                    key = nr if C in (2 * NCHAINS, 2 * CG_CHAINS) \
+                        else f"{nr} C{C}"
                     for name, r in time_kernels(torch, lk, lam, x, g, lay,
                                                 card, errs).items():
-                        into.setdefault(name, {})[nr] = r
+                        into.setdefault(name, {})[key] = r
             del lam, x0, g0, y0, x, g, y
     torch.cuda.empty_cache()
     return rec, rec64
@@ -397,7 +412,8 @@ def time_kernels(torch, lk, lam, x, g, lay, card, errs):
             # the plain version is itself the one library call that
             # computes the function (torch.einsum in true float32 or in
             # float64)
-            rec[name] = {"design": "3xtf32-mma.sync" if f32 else "fp64-fma",
+            rec[name] = {"design": "3xtf32-mma.sync" if f32
+                         else "fp64-fma-stream",
                          "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": pms, "tflops": tflops}

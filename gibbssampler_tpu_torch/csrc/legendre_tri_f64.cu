@@ -1,176 +1,568 @@
-// Triangular Legendre contractions in float64 for Hopper (sm_90a), on the
-// FMA pipes.  Plain C interface, loaded with ctypes.
+// Triangular Legendre contractions in float64 for Hopper (sm_90a):
+// streaming kernels bound by the bytes of the table, on the FMA pipes, fed
+// by a cp.async ring.  Plain C interface, loaded with ctypes.
 //
 // Replaces, for float64 operands, the Pallas TPU kernels of
 // gibbssampler_tpu/sht/pallas_legendre.py:
-//   legendre_synth_tri (:52, _synth_kernel)
+//   legendre_synth_tri (:52, _synth_kernel, pallas_call :76)
 //       out[m, r, c] = sum_{l >= m} lam[m, l, r] x[m, c, l]
-//   legendre_adj_tri   (:106, _adj_kernel)
+//   legendre_adj_tri   (:106, _adj_kernel, pallas_call :121)
 //       out[m, c, l] = sum_r lam[m, l, r] g[m, r, c],  0 for l < m
 // with the layouts of the float32 kernels (legendre_tri.cu): lam (L, L, nr)
-// row-major; x (L, C, L) with unit stride on l; g (L, nr, C) with any
-// strides; synthesis out (L, nr, C) row-major; adjoint out (L, C, L) with
-// unit stride on l.
+// row-major, zero for l < m; x (L, C, L) with unit stride on l; g (L, nr, C)
+// with unit stride on r or on c; synthesis out (L, nr, C) row-major; adjoint
+// out (L, C, L) with unit stride on l, every element written (the zeros of
+// l < m too: the wrapper allocates it with torch.empty).
 //
-// What bounds them: the H100's fp64 FMA rate (34 TFLOP/s on the data sheet)
-// and this kernel's shared-memory reads (6 for 8 FMAs).  The float64 path
-// serves the card tests and small checking runs, not the float32 main path,
-// so the kernel stays simple: one thread block per (m, ring tile, batch
-// tile) for synthesis and per (m, degree tile, batch tile) for the adjoint;
-// 256 threads, each accumulating a 2 x 4 register tile; the contracted axis
-// walked in shared-memory stages of TK.  Synthesis starts its l loop at
-// l = m, and the adjoint's degree tiles start at l = m (tile j covers
-// [m + j*TLA, m + (j+1)*TLA)), so no tile below the diagonal is loaded or
-// multiplied.  The adjoint's output comes from torch.empty, so its first
-// tile's block also writes the zeros of l < m.
+// What bounds them: bytes.  The CG family calls them at C = 16 (8 chains x
+// Re/Im).  At L 513, nr 65 one call does 2 nr C L(L+1)/2 = 274 MFLOP, 8.2 us
+// at the H100 SXM data sheet's 33.5 TFLOP/s fp64 FMA rate, and must move
+// 89.7 MB (table half 68.6 MB, batch half 16.9 MB, output 4.3 MB for the
+// synthesis), 26.8 us at 3.35 TB/s; at nr 513 it is 64.6 us against
+// 176.6 us.  Each table element read serves C FMAs, so at the byte rate the
+// FMA pipes run at ~40% of their peak at C = 16 and ~80% at C = 32: the
+// design has to move the table at full rate and waste few FMA slots.
+//
+// Design.
+// - A batch tile equal to the call's columns: TC in {8, 16, 32} is picked
+//   from C (C > 32 walks 32-column tiles in the grid), so no FMA and no
+//   copy works on padding columns.  A thread holds a register tile of CT =
+//   8 columns times 2 rings (synthesis) or 4 degree rows (adjoint): every
+//   batch value it reads from shared memory serves 2 or 4 FMAs.
+// - No padded ring tiles.  A synthesis block holds all of an m's rings
+//   when they fit 256 threads (nr <= 255 at TC 16: 65, 83, 193, 211), else
+//   the fewest tiles that fit, of sizes that differ by at most one (513 ->
+//   3 x 171); only a block's last warp carries idle lanes.  The adjoint
+//   contracts over the rings in chunks of at most 16, also of even sizes
+//   (65 -> 5 x 13).
+// - Each m's table slab lam[m, m:L, :] streams through a ring of 3
+//   shared-memory stages filled by cp.async, two stages in flight while one
+//   multiplies.  The synthesis stage is up to 32 whole degree rows of its
+//   ring tile (~17 KB at nr 65: one contiguous span when the block holds
+//   all rings); the adjoint stage is 128 degree rows x one ring chunk.
+//   Copies are 16 bytes (cp.async.cg) where source and destination are
+//   16-byte aligned: each row's place in shared memory is shifted by one
+//   double so that its parity matches its source's, which lines up every
+//   pair of a row whatever L, nr and the ring offset are (L 513, nr 65:
+//   odd); a row's odd first or last element goes by an 8-byte cp.async.ca.
+//   The batch side (x[m, c, l-chunk] beside the synthesis stage, g[m,
+//   r-chunk, c] beside the adjoint's) rides in the same stage by 8-byte
+//   copies along the operand's unit stride, stored [c][k] with an odd row
+//   stride, so that neither the copies nor the broadcast reads conflict on
+//   banks.  Table row strides are odd too (the adjoint's warp reads 32
+//   rows at once).
+// - More warps per slab without atomics.  A block's threads form row
+//   groups (synthesis: up to 4, the rows k = g mod groups of each stage;
+//   adjoint: 2, the rings k = g mod 2 of each chunk) whose partial sums meet
+//   in shared memory in group order at the end of an m.
+// - The triangle.  A synthesis block takes m and L-1-m in one pipeline, L+1
+//   degree rows whatever m is.  The adjoint's blocks are the (m, 128-row
+//   pass) pairs that exist, numbered pass-major (no block exits empty);
+//   each m's pass-0 block also writes the zeros of l < m, along l.  Every
+//   output is a sum in a fixed order.
+// What bounds them now (PERF.md section 6 has the measurements):
+// neither half alone.  The table stream without FMAs, and the FMAs without
+// copies, each take well over half the byte bound's time at nr 65; the
+// FMAs read their operands from shared memory, 8 bytes a lane a load, so
+// copies and multiplies share its bandwidth and overlap poorly.  The fp64
+// tensor cores (DMMA), whose fragments read each operand once a warp, are
+// the next step; TMA and wgmma are not used.
 // Every launch goes to the caller's stream; each entry point returns
 // cudaGetLastError() so that a refused launch reaches the wrapper.
 
 #include <cuda_runtime.h>
-#include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int TR = 32;         // synthesis: rings per block
-constexpr int TLA = 32;        // adjoint: degrees per block
-constexpr int TC = 64;         // batch columns per block
-constexpr int TK = 16;         // contracted depth per shared-memory stage
+constexpr int kStages = 3;           // cp.async ring depth
+constexpr int CT = 8;                // batch columns per thread
+constexpr int kRingsPerThread = 2;   // synthesis: rings per thread
+constexpr int kSynthMaxGroup = 256;  // synthesis: threads of a row group
+constexpr int kSynthMaxGroups = 4;   // synthesis: row groups per block
+constexpr int kSynthMaxThreads = 256;
+constexpr int kSynthMinBlocks = 2;   // per SM: caps registers at 128
+constexpr int kStageDoubles = 4096;  // synthesis table stage, ~32 KB
+constexpr int kMaxStageRows = 32;    // synthesis: degree rows a stage
+constexpr int kAdjRows = 32;         // adjoint: degree-row lanes
+constexpr int kAdjRowsPerThread = 4;
+constexpr int kAdjPass = kAdjRows * kAdjRowsPerThread;  // rows per block
+constexpr int kAdjChunk = 16;        // adjoint: rings per stage, at most
+constexpr int kAdjGroups = 2;        // adjoint: ring groups per block
+constexpr int kAdjMinBlocks = 2;
+static_assert(kSynthMaxGroup <= kSynthMaxThreads, "a row group per block");
 
-__global__ void __launch_bounds__(kThreads)
-synth_tri_f64(const double* __restrict__ lam, const double* __restrict__ x,
-              double* __restrict__ out, int L, int nr, int C, long long sxm,
-              long long sxc) {
-  const int m = blockIdx.z;
-  const int r0 = blockIdx.y * TR;
-  const int c0 = blockIdx.x * TC;
-  const int tx = threadIdx.x;  // batch direction
-  const int ty = threadIdx.y;  // ring direction
-  const int tid = ty * 16 + tx;
+// ---------------------------------------------------------------------------
+// PTX helpers
+// ---------------------------------------------------------------------------
 
-  __shared__ double ls[TK][TR];      // lam[m, l0 + k, r0 + rr]
-  __shared__ double xs[TK][TC + 1];  // x[m, c0 + cc, l0 + k]
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" :: "r"(d),
+               "l"(src));
+}
 
-  const double* lam_m = lam + static_cast<size_t>(m) * L * nr;
-  const double* x_m = x + m * sxm;
+__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d),
+               "l"(src));
+}
 
-  double acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  for (int l0 = m; l0 < L; l0 += TK) {
-    for (int i = tid; i < TK * TR; i += kThreads) {
-      const int k = i / TR, rr = i % TR;
-      const int l = l0 + k, r = r0 + rr;
-      ls[k][rr] = (l < L && r < nr) ? lam_m[static_cast<size_t>(l) * nr + r] : 0.0;
-    }
-    for (int i = tid; i < TC * TK; i += kThreads) {
-      const int cc = i / TK, k = i % TK;
-      const int l = l0 + k, c = c0 + cc;
-      xs[k][cc] = (l < L && c < C) ? x_m[c * sxc + l] : 0.0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < TK; ++k) {
-      double a[2], b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) a[i] = ls[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = xs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// the table ring
+// ---------------------------------------------------------------------------
+
+// parity of a double's address in units of 8 bytes
+__device__ __forceinline__ int parity(const double* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) >> 3) & 1;
+}
+
+// Where row k of a stage starts (in doubles, row stride RS odd): k RS, plus
+// one where that parity differs from the row source's (par), so that every
+// aligned pair of the source lands on an aligned pair of shared memory.
+__device__ __forceinline__ int row_start(int k, int RS, int par) {
+  return k * RS + (((k * RS) ^ par) & 1);
+}
+
+// The copy threads' share of a stage of rows x 16-byte units (nu units a
+// row): a warp takes 32 / nu rows at a time when a row has at most 32
+// units, else one row with its lanes striding over the units.  Set once per
+// block, so that the copy loops divide nothing.
+struct CopyLanes {
+  int nu, per, sub, u0, step;
+  __device__ CopyLanes(int R, int nthreads) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    nu = R / 2 + 1;  // units R doubles span, at either alignment
+    per = nu <= 32 ? 32 / nu : 1;
+    sub = nu <= 32 ? lane / nu : 0;
+    u0 = nu <= 32 ? lane % nu : lane;
+    step = (nthreads / 32) * per;
+    sub += warp * per;
+    if (nu <= 32 && lane >= per * nu) sub = -1;  // idle lanes of the warp
   }
+};
 
-  double* out_m = out + static_cast<size_t>(m) * nr * C;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= nr) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < C) out_m[static_cast<size_t>(r) * C + c] = acc[i][j];
+// Rows [0, nrows) of R doubles, row k from src + k ld, into buf at
+// row_start(k, RS, .); 16-byte copies for aligned pairs, 8-byte for a row's
+// odd first or last element.  buf must be 16-byte aligned.
+__device__ __forceinline__ void stage_rows(double* buf, const double* src,
+                                           long long ld, int nrows, int R,
+                                           int RS, const CopyLanes& cl) {
+  if (cl.sub < 0 || R <= 0) return;
+  for (int k = cl.sub; k < nrows; k += cl.step) {
+    const double* s = src + k * ld;
+    const int p0 = row_start(k, RS, parity(s));
+    for (int u = cl.u0; u < cl.nu; u += 32) {
+      const int pos = (p0 & ~1) + 2 * u;  // even: a 16-byte slot
+      const int j = pos - p0;             // the element at pos, -1 .. R
+      if (j >= R) break;
+      if (j >= 0 && j + 1 < R) {
+        cp_async16(buf + pos, s + j);
+      } else if (j < 0) {
+        cp_async8(buf + pos + 1, s);
+      } else {
+        cp_async8(buf + pos, s + j);
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// acc[i][j] += a[i] b[j ldb] for the thread's RT table rows and CT
+// columns; b in shared memory, the same for every thread of a column group
+template <int RT>
+__device__ __forceinline__ void fma_rows(const double (&a)[RT],
+                                         const double* b, int ldb,
+                                         double (&acc)[RT][CT]) {
+#pragma unroll
+  for (int j = 0; j < CT; ++j) {
+    const double v = b[j * ldb];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) acc[i][j] = fma(a[i], v, acc[i][j]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// synthesis
+// ---------------------------------------------------------------------------
+
+// The synthesis plan, the same on host and device: ring tiles, the widest
+// tile, ring lanes (a thread holds rings rr, rr + rh, .. of its tile), the
+// threads of one row group (RT rings and 8 columns each), the row groups,
+// the table stage's row stride and rows, dynamic shared memory.
+struct SynthPlan {
+  int ntr, rmax, rh, group, groups, rs, kl, xk, smem;
+  __host__ __device__ SynthPlan(int nr, int tc) {
+    const int ncg = tc / CT;
+    const int lanes = (nr + kRingsPerThread - 1) / kRingsPerThread * ncg;
+    ntr = (lanes + kSynthMaxGroup - 1) / kSynthMaxGroup;
+    if (ntr < 1) ntr = 1;
+    rmax = (nr + ntr - 1) / ntr;
+    if (rmax < 1) rmax = 1;
+    rh = (rmax + kRingsPerThread - 1) / kRingsPerThread;
+    group = (rh * ncg + 31) / 32 * 32;
+    groups = kSynthMaxThreads / group;
+    groups = groups > kSynthMaxGroups ? kSynthMaxGroups : groups;
+    rs = (rh * kRingsPerThread + 1) | 1;
+    kl = kStageDoubles / rs;
+    kl = kl < 2 ? 2 : (kl > kMaxStageRows ? kMaxStageRows : kl);
+    xk = (kl + 1) | 1;
+    smem = (kStages * (xk * tc + ((kl * rs + 1) & ~1)) +
+            (groups - 1) * group * kRingsPerThread * CT) * 8;
+  }
+};
+
+// Block (ring tile and column tile in x, m pair in y): `groups` row groups
+// of `group` threads; group g multiplies the rows k = g mod groups of each
+// stage, and the groups' sums meet in shared memory, in group order, at the
+// end of each m.  Shared memory: per stage x [TC][XK] (XK odd: the copies,
+// consecutive l, and the reads, one l, fall in distinct banks) and the rows
+// [KL][RS] (RS > rh RT: a thread's last ring slot stays in its row); then
+// the sums of groups 1.. [RT CT][groups - 1][group].
+template <int TC>
+__global__ void __launch_bounds__(kSynthMaxThreads, kSynthMinBlocks)
+synth_tri_f64(const double* __restrict__ lam, const double* __restrict__ x,
+              double* __restrict__ out, int L, int nr, int C, long long sxm,
+              long long sxc) {
+  constexpr int NCG = TC / CT, RT = kRingsPerThread;
+  extern __shared__ __align__(16) double smem[];
+  const SynthPlan pl(nr, TC);
+  const int KL = pl.kl, RS = pl.rs;
+  const int TS = (KL * RS + 1) & ~1;
+  const int G = pl.groups, GT = pl.group;
+  const int XK = pl.xk;
+  double* xbuf = smem;
+  double* tbuf = smem + kStages * XK * TC;
+  double* red = tbuf + kStages * TS;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int grp = tid / GT, t = tid % GT;
+  const int tile = blockIdx.x % pl.ntr;
+  const int c0 = (blockIdx.x / pl.ntr) * TC;
+  const int r_lo = tile * nr / pl.ntr;
+  const int R = (tile + 1) * nr / pl.ntr - r_lo;
+  const int ma = blockIdx.y, mb = L - 1 - ma;
+  const int na = (L - ma + KL - 1) / KL;
+  const int nst = na + (mb > ma ? (L - mb + KL - 1) / KL : 0);
+  const int rh = pl.rh, cg = t / rh, rr = t % rh;
+  const bool active = cg < NCG && rr < R;
+  const CopyLanes cl(R, nth);
+
+  // stage q: degree rows [l0, l0 + KL) of slab m
+  auto stage_m = [&](int q) { return q < na ? ma : mb; };
+  auto stage_l0 = [&](int q) {
+    return q < na ? ma + q * KL : mb + (q - na) * KL;
+  };
+  auto issue = [&](int q) {
+    if (q < nst) {
+      const int m = stage_m(q), l0 = stage_l0(q);
+      const int nrows = min(KL, L - l0), s = q % kStages;
+      stage_rows(tbuf + s * TS,
+                 lam + (static_cast<size_t>(m) * L + l0) * nr + r_lo, nr,
+                 nrows, R, RS, cl);
+      // along l, x's unit stride: consecutive threads, consecutive l
+      const double* xm = x + m * sxm + l0;
+      double* xs = xbuf + s * XK * TC;
+      for (int i = tid; i < TC * KL; i += nth) {
+        const int c = i / KL, k = i % KL;
+        if (k < nrows && c0 + c < C)
+          cp_async8(xs + c * XK + k, xm + (c0 + c) * sxc + k);
+      }
+    }
+    cp_async_commit();
+  };
+
+  double acc[RT][CT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[i][j] = 0.0;
+
+  for (int q = 0; q < kStages - 1; ++q) issue(q);
+  for (int q = 0; q < nst; ++q) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    // the buffer of stage q - 1, which every thread has finished with
+    issue(q + kStages - 1);
+    const int m = stage_m(q), l0 = stage_l0(q);
+    if (active) {
+      const int nrows = min(KL, L - l0), s = q % kStages;
+      const double* ts = tbuf + s * TS + rr;
+      const double* xs = xbuf + (s * TC + cg * CT) * XK;
+      const int p0 = parity(lam + (static_cast<size_t>(m) * L + l0) * nr +
+                            r_lo);
+      // four rows' loads, then their FMAs: the loads' latency overlaps
+      int k = grp;
+      for (; k + 3 * G < nrows; k += 4 * G) {
+        double a[4][RT], v[4][CT];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int ku = k + u * G;
+          const double* row = ts + row_start(ku, RS, p0 ^ (ku & nr & 1));
+#pragma unroll
+          for (int i = 0; i < RT; ++i) a[u][i] = row[i * rh];
+#pragma unroll
+          for (int j = 0; j < CT; ++j) v[u][j] = xs[ku + j * XK];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int j = 0; j < CT; ++j)
+#pragma unroll
+            for (int i = 0; i < RT; ++i)
+              acc[i][j] = fma(a[u][i], v[u][j], acc[i][j]);
+      }
+      for (; k < nrows; k += G) {
+        const double* row = ts + row_start(k, RS, p0 ^ (k & nr & 1));
+        double a[RT];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) a[i] = row[i * rh];
+        fma_rows(a, xs + k, XK, acc);
+      }
+    }
+    if (q == na - 1 || q == nst - 1) {  // the last stage of slab m
+      if (G > 1) {
+        if (grp > 0) {
+#pragma unroll
+          for (int i = 0; i < RT; ++i)
+#pragma unroll
+            for (int j = 0; j < CT; ++j)
+              red[((i * CT + j) * (G - 1) + grp - 1) * GT + t] = acc[i][j];
+        }
+        __syncthreads();
+        if (grp == 0) {
+          for (int h = 0; h < G - 1; ++h) {
+#pragma unroll
+            for (int i = 0; i < RT; ++i)
+#pragma unroll
+              for (int j = 0; j < CT; ++j)
+                acc[i][j] += red[((i * CT + j) * (G - 1) + h) * GT + t];
+          }
+        }
+      }
+      if (active && grp == 0) {
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const int r = rr + i * rh;
+          if (r >= R) break;
+          double* o = out + (static_cast<size_t>(m) * nr + r_lo + r) * C;
+#pragma unroll
+          for (int j = 0; j < CT; ++j) {
+            const int c = c0 + cg * CT + j;
+            if (c < C) o[c] = acc[i][j];
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < CT; ++j) acc[i][j] = 0.0;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// adjoint
+// ---------------------------------------------------------------------------
+
+// The adjoint plan: ring chunks, the widest chunk, the table stage's row
+// stride, the threads of one ring group (kAdjRowsPerThread degree rows and
+// 8 columns each), dynamic shared memory.
+struct AdjPlan {
+  int nch, rcmax, rs, gk, group, smem;
+  __host__ __device__ AdjPlan(int nr, int tc) {
+    nch = (nr + kAdjChunk - 1) / kAdjChunk;
+    if (nch < 1) nch = 1;
+    rcmax = (nr + nch - 1) / nch;
+    if (rcmax < 1) rcmax = 1;
+    rs = (rcmax + 1) | 1;
+    gk = rs;
+    group = kAdjRows * (tc / CT);
+    smem = (kStages * (gk * tc + ((kAdjPass * rs + 1) & ~1)) +
+            (kAdjGroups - 1) * group * kAdjRowsPerThread * CT) * 8;
+  }
+};
+
+// blocks: (m, pass) with pass j covering degrees [m + P j, m + P (j + 1))
+// (P = kAdjPass) for every m with L - m > P j, pass-major
+__host__ __device__ inline int adj_blocks(int L) {
+  int n = 0;
+  for (int j = 0; kAdjPass * j < L; ++j) n += L - kAdjPass * j;
+  return n;
+}
+
+// Block (m, pass) in x, column tile in y: kAdjGroups ring groups; group h
+// multiplies the rings k = h mod kAdjGroups of each chunk, and the groups'
+// sums meet in shared memory, in group order, at the end.  Thread in a
+// group: degree rows t % kAdjRows + i kAdjRows (i < kAdjRowsPerThread),
+// column group t / kAdjRows.  Shared memory: per stage g [TC][GK] (GK odd)
+// and the table rows [kAdjPass][RS]; then the sums of groups 1..
+// [RA CT][kAdjGroups - 1][group].
+template <int TC>
+__global__ void __launch_bounds__(kAdjRows * 4 * kAdjGroups, kAdjMinBlocks)
 adj_tri_f64(const double* __restrict__ lam, const double* __restrict__ g,
             double* __restrict__ out, int L, int nr, int C, long long sgm,
             long long sgr, long long sgc, long long som, long long soc) {
-  const int m = blockIdx.z;
-  const int l0 = m + blockIdx.y * TLA;
-  const int c0 = blockIdx.x * TC;
-  const int tx = threadIdx.x;  // degree direction
-  const int ty = threadIdx.y;  // batch direction
-  const int tid = ty * 16 + tx;
-
+  constexpr int G = kAdjGroups, RA = kAdjRowsPerThread;
+  extern __shared__ __align__(16) double smem[];
+  const AdjPlan pl(nr, TC);
+  const int RS = pl.rs, RC = pl.rcmax, GK = pl.gk, nch = pl.nch;
+  const int TS = (kAdjPass * RS + 1) & ~1;
+  const int GT = pl.group;
+  double* gbuf = smem;
+  double* tbuf = smem + kStages * GK * TC;
+  double* red = tbuf + kStages * TS;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int grp = tid / GT, t = tid % GT;
+  int m = blockIdx.x, pass = 0;
+  while (m >= L - kAdjPass * pass) {
+    m -= L - kAdjPass * pass;
+    ++pass;
+  }
+  const int l_lo = m + kAdjPass * pass;
+  const int nrows = min(kAdjPass, L - l_lo);
+  const int c0 = blockIdx.y * TC;
+  const int c1 = min(C, c0 + TC);
   double* out_m = out + m * som;
-  if (blockIdx.y == 0) {
-    // zeros below the diagonal: out[m, c, l] for l < m, this batch tile
-    for (int i = tid; i < TC * m; i += kThreads) {
-      const int cc = i / m, l = i % m;
-      const int c = c0 + cc;
-      if (c < C) out_m[c * soc + l] = 0.0;
-    }
+
+  if (pass == 0) {  // the zeros of l < m, this column tile, along l
+    for (int c = c0; c < c1; ++c)
+      for (int l = tid; l < m; l += nth) out_m[c * soc + l] = 0.0;
   }
-  if (l0 >= L) return;  // uniform across the block
 
-  __shared__ double ls[TLA][TK + 1];  // lam[m, l0 + ll, r0 + k]
-  __shared__ double gs[TK][TC];       // g[m, r0 + k, c0 + cc]
-
-  const double* lam_m = lam + static_cast<size_t>(m) * L * nr;
+  const double* lam_b = lam + (static_cast<size_t>(m) * L + l_lo) * nr;
   const double* g_m = g + m * sgm;
-
-  double acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
-
-  for (int r0 = 0; r0 < nr; r0 += TK) {
-    for (int i = tid; i < TLA * TK; i += kThreads) {
-      const int ll = i / TK, k = i % TK;
-      const int l = l0 + ll, r = r0 + k;
-      ls[ll][k] = (l < L && r < nr) ? lam_m[static_cast<size_t>(l) * nr + r] : 0.0;
+  const bool r_unit = sgr <= sgc;  // copy g along its unit stride
+  const CopyLanes cl(RC, nth);
+  auto issue = [&](int q) {
+    if (q < nch) {
+      const int r_lo = q * nr / nch, rc = (q + 1) * nr / nch - r_lo;
+      const int s = q % kStages;
+      stage_rows(tbuf + s * TS, lam_b + r_lo, nr, nrows, rc, RS, cl);
+      double* gs = gbuf + s * GK * TC;
+      for (int i = tid; i < RC * TC; i += nth) {
+        const int k = r_unit ? i % RC : i / TC;
+        const int c = r_unit ? i / RC : i % TC;
+        if (k < rc && c0 + c < C)
+          cp_async8(gs + c * GK + k, g_m + (r_lo + k) * sgr + (c0 + c) * sgc);
+      }
     }
-    for (int i = tid; i < TK * TC; i += kThreads) {
-      const int k = i / TC, cc = i % TC;
-      const int r = r0 + k, c = c0 + cc;
-      gs[k][cc] = (r < nr && c < C) ? g_m[r * sgr + c * sgc] : 0.0;
+    cp_async_commit();
+  };
+
+  const int row = t % kAdjRows, cg = t / kAdjRows;
+  int prow[RA];
+#pragma unroll
+  for (int i = 0; i < RA; ++i)
+    prow[i] = parity(lam_b + static_cast<size_t>(row + i * kAdjRows) * nr);
+  double acc[RA][CT];
+#pragma unroll
+  for (int i = 0; i < RA; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[i][j] = 0.0;
+
+  for (int q = 0; q < kStages - 1; ++q) issue(q);
+  for (int q = 0; q < nch; ++q) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    issue(q + kStages - 1);
+    if (row < nrows) {
+      const int r_lo = q * nr / nch, rc = (q + 1) * nr / nch - r_lo;
+      const int s = q % kStages;
+      const double* ts[RA];
+#pragma unroll
+      for (int i = 0; i < RA; ++i)
+        ts[i] = tbuf + s * TS +
+                row_start(row + i * kAdjRows, RS, prow[i] ^ (r_lo & 1));
+      const double* gs = gbuf + (s * TC + cg * CT) * GK;
+#pragma unroll 2
+      for (int k = grp; k < rc; k += G) {
+        double a[RA];
+#pragma unroll
+        for (int i = 0; i < RA; ++i) a[i] = ts[i][k];
+        fma_rows(a, gs + k, GK, acc);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (G > 1) {
+    if (grp > 0) {
+#pragma unroll
+      for (int i = 0; i < RA; ++i)
+#pragma unroll
+        for (int j = 0; j < CT; ++j)
+          red[((i * CT + j) * (G - 1) + grp - 1) * GT + t] = acc[i][j];
     }
     __syncthreads();
+    if (grp == 0) {
+      for (int h = 0; h < G - 1; ++h) {
 #pragma unroll
-    for (int k = 0; k < TK; ++k) {
-      double a[2], b[4];
+        for (int i = 0; i < RA; ++i)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) a[i] = ls[tx + 16 * i][k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = gs[k][ty + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
+          for (int j = 0; j < CT; ++j)
+            acc[i][j] += red[((i * CT + j) * (G - 1) + h) * GT + t];
+      }
     }
-    __syncthreads();
   }
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < RA; ++i) {
+      const int l = row + i * kAdjRows;
+      if (l >= nrows) break;
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int c = c0 + cg * CT + j;
+        if (c < C) out_m[c * soc + l_lo + l] = acc[i][j];
+      }
+    }
+  }
+}
 
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = c0 + ty + 16 * j;
-    if (c >= C) continue;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int l = l0 + tx + 16 * i;
-      if (l < L) out_m[c * soc + l] = acc[i][j];
-    }
-  }
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <int TC>
+int launch_synth(const void* lam, const void* x, void* out, int L, int nr,
+                 int C, long long sxm, long long sxc, cudaStream_t stream) {
+  const SynthPlan pl(nr, TC);
+  const cudaError_t e = allow_smem(synth_tri_f64<TC>, pl.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(pl.ntr * ((C + TC - 1) / TC), (L + 1) / 2);
+  synth_tri_f64<TC><<<grid, pl.group * pl.groups, pl.smem, stream>>>(
+      static_cast<const double*>(lam), static_cast<const double*>(x),
+      static_cast<double*>(out), L, nr, C, sxm, sxc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TC>
+int launch_adj(const void* lam, const void* g, void* out, int L, int nr,
+               int C, long long sgm, long long sgr, long long sgc,
+               long long som, long long soc, cudaStream_t stream) {
+  const AdjPlan pl(nr, TC);
+  const cudaError_t e = allow_smem(adj_tri_f64<TC>, pl.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(adj_blocks(L), (C + TC - 1) / TC);
+  adj_tri_f64<TC><<<grid, pl.group * kAdjGroups, pl.smem, stream>>>(
+      static_cast<const double*>(lam), static_cast<const double*>(g),
+      static_cast<double*>(out), L, nr, C, sgm, sgr, sgc, som, soc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -181,11 +573,10 @@ extern "C" {
 int legendre_synth_tri_f64(const void* lam, const void* x, void* out, int L,
                            int nr, int C, long long sxm, long long sxc,
                            void* stream) {
-  const dim3 grid((C + TC - 1) / TC, (nr + TR - 1) / TR, L);
-  synth_tri_f64<<<grid, dim3(16, 16), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(lam), static_cast<const double*>(x),
-      static_cast<double*>(out), L, nr, C, sxm, sxc);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (C <= 8) return launch_synth<8>(lam, x, out, L, nr, C, sxm, sxc, s);
+  if (C <= 16) return launch_synth<16>(lam, x, out, L, nr, C, sxm, sxc, s);
+  return launch_synth<32>(lam, x, out, L, nr, C, sxm, sxc, s);
 }
 
 // g[m, r, c] at g + m * sgm + r * sgr + c * sgc;
@@ -194,11 +585,25 @@ int legendre_adj_tri_f64(const void* lam, const void* g, void* out, int L,
                          int nr, int C, long long sgm, long long sgr,
                          long long sgc, long long som, long long soc,
                          void* stream) {
-  const dim3 grid((C + TC - 1) / TC, (L + TLA - 1) / TLA, L);
-  adj_tri_f64<<<grid, dim3(16, 16), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(lam), static_cast<const double*>(g),
-      static_cast<double*>(out), L, nr, C, sgm, sgr, sgc, som, soc);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (C <= 8)
+    return launch_adj<8>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc, s);
+  if (C <= 16)
+    return launch_adj<16>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc, s);
+  return launch_adj<32>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc, s);
+}
+
+// Threads per block and dynamic shared memory (bytes) of one launch at
+// (nr, C): adj 0 for the synthesis, 1 for the adjoint; returns
+// threads << 20 | bytes.
+int legendre_tri_f64_plan(int adj, int nr, int C) {
+  const int tc = C <= 8 ? 8 : (C <= 16 ? 16 : 32);
+  if (adj) {
+    const AdjPlan pl(nr, tc);
+    return pl.group * kAdjGroups << 20 | pl.smem;
+  }
+  const SynthPlan pl(nr, tc);
+  return pl.group * pl.groups << 20 | pl.smem;
 }
 
 }  // extern "C"

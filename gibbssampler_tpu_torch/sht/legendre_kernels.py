@@ -22,7 +22,8 @@ The kernels (``csrc/``; design and bounds are noted in each source) are
 compiled with nvcc for sm_90a at first use, into ``_build/`` beside the
 package, keyed by a hash of every source and the flags, and loaded with
 ctypes: ``legendre_tri.cu`` holds the float32 kernels (3xTF32 on the tensor
-cores), ``legendre_tri_f64.cu`` the float64 ones (FMA pipes).  A wrapper
+cores), ``legendre_tri_f64.cu`` the float64 ones (streaming the table
+through a ``cp.async`` ring to the FMA pipes).  A wrapper
 takes the plain ``torch.einsum`` version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises.  Each wrapper counts its
 kernel launches in ``<wrapper>.launches``, and those of the float64 kernel
@@ -42,7 +43,7 @@ import torch
 
 __all__ = ["legendre_synth_tri", "legendre_adj_tri",
            "legendre_synth_tri_plain", "legendre_adj_tri_plain",
-           "build", "f32_dynamic_smem", "reset_launch_counts"]
+           "build", "f32_dynamic_smem", "f64_plan", "reset_launch_counts"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -58,7 +59,8 @@ _LIBS = {
                      "legendre_adj_tri_f32": _ADJ_ARGS,
                      "legendre_tri_f32_smem": [_I]},
     "legendre_tri_f64": {"legendre_synth_tri_f64": _SYNTH_ARGS,
-                         "legendre_adj_tri_f64": _ADJ_ARGS},
+                         "legendre_adj_tri_f64": _ADJ_ARGS,
+                         "legendre_tri_f64_plan": [_I] * 3},
 }
 _fns: dict = {}
 
@@ -130,6 +132,16 @@ def f32_dynamic_smem() -> dict:
         build()
     fn = _fns["legendre_tri_f32_smem"]
     return {"synth": fn(0), "adj unit-r g": fn(1), "adj unit-c g": fn(2)}
+
+
+def f64_plan(nr: int, C: int) -> dict:
+    """Threads per block and dynamic shared memory (bytes) of each float64
+    kernel's launch at nr rings and C columns; builds first."""
+    if not _fns:
+        build()
+    fn = _fns["legendre_tri_f64_plan"]
+    return {kind: {"threads": v >> 20, "smem": v & 0xFFFFF}
+            for kind, v in (("synth", fn(0, nr, C)), ("adj", fn(1, nr, C)))}
 
 
 def reset_launch_counts() -> None:

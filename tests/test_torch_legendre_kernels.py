@@ -199,13 +199,20 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
 
 CARD_SHAPES = [(16, 12, 8), (37, 19, 10), (513, 65, 256), (513, 65, 200),
                (513, 513, 256)]
+# float64 alone: the CG phase's shapes (8 and 16 chains x Re/Im), an even L
+# with odd nr (the odd m's table slabs start off a 16-byte boundary), and
+# ragged column counts
+F64_CARD_SHAPES = [(513, 65, 16), (513, 513, 16), (513, 65, 32),
+                   (64, 33, 16), (37, 19, 1), (37, 19, 17)]
+DTYPES = [(torch.float32, 1e-5), (torch.float64, 1e-12)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["contiguous", "state views"])
-@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
-                                        (torch.float64, 1e-12)])
-@pytest.mark.parametrize("L,nr,C", CARD_SHAPES)
+@pytest.mark.parametrize(
+    "L,nr,C,dtype,rtol",
+    [(*s, *d) for s in CARD_SHAPES for d in DTYPES]
+    + [(*s, *DTYPES[1]) for s in F64_CARD_SHAPES])
 def test_cuda_kernels_match_plain(cuda_device, L, nr, C, dtype, rtol, layout):
     """Kernel against plain einsum on the card; max |err| <= rtol max |ref|
     (float32: 3xTF32 tensor cores against true float32), and <K1 x, y> =
