@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile   (adds a torch.profiler table of each
                                        ASIS and PNCP slice and of one CG
                                        solve)
+    python3 chip_smoke.py --f64-parts (only phases 1-2 and the float64
+                                       kernels' parts: see phase_f64_parts)
 
 Phases, each reported on its own lines; any failure raises and exits
 non-zero:
@@ -27,7 +29,8 @@ non-zero:
    larger of the bytes over 3.35 TB/s and the FLOPs over the 3xTF32 rate,
    495 / 3 TFLOP/s; and times the float64 kernels against their float64
    einsum at the CG phase's shapes (the 65 cut rings and the 513-ring full
-   grid, 16 and 32 columns), with the bound of the bytes over 3.35 TB/s or
+   grid, 16 and 32 columns; at 16 columns, the mixed ladder's float32
+   shapes, in float32 too), with the bound of the bytes over 3.35 TB/s or
    the FLOPs over the 67 TFLOP/s float64 tensor-core peak; and checks the
    float64 kernels alone at an even L with odd nr and at 1 and 17 columns;
 4. checks the lmax-512 transforms in float32 (round trip and the cut
@@ -186,8 +189,9 @@ PNCP_PER_ITER = (8, 6)
 PCN_BETA = 0.1
 PCN_EXACT_LIMIT = 0.1
 # the float64 kernels' timed shapes: the CG phase's cut rings and full grid
-# at its chains' column count (the first two: the main-path records), and
-# at twice it
+# at its chains' column count (the first two: the main-path records; the
+# mixed ladder's float32 apply runs at them too, so phase 3 also checks the
+# float32 kernels there), and at twice it
 F64_TIMED = ((CUT_RINGS, 2 * CG_CHAINS), (LMAX + 1, 2 * CG_CHAINS),
              (CUT_RINGS, 4 * CG_CHAINS), (LMAX + 1, 4 * CG_CHAINS))
 # float64-only correctness shapes: an even L with odd nr (the odd m's table
@@ -314,7 +318,8 @@ def phase_kernels(torch, lk, dev, card):
     shapes = ([(L, nr, C, tuple(tols)) for L, nr, C in
                [(16, 12, 8), (37, 19, 10), (LMAX + 1, CUT_RINGS, 200)]
                + [(LMAX + 1, nr, 2 * NCHAINS) for nr in TIMED_NR]]
-              + [(LMAX + 1, nr, C, (torch.float64,)) for nr, C in F64_TIMED]
+              + [(LMAX + 1, nr, C, tuple(tols) if C == 2 * CG_CHAINS
+                  else (torch.float64,)) for nr, C in F64_TIMED]
               + [(*s, (torch.float64,)) for s in F64_EXTRA])
     rec, rec64 = {}, {}
     for L, nr, C, dtypes in shapes:
@@ -418,6 +423,61 @@ def time_kernels(torch, lk, lam, x, g, lay, card, errs):
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": pms, "tflops": tflops}
     return rec
+
+
+# builds of the float64 kernels that keep some of their parts
+# (LEGENDRE_F64_PARTS in csrc/legendre_tri_f64.cu): the table's copies
+# with the table's shared-memory reads, the batch's copies, the products
+# with their shared-memory reads and no copies
+F64_PARTS = {"whole": 7, "table copies": 1, "batch copies": 2,
+             "products": 4}
+
+
+def phase_f64_parts(torch, lk, dev, card):
+    """Each float64 kernel at the F64_TIMED shapes (L 513, the state views)
+    built whole and with one part alone: ms and the share of the whole
+    call's bound that each reaches, the builds in turn both ways in one
+    process.  A part alone computes a wrong result on purpose; the whole
+    is held to the plain version.  Returns {"kernel nr C": {part: ms}}."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f64, L = torch.float64, LMAX + 1
+    defines = {p: () if v == 7 else (f"LEGENDRE_F64_PARTS={v}",)
+               for p, v in F64_PARTS.items()}
+    for d in defines.values():
+        lk.build(d)
+    res = {}
+    for nr, C in F64_TIMED:
+        lam = tri_table(torch, L, nr, f64, dev, gen)
+        x = x_view(torch.randn((L, C, L), generator=gen, dtype=f64,
+                               device=dev))
+        g = g_view(torch.randn((L, nr, C), generator=gen, dtype=f64,
+                               device=dev))
+        for name, kern, plain, b in (
+                ("legendre_synth_tri", lk.legendre_synth_tri,
+                 lk.legendre_synth_tri_plain, x),
+                ("legendre_adj_tri", lk.legendre_adj_tri,
+                 lk.legendre_adj_tri_plain, g)):
+            lk.build()
+            ref = plain(lam, b)
+            err = float((kern(lam, b) - ref).abs().max() / ref.abs().max())
+            check(err <= 1e-12, f"{name} nr={nr} C={C} float64: max|err| / "
+                  f"max|ref| {err}")
+            bound_ms = bound(*work(name, L, nr, C, 8), FP64_FLOPS_PER_S)[0]
+            ms = {}
+            for order in (list(defines), list(defines)[::-1]):
+                for part in order:
+                    lk.build(defines[part])
+                    ms.setdefault(part, []).append(
+                        time_ms(torch, lambda: kern(lam, b), 20))
+            row = {p: sum(t) / len(t) for p, t in ms.items()}
+            res[f"{name} {nr} {C}"] = row
+            print(f"f64 parts {name} L={L} nr={nr} C={C} state views: bound "
+                  f"{bound_ms:.4f} ms; " + "; ".join(
+                      f"{p} {t:.4f} ms ({bound_ms / t:.1%})"
+                      for p, t in row.items()) + f" [{card}]", flush=True)
+        del lam, x, g
+    lk.build()
+    return res
 
 
 def cut_adjointness(torch, cut, e, b, gen):
@@ -1522,6 +1582,10 @@ def main():
     from gibbssampler_tpu_torch import flagship
 
     phase_build(lk)
+    if "--f64-parts" in sys.argv[1:]:
+        print(json.dumps({"f64_parts_ms": phase_f64_parts(torch, lk, dev,
+                                                          card)}), flush=True)
+        return 0
     rec, rec64 = phase_kernels(torch, lk, dev, card)
     hp_mask = flagship.healpix_planckish_mask(NSIDE)
     sht = phase_sht(torch, dev, hp_mask)

@@ -60,20 +60,35 @@
 //   pass) pairs that exist, numbered pass-major (no block exits empty);
 //   each m's pass-0 block also writes the zeros of l < m, along l.  Every
 //   output is a sum in a fixed order.
-// What bounds them now (PERF.md section 6 has the measurements):
-// neither half alone.  The table stream without FMAs, and the FMAs without
-// copies, each take well over half the byte bound's time at nr 65; the
-// FMAs read their operands from shared memory, 8 bytes a lane a load, so
-// copies and multiplies share its bandwidth and overlap poorly.  The fp64
-// tensor cores (DMMA), whose fragments read each operand once a warp, are
-// the next step; TMA and wgmma are not used.
+// What bounds them now (PERF.md section 6 has the measurements;
+// chip_smoke.py --f64-parts times each part alone): no part alone.  At nr
+// 65, C 16 the table stream without the products, and the products without
+// the copies, each take 60-80% of the whole kernel's time (NVIDIA H100 80GB
+// HBM3, 700 W); the products read their operands from shared memory, 8
+// bytes a lane a load, so copies and products share its bandwidth and
+// overlap only in part.  The fp64 tensor cores (DMMA), whose fragments
+// read each operand once a warp, are the next step; TMA and wgmma are not
+// used.
 // Every launch goes to the caller's stream; each entry point returns
 // cudaGetLastError() so that a refused launch reaches the wrapper.
+//
+// LEGENDRE_F64_PARTS (a bit set, 7 unless nvcc is given -D) keeps the table
+// copies (1), the batch copies (2) and the products (4).  A build that
+// leaves a part out computes a wrong result on purpose: it only serves to
+// time the other parts alone.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#ifndef LEGENDRE_F64_PARTS
+#define LEGENDRE_F64_PARTS 7
+#endif
+
 namespace {
+
+constexpr bool kTableCopies = LEGENDRE_F64_PARTS & 1;
+constexpr bool kBatchCopies = LEGENDRE_F64_PARTS & 2;
+constexpr bool kProducts = LEGENDRE_F64_PARTS & 4;
 
 constexpr int kStages = 3;           // cp.async ring depth
 constexpr int CT = 8;                // batch columns per thread
@@ -90,6 +105,8 @@ constexpr int kAdjPass = kAdjRows * kAdjRowsPerThread;  // rows per block
 constexpr int kAdjChunk = 16;        // adjoint: rings per stage, at most
 constexpr int kAdjGroups = 2;        // adjoint: ring groups per block
 constexpr int kAdjMinBlocks = 2;
+// adjoint threads at the widest column tile, 32 columns
+constexpr int kAdjMaxThreads = kAdjRows * (32 / CT) * kAdjGroups;
 static_assert(kSynthMaxGroup <= kSynthMaxThreads, "a row group per block");
 
 // ---------------------------------------------------------------------------
@@ -182,6 +199,10 @@ template <int RT>
 __device__ __forceinline__ void fma_rows(const double (&a)[RT],
                                          const double* b, int ldb,
                                          double (&acc)[RT][CT]) {
+  if (!kProducts) {  // the table's shared-memory reads stay
+    acc[0][0] += a[0];
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < CT; ++j) {
     const double v = b[j * ldb];
@@ -264,13 +285,14 @@ synth_tri_f64(const double* __restrict__ lam, const double* __restrict__ x,
     if (q < nst) {
       const int m = stage_m(q), l0 = stage_l0(q);
       const int nrows = min(KL, L - l0), s = q % kStages;
-      stage_rows(tbuf + s * TS,
-                 lam + (static_cast<size_t>(m) * L + l0) * nr + r_lo, nr,
-                 nrows, R, RS, cl);
+      if (kTableCopies)
+        stage_rows(tbuf + s * TS,
+                   lam + (static_cast<size_t>(m) * L + l0) * nr + r_lo, nr,
+                   nrows, R, RS, cl);
       // along l, x's unit stride: consecutive threads, consecutive l
       const double* xm = x + m * sxm + l0;
       double* xs = xbuf + s * XK * TC;
-      for (int i = tid; i < TC * KL; i += nth) {
+      for (int i = tid; kBatchCopies && i < TC * KL; i += nth) {
         const int c = i / KL, k = i % KL;
         if (k < nrows && c0 + c < C)
           cp_async8(xs + c * XK + k, xm + (c0 + c) * sxc + k);
@@ -312,12 +334,17 @@ synth_tri_f64(const double* __restrict__ lam, const double* __restrict__ x,
           for (int j = 0; j < CT; ++j) v[u][j] = xs[ku + j * XK];
         }
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
+        for (int u = 0; u < 4; ++u) {
+          if (!kProducts) {
+            acc[0][0] += a[u][0];
+            continue;
+          }
 #pragma unroll
           for (int j = 0; j < CT; ++j)
 #pragma unroll
             for (int i = 0; i < RT; ++i)
               acc[i][j] = fma(a[u][i], v[u][j], acc[i][j]);
+        }
       }
       for (; k < nrows; k += G) {
         const double* row = ts + row_start(k, RS, p0 ^ (k & nr & 1));
@@ -407,7 +434,7 @@ __host__ __device__ inline int adj_blocks(int L) {
 // and the table rows [kAdjPass][RS]; then the sums of groups 1..
 // [RA CT][kAdjGroups - 1][group].
 template <int TC>
-__global__ void __launch_bounds__(kAdjRows * 4 * kAdjGroups, kAdjMinBlocks)
+__global__ void __launch_bounds__(kAdjMaxThreads, kAdjMinBlocks)
 adj_tri_f64(const double* __restrict__ lam, const double* __restrict__ g,
             double* __restrict__ out, int L, int nr, int C, long long sgm,
             long long sgr, long long sgc, long long som, long long soc) {
@@ -446,9 +473,10 @@ adj_tri_f64(const double* __restrict__ lam, const double* __restrict__ g,
     if (q < nch) {
       const int r_lo = q * nr / nch, rc = (q + 1) * nr / nch - r_lo;
       const int s = q % kStages;
-      stage_rows(tbuf + s * TS, lam_b + r_lo, nr, nrows, rc, RS, cl);
+      if (kTableCopies)
+        stage_rows(tbuf + s * TS, lam_b + r_lo, nr, nrows, rc, RS, cl);
       double* gs = gbuf + s * GK * TC;
-      for (int i = tid; i < RC * TC; i += nth) {
+      for (int i = tid; kBatchCopies && i < RC * TC; i += nth) {
         const int k = r_unit ? i % RC : i / TC;
         const int c = r_unit ? i / RC : i % TC;
         if (k < rc && c0 + c < C)

@@ -43,7 +43,7 @@ import torch
 
 __all__ = ["legendre_synth_tri", "legendre_adj_tri",
            "legendre_synth_tri_plain", "legendre_adj_tri_plain",
-           "build", "f32_dynamic_smem", "f64_plan", "reset_launch_counts"]
+           "build", "f32_dynamic_smem", "reset_launch_counts"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -63,6 +63,7 @@ _LIBS = {
                          "legendre_tri_f64_plan": [_I] * 3},
 }
 _fns: dict = {}
+_loaded = {"tag": None}  # the build whose entry points are in _fns
 
 
 def _nvcc() -> str:
@@ -76,22 +77,26 @@ def _nvcc() -> str:
     return str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def _build_tag() -> str:
+def _build_tag(flags: tuple) -> str:
     """Hash of the nvcc flags and every source under ``csrc/``."""
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> dict:
+def build(defines: tuple = ()) -> dict:
     """Compile the kernel sources that have no build for the current
     sources and flags (one nvcc each, all started together) and load them.
-    Returns {source stem: (path of the shared library, the compiler's
-    report, with ptxas's registers and shared memory per kernel; empty when
-    an existing build was reused)}."""
-    tag = _build_tag()
+    ``defines`` ("NAME=VALUE") are passed to nvcc as -D flags; the build
+    they make replaces the entry points in use until ``build()`` is called
+    again without them (``chip_smoke.py --f64-parts`` times the float64
+    kernels' parts so).  Returns {source stem: (path of the shared library,
+    the compiler's report, with ptxas's registers and shared memory per
+    kernel; empty when an existing build was reused)}."""
+    flags = (*_NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    tag = _build_tag(flags)
     sos = {stem: _BUILD_DIR / f"{stem}_{tag}.so" for stem in _LIBS}
     reports = dict.fromkeys(sos, "")
     procs = {}
@@ -100,7 +105,7 @@ def build() -> dict:
             continue
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
+        cmd = [_nvcc(), *flags, "-o", str(tmp),
                str(_CSRC / f"{stem}.cu")]
         procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
@@ -115,7 +120,7 @@ def build() -> dict:
             reports[stem] = out + err
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
-    if not _fns:
+    if _loaded["tag"] != tag:
         for stem, entries in _LIBS.items():
             lib = ctypes.CDLL(str(sos[stem]))
             for name, argtypes in entries.items():
@@ -123,6 +128,7 @@ def build() -> dict:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
                 _fns[name] = fn
+        _loaded["tag"] = tag
     return {stem: (sos[stem], reports[stem]) for stem in sos}
 
 

@@ -197,13 +197,14 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
 # the card
 # ---------------------------------------------------------------------------
 
+# in both dtypes: the last two are the CG phase's shapes (8 chains x
+# Re/Im), where the mixed ladder's float32 apply runs too
 CARD_SHAPES = [(16, 12, 8), (37, 19, 10), (513, 65, 256), (513, 65, 200),
-               (513, 513, 256)]
-# float64 alone: the CG phase's shapes (8 and 16 chains x Re/Im), an even L
-# with odd nr (the odd m's table slabs start off a 16-byte boundary), and
-# ragged column counts
-F64_CARD_SHAPES = [(513, 65, 16), (513, 513, 16), (513, 65, 32),
-                   (64, 33, 16), (37, 19, 1), (37, 19, 17)]
+               (513, 513, 256), (513, 65, 16), (513, 513, 16)]
+# float64 alone: the CG phase's cut rings at 16 chains, an even L with odd
+# nr (the odd m's table slabs start off a 16-byte boundary), and ragged
+# column counts
+F64_CARD_SHAPES = [(513, 65, 32), (64, 33, 16), (37, 19, 1), (37, 19, 17)]
 DTYPES = [(torch.float32, 1e-5), (torch.float64, 1e-12)]
 
 
