@@ -83,7 +83,7 @@ non-zero:
    iteration, the true residual), rjpo_cr at 1e-5 from the CG draw, the
    mixed-precision ladder (float32 apply on the 3xTF32 kernels, float64
    vectors and true residuals, replacement every 10) at both tolerances,
-   and a CenteredGibbs slice with the cg CR (the initial draw and 3
+   capped at 1000 iterations, and a CenteredGibbs slice with the cg CR (the initial draw and 3
    iterations);
 9. the same ASIS slice and float64 checks on bench.py's planckish mask (an
    apodized band plus 200 point-source holes): checks the split's 83
@@ -97,7 +97,30 @@ non-zero:
    on cap rings) in 391 x 8 point rows and the floor transform against the
    full 1023-ring synthesis at the floor pixels; runs the ASIS slice with
    its tuned record and the float64 checks;
-11. prints the kernels' JSON line, the float32 and the float64 kernels
+11. with those models freed, the runner (gibbssampler_tpu_torch.inference.
+   run_experiment) on examples/run_polarization.py's configuration at
+   lmax 512 (RUNNER_CFG: GL band 10 deg, 32 chains, asis with aux_gibbs,
+   the direct MH engine on 8-bin blocks): once uninterrupted, then
+   crashed by its verbose callback after the first segment's checkpoint
+   and resumed; the resumed results equal the uninterrupted ones bit for
+   bit (chains, CR and MH acceptance histories, summaries), their keys
+   are RUNNER_KEYS, the D_ell finite and positive, the checkpoint gone;
+   ms/iter per segment, acceptances and peak memory;
+12. the runner on a HEALPix FITS mask: a 20 deg galactic band at nside 512
+   written NESTED by the port and read back equal, ud_graded to nside 256
+   by the runner (centered, aux_gibbs, 8 chains, time_steps): f_sky, the
+   model kind (cut decomposition or full-transform fallback, confirmed by
+   the launches' row counts), finite chains, positive step times;
+13. joint TQU: (a) the exact joint scheme through the runner at lmax 512
+   on the full sky (32 chains, 40 iterations, r_te 0.5): the posterior TE
+   correlation against the realization's over l 50-400 within
+   te_tolerance, every block positive definite; (b) one float64
+   cg_joint_cr solve on a spin-3 band-cut model (4 chains, tol 1e-6, the
+   reference's noise levels): every chain converged, the true residual
+   recomputed with the full-grid operator <= 1e-6; then phase 3's checks
+   at every (L, nr, C, dtype) that phases 11-13 launched and phase 3 does
+   not cover (the wrappers' per-shape counts);
+14. prints the kernels' JSON line, the float32 and the float64 kernels
    each with their launches summed over the paths, then {"ok": true,
    "device": {...}} last.
 
@@ -108,10 +131,12 @@ missing record fails the run.  It imports nothing of JAX; the port is
 imported from this file's directory.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -175,6 +200,10 @@ TIMED_NR = (CUT_RINGS, PLANCKISH_FLOOR_RINGS, HEALPIX_FLOOR_RINGS,
 CG_CHAINS = 8
 CG_TOLS = (1e-5, 1e-6)
 CG_MAXITER = 4000
+# the mixed ladder's cap: it cycles from its 9th replacement on, so 1000
+# iterations show the cycle (a cap of CG_MAXITER would only repeat it and
+# take the time the runner and joint phases need)
+CG_MIXED_MAXITER = 1000
 CG_REPLACE_EVERY = 10
 CG_JAX_ITERS = {1e-5: 234, 1e-6: 351}
 CG_SLICE_ITERS = 3
@@ -197,6 +226,41 @@ F64_TIMED = ((CUT_RINGS, 2 * CG_CHAINS), (LMAX + 1, 2 * CG_CHAINS),
 # float64-only correctness shapes: an even L with odd nr (the odd m's table
 # slabs start on an 8-byte, not a 16-byte, boundary) and ragged columns
 F64_EXTRA = ((64, 33, 16), (37, 19, 1), (37, 19, 17))
+# the runner phase: examples/run_polarization.py's configuration with lmax
+# raised from its default 128 to bench.py's 512 (GL 513 x 1026, the cut
+# decomposition over the band's rings, 64 + 64 eight-bin MH blocks on the
+# direct engine), run once, then crashed after its first segment and
+# resumed; the results keys the JAX runner writes for it
+# (tests/test_torch_runner.py holds the list against the JAX runner)
+RUNNER_CFG = dict(lmax=LMAX, spin=2, grid="gl", scheme="asis",
+                  cr_method="aux_gibbs", cr_options={"n_gibbs": 20},
+                  noise_sigma2=0.04, fwhm_deg=0.5, mask_band_deg=10.0,
+                  nchains=32, dtype="float32", n_iter=20, segment=10)
+RUNNER_KEYS = sorted(["config", "cr_accept_chain", "cr_accepts",
+                      "durations"] + [f"{k}_{f}" for f in range(2) for k in
+                                      ("dl_chain", "ess", "mean",
+                                       "mh_accept", "rhat")])
+# the FITS phase: a galactic band mask at nside 2 x 256, written NESTED
+FITS_BAND_DEG = 20.0
+RUNNER_FITS_CFG = dict(lmax=LMAX, grid="healpix", nside=NSIDE, spin=2,
+                       scheme="centered", cr_method="aux_gibbs",
+                       cr_options={"n_gibbs": 5}, nchains=8, n_iter=6,
+                       segment=3, time_steps=True)
+# the joint phase: (a) the exact joint scheme on the full sky through the
+# runner, its TE check over l 50-400 after 10 iterations; (b) one float64
+# joint CG solve on a spin-3 band-cut model at the reference's noise levels
+# per pixel, 40^2 muK^2 in T and 0.2^2 in Q and U (with 0.2^2 in T too the
+# TT signal-to-noise reaches 1e9 and CG needs 2275 iterations already at
+# lmax 128, on the CPU)
+JOINT_CFG = dict(lmax=LMAX, spin=3, scheme="joint", r_te=0.5,
+                 noise_sigma2=0.04, fwhm_deg=0.5, nchains=32, n_iter=40,
+                 segment=20, time_steps=True)
+JOINT_TE_ELLS = (50, 400)
+JOINT_BURN = 10
+JOINT_CG_NOISE = (40.0 ** 2, 0.2 ** 2, 0.2 ** 2)
+JOINT_CG_BAND_DEG = 10.0
+JOINT_CG_CHAINS = 4
+JOINT_CG_TOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 TF32X3_FLOPS_PER_S = 495e12 / 3      # 3 TF32 tensor-core products each
 # H100 SXM float64 tensor-core peak; the float64 kernels stream the table
@@ -308,78 +372,118 @@ def phase_build(lk):
               f"(bytes) at nr {nr}, C {C}: {lk.f64_plan(nr, C)}", flush=True)
 
 
+TOLS = {"float32": 1e-5, "float64": 1e-12}
+
+
+def kernel_check(torch, lk, L, nr, C, dtype, dev, gen, label="kernels"):
+    """Both kernels against their plain versions at (L, nr, C, dtype), on
+    contiguous operands and on the strided views the main path passes,
+    the outputs given NaN-filled memory, with the adjointness of the pair.
+    Returns (lam, {layout: (x, g, {kernel: max|err|})})."""
+    tol = TOLS[str(dtype)[6:]]
+    lam = tri_table(torch, L, nr, dtype, dev, gen)
+    x0 = torch.randn((L, C, L), generator=gen, dtype=dtype, device=dev)
+    g0 = torch.randn((L, nr, C), generator=gen, dtype=dtype, device=dev)
+    # y = K1 x + noise, so that <K1 x, y> is large
+    y0 = (lk.legendre_synth_tri_plain(lam, x0)
+          + torch.randn((L, nr, C), generator=gen, dtype=dtype, device=dev))
+    res = {}
+    for lay, (x, g, y) in {"contiguous": (x0, g0, y0),
+                           "state views": (x_view(x0), g_view(g0),
+                                           g_view(y0))}.items():
+        errs, rels = {}, {}
+        for name, kern, plain, b, shape in (
+                ("legendre_synth_tri", lk.legendre_synth_tri,
+                 lk.legendre_synth_tri_plain, x, (L, nr, C)),
+                ("legendre_adj_tri", lk.legendre_adj_tri,
+                 lk.legendre_adj_tri_plain, g, (C, L, L))):
+            # NaN in the memory the output will be given: the kernel must
+            # write every element, the adjoint's l < m zeros too
+            torch.full(shape, float("nan"), dtype=dtype, device=dev)
+            out = kern(lam, b)
+            ref = plain(lam, b)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            scale = float(ref.abs().max())
+            check(err <= tol * scale,
+                  f"{name} L={L} nr={nr} C={C} {dtype} {lay}: max|err| "
+                  f"{err} > {tol} * {scale}")
+            errs[name] = err
+            rels[name] = err / scale
+        lhs = float((lk.legendre_synth_tri(lam, x).double()
+                     * y.double()).sum())
+        rhs = float((x.double() * lk.legendre_adj_tri(lam, y).double()).sum())
+        rel = abs(lhs - rhs) / abs(lhs)
+        check(rel <= (1e-5 if dtype == torch.float32 else 1e-12),
+              f"adjointness L={L} nr={nr} C={C} {dtype} {lay}: {rel}")
+        print(f"{label} L={L} nr={nr} C={C} {str(dtype)[6:]} {lay}: "
+              f"max|err|/max|ref| synth {rels['legendre_synth_tri']:.2e} adj "
+              f"{rels['legendre_adj_tri']:.2e} (<= {tol}), adjointness "
+              f"{rel:.2e}", flush=True)
+        res[lay] = (x, g, errs)
+    return lam, res
+
+
+def phase3_shapes(torch):
+    """The (L, nr, C, dtype) shapes phase 3 checks."""
+    f32, f64 = torch.float32, torch.float64
+    return ([(L, nr, C, (f32, f64)) for L, nr, C in
+             [(16, 12, 8), (37, 19, 10), (LMAX + 1, CUT_RINGS, 200)]
+             + [(LMAX + 1, nr, 2 * NCHAINS) for nr in TIMED_NR]]
+            + [(LMAX + 1, nr, C, (f32, f64) if C == 2 * CG_CHAINS
+                else (f64,)) for nr, C in F64_TIMED]
+            + [(*sh, (f64,)) for sh in F64_EXTRA])
+
+
 def phase_kernels(torch, lk, dev, card):
     """Kernel vs plain on the card, contiguous and in the main path's
     layouts; returns the main-path records, float32 and float64."""
     check(not torch.backends.cuda.matmul.allow_tf32,
           "the plain versions must run in true float32 (allow_tf32 is on)")
     gen = torch.Generator(device=dev).manual_seed(0)
-    tols = {torch.float32: 1e-5, torch.float64: 1e-12}
-    shapes = ([(L, nr, C, tuple(tols)) for L, nr, C in
-               [(16, 12, 8), (37, 19, 10), (LMAX + 1, CUT_RINGS, 200)]
-               + [(LMAX + 1, nr, 2 * NCHAINS) for nr in TIMED_NR]]
-              + [(LMAX + 1, nr, C, tuple(tols) if C == 2 * CG_CHAINS
-                  else (torch.float64,)) for nr, C in F64_TIMED]
-              + [(*s, (torch.float64,)) for s in F64_EXTRA])
     rec, rec64 = {}, {}
-    for L, nr, C, dtypes in shapes:
+    for L, nr, C, dtypes in phase3_shapes(torch):
         for dtype in dtypes:
-            tol = tols[dtype]
-            lam = tri_table(torch, L, nr, dtype, dev, gen)
-            x0 = torch.randn((L, C, L), generator=gen, dtype=dtype, device=dev)
-            g0 = torch.randn((L, nr, C), generator=gen, dtype=dtype, device=dev)
-            # y = K1 x + noise, so that <K1 x, y> is large
-            y0 = (lk.legendre_synth_tri_plain(lam, x0)
-                  + torch.randn((L, nr, C), generator=gen, dtype=dtype,
-                                device=dev))
-            for lay, (x, g, y) in {
-                    "contiguous": (x0, g0, y0),
-                    "state views": (x_view(x0), g_view(g0), g_view(y0))
-            }.items():
-                errs, rels = {}, {}
-                for name, kern, plain, b, shape in (
-                        ("legendre_synth_tri", lk.legendre_synth_tri,
-                         lk.legendre_synth_tri_plain, x, (L, nr, C)),
-                        ("legendre_adj_tri", lk.legendre_adj_tri,
-                         lk.legendre_adj_tri_plain, g, (C, L, L))):
-                    # NaN in the memory the output will be given: the kernel
-                    # must write every element, the adjoint's l < m zeros too
-                    torch.full(shape, float("nan"), dtype=dtype, device=dev)
-                    out = kern(lam, b)
-                    ref = plain(lam, b)
-                    torch.cuda.synchronize()
-                    err = float((out - ref).abs().max())
-                    scale = float(ref.abs().max())
-                    check(err <= tol * scale,
-                          f"{name} L={L} nr={nr} C={C} {dtype} {lay}: "
-                          f"max|err| {err} > {tol} * {scale}")
-                    errs[name] = err
-                    rels[name] = err / scale
-                lhs = float((lk.legendre_synth_tri(lam, x).double()
-                             * y.double()).sum())
-                rhs = float((x.double()
-                             * lk.legendre_adj_tri(lam, y).double()).sum())
-                rel = abs(lhs - rhs) / abs(lhs)
-                check(rel <= (1e-5 if dtype == torch.float32 else 1e-12),
-                      f"adjointness L={L} nr={nr} C={C} {dtype} {lay}: {rel}")
-                print(f"kernels L={L} nr={nr} C={C} {str(dtype)[6:]} {lay}: "
-                      f"max|err|/max|ref| synth "
-                      f"{rels['legendre_synth_tri']:.2e} adj "
-                      f"{rels['legendre_adj_tri']:.2e} (<= {tol}), "
-                      f"adjointness {rel:.2e}", flush=True)
-                if L == LMAX + 1 and (
-                        (C == 2 * NCHAINS and dtype == torch.float32)
-                        or ((nr, C) in F64_TIMED and dtype == torch.float64)):
-                    into = rec if dtype == torch.float32 else rec64
-                    # keyed by nr at the main path's columns
-                    key = nr if C in (2 * NCHAINS, 2 * CG_CHAINS) \
-                        else f"{nr} C{C}"
+            lam, res = kernel_check(torch, lk, L, nr, C, dtype, dev, gen)
+            if L == LMAX + 1 and (
+                    (C == 2 * NCHAINS and dtype == torch.float32)
+                    or ((nr, C) in F64_TIMED and dtype == torch.float64)):
+                into = rec if dtype == torch.float32 else rec64
+                # keyed by nr at the main path's columns
+                key = nr if C in (2 * NCHAINS, 2 * CG_CHAINS) \
+                    else f"{nr} C{C}"
+                for lay, (x, g, errs) in res.items():
                     for name, r in time_kernels(torch, lk, lam, x, g, lay,
                                                 card, errs).items():
                         into.setdefault(name, {})[key] = r
-            del lam, x0, g0, y0, x, g, y
+            del lam, res
     torch.cuda.empty_cache()
     return rec, rec64
+
+
+def phase_new_shapes(torch, lk, dev, card, shapes):
+    """Phase 3's checks at every shape the runner and joint phases
+    launched that phase 3 does not cover (``shapes`` maps (kernel, L, nr,
+    C, dtype) to its launches in those phases), each timed as phase 3
+    times the main path's layout.  Returns (the shapes checked, the
+    float32 and the float64 records keyed "<nr> C<C>")."""
+    covered = {(L, nr, C, dt) for L, nr, C, dts in phase3_shapes(torch)
+               for dt in dts}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    new = sorted({k[1:] for k in shapes if k[1:] not in covered},
+                 key=lambda k: (str(k[3]), k[:3]))
+    rec, rec64 = {}, {}
+    for L, nr, C, dtype in new:
+        lam, res = kernel_check(torch, lk, L, nr, C, dtype, dev, gen,
+                                label="kernels (a new phases' shape)")
+        x, g, errs = res["state views"]
+        into = rec if dtype == torch.float32 else rec64
+        for name, r in time_kernels(torch, lk, lam, x, g, "state views",
+                                    card, errs).items():
+            into.setdefault(name, {})[f"{nr} C{C}"] = r
+        del lam, res, x, g
+    torch.cuda.empty_cache()
+    return new, rec, rec64
 
 
 def time_kernels(torch, lk, lam, x, g, lay, card, errs):
@@ -1514,7 +1618,7 @@ def phase_cg(torch, lk, dev, card, profile):
         before, n_hi[0] = counts(lk), 0
         hist.clear()
         (x, info), ms = cuda_ms(torch, lambda: cg_solve(
-            op32, b, precond_diag=pre, tol=tol, maxiter=CG_MAXITER,
+            op32, b, precond_diag=pre, tol=tol, maxiter=CG_MIXED_MAXITER,
             ndim_sys=2, apply_dtype=torch.float32, operator_hi=op64,
             replace_every=CG_REPLACE_EVERY))
         d = tuple(a - c for a, c in zip(counts(lk), before))
@@ -1559,6 +1663,306 @@ def phase_cg(torch, lk, dev, card, profile):
           f"float32 {launches[:2]}, float64 {launches[2:]} [{card}]",
           flush=True)
     return launches
+
+
+class Crash(Exception):
+    """The runner phase's deliberate crash."""
+
+
+def crash_after_first_segment(msg):
+    """A ``verbose`` callback that raises at the first segment's line,
+    which the runner prints after that segment's checkpoint is written."""
+    if str(msg).startswith("segment done"):
+        raise Crash(msg)
+
+
+def shape_counts(lk):
+    """{(kernel, L, nr, C, dtype): launches} since the counts were last
+    set to 0."""
+    out = {}
+    for fn in (lk.legendre_synth_tri, lk.legendre_adj_tri):
+        for k, v in fn.shapes.items():
+            out[(fn.__name__,) + k] = v
+    return out
+
+
+def print_shapes(label, shapes):
+    print(f"{label} launches by shape: " + "; ".join(
+        f"{k[0][9:]} nr {k[2]} C {k[3]} {str(k[4])[6:]}: {v}"
+        for k, v in sorted(shapes.items(), key=lambda kv: str(kv[0]))),
+        flush=True)
+
+
+def run_counted(torch, lk, fn):
+    """fn() with the launch counts set to 0 just before it and read just
+    after: (result, counts, shape counts, wall seconds)."""
+    torch.cuda.synchronize()
+    lk.reset_launch_counts()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, counts(lk), shape_counts(lk), time.time() - t0
+
+
+def phase_runner(torch, lk, dev, card, tmp):
+    """The README's polarization run at full width through
+    ``run_experiment`` (RUNNER_CFG): once uninterrupted, then crashed by
+    its verbose callback after the first segment's checkpoint and
+    resumed.  Checks the resumed results against the uninterrupted ones
+    bit for bit (every key but the configuration's path and the
+    timings), the results' keys, finite positive D_ell and the checkpoint
+    gone.  Returns (launches, shape counts) of the three runs."""
+    from gibbssampler_tpu_torch.inference import RunConfig, run_experiment
+    ref_cfg = RunConfig(**RUNNER_CFG, out=os.path.join(tmp, "ref.npz"))
+    logs = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref, n_ref, sh, wall = run_counted(torch, lk, lambda: run_experiment(
+        ref_cfg, verbose=logs.append, device=dev))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(sorted(ref) == RUNNER_KEYS, f"runner results keys {sorted(ref)}")
+    check(not os.path.exists(ref_cfg.out + ".ckpt.npz"),
+          "runner: the checkpoint is left after the run")
+    for f in range(2):
+        dl = ref[f"dl_chain_{f}"]
+        check(dl.shape == (RUNNER_CFG["nchains"], RUNNER_CFG["n_iter"],
+                           RUNNER_CFG["lmax"] - 1) and np.isfinite(dl).all()
+              and (dl > 0).all(), f"runner dl_chain_{f}: shape {dl.shape} "
+              f"or non-finite or non-positive values")
+    cfg = RunConfig(**RUNNER_CFG, out=os.path.join(tmp, "crash.npz"))
+    logs2 = []
+
+    def crash_then_resume():
+        try:
+            run_experiment(cfg, verbose=crash_after_first_segment, device=dev)
+        except Crash:
+            pass
+        else:
+            raise RuntimeError("check failed: the runner did not crash")
+        check(os.path.exists(cfg.out + ".ckpt.npz")
+              and not os.path.exists(cfg.out),
+              "runner: no checkpoint after the crash")
+        return run_experiment(cfg, resume=True, verbose=logs2.append,
+                              device=dev)
+
+    res, n_res, sh2, wall2 = run_counted(torch, lk, crash_then_resume)
+    seg = RUNNER_CFG["segment"]
+    check(logs2[0] == f"resumed at iteration {seg}",
+          f"runner resume: {logs2[0]!r}")
+    timed = {"config", "durations"}
+    check(sorted(res) == sorted(ref), "runner resume: results keys differ")
+    for k in sorted(set(ref) - timed):
+        if not np.array_equal(res[k], ref[k]):
+            diff = np.argwhere(res[k] != ref[k])
+            raise RuntimeError(
+                f"check failed: the resumed run's {k} differs from the "
+                f"uninterrupted run's at {len(diff)} entries, first at "
+                f"{diff[0].tolist()}")
+    check(not os.path.exists(cfg.out + ".ckpt.npz"),
+          "runner: the checkpoint is left after the resumed run")
+    ms = ref["durations"] / seg * 1e3
+    acc = ", ".join(f"{'EB'[f]} {ref[f'mh_accept_{f}'].mean():.4f}"
+                    for f in range(2))
+    print(f"runner lmax {LMAX} GL band {RUNNER_CFG['mask_band_deg']} deg, "
+          f"{RUNNER_CFG['nchains']} chains asis + aux_gibbs (n_gibbs "
+          f"{RUNNER_CFG['cr_options']['n_gibbs']}) + direct MH on "
+          f"8-bin blocks, float32: ms/iter per segment "
+          f"{', '.join(f'{t:.2f}' for t in ms)} (wall {wall:.1f} s with the "
+          f"set-up); acceptance CR {ref['cr_accepts'].mean():.4f}, MH "
+          f"{acc}; peak memory {peak:.2f} GiB; the crashed and resumed run "
+          f"{wall2:.1f} s, bit-equal to the uninterrupted one in "
+          f"{', '.join(sorted(set(ref) - timed))} [{card}]", flush=True)
+    launches = tuple(a + b for a, b in zip(n_ref, n_res))
+    shapes = {k: sh.get(k, 0) + sh2.get(k, 0) for k in {**sh, **sh2}}
+    print_shapes("runner", shapes)
+    return launches, shapes
+
+
+def phase_runner_fits(torch, lk, dev, card, tmp):
+    """A HEALPix FITS mask through the runner: bench.py's-style galactic
+    band at nside 512 written NESTED by the port, read back, ud_graded to
+    nside 256 by ``run_experiment`` (RUNNER_FITS_CFG, ``time_steps``).
+    The model kind the runner builds is read off the host-side cut
+    weights and confirmed by the transforms' row counts in the launches.
+    Returns (launches, shape counts)."""
+    from gibbssampler_tpu_torch.inference import (RunConfig, read_healpix_map,
+                                                  run_experiment,
+                                                  write_healpix_map)
+    from gibbssampler_tpu_torch.ops import healpix_cut_weights
+    from gibbssampler_tpu_torch.sht import (galactic_band_mask,
+                                            healpix_layout, ud_grade)
+    nside = RUNNER_FITS_CFG["nside"]
+    path = os.path.join(tmp, "mask.fits")
+    mask = galactic_band_mask(2 * nside, FITS_BAND_DEG)
+    write_healpix_map(path, mask, ordering="NESTED")
+    back, hdr = read_healpix_map(path)
+    check(hdr["ORDERING"] == "NESTED" and np.array_equal(back, mask),
+          "FITS mask: the map read back differs from the one written")
+    m = ud_grade(back, nside)
+    f_sky = float((m > 0).mean())
+    check(0.5 < f_sky < 0.95, f"FITS mask f_sky {f_sky}")
+    lay = healpix_layout(nside, "ring")
+    try:
+        rows, _, _, sparse = healpix_cut_weights(lay, m[None], np.ones_like(m))
+        kind = (f"cut decomposition over {rows.size} belt rows"
+                + (f" + {sparse[1].size} hole pixels" if sparse else ""))
+        nr_expect = rows.size
+    except ValueError:
+        kind, nr_expect = "full-transform fallback", 4 * nside - 1
+    cfg = RunConfig(**RUNNER_FITS_CFG, mask_fits=path,
+                    out=os.path.join(tmp, "fits.npz"))
+    res, n, sh, wall = run_counted(torch, lk, lambda: run_experiment(
+        cfg, verbose=lambda *a: None, device=dev))
+    check(any(k[2] == nr_expect for k in sh),
+          f"FITS run: no launch at the {kind}'s {nr_expect} rows")
+    for f in range(2):
+        check(np.isfinite(res[f"dl_chain_{f}"]).all(),
+              f"FITS run dl_chain_{f} non-finite")
+    nseg = -(-cfg.n_iter // cfg.segment)
+    for name in ("cr", "cls", "full"):
+        t = res[f"step_time_{name}"]
+        check(t.shape == (nseg,) and (t > 0).all(),
+              f"FITS run step_time_{name} {t}")
+    print(f"runner HEALPix nside {nside} lmax {cfg.lmax}, FITS mask "
+          f"(galactic band {FITS_BAND_DEG} deg at nside {2 * nside}, "
+          f"NESTED, read back equal, ud_graded): f_sky {f_sky:.4f}; model: "
+          f"{kind}; {cfg.nchains} chains centered aux_gibbs, ms/iter per "
+          f"segment {', '.join(f'{t:.2f}' for t in res['durations'] / cfg.segment * 1e3)}; "
+          f"step times per segment (ms) CR "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in res['step_time_cr'])}, "
+          f"C_ell {', '.join(f'{t * 1e3:.2f}' for t in res['step_time_cls'])},"
+          f" full {', '.join(f'{t * 1e3:.2f}' for t in res['step_time_full'])}"
+          f"; wall {wall:.1f} s with the set-up [{card}]", flush=True)
+    print_shapes("FITS runner", sh)
+    return n, sh
+
+
+def te_tolerance(ell):
+    """The joint TE check's bound per degree: 0.45, the bound
+    tests/test_joint.py::test_joint_gibbs_recovers_te_correlation sets at
+    its lowest degree, l = 4 (2l + 1 = 9), shrunk with the
+    inverse-Wishart scatter of a correlation, 1 / sqrt(2l + 1)."""
+    return 0.45 * np.sqrt(9.0 / (2.0 * ell + 1.0))
+
+
+def phase_joint(torch, lk, dev, card, tmp):
+    """(a) The joint TQU scheme through the runner on the full sky
+    (JOINT_CFG: exact joint CR and inverse-Wishart draw): the posterior
+    TE correlation against the realization's over JOINT_TE_ELLS after
+    JOINT_BURN iterations, every block finite and positive definite.
+    (b) One float64 cg_joint_cr solve on a spin-3 band-cut model
+    (JOINT_CG_*: the joint data of (a) under a band mask, the reference's
+    noise levels): every chain converged, the true residual recomputed
+    with the full-grid operator.  Returns (launches, shape counts)."""
+    from gibbssampler_tpu_torch.harmonics import alm2cl_state
+    from gibbssampler_tpu_torch.inference import (RunConfig, run_experiment,
+                                                  simulate_dataset)
+    from gibbssampler_tpu_torch.inference.runner import _fields, _mask
+    from gibbssampler_tpu_torch.ops import with_cut_decomposition
+    from gibbssampler_tpu_torch.samplers import (cg_joint_cr, joint_block_ops,
+                                                 synfast_joint)
+    cfg = RunConfig(**JOINT_CFG, out=os.path.join(tmp, "joint.npz"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, n_a, sh_a, wall = run_counted(torch, lk, lambda: run_experiment(
+        cfg, verbose=lambda *a: None, device=dev))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    chain = res["dl_chain_0"]
+    L = cfg.lmax + 1
+    check(chain.shape == (cfg.nchains, cfg.n_iter, L, 3, 3),
+          f"joint chain shape {chain.shape}")
+    check(np.isfinite(chain).all(), "joint chain has NaN or inf")
+    ev = np.linalg.eigvalsh(chain[:, :, 2:].astype(np.float64))
+    check((ev > 0).all(), f"joint blocks not positive definite: min "
+          f"eigenvalue {ev.min():.3g}")
+    # the realization: simulate_dataset draws the fields from the dataset
+    # generator first, through synfast_joint of the C_ell blocks
+    fields, blocks = _fields(cfg)
+    ell = np.arange(L, dtype=np.float64)
+    fac = np.where(ell >= 2, 2 * np.pi / np.maximum(ell * (ell + 1), 1), 0)
+    s = synfast_joint(blocks * fac[:, None, None], cfg.lmax,
+                      dtype=torch.float32, device=dev,
+                      gen=torch.Generator(device=dev).manual_seed(cfg.seed))
+    tt, ee, te = (alm2cl_state(a, cfg.lmax, b).double().cpu().numpy()
+                  for a, b in ((s[0], s[0]), (s[1], s[1]), (s[0], s[1])))
+    lo, hi = JOINT_TE_ELLS
+    ls = np.arange(lo, hi + 1)
+    r_hat = te[ls] / np.sqrt(tt[ls] * ee[ls])
+    post = chain[:, JOINT_BURN:].astype(np.float64).mean(axis=(0, 1))
+    r_post = post[ls, 0, 1] / np.sqrt(post[ls, 0, 0] * post[ls, 1, 1])
+    dev_r = np.abs(r_post - r_hat)
+    ratio = dev_r / te_tolerance(ls)
+    worst = int(np.argmax(ratio))
+    check(ratio.max() <= 1.0, f"joint TE recovery at l = {ls[worst]}: "
+          f"|r_post - r_hat| = {dev_r[worst]:.4f} > "
+          f"{te_tolerance(ls[worst]):.4f}")
+    ms = res["durations"] / cfg.segment * 1e3
+    print(f"joint TQU lmax {cfg.lmax} GL full sky, {cfg.nchains} chains, "
+          f"exact joint CR + inverse-Wishart, float32, r_te {cfg.r_te}: ms/iter "
+          f"per segment {', '.join(f'{t:.2f}' for t in ms)}; step times "
+          f"(ms) CR {', '.join(f'{t * 1e3:.2f}' for t in res['step_time_cr'])}"
+          f", inverse-Wishart "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in res['step_time_cls'])}; "
+          f"TE over l {lo}-{hi} after {JOINT_BURN} iterations: mean r_post "
+          f"{r_post.mean():.4f}, mean r_hat {r_hat.mean():.4f}, max "
+          f"|r_post - r_hat| / bound {ratio.max():.3f} (l = {ls[worst]}), "
+          f"median {np.median(ratio):.3f}; blocks SPD, min eigenvalue "
+          f"{ev.min():.3g}; peak memory {peak:.2f} GiB; wall {wall:.1f} s "
+          f"with the set-up [{card}]", flush=True)
+    print_shapes("joint exact", sh_a)
+
+    f64 = torch.float64
+    t0 = time.time()
+    model, _ = simulate_dataset(
+        cfg.lmax, 3, fields, JOINT_CG_NOISE,
+        fwhm_radians=np.radians(cfg.fwhm_deg),
+        mask=_mask(RunConfig(lmax=cfg.lmax, mask_band_deg=JOINT_CG_BAND_DEG)),
+        dtype=f64, device=dev, dl_blocks=blocks,
+        gen=torch.Generator(device=dev).manual_seed(cfg.seed))
+    model = with_cut_decomposition(model)
+    bt = model.bt_ninv_d()
+    check(model.has_cut and model.cut_sht.dtype == f64,
+          "joint CG: the float64 spin-3 cut decomposition")
+    nch = JOINT_CG_CHAINS
+    cl = torch.as_tensor(blocks * fac[:, None, None], dtype=f64,
+                         device=dev).expand(nch, -1, -1, -1)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    om0 = torch.randn((nch,) + tuple(bt.shape), generator=gen, dtype=f64,
+                      device=dev)
+    om1 = torch.randn((nch,) + tuple(model.noise.tau.shape), generator=gen,
+                      dtype=f64, device=dev)
+    torch.cuda.synchronize()
+    setup = time.time() - t0
+    (out, n_b, sh_b, _) = run_counted(torch, lk, lambda: cuda_ms(
+        torch, lambda: cg_joint_cr(model, cl, bt, tol=JOINT_CG_TOL,
+                                   maxiter=CG_MAXITER, om0=om0, om1=om1)))
+    (x, info), ms = out
+    its = info.extra.cpu().numpy().astype(np.int64)
+    check((its < CG_MAXITER).all(), f"joint CG: chains at the cap: {its}")
+    # the true residual, with the full-grid operator in place of the
+    # cut-ring complement form the solver used
+    cinv, sqrt_cinv, _, active = joint_block_ops(model, cl)
+    full = dataclasses.replace(model, cut_sht=None)
+    b = (bt + sqrt_cinv(om0) + full.project_data(
+        torch.sqrt(model.noise.inv_noise) * om1)) * active
+    r = b - (cinv(x * active) + full.qn_apply(x * active)) * active
+    res_true = (r.norm(dim=(-2, -1)) / b.norm(dim=(-2, -1))).cpu().numpy()
+    check(res_true.max() <= JOINT_CG_TOL, f"joint CG true residual "
+          f"{res_true.max():.3g} > {JOINT_CG_TOL}")
+    n_it = int(its.max())
+    print(f"joint CG float64 lmax {cfg.lmax} spin 3, band "
+          f"{JOINT_CG_BAND_DEG} deg (cut over {model.cut_sht.nrings} rings), "
+          f"noise {', '.join(f'{v:g}' for v in JOINT_CG_NOISE)} muK^2 per "
+          f"pixel in T, Q, U, {nch} chains, "
+          f"tol {JOINT_CG_TOL:g}: iterations max {n_it}, median "
+          f"{float(np.median(its)):.1f}, every chain converged; {ms:.1f} ms "
+          f"per solve, {ms / n_it:.3f} ms per iteration; true ||b - Qx||/||b||"
+          f" (full-grid operator) max {res_true.max():.3g}; set-up "
+          f"{setup:.1f} s [{card}]", flush=True)
+    print_shapes("joint CG", sh_b)
+    del model, bt, cl, om0, om1, x, b, r, full
+    torch.cuda.empty_cache()
+    launches = tuple(a + c for a, c in zip(n_a, n_b))
+    shapes = {k: sh_a.get(k, 0) + sh_b.get(k, 0) for k in {**sh_a, **sh_b}}
+    return launches, shapes
 
 
 def main():
@@ -1625,6 +2029,27 @@ def main():
         per_iter=HEALPIX_PER_ITER)
     lr_err["HEALPix planckish"] = phase_mh_sweep(
         torch, scheme, state, dev, card, label=" HEALPix planckish")
+    del model, scheme, state
+    torch.cuda.empty_cache()
+    # the runner and the joint TQU family, each phase counted on its own;
+    # then phase 3's checks at every shape they launched that it lacks
+    new_launches, new_shapes = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for phase in (phase_runner, phase_runner_fits, phase_joint):
+            n, sh = phase(torch, lk, dev, card, tmp)
+            new_launches.append(n)
+            for k, v in sh.items():
+                new_shapes[k] = new_shapes.get(k, 0) + v
+            torch.cuda.empty_cache()
+    checked, new_rec, new_rec64 = phase_new_shapes(torch, lk, dev, card,
+                                                   new_shapes)
+    for recs, new in ((rec, new_rec), (rec64, new_rec64)):
+        for name, by in new.items():
+            recs[name].update(by)
+    print(f"phase 3 at the runner and joint phases' {len(checked)} new "
+          f"shapes (L, nr, C, dtype): "
+          f"{', '.join(f'{L} {nr} {C} {str(dt)[6:]}' for L, nr, C, dt in checked)}",
+          flush=True)
     # the exact log-ratios: at most a tenth of the old form's rounding; the
     # pCN one under PCN_EXACT_LIMIT nats
     for cfg, errs in lr_err.items():
@@ -1638,6 +2063,7 @@ def main():
           f"float32 rounding max {new.max():.3g} > {PCN_EXACT_LIMIT}")
     launches = [sum(n) for n in zip(*launches.values())] + list(
         cg_launches[2:])
+    launches = [sum(n) for n in zip(launches, *new_launches)]
 
     kernels = []
     # (name, TPU source line, kernel source, records, launches): the

@@ -1,7 +1,9 @@
 """Dataset simulation on the Gauss-Legendre or HEALPix grid (PyTorch
 counterpart of ``gibbssampler_tpu.inference.simulate``): theory D_ell ->
 beam-smoothed Gaussian sky -> white noise -> optional mask, drawn from an
-explicit ``torch.Generator``."""
+explicit ``torch.Generator``.  Fields are uncorrelated, or drawn from
+per-ell covariance blocks (``dl_blocks``: a nonzero TE of joint TQU
+data)."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from ..harmonics.gridstate import almxfl_state, variance_expansion_state
 from ..harmonics.spectra import gauss_beam
 from ..ops.model import SkyModel
 from ..ops.noise import NoiseModel
+from ..samplers.joint import synfast_joint
 from ..sht.healpix import HealpixSHT
 from ..sht.transform import SHT, make_sht
 
@@ -41,18 +44,23 @@ def simulate_dataset(lmax: int, spin: int, dl_fields, noise_sigma2,
                      fwhm_radians: float = 0.0, mask=None,
                      dtype=torch.float32, device="cuda",
                      sht: SHT | HealpixSHT | None = None,
-                     gen: torch.Generator | None = None):
+                     gen: torch.Generator | None = None, dl_blocks=None):
     """Simulate d = A B s + n and return (SkyModel, truth dict).
 
-    dl_fields: (nfields, lmax+1) D_ell; mask: optional (nrings, nphi) on an
-    iso-latitude grid, or (npix,) in RING order on HEALPix (in either map
-    layout; the padded layout takes it through ``from_ring``)."""
+    dl_fields: (nfields, lmax+1) D_ell (spin 0: T; spin 2: E, B; spin 3:
+    T, E, B); mask: optional (nrings, nphi) on an iso-latitude grid, or
+    (npix,) in RING order on HEALPix (in either map layout; the padded
+    layout takes it through ``from_ring``).  dl_blocks: optional (lmax+1,
+    nfields, nfields) per-ell D_ell covariance blocks, whose diagonal must
+    equal dl_fields: the fields are then drawn correlated
+    (``samplers.synfast_joint``).  The sky is drawn from ``gen`` first,
+    the noise after it."""
     if sht is None:
-        sht = make_sht(lmax, dtype=dtype, spin2=(spin == 2), device=device)
+        sht = make_sht(lmax, dtype=dtype, spin2=(spin >= 2), device=device)
     dev = sht.device
     bl = (gauss_beam(fwhm_radians, lmax, dtype=dtype, device=dev)
           if fwhm_radians > 0 else torch.ones(lmax + 1, dtype=dtype, device=dev))
-    nf = {0: 1, 2: 2}[spin]
+    nf = {0: 1, 2: 2, 3: 3}[spin]
     mask_t = (None if mask is None
               else torch.as_tensor(np.array(mask), dtype=dtype, device=dev))
     if isinstance(sht, HealpixSHT):
@@ -65,9 +73,18 @@ def simulate_dataset(lmax: int, spin: int, dl_fields, noise_sigma2,
         noise = NoiseModel.white(noise_sigma2, sht.grid, nfields=nf,
                                  mask=mask, dtype=dtype, device=dev)
     dl = torch.as_tensor(np.asarray(dl_fields), dtype=dtype, device=dev)
-    var = variance_expansion_state(dl, lmax)
-    alm_true = torch.sqrt(var) * torch.randn(var.shape, generator=gen,
-                                             dtype=dtype, device=dev)
+    if dl_blocks is not None:
+        ell = np.arange(lmax + 1, dtype=np.float64)
+        cl_fac = np.where(ell >= 2, 2.0 * np.pi / np.maximum(
+            ell * (ell + 1.0), 1.0), 0.0)
+        blocks = torch.as_tensor(np.asarray(dl_blocks) * cl_fac[:, None, None],
+                                 dtype=dtype, device=dev)
+        alm_true = synfast_joint(blocks, lmax, dtype=dtype, device=dev,
+                                 gen=gen)
+    else:
+        var = variance_expansion_state(dl, lmax)
+        alm_true = torch.sqrt(var) * torch.randn(var.shape, generator=gen,
+                                                 dtype=dtype, device=dev)
     model = SkyModel(sht=sht, noise=noise, bl=bl, spin=spin)
     sky = model.forward(alm_true)
     inv = noise.inv_noise
@@ -78,4 +95,8 @@ def simulate_dataset(lmax: int, spin: int, dl_fields, noise_sigma2,
     if mask_t is not None:
         d = d * mask_t
     model = SkyModel(sht=sht, noise=noise, bl=bl, spin=spin, d=d)
-    return model, {"alm_true": alm_true, "dl_true": dl, "sky": sky}
+    truth = {"alm_true": alm_true, "dl_true": dl, "sky": sky}
+    if dl_blocks is not None:
+        truth["dl_blocks_true"] = torch.as_tensor(
+            np.asarray(dl_blocks), dtype=dtype, device=dev)
+    return model, truth

@@ -11,7 +11,8 @@ recomputes the cut rows the same way the JAX package does.
 
 A HEALPix model gives the grid as {"grid": "healpix", "nside": int,
 "layout": "ring" | "padded"} in place of theta, weights, phi0 and nphi;
-its maps are flat vectors in that layout.
+its maps are flat vectors in that layout.  ``spin`` is 0, 2 or 3 (joint
+TQU).
 
 ``tuned_proposal_sigmas`` reads the tuned MH proposal scales that the JAX
 package's tuning run stored in ``tuned_proposals.json``;
@@ -30,6 +31,7 @@ import torch
 from .ops.model import SkyModel
 from .ops.noise import NoiseModel
 from .schemes.gibbs import GibbsState
+from .schemes.joint_scheme import JointState
 from .sht.grids import SphereGrid
 from .sht.healpix import make_healpix_sht
 from .sht.transform import SHT
@@ -47,7 +49,7 @@ def model_from_numpy(arrays: dict, device="cuda",
     lmax = bl.shape[0] - 1
     if arrays.get("grid") == "healpix":
         sht = make_healpix_sht(int(arrays["nside"]), lmax, dtype=dtype,
-                               spin2=(spin == 2),
+                               spin2=(spin >= 2),
                                layout=arrays.get("layout", "ring"),
                                device=device)
     else:
@@ -57,7 +59,7 @@ def model_from_numpy(arrays: dict, device="cuda",
             weights=np.asarray(arrays["weights"], dtype=np.float64),
             nphi=int(arrays["nphi"]),
             phi0=np.asarray(arrays["phi0"], dtype=np.float64))
-        sht = SHT(grid, lmax, dtype=dtype, spin2=(spin == 2), device=device)
+        sht = SHT(grid, lmax, dtype=dtype, spin2=(spin >= 2), device=device)
     t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
     noise = NoiseModel(tau=t(arrays["tau"]), q_map=t(arrays["q_map"]),
                        omega=float(arrays["omega"]))
@@ -66,11 +68,15 @@ def model_from_numpy(arrays: dict, device="cuda",
                     d=None if d is None else t(d))
 
 
-def state_from_numpy(s, dl, device="cuda",
-                     dtype=torch.float64) -> GibbsState:
+def state_from_numpy(s, dl=None, device="cuda", dtype=torch.float64,
+                     cl=None):
     """GibbsState from (nchains, nfields, nstate) ``s`` and a per-field
-    sequence of (nchains, nbins_f) binned D_ell."""
+    sequence ``dl`` of (nchains, nbins_f) binned D_ell; or, given ``cl``
+    (nchains, lmax+1, k, k) C_ell blocks in place of ``dl``, the joint
+    scheme's JointState."""
     t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    if cl is not None:
+        return JointState(s=t(s), cl=t(cl))
     return GibbsState(s=t(s), dl=tuple(t(x) for x in dl))
 
 

@@ -1,9 +1,9 @@
 """The forward model d = A B s + n as a bundle of operators (PyTorch
 counterpart of ``gibbssampler_tpu.ops.model``, Gauss-Legendre and HEALPix
-grids, spin 0 and spin 2).
+grids, spin 0, spin 2 and joint TQU).
 
 - state ``s``     : (..., nfields, nstate) grid-packed alm
-- pixel data ``d``: (nfields, *pix) maps (T, or Q/U); pix is (nrings,
+- pixel data ``d``: (nfields, *pix) maps (T, Q/U or T/Q/U); pix is (nrings,
   nphi) on an iso-latitude grid and (npix,) on HEALPix.  The cut rings'
   and the point set's maps are (nrows, ncols) on either grid.
 
@@ -34,6 +34,10 @@ from .noise import NoiseModel
 __all__ = ["SkyModel", "cut_weights", "healpix_belt_rows",
            "healpix_cut_weights", "with_cut_decomposition"]
 
+# the smallest degree of each field's harmonics, by spin: spin-0 fields
+# start at l = 0, spin-2 fields at l = 2
+_LMINS = {0: (0,), 2: (2, 2), 3: (0, 2, 2)}
+
 # the JAX package's default bound for the floor + sparse-hole split
 # (GS_SPARSE_MAX_FRAC): masks whose azimuthally non-uniform pixels cover at
 # most this share of the sky are split
@@ -45,6 +49,8 @@ class SkyModel:
     """Operators for one observed dataset (beam, noise, mask, SHT).
 
     spin = 0: nfields = 1 (T).  spin = 2: nfields = 2 (E, B alm; Q, U maps).
+    spin = 3: joint TQU, nfields = 3: fields (T, E, B) <-> maps (T, Q, U),
+    T through the spin-0 transform and (E, B) through the spin-2 one.
     """
 
     sht: SHT
@@ -76,9 +82,9 @@ class SkyModel:
     w_sp: Optional[torch.Tensor] = None    # sparse weights >= 0, 0 on padding
 
     def __post_init__(self):
-        if self.spin not in (0, 2):
+        if self.spin not in _LMINS:
             raise NotImplementedError(
-                f"spin={self.spin}: the port supports spin 0 and spin 2")
+                f"spin={self.spin}: the port supports spin 0, 2 and 3")
 
     @property
     def lmax(self) -> int:
@@ -86,7 +92,7 @@ class SkyModel:
 
     @property
     def nfields(self) -> int:
-        return {0: 1, 2: 2}[self.spin]
+        return len(_LMINS[self.spin])
 
     @property
     def nstate(self) -> int:
@@ -115,11 +121,21 @@ class SkyModel:
     def _op_valid_mask(self, dtype) -> torch.Tensor:
         """(nfields, nstate) mask of the slots the synthesis acts on: l >= 0
         for spin-0 fields, l >= 2 for spin-2 fields."""
-        lmin = 0 if self.spin == 0 else 2
-        m = device_constant(("ell_mask", self.lmax, lmin),
-                            lambda: ell_mask_state(self.lmax, lmin=lmin),
-                            dtype, self.sht.device)
-        return m.expand(self.nfields, -1)
+        lmins = _LMINS[self.spin]
+        return device_constant(
+            ("op_valid", self.lmax, lmins),
+            lambda: np.stack([ell_mask_state(self.lmax, lmin=lm)
+                              for lm in lmins]), dtype, self.sht.device)
+
+    @property
+    def _t(self) -> bool:
+        """Whether field 0 is a spin-0 (T) field."""
+        return self.spin != 2
+
+    @property
+    def _e(self) -> Optional[int]:
+        """Index of the E field of the spin-2 pair, None without one."""
+        return {0: None, 2: 0, 3: 1}[self.spin]
 
     # ---- primitive operators -------------------------------------------
 
@@ -133,20 +149,21 @@ class SkyModel:
         transform's map axes ((nr, nphi), (nrows, p), or (npix,) on
         HEALPix)."""
         nd = getattr(sht, "map_ndim", 2)
-        if self.spin == 0:
-            maps = [sht.synthesis_state(s[..., 0, :])]
-        else:
-            maps = list(sht.synthesis_spin2_state(s[..., 0, :], s[..., 1, :]))
+        maps = [sht.synthesis_state(s[..., 0, :])] if self._t else []
+        e = self._e
+        if e is not None:
+            maps += sht.synthesis_spin2_state(s[..., e, :], s[..., e + 1, :])
         return torch.stack(maps, dim=-(nd + 1))
 
     def _adjoint_with(self, sht, f: torch.Tensor) -> torch.Tensor:
         """A^T f: (..., nfields, *pix) -> (..., nfields, nstate)."""
         nd = getattr(sht, "map_ndim", 2)
         field = lambda i: f.select(f.ndim - nd - 1, i)
-        if self.spin == 0:
-            return sht.adjoint_synthesis_state(field(0))[..., None, :]
-        e, b = sht.adjoint_synthesis_spin2_state(field(0), field(1))
-        return torch.stack([e, b], dim=-2)
+        out = [sht.adjoint_synthesis_state(field(0))] if self._t else []
+        e = self._e
+        if e is not None:
+            out += sht.adjoint_synthesis_spin2_state(field(e), field(e + 1))
+        return torch.stack(out, dim=-2)
 
     def synthesis(self, s: torch.Tensor) -> torch.Tensor:
         return self._synthesis_with(self.sht, s)
@@ -209,14 +226,17 @@ class SkyModel:
         if not self.has_sparse:
             return self.synthesis_cut(s), None
         cut, sp = self.cut_sht, self.sp_sht
-        if self.spin == 0:
+        mc, ms = [], []
+        if self._t:
             g0 = cut._state_grids(s[..., 0, :])
-            return (cut.synthesis_from_grids(g0)[..., None, :, :],
-                    sp.synthesis_from_grids(g0)[..., None, :, :])
-        ap, am = cut._spin2_stacks(s[..., 0, :], s[..., 1, :])
-        qc, uc = cut._spin2_maps_from_F(*cut._spin2_F_stacks(ap, am))
-        qs, us = sp._spin2_points_from_F(*sp._spin2_F_stacks(ap, am))
-        return torch.stack([qc, uc], dim=-3), torch.stack([qs, us], dim=-3)
+            mc.append(cut.synthesis_from_grids(g0))
+            ms.append(sp.synthesis_from_grids(g0))
+        e = self._e
+        if e is not None:
+            ap, am = cut._spin2_stacks(s[..., e, :], s[..., e + 1, :])
+            mc += cut._spin2_maps_from_F(*cut._spin2_F_stacks(ap, am))
+            ms += sp._spin2_points_from_F(*sp._spin2_F_stacks(ap, am))
+        return torch.stack(mc, dim=-3), torch.stack(ms, dim=-3)
 
     def adjoint_cut_sp(self, f_cut: torch.Tensor,
                        f_sp: Optional[torch.Tensor]) -> torch.Tensor:
@@ -226,16 +246,19 @@ class SkyModel:
         if f_sp is None or not self.has_sparse:
             return self.adjoint_synthesis_cut(f_cut)
         cut, sp = self.cut_sht, self.sp_sht
-        if self.spin == 0:
+        out = []
+        if self._t:
             a2 = (cut._spin0_agrids(f_cut[..., 0, :, :])
                   + sp._spin0_agrids(f_sp[..., 0, :, :]))
-            return cut._grids_to_state(a2)[..., None, :]
-        g1 = cut._spin2_agrids(*cut._spin2_ring_coefs(f_cut[..., 0, :, :],
-                                                      f_cut[..., 1, :, :]))
-        g2 = sp._spin2_agrids(*sp._spin2_ring_coefs(f_sp[..., 0, :, :],
-                                                    f_sp[..., 1, :, :]))
-        e, b = cut._spin2_recombine(*[a + b for a, b in zip(g1, g2)])
-        return torch.stack([e, b], dim=-2)
+            out.append(cut._grids_to_state(a2))
+        e = self._e
+        if e is not None:
+            g1 = cut._spin2_agrids(*cut._spin2_ring_coefs(
+                f_cut[..., e, :, :], f_cut[..., e + 1, :, :]))
+            g2 = sp._spin2_agrids(*sp._spin2_ring_coefs(
+                f_sp[..., e, :, :], f_sp[..., e + 1, :, :]))
+            out += cut._spin2_recombine(*[a + b for a, b in zip(g1, g2)])
+        return torch.stack(out, dim=-2)
 
     def _w_corr(self, sb: torch.Tensor) -> torch.Tensor:
         """A_cut^T (w_cut A_cut u) [+ A_sp^T (w_sp A_sp u)]: the masked
@@ -254,6 +277,18 @@ class SkyModel:
         corr = self.beam(self._w_corr(self.beam(s)))
         diag = inv_cvar + self.harmonic_noise_diag().to(s.dtype)
         return (diag * s - corr) * mask
+
+    def qn_apply(self, s: torch.Tensor) -> torch.Tensor:
+        """B A^T N^-1 A B s (the noise term of Q): the cut-ring complement
+        form when the decomposition is attached, full transforms
+        otherwise.  The cut form projects onto the operator's valid slots
+        first (the transforms annihilate the rest, so the diagonal term
+        must too)."""
+        if self.has_cut:
+            s = s * self._op_valid_mask(s.dtype)
+            corr = self.beam(self._w_corr(self.beam(s)))
+            return self.harmonic_noise_diag().to(s.dtype) * s - corr
+        return self.project_data(self.noise.inv_noise * self.forward(s))
 
     def cut_data_terms(self):
         """(c0, c1) of the complement likelihood identity
@@ -470,7 +505,7 @@ def _attach_sparse(model, out, w_sp_flat, d_flat, ring_idx, theta, phi,
     theta_rows, phi_pad, valid, gidx = group_points_by_ring(
         ring_idx, theta, phi, flat_idx)
     sp_sht = PointSHT(theta_rows, phi_pad, valid, sht.lmax, dtype=dt,
-                      spin0=(model.spin == 0), spin2=(model.spin == 2),
+                      spin0=model._t, spin2=model._e is not None,
                       device=dev)
     return dataclasses.replace(
         out, sp_sht=sp_sht, w_sp=t(w_sp_flat[:, gidx] * valid),
@@ -502,7 +537,7 @@ def _quadrature_cut(model: SkyModel, sparse_split) -> SkyModel:
     sht = model.sht
     d_np = _host(model.d)
     cut_sht = SHT(subgrid_rows(sht.grid, rows), sht.lmax, dtype=sht.dtype,
-                  spin2=(model.spin == 2), device=sht.device)
+                  spin2=model._e is not None, device=sht.device)
     out = _with_cut(model, cut_sht,
                     None if d_np is None else d_np[..., rows, :], w_cut)
     if w_sp is not None:
@@ -536,7 +571,7 @@ def _healpix_cut(model: SkyModel, sparse_split) -> SkyModel:
         weights=np.full(rows.size, geo.pixel_area * nb / (2.0 * np.pi)),
         nphi=nb, phi0=geo.phi0[rows])
     cut_sht = SHT(cut_grid, sht.lmax, dtype=sht.dtype,
-                  spin2=(model.spin == 2), device=sht.device,
+                  spin2=model._e is not None, device=sht.device,
                   allow_aliasing=True)
     d_np = _host(model.d)
     out = _with_cut(model, cut_sht, None if d_np is None else d_np[..., idx],

@@ -2,7 +2,8 @@
 ``gibbssampler_tpu.samplers.cls_samplers``):
 
 - the binned conjugate inverse-gamma draw of the centered scheme
-  (``invgamma_dl``, ``centered_cls_sample``);
+  (``invgamma_dl``, ``centered_cls_sample``) and the joint per-ell
+  inverse-Wishart draw of k x k C_ell blocks (``invwishart_cls_sample``);
 - blocked Metropolis-within-Gibbs over binned D_ell with truncated-normal
   proposals on the non-centered (whitened) parametrization: the direct
   ``nc_cls_sample``, one likelihood evaluation per block, and its rank-one
@@ -38,6 +39,7 @@ from ..ops.model import sum_last_f64
 from ..sht.transform import SPIN2_SINGLE_SIGNS
 
 __all__ = ["standard_gamma", "invgamma_dl", "centered_cls_sample",
+           "invwishart_cls_sample",
            "propose_truncnorm", "truncnorm_logratio", "NCClsInfo",
            "NCLogLike", "make_nc_log_likelihood", "nc_cls_sample",
            "CutMHPlan", "nc_cls_sample_cut", "whiten", "recenter"]
@@ -99,6 +101,58 @@ def centered_cls_sample(s: torch.Tensor, bins_list: Sequence[np.ndarray],
         gammas = (None,) * len(bins_list)
     return tuple(invgamma_dl(s[..., f, :], bins, lmax, gamma=g, gen=gen)
                  for f, (bins, g) in enumerate(zip(bins_list, gammas)))
+
+
+def invwishart_cls_sample(s: torch.Tensor, lmax: int, lmin: int = 2,
+                          chi2=None, normals=None, gen=None) -> torch.Tensor:
+    """Per-ell joint draw C_l ~ InvWishart(nu = 2l+1, Psi = S_l), S_l the
+    k x k scatter sum_m a_lm a_lm^T of the fields s (..., k, nstate).
+    Returns (..., lmax+1, k, k) C_ell blocks, zero below lmin.
+
+    Bartlett: W ~ Wishart(nu, I) as L L^T with L lower triangular, diagonal
+    sqrt(chi2_{nu - i}) and N(0, 1) below it; with cS = chol(S) the draw is
+    C = cS (L L^T)^-1 cS^T.  ``chi2`` (..., lmax+1, k) and ``normals``
+    (..., lmax+1, k, k) may be injected; otherwise chi2 = 2 Gamma(df / 2)
+    through ``standard_gamma`` (df = max(nu - i, 1e-3)), then the normals,
+    both from ``gen``.  The degrees below lmin are discarded, so their
+    gamma shapes are drawn at 1; the kept ones need df >= 2 (lmin >= k/2)."""
+    k = s.shape[-2]
+    dt, dev = s.dtype, s.device
+    L = lmax + 1
+    batch = s.shape[:-2]
+    g = s.reshape(s.shape[:-1] + (2, L, L))
+    S = torch.einsum("...ipml,...jpml->...lij", g, g)
+    if chi2 is None:
+        if 2 * lmin + 1 - (k - 1) < 2:
+            raise ValueError(f"lmin={lmin}: the Wishart degrees of freedom "
+                             f"2 lmin + 1 - i fall below 2 for k={k}")
+        nu = 2.0 * torch.arange(L, dtype=dt, device=dev) + 1.0
+        df = torch.clamp(nu[:, None] - torch.arange(k, dtype=dt,
+                                                     device=dev), min=1e-3)
+        alpha = torch.where((torch.arange(L, device=dev) >= lmin)[:, None],
+                            df / 2.0, 1.0)
+        chi2 = 2.0 * standard_gamma(alpha.expand(batch + (L, k)), gen)
+    if normals is None:
+        normals = torch.randn(batch + (L, k, k), generator=gen, dtype=dt,
+                              device=dev)
+    Lmat = torch.tril(normals, diagonal=-1) + torch.diag_embed(
+        torch.sqrt(chi2))
+    eye = torch.eye(k, dtype=dt, device=dev)
+    # a relative diagonal jitter of 1e-9: at high SNR the scatter can be
+    # correlation-degenerate (|r| -> 1), and an absolute epsilon is dwarfed
+    # by scatter scales ~1e3 muK^2; 1e-30 keeps the all-zero sub-lmin rows
+    # factorable
+    diagS = torch.diagonal(S, dim1=-2, dim2=-1)
+    cS, info = torch.linalg.cholesky_ex(
+        S + torch.diag_embed(1e-9 * diagS + 1e-30))
+    cS = torch.where((info == 0)[..., None, None], cS, math.nan)
+    inv_LLT, info = torch.linalg.inv_ex(Lmat @ Lmat.transpose(-1, -2)
+                                        + 1e-30 * eye)
+    inv_LLT = torch.where((info == 0)[..., None, None], inv_LLT, math.nan)
+    C = cS @ inv_LLT @ cS.transpose(-1, -2)
+    # where, not a product: sub-lmin rows may hold inf, and 0 * inf = nan
+    keep = (torch.arange(L, device=dev) >= lmin)[:, None, None]
+    return torch.where(keep, C, 0.0)
 
 
 # ---------------------------------------------------------------------------

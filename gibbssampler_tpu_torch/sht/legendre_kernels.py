@@ -26,12 +26,14 @@ cores), ``legendre_tri_f64.cu`` the float64 ones (streaming the table
 through a ``cp.async`` ring to the FMA pipes).  A wrapper
 takes the plain ``torch.einsum`` version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises.  Each wrapper counts its
-kernel launches in ``<wrapper>.launches``, and those of the float64 kernel
-alone also in ``<wrapper>.launches_f64``.
+kernel launches in ``<wrapper>.launches``, those of the float64 kernel
+alone also in ``<wrapper>.launches_f64``, and each launch once more by its
+shape in ``<wrapper>.shapes`` ({(L, nr, C, dtype): launches}).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -153,6 +155,7 @@ def f64_plan(nr: int, C: int) -> dict:
 def reset_launch_counts() -> None:
     for fn in (legendre_synth_tri, legendre_adj_tri):
         fn.launches = fn.launches_f64 = 0
+        fn.shapes = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +241,7 @@ def legendre_synth_tri(lam: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         _launch("synth", lam, x, out)
         legendre_synth_tri.launches += 1
         legendre_synth_tri.launches_f64 += lam.dtype == torch.float64
+        legendre_synth_tri.shapes[(L, nr, x.shape[1], lam.dtype)] += 1
     return out
 
 
@@ -258,6 +262,7 @@ def legendre_adj_tri(lam: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         _launch("adj", lam, g, out)
         legendre_adj_tri.launches += 1
         legendre_adj_tri.launches_f64 += lam.dtype == torch.float64
+        legendre_adj_tri.shapes[(L, g.shape[1], C, lam.dtype)] += 1
     return out
 
 

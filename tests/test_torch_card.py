@@ -12,7 +12,11 @@ the padded layout (belt-row floor at nphi = 2 lmax with phased rows,
 cap-ring holes in the point set): the Legendre kernels inside the CR step
 and the MH step's syntheses, the point-set transform and the table
 engine's contractions (with its ring-phase and Nyquist paths on HEALPix)
-on the card, against the CPU's plain versions."""
+on the card, against the CPU's plain versions.  The runner at lmax 32 on
+the card: a run crashed after its first segment and resumed equals the
+uninterrupted run bit for bit.  One JointCenteredGibbs step (the exact
+joint CR and the inverse-Wishart draw) at lmax 12 in float64, card
+against CPU on the same injected variates."""
 
 import numpy as np
 import pytest
@@ -211,3 +215,90 @@ def test_cg_and_pncp_steps_card_match_cpu(cuda_device, scheme):
                                    atol=1e-9 * np.abs(a).max())
     for a, b in zip(outs[0][3:], outs[1][3:]):
         np.testing.assert_array_equal(b, a)
+
+
+class _Crash(Exception):
+    pass
+
+
+def _crash_after_first_segment(msg):
+    if str(msg).startswith("segment done"):
+        raise _Crash(msg)
+
+
+@pytest.mark.cuda
+def test_runner_crash_resume_card_bit_exact(cuda_device, tmp_path):
+    """The runner's README configuration cut to lmax 32 and 4 chains
+    (band mask, cut decomposition, aux_gibbs CR, direct MH on 8-bin
+    blocks, float32): crashed by its verbose callback after the first
+    segment's checkpoint, then resumed, it writes the uninterrupted run's
+    chains and acceptance histories bit for bit."""
+    from gibbssampler_tpu_torch.inference import RunConfig, run_experiment
+    kw = dict(lmax=32, spin=2, grid="gl", scheme="asis",
+              cr_method="aux_gibbs", cr_options={"n_gibbs": 4},
+              noise_sigma2=0.04, fwhm_deg=0.5, mask_band_deg=10.0,
+              nchains=4, dtype="float32", n_iter=6, segment=3,
+              time_steps=True)
+    ref = run_experiment(RunConfig(**kw, out=str(tmp_path / "ref.npz")),
+                         verbose=lambda *a: None, device=cuda_device)
+    cfg = RunConfig(**kw, out=str(tmp_path / "crash.npz"))
+    with pytest.raises(_Crash):
+        run_experiment(cfg, verbose=_crash_after_first_segment,
+                       device=cuda_device)
+    res = run_experiment(cfg, verbose=lambda *a: None, device=cuda_device)
+    timed = {"config", "durations", "step_time_cr", "step_time_cls",
+             "step_time_full"}
+    assert sorted(res) == sorted(ref)
+    for k in sorted(set(ref) - timed):
+        np.testing.assert_array_equal(res[k], ref[k], err_msg=k)
+    assert np.isfinite(res["dl_chain_0"]).all()
+
+
+@pytest.mark.cuda
+def test_joint_step_card_matches_cpu(cuda_device):
+    """One JointCenteredGibbs step of 3 chains at lmax 12 in float64 with
+    TE-correlated data: the data term through the float64 kernels, the
+    exact joint CR's per-ell factorizations and the inverse-Wishart draw
+    on the card, against the CPU on the same injected variates (<= 1e-9
+    relative)."""
+    from gibbssampler_tpu_torch.samplers import synfast_joint
+    from gibbssampler_tpu_torch.schemes import JointCenteredGibbs
+    from gibbssampler_tpu_torch.interop import state_from_numpy
+    gen = torch.Generator().manual_seed(0)
+    fields = np.stack([example_dl(LMAX, k) for k in ("tt", "ee", "bb")])
+    blocks = np.zeros((LMAX + 1, 3, 3))
+    for f in range(3):
+        blocks[:, f, f] = fields[f]
+    blocks[:, 0, 1] = blocks[:, 1, 0] = 0.5 * np.sqrt(fields[0] * fields[1])
+    m, _ = simulate_dataset(LMAX, 3, fields, 0.2 ** 2,
+                            fwhm_radians=np.radians(0.5),
+                            dtype=torch.float64, device="cpu", gen=gen,
+                            dl_blocks=blocks)
+    g = m.sht.grid
+    arrays = {"d": n(m.d), "tau": n(m.noise.tau), "q_map": n(m.noise.q_map),
+              "omega": m.noise.omega, "bl": n(m.bl), "spin": 3,
+              "theta": g.theta, "weights": g.weights, "phi0": g.phi0,
+              "nphi": g.nphi}
+    ell = np.arange(LMAX + 1.0)
+    fac = np.where(ell >= 2, 2 * np.pi / np.maximum(ell * (ell + 1), 1), 0)
+    cl = np.stack([blocks * fac[:, None, None] * s for s in (0.8, 1.0, 1.3)])
+    nst = 2 * (LMAX + 1) ** 2
+    rng = np.random.default_rng(1)
+    s0 = synfast_joint(cl, LMAX, dtype=torch.float64, device="cpu",
+                       gen=gen).numpy()
+    xi = rng.normal(size=(NCH - 1, 3, nst))
+    chi2 = rng.chisquare(df=(2 * ell[:, None] + 1 - np.arange(3)).clip(1),
+                         size=(NCH - 1, LMAX + 1, 3))
+    normals = rng.normal(size=(NCH - 1, LMAX + 1, 3, 3))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        sch = JointCenteredGibbs(model_from_numpy(arrays, device=dev))
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+        st, info = sch.step(state_from_numpy(s0, cl=cl, device=dev),
+                            noise={"xi": t(xi)}, chi2=t(chi2),
+                            normals=t(normals))
+        out[str(dev)] = (n(sch.bt_ninv_d), n(st.s), n(st.cl),
+                         n(info["dl"][0]))
+    for a, b in zip(out[str(cuda_device)], out["cpu"]):
+        assert np.isfinite(a).all()
+        assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max()

@@ -13,9 +13,11 @@ import torch
 
 from torch_parity import t64, tri_table
 from gibbssampler_tpu_torch import flagship, tune
-from gibbssampler_tpu_torch.inference import simulate_dataset
+from gibbssampler_tpu_torch.inference import (load_checkpoint, run_experiment,
+                                              simulate_dataset)
 from gibbssampler_tpu_torch.interop import model_from_numpy, state_from_numpy
 from gibbssampler_tpu_torch.ops import NoiseModel
+from gibbssampler_tpu_torch.samplers import synfast_joint
 from gibbssampler_tpu_torch.sht import (SHT, HealpixSHT, PointSHT,
                                         make_healpix_sht, make_sht)
 from gibbssampler_tpu_torch.sht import legendre_kernels as lk
@@ -68,6 +70,9 @@ ENTRY_POINTS = {"SHT": SHT, "make_sht": make_sht, "PointSHT": PointSHT,
                 "HealpixSHT": HealpixSHT,
                 "make_healpix_sht": make_healpix_sht,
                 "simulate_dataset": simulate_dataset,
+                "synfast_joint": synfast_joint,
+                "run_experiment": run_experiment,
+                "load_checkpoint": load_checkpoint,
                 "NoiseModel.white": NoiseModel.white,
                 "NoiseModel.white_healpix": NoiseModel.white_healpix,
                 "model_from_numpy": model_from_numpy,
