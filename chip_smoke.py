@@ -68,14 +68,22 @@ non-zero:
    big-block candidate's, one MALA move's and one pCN move's, over all
    chains, in the form the sampler uses (every difference formed before
    its reduction) and in the old form (differences of O(1e6)-term totals),
-   against float64 (the exact pCN form's under 0.1 nats);
+   against float64 (the exact pCN form's under 0.1 nats); then, on the
+   same uniforms and against the same direct sweep, the phi-domain
+   (mdomain False) and the coefficient m-domain (mdomain "m") engines, and
+   the blocking with EE and BB one block each on the phi engine against
+   its own direct sweep;
 7. bench.py's PNCP configuration (BENCH_SCHEME=pncp, BENCH_LCUT none,300)
    on the same dataset with its tuned record: EE fully centered, BB
    single-bin blocks from l = 300 on the table engine with the identity
    re-centering below l_cut; the slice as in phase 5 (8 + 6 launches per
    iteration, the BB singles' acceptance in [0.15, 0.6]), then one float64
    MH sweep at full width, the table engine against the direct path on
-   the PNCP likelihood;
+   the PNCP likelihood; then the phi slice: the ASIS band slice of phase
+   5 with mh_fast="phi" (the phi-domain engine, the same record),
+   PHI_TIMED timed iterations, its MH step's ms/iter beside phase 5's
+   table engine; and one float32 sweep of the coefficient engine at 128
+   chains beside the table engine's, timed with CUDA events;
 8. the CG family at full width in float64 (the band dataset, 8 chains,
    the prior of the true spectrum in unit bins): cg_cr at tol 1e-5 and
    1e-6 (every chain converged, per-chain iterations beside the JAX
@@ -89,14 +97,17 @@ non-zero:
    apodized band plus 200 point-source holes): checks the split's 83
    floor rings, 1547 hole pixels and 211 x 64 point rows, and the exact
    launch counts per iteration (each cut transform fused with the point
-   set's);
+   set's); the float64 sweep also on the phi engine and with mdomain "m"
+   (which the split sends to phi); then the same mask cut without the
+   split (every ring a hole touches; w_cut not azimuthally uniform), where
+   "auto" takes the phi engine, against the direct path;
 10. with the GL models freed, the HEALPix planckish path (bench.py's
    BENCH_GRID=healpix BENCH_MASK=planckish): nside 256 in the padded
    layout, the same sky under bench.py's HEALPix planckish mask; checks the
    split's 193 floor rings at nphi 1024 (97 phased), 1140 hole pixels (434
    on cap rings) in 391 x 8 point rows and the floor transform against the
    full 1023-ring synthesis at the floor pixels; runs the ASIS slice with
-   its tuned record and the float64 checks;
+   its tuned record and the float64 checks, the phi engine among them;
 11. with those models freed, the runner (gibbssampler_tpu_torch.inference.
    run_experiment) on examples/run_polarization.py's configuration at
    lmax 512 (RUNNER_CFG: GL band 10 deg, 32 chains, asis with aux_gibbs,
@@ -117,10 +128,19 @@ non-zero:
    te_tolerance, every block positive definite; (b) one float64
    cg_joint_cr solve on a spin-3 band-cut model (4 chains, tol 1e-6, the
    reference's noise levels): every chain converged, the true residual
-   recomputed with the full-grid operator <= 1e-6; then phase 3's checks
-   at every (L, nr, C, dtype) that phases 11-13 launched and phase 3 does
-   not cover (the wrappers' per-shape counts);
-14. prints the kernels' JSON line, the float32 and the float64 kernels
+   recomputed with the full-grid operator <= 1e-6; on that model (T and
+   P noise unequal) one float64 MH sweep of the engine "auto" takes, the
+   coefficient engine, and on the same sky at equal noise the table
+   engine, each against the direct path;
+14. the flat (healpy-order) alm interface on the full grids' transforms:
+   synfast at lmax 512 (spin 2 on GL, spin 0 on HEALPix nside 256), alm2cl
+   of each draw against its input C_l within FLAT_CV_SIGMAS
+   cosmic-variance deviations, the state and healpy round trips, the GL
+   flat round trip and the flat adjointness on both grids; then phase 3's
+   checks at every (L, nr, C, dtype) that the engine sweeps and phases
+   11-14 launched and phase 3 does not cover (the wrappers' per-shape
+   counts);
+15. prints the kernels' JSON line, the float32 and the float64 kernels
    each with their launches summed over the paths, then {"ok": true,
    "device": {...}} last.
 
@@ -261,11 +281,24 @@ JOINT_CG_NOISE = (40.0 ** 2, 0.2 ** 2, 0.2 ** 2)
 JOINT_CG_BAND_DEG = 10.0
 JOINT_CG_CHAINS = 4
 JOINT_CG_TOL = 1e-6
+# the phi slice (bench.py's ASIS band configuration with mh_fast="phi"):
+# its timed iterations, cut from N_TIMED to fit the script's time budget
+PHI_TIMED = 30
+# the flat (healpy-order) interface phase: synfast draws at lmax 512, spin
+# 2 on GL and spin 0 on HEALPix nside NSIDE.  alm2cl of a draw against its
+# input C_l: each hat-C_l / C_l - 1 has standard deviation sqrt(2 / (2l +
+# 1)) (cosmic variance); FLAT_CV_SIGMAS of them bound each l, and the mean
+# over l = 2..lmax is bound likewise by its own deviation
+FLAT_CV_SIGMAS = 6.0
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 TF32X3_FLOPS_PER_S = 495e12 / 3      # 3 TF32 tensor-core products each
 # H100 SXM float64 tensor-core peak; the float64 kernels stream the table
 # on the FMA pipes, whose peak is about half of it
 FP64_FLOPS_PER_S = 67e12
+
+
+# the MH step's ms/iter of each ASIS slice, by label (phase_asis_slice)
+MH_MS = {}
 
 
 def check(cond, msg):
@@ -462,8 +495,8 @@ def phase_kernels(torch, lk, dev, card):
 
 
 def phase_new_shapes(torch, lk, dev, card, shapes):
-    """Phase 3's checks at every shape the runner and joint phases
-    launched that phase 3 does not cover (``shapes`` maps (kernel, L, nr,
+    """Phase 3's checks at every shape the engine sweeps and the runner,
+    joint and flat phases launched that phase 3 does not cover (``shapes`` maps (kernel, L, nr,
     C, dtype) to its launches in those phases), each timed as phase 3
     times the main path's layout.  Returns (the shapes checked, the
     float32 and the float64 records keyed "<nr> C<C>")."""
@@ -907,9 +940,9 @@ def phase_healpix_dataset(torch, dev):
     return model, dls
 
 
-def run_slice(torch, lk, scheme, dl0, dev):
+def run_slice(torch, lk, scheme, dl0, dev, n_timed=N_TIMED):
     """Drive one scheme's main path: the launch counts set to 0, the
-    initial CR draw and N_WARM warm-up iterations, then N_TIMED timed
+    initial CR draw and N_WARM warm-up iterations, then ``n_timed`` timed
     ones, the counts read just after.  The chains start as
     ``flagship.start_state`` starts them.  Returns (warm, out, wall,
     launches of the whole path, launches of the timed run)."""
@@ -923,7 +956,7 @@ def run_slice(torch, lk, scheme, dl0, dev):
     before = (lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
-    out = scheme.run(dl0, n_iter=N_TIMED, gen=gen, state=warm["final_state"])
+    out = scheme.run(dl0, n_iter=n_timed, gen=gen, state=warm["final_state"])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = (lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches)
@@ -931,12 +964,12 @@ def run_slice(torch, lk, scheme, dl0, dev):
     return warm, out, wall, launches, timed
 
 
-def check_chains(torch, warm, out, bins_list):
+def check_chains(torch, warm, out, bins_list, n_timed=N_TIMED):
     dl_all = [np.concatenate([warm["dl_chains"][f].cpu().numpy(),
                               out["dl_chains"][f].cpu().numpy()], axis=1)
               for f in range(2)]
     for f, dl in enumerate(dl_all):
-        check(dl.shape == (NCHAINS, N_WARM + N_TIMED, len(bins_list[f]) - 1),
+        check(dl.shape == (NCHAINS, N_WARM + n_timed, len(bins_list[f]) - 1),
               f"dl_chains[{f}] shape {dl.shape}")
         check(np.isfinite(dl).all() and (dl > 0).all(),
               f"dl_chains[{f}] has non-finite or non-positive values")
@@ -945,7 +978,7 @@ def check_chains(torch, warm, out, bins_list):
     return acc
 
 
-def ess_metrics(out, bins_list, wall):
+def ess_metrics(out, bins_list, wall, n_timed=N_TIMED):
     """Median pooled ESS/s over both fields, BB-tail (bins from
     BB_TAIL_FROM) ESS/s and per-chain ESS per iteration, as bench.py defines them."""
     from gibbssampler_tpu_torch.diagnostics import summarize_chains
@@ -955,7 +988,7 @@ def ess_metrics(out, bins_list, wall):
     check(tail.any(), f"no BB bin from l = {BB_TAIL_FROM}")
     bb_tail = float(np.median(ess[-1][tail])) / wall
     med = float(np.median(np.concatenate(ess)))
-    return med / wall, bb_tail, med / (0.8 * N_TIMED * NCHAINS)
+    return med / wall, bb_tail, med / (0.8 * n_timed * NCHAINS)
 
 
 def phase_centered_slice(torch, lk, model, dls, dev, card):
@@ -985,22 +1018,25 @@ def phase_centered_slice(torch, lk, model, dls, dev, card):
     return launches
 
 
-def asis_setup(torch, model, dls, grid, mask, cr="aux_mala"):
+def asis_setup(torch, model, dls, grid, mask, cr="aux_mala", mh_fast="auto"):
     """bench.py's flagship ASIS configuration (``flagship.asis_setup``):
     EE unit bins in one block, BB unit bins to 396 then 16 wide bins, a
     277-bin big block and 133 single-bin blocks, the port's tuned record
     of (grid, mask, cr); checks the sizes and that the MH step runs on the
-    table engine."""
+    table engine (with ``mh_fast="phi"``, the phi-domain engine)."""
     from gibbssampler_tpu_torch import flagship
     t0 = time.time()
-    scheme, dl0 = flagship.asis_setup(model, dls, grid, mask, cr)
+    scheme, dl0 = flagship.asis_setup(model, dls, grid, mask, cr,
+                                      mh_fast=mh_fast)
     check(tuple(len(b) - 1 for b in scheme.bins_list) == ASIS_NBINS
           and scheme.blocks_list[1][0] == (0, ASIS_BIG)
           and len(scheme.blocks_list[1]) == 1 + ASIS_NBINS[1] - ASIS_BIG,
           "flagship bins and blocks")
-    check(scheme._use_cut_mh, "the ASIS scheme is off the table engine")
+    want = "phi" if mh_fast == "phi" else "table"
+    check(scheme._use_cut_mh and scheme.mh_plan.engine == want,
+          f"the ASIS scheme is off the {want} engine")
     torch.cuda.synchronize()
-    print(f"ASIS {grid} {mask} {cr} scheme set-up "
+    print(f"ASIS {grid} {mask} {cr} scheme set-up, {want} engine "
           f"({len(scheme.mh_plan.chunks)} singles chunks of <= "
           f"{max(len(c.j_idx) for c in scheme.mh_plan.chunks)} ells, tables "
           f"on the card; the tuned record of ({grid}, {mask}, {cr})): "
@@ -1016,7 +1052,8 @@ def mh_acceptances(out):
             float(mh[1][..., 1:].mean()))
 
 
-def run_timed_mh_slice(torch, lk, scheme, dl0, dev, label, per_iter):
+def run_timed_mh_slice(torch, lk, scheme, dl0, dev, label, per_iter,
+                       n_timed=N_TIMED):
     """``run_slice`` with CUDA events around every ``scheme.mh_step``;
     checks ``per_iter`` (synthesis, adjoint) launches per timed iteration.
     Returns run_slice's results and the MH step's mean ms over the timed
@@ -1034,33 +1071,38 @@ def run_timed_mh_slice(torch, lk, scheme, dl0, dev, label, per_iter):
         return res
 
     scheme.mh_step = timed_mh_step
-    warm, out, wall, launches, timed = run_slice(torch, lk, scheme, dl0, dev)
+    warm, out, wall, launches, timed = run_slice(torch, lk, scheme, dl0, dev,
+                                                 n_timed)
     del scheme.mh_step
     for name, n, per in zip(("synth", "adj"), timed, per_iter):
-        check(n == per * N_TIMED, f"{label} {name} launches in the timed "
-              f"run {n}, expected {per} x {N_TIMED}")
+        check(n == per * n_timed, f"{label} {name} launches in the timed "
+              f"run {n}, expected {per} x {n_timed}")
     mh_ms = float(np.mean([a.elapsed_time(b)
-                           for a, b in mh_events[-N_TIMED:]]))
+                           for a, b in mh_events[-n_timed:]]))
     return warm, out, wall, launches, timed, mh_ms
 
 
 def phase_asis_slice(torch, lk, model, dls, dev, card, profile, grid,
-                     mask, cr="aux_mala", per_iter=ASIS_PER_ITER):
+                     mask, cr="aux_mala", per_iter=ASIS_PER_ITER,
+                     mh_fast="auto", n_timed=N_TIMED):
     """The flagship ASIS slice at full width with the tuned record of
     (grid, mask, cr), ``per_iter`` (synthesis, adjoint) launches per
-    iteration; the MH acceptances of the EE block, the BB big block and
-    the BB singles held to ACCEPT_WINDOW.  Returns (launches, scheme, D_ell
-    start, final state)."""
-    label = f"ASIS {grid} {mask} {cr}"
-    scheme, dl0 = asis_setup(torch, model, dls, grid, mask, cr)
+    iteration, ``n_timed`` timed iterations, on the table engine or (with
+    ``mh_fast="phi"``) the phi-domain engine; the MH acceptances of the EE
+    block, the BB big block and the BB singles held to ACCEPT_WINDOW.  The
+    MH step's ms/iter goes to MH_MS under the slice's label.  Returns
+    (launches, scheme, D_ell start, final state)."""
+    label = f"ASIS {grid} {mask} {cr}" + (" phi" if mh_fast == "phi" else "")
+    scheme, dl0 = asis_setup(torch, model, dls, grid, mask, cr, mh_fast)
     warm, out, wall, launches, timed, mh_ms = run_timed_mh_slice(
-        torch, lk, scheme, dl0, dev, label, per_iter)
+        torch, lk, scheme, dl0, dev, label, per_iter, n_timed)
+    MH_MS[label] = mh_ms
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     bins_list = scheme.bins_list
-    acc = check_chains(torch, warm, out, bins_list)
+    acc = check_chains(torch, warm, out, bins_list, n_timed)
     for f in range(2):
         shape = tuple(out["mh_accept"][f].shape)
-        check(shape == (NCHAINS, N_TIMED, len(scheme.blocks_list[f])),
+        check(shape == (NCHAINS, n_timed, len(scheme.blocks_list[f])),
               f"mh_accept[{f}] shape {shape}")
     ee, bb_big, singles = mh_acceptances(out)
     lo, hi = ACCEPT_WINDOW
@@ -1068,15 +1110,15 @@ def phase_asis_slice(torch, lk, model, dls, dev, card, profile, grid,
                     ("BB singles", singles)):
         check(lo <= a <= hi, f"{label} MH acceptance of the {what} {a:.4f} "
               f"outside [{lo}, {hi}]")
-    ess_s, bb_tail, per_chain = ess_metrics(out, bins_list, wall)
+    ess_s, bb_tail, per_chain = ess_metrics(out, bins_list, wall, n_timed)
     print(f"slice lmax={LMAX} {NCHAINS} chains {label} ({cr} CR + "
-          f"table-engine blocked MH): {wall / N_TIMED * 1e3:.2f} ms/iter "
-          f"over {N_TIMED} iterations; MH step {mh_ms:.2f} ms/iter (CUDA "
-          f"events) [{card}]", flush=True)
+          f"{scheme.mh_plan.engine}-engine blocked MH): "
+          f"{wall / n_timed * 1e3:.2f} ms/iter over {n_timed} iterations; "
+          f"MH step {mh_ms:.2f} ms/iter (CUDA events) [{card}]", flush=True)
     print(f"{label} acceptance: CR {acc:.4f}; MH EE block {ee:.4f}, BB big "
           f"block {bb_big:.4f}, BB singles {singles:.4f} (each in "
           f"[{lo}, {hi}]) [{card}]", flush=True)
-    print(f"{label} ESS ({N_TIMED} iterations, burn 20%): median pooled "
+    print(f"{label} ESS ({n_timed} iterations, burn 20%): median pooled "
           f"ESS/s {ess_s:.3f}; bb_tail_ess_per_s {bb_tail:.3f}; "
           f"per_chain_ess_per_iter {per_chain:.5f}; peak device memory "
           f"{peak:.2f} GiB [{card}]", flush=True)
@@ -1296,13 +1338,18 @@ def log_ratio_errors(torch, scheme, state, m64, plan64, gen):
     return {k: tuple(e.cpu().numpy() for e in v) for k, v in out.items()}
 
 
-def phase_mh_sweep(torch, scheme, state, dev, card, label="", nch=4):
+def phase_mh_sweep(torch, scheme, state, dev, card, label="", nch=4,
+                   engines=(), no_singles=False, tally=None, lk=None):
     """One MH sweep at full width in float64 (the main path's bins, blocks
     and sigmas; the slice's final whitened maps of ``nch`` chains): the
     table engine against the direct nc_cls_sample on the same injected
-    uniforms.  Also the float32 rounding of the log-likelihood, and of the
-    two accept tests' log-ratios (``log_ratio_errors``), over all chains of
-    the slice's final state; returns the latter."""
+    uniforms, then each of ``engines`` ((mdomain, the engine it must take)
+    pairs; ``engine_sweeps``) against the same direct sweep and, with
+    ``no_singles``, the blocking with EE and BB one block each (the phi
+    engine) against its own direct sweep; their launches go to ``tally``.
+    Also the float32 rounding of the log-likelihood, and of the two accept
+    tests' log-ratios (``log_ratio_errors``), over all chains of the
+    slice's final state; returns the latter."""
     from gibbssampler_tpu_torch.samplers import cls_samplers as cs
     f64 = torch.float64
     t0 = time.time()
@@ -1360,6 +1407,19 @@ def phase_mh_sweep(torch, scheme, state, dev, card, label="", nch=4):
           f"log-likelihood |diff| {dll_end:.2e}; table engine "
           f"{(t2 - t1) * 1e3:.1f} ms, direct {(t3 - t2) * 1e3:.1f} ms "
           f"(set-up {t1 - t0:.1f} s) [{card}]", flush=True)
+    engine_sweeps(torch, lk, tally, m64, bins, blocks, sig, dl, s_nc, up, ua,
+                  direct, engines, f"MH sweep{label}", card)
+    if no_singles:
+        # one block per field, its scales those of the singles over the
+        # square root of the block's width
+        blocks1 = [[(0, len(b) - 1)] for b in bins]
+        sig1 = [np.asarray(s) / np.sqrt(len(b) - 1) for s, b in zip(sig, bins)]
+        ua1 = torch.rand((nch, 1, 2), generator=gen, dtype=f64, device=dev)
+        direct1 = cs.nc_cls_sample(dl, s_nc, cs.make_nc_log_likelihood(
+            m64, bins), bins, blocks1, sig1, u_prop=up, u_acc=ua1)
+        engine_sweeps(torch, lk, tally, m64, bins, blocks1, sig1, dl, s_nc,
+                      up, ua1, direct1, [("auto", "phi")],
+                      f"MH sweep{label}, EE and BB one block each", card)
     print(f"float32 log-likelihood rounding{label} at the slice's final "
           f"state ({len(dll)} chains): |ll32 - ll64| median "
           f"{np.median(dll):.3f}, "
@@ -1375,6 +1435,142 @@ def phase_mh_sweep(torch, scheme, state, dev, card, label="", nch=4):
               f"; median ratio {np.median(new) / np.median(old):.3g}{scale} "
               f"[{card}]", flush=True)
     return lr_err
+
+
+def counted(torch, lk, tally, fn):
+    """fn() with the launch counts set to 0 just before it and read just
+    after, its launches and shape counts added to ``tally`` ({"launches":
+    4 counts, "shapes": {...}}).  Returns (fn(), wall seconds)."""
+    out, n, sh, wall = run_counted(torch, lk, fn)
+    tally["launches"] = [a + b for a, b in zip(tally["launches"], n)]
+    for k, v in sh.items():
+        tally["shapes"][k] = tally["shapes"].get(k, 0) + v
+    return out, wall
+
+
+def engine_sweeps(torch, lk, tally, m64, bins, blocks, sig, dl, s_nc, up, ua,
+                  direct, engines, label, card):
+    """nc_cls_sample_cut on each (mdomain, engine) of ``engines`` (the
+    engine ``CutMHPlan`` must take for that mdomain) against the direct
+    sweep ``direct`` on the same uniforms: D_ell <= 1e-9 relative,
+    accepts equal, the final log-likelihood beside it; each run counted
+    into ``tally`` and timed with CUDA events."""
+    from gibbssampler_tpu_torch.samplers import cls_samplers as cs
+    for mdomain, want in engines:
+        plan = cs.CutMHPlan(m64, bins, blocks, sig, mdomain=mdomain,
+                            dtype=torch.float64)
+        check(plan.engine == want, f"{label}: mdomain={mdomain!r} took the "
+              f"{plan.engine} engine, the JAX package takes {want}")
+        (res, ms), _ = counted(torch, lk, tally, lambda: cuda_ms(
+            torch, lambda: cs.nc_cls_sample_cut(
+                dl, s_nc, m64, bins, blocks, sig, u_prop=up, u_acc=ua,
+                plan=plan)))
+        err = max(float(((a - b).abs() / b.abs()).max())
+                  for a, b in zip(res[0], direct[0]))
+        check(err <= 1e-9, f"{label}: {want} engine vs direct D_ell rel "
+              f"err {err} > 1e-9")
+        for f in range(len(bins)):
+            check(torch.equal(res[1].accept[f], direct[1].accept[f]),
+                  f"{label}: {want} engine accepts of field {f} differ from "
+                  "the direct path's")
+        a = np.concatenate([x.cpu().numpy().ravel() for x in res[1].accept])
+        dll = float((res[1].log_like - direct[1].log_like).abs().max())
+        print(f"{label}: {want} engine (mdomain={mdomain!r}, "
+              f"{len(plan.chunks)} chunks) vs direct: D_ell max rel err "
+              f"{err:.2e}, accepts equal (mean {a.mean():.4f}), final "
+              f"log-likelihood |diff| {dll:.2e}; {ms:.1f} ms [{card}]",
+              flush=True)
+
+
+def sweep_inputs(torch, scheme, state, nch, gen):
+    """The float64 sweep inputs at a slice's final state: the D_ell and
+    whitened maps of ``nch`` chains and one sweep's uniforms."""
+    from gibbssampler_tpu_torch.samplers import cls_samplers as cs
+    f64 = torch.float64
+    bins, blocks = scheme.bins_list, scheme.blocks_list
+    s_nc = cs.whiten(state.s[:nch], tuple(d[:nch] for d in state.dl), bins,
+                     LMAX).to(f64)
+    dl = tuple(d[:nch].to(f64) for d in state.dl)
+    ntot, nblocks = sum(len(b) - 1 for b in bins), sum(map(len, blocks))
+    dev = s_nc.device
+    up = torch.rand((nch, 1, ntot), generator=gen, dtype=f64, device=dev)
+    ua = torch.rand((nch, 1, nblocks), generator=gen, dtype=f64, device=dev)
+    return dl, s_nc, up, ua
+
+
+def phase_nosplit_sweep(torch, lk, tally, scheme, state, dev, card, nch=4):
+    """bench.py's planckish mask cut without the floor + sparse-hole split:
+    every ring a hole touches joins the cut, w_cut is not azimuthally
+    uniform, and "auto" takes the phi engine; one float64 sweep at full
+    width against the direct path (the slice's final state)."""
+    from gibbssampler_tpu_torch.ops import with_cut_decomposition
+    from gibbssampler_tpu_torch.samplers import cls_samplers as cs
+    t0 = time.time()
+    model = scheme.model
+    base = dataclasses.replace(model, cut_sht=None, d_cut=None, w_cut=None,
+                               cut_c0=None, cut_c1=None, sp_sht=None,
+                               d_sp=None, w_sp=None)
+    m32 = with_cut_decomposition(base, sparse_split=False)
+    check(not m32.has_sparse and not m32.cut_w_uniform,
+          "planckish without the split: w_cut azimuthally uniform")
+    m64 = cast_cut_model(torch, m32, torch.float64)
+    del m32, base
+    gen = torch.Generator(device=dev).manual_seed(10)
+    dl, s_nc, up, ua = sweep_inputs(torch, scheme, state, nch, gen)
+    bins, blocks = scheme.bins_list, scheme.blocks_list
+    sig = scheme.prop_sigma_list
+    torch.cuda.synchronize()
+    print(f"planckish without the split: cut over {m64.cut_sht.nrings} "
+          f"rings (w_cut not azimuthally uniform; the split's floor: "
+          f"{PLANCKISH_FLOOR_RINGS}), float64 set-up {time.time() - t0:.1f} s",
+          flush=True)
+    direct, ms = cuda_ms(torch, lambda: cs.nc_cls_sample(
+        dl, s_nc, cs.make_nc_log_likelihood(m64, bins), bins, blocks, sig,
+        u_prop=up, u_acc=ua))
+    print(f"planckish without the split: direct sweep {ms:.1f} ms", flush=True)
+    engine_sweeps(torch, lk, tally, m64, bins, blocks, sig, dl, s_nc, up, ua,
+                  direct, [("auto", "phi")], "MH sweep planckish without the "
+                  "split", card)
+    del m64
+    torch.cuda.empty_cache()
+
+
+def phase_coef_sweep(torch, lk, tally, scheme, state, dev, card):
+    """One float32 sweep of the coefficient m-domain engine (mdomain "m")
+    at 128 chains on the band slice's final state, beside the table
+    engine's on the same inputs, each timed with CUDA events; finite D_ell
+    and accepts in [0, 1]."""
+    from gibbssampler_tpu_torch.samplers import cls_samplers as cs
+    model, bins, blocks = scheme.model, scheme.bins_list, scheme.blocks_list
+    sig = scheme.prop_sigma_list
+    s_nc = cs.whiten(state.s, state.dl, bins, LMAX)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    ntot, nblocks = sum(len(b) - 1 for b in bins), sum(map(len, blocks))
+    up = torch.rand((NCHAINS, 1, ntot), generator=gen, device=dev)
+    ua = torch.rand((NCHAINS, 1, nblocks), generator=gen, device=dev)
+    out = {}
+    for mdomain, want in (("m", "coef"), ("auto", "table")):
+        plan = cs.CutMHPlan(model, bins, blocks, sig, mdomain=mdomain)
+        check(plan.engine == want, f"float32 sweep: {plan.engine} engine, "
+              f"expected {want}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        (res, ms), _ = counted(torch, lk, tally, lambda: cuda_ms(
+            torch, lambda: cs.nc_cls_sample_cut(
+                state.dl, s_nc, model, bins, blocks, sig, u_prop=up,
+                u_acc=ua, plan=plan)))
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        dl = torch.cat(res[0], dim=-1)
+        check(bool(torch.isfinite(dl).all() and (dl > 0).all()),
+              f"float32 {want} sweep: non-finite or non-positive D_ell")
+        a = np.concatenate([x.cpu().numpy().ravel() for x in res[1].accept])
+        out[want] = (ms, a.mean(), peak)
+        del plan, res
+    print(f"MH sweep float32 lmax={LMAX} {NCHAINS} chains (the band slice's "
+          f"final state): coefficient engine {out['coef'][0]:.2f} ms (mean "
+          f"accept {out['coef'][1]:.4f}, peak {out['coef'][2]:.2f} GiB), "
+          f"table engine {out['table'][0]:.2f} ms (mean accept "
+          f"{out['table'][1]:.4f}, peak {out['table'][2]:.2f} GiB) [{card}]",
+          flush=True)
 
 
 def phase_pncp_slice(torch, lk, model, dls, dev, card, profile):
@@ -1958,11 +2154,175 @@ def phase_joint(torch, lk, dev, card, tmp):
           f" (full-grid operator) max {res_true.max():.3g}; set-up "
           f"{setup:.1f} s [{card}]", flush=True)
     print_shapes("joint CG", sh_b)
-    del model, bt, cl, om0, om1, x, b, r, full
+    del bt, cl, om0, om1, x, b, r, full
+    tally = {"launches": [0] * 4, "shapes": {}}
+    spin3_engines(torch, lk, tally, model, fields, blocks, cfg, dev, card)
+    del model
     torch.cuda.empty_cache()
-    launches = tuple(a + c for a, c in zip(n_a, n_b))
-    shapes = {k: sh_a.get(k, 0) + sh_b.get(k, 0) for k in {**sh_a, **sh_b}}
+    launches = tuple(a + c + e for a, c, e in zip(n_a, n_b,
+                                                  tally["launches"]))
+    shapes = {}
+    for sh in (sh_a, sh_b, tally["shapes"]):
+        for k, v in sh.items():
+            shapes[k] = shapes.get(k, 0) + v
     return launches, shapes
+
+
+def spin3_engines(torch, lk, tally, model, fields, blocks, cfg, dev, card,
+                  nch=JOINT_CG_CHAINS):
+    """The blocked-MH fast path on spin-3 (T, E, B) band-cut models at full
+    width in float64, ``nch`` chains, TT and EE unit bins in one block
+    each, BB bench.py's bins with its big block and 133 singles: (a) the
+    joint CG's model (T noise 40^2, Q and U 0.2^2 muK^2: w_cut unequal
+    across map components), where "auto" takes the coefficient engine;
+    (b) the same sky at 0.2^2 in T, Q and U, where it takes the table
+    engine (its spin-3 path).  Each one sweep against the direct path on
+    the same uniforms (``engine_sweeps``)."""
+    from gibbssampler_tpu_torch import flagship
+    from gibbssampler_tpu_torch.harmonics import ell_mask_state
+    from gibbssampler_tpu_torch.inference import simulate_dataset
+    from gibbssampler_tpu_torch.inference.runner import RunConfig, _mask
+    from gibbssampler_tpu_torch.ops import with_cut_decomposition
+    from gibbssampler_tpu_torch.samplers import cls_samplers as cs
+    f64 = torch.float64
+    t0 = time.time()
+    (bins_e, bins_b), (blk_e, blk_b) = flagship.asis_bins_blocks(LMAX)
+    bins, blks = [bins_e, bins_e, bins_b], [blk_e, blk_e, blk_b]
+    dl0 = [flagship.binned_mean(fields[f], b) for f, b in enumerate(bins)]
+    sig = [0.05 * d for d in dl0]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    dl = tuple(torch.as_tensor(np.tile(d, (nch, 1)), dtype=f64, device=dev)
+               for d in dl0)
+    s_nc = torch.randn((nch, 3, model.nstate), generator=gen, dtype=f64,
+                       device=dev) * torch.as_tensor(
+                           ell_mask_state(LMAX, 2), dtype=f64, device=dev)
+    ntot, nblocks = sum(len(b) - 1 for b in bins), sum(map(len, blks))
+    up = torch.rand((nch, 1, ntot), generator=gen, dtype=f64, device=dev)
+    ua = torch.rand((nch, 1, nblocks), generator=gen, dtype=f64, device=dev)
+    equal, _ = simulate_dataset(
+        cfg.lmax, 3, fields, (JOINT_CG_NOISE[1],) * 3,
+        fwhm_radians=np.radians(cfg.fwhm_deg),
+        mask=_mask(RunConfig(lmax=cfg.lmax, mask_band_deg=JOINT_CG_BAND_DEG)),
+        dtype=f64, sht=model.sht, dl_blocks=blocks,
+        gen=torch.Generator(device=dev).manual_seed(cfg.seed))
+    equal = with_cut_decomposition(equal)
+    torch.cuda.synchronize()
+    print(f"spin-3 MH sweeps: equal-noise model set-up "
+          f"{time.time() - t0:.1f} s", flush=True)
+    for name, m, want in (("T 40^2, Q and U 0.2^2", model, "coef"),
+                          ("0.2^2 in T, Q and U", equal, "table")):
+        check(m.cut_w_uniform and m.cut_w_equal_fields == (want == "table"),
+              f"spin-3 model ({name}): cut weights not as expected")
+        direct = cs.nc_cls_sample(dl, s_nc, cs.make_nc_log_likelihood(
+            m, bins), bins, blks, sig, u_prop=up, u_acc=ua)
+        engine_sweeps(torch, lk, tally, m, bins, blks, sig, dl, s_nc, up, ua,
+                      direct, [("auto", want)],
+                      f"MH sweep spin 3 float64, {nch} chains, {name}", card)
+    del equal
+
+
+def phase_flat(torch, lk, dev, card, sht, hsht):
+    """The flat (real and healpy-order) alm interface at lmax 512 in
+    float32: a synfast draw of spin 2 on the GL grid (``sht``) and of spin
+    0 on HEALPix nside NSIDE (``hsht``); alm2cl of each draw against its
+    input C_l within FLAT_CV_SIGMAS cosmic-variance deviations per l and
+    on the mean over l; state_to_flat(flat_to_state(a)) == a exactly and
+    healpy_to_flat(flat_to_healpy(a)) == a within the roundings of the
+    sqrt(2) scale (3 float32 eps); the GL flat round trips analysis(synthesis(a))
+    (spin 0 and 2; <= 5e-5 max|a|, phase 4's float32 bound) and the flat
+    methods' adjointness on both grids (<= 1e-5, as phase 4's).  Returns
+    (launches, shape counts)."""
+    from gibbssampler_tpu_torch.harmonics import (
+        alm2cl, dl_to_cl, flat_to_healpy, flat_to_state, healpy_to_flat,
+        state_to_flat)
+    from gibbssampler_tpu_torch.inference import example_dl, synfast
+    tally = {"launches": [0] * 4, "shapes": {}}
+    gen = torch.Generator(device=dev).manual_seed(14)
+    ell = np.arange(2, LMAX + 1)
+    sd = np.sqrt(2.0 / (2.0 * ell + 1.0))
+    eps = float(torch.finfo(torch.float32).eps)
+
+    def dot(a, b):
+        return sum(float((x.double() * y.double()).sum()) for x, y in zip(a, b))
+
+    for name, tr, spin, kinds in (("GL", sht, 2, ("ee", "bb")),
+                                  (f"HEALPix nside {NSIDE}", hsht, 0,
+                                   ("tt",))):
+        dl = np.stack([example_dl(LMAX, k) for k in kinds])
+        (alm, maps), wall = counted(torch, lk, tally, lambda: synfast(
+            dl, tr, spin, gen=gen))
+        check(alm.device == maps.device == tr.device
+              and maps.shape[0] == len(kinds)
+              and bool(torch.isfinite(maps).all()),
+              f"synfast {name}: maps not finite on the card")
+        flat = state_to_flat(alm, LMAX)                     # (nf, nflat)
+        cl_hat = alm2cl(flat.double(), LMAX).cpu().numpy()[:, 2:]
+        cl = dl_to_cl(torch.as_tensor(dl)).numpy()[:, 2:]
+        dev_l = np.abs(cl_hat / cl - 1.0) / sd
+        mean_dev = np.abs((cl_hat / cl - 1.0).mean(axis=1)) / (
+            np.sqrt((sd ** 2).sum()) / ell.size)
+        check(dev_l.max() <= FLAT_CV_SIGMAS
+              and mean_dev.max() <= FLAT_CV_SIGMAS,
+              f"synfast {name}: alm2cl off its input C_l by "
+              f"{dev_l.max():.2f} cosmic-variance deviations at one l, "
+              f"{mean_dev.max():.2f} on the mean")
+        check(torch.equal(state_to_flat(flat_to_state(flat, LMAX), LMAX),
+                          flat), f"{name}: flat -> state -> flat not exact")
+        back = healpy_to_flat(flat_to_healpy(flat, LMAX), LMAX)
+        hp_err = float(((back - flat).abs()
+                        / flat.abs().clamp_min(1e-30)).max())
+        # four roundings of at most eps / 2 each: the two scales' and
+        # the two products'
+        check(hp_err <= 3 * eps, f"{name}: flat -> healpy -> flat rel err "
+              f"{hp_err:.3g} > 3 eps")
+        # adjointness on the flat methods: y = A x + noise
+        (rt, adj), _ = counted(torch, lk, tally, lambda: flat_checks(
+            torch, tr, flat, spin, gen, name == "GL", dot))
+        check(adj <= 1e-5, f"{name}: flat adjointness {adj:.3g} > 1e-5")
+        if rt is not None:
+            check(max(rt) <= 5e-5, f"GL flat round trip rel err {rt} > 5e-5")
+        print(f"flat interface {name} lmax {LMAX} float32: synfast spin "
+              f"{spin} ({wall * 1e3:.1f} ms with its draw); alm2cl vs the "
+              f"input C_l max {dev_l.max():.2f} cosmic-variance deviations "
+              f"at one l, {mean_dev.max():.2f} on the mean over l (bound "
+              f"{FLAT_CV_SIGMAS:g}); state round trip exact; healpy round "
+              f"trip max rel err {hp_err:.2e}; "
+              + ("" if rt is None else f"round trip analysis(synthesis(a)) "
+                 f"max rel err spin 0 {rt[0]:.2e}, spin 2 {rt[1]:.2e}; ")
+              + f"flat adjointness {adj:.2e} [{card}]", flush=True)
+        del alm, maps, flat, back
+    torch.cuda.empty_cache()
+    print_shapes("flat interface", tally["shapes"])
+    return tuple(tally["launches"]), tally["shapes"]
+
+
+def flat_checks(torch, tr, flat, spin, gen, round_trip, dot):
+    """(round-trip errors or None, adjointness gap) of the flat methods on
+    the draw ``flat``: the spin-0 and spin-2 analysis(synthesis(a)) round
+    trips (``round_trip``, GL only) and |<A x, y> - <x, A^T y>| / |<A x,
+    y>| with y = A x + noise, accumulated in float64."""
+    noisy = lambda m: m + torch.randn(m.shape, generator=gen, dtype=m.dtype,
+                                      device=m.device)
+    if spin == 0:
+        x = (flat[0],)
+        ax = (tr.synthesis(x[0]),)
+        y = tuple(noisy(m) for m in ax)
+        aty = (tr.adjoint_synthesis(y[0]),)
+    else:
+        x = (flat[0], flat[1])
+        ax = tr.synthesis_spin2(*x)
+        y = tuple(noisy(m) for m in ax)
+        aty = tr.adjoint_synthesis_spin2(*y)
+    lhs = dot(ax, y)
+    adj = abs(lhs - dot(x, aty)) / abs(lhs)
+    rt = None
+    if round_trip:
+        scale = float(flat.abs().max())
+        r0 = float((tr.analysis(tr.synthesis(flat[0])) - flat[0]).abs().max())
+        r2 = max(float((a - b).abs().max()) for a, b in zip(
+            tr.analysis_spin2(*tr.synthesis_spin2(flat[0], flat[1])), flat))
+        rt = (r0 / scale, r2 / scale)
+    return rt, adj
 
 
 def main():
@@ -1999,18 +2359,36 @@ def main():
     model, dls = phase_dataset(torch, sht)
     launches["centered"] = phase_centered_slice(torch, lk, model, dls, dev,
                                                 card)
+    # the blocked-MH engines' checks and sweeps beside the main path,
+    # counted into tally (and phase 3's checks at their new shapes)
+    tally = {"launches": [0] * 4, "shapes": {}}
     launches["ASIS GL band"], scheme, dl0, state = phase_asis_slice(
         torch, lk, model, dls, dev, card, profile, "gl", "band")
-    lr_err["GL band"] = phase_mh_sweep(torch, scheme, state, dev, card)
+    lr_err["GL band"] = phase_mh_sweep(
+        torch, scheme, state, dev, card, engines=[(False, "phi"),
+                                                  ("m", "coef")],
+        no_singles=True, tally=tally, lk=lk)
     launches["ASIS GL band overrelax"] = phase_asis_slice(
         torch, lk, model, dls, dev, card, profile, "gl", "band",
         cr="overrelax", per_iter=OVERRELAX_PER_ITER)[0]
     launches["adaptation"] = phase_adapt(torch, lk, scheme, dl0, dev, card)
+    band = (scheme, state)
     del scheme, state
     launches["PNCP GL band"], scheme, state = phase_pncp_slice(
         torch, lk, model, dls, dev, card, profile)
     phase_pncp_sweep(torch, scheme, state, dev, card)
-    del model, scheme, state
+    del scheme, state
+    # the phi slice (bench.py's ASIS band configuration with
+    # mh_fast="phi"), then one float32 coefficient-engine sweep
+    launches["ASIS GL band phi"] = phase_asis_slice(
+        torch, lk, model, dls, dev, card, profile, "gl", "band",
+        mh_fast="phi", n_timed=PHI_TIMED)[0]
+    label = "ASIS gl band aux_mala"
+    print(f"MH step ms/iter at 128 chains: phi engine "
+          f"{MH_MS[label + ' phi']:.2f}, table engine {MH_MS[label]:.2f} "
+          f"(phase 5, this call) [{card}]", flush=True)
+    phase_coef_sweep(torch, lk, tally, *band, dev, card)
+    del model, band
     torch.cuda.empty_cache()
     cg_launches = phase_cg(torch, lk, dev, card, profile)
     launches["CG"] = cg_launches[:2]
@@ -2019,21 +2397,25 @@ def main():
     launches["ASIS GL planckish"], scheme, _, state = phase_asis_slice(
         torch, lk, model, dls, dev, card, profile, "gl", "planckish",
         per_iter=PLANCKISH_PER_ITER)
-    lr_err["GL planckish"] = phase_mh_sweep(torch, scheme, state, dev, card,
-                                            label=" planckish")
-    del model, scheme, state, sht
+    lr_err["GL planckish"] = phase_mh_sweep(
+        torch, scheme, state, dev, card, label=" planckish",
+        engines=[(False, "phi"), ("m", "phi")], tally=tally, lk=lk)
+    phase_nosplit_sweep(torch, lk, tally, scheme, state, dev, card)
+    del model, scheme, state
     torch.cuda.empty_cache()
     model, dls = phase_healpix_dataset(torch, dev)
     launches["ASIS HEALPix planckish"], scheme, _, state = phase_asis_slice(
         torch, lk, model, dls, dev, card, profile, "healpix", "planckish",
         per_iter=HEALPIX_PER_ITER)
     lr_err["HEALPix planckish"] = phase_mh_sweep(
-        torch, scheme, state, dev, card, label=" HEALPix planckish")
+        torch, scheme, state, dev, card, label=" HEALPix planckish",
+        engines=[(False, "phi")], tally=tally, lk=lk)
+    hsht = model.sht
     del model, scheme, state
     torch.cuda.empty_cache()
     # the runner and the joint TQU family, each phase counted on its own;
     # then phase 3's checks at every shape they launched that it lacks
-    new_launches, new_shapes = [], {}
+    new_launches, new_shapes = [tally["launches"]], dict(tally["shapes"])
     with tempfile.TemporaryDirectory() as tmp:
         for phase in (phase_runner, phase_runner_fits, phase_joint):
             n, sh = phase(torch, lk, dev, card, tmp)
@@ -2041,12 +2423,21 @@ def main():
             for k, v in sh.items():
                 new_shapes[k] = new_shapes.get(k, 0) + v
             torch.cuda.empty_cache()
+    # the flat interface on the full grids' transforms
+    n, sh = phase_flat(torch, lk, dev, card, sht, hsht)
+    new_launches.append(n)
+    for k, v in sh.items():
+        new_shapes[k] = new_shapes.get(k, 0) + v
+    del sht, hsht
+    torch.cuda.empty_cache()
+    print_shapes("engine sweeps", tally["shapes"])
     checked, new_rec, new_rec64 = phase_new_shapes(torch, lk, dev, card,
                                                    new_shapes)
     for recs, new in ((rec, new_rec), (rec64, new_rec64)):
         for name, by in new.items():
             recs[name].update(by)
-    print(f"phase 3 at the runner and joint phases' {len(checked)} new "
+    print(f"phase 3 at the engine, runner, joint and flat phases' "
+          f"{len(checked)} new "
           f"shapes (L, nr, C, dtype): "
           f"{', '.join(f'{L} {nr} {C} {str(dt)[6:]}' for L, nr, C, dt in checked)}",
           flush=True)

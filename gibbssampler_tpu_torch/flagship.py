@@ -195,10 +195,12 @@ def analytic_sigmas(model, bins_list):
 
 
 def asis_setup(model, dls, grid: str, mask: str, cr: str = "aux_mala",
-               seed: bool = False, records=RECORDS):
+               seed: bool = False, records=RECORDS, mh_fast: str = "auto"):
     """The flagship ASISGibbs scheme on ``model`` and its D_ell start (the
     sky's binned means): the port's tuned record for (grid, mask, cr), or
-    with ``seed`` the analytic seeds."""
+    with ``seed`` the analytic seeds.  ``mh_fast``: the scheme's MH engine
+    choice ("phi" pins the phi-domain engine: the same Markov kernel, so
+    the same record)."""
     if cr not in CR_OPTIONS:
         raise ValueError(f"cr={cr!r}; one of {tuple(CR_OPTIONS)}")
     lmax = model.lmax
@@ -209,7 +211,7 @@ def asis_setup(model, dls, grid: str, mask: str, cr: str = "aux_mala",
         sig = port_tuned_proposal_sigmas(records, "asis", grid, mask, lmax,
                                          [len(b) - 1 for b in bins], cr)
     scheme = ASISGibbs(model, bins, blocks, sig, n_iter_mh=1, cr_method=cr,
-                       cr_options=CR_OPTIONS[cr])
+                       cr_options=CR_OPTIONS[cr], mh_fast=mh_fast)
     dl0 = tuple(binned_mean(d, b) for d, b in zip(dls, bins))
     return scheme, dl0
 

@@ -35,6 +35,8 @@ __all__ = [
     "almxfl_state",
     "alm2cl_state",
     "ell_mask_state",
+    "flat_to_state",
+    "state_to_flat",
 ]
 
 _SQRT2 = np.sqrt(2.0)
@@ -126,3 +128,24 @@ def ell_mask_state(lmax: int, lmin: int = 2, dtype=np.float64) -> np.ndarray:
     sm = state_masks(lmax)
     lsel = (np.arange(lmax + 1) >= lmin).astype(np.float64)
     return (sm.valid * lsel[None, None, :]).reshape(-1).astype(dtype)
+
+
+def flat_to_state(flat: torch.Tensor, lmax: int) -> torch.Tensor:
+    """Real (ragged) packing (..., (lmax+1)^2) -> grid-packed state
+    (..., nstate), a gather at the boundary; invalid slots get 0."""
+    sm = state_masks(lmax)
+    src = device_constant(("flat_of_state", lmax), lambda: sm.flat_of_state,
+                          torch.int64, flat.device)
+    valid = device_constant(("valid_flat", lmax),
+                            lambda: sm.state_valid_flat, flat.dtype,
+                            flat.device)
+    return flat[..., src] * valid
+
+
+def state_to_flat(x: torch.Tensor, lmax: int) -> torch.Tensor:
+    """Grid-packed state (..., nstate) -> real (ragged) packing (...,
+    (lmax+1)^2), a gather at the boundary."""
+    idx = device_constant(("state_of_flat", lmax),
+                          lambda: state_masks(lmax).state_of_flat,
+                          torch.int64, x.device)
+    return x[..., idx]

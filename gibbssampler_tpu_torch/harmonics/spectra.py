@@ -1,9 +1,9 @@
-"""Power-spectrum conventions: D_ell <-> C_ell, binning, beams.
+"""Power-spectrum conventions: D_ell <-> C_ell, variance expansion,
+binning, empirical spectra and filters on the real (flat) packing, beams.
 
-PyTorch counterpart of ``gibbssampler_tpu.harmonics.spectra`` (the parts
-the centered polarization path uses).  Functions broadcast over leading
-batch axes (chains first); bins are static numpy int arrays of ell
-breakpoints, bin b covering [bins[b], bins[b+1]).
+PyTorch counterpart of ``gibbssampler_tpu.harmonics.spectra``.  Functions
+broadcast over leading batch axes (chains first); bins are static numpy
+int arrays of ell breakpoints, bin b covering [bins[b], bins[b+1]).
 """
 
 from __future__ import annotations
@@ -13,8 +13,11 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["device_constant", "dl_to_cl_factor", "dl_to_cl", "bin_index",
-           "unfold_bins", "bin_sum", "gauss_beam"]
+from .packing import index_maps
+
+__all__ = ["device_constant", "dl_to_cl_factor", "dl_to_cl", "cl_to_dl",
+           "variance_expansion", "variance_expansion_matrix", "bin_index",
+           "unfold_bins", "bin_sum", "alm2cl", "almxfl", "gauss_beam"]
 
 _DEVICE_CONSTANTS: dict = {}
 
@@ -57,6 +60,37 @@ def dl_to_cl(dl: torch.Tensor, lmax: int | None = None) -> torch.Tensor:
     return dl * dl_to_cl_factor(lmax, dl.dtype, dl.device)
 
 
+def cl_to_dl(cl: torch.Tensor, lmax: int | None = None) -> torch.Tensor:
+    """C_ell -> D_ell = l (l+1) C_ell / (2 pi)."""
+    if lmax is None:
+        lmax = cl.shape[-1] - 1
+    ell = torch.arange(lmax + 1, dtype=cl.dtype, device=cl.device)
+    return cl * ell * (ell + 1.0) / (2.0 * np.pi)
+
+
+def _ell_of(lmax: int, device) -> torch.Tensor:
+    """The degree of each slot of the real packing, on ``device``."""
+    return device_constant(("ell_of", lmax), lambda: index_maps(lmax).ell_of,
+                           torch.int64, device)
+
+
+def variance_expansion(dl: torch.Tensor, lmax: int) -> torch.Tensor:
+    """Per-slot prior variance of the real packing from D_ell: var[i] =
+    C_l(i), (..., lmax+1) -> (..., (lmax+1)^2)."""
+    return dl_to_cl(dl, lmax)[..., _ell_of(lmax, dl.device)]
+
+
+def variance_expansion_matrix(dl_blocks: torch.Tensor,
+                              lmax: int) -> torch.Tensor:
+    """Per-slot k x k prior covariance blocks of the real packing from
+    per-ell D_ell blocks: (..., lmax+1, k, k) -> (..., (lmax+1)^2, k, k),
+    the C_ell block repeated over every (l, m) slot (the joint sampler's
+    k x k variance expansion)."""
+    scale = dl_to_cl_factor(lmax, dl_blocks.dtype, dl_blocks.device)
+    cl_blocks = dl_blocks * scale[..., :, None, None]
+    return cl_blocks[..., _ell_of(lmax, dl_blocks.device), :, :]
+
+
 def bin_index(bins: np.ndarray, lmax: int) -> np.ndarray:
     """bin_of[l] for l = 0..lmax; ells outside [bins[0], bins[-1]) map to -1."""
     bins = np.asarray(bins)
@@ -88,6 +122,29 @@ def bin_sum(per_ell: torch.Tensor, bins: np.ndarray,
                       == np.arange(len(bins) - 1)[None, :])
     return per_ell @ device_constant(key, onehot, per_ell.dtype,
                                      per_ell.device)
+
+
+def alm2cl(flat: torch.Tensor, lmax: int,
+           flat2: torch.Tensor | None = None) -> torch.Tensor:
+    """Empirical (pseudo-)spectrum of a real-packed alm vector, (...,
+    lmax+1): hat C_l = 1/(2l+1) sum_m |a_lm|^2, which with the sqrt(2)
+    packing is 1/(2l+1) times the sum of squares of the degree-l slots;
+    the cross-spectrum with ``flat2``."""
+    other = flat if flat2 is None else flat2
+    prod = flat * other
+    sums = torch.zeros(prod.shape[:-1] + (lmax + 1,), dtype=prod.dtype,
+                       device=prod.device)
+    sums.index_add_(-1, _ell_of(lmax, prod.device), prod)
+    counts = device_constant(("counts", lmax),
+                             lambda: 2.0 * np.arange(lmax + 1) + 1.0,
+                             flat.dtype, flat.device)
+    return sums / counts
+
+
+def almxfl(flat: torch.Tensor, fl: torch.Tensor, lmax: int) -> torch.Tensor:
+    """A real-packed alm times a per-ell filter fl (..., lmax+1)
+    (healpy.almxfl's role)."""
+    return flat * fl[..., _ell_of(lmax, flat.device)]
 
 
 def gauss_beam(fwhm_radians: float, lmax: int, dtype=torch.float32,

@@ -18,7 +18,7 @@ from ..samplers.joint import synfast_joint
 from ..sht.healpix import HealpixSHT
 from ..sht.transform import SHT, make_sht
 
-__all__ = ["example_dl", "simulate_dataset"]
+__all__ = ["example_dl", "synfast", "simulate_dataset"]
 
 
 def example_dl(lmax: int, kind: str = "tt", amp: float = 1000.0) -> np.ndarray:
@@ -38,6 +38,29 @@ def example_dl(lmax: int, kind: str = "tt", amp: float = 1000.0) -> np.ndarray:
         dl += 1e-6 * amp
     dl[:2] = 0.0
     return dl
+
+
+def synfast(dl_fields, sht: SHT | HealpixSHT, spin: int,
+            gen: torch.Generator | None = None, xi=None):
+    """Draw a Gaussian sky, alm ~ N(0, C_l) per field, and return (alm,
+    maps) on the transform's device (healpy's synfast role).
+
+    dl_fields: (nfields, lmax+1) D_ell.  spin 0: alm (1, nstate), maps (1,
+    *pix), the T map; spin 2: (E, B) alm (2, nstate) and (Q, U) maps (2,
+    *pix).  ``xi``: optional injected N(0, 1) variates (nfields, nstate);
+    otherwise drawn from ``gen``."""
+    if spin not in (0, 2):
+        raise ValueError(f"spin={spin}: synfast draws spin 0 or 2 skies "
+                         "(samplers.synfast_joint draws correlated TQU)")
+    lmax, dt, dev = sht.lmax, sht.dtype, sht.device
+    dl = torch.as_tensor(np.asarray(dl_fields), dtype=dt, device=dev)
+    var = variance_expansion_state(dl, lmax)
+    if xi is None:
+        xi = torch.randn(var.shape, generator=gen, dtype=dt, device=dev)
+    alm = torch.sqrt(var) * torch.as_tensor(xi, dtype=dt, device=dev)
+    if spin == 0:
+        return alm, sht.synthesis_state(alm[0])[None]
+    return alm, torch.stack(sht.synthesis_spin2_state(alm[0], alm[1]))
 
 
 def simulate_dataset(lmax: int, spin: int, dl_fields, noise_sigma2,

@@ -7,8 +7,9 @@
 - blocked Metropolis-within-Gibbs over binned D_ell with truncated-normal
   proposals on the non-centered (whitened) parametrization: the direct
   ``nc_cls_sample``, one likelihood evaluation per block, and its rank-one
-  table-domain fast path ``nc_cls_sample_cut`` for cut-decomposition
-  models;
+  fast path ``nc_cls_sample_cut`` for cut-decomposition models, on the
+  engine the JAX package picks (table domain, coefficient m domain or phi
+  domain);
 - the ASIS ``whiten`` / ``recenter`` transforms.
 
 Every function takes tensors whose leading axes are chains.  Random numbers
@@ -426,9 +427,13 @@ def _mdomain_eligible(model) -> bool:
             and getattr(cut, "nphi", 0) >= 2 * model.lmax)
 
 
-# chunk size of the singles sweep: at most this many bins AND this many
-# selected ells per chunk (bounds the chunk's live (..., L, J, J) tensors)
+# chunk size of the m-domain singles sweeps: at most this many bins AND
+# this many selected ells per chunk (bounds the chunk's live (..., L, J, J)
+# tables and (..., nb, ncomp, nr, L) coefficients)
 _MDOMAIN_CHUNK = 16
+# chunk size of the phi-domain singles sweep: its per-bin map stack, (...,
+# nb, ncomp, nr, nphi), is the largest live tensor of that engine
+_PHI_CHUNK = 16
 
 
 def _prepare_mchunks(singles, single_rows, bins_list,
@@ -471,17 +476,31 @@ def _prepare_mchunks(singles, single_rows, bins_list,
     return out
 
 
+def _chunk_comps(model, f) -> tuple:
+    """The map components field f occupies in the map axis: (0,) for a
+    spin-0 field (T), (0, 1) for E or B of a spin-2 model, (1, 2) for E or B
+    of a joint TQU model."""
+    if model.spin == 0 or (model.spin == 3 and f == 0):
+        return (0,)
+    return (0, 1) if model.spin == 2 else (1, 2)
+
+
+def _spin2_which(model, f) -> str:
+    """"e" or "b": which spin-2 field of the model field f is."""
+    return "e" if f == model._e else "b"
+
+
 def _prepare_mgrids(model, t, fields):
     """The Legendre-stage input grids of the per-bin components t_f, once
     per field the chunks use: {field: ("s0"|"s2", grid, sign_p, sign_m)}."""
     cut = model.cut_sht
     grids = {}
     for f in sorted(fields):
-        if model.spin == 0:
-            grids[f] = ("s0", cut._state_grids(t[..., 0, :]), 1.0, 1.0)
+        if len(_chunk_comps(model, f)) == 1:
+            grids[f] = ("s0", cut._state_grids(t[..., f, :]), 1.0, 1.0)
         else:
             g, sp, sm = cut.lsel_grid_spin2_single(t[..., f, :],
-                                                   "e" if f == 0 else "b")
+                                                   _spin2_which(model, f))
             grids[f] = ("s2", g, sp, sm)
     return grids
 
@@ -516,7 +535,7 @@ def _prepare_tchunks(model, cut, mchunks, w1, dt, nyq: bool = False):
     for (f, j_idx, seg, gbins, rows) in mchunks:
         # lsel_table gathers a fresh (L, J, nr) tensor: zeroing its Nyquist
         # row leaves the transform's table as it is
-        if model.spin == 0:
+        if len(_chunk_comps(model, f)) == 1:
             lam0_j = cut.lsel_table(cut.lam0, j_idx).to(dt)      # (L, J, r)
             lnyq = None
             if nyq:
@@ -544,34 +563,80 @@ def _prepare_tchunks(model, cut, mchunks, w1, dt, nyq: bool = False):
     return out
 
 
-class _TChunk(NamedTuple):
-    """One chunk of single-bin blocks, its gather indices and tables on the
-    device."""
+class _Chunk(NamedTuple):
+    """One chunk of single-bin blocks of one field: its gather indices on
+    the device and what its engine needs."""
     f: int
+    comps: tuple               # the field's map components
     j_idx: torch.Tensor        # (J,) selected ells
     segj: torch.Tensor | None  # (J, nb) segment matrix of wide bins
     gbins: torch.Tensor        # (nb,) global bin indices
     rows: torch.Tensor         # (nb,) block rows
-    kind: str
-    lamA: torch.Tensor         # (L, J, nr)
-    lamB: torch.Tensor | None
-    W: torch.Tensor            # (L, J, J)
-    omega: torch.Tensor | None
-    lnyq: object               # None, or the Nyquist lambda column(s)
-    sp_tab: torch.Tensor | None  # (J, 2L, nmaps S) hole-point slot tables
+    kind: str                  # "s0" (spin-0 field) or "s2"
+    # the table engine
+    lamA: torch.Tensor | None = None   # (L, J, nr)
+    lamB: torch.Tensor | None = None
+    W: torch.Tensor | None = None      # (L, J, J)
+    omega: torch.Tensor | None = None
+    lnyq: object = None                # None, or the Nyquist lambda column(s)
+    sp_tab: torch.Tensor | None = None  # (J, 2L, ncomp S) hole slot tables
+    # the coefficient engine: per (cos, sin) the sqrt(w pw) scale of the
+    # coefficients, the factor of the residual's ring sums in rho and that
+    # of the residual fold, each (ncomp, nr, L)
+    sc: tuple | None = None
+    rfac: tuple | None = None
+    dfac: tuple | None = None
+    # the phi-domain engine: the (nb, L) host ell selector of the bins
+    sel: np.ndarray | None = None
+
+
+def _engine_of(model, mdomain, singles) -> str:
+    """The engine the JAX package picks for ``nc_cls_sample_cut``:
+
+    - the m domain needs single-bin blocks, an ``mdomain`` that is not
+      False and azimuthally uniform cut weights on rows with nphi >= 2
+      lmax (``_mdomain_eligible``);
+    - there the table domain ("table") needs ``mdomain`` other than "m"
+      and cut weights equal across the map components; otherwise the
+      coefficient domain ("coef") runs, except under the sparse split,
+      which the coefficient engine does not carry: then phi;
+    - everything else runs the phi domain ("phi")."""
+    tab_ok = (mdomain != "m" and getattr(model, "cut_w_equal_fields", False)
+              and getattr(model.cut_sht, "nphi", 0) >= 2 * model.lmax)
+    use_m = mdomain is not False and bool(singles) and _mdomain_eligible(
+        model)
+    if use_m and model.has_sparse:
+        use_m = tab_ok
+    if not use_m:
+        return "phi"
+    return "table" if tab_ok else "coef"
 
 
 class CutMHPlan:
     """The static part of ``nc_cls_sample_cut`` for one model, binning and
     blocking, built once on the model's device: the proposal scale, block
-    table and order, the chunking of the single-bin blocks, their gather
-    indices, the ell-pair W tables of the table-domain engine, the cut
-    rows' phase factors (phi0 != 0) and Nyquist columns (nphi = 2 lmax)
-    and, for a model with the sparse split, the hole points' per-chunk slot
-    tables (``PointSHT.flat_tables_spin*``).  These depend only on the
-    model, the bins and the blocks (the JAX package rebuilds them inside
-    ``jit`` on every call; the values are the same).  The proposal scale ``sigma`` is
-    replaced in place by ``set_sigma``, which rebuilds nothing.
+    table and order, the engine the JAX package would pick
+    (``_engine_of``), the chunking of the single-bin blocks with their
+    gather indices and what the engine needs per chunk:
+
+    - "table" (the table domain): the ell-pair W tables, the cut rows'
+      phase factors (phi0 != 0) and Nyquist columns (nphi = 2 lmax) and,
+      for a model with the sparse split, the hole points' slot tables
+      (``PointSHT.flat_tables_spin*``);
+    - "coef" (the coefficient m domain): the sqrt(w pw) scales of the
+      per-bin ring half-spectrum coefficients and their where-guarded
+      inverses at w = 0 rings;
+    - "phi" (the phi domain): chunks of at most ``_PHI_CHUNK`` bins, each
+      with its ell selector; the per-bin maps are built in the sweep.
+
+    These depend only on the model, the bins and the blocks (the JAX
+    package rebuilds them inside ``jit`` on every call; the values are the
+    same).  The proposal scale ``sigma`` is replaced in place by
+    ``set_sigma``, which rebuilds nothing.
+
+    ``mdomain``: "auto" (or True) lets the engine follow the model, "m"
+    pins the coefficient engine where the m domain is eligible and the
+    model has no sparse split, False pins the phi engine.
 
     ``l_cut_identity`` (the PNCP scheme): an int, or one value per field
     (a sequence or an ndarray); the slots with l < l_cut of each field are
@@ -580,13 +645,8 @@ class CutMHPlan:
     fixed u_base = B (s_nc low) to the state u(dl) and so to u0 and the
     residual it starts from.  The blocks must touch bins at l >= l_cut
     only (``PNCPGibbs`` keeps those), so the singles' components, their
-    chunk gathers and the big blocks' moves are those of the plain engine.
-
-    Raises ``NotImplementedError`` wherever the JAX package would take an
-    engine the port does not have: the coefficient m-domain engine
-    (``mdomain="m"``, or w_cut not equal across map components) and the
-    phi-domain engine (``mdomain=False``, no single-bin blocks, or w_cut
-    not azimuthally uniform)."""
+    chunk gathers and the big blocks' moves are those of the plain
+    engine."""
 
     def __init__(self, model, bins_list, blocks_list, prop_sigma_list,
                  mdomain="auto", l_cut_identity=None, dtype=None):
@@ -627,70 +687,51 @@ class CutMHPlan:
         self.big_rows = [row for (k, _f, row) in order if k == "big"]
         self.big_fields = [f for (k, f, _row) in order if k == "big"]
         single_rows = [row for (k, _f, row) in order if k == "single"]
+        self.engine = _engine_of(model, mdomain, singles)
 
-        # the engine the JAX package would pick, refused where not ported
-        if mdomain not in ("auto", True):
-            raise NotImplementedError(
-                f"mdomain={mdomain!r}: only the table-domain engine is "
-                "ported (\"m\" pins the coefficient engine, False the "
-                "phi-domain engine)")
-        if not singles:
-            raise NotImplementedError(
-                "no single-bin blocks: the JAX package runs the phi-domain "
-                "sweep, which is not ported; use nc_cls_sample")
-        if not _mdomain_eligible(model):
-            raise NotImplementedError(
-                "w_cut is not azimuthally uniform (or nphi < 2 lmax): the "
-                "JAX package runs the phi-domain sweep, which is not ported")
-        if not getattr(model, "cut_w_equal_fields", False):
-            raise NotImplementedError(
-                "w_cut differs between map components: the JAX package "
-                "runs the coefficient m-domain engine, which is not ported")
-        nyq = cut.nphi == 2 * lmax
+        self.nphi = float(cut.nphi)
         # the raw ring sums rotate into the unrotated-F pairing basis by
         # the cut rows' phase factors
         self.ph_c = self.ph_s = None
         if cut.has_phase:
             self.ph_c = cut.phase_cos.to(dt)               # (ncut, L)
             self.ph_s = cut.phase_sin.to(dt)
-        self.nphi = float(cut.nphi)
-
-        mchunks = _prepare_mchunks(singles, single_rows, self.bins_list)
-        self.pwc, self.pws = cut.ring_dot_weights()
-        self.pwc, self.pws = self.pwc.to(dt), self.pws.to(dt)
-        self.w1 = model.w_cut[0, :, 0].to(dt)              # (ncut,) uniform
         self.pos = cut.pos.to(dt)
         self.cmv = torch.full((L,), 2.0, dtype=dt, device=dev)
         self.cmv[0] = 1.0
-        tpre = _prepare_tchunks(model, cut, mchunks, self.w1, dt, nyq=nyq)
+        self.w_cut = model.w_cut.to(dt)                     # (nmaps, ncut, nphi)
         idx = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64),
                                         device=dev)
-        # the sparse split: the hole residual and weights on the flat slot
-        # axis, (..., nmaps * nslots), and per chunk the slot tables
+        # the sparse split: the hole data and weights, padded (the phi
+        # engine) and on the flat slot axis, (..., nmaps * nslots) (the
+        # table engine)
         self.spt = model.sp_sht
         if self.spt is not None:
             self.d_sp = model.d_sp.to(dt)
-            self.w_sp_flat = self.spt.flat_of(model.w_sp.to(dt)).flatten(-2)
+            self.w_sp = model.w_sp.to(dt)
+            self.w_sp_flat = self.spt.flat_of(self.w_sp).flatten(-2)
 
-        def sp_tab(f, j_idx):
-            if self.spt is None:
-                return None
-            if model.spin == 0:
-                return self.spt.flat_tables_spin0(j_idx, dt)
-            return self.spt.flat_tables_spin2(
-                *SPIN2_SINGLE_SIGNS["e" if f == 0 else "b"], j_idx, dt)
-
+        mchunks = _prepare_mchunks(
+            singles, single_rows, self.bins_list,
+            chunk_size=_PHI_CHUNK if self.engine == "phi" else None)
         self.chunks = [
-            _TChunk(f=f, j_idx=idx(j_idx),
-                    segj=(None if seg is None else
-                          torch.as_tensor(seg, dtype=dt, device=dev)),
-                    gbins=idx(gbins), rows=idx(rows), kind=kind, lamA=lamA,
-                    lamB=lamB, W=W, omega=omega, lnyq=lnyq,
-                    sp_tab=sp_tab(f, j_idx))
-            for (f, j_idx, seg, gbins, rows), (kind, lamA, lamB, W, omega,
-                                               lnyq)
-            in zip(mchunks, tpre)]
+            _Chunk(f=f, comps=_chunk_comps(model, f), j_idx=idx(j_idx),
+                   segj=(None if seg is None else
+                         torch.as_tensor(seg, dtype=dt, device=dev)),
+                   gbins=idx(gbins), rows=idx(rows),
+                   kind="s0" if len(_chunk_comps(model, f)) == 1 else "s2")
+            for (f, j_idx, seg, gbins, rows) in mchunks]
         self.fields = sorted({c.f for c in self.chunks})
+        if self.engine == "phi":
+            self.chunks = [c._replace(sel=_chunk_sel(j, seg, L))
+                           for c, (_f, j, seg, *_r) in zip(self.chunks,
+                                                           mchunks)]
+        else:
+            self.pwc, self.pws = (w.to(dt) for w in cut.ring_dot_weights())
+            if self.engine == "table":
+                self._table_chunks(model, mchunks)
+            else:
+                self._coef_chunks()
 
         # per-call harmonic constants: the per-bin component filter and the
         # valid-slot mask
@@ -712,6 +753,51 @@ class CutMHPlan:
                                   dtype=dt, device=dev)
             self.lowm = expand_cl_state(low, lmax)
             self.him = 1.0 - self.lowm
+
+    def _table_chunks(self, model, mchunks):
+        """The table engine's per-chunk tables (``_prepare_tchunks``) and,
+        with the sparse split, hole slot tables."""
+        cut, dt = model.cut_sht, self.dtype
+        # the cut weights are uniform along each ring and equal across map
+        # components
+        self.w1 = self.w_cut[0, :, 0]                       # (ncut,)
+        tpre = _prepare_tchunks(model, cut, mchunks, self.w1, dt,
+                                nyq=cut.nphi == 2 * model.lmax)
+
+        def sp_tab(f, j_idx):
+            if self.spt is None:
+                return None
+            if len(_chunk_comps(model, f)) == 1:
+                return self.spt.flat_tables_spin0(j_idx, dt)
+            return self.spt.flat_tables_spin2(
+                *SPIN2_SINGLE_SIGNS[_spin2_which(model, f)], j_idx, dt)
+
+        self.chunks = [
+            c._replace(lamA=lamA, lamB=lamB, W=W, omega=omega, lnyq=lnyq,
+                       sp_tab=sp_tab(f, j_idx))
+            for c, (f, j_idx, *_r), (_k, lamA, lamB, W, omega, lnyq)
+            in zip(self.chunks, mchunks, tpre)]
+
+    def _coef_chunks(self):
+        """The coefficient engine's per-chunk scales: the coefficients are
+        scaled by sqrt(w_r pw_m), so that <a_i, a_j>_w is a plain product of
+        the scaled coefficients; rho and the residual fold carry the
+        compensating factors on the ring sums' side.  Rings with w_r = 0
+        feed no w-weighted product downstream, so the where-guards there
+        are exact."""
+        w_ring = self.w_cut[..., 0]                         # (nmaps, ncut)
+        out = []
+        for c in self.chunks:
+            wf = w_ring[c.comps[0]: c.comps[-1] + 1][:, :, None]
+            sc = tuple(torch.sqrt(wf * pw) for pw in (self.pwc, self.pws))
+            rfac = tuple(torch.where(pw > 0, s / torch.where(pw > 0, pw, 1.0),
+                                     0.0)
+                         for s, pw in zip(sc, (self.pwc, self.pws)))
+            dfac = tuple(torch.where(s > 0, pw / torch.where(s > 0, s, 1.0),
+                                     0.0)
+                         for s, pw in zip(sc, (self.pwc, self.pws)))
+            out.append(c._replace(sc=sc, rfac=rfac, dfac=dfac))
+        self.chunks = out
 
     def set_sigma(self, prop_sigma_list):
         """Replace the proposal scales in place: the same ``sigma`` tensor,
@@ -773,19 +859,50 @@ class CutMHPlan:
     def big_dll(self, tv, dl_old, dl_new, u, au_cut, au_sp, field):
         """The exact log-likelihood ratio of a multi-bin block's candidate,
         the block on ``field``: (dll, du, A_cut du, A_sp du), one synthesis
-        of the move du."""
+        of the move du onto every map component."""
         du = self.du_of(dl_new, dl_old, tv, field)
         adu_cut, adu_sp = self.model.synthesis_cut_sp(du)
         dll = self.model.data_loglike_cut_delta(u, au_cut, au_sp, du,
                                                 adu_cut, adu_sp, field)
         return dll, du, adu_cut, adu_sp
 
-    def flat_resid(self, au_sp):
-        """The hole residual d_sp - A_sp u on the flat slot axis,
-        (..., nmaps * nslots); None without the sparse split."""
-        if au_sp is None:
-            return None
-        return self.spt.flat_of(self.d_sp - au_sp).flatten(-2)
+    def residual(self, r_cut, au_sp):
+        """The residual the engine's singles carry, from the cut residual
+        maps d_cut - A_cut u and the hole values A_sp u (None without the
+        split): in the m domain the ring sums (Rc, Rs) and the hole
+        residual d_sp - A_sp u on the flat slot axis, (..., nmaps *
+        nslots); in the phi domain the maps and padded values
+        themselves."""
+        r_sp = None if au_sp is None else self.d_sp - au_sp
+        if self.engine == "phi":
+            return r_cut, r_sp
+        return (*self.model.cut_sht.ring_cs_of_maps(r_cut),
+                None if r_sp is None else self.spt.flat_of(r_sp).flatten(-2))
+
+    def move_residual(self, res, acc, adu, adu_sp):
+        """``res`` (``residual``) after the move with cut maps ``adu`` and
+        hole values ``adu_sp``, on the chains where ``acc``."""
+        if self.engine == "phi":
+            resid, rp = res
+            return (_select(acc, resid - adu, resid),
+                    None if rp is None else _select(acc, rp - adu_sp, rp))
+        Rc, Rs, Rp = res
+        Rc_d, Rs_d = self.model.cut_sht.ring_cs_of_maps(adu)
+        if Rp is not None:
+            Rp = _select(acc, Rp - self.spt.flat_of(adu_sp).flatten(-2), Rp)
+        return _select(acc, Rc - Rc_d, Rc), _select(acc, Rs - Rs_d, Rs), Rp
+
+
+def _chunk_sel(j_idx, seg, L) -> np.ndarray:
+    """The (nb, L) 0/1 ell selector of a chunk's bins."""
+    j_idx = np.asarray(j_idx)
+    nb = len(j_idx) if seg is None else seg.shape[1]
+    sel = np.zeros((nb, L))
+    if seg is None:
+        sel[np.arange(nb), j_idx] = 1.0
+    else:
+        sel[np.argmax(seg, axis=1), j_idx] = 1.0
+    return sel
 
 
 def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
@@ -809,20 +926,28 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
               + gamma^2 (q_i - beta_i) / 2
 
     with alpha_i = <c1, t_i>, beta_i = g ||t_i||^2, q_i = ||sqrt(w) A t_i||^2
-    and r the cut residual, carried as its ring sums (Rc, Rs).  Under the
-    sparse split every per-bin scalar gains its hole-point term (q_i +=
-    ||sqrt(w_sp) A_sp t_i||^2, the Gram and rho likewise), and the hole
-    residual is carried on the flat slot axis (Rp).  Multi-bin
-    ("big") blocks are evaluated directly, each on the exact log-ratio of
-    one cut synthesis of its move (``CutMHPlan.big_dll``; u and its maps
-    are synthesized once per sweep), then the
-    singles run chunk by chunk in the table domain: q_i, the in-chunk Gram
-    G_ij = <a_i, a_j>_w and rho_i = <r, a_i>_w from the ell-pair W tables,
-    then a scalar scan with cwr_i = rho_i - sum_{j<i} gamma_j G_ij.
+    and r the cut residual.  Under the sparse split every per-bin scalar
+    gains its hole-point term (q_i += ||sqrt(w_sp) A_sp t_i||^2, rho
+    likewise) and the hole residual is carried too.  Multi-bin ("big")
+    blocks are evaluated directly, each on the exact log-ratio of one cut
+    synthesis of its move (``CutMHPlan.big_dll``; u and its maps are
+    synthesized once per sweep), then the singles run chunk by chunk on the
+    plan's engine (``CutMHPlan``):
 
-    ``plan``: the static part (:class:`CutMHPlan`), built here when not
-    given.  ``u_prop`` / ``u_acc``: injected sweep uniforms (module
-    docstring)."""
+    - table / coef (the m domain): the residual is carried as its ring sums
+      (Rc, Rs) (and the hole residual on the flat slot axis, Rp); per chunk
+      q_i, the in-chunk Gram G_ij = <a_i, a_j>_w and rho_i = <r, a_i>_w,
+      from the ell-pair W tables (table) or from the sqrt(w pw)-scaled ring
+      coefficients of the per-bin components (coef), then a scalar scan
+      with cwr_i = rho_i - sum_{j<i} gamma_j G_ij and one fold of the
+      accepted moves into the residual;
+    - phi: the residual is carried as maps (and hole values); per chunk the
+      per-bin maps A t_i (and A_sp t_i) from one ell-selected synthesis,
+      then a scan over the bins that reads and updates the residual.
+
+    All three engines accept on the same ``u_acc`` slots.  ``plan``: the
+    static part, built here when not given.  ``u_prop`` / ``u_acc``:
+    injected sweep uniforms (module docstring)."""
     dt = dl_tuple[0].dtype
     if plan is None:
         plan = CutMHPlan(model, bins_list, blocks_list, prop_sigma_list,
@@ -831,7 +956,6 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
     elif plan.dtype != dt or plan.model is not model:
         raise ValueError("plan was built for another model or dtype")
     lmax = model.lmax
-    cut = model.cut_sht
     nfields = len(dl_tuple)
     offs = plan.offs
 
@@ -845,7 +969,8 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
         plan.g[f] * bin_sum(_per_ell(t[..., f, :] * t[..., f, :], lmax),
                             bins, lmax)
         for f, bins in enumerate(plan.bins_list)], dim=-1)
-    grids = _prepare_mgrids(model, t, plan.fields)
+    grids = (None if plan.engine == "phi"
+             else _prepare_mgrids(model, t, plan.fields))
 
     dlcat = torch.cat([d.to(dt) for d in dl_tuple], dim=-1)
     batch = tuple(dlcat.shape[:-1])
@@ -855,16 +980,15 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
     accs = []
     for it in range(n_iter):
         # the state the big blocks move from, with its maps: once per
-        # sweep (the singles carry only the residual's ring sums)
+        # sweep (the singles carry only the residual)
         u = plan.u_of(dlcat, tv, u_base)
         au, au_sp = model.synthesis_cut_sp(u)
         if it == 0:
             ll = model.data_loglike_cut(u, au, au_sp)
-            Rc, Rs = cut.ring_cs_of_maps(d_cut - au)         # (..., nf, nr, L)
-            Rp = plan.flat_resid(au_sp)                      # (..., nf S)
-        dlcat, ll, Rc, Rs, Rp, acc_it = _sweep_t(
+            res = plan.residual(d_cut - au, au_sp)
+        dlcat, ll, res, acc_it = _sweep(
             plan, model, grids, t, tv, alpha, beta, dlcat, ll, (u, au, au_sp),
-            Rc, Rs, Rp, u_prop[..., it, :], u_acc[..., it, :])
+            res, u_prop[..., it, :], u_acc[..., it, :])
         accs.append(acc_it)
     dl_out = tuple(dlcat[..., offs[f]: offs[f + 1]] for f in range(nfields))
     return dl_out, NCClsInfo(
@@ -872,14 +996,13 @@ def nc_cls_sample_cut(dl_tuple, s_nc, model, bins_list, blocks_list,
         log_like=ll)
 
 
-def _sweep_t(plan, model, grids, t, tv, alpha, beta, dlcat, ll, state, Rc,
-             Rs, Rp, up, ua):
-    """One table-domain sweep over every chain: propose, the big blocks,
-    then the singles chunk by chunk.  ``state`` is (u, A_cut u, A_sp u) at
-    ``dlcat``, owned by the sweep (u is updated in place); ``Rp`` is the
-    flat hole residual (None without the sparse split).  Returns (dlcat,
-    ll, Rc, Rs, Rp, accs)."""
-    cut = model.cut_sht
+def _sweep(plan, model, grids, t, tv, alpha, beta, dlcat, ll, state, res,
+           up, ua):
+    """One sweep over every chain: propose, the big blocks, then the
+    singles chunk by chunk on the plan's engine.  ``state`` is (u, A_cut u,
+    A_sp u) at ``dlcat``, owned by the sweep (u is updated in place);
+    ``res`` is the residual in the engine's form (``CutMHPlan.residual``),
+    owned by the sweep too.  Returns (dlcat, ll, res, accs)."""
     dt = dlcat.dtype
     props = propose_truncnorm(dlcat, plan.sigma, up)
     lr_vec = truncnorm_logratio(dlcat, props, plan.sigma)
@@ -892,7 +1015,7 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, dlcat, ll, state, Rc,
         mb = plan.bmask[row]
         cand = torch.where(mb > 0, props, dlcat)
         # the exact log-ratio from one synthesis of the move; the residual
-        # ring sums and the hole residual move by the move's maps
+        # moves by the move's maps
         dll, du, adu, adu_sp = plan.big_dll(tv, dlcat, cand, u, au, au_sp, f)
         qcorr = (mb * lr_vec).sum(-1)
         acc = log_u[..., row] < dll + qcorr
@@ -905,13 +1028,60 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, dlcat, ll, state, Rc,
             au = _select(acc, au + adu, au)
             au_sp = _select(acc, None if au_sp is None else au_sp + adu_sp,
                             au_sp)
-        Rc_d, Rs_d = cut.ring_cs_of_maps(adu)
-        Rc = _select(acc, Rc - Rc_d, Rc)
-        Rs = _select(acc, Rs - Rs_d, Rs)
-        if Rp is not None:
-            Rp = _select(acc, Rp - plan.spt.flat_of(adu_sp).flatten(-2), Rp)
+        res = plan.move_residual(res, acc, adu, adu_sp)
         accs[..., row] = acc.to(dt)
 
+    singles = {"table": _singles_t, "coef": _singles_coef,
+               "phi": _singles_phi}[plan.engine]
+    dlcat, ll, res, accs = singles(plan, model, grids, t, alpha, beta, props,
+                                   lr_vec, log_u, dlcat, ll, res, accs)
+    return dlcat, ll, res, accs
+
+
+def _scan_chunk(ch, G, rho, q_c, alpha, beta, props, lr_vec, log_u, dlcat,
+                ll, accs):
+    """The m-domain engines' scalar scan over one chunk's bins: everything
+    but the cross term sum_{j<k} gacc_j G_kj is fixed at the chunk's start,
+    so each step is an addcmul, a compare, a select and a rank-one update
+    of the running cross terms c (no host sync).  Returns (dlcat, ll,
+    accs, gacc), gacc the accepted moves' gamma (0 where rejected)."""
+    gb = ch.gbins
+    D = dlcat[..., gb]
+    P = props[..., gb]
+    sD = torch.sqrt(D)
+    gamma = torch.sqrt(P) - sD
+    be = beta[..., gb]
+    base = (gamma * (alpha[..., gb] - sD * be - rho)
+            + 0.5 * gamma * gamma * (q_c - be))
+    thr = log_u[..., ch.rows] - lr_vec[..., gb]
+    c = torch.zeros_like(base)
+    dll_s, acc_s = [], []
+    for k in range(gb.shape[0]):
+        dll = torch.addcmul(base[..., k], gamma[..., k], c[..., k])
+        acc = dll > thr[..., k]
+        gk = torch.where(acc, gamma[..., k], 0.0)
+        c = torch.addcmul(c, gk[..., None], G[..., :, k])
+        dll_s.append(dll)
+        acc_s.append(acc)
+    dll = torch.stack(dll_s, dim=-1)
+    acc = torch.stack(acc_s, dim=-1)
+    gacc = torch.where(acc, gamma, 0.0)
+    ll = ll + torch.where(acc, dll, 0.0).sum(-1)
+    dlcat = dlcat.index_copy(-1, gb, torch.where(acc, P, D))
+    accs = accs.index_copy(-1, ch.rows, acc.to(dlcat.dtype))
+    return dlcat, ll, accs, gacc
+
+
+def _singles_t(plan, model, grids, t, alpha, beta, props, lr_vec, log_u,
+               dlcat, ll, res, accs):
+    """The table-domain singles: per chunk q, G and rho from the ell-pair
+    W tables and thin gathered state slices (no per-bin (ring, m) planes),
+    the scalar scan, and the fold of the accepted moves into the ring sums
+    (Rc, Rs) of the field's map components (and the flat hole residual
+    Rp).  Ring phases: the raw ring sums rotate into the unrotated-F
+    pairing basis; the Nyquist column (lnyq) contributes through its own
+    exact r-resolved path."""
+    Rc, Rs, Rp = res
     w1, pos, pwc, pws = plan.w1, plan.pos, plan.pwc, plan.pws
     ph_c, ph_s, nphi = plan.ph_c, plan.ph_s, plan.nphi
     L = model.lmax + 1
@@ -933,10 +1103,11 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, dlcat, ll, state, Rc,
             if ph_c is not None:
                 pcn, psn = ph_c[:, L - 1], ph_s[:, L - 1]     # (nr,)
         if ch.kind == "s0":
+            c0 = ch.comps[0]
             gw = gsel * ch.omega[:, :, None]
             CM = torch.einsum("...cml,...cmk->...mlk", gw, gsel)
             Gl = torch.einsum("...mlk,mlk->...lk", CM, ch.W)
-            RcF, RsF = Rc[..., 0, :, :], Rs[..., 0, :, :]
+            RcF, RsF = Rc[..., c0, :, :], Rs[..., c0, :, :]
             # the raw ring sums in the pairing basis of the unrotated F
             Rct, Rst = rot(RcF, RsF)
             U0re = torch.einsum("mjr,...rm->...mj", ch.lamA,
@@ -960,11 +1131,12 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, dlcat, ll, state, Rc,
                 rho_l = rho_l + torch.einsum("...jr,...r->...j", Ccn,
                                              w1 * RcF[..., :, L - 1])
         else:
+            cq, cu = ch.comps
             CM = torch.einsum("...cml,...cmk->...mlk", gsel, gsel)
             Gl = torch.einsum("...mlk,mlk->...lk", CM, ch.W)
             wb = w1[:, None]
-            RcQ_, RsQ_ = Rc[..., 0, :, :], Rs[..., 0, :, :]
-            RcU_, RsU_ = Rc[..., 1, :, :], Rs[..., 1, :, :]
+            RcQ_, RsQ_ = Rc[..., cq, :, :], Rs[..., cq, :, :]
+            RcU_, RsU_ = Rc[..., cu, :, :], Rs[..., cu, :, :]
             RcQ, RsQ = rot(RcQ_, RsQ_)
             RcU, RsU = rot(RcU_, RsU_)
             if ch.lnyq is not None:
@@ -1008,57 +1180,35 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, dlcat, ll, state, Rc,
             G = ch.segj.T @ Gl @ ch.segj
             rho = rho_l @ ch.segj
         if Rp is not None:
-            # hole-point terms on the flat slot axis: the per-bin values
-            # come from the chunk's slot tables and the gathered grid
-            # columns, with no per-chain (row, L) planes
+            # hole-point terms on the flat slot axis, the field's map
+            # components only: the per-bin values come from the chunk's
+            # slot tables and the gathered grid columns, with no per-chain
+            # (row, L) planes
+            S = plan.spt.nslots
+            xs = slice(ch.comps[0] * S, (ch.comps[-1] + 1) * S)
+            w_sp = plan.w_sp_flat[xs]
             a_sp = plan.spt.flat_values(gsel, ch.sp_tab, ch.segj)
-            G = G + torch.einsum("...ix,...jx->...ij", a_sp * plan.w_sp_flat,
-                                 a_sp)
+            G = G + torch.einsum("...ix,...jx->...ij", a_sp * w_sp, a_sp)
             rho = rho + torch.einsum("...ix,...x->...i", a_sp,
-                                     plan.w_sp_flat * Rp)
+                                     w_sp * Rp[..., xs])
         q_c = torch.diagonal(G, dim1=-2, dim2=-1)
+        dlcat, ll, accs, gacc = _scan_chunk(ch, G, rho, q_c, alpha, beta,
+                                            props, lr_vec, log_u, dlcat, ll,
+                                            accs)
 
-        # the scalar scan: everything but the cross term sum_{j<k} gacc_j
-        # G_kj is fixed at the chunk's start, so each step is an addcmul,
-        # a compare, a select and a rank-one update of the running cross
-        # terms c (no host sync)
-        gb = ch.gbins
-        D = dlcat[..., gb]
-        P = props[..., gb]
-        sD = torch.sqrt(D)
-        gamma = torch.sqrt(P) - sD
-        be = beta[..., gb]
-        base = (gamma * (alpha[..., gb] - sD * be - rho)
-                + 0.5 * gamma * gamma * (q_c - be))
-        thr = log_u[..., ch.rows] - lr_vec[..., gb]
-        c = torch.zeros_like(base)
-        dll_s, acc_s = [], []
-        for k in range(gb.shape[0]):
-            dll = torch.addcmul(base[..., k], gamma[..., k], c[..., k])
-            acc = dll > thr[..., k]
-            gk = torch.where(acc, gamma[..., k], 0.0)
-            c = torch.addcmul(c, gk[..., None], G[..., :, k])
-            dll_s.append(dll)
-            acc_s.append(acc)
-        dll = torch.stack(dll_s, dim=-1)
-        acc = torch.stack(acc_s, dim=-1)
-        gacc = torch.where(acc, gamma, 0.0)
-        ll = ll + torch.where(acc, dll, 0.0).sum(-1)
-        dlcat = dlcat.index_copy(-1, gb, torch.where(acc, P, D))
-        accs = accs.index_copy(-1, ch.rows, acc.to(dt))
-
-        # fold the accepted moves into the residual: r <- r - sum_i gamma_i a_i
+        # fold the accepted moves into the residual: r <- r - sum_i gamma_i
+        # a_i, on the field's map components (in place: the sweep owns the
+        # residual)
         gl = gacc if ch.segj is None else gacc @ ch.segj.T
         gg = gsel * gl[..., None, None, :]
         if ch.kind == "s0":
             Fc = torch.einsum("mjr,...cmj->...crm", ch.lamA, gg)
             Fre_u, Fim_u = rot(Fc[..., 0, :, :], Fc[..., 1, :, :])
-            Rc0 = Rc[..., 0, :, :] - (pwc * plan.cmv) * Fre_u
-            Rs0 = Rs[..., 0, :, :] + (pws * plan.cmv) * Fim_u
+            Rc[..., c0, :, :] -= (pwc * plan.cmv) * Fre_u
+            Rs[..., c0, :, :] += (pws * plan.cmv) * Fim_u
             if ch.lnyq is not None:
-                Rc0[..., L - 1] -= nphi * torch.einsum("...j,...jr->...r",
-                                                       gl, Ccn)
-            Rc, Rs = Rc0[..., None, :, :], Rs0[..., None, :, :]
+                Rc[..., c0, :, L - 1] -= nphi * torch.einsum(
+                    "...j,...jr->...r", gl, Ccn)
         else:
             Fp = torch.einsum("mjr,...cmj->...crm", ch.lamA, gg) * sp
             Fm = torch.einsum("mjr,...cmj->...crm", ch.lamB, gg) * sm
@@ -1067,16 +1217,126 @@ def _sweep_t(plan, model, grids, t, tv, alpha, beta, dlcat, ll, state, Rc,
             Bre, Bim = rot(Fp[..., 0, :, :] - pos * Fm[..., 0, :, :],
                            Fp[..., 1, :, :] - pos * Fm[..., 1, :, :])
             # (Qc, Qs, Uc, Us) = (Are, -Aim, Bim, Bre)
-            RcQ = Rc[..., 0, :, :] - pwc * Are
-            RcU = Rc[..., 1, :, :] - pwc * Bim
+            Rc[..., cq, :, :] -= pwc * Are
+            Rc[..., cu, :, :] -= pwc * Bim
+            Rs[..., cq, :, :] += pws * Aim
+            Rs[..., cu, :, :] -= pws * Bre
             if ch.lnyq is not None:
-                RcQ[..., L - 1] -= nphi * torch.einsum("...j,...jr->...r",
-                                                       gl, Qcn)
-                RcU[..., L - 1] -= nphi * torch.einsum("...j,...jr->...r",
-                                                       gl, Ucn)
-            Rc = torch.stack([RcQ, RcU], dim=-3)
-            Rs = torch.stack([Rs[..., 0, :, :] + pws * Aim,
-                              Rs[..., 1, :, :] - pws * Bre], dim=-3)
+                Rc[..., cq, :, L - 1] -= nphi * torch.einsum(
+                    "...j,...jr->...r", gl, Qcn)
+                Rc[..., cu, :, L - 1] -= nphi * torch.einsum(
+                    "...j,...jr->...r", gl, Ucn)
         if Rp is not None:
-            Rp = Rp - torch.einsum("...i,...ix->...x", gacc, a_sp)
-    return dlcat, ll, Rc, Rs, Rp, accs
+            Rp[..., xs] -= torch.einsum("...i,...ix->...x", gacc, a_sp)
+    return dlcat, ll, (Rc, Rs, Rp), accs
+
+
+def _chunk_ring_coefs(cut, grids, ch):
+    """Ring half-spectrum coefficients of the chunk's per-bin components
+    A t_i on the cut rings: (Cc, Cs), each (..., nb, ncomp, nr, L) over the
+    field's map components, from the hoisted per-field grids."""
+    kind, g, sp, sm = grids[ch.f]
+    if kind == "s0":
+        Cc, Cs = cut.ring_cs_lsel_spin0_grids(g, ch.j_idx, ch.segj)
+        return Cc[..., None, :, :], Cs[..., None, :, :]
+    (qc, qs), (uc, us) = cut.ring_cs_lsel_spin2_grids(g, sp, sm, ch.j_idx,
+                                                      ch.segj)
+    return torch.stack([qc, uc], dim=-3), torch.stack([qs, us], dim=-3)
+
+
+def _singles_coef(plan, model, grids, t, alpha, beta, props, lr_vec, log_u,
+                  dlcat, ll, res, accs):
+    """The coefficient m-domain singles (w azimuthally uniform but unequal
+    across map components; no sparse split): per chunk the per-bin ring
+    half-spectrum coefficients, scaled by sqrt(w pw) once, give G and rho
+    as plain products; the scalar scan; the residual's ring sums move by
+    the accepted moves' coefficients.  Each chunk's coefficients are
+    dropped before the next chunk's are built."""
+    Rc, Rs, Rp = res
+    cut = model.cut_sht
+    for ch in plan.chunks:
+        c0, c1 = ch.comps[0], ch.comps[-1] + 1
+        Cc, Cs = _chunk_ring_coefs(cut, grids, ch)
+        Cc = Cc * ch.sc[0]
+        Cs = Cs * ch.sc[1]
+        G = (torch.einsum("...icrm,...jcrm->...ij", Cc, Cc)
+             + torch.einsum("...icrm,...jcrm->...ij", Cs, Cs))
+        q_c = torch.diagonal(G, dim1=-2, dim2=-1)
+        # rho_i = <r, a_i>_w = sum (Cc sc_c) (Rc sqrt(w / pw)) + ...
+        rho = (torch.einsum("...icrm,...crm->...i", Cc,
+                            Rc[..., c0:c1, :, :] * ch.rfac[0])
+               + torch.einsum("...icrm,...crm->...i", Cs,
+                              Rs[..., c0:c1, :, :] * ch.rfac[1]))
+        dlcat, ll, accs, gacc = _scan_chunk(ch, G, rho, q_c, alpha, beta,
+                                            props, lr_vec, log_u, dlcat, ll,
+                                            accs)
+        # Rc(a) = pwc Cc_raw = (Cc sc_c) pwc / sc_c; w = 0 rings feed no
+        # w-weighted product downstream, so zeroing them is exact
+        Rc[..., c0:c1, :, :] -= torch.einsum("...i,...icrm->...crm", gacc,
+                                             Cc) * ch.dfac[0]
+        Rs[..., c0:c1, :, :] -= torch.einsum("...i,...icrm->...crm", gacc,
+                                             Cs) * ch.dfac[1]
+        del Cc, Cs
+    return dlcat, ll, (Rc, Rs, Rp), accs
+
+
+def _chunk_maps(tr, model, f, sel, t):
+    """(..., nb, ncomp, *pix) per-bin maps (or point values) A t_i of one
+    field-pure chunk through the transform ``tr`` (the cut rows' SHT or the
+    hole points' PointSHT), on the field's map components."""
+    tf = t[..., f, :]
+    if len(_chunk_comps(model, f)) == 1:
+        return tr.synthesis_state_lsel(tf, sel)[..., None, :, :]
+    z = torch.zeros_like(tf)
+    e, b = (tf, z) if f == model._e else (z, tf)
+    return torch.stack(tr.synthesis_spin2_state_lsel(e, b, sel), dim=-3)
+
+
+def _singles_phi(plan, model, grids, t, alpha, beta, props, lr_vec, log_u,
+                 dlcat, ll, res, accs):
+    """The phi-domain singles (any cut weights): per chunk of at most
+    ``_PHI_CHUNK`` bins the per-bin maps A t_i (and hole values A_sp t_i)
+    from one ell-selected synthesis, their w-weighted copies and q_i, then
+    a scan over the bins that reads the residual (cwr_i = <w r, A t_i>, a
+    dot product per chain) and moves it by each accepted bin's map, in
+    place.  Each chunk's maps are dropped before the next chunk's are
+    built, so that peak memory stays O(chunk)."""
+    resid, rp = res
+    cut, spt = model.cut_sht, plan.spt
+    # per-chain dot products over the (ncomp, nr, ncol) map axes
+    dot = lambda a, b: torch.einsum("...crp,...crp->...", a, b)
+    for ch in plan.chunks:
+        cs = slice(ch.comps[0], ch.comps[-1] + 1)
+        maps = [(_chunk_maps(cut, model, ch.f, ch.sel, t), plan.w_cut[cs],
+                 resid[..., cs, :, :])]
+        if rp is not None:
+            maps.append((_chunk_maps(spt, model, ch.f, ch.sel, t),
+                         plan.w_sp[cs], rp[..., cs, :, :]))
+        # (per-bin maps, their w-weighted copies, the residual's view)
+        maps = [(a, w * a, r) for a, w, r in maps]
+        q_c = sum(dot(wa, a) for a, wa, _r in maps)
+        gb = ch.gbins
+        D = dlcat[..., gb]
+        P = props[..., gb]
+        sD = torch.sqrt(D)
+        gamma = torch.sqrt(P) - sD
+        al, be = alpha[..., gb], beta[..., gb]
+        lu = log_u[..., ch.rows]
+        lr = lr_vec[..., gb]
+        acc_s = []
+        for k in range(gb.shape[0]):
+            cwr = sum(dot(wa[..., k, :, :, :], r) for _a, wa, r in maps)
+            g_k = gamma[..., k]
+            dll = (g_k * (al[..., k] - sD[..., k] * be[..., k] - cwr)
+                   + 0.5 * g_k * g_k * (q_c[..., k] - be[..., k]))
+            acc = lu[..., k] < dll + lr[..., k]
+            gam = torch.where(acc, g_k, 0.0)[..., None, None, None]
+            for a, _wa, r in maps:
+                r.addcmul_(gam, a[..., k, :, :, :], value=-1.0)
+            ll = ll + torch.where(acc, dll, 0.0)
+            acc_s.append(acc)
+        acc = torch.stack(acc_s, dim=-1)
+        dlcat = dlcat.index_copy(-1, gb, torch.where(acc, P, D))
+        accs = accs.index_copy(-1, ch.rows, acc.to(dlcat.dtype))
+        del maps
+    return dlcat, ll, (resid, rp), accs

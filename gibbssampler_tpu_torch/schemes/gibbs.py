@@ -207,28 +207,25 @@ def _cut_mh_eligible(model, blocks_list, all_sph: bool) -> bool:
     return all(kinds[first_single:])
 
 
-MH_FAST = ("auto", "off")
+MH_FAST = ("auto", "phi", "off")
 
 
 class _BlockedMHGibbs(GibbsScheme):
     """Machinery of the schemes with a non-centered blocked-MH D_ell step
-    (non-centered, ASIS, PNCP): the blocks, the proposal scales and the two
+    (non-centered, ASIS, PNCP): the blocks, the proposal scales and the
     engines.
 
-    ``mh_fast``: "auto" takes the rank-one table-domain engine
-    (``nc_cls_sample_cut``) when ``_cut_mh_eligible`` holds, "off" the
-    direct ``nc_cls_sample`` on ``log_like``.  The JAX package's "phi"
-    (phi-domain engine) is not ported and raises, as does any engine
-    ``CutMHPlan`` refuses.  The engine's static tables are built once,
-    here."""
+    ``mh_fast``: "auto" takes the rank-one fast path (``nc_cls_sample_cut``)
+    when ``_cut_mh_eligible`` holds, on the engine ``CutMHPlan`` picks for
+    the model (table domain, coefficient m domain or phi domain, as the JAX
+    package picks); "phi" takes the fast path pinned to the phi-domain
+    engine (``mdomain=False``); "off" the direct ``nc_cls_sample`` on
+    ``log_like``.  The engine's static tables are built once, here."""
 
     def __init__(self, model, bins_list, blocks_list, prop_sigma_list,
                  n_iter_mh: int = 1, all_sph: bool = False, d_alm=None,
                  mh_fast: str = "auto", l_cut_identity=None, **kw):
         super().__init__(model, bins_list, **kw)
-        if mh_fast == "phi":
-            raise NotImplementedError(
-                'mh_fast="phi": the phi-domain engine is not ported')
         if mh_fast not in MH_FAST:
             raise ValueError(f"mh_fast={mh_fast!r}; one of {MH_FAST}")
         self.blocks_list = tuple(tuple((int(lo), int(hi)) for lo, hi in bl)
@@ -245,6 +242,7 @@ class _BlockedMHGibbs(GibbsScheme):
         self.mh_plan = (cls_mod.CutMHPlan(model, self.bins_list,
                                           self.blocks_list,
                                           self.prop_sigma_list,
+                                          mdomain=mh_fast != "phi",
                                           l_cut_identity=l_cut_identity)
                         if self._use_cut_mh else None)
 
@@ -265,7 +263,7 @@ class _BlockedMHGibbs(GibbsScheme):
 
     def set_proposal_sigmas(self, sig_list):
         """Swap the proposal scales of both MH engines: ``prop_sigma_list``
-        and, in place, the table engine plan's ``sigma``.  The plan and its
+        and, in place, the fast path plan's ``sigma``.  The plan and its
         tables stay as they are (nothing is rebuilt)."""
         if len(sig_list) != len(self.bins_list):
             raise ValueError(f"{len(sig_list)} proposal scale vectors for "
@@ -278,8 +276,8 @@ class _BlockedMHGibbs(GibbsScheme):
             self.mh_plan.set_sigma(sig)
 
     def mh_step(self, dl, s_nc, u_prop=None, u_acc=None, gen=None):
-        """The blocked-MH D_ell step given the whitened map: the table
-        engine when eligible, else the direct evaluation."""
+        """The blocked-MH D_ell step given the whitened map: the fast path
+        on the plan's engine when eligible, else the direct evaluation."""
         if self._use_cut_mh:
             return cls_mod.nc_cls_sample_cut(
                 dl, s_nc, self.model, self.bins_list, self.blocks_list,
@@ -295,7 +293,7 @@ class NonCenteredGibbs(_BlockedMHGibbs):
     """CR step re-expressed non-centered + blocked-MH D_ell step: recenter
     -> CR -> whiten -> blocked MH.  State.s holds the whitened map s_nc.
     ``all_sph`` takes the harmonic likelihood on the full sky (``d_alm``,
-    the data's alm), which the table engine does not run."""
+    the data's alm), which the fast path does not run."""
 
     def init_state(self, dl_init_tuple, nchains: int,
                    gen: torch.Generator | None = None) -> GibbsState:
@@ -351,7 +349,7 @@ class PNCPGibbs(_BlockedMHGibbs):
     each must be a bin boundary of its field (ValueError otherwise).  A
     field whose l_cut is its last bin edge is sampled fully centered (no
     MH block).  Only the blocks at or above each field's cut bin are kept.
-    The table engine runs with the identity re-centering below l_cut
+    The fast path runs with the identity re-centering below l_cut
     (``CutMHPlan(l_cut_identity=l_cut)``); the direct path (``mh_fast=
     "off"``, or a model without the cut decomposition) on a likelihood of
     the same kind with the prior variance ``_var_high``."""

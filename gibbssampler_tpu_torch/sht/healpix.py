@@ -36,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .lcore import LegendreCore
+from .lcore import FlatAlmMethods, LegendreCore
 from .legendre import legendre_table, wigner_d_table
 
 __all__ = ["HealpixGeometry", "healpix_geometry", "HealpixLayout",
@@ -223,7 +223,7 @@ def healpix_layout(nside: int, layout: str = "ring") -> HealpixLayout:
                          src_of=src_of, valid=valid)
 
 
-class HealpixSHT(LegendreCore):
+class HealpixSHT(FlatAlmMethods, LegendreCore):
     """SHT on the HEALPix grid for one (nside, lmax, dtype, layout) on one
     device; the method surface of ``sht.transform.SHT`` with maps as flat
     pixel vectors (..., npix) in RING order or (..., npadded) in the padded

@@ -18,10 +18,10 @@ import math
 import numpy as np
 import torch
 
-from ..harmonics.gridstate import state_masks
+from ..harmonics.gridstate import flat_to_state, state_masks, state_to_flat
 from .legendre_kernels import legendre_adj_tri, legendre_synth_tri
 
-__all__ = ["LegendreCore"]
+__all__ = ["FlatAlmMethods", "LegendreCore"]
 
 
 class LegendreCore:
@@ -79,6 +79,52 @@ class LegendreCore:
         out = legendre_synth_tri(lam, x)            # (m, nr, C)
         nr = out.shape[1]
         return out.permute(2, 1, 0).reshape(batch + (nr, L))
+
+    def _lsel_F(self, lam: torch.Tensor, g2: torch.Tensor, j_idx,
+                seg=None) -> torch.Tensor:
+        """Per-bin Legendre synthesis by an ell gather: (..., c, L, L)
+        grids, the selected ells ``j_idx`` (J,) and the (J, nb) segment
+        matrix ``seg`` (None when every bin is one ell, the J ells being
+        the bins; either a host array or a tensor) -> (..., nb, c, nr, L)
+        ring Fourier coefficients of each bin, contiguous.  Each selected
+        ell costs one table gather and a product: O(J/L) of a dense
+        contraction over l with a one-hot selector.  The product is formed
+        in the output's layout (the (J, nr, m) table slice and the (..., J,
+        c, m) grid columns are small), so the large tensor is written once,
+        contiguously, and the bins' segment sums are one matrix product
+        over J."""
+        if not isinstance(j_idx, torch.Tensor):
+            j_idx = torch.as_tensor(np.asarray(j_idx, dtype=np.int64))
+        idx = j_idx.to(g2.device)
+        lamj = lam[:, idx, :].permute(1, 2, 0).contiguous()    # (J, r, m)
+        gj = g2.to(lam.dtype)[..., idx].movedim(-1, -3)        # (..., J, c, m)
+        # (..., J, c, 1, m) * (J, 1, r, m) -> (..., J, c, r, m)
+        prod = gj.unsqueeze(-2) * lamj.unsqueeze(-3)
+        if seg is None:
+            return prod.to(self.dtype)
+        if not isinstance(seg, torch.Tensor):
+            seg = torch.as_tensor(np.asarray(seg))
+        seg = seg.to(dtype=prod.dtype, device=prod.device)
+        J = prod.shape[-4]
+        out = torch.matmul(seg.T, prod.reshape(prod.shape[:-4] + (J, -1)))
+        return out.reshape(out.shape[:-1] + prod.shape[-3:]).to(self.dtype)
+
+    def _lsynth_stack_binned(self, lam: torch.Tensor, g2: torch.Tensor,
+                             sel) -> torch.Tensor:
+        """Segmented Legendre synthesis: (..., c, L, L) grids and an (nb, L)
+        ell selector ``sel`` (host array) -> (..., nb, c, nr, L), bin b's
+        coefficients being those of the ells that row b of ``sel`` picks,
+        weighted by its entries.  The same function as the one-hot
+        contraction sum_l lam[m, l, r] sel[b, l] g[..., c, m, l], computed
+        through ``_lsel_F``: the selected (b, l) pairs become the gathered
+        ells and their segment matrix, so no (..., b, m, l) or (b, m, l, r)
+        intermediate is formed."""
+        sel = np.asarray(sel.detach().cpu() if isinstance(sel, torch.Tensor)
+                         else sel, dtype=np.float64)
+        bs, ls = np.nonzero(sel)                       # bin-major order
+        seg = np.zeros((ls.size, sel.shape[0]))
+        seg[np.arange(ls.size), bs] = sel[bs, ls]
+        return self._lsel_F(lam, g2, ls, seg)
 
     def _ladj_stack(self, lam: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         """(..., c, nr, L) [.., r, m] ring grids -> (..., c, L, L) alm grids,
@@ -143,3 +189,41 @@ class LegendreCore:
         C- = sum (Q+iU) e^{+im phi} -> (E, B) grid-packed states."""
         return self._spin2_recombine(
             *self._spin2_agrids(Cp_re, Cp_im, Cm_re, Cm_im))
+
+
+class FlatAlmMethods:
+    """The transforms on the real (flat) alm packing, each a wrapper of the
+    grid-packed state method of the same name (``flat_to_state`` /
+    ``state_to_flat`` at the boundary)."""
+
+    def synthesis(self, flat: torch.Tensor) -> torch.Tensor:
+        """A on the real alm packing (..., (lmax+1)^2) -> maps."""
+        return self.synthesis_state(flat_to_state(flat.to(self.dtype),
+                                                  self.lmax))
+
+    def analysis(self, maps: torch.Tensor) -> torch.Tensor:
+        """Maps -> the real alm packing (healpy's map2alm role): the exact
+        inverse of ``synthesis`` on a quadrature grid, the pixel-area
+        scaled adjoint on HEALPix."""
+        return state_to_flat(self.analysis_state(maps), self.lmax)
+
+    def adjoint_synthesis(self, maps: torch.Tensor) -> torch.Tensor:
+        """A^T: exact transpose of ``synthesis`` with respect to the plain
+        pixel dot product and the real-packed alm dot product."""
+        return state_to_flat(self.adjoint_synthesis_state(maps), self.lmax)
+
+    def synthesis_spin2(self, e_flat: torch.Tensor, b_flat: torch.Tensor):
+        """(E, B) real-packed alm -> (Q, U) maps."""
+        return self.synthesis_spin2_state(
+            flat_to_state(e_flat.to(self.dtype), self.lmax),
+            flat_to_state(b_flat.to(self.dtype), self.lmax))
+
+    def analysis_spin2(self, q_maps, u_maps):
+        """(Q, U) maps -> (E, B) real-packed alm, as ``analysis``."""
+        e, b = self.analysis_spin2_state(q_maps, u_maps)
+        return state_to_flat(e, self.lmax), state_to_flat(b, self.lmax)
+
+    def adjoint_synthesis_spin2(self, q_maps, u_maps):
+        """Exact transpose of ``synthesis_spin2``."""
+        e, b = self.adjoint_synthesis_spin2_state(q_maps, u_maps)
+        return state_to_flat(e, self.lmax), state_to_flat(b, self.lmax)

@@ -179,6 +179,45 @@ class PointSHT(LegendreCore):
         self._require_spin2()
         return self._spin2_alm(*self._spin2_ring_coefs(q, u))
 
+    # -- ell-selected per-bin values (the blocked-MH phi-domain engine) -----
+
+    def values_lsel_spin0_grids(self, g0: torch.Tensor, j_idx, seg=None):
+        """Per-bin ell-selected spin-0 values from a prebuilt
+        ``_state_grids`` array: (..., nb, nr, p)."""
+        F = self._lsel_F(self.lam0, g0, j_idx, seg)
+        return self._to_points(self.cm * F[..., 0, :, :],
+                               -(self.cm * F[..., 1, :, :]))
+
+    def values_lsel_spin2_grids(self, g: torch.Tensor, sign_p, sign_m,
+                                j_idx, seg=None):
+        """Per-bin ell-selected spin-2 values from a prebuilt single-field
+        grid (``SHT.lsel_grid_spin2_single``): (Q, U), each (..., nb, nr,
+        p)."""
+        self._require_spin2()
+        Fp = self._lsel_F(self.lam_p2, g, j_idx, seg)
+        Fm = self._lsel_F(self.lam_m2, g, j_idx, seg)
+        return self._spin2_points_from_F(
+            sign_p * Fp[..., 0, :, :], sign_p * Fp[..., 1, :, :],
+            sign_m * Fm[..., 0, :, :], sign_m * Fm[..., 1, :, :])
+
+    def synthesis_state_lsel(self, x: torch.Tensor, sel) -> torch.Tensor:
+        """A applied to each ell subset of x (``sel`` an (nb, L) host
+        selector): (..., nb, nr, p) values."""
+        F = self._lsynth_stack_binned(self.lam0, self._state_grids(x), sel)
+        return self._to_points(self.cm * F[..., 0, :, :],
+                               -(self.cm * F[..., 1, :, :]))
+
+    def synthesis_spin2_state_lsel(self, e_state: torch.Tensor,
+                                   b_state: torch.Tensor, sel):
+        """Spin-2 values of each ell subset of (E, B): (Q, U), each (...,
+        nb, nr, p)."""
+        self._require_spin2()
+        ap, am = self._spin2_stacks(e_state, b_state)
+        Fp = self._lsynth_stack_binned(self.lam_p2, ap, sel)
+        Fm = self._lsynth_stack_binned(self.lam_m2, am, sel)
+        return self._spin2_points_from_F(Fp[..., 0, :, :], Fp[..., 1, :, :],
+                                         Fm[..., 0, :, :], Fm[..., 1, :, :])
+
     # -- flat-slot per-bin values (the blocked-MH table engine) -------------
 
     def flat_of(self, padded: torch.Tensor) -> torch.Tensor:

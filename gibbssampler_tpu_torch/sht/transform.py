@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .grids import SphereGrid, gauss_legendre_grid
-from .lcore import LegendreCore
+from .lcore import FlatAlmMethods, LegendreCore
 from .legendre import legendre_table, spin2_lambda_tables
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -40,7 +40,7 @@ __all__ = ["SHT", "make_sht"]
 SPIN2_SINGLE_SIGNS = {"e": (-1.0, -1.0), "b": (1.0, -1.0)}
 
 
-class SHT(LegendreCore):
+class SHT(FlatAlmMethods, LegendreCore):
     """Operator tables for one (grid, lmax, dtype) on one device.
 
     ``allow_aliasing``: synthesis (pointwise evaluation) and its transpose
@@ -274,6 +274,74 @@ class SHT(LegendreCore):
         if which == "b":
             g = torch.stack([g[..., 1, :, :], -g[..., 0, :, :]], dim=-3)
         return (g, *SPIN2_SINGLE_SIGNS[which])
+
+    # -- ell-selected (per-bin) syntheses: the blocked-MH coefficient and
+    # phi-domain engines --------------------------------------------------
+
+    def ring_cs_lsel_spin0(self, x: torch.Tensor, j_idx, seg=None):
+        """Per-bin ell-selected spin-0 synthesis in the ring half-spectrum
+        basis: (Cc, Cs), each (..., nb, nr, L), with map_b[j] = sum_m Cc
+        cos(m theta_j) + Cs sin(m theta_j)."""
+        return self.ring_cs_lsel_spin0_grids(self._state_grids(x), j_idx,
+                                             seg)
+
+    def ring_cs_lsel_spin0_grids(self, g0: torch.Tensor, j_idx, seg=None):
+        """``ring_cs_lsel_spin0`` from a prebuilt ``_state_grids`` array
+        (a sweep over many ell chunks of one state builds it once)."""
+        F_ = self._lsel_F(self.lam0, g0, j_idx, seg)
+        Fre, Fim = self._rot(F_[..., 0, :, :], F_[..., 1, :, :], +1)
+        return self.cm * Fre, -(self.cm * Fim)
+
+    def _spin2_lsel_cs(self, Fp, Fm, sign_p=1.0, sign_m=1.0):
+        """Per-bin (F+, F-) stacks (..., nb, 2, nr, L) -> ((Qc, Qs), (Uc,
+        Us)) half-spectrum coefficients, the assembly of
+        ``_spin2_maps_from_F`` with F- weighted by sign_m (and F+ by
+        sign_p) before the ring phase."""
+        pos_p = sign_m * self.pos
+        Are = sign_p * Fp[..., 0, :, :] + Fm[..., 0, :, :] * pos_p
+        Aim = sign_p * Fp[..., 1, :, :] + Fm[..., 1, :, :] * pos_p
+        Bre = sign_p * Fp[..., 0, :, :] - Fm[..., 0, :, :] * pos_p
+        Bim = sign_p * Fp[..., 1, :, :] - Fm[..., 1, :, :] * pos_p
+        Are, Aim = self._rot(Are, Aim, +1)
+        Bre, Bim = self._rot(Bre, Bim, +1)
+        # Q[j] = sum Are cos - Aim sin ; U[j] = sum Bim cos + Bre sin
+        return (Are, -Aim), (Bim, Bre)
+
+    def ring_cs_lsel_spin2_grids(self, g: torch.Tensor, sign_p, sign_m,
+                                 j_idx, seg=None):
+        """Per-bin ell-selected spin-2 synthesis from a prebuilt
+        single-field grid (``lsel_grid_spin2_single``): ((Qc, Qs), (Uc,
+        Us)), each (..., nb, nr, L)."""
+        self._require_spin2()
+        return self._spin2_lsel_cs(self._lsel_F(self.lam_p2, g, j_idx, seg),
+                                   self._lsel_F(self.lam_m2, g, j_idx, seg),
+                                   sign_p, sign_m)
+
+    def ring_cs_lsel_spin2(self, e_state: torch.Tensor,
+                           b_state: torch.Tensor, j_idx, seg=None):
+        """Per-bin ell-selected spin-2 synthesis of (E, B) in the ring
+        half-spectrum basis: ((Qc, Qs), (Uc, Us)), each (..., nb, nr, L)."""
+        self._require_spin2()
+        ap, am = self._spin2_stacks(e_state, b_state)
+        return self._spin2_lsel_cs(self._lsel_F(self.lam_p2, ap, j_idx, seg),
+                                   self._lsel_F(self.lam_m2, am, j_idx, seg))
+
+    def synthesis_state_lsel(self, x: torch.Tensor, sel) -> torch.Tensor:
+        """A applied to each ell subset of x: ``sel`` an (nb, L) host
+        selector -> (..., nb, nr, nphi) maps."""
+        F_ = self._lsynth_stack_binned(self.lam0, self._state_grids(x), sel)
+        return self._ring_ifft_real(F_[..., 0, :, :], F_[..., 1, :, :])
+
+    def synthesis_spin2_state_lsel(self, e_state: torch.Tensor,
+                                   b_state: torch.Tensor, sel):
+        """Spin-2 synthesis of each ell subset of (E, B): (Q, U), each
+        (..., nb, nr, nphi)."""
+        self._require_spin2()
+        ap, am = self._spin2_stacks(e_state, b_state)
+        Fp = self._lsynth_stack_binned(self.lam_p2, ap, sel)
+        Fm = self._lsynth_stack_binned(self.lam_m2, am, sel)
+        return self._spin2_maps_from_F(Fp[..., 0, :, :], Fp[..., 1, :, :],
+                                       Fm[..., 0, :, :], Fm[..., 1, :, :])
 
 
 def make_sht(lmax: int, grid: SphereGrid | None = None, dtype=torch.float32,

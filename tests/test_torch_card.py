@@ -16,7 +16,9 @@ on the card, against the CPU's plain versions.  The runner at lmax 32 on
 the card: a run crashed after its first segment and resumed equals the
 uninterrupted run bit for bit.  One JointCenteredGibbs step (the exact
 joint CR and the inverse-Wishart draw) at lmax 12 in float64, card
-against CPU on the same injected variates."""
+against CPU on the same injected variates.  One nc_cls_sample_cut sweep
+on the phi-domain and on the coefficient m-domain engine at lmax 16 in
+float64, card against CPU on the same uniforms."""
 
 import numpy as np
 import pytest
@@ -302,3 +304,60 @@ def test_joint_step_card_matches_cpu(cuda_device):
     for a, b in zip(out[str(cuda_device)], out["cpu"]):
         assert np.isfinite(a).all()
         assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdomain,engine", [(False, "phi"), ("m", "coef")])
+def test_mh_engine_sweep_card_matches_cpu(cuda_device, mdomain, engine):
+    """One nc_cls_sample_cut sweep on the phi-domain or the coefficient
+    m-domain engine at lmax 16 in float64 (band mask, EE one block, BB a
+    big block then single-bin blocks), card against CPU on the same
+    uniforms: D_ell to 1e-9, accepts equal."""
+    from gibbssampler_tpu_torch.harmonics import ell_mask_state
+    from gibbssampler_tpu_torch.samplers import cls_samplers as cs
+    lmax = 16
+    gen = torch.Generator().manual_seed(3)
+    grid = gauss_legendre_grid(lmax)
+    keep = (np.abs(np.pi / 2 - grid.theta) > 0.2).astype(np.float64)
+    dls = np.stack([example_dl(lmax, "ee"), example_dl(lmax, "bb")])
+    m, _ = simulate_dataset(lmax, 2, dls, 0.2 ** 2, mask=np.broadcast_to(
+        keep[:, None], (grid.nrings, grid.nphi)), dtype=torch.float64,
+        device="cpu", gen=gen)
+    bins = [np.arange(2, lmax + 2)] * 2
+    nb = lmax - 1
+    blocks = [[(0, nb)], [(0, 6)] + [(i, i + 1) for i in range(6, nb)]]
+    dl0 = [np.maximum(d[2:], 1e-3) for d in dls]
+    sig = [0.3 * d for d in dl0]
+    rng = np.random.default_rng(4)
+    dl = [d * np.exp(0.2 * rng.normal(size=(NCH, nb))) for d in dl0]
+    s_nc = rng.normal(size=(NCH, 2, m.nstate)) * ell_mask_state(lmax)
+    up = rng.uniform(size=(NCH, 1, 2 * nb))
+    ua = rng.uniform(size=(NCH, 1, 1 + len(blocks[1])))
+    out = []
+    for device in ("cpu", cuda_device):
+        model = with_cut_decomposition(_model_on(m, device))
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+        plan = cs.CutMHPlan(model, bins, blocks, sig, mdomain=mdomain,
+                            dtype=torch.float64)
+        assert plan.engine == engine
+        res = cs.nc_cls_sample_cut(tuple(t(d) for d in dl), t(s_nc), model,
+                                   bins, blocks, sig, u_prop=t(up),
+                                   u_acc=t(ua), plan=plan)
+        out.append([n(a) for a in (*res[0], *res[1].accept)])
+    for a, b in zip(out[0][:2], out[1][:2]):
+        np.testing.assert_allclose(b, a, rtol=1e-9)
+    for a, b in zip(out[0][2:], out[1][2:]):
+        np.testing.assert_array_equal(b, a)
+    acc = np.concatenate([a.ravel() for a in out[0][2:]])
+    assert 0.0 < acc.mean() < 1.0
+
+
+def _model_on(model, device):
+    """The CPU dataset ``model`` rebuilt on ``device`` through
+    ``model_from_numpy``."""
+    g = model.sht.grid
+    return model_from_numpy(
+        {"d": n(model.d), "tau": n(model.noise.tau),
+         "q_map": n(model.noise.q_map), "omega": model.noise.omega,
+         "bl": n(model.bl), "spin": 2, "theta": g.theta,
+         "weights": g.weights, "phi0": g.phi0, "nphi": g.nphi}, device)

@@ -2,8 +2,9 @@
 (float64, CPU): the truncated-normal proposal, whiten / recenter, the
 direct ``nc_cls_sample`` and the table-domain ``nc_cls_sample_cut`` on the
 same uniforms (also on phased cut rows and at the Nyquist column), the fast
-path against the port's own direct path, the engines the port refuses, and
-the proposal-scale helpers.
+path against the port's own direct path, the coefficient and phi-domain
+engines on the configurations that pick them, and the proposal-scale
+helpers.
 
 The uniforms are recomputed here from the ``jax.random.split``s the JAX
 samplers make (``torch_parity.jax_mh_uniforms``) and handed to the port.
@@ -331,18 +332,23 @@ def test_table_engine_on_phased_and_nyquist_rows(request, monkeypatch, sky,
     assert 0.0 < acc.mean() < 1.0
 
 
-def _refusal_cases(tc, fields):
+def _engine_cases(mc, tc, fields):
+    """The configurations that take the two engines beside the table
+    engine, the same in both packages: (JAX model, port model, blocks,
+    keyword arguments, the engine the JAX package picks)."""
     bins, blocks, sig, dl0 = _setup(fields, BB_BINS["wide"])
     nb_bb = len(bins[1]) - 1
+    rep = lambda m, **kw: dataclasses.replace(m, **kw)
     return {
-        "mdomain m": (tc, blocks, dict(mdomain="m")),
-        "mdomain False": (tc, blocks, dict(mdomain=False)),
-        "no singles": (tc, [blocks[0], [(0, nb_bb)]], {}),
-        "w not uniform": (dataclasses.replace(tc, cut_w_uniform=False),
-                          blocks, {}),
-        "w not equal": (dataclasses.replace(tc, cut_w_equal_fields=False),
-                        blocks, {}),
-    }, bins, sig
+        "mdomain m": (mc, tc, blocks, dict(mdomain="m"), "coef"),
+        "mdomain False": (mc, tc, blocks, dict(mdomain=False), "phi"),
+        "no singles": (mc, tc, [blocks[0], [(0, nb_bb)]], {}, "phi"),
+        "w not uniform": (rep(mc, cut_w_uniform=False),
+                          rep(tc, cut_w_uniform=False), blocks, {}, "phi"),
+        "w not equal": (rep(mc, cut_w_equal_fields=False),
+                        rep(tc, cut_w_equal_fields=False), blocks, {},
+                        "coef"),
+    }, bins, sig, dl0
 
 
 REFUSALS = ["mdomain m", "mdomain False", "no singles", "w not uniform",
@@ -350,19 +356,47 @@ REFUSALS = ["mdomain m", "mdomain False", "no singles", "w not uniform",
 
 
 @pytest.mark.parametrize("case", REFUSALS)
-def test_engines_not_ported_raise(pol, case):
-    """Wherever the JAX package would take an engine the port lacks, the
-    port raises NotImplementedError and never runs another engine."""
-    _, tc, fields = pol
-    cases, bins, sig = _refusal_cases(tc, fields)
-    model, blocks, kw = cases[case]
-    with pytest.raises(NotImplementedError):
-        tcs.CutMHPlan(model, bins, blocks, sig, **kw)
+def test_other_engines_match_jax_and_direct(pol, monkeypatch, case):
+    """Where the JAX package takes the coefficient m-domain or the
+    phi-domain engine (which the port once refused), the port's plan picks
+    the same engine and equals JAX's nc_cls_sample_cut on the same keys,
+    and the port's direct nc_cls_sample on the same uniforms, over 2
+    sweeps with chunks of at most 3 bins / 3 ells in both packages."""
+    mc, tc, fields = pol
+    for mod in (jcs, tcs):
+        monkeypatch.setattr(mod, "_MDOMAIN_CHUNK", 3)
+        monkeypatch.setattr(mod, "_PHI_CHUNK", 3)
+    cases, bins, sig, dl0 = _engine_cases(mc, tc, fields)
+    jm, tm, blocks, kw, engine = cases[case]
+    keys, dls, s_nc, up, ua = _inputs(jm, bins, blocks, dl0, 2, 12)
+    ref = jax.jit(jax.vmap(lambda k, d, s: jcs.nc_cls_sample_cut(
+        k, d, s, jm, bins, blocks, sig, n_iter=2, **kw)))(
+            keys, tuple(jnp.asarray(d) for d in dls), jnp.asarray(s_nc))
+    plan = tcs.CutMHPlan(tm, bins, blocks, sig, dtype=torch.float64, **kw)
+    assert plan.engine == engine
+    dlt = tuple(t64(d) for d in dls)
+    dl, info = tcs.nc_cls_sample_cut(dlt, t64(s_nc), tm, bins, blocks, sig,
+                                     n_iter=2, u_prop=up, u_acc=ua,
+                                     plan=plan)
+    direct = tcs.nc_cls_sample(dlt, t64(s_nc), tcs.make_nc_log_likelihood(
+        tm, bins), bins, blocks, sig, n_iter=2, u_prop=up, u_acc=ua)
+    for f in range(2):
+        _check(dl[f], ref[0][f], f"dl[{f}]")
+        _check(dl[f], n(direct[0][f]), f"dl[{f}] vs direct")
+        np.testing.assert_array_equal(n(info.accept[f]),
+                                      np.asarray(ref[1].accept[f]))
+        np.testing.assert_array_equal(n(info.accept[f]),
+                                      n(direct[1].accept[f]))
+    _check(info.log_like, ref[1].log_like, "log_like")
+    acc = np.concatenate([n(a).ravel() for a in info.accept])
+    # (the two big blocks of "no singles" may accept every move)
+    assert 0.0 < acc.mean() <= (1.0 if case == "no singles" else 0.99)
 
 
 def test_other_refusals(pol):
-    """The phi engine raises NotImplementedError; the likelihood of a model
-    without the cut decomposition takes the pixel form, the harmonic one
+    """mh_fast="phi" pins the phi engine in the scheme's plan; the
+    likelihood of a model without the cut decomposition takes the pixel
+    form, the harmonic one
     (all_sph) needs ``d_alm``; a big block after a single raises
     ValueError, as in JAX; a model without holes ignores ``au_sp``, as
     JAX's does.  The
@@ -386,8 +420,9 @@ def test_other_refusals(pol):
     u = t64(valid_normal(np.random.default_rng(8), (2, 2, tc.nstate), LMAX))
     assert torch.equal(tc.data_loglike_cut(u, au_sp=torch.zeros(1)),
                        tc.data_loglike_cut(u))
-    with pytest.raises(NotImplementedError):
-        ASISGibbs(tc, bins, blocks, sig, mh_fast="phi")
+    assert ASISGibbs(tc, bins, blocks, sig,
+                     mh_fast="phi").mh_plan.engine == "phi"
+    assert ASISGibbs(tc, bins, blocks, sig).mh_plan.engine == "table"
     with pytest.raises(ValueError):
         tcs.make_nc_log_likelihood(tc, bins, all_sph=True)
     assert tcs.make_nc_log_likelihood(tc, bins, all_sph=True,

@@ -99,3 +99,39 @@ def test_default_device_has_no_cpu_fallback():
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             make_sht(4)
+
+
+def _jax_all(subpackage):
+    """The names the JAX package's ``subpackage/__init__.py`` exports, read
+    from its source (jax need not be installed)."""
+    import ast
+    src = (PKG.parent / "gibbssampler_tpu" / subpackage / "__init__.py")
+    for node in ast.parse(src.read_text()).body:
+        if isinstance(node, ast.Assign) and node.targets[0].id == "__all__":
+            return set(ast.literal_eval(node.value))
+    raise AssertionError(f"no __all__ in {src}")
+
+
+@pytest.mark.parametrize("subpackage", ["harmonics", "inference", "sht"])
+def test_exports_cover_the_jax_package(subpackage):
+    """Every name of the JAX package's harmonics, inference and sht
+    exports is exported by the port (the flat alm interface, synfast)."""
+    import importlib
+    mod = importlib.import_module(f"gibbssampler_tpu_torch.{subpackage}")
+    missing = _jax_all(subpackage) - set(mod.__all__)
+    assert not missing, missing
+    assert all(hasattr(mod, name) for name in mod.__all__)
+
+
+def test_synfast_follows_the_transform_device():
+    """synfast places its draw on the transform's device and takes no
+    device argument of its own; the flat methods keep their input's
+    device."""
+    from gibbssampler_tpu_torch.inference import synfast
+    assert "device" not in inspect.signature(synfast).parameters
+    sht = make_sht(4, dtype=torch.float64, spin2=True, device="cpu")
+    alm, maps = synfast(np.ones((2, 5)), sht, 2,
+                        gen=torch.Generator().manual_seed(0))
+    assert alm.device.type == maps.device.type == "cpu"
+    assert sht.analysis(sht.synthesis(torch.zeros(25, dtype=torch.float64))
+                        ).device.type == "cpu"

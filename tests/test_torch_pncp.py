@@ -345,15 +345,15 @@ def test_pncp_steps_match_jax(request, monkeypatch, case):
 def test_pncp_rejects_bad_lcut(band):
     """Mirrors tests/test_schemes.py::test_pncp_rejects_bad_lcut: an l_cut
     that is no bin boundary, or one per field of the wrong count, raises
-    ValueError; mh_fast "phi" is not ported."""
+    ValueError; mh_fast "phi" pins the fast path's phi-domain engine."""
     _, tc, fields = band
     sig = [np.ones(5)] * 2
     for bad in (LMAX + 5, 5, (4, 6, 8)):
         with pytest.raises(ValueError):
             PNCPGibbs(tc, [BINS, BINS], [[(0, 3)], [(0, 3)]], sig, l_cut=bad)
-    with pytest.raises(NotImplementedError):
-        PNCPGibbs(tc, [BINS, BINS], [[(0, 3)], [(0, 3)]], sig, l_cut=4,
-                  mh_fast="phi")
+    phi = PNCPGibbs(tc, [BINS, BINS], [[(0, 3)], [(3, 4), (4, 5)]], sig,
+                    l_cut=4, mh_fast="phi")
+    assert phi._use_cut_mh and phi.mh_plan.engine == "phi"
 
 
 # ---------------------------------------------------------------------------

@@ -459,19 +459,16 @@ def test_sparse_table_engine_matches_jax_and_direct(holey, monkeypatch, bb):
 @pytest.mark.parametrize("engine", ["auto", False])
 def test_sparse_engines_match_direct(holey, engine):
     """Mirror of test_sparse_engines_match_direct: the table engine
-    ("auto") on the split model equals JAX's direct likelihood path over
-    3 sweeps of the same keys; the phi-domain engine (False) is not
-    ported and raises."""
+    ("auto") and the phi-domain engine (False) on the split model each
+    equal JAX's direct likelihood path over 3 sweeps of the same keys."""
     _, mc, tc, fields = holey(2)
     bins = [np.arange(2, LMAX + 2)] * 2
     nb = LMAX - 1
     blocks = [[(0, nb)], [(0, nb - 6)] + [(i, i + 1)
                                           for i in range(nb - 6, nb)]]
     sig = [np.full(nb, 2.0), np.full(nb, 2.0)]
-    if engine is False:
-        with pytest.raises(NotImplementedError):
-            tcs.CutMHPlan(tc, bins, blocks, sig, mdomain=engine)
-        return
+    assert tcs.CutMHPlan(tc, bins, blocks, sig, mdomain=engine).engine == (
+        "phi" if engine is False else "table")
     keys, dls, s_nc, up, ua = _mh_inputs(
         mc, bins, blocks, [np.maximum(f[2:], 1e-3) for f in fields], 3, 7)
     ll_j = jcs.make_nc_log_likelihood(mc, bins, all_sph=False)
