@@ -33,6 +33,11 @@ non-zero:
    shapes, in float32 too), with the bound of the bytes over 3.35 TB/s or
    the FLOPs over the 67 TFLOP/s float64 tensor-core peak; and checks the
    float64 kernels alone at an even L with odd nr and at 1 and 17 columns;
+   then both kernels in their m-slab form (float32 at C 256, float64 at C
+   16) on each slab of the two-way split at L 513 (257 and 256 rows, the
+   rows parallel.m_rows deals), at the band's 65 rings and the 513-ring
+   grid, against the plain slab version and the slab's bound, beside the
+   unsharded time;
 4. checks the lmax-512 transforms in float32 (round trip and the cut
    transform's adjointness, on GL rings and on the HEALPix floor's 193
    belt rows at nphi 1024 = 2 lmax), and at lmax 16 in float64, card
@@ -83,7 +88,23 @@ non-zero:
    5 with mh_fast="phi" (the phi-domain engine, the same record),
    PHI_TIMED timed iterations, its MH step's ms/iter beside phase 5's
    table engine; and one float32 sweep of the coefficient engine at 128
-   chains beside the table engine's, timed with CUDA events;
+   chains beside the table engine's, timed with CUDA events; then the
+   parallel phase (gibbssampler_tpu_torch.parallel, on phase 5's ASIS
+   band scheme, the one flagship.build makes): (a) NCCL at world size 1 in
+   this process, sharded_run on a (1, 1) CUDA mesh (128 chains, PAR_ITERS
+   iterations) bit-equal to scheme.run with the same generator, the
+   collectives over its chains against numpy; (b) two gloo processes
+   sharing the card (par_worker): on a (2, 1) mesh each runs its 64
+   chains of the slice, bit-equal to this process's unsharded run of
+   them, the pooled statistics against numpy over all 128; on a (1, 2)
+   mesh the m-sharded full-grid (513 rings) and cut (65 rings) spin-2
+   transforms in float32 at 128 chains against the unsharded ones (rows
+   257 / 256 of 513, table bytes), and one float64 cg_cr at tol 1e-5 on
+   CG_CHAINS chains, m-sharded against unsharded (per-chain iterations
+   equal, D_ell within 1e-9), both kernels launched in their slab form;
+   (c) torchrun --standalone --nproc_per_node 1 -m
+   gibbssampler_tpu_torch.launch_pod on NCCL at lmax 512 (PAR_LAUNCH),
+   its npz checked;
 8. the CG family at full width in float64 (the band dataset, 8 chains,
    the prior of the true spectrum in unit bins): cg_cr at tol 1e-5 and
    1e-6 (every chain converged, per-chain iterations beside the JAX
@@ -290,6 +311,14 @@ PHI_TIMED = 30
 # 1)) (cosmic variance); FLAT_CV_SIGMAS of them bound each l, and the mean
 # over l = 2..lmax is bound likewise by its own deviation
 FLAT_CV_SIGMAS = 6.0
+# the parallel phase (gibbssampler_tpu_torch.parallel): the ASIS band slice
+# chain-sharded over NCCL at world size 1 and over two gloo processes that
+# share the card, PAR_ITERS iterations each (split R-hat needs two samples
+# in each half), then the pod launcher, cut to PAR_LAUNCH's chains and
+# iterations for the script's time
+PAR_ITERS = 4
+PAR_SEED = 21
+PAR_LAUNCH = {"lmax": LMAX, "nchains": 32, "n_iter": 10}
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 TF32X3_FLOPS_PER_S = 495e12 / 3      # 3 TF32 tensor-core products each
 # H100 SXM float64 tensor-core peak; the float64 kernels stream the table
@@ -2325,6 +2354,431 @@ def flat_checks(torch, tr, flat, spin, gen, round_trip, dot):
     return rt, adj
 
 
+# ---------------------------------------------------------------------------
+# the parallel layer (gibbssampler_tpu_torch.parallel, launch_pod)
+# ---------------------------------------------------------------------------
+
+def work_slab(name, L, nr, C, rows, itemsize):
+    """``work`` of one call on the slab of the degree orders ``rows``: the
+    slab's triangle rows and batch rows read once, its output written
+    once."""
+    tri, M = sum(L - m for m in rows), len(rows)
+    if name == "legendre_synth_tri":
+        nbytes = C * tri + nr * tri + M * nr * C
+    else:
+        nbytes = nr * tri + M * nr * C + C * M * L
+    return 2 * nr * C * tri, nbytes * itemsize
+
+
+def slab_counts(torch, lk):
+    """(float32 synthesis, float32 adjoint, float64 synthesis, float64
+    adjoint) launches in the m-slab form since the counts were set to 0."""
+    return tuple(sum(v for k, v in fn.slabs.items() if k[-1] == dt)
+                 for dt in (torch.float32, torch.float64)
+                 for fn in (lk.legendre_synth_tri, lk.legendre_adj_tri))
+
+
+def phase_slab_kernels(torch, lk, dev, card, rec, rec64):
+    """Phase 3 in the m-slab form: both kernels, float32 at C 256 and
+    float64 at C 16, on each of the two slabs (m_rows(513, 2): 257 and 256
+    rows) of the band's 65 cut rings and the 513-ring full grid, in the
+    layouts the m-sharded transform passes (x the contiguous (M, C, L) rows,
+    g the (M, nr, C) view of (M, C, nr) memory), against the plain slab
+    version and the slab's bound, beside phase 3's unsharded time.  The
+    records go into ``rec`` / ``rec64`` under "<nr> slab <k> of 2"."""
+    from gibbssampler_tpu_torch.parallel import m_rows
+    gen = torch.Generator(device=dev).manual_seed(12)
+    L = LMAX + 1
+    for dtype, C, into in ((torch.float32, 2 * NCHAINS, rec),
+                           (torch.float64, 2 * CG_CHAINS, rec64)):
+        f32 = dtype == torch.float32
+        tol = TOLS[str(dtype)[6:]]
+        for nr in (CUT_RINGS, LMAX + 1):
+            lam = tri_table(torch, L, nr, dtype, dev, gen)
+            x = torch.randn((L, C, L), generator=gen, dtype=dtype, device=dev)
+            g = torch.randn((L, nr, C), generator=gen, dtype=dtype,
+                            device=dev)
+            for k, rows in enumerate(m_rows(L, 2)):
+                ms = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+                idx = ms.long()
+                ls = lam.index_select(0, idx).contiguous()
+                for name, kern, plain, b, shape in (
+                        ("legendre_synth_tri", lk.legendre_synth_tri,
+                         lk.legendre_synth_tri_plain, x.index_select(0, idx),
+                         (len(rows), nr, C)),
+                        ("legendre_adj_tri", lk.legendre_adj_tri,
+                         lk.legendre_adj_tri_plain,
+                         g_view(g.index_select(0, idx)), (C, len(rows), L))):
+                    torch.full(shape, float("nan"), dtype=dtype, device=dev)
+                    out = kern(ls, b, ms)
+                    ref = plain(ls, b, ms)
+                    torch.cuda.synchronize()
+                    err = float((out - ref).abs().max())
+                    scale = float(ref.abs().max())
+                    check(err <= tol * scale, f"{name} slab {k} nr={nr} C={C} "
+                          f"{dtype}: max|err| {err} > {tol} * {scale}")
+                    reps = 5 if nr > LMAX and f32 else 20
+                    p1 = time_ms(torch, lambda: plain(ls, b, ms), reps)
+                    k1 = time_ms(torch, lambda: kern(ls, b, ms), reps)
+                    k2 = time_ms(torch, lambda: kern(ls, b, ms), reps)
+                    p2 = time_ms(torch, lambda: plain(ls, b, ms), reps)
+                    ms_k, ms_p = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+                    bound_ms, bound_by = bound(
+                        *work_slab(name, L, nr, C, rows, lam.element_size()),
+                        TF32X3_FLOPS_PER_S if f32 else FP64_FLOPS_PER_S)
+                    full = into[name][nr]["ms"]
+                    print(f"time {name} slab {k} of 2 (M {len(rows)}) L={L} "
+                          f"nr={nr} C={C} {str(dtype)[6:]}: kernel "
+                          f"{ms_k:.4f} ms (unsharded {full:.4f}, ratio "
+                          f"{ms_k / full:.3f}), plain einsum {ms_p:.4f} ms; "
+                          f"bound {bound_ms:.4f} ms ({bound_by}), "
+                          f"{bound_ms / ms_k:.1%} of it reached; max|err|/"
+                          f"max|ref| {err / scale:.2e} [{card}]", flush=True)
+                    into[name][f"{nr} slab {k} of 2"] = {
+                        "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": ms_p, "rows": len(rows)}
+            del lam, x, g
+    torch.cuda.empty_cache()
+
+
+def par_stats(torch, out, group):
+    """Pooled EE mean and variance, split R-hat (float64) and the BB blocks'
+    acceptance of a run's chains over ``group``, on the host."""
+    from gibbssampler_tpu_torch.parallel import (acceptance_mean,
+                                                 pooled_moments,
+                                                 split_rhat_device)
+    ee = out["dl_chains"][0].double()
+    m, v = pooled_moments(ee, group=group)
+    return {"mean": m.cpu().numpy(), "var": v.cpu().numpy(),
+            "rhat": split_rhat_device(ee, group=group).cpu().numpy(),
+            "acc": acceptance_mean(out["mh_accept"][1],
+                                   group=group).cpu().numpy()}
+
+
+def numpy_stats(ee, mh1):
+    """``par_stats`` of all chains in numpy: ee (nchains, n_iter, nbins),
+    mh1 (nchains, n_iter, nblocks)."""
+    from gibbssampler_tpu_torch.diagnostics import split_rhat
+    ee = ee.astype(np.float64)
+    return {"mean": ee.mean(axis=(0, 1)), "var": ee.var(axis=(0, 1)),
+            "rhat": np.array([split_rhat(ee[:, :, j])
+                              for j in range(ee.shape[-1])]),
+            "acc": mh1.astype(np.float64).mean(axis=0)}
+
+
+def stats_err(got, want):
+    """Largest |got - want| / max|want| over the statistics."""
+    return max(float(np.abs(got[k] - want[k]).max()
+                     / max(np.abs(want[k]).max(), 1e-300)) for k in want)
+
+
+def run_arrays(out):
+    """A scheme.run output's chains and accepts, on the host."""
+    return {"dl0": out["dl_chains"][0].cpu().numpy(),
+            "dl1": out["dl_chains"][1].cpu().numpy(),
+            "cr": out["cr_accept"].cpu().numpy(),
+            "mh0": out["mh_accept"][0].cpu().numpy(),
+            "mh1": out["mh_accept"][1].cpu().numpy()}
+
+
+def phase_parallel_nccl(torch, lk, scheme, dl0, dev, card, tmp):
+    """(a) NCCL at world size 1, in this process: the ASIS band slice (the
+    scheme flagship.build makes) by ``sharded_run`` on a
+    (1, 1) CUDA mesh, 128 chains, PAR_ITERS iterations, equal bit for bit
+    to ``scheme.run`` with the generator seeded with PAR_SEED; the
+    collectives over its chains against numpy (<= 1e-10).  Returns the
+    launch counts of the sharded run."""
+    import torch.distributed as dist
+    from gibbssampler_tpu_torch.parallel import make_mesh, sharded_run
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "nccl_store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        check(mesh.device_type == "cuda" and dist.get_backend() == "nccl",
+              "parallel (a): not a CUDA mesh over NCCL")
+        torch.cuda.synchronize()
+        lk.reset_launch_counts()
+        t0 = time.time()
+        out = sharded_run(scheme, dl0, n_iter=PAR_ITERS, nchains=NCHAINS,
+                          mesh=mesh, seed=PAR_SEED)
+        torch.cuda.synchronize()
+        wall, n = time.time() - t0, counts(lk)
+        ref = scheme.run(dl0, n_iter=PAR_ITERS, nchains=NCHAINS,
+                         gen=torch.Generator(device=dev).manual_seed(PAR_SEED))
+        got, want = run_arrays(out), run_arrays(ref)
+        for k in want:
+            check(np.array_equal(got[k], want[k]), f"parallel (a): "
+                  f"sharded_run's {k} differs from scheme.run's")
+        stats = par_stats(torch, out, mesh.get_group("chains"))
+        err = stats_err(stats, numpy_stats(got["dl0"], got["mh1"]))
+        check(err <= 1e-10, f"parallel (a): collectives vs numpy {err}")
+    finally:
+        dist.destroy_process_group()
+    print(f"parallel (a) NCCL world 1, mesh (1, 1) cuda: sharded_run of the "
+          f"ASIS band slice ({NCHAINS} chains, {PAR_ITERS} iterations, "
+          f"{wall:.2f} s) equals scheme.run with the generator of seed "
+          f"{PAR_SEED} bit for bit; pooled EE mean / var, split R-hat and BB "
+          f"acceptance vs numpy max rel err {err:.2e} (<= 1e-10); launches "
+          f"{n} [{card}]", flush=True)
+    return n
+
+
+def par_worker(rank, tmp):
+    """(b) one of two gloo processes sharing cuda:0.  Builds the flagship
+    band slice (flagship.build), runs its rank's 64 chains on a (2, 1)
+    mesh with the pooled statistics; on a (1, 2) mesh checks the m-sharded
+    full-grid and cut spin-2 transforms (float32, 128 chains) against the
+    unsharded ones and solves one float64 cg_cr (tol 1e-5, CG_CHAINS
+    chains) m-sharded and unsharded.  Saves its results as par<rank>.pt."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from gibbssampler_tpu_torch import flagship
+    from gibbssampler_tpu_torch.harmonics import ell_mask_state
+    from gibbssampler_tpu_torch.parallel import (make_mesh, shard_sht,
+                                                 sharded_run)
+    from gibbssampler_tpu_torch.samplers import centered_cls_sample
+    from gibbssampler_tpu_torch.samplers import cr as cr_mod
+    from gibbssampler_tpu_torch.schemes import CenteredGibbs
+    from gibbssampler_tpu_torch.sht import legendre_kernels as lk
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "gloo_store"), 2), rank=rank, world_size=2,
+        timeout=datetime.timedelta(seconds=600))
+    res = {}
+    try:
+        lk.build()
+        t0 = time.time()
+        scheme, dl0 = flagship.build("gl", "band", device=dev, lmax=LMAX)
+        torch.cuda.synchronize()
+        res["setup_s"] = time.time() - t0
+        # (b1) the chains over a (2, 1) mesh
+        mesh = make_mesh(2, 1, device_type="cpu")
+        lk.reset_launch_counts()
+        t0 = time.time()
+        out = sharded_run(scheme, dl0, n_iter=PAR_ITERS, nchains=NCHAINS,
+                          mesh=mesh, seed=PAR_SEED)
+        torch.cuda.synchronize()
+        res["chains_s"], res["chains_n"] = time.time() - t0, counts(lk)
+        res["run"] = run_arrays(out)
+        res["stats"] = par_stats(torch, out, mesh.get_group("chains"))
+        # (b2) the m-sharded float32 transforms over a (1, 2) mesh
+        mesh_m = make_mesh(1, 2, device_type="cpu")
+        model = scheme.model
+        gen = torch.Generator(device=dev).manual_seed(31)
+        m2 = torch.as_tensor(ell_mask_state(LMAX, 2), device=dev)
+        e, b = (torch.randn((NCHAINS, model.nstate), generator=gen,
+                            device=dev) * m2 for _ in range(2))
+        res["sht"] = {}
+        for label, sht in (("full", model.sht), ("cut", model.cut_sht)):
+            q, u = (torch.randn((NCHAINS, sht.nrings, sht.nphi),
+                                generator=gen, device=dev) for _ in range(2))
+            msh = shard_sht(sht, mesh_m)
+            ref_s = sht.synthesis_spin2_state(e, b)
+            ref_a = sht.adjoint_synthesis_spin2_state(q, u)
+            torch.cuda.synchronize()
+            lk.reset_launch_counts()
+            syn = msh.synthesis_spin2_state(e, b)
+            adj = msh.adjoint_synthesis_spin2_state(q, u)
+            torch.cuda.synchronize()
+            n = slab_counts(torch, lk)
+            ms_s = time_ms(torch, lambda: msh.synthesis_spin2_state(e, b), 3)
+            ms_u = time_ms(torch, lambda: sht.synthesis_spin2_state(e, b), 3)
+            tabs = lambda t: sum(x.numel() * x.element_size() for x in
+                                 (t.lam0, t.lam_p2, t.lam_m2))
+            res["sht"][label] = {
+                "rows": msh.lam0.shape[0], "nrings": sht.nrings,
+                "bytes": tabs(msh), "bytes_full": tabs(sht), "slabs": n,
+                "syn_err": max(float((s - r).abs().max() / r.abs().max())
+                               for s, r in zip(syn, ref_s)),
+                "adj_err": max(float((s - r).abs().max() / r.abs().max())
+                               for s, r in zip(adj, ref_a)),
+                "ms": ms_s, "ms_full": ms_u}
+            del msh, syn, adj, ref_s, ref_a, q, u
+        del scheme, model, out
+        torch.cuda.empty_cache()
+        # (b3) one float64 cg_cr m-sharded and unsharded, the same pool
+        f64 = torch.float64
+        m64, dls, _ = flagship.dataset("gl", "band", LMAX, dev, f64)
+        mm = dataclasses.replace(m64, sht=shard_sht(m64.sht, mesh_m),
+                                 cut_sht=shard_sht(m64.cut_sht, mesh_m))
+        ubins = np.arange(2, LMAX + 2)
+        su, ss = (CenteredGibbs(m, [ubins, ubins], cr_method="cg",
+                                cr_options={"cg_maxiter": CG_MAXITER})
+                  for m in (m64, mm))
+        var = su.var_cls(tuple(torch.as_tensor(d[2:], dtype=f64, device=dev)
+                               .expand(CG_CHAINS, -1) for d in dls))
+        pool = su.draw_noise_pool(CG_CHAINS,
+                                  torch.Generator(device=dev).manual_seed(7))
+        cg = {}
+        for label, m, sch in (("sharded", mm, ss), ("unsharded", m64, su)):
+            lk.reset_launch_counts()
+            (x, info), ms = cuda_ms(torch, lambda: cr_mod.cg_cr(
+                m, var, sch.bt_ninv_d, tol=1e-5, maxiter=CG_MAXITER,
+                noise=pool))
+            dl = centered_cls_sample(
+                x, sch.bins_list, LMAX,
+                gen=torch.Generator(device=dev).manual_seed(9))
+            cg[label] = {"its": info.extra.cpu().numpy(), "ms": ms,
+                         "n": counts(lk), "slabs": slab_counts(torch, lk),
+                         "dl": [d.cpu().numpy() for d in dl]}
+        res["cg"] = cg
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, os.path.join(tmp, f"par{rank}.pt"))
+
+
+def phase_parallel_gloo(torch, scheme, dl0, dev, card, tmp):
+    """(b) the two gloo processes of ``par_worker`` on this card; their
+    chains against this process's unsharded run of each rank's chains,
+    their pooled statistics against numpy over all 128 chains, the
+    m-sharded transforms and CG solve against the unsharded ones.  Returns
+    the two processes' launch counts, summed."""
+    import torch.multiprocessing as mp
+    from gibbssampler_tpu_torch.parallel import chain_seed
+    t0 = time.time()
+    mp.start_processes(par_worker, args=(tmp,), nprocs=2,
+                       start_method="spawn", join=True)
+    wall = time.time() - t0
+    res = [torch.load(os.path.join(tmp, f"par{r}.pt"), weights_only=False)
+           for r in range(2)]
+    k = NCHAINS // 2
+    bitwise, dl_rel = True, 0.0
+    for r, out in enumerate(res):
+        ref = run_arrays(scheme.run(dl0, n_iter=PAR_ITERS, nchains=k,
+                                    gen=torch.Generator(device=dev)
+                                    .manual_seed(chain_seed(PAR_SEED, r))))
+        for key, want in ref.items():
+            got = out["run"][key]
+            check(got.shape == want.shape, f"parallel (b) rank {r}: {key} "
+                  f"shape {got.shape}, expected {want.shape}")
+            bitwise &= bool(np.array_equal(got, want))
+            if key.startswith("dl"):
+                # another process may round a float32 sum another way (the
+                # GEMM a library picks can depend on the buffers' addresses)
+                rel = float(np.abs(got - want).max() / np.abs(want).max())
+                check(rel <= 1e-5, f"parallel (b) rank {r}: its chains' "
+                      f"{key} differ from the unsharded run of its chains "
+                      f"by {rel:.3g} of max|ref|")
+                dl_rel = max(dl_rel, rel)
+            else:
+                check(np.array_equal(got, want), f"parallel (b) rank {r}: "
+                      f"its {key} differ from the unsharded run's")
+    want = numpy_stats(np.concatenate([o["run"]["dl0"] for o in res]),
+                       np.concatenate([o["run"]["mh1"] for o in res]))
+    err = max(stats_err(out["stats"], want) for out in res)
+    check(err <= 1e-10, f"parallel (b): pooled statistics vs numpy {err}")
+    same = ("bit for bit" if bitwise else
+            f"with equal accepts, D_ell to {dl_rel:.2e} of max|ref|")
+    print(f"parallel (b) two gloo processes on cuda:0 ({wall:.1f} s; "
+          f"flagship.build {res[0]['setup_s']:.1f} s each): mesh (2, 1), "
+          f"{k} chains a process, {PAR_ITERS} iterations "
+          f"({res[0]['chains_s']:.2f} s): each equals this process's "
+          f"unsharded run of its chains {same}; pooled EE mean / var, split "
+          f"R-hat and BB acceptance over the two vs numpy over all "
+          f"{NCHAINS} chains max rel err {err:.2e} (<= 1e-10) [{card}]",
+          flush=True)
+    for label in ("full", "cut"):
+        s = [out["sht"][label] for out in res]
+        L = LMAX + 1
+        check(sorted(x["rows"] for x in s) == [256, 257],
+              f"parallel (b) {label}: rows {[x['rows'] for x in s]}, "
+              f"expected 257 and 256 of {L}")
+        worst = max(max(x["syn_err"], x["adj_err"]) for x in s)
+        check(worst <= 1e-5, f"parallel (b) {label} m-sharded transform "
+              f"vs unsharded: {worst}")
+        for x in s:
+            check(x["slabs"][0] > 0 and x["slabs"][1] > 0,
+                  f"parallel (b) {label}: float32 slab launches {x['slabs']}")
+        print(f"parallel (b) mesh (1, 2), {label} GL SHT ({s[0]['nrings']} "
+              f"rings, spin 2, float32, {NCHAINS} chains): rows "
+              f"{s[0]['rows']} / {s[1]['rows']} of {L}, table bytes "
+              f"{s[0]['bytes']} / {s[1]['bytes']} against {s[0]['bytes_full']}"
+              f" unsharded; synthesis max|err|/max|ref| "
+              f"{max(x['syn_err'] for x in s):.2e}, adjoint "
+              f"{max(x['adj_err'] for x in s):.2e}; synthesis "
+              f"{s[0]['ms']:.3f} ms sharded (with its gloo all-gather, both "
+              f"processes on one card) vs {s[0]['ms_full']:.3f} unsharded; "
+              f"slab launches (synth, adj) {s[0]['slabs'][:2]} a process "
+              f"[{card}]", flush=True)
+    dl_err = 0.0
+    for r, out in enumerate(res):
+        cs, cu = out["cg"]["sharded"], out["cg"]["unsharded"]
+        check(np.array_equal(cs["its"], cu["its"]),
+              f"parallel (b) rank {r}: m-sharded cg_cr iterations "
+              f"{cs['its']} vs unsharded {cu['its']}")
+        check(cs["slabs"][2] > 0 and cs["slabs"][3] > 0,
+              f"parallel (b): float64 slab launches {cs['slabs']}")
+        err = max(float(np.abs(a - c).max() / np.abs(c).max())
+                  for a, c in zip(cs["dl"], cu["dl"]))
+        check(err <= 1e-9, f"parallel (b) rank {r}: m-sharded cg D_ell "
+              f"vs unsharded {err}")
+        dl_err = max(dl_err, err)
+    cs, cu = res[0]["cg"]["sharded"], res[0]["cg"]["unsharded"]
+    print(f"parallel (b) mesh (1, 2), float64 cg_cr tol 1e-5, {CG_CHAINS} "
+          f"chains of the band: per-chain iterations {cs['its'].tolist()} "
+          f"equal the unsharded solve's on both processes; D_ell max rel "
+          f"err {dl_err:.2e} (<= 1e-9); {cs['ms']:.1f} ms per solve sharded "
+          f"vs {cu['ms']:.1f} unsharded (both processes on one card); "
+          f"float64 slab launches (synth, adj) {cs['slabs'][2:]} a process "
+          f"[{card}]", flush=True)
+    n = [0] * 4
+    for out in res:
+        parts = [out["chains_n"]] + [out["cg"][c]["n"] for c in out["cg"]] \
+            + [out["sht"][c]["slabs"] for c in out["sht"]]
+        n = [sum(v) for v in zip(n, *parts)]
+    return n
+
+
+def phase_launch_pod(torch, card, tmp):
+    """(c) ``torchrun --standalone --nproc_per_node 1 -m
+    gibbssampler_tpu_torch.launch_pod`` on NCCL (PAR_LAUNCH): process 0's
+    npz holds the JAX launcher's keys, finite."""
+    npz = os.path.join(tmp, "pod.npz")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "gibbssampler_tpu_torch.launch_pod",
+           "--lmax", str(PAR_LAUNCH["lmax"]),
+           "--nchains", str(PAR_LAUNCH["nchains"]),
+           "--n-iter", str(PAR_LAUNCH["n_iter"]), "--out", npz]
+    t0 = time.time()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.time() - t0
+    check(run.returncode == 0, f"parallel (c): launch_pod exited "
+          f"{run.returncode}:\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    with np.load(npz) as z:
+        keys = sorted(z.files)
+        check(keys == ["config", "dl_chain_0", "ess", "rhat", "wall"],
+              f"parallel (c): npz keys {keys}")
+        shape = z["dl_chain_0"].shape
+        check(shape == (PAR_LAUNCH["nchains"], PAR_LAUNCH["n_iter"],
+                        PAR_LAUNCH["lmax"] - 1), f"parallel (c): chains {shape}")
+        for k in ("dl_chain_0", "ess", "rhat", "wall"):
+            check(np.isfinite(z[k]).all(), f"parallel (c): {k} not finite")
+    lines = [ln for ln in run.stdout.splitlines() if ln.strip()]
+    print(f"parallel (c) torchrun launch_pod, NCCL, lmax "
+          f"{PAR_LAUNCH['lmax']}, {PAR_LAUNCH['nchains']} chains, "
+          f"{PAR_LAUNCH['n_iter']} iterations ({wall:.1f} s with start-up): "
+          f"{' | '.join(lines[-2:])} [{card}]", flush=True)
+
+
+def phase_parallel(torch, lk, model, dls, dev, card):
+    """The parallel phase, (a)-(c), on the band dataset's flagship ASIS
+    scheme with its tuned record (what flagship.build makes, and what
+    par_worker builds); returns (a)'s and (b)'s launches."""
+    from gibbssampler_tpu_torch import flagship
+    t0 = time.time()
+    scheme, dl0 = flagship.asis_setup(model, dls, "gl", "band")
+    with tempfile.TemporaryDirectory() as tmp:
+        na = phase_parallel_nccl(torch, lk, scheme, dl0, dev, card, tmp)
+        nb = phase_parallel_gloo(torch, scheme, dl0, dev, card, tmp)
+        phase_launch_pod(torch, card, tmp)
+    print(f"parallel phase: {time.time() - t0:.1f} s [{card}]", flush=True)
+    return [a + b for a, b in zip(na, nb)]
+
+
 def main():
     t_start = time.time()
     import torch
@@ -2351,6 +2805,7 @@ def main():
                                                           card)}), flush=True)
         return 0
     rec, rec64 = phase_kernels(torch, lk, dev, card)
+    phase_slab_kernels(torch, lk, dev, card, rec, rec64)
     hp_mask = flagship.healpix_planckish_mask(NSIDE)
     sht = phase_sht(torch, dev, hp_mask)
     phase_small_steps(torch, dev)
@@ -2388,6 +2843,9 @@ def main():
           f"{MH_MS[label + ' phi']:.2f}, table engine {MH_MS[label]:.2f} "
           f"(phase 5, this call) [{card}]", flush=True)
     phase_coef_sweep(torch, lk, tally, *band, dev, card)
+    # the parallel layer on a fresh flagship ASIS band scheme (phase_adapt
+    # swapped adapted scales into phase 5's)
+    par_launches = phase_parallel(torch, lk, model, dls, dev, card)
     del model, band
     torch.cuda.empty_cache()
     cg_launches = phase_cg(torch, lk, dev, card, profile)
@@ -2454,7 +2912,7 @@ def main():
           f"float32 rounding max {new.max():.3g} > {PCN_EXACT_LIMIT}")
     launches = [sum(n) for n in zip(*launches.values())] + list(
         cg_launches[2:])
-    launches = [sum(n) for n in zip(launches, *new_launches)]
+    launches = [sum(n) for n in zip(launches, *new_launches, par_launches)]
 
     kernels = []
     # (name, TPU source line, kernel source, records, launches): the

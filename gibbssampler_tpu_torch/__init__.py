@@ -17,7 +17,9 @@ samplers    constrained realizations: exact, the CG family (CG, RJPO,
             inverse-gamma D_ell draw, the blocked MH D_ell step
 schemes     CenteredGibbs, NonCenteredGibbs, ASISGibbs and PNCPGibbs over
             a leading chain axis
-parallel    proposal scales of the MH step and their warm-up adaptation
+parallel    proposal scales of the MH step and their warm-up adaptation;
+            the ("chains", "m") process mesh, chain sharding, the
+            collectives over the chains, the m-sharded SHT
 inference   dataset simulation
 diagnostics ESS, R-hat, chain summaries
 interop     carry the JAX package's dataset and state across as numpy;
@@ -25,6 +27,8 @@ interop     carry the JAX package's dataset and state across as numpy;
 flagship    bench.py's flagship ASIS and PNCP configurations on the port
 tune        ``python -m gibbssampler_tpu_torch.tune``: tune their proposal
             scales on the card into tuned_proposals.json
+launch_pod  ``torchrun ... -m gibbssampler_tpu_torch.launch_pod``: one
+            process per card (tools/launch_pod.py's counterpart)
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,14 @@
 // on l (the wrapper allocates it as a (C, L, L) buffer, the state's order).
 // The float64 entry points live in legendre_tri_f64.cu.
 //
+// The m-slab form.  Given ms, an int32 device array of M degree orders,
+// every "m" above is a memory row i < M of lam (M, L, nr), x (M, C, L) and
+// the outputs, and the degree order of row i is ms[i]: the sums run over
+// l >= ms[i] and the adjoint's zeros cover l < ms[i].  An m-sharded
+// transform launches its slab of each table so (the rows that it holds);
+// ms = null is the full table, M = L and ms[i] = i.  The degree only moves
+// where a row's triangle starts; the memory row only moves the pointers.
+//
 // What bounds them.  Per m each is a product over the triangle l >= m.  At
 // the main-path shape (L 513, nr 65, C 256) one call does 4.39 GFLOP and
 // must move ~0.20 GB (batch half 135 MB, table half 34 MB, output 34 MB):
@@ -332,38 +340,50 @@ using SynthTile = Tile<128, 72, 32, 32, 72, false>;
 template <bool KUNIT>
 using AdjTile = Tile<64, 128, 32, 32, 32, KUNIT>;
 
-// grid (r tiles, c tiles, m): m = 0, the longest, first
+// The degree order of memory row i: ms[i] on a slab, i on the full table.
+// SLAB is a template parameter, so that the full table's kernels carry no
+// test of ms (a run-time one cost them 1-3% at the main-path shapes on an
+// H100).
+template <bool SLAB>
+__device__ __forceinline__ int degree(const int* ms, int i) {
+  return SLAB ? __ldg(ms + i) : i;
+}
+
+// grid (r tiles, c tiles, row i): i = 0 (m = 0, the longest) first
+template <bool SLAB>
 __global__ void __launch_bounds__(SynthTile::THREADS, 2)
 synth_tri_3xtf32(const float* __restrict__ lam, const float* __restrict__ x,
                  float* __restrict__ out, int L, int nr, int C,
-                 long long sxm, long long sxc) {
+                 long long sxm, long long sxc, const int* __restrict__ ms) {
   using T = SynthTile;
   extern __shared__ float smem[];
-  const int m = blockIdx.z;
+  const int i = blockIdx.z, m = degree<SLAB>(ms, i);
   const int c0 = blockIdx.y * T::BM;
   const int r0 = blockIdx.x * T::BN;
-  const float* A = x + m * sxm + c0 * sxc + m;                        // x[m, c0, m]
-  const float* B = lam + (static_cast<long long>(m) * L + m) * nr + r0;  // lam[m, m, r0]
-  float* o = out + (static_cast<long long>(m) * nr + r0) * C + c0;    // out[m, r0, c0]
+  const float* A = x + i * sxm + c0 * sxc + m;                        // x[i, c0, m]
+  const float* B = lam + (static_cast<long long>(i) * L + m) * nr + r0;  // lam[i, m, r0]
+  float* o = out + (static_cast<long long>(i) * nr + r0) * C + c0;    // out[i, r0, c0]
   block_gemm<T>(A, sxc, min(T::BM, C - c0), B, nr, min(T::BN, nr - r0),
                 L - m, o, C, smem);
 }
 
-// grid (c tiles, ceil(L / BM) + 1, m).  For each m the first nz = ceil(m /
-// BM) tiles y write the zeros of l < m, BM at a time down from l = m; tile y
-// >= nz computes l0 = m + (y - nz) BM .. l0 + BM; the rest return at once.
-template <bool KUNIT>
+// grid (c tiles, ceil(L / BM) + 1, row i).  For row i of degree m the first
+// nz = ceil(m / BM) tiles y write the zeros of l < m, BM at a time down from
+// l = m; tile y >= nz computes l0 = m + (y - nz) BM .. l0 + BM; the rest
+// return at once.
+template <bool KUNIT, bool SLAB>
 __global__ void __launch_bounds__(AdjTile<KUNIT>::THREADS, 2)
 adj_tri_3xtf32(const float* __restrict__ lam, const float* __restrict__ g,
                float* __restrict__ out, int L, int nr, int C, long long sgm,
-               long long sgr, long long sgc, long long som, long long soc) {
+               long long sgr, long long sgc, long long som, long long soc,
+               const int* __restrict__ ms) {
   using T = AdjTile<KUNIT>;
   extern __shared__ float smem[];
-  const int m = blockIdx.z;
+  const int i = blockIdx.z, m = degree<SLAB>(ms, i);
   const int c0 = blockIdx.x * T::BN;
   const int cv = min(T::BN, C - c0);
   const int nz = (m + T::BM - 1) / T::BM;
-  float* o = out + m * som + c0 * soc;                                // out[m, c0, 0]
+  float* o = out + i * som + c0 * soc;                                // out[i, c0, 0]
   if (static_cast<int>(blockIdx.y) < nz) {
     const int hi = m - static_cast<int>(blockIdx.y) * T::BM;
     const int lo = hi > T::BM ? hi - T::BM : 0;
@@ -375,8 +395,8 @@ adj_tri_3xtf32(const float* __restrict__ lam, const float* __restrict__ g,
   }
   const int l0 = m + (static_cast<int>(blockIdx.y) - nz) * T::BM;
   if (l0 >= L) return;  // uniform across the block
-  const float* A = lam + (static_cast<long long>(m) * L + l0) * nr;   // lam[m, l0, 0]
-  const float* B = g + m * sgm + c0 * sgc;                            // g[m, 0, c0]
+  const float* A = lam + (static_cast<long long>(i) * L + l0) * nr;   // lam[i, l0, 0]
+  const float* B = g + i * sgm + c0 * sgc;                            // g[i, 0, c0]
   block_gemm<T>(A, nr, min(T::BM, L - l0), B, KUNIT ? sgc : sgr, cv, nr,
                 o + l0, soc, smem);
 }
@@ -395,38 +415,44 @@ int launch(Kernel kernel, dim3 grid, void* stream, Args... args) {
 
 extern "C" {
 
-// x[m, c, l] at x + m * sxm + c * sxc + l
+// x[i, c, l] at x + i * sxm + c * sxc + l; ms: null (M = L, row i of degree
+// i) or M int32 degree orders on the device
 int legendre_synth_tri_f32(const void* lam, const void* x, void* out, int L,
                            int nr, int C, long long sxm, long long sxc,
-                           void* stream) {
+                           const void* ms, int M, void* stream) {
   using T = SynthTile;
-  const dim3 grid((nr + T::BN - 1) / T::BN, (C + T::BM - 1) / T::BM, L);
-  return launch<T>(synth_tri_3xtf32, grid, stream,
-                   static_cast<const float*>(lam),
+  const dim3 grid((nr + T::BN - 1) / T::BN, (C + T::BM - 1) / T::BM, M);
+  return launch<T>(ms ? synth_tri_3xtf32<true> : synth_tri_3xtf32<false>,
+                   grid, stream, static_cast<const float*>(lam),
                    static_cast<const float*>(x), static_cast<float*>(out), L,
-                   nr, C, sxm, sxc);
+                   nr, C, sxm, sxc, static_cast<const int*>(ms));
 }
 
-// g[m, r, c] at g + m * sgm + r * sgr + c * sgc with sgr == 1 or sgc == 1;
-// out[m, c, l] at out + m * som + c * soc + l
+// g[i, r, c] at g + i * sgm + r * sgr + c * sgc with sgr == 1 or sgc == 1;
+// out[i, c, l] at out + i * som + c * soc + l; ms as above
 int legendre_adj_tri_f32(const void* lam, const void* g, void* out, int L,
                          int nr, int C, long long sgm, long long sgr,
                          long long sgc, long long som, long long soc,
-                         void* stream) {
+                         const void* ms, int M, void* stream) {
   const auto* lam_ = static_cast<const float*>(lam);
   const auto* g_ = static_cast<const float*>(g);
   auto* out_ = static_cast<float*>(out);
+  const auto* ms_ = static_cast<const int*>(ms);
   if (sgr == 1) {
     using T = AdjTile<true>;
-    const dim3 grid((C + T::BN - 1) / T::BN, (L + T::BM - 1) / T::BM + 1, L);
-    return launch<T>(adj_tri_3xtf32<true>, grid, stream, lam_, g_, out_, L,
-                     nr, C, sgm, sgr, sgc, som, soc);
+    const dim3 grid((C + T::BN - 1) / T::BN, (L + T::BM - 1) / T::BM + 1, M);
+    return launch<T>(ms ? adj_tri_3xtf32<true, true>
+                        : adj_tri_3xtf32<true, false>,
+                     grid, stream, lam_, g_, out_, L, nr, C, sgm, sgr, sgc,
+                     som, soc, ms_);
   }
   if (sgc == 1) {
     using T = AdjTile<false>;
-    const dim3 grid((C + T::BN - 1) / T::BN, (L + T::BM - 1) / T::BM + 1, L);
-    return launch<T>(adj_tri_3xtf32<false>, grid, stream, lam_, g_, out_, L,
-                     nr, C, sgm, sgr, sgc, som, soc);
+    const dim3 grid((C + T::BN - 1) / T::BN, (L + T::BM - 1) / T::BM + 1, M);
+    return launch<T>(ms ? adj_tri_3xtf32<false, true>
+                        : adj_tri_3xtf32<false, false>,
+                     grid, stream, lam_, g_, out_, L, nr, C, sgm, sgr, sgc,
+                     som, soc, ms_);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

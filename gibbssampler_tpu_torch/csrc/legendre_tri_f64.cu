@@ -12,7 +12,9 @@
 // row-major, zero for l < m; x (L, C, L) with unit stride on l; g (L, nr, C)
 // with unit stride on r or on c; synthesis out (L, nr, C) row-major; adjoint
 // out (L, C, L) with unit stride on l, every element written (the zeros of
-// l < m too: the wrapper allocates it with torch.empty).
+// l < m too: the wrapper allocates it with torch.empty).  The m-slab form
+// (ms, M) is that of legendre_tri.cu: row i < M of every operand, of degree
+// order ms[i]; ms = null is the full table (M = L, ms[i] = i).
 //
 // What bounds them: bytes.  The CG family calls them at C = 16 (8 chains x
 // Re/Im).  At L 513, nr 65 one call does 2 nr C L(L+1)/2 = 274 MFLOP, 8.2 us
@@ -55,11 +57,16 @@
 //   groups (synthesis: up to 4, the rows k = g mod groups of each stage;
 //   adjoint: 2, the rings k = g mod 2 of each chunk) whose partial sums meet
 //   in shared memory in group order at the end of an m.
-// - The triangle.  A synthesis block takes m and L-1-m in one pipeline, L+1
-//   degree rows whatever m is.  The adjoint's blocks are the (m, 128-row
-//   pass) pairs that exist, numbered pass-major (no block exits empty);
-//   each m's pass-0 block also writes the zeros of l < m, along l.  Every
-//   output is a sum in a fixed order.
+// - The triangle.  A synthesis block takes rows i and M-1-i in one
+//   pipeline: m and L-1-m on the full table (L+1 degree rows whatever m
+//   is), and on a slab whatever pair its caller put there (the m-sharded
+//   transform orders each rank's ms so that the pair is (m, L-1-m) again).
+//   The adjoint's blocks are the (m, 128-row pass) pairs that exist,
+//   numbered pass-major (no block exits empty); on a slab, every (row, pass)
+//   pair up to ceil(L / 128) passes, those past a row's triangle exiting at
+//   once.  Each row's pass-0 block also writes the zeros of l < m, along l.
+//   Every output is a sum in a fixed order, the same on a slab as on the
+//   full table.
 // What bounds them now (PERF.md section 6 has the measurements;
 // chip_smoke.py --f64-parts times each part alone): no part alone.  At nr
 // 65, C 16 the table stream without the products, and the products without
@@ -108,6 +115,11 @@ constexpr int kAdjMinBlocks = 2;
 // adjoint threads at the widest column tile, 32 columns
 constexpr int kAdjMaxThreads = kAdjRows * (32 / CT) * kAdjGroups;
 static_assert(kSynthMaxGroup <= kSynthMaxThreads, "a row group per block");
+
+// the degree order of memory row i: ms[i], or i for the full table
+__device__ __forceinline__ int degree(const int* ms, int i) {
+  return ms ? __ldg(ms + i) : i;
+}
 
 // ---------------------------------------------------------------------------
 // PTX helpers
@@ -241,7 +253,7 @@ struct SynthPlan {
   }
 };
 
-// Block (ring tile and column tile in x, m pair in y): `groups` row groups
+// Block (ring tile and column tile in x, row pair in y): `groups` row groups
 // of `group` threads; group g multiplies the rows k = g mod groups of each
 // stage, and the groups' sums meet in shared memory, in group order, at the
 // end of each m.  Shared memory: per stage x [TC][XK] (XK odd: the copies,
@@ -252,7 +264,7 @@ template <int TC>
 __global__ void __launch_bounds__(kSynthMaxThreads, kSynthMinBlocks)
 synth_tri_f64(const double* __restrict__ lam, const double* __restrict__ x,
               double* __restrict__ out, int L, int nr, int C, long long sxm,
-              long long sxc) {
+              long long sxc, const int* __restrict__ ms, int M) {
   constexpr int NCG = TC / CT, RT = kRingsPerThread;
   extern __shared__ __align__(16) double smem[];
   const SynthPlan pl(nr, TC);
@@ -269,28 +281,30 @@ synth_tri_f64(const double* __restrict__ lam, const double* __restrict__ x,
   const int c0 = (blockIdx.x / pl.ntr) * TC;
   const int r_lo = tile * nr / pl.ntr;
   const int R = (tile + 1) * nr / pl.ntr - r_lo;
-  const int ma = blockIdx.y, mb = L - 1 - ma;
+  // rows ia and ib of degrees ma and mb; the middle row of an odd M alone
+  const int ia = blockIdx.y, ib = M - 1 - ia;
+  const int ma = degree(ms, ia), mb = degree(ms, ib);
   const int na = (L - ma + KL - 1) / KL;
-  const int nst = na + (mb > ma ? (L - mb + KL - 1) / KL : 0);
+  const int nst = na + (ib > ia ? (L - mb + KL - 1) / KL : 0);
   const int rh = pl.rh, cg = t / rh, rr = t % rh;
   const bool active = cg < NCG && rr < R;
   const CopyLanes cl(R, nth);
 
-  // stage q: degree rows [l0, l0 + KL) of slab m
-  auto stage_m = [&](int q) { return q < na ? ma : mb; };
+  // stage q: degree rows [l0, l0 + KL) of the slab of row stage_i(q)
+  auto stage_i = [&](int q) { return q < na ? ia : ib; };
   auto stage_l0 = [&](int q) {
     return q < na ? ma + q * KL : mb + (q - na) * KL;
   };
   auto issue = [&](int q) {
     if (q < nst) {
-      const int m = stage_m(q), l0 = stage_l0(q);
+      const int ri = stage_i(q), l0 = stage_l0(q);
       const int nrows = min(KL, L - l0), s = q % kStages;
       if (kTableCopies)
         stage_rows(tbuf + s * TS,
-                   lam + (static_cast<size_t>(m) * L + l0) * nr + r_lo, nr,
+                   lam + (static_cast<size_t>(ri) * L + l0) * nr + r_lo, nr,
                    nrows, R, RS, cl);
       // along l, x's unit stride: consecutive threads, consecutive l
-      const double* xm = x + m * sxm + l0;
+      const double* xm = x + ri * sxm + l0;
       double* xs = xbuf + s * XK * TC;
       for (int i = tid; kBatchCopies && i < TC * KL; i += nth) {
         const int c = i / KL, k = i % KL;
@@ -313,12 +327,12 @@ synth_tri_f64(const double* __restrict__ lam, const double* __restrict__ x,
     __syncthreads();
     // the buffer of stage q - 1, which every thread has finished with
     issue(q + kStages - 1);
-    const int m = stage_m(q), l0 = stage_l0(q);
+    const int ri = stage_i(q), l0 = stage_l0(q);
     if (active) {
       const int nrows = min(KL, L - l0), s = q % kStages;
       const double* ts = tbuf + s * TS + rr;
       const double* xs = xbuf + (s * TC + cg * CT) * XK;
-      const int p0 = parity(lam + (static_cast<size_t>(m) * L + l0) * nr +
+      const int p0 = parity(lam + (static_cast<size_t>(ri) * L + l0) * nr +
                             r_lo);
       // four rows' loads, then their FMAs: the loads' latency overlaps
       int k = grp;
@@ -354,7 +368,7 @@ synth_tri_f64(const double* __restrict__ lam, const double* __restrict__ x,
         fma_rows(a, xs + k, XK, acc);
       }
     }
-    if (q == na - 1 || q == nst - 1) {  // the last stage of slab m
+    if (q == na - 1 || q == nst - 1) {  // the last stage of row ri's slab
       if (G > 1) {
         if (grp > 0) {
 #pragma unroll
@@ -379,7 +393,7 @@ synth_tri_f64(const double* __restrict__ lam, const double* __restrict__ x,
         for (int i = 0; i < RT; ++i) {
           const int r = rr + i * rh;
           if (r >= R) break;
-          double* o = out + (static_cast<size_t>(m) * nr + r_lo + r) * C;
+          double* o = out + (static_cast<size_t>(ri) * nr + r_lo + r) * C;
 #pragma unroll
           for (int j = 0; j < CT; ++j) {
             const int c = c0 + cg * CT + j;
@@ -426,7 +440,7 @@ __host__ __device__ inline int adj_blocks(int L) {
   return n;
 }
 
-// Block (m, pass) in x, column tile in y: kAdjGroups ring groups; group h
+// Block (row, pass) in x, column tile in y: kAdjGroups ring groups; group h
 // multiplies the rings k = h mod kAdjGroups of each chunk, and the groups'
 // sums meet in shared memory, in group order, at the end.  Thread in a
 // group: degree rows t % kAdjRows + i kAdjRows (i < kAdjRowsPerThread),
@@ -437,7 +451,8 @@ template <int TC>
 __global__ void __launch_bounds__(kAdjMaxThreads, kAdjMinBlocks)
 adj_tri_f64(const double* __restrict__ lam, const double* __restrict__ g,
             double* __restrict__ out, int L, int nr, int C, long long sgm,
-            long long sgr, long long sgc, long long som, long long soc) {
+            long long sgr, long long sgc, long long som, long long soc,
+            const int* __restrict__ ms, int M) {
   constexpr int G = kAdjGroups, RA = kAdjRowsPerThread;
   extern __shared__ __align__(16) double smem[];
   const AdjPlan pl(nr, TC);
@@ -449,24 +464,35 @@ adj_tri_f64(const double* __restrict__ lam, const double* __restrict__ g,
   double* red = tbuf + kStages * TS;
   const int tid = threadIdx.x, nth = blockDim.x;
   const int grp = tid / GT, t = tid % GT;
-  int m = blockIdx.x, pass = 0;
-  while (m >= L - kAdjPass * pass) {
-    m -= L - kAdjPass * pass;
-    ++pass;
+  // (memory row i, degree m, pass): pass-major over the rows
+  int i, m, pass;
+  if (ms) {  // every (row, pass) pair; those past the row's triangle exit
+    pass = blockIdx.x / M;
+    i = blockIdx.x % M;
+    m = degree(ms, i);
+    if (m + kAdjPass * pass >= L) return;  // uniform across the block
+  } else {  // the pairs that exist: rows m < L - P pass
+    m = blockIdx.x;
+    pass = 0;
+    while (m >= L - kAdjPass * pass) {
+      m -= L - kAdjPass * pass;
+      ++pass;
+    }
+    i = m;
   }
   const int l_lo = m + kAdjPass * pass;
   const int nrows = min(kAdjPass, L - l_lo);
   const int c0 = blockIdx.y * TC;
   const int c1 = min(C, c0 + TC);
-  double* out_m = out + m * som;
+  double* out_m = out + i * som;
 
   if (pass == 0) {  // the zeros of l < m, this column tile, along l
     for (int c = c0; c < c1; ++c)
       for (int l = tid; l < m; l += nth) out_m[c * soc + l] = 0.0;
   }
 
-  const double* lam_b = lam + (static_cast<size_t>(m) * L + l_lo) * nr;
-  const double* g_m = g + m * sgm;
+  const double* lam_b = lam + (static_cast<size_t>(i) * L + l_lo) * nr;
+  const double* g_m = g + i * sgm;
   const bool r_unit = sgr <= sgc;  // copy g along its unit stride
   const CopyLanes cl(RC, nth);
   auto issue = [&](int q) {
@@ -568,28 +594,32 @@ cudaError_t allow_smem(K kernel, int bytes) {
 
 template <int TC>
 int launch_synth(const void* lam, const void* x, void* out, int L, int nr,
-                 int C, long long sxm, long long sxc, cudaStream_t stream) {
+                 int C, long long sxm, long long sxc, const int* ms, int M,
+                 cudaStream_t stream) {
   const SynthPlan pl(nr, TC);
   const cudaError_t e = allow_smem(synth_tri_f64<TC>, pl.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(pl.ntr * ((C + TC - 1) / TC), (L + 1) / 2);
+  const dim3 grid(pl.ntr * ((C + TC - 1) / TC), (M + 1) / 2);
   synth_tri_f64<TC><<<grid, pl.group * pl.groups, pl.smem, stream>>>(
       static_cast<const double*>(lam), static_cast<const double*>(x),
-      static_cast<double*>(out), L, nr, C, sxm, sxc);
+      static_cast<double*>(out), L, nr, C, sxm, sxc, ms, M);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int TC>
 int launch_adj(const void* lam, const void* g, void* out, int L, int nr,
                int C, long long sgm, long long sgr, long long sgc,
-               long long som, long long soc, cudaStream_t stream) {
+               long long som, long long soc, const int* ms, int M,
+               cudaStream_t stream) {
   const AdjPlan pl(nr, TC);
   const cudaError_t e = allow_smem(adj_tri_f64<TC>, pl.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(adj_blocks(L), (C + TC - 1) / TC);
+  const int blocks =
+      ms ? M * ((L + kAdjPass - 1) / kAdjPass) : adj_blocks(L);
+  const dim3 grid(blocks, (C + TC - 1) / TC);
   adj_tri_f64<TC><<<grid, pl.group * kAdjGroups, pl.smem, stream>>>(
       static_cast<const double*>(lam), static_cast<const double*>(g),
-      static_cast<double*>(out), L, nr, C, sgm, sgr, sgc, som, soc);
+      static_cast<double*>(out), L, nr, C, sgm, sgr, sgc, som, soc, ms, M);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -597,28 +627,36 @@ int launch_adj(const void* lam, const void* g, void* out, int L, int nr,
 
 extern "C" {
 
-// x[m, c, l] at x + m * sxm + c * sxc + l
+// x[i, c, l] at x + i * sxm + c * sxc + l; ms: null (M = L, row i of degree
+// i) or M int32 degree orders on the device
 int legendre_synth_tri_f64(const void* lam, const void* x, void* out, int L,
                            int nr, int C, long long sxm, long long sxc,
-                           void* stream) {
+                           const void* ms, int M, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (C <= 8) return launch_synth<8>(lam, x, out, L, nr, C, sxm, sxc, s);
-  if (C <= 16) return launch_synth<16>(lam, x, out, L, nr, C, sxm, sxc, s);
-  return launch_synth<32>(lam, x, out, L, nr, C, sxm, sxc, s);
+  const auto* m = static_cast<const int*>(ms);
+  if (C <= 8)
+    return launch_synth<8>(lam, x, out, L, nr, C, sxm, sxc, m, M, s);
+  if (C <= 16)
+    return launch_synth<16>(lam, x, out, L, nr, C, sxm, sxc, m, M, s);
+  return launch_synth<32>(lam, x, out, L, nr, C, sxm, sxc, m, M, s);
 }
 
-// g[m, r, c] at g + m * sgm + r * sgr + c * sgc;
-// out[m, c, l] at out + m * som + c * soc + l
+// g[i, r, c] at g + i * sgm + r * sgr + c * sgc;
+// out[i, c, l] at out + i * som + c * soc + l; ms as above
 int legendre_adj_tri_f64(const void* lam, const void* g, void* out, int L,
                          int nr, int C, long long sgm, long long sgr,
                          long long sgc, long long som, long long soc,
-                         void* stream) {
+                         const void* ms, int M, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  const auto* m = static_cast<const int*>(ms);
   if (C <= 8)
-    return launch_adj<8>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc, s);
+    return launch_adj<8>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc, m,
+                         M, s);
   if (C <= 16)
-    return launch_adj<16>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc, s);
-  return launch_adj<32>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc, s);
+    return launch_adj<16>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc, m,
+                          M, s);
+  return launch_adj<32>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc, m,
+                        M, s);
 }
 
 // Threads per block and dynamic shared memory (bytes) of one launch at

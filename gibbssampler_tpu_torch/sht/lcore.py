@@ -8,7 +8,9 @@ dense (L, L, nr) tensor on the device; the kernels of
 replaces the JAX package's 128-wide m-block wedge slices.  The
 ``_lsynth_stack`` / ``_ladj_stack`` pair below is the only route to the
 Legendre stage: it folds every leading axis (chains, fields, re/im) into the
-kernels' batch axis C.
+kernels' batch axis C.  ``lsel_table`` is the only read of a table by ell
+(``_lsel_F`` and the blocked-MH engines' tables go through it); an
+m-sharded copy (``parallel.shard_sht``) overrides these three.
 """
 
 from __future__ import annotations
@@ -50,10 +52,11 @@ class LegendreCore:
 
     def lsel_table(self, lam: torch.Tensor, j_idx) -> torch.Tensor:
         """The (L, J, nr) slice of a dense (L, L, nr) table at the selected
-        ells ``j_idx`` (zero where m > ell, as the table itself is)."""
-        idx = torch.as_tensor(np.asarray(j_idx, dtype=np.int64),
-                              device=lam.device)
-        return lam[:, idx, :]
+        ells ``j_idx`` (a host array or a tensor; zero where m > ell, as
+        the table itself is)."""
+        if not isinstance(j_idx, torch.Tensor):
+            j_idx = torch.as_tensor(np.asarray(j_idx, dtype=np.int64))
+        return lam[:, j_idx.to(lam.device), :]
 
     # -- state <-> grid packing (reshape + diagonal scale) -----------------
 
@@ -96,7 +99,8 @@ class LegendreCore:
         if not isinstance(j_idx, torch.Tensor):
             j_idx = torch.as_tensor(np.asarray(j_idx, dtype=np.int64))
         idx = j_idx.to(g2.device)
-        lamj = lam[:, idx, :].permute(1, 2, 0).contiguous()    # (J, r, m)
+        # (J, r, m)
+        lamj = self.lsel_table(lam, idx).permute(1, 2, 0).contiguous()
         gj = g2.to(lam.dtype)[..., idx].movedim(-1, -3)        # (..., J, c, m)
         # (..., J, c, 1, m) * (J, 1, r, m) -> (..., J, c, r, m)
         prod = gj.unsqueeze(-2) * lamj.unsqueeze(-3)

@@ -14,7 +14,19 @@ names and math:
 
 Synthesis returns a contiguous (L, nr, C) tensor; the adjoint returns its
 (L, C, L) result as a view of a contiguous (C, L, L) [c, m, l] buffer, the
-order of the state's grids.  So ``sht.lcore`` passes the state's grids as a
+order of the state's grids.
+
+The m-slab form: with ``ms``, an int32 tensor of M <= L degree orders on
+the operands' device, lam is an (M, L, nr) slab of rows of a table, x
+(M, C, L) and g (M, nr, C), and row i is of degree order ms[i]:
+
+    out[i, r, c] = sum_{l >= ms[i]} lam[i, l, r] x[i, c, l]
+    out[i, c, l] = sum_r lam[i, l, r] g[i, r, c]   (zero for l < ms[i])
+
+with outputs (M, nr, C) and (M, C, L).  An m-sharded transform
+(``parallel.shard_sht``) holds and launches only its rows so; ``ms=None``
+is the full table (M = L, ms[i] = i).  Each ms[i] must lie in [0, L); the
+plain versions check it, the kernels read it as given.  So ``sht.lcore`` passes the state's grids as a
 permuted view, and gets them back the same way, without copying the batch.
 Any other layout raises ``ValueError``, on the CPU as on the card.
 
@@ -28,7 +40,9 @@ takes the plain ``torch.einsum`` version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises.  Each wrapper counts its
 kernel launches in ``<wrapper>.launches``, those of the float64 kernel
 alone also in ``<wrapper>.launches_f64``, and each launch once more by its
-shape in ``<wrapper>.shapes`` ({(L, nr, C, dtype): launches}).
+shape: a full-table launch in ``<wrapper>.shapes`` ({(L, nr, C, dtype):
+launches}), a slab launch in ``<wrapper>.slabs`` ({(L, M, nr, C, dtype):
+launches}).
 """
 
 from __future__ import annotations
@@ -53,8 +67,9 @@ _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SYNTH_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 2 + [_P]
-_ADJ_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 5 + [_P]
+# (lam, b, out, L, nr, C, strides, ms, M, stream); ms NULL for the full table
+_SYNTH_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 2 + [_P, _I, _P]
+_ADJ_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 5 + [_P, _I, _P]
 # source (csrc/<stem>.cu) -> its entry points and their argument types
 _LIBS = {
     "legendre_tri": {"legendre_synth_tri_f32": _SYNTH_ARGS,
@@ -156,17 +171,34 @@ def reset_launch_counts() -> None:
     for fn in (legendre_synth_tri, legendre_adj_tri):
         fn.launches = fn.launches_f64 = 0
         fn.shapes = collections.Counter()
+        fn.slabs = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
 # plain versions (CPU path and the kernels' oracle)
 # ---------------------------------------------------------------------------
 
-def legendre_synth_tri_plain(lam: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _tri_rows(lam: torch.Tensor, ms: torch.Tensor) -> torch.Tensor:
+    """The slab lam (M, L, nr) with l < ms[i] set to zero explicitly."""
+    L = lam.shape[1]
+    if ms.numel() and (int(ms.min()) < 0 or int(ms.max()) >= L):
+        raise ValueError(f"ms outside [0, {L}): {ms.tolist()}")
+    keep = torch.arange(L, device=lam.device)[None, :] >= ms.to(
+        lam.device, torch.int64)[:, None]
+    return lam * keep[:, :, None].to(lam.dtype)
+
+
+def legendre_synth_tri_plain(lam: torch.Tensor, x: torch.Tensor,
+                             ms: torch.Tensor | None = None) -> torch.Tensor:
+    if ms is not None:
+        lam = _tri_rows(lam, ms)
     return torch.einsum("mlr,mcl->mrc", lam, x)
 
 
-def legendre_adj_tri_plain(lam: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def legendre_adj_tri_plain(lam: torch.Tensor, g: torch.Tensor,
+                           ms: torch.Tensor | None = None) -> torch.Tensor:
+    if ms is not None:
+        lam = _tri_rows(lam, ms)
     return torch.einsum("mlr,mrc->mcl", lam, g)
 
 
@@ -178,15 +210,24 @@ def _unit(t: torch.Tensor, dim: int) -> bool:
     return t.stride(dim) == 1 or t.shape[dim] == 1
 
 
-def _check_layout(kind: str, lam: torch.Tensor, b: torch.Tensor) -> None:
+def _check_layout(kind: str, lam: torch.Tensor, b: torch.Tensor,
+                  ms: torch.Tensor | None = None) -> None:
     """Shapes and the layouts the kernels take; raises ValueError."""
-    L, L2, nr = lam.shape
+    M, L, nr = lam.shape
     C = b.shape[1] if kind == "synth" else b.shape[-1]
-    want = (L, C, L) if kind == "synth" else (L, nr, C)
-    if L != L2 or tuple(b.shape) != want:
+    want = (M, C, L) if kind == "synth" else (M, nr, C)
+    if (M != L if ms is None else M > L) or tuple(b.shape) != want:
         raise ValueError(f"legendre_{kind}_tri: lam {tuple(lam.shape)} and "
-                         f"{tuple(b.shape)} do not match (L, L, nr), "
-                         f"{'(L, C, L)' if kind == 'synth' else '(L, nr, C)'}")
+                         f"{tuple(b.shape)} do not match (M, L, nr), "
+                         f"{'(M, C, L)' if kind == 'synth' else '(M, nr, C)'}"
+                         f" with M {'= L' if ms is None else '<= L'}")
+    if ms is not None and (ms.dtype != torch.int32 or ms.dim() != 1
+                           or ms.shape[0] != M or not ms.is_contiguous()
+                           or ms.device != lam.device):
+        raise ValueError(f"legendre_{kind}_tri: ms must be a contiguous "
+                         f"int32 vector of the {M} slab rows on "
+                         f"{lam.device}, not {ms.dtype} {tuple(ms.shape)} "
+                         f"on {ms.device}")
     if not lam.is_contiguous():
         raise ValueError(f"legendre_{kind}_tri: lam must be contiguous")
     if kind == "synth" and not _unit(b, 2):
@@ -198,12 +239,12 @@ def _check_layout(kind: str, lam: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def _launch(kind: str, lam: torch.Tensor, b: torch.Tensor,
-            out: torch.Tensor) -> None:
+            out: torch.Tensor, ms: torch.Tensor | None) -> None:
     if not _fns:
         build()
     fn = _fns[f"legendre_{kind}_tri_"
               f"{'f32' if lam.dtype == torch.float32 else 'f64'}"]
-    L, _, nr = lam.shape
+    M, L, nr = lam.shape
     # strides of size-1 axes are free in torch; the kernels index them at 0
     sb = [1 if size == 1 else s for size, s in zip(b.shape, b.stride())]
     if kind == "synth":
@@ -213,10 +254,21 @@ def _launch(kind: str, lam: torch.Tensor, b: torch.Tensor,
     with torch.cuda.device(lam.device):
         stream = torch.cuda.current_stream(lam.device).cuda_stream
         err = fn(lam.data_ptr(), b.data_ptr(), out.data_ptr(), L, nr, C,
-                 *args, stream)
+                 *args, None if ms is None else ms.data_ptr(), M, stream)
     if err != 0:
         raise RuntimeError(f"legendre_{kind}_tri: kernel launch failed with "
                            f"CUDA error {err}")
+
+
+def _count(fn, lam: torch.Tensor, nr: int, C: int, ms) -> None:
+    """One launch of ``fn``'s kernel on ``lam`` at (nr, C)."""
+    M, L = lam.shape[:2]
+    fn.launches += 1
+    fn.launches_f64 += lam.dtype == torch.float64
+    if ms is None:
+        fn.shapes[(L, nr, C, lam.dtype)] += 1
+    else:
+        fn.slabs[(L, M, nr, C, lam.dtype)] += 1
 
 
 def _check_card(kind: str, lam: torch.Tensor, b: torch.Tensor) -> None:
@@ -228,41 +280,44 @@ def _check_card(kind: str, lam: torch.Tensor, b: torch.Tensor) -> None:
                         "the kernel takes float32 or float64, the same for both")
 
 
-def legendre_synth_tri(lam: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def legendre_synth_tri(lam: torch.Tensor, x: torch.Tensor,
+                       ms: torch.Tensor | None = None) -> torch.Tensor:
     """out[m, r, c] = sum_{l >= m} lam[m, l, r] x[m, c, l].
-    lam: (L, L, nr); x: (L, C, L), unit stride on l -> (L, nr, C)."""
-    _check_layout("synth", lam, x)
+    lam: (L, L, nr); x: (L, C, L), unit stride on l -> (L, nr, C).  With
+    ``ms`` (M,) the slab form: lam (M, L, nr), x (M, C, L) -> (M, nr, C),
+    row i of degree order ms[i]."""
+    _check_layout("synth", lam, x, ms)
     if lam.device.type == "cpu" and x.device.type == "cpu":
-        return legendre_synth_tri_plain(lam, x)
+        return legendre_synth_tri_plain(lam, x, ms)
     _check_card("synth", lam, x)
-    L, _, nr = lam.shape
-    out = torch.empty((L, nr, x.shape[1]), dtype=lam.dtype, device=lam.device)
+    M, _, nr = lam.shape
+    out = torch.empty((M, nr, x.shape[1]), dtype=lam.dtype, device=lam.device)
     if out.numel():
-        _launch("synth", lam, x, out)
-        legendre_synth_tri.launches += 1
-        legendre_synth_tri.launches_f64 += lam.dtype == torch.float64
-        legendre_synth_tri.shapes[(L, nr, x.shape[1], lam.dtype)] += 1
+        _launch("synth", lam, x, out, ms)
+        _count(legendre_synth_tri, lam, nr, x.shape[1], ms)
     return out
 
 
-def legendre_adj_tri(lam: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def legendre_adj_tri(lam: torch.Tensor, g: torch.Tensor,
+                     ms: torch.Tensor | None = None) -> torch.Tensor:
     """out[m, c, l] = sum_r lam[m, l, r] g[m, r, c], zero for l < m.
     lam: (L, L, nr); g: (L, nr, C), unit stride on r or c -> (L, C, L),
-    a view of a contiguous (C, L, L) tensor."""
-    _check_layout("adj", lam, g)
+    a view of a contiguous (C, L, L) tensor.  With ``ms`` (M,) the slab
+    form: lam (M, L, nr), g (M, nr, C) -> (M, C, L), a view of a (C, M, L)
+    tensor, row i of degree order ms[i]."""
+    _check_layout("adj", lam, g, ms)
     if lam.device.type == "cpu" and g.device.type == "cpu":
-        # the kernel's layout: (C, L, L) memory
-        return legendre_adj_tri_plain(lam, g).transpose(0, 1).contiguous() \
-            .transpose(0, 1)
+        # the kernel's layout: (C, M, L) memory
+        return legendre_adj_tri_plain(lam, g, ms).transpose(0, 1) \
+            .contiguous().transpose(0, 1)
     _check_card("adj", lam, g)
-    L, C = lam.shape[0], g.shape[2]
-    out = torch.empty((C, L, L), dtype=lam.dtype,
+    M, L, nr = lam.shape
+    C = g.shape[2]
+    out = torch.empty((C, M, L), dtype=lam.dtype,
                       device=lam.device).transpose(0, 1)
     if out.numel():
-        _launch("adj", lam, g, out)
-        legendre_adj_tri.launches += 1
-        legendre_adj_tri.launches_f64 += lam.dtype == torch.float64
-        legendre_adj_tri.shapes[(L, g.shape[1], C, lam.dtype)] += 1
+        _launch("adj", lam, g, out, ms)
+        _count(legendre_adj_tri, lam, nr, C, ms)
     return out
 
 

@@ -1,7 +1,8 @@
 """The port's triangular Legendre contractions against the Pallas kernels
 of the JAX package (interpret mode), the float32 kernels' 3xTF32 numerical
 model on the CPU, the wrappers' layout contract, and the CUDA kernels
-against their plain versions on the card.
+against their plain versions on the card, in the full-table and the
+m-slab form.
 
 On the machine with the card run
 ``python -m pytest --noconftest tests/test_torch_legendre_kernels.py``
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from torch_parity import cuda_device, n, t64, tri_table  # noqa: F401
+from gibbssampler_tpu_torch.parallel import m_rows
 from gibbssampler_tpu_torch.sht import gauss_legendre_grid
 from gibbssampler_tpu_torch.sht import legendre_kernels as lk
 from gibbssampler_tpu_torch.sht.legendre import spin2_lambda_tables
@@ -262,3 +264,32 @@ def test_cuda_wrappers_refuse(cuda_device, case):
                  for a in _inputs(7, 5, 3, integer=False))
     with pytest.raises(TypeError):
         lk.legendre_synth_tri(lam.to(torch.bfloat16), x.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_slab_kernels_match_plain(cuda_device, dtype):
+    """Both kernels in their m-slab form on the card: each process's rows
+    of the two-way and four-way splits (parallel.m_rows) at L 33 against
+    the plain slab versions, on a table with garbage in its l < m
+    triangle, which neither reads."""
+    L, nr, C = 33, 19, 16
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    lam = torch.randn((L, L, nr), generator=gen, dtype=dtype,
+                      device=cuda_device)
+    x = torch.randn((L, C, L), generator=gen, dtype=dtype, device=cuda_device)
+    g = torch.randn((L, nr, C), generator=gen, dtype=dtype,
+                    device=cuda_device)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for n_m in (2, 4):
+        for rows in m_rows(L, n_m):
+            ms = torch.as_tensor(rows, dtype=torch.int32, device=cuda_device)
+            idx = ms.long()
+            for kern, plain, b in (
+                    (lk.legendre_synth_tri, lk.legendre_synth_tri_plain, x),
+                    (lk.legendre_adj_tri, lk.legendre_adj_tri_plain, g)):
+                out = kern(lam[idx].contiguous(), b[idx].contiguous(), ms)
+                ref = plain(lam[idx].contiguous(), b[idx].contiguous(), ms)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max() / ref.abs().max())
+                assert err <= tol, (kern.__name__, n_m, rows, err)

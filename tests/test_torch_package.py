@@ -112,10 +112,12 @@ def _jax_all(subpackage):
     raise AssertionError(f"no __all__ in {src}")
 
 
-@pytest.mark.parametrize("subpackage", ["harmonics", "inference", "sht"])
+@pytest.mark.parametrize("subpackage", ["harmonics", "inference", "sht",
+                                        "parallel"])
 def test_exports_cover_the_jax_package(subpackage):
-    """Every name of the JAX package's harmonics, inference and sht
-    exports is exported by the port (the flat alm interface, synfast)."""
+    """Every name of the JAX package's harmonics, inference, sht and
+    parallel exports is exported by the port (the flat alm interface,
+    synfast; the mesh, the sharding and the collectives)."""
     import importlib
     mod = importlib.import_module(f"gibbssampler_tpu_torch.{subpackage}")
     missing = _jax_all(subpackage) - set(mod.__all__)
@@ -135,3 +137,32 @@ def test_synfast_follows_the_transform_device():
     assert alm.device.type == maps.device.type == "cpu"
     assert sht.analysis(sht.synthesis(torch.zeros(25, dtype=torch.float64))
                         ).device.type == "cpu"
+
+
+def test_parallel_layer_and_launcher_import_no_jax():
+    """The parallel layer and the pod launcher, imported alone in a fresh
+    interpreter, bring in neither jax nor the JAX package."""
+    code = ("import sys\n"
+            "import gibbssampler_tpu_torch.parallel as p\n"
+            "import gibbssampler_tpu_torch.launch_pod\n"
+            "assert {'make_mesh', 'chain_sharding', 'shard_sht', "
+            "'sharded_run', 'pooled_moments', 'split_rhat_device', "
+            "'acceptance_mean'} <= set(p.__all__)\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] == 'jax'"
+            " or k.startswith('gibbssampler_tpu.')))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_parallel_defaults_to_the_card():
+    """launch_pod runs NCCL on the cards unless --device cpu is given; the
+    mesh is a CUDA mesh unless the caller asks for a CPU one."""
+    from gibbssampler_tpu_torch import launch_pod
+    from gibbssampler_tpu_torch.parallel import make_mesh
+    assert launch_pod.parser().parse_args([]).device == "cuda"
+    assert launch_pod.parser().parse_args(["--device", "cpu"]).device \
+        == "cpu"
+    assert inspect.signature(make_mesh).parameters["device_type"].default \
+        == "cuda"
