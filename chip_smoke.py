@@ -15,7 +15,8 @@ non-zero:
    (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader);
 2. builds the CUDA kernels from gibbssampler_tpu_torch/csrc (one nvcc per
    source, started together, sm_90a) and prints ptxas's registers, spills
-   and shared memory for every kernel;
+   and shared memory for every kernel; builds and loads the native table
+   engine (csrc/tables.cpp, g++), failing if it does not load;
 3. compares each kernel with its plain PyTorch version (true float32) on
    the card at the JAX package's Pallas test shapes, a ragged shape, the
    main-path shapes (65 band rings, 83 floor rings and 211 point rows of
@@ -161,9 +162,28 @@ non-zero:
    checks at every (L, nr, C, dtype) that the engine sweeps and phases
    11-14 launched and phase 3 does not cover (the wrappers' per-shape
    counts);
-15. prints the kernels' JSON line, the float32 and the float64 kernels
-   each with their launches summed over the paths, then {"ok": true,
-   "device": {...}} last.
+15. the transform options (phase_options, after the flat phase): (a) both
+   kernels' ring-parity mode against its plain version, with and without
+   flip, and against the dense kernel on the mirrored full table, at L 513
+   on the GL grid's 257 and HEALPix's 512 north rings (float32, C 256 and
+   512) and at the CG shapes (float64, C 16 and 32), and a slab of each,
+   timed beside the plain version and the dense kernel with the bound of
+   the half table; (b) the full-grid transforms ring-split against dense
+   on GL lmax 512 and HEALPix nside 256, spin 0 and 2, synthesis, adjoint
+   and analysis: float32 at 128 chains (<= 1e-5), float64 at 8 (<= 1e-12),
+   ms per transform and table bytes of each; (c) the flagship ASIS band
+   scheme without the cut decomposition, ring_split True and False
+   (SPLIT_ITERS), ms/iter, acceptances and launches per iteration: the
+   split path launches no dense kernel, the dense path no parity kernel;
+   (e) before it, flagship.build of the split scheme cold (an empty table
+   cache) and warm, and the native table engine against numpy at lmax 64;
+   (d) the cut ASIS band slice under fft_mode "fft" and "ct" beside phase
+   5's "matmul" (FFT_ITERS), the cut transforms inheriting the mode, and
+   one synthesis of each against "matmul";
+16. prints the kernels' JSON line, the float32 and the float64 kernels
+   each with their launches summed over the paths, and their parity modes
+   with the options phase's launches, then {"ok": true, "device": {...}}
+   last.
 
 The configurations come from gibbssampler_tpu_torch.flagship, the
 proposal scales from the port's records (gibbssampler_tpu_torch/
@@ -326,8 +346,10 @@ TF32X3_FLOPS_PER_S = 495e12 / 3      # 3 TF32 tensor-core products each
 FP64_FLOPS_PER_S = 67e12
 
 
-# the MH step's ms/iter of each ASIS slice, by label (phase_asis_slice)
+# the MH step's ms/iter and the slice's ms/iter of each ASIS slice, by
+# label (phase_asis_slice)
 MH_MS = {}
+SLICE_MS = {}
 
 
 def check(cond, msg):
@@ -416,12 +438,19 @@ def bound(flops, nbytes, flops_per_s=TF32X3_FLOPS_PER_S):
 
 
 def phase_build(lk):
-    """Build every kernel source (nvcc in parallel); print ptxas's report
-    of each kernel and the float32 kernels' dynamic shared memory."""
+    """Build every kernel source (nvcc in parallel) and the native table
+    engine (g++); print ptxas's report of each kernel and the float32
+    kernels' dynamic shared memory."""
+    from gibbssampler_tpu_torch.sht import legendre as tl
     t0 = time.time()
     built = lk.build()
     print(f"built {', '.join(os.path.relpath(so) for so, _ in built.values())}"
           f" in {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    check(tl.native_engine() is not None,
+          "the native table engine (csrc/tables.cpp) did not build or load")
+    print(f"native table engine built and loaded in {time.time() - t0:.1f} s",
+          flush=True)
     keys = ("Compiling entry function", "spill", "Used")
     for _, report in built.values():
         for ln in report.splitlines():
@@ -1126,6 +1155,7 @@ def phase_asis_slice(torch, lk, model, dls, dev, card, profile, grid,
     warm, out, wall, launches, timed, mh_ms = run_timed_mh_slice(
         torch, lk, scheme, dl0, dev, label, per_iter, n_timed)
     MH_MS[label] = mh_ms
+    SLICE_MS[label] = wall / n_timed * 1e3
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     bins_list = scheme.bins_list
     acc = check_chains(torch, warm, out, bins_list, n_timed)
@@ -2779,6 +2809,470 @@ def phase_parallel(torch, lk, model, dls, dev, card):
     return [a + b for a, b in zip(na, nb)]
 
 
+# ---------------------------------------------------------------------------
+# the options phase: the ring-parity split, fft_mode, the table engine
+# ---------------------------------------------------------------------------
+
+def work_par(name, L, nr, C, itemsize, rows=None):
+    """``work`` of one parity-mode call at nr output rings: the half-ring
+    table (nh = ceil(nr / 2) rings, its triangle rows of the degree orders
+    ``rows``, all L by default) and the batch read once, the output written
+    once; each table entry serves C products."""
+    rows = range(L) if rows is None else rows
+    nh, tri, M = (nr + 1) // 2, sum(L - m for m in rows), len(rows)
+    if name.startswith("legendre_synth"):
+        nbytes = C * tri + nh * tri + M * nr * C
+    else:
+        nbytes = nh * tri + M * nr * C + C * M * L
+    return 2 * nh * C * tri, nbytes * itemsize
+
+
+def mirrored_table(torch, half, nr, flip=False):
+    """The full (L, L, nr) table whose north rings are ``half`` and whose
+    ring nr-1-r is f (-1)^(l+m) times ring r: the dense kernels' operand
+    of the same function as the parity kernels' on ``half``."""
+    L, nh = half.shape[0], half.shape[2]
+    lm = torch.arange(L, device=half.device)
+    sign = (1.0 - 2.0 * ((lm[None, :] + lm[:, None]) % 2)).to(half.dtype)
+    if flip:
+        sign = -sign
+    south = (half[:, :, : nr - nh] * sign[:, :, None]).flip(2)
+    return torch.cat([half, south], dim=2).contiguous()
+
+
+# the parity kernels' shapes in the options phase (nr, C): float32 on the
+# 513-ring GL grid (nh 257, the equator row) and the 1023-ring HEALPix grid
+# (nh 512) at the dense and the split spin-2 columns of 128 chains, float64
+# at the CG family's 8 and 16 chains on the GL grid
+PAR_SHAPES = {"float32": ((LMAX + 1, 2 * NCHAINS), (LMAX + 1, 4 * NCHAINS),
+                          (HEALPIX_RINGS, 2 * NCHAINS),
+                          (HEALPIX_RINGS, 4 * NCHAINS)),
+              "float64": ((LMAX + 1, 2 * CG_CHAINS),
+                          (LMAX + 1, 4 * CG_CHAINS))}
+
+
+def phase_parity_kernels(torch, lk, dev, card, lmax=LMAX, shapes=None):
+    """(a) Both parity kernels against their plain versions on the card, at
+    PAR_SHAPES in the main path's layouts (x the (m, C, l) view of the
+    state's grids, g the (m, r, C) view of an (m, C, r) copy), the outputs
+    given NaN-filled memory, with and without ``flip``; against the dense
+    kernel on the mirrored full table (the same function); then a slab of
+    each (m_rows(L, 2)'s first).  Times kernel, plain version (its
+    einsums) and the dense kernel on the full table (plain, kernel, kernel,
+    plain), with the bound of work_par.  Returns the float32 and float64
+    records keyed "<nr> C<C>" (and "<nr> C<C> slab 0 of 2")."""
+    from gibbssampler_tpu_torch.parallel import m_rows
+    gen = torch.Generator(device=dev).manual_seed(13)
+    L = lmax + 1
+    rec, rec64 = {}, {}
+    for dname, sh in (shapes or PAR_SHAPES).items():
+        dtype = getattr(torch, dname)
+        f32 = dtype == torch.float32
+        tol = TOLS[dname]
+        into = rec if f32 else rec64
+        for nr, C in sh:
+            nh = (nr + 1) // 2
+            half = tri_table(torch, L, nh, dtype, dev, gen)
+            x = x_view(torch.randn((L, C, L), generator=gen, dtype=dtype,
+                                   device=dev))
+            g = g_view(torch.randn((L, nr, C), generator=gen, dtype=dtype,
+                                   device=dev))
+            rows = m_rows(L, 2)[0]
+            ms = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+            idx = ms.long()
+            for name, kern, plain, dense, b, shape in (
+                    ("legendre_synth_par", lk.legendre_synth_par,
+                     lk.legendre_synth_par_plain, lk.legendre_synth_tri, x,
+                     (L, nr, C)),
+                    ("legendre_adj_par", lk.legendre_adj_par,
+                     lk.legendre_adj_par_plain, lk.legendre_adj_tri, g,
+                     (C, L, L))):
+                synth = name == "legendre_synth_par"
+                args = (nr,) if synth else ()
+                errs = {}
+                for flip in (False, True):
+                    torch.full(shape, float("nan"), dtype=dtype, device=dev)
+                    out = kern(half, b, *args, flip)
+                    ref = plain(half, b, *args, flip)
+                    full = dense(mirrored_table(torch, half, nr, flip), b)
+                    torch.cuda.synchronize()
+                    scale = float(ref.abs().max())
+                    err = float((out - ref).abs().max())
+                    derr = float((out - full).abs().max())
+                    check(bool(torch.isfinite(out).all()) and err <= tol
+                          * scale and derr <= 2 * tol * scale,
+                          f"{name} L={L} nr={nr} C={C} {dname} flip={flip}:"
+                          f" max|err| {err} (vs dense on the mirrored "
+                          f"table {derr}) > {tol} * {scale}")
+                    errs[flip] = (err, err / scale, derr / scale)
+                full = mirrored_table(torch, half, nr)
+                reps = 5 if f32 and nr > lmax else 20
+                p1 = time_ms(torch, lambda: plain(half, b, *args), reps)
+                k1 = time_ms(torch, lambda: kern(half, b, *args), reps)
+                d1 = time_ms(torch, lambda: dense(full, b), reps)
+                d2 = time_ms(torch, lambda: dense(full, b), reps)
+                k2 = time_ms(torch, lambda: kern(half, b, *args), reps)
+                p2 = time_ms(torch, lambda: plain(half, b, *args), reps)
+                del full
+                ms_k, ms_p, ms_d = 0.5 * (k1 + k2), 0.5 * (p1 + p2), \
+                    0.5 * (d1 + d2)
+                flops, nbytes = work_par(name, L, nr, C, half.element_size())
+                bound_ms, bound_by = bound(
+                    flops, nbytes,
+                    TF32X3_FLOPS_PER_S if f32 else FP64_FLOPS_PER_S)
+                dense_bound = bound(*work(name.replace("_par", "_tri"), L, nr,
+                                          C, half.element_size()),
+                                    TF32X3_FLOPS_PER_S if f32
+                                    else FP64_FLOPS_PER_S)[0]
+                print(f"time {name} L={L} nr={nr} (nh {nh}) C={C} {dname} "
+                      f"state views: kernel {ms_k:.4f} ms, plain (einsums) "
+                      f"{ms_p:.4f} ms, dense kernel on the full table "
+                      f"{ms_d:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; "
+                      f"dense {dense_bound:.4f}), {bound_ms / ms_k:.1%} of "
+                      f"it reached; max|err|/max|ref| {errs[False][1]:.2e}, "
+                      f"flip {errs[True][1]:.2e}, vs dense "
+                      f"{errs[False][2]:.2e} [{card}]", flush=True)
+                into.setdefault(name, {})[f"{nr} C{C}"] = {
+                    "max_abs_err": max(e[0] for e in errs.values()),
+                    "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None,
+                    "dense_ms": ms_d, "dense_bound_ms": dense_bound}
+                # the slab form: the first slab of the two-way split
+                ls = half.index_select(0, idx).contiguous()
+                bs = (b.index_select(0, idx) if synth
+                      else g_view(g.index_select(0, idx)))
+                out = kern(ls, bs, *args, False, ms)
+                ref = plain(ls, bs, *args, False, ms)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                scale = float(ref.abs().max())
+                check(err <= tol * scale, f"{name} slab 0 L={L} nr={nr} C={C}"
+                      f" {dname}: max|err| {err} > {tol} * {scale}")
+                s1 = time_ms(torch, lambda: kern(ls, bs, *args, False, ms),
+                             reps)
+                sp = time_ms(torch, lambda: plain(ls, bs, *args, False, ms),
+                             reps)
+                sb, sby = bound(*work_par(name, L, nr, C, half.element_size(),
+                                          rows),
+                                TF32X3_FLOPS_PER_S if f32
+                                else FP64_FLOPS_PER_S)
+                print(f"time {name} slab 0 of 2 (M {len(rows)}) L={L} nr={nr}"
+                      f" C={C} {dname}: kernel {s1:.4f} ms, plain {sp:.4f} "
+                      f"ms; bound {sb:.4f} ms ({sby}); max|err|/max|ref| "
+                      f"{err / scale:.2e} [{card}]", flush=True)
+                into[name][f"{nr} C{C} slab 0 of 2"] = {
+                    "max_abs_err": err, "ms": s1, "plain_ms": sp,
+                    "bound_ms": sb, "bound_by": sby, "library_ms": None,
+                    "rows": len(rows)}
+                del ls, bs, out, ref
+            del half, x, g
+    torch.cuda.empty_cache()
+    return rec, rec64
+
+
+def table_bytes(sht):
+    """Bytes of the transform's Legendre tables on the device."""
+    return sum(t.numel() * t.element_size()
+               for t in (sht.lam0, sht.lam_p2, sht.lam_m2, sht.lam_w,
+                         sht.lam_x) if t is not None)
+
+
+def par_counts(lk):
+    """(float32 synthesis, float32 adjoint, float64 synthesis, float64
+    adjoint) parity-mode launches since the counts were set to 0."""
+    return (lk.legendre_synth_par.launches - lk.legendre_synth_par.launches_f64,
+            lk.legendre_adj_par.launches - lk.legendre_adj_par.launches_f64,
+            lk.legendre_synth_par.launches_f64,
+            lk.legendre_adj_par.launches_f64)
+
+
+def split_vs_dense(torch, lk, label, dense, split, nchains, tol, card, gen):
+    """Spin-0 and spin-2 synthesis, adjoint and analysis of ``split``
+    against ``dense`` on ``nchains`` random states and maps (<= tol
+    max|dense|), each timed (3 calls, CUDA events) on both.  Returns the
+    parity launches of the split calls (par_counts)."""
+    from gibbssampler_tpu_torch.harmonics import ell_mask_state, nstate
+    dev, dt, lmax = dense.device, dense.dtype, dense.lmax
+    kw = dict(dtype=dt, device=dev)
+    shp = (dense.npix_layout,) if hasattr(dense, "geo") else (
+        dense.nrings, dense.nphi)
+    m0 = torch.as_tensor(ell_mask_state(lmax, 0), **kw)
+    m2 = torch.as_tensor(ell_mask_state(lmax, 2), **kw)
+    x = torch.randn((nchains, nstate(lmax)), generator=gen, **kw) * m0
+    e = torch.randn((nchains, nstate(lmax)), generator=gen, **kw) * m2
+    b = torch.randn((nchains, nstate(lmax)), generator=gen, **kw) * m2
+    f = torch.randn((nchains,) + shp, generator=gen, **kw)
+    q = torch.randn((nchains,) + shp, generator=gen, **kw)
+    u = torch.randn((nchains,) + shp, generator=gen, **kw)
+    ops = [("synthesis", "synthesis_state", (x,)),
+           ("adjoint", "adjoint_synthesis_state", (f,)),
+           ("analysis", "analysis_state", (f,)),
+           ("synthesis spin 2", "synthesis_spin2_state", (e, b)),
+           ("adjoint spin 2", "adjoint_synthesis_spin2_state", (q, u)),
+           ("analysis spin 2", "analysis_spin2_state", (q, u))]
+    lk.reset_launch_counts()
+    for what, meth, args in ops:
+        ref = getattr(dense, meth)(*args)
+        got = getattr(split, meth)(*args)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize()
+        err = max(float((a - r).abs().max() / r.abs().max())
+                  for a, r in zip(got, ref))
+        check(err <= tol, f"{label} {what}: split against dense max|err| / "
+              f"max|ref| {err:.3g} > {tol}")
+        ms_d = time_ms(torch, lambda: getattr(dense, meth)(*args), 3)
+        ms_s = time_ms(torch, lambda: getattr(split, meth)(*args), 3)
+        print(f"split vs dense {label} {what}: max|err|/max|ref| {err:.2e} "
+              f"(<= {tol}); dense {ms_d:.3f} ms, split {ms_s:.3f} ms per "
+              f"transform [{card}]", flush=True)
+    counts = par_counts(lk)
+    dense_n = (lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches)
+    print(f"split vs dense {label}: table bytes dense "
+          f"{table_bytes(dense) / 1e9:.3f} GB, split "
+          f"{table_bytes(split) / 1e9:.3f} GB; launches (both paths, timing"
+          f" included) dense {dense_n}, parity {counts}", flush=True)
+    return counts
+
+
+def phase_split_transforms(torch, lk, dev, card, sht, hsht, lmax=LMAX,
+                           nside=NSIDE):
+    """(b) The full-grid transforms ring-split against dense on the GL
+    grid at lmax and on HEALPix nside (padded layout), spin 0 and 2:
+    float32 at NCHAINS chains (<= 1e-5; the dense transforms are phase 4's
+    ``sht`` and the HEALPix phase's ``hsht``) and float64 at CG_CHAINS
+    chains (<= 1e-12).  Returns the float64 split calls' parity launches
+    (the float64 parity kernels' path) and the float32 ones."""
+    from gibbssampler_tpu_torch.sht import make_healpix_sht, make_sht
+    gen = torch.Generator(device=dev).manual_seed(15)
+    counts = [0] * 4
+    for dtype, nch, tol in ((torch.float32, NCHAINS, 1e-5),
+                            (torch.float64, CG_CHAINS, 1e-12)):
+        for grid in ("GL", "HEALPix"):
+            t0 = time.time()
+            mk = (lambda rs: make_sht(lmax, dtype=dtype, spin2=True,
+                                      device=dev, ring_split=rs)) \
+                if grid == "GL" else \
+                (lambda rs: make_healpix_sht(nside, lmax, dtype=dtype,
+                                             spin2=True, layout="padded",
+                                             device=dev, ring_split=rs))
+            split = mk(True)
+            dense = ((sht if grid == "GL" else hsht)
+                     if dtype == torch.float32 else mk(False))
+            check(split.ring_split and not dense.ring_split,
+                  f"{grid} transforms: the split is off")
+            print(f"split vs dense {grid} {str(dtype)[6:]}: transforms "
+                  f"built in {time.time() - t0:.1f} s", flush=True)
+            c = split_vs_dense(torch, lk, f"{grid} lmax {lmax} "
+                               f"{str(dtype)[6:]} {nch} chains", dense,
+                               split, nch, tol, card, gen)
+            counts = [a + b for a, b in zip(counts, c)]
+            del split, dense
+            torch.cuda.empty_cache()
+    return counts
+
+
+def split_slice(torch, lk, scheme, dl0, dev, card, label, n_warm, n_timed):
+    """``n_warm`` + ``n_timed`` iterations of a scheme at NCHAINS chains
+    from flagship.start_state, the launch counts set to 0 before and read
+    after: (ms/iter, (EE, BB big, BB singles) acceptances, dense launches,
+    parity launches)."""
+    from gibbssampler_tpu_torch.flagship import start_state
+    gen = torch.Generator(device=dev).manual_seed(16)
+    torch.cuda.synchronize()
+    lk.reset_launch_counts()
+    warm = scheme.run(dl0, n_iter=n_warm, gen=gen,
+                      state=start_state(scheme, dl0, NCHAINS, gen))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = scheme.run(dl0, n_iter=n_timed, gen=gen, state=warm["final_state"])
+    torch.cuda.synchronize()
+    ms_iter = (time.time() - t0) / n_timed * 1e3
+    dense_n = (lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches,
+               0, 0)
+    par_n = par_counts(lk)
+    check(float(out["cr_accept"].mean()) > 0.0, f"{label}: CR acceptance 0")
+    for f in range(2):
+        dl = out["dl_chains"][f]
+        check(bool(torch.isfinite(dl).all() and (dl > 0).all()),
+              f"{label}: non-finite or non-positive D_ell")
+    acc = mh_acceptances(out)
+    n = n_warm + n_timed
+    print(f"{label}: {ms_iter:.2f} ms/iter over {n_timed} iterations after "
+          f"{n_warm} warm-up; MH acceptance EE block {acc[0]:.4f}, BB big "
+          f"block {acc[1]:.4f}, BB singles {acc[2]:.4f}; launches per "
+          f"iteration dense synth {dense_n[0] / n:.1f} adj "
+          f"{dense_n[1] / n:.1f}, parity synth {par_n[0] / n:.1f} adj "
+          f"{par_n[1] / n:.1f} (the initial CR draw included) [{card}]",
+          flush=True)
+    return ms_iter, acc, dense_n, par_n
+
+
+# the options phase's scheme slices, cut in depth: warm-up and timed
+# iterations of (c), the flagship ASIS band scheme without the cut
+# decomposition (its MH synthesizes the full grid ~139 times an iteration:
+# ~3 s/iter at 128 chains, so 2 + 5), and of (d), the cut ASIS band slice
+# under fft_mode "fft" and "ct"
+SPLIT_ITERS = (2, 5)
+FFT_ITERS = (3, 10)
+
+
+def phase_split_scheme(torch, lk, dev, card, lmax=LMAX, seed=False,
+                       iters=SPLIT_ITERS):
+    """(c) and (e): flagship.build of the ASIS band scheme with cut=False
+    and ring_split=True, cold (an empty table cache, which it fills) and
+    warm (the cache), with the engine that built the tables; the native
+    engine against numpy at lmax 64; then the slice on that scheme and on
+    the same scheme with ring_split=False, in one call: ms/iter,
+    acceptances (each in ACCEPT_WINDOW at full width) and launches per
+    iteration.  The split slice launches no dense kernel, the dense one
+    no parity kernel.  Returns (dense launches, parity launches) of the
+    two slices."""
+    from gibbssampler_tpu_torch import flagship
+    from gibbssampler_tpu_torch.sht import legendre as tl
+    lib = tl.native_engine()
+    check(lib is not None, "the native table engine did not load")
+    x = np.cos(np.linspace(0.05, np.pi - 0.05, 65))
+    nat = np.empty((65, 65, x.size))
+    lib.gs_legendre_table(64, x.size, x, nat)
+    err = float(np.abs(nat - tl._legendre_table_np(64, x)).max())
+    check(err <= 1e-12, f"native Legendre table vs numpy at lmax 64: {err}")
+    print(f"native table engine loaded; its Legendre table at lmax 64 "
+          f"against numpy max|err| {err:.2e} (<= 1e-12)", flush=True)
+    opts = dict(cut=False, seed=seed, lmax=lmax, device=dev)
+    old = os.environ.get("XDG_CACHE_HOME")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["XDG_CACHE_HOME"] = tmp
+        tl.CACHE = True
+        try:
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                scheme, dl0 = flagship.build("gl", "band", ring_split=True,
+                                             **opts)
+                torch.cuda.synchronize()
+                times.append(time.time() - t0)
+                if len(times) == 1:
+                    del scheme, dl0
+                    torch.cuda.empty_cache()
+            cached = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(tmp) for f in fs)
+        finally:
+            tl.CACHE = False
+            if old is None:
+                del os.environ["XDG_CACHE_HOME"]
+            else:
+                os.environ["XDG_CACHE_HOME"] = old
+    print(f"flagship.build GL band cut=False ring_split=True lmax {lmax}: "
+          f"cold {times[0]:.2f} s (the native engine's tables, written to "
+          f"the cache: {cached / 1e9:.2f} GB), warm {times[1]:.2f} s (read "
+          f"from the cache) [{card}]", flush=True)
+    check(not scheme.model.has_cut and scheme.model.sht.ring_split,
+          "the split scheme has a cut or dense tables")
+    res = {}
+    for rs in (True, False):
+        if not rs:
+            del scheme
+            torch.cuda.empty_cache()
+            scheme, dl0 = flagship.build("gl", "band", ring_split=False,
+                                         **opts)
+        label = (f"ASIS GL band cut=False ring_split={rs} lmax {lmax} "
+                 f"{NCHAINS} chains")
+        res[rs] = split_slice(torch, lk, scheme, dl0, dev, card, label,
+                              *iters)
+        ms_iter, acc, dense_n, par_n = res[rs]
+        if rs:
+            check(sum(dense_n) == 0 and par_n[0] > 0 and par_n[1] > 0,
+                  f"{label}: dense launches {dense_n}, parity {par_n}: the "
+                  f"split path must run the parity kernels only")
+        else:
+            check(sum(par_n) == 0, f"{label}: parity launches {par_n}")
+        if lmax == LMAX:
+            lo, hi = ACCEPT_WINDOW
+            check(all(lo <= a <= hi for a in acc), f"{label}: MH "
+                  f"acceptances {acc} outside [{lo}, {hi}]")
+    del scheme
+    torch.cuda.empty_cache()
+    print(f"split against dense, the ASIS band scheme without the cut: "
+          f"{res[True][0]:.2f} against {res[False][0]:.2f} ms/iter [{card}]",
+          flush=True)
+    return res[False][2], res[True][3]
+
+
+def phase_fft_modes(torch, lk, dev, card, sht, lmax=LMAX, seed=False,
+                    iters=FFT_ITERS):
+    """(d) The cut ASIS band slice under fft_mode "fft" and "ct" (the cut
+    transforms inherit the mode), beside phase 5's "matmul": ms/iter, and
+    one spin-2 synthesis of the full grid's transform and of the cut one
+    against "matmul" (``sht``, phase 4's; the cut transform's "matmul"
+    twin built here).  Returns the dense launches."""
+    from gibbssampler_tpu_torch import flagship
+    from gibbssampler_tpu_torch.harmonics import ell_mask_state, nstate
+    from gibbssampler_tpu_torch.sht import SHT
+    gen = torch.Generator(device=dev).manual_seed(17)
+    kw = dict(dtype=sht.dtype, device=dev)
+    m2 = torch.as_tensor(ell_mask_state(lmax, 2), **kw)
+    e = torch.randn((2, nstate(lmax)), generator=gen, **kw) * m2
+    b = torch.randn((2, nstate(lmax)), generator=gen, **kw) * m2
+    q0 = sht.synthesis_spin2_state(e, b) + (sht.synthesis_state(e),)
+    dense = [0] * 4
+    for mode in ("fft", "ct"):
+        scheme, dl0 = flagship.build("gl", "band", fft_mode=mode, seed=seed,
+                                     lmax=lmax, device=dev)
+        model = scheme.model
+        check(model.sht.fft_mode == model.cut_sht.fft_mode == mode,
+              f"fft_mode {mode}: full {model.sht.fft_mode}, cut "
+              f"{model.cut_sht.fft_mode}")
+        # spin 2 and spin 0 ("fft" changes the spin-0 ring transforms only,
+        # as in the JAX package)
+        q1 = (model.sht.synthesis_spin2_state(e, b)
+              + (model.sht.synthesis_state(e),))
+        err = max(float((a - r).abs().max() / r.abs().max())
+                  for a, r in zip(q1, q0))
+        cut = model.cut_sht
+        twin = SHT(cut.grid, lmax, spin2=True, **kw)
+        err_cut = max(float((a - r).abs().max() / r.abs().max()) for a, r in
+                      zip(cut.synthesis_spin2_state(e, b),
+                          twin.synthesis_spin2_state(e, b)))
+        check(err <= 1e-5 and err_cut <= 1e-5, f"fft_mode {mode}: spin-2 "
+              f"synthesis against matmul {err:.3g} (cut {err_cut:.3g})")
+        del twin
+        label = f"ASIS GL band fft_mode={mode} lmax {lmax} {NCHAINS} chains"
+        ms_iter, acc, dn, _ = split_slice(torch, lk, scheme, dl0, dev, card,
+                                          label, *iters)
+        dense = [a + b for a, b in zip(dense, dn)]
+        base = SLICE_MS.get("ASIS gl band aux_mala")
+        print(f"fft_mode {mode}: spin-0 and spin-2 synthesis against matmul "
+              f"max|err|/"
+              f"max|ref| full grid {err:.2e}, cut rings {err_cut:.2e}; "
+              f"{ms_iter:.2f} ms/iter against matmul "
+              + (f"{base:.2f}" if base is not None else "not measured")
+              + f" ms/iter (phase 5, this call) [{card}]", flush=True)
+        del scheme, model, cut
+        torch.cuda.empty_cache()
+    return dense
+
+
+def phase_options(torch, lk, dev, card, sht, hsht):
+    """The options phase: (a) the parity kernels, (b) the full-grid
+    transforms split against dense, (c) + (e) the scheme on the split path
+    with the table engine's set-up, (d) fft_mode.  Returns (the parity
+    kernels' float32 and float64 records, their launches on the paths
+    (b) float64 and (c), dense launches of (c) and (d))."""
+    t0 = time.time()
+    rec, rec64 = phase_parity_kernels(torch, lk, dev, card)
+    f64_counts = phase_split_transforms(torch, lk, dev, card, sht, hsht)
+    dense_c, par_c = phase_split_scheme(torch, lk, dev, card)
+    dense_d = phase_fft_modes(torch, lk, dev, card, sht)
+    par = [a + b for a, b in zip(par_c, [0, 0, *f64_counts[2:]])]
+    dense = [a + b for a, b in zip(dense_c, dense_d)]
+    print(f"options phase: {time.time() - t0:.1f} s; parity launches on its"
+          f" paths (float32 synth, adj, float64 synth, adj) {par} [{card}]",
+          flush=True)
+    return rec, rec64, par, dense
+
+
 def main():
     t_start = time.time()
     import torch
@@ -2795,6 +3289,10 @@ def main():
     torch.cuda.set_device(dev)
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # no table cache but the options phase's own (in a temporary
+    # directory): the lmax-512 tables are GBs, and the native engine builds
+    # them faster than they are written; spawned processes inherit this
+    os.environ["GIBBSSAMPLER_TORCH_TABLE_CACHE"] = "0"
     from gibbssampler_tpu_torch.sht import legendre_kernels as lk
 
     from gibbssampler_tpu_torch import flagship
@@ -2886,6 +3384,10 @@ def main():
     new_launches.append(n)
     for k, v in sh.items():
         new_shapes[k] = new_shapes.get(k, 0) + v
+    # the transform options: the ring-parity split, fft_mode, the tables
+    par_rec, par_rec64, opt_par, opt_dense = phase_options(
+        torch, lk, dev, card, sht, hsht)
+    new_launches.append(opt_dense)
     del sht, hsht
     torch.cuda.empty_cache()
     print_shapes("engine sweeps", tally["shapes"])
@@ -2932,6 +3434,22 @@ def main():
                 "replaces": f"gibbssampler_tpu/sht/pallas_legendre.py:{line}",
                 "launches": n, **recs[name][CUT_RINGS],
                 "by_nr": {str(nr): r for nr, r in recs[name].items()}})
+    # the parity modes of the same sources: top-level times at the split
+    # spin-2 columns of 128 chains on the GL grid (float32) and of the CG
+    # family's 8 chains (float64); every shape under "by_shape"
+    for i, (name, line) in enumerate((("legendre_synth_par", 52),
+                                      ("legendre_adj_par", 106))):
+        for src, recs, n, key in (
+                ("gibbssampler_tpu_torch/csrc/legendre_tri.cu", par_rec,
+                 opt_par[i], f"{LMAX + 1} C{4 * NCHAINS}"),
+                ("gibbssampler_tpu_torch/csrc/legendre_tri_f64.cu",
+                 par_rec64, opt_par[2 + i], f"{LMAX + 1} C{4 * CG_CHAINS}")):
+            kernels.append({
+                "name": name if recs is par_rec else f"{name}_f64",
+                "route": "cuda", "source": src,
+                "replaces": f"gibbssampler_tpu/sht/pallas_legendre.py:{line}",
+                "launches": n, **recs[name][key],
+                "by_shape": recs[name]})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched by the main path")
     print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "

@@ -22,6 +22,12 @@
 // ms = null is the full table, M = L and ms[i] = i.  The degree only moves
 // where a row's triangle starts; the memory row only moves the pointers.
 //
+// The ring-parity mode (synth_par_3xtf32, adj_par_3xtf32; entry points
+// legendre_*_par_f32): a table over the north half of an equator-symmetric
+// grid's rings, mirrored into the south half by the kernels; see "the
+// ring-parity modes" below.  They are block_gemm's PAR modes, template
+// parameters, so the dense kernels carry no test of them.
+//
 // What bounds them.  Per m each is a product over the triangle l >= m.  At
 // the main-path shape (L 513, nr 65, C 256) one call does 4.39 GFLOP and
 // must move ~0.20 GB (batch half 135 MB, table half 34 MB, output 34 MB):
@@ -134,10 +140,12 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Block tile BM x BN over k stages of BK, warp tiles WM x WN.  B_KUNIT: B's
 // unit stride is on k (tile stored [j][k]), else on j (stored [k][j]).
-template <int BM_, int BN_, int BK_, int WM_, int WN_, bool B_KUNIT_>
+// B2: a stage holds a second B tile (the parity adjoint's south rows).
+template <int BM_, int BN_, int BK_, int WM_, int WN_, bool B_KUNIT_,
+          bool B2_ = false>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_;
-  static constexpr bool B_KUNIT = B_KUNIT_;
+  static constexpr bool B_KUNIT = B_KUNIT_, B2 = B2_;
   static constexpr int STAGES = 3;
   static constexpr int WARPS_M = BM / WM;
   static constexpr int WARPS = WARPS_M * (BN / WN);
@@ -146,7 +154,8 @@ struct Tile {
   static constexpr int SA = BK + 4;                       // A [i][k]
   static constexpr int SB = B_KUNIT ? BK + 4 : BN + (24 - BN % 16) % 16;
   static constexpr int A_TILE = BM * SA;
-  static constexpr int STAGE = A_TILE + (B_KUNIT ? BN : BK) * SB;
+  static constexpr int B_TILE = (B_KUNIT ? BN : BK) * SB;
+  static constexpr int STAGE = A_TILE + (B2 ? 2 : 1) * B_TILE;
   static constexpr int SC = BM + 4;                       // epilogue [j][i]
   static constexpr int FLOATS =
       STAGES * STAGE > BN * SC ? STAGES * STAGE : BN * SC;
@@ -158,16 +167,25 @@ struct Tile {
                 "conflict-free fragment reads");
 };
 
-// Copy a ROWS x U tile, element (row, col) from src + row * rs + col, to
-// dst + row * LD + col; zeros where row >= rv or col >= cv.  Warp w copies
-// rows w, w + WARPS, ..., its lanes along the unit-stride axis.  A zero-fill
-// copy reads nothing, so its source address needs no guard.
-template <int ROWS, int U, int LD, int WARPS>
+// The place of k in a stage whose k axis is split by parity (the parity
+// synthesis): even k in the first half, odd k in the second.
+template <int N>
+__device__ __forceinline__ int parity_slot(int k) {
+  return (k & 1) * (N / 2) + (k >> 1);
+}
+
+// Copy a ROWS x U tile, element (row, col) from src + row * rs + CS * col,
+// to dst + row * LD + col; zeros where row >= rv or col >= cv.  Warp w
+// copies rows w, w + WARPS, ..., its lanes along the unit-stride axis.  A
+// zero-fill copy reads nothing, so its source address needs no guard.
+// PERM_ROWS / PERM_COLS put row / column k at parity_slot(k) instead.
+template <int ROWS, int U, int LD, int WARPS, int CS = 1,
+          bool PERM_ROWS = false, bool PERM_COLS = false>
 __device__ __forceinline__ void copy_tile(float* dst, const float* src,
                                           long long rs, int rv, int cv) {
   static_assert(ROWS % WARPS == 0, "whole rows per warp");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* p = src + warp * rs + lane;
+  const float* p = src + warp * rs + CS * lane;
   float* d = dst + warp * LD + lane;
 #pragma unroll
   for (int s = 0; s < ROWS / WARPS; ++s) {
@@ -175,39 +193,72 @@ __device__ __forceinline__ void copy_tile(float* dst, const float* src,
 #pragma unroll
     for (int q = 0; q < (U + 31) / 32; ++q) {
       if (U % 32 != 0 && lane + 32 * q >= U) continue;
-      cp_async4(d + s * WARPS * LD + 32 * q, p + 32 * q,
-                row_ok && lane + 32 * q < cv);
+      if constexpr (PERM_ROWS || PERM_COLS) {
+        const int row = warp + s * WARPS, col = lane + 32 * q;
+        cp_async4(dst + (PERM_ROWS ? parity_slot<ROWS>(row) : row) * LD +
+                      (PERM_COLS ? parity_slot<U>(col) : col),
+                  p + CS * 32 * q, row_ok && col < cv);
+      } else {
+        cp_async4(d + s * WARPS * LD + 32 * q, p + CS * 32 * q,
+                  row_ok && lane + 32 * q < cv);
+      }
     }
     p += WARPS * rs;
   }
 }
 
+// What the parity modes add to a block GEMM (PAR 1: the parity synthesis,
+// PAR 2: the parity adjoint; see block_gemm).
+struct ParArgs {
+  const float* B2;  // PAR 2: B's south rows, B2[k, j] = g[nr - 1 - k, j]
+  int Kn2;          // PAR 2: rows of B2 that exist (k < nr / 2)
+  float sgn;        // PAR 1: sign of the south rows; PAR 2: of B2
+  float* out2;      // PAR 1: the south rows, row j at out2 - j so
+  int jv2;          // PAR 1: south rows that exist (j < jv2)
+};
+
 // Stage k0 .. k0 + BK of A (iv x Kn, A[i, k] = A[i * sa + k]) and B (Kn x jv,
 // B[k, j] = B[j * sb + k] if B_KUNIT else B[k * sb + j]) into shared memory.
-template <class T>
+// PAR 1 stores k by parity (parity_slot); PAR 2 also stages B2 (Kn2 x jv,
+// B2[k, j] = B2[j * sb - k] if B_KUNIT else B2[-k * sb + j]) after sB.
+template <class T, int PAR = 0>
 __device__ __forceinline__ void load_stage(float* sA, float* sB,
                                            const float* A, long long sa,
                                            int iv, const float* B,
                                            long long sb, int jv, int k0,
-                                           int Kn) {
-  copy_tile<T::BM, T::BK, T::SA, T::WARPS>(sA, A + k0, sa, iv, Kn - k0);
+                                           int Kn, const ParArgs& pa = {}) {
+  constexpr bool P1 = PAR == 1;
+  copy_tile<T::BM, T::BK, T::SA, T::WARPS, 1, false, P1>(sA, A + k0, sa, iv,
+                                                         Kn - k0);
   if constexpr (T::B_KUNIT)
-    copy_tile<T::BN, T::BK, T::SB, T::WARPS>(sB, B + k0, sb, jv, Kn - k0);
+    copy_tile<T::BN, T::BK, T::SB, T::WARPS, 1, false, P1>(sB, B + k0, sb,
+                                                           jv, Kn - k0);
   else
-    copy_tile<T::BK, T::BN, T::SB, T::WARPS>(sB, B + k0 * sb, sb, Kn - k0,
-                                             jv);
+    copy_tile<T::BK, T::BN, T::SB, T::WARPS, 1, P1>(sB, B + k0 * sb, sb,
+                                                    Kn - k0, jv);
+  if constexpr (PAR == 2) {
+    float* sB2 = sB + T::B_TILE;
+    if constexpr (T::B_KUNIT)
+      copy_tile<T::BN, T::BK, T::SB, T::WARPS, -1>(sB2, pa.B2 - k0, sb, jv,
+                                                   pa.Kn2 - k0);
+    else
+      copy_tile<T::BK, T::BN, T::SB, T::WARPS>(sB2, pa.B2 - k0 * sb, -sb,
+                                               pa.Kn2 - k0, jv);
+  }
 }
 
-// acc += the 3xTF32 products of one stage, whose first ksteps k8 steps
-// hold data.  EDGE: skip the 16 x 8 tiles that lie wholly past iv or jv.
-template <class T, bool EDGE>
+// acc += the 3xTF32 products of k8 steps KK0 .. KKN - 1 of one stage, whose
+// first ksteps of these hold data.  EDGE: skip the 16 x 8 tiles that lie
+// wholly past iv or jv.  B2: B's values are sB + sgn sB2.
+template <class T, bool EDGE, int KK0 = 0, int KKN = T::BK / 8>
 __device__ __forceinline__ void mma_stage(const float* sA, const float* sB,
                                           float (&acc)[T::MT][T::NT][4],
                                           int wm0, int wn0, int gid, int tig,
-                                          int ksteps, int iv, int jv) {
+                                          int ksteps, int iv, int jv,
+                                          float sgn = 0.f) {
 #pragma unroll
-  for (int kk = 0; kk < T::BK / 8; ++kk) {
-    if (kk >= ksteps) break;
+  for (int kk = KK0; kk < KKN; ++kk) {
+    if (kk - KK0 >= ksteps) break;
     uint32_t ah[T::MT][4], al[T::MT][4];
 #pragma unroll
     for (int mt = 0; mt < T::MT; ++mt) {
@@ -224,7 +275,15 @@ __device__ __forceinline__ void mma_stage(const float* sA, const float* sB,
       // b0 (k = tig, j = gid), b1 (k = tig + 4, j = gid)
       uint32_t bh[2], bl[2];
       const int j = wn0 + nt * 8 + gid;
-      if constexpr (T::B_KUNIT) {
+      if constexpr (T::B2) {
+        // U = Gn + sgn Gs, folded as the fragment is read
+        const int e0 = T::B_KUNIT ? j * T::SB + kk * 8 + tig
+                                  : (kk * 8 + tig) * T::SB + j;
+        const int e1 = e0 + (T::B_KUNIT ? 4 : 4 * T::SB);
+        const float* q2 = sB + T::B_TILE;
+        split_tf32(fmaf(sgn, q2[e0], sB[e0]), bh[0], bl[0]);
+        split_tf32(fmaf(sgn, q2[e1], sB[e1]), bh[1], bl[1]);
+      } else if constexpr (T::B_KUNIT) {
         const float* q = sB + j * T::SB + kk * 8 + tig;
         split_tf32(q[0], bh[0], bl[0]);
         split_tf32(q[4], bh[1], bl[1]);
@@ -251,31 +310,51 @@ __device__ __forceinline__ void mma_stage(const float* sA, const float* sB,
 // Each stage sums into fresh tensor-core accumulators, which are then added
 // to the running fp32 sums: the tensor cores' accumulation then spans at
 // most 3 BK / 8 MMAs, not 3 Kn / 8.
-template <class T>
+// The parity modes (pa):
+//   PAR 1  the sums over even k (SE) and over odd k (SO) are kept apart (a
+//          stage holds its k by parity, so each k8 step is of one parity);
+//          out[j so + i] = SE + SO and, for j < jv2, out2[-j so + i] =
+//          sgn (SE - SO);
+//   PAR 2  B[k, j] + sgn B2[k, j] for B, and out[j so + 2 i]: the rows i
+//          are every other row of the output.
+template <class T, int PAR = 0>
 __device__ __forceinline__ void block_gemm(const float* A, long long sa,
                                            int iv, const float* B,
                                            long long sb, int jv, int Kn,
                                            float* out, long long so,
-                                           float* smem) {
+                                           float* smem,
+                                           const ParArgs& pa = {}) {
+  static_assert(PAR != 2 || T::B2, "the parity adjoint stages B2");
+  constexpr int KH = T::BK / 16;  // PAR 1: the k8 steps of one parity
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int wm0 = (warp % T::WARPS_M) * T::WM;
   const int wn0 = (warp / T::WARPS_M) * T::WN;
 
   float sum[T::MT][T::NT][4];
+  float sum2[PAR == 1 ? T::MT : 1][PAR == 1 ? T::NT : 1][4];
 #pragma unroll
   for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
       for (int q = 0; q < 4; ++q) sum[mt][nt][q] = 0.f;
+  if constexpr (PAR == 1) {
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sum2[mt][nt][q] = 0.f;
+  }
 
   const int KT = (Kn + T::BK - 1) / T::BK;
 #pragma unroll
   for (int s = 0; s < T::STAGES - 1; ++s) {
     if (s < KT) {
       float* st = smem + s * T::STAGE;
-      load_stage<T>(st, st + T::A_TILE, A, sa, iv, B, sb, jv, s * T::BK, Kn);
+      load_stage<T, PAR>(st, st + T::A_TILE, A, sa, iv, B, sb, jv, s * T::BK,
+                         Kn, pa);
     }
     cp_async_commit();
   }
@@ -285,7 +364,8 @@ __device__ __forceinline__ void block_gemm(const float* A, long long sa,
     const int nx = kt + T::STAGES - 1;
     if (nx < KT) {
       float* st = smem + (nx % T::STAGES) * T::STAGE;
-      load_stage<T>(st, st + T::A_TILE, A, sa, iv, B, sb, jv, nx * T::BK, Kn);
+      load_stage<T, PAR>(st, st + T::A_TILE, A, sa, iv, B, sb, jv,
+                         nx * T::BK, Kn, pa);
     }
     cp_async_commit();
     const float* st = smem + (kt % T::STAGES) * T::STAGE;
@@ -297,13 +377,48 @@ __device__ __forceinline__ void block_gemm(const float* A, long long sa,
       for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-    if (kv >= T::BK && iv > T::BM - 16 && jv > T::BN - 8)
+    const bool full = kv >= T::BK && iv > T::BM - 16 && jv > T::BN - 8;
+    if constexpr (PAR == 1) {
+      // the even k: (kv + 1) / 2 of them hold data, the odd k kv / 2
+      const int se = kv >= T::BK ? KH : ((kv + 1) / 2 + 7) / 8;
+      const int so_ = kv >= T::BK ? KH : (kv / 2 + 7) / 8;
+      if (full)
+        mma_stage<T, false, 0, KH>(st, st + T::A_TILE, acc, wm0, wn0, gid,
+                                   tig, KH, iv, jv);
+      else
+        mma_stage<T, true, 0, KH>(st, st + T::A_TILE, acc, wm0, wn0, gid,
+                                  tig, se, iv, jv);
+#pragma unroll
+      for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            sum[mt][nt][q] += acc[mt][nt][q];
+            acc[mt][nt][q] = 0.f;
+          }
+      if (full)
+        mma_stage<T, false, KH, 2 * KH>(st, st + T::A_TILE, acc, wm0, wn0,
+                                        gid, tig, KH, iv, jv);
+      else
+        mma_stage<T, true, KH, 2 * KH>(st, st + T::A_TILE, acc, wm0, wn0,
+                                       gid, tig, so_, iv, jv);
+#pragma unroll
+      for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) sum2[mt][nt][q] += acc[mt][nt][q];
+      continue;
+    }
+    if (full)
       // every k8 step and every 16 x 8 tile holds data: no checks
       mma_stage<T, false>(st, st + T::A_TILE, acc, wm0, wn0, gid, tig,
-                          T::BK / 8, iv, jv);
+                          T::BK / 8, iv, jv, pa.sgn);
     else
       mma_stage<T, true>(st, st + T::A_TILE, acc, wm0, wn0, gid, tig,
-                         kv >= T::BK ? T::BK / 8 : (kv + 7) / 8, iv, jv);
+                         kv >= T::BK ? T::BK / 8 : (kv + 7) / 8, iv, jv,
+                         pa.sgn);
 #pragma unroll
     for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
@@ -315,20 +430,57 @@ __device__ __forceinline__ void block_gemm(const float* A, long long sa,
   __syncthreads();
 
   // c0 (gid, 2 tig), c1 (gid, 2 tig + 1), c2 (gid + 8, 2 tig), c3 (gid + 8, 2 tig + 1)
+  if constexpr (PAR == 0) {
 #pragma unroll
-  for (int mt = 0; mt < T::MT; ++mt)
+    for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < T::NT; ++nt) {
-      const int i = wm0 + mt * 16 + gid, j = wn0 + nt * 8 + 2 * tig;
-      smem[j * T::SC + i] = sum[mt][nt][0];
-      smem[(j + 1) * T::SC + i] = sum[mt][nt][1];
-      smem[j * T::SC + i + 8] = sum[mt][nt][2];
-      smem[(j + 1) * T::SC + i + 8] = sum[mt][nt][3];
+      for (int nt = 0; nt < T::NT; ++nt) {
+        const int i = wm0 + mt * 16 + gid, j = wn0 + nt * 8 + 2 * tig;
+        smem[j * T::SC + i] = sum[mt][nt][0];
+        smem[(j + 1) * T::SC + i] = sum[mt][nt][1];
+        smem[j * T::SC + i + 8] = sum[mt][nt][2];
+        smem[(j + 1) * T::SC + i + 8] = sum[mt][nt][3];
+      }
+    __syncthreads();
+    for (int e = tid; e < T::BN * T::BM; e += T::THREADS) {
+      const int j = e / T::BM, i = e % T::BM;
+      if (i < iv && j < jv) out[j * so + i] = smem[j * T::SC + i];
     }
-  __syncthreads();
-  for (int e = tid; e < T::BN * T::BM; e += T::THREADS) {
-    const int j = e / T::BM, i = e % T::BM;
-    if (i < iv && j < jv) out[j * so + i] = smem[j * T::SC + i];
+    return;
+  }
+  // PAR 1: pass 0 the north rows SE + SO, pass 1 the south rows
+  // sgn (SE - SO); PAR 2: every other output row
+  constexpr int IS = PAR == 2 ? 2 : 1;
+#pragma unroll
+  for (int pass = 0; pass < (PAR == 1 ? 2 : 1); ++pass) {
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt) {
+        const int i = wm0 + mt * 16 + gid, j = wn0 + nt * 8 + 2 * tig;
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if constexpr (PAR == 1)
+            v[q] = pass ? pa.sgn * (sum[mt][nt][q] - sum2[mt][nt][q])
+                        : sum[mt][nt][q] + sum2[mt][nt][q];
+          else
+            v[q] = sum[mt][nt][q];
+        }
+        smem[j * T::SC + i] = v[0];
+        smem[(j + 1) * T::SC + i] = v[1];
+        smem[j * T::SC + i + 8] = v[2];
+        smem[(j + 1) * T::SC + i + 8] = v[3];
+      }
+    __syncthreads();
+    float* o = pass ? pa.out2 : out;
+    const long long jstep = pass ? -so : so;
+    const int jn = pass ? pa.jv2 : jv;
+    for (int e = tid; e < T::BN * T::BM; e += T::THREADS) {
+      const int j = e / T::BM, i = e % T::BM;
+      if (i < iv && j < jn) o[j * jstep + IS * i] = smem[j * T::SC + i];
+    }
+    if (PAR == 1 && pass == 0) __syncthreads();
   }
 }
 
@@ -401,6 +553,102 @@ adj_tri_3xtf32(const float* __restrict__ lam, const float* __restrict__ g,
                 o + l0, soc, smem);
 }
 
+// ---------------------------------------------------------------------------
+// the ring-parity modes
+// ---------------------------------------------------------------------------
+//
+// On a grid whose rings mirror each other about the equator (ring nr-1-r at
+// pi - theta_r), lam_lm(pi - theta) = (-1)^(l+m) lam_lm(theta), so a table
+// of the nh = ceil(nr / 2) north rings (the equator last when nr is odd)
+// serves all nr.  With the sums over the l of m's parity (SE, l - m even)
+// and of the other (SO), and f = -1 for a table of the opposite reflection
+// parity (flip: the spin-2 X table), +1 otherwise:
+//   synthesis  out[i, r, c] = SE + SO,  out[i, nr-1-r, c] = f (SE - SO)
+//              for r < nh, the equator row written once, as SE + SO;
+//   adjoint    out[i, c, l] = sum_{r < nh} lam[i, l, r] (g[i, r, c]
+//              + f (-1)^(l-m) g[i, nr-1-r, c]),  the equator row once,
+//              0 for l < m.
+// (f (-1)^(l-m) is sigma_m (-1)^l of the JAX package's split with
+// sigma_m = f (-1)^m: in these terms the sign does not depend on m.)
+// Each table entry is read once a call, so the table's bytes halve against
+// the full table at nr rings, and so do the products.
+// - Synthesis: each stage holds its 32 degree rows by parity (even l - m
+//   first), so every k8 step adds to one of two sums; 40-ring tiles, as the
+//   two sums take the registers of the dense kernel's one.
+// - Adjoint: a block takes the rows l = l0, l0 + 2, .. of one parity (its
+//   A tile has a row stride of 2 nh), and stages g's north rows and its
+//   south rows in reverse; B = north + sign south is formed as the fragment
+//   is read.
+
+using SynthParTile = Tile<128, 40, 32, 32, 40, false>;
+template <bool KUNIT>
+using AdjParTile = Tile<64, 128, 32, 32, 32, KUNIT, true>;
+
+// grid (north ring tiles, c tiles, row i)
+template <bool SLAB>
+__global__ void __launch_bounds__(SynthParTile::THREADS, 2)
+synth_par_3xtf32(const float* __restrict__ lam, const float* __restrict__ x,
+                 float* __restrict__ out, int L, int nr, int C,
+                 long long sxm, long long sxc, const int* __restrict__ ms,
+                 float f) {
+  using T = SynthParTile;
+  extern __shared__ float smem[];
+  const int i = blockIdx.z, m = degree<SLAB>(ms, i);
+  const int nh = (nr + 1) / 2;
+  const int c0 = blockIdx.y * T::BM;
+  const int r0 = blockIdx.x * T::BN;
+  const int jv = min(T::BN, nh - r0);
+  const float* A = x + i * sxm + c0 * sxc + m;                        // x[i, c0, m]
+  const float* B = lam + (static_cast<long long>(i) * L + m) * nh + r0;  // lam[i, m, r0]
+  float* o = out + (static_cast<long long>(i) * nr + r0) * C + c0;    // out[i, r0, c0]
+  ParArgs pa{};
+  pa.sgn = f;
+  pa.out2 = out + (static_cast<long long>(i) * nr + nr - 1 - r0) * C + c0;
+  pa.jv2 = min(jv, nr / 2 - r0);  // rows r < nr / 2 have a south mirror
+  block_gemm<T, 1>(A, sxc, min(T::BM, C - c0), B, nh, jv, L - m, o, C, smem,
+                   pa);
+}
+
+// grid (c tiles, y, row i).  For row i of degree m the first nz =
+// ceil(m / BM) tiles y write the zeros of l < m, as the dense adjoint's do;
+// tile y = nz + 2 t + p computes the rows l = m + p + 2 (BM t + i') of
+// parity p, i' < BM; the rest return at once.
+template <bool KUNIT, bool SLAB>
+__global__ void __launch_bounds__(AdjParTile<KUNIT>::THREADS, 2)
+adj_par_3xtf32(const float* __restrict__ lam, const float* __restrict__ g,
+               float* __restrict__ out, int L, int nr, int C, long long sgm,
+               long long sgr, long long sgc, long long som, long long soc,
+               const int* __restrict__ ms, float f) {
+  using T = AdjParTile<KUNIT>;
+  extern __shared__ float smem[];
+  const int i = blockIdx.z, m = degree<SLAB>(ms, i);
+  const int nh = (nr + 1) / 2;
+  const int c0 = blockIdx.x * T::BN;
+  const int cv = min(T::BN, C - c0);
+  const int nz = (m + T::BM - 1) / T::BM;
+  float* o = out + i * som + c0 * soc;                                // out[i, c0, 0]
+  if (static_cast<int>(blockIdx.y) < nz) {
+    const int hi = m - static_cast<int>(blockIdx.y) * T::BM;
+    const int lo = hi > T::BM ? hi - T::BM : 0;
+    for (int e = threadIdx.x; e < T::BN * T::BM; e += T::THREADS) {
+      const int j = e / T::BM, l = lo + e % T::BM;
+      if (j < cv && l < hi) o[j * soc + l] = 0.f;
+    }
+    return;
+  }
+  const int t = static_cast<int>(blockIdx.y) - nz, p = t & 1;
+  const int l0 = m + p + 2 * T::BM * (t >> 1);
+  if (l0 >= L) return;  // uniform across the block
+  const float* A = lam + (static_cast<long long>(i) * L + l0) * nh;   // lam[i, l0, 0]
+  const float* B = g + i * sgm + c0 * sgc;                            // g[i, 0, c0]
+  ParArgs pa{};
+  pa.B2 = B + (nr - 1) * sgr;                                         // g[i, nr-1, c0]
+  pa.Kn2 = nr / 2;
+  pa.sgn = p ? -f : f;
+  block_gemm<T, 2>(A, 2LL * nh, min(T::BM, (L - l0 + 1) / 2), B,
+                   KUNIT ? sgc : sgr, cv, nh, o + l0, soc, smem, pa);
+}
+
 template <class T, class Kernel, class... Args>
 int launch(Kernel kernel, dim3 grid, void* stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -462,6 +710,47 @@ int legendre_adj_tri_f32(const void* lam, const void* g, void* out, int L,
 int legendre_tri_f32_smem(int kind) {
   return kind == 0 ? SynthTile::SMEM
                    : kind == 1 ? AdjTile<true>::SMEM : AdjTile<false>::SMEM;
+}
+
+// The ring-parity modes: lam (M, L, nh) over the nh = ceil(nr / 2) north
+// rings, x, g and the outputs as above over all nr rings; flip selects the
+// opposite reflection parity.
+int legendre_synth_par_f32(const void* lam, const void* x, void* out, int L,
+                           int nr, int C, long long sxm, long long sxc,
+                           const void* ms, int M, int flip, void* stream) {
+  using T = SynthParTile;
+  const int nh = (nr + 1) / 2;
+  const dim3 grid((nh + T::BN - 1) / T::BN, (C + T::BM - 1) / T::BM, M);
+  return launch<T>(ms ? synth_par_3xtf32<true> : synth_par_3xtf32<false>,
+                   grid, stream, static_cast<const float*>(lam),
+                   static_cast<const float*>(x), static_cast<float*>(out), L,
+                   nr, C, sxm, sxc, static_cast<const int*>(ms),
+                   flip ? -1.f : 1.f);
+}
+
+int legendre_adj_par_f32(const void* lam, const void* g, void* out, int L,
+                         int nr, int C, long long sgm, long long sgr,
+                         long long sgc, long long som, long long soc,
+                         const void* ms, int M, int flip, void* stream) {
+  const auto* lam_ = static_cast<const float*>(lam);
+  const auto* g_ = static_cast<const float*>(g);
+  auto* out_ = static_cast<float*>(out);
+  const auto* ms_ = static_cast<const int*>(ms);
+  const float f = flip ? -1.f : 1.f;
+  constexpr int BM = AdjParTile<true>::BM, BN = AdjParTile<true>::BN;
+  // zero tiles, then both parities' row tiles
+  const int ny = (L + BM - 1) / BM + 2 * (((L + 1) / 2 + BM - 1) / BM);
+  const dim3 grid((C + BN - 1) / BN, ny, M);
+  if (sgr == 1)
+    return launch<AdjParTile<true>>(
+        ms ? adj_par_3xtf32<true, true> : adj_par_3xtf32<true, false>, grid,
+        stream, lam_, g_, out_, L, nr, C, sgm, sgr, sgc, som, soc, ms_, f);
+  if (sgc == 1)
+    return launch<AdjParTile<false>>(
+        ms ? adj_par_3xtf32<false, true> : adj_par_3xtf32<false, false>,
+        grid, stream, lam_, g_, out_, L, nr, C, sgm, sgr, sgc, som, soc, ms_,
+        f);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

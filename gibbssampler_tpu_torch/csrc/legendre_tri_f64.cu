@@ -15,6 +15,12 @@
 // l < m too: the wrapper allocates it with torch.empty).  The m-slab form
 // (ms, M) is that of legendre_tri.cu: row i < M of every operand, of degree
 // order ms[i]; ms = null is the full table (M = L, ms[i] = i).
+// The ring-parity mode (synth_par_f64, adj_par_f64; entry points
+// legendre_*_par_f64) is the one of legendre_tri.cu: a table over the
+// ceil(nr / 2) north rings, the sums over even and odd l - m kept apart and
+// mirrored into the south rings.  Its kernels are those below with every
+// other degree row per stage; they are kernels of their own so that the
+// dense ones keep their code.
 //
 // What bounds them: bytes.  The CG family calls them at C = 16 (8 chains x
 // Re/Im).  At L 513, nr 65 one call does 2 nr C L(L+1)/2 = 274 MFLOP, 8.2 us
@@ -410,16 +416,208 @@ synth_tri_f64(const double* __restrict__ lam, const double* __restrict__ x,
   cp_async_wait<0>();
 }
 
+// The ring-parity synthesis (see below): synth_tri_f64's block, pipeline
+// and row pairs, with nr the output's ring count and the table's nt =
+// ceil(nr / 2) north rings.  Each row's stages run over the degrees l - m
+// even (class 0), then l - m odd (class 1), a stage holding every other
+// degree row (row stride 2 nt in the table, 2 in x), and the two classes'
+// sums meet at the end of the row: north ring r takes S0 + S1, its mirror
+// nr-1-r f (S0 - S1), the equator row (r = nt - 1 of an odd nr) S0 + S1
+// alone.  Its own kernel, so that the dense one keeps its code.
+template <int TC>
+__global__ void __launch_bounds__(kSynthMaxThreads, kSynthMinBlocks)
+synth_par_f64(const double* __restrict__ lam, const double* __restrict__ x,
+              double* __restrict__ out, int L, int nr, int C, long long sxm,
+              long long sxc, const int* __restrict__ ms, int M, double f) {
+  constexpr int NCG = TC / CT, RT = kRingsPerThread;
+  constexpr int DS = 2;  // degrees from one stage row to the next
+  extern __shared__ __align__(16) double smem[];
+  const int nt = (nr + 1) / 2;  // the table's rings
+  const long long ld = static_cast<long long>(DS) * nt;  // its row stride
+  const SynthPlan pl(nt, TC);
+  const int KL = pl.kl, RS = pl.rs;
+  const int TS = (KL * RS + 1) & ~1;
+  const int G = pl.groups, GT = pl.group;
+  const int XK = pl.xk;
+  double* xbuf = smem;
+  double* tbuf = smem + kStages * XK * TC;
+  double* red = tbuf + kStages * TS;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int grp = tid / GT, t = tid % GT;
+  const int tile = blockIdx.x % pl.ntr;
+  const int c0 = (blockIdx.x / pl.ntr) * TC;
+  const int r_lo = tile * nt / pl.ntr;
+  const int R = (tile + 1) * nt / pl.ntr - r_lo;
+  // rows ia and ib of degrees ma and mb; the middle row of an odd M alone
+  const int ia = blockIdx.y, ib = M - 1 - ia;
+  const int ma = degree(ms, ia), mb = degree(ms, ib);
+  // stage segments, one a (row, class): segment k (row ia's classes 0, 1,
+  // then ib's) runs from stage s_k to s_(k+1), s0 = 0
+  auto nstages = [&](int n) { return (n + KL - 1) / KL; };
+  const int s1 = nstages((L - ma + 1) / 2);
+  const int s2 = s1 + nstages((L - ma) / 2);
+  const int s3 = ib > ia ? s2 + nstages((L - mb + 1) / 2) : s2;
+  const int nst = ib > ia ? s3 + nstages((L - mb) / 2) : s3;
+  auto seg = [&](int k) {
+    return k <= 0 ? 0 : k == 1 ? s1 : k == 2 ? s2 : k == 3 ? s3 : nst;
+  };
+  const int rh = pl.rh, cg = t / rh, rr = t % rh;
+  const bool active = cg < NCG && rr < R;
+  const CopyLanes cl(R, nth);
+
+  // stage q: the segment k, its row, first degree l0 and rows
+  struct Stage { int k, ri, l0, nrows; };
+  auto stage = [&](int q) {
+    const int k = q < s1 ? 0 : q < s2 ? 1 : q < s3 ? 2 : 3;
+    const int ri = k < 2 ? ia : ib, m = k < 2 ? ma : mb, p = k & 1;
+    const int s = q - seg(k);
+    return Stage{k, ri, m + p + DS * s * KL,
+                 min(KL, (L - m - p + 1) / 2 - s * KL)};
+  };
+  auto issue = [&](int q) {
+    if (q < nst) {
+      const Stage st = stage(q);
+      const int sl = q % kStages;
+      if (kTableCopies)
+        stage_rows(tbuf + sl * TS,
+                   lam + (static_cast<size_t>(st.ri) * L + st.l0) * nt + r_lo,
+                   ld, st.nrows, R, RS, cl);
+      // along l, x's unit stride: consecutive threads, consecutive l
+      const double* xm = x + st.ri * sxm + st.l0;
+      double* xs = xbuf + sl * XK * TC;
+      for (int i = tid; kBatchCopies && i < TC * KL; i += nth) {
+        const int c = i / KL, k = i % KL;
+        if (k < st.nrows && c0 + c < C)
+          cp_async8(xs + c * XK + k, xm + (c0 + c) * sxc + DS * k);
+      }
+    }
+    cp_async_commit();
+  };
+
+  double acc[RT][CT], acc0[RT][CT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[i][j] = 0.0;
+
+  for (int q = 0; q < kStages - 1; ++q) issue(q);
+  for (int q = 0; q < nst; ++q) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    // the buffer of stage q - 1, which every thread has finished with
+    issue(q + kStages - 1);
+    const Stage st = stage(q);
+    const int ri = st.ri, l0 = st.l0;
+    if (active) {
+      const int nrows = st.nrows, s = q % kStages;
+      const double* ts = tbuf + s * TS + rr;
+      const double* xs = xbuf + (s * TC + cg * CT) * XK;
+      const int p0 = parity(lam + (static_cast<size_t>(ri) * L + l0) * nt +
+                            r_lo);
+      // four rows' loads, then their FMAs: the loads' latency overlaps
+      int k = grp;
+      for (; k + 3 * G < nrows; k += 4 * G) {
+        double a[4][RT], v[4][CT];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int ku = k + u * G;
+          // the row stride 2 nt is even: every row has the parity p0
+          const double* row = ts + row_start(ku, RS, p0);
+#pragma unroll
+          for (int i = 0; i < RT; ++i) a[u][i] = row[i * rh];
+#pragma unroll
+          for (int j = 0; j < CT; ++j) v[u][j] = xs[ku + j * XK];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (!kProducts) {
+            acc[0][0] += a[u][0];
+            continue;
+          }
+#pragma unroll
+          for (int j = 0; j < CT; ++j)
+#pragma unroll
+            for (int i = 0; i < RT; ++i)
+              acc[i][j] = fma(a[u][i], v[u][j], acc[i][j]);
+        }
+      }
+      for (; k < nrows; k += G) {
+        const double* row = ts + row_start(k, RS, p0);
+        double a[RT];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) a[i] = row[i * rh];
+        fma_rows(a, xs + k, XK, acc);
+      }
+    }
+    // the last stage of a segment
+    if (q == seg(st.k + 1) - 1) {
+      if (G > 1) {
+        if (grp > 0) {
+#pragma unroll
+          for (int i = 0; i < RT; ++i)
+#pragma unroll
+            for (int j = 0; j < CT; ++j)
+              red[((i * CT + j) * (G - 1) + grp - 1) * GT + t] = acc[i][j];
+        }
+        __syncthreads();
+        if (grp == 0) {
+          for (int h = 0; h < G - 1; ++h) {
+#pragma unroll
+            for (int i = 0; i < RT; ++i)
+#pragma unroll
+              for (int j = 0; j < CT; ++j)
+                acc[i][j] += red[((i * CT + j) * (G - 1) + h) * GT + t];
+          }
+        }
+      }
+      // class 0 ends: its sums wait for class 1's, unless class 1 is
+      // empty (m = L - 1)
+      if (!(st.k & 1) && seg(st.k + 2) > seg(st.k + 1)) {
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < CT; ++j) acc0[i][j] = acc[i][j];
+      } else if (active && grp == 0) {
+        const bool only0 = !(st.k & 1);  // class 1 empty
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const int r = rr + i * rh;
+          if (r >= R) break;
+          double* o = out + (static_cast<size_t>(ri) * nr + r_lo + r) * C;
+          double* os = out + (static_cast<size_t>(ri) * nr + nr - 1 - r_lo -
+                              r) * C;
+          const bool south = r_lo + r < nr / 2;  // not the equator
+#pragma unroll
+          for (int j = 0; j < CT; ++j) {
+            const int c = c0 + cg * CT + j;
+            if (c >= C) continue;
+            const double s0 = only0 ? acc[i][j] : acc0[i][j];
+            const double s1 = only0 ? 0.0 : acc[i][j];
+            o[c] = s0 + s1;
+            if (south) os[c] = f * (s0 - s1);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < CT; ++j) acc[i][j] = 0.0;
+    }
+  }
+  cp_async_wait<0>();
+}
+
 // ---------------------------------------------------------------------------
 // adjoint
 // ---------------------------------------------------------------------------
 
 // The adjoint plan: ring chunks, the widest chunk, the table stage's row
 // stride, the threads of one ring group (kAdjRowsPerThread degree rows and
-// 8 columns each), dynamic shared memory.
+// 8 columns each), dynamic shared memory; par: the parity mode's second
+// batch buffer (g's south rows) too.
 struct AdjPlan {
   int nch, rcmax, rs, gk, group, smem;
-  __host__ __device__ AdjPlan(int nr, int tc) {
+  __host__ __device__ AdjPlan(int nr, int tc, bool par = false) {
     nch = (nr + kAdjChunk - 1) / kAdjChunk;
     if (nch < 1) nch = 1;
     rcmax = (nr + nch - 1) / nch;
@@ -427,7 +625,7 @@ struct AdjPlan {
     rs = (rcmax + 1) | 1;
     gk = rs;
     group = kAdjRows * (tc / CT);
-    smem = (kStages * (gk * tc + ((kAdjPass * rs + 1) & ~1)) +
+    smem = (kStages * ((par ? 2 : 1) * gk * tc + ((kAdjPass * rs + 1) & ~1)) +
             (kAdjGroups - 1) * group * kAdjRowsPerThread * CT) * 8;
   }
 };
@@ -580,6 +778,159 @@ adj_tri_f64(const double* __restrict__ lam, const double* __restrict__ g,
   }
 }
 
+// The ring-parity adjoint (see below): adj_tri_f64's block, with the
+// table's nt = ceil(nr / 2) north rings.  A block takes the degree rows
+// l_lo + 2 k of one class p (l - m even or odd, row stride 2 nt in the
+// table); every (row, class, pass) triple is a block, those past the
+// triangle exiting at once.  Each stage also copies g's south rows nr-1-r
+// (r < nr / 2; none for the equator) into a second buffer and adds them,
+// times f (-1)^p, to the north rows before the products.  Its own kernel,
+// so that the dense one keeps its code.
+template <int TC>
+__global__ void __launch_bounds__(kAdjMaxThreads, kAdjMinBlocks)
+adj_par_f64(const double* __restrict__ lam, const double* __restrict__ g,
+            double* __restrict__ out, int L, int nr, int C, long long sgm,
+            long long sgr, long long sgc, long long som, long long soc,
+            const int* __restrict__ ms, int M, double f) {
+  constexpr int G = kAdjGroups, RA = kAdjRowsPerThread;
+  constexpr int DS = 2;  // degrees from one row to the next
+  extern __shared__ __align__(16) double smem[];
+  const int nt = (nr + 1) / 2;  // the table's rings
+  const long long ld = static_cast<long long>(DS) * nt;  // its row stride
+  const AdjPlan pl(nt, TC, true);
+  const int RS = pl.rs, RC = pl.rcmax, GK = pl.gk, nch = pl.nch;
+  const int TS = (kAdjPass * RS + 1) & ~1;
+  const int GT = pl.group;
+  double* gbuf = smem;
+  double* tbuf = smem + kStages * GK * TC;
+  double* red = tbuf + kStages * TS;
+  double* gbuf2 = red + (G - 1) * GT * RA * CT;  // g's south rows
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int grp = tid / GT, t = tid % GT;
+  // (memory row i, degree m, class p, pass): pass-major over the rows
+  const int pass = blockIdx.x / (2 * M);
+  const int p = blockIdx.x / M % 2;
+  const int i = blockIdx.x % M;
+  const int m = degree(ms, i);
+  if (kAdjPass * pass >= (L - m - p + 1) / 2) return;  // uniform
+  const int l_lo = m + p + DS * kAdjPass * pass;
+  const int nrows = min(kAdjPass, (L - l_lo + 1) / 2);
+  const int c0 = blockIdx.y * TC;
+  const int c1 = min(C, c0 + TC);
+  double* out_m = out + i * som;
+
+  if (pass == 0 && p == 0) {  // the zeros of l < m, this column tile, along l
+    for (int c = c0; c < c1; ++c)
+      for (int l = tid; l < m; l += nth) out_m[c * soc + l] = 0.0;
+  }
+
+  const double* lam_b = lam + (static_cast<size_t>(i) * L + l_lo) * nt;
+  const double* g_m = g + i * sgm;
+  const bool r_unit = sgr <= sgc;  // copy g along its unit stride
+  const CopyLanes cl(RC, nth);
+  const int ns = nr / 2;  // the north rings r < ns have a mirror
+  auto issue = [&](int q) {
+    if (q < nch) {
+      const int r_lo = q * nt / nch, rc = (q + 1) * nt / nch - r_lo;
+      const int s = q % kStages;
+      if (kTableCopies)
+        stage_rows(tbuf + s * TS, lam_b + r_lo, ld, nrows, rc, RS, cl);
+      double* gs = gbuf + s * GK * TC;
+      double* gs2 = gbuf2 + s * GK * TC;
+      for (int i = tid; kBatchCopies && i < RC * TC; i += nth) {
+        const int k = r_unit ? i % RC : i / TC;
+        const int c = r_unit ? i / RC : i % TC;
+        if (k < rc && c0 + c < C) {
+          cp_async8(gs + c * GK + k, g_m + (r_lo + k) * sgr + (c0 + c) * sgc);
+          if (r_lo + k < ns)
+            cp_async8(gs2 + c * GK + k,
+                      g_m + (nr - 1 - r_lo - k) * sgr + (c0 + c) * sgc);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int row = t % kAdjRows, cg = t / kAdjRows;
+  int prow[RA];
+#pragma unroll
+  for (int i = 0; i < RA; ++i)
+    prow[i] = parity(lam_b + static_cast<size_t>(row + i * kAdjRows) * ld);
+  double acc[RA][CT];
+#pragma unroll
+  for (int i = 0; i < RA; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[i][j] = 0.0;
+
+  for (int q = 0; q < kStages - 1; ++q) issue(q);
+  for (int q = 0; q < nch; ++q) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    issue(q + kStages - 1);
+    {  // g north + f (-1)^p g south, the equator row alone
+      const int r_lo = q * nt / nch, rc = (q + 1) * nt / nch - r_lo;
+      const double sg = p ? -f : f;
+      double* gs = gbuf + (q % kStages) * GK * TC;
+      const double* gs2 = gbuf2 + (q % kStages) * GK * TC;
+      for (int e = tid; e < RC * TC; e += nth) {
+        const int k = e % RC, c = e / RC;
+        if (k < rc && r_lo + k < ns && c0 + c < C)
+          gs[c * GK + k] = fma(sg, gs2[c * GK + k], gs[c * GK + k]);
+      }
+      __syncthreads();
+    }
+    if (row < nrows) {
+      const int r_lo = q * nt / nch, rc = (q + 1) * nt / nch - r_lo;
+      const int s = q % kStages;
+      const double* ts[RA];
+#pragma unroll
+      for (int i = 0; i < RA; ++i)
+        ts[i] = tbuf + s * TS +
+                row_start(row + i * kAdjRows, RS, prow[i] ^ (r_lo & 1));
+      const double* gs = gbuf + (s * TC + cg * CT) * GK;
+#pragma unroll 2
+      for (int k = grp; k < rc; k += G) {
+        double a[RA];
+#pragma unroll
+        for (int i = 0; i < RA; ++i) a[i] = ts[i][k];
+        fma_rows(a, gs + k, GK, acc);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (G > 1) {
+    if (grp > 0) {
+#pragma unroll
+      for (int i = 0; i < RA; ++i)
+#pragma unroll
+        for (int j = 0; j < CT; ++j)
+          red[((i * CT + j) * (G - 1) + grp - 1) * GT + t] = acc[i][j];
+    }
+    __syncthreads();
+    if (grp == 0) {
+      for (int h = 0; h < G - 1; ++h) {
+#pragma unroll
+        for (int i = 0; i < RA; ++i)
+#pragma unroll
+          for (int j = 0; j < CT; ++j)
+            acc[i][j] += red[((i * CT + j) * (G - 1) + h) * GT + t];
+      }
+    }
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < RA; ++i) {
+      const int l = row + i * kAdjRows;
+      if (l >= nrows) break;
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int c = c0 + cg * CT + j;
+        if (c < C) out_m[c * soc + l_lo + DS * l] = acc[i][j];
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -592,34 +943,54 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
-template <int TC>
+// PAR: nr is the output's ring count, the table's ceil(nr / 2)
+template <int TC, bool PAR = false>
 int launch_synth(const void* lam, const void* x, void* out, int L, int nr,
                  int C, long long sxm, long long sxc, const int* ms, int M,
-                 cudaStream_t stream) {
-  const SynthPlan pl(nr, TC);
-  const cudaError_t e = allow_smem(synth_tri_f64<TC>, pl.smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
+                 cudaStream_t stream, double f = 1.0) {
+  const SynthPlan pl(PAR ? (nr + 1) / 2 : nr, TC);
   const dim3 grid(pl.ntr * ((C + TC - 1) / TC), (M + 1) / 2);
-  synth_tri_f64<TC><<<grid, pl.group * pl.groups, pl.smem, stream>>>(
-      static_cast<const double*>(lam), static_cast<const double*>(x),
-      static_cast<double*>(out), L, nr, C, sxm, sxc, ms, M);
+  const auto* lam_ = static_cast<const double*>(lam);
+  const auto* x_ = static_cast<const double*>(x);
+  auto* out_ = static_cast<double*>(out);
+  if constexpr (PAR) {
+    const cudaError_t e = allow_smem(synth_par_f64<TC>, pl.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    synth_par_f64<TC><<<grid, pl.group * pl.groups, pl.smem, stream>>>(
+        lam_, x_, out_, L, nr, C, sxm, sxc, ms, M, f);
+  } else {
+    const cudaError_t e = allow_smem(synth_tri_f64<TC>, pl.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    synth_tri_f64<TC><<<grid, pl.group * pl.groups, pl.smem, stream>>>(
+        lam_, x_, out_, L, nr, C, sxm, sxc, ms, M);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TC>
+template <int TC, bool PAR = false>
 int launch_adj(const void* lam, const void* g, void* out, int L, int nr,
                int C, long long sgm, long long sgr, long long sgc,
                long long som, long long soc, const int* ms, int M,
-               cudaStream_t stream) {
-  const AdjPlan pl(nr, TC);
-  const cudaError_t e = allow_smem(adj_tri_f64<TC>, pl.smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
+               cudaStream_t stream, double f = 1.0) {
+  const AdjPlan pl(PAR ? (nr + 1) / 2 : nr, TC, PAR);
   const int blocks =
-      ms ? M * ((L + kAdjPass - 1) / kAdjPass) : adj_blocks(L);
+      PAR ? 2 * M * (((L + 1) / 2 + kAdjPass - 1) / kAdjPass)
+      : ms ? M * ((L + kAdjPass - 1) / kAdjPass) : adj_blocks(L);
   const dim3 grid(blocks, (C + TC - 1) / TC);
-  adj_tri_f64<TC><<<grid, pl.group * kAdjGroups, pl.smem, stream>>>(
-      static_cast<const double*>(lam), static_cast<const double*>(g),
-      static_cast<double*>(out), L, nr, C, sgm, sgr, sgc, som, soc, ms, M);
+  const auto* lam_ = static_cast<const double*>(lam);
+  const auto* g_ = static_cast<const double*>(g);
+  auto* out_ = static_cast<double*>(out);
+  if constexpr (PAR) {
+    const cudaError_t e = allow_smem(adj_par_f64<TC>, pl.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    adj_par_f64<TC><<<grid, pl.group * kAdjGroups, pl.smem, stream>>>(
+        lam_, g_, out_, L, nr, C, sgm, sgr, sgc, som, soc, ms, M, f);
+  } else {
+    const cudaError_t e = allow_smem(adj_tri_f64<TC>, pl.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    adj_tri_f64<TC><<<grid, pl.group * kAdjGroups, pl.smem, stream>>>(
+        lam_, g_, out_, L, nr, C, sgm, sgr, sgc, som, soc, ms, M);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -657,6 +1028,40 @@ int legendre_adj_tri_f64(const void* lam, const void* g, void* out, int L,
                           M, s);
   return launch_adj<32>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc, m,
                         M, s);
+}
+
+// The ring-parity modes (lam (M, L, ceil(nr / 2)), see synth_tri_f64 and
+// adj_tri_f64): arguments as above, flip selecting the table's opposite
+// reflection parity.
+int legendre_synth_par_f64(const void* lam, const void* x, void* out, int L,
+                           int nr, int C, long long sxm, long long sxc,
+                           const void* ms, int M, int flip, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* m = static_cast<const int*>(ms);
+  const double f = flip ? -1.0 : 1.0;
+  if (C <= 8)
+    return launch_synth<8, true>(lam, x, out, L, nr, C, sxm, sxc, m, M, s, f);
+  if (C <= 16)
+    return launch_synth<16, true>(lam, x, out, L, nr, C, sxm, sxc, m, M, s,
+                                  f);
+  return launch_synth<32, true>(lam, x, out, L, nr, C, sxm, sxc, m, M, s, f);
+}
+
+int legendre_adj_par_f64(const void* lam, const void* g, void* out, int L,
+                         int nr, int C, long long sgm, long long sgr,
+                         long long sgc, long long som, long long soc,
+                         const void* ms, int M, int flip, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* m = static_cast<const int*>(ms);
+  const double f = flip ? -1.0 : 1.0;
+  if (C <= 8)
+    return launch_adj<8, true>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc,
+                               m, M, s, f);
+  if (C <= 16)
+    return launch_adj<16, true>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
+                                soc, m, M, s, f);
+  return launch_adj<32, true>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc,
+                              m, M, s, f);
 }
 
 // Threads per block and dynamic shared memory (bytes) of one launch at

@@ -13,6 +13,11 @@ and cut-decomposed, on one of
           "planckish" an apodized +-11.5 deg band plus 200 point-source
                      holes (bench.py:160-213)
 
+with bench.py's transform options (``build``'s ``table_dtype``,
+``fft_mode``, ``ring_split``: BENCH_TABLE_DTYPE, BENCH_FFT_MODE,
+BENCH_RING_SPLIT; "fft_mode" on GL only, as in bench.py) and, with
+``cut=False`` (BENCH_CUT=0), without the cut decomposition: the
+likelihood then runs through the full grid's transforms,
 sampled by ``ASISGibbs`` with bench.py's bins and blocks (EE unit bins in
 one block; BB unit bins to l = 396 then 16 wide bins, a 277-bin block and
 133 single-bin blocks), or by ``PNCPGibbs`` on the same bins with a
@@ -127,14 +132,19 @@ def binned_mean(per_ell, bins):
 
 
 def flagship_sht(grid: str, lmax: int = 512, device="cuda",
-                 dtype=torch.float32):
+                 dtype=torch.float32, table_dtype=None,
+                 fft_mode: str = "matmul", ring_split: bool = False):
     """The full grid's spin-2 transform: GL, or HEALPix nside lmax / 2 in
-    the padded layout."""
+    the padded layout (which takes no ``fft_mode``)."""
     if grid == "healpix":
         return make_healpix_sht(lmax // 2, lmax, dtype=dtype, spin2=True,
-                                layout="padded", device=device)
+                                layout="padded", device=device,
+                                table_dtype=table_dtype,
+                                ring_split=ring_split)
     if grid == "gl":
-        return make_sht(lmax, dtype=dtype, spin2=True, device=device)
+        return make_sht(lmax, dtype=dtype, spin2=True, device=device,
+                        fft_mode=fft_mode, table_dtype=table_dtype,
+                        ring_split=ring_split)
     raise ValueError(f"grid={grid!r}; one of {GRIDS}")
 
 
@@ -154,10 +164,10 @@ def flagship_mask(grid: str, mask: str, sht) -> np.ndarray:
 
 
 def dataset(grid: str, mask: str, lmax: int = 512, device="cuda",
-            dtype=torch.float32, sht=None, seed: int = 0):
-    """The flagship dataset, cut-decomposed: (model, per-ell D_ell (2,
-    lmax + 1) of the sky, the mask).  ``sht``: the full grid's transform
-    when already built (``flagship_sht``)."""
+            dtype=torch.float32, sht=None, seed: int = 0, cut: bool = True):
+    """The flagship dataset, cut-decomposed unless ``cut`` is False:
+    (model, per-ell D_ell (2, lmax + 1) of the sky, the mask).  ``sht``:
+    the full grid's transform when already built (``flagship_sht``)."""
     if sht is None:
         sht = flagship_sht(grid, lmax, device, dtype)
     m = flagship_mask(grid, mask, sht)
@@ -166,7 +176,7 @@ def dataset(grid: str, mask: str, lmax: int = 512, device="cuda",
     model, _ = simulate_dataset(lmax, 2, dls, NOISE_SIGMA2,
                                 fwhm_radians=np.radians(FWHM_DEG), mask=m,
                                 dtype=dtype, sht=sht, gen=gen)
-    return with_cut_decomposition(model), dls, m
+    return (with_cut_decomposition(model) if cut else model), dls, m
 
 
 def asis_bins_blocks(lmax: int):
@@ -271,13 +281,21 @@ def start_state(scheme, dl0, nchains: int, gen=None):
 
 def build(grid: str, mask: str, cr: str = "aux_mala", device="cuda",
           lmax: int = 512, seed: bool = False, records=RECORDS,
-          dtype=torch.float32, scheme: str = "asis", lcut=PNCP_LCUT):
+          dtype=torch.float32, scheme: str = "asis", lcut=PNCP_LCUT,
+          table_dtype=None, fft_mode: str = "matmul",
+          ring_split: bool = False, cut: bool = True):
     """bench.py's ``scheme`` ("asis" or "pncp", with its per-field
     ``lcut``) for (grid, mask, cr) on its dataset, and its D_ell start:
-    (scheme, dl0)."""
+    (scheme, dl0).  ``table_dtype``, ``fft_mode`` and ``ring_split`` build
+    the full transform (``flagship_sht``), ``cut`` the cut decomposition;
+    the tuned record is the same: the options change how the posterior is
+    computed, not the posterior."""
     if scheme not in ("asis", "pncp"):
         raise ValueError(f"scheme={scheme!r}; one of asis, pncp")
-    model, dls, _ = dataset(grid, mask, lmax, device, dtype)
+    sht = flagship_sht(grid, lmax, device, dtype, table_dtype, fft_mode,
+                       ring_split)
+    model, dls, _ = dataset(grid, mask, lmax, device, dtype, sht=sht,
+                            cut=cut)
     if scheme == "pncp":
         return pncp_setup(model, dls, grid, mask, cr, seed, records, lcut)
     return asis_setup(model, dls, grid, mask, cr, seed, records)

@@ -43,15 +43,19 @@ __all__ = ["model_from_numpy", "state_from_numpy", "tuned_proposal_sigmas",
 def model_from_numpy(arrays: dict, device="cuda",
                      dtype=torch.float64) -> SkyModel:
     """Build the port's SkyModel (full grid, no cut decomposition) from the
-    JAX model's fields given as numpy arrays."""
+    JAX model's fields given as numpy arrays.  The transform's options,
+    where given: "table_dtype", "m_block", "ring_split" and, on a
+    quadrature grid, "fft_mode" (``SHT``'s defaults otherwise)."""
     spin = int(arrays["spin"])
     bl = np.asarray(arrays["bl"])
     lmax = bl.shape[0] - 1
+    opts = {k: arrays[k] for k in ("table_dtype", "m_block", "ring_split")
+            if k in arrays}
     if arrays.get("grid") == "healpix":
         sht = make_healpix_sht(int(arrays["nside"]), lmax, dtype=dtype,
                                spin2=(spin >= 2),
                                layout=arrays.get("layout", "ring"),
-                               device=device)
+                               device=device, **opts)
     else:
         grid = SphereGrid(
             name="interop",
@@ -59,7 +63,8 @@ def model_from_numpy(arrays: dict, device="cuda",
             weights=np.asarray(arrays["weights"], dtype=np.float64),
             nphi=int(arrays["nphi"]),
             phi0=np.asarray(arrays["phi0"], dtype=np.float64))
-        sht = SHT(grid, lmax, dtype=dtype, spin2=(spin >= 2), device=device)
+        sht = SHT(grid, lmax, dtype=dtype, spin2=(spin >= 2), device=device,
+                  fft_mode=arrays.get("fft_mode", "matmul"), **opts)
     t = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
     noise = NoiseModel(tau=t(arrays["tau"]), q_map=t(arrays["q_map"]),
                        omega=float(arrays["omega"]))

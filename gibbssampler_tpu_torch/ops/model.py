@@ -506,7 +506,8 @@ def _attach_sparse(model, out, w_sp_flat, d_flat, ring_idx, theta, phi,
         ring_idx, theta, phi, flat_idx)
     sp_sht = PointSHT(theta_rows, phi_pad, valid, sht.lmax, dtype=dt,
                       spin0=model._t, spin2=model._e is not None,
-                      device=dev)
+                      device=dev, table_dtype=sht.table_dtype,
+                      m_block=sht.m_block)
     return dataclasses.replace(
         out, sp_sht=sp_sht, w_sp=t(w_sp_flat[:, gidx] * valid),
         d_sp=None if d_flat is None else t(d_flat[:, gidx] * valid))
@@ -536,8 +537,11 @@ def _quadrature_cut(model: SkyModel, sparse_split) -> SkyModel:
                                     _host(model.noise.q_map), sparse_split)
     sht = model.sht
     d_np = _host(model.d)
+    # the full transform's options, on the dense tables (the JAX package's)
     cut_sht = SHT(subgrid_rows(sht.grid, rows), sht.lmax, dtype=sht.dtype,
-                  spin2=model._e is not None, device=sht.device)
+                  spin2=model._e is not None, device=sht.device,
+                  fft_mode=sht.fft_mode, table_dtype=sht.table_dtype,
+                  m_block=sht.m_block, ring_split=False)
     out = _with_cut(model, cut_sht,
                     None if d_np is None else d_np[..., rows, :], w_cut)
     if w_sp is not None:
@@ -572,7 +576,9 @@ def _healpix_cut(model: SkyModel, sparse_split) -> SkyModel:
         nphi=nb, phi0=geo.phi0[rows])
     cut_sht = SHT(cut_grid, sht.lmax, dtype=sht.dtype,
                   spin2=model._e is not None, device=sht.device,
-                  allow_aliasing=True)
+                  allow_aliasing=True, fft_mode="matmul",
+                  table_dtype=sht.table_dtype, m_block=sht.m_block,
+                  ring_split=False)
     d_np = _host(model.d)
     out = _with_cut(model, cut_sht, None if d_np is None else d_np[..., idx],
                     w_cut)

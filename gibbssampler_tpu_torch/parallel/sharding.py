@@ -36,12 +36,13 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from ..sht.lcore import LegendreCore
-from ..sht.legendre_kernels import legendre_adj_tri, legendre_synth_tri
+from ..sht.legendre_kernels import (legendre_adj_par, legendre_adj_tri,
+                                    legendre_synth_par, legendre_synth_tri)
 
 __all__ = ["make_mesh", "chain_sharding", "chain_seed", "shard_sht",
            "sharded_run", "gather_chains", "m_rows"]
 
-_TABLES = ("lam0", "lam_p2", "lam_m2")
+_TABLES = ("lam0", "lam_p2", "lam_m2", "lam_w", "lam_x")
 
 
 def make_mesh(n_chains: int | None = None, n_m: int = 1,
@@ -158,7 +159,9 @@ class _MSlab:
     """The Legendre stage of an m-sharded ``LegendreCore`` copy: the
     tables hold this process's rows ``_ms`` only; the kernels run on them
     in their m-slab form and the rows are all-gathered over the "m" group,
-    each padded to ``_mpad`` rows, and put back in m order (``_mpos``)."""
+    each padded to ``_mpad`` rows, and put back in m order (``_mpos``).
+    A ring-split transform holds its rows of the half-ring tables and
+    launches the kernels' parity mode on them, in its slab form."""
 
     def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """This process's rows (M, ...) -> all L rows in m order."""
@@ -169,16 +172,23 @@ class _MSlab:
             t = _all_gather(t, self._mgroup, self._nm).flatten(0, 1)
         return t.index_select(0, self._mpos)
 
-    def _lsynth_stack(self, lam: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
+    def _lsynth_stack(self, lam: torch.Tensor, g2: torch.Tensor,
+                      flip: bool = False) -> torch.Tensor:
         L = self.lmax + 1
         batch = g2.shape[:-2]
         C = int(np.prod(batch))
         # this process's m rows of the (m, C, l) view: (M, C, l), contiguous
         x = g2.reshape(C, L, L).transpose(0, 1).index_select(0, self._mrow)
-        F = self._gather_rows(legendre_synth_tri(lam, x, self._ms))
+        if self.ring_split:
+            F = legendre_synth_par(lam, x, 2 * self.nrh + self.has_mid, flip,
+                                   self._ms)
+        else:
+            F = legendre_synth_tri(lam, x, self._ms)
+        F = self._gather_rows(F)
         return F.permute(2, 1, 0).reshape(batch + (F.shape[1], L))
 
-    def _ladj_stack(self, lam: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    def _ladj_stack(self, lam: torch.Tensor, g: torch.Tensor,
+                    flip: bool = False) -> torch.Tensor:
         L = self.lmax + 1
         batch = g.shape[:-2]
         nr = g.shape[-2]
@@ -186,7 +196,9 @@ class _MSlab:
         # this process's m columns in (m, C, r) order, as the (m, r, C) view
         gk = g.reshape(C, nr, L).permute(2, 0, 1) \
             .index_select(0, self._mrow).transpose(1, 2)
-        a = self._gather_rows(legendre_adj_tri(lam, gk, self._ms))
+        a = (legendre_adj_par(lam, gk, flip, self._ms) if self.ring_split
+             else legendre_adj_tri(lam, gk, self._ms))
+        a = self._gather_rows(a)
         return a.transpose(0, 1).reshape(batch + (L, L))
 
     def lsel_table(self, lam: torch.Tensor, j_idx) -> torch.Tensor:

@@ -419,11 +419,12 @@ def _per_ell(y, lmax):
 
 def _mdomain_eligible(model) -> bool:
     """Static eligibility of the m-domain singles sweep: azimuthally
-    uniform cut weights and a cut-ring nphi >= 2 lmax, so that the ring
-    Parseval identity is exact."""
+    uniform cut weights, dense (not ring-split) cut tables and a cut-ring
+    nphi >= 2 lmax, so that the ring Parseval identity is exact."""
     cut = model.cut_sht
     return (getattr(model, "cut_w_uniform", False)
             and cut is not None
+            and not getattr(cut, "ring_split", False)
             and getattr(cut, "nphi", 0) >= 2 * model.lmax)
 
 

@@ -227,40 +227,58 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
     """SHT on the HEALPix grid for one (nside, lmax, dtype, layout) on one
     device; the method surface of ``sht.transform.SHT`` with maps as flat
     pixel vectors (..., npix) in RING order or (..., npadded) in the padded
-    section layout."""
+    section layout.
+
+    ``table_dtype``, ``m_block`` and ``ring_split`` are ``SHT``'s options:
+    the HEALPix rings mirror each other about the equator (4 nside - 1 of
+    them, the equator ring alone), so ``ring_split`` holds every table over
+    the 2 nside north rings."""
 
     map_ndim = 1   # maps are flat vectors
 
     def __init__(self, nside: int, lmax: int, dtype=torch.float32,
-                 spin2: bool = False, layout: str = "ring", device="cuda"):
+                 spin2: bool = False, layout: str = "ring", device="cuda",
+                 table_dtype=None, m_block: int = 128,
+                 ring_split: bool = False):
         lay = healpix_layout(nside, layout)
         geo = lay.geo
         self.lay = lay
         self.geo = geo
         self.nside = nside
         self.layout = layout
-        self._init_core(lmax, dtype, device)
+        self._init_core(lmax, geo.theta, dtype, device, table_dtype, m_block,
+                        ring_split)
         L = lmax + 1
         dev = self.device
         t = lambda a, dt=dtype: torch.as_tensor(np.ascontiguousarray(a),
                                                 dtype=dt, device=dev)
 
-        # the full grid's tables are (L, L, 4 nside - 1): built and moved to
-        # the device one at a time, so the host holds one float64 table
-        self.lam0 = self._table(legendre_table(lmax, np.cos(geo.theta)))
-        self.lam_p2 = self.lam_m2 = None
+        # the full grid's tables are (L, L, 4 nside - 1) (2 nside rings under
+        # the split): built and moved to the device one at a time, so the
+        # host holds one float64 table (two for the split's W and X)
+        theta_t = self._table_theta(geo.theta)
+        self.lam0 = self._table(legendre_table(lmax, np.cos(theta_t)))
+        self.lam_p2 = self.lam_m2 = self.lam_w = self.lam_x = None
         if spin2:
             norm = np.sqrt((2.0 * np.arange(L) + 1.0)
                            / (4.0 * np.pi))[None, :, None]
             # (+2 Lambda, -2 Lambda) = d^l_{m,-2}, d^l_{m,+2}, normalized
             # (sht.legendre.spin2_lambda_tables, one table at a time)
-            tabs = []
-            for s in (-2, 2):
-                tab = wigner_d_table(lmax, s, geo.theta)
-                tab *= norm
-                tabs.append(self._table(tab))
-                del tab
-            self.lam_p2, self.lam_m2 = tabs
+            if self.ring_split:
+                lp = wigner_d_table(lmax, -2, theta_t)
+                lp *= norm
+                lm_ = wigner_d_table(lmax, 2, theta_t)
+                lm_ *= norm
+                self._build_spin2_tables(lp, lm_)
+                del lp, lm_
+            else:
+                tabs = []
+                for s in (-2, 2):
+                    tab = wigner_d_table(lmax, s, theta_t)
+                    tab *= norm
+                    tabs.append(self._table(tab))
+                    del tab
+                self.lam_p2, self.lam_m2 = tabs
 
         self.nbelt = lay.nbelt
         self.belt_sl = slice(lay.ncap, lay.ncap + lay.nbelt)
@@ -436,7 +454,7 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
     # -- spin 2 ------------------------------------------------------------
 
     def _require_spin2(self):
-        if self.lam_p2 is None:
+        if self.lam_p2 is None and self.lam_w is None:
             raise ValueError("HealpixSHT built without spin2=True")
 
     def synthesis_spin2_state(self, e_state: torch.Tensor,
@@ -475,11 +493,14 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
 
 def make_healpix_sht(nside: int, lmax: int | None = None,
                      dtype=torch.float32, spin2: bool = False,
-                     layout: str = "ring", device="cuda") -> HealpixSHT:
+                     layout: str = "ring", device="cuda", table_dtype=None,
+                     m_block: int = 128,
+                     ring_split: bool = False) -> HealpixSHT:
     """Build a HEALPix SHT; lmax defaults to 2 nside.  ``layout="padded"``
     keeps maps in the padded section layout (``to_ring`` / ``from_ring``
-    at the boundaries)."""
+    at the boundaries); the options are ``HealpixSHT``'s."""
     if lmax is None:
         lmax = 2 * nside
     return HealpixSHT(nside, lmax, dtype=dtype, spin2=spin2, layout=layout,
-                      device=device)
+                      device=device, table_dtype=table_dtype,
+                      m_block=m_block, ring_split=ring_split)

@@ -1,16 +1,33 @@
 """Legendre-stage core of the transforms (PyTorch counterpart of
-``gibbssampler_tpu.sht.lcore``, dense-table path).
+``gibbssampler_tpu.sht.lcore``).
 
 The latitude stage is a per-m contraction between the triangular
 (m, l, ring) operator tables and (..., m, l) alm grids.  Each table is one
 dense (L, L, nr) tensor on the device; the kernels of
 ``sht.legendre_kernels`` skip its zero triangle (l < m) themselves, which
-replaces the JAX package's 128-wide m-block wedge slices.  The
-``_lsynth_stack`` / ``_ladj_stack`` pair below is the only route to the
+replaces the JAX package's m-block wedge slices (``m_block`` is kept, and
+passed on to derived transforms, but changes no result and no launch).
+The ``_lsynth_stack`` / ``_ladj_stack`` pair below is the only route to the
 Legendre stage: it folds every leading axis (chains, fields, re/im) into the
 kernels' batch axis C.  ``lsel_table`` is the only read of a table by ell
 (``_lsel_F`` and the blocked-MH engines' tables go through it); an
 m-sharded copy (``parallel.shard_sht``) overrides these three.
+
+The north/south ring-parity split (``ring_split``, on a grid whose rings
+mirror each other about the equator, ``grid_symmetric``): lambda_lm(pi -
+theta) = (-1)^(l+m) lambda_lm(theta), so each table is stored over the
+ceil(nr / 2) north rings only (the equator row last when nr is odd), and
+the pair above runs the kernels' parity mode
+(``legendre_synth_par`` / ``legendre_adj_par``), which mirrors the sums
+over even and odd l - m into the south rings itself: half the table bytes
+and, at spin 0, half the products.  Spin 2 uses the half-sum and
+half-difference tables W = (lam+2 + lam-2)/2 and X = (lam+2 - lam-2)/2,
+which have definite reflection parity (X the opposite one: ``flip``),
+contracted against the four-component [Ere, Eim, Bre, Bim] stack.  The
+JAX package's ``par_sign`` (the (-1)^m of the mirrored rows) lives in the
+kernels: in terms of l - m the sign does not depend on m.  The split has
+no ell-selected, binned or shared-stack syntheses; those raise, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -21,17 +38,59 @@ import numpy as np
 import torch
 
 from ..harmonics.gridstate import flat_to_state, state_masks, state_to_flat
-from .legendre_kernels import legendre_adj_tri, legendre_synth_tri
+from .legendre_kernels import (legendre_adj_par, legendre_adj_tri,
+                               legendre_synth_par, legendre_synth_tri)
 
-__all__ = ["FlatAlmMethods", "LegendreCore"]
+__all__ = ["FlatAlmMethods", "LegendreCore", "grid_symmetric"]
+
+_NO_LSEL = "ell-selected synthesis requires ring_split=False tables"
+
+
+def grid_symmetric(theta) -> bool:
+    """True when ring r mirrors ring nrings-1-r about the equator; only
+    theta symmetry matters: weights and phi0 enter per-ring stages that
+    commute with the split."""
+    th = np.asarray(theta)
+    if th.shape[0] < 2:
+        return False
+    return bool(np.allclose(th + th[::-1], np.pi, rtol=0, atol=1e-12))
+
+
+def resolve_table_dtype(table_dtype, dtype):
+    """The operator tables' dtype: None (the compute dtype) or the compute
+    dtype itself, as a torch dtype or its name.  Another dtype raises
+    NotImplementedError: tables stored in fewer bits (bfloat16 with float32
+    accumulation in the JAX package) need tensor-core kernels of their
+    own, the next slice in ROADMAP.md."""
+    if table_dtype is None:
+        return dtype
+    td = getattr(table_dtype, "name", table_dtype)   # a numpy dtype
+    if isinstance(td, str):
+        td = getattr(torch, td, None)
+    if td != dtype:
+        raise NotImplementedError(
+            f"table_dtype={table_dtype} with compute dtype {dtype}: tables "
+            "in another dtype than the compute dtype (the JAX package's "
+            "bfloat16 tables) need Legendre kernels of their own, queued "
+            "in ROADMAP.md as the next slice")
+    return dtype
 
 
 class LegendreCore:
     """Mixin holding the Legendre contraction and the state packing."""
 
-    def _init_core(self, lmax: int, dtype, device):
+    def _init_core(self, lmax: int, theta, dtype, device, table_dtype=None,
+                   m_block: int = 128, ring_split: bool = False):
         self.lmax = lmax
         self.dtype = dtype
+        self.table_dtype = resolve_table_dtype(table_dtype, dtype)
+        self.m_block = int(m_block)
+        nr = np.asarray(theta).shape[0]
+        # a grid that is not equator-symmetric takes the dense tables, as
+        # in the JAX package
+        self.ring_split = bool(ring_split) and grid_symmetric(theta)
+        self.nrh = nr // 2
+        self.has_mid = bool(nr % 2)
         self.device = torch.device(device)
         sm = state_masks(lmax)
         self.pack_in = torch.as_tensor(sm.in_scale, dtype=dtype,
@@ -45,15 +104,38 @@ class LegendreCore:
         self.pos = torch.as_tensor(np.where(m == 0, 0.0, 1.0), dtype=dtype,
                                    device=self.device)
 
+    def _table_theta(self, theta) -> np.ndarray:
+        """The rings the tables are built at: all, or under the split the
+        ceil(nr / 2) north ones."""
+        theta = np.asarray(theta, dtype=np.float64)
+        return theta[: self.nrh + self.has_mid] if self.ring_split else theta
+
     def _table(self, tab) -> torch.Tensor:
-        """fp64 numpy (L, L, nr) table -> contiguous device tensor."""
-        return torch.as_tensor(tab, dtype=self.dtype,
+        """fp64 numpy (L, L, nt) table at ``_table_theta``'s rings ->
+        contiguous device tensor."""
+        return torch.as_tensor(tab, dtype=self.table_dtype,
                                device=self.device).contiguous()
+
+    def _build_spin2_tables(self, lp, lm_):
+        """Store (lam_p2, lam_m2) dense or (lam_w, lam_x) under the split,
+        from the (+2, -2) tables at ``_table_theta``'s rings (fp64 numpy;
+        both are overwritten)."""
+        self.lam_p2 = self.lam_m2 = self.lam_w = self.lam_x = None
+        if self.ring_split:
+            w = lp + lm_
+            w *= 0.5
+            lp -= lm_
+            lp *= 0.5
+            self.lam_w, self.lam_x = self._table(w), self._table(lp)
+        else:
+            self.lam_p2, self.lam_m2 = self._table(lp), self._table(lm_)
 
     def lsel_table(self, lam: torch.Tensor, j_idx) -> torch.Tensor:
         """The (L, J, nr) slice of a dense (L, L, nr) table at the selected
         ells ``j_idx`` (a host array or a tensor; zero where m > ell, as
         the table itself is)."""
+        if self.ring_split:
+            raise NotImplementedError(_NO_LSEL)
         if not isinstance(j_idx, torch.Tensor):
             j_idx = torch.as_tensor(np.asarray(j_idx, dtype=np.int64))
         return lam[:, j_idx.to(lam.device), :]
@@ -73,13 +155,20 @@ class LegendreCore:
 
     # -- contraction cores -------------------------------------------------
 
-    def _lsynth_stack(self, lam: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
-        """(..., c, L, L) [.., m, l] grids -> F (..., c, nr, L) [.., r, m]."""
+    def _lsynth_stack(self, lam: torch.Tensor, g2: torch.Tensor,
+                      flip: bool = False) -> torch.Tensor:
+        """(..., c, L, L) [.., m, l] grids -> F (..., c, nr, L) [.., r, m].
+        ``flip``: the table's opposite reflection parity (the spin-2 X
+        table; meaningful under the split only)."""
         L = self.lmax + 1
         batch = g2.shape[:-2]
         C = math.prod(batch)
         x = g2.reshape(C, L, L).transpose(0, 1)     # (m, C, l) view, no copy
-        out = legendre_synth_tri(lam, x)            # (m, nr, C)
+        if self.ring_split:
+            out = legendre_synth_par(lam, x, 2 * self.nrh + self.has_mid,
+                                     flip)
+        else:
+            out = legendre_synth_tri(lam, x)        # (m, nr, C)
         nr = out.shape[1]
         return out.permute(2, 1, 0).reshape(batch + (nr, L))
 
@@ -96,6 +185,8 @@ class LegendreCore:
         c, m) grid columns are small), so the large tensor is written once,
         contiguously, and the bins' segment sums are one matrix product
         over J."""
+        if self.ring_split:
+            raise NotImplementedError(_NO_LSEL)
         if not isinstance(j_idx, torch.Tensor):
             j_idx = torch.as_tensor(np.asarray(j_idx, dtype=np.int64))
         idx = j_idx.to(g2.device)
@@ -123,6 +214,9 @@ class LegendreCore:
         through ``_lsel_F``: the selected (b, l) pairs become the gathered
         ells and their segment matrix, so no (..., b, m, l) or (b, m, l, r)
         intermediate is formed."""
+        if self.ring_split:
+            raise NotImplementedError(
+                "binned synthesis requires ring_split=False tables")
         sel = np.asarray(sel.detach().cpu() if isinstance(sel, torch.Tensor)
                          else sel, dtype=np.float64)
         bs, ls = np.nonzero(sel)                       # bin-major order
@@ -130,16 +224,19 @@ class LegendreCore:
         seg[np.arange(ls.size), bs] = sel[bs, ls]
         return self._lsel_F(lam, g2, ls, seg)
 
-    def _ladj_stack(self, lam: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    def _ladj_stack(self, lam: torch.Tensor, g: torch.Tensor,
+                    flip: bool = False) -> torch.Tensor:
         """(..., c, nr, L) [.., r, m] ring grids -> (..., c, L, L) alm grids,
-        contiguous."""
+        contiguous; ``flip`` as in ``_lsynth_stack``."""
         L = self.lmax + 1
         batch = g.shape[:-2]
         nr = g.shape[-2]
         C = math.prod(batch)
         # one copy into (m, C, r) order, passed as the (m, r, C) view
         gk = g.reshape(C, nr, L).permute(2, 0, 1).contiguous().transpose(1, 2)
-        out = legendre_adj_tri(lam, gk)   # (m, C, l) view of a (C, m, l) tensor
+        # (m, C, l) view of a (C, m, l) tensor
+        out = (legendre_adj_par(lam, gk, flip) if self.ring_split
+               else legendre_adj_tri(lam, gk))
         return out.transpose(0, 1).reshape(batch + (L, L))
 
     def _ladj2(self, lam, Gre, Gim):
@@ -151,7 +248,9 @@ class LegendreCore:
 
     def _spin2_stacks(self, e_state, b_state):
         """(ap, am) Legendre-stage input stacks of a+ = -(E + iB),
-        a- = -(E - iB)."""
+        a- = -(E - iB) (dense tables only)."""
+        if self.ring_split:
+            raise NotImplementedError("stack sharing needs dense tables")
         eg = self._state_grids(e_state)
         bg = self._state_grids(b_state)
         ere, eim = eg[..., 0, :, :], eg[..., 1, :, :]
@@ -171,7 +270,19 @@ class LegendreCore:
     def _spin2_F(self, e_state, b_state):
         """(E, B) grid-packed states -> (Fp_re, Fp_im, Fm_re, Fm_im) ring
         Fourier coefficients of a+ through lam+2 and a- through lam-2."""
-        return self._spin2_F_stacks(*self._spin2_stacks(e_state, b_state))
+        if not self.ring_split:
+            return self._spin2_F_stacks(*self._spin2_stacks(e_state,
+                                                            b_state))
+        # lam_p2 = W + X, lam_m2 = W - X: two definite-parity half-ring
+        # contractions of the [Ere, Eim, Bre, Bim] stack, recombined
+        eg = self._state_grids(e_state)
+        bg = self._state_grids(b_state)
+        stack = torch.cat([eg, bg], dim=-3)
+        we, wei, wbr, wbi = self._lsynth_stack(self.lam_w, stack).unbind(-3)
+        xe, xei, xbr, xbi = self._lsynth_stack(self.lam_x, stack,
+                                               flip=True).unbind(-3)
+        return (-(we + xe) + (wbi + xbi), -(wei + xei) - (wbr + xbr),
+                -(we - xe) - (wbi - xbi), -(wei - xei) + (wbr - xbr))
 
     def _spin2_agrids(self, Cp_re, Cp_im, Cm_re, Cm_im):
         """Ring coefficients -> (ap_re, ap_im, am_re, am_im) alm grids (the
@@ -191,8 +302,20 @@ class LegendreCore:
     def _spin2_alm(self, Cp_re, Cp_im, Cm_re, Cm_im):
         """Ring Fourier coefficients C+ = sum (Q+iU) e^{-im phi},
         C- = sum (Q+iU) e^{+im phi} -> (E, B) grid-packed states."""
-        return self._spin2_recombine(
-            *self._spin2_agrids(Cp_re, Cp_im, Cm_re, Cm_im))
+        if not self.ring_split:
+            return self._spin2_recombine(
+                *self._spin2_agrids(Cp_re, Cp_im, Cm_re, Cm_im))
+        # the transpose of the split ``_spin2_F``
+        stack = torch.stack([Cp_re + Cm_re, Cp_im - Cm_im, Cp_re - Cm_re,
+                             Cp_im + Cm_im], dim=-3)
+        AW = self._ladj_stack(self.lam_w, stack)
+        AX = self._ladj_stack(self.lam_x, stack, flip=True)
+        e_re = -0.5 * (AW[..., 0, :, :] + AX[..., 2, :, :])
+        e_im = -0.5 * (AW[..., 1, :, :] + AX[..., 3, :, :])
+        b_re = -0.5 * (AW[..., 3, :, :] + AX[..., 1, :, :])
+        b_im = 0.5 * (AW[..., 2, :, :] + AX[..., 0, :, :])
+        return (self._grids_to_state(torch.stack([e_re, e_im], dim=-3)),
+                self._grids_to_state(torch.stack([b_re, b_im], dim=-3)))
 
 
 class FlatAlmMethods:

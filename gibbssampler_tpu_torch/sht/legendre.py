@@ -1,9 +1,24 @@
-"""Associated-Legendre / Wigner-d operator tables (numpy, float64).
+"""Associated-Legendre / Wigner-d operator tables (float64, on the host).
 
 A copy of the numpy recurrences of ``gibbssampler_tpu.sht.legendre`` (the
 port must not import that package, whose ``sht/__init__`` imports jax).
 The tables are built once per (lmax, grid) on the host; the transform
 loads them to the device in its compute dtype.
+
+The table layer of the JAX package, ported:
+
+- the native engine: ``csrc/tables.cpp`` (a copy of the JAX package's
+  ``native/tables.cpp``, the same recurrences in C++ with OpenMP over m),
+  built with ``g++ -O3 -march=native -fopenmp`` at first use into the
+  package's ``_build/`` (keyed by a hash of the source and the flags) and
+  loaded with ctypes; ``legendre_table`` and ``wigner_d_table`` take it when
+  it loads.  Without it (no g++, a failed build) they take the numpy
+  recurrences below, the reference, after one line on stderr.
+- the disk cache: each table is kept in
+  ``$XDG_CACHE_HOME/gibbssampler_tpu_torch/tables`` (``~/.cache`` without
+  the variable) as a .npy file keyed by the JAX package's (kind, lmax,
+  extra, sha1 of the nodes); ``CACHE = False`` turns it off, and so does
+  GIBBSSAMPLER_TORCH_TABLE_CACHE=0 in the environment at import.
 
 Conventions
 -----------
@@ -15,17 +30,107 @@ Conventions
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 from scipy.special import gammaln
 
 __all__ = ["legendre_table", "wigner_d_table", "spin2_lambda_tables"]
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+_SRC = _PKG / "csrc" / "tables.cpp"
+_BUILD_DIR = _PKG / "_build"
+_GXX = ("g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
+_native = {"lib": None, "tried": False}
+# the disk cache of the tables; False: every table is computed
+CACHE = os.environ.get("GIBBSSAMPLER_TORCH_TABLE_CACHE", "1") != "0"
+
+
+def native_engine():
+    """The native engine's library, built at first use; None where it
+    cannot be built or loaded (then the numpy recurrences serve)."""
+    if _native["tried"]:
+        return _native["lib"]
+    _native["tried"] = True
+    try:
+        tag = hashlib.sha256(" ".join(_GXX).encode()
+                             + _SRC.read_bytes()).hexdigest()[:16]
+        so = _BUILD_DIR / f"tables_{tag}.so"
+        if not so.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            subprocess.run([*_GXX, str(_SRC), "-o", str(tmp)], check=True,
+                           capture_output=True, timeout=300)
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        arr = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        lib.gs_legendre_table.argtypes = [ctypes.c_int, ctypes.c_int, arr,
+                                          arr]
+        lib.gs_wigner_d_table.argtypes = [ctypes.c_int] * 3 + [arr, arr]
+        _native["lib"] = lib
+    except Exception as e:
+        print(f"gibbssampler_tpu_torch.sht.legendre: native table engine "
+              f"unavailable ({e}); using numpy", file=sys.stderr)
+    return _native["lib"]
+
+
+def _cache_dir() -> pathlib.Path:
+    d = pathlib.Path(os.environ.get("XDG_CACHE_HOME",
+                                    os.path.expanduser("~/.cache")))
+    return d / "gibbssampler_tpu_torch" / "tables"
+
+
+def _cached(kind: str, lmax: int, extra, nodes: np.ndarray, compute):
+    """The table ``compute()`` gives, through the disk cache keyed by
+    (kind, lmax, extra, the nodes): the precompute is O(lmax^2 nrings)
+    host work, the same in every run of one configuration."""
+    if not CACHE:
+        return compute()
+    h = hashlib.sha1(np.ascontiguousarray(nodes).tobytes()).hexdigest()[:16]
+    f = _cache_dir() / f"{kind}_{lmax}_{extra}_{h}.npy"
+    if f.exists():
+        try:
+            return np.load(f)
+        except Exception:
+            pass
+    out = compute()
+    try:
+        f.parent.mkdir(parents=True, exist_ok=True)
+        tmp = f.with_name(f"{f.stem}.{os.getpid()}.tmp.npy")
+        np.save(tmp, out)
+        os.replace(tmp, f)
+    except Exception:
+        pass
+    return out
 
 
 def legendre_table(lmax: int, x: np.ndarray) -> np.ndarray:
     """Orthonormal lambda_lm(x) for all 0 <= m <= l <= lmax.
 
     x: (nr,) cos(theta) ring nodes.  Returns (lmax+1, lmax+1, nr) float64,
-    [m, l, r]; entries with l < m are 0."""
+    [m, l, r]; entries with l < m are 0.  The native engine's where it
+    loads, else the numpy recurrence's; through the disk cache."""
+    x = np.asarray(x, dtype=np.float64)
+
+    def compute():
+        lib = native_engine()
+        if lib is None:
+            return _legendre_table_np(lmax, x)
+        xc = np.ascontiguousarray(x)
+        out = np.empty((lmax + 1, lmax + 1, xc.shape[0]))
+        lib.gs_legendre_table(lmax, xc.shape[0], xc, out)
+        return out
+
+    return _cached("leg", lmax, 0, x, compute)
+
+
+def _legendre_table_np(lmax: int, x: np.ndarray) -> np.ndarray:
+    """The numpy reference of ``legendre_table``."""
     x = np.asarray(x, dtype=np.float64)
     nr = x.shape[0]
     L = lmax + 1
@@ -72,8 +177,26 @@ def wigner_d_table(lmax: int, s: int, beta: np.ndarray) -> np.ndarray:
     """d^l_{m, s}(beta) for all m = 0..lmax, l = max(m,|s|)..lmax.
 
     Returns (lmax+1, lmax+1, nr) float64 [m, l, r]; entries with
-    l < max(m, |s|) are 0.  Upward three-term recurrence in l, seeded at
-    l0 = max(m, |s|) with the closed-form top-row values."""
+    l < max(m, |s|) are 0.  The native engine's where it loads, else the
+    numpy recurrence's; through the disk cache."""
+    beta = np.asarray(beta, dtype=np.float64)
+
+    def compute():
+        lib = native_engine()
+        if lib is None:
+            return _wigner_d_table_np(lmax, s, beta)
+        bc = np.ascontiguousarray(beta)
+        out = np.empty((lmax + 1, lmax + 1, bc.shape[0]))
+        lib.gs_wigner_d_table(lmax, s, bc.shape[0], bc, out)
+        return out
+
+    return _cached("wig", lmax, s, beta, compute)
+
+
+def _wigner_d_table_np(lmax: int, s: int, beta: np.ndarray) -> np.ndarray:
+    """The numpy reference of ``wigner_d_table``: upward three-term
+    recurrence in l, seeded at l0 = max(m, |s|) with the closed-form
+    top-row values."""
     beta = np.asarray(beta, dtype=np.float64)
     x = np.cos(beta)
     nr = beta.shape[0]

@@ -30,6 +30,27 @@ plain versions check it, the kernels read it as given.  So ``sht.lcore`` passes 
 permuted view, and gets them back the same way, without copying the batch.
 Any other layout raises ``ValueError``, on the CPU as on the card.
 
+The ring-parity mode (the ``_par`` functions), for a grid whose ring
+nr-1-r mirrors ring r about the equator: lam is (M, L, nh), the table at
+the nh = ceil(nr / 2) north rings (the equator last when nr is odd), and
+with lam_lm(pi - theta) = f (-1)^(l+m) lam_lm(theta), f = -1 for a table
+of the opposite reflection parity (``flip``, the spin-2 X table) and +1
+otherwise,
+
+    legendre_synth_par(lam, x, nr, flip):
+        out[m, r, c] = sum_{l >= m} lam[m, l, r] x[m, c, l]        (r < nh)
+        out[m, nr-1-r, c] = sum_{l >= m} f (-1)^(l+m) lam[m, l, r] x[m, c, l]
+    legendre_adj_par(lam, g, flip):
+        out[m, c, l] = sum_{r < nh} lam[m, l, r] (g[m, r, c]
+                       + f (-1)^(l+m) g[m, nr-1-r, c])  (the equator once)
+
+the dense kernels' functions on the full (L, L, nr) table, computed from
+the half one: each kernel reads a table entry once and keeps the sums over
+even and odd l - m apart.  These are the JAX package's split contractions
+(``gibbssampler_tpu/sht/lcore.py`` ``_lsynth_stack_sym`` /
+``_ladj_stack_sym``, einsums there).  Layouts, the slab form and the
+outputs are those of the dense kernels.
+
 The kernels (``csrc/``; design and bounds are noted in each source) are
 compiled with nvcc for sm_90a at first use, into ``_build/`` beside the
 package, keyed by a hash of every source and the flags, and loaded with
@@ -38,7 +59,8 @@ cores), ``legendre_tri_f64.cu`` the float64 ones (streaming the table
 through a ``cp.async`` ring to the FMA pipes).  A wrapper
 takes the plain ``torch.einsum`` version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises.  Each wrapper counts its
-kernel launches in ``<wrapper>.launches``, those of the float64 kernel
+kernel launches in ``<wrapper>.launches`` (the parity wrappers apart from
+the dense ones), those of the float64 kernel
 alone also in ``<wrapper>.launches_f64``, and each launch once more by its
 shape: a full-table launch in ``<wrapper>.shapes`` ({(L, nr, C, dtype):
 launches}), a slab launch in ``<wrapper>.slabs`` ({(L, M, nr, C, dtype):
@@ -59,6 +81,8 @@ import torch
 
 __all__ = ["legendre_synth_tri", "legendre_adj_tri",
            "legendre_synth_tri_plain", "legendre_adj_tri_plain",
+           "legendre_synth_par", "legendre_adj_par",
+           "legendre_synth_par_plain", "legendre_adj_par_plain",
            "build", "f32_dynamic_smem", "reset_launch_counts"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
@@ -70,13 +94,20 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (lam, b, out, L, nr, C, strides, ms, M, stream); ms NULL for the full table
 _SYNTH_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 2 + [_P, _I, _P]
 _ADJ_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 5 + [_P, _I, _P]
+# the parity modes: (..., ms, M, flip, stream)
+_SYNTH_PAR_ARGS = _SYNTH_ARGS[:-1] + [_I, _P]
+_ADJ_PAR_ARGS = _ADJ_ARGS[:-1] + [_I, _P]
 # source (csrc/<stem>.cu) -> its entry points and their argument types
 _LIBS = {
     "legendre_tri": {"legendre_synth_tri_f32": _SYNTH_ARGS,
                      "legendre_adj_tri_f32": _ADJ_ARGS,
+                     "legendre_synth_par_f32": _SYNTH_PAR_ARGS,
+                     "legendre_adj_par_f32": _ADJ_PAR_ARGS,
                      "legendre_tri_f32_smem": [_I]},
     "legendre_tri_f64": {"legendre_synth_tri_f64": _SYNTH_ARGS,
                          "legendre_adj_tri_f64": _ADJ_ARGS,
+                         "legendre_synth_par_f64": _SYNTH_PAR_ARGS,
+                         "legendre_adj_par_f64": _ADJ_PAR_ARGS,
                          "legendre_tri_f64_plan": [_I] * 3},
 }
 _fns: dict = {}
@@ -168,7 +199,8 @@ def f64_plan(nr: int, C: int) -> dict:
 
 
 def reset_launch_counts() -> None:
-    for fn in (legendre_synth_tri, legendre_adj_tri):
+    for fn in (legendre_synth_tri, legendre_adj_tri, legendre_synth_par,
+               legendre_adj_par):
         fn.launches = fn.launches_f64 = 0
         fn.shapes = collections.Counter()
         fn.slabs = collections.Counter()
@@ -202,6 +234,46 @@ def legendre_adj_tri_plain(lam: torch.Tensor, g: torch.Tensor,
     return torch.einsum("mlr,mrc->mcl", lam, g)
 
 
+def _parity_halves(lam: torch.Tensor, ms: torch.Tensor | None):
+    """(lam with l - m odd set to zero, lam with l - m even set to zero),
+    with the slab's triangle l < ms[i] zero too."""
+    M, L = lam.shape[:2]
+    if ms is not None:
+        lam = _tri_rows(lam, ms)
+        m = ms.to(lam.device, torch.int64)
+    else:
+        m = torch.arange(M, device=lam.device)
+    odd = ((torch.arange(L, device=lam.device)[None, :] - m[:, None]) % 2
+           ).to(lam.dtype)[:, :, None]
+    return lam * (1 - odd), lam * odd
+
+
+def legendre_synth_par_plain(lam: torch.Tensor, x: torch.Tensor, nr: int,
+                             flip: bool = False,
+                             ms: torch.Tensor | None = None) -> torch.Tensor:
+    nh = lam.shape[2]
+    lam_e, lam_o = _parity_halves(lam, ms)
+    se = torch.einsum("mlr,mcl->mrc", lam_e, x)
+    so = torch.einsum("mlr,mcl->mrc", lam_o, x)
+    south = (so - se if flip else se - so)[:, : nr - nh].flip(1)
+    return torch.cat([se + so, south], dim=1)
+
+
+def legendre_adj_par_plain(lam: torch.Tensor, g: torch.Tensor,
+                           flip: bool = False,
+                           ms: torch.Tensor | None = None) -> torch.Tensor:
+    nh = lam.shape[2]
+    gn = g[:, :nh]
+    # the south mirror of north ring r < nr - nh; none for the equator
+    gs = torch.zeros_like(gn)
+    gs[:, : g.shape[1] - nh] = g[:, nh:].flip(1)
+    if flip:
+        gs = -gs
+    lam_e, lam_o = _parity_halves(lam, ms)
+    return (torch.einsum("mlr,mrc->mcl", lam_e, gn + gs)
+            + torch.einsum("mlr,mrc->mcl", lam_o, gn - gs))
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -211,57 +283,71 @@ def _unit(t: torch.Tensor, dim: int) -> bool:
 
 
 def _check_layout(kind: str, lam: torch.Tensor, b: torch.Tensor,
-                  ms: torch.Tensor | None = None) -> None:
-    """Shapes and the layouts the kernels take; raises ValueError."""
-    M, L, nr = lam.shape
+                  ms: torch.Tensor | None = None,
+                  nr: int | None = None) -> None:
+    """Shapes and the layouts the kernels take; raises ValueError.  ``nr``:
+    the output's rings (the synthesis parity mode), of which lam holds the
+    ceil(nr / 2) north ones."""
+    name = f"legendre_{kind}_{'tri' if nr is None else 'par'}"
+    M, L, nt = lam.shape
     C = b.shape[1] if kind == "synth" else b.shape[-1]
-    want = (M, C, L) if kind == "synth" else (M, nr, C)
+    if kind == "adj" and nr is not None:
+        nr = b.shape[1]
+    want = (M, C, L) if kind == "synth" else (M, nr or nt, C)
     if (M != L if ms is None else M > L) or tuple(b.shape) != want:
-        raise ValueError(f"legendre_{kind}_tri: lam {tuple(lam.shape)} and "
+        raise ValueError(f"{name}: lam {tuple(lam.shape)} and "
                          f"{tuple(b.shape)} do not match (M, L, nr), "
                          f"{'(M, C, L)' if kind == 'synth' else '(M, nr, C)'}"
                          f" with M {'= L' if ms is None else '<= L'}")
+    if nr is not None and (nr + 1) // 2 != nt:
+        raise ValueError(f"{name}: lam {tuple(lam.shape)} holds {nt} rings,"
+                         f" not the ceil({nr} / 2) north ones of {nr}")
     if ms is not None and (ms.dtype != torch.int32 or ms.dim() != 1
                            or ms.shape[0] != M or not ms.is_contiguous()
                            or ms.device != lam.device):
-        raise ValueError(f"legendre_{kind}_tri: ms must be a contiguous "
+        raise ValueError(f"{name}: ms must be a contiguous "
                          f"int32 vector of the {M} slab rows on "
                          f"{lam.device}, not {ms.dtype} {tuple(ms.shape)} "
                          f"on {ms.device}")
     if not lam.is_contiguous():
-        raise ValueError(f"legendre_{kind}_tri: lam must be contiguous")
+        raise ValueError(f"{name}: lam must be contiguous")
     if kind == "synth" and not _unit(b, 2):
-        raise ValueError(f"legendre_synth_tri: x strides {b.stride()}; the "
+        raise ValueError(f"{name}: x strides {b.stride()}; the "
                          "l axis must have unit stride")
     if kind == "adj" and not (_unit(b, 1) or _unit(b, 2)):
-        raise ValueError(f"legendre_adj_tri: g strides {b.stride()}; the r "
+        raise ValueError(f"{name}: g strides {b.stride()}; the r "
                          "or the c axis must have unit stride")
 
 
 def _launch(kind: str, lam: torch.Tensor, b: torch.Tensor,
-            out: torch.Tensor, ms: torch.Tensor | None) -> None:
+            out: torch.Tensor, ms: torch.Tensor | None,
+            nr: int | None = None, flip: bool = False) -> None:
+    """One launch; ``nr`` (the output's rings) selects the parity mode."""
     if not _fns:
         build()
-    fn = _fns[f"legendre_{kind}_tri_"
+    fn = _fns[f"legendre_{kind}_{'tri' if nr is None else 'par'}_"
               f"{'f32' if lam.dtype == torch.float32 else 'f64'}"]
-    M, L, nr = lam.shape
+    M, L, nt = lam.shape
     # strides of size-1 axes are free in torch; the kernels index them at 0
     sb = [1 if size == 1 else s for size, s in zip(b.shape, b.stride())]
     if kind == "synth":
         C, args = b.shape[1], sb[:2]
     else:
         C, args = b.shape[2], sb + [out.stride(0), out.stride(1)]
+    tail = [] if nr is None else [int(flip)]
     with torch.cuda.device(lam.device):
         stream = torch.cuda.current_stream(lam.device).cuda_stream
-        err = fn(lam.data_ptr(), b.data_ptr(), out.data_ptr(), L, nr, C,
-                 *args, None if ms is None else ms.data_ptr(), M, stream)
+        err = fn(lam.data_ptr(), b.data_ptr(), out.data_ptr(), L,
+                 nt if nr is None else nr, C, *args,
+                 None if ms is None else ms.data_ptr(), M, *tail, stream)
     if err != 0:
-        raise RuntimeError(f"legendre_{kind}_tri: kernel launch failed with "
+        raise RuntimeError(f"{fn.__name__}: kernel launch failed with "
                            f"CUDA error {err}")
 
 
 def _count(fn, lam: torch.Tensor, nr: int, C: int, ms) -> None:
-    """One launch of ``fn``'s kernel on ``lam`` at (nr, C)."""
+    """One launch of ``fn``'s kernel on ``lam`` at (nr, C), nr the output's
+    rings."""
     M, L = lam.shape[:2]
     fn.launches += 1
     fn.launches_f64 += lam.dtype == torch.float64
@@ -271,12 +357,12 @@ def _count(fn, lam: torch.Tensor, nr: int, C: int, ms) -> None:
         fn.slabs[(L, M, nr, C, lam.dtype)] += 1
 
 
-def _check_card(kind: str, lam: torch.Tensor, b: torch.Tensor) -> None:
+def _check_card(name: str, lam: torch.Tensor, b: torch.Tensor) -> None:
     if lam.device != b.device or lam.device.type != "cuda":
-        raise ValueError(f"legendre_{kind}_tri: tensors on {lam.device} and "
+        raise ValueError(f"{name}: tensors on {lam.device} and "
                          f"{b.device}; both must be on one CUDA device")
     if lam.dtype != b.dtype or lam.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"legendre_{kind}_tri: dtypes {lam.dtype}, {b.dtype}; "
+        raise TypeError(f"{name}: dtypes {lam.dtype}, {b.dtype}; "
                         "the kernel takes float32 or float64, the same for both")
 
 
@@ -289,7 +375,7 @@ def legendre_synth_tri(lam: torch.Tensor, x: torch.Tensor,
     _check_layout("synth", lam, x, ms)
     if lam.device.type == "cpu" and x.device.type == "cpu":
         return legendre_synth_tri_plain(lam, x, ms)
-    _check_card("synth", lam, x)
+    _check_card("legendre_synth_tri", lam, x)
     M, _, nr = lam.shape
     out = torch.empty((M, nr, x.shape[1]), dtype=lam.dtype, device=lam.device)
     if out.numel():
@@ -310,7 +396,7 @@ def legendre_adj_tri(lam: torch.Tensor, g: torch.Tensor,
         # the kernel's layout: (C, M, L) memory
         return legendre_adj_tri_plain(lam, g, ms).transpose(0, 1) \
             .contiguous().transpose(0, 1)
-    _check_card("adj", lam, g)
+    _check_card("legendre_adj_tri", lam, g)
     M, L, nr = lam.shape
     C = g.shape[2]
     out = torch.empty((C, M, L), dtype=lam.dtype,
@@ -318,6 +404,46 @@ def legendre_adj_tri(lam: torch.Tensor, g: torch.Tensor,
     if out.numel():
         _launch("adj", lam, g, out, ms)
         _count(legendre_adj_tri, lam, nr, C, ms)
+    return out
+
+
+def legendre_synth_par(lam: torch.Tensor, x: torch.Tensor, nr: int,
+                       flip: bool = False,
+                       ms: torch.Tensor | None = None) -> torch.Tensor:
+    """The ring-parity synthesis (module docstring): lam (L, L, nh) at the
+    nh = ceil(nr / 2) north rings, x (L, C, L) with unit stride on l ->
+    (L, nr, C) over all nr rings.  With ``ms`` (M,) the slab form, as
+    ``legendre_synth_tri``'s."""
+    _check_layout("synth", lam, x, ms, nr)
+    if lam.device.type == "cpu" and x.device.type == "cpu":
+        return legendre_synth_par_plain(lam, x, nr, flip, ms)
+    _check_card("legendre_synth_par", lam, x)
+    M = lam.shape[0]
+    out = torch.empty((M, nr, x.shape[1]), dtype=lam.dtype, device=lam.device)
+    if out.numel():
+        _launch("synth", lam, x, out, ms, nr, flip)
+        _count(legendre_synth_par, lam, nr, x.shape[1], ms)
+    return out
+
+
+def legendre_adj_par(lam: torch.Tensor, g: torch.Tensor, flip: bool = False,
+                     ms: torch.Tensor | None = None) -> torch.Tensor:
+    """The ring-parity adjoint (module docstring): lam (L, L, nh), g (L,
+    nr, C) with nh = ceil(nr / 2) and unit stride on r or c -> (L, C, L), a
+    view of a contiguous (C, L, L) tensor.  With ``ms`` (M,) the slab form,
+    as ``legendre_adj_tri``'s."""
+    _check_layout("adj", lam, g, ms, g.shape[1])
+    if lam.device.type == "cpu" and g.device.type == "cpu":
+        return legendre_adj_par_plain(lam, g, flip, ms).transpose(0, 1) \
+            .contiguous().transpose(0, 1)
+    _check_card("legendre_adj_par", lam, g)
+    M, L = lam.shape[:2]
+    nr, C = g.shape[1], g.shape[2]
+    out = torch.empty((C, M, L), dtype=lam.dtype,
+                      device=lam.device).transpose(0, 1)
+    if out.numel():
+        _launch("adj", lam, g, out, ms, nr, flip)
+        _count(legendre_adj_par, lam, nr, C, ms)
     return out
 
 

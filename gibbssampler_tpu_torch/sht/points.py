@@ -70,16 +70,21 @@ class PointSHT(LegendreCore):
     Besides the transforms, the flat-slot view serves the blocked-MH table
     engine: the real points as one unpadded axis of length ``nslots``
     (``slot_row``, ``slot_col``), with per-slot trig tables ``cosF`` /
-    ``sinF`` (L, nslots)."""
+    ``sinF`` (L, nslots).
+
+    ``table_dtype`` and ``m_block`` are ``SHT``'s options; a point set is
+    never ring-split (``ring_split`` False), as in the JAX package."""
 
     def __init__(self, theta, phi, valid, lmax: int, dtype=torch.float32,
-                 spin0: bool = True, spin2: bool = False, device="cuda"):
+                 spin0: bool = True, spin2: bool = False, device="cuda",
+                 table_dtype=None, m_block: int = 128):
         theta = np.asarray(theta, np.float64)        # (nrows,)
         phi = np.asarray(phi, np.float64)            # (nrows, p)
         valid_np = np.asarray(valid, np.float64)
         if phi.ndim != 2 or phi.shape[0] != theta.shape[0]:
             raise ValueError("phi must be (nrows, p) matching theta")
-        self._init_core(lmax, dtype, device)
+        self._init_core(lmax, theta, dtype, device, table_dtype, m_block,
+                        ring_split=False)
         self.theta, self.phi = theta, phi
         self.nrows, self.p = int(phi.shape[0]), int(phi.shape[1])
         L = lmax + 1
@@ -93,10 +98,9 @@ class PointSHT(LegendreCore):
         self.valid = t(valid_np)
         self.lam0 = (self._table(legendre_table(lmax, np.cos(theta)))
                      if spin0 else None)
-        self.lam_p2 = self.lam_m2 = None
+        self.lam_p2 = self.lam_m2 = self.lam_w = self.lam_x = None
         if spin2:
-            lp, lm_ = spin2_lambda_tables(lmax, theta)
-            self.lam_p2, self.lam_m2 = self._table(lp), self._table(lm_)
+            self._build_spin2_tables(*spin2_lambda_tables(lmax, theta))
         vr, vc = np.nonzero(valid_np)
         self.nslots = int(vr.size)
         self.slot_row = torch.as_tensor(vr, dtype=torch.int64, device=dev)

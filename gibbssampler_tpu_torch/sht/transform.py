@@ -1,13 +1,27 @@
 """Spherical-harmonic transforms, spin-0 and spin-2 (PyTorch counterpart of
-``gibbssampler_tpu.sht.transform``, ``fft_mode="matmul"``).
+``gibbssampler_tpu.sht.transform``).
 
   synthesis  (alm -> map):  per-m Legendre contraction  ->  azimuthal stage
   analysis   (map -> alm):  azimuthal stage             ->  weighted Legendre
 
 The Legendre stage goes through the hand-written kernels
-(``sht.lcore`` -> ``sht.legendre_kernels``).  The azimuthal stage is the
-folded real cos/sin DFT as a ``torch.matmul``: a plain matrix product that
-the JAX package left to XLA.  On the Gauss-Legendre grid ``analysis`` is the
+(``sht.lcore`` -> ``sht.legendre_kernels``), on the full tables or, with
+``ring_split``, on the north half of an equator-symmetric grid.  The
+azimuthal stage has the JAX package's three forms (``fft_mode``):
+
+- "matmul" (default): the folded real cos/sin DFT as a ``torch.matmul``, a
+  plain matrix product that the JAX package left to XLA;
+- "fft": ``torch.fft.rfft`` / ``irfft`` for the spin-0 ring transforms
+  (the JAX package calls XLA's FFT there; its spin-2 stage stays
+  "matmul" in this mode, and so does the port's);
+- "ct": one Cooley-Tukey split nphi = n1 n2 as two real matrix-product
+  stages with a twiddle between them, the JAX package's form for backends
+  without an FFT; it falls back to "matmul" when nphi has no useful
+  factorization.
+
+The ring-domain helpers of the blocked-MH engines (``ring_cs_of_maps``)
+stay "matmul" in every mode, as in the JAX package.
+On the Gauss-Legendre grid ``analysis`` is the
 exact inverse of ``synthesis`` and ``adjoint_synthesis`` its exact
 transpose.  The alm format is the grid-packed state (harmonics.gridstate);
 maps are (..., nrings, nphi) real tensors, with any leading batch axes.
@@ -35,6 +49,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["SHT", "make_sht"]
 
+FFT_MODES = ("matmul", "fft", "ct")
+
 # (sign_p, sign_m) of ``SHT.lsel_grid_spin2_single`` for an E-only and a
 # B-only input
 SPIN2_SINGLE_SIGNS = {"e": (-1.0, -1.0), "b": (1.0, -1.0)}
@@ -47,21 +63,36 @@ class SHT(FlatAlmMethods, LegendreCore):
     are exact on any nphi; only analysis as the inverse needs
     nphi > 2 lmax.  With the flag a grid with nphi <= 2 lmax + 1 is taken
     for synthesis and its adjoint (the floor transform over HEALPix belt
-    rows, nphi = 2 lmax), and ``analysis_*`` raise."""
+    rows, nphi = 2 lmax), and ``analysis_*`` raise.
+
+    The JAX package's construction options, with its defaults:
+    ``fft_mode`` ("matmul", "fft" or "ct": the module docstring);
+    ``table_dtype`` (None: the compute dtype, the only one taken;
+    ``sht.lcore.resolve_table_dtype``); ``m_block`` (the JAX package's
+    wedge m-blocking; stored and passed on to derived transforms, and no
+    value of it changes a result or a launch: the kernels skip the l < m
+    triangle row by row); ``ring_split`` (the north/south parity split,
+    ``sht.lcore``; False on a grid that is not equator-symmetric)."""
 
     def __init__(self, grid: SphereGrid, lmax: int, dtype=torch.float32,
                  spin2: bool = False, device="cuda",
-                 allow_aliasing: bool = False):
+                 allow_aliasing: bool = False, fft_mode: str = "matmul",
+                 table_dtype=None, m_block: int = 128,
+                 ring_split: bool = False):
+        if fft_mode not in FFT_MODES:
+            raise ValueError(f"fft_mode={fft_mode!r}; one of {FFT_MODES}")
         self.grid = grid
         self.allow_aliasing = bool(allow_aliasing)
-        self._init_core(lmax, dtype, device)
+        self._init_core(lmax, grid.theta, dtype, device, table_dtype,
+                        m_block, ring_split)
         L = lmax + 1
         if grid.nphi < 2 * lmax + 2 and not allow_aliasing:
             raise ValueError(
                 f"grid nphi={grid.nphi} too small for lmax={lmax}; "
                 f"need >= {2 * lmax + 2}")
         dev = self.device
-        self.lam0 = self._table(legendre_table(lmax, np.cos(grid.theta)))
+        theta_t = self._table_theta(grid.theta)
+        self.lam0 = self._table(legendre_table(lmax, np.cos(theta_t)))
         # quadrature weights including the 2 pi / nphi azimuthal factor
         self.wq = torch.as_tensor(grid.weights * (2.0 * np.pi / grid.nphi),
                                   dtype=dtype, device=dev)
@@ -80,11 +111,15 @@ class SHT(FlatAlmMethods, LegendreCore):
         self.nphi_half = nh
         self.dft_cos = torch.as_tensor(np.cos(ang2), dtype=dtype, device=dev)
         self.dft_sin = torch.as_tensor(np.sin(ang2), dtype=dtype, device=dev)
-        self.lam_p2 = self.lam_m2 = None
+        self.fft_mode = fft_mode
+        self._ct = None
+        if fft_mode == "ct":
+            self._ct = _ct_setup(grid.nphi, L, dtype, dev)
+            if self._ct is None:
+                self.fft_mode = "matmul"
+        self.lam_p2 = self.lam_m2 = self.lam_w = self.lam_x = None
         if spin2:
-            lp, lm_ = spin2_lambda_tables(lmax, grid.theta)
-            self.lam_p2 = self._table(lp)
-            self.lam_m2 = self._table(lm_)
+            self._build_spin2_tables(*spin2_lambda_tables(lmax, theta_t))
 
     # -- azimuthal stage (real arithmetic) ---------------------------------
 
@@ -108,19 +143,42 @@ class SHT(FlatAlmMethods, LegendreCore):
         hi = F.pad(rev[..., :-1], (1, 1))
         return lo + hi, lo - hi
 
+    def _halfspec_to_real(self, Are, Aim):
+        """f[..., j] = sum_m Are cos(m theta_j) - Aim sin(m theta_j) over
+        the ring angle theta_j = 2 pi j / nphi, m < L: "ct" or else the
+        folded DFT matrices."""
+        if self.fft_mode == "ct":
+            return _ct_halfspec_to_real(self._ct, Are, Aim)
+        C = torch.matmul(Are, self.dft_cos)
+        S = torch.matmul(Aim, self.dft_sin)
+        return self._unfold_half(C - S, C + S)
+
+    def _real_to_halfspec(self, maps):
+        """(C, S)[..., m] = (sum_j f cos(m theta_j), sum_j f sin(m theta_j)),
+        m < L: the transpose of ``_halfspec_to_real``."""
+        maps = maps.to(self.dtype)
+        if self.fft_mode == "ct":
+            return _ct_real_to_halfspec(self._ct, maps)
+        u, v = self._fold_half(maps)
+        return (torch.matmul(u, self.dft_cos.T),
+                torch.matmul(v, self.dft_sin.T))
+
     def _ring_ifft_real(self, Fre, Fim):
         """f[.., r, j] = sum_m (2 - delta_m0) (Fre cos(m phi_j) - Fim sin)."""
         Fre, Fim = self._rot(Fre, Fim, +1)
-        C = torch.matmul(Fre * self.cm, self.dft_cos)
-        S = torch.matmul(Fim * self.cm, self.dft_sin)
-        return self._unfold_half(C - S, C + S)
+        if self.fft_mode == "fft":
+            pad = (0, self.nphi // 2 + 1 - (self.lmax + 1))
+            Fc = torch.complex(F.pad(Fre, pad), F.pad(Fim, pad))
+            return torch.fft.irfft(Fc, n=self.nphi, dim=-1) * self.nphi
+        return self._halfspec_to_real(Fre * self.cm, Fim * self.cm)
 
     def _ring_fft_real(self, maps):
         """G_m = sum_j f e^{-i m phi_j}; returns (Gre, Gim), (..., nr, L)."""
-        u, v = self._fold_half(maps.to(self.dtype))
-        Gre = torch.matmul(u, self.dft_cos.T)
-        Gim = -torch.matmul(v, self.dft_sin.T)
-        return self._rot(Gre, Gim, -1)
+        if self.fft_mode == "fft":
+            G = torch.fft.rfft(maps.to(self.dtype), dim=-1)[..., : self.lmax + 1]
+            return self._rot(G.real, G.imag, -1)
+        C, S = self._real_to_halfspec(maps)
+        return self._rot(C, -S, -1)
 
     # -- spin 0 ------------------------------------------------------------
 
@@ -161,8 +219,14 @@ class SHT(FlatAlmMethods, LegendreCore):
     # -- spin 2 ------------------------------------------------------------
 
     def _require_spin2(self):
-        if self.lam_p2 is None:
+        if self.lam_p2 is None and self.lam_w is None:
             raise ValueError("SHT built without spin2=True")
+
+    def _require_dense_spin2(self, what: str):
+        if self.lam_p2 is None:
+            raise NotImplementedError(
+                f"{what} spin-2 synthesis requires ring_split=False"
+                + (" tables" if what == "binned" else ""))
 
     def synthesis_spin2_state(self, e_state: torch.Tensor,
                               b_state: torch.Tensor):
@@ -182,24 +246,16 @@ class SHT(FlatAlmMethods, LegendreCore):
         Aim = Fp_im + Fm_im * self.pos
         Bre = Fp_re - Fm_re * self.pos
         Bim = Fp_im - Fm_im * self.pos
-        qc = torch.matmul(Are, self.dft_cos)
-        qs = torch.matmul(Aim, self.dft_sin)
-        us = torch.matmul(Bre, self.dft_sin)
-        uc = torch.matmul(Bim, self.dft_cos)
-        q = self._unfold_half(qc - qs, qc + qs)
-        u = self._unfold_half(uc + us, uc - us)
-        return q, u
+        # Q = Re sum (Are + i Aim) w^mj ; U = Re sum (Bim - i Bre) w^mj
+        return (self._halfspec_to_real(Are, Aim),
+                self._halfspec_to_real(Bim, -Bre))
 
     def _spin2_ring_coefs(self, q_maps, u_maps):
         """(Q, U) maps -> unweighted (Cp_re, Cp_im, Cm_re, Cm_im) ring
         coefficients C+ = sum_j (Q + iU) e^{-im phi_j},
         C- = sum_j (Q + iU) e^{+im phi_j}."""
-        qu_, qv_ = self._fold_half(q_maps.to(self.dtype))
-        uu_, uv_ = self._fold_half(u_maps.to(self.dtype))
-        qc = torch.matmul(qu_, self.dft_cos.T)
-        qs = torch.matmul(qv_, self.dft_sin.T)
-        uc = torch.matmul(uu_, self.dft_cos.T)
-        us = torch.matmul(uv_, self.dft_sin.T)
+        qc, qs = self._real_to_halfspec(q_maps)
+        uc, us = self._real_to_halfspec(u_maps)
         Cp_re, Cp_im = self._rot(qc + us, uc - qs, -1)
         Cm_re, Cm_im = self._rot(qc - us, uc + qs, +1)
         return Cp_re, Cp_im, Cm_re, Cm_im
@@ -313,6 +369,7 @@ class SHT(FlatAlmMethods, LegendreCore):
         single-field grid (``lsel_grid_spin2_single``): ((Qc, Qs), (Uc,
         Us)), each (..., nb, nr, L)."""
         self._require_spin2()
+        self._require_dense_spin2("ell-selected")
         return self._spin2_lsel_cs(self._lsel_F(self.lam_p2, g, j_idx, seg),
                                    self._lsel_F(self.lam_m2, g, j_idx, seg),
                                    sign_p, sign_m)
@@ -322,6 +379,7 @@ class SHT(FlatAlmMethods, LegendreCore):
         """Per-bin ell-selected spin-2 synthesis of (E, B) in the ring
         half-spectrum basis: ((Qc, Qs), (Uc, Us)), each (..., nb, nr, L)."""
         self._require_spin2()
+        self._require_dense_spin2("ell-selected")
         ap, am = self._spin2_stacks(e_state, b_state)
         return self._spin2_lsel_cs(self._lsel_F(self.lam_p2, ap, j_idx, seg),
                                    self._lsel_F(self.lam_m2, am, j_idx, seg))
@@ -337,6 +395,7 @@ class SHT(FlatAlmMethods, LegendreCore):
         """Spin-2 synthesis of each ell subset of (E, B): (Q, U), each
         (..., nb, nr, nphi)."""
         self._require_spin2()
+        self._require_dense_spin2("binned")
         ap, am = self._spin2_stacks(e_state, b_state)
         Fp = self._lsynth_stack_binned(self.lam_p2, ap, sel)
         Fm = self._lsynth_stack_binned(self.lam_m2, am, sel)
@@ -345,8 +404,84 @@ class SHT(FlatAlmMethods, LegendreCore):
 
 
 def make_sht(lmax: int, grid: SphereGrid | None = None, dtype=torch.float32,
-             spin2: bool = False, device="cuda") -> SHT:
-    """Build an SHT for ``lmax`` (Gauss-Legendre grid by default)."""
+             spin2: bool = False, device="cuda", fft_mode: str = "matmul",
+             table_dtype=None, m_block: int = 128,
+             ring_split: bool = False) -> SHT:
+    """Build an SHT for ``lmax`` (Gauss-Legendre grid by default); the
+    options are ``SHT``'s."""
     if grid is None:
         grid = gauss_legendre_grid(lmax)
-    return SHT(grid, lmax, dtype=dtype, spin2=spin2, device=device)
+    return SHT(grid, lmax, dtype=dtype, spin2=spin2, device=device,
+               fft_mode=fft_mode, table_dtype=table_dtype, m_block=m_block,
+               ring_split=ring_split)
+
+
+class _CT:
+    """The mixed-radix azimuthal operator: DFT_n factored as two matrix
+    stages with a twiddle between them (n = n1 n2; m = n1 a + b; j = j2 +
+    n2 j1); for n ~ 2 lmax about 4x fewer products than the folded DFT."""
+
+    def __init__(self, n, n1, n2, A, L, dtype, device):
+        self.n, self.n1, self.n2, self.A, self.L = n, n1, n2, A, L
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        w2 = 2.0 * np.pi * (np.arange(A)[:, None] * np.arange(n2)[None, :]) \
+            / n2
+        self.W2c, self.W2s = t(np.cos(w2)), t(np.sin(w2))       # (A, n2)
+        tw = 2.0 * np.pi * (np.arange(n1)[:, None]
+                            * np.arange(n2)[None, :]) / n
+        self.TWc, self.TWs = t(np.cos(tw)), t(np.sin(tw))       # (n1, n2)
+        w1 = 2.0 * np.pi * (np.arange(n1)[:, None]
+                            * np.arange(n1)[None, :]) / n1
+        self.W1c, self.W1s = t(np.cos(w1)), t(np.sin(w1))       # (n1, n1)
+
+
+def _ct_setup(n, L, dtype, device):
+    """Pick n = n1 n2 minimizing 4 ceil(L / n1) + 2 n1; None if no useful
+    factorization exists."""
+    best = None
+    for n1 in range(2, n):
+        if n % n1:
+            continue
+        cost = 4 * -(-L // n1) + 2 * n1
+        if best is None or cost < best[0]:
+            best = (cost, n1)
+    if best is None or best[0] >= 2 * (n // 2 + 1) * L // n:
+        return None
+    n1 = best[1]
+    return _CT(n, n1, n // n1, -(-L // n1), L, dtype, device)
+
+
+def _ct_halfspec_to_real(ct, Gre, Gim):
+    """f[..., j] = Re sum_{m<L} (Gre + i Gim)[m] e^{2 pi i m j / n}."""
+    pad = ct.A * ct.n1 - ct.L
+    if pad:
+        Gre, Gim = F.pad(Gre, (0, pad)), F.pad(Gim, (0, pad))
+    Xre = Gre.reshape(Gre.shape[:-1] + (ct.A, ct.n1))
+    Xim = Gim.reshape(Xre.shape)
+    # stage 1 over a: (..., a, b) x (a, j2) -> (..., b, j2)
+    e = lambda x, w: torch.matmul(x.transpose(-1, -2), w)
+    T1re = e(Xre, ct.W2c) - e(Xim, ct.W2s)
+    T1im = e(Xre, ct.W2s) + e(Xim, ct.W2c)
+    T2re = T1re * ct.TWc - T1im * ct.TWs
+    T2im = T1re * ct.TWs + T1im * ct.TWc
+    # stage 2 over b: (..., b, j2) x (b, j1) -> (..., j1, j2), j = j2 + n2 j1
+    out = (torch.matmul(ct.W1c.T, T2re) - torch.matmul(ct.W1s.T, T2im))
+    return out.reshape(out.shape[:-2] + (ct.n,))
+
+
+def _ct_real_to_halfspec(ct, maps):
+    """(C, S)[..., m] = (sum_j f cos(2 pi m j / n), sum_j f sin(...)),
+    m < L: the exact transpose of ``_ct_halfspec_to_real``."""
+    x = maps.reshape(maps.shape[:-1] + (ct.n1, ct.n2))       # (..., j1, j2)
+    # (b, j1) x (..., j1, j2) -> (..., b, j2)
+    Ure = torch.matmul(ct.W1c, x)
+    Uim = -torch.matmul(ct.W1s, x)
+    Vre = Ure * ct.TWc + Uim * ct.TWs
+    Vim = Uim * ct.TWc - Ure * ct.TWs
+    # (..., b, j2) x (j2, a) -> (..., a, b)
+    g = lambda v, w: torch.matmul(v, w.T).transpose(-1, -2)
+    Cre = g(Vre, ct.W2c) + g(Vim, ct.W2s)
+    Cim = g(Vim, ct.W2c) - g(Vre, ct.W2s)
+    Cre = Cre.reshape(Cre.shape[:-2] + (ct.A * ct.n1,))[..., : ct.L]
+    Cim = Cim.reshape(Cim.shape[:-2] + (ct.A * ct.n1,))[..., : ct.L]
+    return Cre, -Cim

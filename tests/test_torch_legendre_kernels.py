@@ -293,3 +293,59 @@ def test_cuda_slab_kernels_match_plain(cuda_device, dtype):
                 torch.cuda.synchronize()
                 err = float((out - ref).abs().max() / ref.abs().max())
                 assert err <= tol, (kern.__name__, n_m, rows, err)
+
+
+# the parity modes on the card: (L, nr, C) with odd and even nr (the
+# equator row or none), a tile's ragged edges, 1 and 17 columns
+PAR_CARD_SHAPES = [(16, 12, 8), (37, 19, 10), (65, 65, 40), (64, 33, 17),
+                   (33, 18, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L,nr,C", PAR_CARD_SHAPES)
+def test_cuda_parity_kernels_match_plain(cuda_device, L, nr, C, dtype):
+    """The parity kernels (full table and the two-way split's slabs, with
+    and without flip, g with unit stride on r and on c) against their plain
+    versions on the card, the outputs given NaN-filled memory; each call
+    counted in the parity wrappers' counts, none in the dense ones'."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    gen = torch.Generator(device=cuda_device).manual_seed(L + nr + C)
+    nh = (nr + 1) // 2
+    lam = torch.randn((L, L, nh), generator=gen, dtype=dtype,
+                      device=cuda_device)
+    lam = (lam * (torch.arange(L, device=cuda_device)[None, :, None]
+                  >= torch.arange(L, device=cuda_device)[:, None, None])
+           ).contiguous()
+    x = torch.randn((L, C, L), generator=gen, dtype=dtype, device=cuda_device)
+    g = torch.randn((L, nr, C), generator=gen, dtype=dtype, device=cuda_device)
+    xv, gv = _state_views(x, g)
+    lk.reset_launch_counts()
+    calls = 0
+    for ms in [None] + [torch.as_tensor(r, dtype=torch.int32,
+                                        device=cuda_device)
+                        for r in m_rows(L, 2)]:
+        sel = (lambda t: t) if ms is None else (
+            lambda t: t.index_select(0, ms.long()).contiguous())
+        for flip in (False, True):
+            cases = [(lk.legendre_synth_par, lk.legendre_synth_par_plain,
+                      sel(xv) if ms is not None else xv, (nr,),
+                      (L, nr, C))]
+            for gl in (g, gv):
+                cases.append((lk.legendre_adj_par, lk.legendre_adj_par_plain,
+                              sel(gl) if ms is None else
+                              _state_views(x, sel(gl))[1], (), (C, L, L)))
+            for kern, plain, b, args, shape in cases:
+                torch.full(shape, float("nan"), dtype=dtype,
+                           device=cuda_device)
+                out = kern(sel(lam), b, *args, flip, ms)
+                ref = plain(sel(lam), b, *args, flip, ms)
+                torch.cuda.synchronize()
+                calls += 1
+                err = float((out - ref).abs().max())
+                assert bool(torch.isfinite(out).all())
+                assert err <= tol * float(ref.abs().max()), (
+                    kern.__name__, ms is None, flip, err)
+    assert (lk.legendre_synth_par.launches + lk.legendre_adj_par.launches,
+            lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches) \
+        == (calls, 0, 0)

@@ -45,6 +45,8 @@ def test_no_jax_import_in_sources():
 
 
 def test_cpu_wrappers_take_plain_version_and_launch_nothing():
+    """The dense and the parity wrappers (whose counts are their own) on
+    CPU tensors."""
     lk.reset_launch_counts()
     rng = np.random.default_rng(0)
     lam = t64(tri_table(5, 3))
@@ -54,8 +56,15 @@ def test_cpu_wrappers_take_plain_version_and_launch_nothing():
                        lk.legendre_synth_tri_plain(lam, x))
     assert torch.equal(lk.legendre_adj_tri(lam, g),
                        lk.legendre_adj_tri_plain(lam, g))
-    assert (lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches) \
-        == (0, 0)
+    half = t64(tri_table(5, 2))
+    g4 = t64(rng.normal(size=(5, 4, 2)))
+    assert torch.equal(lk.legendre_synth_par(half, x, 4, True),
+                       lk.legendre_synth_par_plain(half, x, 4, True))
+    assert torch.equal(lk.legendre_adj_par(half, g4),
+                       lk.legendre_adj_par_plain(half, g4))
+    assert (lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches,
+            lk.legendre_synth_par.launches, lk.legendre_adj_par.launches) \
+        == (0, 0, 0, 0)
 
 
 def test_wrappers_reject_mismatched_shapes():
@@ -166,3 +175,34 @@ def test_parallel_defaults_to_the_card():
         == "cpu"
     assert inspect.signature(make_mesh).parameters["device_type"].default \
         == "cuda"
+
+
+# the JAX package's construction options and their defaults
+# (gibbssampler_tpu/sht/transform.py:64-67, healpix.py:153-155,
+# points.py:99-101); bench.py's flagship options (bench.py:41-45, 234)
+OPTION_DEFAULTS = {
+    "SHT": (SHT, {"fft_mode": "matmul", "table_dtype": None,
+                  "m_block": 128, "ring_split": False}),
+    "make_sht": (make_sht, {"fft_mode": "matmul", "table_dtype": None,
+                            "m_block": 128, "ring_split": False}),
+    "HealpixSHT": (HealpixSHT, {"table_dtype": None, "m_block": 128,
+                                "ring_split": False}),
+    "make_healpix_sht": (make_healpix_sht, {"table_dtype": None,
+                                            "m_block": 128,
+                                            "ring_split": False}),
+    "PointSHT": (PointSHT, {"table_dtype": None, "m_block": 128}),
+    "flagship.build": (flagship.build, {"table_dtype": None,
+                                        "fft_mode": "matmul",
+                                        "ring_split": False, "cut": True}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPTION_DEFAULTS))
+def test_options_take_the_jax_defaults(name):
+    """Each entry point takes the JAX package's options with its defaults
+    (and still places its tensors on the card by default)."""
+    fn, want = OPTION_DEFAULTS[name]
+    params = inspect.signature(fn).parameters
+    assert {k: params[k].default for k in want} == want
+    assert params["device"].default == "cuda"
+

@@ -152,6 +152,33 @@ def sht_transforms(rank, world, kind, lmax, arrays, x, f, e, b, q, u):
     return res
 
 
+def split_transforms(rank, world, lmax, inputs):
+    """Spin-0 and spin-2 synthesis, adjoint and analysis of the ring-split
+    GL and HEALPix (nside 8) transforms m-sharded over a (1, world) mesh;
+    ``inputs`` {kind: (x, f, e, b, q, u)}."""
+    mesh = make_mesh(1, world, device_type="cpu")
+    t = lambda a: torch.as_tensor(a)
+    res = {}
+    for kind, (x, f, e, b, q, u) in inputs.items():
+        sht = (make_sht(lmax, dtype=F64, spin2=True, device="cpu",
+                        ring_split=True) if kind == "gl" else
+               make_healpix_sht(8, lmax, dtype=F64, spin2=True, device="cpu",
+                                ring_split=True))
+        msh = shard_sht(sht, mesh)
+        tabs = (msh.lam0, msh.lam_w, msh.lam_x)
+        res[f"{kind}_rows"] = np.array([tb.shape[0] for tb in tabs])
+        res[f"{kind}_nh"] = np.array([tb.shape[2] for tb in tabs])
+        res[f"{kind}_ms"] = _n(msh._ms)
+        res[f"{kind}_syn0"] = _n(msh.synthesis_state(t(x)))
+        res[f"{kind}_adj0"] = _n(msh.adjoint_synthesis_state(t(f)))
+        res[f"{kind}_ana0"] = _n(msh.analysis_state(t(f)))
+        res[f"{kind}_syn_q"], res[f"{kind}_syn_u"] = map(
+            _n, msh.synthesis_spin2_state(t(e), t(b)))
+        res[f"{kind}_adj_e"], res[f"{kind}_adj_b"] = map(
+            _n, msh.adjoint_synthesis_spin2_state(t(q), t(u)))
+    return res
+
+
 def _scheme(model, spec):
     bins_list = [np.asarray(b) for b in spec["bins"]]
     if spec["scheme"] == "asis":
