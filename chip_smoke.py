@@ -180,9 +180,30 @@ non-zero:
    (d) the cut ASIS band slice under fft_mode "fft" and "ct" beside phase
    5's "matmul" (FFT_ITERS), the cut transforms inheriting the mode, and
    one synthesis of each against "matmul";
-16. prints the kernels' JSON line, the float32 and the float64 kernels
-   each with their launches summed over the paths, and their parity modes
-   with the options phase's launches, then {"ok": true, "device": {...}}
+16. the bfloat16 table mode (after the options phase; phase_bf16_*): (a)
+   the four bfloat16-table kernels (csrc/legendre_tri_bf16.cu: the dense
+   pair and the parity pair, float32 batch and output) against their
+   plain versions (<= 1e-5 max|ref|) and the float64 operator (<= 1e-2),
+   the outputs given NaN-filled memory: the dense pair at phase 3's
+   shapes, contiguous and in the main path's views, with the adjointness
+   on the rounded batches; the parity pair at the GL grid's 257 and
+   HEALPix's 512 north rings, flip and not, its synthesis against the
+   dense kernel on the mirrored table; a slab of each pair; each timed at
+   L 513, C 256 beside its plain version and torch.einsum on the
+   bfloat16 tensors (cuBLAS), with the bound of the bfloat16 table, the
+   float32 batch and output over 3.35 TB/s or the FLOPs over 989 TFLOP/s;
+   (b) GL lmax 512 (dense and ring-split) and HEALPix nside 256 spin-2
+   transforms with bfloat16 tables against float32 ones at 128 chains:
+   max|err|/max|ref|, ms per transform, table bytes; (c) bench.py's
+   BENCH_TABLE_DTYPE=bfloat16, the ASIS band slice from
+   flagship.build(table_dtype="bfloat16") at full width, cut to 5 + 20
+   iterations: ms/iter, MH ms/iter, acceptances in [0.15, 0.6], exactly
+   12 + 6 bfloat16 launches per iteration and no float32 or float64
+   Legendre launch, peak memory;
+17. prints the kernels' JSON line, the float32 and the float64 kernels
+   each with their launches summed over the paths, their parity modes
+   with the options phase's launches, and the four bfloat16-table kernels
+   with the bf16 phase's (b) and (c), then {"ok": true, "device": {...}}
    last.
 
 The configurations come from gibbssampler_tpu_torch.flagship, the
@@ -350,6 +371,9 @@ FP64_FLOPS_PER_S = 67e12
 # label (phase_asis_slice)
 MH_MS = {}
 SLICE_MS = {}
+# device memory allocated when run_slice's timed run starts (bytes): what
+# a slice's peak is read against
+SLICE_HELD = {}
 
 
 def check(cond, msg):
@@ -458,6 +482,8 @@ def phase_build(lk):
                 print(f"  ptxas: {ln.strip()}", flush=True)
     print(f"  float32 kernels' dynamic shared memory (bytes): "
           f"{lk.f32_dynamic_smem()}", flush=True)
+    print(f"  bfloat16-table kernels' dynamic shared memory (bytes): "
+          f"{lk.bf16_dynamic_smem()}", flush=True)
     for nr, C in F64_TIMED:
         print(f"  float64 kernels' threads and dynamic shared memory "
               f"(bytes) at nr {nr}, C {C}: {lk.f64_plan(nr, C)}", flush=True)
@@ -998,9 +1024,9 @@ def phase_healpix_dataset(torch, dev):
     return model, dls
 
 
-def run_slice(torch, lk, scheme, dl0, dev, n_timed=N_TIMED):
+def run_slice(torch, lk, scheme, dl0, dev, n_timed=N_TIMED, n_warm=N_WARM):
     """Drive one scheme's main path: the launch counts set to 0, the
-    initial CR draw and N_WARM warm-up iterations, then ``n_timed`` timed
+    initial CR draw and ``n_warm`` warm-up iterations, then ``n_timed`` timed
     ones, the counts read just after.  The chains start as
     ``flagship.start_state`` starts them.  Returns (warm, out, wall,
     launches of the whole path, launches of the timed run)."""
@@ -1008,10 +1034,11 @@ def run_slice(torch, lk, scheme, dl0, dev, n_timed=N_TIMED):
     gen = torch.Generator(device=dev).manual_seed(1)
     torch.cuda.synchronize()
     lk.reset_launch_counts()
-    warm = scheme.run(dl0, n_iter=N_WARM, gen=gen,
+    warm = scheme.run(dl0, n_iter=n_warm, gen=gen,
                       state=start_state(scheme, dl0, NCHAINS, gen))
     torch.cuda.synchronize()
     before = (lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches)
+    SLICE_HELD["last"] = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
     out = scheme.run(dl0, n_iter=n_timed, gen=gen, state=warm["final_state"])
@@ -1022,12 +1049,13 @@ def run_slice(torch, lk, scheme, dl0, dev, n_timed=N_TIMED):
     return warm, out, wall, launches, timed
 
 
-def check_chains(torch, warm, out, bins_list, n_timed=N_TIMED):
+def check_chains(torch, warm, out, bins_list, n_timed=N_TIMED,
+                 n_warm=N_WARM):
     dl_all = [np.concatenate([warm["dl_chains"][f].cpu().numpy(),
                               out["dl_chains"][f].cpu().numpy()], axis=1)
               for f in range(2)]
     for f, dl in enumerate(dl_all):
-        check(dl.shape == (NCHAINS, N_WARM + n_timed, len(bins_list[f]) - 1),
+        check(dl.shape == (NCHAINS, n_warm + n_timed, len(bins_list[f]) - 1),
               f"dl_chains[{f}] shape {dl.shape}")
         check(np.isfinite(dl).all() and (dl > 0).all(),
               f"dl_chains[{f}] has non-finite or non-positive values")
@@ -1111,7 +1139,7 @@ def mh_acceptances(out):
 
 
 def run_timed_mh_slice(torch, lk, scheme, dl0, dev, label, per_iter,
-                       n_timed=N_TIMED):
+                       n_timed=N_TIMED, n_warm=N_WARM):
     """``run_slice`` with CUDA events around every ``scheme.mh_step``;
     checks ``per_iter`` (synthesis, adjoint) launches per timed iteration.
     Returns run_slice's results and the MH step's mean ms over the timed
@@ -1130,7 +1158,7 @@ def run_timed_mh_slice(torch, lk, scheme, dl0, dev, label, per_iter,
 
     scheme.mh_step = timed_mh_step
     warm, out, wall, launches, timed = run_slice(torch, lk, scheme, dl0, dev,
-                                                 n_timed)
+                                                 n_timed, n_warm)
     del scheme.mh_step
     for name, n, per in zip(("synth", "adj"), timed, per_iter):
         check(n == per * n_timed, f"{label} {name} launches in the timed "
@@ -1157,6 +1185,7 @@ def phase_asis_slice(torch, lk, model, dls, dev, card, profile, grid,
     MH_MS[label] = mh_ms
     SLICE_MS[label] = wall / n_timed * 1e3
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    held = SLICE_HELD["last"] / 2 ** 30
     bins_list = scheme.bins_list
     acc = check_chains(torch, warm, out, bins_list, n_timed)
     for f in range(2):
@@ -1180,7 +1209,8 @@ def phase_asis_slice(torch, lk, model, dls, dev, card, profile, grid,
     print(f"{label} ESS ({n_timed} iterations, burn 20%): median pooled "
           f"ESS/s {ess_s:.3f}; bb_tail_ess_per_s {bb_tail:.3f}; "
           f"per_chain_ess_per_iter {per_chain:.5f}; peak device memory "
-          f"{peak:.2f} GiB [{card}]", flush=True)
+          f"{peak:.2f} GiB ({held:.2f} GiB allocated when the timed run "
+          f"started) [{card}]", flush=True)
     print(f"launches in the {label} path: legendre_synth_tri {launches[0]}, "
           f"legendre_adj_tri {launches[1]} ({per_iter[0]} and "
           f"{per_iter[1]} per iteration)", flush=True)
@@ -1660,6 +1690,7 @@ def phase_pncp_slice(torch, lk, model, dls, dev, card, profile):
     warm, out, wall, launches, _, mh_ms = run_timed_mh_slice(
         torch, lk, scheme, dl0, dev, label, PNCP_PER_ITER)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    held = SLICE_HELD["last"] / 2 ** 30
     acc = check_chains(torch, warm, out, scheme.bins_list)
     mh = [out["mh_accept"][f].cpu().numpy() for f in range(2)]
     check(mh[0].shape == (NCHAINS, N_TIMED, 0)
@@ -1679,7 +1710,8 @@ def phase_pncp_slice(torch, lk, model, dls, dev, card, profile):
     print(f"{label} ESS ({N_TIMED} iterations, burn 20%): median pooled "
           f"ESS/s {ess_s:.3f}; bb_tail_ess_per_s {bb_tail:.3f}; "
           f"per_chain_ess_per_iter {per_chain:.5f}; peak device memory "
-          f"{peak:.2f} GiB [{card}]", flush=True)
+          f"{peak:.2f} GiB ({held:.2f} GiB allocated when the timed run "
+          f"started) [{card}]", flush=True)
     print(f"launches in the {label} path: legendre_synth_tri {launches[0]}, "
           f"legendre_adj_tri {launches[1]} ({PNCP_PER_ITER[0]} and "
           f"{PNCP_PER_ITER[1]} per iteration)", flush=True)
@@ -1743,7 +1775,8 @@ def counts(lk):
     """(float32 synthesis, float32 adjoint, float64 synthesis, float64
     adjoint) launches since the counts were last set to 0."""
     s, a = lk.legendre_synth_tri, lk.legendre_adj_tri
-    return (s.launches - s.launches_f64, a.launches - a.launches_f64,
+    return (s.launches - s.launches_f64 - s.launches_bf16,
+            a.launches - a.launches_f64 - a.launches_bf16,
             s.launches_f64, a.launches_f64)
 
 
@@ -2980,10 +3013,10 @@ def table_bytes(sht):
 def par_counts(lk):
     """(float32 synthesis, float32 adjoint, float64 synthesis, float64
     adjoint) parity-mode launches since the counts were set to 0."""
-    return (lk.legendre_synth_par.launches - lk.legendre_synth_par.launches_f64,
-            lk.legendre_adj_par.launches - lk.legendre_adj_par.launches_f64,
-            lk.legendre_synth_par.launches_f64,
-            lk.legendre_adj_par.launches_f64)
+    s, a = lk.legendre_synth_par, lk.legendre_adj_par
+    return (s.launches - s.launches_f64 - s.launches_bf16,
+            a.launches - a.launches_f64 - a.launches_bf16,
+            s.launches_f64, a.launches_f64)
 
 
 def split_vs_dense(torch, lk, label, dense, split, nchains, tol, card, gen):
@@ -3273,6 +3306,364 @@ def phase_options(torch, lk, dev, card, sht, hsht):
     return rec, rec64, par, dense
 
 
+# ---------------------------------------------------------------------------
+# the bfloat16 table mode (phase 16)
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
+# against the plain version: the same exact products, float32 sums
+BF16_TOL = 1e-5
+# against the float64 operator on the unrounded table and batch: the
+# bfloat16 rounding of both
+BF16_OP_TOL = 1e-2
+# the transforms with bfloat16 tables against float32 ones (max|err| /
+# max|ref|): the bfloat16 operator error, some 4e-3 in the JAX package's
+# note on it
+BF16_TRANSFORM_TOL = 2e-2
+# phase 3's dense shapes (the Pallas tests', a ragged one, the main path's
+# row counts at 128 chains) and the parity mode at the GL grid's 257 and
+# HEALPix's 512 north rings
+BF16_DENSE_SHAPES = ([(16, 12, 8), (37, 19, 10)]
+                     + [(LMAX + 1, nr, 2 * NCHAINS) for nr in TIMED_NR])
+BF16_PAR_SHAPES = ((LMAX + 1, 2 * NCHAINS), (HEALPIX_RINGS, 2 * NCHAINS))
+# the bf16 ASIS band slice, cut in depth: warm-up and timed iterations
+BF16_ITERS = (5, 20)
+
+
+def work_bf16(name, L, nr, C, rows=None):
+    """(FLOPs, bytes) of one call on a bfloat16 table: the table's
+    triangle read once in 2 bytes, the float32 batch read once and the
+    float32 output written once in 4; a parity kernel (``name`` ending in
+    "_par") on the half table of ceil(nr / 2) rings; ``rows`` the degree
+    orders of a slab (all L by default)."""
+    rows = range(L) if rows is None else rows
+    tri, M = sum(L - m for m in rows), len(rows)
+    nt = (nr + 1) // 2 if name.endswith("_par") else nr
+    if name.startswith("legendre_synth"):
+        batch, out = C * tri, M * nr * C
+    else:
+        batch, out = M * nr * C, C * M * L
+    return 2 * nt * C * tri, 2 * nt * tri + 4 * (batch + out)
+
+
+def bf16_counts(lk):
+    """(dense synthesis, dense adjoint, parity synthesis, parity adjoint)
+    launches of the bfloat16-table kernels since the counts were set to
+    0."""
+    return tuple(f.launches_bf16 for f in (
+        lk.legendre_synth_tri, lk.legendre_adj_tri, lk.legendre_synth_par,
+        lk.legendre_adj_par))
+
+
+def bf16_one(torch, lk, name, lam, b, args, shape, ref64, label, card,
+             time_it, library=None, rows=None):
+    """One bfloat16-table kernel call against its plain version (<=
+    BF16_TOL max|ref|) and the float64 operator ``ref64`` (<= BF16_OP_TOL),
+    its output given NaN-filled memory; with ``time_it`` timed beside the
+    plain version and ``library`` (one torch call on bfloat16 tensors),
+    plain, kernel, kernel, plain.  Returns the record."""
+    kern, plain = getattr(lk, name), getattr(lk, name + "_plain")
+    dev = lam.device
+    torch.full(shape, float("nan"), dtype=torch.float32, device=dev)
+    out = kern(lam, b, *args)
+    ref = plain(lam, b, *args)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    op = float((out.double() - ref64).abs().max() / ref64.abs().max())
+    check(bool(torch.isfinite(out).all()) and err <= BF16_TOL * scale
+          and op <= BF16_OP_TOL,
+          f"{name} bf16 {label}: max|err| {err} > {BF16_TOL} * {scale} or "
+          f"against the float64 operator {op:.3g} > {BF16_OP_TOL}")
+    rec = {"max_abs_err": err}
+    msg = (f"bf16 {name} {label}: max|err|/max|ref| {err / scale:.2e} (<= "
+           f"{BF16_TOL}), against the float64 operator {op:.2e} (<= "
+           f"{BF16_OP_TOL})")
+    if time_it:
+        L, nr = lam.shape[1], shape[1] if name.startswith(
+            "legendre_synth") else b.shape[1]
+        C = shape[2] if name.startswith("legendre_synth") else shape[0]
+        reps = 5 if nr > LMAX else 20
+        p1 = time_ms(torch, lambda: plain(lam, b, *args), reps)
+        k1 = time_ms(torch, lambda: kern(lam, b, *args), reps)
+        k2 = time_ms(torch, lambda: kern(lam, b, *args), reps)
+        p2 = time_ms(torch, lambda: plain(lam, b, *args), reps)
+        lib = time_ms(torch, library, reps) if library else None
+        ms, pms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+        flops, nbytes = work_bf16(name, L, nr, C, rows)
+        bound_ms, bound_by = bound(flops, nbytes, BF16_FLOPS_PER_S)
+        rec.update(ms=ms, plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=lib, tflops=flops / ms * 1e-9)
+        msg += (f"; kernel {ms:.4f} ms, plain {pms:.4f} ms, library (torch."
+                f"einsum on bf16 tensors) "
+                + (f"{lib:.4f} ms" if lib is not None else "none")
+                + f"; bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{bound_ms / ms:.1%} of it reached; "
+                f"{nbytes / ms * 1e-6:.0f} GB/s")
+    print(msg + f" [{card}]", flush=True)
+    return rec
+
+
+def phase_bf16_kernels(torch, lk, dev, card):
+    """(a) The four bfloat16-table kernels against their plain versions on
+    the card (float32 batch, the outputs in NaN-filled memory) and against
+    the float64 operator: the dense pair at BF16_DENSE_SHAPES, contiguous
+    and in the main path's views (x the (m, C, l) view of the state's
+    grids, g the (m, r, C) view of an (m, C, r) copy), with the
+    adjointness of the pair; the parity pair at BF16_PAR_SHAPES, flip and
+    not, its synthesis also against the dense kernel on the mirrored
+    table; a slab (m_rows(513, 2)'s first) of each pair.  At L 513 each
+    kernel is timed in the main path's views beside its plain version and
+    torch.einsum on the bfloat16 tensors (cuBLAS), with the bound of
+    work_bf16.  Returns {kernel: {shape key: record}}."""
+    from gibbssampler_tpu_torch.parallel import m_rows
+    gen = torch.Generator(device=dev).manual_seed(19)
+    f32, f64, bf = torch.float32, torch.float64, torch.bfloat16
+    rec = {}
+    for L, nr, C in BF16_DENSE_SHAPES:
+        lam64 = tri_table(torch, L, nr, f64, dev, gen)
+        lam = lam64.to(bf)
+        x0 = torch.randn((L, C, L), generator=gen, dtype=f32, device=dev)
+        g0 = torch.randn((L, nr, C), generator=gen, dtype=f32, device=dev)
+        for lay, x, g in (("contiguous", x0, g0),
+                          ("state views", x_view(x0), g_view(g0))):
+            timed = lay == "state views" and L == LMAX + 1
+            xb, gb = x.to(bf), g.to(bf)
+            for name, b, b16, spec, shape in (
+                    ("legendre_synth_tri", x, xb, "mlr,mcl->mrc", (L, nr, C)),
+                    ("legendre_adj_tri", g, gb, "mlr,mrc->mcl", (C, L, L))):
+                r = bf16_one(
+                    torch, lk, name, lam, b, (), shape,
+                    torch.einsum(spec, lam64, b.double()),
+                    f"L={L} nr={nr} C={C} {lay}", card, timed,
+                    library=lambda spec=spec, b16=b16: torch.einsum(
+                        spec, lam, b16))
+                if timed:
+                    rec.setdefault(name + "_bf16", {})[nr] = r
+            # each kernel rounds its batch to bfloat16, so the pair is
+            # adjoint on the rounded batches: <K R(x), R(y)> = <R(x), K^T
+            # R(y)>, y = K x + noise so that the product is large
+            y = lk.legendre_synth_tri_plain(lam, x) + g0
+            y = g_view(y) if lay == "state views" else y
+            rnd = lambda t: t.to(bf).double()
+            lhs = float((lk.legendre_synth_tri(lam, x).double()
+                         * rnd(y)).sum())
+            rhs = float((rnd(x) * lk.legendre_adj_tri(lam, y).double()).sum())
+            rel = abs(lhs - rhs) / abs(lhs)
+            check(rel <= BF16_TOL, f"bf16 adjointness L={L} nr={nr} {lay}: "
+                  f"{rel}")
+            print(f"bf16 adjointness L={L} nr={nr} C={C} {lay}: {rel:.2e} (<= "
+                  f"{BF16_TOL}) [{card}]", flush=True)
+            del y
+            del xb, gb
+        # a slab of the two-way split at the band's rings
+        if L == LMAX + 1 and nr == CUT_RINGS:
+            rows = m_rows(L, 2)[0]
+            ms = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+            idx = ms.long()
+            ls, ls64 = lam.index_select(0, idx).contiguous(), \
+                lam64.index_select(0, idx)
+            xs, gs = x0.index_select(0, idx), g_view(g0.index_select(0, idx))
+            M = len(rows)
+            for name, b, spec, shape in (
+                    ("legendre_synth_tri", xs, "mlr,mcl->mrc", (M, nr, C)),
+                    ("legendre_adj_tri", gs, "mlr,mrc->mcl", (C, M, L))):
+                ref64 = getattr(lk, name + "_plain")(ls64, b.double(), ms)
+                rec[name + "_bf16"][f"{nr} slab 0 of 2"] = bf16_one(
+                    torch, lk, name, ls, b, (ms,), shape, ref64,
+                    f"slab 0 of 2 (M {M}) L={L} nr={nr} C={C}", card, True,
+                    rows=rows)
+            del ls, ls64, xs, gs
+        del lam64, lam, x0, g0
+    for nr, C in BF16_PAR_SHAPES:
+        L, nh = LMAX + 1, (nr + 1) // 2
+        half64 = tri_table(torch, L, nh, f64, dev, gen)
+        half = half64.to(bf)
+        x = x_view(torch.randn((L, C, L), generator=gen, dtype=f32,
+                               device=dev))
+        g = g_view(torch.randn((L, nr, C), generator=gen, dtype=f32,
+                               device=dev))
+        full = mirrored_table(torch, half, nr)
+        for name, b, shape in (("legendre_synth_par", x, (L, nr, C)),
+                               ("legendre_adj_par", g, (C, L, L))):
+            synth = name == "legendre_synth_par"
+            args = (nr,) if synth else ()
+            for flip in (False, True):
+                ref64 = getattr(lk, name + "_plain")(half64, b.double(),
+                                                     *args, flip)
+                spec = "mlr,mcl->mrc" if synth else "mlr,mrc->mcl"
+                b16 = b.to(bf)
+                mirrored = full if not flip else mirrored_table(
+                    torch, half, nr, True)
+                r = bf16_one(
+                    torch, lk, name, half, b, (*args, flip), shape, ref64,
+                    f"L={L} nr={nr} (nh {nh}) C={C} flip={flip} state views",
+                    card, not flip,
+                    library=lambda spec=spec, b16=b16, t=mirrored:
+                    torch.einsum(spec, t, b16))
+                if synth:
+                    # the same products as the dense kernel on the mirrored
+                    # table (the adjoint rounds its fold, the dense one each
+                    # row: another function)
+                    out = lk.legendre_synth_par(half, b, nr, flip)
+                    dense = lk.legendre_synth_tri(mirrored, b)
+                    torch.cuda.synchronize()
+                    derr = float((out - dense).abs().max()
+                                 / dense.abs().max())
+                    check(derr <= 2 * BF16_TOL, f"bf16 {name} nr={nr} flip="
+                          f"{flip} against the dense kernel on the mirrored "
+                          f"table {derr:.3g}")
+                    del out, dense
+                if not flip:
+                    rec.setdefault(name + "_bf16", {})[f"{nr} C{C}"] = r
+                del ref64, b16, mirrored
+            # a slab of the two-way split
+            rows = m_rows(L, 2)[0]
+            ms = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+            idx = ms.long()
+            ls = half.index_select(0, idx).contiguous()
+            bs = b.index_select(0, idx) if synth else g_view(
+                g.index_select(0, idx))
+            M = len(rows)
+            ref64 = getattr(lk, name + "_plain")(
+                half64.index_select(0, idx), bs.double(), *args, False, ms)
+            rec[name + "_bf16"][f"{nr} C{C} slab 0 of 2"] = bf16_one(
+                torch, lk, name, ls, bs, (*args, False, ms),
+                (M, nr, C) if synth else (C, M, L), ref64,
+                f"slab 0 of 2 (M {M}) L={L} nr={nr} C={C}", card, True,
+                rows=rows)
+            del ls, bs, ref64
+        del half64, half, x, g, full
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_bf16_transforms(torch, lk, dev, card, sht, hsht):
+    """(b) The spin-2 transforms at full width with bfloat16 tables against
+    float32 ones (phase 4's GL ``sht`` and the HEALPix phase's ``hsht``) at
+    NCHAINS chains: GL lmax 512 with dense and with ring-split tables,
+    HEALPix nside 256 (padded layout) dense; synthesis, adjoint and
+    analysis, max|err|/max|ref| (<= BF16_TRANSFORM_TOL), ms per transform
+    (3 calls, CUDA events, each beside the float32 one) and table bytes.
+    Returns the bfloat16 launches of these calls (bf16_counts)."""
+    from gibbssampler_tpu_torch.harmonics import ell_mask_state, nstate
+    from gibbssampler_tpu_torch.sht import make_healpix_sht, make_sht
+    gen = torch.Generator(device=dev).manual_seed(20)
+    lk.reset_launch_counts()
+    for label, ref, mk in (
+            ("GL dense", sht, lambda: make_sht(
+                LMAX, dtype=torch.float32, spin2=True, device=dev,
+                table_dtype="bfloat16")),
+            ("GL ring-split", sht, lambda: make_sht(
+                LMAX, dtype=torch.float32, spin2=True, device=dev,
+                table_dtype="bfloat16", ring_split=True)),
+            ("HEALPix dense", hsht, lambda: make_healpix_sht(
+                NSIDE, LMAX, dtype=torch.float32, spin2=True,
+                layout="padded", device=dev, table_dtype="bfloat16"))):
+        t0 = time.time()
+        tr = mk()
+        torch.cuda.synchronize()
+        check(tr.table_dtype == torch.bfloat16 and all(
+            t is None or t.dtype == torch.bfloat16
+            for t in (tr.lam0, tr.lam_p2, tr.lam_m2, tr.lam_w, tr.lam_x)),
+            f"bf16 {label}: tables not in bfloat16")
+        kw = dict(dtype=torch.float32, device=dev)
+        shp = (tr.npix_layout,) if hasattr(tr, "geo") else (tr.nrings,
+                                                           tr.nphi)
+        m2 = torch.as_tensor(ell_mask_state(LMAX, 2), **kw)
+        e, b = (torch.randn((NCHAINS, nstate(LMAX)), generator=gen, **kw)
+                * m2 for _ in range(2))
+        q, u = (torch.randn((NCHAINS,) + shp, generator=gen, **kw)
+                for _ in range(2))
+        for what, meth, args in (
+                ("synthesis", "synthesis_spin2_state", (e, b)),
+                ("adjoint", "adjoint_synthesis_spin2_state", (q, u)),
+                ("analysis", "analysis_spin2_state", (q, u))):
+            want = getattr(ref, meth)(*args)
+            got = getattr(tr, meth)(*args)
+            torch.cuda.synchronize()
+            err = max(float((a - r).abs().max() / r.abs().max())
+                      for a, r in zip(got, want))
+            check(err <= BF16_TRANSFORM_TOL, f"bf16 {label} spin-2 {what}: "
+                  f"against float32 tables {err:.3g} > {BF16_TRANSFORM_TOL}")
+            ms_f = time_ms(torch, lambda: getattr(ref, meth)(*args), 3)
+            ms_b = time_ms(torch, lambda: getattr(tr, meth)(*args), 3)
+            print(f"bf16 {label} lmax {LMAX} spin-2 {what} at {NCHAINS} "
+                  f"chains: max|err|/max|ref| against float32 tables "
+                  f"{err:.2e} (<= {BF16_TRANSFORM_TOL}); {ms_b:.3f} ms per "
+                  f"transform, float32 tables {ms_f:.3f} ms [{card}]",
+                  flush=True)
+            del want, got
+        print(f"bf16 {label}: table bytes {table_bytes(tr) / 1e9:.3f} GB "
+              f"(float32 dense {table_bytes(ref) / 1e9:.3f} GB), built in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        del tr, e, b, q, u
+        torch.cuda.empty_cache()
+    n = bf16_counts(lk)
+    check(all(n), f"bf16 transforms: bf16 launches {n}; every kernel must run")
+    return n
+
+
+def phase_bf16_slice(torch, lk, dev, card, iters=BF16_ITERS, lmax=LMAX,
+                     seed=False):
+    """(c) bench.py's BENCH_TABLE_DTYPE=bfloat16: the flagship ASIS band
+    slice from flagship.build(table_dtype="bfloat16") at full width (GL
+    513 x 1026, the cut over 65 rings, NCHAINS chains, float32 compute,
+    the tuned record), cut in depth to ``iters`` (warm-up, timed):
+    ms/iter, the MH step's ms/iter, the MH acceptances in ACCEPT_WINDOW,
+    exactly ASIS_PER_ITER bfloat16 launches per timed iteration and no
+    float32 or float64 Legendre launch, peak memory.  Returns the
+    launches of the path (bf16_counts)."""
+    from gibbssampler_tpu_torch import flagship
+    t0 = time.time()
+    scheme, dl0 = flagship.build("gl", "band", table_dtype="bfloat16",
+                                 device=dev, lmax=lmax, seed=seed)
+    model = scheme.model
+    check(model.sht.table_dtype == model.cut_sht.table_dtype
+          == torch.bfloat16 and model.cut_sht.lam_p2.dtype == torch.bfloat16,
+          "flagship.build(table_dtype='bfloat16'): tables not in bfloat16")
+    torch.cuda.synchronize()
+    print(f"bf16 ASIS band scheme set-up (dataset, cut, table engine): "
+          f"{time.time() - t0:.1f} s", flush=True)
+    label = "ASIS gl band aux_mala bf16"
+    n_warm, n_timed = iters
+    warm, out, wall, launches, timed, mh_ms = run_timed_mh_slice(
+        torch, lk, scheme, dl0, dev, label, ASIS_PER_ITER, n_timed, n_warm)
+    n = bf16_counts(lk)
+    other = counts(lk)
+    check(n[:2] == tuple(launches) and sum(other) == 0 and sum(n[2:]) == 0,
+          f"{label}: bf16 launches {n}, all launches {launches}, float32 / "
+          f"float64 {other}: the path must run the bf16 dense kernels only")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    held = SLICE_HELD["last"] / 2 ** 30
+    acc = check_chains(torch, warm, out, scheme.bins_list, n_timed, n_warm)
+    ee, bb_big, singles = mh_acceptances(out)
+    if lmax == LMAX:
+        lo, hi = ACCEPT_WINDOW
+        for what, a in (("EE block", ee), ("BB big block", bb_big),
+                        ("BB singles", singles)):
+            check(lo <= a <= hi, f"{label} MH acceptance of the {what} "
+                  f"{a:.4f} outside [{lo}, {hi}]")
+    base = SLICE_MS.get("ASIS gl band aux_mala")
+    print(f"slice lmax={lmax} {NCHAINS} chains {label}: "
+          f"{wall / n_timed * 1e3:.2f} ms/iter over {n_timed} iterations "
+          f"after {n_warm} warm-up (float32 tables: "
+          + (f"{base:.2f}" if base is not None else "not measured")
+          + f" ms/iter, phase 5, this call); MH step {mh_ms:.2f} ms/iter "
+          f"(float32 tables: "
+          + (f"{MH_MS['ASIS gl band aux_mala']:.2f}"
+             if "ASIS gl band aux_mala" in MH_MS else "not measured")
+          + f"); acceptance CR {acc:.4f}, MH EE block {ee:.4f}, BB big "
+          f"block {bb_big:.4f}, BB singles {singles:.4f}; bf16 launches per "
+          f"timed iteration {timed[0] / n_timed:.1f} + "
+          f"{timed[1] / n_timed:.1f}; peak device memory {peak:.2f} GiB "
+          f"({held:.2f} GiB allocated when the timed run started) "
+          f"[{card}]", flush=True)
+    del scheme, model, warm, out
+    torch.cuda.empty_cache()
+    return n
+
+
 def main():
     t_start = time.time()
     import torch
@@ -3388,7 +3779,19 @@ def main():
     par_rec, par_rec64, opt_par, opt_dense = phase_options(
         torch, lk, dev, card, sht, hsht)
     new_launches.append(opt_dense)
+    # the bfloat16 table mode: (a) the kernels, (b) the full-width
+    # transforms against phase 4's and the HEALPix phase's, then, with those
+    # freed (so that the peak memory compares with phase 5's), (c) the slice
+    t0 = time.time()
+    bf_rec = phase_bf16_kernels(torch, lk, dev, card)
+    n_b = phase_bf16_transforms(torch, lk, dev, card, sht, hsht)
     del sht, hsht
+    torch.cuda.empty_cache()
+    n_c = phase_bf16_slice(torch, lk, dev, card)
+    bf_launches = [a + b for a, b in zip(n_b, n_c)]
+    print(f"bf16 phase: {time.time() - t0:.1f} s; bf16 launches on its paths"
+          f" (dense synth, adj, parity synth, adj) {bf_launches} [{card}]",
+          flush=True)
     torch.cuda.empty_cache()
     print_shapes("engine sweeps", tally["shapes"])
     checked, new_rec, new_rec64 = phase_new_shapes(torch, lk, dev, card,
@@ -3450,6 +3853,20 @@ def main():
                 "replaces": f"gibbssampler_tpu/sht/pallas_legendre.py:{line}",
                 "launches": n, **recs[name][key],
                 "by_shape": recs[name]})
+    # the bfloat16-table kernels: top-level times at the band's cut rings
+    # (dense) and at the GL grid's 257 north rings (parity), 128 chains
+    for i, (name, line, key) in enumerate((
+            ("legendre_synth_tri", 52, CUT_RINGS),
+            ("legendre_adj_tri", 106, CUT_RINGS),
+            ("legendre_synth_par", 52, f"{LMAX + 1} C{2 * NCHAINS}"),
+            ("legendre_adj_par", 106, f"{LMAX + 1} C{2 * NCHAINS}"))):
+        recs = bf_rec[name + "_bf16"]
+        kernels.append({
+            "name": f"{name}_bf16", "route": "cuda",
+            "source": "gibbssampler_tpu_torch/csrc/legendre_tri_bf16.cu",
+            "replaces": f"gibbssampler_tpu/sht/pallas_legendre.py:{line}",
+            "launches": bf_launches[i], **recs[key],
+            "by_shape": {str(k): r for k, r in recs.items()}})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched by the main path")
     print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "

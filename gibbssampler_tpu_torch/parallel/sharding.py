@@ -36,8 +36,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from ..sht.lcore import LegendreCore
-from ..sht.legendre_kernels import (legendre_adj_par, legendre_adj_tri,
-                                    legendre_synth_par, legendre_synth_tri)
+from ..sht.legendre_kernels import legendre_adj_tri, legendre_synth_tri
 
 __all__ = ["make_mesh", "chain_sharding", "chain_seed", "shard_sht",
            "sharded_run", "gather_chains", "m_rows"]
@@ -180,8 +179,7 @@ class _MSlab:
         # this process's m rows of the (m, C, l) view: (M, C, l), contiguous
         x = g2.reshape(C, L, L).transpose(0, 1).index_select(0, self._mrow)
         if self.ring_split:
-            F = legendre_synth_par(lam, x, 2 * self.nrh + self.has_mid, flip,
-                                   self._ms)
+            F = self._synth_par(lam, x, flip, self._ms)
         else:
             F = legendre_synth_tri(lam, x, self._ms)
         F = self._gather_rows(F)
@@ -196,7 +194,7 @@ class _MSlab:
         # this process's m columns in (m, C, r) order, as the (m, r, C) view
         gk = g.reshape(C, nr, L).permute(2, 0, 1) \
             .index_select(0, self._mrow).transpose(1, 2)
-        a = (legendre_adj_par(lam, gk, flip, self._ms) if self.ring_split
+        a = (self._adj_par(lam, gk, flip, self._ms) if self.ring_split
              else legendre_adj_tri(lam, gk, self._ms))
         a = self._gather_rows(a)
         return a.transpose(0, 1).reshape(batch + (L, L))
@@ -246,4 +244,7 @@ def shard_sht(sht, mesh):
         tab = getattr(sht, name, None)
         if tab is not None:
             setattr(out, name, tab.index_select(0, out._mrow).contiguous())
+    # a split bfloat16 table's float32 equator rows, sliced alike
+    out.eq_rows = {name: row.index_select(0, out._mrow).contiguous()
+                   for name, row in sht.eq_rows.items()}
     return out

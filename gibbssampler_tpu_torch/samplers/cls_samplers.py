@@ -528,10 +528,20 @@ def _prepare_tchunks(model, cut, mchunks, w1, dt, nyq: bool = False):
     contribution added by its own path in the sweep, from the raw lambda
     column(s) each chunk carries.  Returns per chunk (kind, lamA, lamB, W,
     omega, lnyq): lnyq is None, the (J, nr) spin-0 column, or the (lam+2,
-    lam-2) pair of spin-2 columns."""
+    lam-2) pair of spin-2 columns.
+
+    With bfloat16 tables, as in the JAX package: the tables keep their
+    bfloat16 values (held in ``dt``; the sweep's contractions with them
+    run in ``dt``), and W weighs them with the weights rounded to
+    bfloat16 (``w1.astype(lam_j.dtype)``).  The JAX source forms that
+    weighted table in bfloat16; compiled, XLA keeps the product in float32
+    (its default excess precision), and so does the port: the product of
+    two bfloat16 values is exact in float32."""
     n = float(cut.nphi)
     L = model.lmax + 1
     pos = cut.pos.to(dt)
+    if cut.table_dtype == torch.bfloat16:
+        w1 = w1.to(torch.bfloat16).to(dt)
     out = []
     for (f, j_idx, seg, gbins, rows) in mchunks:
         # lsel_table gathers a fresh (L, J, nr) tensor: zeroing its Nyquist

@@ -257,7 +257,7 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
         # the split): built and moved to the device one at a time, so the
         # host holds one float64 table (two for the split's W and X)
         theta_t = self._table_theta(geo.theta)
-        self.lam0 = self._table(legendre_table(lmax, np.cos(theta_t)))
+        self.lam0 = self._table(legendre_table(lmax, np.cos(theta_t)), "lam0")
         self.lam_p2 = self.lam_m2 = self.lam_w = self.lam_x = None
         if spin2:
             norm = np.sqrt((2.0 * np.arange(L) + 1.0)
@@ -273,10 +273,10 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
                 del lp, lm_
             else:
                 tabs = []
-                for s in (-2, 2):
+                for s, name in ((-2, "lam_p2"), (2, "lam_m2")):
                     tab = wigner_d_table(lmax, s, theta_t)
                     tab *= norm
-                    tabs.append(self._table(tab))
+                    tabs.append(self._table(tab, name))
                     del tab
                 self.lam_p2, self.lam_m2 = tabs
 
@@ -291,7 +291,8 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
         nbh = nb // 2 + 1
         ang = 2.0 * np.pi * np.outer(m, np.arange(nbh)) / nb
         self.nb, self.nbh = nb, nbh
-        self.belt_cos, self.belt_sin = t(np.cos(ang)), t(np.sin(ang))
+        self.belt_cos = self._trig(np.cos(ang))
+        self.belt_sin = self._trig(np.sin(ang))
         bang = np.outer(geo.phi0[self.belt_sl], m)
         self.belt_rot_cos, self.belt_rot_sin = t(np.cos(bang)), t(np.sin(bang))
 
@@ -309,8 +310,8 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
                 a = np.outer(m, (np.pi / (2.0 * i)) * (np.arange(h) + 0.5))
                 Mc[k, :, :h] = np.cos(a)
                 Ms[k, :, :h] = np.sin(a)
-            cap_cos.append(t(Mc))
-            cap_sin.append(t(Ms))
+            cap_cos.append(self._trig(Mc))
+            cap_sin.append(self._trig(Ms))
         self.cap_cos = tuple(cap_cos)
         self.cap_sin = tuple(cap_sin)
 
@@ -367,7 +368,9 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
 
     def _cos_sin_eval(self, Xre, Xim):
         """padded (..., npadded) = sum_m Xre cos(m phi) - Xim sin(m phi)
-        from (..., nrings, L) ring Fourier coefficients."""
+        from (..., nrings, L) ring Fourier coefficients (rounded to the
+        table dtype before each product, as in the JAX package)."""
+        rnd = self._round_td
         batch = Xre.shape[:-2]
         outs_n, outs_s = [], []
         for c, (lo, hi, w) in enumerate(self.cap_classes):
@@ -377,8 +380,8 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
                               self._south_rows(Xre, lo, hi)], dim=-3)
             Xi = torch.stack([Xim[..., lo:hi, :],
                               self._south_rows(Xim, lo, hi)], dim=-3)
-            C = torch.einsum("...krm,rmw->...krw", Xr, self.cap_cos[c])
-            S = torch.einsum("...krm,rmw->...krw", Xi, self.cap_sin[c])
+            C = torch.einsum("...krm,rmw->...krw", rnd(Xr), self.cap_cos[c])
+            S = torch.einsum("...krm,rmw->...krw", rnd(Xi), self.cap_sin[c])
             # fold: f[j] = C_j - S_j, f[4i-1-j] = C_j + S_j (j < 2i); rows
             # are [lo | reversed(hi)] of width 2w
             row = torch.cat([C - S, (C + S).flip(-1)], dim=-1)
@@ -386,8 +389,8 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
             outs_s.append(row[..., 1, :, :].reshape(batch + (-1,)))
         bre, bim = self._belt_rot(Xre[..., self.belt_sl, :],
                                   Xim[..., self.belt_sl, :])
-        C = torch.matmul(bre, self.belt_cos)
-        S = torch.matmul(bim, self.belt_sin)
+        C = torch.matmul(rnd(bre), self.belt_cos)
+        S = torch.matmul(rnd(bim), self.belt_sin)
         # f[j] = lo_j (j <= nb/2), f[nb - j] = hi_j (j = 1..nb/2 - 1)
         belt = torch.cat([C - S, (C + S)[..., 1:-1].flip(-1)], dim=-1)
         return torch.cat(outs_n + [belt.reshape(batch + (-1,))] + outs_s,
@@ -395,7 +398,9 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
 
     def _cos_sin_adj(self, padded):
         """Transpose of ``_cos_sin_eval``: padded (..., npadded) -> (C, S)
-        with C_rm = sum_j f cos(m phi_j), S_rm = sum_j f sin(m phi_j)."""
+        with C_rm = sum_j f cos(m phi_j), S_rm = sum_j f sin(m phi_j)
+        (the folds rounded to the table dtype, as in the JAX package)."""
+        rnd = self._round_td
         batch = padded.shape[:-1]
         nb = self.nb
         Cn, Sn, Cs, Ss = [], [], [], []
@@ -409,8 +414,10 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
             rows = sec.reshape(batch + (2, nc, 2 * w))
             a = rows[..., :w]
             b = rows[..., w:].flip(-1)
-            Cc = torch.einsum("...krw,rmw->...krm", a + b, self.cap_cos[c])
-            Sc = torch.einsum("...krw,rmw->...krm", a - b, self.cap_sin[c])
+            Cc = torch.einsum("...krw,rmw->...krm", rnd(a + b),
+                              self.cap_cos[c])
+            Sc = torch.einsum("...krw,rmw->...krm", rnd(a - b),
+                              self.cap_sin[c])
             Cn.append(Cc[..., 0, :, :])
             Sn.append(Sc[..., 0, :, :])
             Cs.append(Cc[..., 1, :, :].flip(-2))
@@ -421,8 +428,8 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
         lo_ = belt[..., : self.nbh]
         rev = belt[..., self.nbh - 1:].flip(-1)
         hi_ = F.pad(rev[..., :-1], (1, 1))
-        Cb = torch.matmul(lo_ + hi_, self.belt_cos.T)
-        Sb = torch.matmul(lo_ - hi_, self.belt_sin.T)
+        Cb = torch.matmul(rnd(lo_ + hi_), self.belt_cos.T)
+        Sb = torch.matmul(rnd(lo_ - hi_), self.belt_sin.T)
         # transpose of the phi0 rotation: the complex pair (C - iS) picks up
         # e^{-i m phi0}, which on the (C, +S) pair is a rotation by +phi0
         Cb, Sb = self._belt_rot(Cb, Sb)

@@ -28,6 +28,18 @@ JAX package's ``par_sign`` (the (-1)^m of the mirrored rows) lives in the
 kernels: in terms of l - m the sign does not depend on m.  The split has
 no ell-selected, binned or shared-stack syntheses; those raise, as in the
 JAX package.
+
+bfloat16 tables (``table_dtype=bfloat16`` with float32 compute): every
+table is stored in bfloat16 and the kernels run their bfloat16 mode
+(``sht.legendre_kernels``: the float32 batch rounded to bfloat16, products
+summed in float32, a float32 output), the JAX package's
+``einsum(table, g.astype(table_dtype), preferred_element_type=float32)``.
+Under the split the JAX package keeps the equator row of each half table
+in the compute dtype; so does the port: the bfloat16 half table holds a
+zero equator row, which the parity kernels contract to nothing, and
+``eq_rows`` holds the float32 row, contracted in float32 by ``_synth_par``
+(against the rounded grid) and ``_adj_par`` (against the float32 ring
+coefficients), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -57,23 +69,27 @@ def grid_symmetric(theta) -> bool:
 
 
 def resolve_table_dtype(table_dtype, dtype):
-    """The operator tables' dtype: None (the compute dtype) or the compute
-    dtype itself, as a torch dtype or its name.  Another dtype raises
-    NotImplementedError: tables stored in fewer bits (bfloat16 with float32
-    accumulation in the JAX package) need tensor-core kernels of their
-    own, the next slice in ROADMAP.md."""
+    """The operator tables' dtype: None (the compute dtype), the compute
+    dtype itself, or bfloat16 with float32 compute; each as a torch dtype,
+    its name, or a numpy (ml_dtypes) dtype or type.  Another pair raises
+    NotImplementedError: the JAX package's tables in another dtype than a
+    float64 compute dtype (bfloat16 or float32 products accumulated in
+    float64) are queued in ROADMAP.md."""
     if table_dtype is None:
         return dtype
-    td = getattr(table_dtype, "name", table_dtype)   # a numpy dtype
+    td = table_dtype
+    if not isinstance(td, (torch.dtype, str)):
+        # a numpy dtype (.name) or scalar type (.__name__)
+        td = getattr(td, "name", None) or getattr(td, "__name__", None)
     if isinstance(td, str):
         td = getattr(torch, td, None)
-    if td != dtype:
-        raise NotImplementedError(
-            f"table_dtype={table_dtype} with compute dtype {dtype}: tables "
-            "in another dtype than the compute dtype (the JAX package's "
-            "bfloat16 tables) need Legendre kernels of their own, queued "
-            "in ROADMAP.md as the next slice")
-    return dtype
+    if td == dtype or (td == torch.bfloat16 and dtype == torch.float32):
+        return td
+    raise NotImplementedError(
+        f"table_dtype={table_dtype} with compute dtype {dtype}: the "
+        "port takes tables in the compute dtype, or bfloat16 tables with "
+        "float32 compute; tables in another dtype than a float64 compute "
+        "dtype are queued in ROADMAP.md")
 
 
 class LegendreCore:
@@ -84,6 +100,8 @@ class LegendreCore:
         self.lmax = lmax
         self.dtype = dtype
         self.table_dtype = resolve_table_dtype(table_dtype, dtype)
+        # split bfloat16 tables: {table name: its float32 equator row}
+        self.eq_rows = {}
         self.m_block = int(m_block)
         nr = np.asarray(theta).shape[0]
         # a grid that is not equator-symmetric takes the dense tables, as
@@ -110,11 +128,19 @@ class LegendreCore:
         theta = np.asarray(theta, dtype=np.float64)
         return theta[: self.nrh + self.has_mid] if self.ring_split else theta
 
-    def _table(self, tab) -> torch.Tensor:
+    def _table(self, tab, name: str) -> torch.Tensor:
         """fp64 numpy (L, L, nt) table at ``_table_theta``'s rings ->
-        contiguous device tensor."""
-        return torch.as_tensor(tab, dtype=self.table_dtype,
-                               device=self.device).contiguous()
+        contiguous device tensor in the table dtype, to be stored as
+        attribute ``name``.  A split bfloat16 table's equator row goes to
+        ``eq_rows[name]`` in the compute dtype, and is zero in the table."""
+        t = torch.as_tensor(tab, dtype=self.table_dtype,
+                            device=self.device).contiguous()
+        if self.ring_split and self.has_mid and self.table_dtype != self.dtype:
+            self.eq_rows[name] = torch.as_tensor(
+                np.ascontiguousarray(tab[:, :, -1]), dtype=self.dtype,
+                device=self.device)
+            t[:, :, -1] = 0
+        return t
 
     def _build_spin2_tables(self, lp, lm_):
         """Store (lam_p2, lam_m2) dense or (lam_w, lam_x) under the split,
@@ -126,9 +152,59 @@ class LegendreCore:
             w *= 0.5
             lp -= lm_
             lp *= 0.5
-            self.lam_w, self.lam_x = self._table(w), self._table(lp)
+            self.lam_w = self._table(w, "lam_w")
+            self.lam_x = self._table(lp, "lam_x")
         else:
-            self.lam_p2, self.lam_m2 = self._table(lp), self._table(lm_)
+            self.lam_p2 = self._table(lp, "lam_p2")
+            self.lam_m2 = self._table(lm_, "lam_m2")
+
+    def _round_td(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` rounded to the table dtype, in the compute dtype: the JAX
+        package's ``t.astype(table_dtype)`` before a product that it asks
+        for in the compute dtype (the identity for tables in the compute
+        dtype)."""
+        if self.table_dtype == self.dtype:
+            return t
+        return t.to(self.table_dtype).to(self.dtype)
+
+    def _trig(self, a) -> torch.Tensor:
+        """A host (float64) trig matrix as the azimuthal stages hold it:
+        rounded to the table dtype, as the JAX package stores it, and kept
+        in the compute dtype, so that a plain product of it with a rounded
+        operand forms the JAX package's exact bfloat16 products."""
+        return torch.as_tensor(np.ascontiguousarray(a),
+                               dtype=self.table_dtype,
+                               device=self.device).to(self.dtype)
+
+    def _equator_row(self, lam: torch.Tensor):
+        """The compute-dtype equator row (M, L) of the split bfloat16 table
+        ``lam`` (one of this transform's own), or None."""
+        for name, row in self.eq_rows.items():
+            if getattr(self, name) is lam:
+                return row
+        return None
+
+    def _synth_par(self, lam, x, flip, ms=None):
+        """The parity synthesis of the (M, C, L) batch view ``x`` over all
+        the grid's rings, with a split bfloat16 table's equator row
+        contracted in the compute dtype against the rounded grid."""
+        out = legendre_synth_par(lam, x, 2 * self.nrh + self.has_mid, flip,
+                                 ms)
+        mid = self._equator_row(lam)
+        if mid is not None:
+            out[:, self.nrh] = torch.einsum("ml,mcl->mc", mid,
+                                            self._round_td(x))
+        return out
+
+    def _adj_par(self, lam, gk, flip, ms=None):
+        """The parity adjoint of the (M, nr, C) view ``gk`` -> (M, C, L),
+        with a split bfloat16 table's equator row added in the compute
+        dtype."""
+        out = legendre_adj_par(lam, gk, flip, ms)
+        mid = self._equator_row(lam)
+        if mid is not None:
+            out += mid[:, None, :] * gk[:, self.nrh, :, None]
+        return out
 
     def lsel_table(self, lam: torch.Tensor, j_idx) -> torch.Tensor:
         """The (L, J, nr) slice of a dense (L, L, nr) table at the selected
@@ -165,8 +241,7 @@ class LegendreCore:
         C = math.prod(batch)
         x = g2.reshape(C, L, L).transpose(0, 1)     # (m, C, l) view, no copy
         if self.ring_split:
-            out = legendre_synth_par(lam, x, 2 * self.nrh + self.has_mid,
-                                     flip)
+            out = self._synth_par(lam, x, flip)
         else:
             out = legendre_synth_tri(lam, x)        # (m, nr, C)
         nr = out.shape[1]
@@ -184,7 +259,11 @@ class LegendreCore:
         in the output's layout (the (J, nr, m) table slice and the (..., J,
         c, m) grid columns are small), so the large tensor is written once,
         contiguously, and the bins' segment sums are one matrix product
-        over J."""
+        over J.  With bfloat16 tables, as in the JAX package, the grid is
+        rounded to bfloat16, the product is formed in bfloat16 (so
+        rounded), and the segment sums, of the bfloat16 segment matrix, are
+        taken in the compute dtype (a matrix product of bfloat16 tensors
+        would round its result)."""
         if self.ring_split:
             raise NotImplementedError(_NO_LSEL)
         if not isinstance(j_idx, torch.Tensor):
@@ -194,15 +273,15 @@ class LegendreCore:
         lamj = self.lsel_table(lam, idx).permute(1, 2, 0).contiguous()
         gj = g2.to(lam.dtype)[..., idx].movedim(-1, -3)        # (..., J, c, m)
         # (..., J, c, 1, m) * (J, 1, r, m) -> (..., J, c, r, m)
-        prod = gj.unsqueeze(-2) * lamj.unsqueeze(-3)
+        prod = (gj.unsqueeze(-2) * lamj.unsqueeze(-3)).to(self.dtype)
         if seg is None:
-            return prod.to(self.dtype)
+            return prod
         if not isinstance(seg, torch.Tensor):
             seg = torch.as_tensor(np.asarray(seg))
-        seg = seg.to(dtype=prod.dtype, device=prod.device)
+        seg = seg.to(dtype=lam.dtype, device=prod.device).to(self.dtype)
         J = prod.shape[-4]
         out = torch.matmul(seg.T, prod.reshape(prod.shape[:-4] + (J, -1)))
-        return out.reshape(out.shape[:-1] + prod.shape[-3:]).to(self.dtype)
+        return out.reshape(out.shape[:-1] + prod.shape[-3:])
 
     def _lsynth_stack_binned(self, lam: torch.Tensor, g2: torch.Tensor,
                              sel) -> torch.Tensor:
@@ -235,7 +314,7 @@ class LegendreCore:
         # one copy into (m, C, r) order, passed as the (m, r, C) view
         gk = g.reshape(C, nr, L).permute(2, 0, 1).contiguous().transpose(1, 2)
         # (m, C, l) view of a (C, m, l) tensor
-        out = (legendre_adj_par(lam, gk, flip) if self.ring_split
+        out = (self._adj_par(lam, gk, flip) if self.ring_split
                else legendre_adj_tri(lam, gk))
         return out.transpose(0, 1).reshape(batch + (L, L))
 

@@ -51,20 +51,33 @@ even and odd l - m apart.  These are the JAX package's split contractions
 ``_ladj_stack_sym``, einsums there).  Layouts, the slab form and the
 outputs are those of the dense kernels.
 
+The bfloat16 table mode (the JAX package's ``table_dtype=bfloat16``):
+lam in bfloat16 with x or g in float32, the output float32.  It is the
+JAX contraction ``einsum(lam, b.astype(bfloat16),
+preferred_element_type=float32)``: the batch is rounded to bfloat16 (to
+nearest, ties to even), the products of the rounded values are exact in
+float32 and are summed in float32.  The parity adjoint forms its fold
+g[r] + f (-1)^(l+m) g[nr-1-r] in float32 and rounds the fold, as the JAX
+package's ``U = (Gn + Gs).astype(table_dtype)`` does.  Any other pair of
+dtypes than (float32, float32), (float64, float64) and (bfloat16,
+float32) raises ``TypeError``.
+
 The kernels (``csrc/``; design and bounds are noted in each source) are
 compiled with nvcc for sm_90a at first use, into ``_build/`` beside the
 package, keyed by a hash of every source and the flags, and loaded with
 ctypes: ``legendre_tri.cu`` holds the float32 kernels (3xTF32 on the tensor
 cores), ``legendre_tri_f64.cu`` the float64 ones (streaming the table
-through a ``cp.async`` ring to the FMA pipes).  A wrapper
-takes the plain ``torch.einsum`` version only for tensors on the CPU; for
-CUDA tensors it launches its kernel or raises.  Each wrapper counts its
-kernel launches in ``<wrapper>.launches`` (the parity wrappers apart from
-the dense ones), those of the float64 kernel
-alone also in ``<wrapper>.launches_f64``, and each launch once more by its
-shape: a full-table launch in ``<wrapper>.shapes`` ({(L, nr, C, dtype):
-launches}), a slab launch in ``<wrapper>.slabs`` ({(L, M, nr, C, dtype):
-launches}).
+through a ``cp.async`` ring to the FMA pipes), ``legendre_tri_bf16.cu``
+the bfloat16-table ones (bf16 ``mma.sync`` with float32 accumulation).  A
+wrapper takes the plain ``torch.einsum`` version only for tensors on the
+CPU; for CUDA tensors it launches its kernel or raises.  Each wrapper
+counts its kernel launches in ``<wrapper>.launches`` (the parity wrappers
+apart from the dense ones), those of the float64 kernel alone also in
+``<wrapper>.launches_f64`` and those of the bfloat16 one in
+``<wrapper>.launches_bf16``, and each launch once more by its shape: a
+full-table launch in ``<wrapper>.shapes`` ({(L, nr, C, table dtype):
+launches}), a slab launch in ``<wrapper>.slabs`` ({(L, M, nr, C, table
+dtype): launches}).
 """
 
 from __future__ import annotations
@@ -83,7 +96,8 @@ __all__ = ["legendre_synth_tri", "legendre_adj_tri",
            "legendre_synth_tri_plain", "legendre_adj_tri_plain",
            "legendre_synth_par", "legendre_adj_par",
            "legendre_synth_par_plain", "legendre_adj_par_plain",
-           "build", "f32_dynamic_smem", "reset_launch_counts"]
+           "build", "f32_dynamic_smem", "bf16_dynamic_smem",
+           "reset_launch_counts"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -109,7 +123,16 @@ _LIBS = {
                          "legendre_synth_par_f64": _SYNTH_PAR_ARGS,
                          "legendre_adj_par_f64": _ADJ_PAR_ARGS,
                          "legendre_tri_f64_plan": [_I] * 3},
+    "legendre_tri_bf16": {"legendre_synth_tri_bf16": _SYNTH_ARGS,
+                          "legendre_adj_tri_bf16": _ADJ_ARGS,
+                          "legendre_synth_par_bf16": _SYNTH_PAR_ARGS,
+                          "legendre_adj_par_bf16": _ADJ_PAR_ARGS,
+                          "legendre_tri_bf16_smem": [_I]},
 }
+# the (table, batch) dtype pairs the kernels take -> entry-point suffix
+_SUFFIX = {(torch.float32, torch.float32): "f32",
+           (torch.float64, torch.float64): "f64",
+           (torch.bfloat16, torch.float32): "bf16"}
 _fns: dict = {}
 _loaded = {"tag": None}  # the build whose entry points are in _fns
 
@@ -188,6 +211,17 @@ def f32_dynamic_smem() -> dict:
     return {"synth": fn(0), "adj unit-r g": fn(1), "adj unit-c g": fn(2)}
 
 
+def bf16_dynamic_smem() -> dict:
+    """Dynamic shared memory (bytes) of each bfloat16-table kernel; builds
+    first."""
+    if not _fns:
+        build()
+    fn = _fns["legendre_tri_bf16_smem"]
+    return {kind: fn(k) for k, kind in enumerate(
+        ("synth", "adj unit-r g", "adj unit-c g", "synth par",
+         "adj par unit-r g", "adj par unit-c g"))}
+
+
 def f64_plan(nr: int, C: int) -> dict:
     """Threads per block and dynamic shared memory (bytes) of each float64
     kernel's launch at nr rings and C columns; builds first."""
@@ -201,7 +235,7 @@ def f64_plan(nr: int, C: int) -> dict:
 def reset_launch_counts() -> None:
     for fn in (legendre_synth_tri, legendre_adj_tri, legendre_synth_par,
                legendre_adj_par):
-        fn.launches = fn.launches_f64 = 0
+        fn.launches = fn.launches_f64 = fn.launches_bf16 = 0
         fn.shapes = collections.Counter()
         fn.slabs = collections.Counter()
 
@@ -220,8 +254,36 @@ def _tri_rows(lam: torch.Tensor, ms: torch.Tensor) -> torch.Tensor:
     return lam * keep[:, :, None].to(lam.dtype)
 
 
+def _dtypes(name: str, lam: torch.Tensor, b: torch.Tensor) -> str:
+    """The entry-point suffix of the pair (lam, b); TypeError for a pair
+    no kernel takes."""
+    try:
+        return _SUFFIX[(lam.dtype, b.dtype)]
+    except KeyError:
+        raise TypeError(f"{name}: dtypes {lam.dtype}, {b.dtype}; the "
+                        "kernels take float32 or float64 for both, or a "
+                        "bfloat16 table with a float32 batch") from None
+
+
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to bfloat16 (to nearest, ties to even),
+    back in float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _plain_operands(name: str, lam: torch.Tensor, b: torch.Tensor):
+    """(lam, b) as the plain versions contract them: a bfloat16 table
+    upcast to float32 and the float32 batch rounded to bfloat16, so that
+    the float32 einsum forms the kernel's exact products (never an einsum
+    on bfloat16 tensors, whose result would be rounded to bfloat16)."""
+    if _dtypes(name, lam, b) == "bf16":
+        return lam.float(), _bf16_round(b)
+    return lam, b
+
+
 def legendre_synth_tri_plain(lam: torch.Tensor, x: torch.Tensor,
                              ms: torch.Tensor | None = None) -> torch.Tensor:
+    lam, x = _plain_operands("legendre_synth_tri", lam, x)
     if ms is not None:
         lam = _tri_rows(lam, ms)
     return torch.einsum("mlr,mcl->mrc", lam, x)
@@ -229,6 +291,7 @@ def legendre_synth_tri_plain(lam: torch.Tensor, x: torch.Tensor,
 
 def legendre_adj_tri_plain(lam: torch.Tensor, g: torch.Tensor,
                            ms: torch.Tensor | None = None) -> torch.Tensor:
+    lam, g = _plain_operands("legendre_adj_tri", lam, g)
     if ms is not None:
         lam = _tri_rows(lam, ms)
     return torch.einsum("mlr,mrc->mcl", lam, g)
@@ -252,6 +315,7 @@ def legendre_synth_par_plain(lam: torch.Tensor, x: torch.Tensor, nr: int,
                              flip: bool = False,
                              ms: torch.Tensor | None = None) -> torch.Tensor:
     nh = lam.shape[2]
+    lam, x = _plain_operands("legendre_synth_par", lam, x)
     lam_e, lam_o = _parity_halves(lam, ms)
     se = torch.einsum("mlr,mcl->mrc", lam_e, x)
     so = torch.einsum("mlr,mcl->mrc", lam_o, x)
@@ -263,15 +327,20 @@ def legendre_adj_par_plain(lam: torch.Tensor, g: torch.Tensor,
                            flip: bool = False,
                            ms: torch.Tensor | None = None) -> torch.Tensor:
     nh = lam.shape[2]
+    bf16 = _dtypes("legendre_adj_par", lam, g) == "bf16"
     gn = g[:, :nh]
     # the south mirror of north ring r < nr - nh; none for the equator
     gs = torch.zeros_like(gn)
     gs[:, : g.shape[1] - nh] = g[:, nh:].flip(1)
     if flip:
         gs = -gs
+    u, v = gn + gs, gn - gs
+    if bf16:
+        # the fold in float32, then rounded (JAX's (Gn + Gs).astype(td))
+        lam, u, v = lam.float(), _bf16_round(u), _bf16_round(v)
     lam_e, lam_o = _parity_halves(lam, ms)
-    return (torch.einsum("mlr,mrc->mcl", lam_e, gn + gs)
-            + torch.einsum("mlr,mrc->mcl", lam_o, gn - gs))
+    return (torch.einsum("mlr,mrc->mcl", lam_e, u)
+            + torch.einsum("mlr,mrc->mcl", lam_o, v))
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +395,7 @@ def _launch(kind: str, lam: torch.Tensor, b: torch.Tensor,
     if not _fns:
         build()
     fn = _fns[f"legendre_{kind}_{'tri' if nr is None else 'par'}_"
-              f"{'f32' if lam.dtype == torch.float32 else 'f64'}"]
+              f"{_SUFFIX[(lam.dtype, b.dtype)]}"]
     M, L, nt = lam.shape
     # strides of size-1 axes are free in torch; the kernels index them at 0
     sb = [1 if size == 1 else s for size, s in zip(b.shape, b.stride())]
@@ -351,6 +420,7 @@ def _count(fn, lam: torch.Tensor, nr: int, C: int, ms) -> None:
     M, L = lam.shape[:2]
     fn.launches += 1
     fn.launches_f64 += lam.dtype == torch.float64
+    fn.launches_bf16 += lam.dtype == torch.bfloat16
     if ms is None:
         fn.shapes[(L, nr, C, lam.dtype)] += 1
     else:
@@ -361,9 +431,7 @@ def _check_card(name: str, lam: torch.Tensor, b: torch.Tensor) -> None:
     if lam.device != b.device or lam.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {lam.device} and "
                          f"{b.device}; both must be on one CUDA device")
-    if lam.dtype != b.dtype or lam.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: dtypes {lam.dtype}, {b.dtype}; "
-                        "the kernel takes float32 or float64, the same for both")
+    _dtypes(name, lam, b)
 
 
 def legendre_synth_tri(lam: torch.Tensor, x: torch.Tensor,
@@ -377,7 +445,7 @@ def legendre_synth_tri(lam: torch.Tensor, x: torch.Tensor,
         return legendre_synth_tri_plain(lam, x, ms)
     _check_card("legendre_synth_tri", lam, x)
     M, _, nr = lam.shape
-    out = torch.empty((M, nr, x.shape[1]), dtype=lam.dtype, device=lam.device)
+    out = torch.empty((M, nr, x.shape[1]), dtype=x.dtype, device=lam.device)
     if out.numel():
         _launch("synth", lam, x, out, ms)
         _count(legendre_synth_tri, lam, nr, x.shape[1], ms)
@@ -399,7 +467,7 @@ def legendre_adj_tri(lam: torch.Tensor, g: torch.Tensor,
     _check_card("legendre_adj_tri", lam, g)
     M, L, nr = lam.shape
     C = g.shape[2]
-    out = torch.empty((C, M, L), dtype=lam.dtype,
+    out = torch.empty((C, M, L), dtype=g.dtype,
                       device=lam.device).transpose(0, 1)
     if out.numel():
         _launch("adj", lam, g, out, ms)
@@ -419,7 +487,7 @@ def legendre_synth_par(lam: torch.Tensor, x: torch.Tensor, nr: int,
         return legendre_synth_par_plain(lam, x, nr, flip, ms)
     _check_card("legendre_synth_par", lam, x)
     M = lam.shape[0]
-    out = torch.empty((M, nr, x.shape[1]), dtype=lam.dtype, device=lam.device)
+    out = torch.empty((M, nr, x.shape[1]), dtype=x.dtype, device=lam.device)
     if out.numel():
         _launch("synth", lam, x, out, ms, nr, flip)
         _count(legendre_synth_par, lam, nr, x.shape[1], ms)
@@ -439,7 +507,7 @@ def legendre_adj_par(lam: torch.Tensor, g: torch.Tensor, flip: bool = False,
     _check_card("legendre_adj_par", lam, g)
     M, L = lam.shape[:2]
     nr, C = g.shape[1], g.shape[2]
-    out = torch.empty((C, M, L), dtype=lam.dtype,
+    out = torch.empty((C, M, L), dtype=g.dtype,
                       device=lam.device).transpose(0, 1)
     if out.numel():
         _launch("adj", lam, g, out, ms, nr, flip)

@@ -93,10 +93,11 @@ class PointSHT(LegendreCore):
         ang = phi[:, None, :] * np.arange(L)[None, :, None]   # (nr, L, p)
         # cos and sin stacked on the m axis: the adjoint's azimuthal stage
         # is one batched product over the point rows
-        self.trig = t(np.concatenate([np.cos(ang), np.sin(ang)], axis=1))
+        self.trig = self._trig(np.concatenate([np.cos(ang), np.sin(ang)],
+                                              axis=1))
         self.cosT, self.sinT = self.trig[:, :L], self.trig[:, L:]
         self.valid = t(valid_np)
-        self.lam0 = (self._table(legendre_table(lmax, np.cos(theta)))
+        self.lam0 = (self._table(legendre_table(lmax, np.cos(theta)), "lam0")
                      if spin0 else None)
         self.lam_p2 = self.lam_m2 = self.lam_w = self.lam_x = None
         if spin2:
@@ -106,20 +107,25 @@ class PointSHT(LegendreCore):
         self.slot_row = torch.as_tensor(vr, dtype=torch.int64, device=dev)
         self.slot_col = torch.as_tensor(vc, dtype=torch.int64, device=dev)
         angF = np.outer(np.arange(L), phi[vr, vc])            # (L, S)
-        self.cosF, self.sinF = t(np.cos(angF)), t(np.sin(angF))
+        self.cosF = self._trig(np.cos(angF))
+        self.sinF = self._trig(np.sin(angF))
 
     # -- azimuthal point stage (exact-transpose pair) ----------------------
 
     def _to_points(self, Cc, Cs):
         """Half-spectrum coefficients (..., nr, L) -> values (..., nr, p):
         v[r, k] = sum_m Cc cos(m phi_rk) + Cs sin(m phi_rk)."""
-        v = (torch.einsum("...rm,rmp->...rp", Cc.to(self.dtype), self.cosT)
-             + torch.einsum("...rm,rmp->...rp", Cs.to(self.dtype), self.sinT))
+        rnd = self._round_td
+        v = (torch.einsum("...rm,rmp->...rp", rnd(Cc.to(self.dtype)),
+                          self.cosT)
+             + torch.einsum("...rm,rmp->...rp", rnd(Cs.to(self.dtype)),
+                            self.sinT))
         return v * self.valid
 
     def _from_points(self, f):
         """Exact transpose of ``_to_points``: values -> (Sc, Ss) trig sums."""
-        S = torch.einsum("...rp,rkp->...rk", (f * self.valid).to(self.dtype),
+        S = torch.einsum("...rp,rkp->...rk",
+                         self._round_td((f * self.valid).to(self.dtype)),
                          self.trig)
         L = self.lmax + 1
         return S[..., :L], S[..., L:]
@@ -232,11 +238,15 @@ class PointSHT(LegendreCore):
         """Per-slot tables of ``flat_values`` from (lam_s, re_trig, im_trig)
         triples, one per map component: lam_s (L, J, S) slot-expanded
         tables; the grid's real part pairs with ``re_trig``, its imaginary
-        part with ``im_trig``.  Returns (J, 2L, ncomp S)."""
+        part with ``im_trig``.  Returns (J, 2L, ncomp S).  With bfloat16
+        tables each entry is the product of the bfloat16 values, rounded
+        to bfloat16 (the JAX package forms it in bfloat16)."""
+        rnd = self._round_td
         tabs = []
         for lam_s, tre, tim in parts:
-            tabs.append(torch.stack([lam_s * tre[:, None, :],
-                                     lam_s * tim[:, None, :]]))  # (2, L, J, S)
+            lam_s = lam_s.to(self.dtype)
+            tabs.append(torch.stack([rnd(lam_s * tre[:, None, :]),
+                                     rnd(lam_s * tim[:, None, :])]))
         tab = torch.stack(tabs, dim=-2)                  # (2, L, J, nc, S)
         J = tab.shape[2]
         return (tab.permute(2, 0, 1, 3, 4)
@@ -259,8 +269,11 @@ class PointSHT(LegendreCore):
         lamp = self.lsel_table(self.lam_p2, j_idx)          # (L, J, r)
         lamm = self.lsel_table(self.lam_m2, j_idx)
         pos = self.pos[:, None, None]
-        La = (sign_p * lamp + sign_m * pos * lamm)[..., self.slot_row]
-        Lb = (sign_p * lamp - sign_m * pos * lamm)[..., self.slot_row]
+        lamp, lamm = lamp.to(self.dtype), lamm.to(self.dtype)
+        # formed in the table dtype in the JAX package: rounded
+        La = self._round_td(sign_p * lamp + sign_m * pos * lamm)
+        Lb = self._round_td(sign_p * lamp - sign_m * pos * lamm)
+        La, Lb = La[..., self.slot_row], Lb[..., self.slot_row]
         # q = g_re (La cos) - g_im (La sin); u = g_re (Lb sin) + g_im (Lb cos)
         return self._slot_tables([(La, self.cosF, -self.sinF),
                                   (Lb, self.sinF, self.cosF)],
@@ -273,6 +286,9 @@ class PointSHT(LegendreCore):
         tables (J, 2L, ncomp S): (..., nb, ncomp S), the bins being the
         J ells, or the columns of the (J, nb) segment matrix ``seg``."""
         g = gsel.reshape(gsel.shape[:-3] + (-1, gsel.shape[-1]))
+        if self.table_dtype != self.dtype:
+            # the grid rounded to the table dtype, as in the JAX package
+            g = self._round_td(g.to(self.dtype))
         v = torch.einsum("...kj,jkx->...jx", g.to(tab.dtype), tab)
         if seg is None:
             return v

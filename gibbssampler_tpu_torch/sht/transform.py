@@ -21,6 +21,14 @@ azimuthal stage has the JAX package's three forms (``fft_mode``):
 
 The ring-domain helpers of the blocked-MH engines (``ring_cs_of_maps``)
 stay "matmul" in every mode, as in the JAX package.
+
+With bfloat16 tables (``table_dtype``) the "matmul" and "ct" stages are
+the JAX package's bfloat16 products: their DFT, twiddle and Cooley-Tukey
+matrices hold bfloat16-rounded values (kept in float32), and each data
+operand is rounded to bfloat16 just before its product
+(``LegendreCore._round_td``), which runs in float32; "fft" takes no table
+dtype, in the JAX package and here.
+
 On the Gauss-Legendre grid ``analysis`` is the
 exact inverse of ``synthesis`` and ``adjoint_synthesis`` its exact
 transpose.  The alm format is the grid-packed state (harmonics.gridstate);
@@ -67,8 +75,8 @@ class SHT(FlatAlmMethods, LegendreCore):
 
     The JAX package's construction options, with its defaults:
     ``fft_mode`` ("matmul", "fft" or "ct": the module docstring);
-    ``table_dtype`` (None: the compute dtype, the only one taken;
-    ``sht.lcore.resolve_table_dtype``); ``m_block`` (the JAX package's
+    ``table_dtype`` (None: the compute dtype; bfloat16 with float32
+    compute; ``sht.lcore.resolve_table_dtype``); ``m_block`` (the JAX package's
     wedge m-blocking; stored and passed on to derived transforms, and no
     value of it changes a result or a launch: the kernels skip the l < m
     triangle row by row); ``ring_split`` (the north/south parity split,
@@ -92,7 +100,7 @@ class SHT(FlatAlmMethods, LegendreCore):
                 f"need >= {2 * lmax + 2}")
         dev = self.device
         theta_t = self._table_theta(grid.theta)
-        self.lam0 = self._table(legendre_table(lmax, np.cos(theta_t)))
+        self.lam0 = self._table(legendre_table(lmax, np.cos(theta_t)), "lam0")
         # quadrature weights including the 2 pi / nphi azimuthal factor
         self.wq = torch.as_tensor(grid.weights * (2.0 * np.pi / grid.nphi),
                                   dtype=dtype, device=dev)
@@ -109,12 +117,12 @@ class SHT(FlatAlmMethods, LegendreCore):
         nh = grid.nphi // 2 + 1
         ang2 = 2.0 * np.pi * np.outer(m, np.arange(nh)) / grid.nphi
         self.nphi_half = nh
-        self.dft_cos = torch.as_tensor(np.cos(ang2), dtype=dtype, device=dev)
-        self.dft_sin = torch.as_tensor(np.sin(ang2), dtype=dtype, device=dev)
+        self.dft_cos = self._trig(np.cos(ang2))
+        self.dft_sin = self._trig(np.sin(ang2))
         self.fft_mode = fft_mode
         self._ct = None
         if fft_mode == "ct":
-            self._ct = _ct_setup(grid.nphi, L, dtype, dev)
+            self._ct = _ct_setup(grid.nphi, L, self._trig, self._round_td)
             if self._ct is None:
                 self.fft_mode = "matmul"
         self.lam_p2 = self.lam_m2 = self.lam_w = self.lam_x = None
@@ -146,7 +154,8 @@ class SHT(FlatAlmMethods, LegendreCore):
     def _halfspec_to_real(self, Are, Aim):
         """f[..., j] = sum_m Are cos(m theta_j) - Aim sin(m theta_j) over
         the ring angle theta_j = 2 pi j / nphi, m < L: "ct" or else the
-        folded DFT matrices."""
+        folded DFT matrices; (Are, Aim) rounded to the table dtype."""
+        Are, Aim = self._round_td(Are), self._round_td(Aim)
         if self.fft_mode == "ct":
             return _ct_halfspec_to_real(self._ct, Are, Aim)
         C = torch.matmul(Are, self.dft_cos)
@@ -155,13 +164,14 @@ class SHT(FlatAlmMethods, LegendreCore):
 
     def _real_to_halfspec(self, maps):
         """(C, S)[..., m] = (sum_j f cos(m theta_j), sum_j f sin(m theta_j)),
-        m < L: the transpose of ``_halfspec_to_real``."""
+        m < L: the transpose of ``_halfspec_to_real``; the maps ("ct") or
+        their folds rounded to the table dtype."""
         maps = maps.to(self.dtype)
         if self.fft_mode == "ct":
-            return _ct_real_to_halfspec(self._ct, maps)
+            return _ct_real_to_halfspec(self._ct, self._round_td(maps))
         u, v = self._fold_half(maps)
-        return (torch.matmul(u, self.dft_cos.T),
-                torch.matmul(v, self.dft_sin.T))
+        return (torch.matmul(self._round_td(u), self.dft_cos.T),
+                torch.matmul(self._round_td(v), self.dft_sin.T))
 
     def _ring_ifft_real(self, Fre, Fim):
         """f[.., r, j] = sum_m (2 - delta_m0) (Fre cos(m phi_j) - Fim sin)."""
@@ -312,8 +322,8 @@ class SHT(FlatAlmMethods, LegendreCore):
         (..., nr, L), so that sum_j f a = sum_m (Cc Rc + Cs Rs) for any
         half-spectrum series a with coefficients (Cc, Cs)."""
         u, v = self._fold_half(maps.to(self.dtype))
-        return (torch.matmul(u, self.dft_cos.T),
-                torch.matmul(v, self.dft_sin.T))
+        return (torch.matmul(self._round_td(u), self.dft_cos.T),
+                torch.matmul(self._round_td(v), self.dft_sin.T))
 
     def lsel_grid_spin2_single(self, state: torch.Tensor, which: str):
         """The Legendre-stage input grid of a single-field spin-2 input (the
@@ -419,11 +429,14 @@ def make_sht(lmax: int, grid: SphereGrid | None = None, dtype=torch.float32,
 class _CT:
     """The mixed-radix azimuthal operator: DFT_n factored as two matrix
     stages with a twiddle between them (n = n1 n2; m = n1 a + b; j = j2 +
-    n2 j1); for n ~ 2 lmax about 4x fewer products than the folded DFT."""
+    n2 j1); for n ~ 2 lmax about 4x fewer products than the folded DFT.
+    ``t`` makes a matrix of host values (rounded to the table dtype),
+    ``rnd`` rounds the second stage's operand to the table dtype (the JAX
+    package's ``astype`` between the stages)."""
 
-    def __init__(self, n, n1, n2, A, L, dtype, device):
+    def __init__(self, n, n1, n2, A, L, t, rnd):
         self.n, self.n1, self.n2, self.A, self.L = n, n1, n2, A, L
-        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        self.rnd = rnd
         w2 = 2.0 * np.pi * (np.arange(A)[:, None] * np.arange(n2)[None, :]) \
             / n2
         self.W2c, self.W2s = t(np.cos(w2)), t(np.sin(w2))       # (A, n2)
@@ -435,7 +448,7 @@ class _CT:
         self.W1c, self.W1s = t(np.cos(w1)), t(np.sin(w1))       # (n1, n1)
 
 
-def _ct_setup(n, L, dtype, device):
+def _ct_setup(n, L, t, rnd):
     """Pick n = n1 n2 minimizing 4 ceil(L / n1) + 2 n1; None if no useful
     factorization exists."""
     best = None
@@ -448,7 +461,7 @@ def _ct_setup(n, L, dtype, device):
     if best is None or best[0] >= 2 * (n // 2 + 1) * L // n:
         return None
     n1 = best[1]
-    return _CT(n, n1, n // n1, -(-L // n1), L, dtype, device)
+    return _CT(n, n1, n // n1, -(-L // n1), L, t, rnd)
 
 
 def _ct_halfspec_to_real(ct, Gre, Gim):
@@ -462,8 +475,8 @@ def _ct_halfspec_to_real(ct, Gre, Gim):
     e = lambda x, w: torch.matmul(x.transpose(-1, -2), w)
     T1re = e(Xre, ct.W2c) - e(Xim, ct.W2s)
     T1im = e(Xre, ct.W2s) + e(Xim, ct.W2c)
-    T2re = T1re * ct.TWc - T1im * ct.TWs
-    T2im = T1re * ct.TWs + T1im * ct.TWc
+    T2re = ct.rnd(T1re * ct.TWc - T1im * ct.TWs)
+    T2im = ct.rnd(T1re * ct.TWs + T1im * ct.TWc)
     # stage 2 over b: (..., b, j2) x (b, j1) -> (..., j1, j2), j = j2 + n2 j1
     out = (torch.matmul(ct.W1c.T, T2re) - torch.matmul(ct.W1s.T, T2im))
     return out.reshape(out.shape[:-2] + (ct.n,))
@@ -476,8 +489,8 @@ def _ct_real_to_halfspec(ct, maps):
     # (b, j1) x (..., j1, j2) -> (..., b, j2)
     Ure = torch.matmul(ct.W1c, x)
     Uim = -torch.matmul(ct.W1s, x)
-    Vre = Ure * ct.TWc + Uim * ct.TWs
-    Vim = Uim * ct.TWc - Ure * ct.TWs
+    Vre = ct.rnd(Ure * ct.TWc + Uim * ct.TWs)
+    Vim = ct.rnd(Uim * ct.TWc - Ure * ct.TWs)
     # (..., b, j2) x (j2, a) -> (..., a, b)
     g = lambda v, w: torch.matmul(v, w.T).transpose(-1, -2)
     Cre = g(Vre, ct.W2c) + g(Vim, ct.W2s)

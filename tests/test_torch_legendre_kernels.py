@@ -349,3 +349,54 @@ def test_cuda_parity_kernels_match_plain(cuda_device, L, nr, C, dtype):
     assert (lk.legendre_synth_par.launches + lk.legendre_adj_par.launches,
             lk.legendre_synth_tri.launches, lk.legendre_adj_tri.launches) \
         == (calls, 0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,nr,C", PAR_CARD_SHAPES)
+def test_cuda_bf16_kernels_match_plain(cuda_device, L, nr, C):
+    """The bfloat16-table kernels, dense and parity (flip and not), on the
+    full table and the two-way split's slabs, g with unit stride on r and
+    on c, against their plain versions on the card (1e-5 max|ref|: the
+    same exact products, float32 sums), the float32 outputs given
+    NaN-filled memory; each launch counted in ``launches_bf16`` too."""
+    gen = torch.Generator(device=cuda_device).manual_seed(L + nr + C)
+    tri = (torch.arange(L, device=cuda_device)[None, :, None]
+           >= torch.arange(L, device=cuda_device)[:, None, None])
+    nh = (nr + 1) // 2
+    tabs = {n_: (torch.randn((L, L, n_), generator=gen, device=cuda_device)
+                 * tri).to(torch.bfloat16).contiguous() for n_ in (nr, nh)}
+    x = torch.randn((L, C, L), generator=gen, device=cuda_device)
+    g = torch.randn((L, nr, C), generator=gen, device=cuda_device)
+    xv, gv = _state_views(x, g)
+    lk.reset_launch_counts()
+    calls = 0
+    for ms in [None] + [torch.as_tensor(r, dtype=torch.int32,
+                                        device=cuda_device)
+                        for r in m_rows(L, 2)]:
+        sel = (lambda t: t) if ms is None else (
+            lambda t: t.index_select(0, ms.long()).contiguous())
+        xs = xv if ms is None else sel(xv)
+        gls = [g, gv] if ms is None else [_state_views(x, sel(g))[1]]
+        cases = [(lk.legendre_synth_tri, lk.legendre_synth_tri_plain,
+                  tabs[nr], xs, (), (L, nr, C))]
+        cases += [(lk.legendre_adj_tri, lk.legendre_adj_tri_plain, tabs[nr],
+                   gl, (), (C, L, L)) for gl in gls]
+        for flip in (False, True):
+            cases.append((lk.legendre_synth_par, lk.legendre_synth_par_plain,
+                          tabs[nh], xs, (nr, flip), (L, nr, C)))
+            cases += [(lk.legendre_adj_par, lk.legendre_adj_par_plain,
+                       tabs[nh], gl, (flip,), (C, L, L)) for gl in gls]
+        for kern, plain, lam, b, args, shape in cases:
+            torch.full(shape, float("nan"), device=cuda_device)
+            out = kern(sel(lam), b, *args, ms)
+            ref = plain(sel(lam), b, *args, ms)
+            torch.cuda.synchronize()
+            calls += 1
+            assert out.dtype == torch.float32
+            err = float((out - ref).abs().max())
+            assert bool(torch.isfinite(out).all())
+            assert err <= 1e-5 * float(ref.abs().max()), (
+                kern.__name__, ms is None, args, err)
+    assert sum(f.launches_bf16 for f in (
+        lk.legendre_synth_tri, lk.legendre_adj_tri, lk.legendre_synth_par,
+        lk.legendre_adj_par)) == calls
