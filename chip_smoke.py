@@ -484,6 +484,9 @@ def phase_build(lk):
           f"{lk.f32_dynamic_smem()}", flush=True)
     print(f"  bfloat16-table kernels' dynamic shared memory (bytes): "
           f"{lk.bf16_dynamic_smem()}", flush=True)
+    print(f"  bfloat16-table kernels' resident blocks an SM (cudaOccupancy"
+          f"MaxActiveBlocksPerMultiprocessor): {lk.bf16_blocks_per_sm()}",
+          flush=True)
     for nr, C in F64_TIMED:
         print(f"  float64 kernels' threads and dynamic shared memory "
               f"(bytes) at nr {nr}, C {C}: {lk.f64_plan(nr, C)}", flush=True)
@@ -2892,8 +2895,9 @@ def phase_parity_kernels(torch, lk, dev, card, lmax=LMAX, shapes=None):
     kernel on the mirrored full table (the same function); then a slab of
     each (m_rows(L, 2)'s first).  Times kernel, plain version (its
     einsums) and the dense kernel on the full table (plain, kernel, kernel,
-    plain), with the bound of work_par.  Returns the float32 and float64
-    records keyed "<nr> C<C>" (and "<nr> C<C> slab 0 of 2")."""
+    plain), with the bound of work_par, and the one library call of the same
+    function, torch.einsum on the mirrored full table.  Returns the float32
+    and float64 records keyed "<nr> C<C>" (and "<nr> C<C> slab 0 of 2")."""
     from gibbssampler_tpu_torch.parallel import m_rows
     gen = torch.Generator(device=dev).manual_seed(13)
     L = lmax + 1
@@ -2946,6 +2950,9 @@ def phase_parity_kernels(torch, lk, dev, card, lmax=LMAX, shapes=None):
                 d2 = time_ms(torch, lambda: dense(full, b), reps)
                 k2 = time_ms(torch, lambda: kern(half, b, *args), reps)
                 p2 = time_ms(torch, lambda: plain(half, b, *args), reps)
+                spec = "mlr,mcl->mrc" if synth else "mlr,mrc->mcl"
+                lib = time_ms(torch, lambda: torch.einsum(spec, full, b),
+                              reps)
                 del full
                 ms_k, ms_p, ms_d = 0.5 * (k1 + k2), 0.5 * (p1 + p2), \
                     0.5 * (d1 + d2)
@@ -2960,7 +2967,9 @@ def phase_parity_kernels(torch, lk, dev, card, lmax=LMAX, shapes=None):
                 print(f"time {name} L={L} nr={nr} (nh {nh}) C={C} {dname} "
                       f"state views: kernel {ms_k:.4f} ms, plain (einsums) "
                       f"{ms_p:.4f} ms, dense kernel on the full table "
-                      f"{ms_d:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; "
+                      f"{ms_d:.4f} ms, library (torch.einsum on the full "
+                      f"table) {lib:.4f} ms; bound {bound_ms:.4f} ms "
+                      f"({bound_by}; "
                       f"dense {dense_bound:.4f}), {bound_ms / ms_k:.1%} of "
                       f"it reached; max|err|/max|ref| {errs[False][1]:.2e}, "
                       f"flip {errs[True][1]:.2e}, vs dense "
@@ -2968,7 +2977,7 @@ def phase_parity_kernels(torch, lk, dev, card, lmax=LMAX, shapes=None):
                 into.setdefault(name, {})[f"{nr} C{C}"] = {
                     "max_abs_err": max(e[0] for e in errs.values()),
                     "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None,
+                    "bound_by": bound_by, "library_ms": lib,
                     "dense_ms": ms_d, "dense_bound_ms": dense_bound}
                 # the slab form: the first slab of the two-way split
                 ls = half.index_select(0, idx).contiguous()
@@ -3415,7 +3424,8 @@ def phase_bf16_kernels(torch, lk, dev, card):
     table; a slab (m_rows(513, 2)'s first) of each pair.  At L 513 each
     kernel is timed in the main path's views beside its plain version and
     torch.einsum on the bfloat16 tensors (cuBLAS), with the bound of
-    work_bf16.  Returns {kernel: {shape key: record}}."""
+    work_bf16, the kernel's dynamic shared memory and its resident blocks
+    an SM.  Returns {kernel: {shape key: record}}."""
     from gibbssampler_tpu_torch.parallel import m_rows
     gen = torch.Generator(device=dev).manual_seed(19)
     f32, f64, bf = torch.float32, torch.float64, torch.bfloat16
@@ -3535,6 +3545,21 @@ def phase_bf16_kernels(torch, lk, dev, card):
             del ls, bs, ref64
         del half64, half, x, g, full
     torch.cuda.empty_cache()
+    # each record's launch configuration: the kernel (the dense synthesis
+    # at its ring tile; g with unit stride on r, as timed), its dynamic
+    # shared memory and its resident blocks an SM
+    smem, blocks = lk.bf16_dynamic_smem(), lk.bf16_blocks_per_sm()
+    for name, by in rec.items():
+        for key, r in by.items():
+            kind = {"legendre_synth_tri_bf16": "synth tile "
+                    f"{lk.bf16_synth_tile(int(str(key).split()[0]))}",
+                    "legendre_adj_tri_bf16": "adj unit-r g",
+                    "legendre_synth_par_bf16": "synth par",
+                    "legendre_adj_par_bf16": "adj par unit-r g"}[name]
+            r.update(kind=kind, smem=smem[kind], blocks_per_sm=blocks[kind])
+            print(f"bf16 {name} {key}: {kind}, {smem[kind]} bytes of "
+                  f"dynamic shared memory, {blocks[kind]} blocks an SM "
+                  f"[{card}]", flush=True)
     return rec
 
 

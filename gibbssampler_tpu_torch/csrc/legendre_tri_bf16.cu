@@ -1,6 +1,6 @@
 // Triangular Legendre contractions on bfloat16 tables for Hopper (sm_90a):
-// bf16 tensor-core tiles (mma.sync m16n8k16, float32 accumulation) fed by a
-// ring of shared-memory stages.  Plain C interface, loaded with ctypes.
+// bf16 tensor-core tiles (mma.sync m16n8k16, float32 accumulation) fed by
+// rings of shared-memory stages.  Plain C interface, loaded with ctypes.
 //
 // Replaces, for bfloat16 tables (the JAX package's table_dtype=bfloat16),
 // the Pallas TPU kernels of gibbssampler_tpu/sht/pallas_legendre.py:
@@ -12,49 +12,71 @@
 // lam is bfloat16; x and g are float32 in memory, as are the outputs.  The
 // function is the JAX package's einsum(lam, b.astype(bfloat16),
 // preferred_element_type=float32): each batch value is rounded to bfloat16
-// (to nearest, ties to even: cvt.rn.bf16x2.f32) as it goes from shared
-// memory into a fragment, so the batch is read once, in float32, and never
-// stored rounded; the products of two bfloat16 values are exact in float32
-// and the sums run in float32.
+// once (to nearest, ties to even: cvt.rn.bf16x2.f32), the products of two
+// bfloat16 values are exact in float32 and the sums run in float32.
 // Layouts, the m-slab form (ms, M) and the ring-parity mode (entry points
-// legendre_*_par_bf16) are those of legendre_tri.cu, whose block-GEMM
-// skeleton this file follows.  In the parity adjoint the fold g[r] + f
-// (-1)^(l-m) g[nr-1-r] is formed in float32 and then rounded, the JAX
-// package's U = (Gn + Gs).astype(table_dtype).  (The JAX package keeps the
-// equator row of a split table in float32; sht.lcore stores it apart and
-// hands these kernels a half table whose equator row is zero.)
+// legendre_*_par_bf16) are those of legendre_tri.cu.  In the parity adjoint
+// the fold g[r] + f (-1)^(l-m) g[nr-1-r] is formed in float32 and then
+// rounded, the JAX package's U = (Gn + Gs).astype(table_dtype).  (The JAX
+// package keeps the equator row of a split table in float32; sht.lcore
+// stores it apart and hands these kernels a half table whose equator row is
+// zero.)
 //
 // What bounds them.  At the main-path shape (L 513, nr 65, C 256) one call
 // does 4.39 GFLOP and must move ~0.186 GB (table half 17.1 MB in bf16,
 // batch half 134.7 MB, output 34.1 MB): 0.0555 ms at the data sheet's
 // 3.35 TB/s against 0.0044 ms at its 989 TFLOP/s dense bf16 rate.  Bytes,
-// and the batch's more than the table's: halving the table saves 8% of the
-// float32 kernels' bytes at this shape.  At nr 513 and 1023 (set-up, the
-// full grid) the table is most of the bytes.
+// and the batch's more than the table's.  At nr 513 and 1023 (set-up, the
+// full grid) the table and the output are most of the bytes.
 //
-// Design (a first version: right and simple; making it fast is later work).
-// - One bf16 MMA of k 16 where the float32 kernels run three TF32 MMAs of
-//   k 8 (3xTF32).  Fragments are packed from float32 shared memory: pairs
-//   along k are adjacent for the [i][k] A tiles and [j][k] B tiles (8-byte
-//   reads) and one row apart for [k][j] B tiles.  Row strides of 8 mod 32
-//   floats ([*][k]) and 4 or 12 mod 16 ([k][j]) keep the reads free of bank
-//   conflicts.
-// - The table's rows are nr bf16 values and nr is odd (65, 83, 193, 211,
-//   391, 513, 1023), so a row starts at any 2-byte alignment and neither
-//   cp.async (4 bytes at least) nor TMA can copy it as it stands.  The table
-//   goes through registers instead: a stage's table tile is read from
-//   global memory (2 bytes a lane, a warp's 32 lanes along the row) into
-//   registers before the MMAs of the stage two ahead of it, and stored to
-//   shared memory, as float32, after them, so the loads are in flight while
-//   the tensor cores work.  The float32 operand (x or g) keeps the 4-byte
-//   cp.async copies of legendre_tri.cu.  The device table is not padded:
-//   every reader of a table (lsel_table, the m-sharded slabs) sees the
-//   logical (L, L, nr) tensor.
-// - Staged accumulation, as legendre_tri.cu: each 32-deep stage sums into
-//   fresh accumulators, added to float32 sums in registers.
-// - Tiles, grids, the triangle and the parity modes are legendre_tri.cu's:
-//   synthesis i = c (128), j = r (72; 40 in the parity mode), k = l from m;
-//   adjoint i = l (64 from l = m), j = c (128), k = r; a ring of 3 stages.
+// Design.  The table's rows are nr (or nh) bf16 values and nr is odd (65,
+// 83, 193, 211, 391, 513, 1023), so a row starts at any 2-byte alignment:
+// neither TMA nor a 16-byte copy takes it as it stands, and the device table
+// is not padded (every reader of a table, lsel_table and the m-sharded
+// slabs, sees the logical (L, L, nr) tensor).
+//
+// The dense synthesis and the parity adjoint keep every operand tile that
+// the MMAs read in bf16 in shared memory and load its fragments with
+// ldmatrix.x4 (.trans for the synthesis table, whose unit stride is on j).
+// Their raw copies go DEPTH stages ahead into a landing ring; once a stage
+// has landed, one staging pass writes its bf16 tiles, which the MMAs of that
+// stage read (run_ring: two barriers a stage).  Float32 rows, and the
+// synthesis table's rows, are copied in whole 16-byte chunks (cp.async.cg)
+// from their start rounded down, and the staging pass reads each row from
+// its offset in its first chunk.  A k16 step loads its fragments, then runs
+// every 16 x 8 MMA of the warp tile: rows and columns past the data hold
+// zeros, and the MMAs cost less than branches around them (measured).  The
+// sums run in the MMA accumulators.
+// - Dense synthesis: i = c (128), j = r (the ring tile BN: 80, 96, 128 or
+//   144, which the host picks from nr: the fewest tiles, since every ring
+//   tile reads the batch again, then the least padding; nr 65 and 83 take
+//   one tile), k = l from m (32); 8 warps of 32 x BN / 2; DEPTH 3.  The
+//   staging pass rounds the batch to bf16 once, and shifts each table row
+//   into place (a funnel shift of two landed words).  Shared memory: landing
+//   3 x (x 128 x 36 float32 + table 32 x (BN + 8) bf16), A 128 x 40 and B
+//   32 x (BN + 8) bf16: 86.0, 90.0, 98.0 and 102.0 KB, two blocks an SM.
+// - Parity adjoint: a block computes both parities of 256 rows l = l0 ..
+//   l0 + 255 (128 of even l - m, which read U+ = g_n + f g_s, and 128 of
+//   odd, which read U- = g_n - f g_s) for 64 columns, so the north and south
+//   tiles of g are staged once for both; k = r over the nh north rings (32
+//   a stage); 8 warps of 64 x 32, two of each parity along i; DEPTH 2.  Rows
+//   of one parity are 2 nh values apart and share one 4-byte alignment, so
+//   the table tile goes by 4-byte cp.async straight into a ring of three
+//   bf16 slots (no staging pass, no registers), starting at ring k0 - sh_p;
+//   the staging pass forms U+- in float32 from the landed g (rings k0 - 1 ..
+//   k0 + 31), rounds each value once and writes U_p over the same rings as
+//   the table of parity p, so that the k axes agree.  Shared memory: table 3
+//   x 20 KB, landing 2 x 2 x 64 x 36 float32 (33 x 68 with unit stride on
+//   c), U+- 2 x 5 KB: 106.0 / 105.1 KB, two blocks an SM.
+// The dense adjoint and the parity synthesis (block_gemm, the first version
+// of this file): the table tile is read from global memory into registers
+// (2 bytes a lane) before the MMAs of the stage two ahead of it and stored
+// to shared memory as float32 after them; the float32 operand keeps the
+// 4-byte cp.async copies of legendre_tri.cu; fragments are packed from
+// float32 shared memory (cvt.rn.bf16x2 at each fragment read); each 32-deep
+// stage sums into fresh accumulators, added to float32 sums in registers.
+// Tiles: adjoint i = l (64 from l = m), j = c (128), k = r; parity synthesis
+// i = c (128), j = r (40), k = l by parity; a ring of 3 float32 stages.
 // Every launch goes to the caller's stream; each entry point returns the
 // CUDA error code so that a refused launch reaches the wrapper.
 
@@ -84,12 +106,46 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // 4-byte asynchronous copy; !valid writes a zero and reads nothing
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 4 : 0));
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// 4-byte asynchronous copy of the first n (0, 2 or 4) bytes at src; zeros
+// for the rest
+__device__ __forceinline__ void cp_async4n(void* dst, const void* src,
+                                           int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(n));
+}
+
+// 16-byte asynchronous copy (through L2 only) of the first n (0 to 16)
+// bytes at src, zeros for the rest; src and dst 16-byte aligned
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(n));
+}
+
+// Chunk j of a row whose vb valid bytes start at p (any alignment): the
+// row lands in whole 16-byte chunks from p rounded down, so that byte p + d
+// sits at dst + (p & 15) + d; the rest of a chunk reads as zeros, and a row
+// with no valid byte reads nothing.  The bytes before p that the first
+// chunk reads lie in the same allocation (CUDA allocations are aligned to
+// far more than 16 bytes) and are never used.
+__device__ __forceinline__ void copy_chunk(unsigned char* dst, const void* p,
+                                           int vb, int j) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const int sh = static_cast<int>(a & 15);
+  const int n = vb > 0 ? min(max(sh + vb - 16 * j, 0), 16) : 0;
+  cp_async16(dst + 16 * j, reinterpret_cast<const void*>(a - sh + (n ? 16 * j : 0)),
+             n);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -101,20 +157,420 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// ldmatrix of four (two) 8 x 8 b16 matrices: lanes 8 q .. 8 q + 7 give the
+// 16-byte rows of matrix q; .trans delivers each matrix transposed
+__device__ __forceinline__ void ldsm4(uint32_t (&d)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&d)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm2t(uint32_t (&d)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(d[0]), "=r"(d[1]) : "r"(smem_u32(p)));
+}
+
+// The degree order of memory row i: ms[i] on a slab, i on the full table.
+template <bool SLAB>
+__device__ __forceinline__ int degree(const int* ms, int i) {
+  return SLAB ? __ldg(ms + i) : i;
+}
+
 // ---------------------------------------------------------------------------
-// the block GEMM
+// the dense synthesis and the parity adjoint: bf16 tiles, ldmatrix
+// ---------------------------------------------------------------------------
+
+// The ring: stage s's copies (K::issue) go K::DEPTH stages ahead into
+// landing slot s % DEPTH; once they have landed, the staging pass
+// (K::stage) writes the stage's bf16 tiles and the MMAs (K::mma) read them.
+// The first barrier of a stage sees its copies landed and the MMAs of the
+// stage before done (the bf16 tiles free), the second the tiles written
+// (the slot free again).
+template <class K>
+__device__ __forceinline__ void run_ring(K& k, int KT) {
+#pragma unroll
+  for (int s = 0; s < K::DEPTH; ++s) {
+    if (s < KT) k.issue(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<K::DEPTH - 1>();  // stage kt has landed (this thread's copies) ...
+    __syncthreads();                // ... and everyone's
+    k.stage(kt);
+    __syncthreads();
+    if (kt + K::DEPTH < KT) k.issue(kt + K::DEPTH);
+    cp_async_commit();
+    k.mma(kt);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The dense synthesis: out[i, r0 + j, c0 + ii] for a 128 x BN tile (ii = c,
+// j = r), k = l - m.
+template <int BN_>
+struct SynthBf16 {
+  static constexpr int BM = 128, BN = BN_, BK = 32, THREADS = 256, DEPTH = 3;
+  static constexpr int WM = 32, WN = BN / 2, MT = WM / 16, NT = WN / 8;
+  static constexpr int XW = BK + 4;              // floats a landed x row
+  static constexpr int XCH = XW / 4;             // ... in 16-byte chunks
+  static constexpr int TCH = BN / 8 + 1;         // chunks a landed table row
+  static constexpr int X_BYTES = BM * XW * 4;
+  static constexpr int SLOT = X_BYTES + BK * TCH * 16;
+  static constexpr int SA = BK + 8, SB = BN + 8; // A [c][l], B [l][r] bf16
+  static constexpr int A_OFF = DEPTH * SLOT, B_OFF = A_OFF + BM * SA * 2;
+  static constexpr int MAIN = B_OFF + BK * SB * 2;
+  static constexpr int SC = BM + 4;              // epilogue [r][c] float32
+  static constexpr int SMEM = MAIN > BN * SC * 4 ? MAIN : BN * SC * 4;
+  static_assert(WN % 8 == 0 && (SA / 8) % 2 == 1 && (SB / 8) % 2 == 1,
+                "tile shape; rows an odd number of 16 bytes apart keep "
+                "ldmatrix free of bank conflicts");
+  static_assert(BM * BK / 2 % THREADS == 0 && BK * BN / 2 % THREADS == 0,
+                "whole staging passes");
+
+  unsigned char* sm;
+  const float* x;            // x[i, c0, m]
+  const unsigned char* tab;  // lam[i, m, r0]
+  long long sxc, rowb;       // x's c stride; bytes from one table row to the next
+  int nr, iv, jv, Kn;
+  int xs0, ts0;              // x's address in floats mod 4, tab's in bf16 mod 8
+  int tid, lane, wm0, wn0;
+  float acc[MT][NT][4];
+
+  // where a landed row starts: x row c (floats), table row m + k (bf16)
+  __device__ __forceinline__ int xshift(int c) const {
+    return (xs0 + (c & 3) * static_cast<int>(sxc & 3)) & 3;
+  }
+  __device__ __forceinline__ int tshift(int k) const {
+    return (ts0 + (k & 7) * (nr & 7)) & 7;
+  }
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+  }
+
+  // rows c of x[c, k0 ..] and rows m + k0 + k of the table's rings r0 ..
+  __device__ __forceinline__ void issue(int s) {
+    unsigned char* slot = sm + (s % DEPTH) * SLOT;
+    const int k0 = s * BK, kv = min(Kn - k0, BK);
+    for (int e = tid; e < BM * XCH; e += THREADS) {
+      const int c = e / XCH, j = e - c * XCH;
+      copy_chunk(slot + c * XW * 4, x + c * sxc + k0, c < iv ? 4 * kv : 0, j);
+    }
+    for (int e = tid; e < BK * TCH; e += THREADS) {
+      const int k = e / TCH, j = e - k * TCH;
+      copy_chunk(slot + X_BYTES + k * TCH * 16, tab + (k0 + k) * rowb,
+                 k < kv ? 2 * jv : 0, j);
+    }
+  }
+
+  // A: the batch, rounded to bf16 here and nowhere else; B: the table
+  __device__ __forceinline__ void stage(int s) {
+    const unsigned char* slot = sm + (s % DEPTH) * SLOT;
+    const float* xl = reinterpret_cast<const float*>(slot);
+    const uint32_t* tl = reinterpret_cast<const uint32_t*>(slot + X_BYTES);
+#pragma unroll
+    for (int it = 0; it < BM * BK / 2 / THREADS; ++it) {
+      const int e = tid + it * THREADS, c = e / (BK / 2), q = e % (BK / 2);
+      const float* v = xl + c * XW + xshift(c) + 2 * q;
+      *reinterpret_cast<uint32_t*>(sm + A_OFF + (c * SA + 2 * q) * 2) =
+          pack_bf16(v[0], v[1]);
+    }
+    const int k0 = s * BK;
+#pragma unroll
+    for (int it = 0; it < BK * BN / 2 / THREADS; ++it) {
+      const int e = tid + it * THREADS, k = e / (BN / 2), q = e % (BN / 2);
+      const int t = tshift(k0 + k);
+      const uint32_t* w = tl + k * TCH * 4 + (t >> 1) + q;
+      *reinterpret_cast<uint32_t*>(sm + B_OFF + (k * SB + 2 * q) * 2) =
+          __funnelshift_r(w[0], w[1], (t & 1) << 4);
+    }
+  }
+
+  // the k16 steps that hold data, every 16 x 8 tile of each: rows past iv
+  // and rings past jv hold zeros, and an MMA of zeros costs less than the
+  // branches that would skip it
+  __device__ __forceinline__ void mma(int s) {
+    const int kv = Kn - s * BK;
+    const unsigned char* A = sm + A_OFF;
+    const unsigned char* B = sm + B_OFF;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      if (kk * 16 >= kv) break;  // uniform across the block
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm4(a[mt], A + ((wm0 + mt * 16 + (lane & 15)) * SA + kk * 16 +
+                          (lane >> 4) * 8) * 2);
+      // b0 (k 0-7) and b1 (k 8-15) of the n tiles 2 np and 2 np + 1
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t d[4];
+        ldsm4t(d, B + ((kk * 16 + (lane & 15)) * SB + wn0 + np * 16 +
+                       (lane >> 4) * 8) * 2);
+        const uint32_t b0[2] = {d[0], d[1]}, b1[2] = {d[2], d[3]};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][2 * np], a[mt], b0);
+          mma_bf16(acc[mt][2 * np + 1], a[mt], b1);
+        }
+      }
+      if constexpr (NT % 2 == 1) {
+        uint32_t b[2];
+        ldsm2t(b, B + ((kk * 16 + (lane & 15)) * SB + wn0 + (NT - 1) * 8) * 2);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][NT - 1], a[mt], b);
+      }
+    }
+  }
+
+  // out[r * C + c] for r < jv, c < iv, through shared memory [r][c]
+  __device__ __forceinline__ void finish(float* out, int C) {
+    float* f = reinterpret_cast<float*>(sm);
+    const int gid = lane >> 2, tig = lane & 3;
+    // c0 (gid, 2 tig), c1 (gid, 2 tig + 1), c2 (gid + 8, 2 tig), c3 (gid + 8, 2 tig + 1)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = wm0 + mt * 16 + gid, r = wn0 + nt * 8 + 2 * tig;
+        f[r * SC + c] = acc[mt][nt][0];
+        f[(r + 1) * SC + c] = acc[mt][nt][1];
+        f[r * SC + c + 8] = acc[mt][nt][2];
+        f[(r + 1) * SC + c + 8] = acc[mt][nt][3];
+      }
+    __syncthreads();
+    for (int e = tid; e < BN * BM; e += THREADS) {
+      const int r = e / BM, c = e % BM;
+      if (c < iv && r < jv)
+        out[static_cast<long long>(r) * C + c] = f[r * SC + c];
+    }
+  }
+};
+
+// The parity adjoint: rows l = l0 + p + 2 i' (i' < BM) of both parities p for
+// 64 columns c0 .., k = r over the north rings.  Rows of one parity are 2 nh
+// bf16 values apart and share one 4-byte alignment: the table tile of parity
+// p is copied in whole words straight into its bf16 rows, from ring k0 -
+// sh_p (sh_p = 1 where row l0 + p starts mid-word), and U_p is staged over
+// the same rings, so that the k axes agree.
+template <bool KUNIT>
+struct AdjParBf16 {
+  static constexpr int BM = 128;                 // rows of each parity
+  static constexpr int BN = 64, BK = 32, THREADS = 256, DEPTH = 2;
+  static constexpr int WM = 64, WN = 32, MT = WM / 16, NT = WN / 8;
+  static constexpr int SA = BK + 8;              // bf16 rows of A and U
+  static constexpr int A_STAGE = 2 * BM * SA * 2;  // A [p BM + i'][ring], 3 slots
+  static constexpr int GR = BK + 1;              // landed rings k0 - 1 .. k0 + BK - 1
+  static constexpr int GW = KUNIT ? GR + 3 : BN + 4;  // floats a landed g row
+  static constexpr int GCH = GW / 4;             // [c][ring] (KUNIT) : [ring][c]
+  static constexpr int G_TILE = (KUNIT ? BN : GR) * GW;  // floats
+  static constexpr int G_SLOT = 2 * G_TILE * 4;  // north, south
+  static constexpr int G_OFF = (DEPTH + 1) * A_STAGE;
+  static constexpr int U_OFF = G_OFF + DEPTH * G_SLOT;
+  static constexpr int U_TILE = BN * SA * 2;     // U_p [c][ring]
+  static constexpr int MAIN = U_OFF + 2 * U_TILE;
+  static constexpr int SC = 2 * BM + 4;          // epilogue [c][l - l0] float32
+  static constexpr int SMEM = MAIN > BN * SC * 4 ? MAIN : BN * SC * 4;
+  static_assert((SA / 8) % 2 == 1 && BM % WM == 0 && G_SLOT % 16 == 0 &&
+                G_TILE % 4 == 0, "ldmatrix rows; one parity a warp; chunks");
+
+  unsigned char* sm;
+  const unsigned char* tab;  // lam[i, l0, 0]
+  const float* gp;           // g[i, 0, c0]
+  long long rowb, sgr, sgc;  // bytes from one table row to the next; g's strides
+  int nh, nr, cv, iv0, iv1;  // iv0 / iv1: rows of even / odd l - m
+  int sh0, sh1, gs0;         // the parities' ring shifts; gp's address in floats mod 4
+  float f;
+  int tid, lane, wm0, wn0;
+  float acc[MT][NT][4];
+
+  // where a landed g row starts (floats): from element e of column c
+  // (KUNIT), or of ring e (unit stride on c)
+  __device__ __forceinline__ int gshift(int c, int e) const {
+    return KUNIT ? (gs0 + (c & 3) * static_cast<int>(sgc & 3) + e) & 3
+                 : (gs0 + (e & 3) * static_cast<int>(sgr & 3)) & 3;
+  }
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+  }
+
+  // the table rows' words of rings k0 - sh_p ..; north g[r, c] and south
+  // g[nr - 1 - r, c] for r = k0 - 1 .. k0 + BK - 1 (KUNIT: each column's
+  // memory rings, the south ones in reverse)
+  __device__ __forceinline__ void issue(int s) {
+    unsigned char* A = sm + (s % (DEPTH + 1)) * A_STAGE;
+    const int k0 = s * BK;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int ivp = p ? iv1 : iv0, shp = p ? sh1 : sh0;
+#pragma unroll
+      for (int it = 0; it < BM * BK / 2 / THREADS; ++it) {
+        const int e = tid + it * THREADS, ip = e / (BK / 2), w = e % (BK / 2);
+        const int r = k0 - shp + 2 * w;  // the word's first ring
+        const int n = (ip >= ivp || r >= nh) ? 0 : (r + 1 >= nh ? 2 : 4);
+        cp_async4n(A + ((p * BM + ip) * SA + 2 * w) * 2,
+                   n ? tab + (p + 2LL * ip) * rowb + 2 * r : tab, n);
+      }
+    }
+    unsigned char* gn = sm + G_OFF + (s % DEPTH) * G_SLOT;
+    unsigned char* gs = gn + G_TILE * 4;
+    if constexpr (KUNIT) {
+      const int nlo = max(k0 - 1, 0), nv = max(min(nh, k0 + BK) - nlo, 0);
+      const int slo = max(nr - k0 - BK, 0), sv = min(nr - k0, nr - 1) + 1 - slo;
+      for (int e = tid; e < BN * GCH; e += THREADS) {
+          const int c = e / GCH, j = e - c * GCH;
+        const float* col = gp + c * sgc;
+        copy_chunk(gn + c * GW * 4, col + nlo, c < cv ? 4 * nv : 0, j);
+        copy_chunk(gs + c * GW * 4, col + slo, c < cv ? 4 * sv : 0, j);
+      }
+    } else {
+      for (int e = tid; e < GR * GCH; e += THREADS) {
+          const int t = e / GCH, j = e - t * GCH, r = k0 - 1 + t;
+        copy_chunk(gn + t * GW * 4, gp + r * sgr,
+                   r >= 0 && r < nh ? 4 * cv : 0, j);
+        copy_chunk(gs + t * GW * 4, gp + (nr - 1 - r) * sgr,
+                   r >= 0 && r < nr / 2 ? 4 * cv : 0, j);
+      }
+    }
+  }
+
+  // U_p[c][j] = bf16(g_n + sg_p g_s) at ring k0 - sh_p + j, sg_p = f for
+  // even l - m, -f for odd
+  __device__ __forceinline__ void stage(int s) {
+    if (s == 0) {
+      // ring -1 of a row that starts mid-word belongs to the row before
+      const int shp = tid < BM ? sh0 : sh1;
+      if (tid < 2 * BM && shp)
+        *reinterpret_cast<uint16_t*>(sm + tid * SA * 2) = 0;
+    }
+    const float* gn =
+        reinterpret_cast<const float*>(sm + G_OFF + (s % DEPTH) * G_SLOT);
+    const float* gs = gn + G_TILE;
+    const int k0 = s * BK;
+    const int nlo = max(k0 - 1, 0), slo = max(nr - k0 - BK, 0);
+#pragma unroll
+    for (int it = 0; it < BN * BK / 2 / THREADS; ++it) {
+      const int e = tid + it * THREADS, c = e / (BK / 2), q = e % (BK / 2);
+      // rings k0 - 1 + 2 q + d
+      float vn[3], vs[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const int t = 2 * q + d, r = k0 - 1 + t;
+        if constexpr (KUNIT) {
+          vn[d] = r >= 0 ? gn[c * GW + gshift(c, nlo) + r - nlo] : 0.f;
+          vs[d] = r >= 0 && r < nr / 2
+                      ? gs[c * GW + gshift(c, slo) + nr - 1 - r - slo]
+                      : 0.f;
+        } else {
+          vn[d] = gn[t * GW + gshift(0, r) + c];
+          vs[d] = gs[t * GW + gshift(0, nr - 1 - r) + c];
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const float sg = p ? -f : f;
+        const bool o = !(p ? sh1 : sh0);  // ring k0 - sh_p + 2 q at d = o
+        const float lo = o ? vn[1] + sg * vs[1] : vn[0] + sg * vs[0];
+        const float hi = o ? vn[2] + sg * vs[2] : vn[1] + sg * vs[1];
+        *reinterpret_cast<uint32_t*>(sm + U_OFF + p * U_TILE +
+                                     (c * SA + 2 * q) * 2) =
+            pack_bf16(lo, hi);
+      }
+    }
+  }
+
+  // the k16 steps that hold data: the U fragments, then each row tile's A
+  // fragments and MMAs (rows past iv_p and columns past cv hold zeros, as
+  // in the synthesis)
+  __device__ __forceinline__ void mma(int s) {
+    const bool odd = wm0 >= BM;  // the warp's parity
+    const unsigned char* A = sm + (s % (DEPTH + 1)) * A_STAGE;
+    const unsigned char* U = sm + U_OFF + (odd ? U_TILE : 0);
+    const int r0 = s * BK - (odd ? sh1 : sh0);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      if (r0 + kk * 16 >= nh) break;  // uniform across the warp
+      // b0 (k 0-7) and b1 (k 8-15) of the n tiles 2 np and 2 np + 1
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t d[4];
+        ldsm4(d, U + ((wn0 + np * 16 + (lane & 7) + (lane >> 4) * 8) * SA +
+                      kk * 16 + ((lane >> 3) & 1) * 8) * 2);
+        b[2 * np][0] = d[0];
+        b[2 * np][1] = d[1];
+        b[2 * np + 1][0] = d[2];
+        b[2 * np + 1][1] = d[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        ldsm4(a, A + ((wm0 + mt * 16 + (lane & 15)) * SA + kk * 16 +
+                      (lane >> 4) * 8) * 2);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
+      }
+    }
+  }
+
+  // out[c * soc + l - l0] for c < cv, l - l0 < lv, through shared memory
+  // [c][l - l0]
+  __device__ __forceinline__ void finish(float* out, long long soc, int lv) {
+    float* f_ = reinterpret_cast<float*>(sm);
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int row = wm0 + mt * 16 + gid;        // rows gid + 8: l + 16
+        const int l = row / BM + 2 * (row % BM), c = wn0 + nt * 8 + 2 * tig;
+        f_[c * SC + l] = acc[mt][nt][0];
+        f_[(c + 1) * SC + l] = acc[mt][nt][1];
+        f_[c * SC + l + 16] = acc[mt][nt][2];
+        f_[(c + 1) * SC + l + 16] = acc[mt][nt][3];
+      }
+    __syncthreads();
+    for (int e = tid; e < BN * 2 * BM; e += THREADS) {
+      const int c = e / (2 * BM), l = e % (2 * BM);
+      if (c < cv && l < lv) out[c * soc + l] = f_[c * SC + l];
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the dense adjoint and the parity synthesis: the block GEMM of the first
+// version
 // ---------------------------------------------------------------------------
 
 // Block tile BM x BN over k stages of BK, warp tiles WM x WN.  B_KUNIT: B's
-// unit stride is on k (tile stored [j][k]), else on j (stored [k][j]).  B2:
-// a stage holds a second B tile (the parity adjoint's south rows).  TAB:
+// unit stride is on k (tile stored [j][k]), else on j (stored [k][j]).  TAB:
 // the operand that is the bf16 table (1: A, the adjoint; 2: B, synthesis);
 // the other is float32.
 template <int BM_, int BN_, int BK_, int WM_, int WN_, bool B_KUNIT_,
-          int TAB_, bool B2_ = false>
+          int TAB_>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_;
-  static constexpr bool B_KUNIT = B_KUNIT_, B2 = B2_;
+  static constexpr bool B_KUNIT = B_KUNIT_;
   static constexpr int TAB = TAB_;
   static constexpr int STAGES = 3;
   static constexpr int WARPS_M = BM / WM;
@@ -125,7 +581,7 @@ struct Tile {
   static constexpr int SB = B_KUNIT ? BK + 8 : BN + 4;
   static constexpr int A_TILE = BM * SA;
   static constexpr int B_TILE = (B_KUNIT ? BN : BK) * SB;
-  static constexpr int STAGE = A_TILE + (B2 ? 2 : 1) * B_TILE;
+  static constexpr int STAGE = A_TILE + B_TILE;
   static constexpr int SC = BM + 4;                       // epilogue [j][i]
   static constexpr int FLOATS =
       STAGES * STAGE > BN * SC ? STAGES * STAGE : BN * SC;
@@ -146,16 +602,15 @@ __device__ __forceinline__ int parity_slot(int k) {
 }
 
 // Copy a ROWS x U float32 tile, element (row, col) from src + row * rs +
-// CS * col, to dst + row * LD + col; zeros where row >= rv or col >= cv.
-// Warp w copies rows w, w + WARPS, ..., its lanes along the unit-stride
-// axis.  PERM_ROWS / PERM_COLS put row / column k at parity_slot(k).
-template <int ROWS, int U, int LD, int WARPS, int CS = 1,
-          bool PERM_ROWS = false, bool PERM_COLS = false>
+// col, to dst + row * LD + col; zeros where row >= rv or col >= cv.  Warp w
+// copies rows w, w + WARPS, ..., its lanes along the unit-stride axis.
+// PERM_COLS puts column k at parity_slot(k).
+template <int ROWS, int U, int LD, int WARPS, bool PERM_COLS = false>
 __device__ __forceinline__ void copy_tile(float* dst, const float* src,
                                           long long rs, int rv, int cv) {
   static_assert(ROWS % WARPS == 0, "whole rows per warp");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* p = src + warp * rs + CS * lane;
+  const float* p = src + warp * rs + lane;
 #pragma unroll
   for (int s = 0; s < ROWS / WARPS; ++s) {
     const int row = warp + s * WARPS;
@@ -163,9 +618,8 @@ __device__ __forceinline__ void copy_tile(float* dst, const float* src,
     for (int q = 0; q < (U + 31) / 32; ++q) {
       const int col = lane + 32 * q;
       if (U % 32 != 0 && col >= U) continue;
-      cp_async4(dst + (PERM_ROWS ? parity_slot<ROWS>(row) : row) * LD +
-                    (PERM_COLS ? parity_slot<U>(col) : col),
-                p + CS * 32 * q, row < rv && col < cv);
+      cp_async4(dst + row * LD + (PERM_COLS ? parity_slot<U>(col) : col),
+                p + 32 * q, row < rv && col < cv);
     }
     p += WARPS * rs;
   }
@@ -197,7 +651,7 @@ struct TabRegs {
     }
   }
 
-  template <int LD, bool PERM_ROWS = false, bool PERM_COLS = false>
+  template <int LD, bool PERM_ROWS = false>
   __device__ __forceinline__ void store(float* dst) const {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -207,8 +661,7 @@ struct TabRegs {
       for (int q = 0; q < QN; ++q) {
         const int col = lane + 32 * q;
         if (U % 32 != 0 && col >= U) continue;
-        dst[(PERM_ROWS ? parity_slot<ROWS>(row) : row) * LD +
-            (PERM_COLS ? parity_slot<U>(col) : col)] =
+        dst[(PERM_ROWS ? parity_slot<ROWS>(row) : row) * LD + col] =
             __uint_as_float(static_cast<uint32_t>(v[s][q]) << 16);
       }
     }
@@ -221,34 +674,27 @@ template <class T>
 using StageTab = TabRegs<T::TAB == 1 ? T::BM : T::BK,
                          T::TAB == 1 ? T::BK : T::BN, T::WARPS>;
 
-// What the parity modes add to a block GEMM (PAR 1: the parity synthesis,
-// PAR 2: the parity adjoint; see block_gemm).
+// What the parity synthesis adds to a block GEMM (PAR 1; see block_gemm).
 struct ParArgs {
-  const float* B2;  // PAR 2: B's south rows, B2[k, j] = g[nr - 1 - k, j]
-  int Kn2;          // PAR 2: rows of B2 that exist (k < nr / 2)
-  float sgn;        // PAR 1: sign of the south rows; PAR 2: of B2
-  float* out2;      // PAR 1: the south rows, row j at out2 - j so
-  int jv2;          // PAR 1: south rows that exist (j < jv2)
+  float sgn;    // sign of the south rows
+  float* out2;  // the south rows, row j at out2 - j so
+  int jv2;      // south rows that exist (j < jv2)
 };
 
 // Stage k0 .. k0 + BK: the float32 operand by cp.async into shared memory,
 // the table operand into registers (tr; stored by store_tab).  A: iv x Kn,
 // A[i, k] at A[i * sa + k]; B: Kn x jv, B[k, j] at B[j * sb + k] if B_KUNIT
-// else B[k * sb + j].  PAR 1 stores k by parity (parity_slot); PAR 2 also
-// stages B2 (Kn2 x jv, B2[k, j] = B2[j * sb - k] if B_KUNIT else B2[-k * sb
-// + j]) after sB.
+// else B[k * sb + j].  PAR 1 stores k by parity (parity_slot).
 template <class T, int PAR>
 __device__ __forceinline__ void load_stage(float* sA, float* sB,
                                            const void* A, long long sa,
                                            int iv, const void* B,
                                            long long sb, int jv, int k0,
-                                           int Kn, const ParArgs& pa,
-                                           StageTab<T>& tr) {
-  constexpr bool P1 = PAR == 1;
+                                           int Kn, StageTab<T>& tr) {
   if constexpr (T::TAB == 1) {
     tr.load(static_cast<const uint16_t*>(A) + k0, sa, iv, Kn - k0);
   } else {
-    copy_tile<T::BM, T::BK, T::SA, T::WARPS, 1, false, P1>(
+    copy_tile<T::BM, T::BK, T::SA, T::WARPS, PAR == 1>(
         sA, static_cast<const float*>(A) + k0, sa, iv, Kn - k0);
   }
   if constexpr (T::TAB == 2) {
@@ -261,15 +707,6 @@ __device__ __forceinline__ void load_stage(float* sA, float* sB,
     else
       copy_tile<T::BK, T::BN, T::SB, T::WARPS>(sB, Bf + k0 * sb, sb, Kn - k0,
                                                jv);
-  }
-  if constexpr (PAR == 2) {
-    float* sB2 = sB + T::B_TILE;
-    if constexpr (T::B_KUNIT)
-      copy_tile<T::BN, T::BK, T::SB, T::WARPS, -1>(sB2, pa.B2 - k0, sb, jv,
-                                                   pa.Kn2 - k0);
-    else
-      copy_tile<T::BK, T::BN, T::SB, T::WARPS>(sB2, pa.B2 - k0 * sb, -sb,
-                                               pa.Kn2 - k0, jv);
   }
 }
 
@@ -284,14 +721,12 @@ __device__ __forceinline__ void store_tab(float* st, const StageTab<T>& tr) {
 
 // acc += the products of k16 steps KK0 .. KKN - 1 of one stage, whose first
 // ksteps of these hold data.  EDGE: skip the 16 x 8 tiles that lie wholly
-// past iv or jv.  B2: B's values are sB + sgn sB2, formed in float32 and
-// then rounded.
+// past iv or jv.
 template <class T, bool EDGE, int KK0 = 0, int KKN = T::BK / 16>
 __device__ __forceinline__ void mma_stage(const float* sA, const float* sB,
                                           float (&acc)[T::MT][T::NT][4],
                                           int wm0, int wn0, int gid, int tig,
-                                          int ksteps, int iv, int jv,
-                                          float sgn = 0.f) {
+                                          int ksteps, int iv, int jv) {
 #pragma unroll
   for (int kk = KK0; kk < KKN; ++kk) {
     if (kk - KK0 >= ksteps) break;
@@ -319,11 +754,7 @@ __device__ __forceinline__ void mma_stage(const float* sA, const float* sB,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int ke = k + (e & 1) + 8 * (e >> 1);
-        const int o = T::B_KUNIT ? j * T::SB + ke : ke * T::SB + j;
-        if constexpr (T::B2)
-          v[e] = fmaf(sgn, sB[T::B_TILE + o], sB[o]);  // U = Gn + sgn Gs
-        else
-          v[e] = sB[o];
+        v[e] = sB[T::B_KUNIT ? j * T::SB + ke : ke * T::SB + j];
       }
       const uint32_t b[2] = {pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3])};
 #pragma unroll
@@ -336,13 +767,10 @@ __device__ __forceinline__ void mma_stage(const float* sA, const float* sB,
 // out[j * so + i] = sum_{k < Kn} A[i, k] B[k, j] for i < iv, j < jv, the
 // table operand in bf16, the other in float32 rounded to bf16 in the
 // fragments.  Each stage sums into fresh tensor-core accumulators, which
-// are then added to the running float32 sums.  The parity modes (pa):
-//   PAR 1  the sums over even k (SE) and over odd k (SO) are kept apart (a
-//          stage holds its k by parity, so each k16 step is of one parity);
-//          out[j so + i] = SE + SO and, for j < jv2, out2[-j so + i] =
-//          sgn (SE - SO);
-//   PAR 2  B[k, j] + sgn B2[k, j] for B, and out[j so + 2 i]: the rows i
-//          are every other row of the output.
+// are then added to the running float32 sums.  PAR 1 (the parity
+// synthesis, pa): the sums over even k (SE) and over odd k (SO) are kept
+// apart (a stage holds its k by parity, so each k16 step is of one parity);
+// out[j so + i] = SE + SO and, for j < jv2, out2[-j so + i] = sgn (SE - SO).
 template <class T, int PAR = 0>
 __device__ __forceinline__ void block_gemm(const void* A, long long sa,
                                            int iv, const void* B,
@@ -350,7 +778,6 @@ __device__ __forceinline__ void block_gemm(const void* A, long long sa,
                                            float* out, long long so,
                                            float* smem,
                                            const ParArgs& pa = {}) {
-  static_assert(PAR != 2 || T::B2, "the parity adjoint stages B2");
   constexpr int KH = T::BK / 32;  // PAR 1: the k16 steps of one parity
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -381,7 +808,7 @@ __device__ __forceinline__ void block_gemm(const void* A, long long sa,
     if (s < KT) {
       float* st = smem + s * T::STAGE;
       load_stage<T, PAR>(st, st + T::A_TILE, A, sa, iv, B, sb, jv, s * T::BK,
-                         Kn, pa, tr);
+                         Kn, tr);
       store_tab<T, PAR>(st, tr);
     }
     cp_async_commit();
@@ -393,7 +820,7 @@ __device__ __forceinline__ void block_gemm(const void* A, long long sa,
     float* stn = smem + (nx % T::STAGES) * T::STAGE;
     if (nx < KT)
       load_stage<T, PAR>(stn, stn + T::A_TILE, A, sa, iv, B, sb, jv,
-                         nx * T::BK, Kn, pa, tr);
+                         nx * T::BK, Kn, tr);
     cp_async_commit();
     const float* st = smem + (kt % T::STAGES) * T::STAGE;
     const int kv = Kn - kt * T::BK;
@@ -440,11 +867,10 @@ __device__ __forceinline__ void block_gemm(const void* A, long long sa,
       if (full)
         // every k16 step and every 16 x 8 tile holds data: no checks
         mma_stage<T, false>(st, st + T::A_TILE, acc, wm0, wn0, gid, tig,
-                            T::BK / 16, iv, jv, pa.sgn);
+                            T::BK / 16, iv, jv);
       else
         mma_stage<T, true>(st, st + T::A_TILE, acc, wm0, wn0, gid, tig,
-                           kv >= T::BK ? T::BK / 16 : (kv + 15) / 16, iv, jv,
-                           pa.sgn);
+                           kv >= T::BK ? T::BK / 16 : (kv + 15) / 16, iv, jv);
 #pragma unroll
       for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
@@ -461,8 +887,7 @@ __device__ __forceinline__ void block_gemm(const void* A, long long sa,
 
   // c0 (gid, 2 tig), c1 (gid, 2 tig + 1), c2 (gid + 8, 2 tig), c3 (gid + 8, 2 tig + 1)
   // PAR 1: pass 0 the north rows SE + SO, pass 1 the south rows
-  // sgn (SE - SO); PAR 2: every other output row
-  constexpr int IS = PAR == 2 ? 2 : 1;
+  // sgn (SE - SO)
 #pragma unroll
   for (int pass = 0; pass < (PAR == 1 ? 2 : 1); ++pass) {
 #pragma unroll
@@ -490,7 +915,7 @@ __device__ __forceinline__ void block_gemm(const void* A, long long sa,
     const int jn = pass ? pa.jv2 : jv;
     for (int e = tid; e < T::BN * T::BM; e += T::THREADS) {
       const int j = e / T::BM, i = e % T::BM;
-      if (i < iv && j < jn) o[j * jstep + IS * i] = smem[j * T::SC + i];
+      if (i < iv && j < jn) o[j * jstep + i] = smem[j * T::SC + i];
     }
     if (PAR == 1 && pass == 0) __syncthreads();
   }
@@ -500,35 +925,41 @@ __device__ __forceinline__ void block_gemm(const void* A, long long sa,
 // the kernels
 // ---------------------------------------------------------------------------
 
-using SynthTile = Tile<128, 72, 32, 32, 72, false, 2>;
 template <bool KUNIT>
 using AdjTile = Tile<64, 128, 32, 32, 32, KUNIT, 1>;
 using SynthParTile = Tile<128, 40, 32, 32, 40, false, 2>;
-template <bool KUNIT>
-using AdjParTile = Tile<64, 128, 32, 32, 32, KUNIT, 1, true>;
 
-// The degree order of memory row i: ms[i] on a slab, i on the full table.
-template <bool SLAB>
-__device__ __forceinline__ int degree(const int* ms, int i) {
-  return SLAB ? __ldg(ms + i) : i;
-}
-
-// grid (r tiles, c tiles, row i): i = 0 (m = 0, the longest) first
-template <bool SLAB>
-__global__ void __launch_bounds__(SynthTile::THREADS, 2)
+// grid (r tiles of BN, c tiles, row i): i = 0 (m = 0, the longest) first
+template <int BN, bool SLAB>
+__global__ void __launch_bounds__(SynthBf16<BN>::THREADS, 2)
 synth_tri_bf16(const uint16_t* __restrict__ lam, const float* __restrict__ x,
                float* __restrict__ out, int L, int nr, int C, long long sxm,
                long long sxc, const int* __restrict__ ms) {
-  using T = SynthTile;
-  extern __shared__ float smem[];
+  using K = SynthBf16<BN>;
+  extern __shared__ __align__(16) unsigned char smem_u8[];
   const int i = blockIdx.z, m = degree<SLAB>(ms, i);
-  const int c0 = blockIdx.y * T::BM;
-  const int r0 = blockIdx.x * T::BN;
-  const float* A = x + i * sxm + c0 * sxc + m;                          // x[i, c0, m]
-  const uint16_t* B = lam + (static_cast<long long>(i) * L + m) * nr + r0;  // lam[i, m, r0]
-  float* o = out + (static_cast<long long>(i) * nr + r0) * C + c0;      // out[i, r0, c0]
-  block_gemm<T>(A, sxc, min(T::BM, C - c0), B, nr, min(T::BN, nr - r0),
-                L - m, o, C, smem);
+  const int c0 = blockIdx.y * K::BM, r0 = blockIdx.x * BN;
+  const int warp = threadIdx.x >> 5;
+  K k;
+  k.sm = smem_u8;
+  k.x = x + i * sxm + c0 * sxc + m;                                     // x[i, c0, m]
+  k.tab = reinterpret_cast<const unsigned char*>(
+      lam + (static_cast<long long>(i) * L + m) * nr + r0);             // lam[i, m, r0]
+  k.sxc = sxc;
+  k.rowb = 2LL * nr;
+  k.nr = nr;
+  k.iv = min(K::BM, C - c0);
+  k.jv = min(BN, nr - r0);
+  k.Kn = L - m;
+  k.xs0 = static_cast<int>((reinterpret_cast<uintptr_t>(k.x) >> 2) & 3);
+  k.ts0 = static_cast<int>((reinterpret_cast<uintptr_t>(k.tab) >> 1) & 7);
+  k.tid = threadIdx.x;
+  k.lane = threadIdx.x & 31;
+  k.wm0 = (warp % (K::BM / K::WM)) * K::WM;
+  k.wn0 = (warp / (K::BM / K::WM)) * K::WN;
+  k.zero();
+  run_ring(k, (k.Kn + K::BK - 1) / K::BK);
+  k.finish(out + (static_cast<long long>(i) * nr + r0) * C + c0, C);    // out[i, r0, c0]
 }
 
 // grid (c tiles, ceil(L / BM) + 1, row i).  For row i of degree m the first
@@ -596,43 +1027,61 @@ synth_par_bf16(const uint16_t* __restrict__ lam, const float* __restrict__ x,
                    pa);
 }
 
-// grid (c tiles, y, row i).  For row i of degree m the first nz =
-// ceil(m / BM) tiles y write the zeros of l < m; tile y = nz + 2 t + p
-// computes the rows l = m + p + 2 (BM t + i') of parity p, i' < BM.
+// grid (c tiles, ceil(L / 2 BM) + 1, row i).  For row i of degree m the
+// first nz = ceil(m / 2 BM) tiles y write the zeros of l < m; tile y >= nz
+// computes the rows l0 = m + 2 BM (y - nz) .. l0 + 2 BM of both parities.
 template <bool KUNIT, bool SLAB>
-__global__ void __launch_bounds__(AdjParTile<KUNIT>::THREADS, 2)
+__global__ void __launch_bounds__(AdjParBf16<KUNIT>::THREADS, 2)
 adj_par_bf16(const uint16_t* __restrict__ lam, const float* __restrict__ g,
              float* __restrict__ out, int L, int nr, int C, long long sgm,
              long long sgr, long long sgc, long long som, long long soc,
              const int* __restrict__ ms, float f) {
-  using T = AdjParTile<KUNIT>;
-  extern __shared__ float smem[];
+  using K = AdjParBf16<KUNIT>;
+  constexpr int RT = 2 * K::BM;  // rows l a block
+  extern __shared__ __align__(16) unsigned char smem_u8[];
   const int i = blockIdx.z, m = degree<SLAB>(ms, i);
   const int nh = (nr + 1) / 2;
-  const int c0 = blockIdx.x * T::BN;
-  const int cv = min(T::BN, C - c0);
-  const int nz = (m + T::BM - 1) / T::BM;
+  const int c0 = blockIdx.x * K::BN;
+  const int cv = min(K::BN, C - c0);
+  const int nz = (m + RT - 1) / RT;
   float* o = out + i * som + c0 * soc;                                  // out[i, c0, 0]
   if (static_cast<int>(blockIdx.y) < nz) {
-    const int hi = m - static_cast<int>(blockIdx.y) * T::BM;
-    const int lo = hi > T::BM ? hi - T::BM : 0;
-    for (int e = threadIdx.x; e < T::BN * T::BM; e += T::THREADS) {
-      const int j = e / T::BM, l = lo + e % T::BM;
+    const int hi = m - static_cast<int>(blockIdx.y) * RT;
+    const int lo = hi > RT ? hi - RT : 0;
+    for (int e = threadIdx.x; e < K::BN * RT; e += K::THREADS) {
+      const int j = e / RT, l = lo + e % RT;
       if (j < cv && l < hi) o[j * soc + l] = 0.f;
     }
     return;
   }
-  const int t = static_cast<int>(blockIdx.y) - nz, p = t & 1;
-  const int l0 = m + p + 2 * T::BM * (t >> 1);
+  const int l0 = m + (static_cast<int>(blockIdx.y) - nz) * RT;
   if (l0 >= L) return;  // uniform across the block
-  const uint16_t* A = lam + (static_cast<long long>(i) * L + l0) * nh;  // lam[i, l0, 0]
-  const float* B = g + i * sgm + c0 * sgc;                              // g[i, 0, c0]
-  ParArgs pa{};
-  pa.B2 = B + (nr - 1) * sgr;                                           // g[i, nr-1, c0]
-  pa.Kn2 = nr / 2;
-  pa.sgn = p ? -f : f;
-  block_gemm<T, 2>(A, 2LL * nh, min(T::BM, (L - l0 + 1) / 2), B,
-                   KUNIT ? sgc : sgr, cv, nh, o + l0, soc, smem, pa);
+  const int warp = threadIdx.x >> 5;
+  K k;
+  k.sm = smem_u8;
+  k.tab = reinterpret_cast<const unsigned char*>(
+      lam + (static_cast<long long>(i) * L + l0) * nh);                 // lam[i, l0, 0]
+  k.gp = g + i * sgm + c0 * sgc;                                        // g[i, 0, c0]
+  k.rowb = 2LL * nh;
+  k.sgr = sgr;
+  k.sgc = sgc;
+  k.nh = nh;
+  k.nr = nr;
+  k.cv = cv;
+  k.iv0 = min(K::BM, (L - l0 + 1) / 2);  // rows l0 + 2 i' < L
+  k.iv1 = min(K::BM, (L - l0) / 2);      // rows l0 + 1 + 2 i' < L
+  k.sh0 = static_cast<int>((reinterpret_cast<uintptr_t>(k.tab) >> 1) & 1);
+  k.sh1 = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(k.tab + k.rowb) >> 1) & 1);
+  k.gs0 = static_cast<int>((reinterpret_cast<uintptr_t>(k.gp) >> 2) & 3);
+  k.f = f;
+  k.tid = threadIdx.x;
+  k.lane = threadIdx.x & 31;
+  k.wm0 = (warp % (2 * K::BM / K::WM)) * K::WM;
+  k.wn0 = (warp / (2 * K::BM / K::WM)) * K::WN;
+  k.zero();
+  run_ring(k, (nh + K::BK) / K::BK);  // rings -1 .. nh - 1
+  k.finish(o + l0, soc, L - l0);
 }
 
 template <class T, class Kernel, class... Args>
@@ -645,21 +1094,56 @@ int launch(Kernel kernel, dim3 grid, void* stream, Args... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BN>
+int launch_synth(const void* lam, const void* x, void* out, int L, int nr,
+                 int C, long long sxm, long long sxc, const void* ms, int M,
+                 void* stream) {
+  using K = SynthBf16<BN>;
+  const dim3 grid((nr + BN - 1) / BN, (C + K::BM - 1) / K::BM, M);
+  return launch<K>(ms ? synth_tri_bf16<BN, true> : synth_tri_bf16<BN, false>,
+                   grid, stream, static_cast<const uint16_t*>(lam),
+                   static_cast<const float*>(x), static_cast<float*>(out), L,
+                   nr, C, sxm, sxc, static_cast<const int*>(ms));
+}
+
+// what 0: dynamic shared memory (bytes); 1: resident blocks an SM (-1 if
+// the runtime refuses the query)
+template <class T, class Kernel>
+int info(Kernel kernel, int what) {
+  if (what == 0) return T::SMEM;
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           T::SMEM) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, T::THREADS,
+                                                    T::SMEM) != cudaSuccess)
+    return -1;
+  return n;
+}
+
 }  // namespace
 
 extern "C" {
 
 // lam: bf16 (M, L, nr); x[i, c, l] at x + i * sxm + c * sxc + l, float32;
-// ms: null (M = L, row i of degree i) or M int32 degree orders on the device
+// ms: null (M = L, row i of degree i) or M int32 degree orders on the device;
+// tile: the ring tile, 80, 96, 128 or 144 (legendre_kernels.bf16_synth_tile)
 int legendre_synth_tri_bf16(const void* lam, const void* x, void* out, int L,
                             int nr, int C, long long sxm, long long sxc,
-                            const void* ms, int M, void* stream) {
-  using T = SynthTile;
-  const dim3 grid((nr + T::BN - 1) / T::BN, (C + T::BM - 1) / T::BM, M);
-  return launch<T>(ms ? synth_tri_bf16<true> : synth_tri_bf16<false>, grid,
-                   stream, static_cast<const uint16_t*>(lam),
-                   static_cast<const float*>(x), static_cast<float*>(out), L,
-                   nr, C, sxm, sxc, static_cast<const int*>(ms));
+                            const void* ms, int M, int tile, void* stream) {
+  switch (tile) {
+    case 80:
+      return launch_synth<80>(lam, x, out, L, nr, C, sxm, sxc, ms, M, stream);
+    case 96:
+      return launch_synth<96>(lam, x, out, L, nr, C, sxm, sxc, ms, M, stream);
+    case 128:
+      return launch_synth<128>(lam, x, out, L, nr, C, sxm, sxc, ms, M,
+                               stream);
+    case 144:
+      return launch_synth<144>(lam, x, out, L, nr, C, sxm, sxc, ms, M,
+                               stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // g[i, r, c] at g + i * sgm + r * sgr + c * sgc with sgr == 1 or sgc == 1;
@@ -714,31 +1198,35 @@ int legendre_adj_par_bf16(const void* lam, const void* g, void* out, int L,
   auto* out_ = static_cast<float*>(out);
   const auto* ms_ = static_cast<const int*>(ms);
   const float f = flip ? -1.f : 1.f;
-  constexpr int BM = AdjParTile<true>::BM, BN = AdjParTile<true>::BN;
-  // zero tiles, then both parities' row tiles
-  const int ny = (L + BM - 1) / BM + 2 * (((L + 1) / 2 + BM - 1) / BM);
-  const dim3 grid((C + BN - 1) / BN, ny, M);
+  constexpr int RT = 2 * AdjParBf16<true>::BM, BN = AdjParBf16<true>::BN;
+  const dim3 grid((C + BN - 1) / BN, (L + RT - 1) / RT + 1, M);
   if (sgr == 1)
-    return launch<AdjParTile<true>>(
+    return launch<AdjParBf16<true>>(
         ms ? adj_par_bf16<true, true> : adj_par_bf16<true, false>, grid,
         stream, lam_, g_, out_, L, nr, C, sgm, sgr, sgc, som, soc, ms_, f);
   if (sgc == 1)
-    return launch<AdjParTile<false>>(
+    return launch<AdjParBf16<false>>(
         ms ? adj_par_bf16<false, true> : adj_par_bf16<false, false>, grid,
         stream, lam_, g_, out_, L, nr, C, sgm, sgr, sgc, som, soc, ms_, f);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dynamic shared memory of each kernel, bytes: 0 synthesis, 1 / 2 adjoint
-// with unit stride on r / c, 3 parity synthesis, 4 / 5 parity adjoint
-int legendre_tri_bf16_smem(int kind) {
+// kind: 0-3 the dense synthesis at ring tiles 80, 96, 128, 144; 4 / 5 the
+// dense adjoint with unit stride on r / c; 6 the parity synthesis; 7 / 8 the
+// parity adjoint with unit stride on r / c.  what: 0 dynamic shared memory
+// (bytes), 1 resident blocks an SM.
+int legendre_tri_bf16_info(int kind, int what) {
   switch (kind) {
-    case 0: return SynthTile::SMEM;
-    case 1: return AdjTile<true>::SMEM;
-    case 2: return AdjTile<false>::SMEM;
-    case 3: return SynthParTile::SMEM;
-    case 4: return AdjParTile<true>::SMEM;
-    default: return AdjParTile<false>::SMEM;
+    case 0: return info<SynthBf16<80>>(synth_tri_bf16<80, false>, what);
+    case 1: return info<SynthBf16<96>>(synth_tri_bf16<96, false>, what);
+    case 2: return info<SynthBf16<128>>(synth_tri_bf16<128, false>, what);
+    case 3: return info<SynthBf16<144>>(synth_tri_bf16<144, false>, what);
+    case 4: return info<AdjTile<true>>(adj_tri_bf16<true, false>, what);
+    case 5: return info<AdjTile<false>>(adj_tri_bf16<false, false>, what);
+    case 6: return info<SynthParTile>(synth_par_bf16<false>, what);
+    case 7: return info<AdjParBf16<true>>(adj_par_bf16<true, false>, what);
+    case 8: return info<AdjParBf16<false>>(adj_par_bf16<false, false>, what);
+    default: return -1;
   }
 }
 

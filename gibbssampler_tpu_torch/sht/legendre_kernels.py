@@ -68,7 +68,8 @@ package, keyed by a hash of every source and the flags, and loaded with
 ctypes: ``legendre_tri.cu`` holds the float32 kernels (3xTF32 on the tensor
 cores), ``legendre_tri_f64.cu`` the float64 ones (streaming the table
 through a ``cp.async`` ring to the FMA pipes), ``legendre_tri_bf16.cu``
-the bfloat16-table ones (bf16 ``mma.sync`` with float32 accumulation).  A
+the bfloat16-table ones (bf16 ``mma.sync`` with float32 accumulation; the
+dense synthesis at the ring tile ``bf16_synth_tile(nr)`` picks).  A
 wrapper takes the plain ``torch.einsum`` version only for tensors on the
 CPU; for CUDA tensors it launches its kernel or raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (the parity wrappers
@@ -97,7 +98,7 @@ __all__ = ["legendre_synth_tri", "legendre_adj_tri",
            "legendre_synth_par", "legendre_adj_par",
            "legendre_synth_par_plain", "legendre_adj_par_plain",
            "build", "f32_dynamic_smem", "bf16_dynamic_smem",
-           "reset_launch_counts"]
+           "bf16_blocks_per_sm", "reset_launch_counts"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -108,7 +109,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (lam, b, out, L, nr, C, strides, ms, M, stream); ms NULL for the full table
 _SYNTH_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 2 + [_P, _I, _P]
 _ADJ_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 5 + [_P, _I, _P]
-# the parity modes: (..., ms, M, flip, stream)
+# the parity modes: (..., ms, M, flip, stream); the bfloat16 dense
+# synthesis: (..., ms, M, ring tile, stream)
 _SYNTH_PAR_ARGS = _SYNTH_ARGS[:-1] + [_I, _P]
 _ADJ_PAR_ARGS = _ADJ_ARGS[:-1] + [_I, _P]
 # source (csrc/<stem>.cu) -> its entry points and their argument types
@@ -123,16 +125,22 @@ _LIBS = {
                          "legendre_synth_par_f64": _SYNTH_PAR_ARGS,
                          "legendre_adj_par_f64": _ADJ_PAR_ARGS,
                          "legendre_tri_f64_plan": [_I] * 3},
-    "legendre_tri_bf16": {"legendre_synth_tri_bf16": _SYNTH_ARGS,
+    "legendre_tri_bf16": {"legendre_synth_tri_bf16": _SYNTH_PAR_ARGS,
                           "legendre_adj_tri_bf16": _ADJ_ARGS,
                           "legendre_synth_par_bf16": _SYNTH_PAR_ARGS,
                           "legendre_adj_par_bf16": _ADJ_PAR_ARGS,
-                          "legendre_tri_bf16_smem": [_I]},
+                          "legendre_tri_bf16_info": [_I, _I]},
 }
 # the (table, batch) dtype pairs the kernels take -> entry-point suffix
 _SUFFIX = {(torch.float32, torch.float32): "f32",
            (torch.float64, torch.float64): "f64",
            (torch.bfloat16, torch.float32): "bf16"}
+# the ring tiles of the bfloat16 dense synthesis (csrc/legendre_tri_bf16.cu)
+BF16_SYNTH_TILES = (80, 96, 128, 144)
+# the bfloat16-table kernels in the order of legendre_tri_bf16_info's kinds
+_BF16_KINDS = tuple(f"synth tile {t}" for t in BF16_SYNTH_TILES) + (
+    "adj unit-r g", "adj unit-c g", "synth par", "adj par unit-r g",
+    "adj par unit-c g")
 _fns: dict = {}
 _loaded = {"tag": None}  # the build whose entry points are in _fns
 
@@ -211,15 +219,30 @@ def f32_dynamic_smem() -> dict:
     return {"synth": fn(0), "adj unit-r g": fn(1), "adj unit-c g": fn(2)}
 
 
+def bf16_synth_tile(nr: int) -> int:
+    """The ring tile of the bfloat16 dense synthesis at nr rings: the one
+    with the fewest tiles (each ring tile reads the batch again), then the
+    least padding."""
+    return min(BF16_SYNTH_TILES, key=lambda t: (-(-nr // t), t))
+
+
 def bf16_dynamic_smem() -> dict:
     """Dynamic shared memory (bytes) of each bfloat16-table kernel; builds
     first."""
     if not _fns:
         build()
-    fn = _fns["legendre_tri_bf16_smem"]
-    return {kind: fn(k) for k, kind in enumerate(
-        ("synth", "adj unit-r g", "adj unit-c g", "synth par",
-         "adj par unit-r g", "adj par unit-c g"))}
+    fn = _fns["legendre_tri_bf16_info"]
+    return {kind: fn(k, 0) for k, kind in enumerate(_BF16_KINDS)}
+
+
+def bf16_blocks_per_sm() -> dict:
+    """Resident blocks an SM of each bfloat16-table kernel on the current
+    card (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its threads
+    and dynamic shared memory); builds first."""
+    if not _fns:
+        build()
+    fn = _fns["legendre_tri_bf16_info"]
+    return {kind: fn(k, 1) for k, kind in enumerate(_BF16_KINDS)}
 
 
 def f64_plan(nr: int, C: int) -> dict:
@@ -403,7 +426,12 @@ def _launch(kind: str, lam: torch.Tensor, b: torch.Tensor,
         C, args = b.shape[1], sb[:2]
     else:
         C, args = b.shape[2], sb + [out.stride(0), out.stride(1)]
-    tail = [] if nr is None else [int(flip)]
+    if nr is not None:
+        tail = [int(flip)]
+    elif kind == "synth" and lam.dtype == torch.bfloat16:
+        tail = [bf16_synth_tile(nt)]
+    else:
+        tail = []
     with torch.cuda.device(lam.device):
         stream = torch.cuda.current_stream(lam.device).cuda_stream
         err = fn(lam.data_ptr(), b.data_ptr(), out.data_ptr(), L,

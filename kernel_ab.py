@@ -7,10 +7,13 @@ OTHER_TREE is a directory holding another version of the port's package
 (``gibbssampler_tpu_torch/``), for example a parent commit unpacked with
 ``git archive <commit> gibbssampler_tpu_torch | tar -x -C OTHER_TREE``.
 Each tree's kernels are built (into that tree's ``_build/``) and timed in a
-process of its own, in the order other, this, this, other, on one card:
-both kernels at the main path's shapes (L 513; float32 at C 256 and
-float64 at C 16, nr 65 and 513; the state views the transforms pass), mean
-ms per call over ``--reps`` launches between CUDA events.  Prints the
+process of its own, in the order other, this, this, other, on one card,
+at L 513 in the state views the transforms pass: both dense kernels in
+float32 at C 256 and in float64 at C 16, nr 65 and 513; with bfloat16
+tables at C 256, the dense synthesis at nr 65, 83, 513 and 1023, the dense
+adjoint at nr 65, the parity synthesis at nr 513 and the parity adjoint at
+nr 513 and 1023 (half tables of ceil(nr / 2) rings); mean ms per call over
+``--reps`` launches between CUDA events.  Prints the
 card's name and power limit, one JSON line per run, then one JSON line of
 the mean of each tree's two runs per shape and this tree's ratio to the
 other's.  Needs a CUDA card.
@@ -21,8 +24,13 @@ import os
 import subprocess
 import sys
 
-SHAPES = (("float32", 256, 65), ("float32", 256, 513),
-          ("float64", 16, 65), ("float64", 16, 513))
+# (kernel, table dtype, C, nr)
+SHAPES = tuple((k, dt, C, nr) for dt, C, nr in (
+    ("float32", 256, 65), ("float32", 256, 513), ("float64", 16, 65),
+    ("float64", 16, 513)) for k in ("synth", "adj")) + tuple(
+    ("synth", "bfloat16", 256, nr) for nr in (65, 83, 513, 1023)) + (
+    ("adj", "bfloat16", 256, 65), ("synth_par", "bfloat16", 256, 513),
+    ("adj_par", "bfloat16", 256, 513), ("adj_par", "bfloat16", 256, 1023))
 L = 513
 
 
@@ -50,23 +58,31 @@ def time_tree(root: str, reps: int) -> dict:
         return ev[0].elapsed_time(ev[1]) / reps
 
     out = {}
-    for dtype_name, C, nr in SHAPES:
+    for kind, dtype_name, C, nr in SHAPES:
         dtype = getattr(torch, dtype_name)
+        batch = torch.float32 if dtype == torch.bfloat16 else dtype
+        nt = (nr + 1) // 2 if kind.endswith("_par") else nr
         tri = (torch.arange(L, device=dev)[None, :]
                >= torch.arange(L, device=dev)[:, None])
-        lam = (torch.randn((L, L, nr), generator=gen, dtype=dtype, device=dev)
-               * tri[:, :, None]).contiguous()
+        lam = (torch.randn((L, L, nt), generator=gen, device=dev)
+               * tri[:, :, None]).to(dtype).contiguous()
         # the (m, C, l) view of (C, m, l) grids and the (m, r, C) view of
         # an (m, C, r) copy, as sht.lcore passes them
-        x = torch.randn((L, C, L), generator=gen, dtype=dtype, device=dev) \
-            .transpose(0, 1).contiguous().transpose(0, 1)
-        g = torch.randn((L, nr, C), generator=gen, dtype=dtype, device=dev) \
-            .transpose(1, 2).contiguous().transpose(1, 2)
-        key = f"{dtype_name} nr{nr} C{C}"
-        out[f"synth {key}"] = ms_per_call(
-            lambda: lk.legendre_synth_tri(lam, x))
-        out[f"adj {key}"] = ms_per_call(lambda: lk.legendre_adj_tri(lam, g))
-        del lam, x, g
+        if kind.startswith("synth"):
+            b = torch.randn((L, C, L), generator=gen, dtype=batch,
+                            device=dev).transpose(0, 1).contiguous() \
+                .transpose(0, 1)
+        else:
+            b = torch.randn((L, nr, C), generator=gen, dtype=batch,
+                            device=dev).transpose(1, 2).contiguous() \
+                .transpose(1, 2)
+        fn, args = {"synth": (lk.legendre_synth_tri, ()),
+                    "adj": (lk.legendre_adj_tri, ()),
+                    "synth_par": (lk.legendre_synth_par, (nr,)),
+                    "adj_par": (lk.legendre_adj_par, ())}[kind]
+        out[f"{kind} {dtype_name} nr{nr} C{C}"] = ms_per_call(
+            lambda: fn(lam, b, *args))
+        del lam, b
     return out
 
 

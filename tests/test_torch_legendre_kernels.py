@@ -351,8 +351,41 @@ def test_cuda_parity_kernels_match_plain(cuda_device, L, nr, C, dtype):
         == (calls, 0, 0)
 
 
+# (nr: (ring tile, tiles, padded rings)) of the bfloat16 dense synthesis at
+# the ring counts of PERF.md's bf16 table and of the card tests
+BF16_TILE_PLAN = {12: (80, 1, 68), 18: (80, 1, 62), 19: (80, 1, 61),
+                  33: (80, 1, 47), 65: (80, 1, 15), 81: (96, 1, 15),
+                  83: (96, 1, 13), 129: (144, 1, 15), 145: (80, 2, 15),
+                  193: (128, 2, 63), 211: (128, 2, 45), 391: (144, 3, 41),
+                  513: (144, 4, 63), 1023: (128, 8, 1)}
+
+
+@pytest.mark.parametrize("nr", sorted(BF16_TILE_PLAN))
+def test_bf16_synth_tile_plan(nr):
+    """The ring tile that the host picks for the bfloat16 dense synthesis:
+    the fewest tiles (each reads the batch again), then the least padding;
+    one tile for every nr up to the largest tile."""
+    tile = lk.bf16_synth_tile(nr)
+    n = -(-nr // tile)
+    assert (tile, n, n * tile - nr) == BF16_TILE_PLAN[nr]
+    if nr <= max(lk.BF16_SYNTH_TILES):
+        assert n == 1
+    for t in lk.BF16_SYNTH_TILES:
+        nt = -(-nr // t)
+        assert (nt, nt * t) >= (n, n * tile), t
+
+
+# the parity shapes; then nr 83 (one tile of 96) and 193 (two of 128) at a
+# partial column tile (C 200), nr just above the tile boundaries 128 (one
+# tile of 144), 144 (two of 80) and 80 (one of 96), the last at an L whose
+# rows split over two row tiles of the parity adjoint, unevenly by parity
+BF16_CARD_SHAPES = PAR_CARD_SHAPES + [(97, 83, 200), (64, 193, 200),
+                                      (40, 129, 16), (40, 145, 16),
+                                      (301, 81, 200)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,nr,C", PAR_CARD_SHAPES)
+@pytest.mark.parametrize("L,nr,C", BF16_CARD_SHAPES)
 def test_cuda_bf16_kernels_match_plain(cuda_device, L, nr, C):
     """The bfloat16-table kernels, dense and parity (flip and not), on the
     full table and the two-way split's slabs, g with unit stride on r and
