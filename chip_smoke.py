@@ -168,15 +168,18 @@ non-zero:
    on the GL grid's 257 and HEALPix's 512 north rings (float32, C 256 and
    512) and at the CG shapes (float64, C 16 and 32), and a slab of each,
    timed beside the plain version and the dense kernel with the bound of
-   the half table; (b) the full-grid transforms ring-split against dense
+   the half table, each synthesis with its launch (the float32 ring tile
+   or the float64 plan, shared memory, resident blocks an SM); (b) the
+   full-grid transforms ring-split against dense
    on GL lmax 512 and HEALPix nside 256, spin 0 and 2, synthesis, adjoint
    and analysis: float32 at 128 chains (<= 1e-5), float64 at 8 (<= 1e-12),
    ms per transform and table bytes of each; (c) the flagship ASIS band
    scheme without the cut decomposition, ring_split True and False
    (SPLIT_ITERS), ms/iter, acceptances and launches per iteration: the
-   split path launches no dense kernel, the dense path no parity kernel;
-   (e) before it, flagship.build of the split scheme cold (an empty table
-   cache) and warm, and the native table engine against numpy at lmax 64;
+   split path launches no dense kernel, the dense path no parity kernel,
+   and the split path's parity launches are printed by shape; (e) before
+   it, flagship.build of the split scheme cold (an empty table cache) and
+   warm, and the native table engine against numpy at lmax 64;
    (d) the cut ASIS band slice under fft_mode "fft" and "ct" beside phase
    5's "matmul" (FFT_ITERS), the cut transforms inheriting the mode, and
    one synthesis of each against "matmul";
@@ -657,12 +660,18 @@ F64_PARTS = {"whole": 7, "table copies": 1, "batch copies": 2,
              "products": 4}
 
 
+# the float64 parity synthesis' shape in phase_f64_parts: the GL grid's
+# 513 rings (257 north) at the CG family's split spin-2 columns of 8 chains
+F64_PAR_PARTS = (LMAX + 1, 4 * CG_CHAINS)
+
+
 def phase_f64_parts(torch, lk, dev, card):
-    """Each float64 kernel at the F64_TIMED shapes (L 513, the state views)
-    built whole and with one part alone: ms and the share of the whole
-    call's bound that each reaches, the builds in turn both ways in one
-    process.  A part alone computes a wrong result on purpose; the whole
-    is held to the plain version.  Returns {"kernel nr C": {part: ms}}."""
+    """Each float64 dense kernel at the F64_TIMED shapes and the parity
+    synthesis at F64_PAR_PARTS (L 513, the state views) built whole and
+    with one part alone: ms and the share of the whole call's bound that
+    each reaches, the builds in turn both ways in one process.  A part
+    alone computes a wrong result on purpose; the whole is held to the
+    plain version.  Returns {"kernel nr C": {part: ms}}."""
     gen = torch.Generator(device=dev).manual_seed(0)
     f64, L = torch.float64, LMAX + 1
     defines = {p: () if v == 7 else (f"LEGENDRE_F64_PARTS={v}",)
@@ -670,29 +679,36 @@ def phase_f64_parts(torch, lk, dev, card):
     for d in defines.values():
         lk.build(d)
     res = {}
-    for nr, C in F64_TIMED:
-        lam = tri_table(torch, L, nr, f64, dev, gen)
+    for nr, C, par in [(nr, C, False) for nr, C in F64_TIMED] + [
+            (*F64_PAR_PARTS, True)]:
+        nt = (nr + 1) // 2 if par else nr
+        lam = tri_table(torch, L, nt, f64, dev, gen)
         x = x_view(torch.randn((L, C, L), generator=gen, dtype=f64,
                                device=dev))
         g = g_view(torch.randn((L, nr, C), generator=gen, dtype=f64,
                                device=dev))
-        for name, kern, plain, b in (
-                ("legendre_synth_tri", lk.legendre_synth_tri,
-                 lk.legendre_synth_tri_plain, x),
-                ("legendre_adj_tri", lk.legendre_adj_tri,
-                 lk.legendre_adj_tri_plain, g)):
+        cases = ([("legendre_synth_par", lk.legendre_synth_par,
+                   lk.legendre_synth_par_plain, x, (nr,))] if par else
+                 [("legendre_synth_tri", lk.legendre_synth_tri,
+                   lk.legendre_synth_tri_plain, x, ()),
+                  ("legendre_adj_tri", lk.legendre_adj_tri,
+                   lk.legendre_adj_tri_plain, g, ())])
+        for name, kern, plain, b, args in cases:
             lk.build()
-            ref = plain(lam, b)
-            err = float((kern(lam, b) - ref).abs().max() / ref.abs().max())
+            ref = plain(lam, b, *args)
+            err = float((kern(lam, b, *args) - ref).abs().max()
+                        / ref.abs().max())
             check(err <= 1e-12, f"{name} nr={nr} C={C} float64: max|err| / "
                   f"max|ref| {err}")
-            bound_ms = bound(*work(name, L, nr, C, 8), FP64_FLOPS_PER_S)[0]
+            bound_ms = bound(*(work_par(name, L, nr, C, 8) if par
+                               else work(name, L, nr, C, 8)),
+                             FP64_FLOPS_PER_S)[0]
             ms = {}
             for order in (list(defines), list(defines)[::-1]):
                 for part in order:
                     lk.build(defines[part])
                     ms.setdefault(part, []).append(
-                        time_ms(torch, lambda: kern(lam, b), 20))
+                        time_ms(torch, lambda: kern(lam, b, *args), 20))
             row = {p: sum(t) / len(t) for p, t in ms.items()}
             res[f"{name} {nr} {C}"] = row
             print(f"f64 parts {name} L={L} nr={nr} C={C} state views: bound "
@@ -2876,6 +2892,21 @@ def mirrored_table(torch, half, nr, flip=False):
     return torch.cat([half, south], dim=2).contiguous()
 
 
+def par_launch_config(lk, name, f32, nr, C):
+    """The launch of a parity synthesis at (nr, C): {"kind", "threads",
+    "smem" (dynamic shared memory, bytes), "blocks_per_sm" (resident on
+    this card)}: the float32 kernel at its ring tile, the float64 one's
+    plan; {} for the adjoints."""
+    if name != "legendre_synth_par":
+        return {}
+    if f32:
+        kind = f"synth par tile {lk.f32_par_synth_tile((nr + 1) // 2)}"
+        return {"kind": kind, "threads": 256,
+                "smem": lk.f32_dynamic_smem()[kind],
+                "blocks_per_sm": lk.f32_blocks_per_sm()[kind]}
+    return {"kind": "synth par", **lk.f64_plan(nr, C)["synth par"]}
+
+
 # the parity kernels' shapes in the options phase (nr, C): float32 on the
 # 513-ring GL grid (nh 257, the equator row) and the 1023-ring HEALPix grid
 # (nh 512) at the dense and the split spin-2 columns of 128 chains, float64
@@ -2974,11 +3005,15 @@ def phase_parity_kernels(torch, lk, dev, card, lmax=LMAX, shapes=None):
                       f"it reached; max|err|/max|ref| {errs[False][1]:.2e}, "
                       f"flip {errs[True][1]:.2e}, vs dense "
                       f"{errs[False][2]:.2e} [{card}]", flush=True)
+                cfg = par_launch_config(lk, name, f32, nr, C)
                 into.setdefault(name, {})[f"{nr} C{C}"] = {
                     "max_abs_err": max(e[0] for e in errs.values()),
                     "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": lib,
-                    "dense_ms": ms_d, "dense_bound_ms": dense_bound}
+                    "dense_ms": ms_d, "dense_bound_ms": dense_bound, **cfg}
+                if cfg:
+                    print(f"{name} L={L} nr={nr} C={C} {dname}: launch "
+                          f"{cfg} [{card}]", flush=True)
                 # the slab form: the first slab of the two-way split
                 ls = half.index_select(0, idx).contiguous()
                 bs = (b.index_select(0, idx) if synth
@@ -3140,6 +3175,11 @@ def split_slice(torch, lk, scheme, dl0, dev, card, label, n_warm, n_timed):
               f"{label}: non-finite or non-positive D_ell")
     acc = mh_acceptances(out)
     n = n_warm + n_timed
+    par_shapes = {(fn.__name__,) + k: v for fn in (lk.legendre_synth_par,
+                                                  lk.legendre_adj_par)
+                  for k, v in fn.shapes.items()}
+    if par_shapes:
+        print_shapes(f"{label} parity", par_shapes)
     print(f"{label}: {ms_iter:.2f} ms/iter over {n_timed} iterations after "
           f"{n_warm} warm-up; MH acceptance EE block {acc[0]:.4f}, BB big "
           f"block {acc[1]:.4f}, BB singles {acc[2]:.4f}; launches per "

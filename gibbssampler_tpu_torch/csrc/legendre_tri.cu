@@ -25,8 +25,9 @@
 // The ring-parity mode (synth_par_3xtf32, adj_par_3xtf32; entry points
 // legendre_*_par_f32): a table over the north half of an equator-symmetric
 // grid's rings, mirrored into the south half by the kernels; see "the
-// ring-parity modes" below.  They are block_gemm's PAR modes, template
-// parameters, so the dense kernels carry no test of them.
+// ring-parity modes" below.  The adjoint is block_gemm's PAR mode, a
+// template parameter, so the dense kernels carry no test of it; the
+// synthesis is a block of its own on the same stages and fragments.
 //
 // What bounds them.  Per m each is a product over the triangle l >= m.  At
 // the main-path shape (L 513, nr 65, C 256) one call does 4.39 GFLOP and
@@ -207,20 +208,18 @@ __device__ __forceinline__ void copy_tile(float* dst, const float* src,
   }
 }
 
-// What the parity modes add to a block GEMM (PAR 1: the parity synthesis,
-// PAR 2: the parity adjoint; see block_gemm).
+// What the parity adjoint adds to a block GEMM (PAR 2; see block_gemm).
 struct ParArgs {
-  const float* B2;  // PAR 2: B's south rows, B2[k, j] = g[nr - 1 - k, j]
-  int Kn2;          // PAR 2: rows of B2 that exist (k < nr / 2)
-  float sgn;        // PAR 1: sign of the south rows; PAR 2: of B2
-  float* out2;      // PAR 1: the south rows, row j at out2 - j so
-  int jv2;          // PAR 1: south rows that exist (j < jv2)
+  const float* B2;  // B's south rows, B2[k, j] = g[nr - 1 - k, j]
+  int Kn2;          // rows of B2 that exist (k < nr / 2)
+  float sgn;        // sign of B2
 };
 
 // Stage k0 .. k0 + BK of A (iv x Kn, A[i, k] = A[i * sa + k]) and B (Kn x jv,
 // B[k, j] = B[j * sb + k] if B_KUNIT else B[k * sb + j]) into shared memory.
-// PAR 1 stores k by parity (parity_slot); PAR 2 also stages B2 (Kn2 x jv,
-// B2[k, j] = B2[j * sb - k] if B_KUNIT else B2[-k * sb + j]) after sB.
+// PAR 1 (the parity synthesis) stores k by parity (parity_slot); PAR 2 (the
+// parity adjoint) also stages B2 (Kn2 x jv, B2[k, j] = B2[j * sb - k] if
+// B_KUNIT else B2[-k * sb + j]) after sB.
 template <class T, int PAR = 0>
 __device__ __forceinline__ void load_stage(float* sA, float* sB,
                                            const float* A, long long sa,
@@ -306,17 +305,32 @@ __device__ __forceinline__ void mma_stage(const float* sA, const float* sB,
   }
 }
 
-// out[j * so + i] = sum_{k < Kn} A[i, k] B[k, j] for i < iv, j < jv.
-// Each stage sums into fresh tensor-core accumulators, which are then added
-// to the running fp32 sums: the tensor cores' accumulation then spans at
-// most 3 BK / 8 MMAs, not 3 Kn / 8.
-// The parity modes (pa):
-//   PAR 1  the sums over even k (SE) and over odd k (SO) are kept apart (a
-//          stage holds its k by parity, so each k8 step is of one parity);
-//          out[j so + i] = SE + SO and, for j < jv2, out2[-j so + i] =
-//          sgn (SE - SO);
-//   PAR 2  B[k, j] + sgn B2[k, j] for B, and out[j so + 2 i]: the rows i
-//          are every other row of the output.
+// The fragments' sums to s[j * SC + i] (an epilogue's staging in shared
+// memory, so that the stores run along i)
+template <class T>
+__device__ __forceinline__ void stash_sums(float* s,
+                                           const float (&sum)[T::MT][T::NT][4],
+                                           int wm0, int wn0, int gid,
+                                           int tig) {
+  // c0 (gid, 2 tig), c1 (gid, 2 tig + 1), c2 (gid + 8, 2 tig), c3 (gid + 8, 2 tig + 1)
+#pragma unroll
+  for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < T::NT; ++nt) {
+      const int i = wm0 + mt * 16 + gid, j = wn0 + nt * 8 + 2 * tig;
+      s[j * T::SC + i] = sum[mt][nt][0];
+      s[(j + 1) * T::SC + i] = sum[mt][nt][1];
+      s[j * T::SC + i + 8] = sum[mt][nt][2];
+      s[(j + 1) * T::SC + i + 8] = sum[mt][nt][3];
+    }
+}
+
+// out[j * so + IS i] = sum_{k < Kn} A[i, k] B[k, j] for i < iv, j < jv, IS
+// 1, or 2 under PAR 2, the parity adjoint (its rows i are every other row
+// of the output; B[k, j] + sgn B2[k, j] for B).  Each stage sums into fresh
+// tensor-core accumulators, which are then added to the running fp32 sums:
+// the tensor cores' accumulation then spans at most 3 BK / 8 MMAs, not
+// 3 Kn / 8.
 template <class T, int PAR = 0>
 __device__ __forceinline__ void block_gemm(const float* A, long long sa,
                                            int iv, const float* B,
@@ -324,29 +338,19 @@ __device__ __forceinline__ void block_gemm(const float* A, long long sa,
                                            float* out, long long so,
                                            float* smem,
                                            const ParArgs& pa = {}) {
-  static_assert(PAR != 2 || T::B2, "the parity adjoint stages B2");
-  constexpr int KH = T::BK / 16;  // PAR 1: the k8 steps of one parity
+  static_assert(PAR == 0 || (PAR == 2 && T::B2), "the parity adjoint stages B2");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int wm0 = (warp % T::WARPS_M) * T::WM;
   const int wn0 = (warp / T::WARPS_M) * T::WN;
 
   float sum[T::MT][T::NT][4];
-  float sum2[PAR == 1 ? T::MT : 1][PAR == 1 ? T::NT : 1][4];
 #pragma unroll
   for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
       for (int q = 0; q < 4; ++q) sum[mt][nt][q] = 0.f;
-  if constexpr (PAR == 1) {
-#pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) sum2[mt][nt][q] = 0.f;
-  }
 
   const int KT = (Kn + T::BK - 1) / T::BK;
 #pragma unroll
@@ -377,41 +381,7 @@ __device__ __forceinline__ void block_gemm(const float* A, long long sa,
       for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-    const bool full = kv >= T::BK && iv > T::BM - 16 && jv > T::BN - 8;
-    if constexpr (PAR == 1) {
-      // the even k: (kv + 1) / 2 of them hold data, the odd k kv / 2
-      const int se = kv >= T::BK ? KH : ((kv + 1) / 2 + 7) / 8;
-      const int so_ = kv >= T::BK ? KH : (kv / 2 + 7) / 8;
-      if (full)
-        mma_stage<T, false, 0, KH>(st, st + T::A_TILE, acc, wm0, wn0, gid,
-                                   tig, KH, iv, jv);
-      else
-        mma_stage<T, true, 0, KH>(st, st + T::A_TILE, acc, wm0, wn0, gid,
-                                  tig, se, iv, jv);
-#pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            sum[mt][nt][q] += acc[mt][nt][q];
-            acc[mt][nt][q] = 0.f;
-          }
-      if (full)
-        mma_stage<T, false, KH, 2 * KH>(st, st + T::A_TILE, acc, wm0, wn0,
-                                        gid, tig, KH, iv, jv);
-      else
-        mma_stage<T, true, KH, 2 * KH>(st, st + T::A_TILE, acc, wm0, wn0,
-                                       gid, tig, so_, iv, jv);
-#pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) sum2[mt][nt][q] += acc[mt][nt][q];
-      continue;
-    }
-    if (full)
+    if (kv >= T::BK && iv > T::BM - 16 && jv > T::BN - 8)
       // every k8 step and every 16 x 8 tile holds data: no checks
       mma_stage<T, false>(st, st + T::A_TILE, acc, wm0, wn0, gid, tig,
                           T::BK / 8, iv, jv, pa.sgn);
@@ -429,58 +399,12 @@ __device__ __forceinline__ void block_gemm(const float* A, long long sa,
   cp_async_wait<0>();
   __syncthreads();
 
-  // c0 (gid, 2 tig), c1 (gid, 2 tig + 1), c2 (gid + 8, 2 tig), c3 (gid + 8, 2 tig + 1)
-  if constexpr (PAR == 0) {
-#pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt) {
-        const int i = wm0 + mt * 16 + gid, j = wn0 + nt * 8 + 2 * tig;
-        smem[j * T::SC + i] = sum[mt][nt][0];
-        smem[(j + 1) * T::SC + i] = sum[mt][nt][1];
-        smem[j * T::SC + i + 8] = sum[mt][nt][2];
-        smem[(j + 1) * T::SC + i + 8] = sum[mt][nt][3];
-      }
-    __syncthreads();
-    for (int e = tid; e < T::BN * T::BM; e += T::THREADS) {
-      const int j = e / T::BM, i = e % T::BM;
-      if (i < iv && j < jv) out[j * so + i] = smem[j * T::SC + i];
-    }
-    return;
-  }
-  // PAR 1: pass 0 the north rows SE + SO, pass 1 the south rows
-  // sgn (SE - SO); PAR 2: every other output row
   constexpr int IS = PAR == 2 ? 2 : 1;
-#pragma unroll
-  for (int pass = 0; pass < (PAR == 1 ? 2 : 1); ++pass) {
-#pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt) {
-        const int i = wm0 + mt * 16 + gid, j = wn0 + nt * 8 + 2 * tig;
-        float v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if constexpr (PAR == 1)
-            v[q] = pass ? pa.sgn * (sum[mt][nt][q] - sum2[mt][nt][q])
-                        : sum[mt][nt][q] + sum2[mt][nt][q];
-          else
-            v[q] = sum[mt][nt][q];
-        }
-        smem[j * T::SC + i] = v[0];
-        smem[(j + 1) * T::SC + i] = v[1];
-        smem[j * T::SC + i + 8] = v[2];
-        smem[(j + 1) * T::SC + i + 8] = v[3];
-      }
-    __syncthreads();
-    float* o = pass ? pa.out2 : out;
-    const long long jstep = pass ? -so : so;
-    const int jn = pass ? pa.jv2 : jv;
-    for (int e = tid; e < T::BN * T::BM; e += T::THREADS) {
-      const int j = e / T::BM, i = e % T::BM;
-      if (i < iv && j < jn) o[j * jstep + IS * i] = smem[j * T::SC + i];
-    }
-    if (PAR == 1 && pass == 0) __syncthreads();
+  stash_sums<T>(smem, sum, wm0, wn0, gid, tig);
+  __syncthreads();
+  for (int e = tid; e < T::BN * T::BM; e += T::THREADS) {
+    const int j = e / T::BM, i = e % T::BM;
+    if (i < iv && j < jv) out[j * so + IS * i] = smem[j * T::SC + i];
   }
 }
 
@@ -572,41 +496,149 @@ adj_tri_3xtf32(const float* __restrict__ lam, const float* __restrict__ g,
 // sigma_m = f (-1)^m: in these terms the sign does not depend on m.)
 // Each table entry is read once a call, so the table's bytes halve against
 // the full table at nr rings, and so do the products.
-// - Synthesis: each stage holds its 32 degree rows by parity (even l - m
-//   first), so every k8 step adds to one of two sums; 40-ring tiles, as the
-//   two sums take the registers of the dense kernel's one.
+// - Synthesis (synth_par_3xtf32): a block of 8 warps over one 128-column
+//   by BN-ring tile.  Each stage holds 64 degree rows, by parity (the even
+//   l - m first: parity_slot), so each k8 step is of one class.  Warps 0-3
+//   run the even class's 4 k8 steps of a stage and warps 4-7 the odd
+//   class's, over the same 32-column rows (warp w % 4): each warp keeps one
+//   sum set, the dense kernel's register tile (32 x BN sums and a stage's
+//   fresh accumulators, each 32 degrees of its class deep, as the dense
+//   kernel's 32-deep stages), and SE and SO meet once, in the shared-memory
+//   epilogue, which writes SE + SO north and f (SE - SO) south along c.
+//   The ring tile BN (64, 72, 80 or 88: NT = BN / 8 fragments) is picked
+//   on the host from nh, the fewest tiles and then the least padding
+//   (legendre_kernels.f32_par_synth_tile): 257 rings take 3 tiles of 88,
+//   512 rings 6, so x's 128 x 64 tile is staged 3 or 6 times a column
+//   tile, not 7 or 13 as with the 40-ring tiles of two sum sets a thread.
+//   Footprint: 3 stages of (128 x 68 + 64 x SB) floats, 172 KB at BN 88
+//   (the epilogue's [2][BN][132] floats reuse them), 256 threads of 197-255
+//   registers (the slab form at BN 88 spills 20 bytes): one block an SM.
+//   Copies stay 4 bytes wide (odd L and nr: any alignment, and the parity
+//   permutation).
+//   What bounds it (H100, nh 257, C 256; PERF.md, kernel_ab.py
+//   --variant): the staging of x, once a ring tile.  Its copies alone take
+//   about half the time, and 4 or 5 ring tiles (BN 64-80) are slower than
+//   3 of 88; more warps, other stage depths and B split once a block in
+//   shared memory were no faster.
 // - Adjoint: a block takes the rows l = l0, l0 + 2, .. of one parity (its
 //   A tile has a row stride of 2 nh), and stages g's north rows and its
 //   south rows in reverse; B = north + sign south is formed as the fragment
 //   is read.
 
-using SynthParTile = Tile<128, 40, 32, 32, 40, false>;
+// The parity synthesis' block: the block GEMM tile 128 x BN over 64-deep
+// stages, twice its warps (one set a class)
+template <int BN_>
+struct SynthParTile : Tile<128, BN_, 64, 32, BN_, false> {
+  using Base = Tile<128, BN_, 64, 32, BN_, false>;
+  static constexpr int CLASS_WARPS = Base::WARPS;
+  static constexpr int WARPS = 2 * CLASS_WARPS;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int KH = Base::BK / 16;  // a class's k8 steps a stage
+  // the stage ring; the epilogue's SE and SO, [2][BN][SC], reuse it
+  static constexpr int FLOATS =
+      Base::STAGES * Base::STAGE > 2 * BN_ * Base::SC
+          ? Base::STAGES * Base::STAGE : 2 * BN_ * Base::SC;
+  static constexpr int SMEM = FLOATS * 4;
+};
 template <bool KUNIT>
 using AdjParTile = Tile<64, 128, 32, 32, 32, KUNIT, true>;
 
 // grid (north ring tiles, c tiles, row i)
-template <bool SLAB>
-__global__ void __launch_bounds__(SynthParTile::THREADS, 2)
+template <int BN, bool SLAB>
+__global__ void __launch_bounds__(SynthParTile<BN>::THREADS, 1)
 synth_par_3xtf32(const float* __restrict__ lam, const float* __restrict__ x,
                  float* __restrict__ out, int L, int nr, int C,
                  long long sxm, long long sxc, const int* __restrict__ ms,
                  float f) {
-  using T = SynthParTile;
+  using T = SynthParTile<BN>;
   extern __shared__ float smem[];
   const int i = blockIdx.z, m = degree<SLAB>(ms, i);
   const int nh = (nr + 1) / 2;
   const int c0 = blockIdx.y * T::BM;
-  const int r0 = blockIdx.x * T::BN;
-  const int jv = min(T::BN, nh - r0);
+  const int r0 = blockIdx.x * BN;
+  const int iv = min(T::BM, C - c0), jv = min(BN, nh - r0);
+  const int Kn = L - m;
   const float* A = x + i * sxm + c0 * sxc + m;                        // x[i, c0, m]
   const float* B = lam + (static_cast<long long>(i) * L + m) * nh + r0;  // lam[i, m, r0]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int p = warp / T::CLASS_WARPS;  // the class: l - m even (0) or odd
+  const int wm0 = (warp % T::CLASS_WARPS) * T::WM;
+
+  float sum[T::MT][T::NT][4];
+#pragma unroll
+  for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sum[mt][nt][q] = 0.f;
+
+  const int KT = (Kn + T::BK - 1) / T::BK;
+#pragma unroll
+  for (int s = 0; s < T::STAGES - 1; ++s) {
+    if (s < KT) {
+      float* st = smem + s * T::STAGE;
+      load_stage<T, 1>(st, st + T::A_TILE, A, sxc, iv, B, nh, jv, s * T::BK,
+                       Kn);
+    }
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<T::STAGES - 2>();
+    __syncthreads();
+    const int nx = kt + T::STAGES - 1;
+    if (nx < KT) {
+      float* st = smem + (nx % T::STAGES) * T::STAGE;
+      load_stage<T, 1>(st, st + T::A_TILE, A, sxc, iv, B, nh, jv,
+                       nx * T::BK, Kn);
+    }
+    cp_async_commit();
+    const float* st = smem + (kt % T::STAGES) * T::STAGE;
+    // class p's k slots: A's columns and B's rows BK / 2 p ..
+    const float* sA = st + p * (T::BK / 2);
+    const float* sB = st + T::A_TILE + p * (T::BK / 2) * T::SB;
+    const int kv = Kn - kt * T::BK;  // (kv + 1 - p) / 2 of them are class p
+    float acc[T::MT][T::NT][4];
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+    if (kv >= T::BK && iv > T::BM - 16 && jv > BN - 8)
+      mma_stage<T, false, 0, T::KH>(sA, sB, acc, wm0, 0, gid, tig, T::KH, iv,
+                                    jv);
+    else
+      mma_stage<T, true, 0, T::KH>(
+          sA, sB, acc, wm0, 0, gid, tig,
+          kv >= T::BK ? T::KH : ((kv + 1 - p) / 2 + 7) / 8, iv, jv);
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sum[mt][nt][q] += acc[mt][nt][q];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // SE at smem [BN][SC], SO after it; north ring r0 + j at o + j C, its
+  // mirror nr-1-r0-j at os - j C for j < jv2 (the rings r < nr / 2)
+  stash_sums<T>(smem + p * BN * T::SC, sum, wm0, 0, gid, tig);
+  __syncthreads();
   float* o = out + (static_cast<long long>(i) * nr + r0) * C + c0;    // out[i, r0, c0]
-  ParArgs pa{};
-  pa.sgn = f;
-  pa.out2 = out + (static_cast<long long>(i) * nr + nr - 1 - r0) * C + c0;
-  pa.jv2 = min(jv, nr / 2 - r0);  // rows r < nr / 2 have a south mirror
-  block_gemm<T, 1>(A, sxc, min(T::BM, C - c0), B, nh, jv, L - m, o, C, smem,
-                   pa);
+  float* os = out + (static_cast<long long>(i) * nr + nr - 1 - r0) * C + c0;
+  const int jv2 = min(jv, nr / 2 - r0);
+  const float* se = smem;
+  const float* so = smem + BN * T::SC;
+  for (int e = tid; e < BN * T::BM; e += T::THREADS) {
+    const int j = e / T::BM, ii = e % T::BM;
+    if (ii < iv && j < jv) {
+      const float a = se[j * T::SC + ii], b = so[j * T::SC + ii];
+      o[j * C + ii] = a + b;
+      if (j < jv2) os[-j * C + ii] = f * (a - b);
+    }
+  }
 }
 
 // grid (c tiles, y, row i).  For row i of degree m the first nz =
@@ -659,6 +691,35 @@ int launch(Kernel kernel, dim3 grid, void* stream, Args... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BN>
+int launch_synth_par(const void* lam, const void* x, void* out, int L, int nr,
+                     int C, long long sxm, long long sxc, const void* ms,
+                     int M, int flip, void* stream) {
+  using T = SynthParTile<BN>;
+  const int nh = (nr + 1) / 2;
+  const dim3 grid((nh + BN - 1) / BN, (C + T::BM - 1) / T::BM, M);
+  return launch<T>(ms ? synth_par_3xtf32<BN, true>
+                      : synth_par_3xtf32<BN, false>,
+                   grid, stream, static_cast<const float*>(lam),
+                   static_cast<const float*>(x), static_cast<float*>(out), L,
+                   nr, C, sxm, sxc, static_cast<const int*>(ms),
+                   flip ? -1.f : 1.f);
+}
+
+// what 0: the kernel's dynamic shared memory (bytes); 1: its resident
+// blocks an SM on the current card (-1 where the runtime refuses the query)
+template <class T, class Kernel>
+int info(Kernel kernel, int what) {
+  if (what == 0) return T::SMEM;
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           T::SMEM) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, T::THREADS,
+                                                    T::SMEM) != cudaSuccess)
+    return -1;
+  return n;
+}
+
 }  // namespace
 
 extern "C" {
@@ -705,27 +766,39 @@ int legendre_adj_tri_f32(const void* lam, const void* g, void* out, int L,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dynamic shared memory of each kernel, bytes (0 synthesis, 1 adjoint with
-// unit stride on r, 2 adjoint with unit stride on c)
-int legendre_tri_f32_smem(int kind) {
-  return kind == 0 ? SynthTile::SMEM
-                   : kind == 1 ? AdjTile<true>::SMEM : AdjTile<false>::SMEM;
+// info(kind, what) of each kernel (kinds: 0 synthesis, 1 / 2 adjoint with
+// unit stride on r / on c, 3 / 4 the parity adjoint likewise, 5-8 the
+// parity synthesis at ring tile 64, 72, 80, 88)
+int legendre_tri_f32_info(int kind, int what) {
+  switch (kind) {
+    case 0: return info<SynthTile>(synth_tri_3xtf32<false>, what);
+    case 1: return info<AdjTile<true>>(adj_tri_3xtf32<true, false>, what);
+    case 2: return info<AdjTile<false>>(adj_tri_3xtf32<false, false>, what);
+    case 3: return info<AdjParTile<true>>(adj_par_3xtf32<true, false>, what);
+    case 4: return info<AdjParTile<false>>(adj_par_3xtf32<false, false>, what);
+    case 5: return info<SynthParTile<64>>(synth_par_3xtf32<64, false>, what);
+    case 6: return info<SynthParTile<72>>(synth_par_3xtf32<72, false>, what);
+    case 7: return info<SynthParTile<80>>(synth_par_3xtf32<80, false>, what);
+    case 8: return info<SynthParTile<88>>(synth_par_3xtf32<88, false>, what);
+    default: return -1;
+  }
 }
 
 // The ring-parity modes: lam (M, L, nh) over the nh = ceil(nr / 2) north
 // rings, x, g and the outputs as above over all nr rings; flip selects the
-// opposite reflection parity.
+// opposite reflection parity; the synthesis' ring tile is one of
+// 64, 72, 80, 88 (legendre_kernels.f32_par_synth_tile(nh)).
 int legendre_synth_par_f32(const void* lam, const void* x, void* out, int L,
                            int nr, int C, long long sxm, long long sxc,
-                           const void* ms, int M, int flip, void* stream) {
-  using T = SynthParTile;
-  const int nh = (nr + 1) / 2;
-  const dim3 grid((nh + T::BN - 1) / T::BN, (C + T::BM - 1) / T::BM, M);
-  return launch<T>(ms ? synth_par_3xtf32<true> : synth_par_3xtf32<false>,
-                   grid, stream, static_cast<const float*>(lam),
-                   static_cast<const float*>(x), static_cast<float*>(out), L,
-                   nr, C, sxm, sxc, static_cast<const int*>(ms),
-                   flip ? -1.f : 1.f);
+                           const void* ms, int M, int flip, int tile,
+                           void* stream) {
+  switch (tile) {
+    case 64: return launch_synth_par<64>(lam, x, out, L, nr, C, sxm, sxc, ms, M, flip, stream);
+    case 72: return launch_synth_par<72>(lam, x, out, L, nr, C, sxm, sxc, ms, M, flip, stream);
+    case 80: return launch_synth_par<80>(lam, x, out, L, nr, C, sxm, sxc, ms, M, flip, stream);
+    case 88: return launch_synth_par<88>(lam, x, out, L, nr, C, sxm, sxc, ms, M, flip, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int legendre_adj_par_f32(const void* lam, const void* g, void* out, int L,

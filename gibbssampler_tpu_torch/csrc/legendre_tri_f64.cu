@@ -18,9 +18,11 @@
 // The ring-parity mode (synth_par_f64, adj_par_f64; entry points
 // legendre_*_par_f64) is the one of legendre_tri.cu: a table over the
 // ceil(nr / 2) north rings, the sums over even and odd l - m kept apart and
-// mirrored into the south rings.  Its kernels are those below with every
-// other degree row per stage; they are kernels of their own so that the
-// dense ones keep their code.
+// mirrored into the south rings.  The synthesis runs on the fp64 tensor
+// cores (mma.sync m8n8k4), both classes' sums in its MMA accumulators, on
+// stages of consecutive degree rows stored by class; the adjoint is the
+// dense adjoint's block with every other degree row per stage.  Both are
+// kernels of their own so that the dense ones keep their code.
 //
 // What bounds them: bytes.  The CG family calls them at C = 16 (8 chains x
 // Re/Im).  At L 513, nr 65 one call does 2 nr C L(L+1)/2 = 274 MFLOP, 8.2 us
@@ -80,8 +82,8 @@
 // HBM3, 700 W); the products read their operands from shared memory, 8
 // bytes a lane a load, so copies and products share its bandwidth and
 // overlap only in part.  The fp64 tensor cores (DMMA), whose fragments
-// read each operand once a warp, are the next step; TMA and wgmma are not
-// used.
+// read each operand once a warp, are the next step for them (the parity
+// synthesis takes it); TMA and wgmma are not used.
 // Every launch goes to the caller's stream; each entry point returns
 // cudaGetLastError() so that a refused launch reaches the wrapper.
 //
@@ -416,192 +418,240 @@ synth_tri_f64(const double* __restrict__ lam, const double* __restrict__ x,
   cp_async_wait<0>();
 }
 
-// The ring-parity synthesis (see below): synth_tri_f64's block, pipeline
-// and row pairs, with nr the output's ring count and the table's nt =
-// ceil(nr / 2) north rings.  Each row's stages run over the degrees l - m
-// even (class 0), then l - m odd (class 1), a stage holding every other
-// degree row (row stride 2 nt in the table, 2 in x), and the two classes'
-// sums meet at the end of the row: north ring r takes S0 + S1, its mirror
-// nr-1-r f (S0 - S1), the equator row (r = nt - 1 of an odd nr) S0 + S1
-// alone.  Its own kernel, so that the dense one keeps its code.
+// The ring-parity synthesis (synth_par_f64): out[i, r, c] = SE + SO and
+// out[i, nr-1-r, c] = f (SE - SO) for the nt = ceil(nr / 2) north rings r
+// (r < nr / 2 for the mirror: the equator row of an odd nr once), SE and SO
+// the sums over l - m even and odd.  On the fp64 tensor cores:
+// mma.sync.m8n8k4 with M = rings, N = columns, K = degrees.
+// - A warp owns 16 rings (two m8 tiles) by the block's TC columns (TC / 8
+//   n8 tiles) and keeps both classes' sums in its MMA accumulators for the
+//   whole of a row: 2 x 2 x TC / 8 fragments of 2 doubles, 32 doubles a
+//   thread at TC 32.  Nothing is parked and nothing spills.
+// - A stage is 2 KL = 32 consecutive degree rows of the row's slab, so its
+//   table span is contiguous: 16-byte cp.async where source and shared
+//   memory pair up, as in stage_rows (each row shifted by its source's
+//   parity; the rows of one class share it, their source stride 2 nt
+//   being even).  Row l0 + j goes to slot parity_slot(j): the even l - m
+//   in rows [0, KL), the odd in [KL, 2 KL), so each k4 step is of one
+//   class.  x[i, c, l0 .. l0 + 2 KL) is copied contiguously along l (8
+//   bytes each, no stride-2 gather) into the same slots of [TC][XS]
+//   (XS = 36: the 32 lanes' B reads hit 16 bank pairs twice, the fewest).
+//   Table rows have stride RS = 16 W + 8 (W warps): the lanes' A reads
+//   (4 rows x 8 rings) fill 16 bank pairs twice, and a warp's 16 rings
+//   stay in their row.  Rows and columns past the data are zero-filled.
+// - Ring tiles: the fewest of at most par_max_warps(TC) warps, of sizes
+//   that differ by at most one (257 rings: 3 tiles of 86 rings, 6 warps;
+//   512 at TC 32: 6 tiles of 86, 6 warps); column tiles TC in {8, 16, 32}
+//   picked from C (C > 32 walks 32-column tiles in the grid); rows i and
+//   M-1-i in one pipeline, as synth_tri_f64's (L + 1 degree rows a block
+//   on the full table).  At the last stage of a row each thread writes its
+//   sums' fragments straight to the output, north and south, and zeroes
+//   them.
+// - kParStages = 2 stages of 2 KL table rows and TC x XS batch doubles
+//   (one in flight while one multiplies): at nt 257, TC 32, 2 x (32 x 104
+//   + 32 x 36) x 8 bytes = 70 KB and 192 threads a block, two blocks an SM;
+//   at TC 16, three.  Measured on an H100 (PERF.md, kernel_ab.py
+//   --variant): 2 stages of 32 rows beat 4 of 16, and 6 warps beat 4.
+// What bounds it: bytes (the half table, 271 MB at L 513, nr 513); at C 32
+// its 2.2 GFLOP take 0.032 ms at the 67 TFLOP/s DMMA peak.
+constexpr int kParWarpRings = 16;  // rings of a warp: two m8 tiles
+// warps a block at most: 6 at TC 32, so that two blocks an SM leave each
+// thread 170 registers (its 32 accumulator doubles and the operands of a
+// stage's k4 steps, loaded ahead; 128 spilled), else 8
+__host__ __device__ constexpr int par_max_warps(int tc) {
+  return tc == 32 ? 6 : 8;
+}
+constexpr int kParKL = 16;         // degree rows of one class a stage
+constexpr int kParStages = 2;
+constexpr int kParXS = 2 * kParKL + 4;
+
+// the parity synthesis' plan, the same on host and device: ring tiles,
+// warps a block, the table stage's row stride, dynamic shared memory
+struct SynthParPlan {
+  int ntr, warps, rs, smem;
+  __host__ __device__ SynthParPlan(int nt, int tc) {
+    const int wt = (nt + kParWarpRings - 1) / kParWarpRings;
+    ntr = (wt + par_max_warps(tc) - 1) / par_max_warps(tc);
+    if (ntr < 1) ntr = 1;
+    warps = (wt + ntr - 1) / ntr;
+    if (warps < 1) warps = 1;
+    rs = kParWarpRings * warps + 8;
+    smem = kParStages * (2 * kParKL * rs + tc * kParXS) * 8;
+  }
+};
+
+__device__ __forceinline__ void cp_async8z(double* dst, const double* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" :: "r"(d),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
+// d += a b, an 8 x 8 x 4 fp64 MMA: a = A[gid][tig], b = B[tig][gid],
+// d = D[gid][2 tig + (0, 1)] (gid = lane / 4, tig = lane % 4)
+__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+
+// grid (ring tile and column tile in x, row pair in y); blockDim 32 warps
 template <int TC>
-__global__ void __launch_bounds__(kSynthMaxThreads, kSynthMinBlocks)
+__global__ void __launch_bounds__(32 * par_max_warps(TC), 2)
 synth_par_f64(const double* __restrict__ lam, const double* __restrict__ x,
               double* __restrict__ out, int L, int nr, int C, long long sxm,
               long long sxc, const int* __restrict__ ms, int M, double f) {
-  constexpr int NCG = TC / CT, RT = kRingsPerThread;
-  constexpr int DS = 2;  // degrees from one stage row to the next
+  constexpr int NT = TC / 8, KL = kParKL, XS = kParXS;
   extern __shared__ __align__(16) double smem[];
   const int nt = (nr + 1) / 2;  // the table's rings
-  const long long ld = static_cast<long long>(DS) * nt;  // its row stride
-  const SynthPlan pl(nt, TC);
-  const int KL = pl.kl, RS = pl.rs;
-  const int TS = (KL * RS + 1) & ~1;
-  const int G = pl.groups, GT = pl.group;
-  const int XK = pl.xk;
-  double* xbuf = smem;
-  double* tbuf = smem + kStages * XK * TC;
-  double* red = tbuf + kStages * TS;
+  const SynthParPlan pl(nt, TC);
+  const int RS = pl.rs, TS = 2 * KL * RS;
+  double* tbuf = smem;
+  double* xbuf = smem + kParStages * TS;
   const int tid = threadIdx.x, nth = blockDim.x;
-  const int grp = tid / GT, t = tid % GT;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
   const int tile = blockIdx.x % pl.ntr;
   const int c0 = (blockIdx.x / pl.ntr) * TC;
   const int r_lo = tile * nt / pl.ntr;
   const int R = (tile + 1) * nt / pl.ntr - r_lo;
+  const int wr0 = warp * kParWarpRings;  // the warp's first ring in the tile
   // rows ia and ib of degrees ma and mb; the middle row of an odd M alone
   const int ia = blockIdx.y, ib = M - 1 - ia;
   const int ma = degree(ms, ia), mb = degree(ms, ib);
-  // stage segments, one a (row, class): segment k (row ia's classes 0, 1,
-  // then ib's) runs from stage s_k to s_(k+1), s0 = 0
-  auto nstages = [&](int n) { return (n + KL - 1) / KL; };
-  const int s1 = nstages((L - ma + 1) / 2);
-  const int s2 = s1 + nstages((L - ma) / 2);
-  const int s3 = ib > ia ? s2 + nstages((L - mb + 1) / 2) : s2;
-  const int nst = ib > ia ? s3 + nstages((L - mb) / 2) : s3;
-  auto seg = [&](int k) {
-    return k <= 0 ? 0 : k == 1 ? s1 : k == 2 ? s2 : k == 3 ? s3 : nst;
-  };
-  const int rh = pl.rh, cg = t / rh, rr = t % rh;
-  const bool active = cg < NCG && rr < R;
+  const int na = (L - ma + 2 * KL - 1) / (2 * KL);
+  const int nst = na + (ib > ia ? (L - mb + 2 * KL - 1) / (2 * KL) : 0);
   const CopyLanes cl(R, nth);
 
-  // stage q: the segment k, its row, first degree l0 and rows
-  struct Stage { int k, ri, l0, nrows; };
+  // stage q: degree rows l0 .. l0 + nrows of row ri's slab
+  struct Stage { int ri, l0, nrows; };
   auto stage = [&](int q) {
-    const int k = q < s1 ? 0 : q < s2 ? 1 : q < s3 ? 2 : 3;
-    const int ri = k < 2 ? ia : ib, m = k < 2 ? ma : mb, p = k & 1;
-    const int s = q - seg(k);
-    return Stage{k, ri, m + p + DS * s * KL,
-                 min(KL, (L - m - p + 1) / 2 - s * KL)};
+    const int ri = q < na ? ia : ib;
+    const int l0 = q < na ? ma + 2 * KL * q : mb + 2 * KL * (q - na);
+    return Stage{ri, l0, min(2 * KL, L - l0)};
   };
   auto issue = [&](int q) {
     if (q < nst) {
       const Stage st = stage(q);
-      const int sl = q % kStages;
-      if (kTableCopies)
-        stage_rows(tbuf + sl * TS,
-                   lam + (static_cast<size_t>(st.ri) * L + st.l0) * nt + r_lo,
-                   ld, st.nrows, R, RS, cl);
+      double* tb = tbuf + (q % kParStages) * TS;
+      const double* src =
+          lam + (static_cast<size_t>(st.ri) * L + st.l0) * nt + r_lo;
+      if (kTableCopies && cl.sub >= 0) {
+        // row j to slot parity_slot(j), shifted by its source's parity
+        for (int j = cl.sub; j < 2 * KL; j += cl.step) {
+          const double* s = src + static_cast<size_t>(j) * nt;
+          const int d = ((j & 1) * KL + (j >> 1)) * RS + parity(s);
+          const bool ok = j < st.nrows;
+          for (int u = cl.u0; u < cl.nu; u += 32) {
+            const int pos = (d & ~1) + 2 * u;  // even: a 16-byte slot
+            const int e = pos - d;             // the element at pos, -1 .. R
+            if (e >= R) break;
+            if (!ok) {  // past the slab: zeros
+              tb[pos] = 0.0;
+              tb[pos + 1] = 0.0;
+            } else if (e >= 0 && e + 1 < R) {
+              cp_async16(tb + pos, s + e);
+            } else if (e < 0) {
+              cp_async8(tb + pos + 1, s);
+            } else {
+              cp_async8(tb + pos, s + e);
+            }
+          }
+        }
+      }
       // along l, x's unit stride: consecutive threads, consecutive l
       const double* xm = x + st.ri * sxm + st.l0;
-      double* xs = xbuf + sl * XK * TC;
-      for (int i = tid; kBatchCopies && i < TC * KL; i += nth) {
-        const int c = i / KL, k = i % KL;
-        if (k < st.nrows && c0 + c < C)
-          cp_async8(xs + c * XK + k, xm + (c0 + c) * sxc + DS * k);
+      double* xb = xbuf + (q % kParStages) * TC * XS;
+      for (int e = tid; kBatchCopies && e < TC * 2 * KL; e += nth) {
+        const int c = e / (2 * KL), j = e % (2 * KL);
+        const bool ok = j < st.nrows && c0 + c < C;
+        cp_async8z(xb + c * XS + (j & 1) * KL + (j >> 1),
+                   ok ? xm + (c0 + c) * sxc + j : xm, ok);
       }
     }
     cp_async_commit();
   };
 
-  double acc[RT][CT], acc0[RT][CT];
+  double acc[2][2][NT][2];  // [class][m8 tile][n8 tile][fragment]
 #pragma unroll
-  for (int i = 0; i < RT; ++i)
+  for (int p = 0; p < 2; ++p)
 #pragma unroll
-    for (int j = 0; j < CT; ++j) acc[i][j] = 0.0;
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) acc[p][mt][n][0] = acc[p][mt][n][1] = 0.0;
 
-  for (int q = 0; q < kStages - 1; ++q) issue(q);
+  for (int q = 0; q < kParStages - 1; ++q) issue(q);
   for (int q = 0; q < nst; ++q) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<kParStages - 2>();
     __syncthreads();
     // the buffer of stage q - 1, which every thread has finished with
-    issue(q + kStages - 1);
+    issue(q + kParStages - 1);
     const Stage st = stage(q);
-    const int ri = st.ri, l0 = st.l0;
-    if (active) {
-      const int nrows = st.nrows, s = q % kStages;
-      const double* ts = tbuf + s * TS + rr;
-      const double* xs = xbuf + (s * TC + cg * CT) * XK;
-      const int p0 = parity(lam + (static_cast<size_t>(ri) * L + l0) * nt +
-                            r_lo);
-      // four rows' loads, then their FMAs: the loads' latency overlaps
-      int k = grp;
-      for (; k + 3 * G < nrows; k += 4 * G) {
-        double a[4][RT], v[4][CT];
+    if (wr0 < R) {  // uniform across the warp
+      const double* tb = tbuf + (q % kParStages) * TS;
+      const double* xb = xbuf + (q % kParStages) * TC * XS;
+      // class 0's rows have the parity of row l0's source, class 1's that
+      // of row l0 + 1's
+      const int p0 = parity(lam + (static_cast<size_t>(st.ri) * L + st.l0) *
+                                      nt + r_lo);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int ku = k + u * G;
-          // the row stride 2 nt is even: every row has the parity p0
-          const double* row = ts + row_start(ku, RS, p0);
+      for (int p = 0; p < 2; ++p) {
+        const double* ta = tb + p * KL * RS + (p0 ^ (p & nt & 1)) + wr0 +
+                           gid + tig * RS;
+        const double* xa = xb + gid * XS + p * KL + tig;
+        const int steps = ((st.nrows + 1 - p) / 2 + 3) / 4;  // k4 steps
 #pragma unroll
-          for (int i = 0; i < RT; ++i) a[u][i] = row[i * rh];
+        for (int kk = 0; kk < KL / 4; ++kk) {
+          if (kk >= steps) break;
+          const double a0 = ta[4 * kk * RS], a1 = ta[4 * kk * RS + 8];
+          double b[NT];
 #pragma unroll
-          for (int j = 0; j < CT; ++j) v[u][j] = xs[ku + j * XK];
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (!kProducts) {
-            acc[0][0] += a[u][0];
+          for (int n = 0; n < NT; ++n) b[n] = xa[n * 8 * XS + 4 * kk];
+          if (!kProducts) {  // the shared-memory reads stay
+            acc[p][0][0][0] += a0 + a1 + b[0];
             continue;
           }
 #pragma unroll
-          for (int j = 0; j < CT; ++j)
-#pragma unroll
-            for (int i = 0; i < RT; ++i)
-              acc[i][j] = fma(a[u][i], v[u][j], acc[i][j]);
+          for (int n = 0; n < NT; ++n) {
+            dmma(acc[p][0][n], a0, b[n]);
+            dmma(acc[p][1][n], a1, b[n]);
+          }
         }
-      }
-      for (; k < nrows; k += G) {
-        const double* row = ts + row_start(k, RS, p0);
-        double a[RT];
-#pragma unroll
-        for (int i = 0; i < RT; ++i) a[i] = row[i * rh];
-        fma_rows(a, xs + k, XK, acc);
       }
     }
-    // the last stage of a segment
-    if (q == seg(st.k + 1) - 1) {
-      if (G > 1) {
-        if (grp > 0) {
+    if (q == na - 1 || q == nst - 1) {  // the last stage of row ri's slab
+      if (wr0 < R) {
 #pragma unroll
-          for (int i = 0; i < RT; ++i)
+        for (int mt = 0; mt < 2; ++mt) {
+          const int r = wr0 + mt * 8 + gid;
+          if (r < R) {
+            const int rr = r_lo + r;
+            double* o = out + (static_cast<size_t>(st.ri) * nr + rr) * C;
+            double* os = out + (static_cast<size_t>(st.ri) * nr + nr - 1 -
+                                rr) * C;
+            const bool south = rr < nr / 2;  // not the equator
 #pragma unroll
-            for (int j = 0; j < CT; ++j)
-              red[((i * CT + j) * (G - 1) + grp - 1) * GT + t] = acc[i][j];
-        }
-        __syncthreads();
-        if (grp == 0) {
-          for (int h = 0; h < G - 1; ++h) {
+            for (int n = 0; n < NT; ++n)
 #pragma unroll
-            for (int i = 0; i < RT; ++i)
-#pragma unroll
-              for (int j = 0; j < CT; ++j)
-                acc[i][j] += red[((i * CT + j) * (G - 1) + h) * GT + t];
-          }
-        }
-      }
-      // class 0 ends: its sums wait for class 1's, unless class 1 is
-      // empty (m = L - 1)
-      if (!(st.k & 1) && seg(st.k + 2) > seg(st.k + 1)) {
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-#pragma unroll
-          for (int j = 0; j < CT; ++j) acc0[i][j] = acc[i][j];
-      } else if (active && grp == 0) {
-        const bool only0 = !(st.k & 1);  // class 1 empty
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          const int r = rr + i * rh;
-          if (r >= R) break;
-          double* o = out + (static_cast<size_t>(ri) * nr + r_lo + r) * C;
-          double* os = out + (static_cast<size_t>(ri) * nr + nr - 1 - r_lo -
-                              r) * C;
-          const bool south = r_lo + r < nr / 2;  // not the equator
-#pragma unroll
-          for (int j = 0; j < CT; ++j) {
-            const int c = c0 + cg * CT + j;
-            if (c >= C) continue;
-            const double s0 = only0 ? acc[i][j] : acc0[i][j];
-            const double s1 = only0 ? 0.0 : acc[i][j];
-            o[c] = s0 + s1;
-            if (south) os[c] = f * (s0 - s1);
+              for (int h = 0; h < 2; ++h) {
+                const int c = c0 + n * 8 + 2 * tig + h;
+                if (c < C) {
+                  const double se = acc[0][mt][n][h], so = acc[1][mt][n][h];
+                  o[c] = se + so;
+                  if (south) os[c] = f * (se - so);
+                }
+              }
           }
         }
       }
 #pragma unroll
-      for (int i = 0; i < RT; ++i)
+      for (int p = 0; p < 2; ++p)
 #pragma unroll
-        for (int j = 0; j < CT; ++j) acc[i][j] = 0.0;
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            acc[p][mt][n][0] = acc[p][mt][n][1] = 0.0;
     }
   }
   cp_async_wait<0>();
@@ -943,28 +993,46 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
-// PAR: nr is the output's ring count, the table's ceil(nr / 2)
-template <int TC, bool PAR = false>
+template <int TC>
 int launch_synth(const void* lam, const void* x, void* out, int L, int nr,
                  int C, long long sxm, long long sxc, const int* ms, int M,
-                 cudaStream_t stream, double f = 1.0) {
-  const SynthPlan pl(PAR ? (nr + 1) / 2 : nr, TC);
+                 cudaStream_t stream) {
+  const SynthPlan pl(nr, TC);
   const dim3 grid(pl.ntr * ((C + TC - 1) / TC), (M + 1) / 2);
-  const auto* lam_ = static_cast<const double*>(lam);
-  const auto* x_ = static_cast<const double*>(x);
-  auto* out_ = static_cast<double*>(out);
-  if constexpr (PAR) {
-    const cudaError_t e = allow_smem(synth_par_f64<TC>, pl.smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    synth_par_f64<TC><<<grid, pl.group * pl.groups, pl.smem, stream>>>(
-        lam_, x_, out_, L, nr, C, sxm, sxc, ms, M, f);
-  } else {
-    const cudaError_t e = allow_smem(synth_tri_f64<TC>, pl.smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    synth_tri_f64<TC><<<grid, pl.group * pl.groups, pl.smem, stream>>>(
-        lam_, x_, out_, L, nr, C, sxm, sxc, ms, M);
-  }
+  const cudaError_t e = allow_smem(synth_tri_f64<TC>, pl.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  synth_tri_f64<TC><<<grid, pl.group * pl.groups, pl.smem, stream>>>(
+      static_cast<const double*>(lam), static_cast<const double*>(x),
+      static_cast<double*>(out), L, nr, C, sxm, sxc, ms, M);
   return static_cast<int>(cudaGetLastError());
+}
+
+// nr is the output's ring count, the table's ceil(nr / 2)
+template <int TC>
+int launch_synth_par(const void* lam, const void* x, void* out, int L,
+                     int nr, int C, long long sxm, long long sxc,
+                     const int* ms, int M, cudaStream_t stream, double f) {
+  const SynthParPlan pl((nr + 1) / 2, TC);
+  const dim3 grid(pl.ntr * ((C + TC - 1) / TC), (M + 1) / 2);
+  const cudaError_t e = allow_smem(synth_par_f64<TC>, pl.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  synth_par_f64<TC><<<grid, 32 * pl.warps, pl.smem, stream>>>(
+      static_cast<const double*>(lam), static_cast<const double*>(x),
+      static_cast<double*>(out), L, nr, C, sxm, sxc, ms, M, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// resident blocks an SM of the parity synthesis at (nt, TC) on the current
+// card; -1 where the runtime refuses the query
+template <int TC>
+int synth_par_blocks(int nt) {
+  const SynthParPlan pl(nt, TC);
+  int n = 0;
+  if (allow_smem(synth_par_f64<TC>, pl.smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, synth_par_f64<TC>, 32 * pl.warps, pl.smem) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 template <int TC, bool PAR = false>
@@ -1040,11 +1108,10 @@ int legendre_synth_par_f64(const void* lam, const void* x, void* out, int L,
   const auto* m = static_cast<const int*>(ms);
   const double f = flip ? -1.0 : 1.0;
   if (C <= 8)
-    return launch_synth<8, true>(lam, x, out, L, nr, C, sxm, sxc, m, M, s, f);
+    return launch_synth_par<8>(lam, x, out, L, nr, C, sxm, sxc, m, M, s, f);
   if (C <= 16)
-    return launch_synth<16, true>(lam, x, out, L, nr, C, sxm, sxc, m, M, s,
-                                  f);
-  return launch_synth<32, true>(lam, x, out, L, nr, C, sxm, sxc, m, M, s, f);
+    return launch_synth_par<16>(lam, x, out, L, nr, C, sxm, sxc, m, M, s, f);
+  return launch_synth_par<32>(lam, x, out, L, nr, C, sxm, sxc, m, M, s, f);
 }
 
 int legendre_adj_par_f64(const void* lam, const void* g, void* out, int L,
@@ -1065,14 +1132,23 @@ int legendre_adj_par_f64(const void* lam, const void* g, void* out, int L,
 }
 
 // Threads per block and dynamic shared memory (bytes) of one launch at
-// (nr, C): adj 0 for the synthesis, 1 for the adjoint; returns
-// threads << 20 | bytes.
-int legendre_tri_f64_plan(int adj, int nr, int C) {
+// (nr, C), as threads << 20 | bytes: kind 0 the synthesis, 1 the adjoint,
+// 2 the parity synthesis (nr the output's rings); kind 3 the parity
+// synthesis' resident blocks an SM on the current card (-1 if refused).
+int legendre_tri_f64_plan(int kind, int nr, int C) {
   const int tc = C <= 8 ? 8 : (C <= 16 ? 16 : 32);
-  if (adj) {
+  if (kind == 1) {
     const AdjPlan pl(nr, tc);
     return pl.group * kAdjGroups << 20 | pl.smem;
   }
+  if (kind == 2) {
+    const SynthParPlan pl((nr + 1) / 2, tc);
+    return 32 * pl.warps << 20 | pl.smem;
+  }
+  if (kind == 3)
+    return tc == 8 ? synth_par_blocks<8>((nr + 1) / 2)
+           : tc == 16 ? synth_par_blocks<16>((nr + 1) / 2)
+                      : synth_par_blocks<32>((nr + 1) / 2);
   const SynthPlan pl(nr, tc);
   return pl.group * pl.groups << 20 | pl.smem;
 }

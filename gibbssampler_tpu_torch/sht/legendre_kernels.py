@@ -66,10 +66,12 @@ The kernels (``csrc/``; design and bounds are noted in each source) are
 compiled with nvcc for sm_90a at first use, into ``_build/`` beside the
 package, keyed by a hash of every source and the flags, and loaded with
 ctypes: ``legendre_tri.cu`` holds the float32 kernels (3xTF32 on the tensor
-cores), ``legendre_tri_f64.cu`` the float64 ones (streaming the table
-through a ``cp.async`` ring to the FMA pipes), ``legendre_tri_bf16.cu``
-the bfloat16-table ones (bf16 ``mma.sync`` with float32 accumulation; the
-dense synthesis at the ring tile ``bf16_synth_tile(nr)`` picks).  A
+cores; the parity synthesis at the ring tile ``f32_par_synth_tile(nh)``
+picks), ``legendre_tri_f64.cu`` the float64 ones (streaming the table
+through a ``cp.async`` ring to the FMA pipes, the parity synthesis to the
+fp64 tensor cores), ``legendre_tri_bf16.cu`` the bfloat16-table ones (bf16
+``mma.sync`` with float32 accumulation; the dense synthesis at the ring
+tile ``bf16_synth_tile(nr)`` picks).  A
 wrapper takes the plain ``torch.einsum`` version only for tensors on the
 CPU; for CUDA tensors it launches its kernel or raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (the parity wrappers
@@ -97,8 +99,8 @@ __all__ = ["legendre_synth_tri", "legendre_adj_tri",
            "legendre_synth_tri_plain", "legendre_adj_tri_plain",
            "legendre_synth_par", "legendre_adj_par",
            "legendre_synth_par_plain", "legendre_adj_par_plain",
-           "build", "f32_dynamic_smem", "bf16_dynamic_smem",
-           "bf16_blocks_per_sm", "reset_launch_counts"]
+           "build", "f32_dynamic_smem", "f32_blocks_per_sm",
+           "bf16_dynamic_smem", "bf16_blocks_per_sm", "reset_launch_counts"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -110,16 +112,18 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SYNTH_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 2 + [_P, _I, _P]
 _ADJ_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 5 + [_P, _I, _P]
 # the parity modes: (..., ms, M, flip, stream); the bfloat16 dense
-# synthesis: (..., ms, M, ring tile, stream)
+# synthesis: (..., ms, M, ring tile, stream); the float32 parity synthesis:
+# (..., ms, M, flip, ring tile, stream)
 _SYNTH_PAR_ARGS = _SYNTH_ARGS[:-1] + [_I, _P]
+_SYNTH_PAR_TILE_ARGS = _SYNTH_ARGS[:-1] + [_I, _I, _P]
 _ADJ_PAR_ARGS = _ADJ_ARGS[:-1] + [_I, _P]
 # source (csrc/<stem>.cu) -> its entry points and their argument types
 _LIBS = {
     "legendre_tri": {"legendre_synth_tri_f32": _SYNTH_ARGS,
                      "legendre_adj_tri_f32": _ADJ_ARGS,
-                     "legendre_synth_par_f32": _SYNTH_PAR_ARGS,
+                     "legendre_synth_par_f32": _SYNTH_PAR_TILE_ARGS,
                      "legendre_adj_par_f32": _ADJ_PAR_ARGS,
-                     "legendre_tri_f32_smem": [_I]},
+                     "legendre_tri_f32_info": [_I, _I]},
     "legendre_tri_f64": {"legendre_synth_tri_f64": _SYNTH_ARGS,
                          "legendre_adj_tri_f64": _ADJ_ARGS,
                          "legendre_synth_par_f64": _SYNTH_PAR_ARGS,
@@ -137,6 +141,12 @@ _SUFFIX = {(torch.float32, torch.float32): "f32",
            (torch.bfloat16, torch.float32): "bf16"}
 # the ring tiles of the bfloat16 dense synthesis (csrc/legendre_tri_bf16.cu)
 BF16_SYNTH_TILES = (80, 96, 128, 144)
+# the ring tiles of the float32 parity synthesis (csrc/legendre_tri.cu)
+F32_PAR_SYNTH_TILES = (64, 72, 80, 88)
+# the float32 kernels in the order of legendre_tri_f32_info's kinds
+_F32_KINDS = ("synth", "adj unit-r g", "adj unit-c g", "adj par unit-r g",
+              "adj par unit-c g") + tuple(
+    f"synth par tile {t}" for t in F32_PAR_SYNTH_TILES)
 # the bfloat16-table kernels in the order of legendre_tri_bf16_info's kinds
 _BF16_KINDS = tuple(f"synth tile {t}" for t in BF16_SYNTH_TILES) + (
     "adj unit-r g", "adj unit-c g", "synth par", "adj par unit-r g",
@@ -215,15 +225,38 @@ def f32_dynamic_smem() -> dict:
     """Dynamic shared memory (bytes) of each float32 kernel; builds first."""
     if not _fns:
         build()
-    fn = _fns["legendre_tri_f32_smem"]
-    return {"synth": fn(0), "adj unit-r g": fn(1), "adj unit-c g": fn(2)}
+    fn = _fns["legendre_tri_f32_info"]
+    return {kind: fn(k, 0) for k, kind in enumerate(_F32_KINDS)}
+
+
+def f32_blocks_per_sm() -> dict:
+    """Resident blocks an SM of each float32 kernel on the current card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its threads and
+    dynamic shared memory); builds first."""
+    if not _fns:
+        build()
+    fn = _fns["legendre_tri_f32_info"]
+    return {kind: fn(k, 1) for k, kind in enumerate(_F32_KINDS)}
+
+
+def _fewest_tiles(tiles: tuple, n: int) -> int:
+    """Of ``tiles``, the one that covers n with the fewest tiles, then the
+    least padding."""
+    return min(tiles, key=lambda t: (-(-n // t), t))
 
 
 def bf16_synth_tile(nr: int) -> int:
     """The ring tile of the bfloat16 dense synthesis at nr rings: the one
     with the fewest tiles (each ring tile reads the batch again), then the
     least padding."""
-    return min(BF16_SYNTH_TILES, key=lambda t: (-(-nr // t), t))
+    return _fewest_tiles(BF16_SYNTH_TILES, nr)
+
+
+def f32_par_synth_tile(nh: int) -> int:
+    """The ring tile of the float32 parity synthesis at nh north rings: the
+    one with the fewest tiles (each ring tile stages the batch again), then
+    the least padding."""
+    return _fewest_tiles(F32_PAR_SYNTH_TILES, nh)
 
 
 def bf16_dynamic_smem() -> dict:
@@ -247,12 +280,17 @@ def bf16_blocks_per_sm() -> dict:
 
 def f64_plan(nr: int, C: int) -> dict:
     """Threads per block and dynamic shared memory (bytes) of each float64
-    kernel's launch at nr rings and C columns; builds first."""
+    kernel's launch at nr rings (the output's, for the parity synthesis)
+    and C columns, and the parity synthesis' resident blocks an SM on the
+    current card; builds first."""
     if not _fns:
         build()
     fn = _fns["legendre_tri_f64_plan"]
-    return {kind: {"threads": v >> 20, "smem": v & 0xFFFFF}
-            for kind, v in (("synth", fn(0, nr, C)), ("adj", fn(1, nr, C)))}
+    plan = {kind: {"threads": v >> 20, "smem": v & 0xFFFFF}
+            for kind, v in (("synth", fn(0, nr, C)), ("adj", fn(1, nr, C)),
+                            ("synth par", fn(2, nr, C)))}
+    plan["synth par"]["blocks_per_sm"] = fn(3, nr, C)
+    return plan
 
 
 def reset_launch_counts() -> None:
@@ -428,6 +466,8 @@ def _launch(kind: str, lam: torch.Tensor, b: torch.Tensor,
         C, args = b.shape[2], sb + [out.stride(0), out.stride(1)]
     if nr is not None:
         tail = [int(flip)]
+        if kind == "synth" and lam.dtype == torch.float32:
+            tail.append(f32_par_synth_tile(nt))
     elif kind == "synth" and lam.dtype == torch.bfloat16:
         tail = [bf16_synth_tile(nt)]
     else:

@@ -2,6 +2,7 @@
 """Time the full-table Legendre kernels of two source trees in turns.
 
     python3 kernel_ab.py OTHER_TREE [--reps 40]
+    python3 kernel_ab.py --variant NAME [--reps 40]
 
 OTHER_TREE is a directory holding another version of the port's package
 (``gibbssampler_tpu_torch/``), for example a parent commit unpacked with
@@ -12,17 +13,27 @@ at L 513 in the state views the transforms pass: both dense kernels in
 float32 at C 256 and in float64 at C 16, nr 65 and 513; with bfloat16
 tables at C 256, the dense synthesis at nr 65, 83, 513 and 1023, the dense
 adjoint at nr 65, the parity synthesis at nr 513 and the parity adjoint at
-nr 513 and 1023 (half tables of ceil(nr / 2) rings); mean ms per call over
+nr 513 and 1023; the float32 parity synthesis at nr 513, C 256 and 512,
+and nr 1023, C 256; the float64 parity synthesis at nr 513, C 16 and 32
+(parity kernels on half tables of ceil(nr / 2) rings); mean ms per call over
 ``--reps`` launches between CUDA events.  Prints the
 card's name and power limit, one JSON line per run, then one JSON line of
 the mean of each tree's two runs per shape and this tree's ratio to the
 other's.  Needs a CUDA card.
+
+``--variant NAME`` takes as OTHER_TREE a copy of this tree's package, in
+a temporary directory, with the text patches of VARIANTS[NAME] applied (a
+design variant of one kernel, or the kernel with a part compiled out,
+which computes a wrong result on purpose), and times only that kernel's
+SHAPES.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 # (kernel, table dtype, C, nr)
 SHAPES = tuple((k, dt, C, nr) for dt, C, nr in (
@@ -30,11 +41,65 @@ SHAPES = tuple((k, dt, C, nr) for dt, C, nr in (
     ("float64", 16, 513)) for k in ("synth", "adj")) + tuple(
     ("synth", "bfloat16", 256, nr) for nr in (65, 83, 513, 1023)) + (
     ("adj", "bfloat16", 256, 65), ("synth_par", "bfloat16", 256, 513),
-    ("adj_par", "bfloat16", 256, 513), ("adj_par", "bfloat16", 256, 1023))
+    ("adj_par", "bfloat16", 256, 513), ("adj_par", "bfloat16", 256, 1023),
+    ("synth_par", "float32", 256, 513), ("synth_par", "float32", 512, 513),
+    ("synth_par", "float32", 256, 1023), ("synth_par", "float64", 16, 513),
+    ("synth_par", "float64", 32, 513))
 L = 513
 
+_F32 = "gibbssampler_tpu_torch/csrc/legendre_tri.cu"
+_F64 = "gibbssampler_tpu_torch/csrc/legendre_tri_f64.cu"
+_PY = "gibbssampler_tpu_torch/sht/legendre_kernels.py"
+_F32_TILES = "F32_PAR_SYNTH_TILES = (64, 72, 80, 88)"
+# name -> (the kernel's SHAPES: kernel, dtype; [(file, text, replacement)])
+VARIANTS = {
+    # the float32 parity synthesis at one ring tile whatever nh is
+    **{f"f32-par-tile-{t}": (("synth_par", "float32"), [
+        (_PY, _F32_TILES, f"F32_PAR_SYNTH_TILES = ({t},)")])
+       for t in (64, 72, 80)},
+    # its copies alone: no MMA
+    "f32-par-copies-only": (("synth_par", "float32"), [
+        (_F32, "      mma_stage<T, false, 0, T::KH>(sA, sB",
+         "      if (0) mma_stage<T, false, 0, T::KH>(sA, sB"),
+        (_F32, "      mma_stage<T, true, 0, T::KH>(",
+         "      if (0) mma_stage<T, true, 0, T::KH>(")]),
+    # its MMA path alone: no copies but a block's first STAGES - 1 stages
+    "f32-par-mma-only": (("synth_par", "float32"), [
+        (_F32, "      load_stage<T, 1>(st, st + T::A_TILE, A, sxc, iv, B, nh, jv,\n"
+               "                       nx * T::BK, Kn);",
+         "      if (0) load_stage<T, 1>(st, st + T::A_TILE, A, sxc, iv, B, nh,"
+         " jv, nx * T::BK, Kn);")]),
+    # the float64 parity synthesis with 4 stages of 16 degree rows
+    "f64-par-16-row-stages": (("synth_par", "float64"), [
+        (_F64, "constexpr int kParKL = 16;", "constexpr int kParKL = 8;"),
+        (_F64, "constexpr int kParStages = 2;", "constexpr int kParStages = 4;")]),
+    # ... and with ring tiles of 4 warps at 32 columns
+    "f64-par-4-warps": (("synth_par", "float64"), [
+        (_F64, "return tc == 32 ? 6 : 8;", "return tc == 32 ? 4 : 8;")]),
+}
 
-def time_tree(root: str, reps: int) -> dict:
+
+def variant_tree(name: str) -> str:
+    """A temporary copy of this tree's package with VARIANTS[name]'s
+    patches; returns its root."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix=f"kernel_ab_{name}_")
+    shutil.copytree(os.path.join(here, "gibbssampler_tpu_torch"),
+                    os.path.join(root, "gibbssampler_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    for rel, text, repl in VARIANTS[name][1]:
+        path = os.path.join(root, rel)
+        with open(path) as f:
+            src = f.read()
+        if src.count(text) != 1:
+            raise RuntimeError(f"variant {name}: {text!r} is not in {rel} "
+                               "exactly once")
+        with open(path, "w") as f:
+            f.write(src.replace(text, repl))
+    return root
+
+
+def time_tree(root: str, reps: int, shapes=SHAPES) -> dict:
     """{"<kernel> <dtype> nr<nr> C<C>": ms} of the package under root."""
     sys.path.insert(0, root)
     import torch
@@ -58,7 +123,7 @@ def time_tree(root: str, reps: int) -> dict:
         return ev[0].elapsed_time(ev[1]) / reps
 
     out = {}
-    for kind, dtype_name, C, nr in SHAPES:
+    for kind, dtype_name, C, nr in shapes:
         dtype = getattr(torch, dtype_name)
         batch = torch.float32 if dtype == torch.bfloat16 else dtype
         nt = (nr + 1) // 2 if kind.endswith("_par") else nr
@@ -88,14 +153,18 @@ def time_tree(root: str, reps: int) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
+    variant = args[args.index("--variant") + 1] if "--variant" in args \
+        else None
+    shapes = SHAPES if variant is None else tuple(
+        sh for sh in SHAPES if sh[:2] == VARIANTS[variant][0])
     if "--worker" in args:
         root, reps = args[args.index("--worker") + 1], int(args[-1])
-        print(json.dumps(time_tree(root, reps)), flush=True)
+        print(json.dumps(time_tree(root, reps, shapes)), flush=True)
         return 0
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
-    other = os.path.abspath(args[0])
+    other = variant_tree(variant) if variant else os.path.abspath(args[0])
     reps = int(args[args.index("--reps") + 1]) if "--reps" in args else 40
     this = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(other, "gibbssampler_tpu_torch")):
@@ -106,17 +175,24 @@ def main() -> int:
                           text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
     runs = {"other": [], "this": []}
-    for label, root in (("other", other), ("this", this), ("this", this),
-                        ("other", other)):
-        res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--worker", root, str(reps)], cwd=root,
-                             capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            print(res.stdout + res.stderr, file=sys.stderr)
-            return 1
-        ms = json.loads(res.stdout.strip().splitlines()[-1])
-        runs[label].append(ms)
-        print(json.dumps({"tree": label, "root": root, "ms": ms}), flush=True)
+    try:
+        for label, root in (("other", other), ("this", this),
+                            ("this", this), ("other", other)):
+            res = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 *(("--variant", variant) if variant else ()), "--worker",
+                 root, str(reps)], cwd=root, capture_output=True, text=True,
+                timeout=600)
+            if res.returncode != 0:
+                print(res.stdout + res.stderr, file=sys.stderr)
+                return 1
+            ms = json.loads(res.stdout.strip().splitlines()[-1])
+            runs[label].append(ms)
+            print(json.dumps({"tree": label, "root": root, "ms": ms}),
+                  flush=True)
+    finally:
+        if variant:
+            shutil.rmtree(other)
     mean = {t: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]}
             for t, rs in runs.items()}
     print(json.dumps({"card": card, "mean_ms": mean, "ratio_this_to_other": {

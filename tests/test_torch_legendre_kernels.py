@@ -296,9 +296,15 @@ def test_cuda_slab_kernels_match_plain(cuda_device, dtype):
 
 
 # the parity modes on the card: (L, nr, C) with odd and even nr (the
-# equator row or none), a tile's ragged edges, 1 and 17 columns
+# equator row or none), a tile's ragged edges, 1 and 17 columns; then the
+# float32 synthesis' ring tiles (f32_par_synth_tile) across one and two
+# tile boundaries (nh 90: two tiles of 64; nh 178: three) at two column
+# tiles of 128 (C 200, 136), and the float64 synthesis' column tiles C 16,
+# 32 and 48 (a whole 32-column tile and a partial one) with its ring tiles
+# (nh 150: two tiles of 5 warps)
 PAR_CARD_SHAPES = [(16, 12, 8), (37, 19, 10), (65, 65, 40), (64, 33, 17),
-                   (33, 18, 1)]
+                   (33, 18, 1), (40, 179, 200), (40, 356, 136),
+                   (24, 66, 16), (37, 65, 32), (33, 300, 48)]
 
 
 @pytest.mark.cuda
@@ -375,11 +381,38 @@ def test_bf16_synth_tile_plan(nr):
         assert (nt, nt * t) >= (n, n * tile), t
 
 
+# (nh: (ring tile, tiles, padded rings)) of the float32 parity synthesis at
+# the north ring counts of PERF.md's ring-parity table (nr 513, 1023) and
+# of the card tests (PAR_CARD_SHAPES)
+F32_PAR_TILE_PLAN = {6: (64, 1, 58), 9: (64, 1, 55), 10: (64, 1, 54),
+                     17: (64, 1, 47), 33: (64, 1, 31), 90: (64, 2, 38),
+                     150: (80, 2, 10), 178: (64, 3, 14), 257: (88, 3, 7),
+                     512: (88, 6, 16)}
+
+
+@pytest.mark.parametrize("nh", sorted(F32_PAR_TILE_PLAN))
+def test_f32_par_synth_tile_plan(nh):
+    """The ring tile that the host picks for the float32 parity synthesis:
+    the fewest tiles (each stages the batch again), then the least
+    padding; one tile for every nh up to the largest tile; the card tests'
+    nh cover every count of tiles up to three."""
+    tile = lk.f32_par_synth_tile(nh)
+    n = -(-nh // tile)
+    assert (tile, n, n * tile - nh) == F32_PAR_TILE_PLAN[nh]
+    if nh <= max(lk.F32_PAR_SYNTH_TILES):
+        assert n == 1
+    for t in lk.F32_PAR_SYNTH_TILES:
+        nt = -(-nh // t)
+        assert (nt, nt * t) >= (n, n * tile), t
+    card = {(nr + 1) // 2 for _, nr, _ in PAR_CARD_SHAPES}
+    assert {-(-h // lk.f32_par_synth_tile(h)) for h in card} == {1, 2, 3}
+
+
 # the parity shapes; then nr 83 (one tile of 96) and 193 (two of 128) at a
 # partial column tile (C 200), nr just above the tile boundaries 128 (one
 # tile of 144), 144 (two of 80) and 80 (one of 96), the last at an L whose
 # rows split over two row tiles of the parity adjoint, unevenly by parity
-BF16_CARD_SHAPES = PAR_CARD_SHAPES + [(97, 83, 200), (64, 193, 200),
+BF16_CARD_SHAPES = PAR_CARD_SHAPES[:5] + [(97, 83, 200), (64, 193, 200),
                                       (40, 129, 16), (40, 145, 16),
                                       (301, 81, 200)]
 
