@@ -2893,17 +2893,19 @@ def mirrored_table(torch, half, nr, flip=False):
 
 
 def par_launch_config(lk, name, f32, nr, C):
-    """The launch of a parity synthesis at (nr, C): {"kind", "threads",
+    """The launch of a parity kernel at (nr, C): {"kind", "threads",
     "smem" (dynamic shared memory, bytes), "blocks_per_sm" (resident on
-    this card)}: the float32 kernel at its ring tile, the float64 one's
-    plan; {} for the adjoints."""
-    if name != "legendre_synth_par":
-        return {}
+    this card)}: the float32 synthesis at its ring tile, the float32
+    adjoint with g's unit stride on r (as timed), the float64 synthesis'
+    plan; {} for the float64 adjoint."""
     if f32:
-        kind = f"synth par tile {lk.f32_par_synth_tile((nr + 1) // 2)}"
+        kind = (f"synth par tile {lk.f32_par_synth_tile((nr + 1) // 2)}"
+                if name == "legendre_synth_par" else "adj par unit-r g")
         return {"kind": kind, "threads": 256,
                 "smem": lk.f32_dynamic_smem()[kind],
                 "blocks_per_sm": lk.f32_blocks_per_sm()[kind]}
+    if name != "legendre_synth_par":
+        return {}
     return {"kind": "synth par", **lk.f64_plan(nr, C)["synth par"]}
 
 
@@ -3696,6 +3698,7 @@ def phase_bf16_slice(torch, lk, dev, card, iters=BF16_ITERS, lmax=LMAX,
         torch, lk, scheme, dl0, dev, label, ASIS_PER_ITER, n_timed, n_warm)
     n = bf16_counts(lk)
     other = counts(lk)
+    print_shapes(f"{label} (warm-up and timed)", shape_counts(lk))
     check(n[:2] == tuple(launches) and sum(other) == 0 and sum(n[2:]) == 0,
           f"{label}: bf16 launches {n}, all launches {launches}, float32 / "
           f"float64 {other}: the path must run the bf16 dense kernels only")

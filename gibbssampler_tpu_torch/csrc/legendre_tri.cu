@@ -25,9 +25,9 @@
 // The ring-parity mode (synth_par_3xtf32, adj_par_3xtf32; entry points
 // legendre_*_par_f32): a table over the north half of an equator-symmetric
 // grid's rings, mirrored into the south half by the kernels; see "the
-// ring-parity modes" below.  The adjoint is block_gemm's PAR mode, a
-// template parameter, so the dense kernels carry no test of it; the
-// synthesis is a block of its own on the same stages and fragments.
+// ring-parity modes" below.  The synthesis is a block of its own on the
+// dense kernels' stages and fragments; the adjoint a ring of its own
+// (run_ring) with both parities in one block, operands read by ldmatrix.
 //
 // What bounds them.  Per m each is a product over the triangle l >= m.  At
 // the main-path shape (L 513, nr 65, C 256) one call does 4.39 GFLOP and
@@ -135,18 +135,79 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy (through L2 only) of the first n (0 to 16)
+// bytes at src, zeros for the rest; src and dst 16-byte aligned
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(n));
+}
+
+// Chunk j of a row whose vb valid bytes start at p (any 4-byte alignment):
+// the row lands in whole 16-byte chunks from p rounded down, so that byte
+// p + d sits at dst + (p & 15) + d; the rest of a chunk reads as zeros, and
+// a row with no valid byte reads nothing.  The bytes before p that the
+// first chunk reads lie in the same allocation (CUDA allocations are
+// aligned to far more than 16 bytes) and are never used.
+__device__ __forceinline__ void copy_chunk(unsigned char* dst, const void* p,
+                                           int vb, int j) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const int sh = static_cast<int>(a & 15);
+  const int n = vb > 0 ? min(max(sh + vb - 16 * j, 0), 16) : 0;
+  cp_async16(dst + 16 * j,
+             reinterpret_cast<const void*>(a - sh + (n ? 16 * j : 0)), n);
+}
+
+// ldmatrix of four 8 x 8 b16 matrices, here 8 x 4 32-bit words each: lanes
+// 8 q .. 8 q + 7 give the 16-byte rows of matrix q, and lane t receives
+// word (t / 4, t % 4) of each: a TF32 fragment's register
+__device__ __forceinline__ void ldsm4(uint32_t (&d)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(smem_u32(p)));
+}
+
+// The float offset (0 to 3) of p within its 16 bytes
+__device__ __forceinline__ int quad_shift(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// dst[j] = src[quad_shift(dst) + j] for j < n (src 16-byte aligned in
+// shared memory), or 0 where src is null, by one warp: 16-byte stores
+// along the run, 4-byte ones at its two ends
+__device__ __forceinline__ void store_run(float* dst, const float* src, int n,
+                                          int lane) {
+  const int s = quad_shift(dst);
+  float* base = dst - s;  // 16-byte aligned
+  for (int q = lane; 4 * q < s + n; q += 32) {
+    const float4 v = src ? *reinterpret_cast<const float4*>(src + 4 * q)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int j = 4 * q - s;  // the run's element at base[4 q]
+    if (j >= 0 && j + 4 <= n) {
+      *reinterpret_cast<float4*>(base + 4 * q) = v;
+    } else {
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+        if (j + d >= 0 && j + d < n) base[4 * q + d] = e[d];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // the block GEMM
 // ---------------------------------------------------------------------------
 
 // Block tile BM x BN over k stages of BK, warp tiles WM x WN.  B_KUNIT: B's
 // unit stride is on k (tile stored [j][k]), else on j (stored [k][j]).
-// B2: a stage holds a second B tile (the parity adjoint's south rows).
-template <int BM_, int BN_, int BK_, int WM_, int WN_, bool B_KUNIT_,
-          bool B2_ = false>
+template <int BM_, int BN_, int BK_, int WM_, int WN_, bool B_KUNIT_>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_;
-  static constexpr bool B_KUNIT = B_KUNIT_, B2 = B2_;
+  static constexpr bool B_KUNIT = B_KUNIT_;
   static constexpr int STAGES = 3;
   static constexpr int WARPS_M = BM / WM;
   static constexpr int WARPS = WARPS_M * (BN / WN);
@@ -156,7 +217,7 @@ struct Tile {
   static constexpr int SB = B_KUNIT ? BK + 4 : BN + (24 - BN % 16) % 16;
   static constexpr int A_TILE = BM * SA;
   static constexpr int B_TILE = (B_KUNIT ? BN : BK) * SB;
-  static constexpr int STAGE = A_TILE + (B2 ? 2 : 1) * B_TILE;
+  static constexpr int STAGE = A_TILE + B_TILE;
   static constexpr int SC = BM + 4;                       // epilogue [j][i]
   static constexpr int FLOATS =
       STAGES * STAGE > BN * SC ? STAGES * STAGE : BN * SC;
@@ -175,18 +236,18 @@ __device__ __forceinline__ int parity_slot(int k) {
   return (k & 1) * (N / 2) + (k >> 1);
 }
 
-// Copy a ROWS x U tile, element (row, col) from src + row * rs + CS * col,
-// to dst + row * LD + col; zeros where row >= rv or col >= cv.  Warp w
-// copies rows w, w + WARPS, ..., its lanes along the unit-stride axis.  A
+// Copy a ROWS x U tile, element (row, col) from src + row * rs + col, to
+// dst + row * LD + col; zeros where row >= rv or col >= cv.  Warp w copies
+// rows w, w + WARPS, ..., its lanes along the unit-stride axis.  A
 // zero-fill copy reads nothing, so its source address needs no guard.
 // PERM_ROWS / PERM_COLS put row / column k at parity_slot(k) instead.
-template <int ROWS, int U, int LD, int WARPS, int CS = 1,
-          bool PERM_ROWS = false, bool PERM_COLS = false>
+template <int ROWS, int U, int LD, int WARPS, bool PERM_ROWS = false,
+          bool PERM_COLS = false>
 __device__ __forceinline__ void copy_tile(float* dst, const float* src,
                                           long long rs, int rv, int cv) {
   static_assert(ROWS % WARPS == 0, "whole rows per warp");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* p = src + warp * rs + CS * lane;
+  const float* p = src + warp * rs + lane;
   float* d = dst + warp * LD + lane;
 #pragma unroll
   for (int s = 0; s < ROWS / WARPS; ++s) {
@@ -198,9 +259,9 @@ __device__ __forceinline__ void copy_tile(float* dst, const float* src,
         const int row = warp + s * WARPS, col = lane + 32 * q;
         cp_async4(dst + (PERM_ROWS ? parity_slot<ROWS>(row) : row) * LD +
                       (PERM_COLS ? parity_slot<U>(col) : col),
-                  p + CS * 32 * q, row_ok && col < cv);
+                  p + 32 * q, row_ok && col < cv);
       } else {
-        cp_async4(d + s * WARPS * LD + 32 * q, p + CS * 32 * q,
+        cp_async4(d + s * WARPS * LD + 32 * q, p + 32 * q,
                   row_ok && lane + 32 * q < cv);
       }
     }
@@ -208,53 +269,34 @@ __device__ __forceinline__ void copy_tile(float* dst, const float* src,
   }
 }
 
-// What the parity adjoint adds to a block GEMM (PAR 2; see block_gemm).
-struct ParArgs {
-  const float* B2;  // B's south rows, B2[k, j] = g[nr - 1 - k, j]
-  int Kn2;          // rows of B2 that exist (k < nr / 2)
-  float sgn;        // sign of B2
-};
-
 // Stage k0 .. k0 + BK of A (iv x Kn, A[i, k] = A[i * sa + k]) and B (Kn x jv,
 // B[k, j] = B[j * sb + k] if B_KUNIT else B[k * sb + j]) into shared memory.
-// PAR 1 (the parity synthesis) stores k by parity (parity_slot); PAR 2 (the
-// parity adjoint) also stages B2 (Kn2 x jv, B2[k, j] = B2[j * sb - k] if
-// B_KUNIT else B2[-k * sb + j]) after sB.
+// PAR 1 (the parity synthesis) stores k by parity (parity_slot).
 template <class T, int PAR = 0>
 __device__ __forceinline__ void load_stage(float* sA, float* sB,
                                            const float* A, long long sa,
                                            int iv, const float* B,
                                            long long sb, int jv, int k0,
-                                           int Kn, const ParArgs& pa = {}) {
+                                           int Kn) {
   constexpr bool P1 = PAR == 1;
-  copy_tile<T::BM, T::BK, T::SA, T::WARPS, 1, false, P1>(sA, A + k0, sa, iv,
-                                                         Kn - k0);
+  copy_tile<T::BM, T::BK, T::SA, T::WARPS, false, P1>(sA, A + k0, sa, iv,
+                                                      Kn - k0);
   if constexpr (T::B_KUNIT)
-    copy_tile<T::BN, T::BK, T::SB, T::WARPS, 1, false, P1>(sB, B + k0, sb,
-                                                           jv, Kn - k0);
+    copy_tile<T::BN, T::BK, T::SB, T::WARPS, false, P1>(sB, B + k0, sb, jv,
+                                                        Kn - k0);
   else
-    copy_tile<T::BK, T::BN, T::SB, T::WARPS, 1, P1>(sB, B + k0 * sb, sb,
-                                                    Kn - k0, jv);
-  if constexpr (PAR == 2) {
-    float* sB2 = sB + T::B_TILE;
-    if constexpr (T::B_KUNIT)
-      copy_tile<T::BN, T::BK, T::SB, T::WARPS, -1>(sB2, pa.B2 - k0, sb, jv,
-                                                   pa.Kn2 - k0);
-    else
-      copy_tile<T::BK, T::BN, T::SB, T::WARPS>(sB2, pa.B2 - k0 * sb, -sb,
-                                               pa.Kn2 - k0, jv);
-  }
+    copy_tile<T::BK, T::BN, T::SB, T::WARPS, P1>(sB, B + k0 * sb, sb,
+                                                 Kn - k0, jv);
 }
 
 // acc += the 3xTF32 products of k8 steps KK0 .. KKN - 1 of one stage, whose
 // first ksteps of these hold data.  EDGE: skip the 16 x 8 tiles that lie
-// wholly past iv or jv.  B2: B's values are sB + sgn sB2.
+// wholly past iv or jv.
 template <class T, bool EDGE, int KK0 = 0, int KKN = T::BK / 8>
 __device__ __forceinline__ void mma_stage(const float* sA, const float* sB,
                                           float (&acc)[T::MT][T::NT][4],
                                           int wm0, int wn0, int gid, int tig,
-                                          int ksteps, int iv, int jv,
-                                          float sgn = 0.f) {
+                                          int ksteps, int iv, int jv) {
 #pragma unroll
   for (int kk = KK0; kk < KKN; ++kk) {
     if (kk - KK0 >= ksteps) break;
@@ -274,15 +316,7 @@ __device__ __forceinline__ void mma_stage(const float* sA, const float* sB,
       // b0 (k = tig, j = gid), b1 (k = tig + 4, j = gid)
       uint32_t bh[2], bl[2];
       const int j = wn0 + nt * 8 + gid;
-      if constexpr (T::B2) {
-        // U = Gn + sgn Gs, folded as the fragment is read
-        const int e0 = T::B_KUNIT ? j * T::SB + kk * 8 + tig
-                                  : (kk * 8 + tig) * T::SB + j;
-        const int e1 = e0 + (T::B_KUNIT ? 4 : 4 * T::SB);
-        const float* q2 = sB + T::B_TILE;
-        split_tf32(fmaf(sgn, q2[e0], sB[e0]), bh[0], bl[0]);
-        split_tf32(fmaf(sgn, q2[e1], sB[e1]), bh[1], bl[1]);
-      } else if constexpr (T::B_KUNIT) {
+      if constexpr (T::B_KUNIT) {
         const float* q = sB + j * T::SB + kk * 8 + tig;
         split_tf32(q[0], bh[0], bl[0]);
         split_tf32(q[4], bh[1], bl[1]);
@@ -325,20 +359,16 @@ __device__ __forceinline__ void stash_sums(float* s,
     }
 }
 
-// out[j * so + IS i] = sum_{k < Kn} A[i, k] B[k, j] for i < iv, j < jv, IS
-// 1, or 2 under PAR 2, the parity adjoint (its rows i are every other row
-// of the output; B[k, j] + sgn B2[k, j] for B).  Each stage sums into fresh
-// tensor-core accumulators, which are then added to the running fp32 sums:
-// the tensor cores' accumulation then spans at most 3 BK / 8 MMAs, not
-// 3 Kn / 8.
-template <class T, int PAR = 0>
+// out[j * so + i] = sum_{k < Kn} A[i, k] B[k, j] for i < iv, j < jv.  Each
+// stage sums into fresh tensor-core accumulators, which are then added to
+// the running fp32 sums: the tensor cores' accumulation then spans at most
+// 3 BK / 8 MMAs, not 3 Kn / 8.
+template <class T>
 __device__ __forceinline__ void block_gemm(const float* A, long long sa,
                                            int iv, const float* B,
                                            long long sb, int jv, int Kn,
                                            float* out, long long so,
-                                           float* smem,
-                                           const ParArgs& pa = {}) {
-  static_assert(PAR == 0 || (PAR == 2 && T::B2), "the parity adjoint stages B2");
+                                           float* smem) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int wm0 = (warp % T::WARPS_M) * T::WM;
@@ -357,8 +387,7 @@ __device__ __forceinline__ void block_gemm(const float* A, long long sa,
   for (int s = 0; s < T::STAGES - 1; ++s) {
     if (s < KT) {
       float* st = smem + s * T::STAGE;
-      load_stage<T, PAR>(st, st + T::A_TILE, A, sa, iv, B, sb, jv, s * T::BK,
-                         Kn, pa);
+      load_stage<T>(st, st + T::A_TILE, A, sa, iv, B, sb, jv, s * T::BK, Kn);
     }
     cp_async_commit();
   }
@@ -368,8 +397,8 @@ __device__ __forceinline__ void block_gemm(const float* A, long long sa,
     const int nx = kt + T::STAGES - 1;
     if (nx < KT) {
       float* st = smem + (nx % T::STAGES) * T::STAGE;
-      load_stage<T, PAR>(st, st + T::A_TILE, A, sa, iv, B, sb, jv,
-                         nx * T::BK, Kn, pa);
+      load_stage<T>(st, st + T::A_TILE, A, sa, iv, B, sb, jv, nx * T::BK,
+                    Kn);
     }
     cp_async_commit();
     const float* st = smem + (kt % T::STAGES) * T::STAGE;
@@ -384,11 +413,10 @@ __device__ __forceinline__ void block_gemm(const float* A, long long sa,
     if (kv >= T::BK && iv > T::BM - 16 && jv > T::BN - 8)
       // every k8 step and every 16 x 8 tile holds data: no checks
       mma_stage<T, false>(st, st + T::A_TILE, acc, wm0, wn0, gid, tig,
-                          T::BK / 8, iv, jv, pa.sgn);
+                          T::BK / 8, iv, jv);
     else
       mma_stage<T, true>(st, st + T::A_TILE, acc, wm0, wn0, gid, tig,
-                         kv >= T::BK ? T::BK / 8 : (kv + 7) / 8, iv, jv,
-                         pa.sgn);
+                         kv >= T::BK ? T::BK / 8 : (kv + 7) / 8, iv, jv);
 #pragma unroll
     for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
@@ -399,12 +427,11 @@ __device__ __forceinline__ void block_gemm(const float* A, long long sa,
   cp_async_wait<0>();
   __syncthreads();
 
-  constexpr int IS = PAR == 2 ? 2 : 1;
   stash_sums<T>(smem, sum, wm0, wn0, gid, tig);
   __syncthreads();
   for (int e = tid; e < T::BN * T::BM; e += T::THREADS) {
     const int j = e / T::BM, i = e % T::BM;
-    if (i < iv && j < jv) out[j * so + IS * i] = smem[j * T::SC + i];
+    if (i < iv && j < jv) out[j * so + i] = smem[j * T::SC + i];
   }
 }
 
@@ -520,11 +547,39 @@ adj_tri_3xtf32(const float* __restrict__ lam, const float* __restrict__ g,
 //   about half the time, and 4 or 5 ring tiles (BN 64-80) are slower than
 //   3 of 88; more warps, other stage depths and B split once a block in
 //   shared memory were no faster.
-// - Adjoint: a block takes the rows l = l0, l0 + 2, .. of one parity (its
-//   A tile has a row stride of 2 nh), and stages g's north rows and its
-//   south rows in reverse; B = north + sign south is formed as the fragment
-//   is read.
-
+// - Adjoint (adj_par_3xtf32, AdjParF32): a block of 8 warps computes both
+//   parities of 2 BM = 256 consecutive rows l = l0 .. l0 + 255 (128 of even
+//   l - m, which read U+ = g_n + f g_s, and 128 of odd, which read U- = g_n
+//   - f g_s) for BN = 64 columns; k = r over the nh north rings, 32 a
+//   stage; warps of 64 x 32, two of each parity along l and two along c.
+//   Each stage: the table tile of each parity goes by 4-byte cp.async
+//   straight into its rows (a parity's rows are 2 nh floats apart), a ring
+//   of 3 slots, two stages ahead; g's north and south rings land in whole
+//   16-byte chunks; once they have landed, one staging pass forms U+ and U-
+//   and writes both already split into their TF32 hi and lo words, so the
+//   MMA loop reads every operand by ldmatrix.x4 (a TF32 fragment is 4 words
+//   of an 8 x 4 matrix) and splits only the table.  A warp skips its 16-row
+//   tiles past the last row, and issues a stage's MMAs as three passes of
+//   16 independent ones.  The products and the summation are those of the
+//   dense kernels: each stage's 3xTF32 products into fresh accumulators,
+//   added to float32 sums.  The epilogue writes whole runs of 256 l a
+//   column through shared memory, in 16-byte stores; blocks of their own
+//   write the zeros of l < m so.
+//   Why 256 x 64 and not 128 x 128, which stages the same bytes (the table
+//   once a column tile, g once a row tile): every U value is folded and
+//   split once a stage for the block's rows, and every table value split
+//   once for each warp along c, so 256 x 64 does half the staging work and
+//   half the table splits a product of 128 x 128.  Footprint: table 3 x 2
+//   x 128 x 36 floats (108 KB), landing 2 x 2 x 64 x 36 (36 KB), U+- hi
+//   and lo 4 x 64 x 36 (36 KB): 180 KB, one block an SM, 64 sums and 64
+//   fresh accumulators a thread (~200 registers); the epilogue's 64 x 260
+//   floats reuse it.
+//   What bounds it (H100, nh 257, C 256; PERF.md, kernel_ab.py --variant):
+//   the copies with the staging pass alone take about 0.5 ms and the MMA
+//   path alone about as long (the ~100-110 TF32-TFLOP/s of mma.sync that
+//   every float32 kernel here reaches); with one block an SM they overlap
+//   only in part.  Tried and no faster: one barrier a stage with U+-
+//   double-buffered (216 KB), and 2 blocks an SM of 4 warps on 256 x 32.
 // The parity synthesis' block: the block GEMM tile 128 x BN over 64-deep
 // stages, twice its warps (one set a class)
 template <int BN_>
@@ -540,8 +595,6 @@ struct SynthParTile : Tile<128, BN_, 64, 32, BN_, false> {
           ? Base::STAGES * Base::STAGE : 2 * BN_ * Base::SC;
   static constexpr int SMEM = FLOATS * 4;
 };
-template <bool KUNIT>
-using AdjParTile = Tile<64, 128, 32, 32, 32, KUNIT, true>;
 
 // grid (north ring tiles, c tiles, row i)
 template <int BN, bool SLAB>
@@ -641,44 +694,308 @@ synth_par_3xtf32(const float* __restrict__ lam, const float* __restrict__ x,
   }
 }
 
-// grid (c tiles, y, row i).  For row i of degree m the first nz =
-// ceil(m / BM) tiles y write the zeros of l < m, as the dense adjoint's do;
-// tile y = nz + 2 t + p computes the rows l = m + p + 2 (BM t + i') of
-// parity p, i' < BM; the rest return at once.
+// The ring: stage s's copies (K::issue) go K::DEPTH stages ahead; once
+// they have landed, the staging pass (K::stage) writes the stage's operand
+// tiles and the MMAs (K::mma) read them.  The first barrier of a stage sees
+// its copies landed and the MMAs of the stage before done (the staged tiles
+// free), the second the tiles written (the landing slot free again).
+template <class K>
+__device__ __forceinline__ void run_ring(K& k, int KT) {
+#pragma unroll
+  for (int s = 0; s < K::DEPTH; ++s) {
+    if (s < KT) k.issue(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<K::DEPTH - 1>();  // stage kt has landed (this thread's copies) ...
+    __syncthreads();                // ... and everyone's
+    k.stage(kt);
+    __syncthreads();
+    if (kt + K::DEPTH < KT) k.issue(kt + K::DEPTH);
+    cp_async_commit();
+    k.mma(kt);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The parity adjoint's block: rows l = l0 + p + 2 i' (i' < BM) of both
+// parities p for the columns c0 .. c0 + BN, k = r over the north rings.
+template <bool KUNIT>
+struct AdjParF32 {
+  static constexpr int BM = 128;                   // rows of each parity
+  static constexpr int BN = 64, BK = 32, THREADS = 256, WARPS = 8, DEPTH = 2;
+  static constexpr int WM = 64, WN = 32, MT = WM / 16, NT = WN / 8;
+  static constexpr int SA = BK + 4;                // words a row of A and U
+  static constexpr int A_STAGE = 2 * BM * SA * 4;  // A [p BM + i'][ring], DEPTH + 1 slots
+  static constexpr int GW = KUNIT ? BK + 4 : BN + 8;  // floats a landed g row
+  static constexpr int GCH = GW / 4;               // [c][ring] (KUNIT) : [ring][c]
+  static constexpr int G_TILE = (KUNIT ? BN : BK) * GW;  // floats
+  static constexpr int G_SLOT = 2 * G_TILE * 4;    // north, south
+  static constexpr int G_OFF = (DEPTH + 1) * A_STAGE;
+  static constexpr int U_OFF = G_OFF + DEPTH * G_SLOT;
+  static constexpr int U_TILE = BN * SA * 4;       // [c][ring]: U+ hi, lo, U- hi, lo
+  static constexpr int MAIN = U_OFF + 4 * U_TILE;
+  static constexpr int SC = 2 * BM + 4;            // epilogue [c][l - l0] float32
+  static constexpr int SMEM = MAIN > BN * SC * 4 ? MAIN : BN * SC * 4;
+  static_assert(SA % 8 == 4 && SC % 4 == 0 && G_SLOT % 16 == 0 &&
+                BM % WM == 0 && 2 * BM / WM * (BN / WN) == WARPS,
+                "ldmatrix rows an odd number of 16 bytes apart; one parity a "
+                "warp; 16-byte chunks and epilogue rows");
+
+  unsigned char* sm;
+  const float* tab;      // lam[i, l0, 0]
+  const float* gp;       // g[i, 0, c0]
+  long long sgr, sgc;    // g's strides
+  int nh, nr, cv, iv0, iv1;  // iv0 / iv1: rows of even / odd l - m
+  int gs0;               // gp's address in floats mod 4
+  float f;
+  int tid, lane, wm0, wn0;
+  float sum[MT][NT][4];
+
+  // where a landed g row starts (floats): from element e of column c
+  // (KUNIT), or of ring e (unit stride on c)
+  __device__ __forceinline__ int gshift(int c, int e) const {
+    return KUNIT ? (gs0 + (c & 3) * static_cast<int>(sgc & 3) + e) & 3
+                 : (gs0 + (e & 3) * static_cast<int>(sgr & 3)) & 3;
+  }
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sum[mt][nt][q] = 0.f;
+  }
+
+  // the table rows' rings k0 .. k0 + BK (a warp a row, its lanes along the
+  // rings); north g[r, c] and south g[nr - 1 - r, c] for r = k0 .. k0 + BK,
+  // r < nh and r < nr / 2 (KUNIT: each column's memory rings, the south
+  // ones in reverse)
+  __device__ __forceinline__ void issue(int s) {
+    float* A = reinterpret_cast<float*>(sm + (s % (DEPTH + 1)) * A_STAGE);
+    const int k0 = s * BK, r = k0 + lane, warp = tid >> 5;
+#pragma unroll
+    for (int it = 0; it < 2 * BM / WARPS; ++it) {
+      const int w = warp + WARPS * it, p = it >= BM / WARPS, ip = w - p * BM;
+      cp_async4(A + w * SA + lane, tab + (p + 2LL * ip) * nh + r,
+                ip < (p ? iv1 : iv0) && r < nh);
+    }
+    unsigned char* gn = sm + G_OFF + (s % DEPTH) * G_SLOT;
+    unsigned char* gs = gn + G_TILE * 4;
+    const int se = min(k0 + BK, nr / 2);  // south rings k0 .. se - 1 ...
+    const int slo = nr - se;              // ... at memory rings slo .. nr - 1 - k0
+    if constexpr (KUNIT) {
+      const int nv = min(nh, k0 + BK) - k0;
+      for (int e = tid; e < BN * GCH; e += THREADS) {
+        const int c = e / GCH, j = e - c * GCH;
+        const float* col = gp + c * sgc;
+        copy_chunk(gn + c * GW * 4, col + k0, c < cv ? 4 * nv : 0, j);
+        copy_chunk(gs + c * GW * 4, col + slo,
+                   c < cv && se > k0 ? 4 * (se - k0) : 0, j);
+      }
+    } else {
+      for (int e = tid; e < BK * GCH; e += THREADS) {
+        const int t = e / GCH, j = e - t * GCH, rt = k0 + t;
+        copy_chunk(gn + t * GW * 4, gp + rt * sgr, rt < nh ? 4 * cv : 0, j);
+        copy_chunk(gs + t * GW * 4, gp + (nr - 1 - rt) * sgr,
+                   rt < nr / 2 ? 4 * cv : 0, j);
+      }
+    }
+  }
+
+  // U+-[c][t] = g_n +- f g_s at ring k0 + t (g_s = 0 from ring nr / 2 on:
+  // the equator row once), formed once and split into TF32 hi and lo words
+  __device__ __forceinline__ void stage(int s) {
+    const float* gn =
+        reinterpret_cast<const float*>(sm + G_OFF + (s % DEPTH) * G_SLOT);
+    const float* gs = gn + G_TILE;
+    uint32_t* U = reinterpret_cast<uint32_t*>(sm + U_OFF);
+    const int k0 = s * BK, slo = nr - min(k0 + BK, nr / 2);
+#pragma unroll
+    for (int it = 0; it < BN * BK / THREADS; ++it) {
+      int c, t;
+      if constexpr (KUNIT) {  // a warp a column, its lanes along the rings
+        const int e = tid + it * THREADS;
+        c = e >> 5;
+        t = e & 31;
+      } else {  // 8 columns x 4 rings a warp
+        const int q = (tid >> 5) * (BN * BK / THREADS) + it;
+        c = (q % (BN / 8)) * 8 + (lane & 7);
+        t = (q / (BN / 8)) * 4 + (lane >> 3);
+      }
+      const int r = k0 + t;
+      float vn, vs = 0.f;
+      if constexpr (KUNIT) {
+        vn = gn[c * GW + gshift(c, k0) + t];
+        if (r < nr / 2) vs = gs[c * GW + gshift(c, slo) + nr - 1 - r - slo];
+      } else {
+        vn = gn[t * GW + gshift(0, r) + c];
+        if (r < nr / 2) vs = gs[t * GW + gshift(0, nr - 1 - r) + c];
+      }
+      const int e = c * SA + t;
+      split_tf32(fmaf(f, vs, vn), U[e], U[U_TILE / 4 + e]);
+      split_tf32(fmaf(-f, vs, vn), U[2 * U_TILE / 4 + e], U[3 * U_TILE / 4 + e]);
+    }
+  }
+
+  // sum += one stage's 3xTF32 products, summed into fresh accumulators:
+  // the k8 steps that hold data and the warp's first NM 16-row tiles (all
+  // its columns: those past cv hold zeros)
+  template <int NM>
+  __device__ __forceinline__ void mma_rows(int s, int p) {
+    const unsigned char* A = sm + (s % (DEPTH + 1)) * A_STAGE;
+    const unsigned char* Uh = sm + U_OFF + 2 * p * U_TILE;
+    const unsigned char* Ul = Uh + U_TILE;
+    const int k0 = s * BK;
+    float acc[NM][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < NM; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      if (k0 + kk * 8 >= nh) break;  // uniform across the block
+      // b0 (k 0-3) and b1 (k 4-7) of the n tiles 2 np and 2 np + 1
+      uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        const int off = ((wn0 + np * 16 + (lane & 7) + (lane >> 4) * 8) * SA +
+                         kk * 8 + ((lane >> 3) & 1) * 4) * 4;
+        uint32_t d[4];
+        ldsm4(d, Uh + off);
+        bh[2 * np][0] = d[0];
+        bh[2 * np][1] = d[1];
+        bh[2 * np + 1][0] = d[2];
+        bh[2 * np + 1][1] = d[3];
+        ldsm4(d, Ul + off);
+        bl[2 * np][0] = d[0];
+        bl[2 * np][1] = d[1];
+        bl[2 * np + 1][0] = d[2];
+        bl[2 * np + 1][1] = d[3];
+      }
+      // a0 (rows 0-7, k 0-3), a1 (rows 8-15), a2 (k 4-7), a3
+      uint32_t ah[NM][4], al[NM][4];
+#pragma unroll
+      for (int mt = 0; mt < NM; ++mt) {
+        uint32_t d[4];
+        ldsm4(d, A + ((wm0 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                          SA + kk * 8 + (lane >> 4) * 4) * 4);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split_tf32(__uint_as_float(d[q]), ah[mt][q], al[mt][q]);
+      }
+      // the small terms first; NM x NT independent MMAs between two into
+      // one accumulator
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < NM; ++mt) mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < NM; ++mt) mma_tf32(acc[mt][nt], al[mt], bh[nt]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < NM; ++mt) mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < NM; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sum[mt][nt][q] += acc[mt][nt][q];
+  }
+
+  // the 16-row tiles of the warp that hold data (uniform across the warp)
+  __device__ __forceinline__ void mma(int s) {
+    const int p = wm0 >= BM;  // the warp's parity
+    const int rows = (p ? iv1 : iv0) - (wm0 - p * BM);
+    if (rows > 48) mma_rows<4>(s, p);
+    else if (rows > 32) mma_rows<3>(s, p);
+    else if (rows > 16) mma_rows<2>(s, p);
+    else if (rows > 0) mma_rows<1>(s, p);
+  }
+
+  // out[c * soc + l - l0] for c < cv, l - l0 < lv: the sums to shared memory
+  // [c][l - l0], each row shifted to its run's 16-byte alignment, then
+  // whole runs along l, a warp a column
+  __device__ __forceinline__ void finish(float* out, long long soc, int lv) {
+    float* e = reinterpret_cast<float*>(sm);
+    const int gid = lane >> 2, tig = lane & 3;
+    // c0 (gid, 2 tig), c1 (gid, 2 tig + 1), c2 (gid + 8, 2 tig), c3 (gid + 8, 2 tig + 1)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int row = wm0 + mt * 16 + gid;  // rows gid + 8: l + 16
+        const int l = row / BM + 2 * (row % BM), c = wn0 + nt * 8 + 2 * tig;
+        float* e0 = e + c * SC + quad_shift(out + c * soc) + l;
+        float* e1 = e + (c + 1) * SC + quad_shift(out + (c + 1) * soc) + l;
+        e0[0] = sum[mt][nt][0];
+        e1[0] = sum[mt][nt][1];
+        e0[16] = sum[mt][nt][2];
+        e1[16] = sum[mt][nt][3];
+      }
+    __syncthreads();
+    for (int c = tid >> 5; c < cv; c += WARPS)
+      store_run(out + c * soc, e + c * SC, min(2 * BM, lv), lane);
+  }
+};
+
+// grid (c tiles, y, row i).  For row i of degree m the first nz = ceil(m /
+// 2 BM) tiles y write the zeros of l < m, 2 BM at a time down from l = m;
+// tile y >= nz computes the rows l0 = m + 2 BM (y - nz) .. l0 + 2 BM of both
+// parities; the rest return at once.
 template <bool KUNIT, bool SLAB>
-__global__ void __launch_bounds__(AdjParTile<KUNIT>::THREADS, 2)
+__global__ void __launch_bounds__(AdjParF32<KUNIT>::THREADS, 1)
 adj_par_3xtf32(const float* __restrict__ lam, const float* __restrict__ g,
                float* __restrict__ out, int L, int nr, int C, long long sgm,
                long long sgr, long long sgc, long long som, long long soc,
                const int* __restrict__ ms, float f) {
-  using T = AdjParTile<KUNIT>;
-  extern __shared__ float smem[];
+  using K = AdjParF32<KUNIT>;
+  constexpr int RT = 2 * K::BM;  // rows l a block
+  extern __shared__ __align__(16) unsigned char smem_u8[];
   const int i = blockIdx.z, m = degree<SLAB>(ms, i);
   const int nh = (nr + 1) / 2;
-  const int c0 = blockIdx.x * T::BN;
-  const int cv = min(T::BN, C - c0);
-  const int nz = (m + T::BM - 1) / T::BM;
+  const int c0 = blockIdx.x * K::BN;
+  const int cv = min(K::BN, C - c0);
+  const int nz = (m + RT - 1) / RT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* o = out + i * som + c0 * soc;                                // out[i, c0, 0]
   if (static_cast<int>(blockIdx.y) < nz) {
-    const int hi = m - static_cast<int>(blockIdx.y) * T::BM;
-    const int lo = hi > T::BM ? hi - T::BM : 0;
-    for (int e = threadIdx.x; e < T::BN * T::BM; e += T::THREADS) {
-      const int j = e / T::BM, l = lo + e % T::BM;
-      if (j < cv && l < hi) o[j * soc + l] = 0.f;
-    }
+    const int hi = m - static_cast<int>(blockIdx.y) * RT;
+    const int lo = hi > RT ? hi - RT : 0;
+    for (int c = warp; c < cv; c += K::WARPS)
+      store_run(o + c * soc + lo, nullptr, hi - lo, lane);
     return;
   }
-  const int t = static_cast<int>(blockIdx.y) - nz, p = t & 1;
-  const int l0 = m + p + 2 * T::BM * (t >> 1);
+  const int l0 = m + (static_cast<int>(blockIdx.y) - nz) * RT;
   if (l0 >= L) return;  // uniform across the block
-  const float* A = lam + (static_cast<long long>(i) * L + l0) * nh;   // lam[i, l0, 0]
-  const float* B = g + i * sgm + c0 * sgc;                            // g[i, 0, c0]
-  ParArgs pa{};
-  pa.B2 = B + (nr - 1) * sgr;                                         // g[i, nr-1, c0]
-  pa.Kn2 = nr / 2;
-  pa.sgn = p ? -f : f;
-  block_gemm<T, 2>(A, 2LL * nh, min(T::BM, (L - l0 + 1) / 2), B,
-                   KUNIT ? sgc : sgr, cv, nh, o + l0, soc, smem, pa);
+  K k;
+  k.sm = smem_u8;
+  k.tab = lam + (static_cast<long long>(i) * L + l0) * nh;            // lam[i, l0, 0]
+  k.gp = g + i * sgm + c0 * sgc;                                      // g[i, 0, c0]
+  k.sgr = sgr;
+  k.sgc = sgc;
+  k.nh = nh;
+  k.nr = nr;
+  k.cv = cv;
+  k.iv0 = min(K::BM, (L - l0 + 1) / 2);  // rows l0 + 2 i' < L
+  k.iv1 = min(K::BM, (L - l0) / 2);      // rows l0 + 1 + 2 i' < L
+  k.gs0 = quad_shift(k.gp);
+  k.f = f;
+  k.tid = threadIdx.x;
+  k.lane = lane;
+  k.wm0 = (warp % (RT / K::WM)) * K::WM;
+  k.wn0 = (warp / (RT / K::WM)) * K::WN;
+  k.zero();
+  run_ring(k, (nh + K::BK - 1) / K::BK);
+  k.finish(o + l0, soc, L - l0);
 }
 
 template <class T, class Kernel, class... Args>
@@ -774,8 +1091,8 @@ int legendre_tri_f32_info(int kind, int what) {
     case 0: return info<SynthTile>(synth_tri_3xtf32<false>, what);
     case 1: return info<AdjTile<true>>(adj_tri_3xtf32<true, false>, what);
     case 2: return info<AdjTile<false>>(adj_tri_3xtf32<false, false>, what);
-    case 3: return info<AdjParTile<true>>(adj_par_3xtf32<true, false>, what);
-    case 4: return info<AdjParTile<false>>(adj_par_3xtf32<false, false>, what);
+    case 3: return info<AdjParF32<true>>(adj_par_3xtf32<true, false>, what);
+    case 4: return info<AdjParF32<false>>(adj_par_3xtf32<false, false>, what);
     case 5: return info<SynthParTile<64>>(synth_par_3xtf32<64, false>, what);
     case 6: return info<SynthParTile<72>>(synth_par_3xtf32<72, false>, what);
     case 7: return info<SynthParTile<80>>(synth_par_3xtf32<80, false>, what);
@@ -810,16 +1127,15 @@ int legendre_adj_par_f32(const void* lam, const void* g, void* out, int L,
   auto* out_ = static_cast<float*>(out);
   const auto* ms_ = static_cast<const int*>(ms);
   const float f = flip ? -1.f : 1.f;
-  constexpr int BM = AdjParTile<true>::BM, BN = AdjParTile<true>::BN;
-  // zero tiles, then both parities' row tiles
-  const int ny = (L + BM - 1) / BM + 2 * (((L + 1) / 2 + BM - 1) / BM);
-  const dim3 grid((C + BN - 1) / BN, ny, M);
+  constexpr int RT = 2 * AdjParF32<true>::BM, BN = AdjParF32<true>::BN;
+  // zero tiles, then row tiles of both parities
+  const dim3 grid((C + BN - 1) / BN, (L + RT - 1) / RT + 1, M);
   if (sgr == 1)
-    return launch<AdjParTile<true>>(
+    return launch<AdjParF32<true>>(
         ms ? adj_par_3xtf32<true, true> : adj_par_3xtf32<true, false>, grid,
         stream, lam_, g_, out_, L, nr, C, sgm, sgr, sgc, som, soc, ms_, f);
   if (sgc == 1)
-    return launch<AdjParTile<false>>(
+    return launch<AdjParF32<false>>(
         ms ? adj_par_3xtf32<false, true> : adj_par_3xtf32<false, false>,
         grid, stream, lam_, g_, out_, L, nr, C, sgm, sgr, sgc, som, soc, ms_,
         f);

@@ -35,8 +35,8 @@
 // is not padded (every reader of a table, lsel_table and the m-sharded
 // slabs, sees the logical (L, L, nr) tensor).
 //
-// The dense synthesis and the parity adjoint keep every operand tile that
-// the MMAs read in bf16 in shared memory and load its fragments with
+// The dense pair and the parity adjoint keep every operand tile that the
+// MMAs read in bf16 in shared memory and load its fragments with
 // ldmatrix.x4 (.trans for the synthesis table, whose unit stride is on j).
 // Their raw copies go DEPTH stages ahead into a landing ring; once a stage
 // has landed, one staging pass writes its bf16 tiles, which the MMAs of that
@@ -68,15 +68,28 @@
 //   the table of parity p, so that the k axes agree.  Shared memory: table 3
 //   x 20 KB, landing 2 x 2 x 64 x 36 float32 (33 x 68 with unit stride on
 //   c), U+- 2 x 5 KB: 106.0 / 105.1 KB, two blocks an SM.
-// The dense adjoint and the parity synthesis (block_gemm, the first version
-// of this file): the table tile is read from global memory into registers
-// (2 bytes a lane) before the MMAs of the stage two ahead of it and stored
-// to shared memory as float32 after them; the float32 operand keeps the
-// 4-byte cp.async copies of legendre_tri.cu; fragments are packed from
-// float32 shared memory (cvt.rn.bf16x2 at each fragment read); each 32-deep
-// stage sums into fresh accumulators, added to float32 sums in registers.
-// Tiles: adjoint i = l (64 from l = m), j = c (128), k = r; parity synthesis
-// i = c (128), j = r (40), k = l by parity; a ring of 3 float32 stages.
+// - Dense adjoint: the parity adjoint's block without the fold (DENSE): both
+//   groups of 128 rows l = l0 + p + 2 i' (a group's rows are 2 nr values
+//   apart, one 4-byte alignment) for 64 columns, k = r over all nr rings,
+//   U_p = bf16(g_n) staged over each group's rings, 88.0 / 87.5 KB, two
+//   blocks an SM.  The output sets the bound (at nr 65 the l < m zeros alone
+//   are 42% of the bytes), and an H100 writes the (C, M, L) output near
+//   its memset rate only when a warp sweeps a column's row l = 0 .. L in one
+//   go: in 128- or 256-float pieces, as separate zero blocks and row tiles
+//   write it, the same bytes take 1.5-2.2x as long (PERF.md).  So the first
+//   row tile of each row m writes the zeros of l < m itself, each column's
+//   right before its run of sums, in 16-byte stores, and there are no zero
+//   blocks.  Tried and slower: a long-lived block walking 128-row tiles of
+//   one row m (its stores in pieces), and tiles of 2 x 256 rows by 32
+//   columns (the table read 8 times at C 256, copies one stage ahead).
+// The parity synthesis (block_gemm, the first version of this file): the
+// table tile is read from global memory into registers (2 bytes a lane)
+// before the MMAs of the stage two ahead of it and stored to shared memory
+// as float32 after them; the float32 batch keeps the 4-byte cp.async copies
+// of legendre_tri.cu; fragments are packed from float32 shared memory
+// (cvt.rn.bf16x2 at each fragment read); each 32-deep stage sums into fresh
+// accumulators, added to float32 sums in registers.  Tile i = c (128), j =
+// r (40), k = l by parity; a ring of 3 float32 stages.
 // Every launch goes to the caller's stream; each entry point returns the
 // CUDA error code so that a refused launch reaches the wrapper.
 
@@ -184,8 +197,35 @@ __device__ __forceinline__ int degree(const int* ms, int i) {
   return SLAB ? __ldg(ms + i) : i;
 }
 
+// The float offset (0 to 3) of p within its 16 bytes
+__device__ __forceinline__ int quad_shift(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// dst[j] = src[quad_shift(dst) + j] for j < n (src 16-byte aligned in
+// shared memory), or 0 where src is null, by one warp: 16-byte stores
+// along the run, 4-byte ones at its two ends
+__device__ __forceinline__ void store_run(float* dst, const float* src, int n,
+                                          int lane) {
+  const int s = quad_shift(dst);
+  float* base = dst - s;  // 16-byte aligned
+  for (int q = lane; 4 * q < s + n; q += 32) {
+    const float4 v = src ? *reinterpret_cast<const float4*>(src + 4 * q)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int j = 4 * q - s;  // the run's element at base[4 q]
+    if (j >= 0 && j + 4 <= n) {
+      *reinterpret_cast<float4*>(base + 4 * q) = v;
+    } else {
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+        if (j + d >= 0 && j + d < n) base[4 * q + d] = e[d];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
-// the dense synthesis and the parity adjoint: bf16 tiles, ldmatrix
+// the dense pair and the parity adjoint: bf16 tiles, ldmatrix
 // ---------------------------------------------------------------------------
 
 // The ring: stage s's copies (K::issue) go K::DEPTH stages ahead into
@@ -366,8 +406,11 @@ struct SynthBf16 {
 // bf16 values apart and share one 4-byte alignment: the table tile of parity
 // p is copied in whole words straight into its bf16 rows, from ring k0 -
 // sh_p (sh_p = 1 where row l0 + p starts mid-word), and U_p is staged over
-// the same rings, so that the k axes agree.
-template <bool KUNIT>
+// the same rings, so that the k axes agree.  DENSE: the dense adjoint, the
+// same block without the fold: nh = nr rings, U_p = bf16(g_n) for both
+// groups p of rows (l - l0 even, odd), no south rings, and the epilogue's
+// runs of l in 16-byte stores.
+template <bool KUNIT, bool DENSE = false>
 struct AdjParBf16 {
   static constexpr int BM = 128;                 // rows of each parity
   static constexpr int BN = 64, BK = 32, THREADS = 256, DEPTH = 2;
@@ -378,7 +421,7 @@ struct AdjParBf16 {
   static constexpr int GW = KUNIT ? GR + 3 : BN + 4;  // floats a landed g row
   static constexpr int GCH = GW / 4;             // [c][ring] (KUNIT) : [ring][c]
   static constexpr int G_TILE = (KUNIT ? BN : GR) * GW;  // floats
-  static constexpr int G_SLOT = 2 * G_TILE * 4;  // north, south
+  static constexpr int G_SLOT = (DENSE ? 1 : 2) * G_TILE * 4;  // north, south
   static constexpr int G_OFF = (DEPTH + 1) * A_STAGE;
   static constexpr int U_OFF = G_OFF + DEPTH * G_SLOT;
   static constexpr int U_TILE = BN * SA * 2;     // U_p [c][ring]
@@ -441,15 +484,17 @@ struct AdjParBf16 {
           const int c = e / GCH, j = e - c * GCH;
         const float* col = gp + c * sgc;
         copy_chunk(gn + c * GW * 4, col + nlo, c < cv ? 4 * nv : 0, j);
-        copy_chunk(gs + c * GW * 4, col + slo, c < cv ? 4 * sv : 0, j);
+        if constexpr (!DENSE)
+          copy_chunk(gs + c * GW * 4, col + slo, c < cv ? 4 * sv : 0, j);
       }
     } else {
       for (int e = tid; e < GR * GCH; e += THREADS) {
           const int t = e / GCH, j = e - t * GCH, r = k0 - 1 + t;
         copy_chunk(gn + t * GW * 4, gp + r * sgr,
                    r >= 0 && r < nh ? 4 * cv : 0, j);
-        copy_chunk(gs + t * GW * 4, gp + (nr - 1 - r) * sgr,
-                   r >= 0 && r < nr / 2 ? 4 * cv : 0, j);
+        if constexpr (!DENSE)
+          copy_chunk(gs + t * GW * 4, gp + (nr - 1 - r) * sgr,
+                     r >= 0 && r < nr / 2 ? 4 * cv : 0, j);
       }
     }
   }
@@ -478,20 +523,22 @@ struct AdjParBf16 {
         const int t = 2 * q + d, r = k0 - 1 + t;
         if constexpr (KUNIT) {
           vn[d] = r >= 0 ? gn[c * GW + gshift(c, nlo) + r - nlo] : 0.f;
-          vs[d] = r >= 0 && r < nr / 2
+          vs[d] = !DENSE && r >= 0 && r < nr / 2
                       ? gs[c * GW + gshift(c, slo) + nr - 1 - r - slo]
                       : 0.f;
         } else {
           vn[d] = gn[t * GW + gshift(0, r) + c];
-          vs[d] = gs[t * GW + gshift(0, nr - 1 - r) + c];
+          vs[d] = DENSE ? 0.f : gs[t * GW + gshift(0, nr - 1 - r) + c];
         }
       }
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
         const float sg = p ? -f : f;
         const bool o = !(p ? sh1 : sh0);  // ring k0 - sh_p + 2 q at d = o
-        const float lo = o ? vn[1] + sg * vs[1] : vn[0] + sg * vs[0];
-        const float hi = o ? vn[2] + sg * vs[2] : vn[1] + sg * vs[1];
+        const float lo = DENSE ? (o ? vn[1] : vn[0])
+                               : o ? vn[1] + sg * vs[1] : vn[0] + sg * vs[0];
+        const float hi = DENSE ? (o ? vn[2] : vn[1])
+                               : o ? vn[2] + sg * vs[2] : vn[1] + sg * vs[1];
         *reinterpret_cast<uint32_t*>(sm + U_OFF + p * U_TILE +
                                      (c * SA + 2 * q) * 2) =
             pack_bf16(lo, hi);
@@ -534,8 +581,11 @@ struct AdjParBf16 {
   }
 
   // out[c * soc + l - l0] for c < cv, l - l0 < lv, through shared memory
-  // [c][l - l0]
-  __device__ __forceinline__ void finish(float* out, long long soc, int lv) {
+  // [c][l - l0] (DENSE: each row shifted to its run's 16-byte alignment,
+  // then whole runs along l, a warp a column, each right after the column's
+  // zeros at out[c * soc - zeros ..])
+  __device__ __forceinline__ void finish(float* out, long long soc, int lv,
+                                         int zeros = 0) {
     float* f_ = reinterpret_cast<float*>(sm);
     const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
@@ -544,43 +594,51 @@ struct AdjParBf16 {
       for (int nt = 0; nt < NT; ++nt) {
         const int row = wm0 + mt * 16 + gid;        // rows gid + 8: l + 16
         const int l = row / BM + 2 * (row % BM), c = wn0 + nt * 8 + 2 * tig;
-        f_[c * SC + l] = acc[mt][nt][0];
-        f_[(c + 1) * SC + l] = acc[mt][nt][1];
-        f_[c * SC + l + 16] = acc[mt][nt][2];
-        f_[(c + 1) * SC + l + 16] = acc[mt][nt][3];
+        float* e0 = f_ + c * SC + l;
+        float* e1 = f_ + (c + 1) * SC + l;
+        if constexpr (DENSE) {
+          e0 += quad_shift(out + c * soc);
+          e1 += quad_shift(out + (c + 1) * soc);
+        }
+        e0[0] = acc[mt][nt][0];
+        e1[0] = acc[mt][nt][1];
+        e0[16] = acc[mt][nt][2];
+        e1[16] = acc[mt][nt][3];
       }
     __syncthreads();
-    for (int e = tid; e < BN * 2 * BM; e += THREADS) {
-      const int c = e / (2 * BM), l = e % (2 * BM);
-      if (c < cv && l < lv) out[c * soc + l] = f_[c * SC + l];
+    if constexpr (DENSE) {
+      for (int c = tid >> 5; c < cv; c += THREADS / 32) {
+        if (zeros > 0) store_run(out + c * soc - zeros, nullptr, zeros, lane);
+        store_run(out + c * soc, f_ + c * SC, min(2 * BM, lv), lane);
+      }
+    } else {
+      for (int e = tid; e < BN * 2 * BM; e += THREADS) {
+        const int c = e / (2 * BM), l = e % (2 * BM);
+        if (c < cv && l < lv) out[c * soc + l] = f_[c * SC + l];
+      }
     }
   }
 };
 
 // ---------------------------------------------------------------------------
-// the dense adjoint and the parity synthesis: the block GEMM of the first
-// version
+// the parity synthesis: the block GEMM of the first version
 // ---------------------------------------------------------------------------
 
-// Block tile BM x BN over k stages of BK, warp tiles WM x WN.  B_KUNIT: B's
-// unit stride is on k (tile stored [j][k]), else on j (stored [k][j]).  TAB:
-// the operand that is the bf16 table (1: A, the adjoint; 2: B, synthesis);
-// the other is float32.
-template <int BM_, int BN_, int BK_, int WM_, int WN_, bool B_KUNIT_,
-          int TAB_>
+// Block tile BM x BN over k stages of BK, warp tiles WM x WN: A the float32
+// batch [i][k] (k by parity, parity_slot), B the bf16 table [k][j] (rows k
+// by parity), held as float32 in shared memory.
+template <int BM_, int BN_, int BK_, int WM_, int WN_>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_;
-  static constexpr bool B_KUNIT = B_KUNIT_;
-  static constexpr int TAB = TAB_;
   static constexpr int STAGES = 3;
   static constexpr int WARPS_M = BM / WM;
   static constexpr int WARPS = WARPS_M * (BN / WN);
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int MT = WM / 16, NT = WN / 8;
   static constexpr int SA = BK + 8;                       // A [i][k]
-  static constexpr int SB = B_KUNIT ? BK + 8 : BN + 4;
+  static constexpr int SB = BN + 4;                       // B [k][j]
   static constexpr int A_TILE = BM * SA;
-  static constexpr int B_TILE = (B_KUNIT ? BN : BK) * SB;
+  static constexpr int B_TILE = BK * SB;
   static constexpr int STAGE = A_TILE + B_TILE;
   static constexpr int SC = BM + 4;                       // epilogue [j][i]
   static constexpr int FLOATS =
@@ -589,23 +647,21 @@ struct Tile {
   static_assert(BM % WM == 0 && BN % WN == 0 && WM % 16 == 0 && WN % 8 == 0 &&
                 BK % 32 == 0, "tile shape");
   static_assert(SA % 32 == 8 && SC % 8 == 4, "conflict-free fragment reads");
-  static_assert(B_KUNIT ? SB % 32 == 8 : (SB % 16 == 4 || SB % 16 == 12),
-                "conflict-free fragment reads");
-  static_assert(TAB == 1 || TAB == 2, "one operand is the table");
+  static_assert(SB % 16 == 4 || SB % 16 == 12, "conflict-free fragment reads");
 };
 
-// The place of k in a stage whose k axis is split by parity (the parity
-// synthesis): even k in the first half, odd k in the second.
+// The place of k in a stage whose k axis is split by parity: even k in the
+// first half, odd k in the second.
 template <int N>
 __device__ __forceinline__ int parity_slot(int k) {
   return (k & 1) * (N / 2) + (k >> 1);
 }
 
 // Copy a ROWS x U float32 tile, element (row, col) from src + row * rs +
-// col, to dst + row * LD + col; zeros where row >= rv or col >= cv.  Warp w
-// copies rows w, w + WARPS, ..., its lanes along the unit-stride axis.
-// PERM_COLS puts column k at parity_slot(k).
-template <int ROWS, int U, int LD, int WARPS, bool PERM_COLS = false>
+// col, to dst + row * LD + parity_slot(col); zeros where row >= rv or col >=
+// cv.  Warp w copies rows w, w + WARPS, ..., its lanes along the
+// unit-stride axis.
+template <int ROWS, int U, int LD, int WARPS>
 __device__ __forceinline__ void copy_tile(float* dst, const float* src,
                                           long long rs, int rv, int cv) {
   static_assert(ROWS % WARPS == 0, "whole rows per warp");
@@ -618,17 +674,18 @@ __device__ __forceinline__ void copy_tile(float* dst, const float* src,
     for (int q = 0; q < (U + 31) / 32; ++q) {
       const int col = lane + 32 * q;
       if (U % 32 != 0 && col >= U) continue;
-      cp_async4(dst + row * LD + (PERM_COLS ? parity_slot<U>(col) : col),
-                p + 32 * q, row < rv && col < cv);
+      cp_async4(dst + row * LD + parity_slot<U>(col), p + 32 * q,
+                row < rv && col < cv);
     }
     p += WARPS * rs;
   }
 }
 
 // A ROWS x U tile of the bf16 table held in registers between its load from
-// global memory and its store to shared memory (as float32), element (row,
-// col) from src + row * rs + col; zeros where row >= rv or col >= cv.  Warp
-// w holds rows w, w + WARPS, ..., its lanes along the row.
+// global memory and its store to shared memory (as float32, row k at
+// parity_slot(k)), element (row, col) from src + row * rs + col; zeros where
+// row >= rv or col >= cv.  Warp w holds rows w, w + WARPS, ..., its lanes
+// along the row.
 template <int ROWS, int U, int WARPS>
 struct TabRegs {
   static constexpr int RPW = ROWS / WARPS, QN = (U + 31) / 32;
@@ -651,7 +708,7 @@ struct TabRegs {
     }
   }
 
-  template <int LD, bool PERM_ROWS = false>
+  template <int LD>
   __device__ __forceinline__ void store(float* dst) const {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -661,62 +718,41 @@ struct TabRegs {
       for (int q = 0; q < QN; ++q) {
         const int col = lane + 32 * q;
         if (U % 32 != 0 && col >= U) continue;
-        dst[(PERM_ROWS ? parity_slot<ROWS>(row) : row) * LD + col] =
+        dst[parity_slot<ROWS>(row) * LD + col] =
             __uint_as_float(static_cast<uint32_t>(v[s][q]) << 16);
       }
     }
   }
 };
 
-// the table tile of a stage: A (BM x BK) for the adjoint, B (BK x BN,
-// [k][j]) for the synthesis
+// the table tile of a stage: B (BK x BN, [k][j])
 template <class T>
-using StageTab = TabRegs<T::TAB == 1 ? T::BM : T::BK,
-                         T::TAB == 1 ? T::BK : T::BN, T::WARPS>;
+using StageTab = TabRegs<T::BK, T::BN, T::WARPS>;
 
-// What the parity synthesis adds to a block GEMM (PAR 1; see block_gemm).
+// What the parity synthesis adds to a block GEMM (see block_gemm).
 struct ParArgs {
   float sgn;    // sign of the south rows
   float* out2;  // the south rows, row j at out2 - j so
   int jv2;      // south rows that exist (j < jv2)
 };
 
-// Stage k0 .. k0 + BK: the float32 operand by cp.async into shared memory,
-// the table operand into registers (tr; stored by store_tab).  A: iv x Kn,
-// A[i, k] at A[i * sa + k]; B: Kn x jv, B[k, j] at B[j * sb + k] if B_KUNIT
-// else B[k * sb + j].  PAR 1 stores k by parity (parity_slot).
-template <class T, int PAR>
-__device__ __forceinline__ void load_stage(float* sA, float* sB,
-                                           const void* A, long long sa,
-                                           int iv, const void* B,
-                                           long long sb, int jv, int k0,
-                                           int Kn, StageTab<T>& tr) {
-  if constexpr (T::TAB == 1) {
-    tr.load(static_cast<const uint16_t*>(A) + k0, sa, iv, Kn - k0);
-  } else {
-    copy_tile<T::BM, T::BK, T::SA, T::WARPS, PAR == 1>(
-        sA, static_cast<const float*>(A) + k0, sa, iv, Kn - k0);
-  }
-  if constexpr (T::TAB == 2) {
-    static_assert(!T::B_KUNIT, "the synthesis table is [k][j]");
-    tr.load(static_cast<const uint16_t*>(B) + k0 * sb, sb, Kn - k0, jv);
-  } else {
-    const float* Bf = static_cast<const float*>(B);
-    if constexpr (T::B_KUNIT)
-      copy_tile<T::BN, T::BK, T::SB, T::WARPS>(sB, Bf + k0, sb, jv, Kn - k0);
-    else
-      copy_tile<T::BK, T::BN, T::SB, T::WARPS>(sB, Bf + k0 * sb, sb, Kn - k0,
-                                               jv);
-  }
+// Stage k0 .. k0 + BK: the float32 batch by cp.async into shared memory, the
+// table into registers (tr; stored by store_tab).  A: iv x Kn, A[i, k] at
+// A[i * sa + k]; B: Kn x jv, B[k, j] at B[k * sb + j]; k by parity.
+template <class T>
+__device__ __forceinline__ void load_stage(float* sA, const float* A,
+                                           long long sa, int iv,
+                                           const uint16_t* B, long long sb,
+                                           int jv, int k0, int Kn,
+                                           StageTab<T>& tr) {
+  copy_tile<T::BM, T::BK, T::SA, T::WARPS>(sA, A + k0, sa, iv, Kn - k0);
+  tr.load(B + k0 * sb, sb, Kn - k0, jv);
 }
 
 // the registers of a stage's table tile into its shared-memory place
-template <class T, int PAR>
+template <class T>
 __device__ __forceinline__ void store_tab(float* st, const StageTab<T>& tr) {
-  if constexpr (T::TAB == 1)
-    tr.template store<T::SA>(st);
-  else
-    tr.template store<T::SB, PAR == 1>(st + T::A_TILE);
+  tr.template store<T::SB>(st + T::A_TILE);
 }
 
 // acc += the products of k16 steps KK0 .. KKN - 1 of one stage, whose first
@@ -754,7 +790,7 @@ __device__ __forceinline__ void mma_stage(const float* sA, const float* sB,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int ke = k + (e & 1) + 8 * (e >> 1);
-        v[e] = sB[T::B_KUNIT ? j * T::SB + ke : ke * T::SB + j];
+        v[e] = sB[ke * T::SB + j];
       }
       const uint32_t b[2] = {pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3])};
 #pragma unroll
@@ -764,42 +800,32 @@ __device__ __forceinline__ void mma_stage(const float* sA, const float* sB,
   }
 }
 
-// out[j * so + i] = sum_{k < Kn} A[i, k] B[k, j] for i < iv, j < jv, the
-// table operand in bf16, the other in float32 rounded to bf16 in the
-// fragments.  Each stage sums into fresh tensor-core accumulators, which
-// are then added to the running float32 sums.  PAR 1 (the parity
-// synthesis, pa): the sums over even k (SE) and over odd k (SO) are kept
-// apart (a stage holds its k by parity, so each k16 step is of one parity);
-// out[j so + i] = SE + SO and, for j < jv2, out2[-j so + i] = sgn (SE - SO).
-template <class T, int PAR = 0>
-__device__ __forceinline__ void block_gemm(const void* A, long long sa,
-                                           int iv, const void* B,
+// The parity synthesis' block GEMM: SE = sum over even k and SO = sum over
+// odd k < Kn of A[i, k] B[k, j], for i < iv, j < jv, the table operand in
+// bf16, the batch in float32 rounded to bf16 in the fragments; a stage holds
+// its k by parity, so each k16 step is of one parity.  Each stage sums into
+// fresh tensor-core accumulators, which are then added to the running
+// float32 sums.  out[j so + i] = SE + SO and, for j < jv2, out2[-j so + i]
+// = sgn (SE - SO).
+template <class T>
+__device__ __forceinline__ void block_gemm(const float* A, long long sa,
+                                           int iv, const uint16_t* B,
                                            long long sb, int jv, int Kn,
                                            float* out, long long so,
-                                           float* smem,
-                                           const ParArgs& pa = {}) {
-  constexpr int KH = T::BK / 32;  // PAR 1: the k16 steps of one parity
+                                           float* smem, const ParArgs& pa) {
+  constexpr int KH = T::BK / 32;  // the k16 steps of one parity
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int wm0 = (warp % T::WARPS_M) * T::WM;
   const int wn0 = (warp / T::WARPS_M) * T::WN;
 
-  float sum[T::MT][T::NT][4];
-  float sum2[PAR == 1 ? T::MT : 1][PAR == 1 ? T::NT : 1][4];
+  float sum[T::MT][T::NT][4], sum2[T::MT][T::NT][4];
 #pragma unroll
   for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) sum[mt][nt][q] = 0.f;
-  if constexpr (PAR == 1) {
-#pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) sum2[mt][nt][q] = 0.f;
-  }
+      for (int q = 0; q < 4; ++q) sum[mt][nt][q] = sum2[mt][nt][q] = 0.f;
 
   StageTab<T> tr;
   const int KT = (Kn + T::BK - 1) / T::BK;
@@ -807,9 +833,8 @@ __device__ __forceinline__ void block_gemm(const void* A, long long sa,
   for (int s = 0; s < T::STAGES - 1; ++s) {
     if (s < KT) {
       float* st = smem + s * T::STAGE;
-      load_stage<T, PAR>(st, st + T::A_TILE, A, sa, iv, B, sb, jv, s * T::BK,
-                         Kn, tr);
-      store_tab<T, PAR>(st, tr);
+      load_stage<T>(st, A, sa, iv, B, sb, jv, s * T::BK, Kn, tr);
+      store_tab<T>(st, tr);
     }
     cp_async_commit();
   }
@@ -819,8 +844,7 @@ __device__ __forceinline__ void block_gemm(const void* A, long long sa,
     const int nx = kt + T::STAGES - 1;
     float* stn = smem + (nx % T::STAGES) * T::STAGE;
     if (nx < KT)
-      load_stage<T, PAR>(stn, stn + T::A_TILE, A, sa, iv, B, sb, jv,
-                         nx * T::BK, Kn, tr);
+      load_stage<T>(stn, A, sa, iv, B, sb, jv, nx * T::BK, Kn, tr);
     cp_async_commit();
     const float* st = smem + (kt % T::STAGES) * T::STAGE;
     const int kv = Kn - kt * T::BK;
@@ -832,64 +856,47 @@ __device__ __forceinline__ void block_gemm(const void* A, long long sa,
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
     const bool full = kv >= T::BK && iv > T::BM - 16 && jv > T::BN - 8;
-    if constexpr (PAR == 1) {
-      // the even k: (kv + 1) / 2 of them hold data, the odd k kv / 2
-      const int se = kv >= T::BK ? KH : ((kv + 1) / 2 + 15) / 16;
-      const int so_ = kv >= T::BK ? KH : (kv / 2 + 15) / 16;
-      if (full)
-        mma_stage<T, false, 0, KH>(st, st + T::A_TILE, acc, wm0, wn0, gid,
-                                   tig, KH, iv, jv);
-      else
-        mma_stage<T, true, 0, KH>(st, st + T::A_TILE, acc, wm0, wn0, gid,
-                                  tig, se, iv, jv);
+    // the even k: (kv + 1) / 2 of them hold data, the odd k kv / 2
+    const int se = kv >= T::BK ? KH : ((kv + 1) / 2 + 15) / 16;
+    const int so_ = kv >= T::BK ? KH : (kv / 2 + 15) / 16;
+    if (full)
+      mma_stage<T, false, 0, KH>(st, st + T::A_TILE, acc, wm0, wn0, gid, tig,
+                                 KH, iv, jv);
+    else
+      mma_stage<T, true, 0, KH>(st, st + T::A_TILE, acc, wm0, wn0, gid, tig,
+                                se, iv, jv);
 #pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt)
+    for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < T::NT; ++nt)
+      for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            sum[mt][nt][q] += acc[mt][nt][q];
-            acc[mt][nt][q] = 0.f;
-          }
-      if (full)
-        mma_stage<T, false, KH, 2 * KH>(st, st + T::A_TILE, acc, wm0, wn0,
-                                        gid, tig, KH, iv, jv);
-      else
-        mma_stage<T, true, KH, 2 * KH>(st, st + T::A_TILE, acc, wm0, wn0,
-                                       gid, tig, so_, iv, jv);
+        for (int q = 0; q < 4; ++q) {
+          sum[mt][nt][q] += acc[mt][nt][q];
+          acc[mt][nt][q] = 0.f;
+        }
+    if (full)
+      mma_stage<T, false, KH, 2 * KH>(st, st + T::A_TILE, acc, wm0, wn0, gid,
+                                      tig, KH, iv, jv);
+    else
+      mma_stage<T, true, KH, 2 * KH>(st, st + T::A_TILE, acc, wm0, wn0, gid,
+                                     tig, so_, iv, jv);
 #pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt)
+    for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < T::NT; ++nt)
+      for (int nt = 0; nt < T::NT; ++nt)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) sum2[mt][nt][q] += acc[mt][nt][q];
-    } else {
-      if (full)
-        // every k16 step and every 16 x 8 tile holds data: no checks
-        mma_stage<T, false>(st, st + T::A_TILE, acc, wm0, wn0, gid, tig,
-                            T::BK / 16, iv, jv);
-      else
-        mma_stage<T, true>(st, st + T::A_TILE, acc, wm0, wn0, gid, tig,
-                           kv >= T::BK ? T::BK / 16 : (kv + 15) / 16, iv, jv);
-#pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) sum[mt][nt][q] += acc[mt][nt][q];
-    }
+        for (int q = 0; q < 4; ++q) sum2[mt][nt][q] += acc[mt][nt][q];
     // stage nx's table, loaded before the MMAs above, into its place (last
     // read in stage kt - 1, before this iteration's barrier)
-    if (nx < KT) store_tab<T, PAR>(stn, tr);
+    if (nx < KT) store_tab<T>(stn, tr);
   }
   cp_async_wait<0>();
   __syncthreads();
 
   // c0 (gid, 2 tig), c1 (gid, 2 tig + 1), c2 (gid + 8, 2 tig), c3 (gid + 8, 2 tig + 1)
-  // PAR 1: pass 0 the north rows SE + SO, pass 1 the south rows
-  // sgn (SE - SO)
+  // pass 0 the north rows SE + SO, pass 1 the south rows sgn (SE - SO)
 #pragma unroll
-  for (int pass = 0; pass < (PAR == 1 ? 2 : 1); ++pass) {
+  for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
     for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
@@ -897,13 +904,9 @@ __device__ __forceinline__ void block_gemm(const void* A, long long sa,
         const int i = wm0 + mt * 16 + gid, j = wn0 + nt * 8 + 2 * tig;
         float v[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if constexpr (PAR == 1)
-            v[q] = pass ? pa.sgn * (sum[mt][nt][q] - sum2[mt][nt][q])
-                        : sum[mt][nt][q] + sum2[mt][nt][q];
-          else
-            v[q] = sum[mt][nt][q];
-        }
+        for (int q = 0; q < 4; ++q)
+          v[q] = pass ? pa.sgn * (sum[mt][nt][q] - sum2[mt][nt][q])
+                      : sum[mt][nt][q] + sum2[mt][nt][q];
         smem[j * T::SC + i] = v[0];
         smem[(j + 1) * T::SC + i] = v[1];
         smem[j * T::SC + i + 8] = v[2];
@@ -917,7 +920,7 @@ __device__ __forceinline__ void block_gemm(const void* A, long long sa,
       const int j = e / T::BM, i = e % T::BM;
       if (i < iv && j < jn) o[j * jstep + i] = smem[j * T::SC + i];
     }
-    if (PAR == 1 && pass == 0) __syncthreads();
+    if (pass == 0) __syncthreads();
   }
 }
 
@@ -925,9 +928,7 @@ __device__ __forceinline__ void block_gemm(const void* A, long long sa,
 // the kernels
 // ---------------------------------------------------------------------------
 
-template <bool KUNIT>
-using AdjTile = Tile<64, 128, 32, 32, 32, KUNIT, 1>;
-using SynthParTile = Tile<128, 40, 32, 32, 40, false, 2>;
+using SynthParTile = Tile<128, 40, 32, 32, 40>;
 
 // grid (r tiles of BN, c tiles, row i): i = 0 (m = 0, the longest) first
 template <int BN, bool SLAB>
@@ -962,38 +963,50 @@ synth_tri_bf16(const uint16_t* __restrict__ lam, const float* __restrict__ x,
   k.finish(out + (static_cast<long long>(i) * nr + r0) * C + c0, C);    // out[i, r0, c0]
 }
 
-// grid (c tiles, ceil(L / BM) + 1, row i).  For row i of degree m the first
-// nz = ceil(m / BM) tiles y write the zeros of l < m, BM at a time down from
-// l = m; tile y >= nz computes l0 = m + (y - nz) BM .. l0 + BM; the rest
-// return at once.
+// grid (c tiles, ceil(L / 2 BM), row i): tile y computes the rows l0 = m +
+// 2 BM y .. l0 + 2 BM; tile 0 also writes the zeros of l < m, each column's
+// right before its run from l0, so that a warp writes the column's row
+// l = 0 .. l0 + 2 BM in one sweep; the rest return at once.
 template <bool KUNIT, bool SLAB>
-__global__ void __launch_bounds__(AdjTile<KUNIT>::THREADS, 2)
+__global__ void __launch_bounds__(AdjParBf16<KUNIT, true>::THREADS, 2)
 adj_tri_bf16(const uint16_t* __restrict__ lam, const float* __restrict__ g,
              float* __restrict__ out, int L, int nr, int C, long long sgm,
              long long sgr, long long sgc, long long som, long long soc,
              const int* __restrict__ ms) {
-  using T = AdjTile<KUNIT>;
-  extern __shared__ float smem[];
+  using K = AdjParBf16<KUNIT, true>;
+  constexpr int RT = 2 * K::BM;  // rows l a block
+  extern __shared__ __align__(16) unsigned char smem_u8[];
   const int i = blockIdx.z, m = degree<SLAB>(ms, i);
-  const int c0 = blockIdx.x * T::BN;
-  const int cv = min(T::BN, C - c0);
-  const int nz = (m + T::BM - 1) / T::BM;
-  float* o = out + i * som + c0 * soc;                                  // out[i, c0, 0]
-  if (static_cast<int>(blockIdx.y) < nz) {
-    const int hi = m - static_cast<int>(blockIdx.y) * T::BM;
-    const int lo = hi > T::BM ? hi - T::BM : 0;
-    for (int e = threadIdx.x; e < T::BN * T::BM; e += T::THREADS) {
-      const int j = e / T::BM, l = lo + e % T::BM;
-      if (j < cv && l < hi) o[j * soc + l] = 0.f;
-    }
-    return;
-  }
-  const int l0 = m + (static_cast<int>(blockIdx.y) - nz) * T::BM;
+  const int c0 = blockIdx.x * K::BN;
+  const int l0 = m + static_cast<int>(blockIdx.y) * RT;
   if (l0 >= L) return;  // uniform across the block
-  const uint16_t* A = lam + (static_cast<long long>(i) * L + l0) * nr;  // lam[i, l0, 0]
-  const float* B = g + i * sgm + c0 * sgc;                              // g[i, 0, c0]
-  block_gemm<T>(A, nr, min(T::BM, L - l0), B, KUNIT ? sgc : sgr, cv, nr,
-                o + l0, soc, smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* o = out + i * som + c0 * soc;                                  // out[i, c0, 0]
+  K k;
+  k.sm = smem_u8;
+  k.tab = reinterpret_cast<const unsigned char*>(
+      lam + (static_cast<long long>(i) * L + l0) * nr);                 // lam[i, l0, 0]
+  k.gp = g + i * sgm + c0 * sgc;                                        // g[i, 0, c0]
+  k.rowb = 2LL * nr;
+  k.sgr = sgr;
+  k.sgc = sgc;
+  k.nh = nr;
+  k.nr = nr;
+  k.cv = min(K::BN, C - c0);
+  k.iv0 = min(K::BM, (L - l0 + 1) / 2);  // rows l0 + 2 i' < L
+  k.iv1 = min(K::BM, (L - l0) / 2);      // rows l0 + 1 + 2 i' < L
+  k.sh0 = static_cast<int>((reinterpret_cast<uintptr_t>(k.tab) >> 1) & 1);
+  k.sh1 = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(k.tab + k.rowb) >> 1) & 1);
+  k.gs0 = quad_shift(k.gp);
+  k.f = 1.f;
+  k.tid = threadIdx.x;
+  k.lane = lane;
+  k.wm0 = (warp % (RT / K::WM)) * K::WM;
+  k.wn0 = (warp / (RT / K::WM)) * K::WN;
+  k.zero();
+  run_ring(k, (nr + K::BK) / K::BK);  // rings -1 .. nr - 1
+  k.finish(o + l0, soc, L - l0, blockIdx.y == 0 ? m : 0);
 }
 
 // The ring-parity modes, as in legendre_tri.cu: the table of the nh =
@@ -1023,8 +1036,7 @@ synth_par_bf16(const uint16_t* __restrict__ lam, const float* __restrict__ x,
   pa.sgn = f;
   pa.out2 = out + (static_cast<long long>(i) * nr + nr - 1 - r0) * C + c0;
   pa.jv2 = min(jv, nr / 2 - r0);  // rows r < nr / 2 have a south mirror
-  block_gemm<T, 1>(A, sxc, min(T::BM, C - c0), B, nh, jv, L - m, o, C, smem,
-                   pa);
+  block_gemm<T>(A, sxc, min(T::BM, C - c0), B, nh, jv, L - m, o, C, smem, pa);
 }
 
 // grid (c tiles, ceil(L / 2 BM) + 1, row i).  For row i of degree m the
@@ -1156,20 +1168,18 @@ int legendre_adj_tri_bf16(const void* lam, const void* g, void* out, int L,
   const auto* g_ = static_cast<const float*>(g);
   auto* out_ = static_cast<float*>(out);
   const auto* ms_ = static_cast<const int*>(ms);
-  if (sgr == 1) {
-    using T = AdjTile<true>;
-    const dim3 grid((C + T::BN - 1) / T::BN, (L + T::BM - 1) / T::BM + 1, M);
-    return launch<T>(ms ? adj_tri_bf16<true, true> : adj_tri_bf16<true, false>,
+  using K = AdjParBf16<true, true>;
+  constexpr int RT = 2 * K::BM;
+  const dim3 grid((C + K::BN - 1) / K::BN, (L + RT - 1) / RT, M);
+  if (sgr == 1)
+    return launch<K>(ms ? adj_tri_bf16<true, true> : adj_tri_bf16<true, false>,
                      grid, stream, lam_, g_, out_, L, nr, C, sgm, sgr, sgc,
                      som, soc, ms_);
-  }
-  if (sgc == 1) {
-    using T = AdjTile<false>;
-    const dim3 grid((C + T::BN - 1) / T::BN, (L + T::BM - 1) / T::BM + 1, M);
-    return launch<T>(
+  if (sgc == 1)
+    return launch<AdjParBf16<false, true>>(
         ms ? adj_tri_bf16<false, true> : adj_tri_bf16<false, false>, grid,
         stream, lam_, g_, out_, L, nr, C, sgm, sgr, sgc, som, soc, ms_);
-  }
+  return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1221,8 +1231,8 @@ int legendre_tri_bf16_info(int kind, int what) {
     case 1: return info<SynthBf16<96>>(synth_tri_bf16<96, false>, what);
     case 2: return info<SynthBf16<128>>(synth_tri_bf16<128, false>, what);
     case 3: return info<SynthBf16<144>>(synth_tri_bf16<144, false>, what);
-    case 4: return info<AdjTile<true>>(adj_tri_bf16<true, false>, what);
-    case 5: return info<AdjTile<false>>(adj_tri_bf16<false, false>, what);
+    case 4: return info<AdjParBf16<true, true>>(adj_tri_bf16<true, false>, what);
+    case 5: return info<AdjParBf16<false, true>>(adj_tri_bf16<false, false>, what);
     case 6: return info<SynthParTile>(synth_par_bf16<false>, what);
     case 7: return info<AdjParBf16<true>>(adj_par_bf16<true, false>, what);
     case 8: return info<AdjParBf16<false>>(adj_par_bf16<false, false>, what);

@@ -12,10 +12,11 @@ process of its own, in the order other, this, this, other, on one card,
 at L 513 in the state views the transforms pass: both dense kernels in
 float32 at C 256 and in float64 at C 16, nr 65 and 513; with bfloat16
 tables at C 256, the dense synthesis at nr 65, 83, 513 and 1023, the dense
-adjoint at nr 65, the parity synthesis at nr 513 and the parity adjoint at
-nr 513 and 1023; the float32 parity synthesis at nr 513, C 256 and 512,
-and nr 1023, C 256; the float64 parity synthesis at nr 513, C 16 and 32
-(parity kernels on half tables of ceil(nr / 2) rings); mean ms per call over
+adjoint at nr 65, 83 and 513, the parity synthesis at nr 513 and the parity
+adjoint at nr 513 and 1023; the float32 parity synthesis and parity
+adjoint at nr 513, C 256 and 512, and nr 1023, C 256; the float64 parity
+synthesis at nr 513, C 16 and 32 (parity kernels on half tables of
+ceil(nr / 2) rings); mean ms per call over
 ``--reps`` launches between CUDA events.  Prints the
 card's name and power limit, one JSON line per run, then one JSON line of
 the mean of each tree's two runs per shape and this tree's ratio to the
@@ -24,8 +25,9 @@ other's.  Needs a CUDA card.
 ``--variant NAME`` takes as OTHER_TREE a copy of this tree's package, in
 a temporary directory, with the text patches of VARIANTS[NAME] applied (a
 design variant of one kernel, or the kernel with a part compiled out,
-which computes a wrong result on purpose), and times only that kernel's
-SHAPES.
+which computes a wrong result on purpose: its copies, its MMAs or, for
+the bfloat16 dense adjoint, its stores alone), and times only that
+kernel's SHAPES.
 """
 
 import json
@@ -40,17 +42,33 @@ SHAPES = tuple((k, dt, C, nr) for dt, C, nr in (
     ("float32", 256, 65), ("float32", 256, 513), ("float64", 16, 65),
     ("float64", 16, 513)) for k in ("synth", "adj")) + tuple(
     ("synth", "bfloat16", 256, nr) for nr in (65, 83, 513, 1023)) + (
-    ("adj", "bfloat16", 256, 65), ("synth_par", "bfloat16", 256, 513),
+    ("adj", "bfloat16", 256, 65), ("adj", "bfloat16", 256, 83),
+    ("adj", "bfloat16", 256, 513), ("synth_par", "bfloat16", 256, 513),
     ("adj_par", "bfloat16", 256, 513), ("adj_par", "bfloat16", 256, 1023),
     ("synth_par", "float32", 256, 513), ("synth_par", "float32", 512, 513),
     ("synth_par", "float32", 256, 1023), ("synth_par", "float64", 16, 513),
-    ("synth_par", "float64", 32, 513))
+    ("synth_par", "float64", 32, 513), ("adj_par", "float32", 256, 513),
+    ("adj_par", "float32", 512, 513), ("adj_par", "float32", 256, 1023))
 L = 513
 
 _F32 = "gibbssampler_tpu_torch/csrc/legendre_tri.cu"
 _F64 = "gibbssampler_tpu_torch/csrc/legendre_tri_f64.cu"
+_BF16 = "gibbssampler_tpu_torch/csrc/legendre_tri_bf16.cu"
 _PY = "gibbssampler_tpu_torch/sht/legendre_kernels.py"
 _F32_TILES = "F32_PAR_SYNTH_TILES = (64, 72, 80, 88)"
+# the lines of the sources that the part-alone variants patch
+_RING_COPIES = "    if (kt + K::DEPTH < KT) k.issue(kt + K::DEPTH);"
+_F32_ADJ_MMA = "    if (rows > 48) mma_rows<4>(s, p);"
+# (the dense adjoint is the parity adjoint's block with DENSE true)
+_BF16_ADJ_STAGE = ("  __device__ __forceinline__ void stage(int s) {\n"
+                   "    if (s == 0) {")
+_BF16_ADJ_MMA = "    const bool odd = wm0 >= BM;  // the warp's parity"
+_BF16_NO_MMA = (_BF16, _BF16_ADJ_MMA, "    if (DENSE) return;\n" + _BF16_ADJ_MMA)
+_BF16_RUNS = "        store_run(out + c * soc, f_ + c * SC, min(2 * BM, lv), lane);"
+_BF16_NO_STORES = (_BF16, _BF16_RUNS, "        if (0)\n" + _BF16_RUNS)
+_BF16_ZEROS = ("        if (zeros > 0) store_run(out + c * soc - zeros, nullptr, "
+               "zeros, lane);")
+_BF16_NO_ZEROS = (_BF16, _BF16_ZEROS, _BF16_ZEROS.replace("zeros > 0", "0"))
 # name -> (the kernel's SHAPES: kernel, dtype; [(file, text, replacement)])
 VARIANTS = {
     # the float32 parity synthesis at one ring tile whatever nh is
@@ -76,6 +94,26 @@ VARIANTS = {
     # ... and with ring tiles of 4 warps at 32 columns
     "f64-par-4-warps": (("synth_par", "float64"), [
         (_F64, "return tc == 32 ? 6 : 8;", "return tc == 32 ? 4 : 8;")]),
+    # the float32 parity adjoint's copies and staging pass alone: no MMA
+    "f32-par-adj-copies-only": (("adj_par", "float32"), [
+        (_F32, _F32_ADJ_MMA, "    if (true) return;\n" + _F32_ADJ_MMA)]),
+    # its MMA path alone: no copies but a block's first DEPTH stages
+    "f32-par-adj-mma-only": (("adj_par", "float32"), [
+        (_F32, _RING_COPIES, _RING_COPIES.replace("if (", "if (0 && "))]),
+    # the bfloat16 dense adjoint's copies and staging pass alone
+    "bf16-adj-copies-only": (("adj", "bfloat16"), [
+        _BF16_NO_MMA, _BF16_NO_STORES, _BF16_NO_ZEROS]),
+    # its MMAs alone: no copies but a block's first DEPTH stages, no stores
+    "bf16-adj-mma-only": (("adj", "bfloat16"), [
+        (_BF16, _RING_COPIES, _RING_COPIES.replace("if (", "if (0 && ")),
+        _BF16_NO_STORES, _BF16_NO_ZEROS]),
+    # its stores alone: the zeros and the sums' runs, no copies but a
+    # block's first DEPTH stages, no staging pass, no MMA
+    "bf16-adj-stores-only": (("adj", "bfloat16"), [
+        (_BF16, _RING_COPIES, _RING_COPIES.replace("if (", "if (0 && ")),
+        (_BF16, _BF16_ADJ_STAGE, _BF16_ADJ_STAGE.replace(
+            "{\n", "{\n    if (DENSE) return;\n")),
+        _BF16_NO_MMA]),
 }
 
 

@@ -301,10 +301,15 @@ def test_cuda_slab_kernels_match_plain(cuda_device, dtype):
 # tile boundaries (nh 90: two tiles of 64; nh 178: three) at two column
 # tiles of 128 (C 200, 136), and the float64 synthesis' column tiles C 16,
 # 32 and 48 (a whole 32-column tile and a partial one) with its ring tiles
-# (nh 150: two tiles of 5 warps)
+# (nh 150: two tiles of 5 warps); then the float32 adjoint's tiles of 256
+# rows l (both parities) by 64 columns over 32-ring stages: L - m over three
+# row tiles with a last one of unequal parity counts (L 531) and over two
+# (L 300), a row tile of one row (L 257), C across column tiles (72, 130),
+# nh 33 (one ring past a stage, nr odd and even) and 32 (one whole stage)
 PAR_CARD_SHAPES = [(16, 12, 8), (37, 19, 10), (65, 65, 40), (64, 33, 17),
                    (33, 18, 1), (40, 179, 200), (40, 356, 136),
-                   (24, 66, 16), (37, 65, 32), (33, 300, 48)]
+                   (24, 66, 16), (37, 65, 32), (33, 300, 48),
+                   (531, 65, 72), (300, 66, 130), (257, 64, 64)]
 
 
 @pytest.mark.cuda
@@ -411,10 +416,17 @@ def test_f32_par_synth_tile_plan(nh):
 # the parity shapes; then nr 83 (one tile of 96) and 193 (two of 128) at a
 # partial column tile (C 200), nr just above the tile boundaries 128 (one
 # tile of 144), 144 (two of 80) and 80 (one of 96), the last at an L whose
-# rows split over two row tiles of the parity adjoint, unevenly by parity
+# rows split over two row tiles of the parity adjoint, unevenly by parity;
+# then the dense adjoint's tiles of 256 rows l (both groups of 128) by 64
+# columns over stages of 32 rings from ring -1: L - m over three row tiles
+# with a last one of unequal group counts (L 531) and over two (L 300), C
+# across column tiles (72, 130), nr 63 / 64 (the last ring in a second /
+# third stage) and 31 / 32 (one stage / two)
 BF16_CARD_SHAPES = PAR_CARD_SHAPES[:5] + [(97, 83, 200), (64, 193, 200),
                                       (40, 129, 16), (40, 145, 16),
-                                      (301, 81, 200)]
+                                      (301, 81, 200), (531, 63, 72),
+                                      (300, 64, 130), (130, 32, 8),
+                                      (129, 31, 16)]
 
 
 @pytest.mark.cuda
