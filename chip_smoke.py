@@ -6,7 +6,8 @@
                                        ASIS and PNCP slice and of one CG
                                        solve)
     python3 chip_smoke.py --f64-parts (only phases 1-2 and the float64
-                                       kernels' parts: see phase_f64_parts)
+                                       kernels' parts, dense and parity:
+                                       see phase_f64_parts)
 
 Phases, each reported on its own lines; any failure raises and exits
 non-zero:
@@ -168,8 +169,8 @@ non-zero:
    on the GL grid's 257 and HEALPix's 512 north rings (float32, C 256 and
    512) and at the CG shapes (float64, C 16 and 32), and a slab of each,
    timed beside the plain version and the dense kernel with the bound of
-   the half table, each synthesis with its launch (the float32 ring tile
-   or the float64 plan, shared memory, resident blocks an SM); (b) the
+   the half table, each kernel with its launch (the float32 synthesis'
+   ring tile, the float64 plans, shared memory, resident blocks an SM); (b) the
    full-grid transforms ring-split against dense
    on GL lmax 512 and HEALPix nside 256, spin 0 and 2, synthesis, adjoint
    and analysis: float32 at 128 chains (<= 1e-5), float64 at 8 (<= 1e-12),
@@ -191,7 +192,8 @@ non-zero:
    shapes, contiguous and in the main path's views, with the adjointness
    on the rounded batches; the parity pair at the GL grid's 257 and
    HEALPix's 512 north rings, flip and not, its synthesis against the
-   dense kernel on the mirrored table; a slab of each pair; each timed at
+   dense kernel on the mirrored table and timed beside it; a slab of each
+   pair; each timed at
    L 513, C 256 beside its plain version and torch.einsum on the
    bfloat16 tensors (cuBLAS), with the bound of the bfloat16 table, the
    float32 batch and output over 3.35 TB/s or the FLOPs over 989 TFLOP/s;
@@ -660,18 +662,20 @@ F64_PARTS = {"whole": 7, "table copies": 1, "batch copies": 2,
              "products": 4}
 
 
-# the float64 parity synthesis' shape in phase_f64_parts: the GL grid's
-# 513 rings (257 north) at the CG family's split spin-2 columns of 8 chains
+# the float64 parity kernels' shape in phase_f64_parts: the GL grid's 513
+# rings (257 north) at the CG family's split spin-2 columns of 8 chains;
+# the parity adjoint also at the columns of 4
 F64_PAR_PARTS = (LMAX + 1, 4 * CG_CHAINS)
 
 
 def phase_f64_parts(torch, lk, dev, card):
-    """Each float64 dense kernel at the F64_TIMED shapes and the parity
-    synthesis at F64_PAR_PARTS (L 513, the state views) built whole and
-    with one part alone: ms and the share of the whole call's bound that
-    each reaches, the builds in turn both ways in one process.  A part
-    alone computes a wrong result on purpose; the whole is held to the
-    plain version.  Returns {"kernel nr C": {part: ms}}."""
+    """Each float64 dense kernel at the F64_TIMED shapes, both parity
+    kernels at F64_PAR_PARTS and the parity adjoint at half its columns
+    (L 513, the state views), built whole and with one part alone: ms and
+    the share of the whole call's bound that each reaches, the builds in
+    turn both ways in one process.  A part alone computes a wrong result
+    on purpose; the whole is held to the plain version.  Returns {"kernel
+    nr C": {part: ms}}."""
     gen = torch.Generator(device=dev).manual_seed(0)
     f64, L = torch.float64, LMAX + 1
     defines = {p: () if v == 7 else (f"LEGENDRE_F64_PARTS={v}",)
@@ -679,20 +683,22 @@ def phase_f64_parts(torch, lk, dev, card):
     for d in defines.values():
         lk.build(d)
     res = {}
-    for nr, C, par in [(nr, C, False) for nr, C in F64_TIMED] + [
-            (*F64_PAR_PARTS, True)]:
+    nr_p, C_p = F64_PAR_PARTS
+    for nr, C, names in [(nr, C, ("synth_tri", "adj_tri"))
+                         for nr, C in F64_TIMED] + [
+            (nr_p, C_p, ("synth_par", "adj_par")),
+            (nr_p, C_p // 2, ("adj_par",))]:
+        par = names[0].endswith("_par")
         nt = (nr + 1) // 2 if par else nr
         lam = tri_table(torch, L, nt, f64, dev, gen)
         x = x_view(torch.randn((L, C, L), generator=gen, dtype=f64,
                                device=dev))
         g = g_view(torch.randn((L, nr, C), generator=gen, dtype=f64,
                                device=dev))
-        cases = ([("legendre_synth_par", lk.legendre_synth_par,
-                   lk.legendre_synth_par_plain, x, (nr,))] if par else
-                 [("legendre_synth_tri", lk.legendre_synth_tri,
-                   lk.legendre_synth_tri_plain, x, ()),
-                  ("legendre_adj_tri", lk.legendre_adj_tri,
-                   lk.legendre_adj_tri_plain, g, ())])
+        cases = [(f"legendre_{n}", getattr(lk, f"legendre_{n}"),
+                  getattr(lk, f"legendre_{n}_plain"),
+                  x if n.startswith("synth") else g,
+                  (nr,) if n == "synth_par" else ()) for n in names]
         for name, kern, plain, b, args in cases:
             lk.build()
             ref = plain(lam, b, *args)
@@ -2896,17 +2902,16 @@ def par_launch_config(lk, name, f32, nr, C):
     """The launch of a parity kernel at (nr, C): {"kind", "threads",
     "smem" (dynamic shared memory, bytes), "blocks_per_sm" (resident on
     this card)}: the float32 synthesis at its ring tile, the float32
-    adjoint with g's unit stride on r (as timed), the float64 synthesis'
-    plan; {} for the float64 adjoint."""
+    adjoint with g's unit stride on r (as timed), the float64 kernels'
+    plans (the adjoint's with g's unit stride on r)."""
     if f32:
         kind = (f"synth par tile {lk.f32_par_synth_tile((nr + 1) // 2)}"
                 if name == "legendre_synth_par" else "adj par unit-r g")
         return {"kind": kind, "threads": 256,
                 "smem": lk.f32_dynamic_smem()[kind],
                 "blocks_per_sm": lk.f32_blocks_per_sm()[kind]}
-    if name != "legendre_synth_par":
-        return {}
-    return {"kind": "synth par", **lk.f64_plan(nr, C)["synth par"]}
+    kind = "synth par" if name == "legendre_synth_par" else "adj par"
+    return {"kind": kind, **lk.f64_plan(nr, C)[kind]}
 
 
 # the parity kernels' shapes in the options phase (nr, C): float32 on the
@@ -3013,9 +3018,8 @@ def phase_parity_kernels(torch, lk, dev, card, lmax=LMAX, shapes=None):
                     "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": lib,
                     "dense_ms": ms_d, "dense_bound_ms": dense_bound, **cfg}
-                if cfg:
-                    print(f"{name} L={L} nr={nr} C={C} {dname}: launch "
-                          f"{cfg} [{card}]", flush=True)
+                print(f"{name} L={L} nr={nr} C={C} {dname}: launch {cfg} "
+                      f"[{card}]", flush=True)
                 # the slab form: the first slab of the two-way split
                 ls = half.index_select(0, idx).contiguous()
                 bs = (b.index_select(0, idx) if synth
@@ -3467,7 +3471,8 @@ def phase_bf16_kernels(torch, lk, dev, card):
     kernel is timed in the main path's views beside its plain version and
     torch.einsum on the bfloat16 tensors (cuBLAS), with the bound of
     work_bf16, the kernel's dynamic shared memory and its resident blocks
-    an SM.  Returns {kernel: {shape key: record}}."""
+    an SM; the parity synthesis also beside the dense synthesis on the
+    mirrored table ("dense_ms").  Returns {kernel: {shape key: record}}."""
     from gibbssampler_tpu_torch.parallel import m_rows
     gen = torch.Generator(device=dev).manual_seed(19)
     f32, f64, bf = torch.float32, torch.float64, torch.bfloat16
@@ -3566,6 +3571,17 @@ def phase_bf16_kernels(torch, lk, dev, card):
                           f"{flip} against the dense kernel on the mirrored "
                           f"table {derr:.3g}")
                     del out, dense
+                    if not flip:
+                        # the dense kernel on the mirrored table, timed
+                        # beside the parity kernel's record
+                        reps = 5 if nr > LMAX else 20
+                        r["dense_ms"] = 0.5 * sum(time_ms(
+                            torch, lambda t=mirrored: lk.legendre_synth_tri(
+                                t, b), reps) for _ in range(2))
+                        print(f"bf16 {name} nr={nr} C={C}: the dense "
+                              f"synthesis on the mirrored table "
+                              f"{r['dense_ms']:.4f} ms, the parity kernel "
+                              f"{r['ms']:.4f} ms [{card}]", flush=True)
                 if not flip:
                     rec.setdefault(name + "_bf16", {})[f"{nr} C{C}"] = r
                 del ref64, b16, mirrored
@@ -3593,10 +3609,12 @@ def phase_bf16_kernels(torch, lk, dev, card):
     smem, blocks = lk.bf16_dynamic_smem(), lk.bf16_blocks_per_sm()
     for name, by in rec.items():
         for key, r in by.items():
+            nr = int(str(key).split()[0])
             kind = {"legendre_synth_tri_bf16": "synth tile "
-                    f"{lk.bf16_synth_tile(int(str(key).split()[0]))}",
+                    f"{lk.bf16_synth_tile(nr)}",
                     "legendre_adj_tri_bf16": "adj unit-r g",
-                    "legendre_synth_par_bf16": "synth par",
+                    "legendre_synth_par_bf16": "synth par tile "
+                    f"{lk.bf16_par_synth_tile((nr + 1) // 2)}",
                     "legendre_adj_par_bf16": "adj par unit-r g"}[name]
             r.update(kind=kind, smem=smem[kind], blocks_per_sm=blocks[kind])
             print(f"bf16 {name} {key}: {kind}, {smem[kind]} bytes of "

@@ -35,18 +35,18 @@
 // is not padded (every reader of a table, lsel_table and the m-sharded
 // slabs, sees the logical (L, L, nr) tensor).
 //
-// The dense pair and the parity adjoint keep every operand tile that the
-// MMAs read in bf16 in shared memory and load its fragments with
-// ldmatrix.x4 (.trans for the synthesis table, whose unit stride is on j).
-// Their raw copies go DEPTH stages ahead into a landing ring; once a stage
-// has landed, one staging pass writes its bf16 tiles, which the MMAs of that
-// stage read (run_ring: two barriers a stage).  Float32 rows, and the
-// synthesis table's rows, are copied in whole 16-byte chunks (cp.async.cg)
-// from their start rounded down, and the staging pass reads each row from
-// its offset in its first chunk.  A k16 step loads its fragments, then runs
-// every 16 x 8 MMA of the warp tile: rows and columns past the data hold
-// zeros, and the MMAs cost less than branches around them (measured).  The
-// sums run in the MMA accumulators.
+// Every kernel keeps every operand tile that the MMAs read in bf16 in
+// shared memory and loads its fragments with ldmatrix.x4 (.trans for the
+// synthesis table, whose unit stride is on j).  The raw copies go DEPTH
+// stages ahead into a landing ring; once a stage has landed, one staging
+// pass writes its bf16 tiles, which the MMAs of that stage read (run_ring:
+// two barriers a stage).  Float32 rows, and the synthesis table's rows, are
+// copied in whole 16-byte chunks (cp.async.cg) from their start rounded
+// down, and the staging pass reads each row from its offset in its first
+// chunk.  A k16 step loads its fragments, then runs every 16 x 8 MMA of the
+// warp tile: rows and columns past the data hold zeros, and the MMAs cost
+// less than branches around them (measured).  The sums run in the MMA
+// accumulators.
 // - Dense synthesis: i = c (128), j = r (the ring tile BN: 80, 96, 128 or
 //   144, which the host picks from nr: the fewest tiles, since every ring
 //   tile reads the batch again, then the least padding; nr 65 and 83 take
@@ -55,6 +55,24 @@
 //   into place (a funnel shift of two landed words).  Shared memory: landing
 //   3 x (x 128 x 36 float32 + table 32 x (BN + 8) bf16), A 128 x 40 and B
 //   32 x (BN + 8) bf16: 86.0, 90.0, 98.0 and 102.0 KB, two blocks an SM.
+// - Parity synthesis: the dense synthesis' block (PAR) over the half
+//   table's nh north rings, at the ring tile 128 or 144 that the host picks
+//   from nh (fewest tiles, then the least padding: nh 257 takes 2 x 144, nh
+//   512 4 x 128).  The staging pass writes each stage's 32 rows k = l - m by
+//   class (even in the slots 0-15, odd in 16-31, the batch's bf16 pairs
+//   from rows k and k + 2), so that each k16 step is of one class.  Both
+//   classes of a 128 x BN tile are 2 x 72 fp32 sums a thread at 256
+//   threads, over the 128 registers of two blocks an SM, so the block has
+//   16 warps: two warp sets, one a class (warps 0-7 even, 8-15 odd), each
+//   warp 32 columns x BN / 2 rings of one class, as the dense synthesis'
+//   warps; one block an SM.  The epilogue parks both classes' tiles [r][c]
+//   in shared memory and writes north SE + SO and south f (SE - SO), a warp
+//   a row of the tile's columns in 16-byte stores (where the tile holds all
+//   C columns, its north rows are one span and its south rows one span
+//   backward by whole rows).  132.0 / 148.5 KB (the epilogue's two tiles).
+//   Measured and slower (PERF.md): 128 x 64 / 72 tiles of 8 warps, two
+//   blocks an SM (the batch staged twice as often), 256 x 64 / 72 and 64 x
+//   256 / 288 tiles of 16 warps.
 // - Parity adjoint: a block computes both parities of 256 rows l = l0 ..
 //   l0 + 255 (128 of even l - m, which read U+ = g_n + f g_s, and 128 of
 //   odd, which read U- = g_n - f g_s) for 64 columns, so the north and south
@@ -82,14 +100,6 @@
 //   blocks.  Tried and slower: a long-lived block walking 128-row tiles of
 //   one row m (its stores in pieces), and tiles of 2 x 256 rows by 32
 //   columns (the table read 8 times at C 256, copies one stage ahead).
-// The parity synthesis (block_gemm, the first version of this file): the
-// table tile is read from global memory into registers (2 bytes a lane)
-// before the MMAs of the stage two ahead of it and stored to shared memory
-// as float32 after them; the float32 batch keeps the 4-byte cp.async copies
-// of legendre_tri.cu; fragments are packed from float32 shared memory
-// (cvt.rn.bf16x2 at each fragment read); each 32-deep stage sums into fresh
-// accumulators, added to float32 sums in registers.  Tile i = c (128), j =
-// r (40), k = l by parity; a ring of 3 float32 stages.
 // Every launch goes to the caller's stream; each entry point returns the
 // CUDA error code so that a refused launch reaches the wrapper.
 
@@ -121,13 +131,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 4-byte asynchronous copy; !valid writes a zero and reads nothing
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
 }
 
 // 4-byte asynchronous copy of the first n (0, 2 or 4) bytes at src; zeros
@@ -224,6 +227,41 @@ __device__ __forceinline__ void store_run(float* dst, const float* src, int n,
   }
 }
 
+// dst[j] = sa (a[j] + sb b[j]) for j < n (a and b 16-byte aligned in shared
+// memory), by one warp: 16-byte stores along the run, 4-byte ones at its
+// two ends; 16-byte shared-memory loads where dst is 16-byte aligned
+__device__ __forceinline__ void store_mix(float* dst, const float* a,
+                                          const float* b, float sa, float sb,
+                                          int n, int lane) {
+  const int s = quad_shift(dst);
+  float* base = dst - s;  // 16-byte aligned
+  for (int q = lane; 4 * q < s + n; q += 32) {
+    const int j = 4 * q - s;  // the run's element at base[4 q]
+    float e[4];
+    if (s == 0 && j + 4 <= n) {
+      const float4 u = *reinterpret_cast<const float4*>(a + j);
+      const float4 v = *reinterpret_cast<const float4*>(b + j);
+      e[0] = sa * (u.x + sb * v.x);
+      e[1] = sa * (u.y + sb * v.y);
+      e[2] = sa * (u.z + sb * v.z);
+      e[3] = sa * (u.w + sb * v.w);
+    } else {
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        const int jd = min(max(j + d, 0), n - 1);
+        e[d] = sa * (a[jd] + sb * b[jd]);
+      }
+    }
+    if (j >= 0 && j + 4 <= n) {
+      *reinterpret_cast<float4*>(base + 4 * q) = make_float4(e[0], e[1], e[2], e[3]);
+    } else {
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+        if (j + d >= 0 && j + d < n) base[4 * q + d] = e[d];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // the dense pair and the parity adjoint: bf16 tiles, ldmatrix
 // ---------------------------------------------------------------------------
@@ -254,35 +292,48 @@ __device__ __forceinline__ void run_ring(K& k, int KT) {
   __syncthreads();
 }
 
-// The dense synthesis: out[i, r0 + j, c0 + ii] for a 128 x BN tile (ii = c,
-// j = r), k = l - m.
-template <int BN_>
+// The dense synthesis (PAR false): out[i, r0 + j, c0 + ii] for a BM x BN
+// tile (ii = c, j = r), k = l - m.  The parity synthesis (PAR): the same
+// tile over the half table's north rings, each stage's k rows stored by
+// class (even l - m in the slots [0, BK / 2), odd in [BK / 2, BK)), so
+// that each k16 step is of one class, and the sums of each class on a warp
+// set of its own (warps [0, WARPS / 2) even, the rest odd): 16 warps.
+template <int BN_, bool PAR = false>
 struct SynthBf16 {
-  static constexpr int BM = 128, BN = BN_, BK = 32, THREADS = 256, DEPTH = 3;
-  static constexpr int WM = 32, WN = BN / 2, MT = WM / 16, NT = WN / 8;
+  static constexpr int BM = 128, BN = BN_, BK = 32, DEPTH = 3;
+  static constexpr int WM = 32, WN = BN / 2;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static constexpr int SETS = PAR ? 2 : 1;       // warp sets: one a class
+  static constexpr int WARPS_M = BM / WM, WARPS = SETS * WARPS_M * (BN / WN);
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int MIN_BLOCKS = THREADS > 256 ? 1 : 2;
   static constexpr int XW = BK + 4;              // floats a landed x row
   static constexpr int XCH = XW / 4;             // ... in 16-byte chunks
   static constexpr int TCH = BN / 8 + 1;         // chunks a landed table row
   static constexpr int X_BYTES = BM * XW * 4;
   static constexpr int SLOT = X_BYTES + BK * TCH * 16;
-  static constexpr int SA = BK + 8, SB = BN + 8; // A [c][l], B [l][r] bf16
+  static constexpr int SA = BK + 8;              // A [c][l], B [l][r] bf16
+  static constexpr int SB = BN + (BN % 16 ? 16 : 8);
   static constexpr int A_OFF = DEPTH * SLOT, B_OFF = A_OFF + BM * SA * 2;
   static constexpr int MAIN = B_OFF + BK * SB * 2;
   static constexpr int SC = BM + 4;              // epilogue [r][c] float32
-  static constexpr int SMEM = MAIN > BN * SC * 4 ? MAIN : BN * SC * 4;
-  static_assert(WN % 8 == 0 && (SA / 8) % 2 == 1 && (SB / 8) % 2 == 1,
+  static constexpr int EPI = SETS * BN * SC * 4; // a tile for each class
+  static constexpr int SMEM = MAIN > EPI ? MAIN : EPI;
+  static_assert(WN % 8 == 0 && BN % WN == 0 && (SA / 8) % 2 == 1 &&
+                (SB / 8) % 2 == 1,
                 "tile shape; rows an odd number of 16 bytes apart keep "
                 "ldmatrix free of bank conflicts");
-  static_assert(BM * BK / 2 % THREADS == 0 && BK * BN / 2 % THREADS == 0,
-                "whole staging passes");
+  static_assert(BM * BK / 2 % THREADS == 0 && BK == 32,
+                "whole staging passes of the batch; one k16 step a class");
 
   unsigned char* sm;
   const float* x;            // x[i, c0, m]
   const unsigned char* tab;  // lam[i, m, r0]
   long long sxc, rowb;       // x's c stride; bytes from one table row to the next
-  int nr, iv, jv, Kn;
+  int nr, iv, jv, Kn;        // nr: the table's rings (nh for PAR)
   int xs0, ts0;              // x's address in floats mod 4, tab's in bf16 mod 8
   int tid, lane, wm0, wn0;
+  int cls;                   // PAR: the warp's class
   float acc[MT][NT][4];
 
   // where a landed row starts: x row c (floats), table row m + k (bf16)
@@ -291,6 +342,10 @@ struct SynthBf16 {
   }
   __device__ __forceinline__ int tshift(int k) const {
     return (ts0 + (k & 7) * (nr & 7)) & 7;
+  }
+  // the place of a stage's row k (PAR: by class)
+  static __device__ __forceinline__ int slot(int k) {
+    return PAR ? (k & 1) * (BK / 2) + (k >> 1) : k;
   }
 
   __device__ __forceinline__ void zero() {
@@ -304,52 +359,68 @@ struct SynthBf16 {
 
   // rows c of x[c, k0 ..] and rows m + k0 + k of the table's rings r0 ..
   __device__ __forceinline__ void issue(int s) {
-    unsigned char* slot = sm + (s % DEPTH) * SLOT;
+    unsigned char* slot_ = sm + (s % DEPTH) * SLOT;
     const int k0 = s * BK, kv = min(Kn - k0, BK);
     for (int e = tid; e < BM * XCH; e += THREADS) {
       const int c = e / XCH, j = e - c * XCH;
-      copy_chunk(slot + c * XW * 4, x + c * sxc + k0, c < iv ? 4 * kv : 0, j);
+      copy_chunk(slot_ + c * XW * 4, x + c * sxc + k0, c < iv ? 4 * kv : 0, j);
     }
     for (int e = tid; e < BK * TCH; e += THREADS) {
       const int k = e / TCH, j = e - k * TCH;
-      copy_chunk(slot + X_BYTES + k * TCH * 16, tab + (k0 + k) * rowb,
+      copy_chunk(slot_ + X_BYTES + k * TCH * 16, tab + (k0 + k) * rowb,
                  k < kv ? 2 * jv : 0, j);
     }
   }
 
-  // A: the batch, rounded to bf16 here and nowhere else; B: the table
+  // B row slot(k) <- table row k0 + k, shifted into place
+  __device__ __forceinline__ void stage_tab(const uint32_t* tl, int k0,
+                                            int e) {
+    const int k = e / (BN / 2), q = e % (BN / 2);
+    const int t = tshift(k0 + k);
+    const uint32_t* w = tl + k * TCH * 4 + (t >> 1) + q;
+    *reinterpret_cast<uint32_t*>(sm + B_OFF + (slot(k) * SB + 2 * q) * 2) =
+        __funnelshift_r(w[0], w[1], (t & 1) << 4);
+  }
+
+  // A: the batch, rounded to bf16 here and nowhere else (PAR: the pair of
+  // slots 2 q, 2 q + 1 holds rows 4 q' + p and 4 q' + p + 2 of class p =
+  // q / (BK / 4), q' = q % (BK / 4)); B: the table
   __device__ __forceinline__ void stage(int s) {
-    const unsigned char* slot = sm + (s % DEPTH) * SLOT;
-    const float* xl = reinterpret_cast<const float*>(slot);
-    const uint32_t* tl = reinterpret_cast<const uint32_t*>(slot + X_BYTES);
+    const unsigned char* slot_ = sm + (s % DEPTH) * SLOT;
+    const float* xl = reinterpret_cast<const float*>(slot_);
+    const uint32_t* tl = reinterpret_cast<const uint32_t*>(slot_ + X_BYTES);
 #pragma unroll
     for (int it = 0; it < BM * BK / 2 / THREADS; ++it) {
       const int e = tid + it * THREADS, c = e / (BK / 2), q = e % (BK / 2);
-      const float* v = xl + c * XW + xshift(c) + 2 * q;
+      const float* v = xl + c * XW + xshift(c);
+      const int k = PAR ? 4 * (q % (BK / 4)) + q / (BK / 4) : 2 * q;
       *reinterpret_cast<uint32_t*>(sm + A_OFF + (c * SA + 2 * q) * 2) =
-          pack_bf16(v[0], v[1]);
+          pack_bf16(v[k], v[k + (PAR ? 2 : 1)]);
     }
     const int k0 = s * BK;
+    if constexpr (BK * BN / 2 % THREADS == 0) {
 #pragma unroll
-    for (int it = 0; it < BK * BN / 2 / THREADS; ++it) {
-      const int e = tid + it * THREADS, k = e / (BN / 2), q = e % (BN / 2);
-      const int t = tshift(k0 + k);
-      const uint32_t* w = tl + k * TCH * 4 + (t >> 1) + q;
-      *reinterpret_cast<uint32_t*>(sm + B_OFF + (k * SB + 2 * q) * 2) =
-          __funnelshift_r(w[0], w[1], (t & 1) << 4);
+      for (int it = 0; it < BK * BN / 2 / THREADS; ++it)
+        stage_tab(tl, k0, tid + it * THREADS);
+    } else {
+      for (int e = tid; e < BK * BN / 2; e += THREADS) stage_tab(tl, k0, e);
     }
   }
 
-  // the k16 steps that hold data, every 16 x 8 tile of each: rows past iv
-  // and rings past jv hold zeros, and an MMA of zeros costs less than the
-  // branches that would skip it
+  // the k16 steps that hold data (PAR: the warp's class's one), every 16 x
+  // 8 tile of each: rows past iv and rings past jv hold zeros, and an MMA
+  // of zeros costs less than the branches that would skip it
   __device__ __forceinline__ void mma(int s) {
     const int kv = Kn - s * BK;
     const unsigned char* A = sm + A_OFF;
     const unsigned char* B = sm + B_OFF;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      if (kk * 16 >= kv) break;  // uniform across the block
+      if constexpr (PAR) {
+        if (kk != cls || kv <= cls) continue;  // uniform across the warp
+      } else {
+        if (kk * 16 >= kv) break;  // uniform across the block
+      }
       uint32_t a[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -377,9 +448,9 @@ struct SynthBf16 {
     }
   }
 
-  // out[r * C + c] for r < jv, c < iv, through shared memory [r][c]
-  __device__ __forceinline__ void finish(float* out, int C) {
-    float* f = reinterpret_cast<float*>(sm);
+  // the sums into shared memory [r][c] (PAR: the class's tile)
+  __device__ __forceinline__ float* park() {
+    float* f = reinterpret_cast<float*>(sm) + (PAR ? cls * BN * SC : 0);
     const int gid = lane >> 2, tig = lane & 3;
     // c0 (gid, 2 tig), c1 (gid, 2 tig + 1), c2 (gid + 8, 2 tig), c3 (gid + 8, 2 tig + 1)
 #pragma unroll
@@ -393,10 +464,34 @@ struct SynthBf16 {
         f[(r + 1) * SC + c + 8] = acc[mt][nt][3];
       }
     __syncthreads();
+    return reinterpret_cast<float*>(sm);
+  }
+
+  // out[r * C + c] for r < jv, c < iv, through shared memory [r][c]
+  __device__ __forceinline__ void finish(float* out, int C) {
+    const float* f = park();
     for (int e = tid; e < BN * BM; e += THREADS) {
       const int r = e / BM, c = e % BM;
       if (c < iv && r < jv)
         out[static_cast<long long>(r) * C + c] = f[r * SC + c];
+    }
+  }
+
+  // PAR: north row r < jv at out + r C, SE + SO; south row r < jv2 at
+  // outs - r C, f (SE - SO): a warp a row, each row's iv columns in one
+  // run (the tile's rows are contiguous where iv = C, and the south rows
+  // run backward by whole rows)
+  __device__ __forceinline__ void finish_par(float* out, float* outs, int C,
+                                             int jv2, float f) {
+    const float* se = park();
+    const float* so = se + BN * SC;
+    for (int row = tid >> 5; row < jv + jv2; row += WARPS) {
+      const bool south = row >= jv;
+      const int r = south ? row - jv : row;
+      store_mix(south ? outs - static_cast<long long>(r) * C
+                      : out + static_cast<long long>(r) * C,
+                se + r * SC, so + r * SC, south ? f : 1.f, south ? -1.f : 1.f,
+                iv, lane);
     }
   }
 };
@@ -621,314 +716,11 @@ struct AdjParBf16 {
 };
 
 // ---------------------------------------------------------------------------
-// the parity synthesis: the block GEMM of the first version
-// ---------------------------------------------------------------------------
-
-// Block tile BM x BN over k stages of BK, warp tiles WM x WN: A the float32
-// batch [i][k] (k by parity, parity_slot), B the bf16 table [k][j] (rows k
-// by parity), held as float32 in shared memory.
-template <int BM_, int BN_, int BK_, int WM_, int WN_>
-struct Tile {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_;
-  static constexpr int STAGES = 3;
-  static constexpr int WARPS_M = BM / WM;
-  static constexpr int WARPS = WARPS_M * (BN / WN);
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int MT = WM / 16, NT = WN / 8;
-  static constexpr int SA = BK + 8;                       // A [i][k]
-  static constexpr int SB = BN + 4;                       // B [k][j]
-  static constexpr int A_TILE = BM * SA;
-  static constexpr int B_TILE = BK * SB;
-  static constexpr int STAGE = A_TILE + B_TILE;
-  static constexpr int SC = BM + 4;                       // epilogue [j][i]
-  static constexpr int FLOATS =
-      STAGES * STAGE > BN * SC ? STAGES * STAGE : BN * SC;
-  static constexpr int SMEM = FLOATS * 4;
-  static_assert(BM % WM == 0 && BN % WN == 0 && WM % 16 == 0 && WN % 8 == 0 &&
-                BK % 32 == 0, "tile shape");
-  static_assert(SA % 32 == 8 && SC % 8 == 4, "conflict-free fragment reads");
-  static_assert(SB % 16 == 4 || SB % 16 == 12, "conflict-free fragment reads");
-};
-
-// The place of k in a stage whose k axis is split by parity: even k in the
-// first half, odd k in the second.
-template <int N>
-__device__ __forceinline__ int parity_slot(int k) {
-  return (k & 1) * (N / 2) + (k >> 1);
-}
-
-// Copy a ROWS x U float32 tile, element (row, col) from src + row * rs +
-// col, to dst + row * LD + parity_slot(col); zeros where row >= rv or col >=
-// cv.  Warp w copies rows w, w + WARPS, ..., its lanes along the
-// unit-stride axis.
-template <int ROWS, int U, int LD, int WARPS>
-__device__ __forceinline__ void copy_tile(float* dst, const float* src,
-                                          long long rs, int rv, int cv) {
-  static_assert(ROWS % WARPS == 0, "whole rows per warp");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* p = src + warp * rs + lane;
-#pragma unroll
-  for (int s = 0; s < ROWS / WARPS; ++s) {
-    const int row = warp + s * WARPS;
-#pragma unroll
-    for (int q = 0; q < (U + 31) / 32; ++q) {
-      const int col = lane + 32 * q;
-      if (U % 32 != 0 && col >= U) continue;
-      cp_async4(dst + row * LD + parity_slot<U>(col), p + 32 * q,
-                row < rv && col < cv);
-    }
-    p += WARPS * rs;
-  }
-}
-
-// A ROWS x U tile of the bf16 table held in registers between its load from
-// global memory and its store to shared memory (as float32, row k at
-// parity_slot(k)), element (row, col) from src + row * rs + col; zeros where
-// row >= rv or col >= cv.  Warp w holds rows w, w + WARPS, ..., its lanes
-// along the row.
-template <int ROWS, int U, int WARPS>
-struct TabRegs {
-  static constexpr int RPW = ROWS / WARPS, QN = (U + 31) / 32;
-  static_assert(ROWS % WARPS == 0, "whole rows per warp");
-  uint16_t v[RPW][QN];
-
-  __device__ __forceinline__ void load(const uint16_t* src, long long rs,
-                                       int rv, int cv) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int s = 0; s < RPW; ++s) {
-      const int row = warp + s * WARPS;
-#pragma unroll
-      for (int q = 0; q < QN; ++q) {
-        const int col = lane + 32 * q;
-        v[s][q] = (row < rv && col < cv && col < U)
-                      ? __ldg(src + row * rs + col)
-                      : static_cast<uint16_t>(0);
-      }
-    }
-  }
-
-  template <int LD>
-  __device__ __forceinline__ void store(float* dst) const {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int s = 0; s < RPW; ++s) {
-      const int row = warp + s * WARPS;
-#pragma unroll
-      for (int q = 0; q < QN; ++q) {
-        const int col = lane + 32 * q;
-        if (U % 32 != 0 && col >= U) continue;
-        dst[parity_slot<ROWS>(row) * LD + col] =
-            __uint_as_float(static_cast<uint32_t>(v[s][q]) << 16);
-      }
-    }
-  }
-};
-
-// the table tile of a stage: B (BK x BN, [k][j])
-template <class T>
-using StageTab = TabRegs<T::BK, T::BN, T::WARPS>;
-
-// What the parity synthesis adds to a block GEMM (see block_gemm).
-struct ParArgs {
-  float sgn;    // sign of the south rows
-  float* out2;  // the south rows, row j at out2 - j so
-  int jv2;      // south rows that exist (j < jv2)
-};
-
-// Stage k0 .. k0 + BK: the float32 batch by cp.async into shared memory, the
-// table into registers (tr; stored by store_tab).  A: iv x Kn, A[i, k] at
-// A[i * sa + k]; B: Kn x jv, B[k, j] at B[k * sb + j]; k by parity.
-template <class T>
-__device__ __forceinline__ void load_stage(float* sA, const float* A,
-                                           long long sa, int iv,
-                                           const uint16_t* B, long long sb,
-                                           int jv, int k0, int Kn,
-                                           StageTab<T>& tr) {
-  copy_tile<T::BM, T::BK, T::SA, T::WARPS>(sA, A + k0, sa, iv, Kn - k0);
-  tr.load(B + k0 * sb, sb, Kn - k0, jv);
-}
-
-// the registers of a stage's table tile into its shared-memory place
-template <class T>
-__device__ __forceinline__ void store_tab(float* st, const StageTab<T>& tr) {
-  tr.template store<T::SB>(st + T::A_TILE);
-}
-
-// acc += the products of k16 steps KK0 .. KKN - 1 of one stage, whose first
-// ksteps of these hold data.  EDGE: skip the 16 x 8 tiles that lie wholly
-// past iv or jv.
-template <class T, bool EDGE, int KK0 = 0, int KKN = T::BK / 16>
-__device__ __forceinline__ void mma_stage(const float* sA, const float* sB,
-                                          float (&acc)[T::MT][T::NT][4],
-                                          int wm0, int wn0, int gid, int tig,
-                                          int ksteps, int iv, int jv) {
-#pragma unroll
-  for (int kk = KK0; kk < KKN; ++kk) {
-    if (kk - KK0 >= ksteps) break;
-    uint32_t a[T::MT][4];
-#pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt) {
-      // a0 (gid, 2 tig..+1), a1 (gid + 8, ..), a2 (gid, 2 tig + 8..+9),
-      // a3 (gid + 8, 2 tig + 8..+9)
-      const float* p = sA + (wm0 + mt * 16 + gid) * T::SA + kk * 16 + 2 * tig;
-      const float2 v0 = *reinterpret_cast<const float2*>(p);
-      const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * T::SA);
-      const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
-      const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * T::SA + 8);
-      a[mt][0] = pack_bf16(v0.x, v0.y);
-      a[mt][1] = pack_bf16(v1.x, v1.y);
-      a[mt][2] = pack_bf16(v2.x, v2.y);
-      a[mt][3] = pack_bf16(v3.x, v3.y);
-    }
-#pragma unroll
-    for (int nt = 0; nt < T::NT; ++nt) {
-      if (EDGE && wn0 + nt * 8 >= jv) continue;  // uniform across the warp
-      // b0 (k = 2 tig..+1, j = gid), b1 (k = 2 tig + 8..+9, j = gid)
-      const int j = wn0 + nt * 8 + gid, k = kk * 16 + 2 * tig;
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ke = k + (e & 1) + 8 * (e >> 1);
-        v[e] = sB[ke * T::SB + j];
-      }
-      const uint32_t b[2] = {pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3])};
-#pragma unroll
-      for (int mt = 0; mt < T::MT; ++mt)
-        if (!EDGE || wm0 + mt * 16 < iv) mma_bf16(acc[mt][nt], a[mt], b);
-    }
-  }
-}
-
-// The parity synthesis' block GEMM: SE = sum over even k and SO = sum over
-// odd k < Kn of A[i, k] B[k, j], for i < iv, j < jv, the table operand in
-// bf16, the batch in float32 rounded to bf16 in the fragments; a stage holds
-// its k by parity, so each k16 step is of one parity.  Each stage sums into
-// fresh tensor-core accumulators, which are then added to the running
-// float32 sums.  out[j so + i] = SE + SO and, for j < jv2, out2[-j so + i]
-// = sgn (SE - SO).
-template <class T>
-__device__ __forceinline__ void block_gemm(const float* A, long long sa,
-                                           int iv, const uint16_t* B,
-                                           long long sb, int jv, int Kn,
-                                           float* out, long long so,
-                                           float* smem, const ParArgs& pa) {
-  constexpr int KH = T::BK / 32;  // the k16 steps of one parity
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm0 = (warp % T::WARPS_M) * T::WM;
-  const int wn0 = (warp / T::WARPS_M) * T::WN;
-
-  float sum[T::MT][T::NT][4], sum2[T::MT][T::NT][4];
-#pragma unroll
-  for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) sum[mt][nt][q] = sum2[mt][nt][q] = 0.f;
-
-  StageTab<T> tr;
-  const int KT = (Kn + T::BK - 1) / T::BK;
-#pragma unroll
-  for (int s = 0; s < T::STAGES - 1; ++s) {
-    if (s < KT) {
-      float* st = smem + s * T::STAGE;
-      load_stage<T>(st, A, sa, iv, B, sb, jv, s * T::BK, Kn, tr);
-      store_tab<T>(st, tr);
-    }
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<T::STAGES - 2>();  // stage kt has landed (this thread's copies)
-    __syncthreads();                 // ... and everyone's; stage kt - 1 is free
-    const int nx = kt + T::STAGES - 1;
-    float* stn = smem + (nx % T::STAGES) * T::STAGE;
-    if (nx < KT)
-      load_stage<T>(stn, A, sa, iv, B, sb, jv, nx * T::BK, Kn, tr);
-    cp_async_commit();
-    const float* st = smem + (kt % T::STAGES) * T::STAGE;
-    const int kv = Kn - kt * T::BK;
-    float acc[T::MT][T::NT][4];
-#pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-    const bool full = kv >= T::BK && iv > T::BM - 16 && jv > T::BN - 8;
-    // the even k: (kv + 1) / 2 of them hold data, the odd k kv / 2
-    const int se = kv >= T::BK ? KH : ((kv + 1) / 2 + 15) / 16;
-    const int so_ = kv >= T::BK ? KH : (kv / 2 + 15) / 16;
-    if (full)
-      mma_stage<T, false, 0, KH>(st, st + T::A_TILE, acc, wm0, wn0, gid, tig,
-                                 KH, iv, jv);
-    else
-      mma_stage<T, true, 0, KH>(st, st + T::A_TILE, acc, wm0, wn0, gid, tig,
-                                se, iv, jv);
-#pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          sum[mt][nt][q] += acc[mt][nt][q];
-          acc[mt][nt][q] = 0.f;
-        }
-    if (full)
-      mma_stage<T, false, KH, 2 * KH>(st, st + T::A_TILE, acc, wm0, wn0, gid,
-                                      tig, KH, iv, jv);
-    else
-      mma_stage<T, true, KH, 2 * KH>(st, st + T::A_TILE, acc, wm0, wn0, gid,
-                                     tig, so_, iv, jv);
-#pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) sum2[mt][nt][q] += acc[mt][nt][q];
-    // stage nx's table, loaded before the MMAs above, into its place (last
-    // read in stage kt - 1, before this iteration's barrier)
-    if (nx < KT) store_tab<T>(stn, tr);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // c0 (gid, 2 tig), c1 (gid, 2 tig + 1), c2 (gid + 8, 2 tig), c3 (gid + 8, 2 tig + 1)
-  // pass 0 the north rows SE + SO, pass 1 the south rows sgn (SE - SO)
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-#pragma unroll
-    for (int mt = 0; mt < T::MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt) {
-        const int i = wm0 + mt * 16 + gid, j = wn0 + nt * 8 + 2 * tig;
-        float v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          v[q] = pass ? pa.sgn * (sum[mt][nt][q] - sum2[mt][nt][q])
-                      : sum[mt][nt][q] + sum2[mt][nt][q];
-        smem[j * T::SC + i] = v[0];
-        smem[(j + 1) * T::SC + i] = v[1];
-        smem[j * T::SC + i + 8] = v[2];
-        smem[(j + 1) * T::SC + i + 8] = v[3];
-      }
-    __syncthreads();
-    float* o = pass ? pa.out2 : out;
-    const long long jstep = pass ? -so : so;
-    const int jn = pass ? pa.jv2 : jv;
-    for (int e = tid; e < T::BN * T::BM; e += T::THREADS) {
-      const int j = e / T::BM, i = e % T::BM;
-      if (i < iv && j < jn) o[j * jstep + i] = smem[j * T::SC + i];
-    }
-    if (pass == 0) __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------
 // the kernels
 // ---------------------------------------------------------------------------
 
-using SynthParTile = Tile<128, 40, 32, 32, 40>;
+// the parity synthesis' ring tiles (legendre_kernels.BF16_PAR_SYNTH_TILES)
+constexpr int kParTile0 = 128, kParTile1 = 144;
 
 // grid (r tiles of BN, c tiles, row i): i = 0 (m = 0, the longest) first
 template <int BN, bool SLAB>
@@ -1016,27 +808,44 @@ adj_tri_bf16(const uint16_t* __restrict__ lam, const float* __restrict__ g,
 //   adjoint    out[i, c, l] = sum_{r < nh} lam[i, l, r] (g[i, r, c]
 //              + f (-1)^(l-m) g[i, nr-1-r, c]),  0 for l < m.
 
-// grid (north ring tiles, c tiles, row i)
-template <bool SLAB>
-__global__ void __launch_bounds__(SynthParTile::THREADS, 2)
+// grid (north ring tiles of BN, c tiles of BM, row i)
+template <int BN, bool SLAB>
+__global__ void __launch_bounds__(SynthBf16<BN, true>::THREADS,
+                                  SynthBf16<BN, true>::MIN_BLOCKS)
 synth_par_bf16(const uint16_t* __restrict__ lam, const float* __restrict__ x,
                float* __restrict__ out, int L, int nr, int C, long long sxm,
                long long sxc, const int* __restrict__ ms, float f) {
-  using T = SynthParTile;
-  extern __shared__ float smem[];
+  using K = SynthBf16<BN, true>;
+  constexpr int SET = K::WARPS / 2;  // warps of a class
+  extern __shared__ __align__(16) unsigned char smem_u8[];
   const int i = blockIdx.z, m = degree<SLAB>(ms, i);
   const int nh = (nr + 1) / 2;
-  const int c0 = blockIdx.y * T::BM;
-  const int r0 = blockIdx.x * T::BN;
-  const int jv = min(T::BN, nh - r0);
-  const float* A = x + i * sxm + c0 * sxc + m;                          // x[i, c0, m]
-  const uint16_t* B = lam + (static_cast<long long>(i) * L + m) * nh + r0;  // lam[i, m, r0]
-  float* o = out + (static_cast<long long>(i) * nr + r0) * C + c0;      // out[i, r0, c0]
-  ParArgs pa{};
-  pa.sgn = f;
-  pa.out2 = out + (static_cast<long long>(i) * nr + nr - 1 - r0) * C + c0;
-  pa.jv2 = min(jv, nr / 2 - r0);  // rows r < nr / 2 have a south mirror
-  block_gemm<T>(A, sxc, min(T::BM, C - c0), B, nh, jv, L - m, o, C, smem, pa);
+  const int c0 = blockIdx.y * K::BM, r0 = blockIdx.x * BN;
+  const int warp = threadIdx.x >> 5;
+  K k;
+  k.sm = smem_u8;
+  k.x = x + i * sxm + c0 * sxc + m;                                     // x[i, c0, m]
+  k.tab = reinterpret_cast<const unsigned char*>(
+      lam + (static_cast<long long>(i) * L + m) * nh + r0);             // lam[i, m, r0]
+  k.sxc = sxc;
+  k.rowb = 2LL * nh;
+  k.nr = nh;
+  k.iv = min(K::BM, C - c0);
+  k.jv = min(BN, nh - r0);
+  k.Kn = L - m;
+  k.xs0 = static_cast<int>((reinterpret_cast<uintptr_t>(k.x) >> 2) & 3);
+  k.ts0 = static_cast<int>((reinterpret_cast<uintptr_t>(k.tab) >> 1) & 7);
+  k.tid = threadIdx.x;
+  k.lane = threadIdx.x & 31;
+  k.cls = warp / SET;
+  k.wm0 = (warp % SET % K::WARPS_M) * K::WM;
+  k.wn0 = (warp % SET / K::WARPS_M) * K::WN;
+  k.zero();
+  run_ring(k, (k.Kn + K::BK - 1) / K::BK);
+  // rows r < nr / 2 have a south mirror: the equator row once
+  k.finish_par(out + (static_cast<long long>(i) * nr + r0) * C + c0,    // out[i, r0, c0]
+               out + (static_cast<long long>(i) * nr + nr - 1 - r0) * C + c0,
+               C, max(min(k.jv, nr / 2 - r0), 0), f);
 }
 
 // grid (c tiles, ceil(L / 2 BM) + 1, row i).  For row i of degree m the
@@ -1118,6 +927,18 @@ int launch_synth(const void* lam, const void* x, void* out, int L, int nr,
                    nr, C, sxm, sxc, static_cast<const int*>(ms));
 }
 
+template <int BN>
+int launch_synth_par(const void* lam, const void* x, void* out, int L, int nr,
+                     int C, long long sxm, long long sxc, const void* ms,
+                     int M, float f, void* stream) {
+  using K = SynthBf16<BN, true>;
+  const dim3 grid(((nr + 1) / 2 + BN - 1) / BN, (C + K::BM - 1) / K::BM, M);
+  return launch<K>(ms ? synth_par_bf16<BN, true> : synth_par_bf16<BN, false>,
+                   grid, stream, static_cast<const uint16_t*>(lam),
+                   static_cast<const float*>(x), static_cast<float*>(out), L,
+                   nr, C, sxm, sxc, static_cast<const int*>(ms), f);
+}
+
 // what 0: dynamic shared memory (bytes); 1: resident blocks an SM (-1 if
 // the runtime refuses the query)
 template <class T, class Kernel>
@@ -1180,23 +1001,27 @@ int legendre_adj_tri_bf16(const void* lam, const void* g, void* out, int L,
         ms ? adj_tri_bf16<false, true> : adj_tri_bf16<false, false>, grid,
         stream, lam_, g_, out_, L, nr, C, sgm, sgr, sgc, som, soc, ms_);
   return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The ring-parity modes: lam (M, L, nh) over the nh = ceil(nr / 2) north
 // rings, x, g and the outputs as above over all nr rings; flip selects the
-// opposite reflection parity.
+// opposite reflection parity; tile: the synthesis' ring tile, 128 or 144
+// (legendre_kernels.bf16_par_synth_tile)
 int legendre_synth_par_bf16(const void* lam, const void* x, void* out, int L,
                             int nr, int C, long long sxm, long long sxc,
-                            const void* ms, int M, int flip, void* stream) {
-  using T = SynthParTile;
-  const int nh = (nr + 1) / 2;
-  const dim3 grid((nh + T::BN - 1) / T::BN, (C + T::BM - 1) / T::BM, M);
-  return launch<T>(ms ? synth_par_bf16<true> : synth_par_bf16<false>, grid,
-                   stream, static_cast<const uint16_t*>(lam),
-                   static_cast<const float*>(x), static_cast<float*>(out), L,
-                   nr, C, sxm, sxc, static_cast<const int*>(ms),
-                   flip ? -1.f : 1.f);
+                            const void* ms, int M, int flip, int tile,
+                            void* stream) {
+  const float f = flip ? -1.f : 1.f;
+  switch (tile) {
+    case kParTile0:
+      return launch_synth_par<kParTile0>(lam, x, out, L, nr, C, sxm, sxc, ms,
+                                         M, f, stream);
+    case kParTile1:
+      return launch_synth_par<kParTile1>(lam, x, out, L, nr, C, sxm, sxc, ms,
+                                         M, f, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int legendre_adj_par_bf16(const void* lam, const void* g, void* out, int L,
@@ -1222,9 +1047,9 @@ int legendre_adj_par_bf16(const void* lam, const void* g, void* out, int L,
 }
 
 // kind: 0-3 the dense synthesis at ring tiles 80, 96, 128, 144; 4 / 5 the
-// dense adjoint with unit stride on r / c; 6 the parity synthesis; 7 / 8 the
-// parity adjoint with unit stride on r / c.  what: 0 dynamic shared memory
-// (bytes), 1 resident blocks an SM.
+// dense adjoint with unit stride on r / c; 6 / 7 the parity synthesis at
+// ring tiles 128 / 144; 8 / 9 the parity adjoint with unit stride on r / c.
+// what: 0 dynamic shared memory (bytes), 1 resident blocks an SM.
 int legendre_tri_bf16_info(int kind, int what) {
   switch (kind) {
     case 0: return info<SynthBf16<80>>(synth_tri_bf16<80, false>, what);
@@ -1233,9 +1058,14 @@ int legendre_tri_bf16_info(int kind, int what) {
     case 3: return info<SynthBf16<144>>(synth_tri_bf16<144, false>, what);
     case 4: return info<AdjParBf16<true, true>>(adj_tri_bf16<true, false>, what);
     case 5: return info<AdjParBf16<false, true>>(adj_tri_bf16<false, false>, what);
-    case 6: return info<SynthParTile>(synth_par_bf16<false>, what);
-    case 7: return info<AdjParBf16<true>>(adj_par_bf16<true, false>, what);
-    case 8: return info<AdjParBf16<false>>(adj_par_bf16<false, false>, what);
+    case 6:
+      return info<SynthBf16<kParTile0, true>>(synth_par_bf16<kParTile0, false>,
+                                              what);
+    case 7:
+      return info<SynthBf16<kParTile1, true>>(synth_par_bf16<kParTile1, false>,
+                                              what);
+    case 8: return info<AdjParBf16<true>>(adj_par_bf16<true, false>, what);
+    case 9: return info<AdjParBf16<false>>(adj_par_bf16<false, false>, what);
     default: return -1;
   }
 }

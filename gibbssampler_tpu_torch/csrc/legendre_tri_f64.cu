@@ -18,10 +18,12 @@
 // The ring-parity mode (synth_par_f64, adj_par_f64; entry points
 // legendre_*_par_f64) is the one of legendre_tri.cu: a table over the
 // ceil(nr / 2) north rings, the sums over even and odd l - m kept apart and
-// mirrored into the south rings.  The synthesis runs on the fp64 tensor
-// cores (mma.sync m8n8k4), both classes' sums in its MMA accumulators, on
-// stages of consecutive degree rows stored by class; the adjoint is the
-// dense adjoint's block with every other degree row per stage.  Both are
+// mirrored into the south rings (synthesis) or g's south rings folded onto
+// the north ones (adjoint).  Both run on the fp64 tensor cores (mma.sync
+// m8n8k4) with both classes in one block: the synthesis keeps both
+// classes' sums in its MMA accumulators, on stages of consecutive degree
+// rows stored by class; the adjoint computes both classes of 128 rows l a
+// block on a run_ring of its own, g folded into U+- once a stage.  Both are
 // kernels of their own so that the dense ones keep their code.
 //
 // What bounds them: bytes.  The CG family calls them at C = 16 (8 chains x
@@ -77,13 +79,14 @@
 //   full table.
 // What bounds them now (PERF.md section 6 has the measurements;
 // chip_smoke.py --f64-parts times each part alone): no part alone.  At nr
-// 65, C 16 the table stream without the products, and the products without
-// the copies, each take 60-80% of the whole kernel's time (NVIDIA H100 80GB
-// HBM3, 700 W); the products read their operands from shared memory, 8
-// bytes a lane a load, so copies and products share its bandwidth and
-// overlap only in part.  The fp64 tensor cores (DMMA), whose fragments
-// read each operand once a warp, are the next step for them (the parity
-// synthesis takes it); TMA and wgmma are not used.
+// 65, C 16 the dense pair's table stream without the products, and the
+// products without the copies, each take 60-80% of the whole kernel's time
+// (NVIDIA H100 80GB HBM3, 700 W); their products read their operands from
+// shared memory, 8 bytes a lane a load, so copies and products share its
+// bandwidth and overlap only in part.  The fp64 tensor cores (DMMA), whose
+// fragments read each operand once a warp, are the next step for the dense
+// pair (both parity kernels take it, at 41-61% of their bound); TMA and
+// wgmma are not used.
 // Every launch goes to the caller's stream; each entry point returns
 // cudaGetLastError() so that a refused launch reaches the wrapper.
 //
@@ -143,6 +146,30 @@ __device__ __forceinline__ void cp_async16(double* dst, const double* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d),
                "l"(src));
+}
+
+// 16-byte asynchronous copy of the first n (0 to 16) bytes at src, zeros
+// for the rest; src and dst 16-byte aligned
+__device__ __forceinline__ void cp_async16n(void* dst, const void* src,
+                                            int n) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(d),
+               "l"(src), "r"(n));
+}
+
+// Chunk j of a row whose vb valid bytes start at p (8-byte aligned): the
+// row lands in whole 16-byte chunks from p rounded down, so that byte p + d
+// sits at dst + (p & 15) + d; the rest of a chunk reads as zeros, and a row
+// with no valid byte reads nothing.  The bytes before p that the first
+// chunk reads lie in the same allocation (CUDA allocations are aligned to
+// far more than 16 bytes) and are never used.
+__device__ __forceinline__ void copy_chunk(double* dst, const double* p,
+                                           int vb, int j) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const int sh = static_cast<int>(a & 15);
+  const int n = vb > 0 ? min(max(sh + vb - 16 * j, 0), 16) : 0;
+  cp_async16n(dst + 2 * j,
+              reinterpret_cast<const void*>(a - sh + (n ? 16 * j : 0)), n);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -663,11 +690,10 @@ synth_par_f64(const double* __restrict__ lam, const double* __restrict__ x,
 
 // The adjoint plan: ring chunks, the widest chunk, the table stage's row
 // stride, the threads of one ring group (kAdjRowsPerThread degree rows and
-// 8 columns each), dynamic shared memory; par: the parity mode's second
-// batch buffer (g's south rows) too.
+// 8 columns each), dynamic shared memory.
 struct AdjPlan {
   int nch, rcmax, rs, gk, group, smem;
-  __host__ __device__ AdjPlan(int nr, int tc, bool par = false) {
+  __host__ __device__ AdjPlan(int nr, int tc) {
     nch = (nr + kAdjChunk - 1) / kAdjChunk;
     if (nch < 1) nch = 1;
     rcmax = (nr + nch - 1) / nch;
@@ -675,7 +701,7 @@ struct AdjPlan {
     rs = (rcmax + 1) | 1;
     gk = rs;
     group = kAdjRows * (tc / CT);
-    smem = (kStages * ((par ? 2 : 1) * gk * tc + ((kAdjPass * rs + 1) & ~1)) +
+    smem = (kStages * (gk * tc + ((kAdjPass * rs + 1) & ~1)) +
             (kAdjGroups - 1) * group * kAdjRowsPerThread * CT) * 8;
   }
 };
@@ -828,157 +854,318 @@ adj_tri_f64(const double* __restrict__ lam, const double* __restrict__ g,
   }
 }
 
-// The ring-parity adjoint (see below): adj_tri_f64's block, with the
-// table's nt = ceil(nr / 2) north rings.  A block takes the degree rows
-// l_lo + 2 k of one class p (l - m even or odd, row stride 2 nt in the
-// table); every (row, class, pass) triple is a block, those past the
-// triangle exiting at once.  Each stage also copies g's south rows nr-1-r
-// (r < nr / 2; none for the equator) into a second buffer and adds them,
-// times f (-1)^p, to the north rows before the products.  Its own kernel,
-// so that the dense one keeps its code.
-template <int TC>
-__global__ void __launch_bounds__(kAdjMaxThreads, kAdjMinBlocks)
-adj_par_f64(const double* __restrict__ lam, const double* __restrict__ g,
-            double* __restrict__ out, int L, int nr, int C, long long sgm,
-            long long sgr, long long sgc, long long som, long long soc,
-            const int* __restrict__ ms, int M, double f) {
-  constexpr int G = kAdjGroups, RA = kAdjRowsPerThread;
-  constexpr int DS = 2;  // degrees from one row to the next
-  extern __shared__ __align__(16) double smem[];
-  const int nt = (nr + 1) / 2;  // the table's rings
-  const long long ld = static_cast<long long>(DS) * nt;  // its row stride
-  const AdjPlan pl(nt, TC, true);
-  const int RS = pl.rs, RC = pl.rcmax, GK = pl.gk, nch = pl.nch;
-  const int TS = (kAdjPass * RS + 1) & ~1;
-  const int GT = pl.group;
-  double* gbuf = smem;
-  double* tbuf = smem + kStages * GK * TC;
-  double* red = tbuf + kStages * TS;
-  double* gbuf2 = red + (G - 1) * GT * RA * CT;  // g's south rows
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int grp = tid / GT, t = tid % GT;
-  // (memory row i, degree m, class p, pass): pass-major over the rows
-  const int pass = blockIdx.x / (2 * M);
-  const int p = blockIdx.x / M % 2;
-  const int i = blockIdx.x % M;
-  const int m = degree(ms, i);
-  if (kAdjPass * pass >= (L - m - p + 1) / 2) return;  // uniform
-  const int l_lo = m + p + DS * kAdjPass * pass;
-  const int nrows = min(kAdjPass, (L - l_lo + 1) / 2);
-  const int c0 = blockIdx.y * TC;
-  const int c1 = min(C, c0 + TC);
-  double* out_m = out + i * som;
+// The ring-parity adjoint (adj_par_f64): out[i, c, l] = sum_{r < nt}
+// lam[i, l, r] U_p(l)[r, c], U+- = g[r] +- f g[nr-1-r] (r < nr / 2; the
+// equator ring of an odd nr alone), p(l) = (l - m) mod 2 choosing the sign;
+// zero for l < m.  On the fp64 tensor cores: mma.sync.m8n8k4 with M = rows
+// l, N = columns, K = rings.
+// - A block computes both classes of the rows l = l0 .. l0 + 2 BM (BM of
+//   each) for a tile of TC columns, so g's north and south rings are staged
+//   once for both, and streams k = r over the nt north rings in stages of
+//   KC rings through a run_ring of its own (copies DEPTH stages ahead, a
+//   staging pass, the products).
+// - The rows of one class are 2 nt doubles apart and share one 16-byte
+//   alignment: the table tile of class p goes by 16-byte cp.async straight
+//   into its slot (no staging pass), over the rings k0 - sh_p .. k0 - sh_p +
+//   KC (sh_p = 1 where row l0 + p starts at an odd double; its ring -1,
+//   which belongs to the row before, lands as zero).  Rows RS = KC + 4
+//   doubles apart: the lanes' A reads (8 rows x 4 rings) fill 16 bank pairs
+//   twice, the fewest.
+// - g lands in whole 16-byte chunks along its unit stride (north rings k0 -
+//   1 .. k0 + KC - 1 and their south mirrors); the staging pass forms U+-
+//   in fp64 (exact products, one rounding, as the plain version) once a
+//   stage for both classes, over the rings of each class's table tile, so
+//   that the k axes agree: U_p [c][j] at ring k0 - sh_p + j, RS apart too.
+// - Warps: four a class, each 16 rows (two m8 tiles) by all TC columns, so
+//   each k4 step loads 2 + TC / 8 operands for 2 TC / 8 DMMAs and each
+//   operand is read once a warp.
+// - 16 rings a stage, two in flight: 74.0 / 88.0 KB at 16 / 32 columns, two
+//   blocks an SM.  Measured and slower (PERF.md): 32-ring stages (256-byte
+//   row pieces, one block an SM), 32-row classes.
+// - The epilogue writes the rows of both classes as one run of l a column
+//   (through shared memory, each column shifted to its run's 16-byte
+//   alignment), a warp a column, in 16-byte stores; the row tile that
+//   starts at l = m writes each column's zeros of l < m right before its
+//   run, so that the column's row l = 0 .. l0 + 2 BM is one sweep.
+constexpr int kAdjParRows = 64;   // rows of each class a block
+constexpr int kAdjParRings = 16;  // rings a stage
+constexpr int kAdjParWarps = 8;   // four a class
+constexpr int kAdjParDepth = 2;   // stages in flight
 
-  if (pass == 0 && p == 0) {  // the zeros of l < m, this column tile, along l
-    for (int c = c0; c < c1; ++c)
-      for (int l = tid; l < m; l += nth) out_m[c * soc + l] = 0.0;
+// dst[j] = src[shift(dst) + j] for j < n (src 16-byte aligned in shared
+// memory), or 0 where src is null, by one warp: 16-byte stores along the
+// run, 8-byte ones at its two ends
+__device__ __forceinline__ void store_run(double* dst, const double* src,
+                                          int n, int lane) {
+  const int s = parity(dst);
+  double* base = dst - s;  // 16-byte aligned
+  for (int q = lane; 2 * q < s + n; q += 32) {
+    const double2 v = src ? *reinterpret_cast<const double2*>(src + 2 * q)
+                          : make_double2(0.0, 0.0);
+    const int j = 2 * q - s;  // the run's element at base[2 q]
+    if (j >= 0 && j + 2 <= n) {
+      *reinterpret_cast<double2*>(base + 2 * q) = v;
+    } else {
+      if (j >= 0 && j < n) base[2 * q] = v.x;
+      if (j + 1 >= 0 && j + 1 < n) base[2 * q + 1] = v.y;
+    }
+  }
+}
+
+// the ring of AdjParF64: stage s's copies (K::issue) go K::DEPTH stages
+// ahead; once they have landed, the staging pass (K::stage) forms the
+// stage's U+- and the products (K::mma) read them.  The first barrier of a
+// stage sees its copies landed and the products of the stage before done
+// (U+- free), the second U+- written (g's landing slot free again).
+template <class K>
+__device__ __forceinline__ void run_ring(K& k, int KT) {
+#pragma unroll
+  for (int s = 0; s < K::DEPTH; ++s) {
+    if (s < KT) k.issue(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<K::DEPTH - 1>();  // stage kt has landed (this thread's copies) ...
+    __syncthreads();                // ... and everyone's
+    k.stage(kt);
+    __syncthreads();
+    if (kt + K::DEPTH < KT) k.issue(kt + K::DEPTH);
+    cp_async_commit();
+    k.mma(kt);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// KUNIT: g with unit stride on r (else on c)
+template <int TC, bool KUNIT>
+struct AdjParF64 {
+  static constexpr int BM = kAdjParRows, KC = kAdjParRings;
+  static constexpr int DEPTH = kAdjParDepth, THREADS = 32 * kAdjParWarps;
+  static constexpr int WR = 2 * BM / kAdjParWarps;  // rows of a warp
+  static constexpr int MT = WR / 8, NT = TC / 8;
+  static constexpr int RS = KC + 4;             // table [p BM + i'][ring]
+  static constexpr int T_SLOT = 2 * BM * RS;    // doubles; DEPTH + 1 slots
+  static constexpr int GR = KC + 1;             // landed rings k0 - 1 ..
+  static constexpr int GW = KUNIT ? GR + 1 : TC + 2;  // doubles a landed g row
+  static constexpr int GCH = GW / 2;            // [c][ring] (KUNIT) : [ring][c]
+  static constexpr int G_TILE = (KUNIT ? TC : GR) * GW;  // north, south
+  static constexpr int G_OFF = (DEPTH + 1) * T_SLOT;
+  static constexpr int U_OFF = G_OFF + DEPTH * 2 * G_TILE;
+  static constexpr int MAIN = U_OFF + 2 * TC * RS;  // U_p [c][ring]
+  static constexpr int SO = 2 * BM + 4;         // epilogue [c][l - l0]
+  static constexpr int SMEM = 8 * (MAIN > TC * SO ? MAIN : TC * SO);
+  static constexpr int MIN_BLOCKS = SMEM <= 113 * 1024 ? 2 : 1;
+  static_assert(RS % 16 == 4 && GW % 2 == 0 && G_TILE % 2 == 0 &&
+                KC % 4 == 0 && WR % 8 == 0,
+                "conflict-free fragment reads; 16-byte chunks; k4 steps");
+
+  double* sm;
+  const double* tab;          // lam[i, l0, 0]
+  const double* gp;           // g[i, 0, c0]
+  long long rowd, sgr, sgc;   // doubles from one table row to the next; g's strides
+  int nh, nr, cv, iv0, iv1;   // iv0 / iv1: rows of even / odd l - m
+  int sh0, sh1, gs0;          // the classes' ring shifts; gp's address in doubles mod 2
+  double f;
+  int tid, lane, cls, wr0;    // the warp's class and first row in it
+  double acc[MT][NT][2];
+
+  // where a landed g row starts (doubles): from element e of column c
+  // (KUNIT), or of ring e (unit stride on c)
+  __device__ __forceinline__ int gshift(int c, int e) const {
+    return KUNIT ? (gs0 + (c & 1) * static_cast<int>(sgc & 1) + e) & 1
+                 : (gs0 + (e & 1) * static_cast<int>(sgr & 1)) & 1;
   }
 
-  const double* lam_b = lam + (static_cast<size_t>(i) * L + l_lo) * nt;
-  const double* g_m = g + i * sgm;
-  const bool r_unit = sgr <= sgc;  // copy g along its unit stride
-  const CopyLanes cl(RC, nth);
-  const int ns = nr / 2;  // the north rings r < ns have a mirror
-  auto issue = [&](int q) {
-    if (q < nch) {
-      const int r_lo = q * nt / nch, rc = (q + 1) * nt / nch - r_lo;
-      const int s = q % kStages;
-      if (kTableCopies)
-        stage_rows(tbuf + s * TS, lam_b + r_lo, ld, nrows, rc, RS, cl);
-      double* gs = gbuf + s * GK * TC;
-      double* gs2 = gbuf2 + s * GK * TC;
-      for (int i = tid; kBatchCopies && i < RC * TC; i += nth) {
-        const int k = r_unit ? i % RC : i / TC;
-        const int c = r_unit ? i / RC : i % TC;
-        if (k < rc && c0 + c < C) {
-          cp_async8(gs + c * GK + k, g_m + (r_lo + k) * sgr + (c0 + c) * sgc);
-          if (r_lo + k < ns)
-            cp_async8(gs2 + c * GK + k,
-                      g_m + (nr - 1 - r_lo - k) * sgr + (c0 + c) * sgc);
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) acc[mt][n][0] = acc[mt][n][1] = 0.0;
+  }
+
+  // each class's table rows over its rings k0 - sh_p ..; north g[r, c] and
+  // south g[nr - 1 - r, c] for r = k0 - 1 .. k0 + KC - 1 (KUNIT: each
+  // column's memory rings, the south ones in reverse)
+  __device__ __forceinline__ void issue(int s) {
+    const int k0 = s * KC;
+    if (kTableCopies) {
+      double* T = sm + (s % (DEPTH + 1)) * T_SLOT;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int ivp = p ? iv1 : iv0, shp = p ? sh1 : sh0;
+        for (int e = tid; e < BM * KC / 2; e += THREADS) {
+          const int ip = e / (KC / 2), w = e % (KC / 2);
+          const int r = k0 - shp + 2 * w;  // the pair's first ring
+          const double* src = tab + (p + 2LL * ip) * rowd + r;
+          double* dst = T + (p * BM + ip) * RS + 2 * w;
+          if (ip >= ivp || r >= nh) {  // zeros, from an aligned address
+            cp_async16n(dst, tab - parity(tab), 0);
+          } else if (r < 0) {  // ring -1 is the row before's: a zero
+            cp_async8z(dst, src, false);
+            cp_async8z(dst + 1, src + 1, true);
+          } else {
+            cp_async16n(dst, src, r + 1 < nh ? 16 : 8);
+          }
         }
       }
     }
-    cp_async_commit();
-  };
+    if (kBatchCopies) {
+      double* gn = sm + G_OFF + (s % DEPTH) * 2 * G_TILE;
+      double* gs = gn + G_TILE;
+      if constexpr (KUNIT) {
+        const int nlo = max(k0 - 1, 0), nv = max(min(nh, k0 + KC) - nlo, 0);
+        const int slo = max(nr - k0 - KC, 0);
+        const int sv = min(nr - k0, nr - 1) + 1 - slo;
+        for (int e = tid; e < TC * GCH; e += THREADS) {
+          const int c = e / GCH, j = e - c * GCH;
+          const double* col = gp + c * sgc;
+          copy_chunk(gn + c * GW, col + nlo, c < cv ? 8 * nv : 0, j);
+          copy_chunk(gs + c * GW, col + slo, c < cv ? 8 * sv : 0, j);
+        }
+      } else {
+        for (int e = tid; e < GR * GCH; e += THREADS) {
+          const int t = e / GCH, j = e - t * GCH, r = k0 - 1 + t;
+          copy_chunk(gn + t * GW, gp + r * sgr,
+                     r >= 0 && r < nh ? 8 * cv : 0, j);
+          copy_chunk(gs + t * GW, gp + (nr - 1 - r) * sgr,
+                     r >= 0 && r < nr / 2 ? 8 * cv : 0, j);
+        }
+      }
+    }
+  }
 
-  const int row = t % kAdjRows, cg = t / kAdjRows;
-  int prow[RA];
+  // U_p[c][j] = g_n + sg_p g_s at ring k0 - sh_p + j, sg_p = f for even
+  // l - m, -f for odd; zero past the rings
+  __device__ __forceinline__ void stage(int s) {
+    const double* gn = sm + G_OFF + (s % DEPTH) * 2 * G_TILE;
+    const double* gs = gn + G_TILE;
+    const int k0 = s * KC;
+    const int nlo = max(k0 - 1, 0), slo = max(nr - k0 - KC, 0);
+    for (int e = tid; e < TC * KC / 2; e += THREADS) {
+      const int c = e / (KC / 2), q = e % (KC / 2);
+      // rings k0 - 1 + 2 q + d
+      double vn[3], vs[3];
 #pragma unroll
-  for (int i = 0; i < RA; ++i)
-    prow[i] = parity(lam_b + static_cast<size_t>(row + i * kAdjRows) * ld);
-  double acc[RA][CT];
+      for (int d = 0; d < 3; ++d) {
+        const int t = 2 * q + d, r = k0 - 1 + t;
+        if constexpr (KUNIT) {
+          vn[d] = r >= 0 ? gn[c * GW + gshift(c, nlo) + r - nlo] : 0.0;
+          vs[d] = r >= 0 && r < nr / 2
+                      ? gs[c * GW + gshift(c, slo) + nr - 1 - r - slo]
+                      : 0.0;
+        } else {
+          vn[d] = gn[t * GW + gshift(0, r) + c];
+          vs[d] = gs[t * GW + gshift(0, nr - 1 - r) + c];
+        }
+      }
 #pragma unroll
-  for (int i = 0; i < RA; ++i)
-#pragma unroll
-    for (int j = 0; j < CT; ++j) acc[i][j] = 0.0;
+      for (int p = 0; p < 2; ++p) {
+        const double sg = p ? -f : f;
+        const int o = (p ? sh1 : sh0) ? 0 : 1;  // ring k0 - sh_p + 2 q at d = o
+        *reinterpret_cast<double2*>(sm + U_OFF + (p * TC + c) * RS + 2 * q) =
+            make_double2(vn[o] + sg * vs[o], vn[o + 1] + sg * vs[o + 1]);
+      }
+    }
+  }
 
-  for (int q = 0; q < kStages - 1; ++q) issue(q);
-  for (int q = 0; q < nch; ++q) {
-    cp_async_wait<kStages - 2>();
+  // the k4 steps that hold rings, for the warp's rows (rows past iv_p and
+  // columns past cv hold zeros)
+  __device__ __forceinline__ void mma(int s) {
+    if (wr0 >= (cls ? iv1 : iv0)) return;  // uniform across the warp
+    const double* T =
+        sm + (s % (DEPTH + 1)) * T_SLOT + (cls * BM + wr0) * RS;
+    const double* U = sm + U_OFF + cls * TC * RS;
+    const int r0 = s * KC - (cls ? sh1 : sh0);
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < KC / 4; ++kk) {
+      if (r0 + 4 * kk >= nh) break;  // uniform across the warp
+      double a[MT], b[NT];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        a[mt] = T[(mt * 8 + gid) * RS + 4 * kk + tig];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) b[n] = U[(n * 8 + gid) * RS + 4 * kk + tig];
+      if (!kProducts) {  // the shared-memory reads stay
+        acc[0][0][0] += a[0] + b[0];
+        continue;
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) dmma(acc[mt][n], a[mt], b[n]);
+    }
+  }
+
+  // out[c * soc + l - l0] for c < cv, l - l0 < lv, through shared memory
+  // [c][l - l0] (each column shifted to its run's 16-byte alignment), then
+  // whole runs along l, a warp a column, each right after the column's
+  // zeros at out[c * soc - zeros ..]
+  __device__ __forceinline__ void finish(double* out, long long soc, int lv,
+                                         int zeros) {
+    const int gid = lane >> 2, tig = lane & 3;
+    // d[h] = D[gid][2 tig + h]: row wr0 + 8 mt + gid of class cls, column
+    // 8 n + 2 tig + h
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int l = cls + 2 * (wr0 + 8 * mt + gid), c = 8 * n + 2 * tig + h;
+          sm[c * SO + parity(out + c * soc) + l] = acc[mt][n][h];
+        }
     __syncthreads();
-    issue(q + kStages - 1);
-    {  // g north + f (-1)^p g south, the equator row alone
-      const int r_lo = q * nt / nch, rc = (q + 1) * nt / nch - r_lo;
-      const double sg = p ? -f : f;
-      double* gs = gbuf + (q % kStages) * GK * TC;
-      const double* gs2 = gbuf2 + (q % kStages) * GK * TC;
-      for (int e = tid; e < RC * TC; e += nth) {
-        const int k = e % RC, c = e / RC;
-        if (k < rc && r_lo + k < ns && c0 + c < C)
-          gs[c * GK + k] = fma(sg, gs2[c * GK + k], gs[c * GK + k]);
-      }
-      __syncthreads();
-    }
-    if (row < nrows) {
-      const int r_lo = q * nt / nch, rc = (q + 1) * nt / nch - r_lo;
-      const int s = q % kStages;
-      const double* ts[RA];
-#pragma unroll
-      for (int i = 0; i < RA; ++i)
-        ts[i] = tbuf + s * TS +
-                row_start(row + i * kAdjRows, RS, prow[i] ^ (r_lo & 1));
-      const double* gs = gbuf + (s * TC + cg * CT) * GK;
-#pragma unroll 2
-      for (int k = grp; k < rc; k += G) {
-        double a[RA];
-#pragma unroll
-        for (int i = 0; i < RA; ++i) a[i] = ts[i][k];
-        fma_rows(a, gs + k, GK, acc);
-      }
+    for (int c = tid >> 5; c < cv; c += THREADS / 32) {
+      if (zeros > 0) store_run(out + c * soc - zeros, nullptr, zeros, lane);
+      store_run(out + c * soc, sm + c * SO, min(2 * BM, lv), lane);
     }
   }
-  cp_async_wait<0>();
-  if (G > 1) {
-    if (grp > 0) {
-#pragma unroll
-      for (int i = 0; i < RA; ++i)
-#pragma unroll
-        for (int j = 0; j < CT; ++j)
-          red[((i * CT + j) * (G - 1) + grp - 1) * GT + t] = acc[i][j];
-    }
-    __syncthreads();
-    if (grp == 0) {
-      for (int h = 0; h < G - 1; ++h) {
-#pragma unroll
-        for (int i = 0; i < RA; ++i)
-#pragma unroll
-          for (int j = 0; j < CT; ++j)
-            acc[i][j] += red[((i * CT + j) * (G - 1) + h) * GT + t];
-      }
-    }
-  }
-  if (grp == 0) {
-#pragma unroll
-    for (int i = 0; i < RA; ++i) {
-      const int l = row + i * kAdjRows;
-      if (l >= nrows) break;
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const int c = c0 + cg * CT + j;
-        if (c < C) out_m[c * soc + l_lo + DS * l] = acc[i][j];
-      }
-    }
-  }
+};
+
+// grid (c tiles of TC, ceil(L / 2 BM), row i): tile y computes the rows l0
+// = m + 2 BM y .. l0 + 2 BM; tile 0 also writes the zeros of l < m; tiles
+// past the row's triangle return at once
+template <int TC, bool KUNIT>
+__global__ void __launch_bounds__(AdjParF64<TC, KUNIT>::THREADS,
+                                  AdjParF64<TC, KUNIT>::MIN_BLOCKS)
+adj_par_f64(const double* __restrict__ lam, const double* __restrict__ g,
+            double* __restrict__ out, int L, int nr, int C, long long sgm,
+            long long sgr, long long sgc, long long som, long long soc,
+            const int* __restrict__ ms, double f) {
+  using K = AdjParF64<TC, KUNIT>;
+  extern __shared__ __align__(16) double smem[];
+  const int i = blockIdx.z, m = degree(ms, i);
+  const int nh = (nr + 1) / 2;  // the table's rings
+  const int c0 = blockIdx.x * TC;
+  const int l0 = m + static_cast<int>(blockIdx.y) * 2 * K::BM;
+  if (l0 >= L) return;  // uniform across the block
+  const int warp = threadIdx.x >> 5;
+  K k;
+  k.sm = smem;
+  k.tab = lam + (static_cast<long long>(i) * L + l0) * nh;              // lam[i, l0, 0]
+  k.gp = g + i * sgm + c0 * sgc;                                        // g[i, 0, c0]
+  k.rowd = nh;
+  k.sgr = sgr;
+  k.sgc = sgc;
+  k.nh = nh;
+  k.nr = nr;
+  k.cv = min(TC, C - c0);
+  k.iv0 = min(K::BM, (L - l0 + 1) / 2);  // rows l0 + 2 i' < L
+  k.iv1 = min(K::BM, (L - l0) / 2);      // rows l0 + 1 + 2 i' < L
+  k.sh0 = parity(k.tab);
+  k.sh1 = parity(k.tab + nh);
+  k.gs0 = parity(k.gp);
+  k.f = f;
+  k.tid = threadIdx.x;
+  k.lane = threadIdx.x & 31;
+  k.cls = warp / (kAdjParWarps / 2);
+  k.wr0 = warp % (kAdjParWarps / 2) * K::WR;
+  k.zero();
+  run_ring(k, (nh + K::KC) / K::KC);  // rings -1 .. nh - 1
+  k.finish(out + i * som + c0 * soc + l0, soc, L - l0,
+           blockIdx.y == 0 ? m : 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -1035,31 +1222,63 @@ int synth_par_blocks(int nt) {
   return n;
 }
 
-template <int TC, bool PAR = false>
+template <int TC>
 int launch_adj(const void* lam, const void* g, void* out, int L, int nr,
                int C, long long sgm, long long sgr, long long sgc,
                long long som, long long soc, const int* ms, int M,
-               cudaStream_t stream, double f = 1.0) {
-  const AdjPlan pl(PAR ? (nr + 1) / 2 : nr, TC, PAR);
-  const int blocks =
-      PAR ? 2 * M * (((L + 1) / 2 + kAdjPass - 1) / kAdjPass)
-      : ms ? M * ((L + kAdjPass - 1) / kAdjPass) : adj_blocks(L);
+               cudaStream_t stream) {
+  const AdjPlan pl(nr, TC);
+  const int blocks = ms ? M * ((L + kAdjPass - 1) / kAdjPass) : adj_blocks(L);
   const dim3 grid(blocks, (C + TC - 1) / TC);
-  const auto* lam_ = static_cast<const double*>(lam);
-  const auto* g_ = static_cast<const double*>(g);
-  auto* out_ = static_cast<double*>(out);
-  if constexpr (PAR) {
-    const cudaError_t e = allow_smem(adj_par_f64<TC>, pl.smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    adj_par_f64<TC><<<grid, pl.group * kAdjGroups, pl.smem, stream>>>(
-        lam_, g_, out_, L, nr, C, sgm, sgr, sgc, som, soc, ms, M, f);
-  } else {
-    const cudaError_t e = allow_smem(adj_tri_f64<TC>, pl.smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    adj_tri_f64<TC><<<grid, pl.group * kAdjGroups, pl.smem, stream>>>(
-        lam_, g_, out_, L, nr, C, sgm, sgr, sgc, som, soc, ms, M);
-  }
+  const cudaError_t e = allow_smem(adj_tri_f64<TC>, pl.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  adj_tri_f64<TC><<<grid, pl.group * kAdjGroups, pl.smem, stream>>>(
+      static_cast<const double*>(lam), static_cast<const double*>(g),
+      static_cast<double*>(out), L, nr, C, sgm, sgr, sgc, som, soc, ms, M);
   return static_cast<int>(cudaGetLastError());
+}
+
+// nr is g's ring count, the table's ceil(nr / 2)
+template <int TC, bool KUNIT>
+int launch_adj_par(const void* lam, const void* g, void* out, int L, int nr,
+                   int C, long long sgm, long long sgr, long long sgc,
+                   long long som, long long soc, const int* ms, int M,
+                   cudaStream_t stream, double f) {
+  using K = AdjParF64<TC, KUNIT>;
+  const dim3 grid((C + TC - 1) / TC, (L + 2 * K::BM - 1) / (2 * K::BM), M);
+  const cudaError_t e = allow_smem(adj_par_f64<TC, KUNIT>, K::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  adj_par_f64<TC, KUNIT><<<grid, K::THREADS, K::SMEM, stream>>>(
+      static_cast<const double*>(lam), static_cast<const double*>(g),
+      static_cast<double*>(out), L, nr, C, sgm, sgr, sgc, som, soc, ms, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TC>
+int launch_adj_par(const void* lam, const void* g, void* out, int L, int nr,
+                   int C, long long sgm, long long sgr, long long sgc,
+                   long long som, long long soc, const int* ms, int M,
+                   cudaStream_t stream, double f) {
+  if (sgr == 1)
+    return launch_adj_par<TC, true>(lam, g, out, L, nr, C, sgm, sgr, sgc,
+                                    som, soc, ms, M, stream, f);
+  if (sgc == 1)
+    return launch_adj_par<TC, false>(lam, g, out, L, nr, C, sgm, sgr, sgc,
+                                     som, soc, ms, M, stream, f);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// resident blocks an SM of the parity adjoint (g with unit stride on r) at
+// TC on the current card; -1 where the runtime refuses the query
+template <int TC>
+int adj_par_blocks() {
+  using K = AdjParF64<TC, true>;
+  int n = 0;
+  if (allow_smem(adj_par_f64<TC, true>, K::SMEM) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, adj_par_f64<TC, true>, K::THREADS, K::SMEM) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace
@@ -1114,6 +1333,7 @@ int legendre_synth_par_f64(const void* lam, const void* x, void* out, int L,
   return launch_synth_par<32>(lam, x, out, L, nr, C, sxm, sxc, m, M, s, f);
 }
 
+// g with unit stride on r (sgr 1) or on c (sgc 1)
 int legendre_adj_par_f64(const void* lam, const void* g, void* out, int L,
                          int nr, int C, long long sgm, long long sgr,
                          long long sgc, long long som, long long soc,
@@ -1122,19 +1342,21 @@ int legendre_adj_par_f64(const void* lam, const void* g, void* out, int L,
   const auto* m = static_cast<const int*>(ms);
   const double f = flip ? -1.0 : 1.0;
   if (C <= 8)
-    return launch_adj<8, true>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc,
-                               m, M, s, f);
+    return launch_adj_par<8>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc,
+                             m, M, s, f);
   if (C <= 16)
-    return launch_adj<16, true>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
-                                soc, m, M, s, f);
-  return launch_adj<32, true>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc,
+    return launch_adj_par<16>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc,
                               m, M, s, f);
+  return launch_adj_par<32>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc,
+                            m, M, s, f);
 }
 
 // Threads per block and dynamic shared memory (bytes) of one launch at
 // (nr, C), as threads << 20 | bytes: kind 0 the synthesis, 1 the adjoint,
-// 2 the parity synthesis (nr the output's rings); kind 3 the parity
-// synthesis' resident blocks an SM on the current card (-1 if refused).
+// 2 the parity synthesis, 4 the parity adjoint with g's unit stride on r
+// (nr the output's or g's rings); the resident blocks an SM on the current
+// card (-1 if refused) of the parity synthesis (kind 3) and the parity
+// adjoint (kind 5).
 int legendre_tri_f64_plan(int kind, int nr, int C) {
   const int tc = C <= 8 ? 8 : (C <= 16 ? 16 : 32);
   if (kind == 1) {
@@ -1149,6 +1371,14 @@ int legendre_tri_f64_plan(int kind, int nr, int C) {
     return tc == 8 ? synth_par_blocks<8>((nr + 1) / 2)
            : tc == 16 ? synth_par_blocks<16>((nr + 1) / 2)
                       : synth_par_blocks<32>((nr + 1) / 2);
+  if (kind == 4)
+    return tc == 8 ? AdjParF64<8, true>::THREADS << 20 | AdjParF64<8, true>::SMEM
+           : tc == 16
+               ? AdjParF64<16, true>::THREADS << 20 | AdjParF64<16, true>::SMEM
+               : AdjParF64<32, true>::THREADS << 20 | AdjParF64<32, true>::SMEM;
+  if (kind == 5)
+    return tc == 8 ? adj_par_blocks<8>()
+           : tc == 16 ? adj_par_blocks<16>() : adj_par_blocks<32>();
   const SynthPlan pl(nr, tc);
   return pl.group * pl.groups << 20 | pl.smem;
 }

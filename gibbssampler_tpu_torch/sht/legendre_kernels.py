@@ -68,10 +68,11 @@ package, keyed by a hash of every source and the flags, and loaded with
 ctypes: ``legendre_tri.cu`` holds the float32 kernels (3xTF32 on the tensor
 cores; the parity synthesis at the ring tile ``f32_par_synth_tile(nh)``
 picks), ``legendre_tri_f64.cu`` the float64 ones (streaming the table
-through a ``cp.async`` ring to the FMA pipes, the parity synthesis to the
+through a ``cp.async`` ring to the FMA pipes, both parity kernels to the
 fp64 tensor cores), ``legendre_tri_bf16.cu`` the bfloat16-table ones (bf16
 ``mma.sync`` with float32 accumulation; the dense synthesis at the ring
-tile ``bf16_synth_tile(nr)`` picks).  A
+tile ``bf16_synth_tile(nr)`` picks, the parity synthesis at the ring tile
+``bf16_par_synth_tile(nh)`` picks).  A
 wrapper takes the plain ``torch.einsum`` version only for tensors on the
 CPU; for CUDA tensors it launches its kernel or raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (the parity wrappers
@@ -112,8 +113,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SYNTH_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 2 + [_P, _I, _P]
 _ADJ_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 5 + [_P, _I, _P]
 # the parity modes: (..., ms, M, flip, stream); the bfloat16 dense
-# synthesis: (..., ms, M, ring tile, stream); the float32 parity synthesis:
-# (..., ms, M, flip, ring tile, stream)
+# synthesis: (..., ms, M, ring tile, stream); the float32 and bfloat16
+# parity syntheses: (..., ms, M, flip, ring tile, stream)
 _SYNTH_PAR_ARGS = _SYNTH_ARGS[:-1] + [_I, _P]
 _SYNTH_PAR_TILE_ARGS = _SYNTH_ARGS[:-1] + [_I, _I, _P]
 _ADJ_PAR_ARGS = _ADJ_ARGS[:-1] + [_I, _P]
@@ -131,7 +132,7 @@ _LIBS = {
                          "legendre_tri_f64_plan": [_I] * 3},
     "legendre_tri_bf16": {"legendre_synth_tri_bf16": _SYNTH_PAR_ARGS,
                           "legendre_adj_tri_bf16": _ADJ_ARGS,
-                          "legendre_synth_par_bf16": _SYNTH_PAR_ARGS,
+                          "legendre_synth_par_bf16": _SYNTH_PAR_TILE_ARGS,
                           "legendre_adj_par_bf16": _ADJ_PAR_ARGS,
                           "legendre_tri_bf16_info": [_I, _I]},
 }
@@ -143,14 +144,17 @@ _SUFFIX = {(torch.float32, torch.float32): "f32",
 BF16_SYNTH_TILES = (80, 96, 128, 144)
 # the ring tiles of the float32 parity synthesis (csrc/legendre_tri.cu)
 F32_PAR_SYNTH_TILES = (64, 72, 80, 88)
+# the ring tiles of the bfloat16 parity synthesis (csrc/legendre_tri_bf16.cu)
+BF16_PAR_SYNTH_TILES = (128, 144)
 # the float32 kernels in the order of legendre_tri_f32_info's kinds
 _F32_KINDS = ("synth", "adj unit-r g", "adj unit-c g", "adj par unit-r g",
               "adj par unit-c g") + tuple(
     f"synth par tile {t}" for t in F32_PAR_SYNTH_TILES)
 # the bfloat16-table kernels in the order of legendre_tri_bf16_info's kinds
 _BF16_KINDS = tuple(f"synth tile {t}" for t in BF16_SYNTH_TILES) + (
-    "adj unit-r g", "adj unit-c g", "synth par", "adj par unit-r g",
-    "adj par unit-c g")
+    "adj unit-r g", "adj unit-c g") + tuple(
+    f"synth par tile {t}" for t in BF16_PAR_SYNTH_TILES) + (
+    "adj par unit-r g", "adj par unit-c g")
 _fns: dict = {}
 _loaded = {"tag": None}  # the build whose entry points are in _fns
 
@@ -259,6 +263,13 @@ def f32_par_synth_tile(nh: int) -> int:
     return _fewest_tiles(F32_PAR_SYNTH_TILES, nh)
 
 
+def bf16_par_synth_tile(nh: int) -> int:
+    """The ring tile of the bfloat16 parity synthesis at nh north rings:
+    the one with the fewest tiles (each ring tile stages the batch again),
+    then the least padding."""
+    return _fewest_tiles(BF16_PAR_SYNTH_TILES, nh)
+
+
 def bf16_dynamic_smem() -> dict:
     """Dynamic shared memory (bytes) of each bfloat16-table kernel; builds
     first."""
@@ -280,16 +291,19 @@ def bf16_blocks_per_sm() -> dict:
 
 def f64_plan(nr: int, C: int) -> dict:
     """Threads per block and dynamic shared memory (bytes) of each float64
-    kernel's launch at nr rings (the output's, for the parity synthesis)
-    and C columns, and the parity synthesis' resident blocks an SM on the
-    current card; builds first."""
+    kernel's launch at nr rings (the output's or g's, for the parity
+    kernels) and C columns (the parity adjoint with g's unit stride on r),
+    and each parity kernel's resident blocks an SM on the current card;
+    builds first."""
     if not _fns:
         build()
     fn = _fns["legendre_tri_f64_plan"]
     plan = {kind: {"threads": v >> 20, "smem": v & 0xFFFFF}
             for kind, v in (("synth", fn(0, nr, C)), ("adj", fn(1, nr, C)),
-                            ("synth par", fn(2, nr, C)))}
+                            ("synth par", fn(2, nr, C)),
+                            ("adj par", fn(4, nr, C)))}
     plan["synth par"]["blocks_per_sm"] = fn(3, nr, C)
+    plan["adj par"]["blocks_per_sm"] = fn(5, nr, C)
     return plan
 
 
@@ -468,6 +482,8 @@ def _launch(kind: str, lam: torch.Tensor, b: torch.Tensor,
         tail = [int(flip)]
         if kind == "synth" and lam.dtype == torch.float32:
             tail.append(f32_par_synth_tile(nt))
+        elif kind == "synth" and lam.dtype == torch.bfloat16:
+            tail.append(bf16_par_synth_tile(nt))
     elif kind == "synth" and lam.dtype == torch.bfloat16:
         tail = [bf16_synth_tile(nt)]
     else:

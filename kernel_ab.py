@@ -15,8 +15,9 @@ tables at C 256, the dense synthesis at nr 65, 83, 513 and 1023, the dense
 adjoint at nr 65, 83 and 513, the parity synthesis at nr 513 and the parity
 adjoint at nr 513 and 1023; the float32 parity synthesis and parity
 adjoint at nr 513, C 256 and 512, and nr 1023, C 256; the float64 parity
-synthesis at nr 513, C 16 and 32 (parity kernels on half tables of
-ceil(nr / 2) rings); mean ms per call over
+synthesis and parity adjoint at nr 513, C 16 and 32; the bfloat16 parity
+synthesis at nr 1023 too (parity kernels on half tables of ceil(nr / 2)
+rings); mean ms per call over
 ``--reps`` launches between CUDA events.  Prints the
 card's name and power limit, one JSON line per run, then one JSON line of
 the mean of each tree's two runs per shape and this tree's ratio to the
@@ -26,8 +27,8 @@ other's.  Needs a CUDA card.
 a temporary directory, with the text patches of VARIANTS[NAME] applied (a
 design variant of one kernel, or the kernel with a part compiled out,
 which computes a wrong result on purpose: its copies, its MMAs or, for
-the bfloat16 dense adjoint, its stores alone), and times only that
-kernel's SHAPES.
+the bfloat16 dense adjoint and parity synthesis, its stores alone), and
+times only that kernel's SHAPES.
 """
 
 import json
@@ -48,7 +49,9 @@ SHAPES = tuple((k, dt, C, nr) for dt, C, nr in (
     ("synth_par", "float32", 256, 513), ("synth_par", "float32", 512, 513),
     ("synth_par", "float32", 256, 1023), ("synth_par", "float64", 16, 513),
     ("synth_par", "float64", 32, 513), ("adj_par", "float32", 256, 513),
-    ("adj_par", "float32", 512, 513), ("adj_par", "float32", 256, 1023))
+    ("adj_par", "float32", 512, 513), ("adj_par", "float32", 256, 1023),
+    ("adj_par", "float64", 16, 513), ("adj_par", "float64", 32, 513),
+    ("synth_par", "bfloat16", 256, 1023))
 L = 513
 
 _F32 = "gibbssampler_tpu_torch/csrc/legendre_tri.cu"
@@ -56,6 +59,7 @@ _F64 = "gibbssampler_tpu_torch/csrc/legendre_tri_f64.cu"
 _BF16 = "gibbssampler_tpu_torch/csrc/legendre_tri_bf16.cu"
 _PY = "gibbssampler_tpu_torch/sht/legendre_kernels.py"
 _F32_TILES = "F32_PAR_SYNTH_TILES = (64, 72, 80, 88)"
+_BF16_PAR_TILES = "BF16_PAR_SYNTH_TILES = (128, 144)"
 # the lines of the sources that the part-alone variants patch
 _RING_COPIES = "    if (kt + K::DEPTH < KT) k.issue(kt + K::DEPTH);"
 _F32_ADJ_MMA = "    if (rows > 48) mma_rows<4>(s, p);"
@@ -69,6 +73,29 @@ _BF16_NO_STORES = (_BF16, _BF16_RUNS, "        if (0)\n" + _BF16_RUNS)
 _BF16_ZEROS = ("        if (zeros > 0) store_run(out + c * soc - zeros, nullptr, "
                "zeros, lane);")
 _BF16_NO_ZEROS = (_BF16, _BF16_ZEROS, _BF16_ZEROS.replace("zeros > 0", "0"))
+# the bfloat16 parity synthesis (the dense synthesis' block with PAR true):
+# its MMAs, its staging pass, its stores
+_BF16_SP_NO_MMA = (_BF16, "        if (kk != cls || kv <= cls) continue;",
+                   "        continue;")
+_BF16_SP_STAGE = ("  __device__ __forceinline__ void stage(int s) {\n"
+                  "    const unsigned char* slot_")
+_BF16_SP_ROWS = "    for (int row = tid >> 5; row < jv + jv2; row += WARPS) {"
+_BF16_SP_NO_STORES = (_BF16, _BF16_SP_ROWS,
+                      _BF16_SP_ROWS.replace("row < jv", "0 && row < jv"))
+_BF16_WN = "  static constexpr int WM = 32, WN = BN / 2;"
+_BF16_BM = "  static constexpr int BM = 128, BN = BN_, BK = 32, DEPTH = 3;"
+
+
+def _bf16_par_tiles(a, b):
+    """The patches that set the bfloat16 parity synthesis' ring tiles."""
+    return [(_PY, _BF16_PAR_TILES, f"BF16_PAR_SYNTH_TILES = ({a}, {b})"),
+            (_BF16, "constexpr int kParTile0 = 128, kParTile1 = 144;",
+             f"constexpr int kParTile0 = {a}, kParTile1 = {b};")]
+
+
+_F64_ADJ = "constexpr int kAdjPar"
+_F64_BLOCKS = ("  static constexpr int MIN_BLOCKS = SMEM <= 113 * 1024 ? 2 "
+               ": 1;")
 # name -> (the kernel's SHAPES: kernel, dtype; [(file, text, replacement)])
 VARIANTS = {
     # the float32 parity synthesis at one ring tile whatever nh is
@@ -114,6 +141,47 @@ VARIANTS = {
         (_BF16, _BF16_ADJ_STAGE, _BF16_ADJ_STAGE.replace(
             "{\n", "{\n    if (DENSE) return;\n")),
         _BF16_NO_MMA]),
+    # the bfloat16 parity synthesis' copies and staging pass alone
+    "bf16-par-synth-copies-only": (("synth_par", "bfloat16"), [
+        _BF16_SP_NO_MMA, _BF16_SP_NO_STORES]),
+    # its MMAs alone: no copies but a block's first DEPTH stages, no stores
+    "bf16-par-synth-mma-only": (("synth_par", "bfloat16"), [
+        (_BF16, _RING_COPIES, _RING_COPIES.replace("if (", "if (0 && ")),
+        _BF16_SP_NO_STORES]),
+    # its stores alone: no copies but a block's first DEPTH stages, no
+    # staging pass, no MMA
+    "bf16-par-synth-stores-only": (("synth_par", "bfloat16"), [
+        (_BF16, _RING_COPIES, _RING_COPIES.replace("if (", "if (0 && ")),
+        (_BF16, _BF16_SP_STAGE, _BF16_SP_STAGE.replace(
+            "{\n", "{\n    if (PAR) return;\n")),
+        _BF16_SP_NO_MMA]),
+    # its design alternatives: 128 x 64 / 72 tiles of 8 warps (two blocks
+    # an SM), 256 x 64 / 72 and 64 x 256 / 288 tiles of 16 warps, four
+    # stages in flight
+    "bf16-par-synth-8-warps": (("synth_par", "bfloat16"), [
+        *_bf16_par_tiles(64, 72), (_BF16, _BF16_WN, _BF16_WN.replace(
+            "BN / 2", "PAR ? BN : BN / 2"))]),
+    "bf16-par-synth-256-columns": (("synth_par", "bfloat16"), [
+        *_bf16_par_tiles(64, 72), (_BF16, _BF16_WN, _BF16_WN.replace(
+            "BN / 2", "PAR ? BN : BN / 2")),
+        (_BF16, _BF16_BM, _BF16_BM.replace("128", "PAR ? 256 : 128"))]),
+    "bf16-par-synth-64-columns": (("synth_par", "bfloat16"), [
+        *_bf16_par_tiles(256, 288), (_BF16, _BF16_WN, _BF16_WN.replace(
+            "BN / 2", "PAR ? BN / 4 : BN / 2")),
+        (_BF16, _BF16_BM, _BF16_BM.replace("128", "PAR ? 64 : 128"))]),
+    "bf16-par-synth-4-deep": (("synth_par", "bfloat16"), [
+        (_BF16, _BF16_BM, _BF16_BM.replace("DEPTH = 3", "DEPTH = PAR ? 4 : 3"))]),
+    # the float64 parity adjoint with 32-ring stages (one block an SM),
+    # three stages in flight, 32-row classes, three blocks an SM
+    "f64-par-adj-32-ring-stages": (("adj_par", "float64"), [
+        (_F64, _F64_ADJ + "Rings = 16;", _F64_ADJ + "Rings = 32;")]),
+    "f64-par-adj-3-deep": (("adj_par", "float64"), [
+        (_F64, _F64_ADJ + "Depth = 2;", _F64_ADJ + "Depth = 3;")]),
+    "f64-par-adj-32-row-classes": (("adj_par", "float64"), [
+        (_F64, _F64_ADJ + "Rows = 64;", _F64_ADJ + "Rows = 32;")]),
+    "f64-par-adj-3-blocks": (("adj_par", "float64"), [
+        (_F64, _F64_BLOCKS, _F64_BLOCKS.replace(
+            "SMEM <= 113", "SMEM <= 75 * 1024 ? 3 : SMEM <= 113"))]),
 }
 
 

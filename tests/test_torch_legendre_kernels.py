@@ -305,11 +305,17 @@ def test_cuda_slab_kernels_match_plain(cuda_device, dtype):
 # rows l (both parities) by 64 columns over 32-ring stages: L - m over three
 # row tiles with a last one of unequal parity counts (L 531) and over two
 # (L 300), a row tile of one row (L 257), C across column tiles (72, 130),
-# nh 33 (one ring past a stage, nr odd and even) and 32 (one whole stage)
+# nh 33 (one ring past a stage, nr odd and even) and 32 (one whole stage);
+# then the float64 adjoint's tiles of 128 rows l (64 of each class) by 8,
+# 16 or 32 columns over 32-ring stages from ring -1 or 0: L - m over two
+# row tiles with unequal class counts (L 201, odd) and equal ones (L 130,
+# even), over four (L 385), at C 8, 16 and 48 (a 32-column tile and a
+# 16-column part), nh 49 (a second stage), 65 (a third, nr even) and 16
 PAR_CARD_SHAPES = [(16, 12, 8), (37, 19, 10), (65, 65, 40), (64, 33, 17),
                    (33, 18, 1), (40, 179, 200), (40, 356, 136),
                    (24, 66, 16), (37, 65, 32), (33, 300, 48),
-                   (531, 65, 72), (300, 66, 130), (257, 64, 64)]
+                   (531, 65, 72), (300, 66, 130), (257, 64, 64),
+                   (201, 97, 8), (130, 130, 16), (385, 31, 48)]
 
 
 @pytest.mark.cuda
@@ -421,12 +427,48 @@ def test_f32_par_synth_tile_plan(nh):
 # columns over stages of 32 rings from ring -1: L - m over three row tiles
 # with a last one of unequal group counts (L 531) and over two (L 300), C
 # across column tiles (72, 130), nr 63 / 64 (the last ring in a second /
-# third stage) and 31 / 32 (one stage / two)
+# third stage) and 31 / 32 (one stage / two); then the parity synthesis'
+# ring tiles (bf16_par_synth_tile): one of 144 (nh 129), two of 128 (nh
+# 145) and of 144 (nh 257), three of 128 (nh 289), at a partial column
+# tile (C 136) and over stages of 32 degrees with an odd last one (L 33, 70)
 BF16_CARD_SHAPES = PAR_CARD_SHAPES[:5] + [(97, 83, 200), (64, 193, 200),
                                       (40, 129, 16), (40, 145, 16),
                                       (301, 81, 200), (531, 63, 72),
                                       (300, 64, 130), (130, 32, 8),
-                                      (129, 31, 16)]
+                                      (129, 31, 16), (48, 257, 24),
+                                      (70, 289, 136), (33, 513, 16),
+                                      (24, 577, 40)]
+
+
+# (nh: (ring tile, tiles, padded rings)) of the bfloat16 parity synthesis
+# at the north ring counts of PERF.md's bf16 table (nr 513, 1023) and of the
+# card tests (BF16_CARD_SHAPES)
+BF16_PAR_TILE_PLAN = {6: (128, 1, 122), 9: (128, 1, 119),
+                      10: (128, 1, 118), 16: (128, 1, 112),
+                      17: (128, 1, 111), 32: (128, 1, 96), 33: (128, 1, 95),
+                      41: (128, 1, 87), 42: (128, 1, 86), 65: (128, 1, 63),
+                      73: (128, 1, 55), 97: (128, 1, 31), 129: (144, 1, 15),
+                      145: (128, 2, 111), 257: (144, 2, 31),
+                      289: (128, 3, 95), 512: (128, 4, 0)}
+
+
+@pytest.mark.parametrize("nh", sorted(BF16_PAR_TILE_PLAN))
+def test_bf16_par_synth_tile_plan(nh):
+    """The ring tile that the host picks for the bfloat16 parity synthesis:
+    the fewest tiles (each stages the batch again), then the least
+    padding; one tile for every nh up to the largest tile; the card tests'
+    nh cover every count of tiles up to three."""
+    tile = lk.bf16_par_synth_tile(nh)
+    n = -(-nh // tile)
+    assert (tile, n, n * tile - nh) == BF16_PAR_TILE_PLAN[nh]
+    if nh <= max(lk.BF16_PAR_SYNTH_TILES):
+        assert n == 1
+    for t in lk.BF16_PAR_SYNTH_TILES:
+        nt = -(-nh // t)
+        assert (nt, nt * t) >= (n, n * tile), t
+    card = {(nr + 1) // 2 for _, nr, _ in BF16_CARD_SHAPES}
+    assert card <= set(BF16_PAR_TILE_PLAN)
+    assert {-(-h // lk.bf16_par_synth_tile(h)) for h in card} == {1, 2, 3}
 
 
 @pytest.mark.cuda
