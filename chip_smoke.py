@@ -205,11 +205,35 @@ non-zero:
    iterations: ms/iter, MH ms/iter, acceptances in [0.15, 0.6], exactly
    12 + 6 bfloat16 launches per iteration and no float32 or float64
    Legendre launch, peak memory;
-17. prints the kernels' JSON line, the float32 and the float64 kernels
+17. float64 compute on narrow tables (after the bf16 phase;
+   phase_narrow_*): (a) the four narrow-table kernels
+   (csrc/legendre_tri_narrow_f64.cu: bfloat16 or float32 table, float64
+   batch and sums) with each table dtype against their plain versions
+   (<= 1e-12 max|ref|), the outputs given NaN-filled memory, at L 513: the
+   dense pair at the band's 65 cut rings and the 513-ring grid (16 and 32
+   columns), the parity pair at the grid's 257 north rings (16 and 32
+   columns, flip and not), slab 0 of the two-way split of each; each timed
+   beside its plain version, the float64 kernel on the float64 table and
+   torch.einsum on the upcast table, with the bound of the narrow table,
+   the float64 batch and output over 3.35 TB/s or the FLOPs over 67
+   TFLOP/s; (b) the CG phase's float64 band dataset built on float64,
+   float32 and bfloat16 tables (flagship.dataset with flagship_sht(...,
+   dtype=float64, table_dtype=...)), and its cut transform, the GL full
+   grid ring-split and HEALPix nside 256 with narrow tables against the
+   float64-table ones at 8 chains (max|err|/max|ref|, ms per transform,
+   table bytes); (c) cg_cr on each of the three datasets at tol 1e-5 (8
+   chains): per chain iterations, convergence and the true residual with
+   the solve's operator and with the float64-table one, ms per iteration,
+   2 + 2 launches per iteration of the table dtype's kernels only; the
+   float32 and float64 tables must converge, the bfloat16 ones (whose
+   operator rounds its batch and is not linear) are solved to caps of 25
+   to 300 iterations and their floor printed;
+18. prints the kernels' JSON line, the float32 and the float64 kernels
    each with their launches summed over the paths, their parity modes
-   with the options phase's launches, and the four bfloat16-table kernels
-   with the bf16 phase's (b) and (c), then {"ok": true, "device": {...}}
-   last.
+   with the options phase's launches, the four bfloat16-table kernels
+   with the bf16 phase's (b) and (c), and the four narrow-table float64
+   kernels, one entry for each table dtype, with the narrow phase's (b)
+   and (c), then {"ok": true, "device": {...}} last.
 
 The configurations come from gibbssampler_tpu_torch.flagship, the
 proposal scales from the port's records (gibbssampler_tpu_torch/
@@ -1800,8 +1824,10 @@ def counts(lk):
     """(float32 synthesis, float32 adjoint, float64 synthesis, float64
     adjoint) launches since the counts were last set to 0."""
     s, a = lk.legendre_synth_tri, lk.legendre_adj_tri
-    return (s.launches - s.launches_f64 - s.launches_bf16,
-            a.launches - a.launches_f64 - a.launches_bf16,
+    return (s.launches - s.launches_f64 - s.launches_bf16
+            - s.launches_narrow,
+            a.launches - a.launches_f64 - a.launches_bf16
+            - a.launches_narrow,
             s.launches_f64, a.launches_f64)
 
 
@@ -3064,8 +3090,10 @@ def par_counts(lk):
     """(float32 synthesis, float32 adjoint, float64 synthesis, float64
     adjoint) parity-mode launches since the counts were set to 0."""
     s, a = lk.legendre_synth_par, lk.legendre_adj_par
-    return (s.launches - s.launches_f64 - s.launches_bf16,
-            a.launches - a.launches_f64 - a.launches_bf16,
+    return (s.launches - s.launches_f64 - s.launches_bf16
+            - s.launches_narrow,
+            a.launches - a.launches_f64 - a.launches_bf16
+            - a.launches_narrow,
             s.launches_f64, a.launches_f64)
 
 
@@ -3750,6 +3778,405 @@ def phase_bf16_slice(torch, lk, dev, card, iters=BF16_ITERS, lmax=LMAX,
     return n
 
 
+# ---------------------------------------------------------------------------
+# float64 compute on narrow tables: bfloat16 and float32 Legendre tables
+# under a float64 batch (csrc/legendre_tri_narrow_f64.cu)
+# ---------------------------------------------------------------------------
+
+# the table dtypes and their kernels' entry-point suffixes
+NARROW_SFX = {"bfloat16": "bf16f64", "float32": "f32f64"}
+# against the plain version: the same exact products, float64 sums
+NARROW_TOL = 1e-12
+# the transforms against float64-table ones (max|err| / max|ref|): the
+# table dtype's operator error
+NARROW_TRANSFORM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+# (nr, C) of the dense pair and of the parity pair (nr the output's rings):
+# the band's cut rings and the full GL grid at the CG family's 8 and 16
+# chains (x Re/Im)
+NARROW_DENSE_SHAPES = ((CUT_RINGS, 2 * CG_CHAINS), (LMAX + 1, 2 * CG_CHAINS),
+                       (LMAX + 1, 4 * CG_CHAINS))
+NARROW_PAR_SHAPES = ((LMAX + 1, 2 * CG_CHAINS), (LMAX + 1, 4 * CG_CHAINS))
+# cg_cr on the narrow tables: the float32 tables must converge at
+# NARROW_CG_TOL; the bfloat16 operator is not linear (the batch is rounded
+# before each product), so its solve is capped and its floor printed
+NARROW_CG_TOL = 1e-5
+NARROW_BF16_CAPS = (25, 50, 100, 200, 300)
+NARROW_KERNELS = ("legendre_synth_tri", "legendre_adj_tri",
+                  "legendre_synth_par", "legendre_adj_par")
+
+
+def work_narrow(name, L, nr, C, itemsize, rows=None):
+    """(FLOPs, bytes) of one call on a table of ``itemsize`` bytes with a
+    float64 batch: the table's triangle read once, the batch read once and
+    the output written once in 8 bytes; a parity kernel (``name`` ending in
+    "_par") on the half table of ceil(nr / 2) rings; ``rows`` the degree
+    orders of a slab (all L by default)."""
+    rows = range(L) if rows is None else rows
+    tri, M = sum(L - m for m in rows), len(rows)
+    nt = (nr + 1) // 2 if name.endswith("_par") else nr
+    if name.startswith("legendre_synth"):
+        batch, out = C * tri, M * nr * C
+    else:
+        batch, out = M * nr * C, C * M * L
+    return 2 * nt * C * tri, itemsize * nt * tri + 8 * (batch + out)
+
+
+def narrow_counts(torch, lk, td):
+    """Launches of the four narrow-table float64 kernels on table dtype
+    ``td`` (dense synthesis, dense adjoint, parity synthesis, parity
+    adjoint) since the counts were set to 0: the shape counts of kernel
+    dtype (td, float64), full table and slabs."""
+    key = (td, torch.float64)
+    return tuple(sum(v for k, v in (*fn.shapes.items(), *fn.slabs.items())
+                     if k[-1] == key)
+                 for fn in (getattr(lk, name) for name in NARROW_KERNELS))
+
+
+def narrow_one(torch, lk, name, lam, b, args, out_shape, lam64, label, card,
+               library, rows=None):
+    """One narrow-table kernel call against its plain version (<=
+    NARROW_TOL max|ref|), its output given NaN-filled memory; timed beside
+    the plain version (plain, kernel, float64 kernel, kernel, plain), the
+    float64 kernel on the float64 table ``lam64`` and ``library`` (one
+    torch.einsum on the table upcast to float64, or None).  Returns the
+    record."""
+    kern, plain = getattr(lk, name), getattr(lk, name + "_plain")
+    torch.full(out_shape, float("nan"), dtype=torch.float64,
+               device=lam.device)
+    out = kern(lam, b, *args)
+    ref = plain(lam, b, *args)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    check(bool(torch.isfinite(out).all()) and err <= NARROW_TOL * scale,
+          f"{name} {label}: max|err| {err} > {NARROW_TOL} * {scale}")
+    synth = name.startswith("legendre_synth")
+    L, nr = lam.shape[1], out_shape[1] if synth else b.shape[1]
+    C = out_shape[2] if synth else out_shape[0]
+    p1 = time_ms(torch, lambda: plain(lam, b, *args), 20)
+    k1 = time_ms(torch, lambda: kern(lam, b, *args), 20)
+    f64 = time_ms(torch, lambda: kern(lam64, b, *args), 20)
+    k2 = time_ms(torch, lambda: kern(lam, b, *args), 20)
+    p2 = time_ms(torch, lambda: plain(lam, b, *args), 20)
+    lib = time_ms(torch, library, 20) if library else None
+    ms, pms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+    flops, nbytes = work_narrow(name, L, nr, C, lam.element_size(), rows)
+    bound_ms, bound_by = bound(flops, nbytes, FP64_FLOPS_PER_S)
+    b64 = bound(*work_narrow(name, L, nr, C, 8, rows), FP64_FLOPS_PER_S)[0]
+    print(f"narrow {name} {str(lam.dtype)[6:]} table, float64 batch, "
+          f"{label}: max|err|/max|ref| {err / scale:.2e} (<= {NARROW_TOL}); "
+          f"kernel {ms:.4f} ms, plain {pms:.4f} ms, float64 kernel on the "
+          f"float64 table {f64:.4f} ms (its bound {b64:.4f} ms), torch.einsum "
+          f"on the upcast table "
+          + (f"{lib:.4f} ms" if lib is not None else "none")
+          + f"; bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} "
+          f"of it reached; {flops / ms * 1e-9:.2f} TFLOP/s, "
+          f"{nbytes / ms * 1e-6:.0f} GB/s [{card}]", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+            "f64_kernel_ms": f64, "f64_bound_ms": b64}
+
+
+def phase_narrow_kernels(torch, lk, dev, card):
+    """(a) The four narrow-table float64 kernels against their plain
+    versions on the card, with bfloat16 and with float32 tables, at L 513:
+    the dense pair at NARROW_DENSE_SHAPES, the parity pair at
+    NARROW_PAR_SHAPES (flip and not), in the main path's layouts (x the
+    (m, C, l) view of the state's grids, g the (m, r, C) view of an (m, C,
+    r) copy), and slab 0 of the two-way split (m_rows(513, 2)) of the
+    dense pair at the cut rings and of the parity pair at 16 columns; each
+    timed beside its plain version, the float64 kernel on the float64
+    table and one torch.einsum on the upcast table and the rounded batch
+    (the parity pair's: the dense einsum on the mirrored table; none on a
+    parity slab), with the bound of the narrow table (bytes over 3.35
+    TB/s, FLOPs over 67 TFLOP/s).  Returns {kernel name with its suffix:
+    {shape key: record}}."""
+    from gibbssampler_tpu_torch.parallel import m_rows
+    gen = torch.Generator(device=dev).manual_seed(31)
+    f64, L = torch.float64, LMAX + 1
+    recs = {}
+    rows = m_rows(L, 2)[0]
+    ms0 = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+    idx = ms0.long()
+    for tdn, sfx in NARROW_SFX.items():
+        td = getattr(torch, tdn)
+        into = {name: recs.setdefault(f"{name}_{sfx}", {})
+                for name in NARROW_KERNELS}
+
+        def one(name, key, lam, b, args, out_shape, lam64, library,
+                rows=None):
+            into[name][key] = narrow_one(torch, lk, name, lam, b, args,
+                                         out_shape, lam64, key, card,
+                                         library, rows)
+
+        for nr, C in NARROW_DENSE_SHAPES:
+            lam64 = tri_table(torch, L, nr, f64, dev, gen)
+            lam = lam64.to(td)
+            x = x_view(torch.randn((L, C, L), generator=gen, dtype=f64,
+                                   device=dev))
+            g = g_view(torch.randn((L, nr, C), generator=gen, dtype=f64,
+                                   device=dev))
+            up, rx, rg = lam.double(), x.to(td).double(), g.to(td).double()
+            key = f"{nr} C{C}"
+            one("legendre_synth_tri", key, lam, x, (), (L, nr, C), lam64,
+                lambda: torch.einsum("mlr,mcl->mrc", up, rx))
+            one("legendre_adj_tri", key, lam, g, (), (C, L, L), lam64,
+                lambda: torch.einsum("mlr,mrc->mcl", up, rg))
+            if (nr, C) == NARROW_DENSE_SHAPES[0]:
+                ls, l64, us = (t.index_select(0, idx).contiguous()
+                               for t in (lam, lam64, up))
+                xs, gs = x.index_select(0, idx), g_view(g.index_select(0, idx))
+                rxs, rgs = xs.to(td).double(), gs.to(td).double()
+                key = f"{nr} C{C} slab 0 of 2"
+                one("legendre_synth_tri", key, ls, xs, (ms0,),
+                    (len(rows), nr, C), l64,
+                    lambda: torch.einsum("mlr,mcl->mrc", us, rxs), rows)
+                one("legendre_adj_tri", key, ls, gs, (ms0,),
+                    (C, len(rows), L), l64,
+                    lambda: torch.einsum("mlr,mrc->mcl", us, rgs), rows)
+                del ls, l64, us, xs, gs, rxs, rgs
+            del lam64, lam, x, g, up, rx, rg
+        for nr, C in NARROW_PAR_SHAPES:
+            lam64 = tri_table(torch, L, (nr + 1) // 2, f64, dev, gen)
+            lam = lam64.to(td)
+            x = x_view(torch.randn((L, C, L), generator=gen, dtype=f64,
+                                   device=dev))
+            g = g_view(torch.randn((L, nr, C), generator=gen, dtype=f64,
+                                   device=dev))
+            rx, rg = x.to(td).double(), g.to(td).double()
+            for flip in (True, False):
+                key = f"{nr} C{C}" + (" flip" if flip else "")
+                full = mirrored_table(torch, lam.double(), nr, flip)
+                one("legendre_synth_par", key, lam, x, (nr, flip),
+                    (L, nr, C), lam64,
+                    lambda: torch.einsum("mlr,mcl->mrc", full, rx))
+                one("legendre_adj_par", key, lam, g, (flip,), (C, L, L),
+                    lam64, lambda: torch.einsum("mlr,mrc->mcl", full, rg))
+                del full
+            if (nr, C) == NARROW_PAR_SHAPES[0]:
+                ls, l64 = (t.index_select(0, idx).contiguous()
+                           for t in (lam, lam64))
+                key = f"{nr} C{C} slab 0 of 2"
+                one("legendre_synth_par", key, ls, x.index_select(0, idx),
+                    (nr, False, ms0), (len(rows), nr, C), l64, None, rows)
+                one("legendre_adj_par", key, ls,
+                    g_view(g.index_select(0, idx)), (False, ms0),
+                    (C, len(rows), L), l64, None, rows)
+                del ls, l64
+            del lam64, lam, x, g, rx, rg
+        torch.cuda.empty_cache()
+    return recs
+
+
+def narrow_datasets(torch, dev):
+    """The CG phase's float64 band dataset (GL 513 x 1026, cut over 65
+    rings, flagship.dataset's seed) with float64 tables and with each
+    narrow table dtype, each built as a user would:
+    flagship.dataset(..., sht=flagship.flagship_sht(..., dtype=float64,
+    table_dtype=...)).  Returns ({table dtype name: cut model}, the sky's
+    per-ell D_ell (2, lmax + 1))."""
+    from gibbssampler_tpu_torch import flagship
+    f64 = torch.float64
+    models = {}
+    for tdn in ("float64",) + tuple(NARROW_SFX):
+        t0 = time.time()
+        sht = flagship.flagship_sht("gl", LMAX, dev, f64, tdn)
+        m, dls, _ = flagship.dataset("gl", "band", LMAX, dev, f64, sht=sht)
+        td = getattr(torch, tdn)
+        check(m.cut_sht.nrings == CUT_RINGS and m.cut_sht.dtype == f64
+              and m.sht.table_dtype == m.cut_sht.table_dtype == td
+              and m.cut_sht.lam_p2.dtype == td,
+              f"narrow CG dataset {tdn}: the float64 cut decomposition on "
+              f"{tdn} tables")
+        torch.cuda.synchronize()
+        print(f"narrow CG dataset, float64 compute on {tdn} tables: built in "
+              f"{time.time() - t0:.1f} s; table bytes full grid "
+              f"{table_bytes(m.sht) / 1e9:.3f} GB, cut "
+              f"{table_bytes(m.cut_sht) / 1e9:.4f} GB", flush=True)
+        models[tdn] = m
+    return models, dls
+
+
+def phase_narrow_transforms(torch, lk, dev, card, models):
+    """(b) The spin-2 transforms with narrow tables under float64 compute
+    against the float64-table ones at CG_CHAINS chains: the band dataset's
+    cut transform (65 rings; synthesis and adjoint), the full GL grid
+    ring-split and HEALPix nside 256 (padded layout, dense; synthesis,
+    adjoint and analysis): max|err|/max|ref| (<= NARROW_TRANSFORM_TOL), ms
+    per transform (3 calls, CUDA events, beside the float64-table one) and
+    table bytes.  The counts are set to 0 before and read after; returns
+    {table dtype name: narrow_counts}."""
+    from gibbssampler_tpu_torch import flagship
+    from gibbssampler_tpu_torch.harmonics import ell_mask_state, nstate
+    gen = torch.Generator(device=dev).manual_seed(32)
+    f64 = torch.float64
+    lk.reset_launch_counts()
+    for label, mk in (
+            ("GL band cut", lambda tdn: models[tdn].cut_sht),
+            ("GL full grid ring-split", lambda tdn: flagship.flagship_sht(
+                "gl", LMAX, dev, f64, tdn, ring_split=True)),
+            ("HEALPix nside 256", lambda tdn: flagship.flagship_sht(
+                "healpix", LMAX, dev, f64, tdn))):
+        ref = mk("float64")
+        shp = (ref.npix_layout,) if hasattr(ref, "geo") else (ref.nrings,
+                                                             ref.nphi)
+        m2 = torch.as_tensor(ell_mask_state(LMAX, 2), dtype=f64, device=dev)
+        e, b = (torch.randn((CG_CHAINS, nstate(LMAX)), generator=gen,
+                            dtype=f64, device=dev) * m2 for _ in range(2))
+        q, u = (torch.randn((CG_CHAINS,) + shp, generator=gen, dtype=f64,
+                            device=dev) for _ in range(2))
+        meths = [("synthesis", "synthesis_spin2_state", (e, b)),
+                 ("adjoint", "adjoint_synthesis_spin2_state", (q, u))]
+        if label != "GL band cut":
+            meths.append(("analysis", "analysis_spin2_state", (q, u)))
+        for tdn in NARROW_SFX:
+            t0 = time.time()
+            tr = mk(tdn)
+            torch.cuda.synchronize()
+            built = time.time() - t0
+            td = getattr(torch, tdn)
+            check(tr.table_dtype == td and tr.dtype == f64 and all(
+                t is None or t.dtype == td
+                for t in (tr.lam0, tr.lam_p2, tr.lam_m2, tr.lam_w, tr.lam_x)),
+                f"narrow {label}: tables not in {tdn}")
+            tol = NARROW_TRANSFORM_TOL[tdn]
+            for what, meth, args in meths:
+                want = getattr(ref, meth)(*args)
+                got = getattr(tr, meth)(*args)
+                torch.cuda.synchronize()
+                err = max(float((a - r).abs().max() / r.abs().max())
+                          for a, r in zip(got, want))
+                check(err <= tol, f"narrow {label} {tdn} tables spin-2 "
+                      f"{what}: against float64 tables {err:.3g} > {tol}")
+                ms_f = time_ms(torch, lambda: getattr(ref, meth)(*args), 3)
+                ms_n = time_ms(torch, lambda: getattr(tr, meth)(*args), 3)
+                print(f"narrow {label} lmax {LMAX} spin-2 {what}, float64 "
+                      f"compute on {tdn} tables, {CG_CHAINS} chains: "
+                      f"max|err|/max|ref| against float64 tables {err:.2e} "
+                      f"(<= {tol}); {ms_n:.3f} ms per transform, float64 "
+                      f"tables {ms_f:.3f} ms [{card}]", flush=True)
+                del want, got
+            print(f"narrow {label} {tdn} tables: table bytes "
+                  f"{table_bytes(tr) / 1e9:.4f} GB (float64 tables "
+                  f"{table_bytes(ref) / 1e9:.4f} GB), built in {built:.1f} s",
+                  flush=True)
+            del tr
+        del ref, e, b, q, u
+        torch.cuda.empty_cache()
+    n = {tdn: narrow_counts(torch, lk, getattr(torch, tdn))
+         for tdn in NARROW_SFX}
+    check(all(all(v) for v in n.values()), f"narrow transforms: launches "
+          f"{n}; every narrow kernel must run")
+    return n
+
+
+def phase_narrow_cg(torch, lk, dev, card, models, dls):
+    """(c) The CG phase's cg_cr at full width on the band dataset with
+    float64, float32 and bfloat16 tables under float64 compute (CG_CHAINS
+    chains, the prior of the true spectrum in unit bins, one noise pool
+    seed; each model warmed up by a 2-iteration solve): tol NARROW_CG_TOL,
+    the bfloat16 tables capped at each of NARROW_BF16_CAPS iterations (one
+    solve each: the true residual's path); per chain the iterations,
+    whether it stopped below the cap, and the true ||b - Qx|| / ||b||
+    recomputed with the solve's own operator and with the float64-table
+    one; ms per solve and per iteration; 2 + 2 launches per iteration of
+    the table dtype's kernels and none of another.  Every float32-table and
+    float64-table chain must converge (true residual <= 2 tol); the
+    bfloat16 tables' floor (the least true residual over the caps) is
+    printed.  Each solve's counts are set to 0 before and read after;
+    returns {table dtype name: narrow_counts} summed over the narrow
+    solves."""
+    from gibbssampler_tpu_torch.samplers import cr as cr_mod
+    from gibbssampler_tpu_torch.schemes import CenteredGibbs
+    f64 = torch.float64
+    ubins = np.arange(2, LMAX + 2)
+    out, base = {}, {}
+    m64 = models["float64"]
+    for tdn, m in models.items():
+        scheme = CenteredGibbs(m, [ubins, ubins], cr_method="cg",
+                               cr_options={"cg_maxiter": CG_MAXITER})
+        var = scheme.var_cls(tuple(
+            torch.as_tensor(d[2:], dtype=f64, device=dev)
+            .expand(CG_CHAINS, -1) for d in dls))
+        inv = torch.where(var > 0, 1.0 / torch.where(var > 0, var, 1.0), 0.0)
+        bt = scheme.bt_ninv_d
+        pool = scheme.draw_noise_pool(
+            CG_CHAINS, torch.Generator(device=dev).manual_seed(7))
+        cr_mod.cg_cr(m, var, bt, tol=NARROW_CG_TOL, maxiter=2, noise=pool)
+        b = cr_mod.fluctuated_rhs(m, var, bt, noise=pool)
+        floor = []
+        for cap in (NARROW_BF16_CAPS if tdn == "bfloat16" else (CG_MAXITER,)):
+            lk.reset_launch_counts()
+            (x, info), ms = cuda_ms(torch, lambda: cr_mod.cg_cr(
+                m, var, bt, tol=NARROW_CG_TOL, maxiter=cap, noise=pool))
+            nc = {t: narrow_counts(torch, lk, getattr(torch, t))
+                  for t in NARROW_SFX}
+            if tdn == "float64":
+                d, other = counts(lk)[2:], counts(lk)[:2] + tuple(
+                    sum(v) for v in nc.values())
+            else:
+                out[tdn] = tuple(a + c for a, c in zip(
+                    out.get(tdn, (0, 0, 0, 0)), nc[tdn]))
+                d, other = nc[tdn][:2], counts(lk) + nc[tdn][2:] + tuple(
+                    sum(v) for t, v in nc.items() if t != tdn)
+            its = info.extra.cpu().numpy().astype(np.int64)
+            n = int(its.max())
+            check(tuple(d) == (2 * n, 2 + 2 * n) and sum(other) == 0,
+                  f"narrow cg_cr {tdn} tables: launches {d} (expected (2 x "
+                  f"{n}, 2 + 2 x {n})), other kernels' {other} (expected "
+                  f"none)")
+            res = []
+            for op in (m, m64):
+                r = b - op.q_apply_cut(x, inv)
+                res.append((r.norm(dim=(-2, -1)) / b.norm(dim=(-2, -1)))
+                           .cpu().numpy())
+            conv = its < cap
+            if tdn != "bfloat16":
+                check(conv.all() and res[0].max() <= 2 * NARROW_CG_TOL,
+                      f"narrow cg_cr {tdn} tables: converged "
+                      f"{conv.tolist()}, true residual max "
+                      f"{res[0].max():.3g} > 2 x {NARROW_CG_TOL}")
+            floor.append(res[0])
+            base.setdefault("ms_iter", ms / n)
+            print(f"narrow cg_cr float64 compute on {tdn} tables, tol "
+                  f"{NARROW_CG_TOL:g}, cap {cap}: per chain iterations "
+                  f"{its.tolist()}, converged {conv.astype(int).tolist()}, "
+                  f"true residual {[f'{v:.3g}' for v in res[0]]} "
+                  f"(float64-table operator "
+                  f"{[f'{v:.3g}' for v in res[1]]}); {ms:.1f} ms per solve, "
+                  f"{ms / n:.3f} ms per iteration (float64 tables "
+                  f"{base['ms_iter']:.3f}); launches synthesis {d[0]}, "
+                  f"adjoint {d[1]} [{card}]", flush=True)
+        if tdn == "bfloat16":
+            best = np.min(floor, axis=0)
+            print(f"narrow cg_cr bfloat16 tables: the floor, each chain's "
+                  f"least true ||b - Qx||/||b|| over the caps "
+                  f"{NARROW_BF16_CAPS}: {[f'{v:.3g}' for v in best]} (at cap "
+                  f"{[NARROW_BF16_CAPS[k] for k in np.argmin(floor, axis=0)]})"
+                  f"; none at tol {NARROW_CG_TOL:g} [{card}]", flush=True)
+        del scheme, x, b, pool, var, inv
+    return out
+
+
+def phase_narrow(torch, lk, dev, card):
+    """The narrow-table phase: (a) the kernels, (b) the transforms and (c)
+    the CG solves (phase_narrow_*).  Returns ((a)'s records, {table dtype
+    name: the launches of (b) and (c)})."""
+    t0 = time.time()
+    recs = phase_narrow_kernels(torch, lk, dev, card)
+    models, dls = narrow_datasets(torch, dev)
+    n_b = phase_narrow_transforms(torch, lk, dev, card, models)
+    n_c = phase_narrow_cg(torch, lk, dev, card, models, dls)
+    del models
+    torch.cuda.empty_cache()
+    launches = {tdn: [a + b for a, b in zip(n_b[tdn], n_c[tdn])]
+                for tdn in NARROW_SFX}
+    print(f"narrow phase: {time.time() - t0:.1f} s; launches on its paths "
+          f"(dense synth, adj, parity synth, adj) {launches} [{card}]",
+          flush=True)
+    return recs, launches
+
+
 def main():
     t_start = time.time()
     import torch
@@ -3879,6 +4306,9 @@ def main():
           f" (dense synth, adj, parity synth, adj) {bf_launches} [{card}]",
           flush=True)
     torch.cuda.empty_cache()
+    # float64 compute on narrow tables: (a) the kernels, (b) the
+    # transforms, (c) the CG solves
+    nw_rec, nw_launches = phase_narrow(torch, lk, dev, card)
     print_shapes("engine sweeps", tally["shapes"])
     checked, new_rec, new_rec64 = phase_new_shapes(torch, lk, dev, card,
                                                    new_shapes)
@@ -3953,6 +4383,23 @@ def main():
             "replaces": f"gibbssampler_tpu/sht/pallas_legendre.py:{line}",
             "launches": bf_launches[i], **recs[key],
             "by_shape": {str(k): r for k, r in recs.items()}})
+    # the narrow-table float64 kernels: top-level times at the band's cut
+    # rings (dense) and the GL grid's 257 north rings (parity), the CG
+    # family's 8 chains
+    for tdn, sfx in NARROW_SFX.items():
+        for i, (name, line, key) in enumerate((
+                ("legendre_synth_tri", 52, f"{CUT_RINGS} C{2 * CG_CHAINS}"),
+                ("legendre_adj_tri", 106, f"{CUT_RINGS} C{2 * CG_CHAINS}"),
+                ("legendre_synth_par", 52, f"{LMAX + 1} C{2 * CG_CHAINS}"),
+                ("legendre_adj_par", 106, f"{LMAX + 1} C{2 * CG_CHAINS}"))):
+            recs = nw_rec[f"{name}_{sfx}"]
+            kernels.append({
+                "name": f"{name}_{sfx}", "route": "cuda",
+                "source": "gibbssampler_tpu_torch/csrc/"
+                          "legendre_tri_narrow_f64.cu",
+                "replaces": f"gibbssampler_tpu/sht/pallas_legendre.py:{line}",
+                "launches": nw_launches[tdn][i], **recs[key],
+                "by_shape": recs})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched by the main path")
     print(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s "

@@ -530,18 +530,27 @@ def _prepare_tchunks(model, cut, mchunks, w1, dt, nyq: bool = False):
     omega, lnyq): lnyq is None, the (J, nr) spin-0 column, or the (lam+2,
     lam-2) pair of spin-2 columns.
 
-    With bfloat16 tables, as in the JAX package: the tables keep their
-    bfloat16 values (held in ``dt``; the sweep's contractions with them
-    run in ``dt``), and W weighs them with the weights rounded to
-    bfloat16 (``w1.astype(lam_j.dtype)``).  The JAX source forms that
-    weighted table in bfloat16; compiled, XLA keeps the product in float32
-    (its default excess precision), and so does the port: the product of
-    two bfloat16 values is exact in float32."""
+    With tables narrower than the compute dtype, as in the JAX package: the
+    tables keep their table-dtype values (held in ``dt``; the sweep's
+    contractions with them run in ``dt``), and W weighs them with the
+    weights rounded to the table dtype (``w1.astype(lam_j.dtype)``).  The
+    JAX source forms that weighted table in the table dtype; compiled,
+    XLA keeps a bfloat16 product in float32 when W is summed in float32
+    (its default excess precision: the product of two bfloat16 values is
+    exact in float32) and rounds it to the table dtype when W is summed in
+    float64.  The port does the same (``weighted``)."""
     n = float(cut.nphi)
     L = model.lmax + 1
     pos = cut.pos.to(dt)
-    if cut.table_dtype == torch.bfloat16:
-        w1 = w1.to(torch.bfloat16).to(dt)
+    td = cut.table_dtype
+    narrow = td != cut.dtype
+    if narrow:
+        w1 = w1.to(td).to(dt)
+
+    def weighted(lam_j):
+        """lam_j * w1 as the compiled JAX package forms it."""
+        lw = lam_j * w1
+        return lw.to(td).to(dt) if narrow and dt == torch.float64 else lw
     out = []
     for (f, j_idx, seg, gbins, rows) in mchunks:
         # lsel_table gathers a fresh (L, J, nr) tensor: zeroing its Nyquist
@@ -552,7 +561,7 @@ def _prepare_tchunks(model, cut, mchunks, w1, dt, nyq: bool = False):
             if nyq:
                 lnyq = lam0_j[L - 1].clone()
                 lam0_j[L - 1] = 0.0
-            W00 = torch.einsum("mjr,mkr->mjk", lam0_j * w1, lam0_j)
+            W00 = torch.einsum("mjr,mkr->mjk", weighted(lam0_j), lam0_j)
             omega = np.full((2, L), 2.0 * n)
             omega[0, 0] = n
             omega[1, 0] = 0.0
@@ -567,8 +576,8 @@ def _prepare_tchunks(model, cut, mchunks, w1, dt, nyq: bool = False):
                 lnyq = (lamp_j[L - 1].clone(), lamm_j[L - 1].clone())
                 lamp_j[L - 1] = 0.0
                 lamm_j[L - 1] = 0.0
-            Wpp = torch.einsum("mjr,mkr->mjk", lamp_j * w1, lamp_j)
-            Wmm = torch.einsum("mjr,mkr->mjk", lamm_j * w1, lamm_j)
+            Wpp = torch.einsum("mjr,mkr->mjk", weighted(lamp_j), lamp_j)
+            Wmm = torch.einsum("mjr,mkr->mjk", weighted(lamm_j), lamm_j)
             out.append(("s2", lamp_j, lamm_j,
                         n * (Wpp + pos[:, None, None] * Wmm), None, lnyq))
     return out

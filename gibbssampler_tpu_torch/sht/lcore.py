@@ -29,17 +29,19 @@ kernels: in terms of l - m the sign does not depend on m.  The split has
 no ell-selected, binned or shared-stack syntheses; those raise, as in the
 JAX package.
 
-bfloat16 tables (``table_dtype=bfloat16`` with float32 compute): every
-table is stored in bfloat16 and the kernels run their bfloat16 mode
-(``sht.legendre_kernels``: the float32 batch rounded to bfloat16, products
-summed in float32, a float32 output), the JAX package's
-``einsum(table, g.astype(table_dtype), preferred_element_type=float32)``.
-Under the split the JAX package keeps the equator row of each half table
-in the compute dtype; so does the port: the bfloat16 half table holds a
-zero equator row, which the parity kernels contract to nothing, and
-``eq_rows`` holds the float32 row, contracted in float32 by ``_synth_par``
-(against the rounded grid) and ``_adj_par`` (against the float32 ring
-coefficients), as in the JAX package.
+Tables narrower than the compute dtype (``table_dtype``: bfloat16 with
+float32 compute; bfloat16 or float32 with float64 compute): every table is
+stored in the table dtype and the kernels run their narrow-table mode
+(``sht.legendre_kernels``: the batch rounded to the table dtype, products
+summed in the compute dtype, an output in the compute dtype), the JAX
+package's ``einsum(table, g.astype(table_dtype),
+preferred_element_type=dtype)``.  Under the split the JAX package keeps the
+equator row of each half table in the compute dtype; so does the port: the
+narrow half table holds a zero equator row, which the parity kernels
+contract to nothing, and ``eq_rows`` holds the compute-dtype row,
+contracted in the compute dtype by ``_synth_par`` (against the rounded
+grid) and ``_adj_par`` (against the unrounded ring coefficients), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +58,10 @@ from .legendre_kernels import (legendre_adj_par, legendre_adj_tri,
 __all__ = ["FlatAlmMethods", "LegendreCore", "grid_symmetric"]
 
 _NO_LSEL = "ell-selected synthesis requires ring_split=False tables"
+# the (table, compute) dtype pairs of tables narrower than the computation
+NARROW_TABLES = ((torch.bfloat16, torch.float32),
+                 (torch.bfloat16, torch.float64),
+                 (torch.float32, torch.float64))
 
 
 def grid_symmetric(theta) -> bool:
@@ -70,11 +76,9 @@ def grid_symmetric(theta) -> bool:
 
 def resolve_table_dtype(table_dtype, dtype):
     """The operator tables' dtype: None (the compute dtype), the compute
-    dtype itself, or bfloat16 with float32 compute; each as a torch dtype,
-    its name, or a numpy (ml_dtypes) dtype or type.  Another pair raises
-    NotImplementedError: the JAX package's tables in another dtype than a
-    float64 compute dtype (bfloat16 or float32 products accumulated in
-    float64) are queued in ROADMAP.md."""
+    dtype itself, a narrower one (``NARROW_TABLES``); each as a torch
+    dtype, its name, or a numpy (ml_dtypes) dtype or type.  Another pair
+    raises NotImplementedError."""
     if table_dtype is None:
         return dtype
     td = table_dtype
@@ -83,13 +87,13 @@ def resolve_table_dtype(table_dtype, dtype):
         td = getattr(td, "name", None) or getattr(td, "__name__", None)
     if isinstance(td, str):
         td = getattr(torch, td, None)
-    if td == dtype or (td == torch.bfloat16 and dtype == torch.float32):
+    if td == dtype or (td, dtype) in NARROW_TABLES:
         return td
     raise NotImplementedError(
         f"table_dtype={table_dtype} with compute dtype {dtype}: the "
-        "port takes tables in the compute dtype, or bfloat16 tables with "
-        "float32 compute; tables in another dtype than a float64 compute "
-        "dtype are queued in ROADMAP.md")
+        "port takes tables in the compute dtype, bfloat16 tables with "
+        "float32 compute, or bfloat16 or float32 tables with float64 "
+        "compute")
 
 
 class LegendreCore:
@@ -100,7 +104,7 @@ class LegendreCore:
         self.lmax = lmax
         self.dtype = dtype
         self.table_dtype = resolve_table_dtype(table_dtype, dtype)
-        # split bfloat16 tables: {table name: its float32 equator row}
+        # split narrow tables: {table name: its compute-dtype equator row}
         self.eq_rows = {}
         self.m_block = int(m_block)
         nr = np.asarray(theta).shape[0]
@@ -131,7 +135,7 @@ class LegendreCore:
     def _table(self, tab, name: str) -> torch.Tensor:
         """fp64 numpy (L, L, nt) table at ``_table_theta``'s rings ->
         contiguous device tensor in the table dtype, to be stored as
-        attribute ``name``.  A split bfloat16 table's equator row goes to
+        attribute ``name``.  A split narrow table's equator row goes to
         ``eq_rows[name]`` in the compute dtype, and is zero in the table."""
         t = torch.as_tensor(tab, dtype=self.table_dtype,
                             device=self.device).contiguous()
@@ -171,13 +175,14 @@ class LegendreCore:
         """A host (float64) trig matrix as the azimuthal stages hold it:
         rounded to the table dtype, as the JAX package stores it, and kept
         in the compute dtype, so that a plain product of it with a rounded
-        operand forms the JAX package's exact bfloat16 products."""
+        operand forms the JAX package's exact products of table-dtype
+        values."""
         return torch.as_tensor(np.ascontiguousarray(a),
                                dtype=self.table_dtype,
                                device=self.device).to(self.dtype)
 
     def _equator_row(self, lam: torch.Tensor):
-        """The compute-dtype equator row (M, L) of the split bfloat16 table
+        """The compute-dtype equator row (M, L) of the split narrow table
         ``lam`` (one of this transform's own), or None."""
         for name, row in self.eq_rows.items():
             if getattr(self, name) is lam:
@@ -186,7 +191,7 @@ class LegendreCore:
 
     def _synth_par(self, lam, x, flip, ms=None):
         """The parity synthesis of the (M, C, L) batch view ``x`` over all
-        the grid's rings, with a split bfloat16 table's equator row
+        the grid's rings, with a split narrow table's equator row
         contracted in the compute dtype against the rounded grid."""
         out = legendre_synth_par(lam, x, 2 * self.nrh + self.has_mid, flip,
                                  ms)
@@ -198,7 +203,7 @@ class LegendreCore:
 
     def _adj_par(self, lam, gk, flip, ms=None):
         """The parity adjoint of the (M, nr, C) view ``gk`` -> (M, C, L),
-        with a split bfloat16 table's equator row added in the compute
+        with a split narrow table's equator row added in the compute
         dtype."""
         out = legendre_adj_par(lam, gk, flip, ms)
         mid = self._equator_row(lam)
@@ -259,11 +264,11 @@ class LegendreCore:
         in the output's layout (the (J, nr, m) table slice and the (..., J,
         c, m) grid columns are small), so the large tensor is written once,
         contiguously, and the bins' segment sums are one matrix product
-        over J.  With bfloat16 tables, as in the JAX package, the grid is
-        rounded to bfloat16, the product is formed in bfloat16 (so
-        rounded), and the segment sums, of the bfloat16 segment matrix, are
-        taken in the compute dtype (a matrix product of bfloat16 tensors
-        would round its result)."""
+        over J.  With narrow tables, as in the JAX package, the grid is
+        rounded to the table dtype, the product is formed in the table
+        dtype (so rounded), and the segment sums, of the segment matrix in
+        the table dtype, are taken in the compute dtype (a matrix product
+        of table-dtype tensors would round its result)."""
         if self.ring_split:
             raise NotImplementedError(_NO_LSEL)
         if not isinstance(j_idx, torch.Tensor):

@@ -51,16 +51,18 @@ even and odd l - m apart.  These are the JAX package's split contractions
 ``_ladj_stack_sym``, einsums there).  Layouts, the slab form and the
 outputs are those of the dense kernels.
 
-The bfloat16 table mode (the JAX package's ``table_dtype=bfloat16``):
-lam in bfloat16 with x or g in float32, the output float32.  It is the
-JAX contraction ``einsum(lam, b.astype(bfloat16),
-preferred_element_type=float32)``: the batch is rounded to bfloat16 (to
-nearest, ties to even), the products of the rounded values are exact in
-float32 and are summed in float32.  The parity adjoint forms its fold
-g[r] + f (-1)^(l+m) g[nr-1-r] in float32 and rounds the fold, as the JAX
-package's ``U = (Gn + Gs).astype(table_dtype)`` does.  Any other pair of
-dtypes than (float32, float32), (float64, float64) and (bfloat16,
-float32) raises ``TypeError``.
+The narrow-table modes (the JAX package's ``table_dtype`` narrower than
+its compute dtype): lam in bfloat16 with x or g in float32, or lam in
+bfloat16 or float32 with x or g in float64; the output in the batch's
+dtype.  Each is the JAX contraction ``einsum(lam, b.astype(lam.dtype),
+preferred_element_type=b.dtype)``: the batch is rounded to the table
+dtype (to nearest, ties to even; a float64 value bound for bfloat16 is
+rounded to float32 first, as JAX's and torch's conversions do), the
+products of the rounded values are exact in the batch's dtype and are
+summed in it.  The parity adjoint forms its fold g[r] + f (-1)^(l+m)
+g[nr-1-r] in the batch's dtype and rounds the fold, as the JAX package's
+``U = (Gn + Gs).astype(table_dtype)`` does.  Any other pair of dtypes than
+those of ``_SUFFIX`` raises ``TypeError``.
 
 The kernels (``csrc/``; design and bounds are noted in each source) are
 compiled with nvcc for sm_90a at first use, into ``_build/`` beside the
@@ -72,16 +74,20 @@ through a ``cp.async`` ring to the FMA pipes, both parity kernels to the
 fp64 tensor cores), ``legendre_tri_bf16.cu`` the bfloat16-table ones (bf16
 ``mma.sync`` with float32 accumulation; the dense synthesis at the ring
 tile ``bf16_synth_tile(nr)`` picks, the parity synthesis at the ring tile
-``bf16_par_synth_tile(nh)`` picks).  A
+``bf16_par_synth_tile(nh)`` picks), ``legendre_tri_narrow_f64.cu`` those of
+a bfloat16 or float32 table with a float64 batch (the table read in its
+own dtype, widened in registers, float64 sums on the FMA pipes).  A
 wrapper takes the plain ``torch.einsum`` version only for tensors on the
 CPU; for CUDA tensors it launches its kernel or raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (the parity wrappers
 apart from the dense ones), those of the float64 kernel alone also in
-``<wrapper>.launches_f64`` and those of the bfloat16 one in
-``<wrapper>.launches_bf16``, and each launch once more by its shape: a
-full-table launch in ``<wrapper>.shapes`` ({(L, nr, C, table dtype):
-launches}), a slab launch in ``<wrapper>.slabs`` ({(L, M, nr, C, table
-dtype): launches}).
+``<wrapper>.launches_f64``, those of the bfloat16 one (float32 batch) in
+``<wrapper>.launches_bf16`` and those of the narrow-table float64 ones in
+``<wrapper>.launches_narrow``, and each launch once more by its shape: a
+full-table launch in ``<wrapper>.shapes`` ({(L, nr, C, kernel dtype):
+launches}), a slab launch in ``<wrapper>.slabs`` ({(L, M, nr, C, kernel
+dtype): launches}); the kernel dtype is the table's, or for a float64
+batch on a narrower table the pair (table dtype, torch.float64).
 """
 
 from __future__ import annotations
@@ -135,11 +141,20 @@ _LIBS = {
                           "legendre_synth_par_bf16": _SYNTH_PAR_TILE_ARGS,
                           "legendre_adj_par_bf16": _ADJ_PAR_ARGS,
                           "legendre_tri_bf16_info": [_I, _I]},
+    "legendre_tri_narrow_f64": {
+        f"legendre_{kind}_{sfx}": args
+        for sfx in ("bf16f64", "f32f64")
+        for kind, args in (("synth_tri", _SYNTH_ARGS),
+                           ("adj_tri", _ADJ_ARGS),
+                           ("synth_par", _SYNTH_PAR_ARGS),
+                           ("adj_par", _ADJ_PAR_ARGS))},
 }
 # the (table, batch) dtype pairs the kernels take -> entry-point suffix
 _SUFFIX = {(torch.float32, torch.float32): "f32",
            (torch.float64, torch.float64): "f64",
-           (torch.bfloat16, torch.float32): "bf16"}
+           (torch.bfloat16, torch.float32): "bf16",
+           (torch.bfloat16, torch.float64): "bf16f64",
+           (torch.float32, torch.float64): "f32f64"}
 # the ring tiles of the bfloat16 dense synthesis (csrc/legendre_tri_bf16.cu)
 BF16_SYNTH_TILES = (80, 96, 128, 144)
 # the ring tiles of the float32 parity synthesis (csrc/legendre_tri.cu)
@@ -311,6 +326,7 @@ def reset_launch_counts() -> None:
     for fn in (legendre_synth_tri, legendre_adj_tri, legendre_synth_par,
                legendre_adj_par):
         fn.launches = fn.launches_f64 = fn.launches_bf16 = 0
+        fn.launches_narrow = 0
         fn.shapes = collections.Counter()
         fn.slabs = collections.Counter()
 
@@ -336,23 +352,26 @@ def _dtypes(name: str, lam: torch.Tensor, b: torch.Tensor) -> str:
         return _SUFFIX[(lam.dtype, b.dtype)]
     except KeyError:
         raise TypeError(f"{name}: dtypes {lam.dtype}, {b.dtype}; the "
-                        "kernels take float32 or float64 for both, or a "
-                        "bfloat16 table with a float32 batch") from None
+                        "kernels take float32 or float64 for both, a "
+                        "bfloat16 table with a float32 batch, or a bfloat16 "
+                        "or float32 table with a float64 batch") from None
 
 
-def _bf16_round(t: torch.Tensor) -> torch.Tensor:
-    """float32 values rounded to bfloat16 (to nearest, ties to even),
-    back in float32."""
-    return t.to(torch.bfloat16).to(torch.float32)
+def _round_to(t: torch.Tensor, td: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``td`` (to nearest, ties to even; float64 bound for
+    bfloat16 through float32, as torch and JAX convert it), back in
+    ``t``'s dtype."""
+    return t.to(td).to(t.dtype)
 
 
 def _plain_operands(name: str, lam: torch.Tensor, b: torch.Tensor):
-    """(lam, b) as the plain versions contract them: a bfloat16 table
-    upcast to float32 and the float32 batch rounded to bfloat16, so that
-    the float32 einsum forms the kernel's exact products (never an einsum
-    on bfloat16 tensors, whose result would be rounded to bfloat16)."""
-    if _dtypes(name, lam, b) == "bf16":
-        return lam.float(), _bf16_round(b)
+    """(lam, b) as the plain versions contract them: a narrow table upcast
+    to the batch's dtype and the batch rounded to the table dtype, so that
+    the einsum in the batch's dtype forms the kernel's exact products
+    (never an einsum on narrow tensors, whose result would be rounded)."""
+    _dtypes(name, lam, b)
+    if lam.dtype != b.dtype:
+        return lam.to(b.dtype), _round_to(b, lam.dtype)
     return lam, b
 
 
@@ -402,7 +421,7 @@ def legendre_adj_par_plain(lam: torch.Tensor, g: torch.Tensor,
                            flip: bool = False,
                            ms: torch.Tensor | None = None) -> torch.Tensor:
     nh = lam.shape[2]
-    bf16 = _dtypes("legendre_adj_par", lam, g) == "bf16"
+    _dtypes("legendre_adj_par", lam, g)
     gn = g[:, :nh]
     # the south mirror of north ring r < nr - nh; none for the equator
     gs = torch.zeros_like(gn)
@@ -410,9 +429,10 @@ def legendre_adj_par_plain(lam: torch.Tensor, g: torch.Tensor,
     if flip:
         gs = -gs
     u, v = gn + gs, gn - gs
-    if bf16:
-        # the fold in float32, then rounded (JAX's (Gn + Gs).astype(td))
-        lam, u, v = lam.float(), _bf16_round(u), _bf16_round(v)
+    if lam.dtype != g.dtype:
+        # the fold in g's dtype, then rounded (JAX's (Gn + Gs).astype(td))
+        lam, u, v = (lam.to(g.dtype), _round_to(u, lam.dtype),
+                     _round_to(v, lam.dtype))
     lam_e, lam_o = _parity_halves(lam, ms)
     return (torch.einsum("mlr,mrc->mcl", lam_e, u)
             + torch.einsum("mlr,mrc->mcl", lam_o, v))
@@ -469,8 +489,8 @@ def _launch(kind: str, lam: torch.Tensor, b: torch.Tensor,
     """One launch; ``nr`` (the output's rings) selects the parity mode."""
     if not _fns:
         build()
-    fn = _fns[f"legendre_{kind}_{'tri' if nr is None else 'par'}_"
-              f"{_SUFFIX[(lam.dtype, b.dtype)]}"]
+    sfx = _SUFFIX[(lam.dtype, b.dtype)]
+    fn = _fns[f"legendre_{kind}_{'tri' if nr is None else 'par'}_{sfx}"]
     M, L, nt = lam.shape
     # strides of size-1 axes are free in torch; the kernels index them at 0
     sb = [1 if size == 1 else s for size, s in zip(b.shape, b.stride())]
@@ -480,11 +500,11 @@ def _launch(kind: str, lam: torch.Tensor, b: torch.Tensor,
         C, args = b.shape[2], sb + [out.stride(0), out.stride(1)]
     if nr is not None:
         tail = [int(flip)]
-        if kind == "synth" and lam.dtype == torch.float32:
+        if kind == "synth" and sfx == "f32":
             tail.append(f32_par_synth_tile(nt))
-        elif kind == "synth" and lam.dtype == torch.bfloat16:
+        elif kind == "synth" and sfx == "bf16":
             tail.append(bf16_par_synth_tile(nt))
-    elif kind == "synth" and lam.dtype == torch.bfloat16:
+    elif kind == "synth" and sfx == "bf16":
         tail = [bf16_synth_tile(nt)]
     else:
         tail = []
@@ -498,17 +518,22 @@ def _launch(kind: str, lam: torch.Tensor, b: torch.Tensor,
                            f"CUDA error {err}")
 
 
-def _count(fn, lam: torch.Tensor, nr: int, C: int, ms) -> None:
-    """One launch of ``fn``'s kernel on ``lam`` at (nr, C), nr the output's
-    rings."""
+def _count(fn, lam: torch.Tensor, b: torch.Tensor, nr: int, C: int,
+           ms) -> None:
+    """One launch of ``fn``'s kernel on (``lam``, batch ``b``) at (nr, C),
+    nr the output's rings."""
     M, L = lam.shape[:2]
+    sfx = _SUFFIX[(lam.dtype, b.dtype)]
     fn.launches += 1
-    fn.launches_f64 += lam.dtype == torch.float64
-    fn.launches_bf16 += lam.dtype == torch.bfloat16
+    fn.launches_f64 += sfx == "f64"
+    fn.launches_bf16 += sfx == "bf16"
+    narrow = sfx in ("bf16f64", "f32f64")
+    fn.launches_narrow += narrow
+    dt = (lam.dtype, b.dtype) if narrow else lam.dtype
     if ms is None:
-        fn.shapes[(L, nr, C, lam.dtype)] += 1
+        fn.shapes[(L, nr, C, dt)] += 1
     else:
-        fn.slabs[(L, M, nr, C, lam.dtype)] += 1
+        fn.slabs[(L, M, nr, C, dt)] += 1
 
 
 def _check_card(name: str, lam: torch.Tensor, b: torch.Tensor) -> None:
@@ -532,7 +557,7 @@ def legendre_synth_tri(lam: torch.Tensor, x: torch.Tensor,
     out = torch.empty((M, nr, x.shape[1]), dtype=x.dtype, device=lam.device)
     if out.numel():
         _launch("synth", lam, x, out, ms)
-        _count(legendre_synth_tri, lam, nr, x.shape[1], ms)
+        _count(legendre_synth_tri, lam, x, nr, x.shape[1], ms)
     return out
 
 
@@ -555,7 +580,7 @@ def legendre_adj_tri(lam: torch.Tensor, g: torch.Tensor,
                       device=lam.device).transpose(0, 1)
     if out.numel():
         _launch("adj", lam, g, out, ms)
-        _count(legendre_adj_tri, lam, nr, C, ms)
+        _count(legendre_adj_tri, lam, g, nr, C, ms)
     return out
 
 
@@ -574,7 +599,7 @@ def legendre_synth_par(lam: torch.Tensor, x: torch.Tensor, nr: int,
     out = torch.empty((M, nr, x.shape[1]), dtype=x.dtype, device=lam.device)
     if out.numel():
         _launch("synth", lam, x, out, ms, nr, flip)
-        _count(legendre_synth_par, lam, nr, x.shape[1], ms)
+        _count(legendre_synth_par, lam, x, nr, x.shape[1], ms)
     return out
 
 
@@ -595,7 +620,7 @@ def legendre_adj_par(lam: torch.Tensor, g: torch.Tensor, flip: bool = False,
                       device=lam.device).transpose(0, 1)
     if out.numel():
         _launch("adj", lam, g, out, ms, nr, flip)
-        _count(legendre_adj_par, lam, nr, C, ms)
+        _count(legendre_adj_par, lam, g, nr, C, ms)
     return out
 
 

@@ -22,12 +22,13 @@ azimuthal stage has the JAX package's three forms (``fft_mode``):
 The ring-domain helpers of the blocked-MH engines (``ring_cs_of_maps``)
 stay "matmul" in every mode, as in the JAX package.
 
-With bfloat16 tables (``table_dtype``) the "matmul" and "ct" stages are
-the JAX package's bfloat16 products: their DFT, twiddle and Cooley-Tukey
-matrices hold bfloat16-rounded values (kept in float32), and each data
-operand is rounded to bfloat16 just before its product
-(``LegendreCore._round_td``), which runs in float32; "fft" takes no table
-dtype, in the JAX package and here.
+With tables narrower than the compute dtype (``table_dtype``: bfloat16
+under float32, bfloat16 or float32 under float64) the "matmul" and "ct"
+stages are the JAX package's table-dtype products: their DFT, twiddle and
+Cooley-Tukey matrices hold values rounded to the table dtype (kept in the
+compute dtype), and each data operand is rounded to the table dtype just
+before its product (``LegendreCore._round_td``), which runs in the compute
+dtype; "fft" takes no table dtype, in the JAX package and here.
 
 On the Gauss-Legendre grid ``analysis`` is the
 exact inverse of ``synthesis`` and ``adjoint_synthesis`` its exact
@@ -76,7 +77,8 @@ class SHT(FlatAlmMethods, LegendreCore):
     The JAX package's construction options, with its defaults:
     ``fft_mode`` ("matmul", "fft" or "ct": the module docstring);
     ``table_dtype`` (None: the compute dtype; bfloat16 with float32
-    compute; ``sht.lcore.resolve_table_dtype``); ``m_block`` (the JAX package's
+    compute; bfloat16 or float32 with float64 compute;
+    ``sht.lcore.resolve_table_dtype``); ``m_block`` (the JAX package's
     wedge m-blocking; stored and passed on to derived transforms, and no
     value of it changes a result or a launch: the kernels skip the l < m
     triangle row by row); ``ring_split`` (the north/south parity split,

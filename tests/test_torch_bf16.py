@@ -178,15 +178,32 @@ def test_pallas_kernels_bf16_match_plain_versions():
 
 
 def test_wrappers_take_only_the_bf16_float32_pair():
-    """A bfloat16 table takes a float32 batch only: a bfloat16 or float64
-    batch raises TypeError on the CPU as on the card."""
+    """A bfloat16 table with a narrow batch raises TypeError on the CPU as
+    on the card: a bfloat16 or float16 batch (the float64 batch is the
+    float64-compute mode, ``test_wrappers_take_the_bf16_float64_pair``)."""
     lam, x, g = _inputs(7, 5, 3, 0)
     lb = torch.as_tensor(lam).to(torch.bfloat16)
-    for bad in (torch.bfloat16, torch.float64):
+    for bad in (torch.bfloat16, torch.float16):
         with pytest.raises(TypeError):
             lk.legendre_synth_tri(lb, _t(x).to(bad))
         with pytest.raises(TypeError):
             lk.legendre_adj_par(lb, torch.zeros((7, 9, 3), dtype=bad))
+
+
+def test_wrappers_take_the_bf16_float64_pair():
+    """A bfloat16 table with a float64 batch is taken (the float64-compute
+    mode of tests/test_torch_f64_tables.py): every wrapper returns float64,
+    the batch rounded to bfloat16 and the products summed in float64."""
+    lam, x, g = _inputs(7, 5, 3, 0)
+    lb = torch.as_tensor(lam).to(torch.bfloat16)
+    x64 = torch.as_tensor(x, dtype=torch.float64)
+    out = lk.legendre_synth_tri(lb, x64)
+    assert out.dtype == torch.float64
+    ref = torch.einsum("mlr,mcl->mrc", lb.double(),
+                       x64.float().to(torch.bfloat16).double())
+    assert torch.equal(out, ref)
+    g9 = torch.as_tensor(np.random.default_rng(1).normal(size=(7, 9, 3)))
+    assert lk.legendre_adj_par(lb, g9).dtype == torch.float64
 
 
 # ---------------------------------------------------------------------------

@@ -520,3 +520,72 @@ def test_cuda_bf16_kernels_match_plain(cuda_device, L, nr, C):
     assert sum(f.launches_bf16 for f in (
         lk.legendre_synth_tri, lk.legendre_adj_tri, lk.legendre_synth_par,
         lk.legendre_adj_par)) == calls
+
+
+# (L, nr, C) of the narrow-table float64 kernels on the card: odd and even
+# L and nr (the parity pair's equator row and its absence), partial and
+# whole column tiles of 16, more than one degree-row tile of 128 and more
+# than one ring tile of 128
+NARROW_CARD_SHAPES = [(17, 13, 5), (37, 19, 17), (64, 33, 16),
+                      (160, 257, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("td", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("L,nr,C", NARROW_CARD_SHAPES)
+def test_cuda_narrow_f64_kernels_match_plain(cuda_device, td, L, nr, C):
+    """The narrow-table float64 kernels (bfloat16 or float32 table, float64
+    batch), dense and parity (flip and not), on the full table and the
+    two-way split's slabs, g with unit stride on r and on c, against their
+    plain versions on the card (1e-12 max|ref|: the same exact products,
+    float64 sums), the float64 outputs given NaN-filled memory; each launch
+    counted in ``launches_narrow`` and under the kernel dtype (td,
+    float64)."""
+    f64 = torch.float64
+    gen = torch.Generator(device=cuda_device).manual_seed(L + nr + C)
+    tri = (torch.arange(L, device=cuda_device)[None, :, None]
+           >= torch.arange(L, device=cuda_device)[:, None, None])
+    nh = (nr + 1) // 2
+    tabs = {n_: (torch.randn((L, L, n_), generator=gen, dtype=f64,
+                             device=cuda_device) * tri).to(td).contiguous()
+            for n_ in (nr, nh)}
+    x = torch.randn((L, C, L), generator=gen, dtype=f64, device=cuda_device)
+    g = torch.randn((L, nr, C), generator=gen, dtype=f64, device=cuda_device)
+    x[L - 1, 0, L - 1] = 1.0 + 2.0 ** -8 + 2.0 ** -30
+    xv, gv = _state_views(x, g)
+    lk.reset_launch_counts()
+    calls = 0
+    for ms in [None] + [torch.as_tensor(r, dtype=torch.int32,
+                                        device=cuda_device)
+                        for r in m_rows(L, 2)]:
+        sel = (lambda t: t) if ms is None else (
+            lambda t: t.index_select(0, ms.long()).contiguous())
+        xs = xv if ms is None else sel(xv)
+        gls = [g, gv] if ms is None else [_state_views(x, sel(g))[1]]
+        cases = [(lk.legendre_synth_tri, lk.legendre_synth_tri_plain,
+                  tabs[nr], xs, (), (L, nr, C))]
+        cases += [(lk.legendre_adj_tri, lk.legendre_adj_tri_plain, tabs[nr],
+                   gl, (), (C, L, L)) for gl in gls]
+        for flip in (False, True):
+            cases.append((lk.legendre_synth_par, lk.legendre_synth_par_plain,
+                          tabs[nh], xs, (nr, flip), (L, nr, C)))
+            cases += [(lk.legendre_adj_par, lk.legendre_adj_par_plain,
+                       tabs[nh], gl, (flip,), (C, L, L)) for gl in gls]
+        for kern, plain, lam, b, args, shape in cases:
+            torch.full(shape, float("nan"), dtype=f64, device=cuda_device)
+            out = kern(sel(lam), b, *args, ms)
+            ref = plain(sel(lam), b, *args, ms)
+            torch.cuda.synchronize()
+            calls += 1
+            assert out.dtype == f64
+            err = float((out - ref).abs().max())
+            assert bool(torch.isfinite(out).all())
+            assert err <= 1e-12 * float(ref.abs().max()), (
+                kern.__name__, ms is None, args, err)
+    fns = (lk.legendre_synth_tri, lk.legendre_adj_tri, lk.legendre_synth_par,
+           lk.legendre_adj_par)
+    assert sum(f.launches_narrow for f in fns) == calls
+    assert sum(f.launches_bf16 + f.launches_f64 for f in fns) == 0
+    assert sum(v for f in fns for k, v in (*f.shapes.items(),
+                                           *f.slabs.items())
+               if k[-1] == (td, f64)) == calls

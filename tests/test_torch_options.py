@@ -255,20 +255,38 @@ def test_m_block_leaves_results_unchanged(split):
 
 
 def test_table_dtype_takes_the_compute_dtype_and_refuses_others():
-    """None, the compute dtype or its name build the transform; bfloat16
-    (the JAX package's fast tables) or any other dtype raises
-    NotImplementedError, on every transform that takes the option."""
+    """None, the compute dtype or its name build the transform; so do the
+    narrow tables under float64 compute (bfloat16 or float32, as a torch
+    dtype, a name or a numpy dtype) on every transform that takes the
+    option; float16 tables, and float64 tables under float32 compute,
+    raise NotImplementedError."""
+    import ml_dtypes
     for td in (None, F64, "float64", np.dtype("float64")):
         assert make_sht(6, dtype=F64, table_dtype=td,
                         device="cpu").table_dtype == F64
-    for bad in (torch.bfloat16, "bfloat16", torch.float32):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_sht(6, dtype=F64, table_dtype=bad, device="cpu")
+    for td, want in ((torch.bfloat16, torch.bfloat16),
+                     ("bfloat16", torch.bfloat16),
+                     (np.dtype(ml_dtypes.bfloat16), torch.bfloat16),
+                     (torch.float32, torch.float32),
+                     ("float32", torch.float32),
+                     (np.float32, torch.float32)):
+        for ts in (make_sht(6, dtype=F64, table_dtype=td, device="cpu"),
+                   make_healpix_sht(2, 4, dtype=F64, table_dtype=td,
+                                    device="cpu"),
+                   PointSHT(np.array([1.0]), np.zeros((1, 2)),
+                            np.ones((1, 2)), 4, dtype=F64, device="cpu",
+                            table_dtype=td)):
+            assert ts.table_dtype == want and ts.lam0.dtype == want
+    for dtype, bad in ((F64, torch.float16), (F64, "float16"),
+                       (torch.float32, F64), (torch.float32, "float64")):
         with pytest.raises(NotImplementedError):
-            make_healpix_sht(2, 4, dtype=F64, table_dtype=bad, device="cpu")
+            make_sht(6, dtype=dtype, table_dtype=bad, device="cpu")
+        with pytest.raises(NotImplementedError):
+            make_healpix_sht(2, 4, dtype=dtype, table_dtype=bad,
+                             device="cpu")
         with pytest.raises(NotImplementedError):
             PointSHT(np.array([1.0]), np.zeros((1, 2)), np.ones((1, 2)), 4,
-                     dtype=F64, device="cpu", table_dtype=bad)
+                     dtype=dtype, device="cpu", table_dtype=bad)
 
 
 # ---------------------------------------------------------------------------
