@@ -16,8 +16,11 @@ non-zero:
    (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader);
 2. builds the CUDA kernels from gibbssampler_tpu_torch/csrc (one nvcc per
    source, started together, sm_90a) and prints ptxas's registers, spills
-   and shared memory for every kernel; builds and loads the native table
-   engine (csrc/tables.cpp, g++), failing if it does not load;
+   and shared memory for every kernel, and the plans (threads, dynamic
+   shared memory, resident blocks an SM) of the float64 kernels and of the
+   narrow-table float64 dense pair (legendre_kernels.narrow_plan) at the
+   narrow phase's dense shapes, with the card; builds and loads the native
+   table engine (csrc/tables.cpp, g++), failing if it does not load;
 3. compares each kernel with its plain PyTorch version (true float32) on
    the card at the JAX package's Pallas test shapes, a ragged shape, the
    main-path shapes (65 band rings, 83 floor rings and 211 point rows of
@@ -214,7 +217,9 @@ non-zero:
    columns), the parity pair at the grid's 257 north rings (16 and 32
    columns, flip and not), slab 0 of the two-way split of each; each timed
    beside its plain version, the float64 kernel on the float64 table and
-   torch.einsum on the upcast table, with the bound of the narrow table,
+   torch.einsum on the upcast table (the kernels and the einsum on the
+   device, replayed from a CUDA graph of 20 calls; the plain version and
+   the wrapper call back to back), with the bound of the narrow table,
    the float64 batch and output over 3.35 TB/s or the FLOPs over 67
    TFLOP/s; (b) the CG phase's float64 band dataset built on float64,
    float32 and bfloat16 tables (flagship.dataset with flagship_sht(...,
@@ -457,6 +462,32 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps):
+    """Mean device ms per call: ``reps`` calls captured in one CUDA graph
+    (after 2 warm calls on a side stream) and replayed between CUDA events,
+    so that no host time (a wrapper's checks, its launch) sits between the
+    calls.  ``fn`` must not synchronize with the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def x_view(x):
     """x as ``_lsynth_stack`` passes it: the (m, C, l) view of (C, m, l)
     grids."""
@@ -490,10 +521,11 @@ def bound(flops, nbytes, flops_per_s=TF32X3_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_build(lk):
+def phase_build(lk, card="card"):
     """Build every kernel source (nvcc in parallel) and the native table
-    engine (g++); print ptxas's report of each kernel and the float32
-    kernels' dynamic shared memory."""
+    engine (g++); print ptxas's report of each kernel, the float32
+    kernels' dynamic shared memory and the plans of the float64 and the
+    narrow-table float64 dense kernels, with the card."""
     from gibbssampler_tpu_torch.sht import legendre as tl
     t0 = time.time()
     built = lk.build()
@@ -519,6 +551,11 @@ def phase_build(lk):
     for nr, C in F64_TIMED:
         print(f"  float64 kernels' threads and dynamic shared memory "
               f"(bytes) at nr {nr}, C {C}: {lk.f64_plan(nr, C)}", flush=True)
+    for nr, C in NARROW_DENSE_SHAPES:
+        print(f"  narrow-table float64 dense kernels' threads, dynamic shared "
+              f"memory (bytes), resident blocks an SM and synthesis ring "
+              f"tiles at nr {nr}, C {C}: {lk.narrow_plan(nr, C)} [{card}]",
+              flush=True)
 
 
 TOLS = {"float32": 1e-5, "float64": 1e-12}
@@ -3838,8 +3875,12 @@ def narrow_one(torch, lk, name, lam, b, args, out_shape, lam64, label, card,
     NARROW_TOL max|ref|), its output given NaN-filled memory; timed beside
     the plain version (plain, kernel, float64 kernel, kernel, plain), the
     float64 kernel on the float64 table ``lam64`` and ``library`` (one
-    torch.einsum on the table upcast to float64, or None).  Returns the
-    record."""
+    torch.einsum on the table upcast to float64, or None).  The kernels and
+    the library call are timed on the device (graph_ms: at the CG's 65
+    rings a wrapper call takes longer on the host than its kernel on the
+    card), the plain version (whose slab form reads ms on the host) and the
+    wrapper call back to back with events (time_ms; "call_ms", host time
+    included).  Returns the record."""
     kern, plain = getattr(lk, name), getattr(lk, name + "_plain")
     torch.full(out_shape, float("nan"), dtype=torch.float64,
                device=lam.device)
@@ -3854,11 +3895,12 @@ def narrow_one(torch, lk, name, lam, b, args, out_shape, lam64, label, card,
     L, nr = lam.shape[1], out_shape[1] if synth else b.shape[1]
     C = out_shape[2] if synth else out_shape[0]
     p1 = time_ms(torch, lambda: plain(lam, b, *args), 20)
-    k1 = time_ms(torch, lambda: kern(lam, b, *args), 20)
-    f64 = time_ms(torch, lambda: kern(lam64, b, *args), 20)
-    k2 = time_ms(torch, lambda: kern(lam, b, *args), 20)
+    k1 = graph_ms(torch, lambda: kern(lam, b, *args), 20)
+    f64 = graph_ms(torch, lambda: kern(lam64, b, *args), 20)
+    k2 = graph_ms(torch, lambda: kern(lam, b, *args), 20)
     p2 = time_ms(torch, lambda: plain(lam, b, *args), 20)
-    lib = time_ms(torch, library, 20) if library else None
+    lib = graph_ms(torch, library, 20) if library else None
+    call = time_ms(torch, lambda: kern(lam, b, *args), 20)
     ms, pms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
     flops, nbytes = work_narrow(name, L, nr, C, lam.element_size(), rows)
     bound_ms, bound_by = bound(flops, nbytes, FP64_FLOPS_PER_S)
@@ -3871,10 +3913,11 @@ def narrow_one(torch, lk, name, lam, b, args, out_shape, lam64, label, card,
           + (f"{lib:.4f} ms" if lib is not None else "none")
           + f"; bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} "
           f"of it reached; {flops / ms * 1e-9:.2f} TFLOP/s, "
-          f"{nbytes / ms * 1e-6:.0f} GB/s [{card}]", flush=True)
+          f"{nbytes / ms * 1e-6:.0f} GB/s; the wrapper call back to back "
+          f"{call:.4f} ms [{card}]", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
-            "f64_kernel_ms": f64, "f64_bound_ms": b64}
+            "f64_kernel_ms": f64, "f64_bound_ms": b64, "call_ms": call}
 
 
 def phase_narrow_kernels(torch, lk, dev, card):
@@ -3888,9 +3931,10 @@ def phase_narrow_kernels(torch, lk, dev, card):
     timed beside its plain version, the float64 kernel on the float64
     table and one torch.einsum on the upcast table and the rounded batch
     (the parity pair's: the dense einsum on the mirrored table; none on a
-    parity slab), with the bound of the narrow table (bytes over 3.35
-    TB/s, FLOPs over 67 TFLOP/s).  Returns {kernel name with its suffix:
-    {shape key: record}}."""
+    parity slab; narrow_one says which are timed on the device), with the
+    bound of the narrow table (bytes over 3.35 TB/s, FLOPs over 67
+    TFLOP/s).  Returns {kernel name with its suffix: {shape key:
+    record}}."""
     from gibbssampler_tpu_torch.parallel import m_rows
     gen = torch.Generator(device=dev).manual_seed(31)
     f64, L = torch.float64, LMAX + 1
@@ -4201,7 +4245,7 @@ def main():
 
     from gibbssampler_tpu_torch import flagship
 
-    phase_build(lk)
+    phase_build(lk, card)
     if "--f64-parts" in sys.argv[1:]:
         print(json.dumps({"f64_parts_ms": phase_f64_parts(torch, lk, dev,
                                                           card)}), flush=True)

@@ -75,8 +75,10 @@ fp64 tensor cores), ``legendre_tri_bf16.cu`` the bfloat16-table ones (bf16
 ``mma.sync`` with float32 accumulation; the dense synthesis at the ring
 tile ``bf16_synth_tile(nr)`` picks, the parity synthesis at the ring tile
 ``bf16_par_synth_tile(nh)`` picks), ``legendre_tri_narrow_f64.cu`` those of
-a bfloat16 or float32 table with a float64 batch (the table read in its
-own dtype, widened in registers, float64 sums on the FMA pipes).  A
+a bfloat16 or float32 table with a float64 batch (the table kept in its
+own dtype in shared memory and widened in registers; the dense pair on the
+fp64 tensor cores, its plan in ``narrow_plan(nr, C)``, the parity pair's
+float64 sums on the FMA pipes).  A
 wrapper takes the plain ``torch.einsum`` version only for tensors on the
 CPU; for CUDA tensors it launches its kernel or raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (the parity wrappers
@@ -142,12 +144,13 @@ _LIBS = {
                           "legendre_adj_par_bf16": _ADJ_PAR_ARGS,
                           "legendre_tri_bf16_info": [_I, _I]},
     "legendre_tri_narrow_f64": {
-        f"legendre_{kind}_{sfx}": args
-        for sfx in ("bf16f64", "f32f64")
-        for kind, args in (("synth_tri", _SYNTH_ARGS),
-                           ("adj_tri", _ADJ_ARGS),
-                           ("synth_par", _SYNTH_PAR_ARGS),
-                           ("adj_par", _ADJ_PAR_ARGS))},
+        **{f"legendre_{kind}_{sfx}": args
+           for sfx in ("bf16f64", "f32f64")
+           for kind, args in (("synth_tri", _SYNTH_ARGS),
+                              ("adj_tri", _ADJ_ARGS),
+                              ("synth_par", _SYNTH_PAR_ARGS),
+                              ("adj_par", _ADJ_PAR_ARGS))},
+        "legendre_tri_narrow_f64_plan": [_I] * 4},
 }
 # the (table, batch) dtype pairs the kernels take -> entry-point suffix
 _SUFFIX = {(torch.float32, torch.float32): "f32",
@@ -319,6 +322,28 @@ def f64_plan(nr: int, C: int) -> dict:
                             ("adj par", fn(4, nr, C)))}
     plan["synth par"]["blocks_per_sm"] = fn(3, nr, C)
     plan["adj par"]["blocks_per_sm"] = fn(5, nr, C)
+    return plan
+
+
+def narrow_plan(nr: int, C: int) -> dict:
+    """The narrow-table float64 dense kernels' launch at nr rings and C
+    columns, for each table dtype: threads per block, dynamic shared memory
+    (bytes) and resident blocks an SM on the current card, and the
+    synthesis' ring tiles and rings a warp (the adjoint with g's unit
+    stride on r); builds first."""
+    if not _fns:
+        build()
+    fn = _fns["legendre_tri_narrow_f64_plan"]
+    plan = {}
+    for dt, es in (("bfloat16", 2), ("float32", 4)):
+        synth, adj = fn(0, es, nr, C), fn(3, es, nr, C)
+        plan[dt] = {
+            "synth": {"threads": synth >> 20, "smem": synth & 0xFFFFF,
+                      "blocks_per_sm": fn(1, es, nr, C),
+                      "ring_tiles": fn(2, es, nr, C),
+                      "warp_rings": fn(5, es, nr, C)},
+            "adj": {"threads": adj >> 20, "smem": adj & 0xFFFFF,
+                    "blocks_per_sm": fn(4, es, nr, C)}}
     return plan
 
 

@@ -17,8 +17,11 @@ adjoint at nr 513 and 1023; the float32 parity synthesis and parity
 adjoint at nr 513, C 256 and 512, and nr 1023, C 256; the float64 parity
 synthesis and parity adjoint at nr 513, C 16 and 32; the bfloat16 parity
 synthesis at nr 1023 too (parity kernels on half tables of ceil(nr / 2)
-rings); mean ms per call over
-``--reps`` launches between CUDA events.  Prints the
+rings); the dense pair on bfloat16 and float32 tables with a float64 batch
+("bfloat16+float64", "float32+float64") at nr 65, C 16 and nr 513, C 16
+and 32; mean ms per call over
+``--reps`` launches replayed from one CUDA graph between CUDA events (no
+host time between the launches).  Prints the
 card's name and power limit, one JSON line per run, then one JSON line of
 the mean of each tree's two runs per shape and this tree's ratio to the
 other's.  Needs a CUDA card.
@@ -27,8 +30,9 @@ other's.  Needs a CUDA card.
 a temporary directory, with the text patches of VARIANTS[NAME] applied (a
 design variant of one kernel, or the kernel with a part compiled out,
 which computes a wrong result on purpose: its copies, its MMAs or, for
-the bfloat16 dense adjoint and parity synthesis, its stores alone), and
-times only that kernel's SHAPES.
+the bfloat16 dense adjoint and parity synthesis and the narrow-table
+float64 dense pair, its staging pass or its stores alone), and times only
+that kernel's SHAPES.
 """
 
 import json
@@ -51,7 +55,9 @@ SHAPES = tuple((k, dt, C, nr) for dt, C, nr in (
     ("synth_par", "float64", 32, 513), ("adj_par", "float32", 256, 513),
     ("adj_par", "float32", 512, 513), ("adj_par", "float32", 256, 1023),
     ("adj_par", "float64", 16, 513), ("adj_par", "float64", 32, 513),
-    ("synth_par", "bfloat16", 256, 1023))
+    ("synth_par", "bfloat16", 256, 1023)) + tuple(
+    (k, f"{dt}+float64", C, nr) for dt in ("bfloat16", "float32")
+    for C, nr in ((16, 65), (16, 513), (32, 513)) for k in ("synth", "adj"))
 L = 513
 
 _F32 = "gibbssampler_tpu_torch/csrc/legendre_tri.cu"
@@ -91,6 +97,20 @@ def _bf16_par_tiles(a, b):
     return [(_PY, _BF16_PAR_TILES, f"BF16_PAR_SYNTH_TILES = ({a}, {b})"),
             (_BF16, "constexpr int kParTile0 = 128, kParTile1 = 144;",
              f"constexpr int kParTile0 = {a}, kParTile1 = {b};")]
+
+
+_NARROW = "gibbssampler_tpu_torch/csrc/legendre_tri_narrow_f64.cu"
+_NARROW_PARTS = "#define LEGENDRE_NARROW_PARTS 15"
+# the narrow-table float64 dense pair, both table dtypes
+_NARROW_SYNTH = tuple(("synth", f"{dt}+float64") for dt in ("bfloat16",
+                                                           "float32"))
+_NARROW_ADJ = tuple(("adj", f"{dt}+float64") for dt in ("bfloat16",
+                                                       "float32"))
+
+
+def _narrow_parts(bits):
+    """The patch that keeps the narrow dense pair's parts ``bits`` only."""
+    return [(_NARROW, _NARROW_PARTS, _NARROW_PARTS.replace("15", str(bits)))]
 
 
 _F64_ADJ = "constexpr int kAdjPar"
@@ -182,6 +202,30 @@ VARIANTS = {
     "f64-par-adj-3-blocks": (("adj_par", "float64"), [
         (_F64, _F64_BLOCKS, _F64_BLOCKS.replace(
             "SMEM <= 113", "SMEM <= 75 * 1024 ? 3 : SMEM <= 113"))]),
+    # the narrow-table float64 dense synthesis and adjoint, each part alone
+    # (LEGENDRE_NARROW_PARTS): the copies (the table's and the batch's), the
+    # staging pass (the batch rounded), the MMAs, the stores
+    **{f"narrow-{k}-{part}-only": (sel, _narrow_parts(bits))
+       for k, sel in (("synth", _NARROW_SYNTH), ("adj", _NARROW_ADJ))
+       for part, bits in (("copies", 1), ("staging", 2), ("mma", 4),
+                          ("stores", 8))},
+    # their design alternatives: three stages in flight, 64-row synthesis
+    # stages, synthesis warps of 16 rings at every nr, adjoint stages of 128
+    # bytes of each row (64 bfloat16 or 32 float32 rings), 128-row adjoint
+    # blocks of 4 warps
+    "narrow-synth-3-deep": (_NARROW_SYNTH, [
+        (_NARROW, "constexpr int kSynDepth = 2;", "constexpr int kSynDepth = 3;")]),
+    "narrow-synth-64-row-stages": (_NARROW_SYNTH, [
+        (_NARROW, "constexpr int kSynRows = 32;", "constexpr int kSynRows = 64;")]),
+    "narrow-synth-16-ring-warps": (_NARROW_SYNTH, [
+        (_NARROW, "mt = nr <= 16 * kSynMaxWarps ? 1 : 2;", "mt = 1;")]),
+    "narrow-adj-3-deep": (_NARROW_ADJ, [
+        (_NARROW, "constexpr int kAdjDepth = 2;", "constexpr int kAdjDepth = 3;")]),
+    "narrow-adj-128-byte-pieces": (_NARROW_ADJ, [
+        (_NARROW, "constexpr int kAdjPiece = 64;", "constexpr int kAdjPiece = 128;")]),
+    "narrow-adj-128-rows": (_NARROW_ADJ, [
+        (_NARROW, "constexpr int kAdjRows = 256;", "constexpr int kAdjRows = 128;"),
+        (_NARROW, "constexpr int kAdjWarps = 8;", "constexpr int kAdjWarps = 4;")]),
 }
 
 
@@ -207,6 +251,7 @@ def variant_tree(name: str) -> str:
 
 def time_tree(root: str, reps: int, shapes=SHAPES) -> dict:
     """{"<kernel> <dtype> nr<nr> C<C>": ms} of the package under root."""
+    import chip_smoke  # graph_ms, from this script's directory
     sys.path.insert(0, root)
     import torch
     from gibbssampler_tpu_torch.sht import legendre_kernels as lk
@@ -218,20 +263,15 @@ def time_tree(root: str, reps: int, shapes=SHAPES) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def ms_per_call(fn):
-        for _ in range(3):
-            fn()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        for _ in range(reps):
-            fn()
-        ev[1].record()
-        torch.cuda.synchronize()
-        return ev[0].elapsed_time(ev[1]) / reps
+        return chip_smoke.graph_ms(torch, fn, reps)
 
     out = {}
     for kind, dtype_name, C, nr in shapes:
-        dtype = getattr(torch, dtype_name)
-        batch = torch.float32 if dtype == torch.bfloat16 else dtype
+        # "table+batch" names a narrow table under a wider batch
+        tname, _, bname = dtype_name.partition("+")
+        dtype = getattr(torch, tname)
+        batch = getattr(torch, bname) if bname else (
+            torch.float32 if dtype == torch.bfloat16 else dtype)
         nt = (nr + 1) // 2 if kind.endswith("_par") else nr
         tri = (torch.arange(L, device=dev)[None, :]
                >= torch.arange(L, device=dev)[:, None])
@@ -261,8 +301,12 @@ def main() -> int:
     args = sys.argv[1:]
     variant = args[args.index("--variant") + 1] if "--variant" in args \
         else None
-    shapes = SHAPES if variant is None else tuple(
-        sh for sh in SHAPES if sh[:2] == VARIANTS[variant][0])
+    if variant is None:
+        shapes = SHAPES
+    else:  # one (kernel, dtype) pair or a tuple of them
+        sel = VARIANTS[variant][0]
+        sel = (sel,) if isinstance(sel[0], str) else sel
+        shapes = tuple(sh for sh in SHAPES if sh[:2] in sel)
     if "--worker" in args:
         root, reps = args[args.index("--worker") + 1], int(args[-1])
         print(json.dumps(time_tree(root, reps, shapes)), flush=True)

@@ -525,9 +525,18 @@ def test_cuda_bf16_kernels_match_plain(cuda_device, L, nr, C):
 # (L, nr, C) of the narrow-table float64 kernels on the card: odd and even
 # L and nr (the parity pair's equator row and its absence), partial and
 # whole column tiles of 16, more than one degree-row tile of 128 and more
-# than one ring tile of 128
+# than one ring tile of 128; then the dense pair's DMMA design: column
+# tiles of 8 (C 8), 32 (C 32) and more than one (C 40: 32 + 8), odd nr 65
+# at L >= 64 (bfloat16 rows at every 2-byte shift of a 16-byte chunk, one
+# ring tile of 5 warps of 16 rings), nr 129, 257 and 513 (warps of 32
+# rings: one, two and three synthesis ring tiles), adjoint row tiles of
+# 256 rows l more than one (L 300, and L 258 with a 2-row last tile at m 0
+# and 1, nr 16 even) and odd slabs of the two-way split (L 33: 17 and 16
+# rows; L 37: 19 and 18) for the synthesis' rows i and M-1-i
 NARROW_CARD_SHAPES = [(17, 13, 5), (37, 19, 17), (64, 33, 16),
-                      (160, 257, 33)]
+                      (160, 257, 33), (64, 65, 8), (300, 65, 32),
+                      (33, 129, 40), (258, 16, 16), (37, 65, 16),
+                      (20, 513, 8)]
 
 
 @pytest.mark.cuda
