@@ -18,8 +18,10 @@ non-zero:
    source, started together, sm_90a) and prints ptxas's registers, spills
    and shared memory for every kernel, and the plans (threads, dynamic
    shared memory, resident blocks an SM) of the float64 kernels and of the
-   narrow-table float64 dense pair (legendre_kernels.narrow_plan) at the
-   narrow phase's dense shapes, with the card; builds and loads the native
+   narrow-table float64 kernels (legendre_kernels.narrow_plan) at the
+   narrow phase's dense and parity shapes, the parity synthesis' ring
+   tiles held equal to legendre_kernels.narrow_par_synth_plan's, with the
+   card; builds and loads the native
    table engine (csrc/tables.cpp, g++), failing if it does not load;
 3. compares each kernel with its plain PyTorch version (true float32) on
    the card at the JAX package's Pallas test shapes, a ragged shape, the
@@ -525,7 +527,7 @@ def phase_build(lk, card="card"):
     """Build every kernel source (nvcc in parallel) and the native table
     engine (g++); print ptxas's report of each kernel, the float32
     kernels' dynamic shared memory and the plans of the float64 and the
-    narrow-table float64 dense kernels, with the card."""
+    narrow-table float64 kernels, with the card."""
     from gibbssampler_tpu_torch.sht import legendre as tl
     t0 = time.time()
     built = lk.build()
@@ -552,10 +554,26 @@ def phase_build(lk, card="card"):
         print(f"  float64 kernels' threads and dynamic shared memory "
               f"(bytes) at nr {nr}, C {C}: {lk.f64_plan(nr, C)}", flush=True)
     for nr, C in NARROW_DENSE_SHAPES:
+        plan = {dt: {k: v for k, v in p.items() if k in ("synth", "adj")}
+                for dt, p in lk.narrow_plan(nr, C).items()}
         print(f"  narrow-table float64 dense kernels' threads, dynamic shared "
               f"memory (bytes), resident blocks an SM and synthesis ring "
-              f"tiles at nr {nr}, C {C}: {lk.narrow_plan(nr, C)} [{card}]",
-              flush=True)
+              f"tiles at nr {nr}, C {C}: {plan} [{card}]", flush=True)
+    for nr, C in NARROW_PAR_SHAPES:
+        plan = {dt: {k: v for k, v in p.items() if k.endswith("_par")}
+                for dt, p in lk.narrow_plan(nr, C).items()}
+        want = lk.narrow_par_synth_plan((nr + 1) // 2, C)
+        for dt, p in plan.items():
+            sp = p["synth_par"]
+            check(sp["ring_tiles"] == want["ring_tiles"]
+                  and sp["warp_rings"] == want["warp_rings"]
+                  and sp["threads"] == 32 * want["warps"],
+                  f"narrow parity synthesis plan {dt} at nr {nr}, C {C}: "
+                  f"{sp}, legendre_kernels.narrow_par_synth_plan {want}")
+        print(f"  narrow-table float64 parity kernels' threads, dynamic "
+              f"shared memory (bytes), resident blocks an SM and synthesis "
+              f"ring tiles at nr {nr} (nh {(nr + 1) // 2}), C {C}: {plan} "
+              f"(narrow_par_synth_plan {want}) [{card}]", flush=True)
 
 
 TOLS = {"float32": 1e-5, "float64": 1e-12}
@@ -2948,13 +2966,15 @@ def work_par(name, L, nr, C, itemsize, rows=None):
     return 2 * nh * C * tri, nbytes * itemsize
 
 
-def mirrored_table(torch, half, nr, flip=False):
-    """The full (L, L, nr) table whose north rings are ``half`` and whose
+def mirrored_table(torch, half, nr, flip=False, rows=None):
+    """The full (M, L, nr) table whose north rings are ``half`` and whose
     ring nr-1-r is f (-1)^(l+m) times ring r: the dense kernels' operand
-    of the same function as the parity kernels' on ``half``."""
-    L, nh = half.shape[0], half.shape[2]
+    of the same function as the parity kernels' on ``half``; ``rows`` the
+    degree orders m of a slab's rows (all L by default)."""
+    L, nh = half.shape[1], half.shape[2]
     lm = torch.arange(L, device=half.device)
-    sign = (1.0 - 2.0 * ((lm[None, :] + lm[:, None]) % 2)).to(half.dtype)
+    m = lm if rows is None else torch.as_tensor(rows, device=half.device)
+    sign = (1.0 - 2.0 * ((lm[None, :] + m[:, None]) % 2)).to(half.dtype)
     if flip:
         sign = -sign
     south = (half[:, :, : nr - nh] * sign[:, :, None]).flip(2)
@@ -3930,8 +3950,9 @@ def phase_narrow_kernels(torch, lk, dev, card):
     dense pair at the cut rings and of the parity pair at 16 columns; each
     timed beside its plain version, the float64 kernel on the float64
     table and one torch.einsum on the upcast table and the rounded batch
-    (the parity pair's: the dense einsum on the mirrored table; none on a
-    parity slab; narrow_one says which are timed on the device), with the
+    (the parity pair's: the dense einsum on the mirrored table, on a slab
+    the slab's mirrored rows; narrow_one says which are timed on the
+    device), with the
     bound of the narrow table (bytes over 3.35 TB/s, FLOPs over 67
     TFLOP/s).  Returns {kernel name with its suffix: {shape key:
     record}}."""
@@ -4000,13 +4021,17 @@ def phase_narrow_kernels(torch, lk, dev, card):
             if (nr, C) == NARROW_PAR_SHAPES[0]:
                 ls, l64 = (t.index_select(0, idx).contiguous()
                            for t in (lam, lam64))
+                xs, gs = x.index_select(0, idx), g_view(g.index_select(0, idx))
+                rxs, rgs = xs.to(td).double(), gs.to(td).double()
+                full = mirrored_table(torch, ls.double(), nr, rows=rows)
                 key = f"{nr} C{C} slab 0 of 2"
-                one("legendre_synth_par", key, ls, x.index_select(0, idx),
-                    (nr, False, ms0), (len(rows), nr, C), l64, None, rows)
-                one("legendre_adj_par", key, ls,
-                    g_view(g.index_select(0, idx)), (False, ms0),
-                    (C, len(rows), L), l64, None, rows)
-                del ls, l64
+                one("legendre_synth_par", key, ls, xs, (nr, False, ms0),
+                    (len(rows), nr, C), l64,
+                    lambda: torch.einsum("mlr,mcl->mrc", full, rxs), rows)
+                one("legendre_adj_par", key, ls, gs, (False, ms0),
+                    (C, len(rows), L), l64,
+                    lambda: torch.einsum("mlr,mrc->mcl", full, rgs), rows)
+                del ls, l64, xs, gs, rxs, rgs, full
             del lam64, lam, x, g, rx, rg
         torch.cuda.empty_cache()
     return recs

@@ -35,10 +35,16 @@
 // dense call does 2 nr C L(L+1)/2 = 2.16 GFLOP: 0.032 ms at the 67 TFLOP/s
 // of DMMA and 0.065 ms at the 33.5 TFLOP/s of the FMA pipes, against
 // 0.0555 ms (bfloat16) and 0.0958 ms (float32) for its bytes at 3.35 TB/s.
-// So the dense pair multiplies on DMMA, in the m16n8k8 shape: an H100 issues
-// mma.sync.m8n8k4.f64 at half the rate (33 against 67 TFLOP/s, measured with
-// registers only), which is as slow as the FMA pipes.  The parity pair,
-// still on the FMA pipes, cannot reach its bfloat16 bound.
+// A parity call at nr 513, C 32 does 2 nh C L(L+1)/2 = 2.17 GFLOP on the
+// half table (nh 257): 0.065 ms on the FMA pipes, above its bfloat16 bound
+// of 0.0504 ms.  So all four multiply on DMMA, in the m16n8k8 shape: an
+// H100 issues mma.sync.m8n8k4.f64 at half the rate (33 against 67 TFLOP/s,
+// measured with registers only), which is as slow as the FMA pipes.  What
+// bounds them on DMMA (PERF.md section 6, kernel_ab.py --variant
+// narrow-*-only, narrow-par-*-only at nr 513): no part alone.  Copies alone
+// take 38-85% of a kernel's time (the float32 adjoints' the most), the
+// products alone 28-57%, the staging pass 16-32%, the stores 15-27%; they
+// overlap only in part.
 //
 // Design of the dense pair (synth_narrow, adj_narrow; the fp64 parity
 // kernels of legendre_tri_f64.cu are the model).
@@ -88,28 +94,47 @@
 //   row tile that starts at l = m writes each column's zeros of l < m right
 //   before its run: an H100 writes a (C, M, L) output near its memset rate
 //   only in whole-row sweeps (PERF.md).
-// Design of the parity pair (first version, simple and right, one stage in
-// flight).
-// - Synthesis: a thread a ring (a block one ring tile of at most 128 rings
-//   of one row i, of sizes that differ by at most one tile of 32), a block
-//   NC = 16 batch columns.  Each thread streams its ring's column of the
-//   table straight from global memory into registers, KL = 32 degree rows
-//   a stage, the next stage's loads issued before the current stage's
-//   products.  The stage's batch values x[i, c, l0:l0+KL], rounded, sit in
-//   shared memory, read by every thread at once (broadcast).  Two sums a
-//   column: a stage starts at an even l - m, so the class of each unrolled
-//   step is known at compile time.
-// - Adjoint: a thread a degree row (a block 128 rows of one row i), a block
-//   NC columns.  Each stage stages a 128 x KR (32 rings) table tile in
-//   shared memory in the table dtype, by coalesced loads along r, rows at an
-//   odd word stride, and the folds U and V of the KR x NC batch tile,
-//   rounded.  Each warp holds rows of one class of l - m (threads 0-63 the
-//   even class, 64-127 the odd one), so that a warp reads one of U and V.
+// Design of the parity pair (synth_par_narrow, adj_par_narrow): the dense
+// pair's blocks with both classes of l - m in one block, as the fp64 parity
+// kernels of legendre_tri_f64.cu keep them.
+// - Synthesis: as the dense one, M = north rings, N = columns, K = degrees,
+//   rows i and M-1-i in one pipeline, each warp's sums in its accumulators
+//   for a whole row, now both classes' (SE over even l - m, SO over odd).
+//   A stage is 2 KL consecutive degree rows (64 in bfloat16, 32 in
+//   float32), put into its slot by class (row k at slot row (k & 1) KL + k / 2, each at its own byte shift:
+//   the rows of one class are 2 nt es bytes apart, so at nt 257 their
+//   shifts repeat every 4 rows in bfloat16 and every 2 in float32); a
+//   lane's rows tig and tig + 4 of a class's k8 step are 8 degrees apart
+//   and share one shift.  x lands beside the stage and is rounded once a
+//   stage into B [c][class KL + k].  A warp holds 16 rings at 32 columns
+//   (its 2 x 4 x 4 accumulator doubles of both classes; two m16 tiles would
+//   take 128 registers of sums) and while one block of at most 6 warps
+//   holds every north ring, else 32; the fewest ring tiles, of sizes that
+//   differ by at most one ring, so only a block's last warp has idle lanes
+//   (nh 257: 3 tiles of 86 rings on 6 warps at 32 columns, 2 of 129 / 128
+//   on 5 warps of 32 below).  At most 6 warps, two blocks an SM: 170
+//   registers a thread, so that no tile spills.  At the last stage of a row each lane writes
+//   north SE + SO and, for the rings r < nr - nh that have a mirror, south
+//   f (SE - SO) from its fragments.
+// - Adjoint: as the dense one, M = rows l, N = columns, K = north rings in
+//   stages of 64 bytes of each row (KC = 32 bfloat16 or 16 float32 rings),
+//   but a block computes both classes of 2 BM = 256 rows l (BM = 128 of
+//   each: rows l0 + 2 i' + p at slot row p BM + i', each at its own shift;
+//   4 warps a class, 32 rows each) for a tile of TC columns, so that g's
+//   north rings and their south mirrors land once for both.  The staging
+//   pass forms U = round(g_n + f g_s) and V = round(g_n - f g_s) in float64
+//   over the stage's rings and stores them as the classes' B tiles; each
+//   warp reads its class's.  Blocks are the (m, 256-row tile) pairs that
+//   exist, as the dense adjoint's; the epilogue writes both classes as one
+//   run of l a column through shared memory (store_run), after the zeros
+//   of l < m in the tile that starts at l = m.  112 KB of shared memory at
+//   32 columns in bfloat16, two blocks an SM.
 // Every launch goes to the caller's stream; each entry point returns
 // cudaGetLastError() so that a refused launch reaches the wrapper.
 //
 // LEGENDRE_NARROW_PARTS (a bit set, 15 unless nvcc is given -D) keeps the
-// dense pair's copies (1), staging pass (2), products (4) and stores (8).
+// copies (1), staging pass (2), products (4) and stores (8) of all four
+// kernels.
 // A build that leaves a part out computes a wrong result on purpose: it only
 // serves to time the other parts alone (kernel_ab.py --variant).
 
@@ -128,14 +153,6 @@ constexpr bool kStaging = LEGENDRE_NARROW_PARTS & 2;
 constexpr bool kProducts = LEGENDRE_NARROW_PARTS & 4;
 constexpr bool kStores = LEGENDRE_NARROW_PARTS & 8;
 
-// the parity pair
-constexpr int NC = 16;            // batch columns a block
-constexpr int KL = 32;            // synthesis: degree rows a stage
-constexpr int kMaxRingTile = 128;  // synthesis: threads (rings) a block
-constexpr int KR = 32;            // adjoint: rings a stage
-constexpr int LT = 128;           // adjoint: threads (degree rows) a block
-static_assert(KL % 2 == 0, "a stage starts at an even l - m");
-
 // the degree order of memory row i: ms[i], or i for the full table
 __device__ __forceinline__ int degree(const int* ms, int i) {
   return ms ? __ldg(ms + i) : i;
@@ -146,11 +163,6 @@ struct Narrow;
 
 template <>
 struct Narrow<__nv_bfloat16> {
-  // parity adjoint table tile rows: 34 elements, an odd number (17) of words
-  static constexpr int kTileStride = KR + 2;
-  static __device__ __forceinline__ __nv_bfloat16 zero() {
-    return __float2bfloat16_rn(0.f);
-  }
   static __device__ __forceinline__ float widen(__nv_bfloat16 v) {
     return __bfloat162float(v);
   }
@@ -162,9 +174,6 @@ struct Narrow<__nv_bfloat16> {
 
 template <>
 struct Narrow<float> {
-  // parity adjoint table tile rows: 33 words
-  static constexpr int kTileStride = KR + 1;
-  static __device__ __forceinline__ float zero() { return 0.f; }
   static __device__ __forceinline__ float widen(float v) { return v; }
   static __device__ __forceinline__ double round(double v) {
     return static_cast<double>(__double2float_rn(v));
@@ -771,162 +780,543 @@ __global__ void __launch_bounds__(AdjNarrow<T, TC, KUNIT>::THREADS, 2)
 }
 
 // ---------------------------------------------------------------------------
-// parity synthesis (first version): grid (ceil(C / NC), ring tiles, M), a
-// thread a ring
+// parity synthesis: grid (ring tile and column tile in x, row pair in y)
 // ---------------------------------------------------------------------------
 
-// this thread's ring column of table rows l0 .. l0 + KL - 1 (zero past L)
-template <typename T>
-__device__ __forceinline__ void load_rows(float (&t)[KL], const T* col,
-                                          int l0, int L, int nt, bool live) {
-#pragma unroll
-  for (int k = 0; k < KL; ++k)
-    t[k] = (live && l0 + k < L)
-               ? Narrow<T>::widen(col[static_cast<long long>(l0 + k) * nt])
-               : 0.f;
+// degree rows of one class a stage: 32 in bfloat16 (its 64-row stages took
+// 0.91x the time of 32-row ones at nr 513, C 16 and 32), 16 in float32
+// (whose 64-row stages need 128-151 KB there: one block an SM, 1.41-1.45x
+// the time)
+__host__ __device__ constexpr int par_kl(int es) { return es == 2 ? 32 : 16; }
+constexpr int kParDepth = 2;   // stages in flight
+// warps a block at most: two blocks an SM leave each thread 170 registers,
+// which hold both classes' 32 accumulator doubles and a stage's operands
+// without a spill (at 8 warps and 128 registers both spilled)
+constexpr int kParMaxWarps = 6;
+
+// The parity synthesis' plan, the same on host and device (and in
+// legendre_kernels.narrow_par_synth_plan): m16 tiles a warp (one at 32
+// columns, where two would hold 128 registers of sums, and while one block
+// of at most kParMaxWarps warps holds every north ring; else two), ring
+// tiles, warps a block, the bytes from one table row's slot to the next (at
+// least the warps' rings and a chunk, 32 mod 128), dynamic shared memory:
+// DEPTH + 1 table stages, DEPTH landed x tiles [tc][2 KL + 2] and B [tc][2
+// KL + 4].
+struct SynthParNarrowPlan {
+  int mt, ntr, warps, rs, smem;
+  __host__ __device__ SynthParNarrowPlan(int nt, int tc, int es) {
+    mt = tc == 32 || nt <= 16 * kParMaxWarps ? 1 : 2;
+    const int wt = (nt + 16 * mt - 1) / (16 * mt);
+    ntr = (wt + kParMaxWarps - 1) / kParMaxWarps;
+    if (ntr < 1) ntr = 1;
+    warps = (wt + ntr - 1) / ntr;
+    if (warps < 1) warps = 1;
+    const int span = 16 * mt * warps * es + 16;
+    rs = (span + 95) / 128 * 128 + 32;
+    const int kl = par_kl(es);
+    smem = (kParDepth + 1) * 2 * kl * rs +
+           (kParDepth * (2 * kl + 2) + 2 * kl + 4) * tc * 8;
+  }
+};
+
+// o[c], o[c + 1] = v0, v1 where c, c + 1 < cv: one 16-byte store where the
+// pair is aligned
+__device__ __forceinline__ void store_pair(double* o, int c, int cv,
+                                           double v0, double v1) {
+  if (c + 1 < cv && shift16(o + c) == 0) {
+    *reinterpret_cast<double2*>(o + c) = make_double2(v0, v1);
+  } else {
+    if (c < cv) o[c] = v0;
+    if (c + 1 < cv) o[c + 1] = v1;
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxRingTile)
+template <typename T, int TC, int MT_>
+struct SynthParNarrow {
+  static constexpr int ES = sizeof(T), MT = MT_, NT = TC / 8;
+  static constexpr int KL = par_kl(ES), KS = 2 * KL, DEPTH = kParDepth;
+  static constexpr int XL = KS + 2;  // doubles a landed x row: its shift, its chunks
+  static constexpr int XS = KS + 4;  // doubles a B row: class 0's KL, class 1's
+  static constexpr int THREADS = 32 * kParMaxWarps;
+  static_assert(KL % 8 == 0 && XL % 2 == 0 && XS % 16 == 4,
+                "k8 steps, a stage keeps each class's shifts; 16-byte "
+                "landing rows; B fragment banks");
+
+  unsigned char* tb;    // table slots [DEPTH + 1][KS][rs bytes], by class
+  double* xl;           // landed x [DEPTH][TC][XL]
+  double* xb;           // B: x rounded [TC][XS]
+  const T* lam;         // lam[0, 0, r_lo]
+  const double* x;      // x[0, c0, 0]
+  double* out;          // out[0, 0, c0]
+  long long sxm, sxc;
+  double f;
+  int L, nt, nr, C, rs, nch, r_lo, R, cv;  // nch: chunks a table row
+  int ia, ib, ma, mb, na, nst;   // the row pair, row ia's stages, all stages
+  int tid, nth, lane, wr0;       // wr0: the warp's first ring in the tile
+  double acc[2][MT][NT][4];      // [class][m16 tile][n8 tile][fragment]
+
+  struct Stage { int ri, l0, nrows; };
+  // stage q: degree rows l0 .. l0 + nrows of row ri's slab (l0 - m even)
+  __device__ __forceinline__ Stage stage_at(int q) const {
+    const int ri = q < na ? ia : ib;
+    const int l0 = q < na ? ma + KS * q : mb + KS * (q - na);
+    return Stage{ri, l0, min(KS, L - l0)};
+  }
+  __device__ __forceinline__ const T* row0(const Stage& st) const {
+    return lam + (static_cast<long long>(st.ri) * L + st.l0) * nt;
+  }
+  __device__ __forceinline__ const double* xrow(const Stage& st) const {
+    return x + st.ri * sxm + st.l0;
+  }
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int h = 0; h < 4; ++h) acc[p][mt][n][h] = 0.0;
+  }
+
+  // the tile's pieces of table rows l0 .. l0 + KS (past the slab: zeros),
+  // row k into slot (k & 1) KL + k / 2 from its start rounded down to 16
+  // bytes; x[ri, c, l0 ..] for the tile's columns, along l
+  __device__ __forceinline__ void issue(int q) {
+    if (!kCopies) return;
+    const Stage st = stage_at(q);
+    unsigned char* ts = tb + (q % (DEPTH + 1)) * KS * rs;
+    const T* src = row0(st);
+    for (int e = tid; e < KS * nch; e += nth) {
+      const int k = e / nch, j = e - k * nch;
+      const bool ok = k < st.nrows;
+      copy_chunk(ts + ((k & 1) * KL + (k >> 1)) * rs,
+                 ok ? src + static_cast<long long>(k) * nt : src,
+                 ok ? R * ES : 0, j);
+    }
+    double* xs = xl + (q % DEPTH) * TC * XL;
+    const double* xm = xrow(st);
+    for (int e = tid; e < TC * (XL / 2); e += nth) {
+      const int c = e / (XL / 2), j = e - c * (XL / 2);
+      const bool ok = c < cv;
+      copy_chunk(xs + c * XL, ok ? xm + c * sxc : xm, ok ? 8 * st.nrows : 0,
+                 j);
+    }
+  }
+
+  // B[c][p KL + k] = x[ri, c, l0 + 2 k + p] rounded, zero past the slab and
+  // the columns
+  __device__ __forceinline__ void stage(int q) {
+    if (!kStaging) return;
+    const Stage st = stage_at(q);
+    const double* xs = xl + (q % DEPTH) * TC * XL;
+    const double* xm = xrow(st);
+    for (int e = tid; e < TC * KS; e += nth) {
+      const int c = e / KS, k = e % KS;
+      double v = 0.0;
+      if (c < cv && k < st.nrows)
+        v = Narrow<T>::round(xs[c * XL + parity(xm + c * sxc) + k]);
+      xb[c * XS + (k & 1) * KL + (k >> 1)] = v;
+    }
+  }
+
+  // each class's k8 steps that hold rows; then, at the last stage of a row,
+  // north SE + SO and south f (SE - SO) to the output.  Slot row j of class
+  // p is the stage's row 2 j + p, at j rs + its source's shift, which is
+  // that of slot rows j + 4 and j + 8 too (rows 8 and 16 apart: 8 nt es is
+  // a multiple of 16): a lane's rows tig and tig + 4 of every k8 step keep
+  // one shift over the stage.
+  __device__ __forceinline__ void mma(int q) {
+    const Stage st = stage_at(q);
+    const int gid = lane >> 2, tig = lane & 3;
+    if (wr0 < R) {  // uniform across the warp
+      const unsigned char* ts =
+          tb + (q % (DEPTH + 1)) * KS * rs + (wr0 + gid) * ES;
+      const int s0 = shift16(row0(st));
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const unsigned char* pa =
+            ts + (p * KL + tig) * rs + ((s0 + (2 * tig + p) * nt * ES) & 15);
+        const double* xs = xb + gid * XS + p * KL + tig;
+        const int steps = ((st.nrows + 1 - p) / 2 + 7) / 8;
+#pragma unroll
+        for (int kk = 0; kk < KL / 8; ++kk) {
+          if (kk >= steps) break;
+          // rings 16 mt + gid, + 8 at class rows tig, tig + 4 of the step
+          double a[MT][4], b[NT][2];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const unsigned char* r0 = pa + 8 * kk * rs + 16 * mt * ES;
+            const unsigned char* r4 = r0 + 4 * rs;
+            a[mt][0] = wide<T>(r0);
+            a[mt][1] = wide<T>(r0 + 8 * ES);
+            a[mt][2] = wide<T>(r4);
+            a[mt][3] = wide<T>(r4 + 8 * ES);
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            b[n][0] = xs[n * 8 * XS + 8 * kk];
+            b[n][1] = xs[n * 8 * XS + 8 * kk + 4];
+          }
+          if (!kProducts) {  // the shared-memory reads stay
+            acc[p][0][0][0] += a[0][0] + a[0][1] + a[0][2] + a[0][3] +
+                               b[0][0] + b[0][1];
+            continue;
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+              dmma16(acc[p][mt][n], a[mt], b[n][0], b[n][1]);
+        }
+      }
+    }
+    if (q != na - 1 && q != nst - 1) return;
+    if (!kStores) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) keep_live(acc[p][mt], out);
+    }
+    if (kStores && wr0 < R) {
+#pragma unroll
+      for (int i = 0; i < 2 * MT; ++i) {  // rings 16 mt + gid, + 8
+        const int mt = i >> 1, h = i & 1;
+        const int r = wr0 + 16 * mt + 8 * h + gid;
+        if (r >= R) continue;
+        const int rn = r_lo + r;
+        double* on = out + (static_cast<long long>(st.ri) * nr + rn) * C;
+        double* os = out + (static_cast<long long>(st.ri) * nr + nr - 1 - rn) * C;
+        const bool south = rn < nr - nt;  // not the equator
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int c = n * 8 + 2 * tig;
+          const double e0 = acc[0][mt][n][2 * h], e1 = acc[0][mt][n][2 * h + 1];
+          const double o0 = acc[1][mt][n][2 * h], o1 = acc[1][mt][n][2 * h + 1];
+          store_pair(on, c, cv, e0 + o0, e1 + o1);
+          if (south) store_pair(os, c, cv, f * (e0 - o0), f * (e1 - o1));
+        }
+      }
+    }
+    zero();
+  }
+};
+
+template <typename T, int TC, int MT>
+__global__ void __launch_bounds__(SynthParNarrow<T, TC, MT>::THREADS, 2)
     synth_par_narrow(const T* __restrict__ lam, const double* __restrict__ x,
-                     double* __restrict__ out, int L, int nr, int nt, int C,
+                     double* __restrict__ out, int L, int nr, int C,
                      long long sxm, long long sxc, const int* __restrict__ ms,
-                     double f) {
-  __shared__ __align__(16) double xs[NC][KL];
-  const int i = blockIdx.z;
-  const int m = degree(ms, i);
-  const int c0 = blockIdx.x * NC;
-  const int r = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool live = r < nt;
-  const T* col = lam + static_cast<long long>(i) * L * nt + (live ? r : 0);
-  const double* xi = x + i * sxm;
-  double se[NC], so[NC];
+                     int M, double f) {
+  using K = SynthParNarrow<T, TC, MT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nt = (nr + 1) / 2;  // the table's rings
+  const SynthParNarrowPlan pl(nt, TC, K::ES);
+  const int tile = blockIdx.x % pl.ntr;
+  const int c0 = (blockIdx.x / pl.ntr) * TC;
+  K k;
+  k.r_lo = tile * nt / pl.ntr;
+  k.R = (tile + 1) * nt / pl.ntr - k.r_lo;
+  k.rs = pl.rs;
+  k.nch = (k.R * K::ES + 30) / 16;  // chunks of the row at any shift
+  k.tb = smem;
+  k.xl = reinterpret_cast<double*>(smem + (K::DEPTH + 1) * K::KS * pl.rs);
+  k.xb = k.xl + K::DEPTH * TC * K::XL;
+  k.lam = lam + k.r_lo;
+  k.x = x + c0 * sxc;
+  k.out = out + c0;
+  k.sxm = sxm;
+  k.sxc = sxc;
+  k.f = f;
+  k.L = L;
+  k.nt = nt;
+  k.nr = nr;
+  k.C = C;
+  k.cv = min(TC, C - c0);
+  // rows ia and ib of degrees ma and mb; the middle row of an odd M alone
+  k.ia = blockIdx.y;
+  k.ib = M - 1 - k.ia;
+  k.ma = degree(ms, k.ia);
+  k.mb = degree(ms, k.ib);
+  k.na = (L - k.ma + K::KS - 1) / K::KS;
+  k.nst = k.na + (k.ib > k.ia ? (L - k.mb + K::KS - 1) / K::KS : 0);
+  k.tid = threadIdx.x;
+  k.nth = blockDim.x;
+  k.lane = threadIdx.x & 31;
+  k.wr0 = (threadIdx.x >> 5) * 16 * MT;
+  k.zero();
+  run_ring(k, k.nst);
+}
+
+// ---------------------------------------------------------------------------
+// parity adjoint: grid ((m, row tile) pairs in x, column tiles in y)
+// ---------------------------------------------------------------------------
+
+constexpr int kAdjParRows = 128;  // rows l of each class a block
+
+// KUNIT: g with unit stride on r (else on c)
+template <typename T, int TC, bool KUNIT>
+struct AdjParNarrow {
+  static constexpr int ES = sizeof(T);
+  static constexpr int BM = kAdjParRows, KC = kAdjPiece / ES, DEPTH = kAdjDepth;
+  static constexpr int THREADS = 32 * kAdjWarps;
+  static constexpr int WR = 2 * BM / kAdjWarps;  // rows of a warp, one class
+  static constexpr int MT = WR / 16, NT = TC / 8;
+  static constexpr int TW = KC * ES + 16;  // bytes a landed table row
+  static constexpr int TCH = TW / 16;      // its chunks
+  static constexpr int T_SLOT = 2 * BM * TW;  // bytes; DEPTH + 1 slots
+  static constexpr int GW = KUNIT ? KC + 2 : TC + 2;  // doubles a landed g row
+  static constexpr int GCH = GW / 2;       // [c][ring] (KUNIT) : [ring][c]
+  static constexpr int G_TILE = (KUNIT ? TC : KC) * GW;  // doubles: north, south
+  static constexpr int US = KC + 4;        // doubles a U row
+  static constexpr int G_OFF = (DEPTH + 1) * T_SLOT;     // bytes
+  static constexpr int U_OFF = G_OFF + DEPTH * 2 * G_TILE * 8;
+  static constexpr int MAIN = U_OFF + 2 * TC * US * 8;   // U_p [p][c][ring]
+  static constexpr int SO = 2 * BM + 4;    // epilogue [c][l - l0] doubles
+  static constexpr int SMEM = MAIN > TC * SO * 8 ? MAIN : TC * SO * 8;
+  static_assert((KC * ES) % 16 == 0 && KC % 8 == 0 && WR % 16 == 0 &&
+                    GW % 2 == 0 && US % 16 == 4 &&
+                    kAdjWarps % 2 == 0 && SMEM <= 113 * 1024,
+                "a row keeps its shift; k8 steps; 16-byte rows; banks; "
+                "warps by class; two blocks an SM");
+
+  unsigned char* sm;
+  const T* tab;         // lam[i, l0, 0]
+  const double* gp;     // g[i, 0, c0]
+  long long sgr, sgc;   // g's strides
+  double f;
+  int nt, nr, nv, cv, gs0;  // nv: rows l0 + j < L; gs0: gp's address in doubles mod 2
+  int tid, lane, cls, wr0;  // the warp's class and first row in it
+  int ta[MT][2];        // this lane's rows gid, gid + 8 of each m16 tile in
+                        // a slot (bytes), at ring tig
+  double acc[MT][NT][4];
+
+  // where a landed g row starts (doubles): from element e of column c
+  // (KUNIT), or of ring e (unit stride on c)
+  __device__ __forceinline__ int gshift(int c, int e) const {
+    return KUNIT ? (gs0 + (c & 1) * static_cast<int>(sgc & 1) + e) & 1
+                 : (gs0 + (e & 1) * static_cast<int>(sgr & 1)) & 1;
+  }
+
+  // the lane's rows l0 + 2 (wr0 + 16 mt + gid (+ 8)) + cls at ring tig:
+  // slot row cls BM + i', the row's shift (the same at every stage: a stage
+  // is KC es = 64 bytes)
+  __device__ __forceinline__ void init() {
+    const int gid = lane >> 2, tig = lane & 3;
+    const int sh0 = shift16(tab);
 #pragma unroll
-  for (int c = 0; c < NC; ++c) se[c] = so[c] = 0.0;
-  float t[KL];
-  load_rows(t, col, m, L, nt, live);
-  for (int l0 = m; l0 < L; l0 += KL) {
-    __syncthreads();  // the previous stage's reads of xs are done
-    for (int e = threadIdx.x; e < NC * KL; e += blockDim.x) {
-      const int c = e / KL, k = e % KL;
-      xs[c][k] = (c0 + c < C && l0 + k < L)
-                     ? Narrow<T>::round(xi[(c0 + c) * sxc + l0 + k])
-                     : 0.0;
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ip = wr0 + 16 * mt + 8 * h + gid;
+        const int j = 2 * ip + cls;
+        ta[mt][h] = (cls * BM + ip) * TW + ((sh0 + j * nt * ES) & 15) + tig * ES;
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) acc[mt][n][h] = 0.0;
     }
+  }
+
+  // rings with a south mirror: r < nr - nt (the equator of an odd nr has
+  // none); the south rows that a stage at k0 lands: nr - k0 - sv ..
+  __device__ __forceinline__ int south_rings(int k0) const {
+    return max(min(nr - nt, k0 + KC) - k0, 0);
+  }
+
+  // the rows' pieces of rings k0 .. k0 + KC (rows past L: none), row l0 + j
+  // into slot (j & 1) BM + j / 2; g[r, c] and g[nr - 1 - r, c] for those
+  // rings (KUNIT: each column's run of north rings and of their mirrors)
+  __device__ __forceinline__ void issue(int s) {
+    if (!kCopies) return;
+    const int k0 = s * KC;
+    unsigned char* ts = sm + (s % (DEPTH + 1)) * T_SLOT;
+    const int vb = min(KC, nt - k0) * ES;
+    for (int e = tid; e < nv * TCH; e += THREADS) {
+      const int j = e / TCH, ch = e - j * TCH;
+      copy_chunk(ts + ((j & 1) * BM + (j >> 1)) * TW,
+                 tab + static_cast<long long>(j) * nt + k0, vb, ch);
+    }
+    double* gn =
+        reinterpret_cast<double*>(sm + G_OFF) + (s % DEPTH) * 2 * G_TILE;
+    double* gs = gn + G_TILE;
+    const int sv = south_rings(k0);
+    if constexpr (KUNIT) {
+      const int vn = min(nt, k0 + KC) - k0;
+      const int slo = nr - k0 - sv;
+      for (int e = tid; e < TC * GCH; e += THREADS) {
+        const int c = e / GCH, j = e - c * GCH;
+        const bool ok = c < cv;
+        const double* col = ok ? gp + c * sgc : gp;
+        copy_chunk(gn + c * GW, col + (ok ? k0 : 0), ok ? 8 * vn : 0, j);
+        copy_chunk(gs + c * GW, col + (ok && sv ? slo : 0),
+                   ok ? 8 * sv : 0, j);
+      }
+    } else {
+      for (int e = tid; e < KC * GCH; e += THREADS) {
+        const int t = e / GCH, j = e - t * GCH, r = k0 + t;
+        copy_chunk(gn + t * GW, r < nt ? gp + r * sgr : gp,
+                   r < nt ? 8 * cv : 0, j);
+        copy_chunk(gs + t * GW, t < sv ? gp + (nr - 1 - r) * sgr : gp,
+                   t < sv ? 8 * cv : 0, j);
+      }
+    }
+  }
+
+  // U_p[c][j] = round(g_n + sg_p g_s) at ring k0 + j, sg_p = f for even
+  // l - m, -f for odd (formed in float64, rounded once); zero past the
+  // rings and the columns
+  __device__ __forceinline__ void stage(int s) {
+    if (!kStaging) return;
+    const double* gn = reinterpret_cast<const double*>(sm + G_OFF) +
+                       (s % DEPTH) * 2 * G_TILE;
+    const double* gs = gn + G_TILE;
+    double* U = reinterpret_cast<double*>(sm + U_OFF);
+    const int k0 = s * KC, sv = south_rings(k0), slo = nr - k0 - sv;
+    for (int e = tid; e < TC * KC; e += THREADS) {
+      const int c = e / KC, j = e % KC, r = k0 + j;
+      double u = 0.0, v = 0.0;
+      if (c < cv && r < nt) {
+        double a, b = 0.0;
+        if constexpr (KUNIT) {
+          a = gn[c * GW + gshift(c, k0) + j];
+          if (j < sv) b = gs[c * GW + gshift(c, slo) + nr - 1 - r - slo];
+        } else {
+          a = gn[j * GW + gshift(0, r) + c];
+          if (j < sv) b = gs[j * GW + gshift(0, nr - 1 - r) + c];
+        }
+        b *= f;
+        u = Narrow<T>::round(a + b);
+        v = Narrow<T>::round(a - b);
+      }
+      U[c * US + j] = u;
+      U[(TC + c) * US + j] = v;
+    }
+  }
+
+  // the k8 steps that hold rings, for the warp's rows of its class (rows
+  // past L read stale bytes: their sums are never stored)
+  __device__ __forceinline__ void mma(int s) {
+    if (wr0 >= (nv + 1 - cls) / 2) return;  // uniform across the warp
+    const unsigned char* ts = sm + (s % (DEPTH + 1)) * T_SLOT;
+    const int gid = lane >> 2, tig = lane & 3;
+    const double* U = reinterpret_cast<const double*>(sm + U_OFF) +
+                      (cls * TC + gid) * US + tig;
+    const int steps = (min(KC, nt - s * KC) + 7) / 8;
+#pragma unroll
+    for (int kk = 0; kk < KC / 8; ++kk) {
+      if (kk >= steps) break;  // uniform across the warp
+      // rows gid, gid + 8 of each m16 tile at rings tig, tig + 4 of the step
+      double a[MT][4], b[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const unsigned char* r0 = ts + ta[mt][0] + 8 * kk * ES;
+        const unsigned char* r8 = ts + ta[mt][1] + 8 * kk * ES;
+        a[mt][0] = wide<T>(r0);
+        a[mt][1] = wide<T>(r8);
+        a[mt][2] = wide<T>(r0 + 4 * ES);
+        a[mt][3] = wide<T>(r8 + 4 * ES);
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        b[n][0] = U[n * 8 * US + 8 * kk];
+        b[n][1] = U[n * 8 * US + 8 * kk + 4];
+      }
+      if (!kProducts) {  // the shared-memory reads stay
+        acc[0][0][0] += a[0][0] + a[0][1] + a[0][2] + a[0][3] + b[0][0] +
+                        b[0][1];
+        continue;
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          dmma16(acc[mt][n], a[mt], b[n][0], b[n][1]);
+    }
+  }
+
+  // out[c * soc + l - l0] for c < cv, l - l0 < nv, both classes through
+  // shared memory [c][l - l0] (each column shifted to its run's 16-byte
+  // alignment), then whole runs along l, a warp a column, each right after
+  // the column's zeros at out[c * soc - zeros ..]
+  __device__ __forceinline__ void finish(double* out, long long soc,
+                                         int zeros) {
+    if (!kStores) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) keep_live(acc[mt], out);
+      return;
+    }
+    double* so = reinterpret_cast<double*>(sm);
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int l = 2 * (wr0 + 16 * mt + 8 * (h >> 1) + gid) + cls;
+          const int c = 8 * n + 2 * tig + (h & 1);
+          so[c * SO + parity(out + c * soc) + l] = acc[mt][n][h];
+        }
     __syncthreads();
-    float tn[KL];
-    load_rows(tn, col, l0 + KL, L, nt, live && l0 + KL < L);
-#pragma unroll
-    for (int k = 0; k < KL; k += 2) {
-      const double t0 = t[k], t1 = t[k + 1];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const double2 v = *reinterpret_cast<const double2*>(&xs[c][k]);
-        se[c] = fma(t0, v.x, se[c]);
-        so[c] = fma(t1, v.y, so[c]);
-      }
+    for (int c = tid >> 5; c < cv; c += THREADS / 32) {
+      if (zeros > 0) store_run(out + c * soc - zeros, nullptr, zeros, lane);
+      store_run(out + c * soc, so + c * SO, nv, lane);
     }
-#pragma unroll
-    for (int k = 0; k < KL; ++k) t[k] = tn[k];
   }
-  if (!live) return;
-  double* north = out + (static_cast<long long>(i) * nr + r) * C;
-  double* south = out + (static_cast<long long>(i) * nr + nr - 1 - r) * C;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    if (c0 + c >= C) break;
-    north[c0 + c] = se[c] + so[c];
-    if (r < nr - nt) south[c0 + c] = f * (se[c] - so[c]);
-  }
-}
+};
 
-// ---------------------------------------------------------------------------
-// parity adjoint (first version): grid (ceil(C / NC), ceil(L / LT), M), a
-// thread a degree row
-// ---------------------------------------------------------------------------
-
-// the degree row of thread / tile row j of the block at lb: the rows of
-// even l - m on j < 64 and odd ones on j >= 64
-__device__ __forceinline__ int adj_row(int j, int lb, int m) {
-  const int p = j / (LT / 2), q = j % (LT / 2);
-  return lb + 2 * q + ((p + m + lb) & 1);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(LT)
+template <typename T, int TC, bool KUNIT>
+__global__ void __launch_bounds__(AdjParNarrow<T, TC, KUNIT>::THREADS, 2)
     adj_par_narrow(const T* __restrict__ lam, const double* __restrict__ g,
-                   double* __restrict__ out, int L, int nr, int nt, int C,
-                   long long sgm, long long sgr, long long sgc,
-                   long long som, long long soc, const int* __restrict__ ms,
+                   double* __restrict__ out, int L, int nr, int C,
+                   long long sgm, long long sgr, long long sgc, long long som,
+                   long long soc, const int* __restrict__ ms, int M,
                    double f) {
-  constexpr int TS = Narrow<T>::kTileStride;
-  __shared__ T tab[LT * TS];
-  __shared__ __align__(16) double us[KR][NC];
-  __shared__ __align__(16) double vs[KR][NC];
-  const int i = blockIdx.z;
-  const int m = degree(ms, i);
-  const int c0 = blockIdx.x * NC;
-  const int lb = blockIdx.y * LT;
-  const int j = threadIdx.x;
-  const int l = adj_row(j, lb, m);
-  const T* lami = lam + static_cast<long long>(i) * L * nt;
-  const double* gi = g + i * sgm;
-  const bool r_unit = sgr == 1;
-  double acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) acc[c] = 0.0;
-  // rows of class (l - m) odd read V; a warp's rows are of one class
-  const double(*src)[NC] = ((l - m) & 1) ? vs : us;
-  if (lb + LT > m) {
-    for (int r0 = 0; r0 < nt; r0 += KR) {
-      __syncthreads();  // the previous stage's reads are done
-      // the table tile: a warp reads KR consecutive rings of one row
-      for (int e = j; e < LT * KR; e += LT) {
-        const int row = e / KR, k = e % KR;
-        const int lr = adj_row(row, lb, m);
-        tab[row * TS + k] =
-            (lr >= m && lr < L && r0 + k < nt)
-                ? lami[static_cast<long long>(lr) * nt + r0 + k]
-                : Narrow<T>::zero();
-      }
-      // the batch tile's folds U and V, rounded, read along g's unit stride
-      for (int e = j; e < KR * NC; e += LT) {
-        const int k = r_unit ? e % KR : e / NC;
-        const int c = r_unit ? e / KR : e % NC;
-        const int rr = r0 + k;
-        double u = 0.0, v = 0.0;
-        if (rr < nt && c0 + c < C) {
-          const double gn = gi[rr * sgr + (c0 + c) * sgc];
-          const double gs =
-              rr < nr - nt ? f * gi[(nr - 1 - rr) * sgr + (c0 + c) * sgc]
-                           : 0.0;
-          u = Narrow<T>::round(gn + gs);
-          v = Narrow<T>::round(gn - gs);
-        }
-        us[k][c] = u;
-        vs[k][c] = v;
-      }
-      __syncthreads();
-      const T* trow = tab + j * TS;
-#pragma unroll
-      for (int k = 0; k < KR; ++k) {
-        const double tk = Narrow<T>::widen(trow[k]);
-#pragma unroll
-        for (int c = 0; c < NC; c += 2) {
-          const double2 v = *reinterpret_cast<const double2*>(&src[k][c]);
-          acc[c] = fma(tk, v.x, acc[c]);
-          acc[c + 1] = fma(tk, v.y, acc[c + 1]);
-        }
-      }
+  using K = AdjParNarrow<T, TC, KUNIT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int P = 2 * K::BM;  // rows l a tile
+  const int nt = (nr + 1) / 2;  // the table's rings
+  // (memory row i, degree m, row tile): tile-major over the rows
+  int i, m, tile;
+  if (ms) {  // every (row, tile) pair; those past the row's triangle exit
+    tile = blockIdx.x / M;
+    i = blockIdx.x % M;
+    m = degree(ms, i);
+    if (m + P * tile >= L) return;  // uniform across the block
+  } else {  // the pairs that exist: rows m < L - P tile
+    m = blockIdx.x;
+    tile = 0;
+    while (m >= L - P * tile) {
+      m -= L - P * tile;
+      ++tile;
     }
+    i = m;
   }
-  if (l >= L) return;
-  double* oi = out + i * som + l;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    if (c0 + c >= C) break;
-    oi[(c0 + c) * soc] = l >= m ? acc[c] : 0.0;
-  }
+  const int l0 = m + P * tile;
+  const int c0 = blockIdx.y * TC;
+  const int warp = threadIdx.x >> 5;
+  K k;
+  k.sm = smem;
+  k.tab = lam + (static_cast<long long>(i) * L + l0) * nt;  // lam[i, l0, 0]
+  k.gp = g + i * sgm + c0 * sgc;                              // g[i, 0, c0]
+  k.sgr = sgr;
+  k.sgc = sgc;
+  k.f = f;
+  k.nt = nt;
+  k.nr = nr;
+  k.nv = min(P, L - l0);
+  k.cv = min(TC, C - c0);
+  k.gs0 = parity(k.gp);
+  k.tid = threadIdx.x;
+  k.lane = threadIdx.x & 31;
+  k.cls = warp / (kAdjWarps / 2);
+  k.wr0 = warp % (kAdjWarps / 2) * K::WR;
+  k.init();
+  run_ring(k, (nt + K::KC - 1) / K::KC);
+  k.finish(out + i * som + c0 * soc + l0, soc, tile == 0 ? m : 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -1032,35 +1422,100 @@ int launch_adj(const void* lam, const void* g, void* out, int L, int nr,
   }
 }
 
-// nr is the output's ring count, the table's ceil(nr / 2)
+template <typename T, int TC, int MT>
+int launch_synth_par(const SynthParNarrowPlan& pl, const void* lam,
+                     const void* x, void* out, int L, int nr, int C,
+                     long long sxm, long long sxc, const int* ms, int M,
+                     cudaStream_t s, double f) {
+  const dim3 grid(pl.ntr * ((C + TC - 1) / TC), (M + 1) / 2);
+  const cudaError_t e = allow_smem(synth_par_narrow<T, TC, MT>, pl.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  synth_par_narrow<T, TC, MT><<<grid, 32 * pl.warps, pl.smem, s>>>(
+      static_cast<const T*>(lam), static_cast<const double*>(x),
+      static_cast<double*>(out), L, nr, C, sxm, sxc, ms, M, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// nr is the output's ring count, the table's ceil(nr / 2); two m16 tiles a
+// warp only below 32 columns
+template <typename T, int TC>
+int launch_synth_par(const void* lam, const void* x, void* out, int L,
+                     int nr, int C, long long sxm, long long sxc,
+                     const int* ms, int M, cudaStream_t s, double f) {
+  constexpr int MT2 = TC == 32 ? 1 : 2;
+  const SynthParNarrowPlan pl((nr + 1) / 2, TC, sizeof(T));
+  if (pl.mt == 1)
+    return launch_synth_par<T, TC, 1>(pl, lam, x, out, L, nr, C, sxm, sxc,
+                                      ms, M, s, f);
+  return launch_synth_par<T, TC, MT2>(pl, lam, x, out, L, nr, C, sxm, sxc, ms,
+                                      M, s, f);
+}
+
 template <typename T>
 int launch_synth_par(const void* lam, const void* x, void* out, int L,
                      int nr, int C, long long sxm, long long sxc,
                      const int* ms, int M, cudaStream_t s, double f) {
-  const int nt = (nr + 1) / 2;
-  // the fewest ring tiles of at most kMaxRingTile rings, of even sizes
-  const int tiles = (nt + kMaxRingTile - 1) / kMaxRingTile;
-  const int per = (nt + tiles - 1) / tiles;
-  const int threads = (per + 31) / 32 * 32;
-  const dim3 grid((C + NC - 1) / NC, (nt + threads - 1) / threads, M);
-  synth_par_narrow<T><<<grid, threads, 0, s>>>(
-      static_cast<const T*>(lam), static_cast<const double*>(x),
-      static_cast<double*>(out), L, nr, nt, C, sxm, sxc, ms, f);
-  return static_cast<int>(cudaGetLastError());
+  switch (col_tile(C)) {
+    case 8:
+      return launch_synth_par<T, 8>(lam, x, out, L, nr, C, sxm, sxc, ms, M, s,
+                                    f);
+    case 16:
+      return launch_synth_par<T, 16>(lam, x, out, L, nr, C, sxm, sxc, ms, M,
+                                     s, f);
+    default:
+      return launch_synth_par<T, 32>(lam, x, out, L, nr, C, sxm, sxc, ms, M,
+                                     s, f);
+  }
 }
 
 // nr is g's ring count, the table's ceil(nr / 2)
+template <typename T, int TC, bool KUNIT>
+int launch_adj_par(const void* lam, const void* g, void* out, int L, int nr,
+                   int C, long long sgm, long long sgr, long long sgc,
+                   long long som, long long soc, const int* ms, int M,
+                   cudaStream_t s, double f) {
+  using K = AdjParNarrow<T, TC, KUNIT>;
+  constexpr int P = 2 * K::BM;
+  const int blocks = ms ? M * ((L + P - 1) / P) : adj_pairs(L, P);
+  const dim3 grid(blocks, (C + TC - 1) / TC);
+  const cudaError_t e = allow_smem(adj_par_narrow<T, TC, KUNIT>, K::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  adj_par_narrow<T, TC, KUNIT><<<grid, K::THREADS, K::SMEM, s>>>(
+      static_cast<const T*>(lam), static_cast<const double*>(g),
+      static_cast<double*>(out), L, nr, C, sgm, sgr, sgc, som, soc, ms, M, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int TC>
+int launch_adj_par(const void* lam, const void* g, void* out, int L, int nr,
+                   int C, long long sgm, long long sgr, long long sgc,
+                   long long som, long long soc, const int* ms, int M,
+                   cudaStream_t s, double f) {
+  if (sgr == 1)
+    return launch_adj_par<T, TC, true>(lam, g, out, L, nr, C, sgm, sgr, sgc,
+                                       som, soc, ms, M, s, f);
+  if (sgc == 1)
+    return launch_adj_par<T, TC, false>(lam, g, out, L, nr, C, sgm, sgr, sgc,
+                                        som, soc, ms, M, s, f);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
 int launch_adj_par(const void* lam, const void* g, void* out, int L, int nr,
                    int C, long long sgm, long long sgr, long long sgc,
                    long long som, long long soc, const int* ms, int M,
                    cudaStream_t s, double f) {
-  const dim3 grid((C + NC - 1) / NC, (L + LT - 1) / LT, M);
-  adj_par_narrow<T><<<grid, LT, 0, s>>>(
-      static_cast<const T*>(lam), static_cast<const double*>(g),
-      static_cast<double*>(out), L, nr, (nr + 1) / 2, C, sgm, sgr, sgc, som,
-      soc, ms, f);
-  return static_cast<int>(cudaGetLastError());
+  switch (col_tile(C)) {
+    case 8:
+      return launch_adj_par<T, 8>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
+                                  soc, ms, M, s, f);
+    case 16:
+      return launch_adj_par<T, 16>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
+                                   soc, ms, M, s, f);
+    default:
+      return launch_adj_par<T, 32>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
+                                   soc, ms, M, s, f);
+  }
 }
 
 // resident blocks an SM of a kernel at its threads and dynamic shared
@@ -1075,10 +1530,11 @@ int blocks_per_sm(K kernel, int threads, int bytes) {
   return n;
 }
 
-// the dense pair's plan at (nr, C): kind 0 the synthesis' threads << 20 |
-// dynamic shared memory (bytes), 1 its resident blocks an SM, 2 its ring
-// tiles, 5 its rings a warp; 3 the adjoint's (g with unit stride on r)
-// threads << 20 | bytes, 4 its resident blocks an SM
+// the plan at (nr, C): kind 0 the dense synthesis' threads << 20 | dynamic
+// shared memory (bytes), 1 its resident blocks an SM, 2 its ring tiles, 5
+// its rings a warp; 3 the dense adjoint's (g with unit stride on r) threads
+// << 20 | bytes, 4 its resident blocks an SM; 6-9 and 10-11 the same of the
+// parity synthesis and the parity adjoint (nr the output's or g's rings)
 template <typename T, int TC>
 int plan(int kind, int nr) {
   const SynthNarrowPlan pl(nr, TC, sizeof(T));
@@ -1097,8 +1553,31 @@ int plan(int kind, int nr) {
       return A::THREADS << 20 | A::SMEM;
     case 4:
       return blocks_per_sm(adj_narrow<T, TC, true>, A::THREADS, A::SMEM);
-    default:
+    case 5:
       return 16 * pl.mt;
+  }
+  // the parity pair, nr the output's or g's rings
+  const SynthParNarrowPlan pp((nr + 1) / 2, TC, sizeof(T));
+  constexpr int MT2 = TC == 32 ? 1 : 2;
+  using B = AdjParNarrow<T, TC, true>;
+  switch (kind) {
+    case 6:
+      return 32 * pp.warps << 20 | pp.smem;
+    case 7:
+      return pp.mt == 1 ? blocks_per_sm(synth_par_narrow<T, TC, 1>,
+                                         32 * pp.warps, pp.smem)
+                        : blocks_per_sm(synth_par_narrow<T, TC, MT2>,
+                                        32 * pp.warps, pp.smem);
+    case 8:
+      return pp.ntr;
+    case 9:
+      return 16 * pp.mt;
+    case 10:
+      return B::THREADS << 20 | B::SMEM;
+    case 11:
+      return blocks_per_sm(adj_par_narrow<T, TC, true>, B::THREADS, B::SMEM);
+    default:
+      return -1;
   }
 }
 
@@ -1166,12 +1645,13 @@ extern "C" {
 NARROW_F64_ENTRY_POINTS(bf16f64, __nv_bfloat16)
 NARROW_F64_ENTRY_POINTS(f32f64, float)
 
-// The dense pair's plan at (nr, C) for a table of es bytes an element (2:
-// bfloat16, 4: float32): kind 0 the synthesis' threads << 20 | dynamic
-// shared memory (bytes), 1 its resident blocks an SM on the current card
-// (-1 if refused), 2 its ring tiles, 5 its rings a warp; 3 the adjoint's (g
+// The plan at (nr, C) for a table of es bytes an element (2: bfloat16, 4:
+// float32): kind 0 the dense synthesis' threads << 20 | dynamic shared
+// memory (bytes), 1 its resident blocks an SM on the current card (-1 if
+// refused), 2 its ring tiles, 5 its rings a warp; 3 the dense adjoint's (g
 // with unit stride on r) threads << 20 | bytes, 4 its resident blocks an
-// SM.
+// SM; 6, 7, 8, 9 the parity synthesis' and 10, 11 the parity adjoint's, in
+// the same order (nr the output's or g's rings); -1 for any other kind.
 int legendre_tri_narrow_f64_plan(int kind, int es, int nr, int C) {
   return es == 2 ? plan<__nv_bfloat16>(kind, nr, C) : plan<float>(kind, nr, C);
 }

@@ -76,9 +76,9 @@ fp64 tensor cores), ``legendre_tri_bf16.cu`` the bfloat16-table ones (bf16
 tile ``bf16_synth_tile(nr)`` picks, the parity synthesis at the ring tile
 ``bf16_par_synth_tile(nh)`` picks), ``legendre_tri_narrow_f64.cu`` those of
 a bfloat16 or float32 table with a float64 batch (the table kept in its
-own dtype in shared memory and widened in registers; the dense pair on the
-fp64 tensor cores, its plan in ``narrow_plan(nr, C)``, the parity pair's
-float64 sums on the FMA pipes).  A
+own dtype in shared memory and widened in registers, all four on the fp64
+tensor cores, their plans in ``narrow_plan(nr, C)``, the parity
+synthesis' ring tiles those of ``narrow_par_synth_plan(nh, C)``).  A
 wrapper takes the plain ``torch.einsum`` version only for tensors on the
 CPU; for CUDA tensors it launches its kernel or raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (the parity wrappers
@@ -173,6 +173,11 @@ _BF16_KINDS = tuple(f"synth tile {t}" for t in BF16_SYNTH_TILES) + (
     "adj unit-r g", "adj unit-c g") + tuple(
     f"synth par tile {t}" for t in BF16_PAR_SYNTH_TILES) + (
     "adj par unit-r g", "adj par unit-c g")
+# legendre_tri_narrow_f64_plan's kinds of each kernel: threads << 20 |
+# dynamic shared memory, resident blocks an SM, and a synthesis' ring tiles
+# and rings a warp
+_NARROW_PLAN_KINDS = {"synth": (0, 1, 2, 5), "adj": (3, 4),
+                      "synth_par": (6, 7, 8, 9), "adj_par": (10, 11)}
 _fns: dict = {}
 _loaded = {"tag": None}  # the build whose entry points are in _fns
 
@@ -325,25 +330,46 @@ def f64_plan(nr: int, C: int) -> dict:
     return plan
 
 
+def narrow_col_tile(C: int) -> int:
+    """The column tile of the narrow-table float64 kernels at C columns:
+    8, 16 or 32, so that the table is read once at every C <= 32."""
+    return 8 if C <= 8 else 16 if C <= 16 else 32
+
+
+def narrow_par_synth_plan(nh: int, C: int) -> dict:
+    """The ring tiles of the narrow-table float64 parity synthesis at nh
+    north rings and C columns, as its launcher picks them
+    (``SynthParNarrowPlan`` in ``csrc/legendre_tri_narrow_f64.cu``; phase 2
+    of chip_smoke.py holds the two equal): a warp holds 16 rings at 32
+    columns (two m16 tiles of both classes' sums would take 128 registers)
+    and while one block of at most 6 warps holds every ring, else 32; the
+    fewest ring tiles of at most 6 warps, of sizes that differ by at most
+    one ring.  Returns {"ring_tiles", "warps" (a block), "warp_rings"}."""
+    wr = 16 if narrow_col_tile(C) == 32 or nh <= 16 * 6 else 32
+    wt = -(-nh // wr)
+    tiles = -(-wt // 6)
+    return {"ring_tiles": tiles, "warps": -(-wt // tiles), "warp_rings": wr}
+
+
 def narrow_plan(nr: int, C: int) -> dict:
-    """The narrow-table float64 dense kernels' launch at nr rings and C
-    columns, for each table dtype: threads per block, dynamic shared memory
-    (bytes) and resident blocks an SM on the current card, and the
-    synthesis' ring tiles and rings a warp (the adjoint with g's unit
-    stride on r); builds first."""
+    """The narrow-table float64 kernels' launches at nr rings (the output's
+    or g's, for the parity pair) and C columns, for each table dtype:
+    threads per block, dynamic shared memory (bytes) and resident blocks
+    an SM on the current card of the dense pair ("synth", "adj") and the
+    parity pair ("synth_par", "adj_par"), and each synthesis' ring tiles and
+    rings a warp (the adjoints with g's unit stride on r); builds first."""
     if not _fns:
         build()
     fn = _fns["legendre_tri_narrow_f64_plan"]
     plan = {}
     for dt, es in (("bfloat16", 2), ("float32", 4)):
-        synth, adj = fn(0, es, nr, C), fn(3, es, nr, C)
-        plan[dt] = {
-            "synth": {"threads": synth >> 20, "smem": synth & 0xFFFFF,
-                      "blocks_per_sm": fn(1, es, nr, C),
-                      "ring_tiles": fn(2, es, nr, C),
-                      "warp_rings": fn(5, es, nr, C)},
-            "adj": {"threads": adj >> 20, "smem": adj & 0xFFFFF,
-                    "blocks_per_sm": fn(4, es, nr, C)}}
+        plan[dt] = {}
+        for name, kinds in _NARROW_PLAN_KINDS.items():
+            v = fn(kinds[0], es, nr, C)
+            plan[dt][name] = {"threads": v >> 20, "smem": v & 0xFFFFF}
+            for key, k in zip(("blocks_per_sm", "ring_tiles", "warp_rings"),
+                              kinds[1:]):
+                plan[dt][name][key] = fn(k, es, nr, C)
     return plan
 
 

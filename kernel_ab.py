@@ -2,7 +2,7 @@
 """Time the full-table Legendre kernels of two source trees in turns.
 
     python3 kernel_ab.py OTHER_TREE [--reps 40]
-    python3 kernel_ab.py --variant NAME [--reps 40]
+    python3 kernel_ab.py --variant NAME [--base TREE] [--reps 40]
 
 OTHER_TREE is a directory holding another version of the port's package
 (``gibbssampler_tpu_torch/``), for example a parent commit unpacked with
@@ -19,7 +19,8 @@ synthesis and parity adjoint at nr 513, C 16 and 32; the bfloat16 parity
 synthesis at nr 1023 too (parity kernels on half tables of ceil(nr / 2)
 rings); the dense pair on bfloat16 and float32 tables with a float64 batch
 ("bfloat16+float64", "float32+float64") at nr 65, C 16 and nr 513, C 16
-and 32; mean ms per call over
+and 32, and the parity pair on them at nr 513, C 16 and 32; mean ms per
+call over
 ``--reps`` launches replayed from one CUDA graph between CUDA events (no
 host time between the launches).  Prints the
 card's name and power limit, one JSON line per run, then one JSON line of
@@ -31,8 +32,11 @@ a temporary directory, with the text patches of VARIANTS[NAME] applied (a
 design variant of one kernel, or the kernel with a part compiled out,
 which computes a wrong result on purpose: its copies, its MMAs or, for
 the bfloat16 dense adjoint and parity synthesis and the narrow-table
-float64 dense pair, its staging pass or its stores alone), and times only
-that kernel's SHAPES.
+float64 kernels, its staging pass or its stores alone), and times only
+that kernel's SHAPES.  With ``--base TREE`` the variant is made from
+TREE's package and timed against TREE instead of this tree (the
+"narrow-par-v1-*" variants patch the first version of the narrow-table
+float64 parity synthesis, which a tree from before its redesign holds).
 """
 
 import json
@@ -57,7 +61,9 @@ SHAPES = tuple((k, dt, C, nr) for dt, C, nr in (
     ("adj_par", "float64", 16, 513), ("adj_par", "float64", 32, 513),
     ("synth_par", "bfloat16", 256, 1023)) + tuple(
     (k, f"{dt}+float64", C, nr) for dt in ("bfloat16", "float32")
-    for C, nr in ((16, 65), (16, 513), (32, 513)) for k in ("synth", "adj"))
+    for C, nr in ((16, 65), (16, 513), (32, 513)) for k in ("synth", "adj")
+) + tuple((k, f"{dt}+float64", C, 513) for dt in ("bfloat16", "float32")
+          for C in (16, 32) for k in ("synth_par", "adj_par"))
 L = 513
 
 _F32 = "gibbssampler_tpu_torch/csrc/legendre_tri.cu"
@@ -108,8 +114,26 @@ _NARROW_ADJ = tuple(("adj", f"{dt}+float64") for dt in ("bfloat16",
                                                        "float32"))
 
 
+# ... and the parity pair on them; its synthesis' stage rows by table dtype
+_PAR_KL = "int par_kl(int es) { return es == 2 ? 32 : 16; }"
+_NARROW_SYNTH_PAR = tuple(("synth_par", f"{dt}+float64")
+                          for dt in ("bfloat16", "float32"))
+_NARROW_ADJ_PAR = tuple(("adj_par", f"{dt}+float64")
+                        for dt in ("bfloat16", "float32"))
+# the first version of the narrow parity synthesis (a thread a ring on the
+# FMA pipes): its table loads, its batch staging, its FMAs
+_V1_LOAD0 = "  load_rows(t, col, m, L, nt, live);"
+_V1_LOADN = "    load_rows(tn, col, l0 + KL, L, nt, live && l0 + KL < L);"
+_V1_BATCH = ("      xs[c][k] = (c0 + c < C && l0 + k < L)\n"
+             "                     ? Narrow<T>::round(xi[(c0 + c) * sxc + l0 + k])\n"
+             "                     : 0.0;")
+_V1_FMA = ("#pragma unroll\n    for (int k = 0; k < KL; k += 2) {\n"
+           "      const double t0 = t[k], t1 = t[k + 1];")
+_V1_NEXT = "    for (int k = 0; k < KL; ++k) t[k] = tn[k];"
+
+
 def _narrow_parts(bits):
-    """The patch that keeps the narrow dense pair's parts ``bits`` only."""
+    """The patch that keeps the narrow-table kernels' parts ``bits`` only."""
     return [(_NARROW, _NARROW_PARTS, _NARROW_PARTS.replace("15", str(bits)))]
 
 
@@ -226,15 +250,40 @@ VARIANTS = {
     "narrow-adj-128-rows": (_NARROW_ADJ, [
         (_NARROW, "constexpr int kAdjRows = 256;", "constexpr int kAdjRows = 128;"),
         (_NARROW, "constexpr int kAdjWarps = 8;", "constexpr int kAdjWarps = 4;")]),
+    # the narrow-table float64 parity synthesis and adjoint, each part alone
+    **{f"narrow-par-{k}-{part}-only": (sel, _narrow_parts(bits))
+       for k, sel in (("synth", _NARROW_SYNTH_PAR), ("adj", _NARROW_ADJ_PAR))
+       for part, bits in (("copies", 1), ("staging", 2), ("mma", 4),
+                          ("stores", 8))},
+    # the parity synthesis with warps of 16 rings at every column tile,
+    # with stages of 32 degree rows in both dtypes, of 64 in both
+    "narrow-par-synth-16-ring-warps": (_NARROW_SYNTH_PAR, [
+        (_NARROW, "mt = tc == 32 || nt <= 16 * kParMaxWarps ? 1 : 2;",
+         "mt = 1;")]),
+    **{f"narrow-par-synth-{2 * kl}-row-stages": (_NARROW_SYNTH_PAR, [
+        (_NARROW, _PAR_KL, f"int par_kl(int es) {{ return {kl}; }}")])
+       for kl in (16, 32)},
+    # its first version (--base a tree that holds it) without its table
+    # loads (the ring columns read as zeros), without its batch staging
+    # (zeros staged), without its FMAs (each table value summed once)
+    "narrow-par-v1-synth-no-table": (_NARROW_SYNTH_PAR, [
+        (_NARROW, _V1_LOAD0, _V1_LOAD0.replace("live)", "false)")),
+        (_NARROW, _V1_LOADN, _V1_LOADN.replace(
+            "live && l0 + KL < L)", "false)"))]),
+    "narrow-par-v1-synth-no-batch": (_NARROW_SYNTH_PAR, [
+        (_NARROW, _V1_BATCH, "      xs[c][k] = 0.0;")]),
+    "narrow-par-v1-synth-no-fma": (_NARROW_SYNTH_PAR, [
+        (_NARROW, _V1_FMA, _V1_FMA.replace("k < KL", "0 && k < KL")),
+        (_NARROW, _V1_NEXT, "    for (int k = 0; k < KL; ++k) {\n"
+         "      se[k % NC] += t[k];\n      t[k] = tn[k];\n    }")]),
 }
 
 
-def variant_tree(name: str) -> str:
-    """A temporary copy of this tree's package with VARIANTS[name]'s
-    patches; returns its root."""
-    here = os.path.dirname(os.path.abspath(__file__))
+def variant_tree(name: str, base: str) -> str:
+    """A temporary copy of the package under ``base`` with
+    VARIANTS[name]'s patches; returns its root."""
     root = tempfile.mkdtemp(prefix=f"kernel_ab_{name}_")
-    shutil.copytree(os.path.join(here, "gibbssampler_tpu_torch"),
+    shutil.copytree(os.path.join(base, "gibbssampler_tpu_torch"),
                     os.path.join(root, "gibbssampler_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     for rel, text, repl in VARIANTS[name][1]:
@@ -314,9 +363,11 @@ def main() -> int:
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
-    other = variant_tree(variant) if variant else os.path.abspath(args[0])
+    this = os.path.abspath(args[args.index("--base") + 1]) \
+        if "--base" in args else os.path.dirname(os.path.abspath(__file__))
+    other = variant_tree(variant, this) if variant else \
+        os.path.abspath(args[0])
     reps = int(args[args.index("--reps") + 1]) if "--reps" in args else 40
-    this = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(other, "gibbssampler_tpu_torch")):
         print(f"{other} holds no gibbssampler_tpu_torch/", file=sys.stderr)
         return 2

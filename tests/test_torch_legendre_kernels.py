@@ -532,11 +532,58 @@ def test_cuda_bf16_kernels_match_plain(cuda_device, L, nr, C):
 # rings: one, two and three synthesis ring tiles), adjoint row tiles of
 # 256 rows l more than one (L 300, and L 258 with a 2-row last tile at m 0
 # and 1, nr 16 even) and odd slabs of the two-way split (L 33: 17 and 16
-# rows; L 37: 19 and 18) for the synthesis' rows i and M-1-i
+# rows; L 37: 19 and 18) for the synthesis' rows i and M-1-i; then the
+# parity pair's DMMA design (narrow_par_synth_plan): nh 289 (odd: a class's
+# bfloat16 rows at every shift; 2 ring tiles of 5 warps of 32 rings), nh
+# 258 at 32 columns (3 tiles of 6 warps of 16), nh 129 at a partial tile of
+# 32 columns (2 tiles of 5 warps; L 35: slabs of 18 and 17 rows), nr 514
+# (nh 257, no equator ring), the grid's nh 257 at 32 columns, and three
+# adjoint row tiles of 256 rows l (L 531) at C 40
 NARROW_CARD_SHAPES = [(17, 13, 5), (37, 19, 17), (64, 33, 16),
                       (160, 257, 33), (64, 65, 8), (300, 65, 32),
                       (33, 129, 40), (258, 16, 16), (37, 65, 16),
-                      (20, 513, 8)]
+                      (20, 513, 8), (20, 577, 16), (24, 515, 32),
+                      (35, 257, 24), (40, 514, 16), (70, 513, 32),
+                      (531, 33, 40)]
+
+
+# ((nh, C): (ring tiles, warps a block, rings a warp)) of the narrow-table
+# float64 parity synthesis at the grid's nh 257 (nr 513) and 512 (nr 1023)
+# and at the card tests' (NARROW_CARD_SHAPES)
+NARROW_PAR_PLAN = {(257, 16): (2, 5, 32), (257, 32): (3, 6, 16),
+                   (512, 16): (3, 6, 32), (512, 32): (6, 6, 16),
+                   (7, 5): (1, 1, 16), (10, 17): (1, 1, 16),
+                   (17, 16): (1, 2, 16), (129, 33): (2, 5, 16),
+                   (33, 8): (1, 3, 16), (33, 32): (1, 3, 16),
+                   (65, 40): (1, 5, 16), (8, 16): (1, 1, 16),
+                   (257, 8): (2, 5, 32), (289, 16): (2, 5, 32),
+                   (258, 32): (3, 6, 16), (129, 24): (2, 5, 16),
+                   (33, 16): (1, 3, 16), (17, 40): (1, 2, 16),
+                   (96, 16): (1, 6, 16), (97, 16): (1, 4, 32),
+                   (128, 16): (1, 4, 32), (96, 32): (1, 6, 16),
+                   (97, 32): (2, 4, 16)}
+
+
+@pytest.mark.parametrize("nh,C", sorted(NARROW_PAR_PLAN))
+def test_narrow_par_synth_plan(nh, C):
+    """The ring tiles of the narrow-table float64 parity synthesis (the
+    pure-Python mirror of its launcher's plan, held equal to it on the card
+    by chip_smoke.py phase 2): warps of 16 rings at 32 columns and up to
+    96 rings, else 32; the fewest ring tiles of at most 6 warps, of sizes
+    that differ by at most one ring, with idle lanes only in a block's last
+    warp; the card tests reach one, two and three tiles."""
+    plan = lk.narrow_par_synth_plan(nh, C)
+    tiles, warps, wr = NARROW_PAR_PLAN[(nh, C)]
+    assert plan == {"ring_tiles": tiles, "warps": warps, "warp_rings": wr}
+    assert wr == (16 if lk.narrow_col_tile(C) == 32 or nh <= 96 else 32)
+    sizes = [(t + 1) * nh // tiles - t * nh // tiles for t in range(tiles)]
+    assert sum(sizes) == nh and max(sizes) - min(sizes) <= 1
+    assert warps <= 6 and max(sizes) <= warps * wr
+    assert (warps - 1) * wr <= min(sizes)
+    assert tiles == 1 or -(-nh // wr) > 6 * (tiles - 1)
+    card = {((nr + 1) // 2, C) for _, nr, C in NARROW_CARD_SHAPES}
+    assert card <= set(NARROW_PAR_PLAN)
+    assert {NARROW_PAR_PLAN[k][0] for k in card} == {1, 2, 3}
 
 
 @pytest.mark.cuda
