@@ -234,13 +234,32 @@ non-zero:
    2 + 2 launches per iteration of the table dtype's kernels only; the
    float32 and float64 tables must converge, the bfloat16 ones (whose
    operator rounds its batch and is not linear) are solved to caps of 25
-   to 300 iterations and their floor printed;
-18. prints the kernels' JSON line, the float32 and the float64 kernels
+   to 300 iterations and their floor printed; float16 tables under
+   float64 compute (f16f64) run through (a)-(c) as a third narrow table
+   dtype (the 16-bit ones capped, finite), and (a) ends with the
+   one-rounding check of the f16f64 kernels on float16 edge values, bit
+   for bit (f16f64_edges);
+18. the remaining table pairs (phase_pairs): (a) the float16-table
+   kernels (csrc/legendre_tri_f16.cu) and the float64-table float32
+   kernels (csrc/legendre_tri_narrow_f64.cu, f64f32) against their plain
+   versions (<= 1e-5 and one float32 ulp of max|ref|) at L 513, C 256:
+   dense at 65 and 513 rings, parity at 257 north rings (flip and not),
+   slab 0 of each; each timed beside its plain version, the float32
+   kernel on the float32 table and torch.einsum on the upcast or widened
+   operands, with its bound; (b) GL lmax 512 (dense, ring-split) and
+   HEALPix nside 256 spin-2 transforms on float16 and on float64 tables
+   against float32 ones at 128 chains; (c) the ASIS band slice on float64
+   tables (5 + 20 iterations, 12 + 6 f64f32 launches an iteration and no
+   other, acceptances in [0.15, 0.6]), then on float16 tables if the
+   largest |value| at every float16 rounding site over one iteration
+   stays below 65504, else the overflow is printed;
+19. prints the kernels' JSON line, the float32 and the float64 kernels
    each with their launches summed over the paths, their parity modes
    with the options phase's launches, the four bfloat16-table kernels
-   with the bf16 phase's (b) and (c), and the four narrow-table float64
+   with the bf16 phase's (b) and (c), the four narrow-table float64
    kernels, one entry for each table dtype, with the narrow phase's (b)
-   and (c), then {"ok": true, "device": {...}} last.
+   and (c), and the four kernels of each remaining pair with phase 18's
+   (b) and (c), then {"ok": true, "device": {...}} last.
 
 The configurations come from gibbssampler_tpu_torch.flagship, the
 proposal scales from the port's records (gibbssampler_tpu_torch/
@@ -550,6 +569,14 @@ def phase_build(lk, card="card"):
     print(f"  bfloat16-table kernels' resident blocks an SM (cudaOccupancy"
           f"MaxActiveBlocksPerMultiprocessor): {lk.bf16_blocks_per_sm()}",
           flush=True)
+    print(f"  float16-table kernels' dynamic shared memory (bytes): "
+          f"{lk.bf16_dynamic_smem('f16')}, resident blocks an SM: "
+          f"{lk.bf16_blocks_per_sm('f16')} [{card}]", flush=True)
+    for nr, C in PAIR_DENSE_SHAPES:
+        print(f"  float64-table float32 kernels' (f64f32) threads, dynamic "
+              f"shared memory (bytes), resident blocks an SM and synthesis "
+              f"ring tiles at nr {nr}, C {C}: "
+              f"{lk.narrow_plan(nr, C)['f64f32']} [{card}]", flush=True)
     for nr, C in F64_TIMED:
         print(f"  float64 kernels' threads and dynamic shared memory "
               f"(bytes) at nr {nr}, C {C}: {lk.f64_plan(nr, C)}", flush=True)
@@ -1880,9 +1907,9 @@ def counts(lk):
     adjoint) launches since the counts were last set to 0."""
     s, a = lk.legendre_synth_tri, lk.legendre_adj_tri
     return (s.launches - s.launches_f64 - s.launches_bf16
-            - s.launches_narrow,
+            - s.launches_narrow - s.launches_f16 - s.launches_wide,
             a.launches - a.launches_f64 - a.launches_bf16
-            - a.launches_narrow,
+            - a.launches_narrow - a.launches_f16 - a.launches_wide,
             s.launches_f64, a.launches_f64)
 
 
@@ -3148,9 +3175,9 @@ def par_counts(lk):
     adjoint) parity-mode launches since the counts were set to 0."""
     s, a = lk.legendre_synth_par, lk.legendre_adj_par
     return (s.launches - s.launches_f64 - s.launches_bf16
-            - s.launches_narrow,
+            - s.launches_narrow - s.launches_f16 - s.launches_wide,
             a.launches - a.launches_f64 - a.launches_bf16
-            - a.launches_narrow,
+            - a.launches_narrow - a.launches_f16 - a.launches_wide,
             s.launches_f64, a.launches_f64)
 
 
@@ -3775,36 +3802,42 @@ def phase_bf16_transforms(torch, lk, dev, card, sht, hsht):
 
 
 def phase_bf16_slice(torch, lk, dev, card, iters=BF16_ITERS, lmax=LMAX,
-                     seed=False):
-    """(c) bench.py's BENCH_TABLE_DTYPE=bfloat16: the flagship ASIS band
-    slice from flagship.build(table_dtype="bfloat16") at full width (GL
+                     seed=False, td="bfloat16", sfx="bf16",
+                     counter=bf16_counts):
+    """(c) bench.py's BENCH_TABLE_DTYPE=bfloat16 (``td``): the flagship
+    ASIS band slice from flagship.build(table_dtype=td) at full width (GL
     513 x 1026, the cut over 65 rings, NCHAINS chains, float32 compute,
     the tuned record), cut in depth to ``iters`` (warm-up, timed):
     ms/iter, the MH step's ms/iter, the MH acceptances in ACCEPT_WINDOW,
-    exactly ASIS_PER_ITER bfloat16 launches per timed iteration and no
-    float32 or float64 Legendre launch, peak memory.  Returns the
-    launches of the path (bf16_counts)."""
+    exactly ASIS_PER_ITER launches of the table dtype's kernels (``sfx``,
+    counted by ``counter``) per timed iteration and no other Legendre
+    launch, finite chains, peak memory.  Returns the launches of the path
+    (``counter``)."""
     from gibbssampler_tpu_torch import flagship
     t0 = time.time()
-    scheme, dl0 = flagship.build("gl", "band", table_dtype="bfloat16",
+    scheme, dl0 = flagship.build("gl", "band", table_dtype=td,
                                  device=dev, lmax=lmax, seed=seed)
     model = scheme.model
-    check(model.sht.table_dtype == model.cut_sht.table_dtype
-          == torch.bfloat16 and model.cut_sht.lam_p2.dtype == torch.bfloat16,
-          "flagship.build(table_dtype='bfloat16'): tables not in bfloat16")
+    tdt = getattr(torch, td)
+    check(model.sht.table_dtype == model.cut_sht.table_dtype == tdt
+          and model.cut_sht.lam_p2.dtype == tdt,
+          f"flagship.build(table_dtype={td!r}): tables not in {td}")
     torch.cuda.synchronize()
-    print(f"bf16 ASIS band scheme set-up (dataset, cut, table engine): "
+    print(f"{sfx} ASIS band scheme set-up (dataset, cut, table engine): "
           f"{time.time() - t0:.1f} s", flush=True)
-    label = "ASIS gl band aux_mala bf16"
+    label = f"ASIS gl band aux_mala {sfx}"
     n_warm, n_timed = iters
     warm, out, wall, launches, timed, mh_ms = run_timed_mh_slice(
         torch, lk, scheme, dl0, dev, label, ASIS_PER_ITER, n_timed, n_warm)
-    n = bf16_counts(lk)
-    other = counts(lk)
+    n = counter(lk)
+    every = sum(f.launches for f in (
+        lk.legendre_synth_tri, lk.legendre_adj_tri, lk.legendre_synth_par,
+        lk.legendre_adj_par))
     print_shapes(f"{label} (warm-up and timed)", shape_counts(lk))
-    check(n[:2] == tuple(launches) and sum(other) == 0 and sum(n[2:]) == 0,
-          f"{label}: bf16 launches {n}, all launches {launches}, float32 / "
-          f"float64 {other}: the path must run the bf16 dense kernels only")
+    check(n[:2] == tuple(launches) and sum(n[2:]) == 0 and every == sum(n),
+          f"{label}: {sfx} launches {n}, dense launches {launches}, every "
+          f"Legendre launch {every}: the path must run the {sfx} dense "
+          f"kernels only")
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     held = SLICE_HELD["last"] / 2 ** 30
     acc = check_chains(torch, warm, out, scheme.bins_list, n_timed, n_warm)
@@ -3825,7 +3858,7 @@ def phase_bf16_slice(torch, lk, dev, card, iters=BF16_ITERS, lmax=LMAX,
           + (f"{MH_MS['ASIS gl band aux_mala']:.2f}"
              if "ASIS gl band aux_mala" in MH_MS else "not measured")
           + f"); acceptance CR {acc:.4f}, MH EE block {ee:.4f}, BB big "
-          f"block {bb_big:.4f}, BB singles {singles:.4f}; bf16 launches per "
+          f"block {bb_big:.4f}, BB singles {singles:.4f}; {sfx} launches per "
           f"timed iteration {timed[0] / n_timed:.1f} + "
           f"{timed[1] / n_timed:.1f}; peak device memory {peak:.2f} GiB "
           f"({held:.2f} GiB allocated when the timed run started) "
@@ -3836,17 +3869,19 @@ def phase_bf16_slice(torch, lk, dev, card, iters=BF16_ITERS, lmax=LMAX,
 
 
 # ---------------------------------------------------------------------------
-# float64 compute on narrow tables: bfloat16 and float32 Legendre tables
-# under a float64 batch (csrc/legendre_tri_narrow_f64.cu)
+# float64 compute on narrow tables: bfloat16, float32 and float16 Legendre
+# tables under a float64 batch (csrc/legendre_tri_narrow_f64.cu)
 # ---------------------------------------------------------------------------
 
 # the table dtypes and their kernels' entry-point suffixes
-NARROW_SFX = {"bfloat16": "bf16f64", "float32": "f32f64"}
+NARROW_SFX = {"bfloat16": "bf16f64", "float32": "f32f64",
+              "float16": "f16f64"}
 # against the plain version: the same exact products, float64 sums
 NARROW_TOL = 1e-12
 # the transforms against float64-table ones (max|err| / max|ref|): the
 # table dtype's operator error
-NARROW_TRANSFORM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+NARROW_TRANSFORM_TOL = {"bfloat16": 2e-2, "float32": 1e-5,
+                        "float16": 2e-2}
 # (nr, C) of the dense pair and of the parity pair (nr the output's rings):
 # the band's cut rings and the full GL grid at the CG family's 8 and 16
 # chains (x Re/Im)
@@ -3854,20 +3889,22 @@ NARROW_DENSE_SHAPES = ((CUT_RINGS, 2 * CG_CHAINS), (LMAX + 1, 2 * CG_CHAINS),
                        (LMAX + 1, 4 * CG_CHAINS))
 NARROW_PAR_SHAPES = ((LMAX + 1, 2 * CG_CHAINS), (LMAX + 1, 4 * CG_CHAINS))
 # cg_cr on the narrow tables: the float32 tables must converge at
-# NARROW_CG_TOL; the bfloat16 operator is not linear (the batch is rounded
-# before each product), so its solve is capped and its floor printed
+# NARROW_CG_TOL; the 16-bit tables' operators are not linear (the batch is
+# rounded before each product), so their solves are capped, their floor
+# printed, and they must stay finite
 NARROW_CG_TOL = 1e-5
 NARROW_BF16_CAPS = (25, 50, 100, 200, 300)
+NARROW_CAPPED = ("bfloat16", "float16")
 NARROW_KERNELS = ("legendre_synth_tri", "legendre_adj_tri",
                   "legendre_synth_par", "legendre_adj_par")
 
 
-def work_narrow(name, L, nr, C, itemsize, rows=None):
+def work_narrow(name, L, nr, C, itemsize, rows=None, batch_itemsize=8):
     """(FLOPs, bytes) of one call on a table of ``itemsize`` bytes with a
     float64 batch: the table's triangle read once, the batch read once and
-    the output written once in 8 bytes; a parity kernel (``name`` ending in
-    "_par") on the half table of ceil(nr / 2) rings; ``rows`` the degree
-    orders of a slab (all L by default)."""
+    the output written once in 8 bytes (``batch_itemsize``); a parity
+    kernel (``name`` ending in "_par") on the half table of ceil(nr / 2)
+    rings; ``rows`` the degree orders of a slab (all L by default)."""
     rows = range(L) if rows is None else rows
     tri, M = sum(L - m for m in rows), len(rows)
     nt = (nr + 1) // 2 if name.endswith("_par") else nr
@@ -3875,7 +3912,8 @@ def work_narrow(name, L, nr, C, itemsize, rows=None):
         batch, out = C * tri, M * nr * C
     else:
         batch, out = M * nr * C, C * M * L
-    return 2 * nt * C * tri, itemsize * nt * tri + 8 * (batch + out)
+    return (2 * nt * C * tri,
+            itemsize * nt * tri + batch_itemsize * (batch + out))
 
 
 def narrow_counts(torch, lk, td):
@@ -3942,7 +3980,8 @@ def narrow_one(torch, lk, name, lam, b, args, out_shape, lam64, label, card,
 
 def phase_narrow_kernels(torch, lk, dev, card):
     """(a) The four narrow-table float64 kernels against their plain
-    versions on the card, with bfloat16 and with float32 tables, at L 513:
+    versions on the card, with bfloat16, float32 and float16 tables, at L
+    513:
     the dense pair at NARROW_DENSE_SHAPES, the parity pair at
     NARROW_PAR_SHAPES (flip and not), in the main path's layouts (x the
     (m, C, l) view of the state's grids, g the (m, r, C) view of an (m, C,
@@ -3954,8 +3993,8 @@ def phase_narrow_kernels(torch, lk, dev, card):
     the slab's mirrored rows; narrow_one says which are timed on the
     device), with the
     bound of the narrow table (bytes over 3.35 TB/s, FLOPs over 67
-    TFLOP/s).  Returns {kernel name with its suffix: {shape key:
-    record}}."""
+    TFLOP/s); then the float16 kernels' one rounding (f16f64_edges).
+    Returns {kernel name with its suffix: {shape key: record}}."""
     from gibbssampler_tpu_torch.parallel import m_rows
     gen = torch.Generator(device=dev).manual_seed(31)
     f64, L = torch.float64, LMAX + 1
@@ -4034,7 +4073,49 @@ def phase_narrow_kernels(torch, lk, dev, card):
                 del ls, l64, xs, gs, rxs, rgs, full
             del lam64, lam, x, g, rx, rg
         torch.cuda.empty_cache()
+    f16f64_edges(torch, lk, dev, card)
     return recs
+
+
+# float64 values that one rounding to float16 and two (through float32)
+# take to different neighbours, ties and their neighbours, subnormals, the
+# largest finite float16 and values past it
+F16_EDGES = (1.0 + 2.0 ** -11 + 2.0 ** -40, 1.0 + 2.0 ** -11 - 2.0 ** -40,
+             -(1.0 + 2.0 ** -11 + 2.0 ** -40), 1.0 + 2.0 ** -11,
+             1.0 + 3 * 2.0 ** -11, 2.0 ** -24, 2.0 ** -25 + 2.0 ** -60,
+             2.0 ** -25, 3 * 2.0 ** -26, 2.0 ** -14 - 2.0 ** -25 + 2.0 ** -50,
+             65504.0, 65519.99, 65520.0, -7e4)
+
+
+def f16f64_edges(torch, lk, dev, card):
+    """The one-rounding rule on the card: F16_EDGES through each of the
+    four float16-table float64 kernels on a table of ones at L 1 (each
+    output one product, no sum), bit for bit equal to numpy's float16
+    rounding of each value (inf past 65519.99) and to the plain version
+    (on the CPU) where that is finite; the float32 route would give 1.0
+    for 1 + 2^-11 + 2^-40."""
+    f64 = torch.float64
+    with np.errstate(over="ignore"):
+        want = np.asarray(F16_EDGES).astype(np.float16).astype(np.float64)
+    C = len(F16_EDGES)
+    lam = torch.ones((1, 1, 1), dtype=torch.float16, device=dev)
+    e = torch.tensor(F16_EDGES, dtype=f64, device=dev)
+    x, g = e.reshape(1, C, 1), e.reshape(1, 1, C)
+    fin = np.isfinite(want)
+    for name, args, b in (("legendre_synth_tri", (), x),
+                          ("legendre_adj_tri", (), g),
+                          ("legendre_synth_par", (1,), x),
+                          ("legendre_adj_par", (), g)):
+        out = getattr(lk, name)(lam, b, *args).reshape(-1).cpu().numpy()
+        ref = getattr(lk, name + "_plain")(lam.cpu(), b.cpu(), *args)
+        ref = ref.reshape(-1).numpy()
+        check(np.array_equal(out.view(np.int64), want.view(np.int64))
+              and np.array_equal(ref[fin], want[fin]),
+              f"{name}_f16f64 on float16 edge values: {out.tolist()}, "
+              f"numpy {want.tolist()}, plain {ref.tolist()}")
+    print(f"f16f64 kernels on {C} float16 edge values (ties, subnormals, "
+          f"65504 and past it): bit for bit numpy's one rounding, "
+          f"1 + 2^-11 + 2^-40 -> {want[0]!r} [{card}]", flush=True)
 
 
 def narrow_datasets(torch, dev):
@@ -4141,20 +4222,23 @@ def phase_narrow_transforms(torch, lk, dev, card, models):
 
 def phase_narrow_cg(torch, lk, dev, card, models, dls):
     """(c) The CG phase's cg_cr at full width on the band dataset with
-    float64, float32 and bfloat16 tables under float64 compute (CG_CHAINS
-    chains, the prior of the true spectrum in unit bins, one noise pool
-    seed; each model warmed up by a 2-iteration solve): tol NARROW_CG_TOL,
-    the bfloat16 tables capped at each of NARROW_BF16_CAPS iterations (one
-    solve each: the true residual's path); per chain the iterations,
-    whether it stopped below the cap, and the true ||b - Qx|| / ||b||
-    recomputed with the solve's own operator and with the float64-table
-    one; ms per solve and per iteration; 2 + 2 launches per iteration of
-    the table dtype's kernels and none of another.  Every float32-table and
-    float64-table chain must converge (true residual <= 2 tol); the
-    bfloat16 tables' floor (the least true residual over the caps) is
-    printed.  Each solve's counts are set to 0 before and read after;
-    returns {table dtype name: narrow_counts} summed over the narrow
-    solves."""
+    float64, float32, bfloat16 and float16 tables under float64 compute
+    (CG_CHAINS chains, the prior of the true spectrum in unit bins, one
+    noise pool seed; each model warmed up by a 2-iteration solve): tol
+    NARROW_CG_TOL, the 16-bit tables capped at each of NARROW_BF16_CAPS
+    iterations (one solve each: the true residual's path); per chain the
+    iterations, whether it stopped below the cap, and the true ||b - Qx||
+    / ||b|| recomputed with the solve's own operator and with the
+    float64-table one; ms per solve and per iteration; 2 + 2 launches per
+    iteration of the table dtype's kernels and none of another.  Every
+    float32-table and float64-table chain must converge (true residual <=
+    2 tol); each 16-bit table's floor (the least true residual over the
+    caps) is printed, its first cap's solve must be finite, and for the
+    float16 tables each solve prints the largest |value| at each float16
+    rounding site (f16_sites): a diverging solve's batch can leave
+    float16's range.  Each solve's counts are set to 0 before and read
+    after; returns {table dtype name: narrow_counts} summed over the
+    narrow solves."""
     from gibbssampler_tpu_torch.samplers import cr as cr_mod
     from gibbssampler_tpu_torch.schemes import CenteredGibbs
     f64 = torch.float64
@@ -4174,10 +4258,12 @@ def phase_narrow_cg(torch, lk, dev, card, models, dls):
         cr_mod.cg_cr(m, var, bt, tol=NARROW_CG_TOL, maxiter=2, noise=pool)
         b = cr_mod.fluctuated_rhs(m, var, bt, noise=pool)
         floor = []
-        for cap in (NARROW_BF16_CAPS if tdn == "bfloat16" else (CG_MAXITER,)):
+        for cap in (NARROW_BF16_CAPS if tdn in NARROW_CAPPED
+                    else (CG_MAXITER,)):
             lk.reset_launch_counts()
-            (x, info), ms = cuda_ms(torch, lambda: cr_mod.cg_cr(
+            solve = (lambda: cr_mod.cg_cr(
                 m, var, bt, tol=NARROW_CG_TOL, maxiter=cap, noise=pool))
+            (x, info), ms = cuda_ms(torch, solve)
             nc = {t: narrow_counts(torch, lk, getattr(torch, t))
                   for t in NARROW_SFX}
             if tdn == "float64":
@@ -4200,12 +4286,29 @@ def phase_narrow_cg(torch, lk, dev, card, models, dls):
                 res.append((r.norm(dim=(-2, -1)) / b.norm(dim=(-2, -1)))
                            .cpu().numpy())
             conv = its < cap
-            if tdn != "bfloat16":
+            finite = bool(torch.isfinite(x).all()) and np.isfinite(
+                res[0]).all()
+            # a 16-bit table's solve, capped: the floor (its first cap)
+            # must be finite; a later one may leave float16's range
+            check(finite or (tdn in NARROW_CAPPED and floor),
+                  f"narrow cg_cr {tdn} tables, cap {cap}: non-finite state "
+                  f"or residual")
+            if tdn == "float16":
+                # the same solve again, its float16 sites recorded (after
+                # the counts are read)
+                peaks = f16_sites(torch, solve)[1]
+                print(f"narrow cg_cr float16 tables, cap {cap}: finite "
+                      f"{finite}; the largest |value| at each float16 "
+                      f"rounding site during the solve "
+                      f"{ {k: f'{v:.4g}' for k, v in peaks.items()} } "
+                      f"(float16's largest finite value {F16_MAX:g}) "
+                      f"[{card}]", flush=True)
+            if tdn not in NARROW_CAPPED:
                 check(conv.all() and res[0].max() <= 2 * NARROW_CG_TOL,
                       f"narrow cg_cr {tdn} tables: converged "
                       f"{conv.tolist()}, true residual max "
                       f"{res[0].max():.3g} > 2 x {NARROW_CG_TOL}")
-            floor.append(res[0])
+            floor.append(np.where(np.isfinite(res[0]), res[0], np.inf))
             base.setdefault("ms_iter", ms / n)
             print(f"narrow cg_cr float64 compute on {tdn} tables, tol "
                   f"{NARROW_CG_TOL:g}, cap {cap}: per chain iterations "
@@ -4216,9 +4319,9 @@ def phase_narrow_cg(torch, lk, dev, card, models, dls):
                   f"{ms / n:.3f} ms per iteration (float64 tables "
                   f"{base['ms_iter']:.3f}); launches synthesis {d[0]}, "
                   f"adjoint {d[1]} [{card}]", flush=True)
-        if tdn == "bfloat16":
+        if tdn in NARROW_CAPPED:
             best = np.min(floor, axis=0)
-            print(f"narrow cg_cr bfloat16 tables: the floor, each chain's "
+            print(f"narrow cg_cr {tdn} tables: the floor, each chain's "
                   f"least true ||b - Qx||/||b|| over the caps "
                   f"{NARROW_BF16_CAPS}: {[f'{v:.3g}' for v in best]} (at cap "
                   f"{[NARROW_BF16_CAPS[k] for k in np.argmin(floor, axis=0)]})"
@@ -4241,6 +4344,375 @@ def phase_narrow(torch, lk, dev, card):
     launches = {tdn: [a + b for a, b in zip(n_b[tdn], n_c[tdn])]
                 for tdn in NARROW_SFX}
     print(f"narrow phase: {time.time() - t0:.1f} s; launches on its paths "
+          f"(dense synth, adj, parity synth, adj) {launches} [{card}]",
+          flush=True)
+    return recs, launches
+
+
+# ---------------------------------------------------------------------------
+# the remaining table pairs: float16 tables under float32 compute
+# (csrc/legendre_tri_f16.cu: the bfloat16 source in its float16 mode) and
+# float64 tables under float32 compute (csrc/legendre_tri_narrow_f64.cu,
+# f64f32); float16 tables under float64 compute run in the narrow phase
+# ---------------------------------------------------------------------------
+
+# the pairs: entry-point suffix -> (table dtype name, kernel source, the
+# launch counter, the pipe of the bound)
+PAIR_KERNELS = {"f16": ("float16", "legendre_tri_f16.cu", "launches_f16",
+                        BF16_FLOPS_PER_S),
+                "f64f32": ("float64", "legendre_tri_narrow_f64.cu",
+                           "launches_wide", FP64_FLOPS_PER_S)}
+# against the plain version, of max|ref|: float32 sums of the same exact
+# products in other orders (f16: BF16_TOL, the same source's; a float16
+# product carries 22 significand bits to a bfloat16 one's 16, and its sums
+# in another order differ more: 1.57e-6 max|ref| at (65, 256) on the card);
+# float64 sums of the same products, each rounded once to float32 (f64f32:
+# one float32 ulp)
+PAIR_TOL = {"f16": BF16_TOL, "f64f32": 2.0 ** -23}
+# (nr, C): the band's cut rings and the GL grid at the flagship's 128
+# chains (x Re/Im); the parity pair at the grid's 257 north rings
+PAIR_DENSE_SHAPES = ((CUT_RINGS, 2 * NCHAINS), (LMAX + 1, 2 * NCHAINS))
+PAIR_PAR_SHAPES = ((LMAX + 1, 2 * NCHAINS),)
+# the transforms against float32-table ones (max|err| / max|ref|): the
+# table's operator error (float16), the float32 one's (float64 tables)
+PAIR_TRANSFORM_TOL = {"float16": 2e-2, "float64": 1e-5}
+PAIR_ITERS = (5, 20)
+F16_MAX = 65504.0
+
+
+def work_pair(name, L, nr, C, itemsize, rows=None):
+    """(FLOPs, bytes) of one call on a table of ``itemsize`` bytes with a
+    float32 batch: the table's triangle read once, the batch read once and
+    the output written once in 4 bytes; a parity kernel (``name`` ending in
+    "_par") on the half table of ceil(nr / 2) rings; ``rows`` the degree
+    orders of a slab (all L by default)."""
+    return work_narrow(name, L, nr, C, itemsize, rows, batch_itemsize=4)
+
+
+def pair_counts(lk, sfx):
+    """(dense synthesis, dense adjoint, parity synthesis, parity adjoint)
+    launches of the ``sfx`` kernels since the counts were set to 0."""
+    attr = PAIR_KERNELS[sfx][2]
+    return tuple(getattr(f, attr) for f in (
+        lk.legendre_synth_tri, lk.legendre_adj_tri, lk.legendre_synth_par,
+        lk.legendre_adj_par))
+
+
+def pair_one(torch, lk, sfx, name, lam, b, args, out_shape, lam32, label,
+             card, library, rows=None):
+    """One kernel call of the pair ``sfx`` against its plain version (<=
+    PAIR_TOL max|ref|), its output given NaN-filled memory; timed beside
+    its plain version (back to back), the float32 kernel on the float32
+    table ``lam32`` and ``library`` (one torch.einsum on the upcast or
+    widened operands), the kernels and the einsum on the device (graph_ms).
+    Returns the record."""
+    kern, plain = getattr(lk, name), getattr(lk, name + "_plain")
+    torch.full(out_shape, float("nan"), dtype=torch.float32,
+               device=lam.device)
+    out = kern(lam, b, *args)
+    ref = plain(lam, b, *args)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    tol = PAIR_TOL[sfx]
+    check(bool(torch.isfinite(out).all()) and err <= tol * scale,
+          f"{name}_{sfx} {label}: max|err| {err} > {tol} * {scale}")
+    synth = name.startswith("legendre_synth")
+    L, nr = lam.shape[1], out_shape[1] if synth else b.shape[1]
+    C = out_shape[2] if synth else out_shape[0]
+    reps = 5 if nr > CUT_RINGS else 20
+    p1 = time_ms(torch, lambda: plain(lam, b, *args), reps)
+    k1 = graph_ms(torch, lambda: kern(lam, b, *args), reps)
+    f32 = graph_ms(torch, lambda: kern(lam32, b, *args), reps)
+    k2 = graph_ms(torch, lambda: kern(lam, b, *args), reps)
+    p2 = time_ms(torch, lambda: plain(lam, b, *args), reps)
+    lib = graph_ms(torch, library, reps)
+    ms, pms = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+    flops, nbytes = work_pair(name, L, nr, C, lam.element_size(), rows)
+    bound_ms, bound_by = bound(flops, nbytes, PAIR_KERNELS[sfx][3])
+    print(f"pairs {name}_{sfx} {str(lam.dtype)[6:]} table, float32 batch, "
+          f"{label}: max|err|/max|ref| {err / scale:.2e} (<= {tol:.3g}); "
+          f"kernel {ms:.4f} ms, plain {pms:.4f} ms, float32 kernel on the "
+          f"float32 table {f32:.4f} ms, torch.einsum on the "
+          f"{'upcast' if sfx == 'f16' else 'widened'} operands {lib:.4f} ms; "
+          f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it "
+          f"reached; {flops / ms * 1e-9:.2f} TFLOP/s, "
+          f"{nbytes / ms * 1e-6:.0f} GB/s [{card}]", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+            "f32_kernel_ms": f32}
+
+
+def phase_pair_kernels(torch, lk, dev, card):
+    """(a) The four kernels of each pair (PAIR_KERNELS) against their plain
+    versions on the card at L 513: the dense pair at PAIR_DENSE_SHAPES, the
+    parity pair at PAIR_PAR_SHAPES (flip and not), in the main path's
+    layouts, and slab 0 of the two-way split of each pair at the first
+    shape; each timed beside its plain version, the float32 kernel on the
+    float32 table and one torch.einsum on the upcast (float16: the table
+    in float32 and the batch rounded to float16, in float32) or widened
+    (float64 table: the batch in float64) operands, the parity pair's on
+    the mirrored table, with the bound of work_pair (bytes over 3.35 TB/s
+    or FLOPs over the pipe the kernel runs on: 989 TFLOP/s for the float16
+    tensor cores, 67 for DMMA).  Returns {kernel name with its suffix:
+    {shape key: record}}."""
+    from gibbssampler_tpu_torch.parallel import m_rows
+    gen = torch.Generator(device=dev).manual_seed(41)
+    f32, L = torch.float32, LMAX + 1
+    recs = {}
+    rows = m_rows(L, 2)[0]
+    ms0 = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+    idx = ms0.long()
+    for sfx, (tdn, _src, _cnt, _pipe) in PAIR_KERNELS.items():
+        td = getattr(torch, tdn)
+        wide = td == torch.float64
+        # the library's operands: the einsum's dtype, and the batch as the
+        # kernel contracts it (rounded to float16, or widened)
+        ed = torch.float64 if wide else f32
+        lift = ((lambda t: t.double()) if wide
+                else (lambda t: t.to(td).float()))
+        into = {name: recs.setdefault(f"{name}_{sfx}", {})
+                for name in NARROW_KERNELS}
+
+        def one(name, key, lam, b, args, out_shape, lam32, library,
+                rows=None):
+            into[name][key] = pair_one(torch, lk, sfx, name, lam, b, args,
+                                       out_shape, lam32, key, card, library,
+                                       rows)
+
+        for k, (nr, C) in enumerate(PAIR_DENSE_SHAPES):
+            lam = tri_table(torch, L, nr, torch.float64, dev, gen).to(td)
+            l32 = lam.float()
+            x = x_view(torch.randn((L, C, L), generator=gen, device=dev))
+            g = g_view(torch.randn((L, nr, C), generator=gen, device=dev))
+            up, rx, rg = lam.to(ed), lift(x), lift(g)
+            key = f"{nr} C{C}"
+            one("legendre_synth_tri", key, lam, x, (), (L, nr, C), l32,
+                lambda: torch.einsum("mlr,mcl->mrc", up, rx))
+            one("legendre_adj_tri", key, lam, g, (), (C, L, L), l32,
+                lambda: torch.einsum("mlr,mrc->mcl", up, rg))
+            if k == 0:
+                ls, l32s, us = (t.index_select(0, idx).contiguous()
+                                for t in (lam, l32, up))
+                xs, gs = x.index_select(0, idx), g_view(g.index_select(0, idx))
+                rxs, rgs = lift(xs), lift(gs)
+                key = f"{nr} C{C} slab 0 of 2"
+                one("legendre_synth_tri", key, ls, xs, (ms0,),
+                    (len(rows), nr, C), l32s,
+                    lambda: torch.einsum("mlr,mcl->mrc", us, rxs), rows)
+                one("legendre_adj_tri", key, ls, gs, (ms0,),
+                    (C, len(rows), L), l32s,
+                    lambda: torch.einsum("mlr,mrc->mcl", us, rgs), rows)
+                del ls, l32s, us, xs, gs, rxs, rgs
+            del lam, l32, x, g, up, rx, rg
+        for k, (nr, C) in enumerate(PAIR_PAR_SHAPES):
+            lam = tri_table(torch, L, (nr + 1) // 2, torch.float64, dev,
+                            gen).to(td)
+            l32 = lam.float()
+            x = x_view(torch.randn((L, C, L), generator=gen, device=dev))
+            g = g_view(torch.randn((L, nr, C), generator=gen, device=dev))
+            rx, rg = lift(x), lift(g)
+            for flip in (True, False):
+                key = f"{nr} C{C}" + (" flip" if flip else "")
+                full = mirrored_table(torch, lam.to(ed), nr, flip)
+                one("legendre_synth_par", key, lam, x, (nr, flip),
+                    (L, nr, C), l32,
+                    lambda: torch.einsum("mlr,mcl->mrc", full, rx))
+                one("legendre_adj_par", key, lam, g, (flip,), (C, L, L),
+                    l32, lambda: torch.einsum("mlr,mrc->mcl", full, rg))
+                del full
+            if k == 0:
+                ls, l32s = (t.index_select(0, idx).contiguous()
+                            for t in (lam, l32))
+                xs, gs = x.index_select(0, idx), g_view(g.index_select(0, idx))
+                rxs, rgs = lift(xs), lift(gs)
+                full = mirrored_table(torch, ls.to(ed), nr, rows=rows)
+                key = f"{nr} C{C} slab 0 of 2"
+                one("legendre_synth_par", key, ls, xs, (nr, False, ms0),
+                    (len(rows), nr, C), l32s,
+                    lambda: torch.einsum("mlr,mcl->mrc", full, rxs), rows)
+                one("legendre_adj_par", key, ls, gs, (False, ms0),
+                    (C, len(rows), L), l32s,
+                    lambda: torch.einsum("mlr,mrc->mcl", full, rgs), rows)
+                del ls, l32s, xs, gs, rxs, rgs, full
+            del lam, l32, x, g, rx, rg
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_pair_transforms(torch, lk, dev, card):
+    """(b) The spin-2 transforms at full width with float16 tables and with
+    float64 tables, both under float32 compute, against float32-table ones
+    at NCHAINS chains: GL lmax 512 dense and ring-split, HEALPix nside 256
+    (padded layout) dense; synthesis, adjoint and analysis, max|err|/max|ref|
+    (<= PAIR_TRANSFORM_TOL), ms per transform (3 calls, CUDA events, beside
+    the float32 one) and table bytes.  The counts are set to 0 before and
+    read after; returns {suffix: pair_counts}."""
+    from gibbssampler_tpu_torch.harmonics import ell_mask_state, nstate
+    from gibbssampler_tpu_torch.sht import make_healpix_sht, make_sht
+    gen = torch.Generator(device=dev).manual_seed(42)
+    f32 = torch.float32
+    kw = dict(dtype=f32, spin2=True, device=dev)
+    lk.reset_launch_counts()
+    for label, mk in (
+            ("GL dense", lambda td: make_sht(LMAX, table_dtype=td, **kw)),
+            ("GL ring-split", lambda td: make_sht(LMAX, table_dtype=td,
+                                                  ring_split=True, **kw)),
+            ("HEALPix dense", lambda td: make_healpix_sht(
+                NSIDE, LMAX, layout="padded", table_dtype=td, **kw))):
+        ref = mk(None)
+        shp = (ref.npix_layout,) if hasattr(ref, "geo") else (ref.nrings,
+                                                             ref.nphi)
+        m2 = torch.as_tensor(ell_mask_state(LMAX, 2), dtype=f32, device=dev)
+        e, b = (torch.randn((NCHAINS, nstate(LMAX)), generator=gen,
+                            dtype=f32, device=dev) * m2 for _ in range(2))
+        q, u = (torch.randn((NCHAINS,) + shp, generator=gen, dtype=f32,
+                            device=dev) for _ in range(2))
+        for sfx, (tdn, *_r) in PAIR_KERNELS.items():
+            t0 = time.time()
+            tr = mk(tdn)
+            torch.cuda.synchronize()
+            built = time.time() - t0
+            td = getattr(torch, tdn)
+            check(tr.table_dtype == td and tr.dtype == f32 and all(
+                t is None or t.dtype == td
+                for t in (tr.lam0, tr.lam_p2, tr.lam_m2, tr.lam_w, tr.lam_x)),
+                f"pairs {label}: tables not in {tdn}")
+            tol = PAIR_TRANSFORM_TOL[tdn]
+            for what, meth, args in (
+                    ("synthesis", "synthesis_spin2_state", (e, b)),
+                    ("adjoint", "adjoint_synthesis_spin2_state", (q, u)),
+                    ("analysis", "analysis_spin2_state", (q, u))):
+                want = getattr(ref, meth)(*args)
+                got = getattr(tr, meth)(*args)
+                torch.cuda.synchronize()
+                err = max(float((a - r).abs().max() / r.abs().max())
+                          for a, r in zip(got, want))
+                check(err <= tol and all(bool(torch.isfinite(a).all())
+                                         for a in got),
+                      f"pairs {label} {tdn} tables spin-2 {what}: against "
+                      f"float32 tables {err:.3g} > {tol}")
+                ms_f = time_ms(torch, lambda: getattr(ref, meth)(*args), 3)
+                ms_n = time_ms(torch, lambda: getattr(tr, meth)(*args), 3)
+                print(f"pairs {label} lmax {LMAX} spin-2 {what}, float32 "
+                      f"compute on {tdn} tables, {NCHAINS} chains: "
+                      f"max|err|/max|ref| against float32 tables {err:.2e} "
+                      f"(<= {tol}); {ms_n:.3f} ms per transform, float32 "
+                      f"tables {ms_f:.3f} ms [{card}]", flush=True)
+                del want, got
+            print(f"pairs {label} {tdn} tables: table bytes "
+                  f"{table_bytes(tr) / 1e9:.4f} GB (float32 tables "
+                  f"{table_bytes(ref) / 1e9:.4f} GB), built in {built:.1f} s",
+                  flush=True)
+            del tr
+            torch.cuda.empty_cache()
+        del ref, e, b, q, u
+        torch.cuda.empty_cache()
+    n = {sfx: pair_counts(lk, sfx) for sfx in PAIR_KERNELS}
+    check(all(all(v) for v in n.values()), f"pairs transforms: launches "
+          f"{n}; every kernel of each pair must run")
+    return n
+
+
+def f16_sites(torch, fn):
+    """``fn()`` and the largest |value| at each float16 rounding site while
+    it runs: the batches of the Legendre kernels on float16 tables (each
+    rounded to float16 in the kernel) and the operands of ``_round_td``
+    of float16-table transforms (the azimuthal stages'), recorded by
+    wrappers around both.  Returns (fn's result, {site: max|value|})."""
+    from gibbssampler_tpu_torch.sht import lcore
+    peaks = {}
+
+    def note(site, t):
+        if t.numel():
+            v = float(t.detach().abs().max())
+            peaks[site] = max(peaks.get(site, 0.0), v)
+
+    # the transforms call the wrappers through sht.lcore's names (the
+    # wrappers count their launches on themselves: legendre_kernels' own
+    # names stay as they are)
+    wraps = {}
+    for name in NARROW_KERNELS:
+        kern = getattr(lcore, name)
+
+        def wrapped(lam, b, *a, _kern=kern, _name=name, **k):
+            if lam.dtype == torch.float16:
+                note(f"{_name} batch", b)
+            return _kern(lam, b, *a, **k)
+        wraps[name] = kern
+        setattr(lcore, name, wrapped)
+    orig_rnd = lcore.LegendreCore._round_td
+
+    def rnd(self, t):
+        if self.table_dtype == torch.float16:
+            note("azimuthal operand (_round_td)", t)
+        return orig_rnd(self, t)
+    lcore.LegendreCore._round_td = rnd
+    try:
+        res = fn()
+        torch.cuda.synchronize()
+    finally:
+        lcore.LegendreCore._round_td = orig_rnd
+        for name, kern in wraps.items():
+            setattr(lcore, name, kern)
+    return res, peaks
+
+
+def phase_pair_slices(torch, lk, dev, card):
+    """(c) bench.py's ASIS band slice (flagship.build, the tuned record,
+    GL 513 x 1026 cut over 65 rings, NCHAINS chains, float32 compute) on
+    float64 tables (BENCH_TABLE_DTYPE=float64 with x64 semantics), cut in
+    depth to PAIR_ITERS (warm-up, timed), through phase_bf16_slice:
+    ms/iter, MH ms/iter, acceptances in ACCEPT_WINDOW, exactly
+    ASIS_PER_ITER f64f32 launches per timed iteration and no other
+    Legendre launch, peak memory; then the float16-table slice
+    (BENCH_TABLE_DTYPE=float16): the largest |value| at each float16
+    rounding site over its start and one iteration (f16_sites); if every
+    one is
+    below 65504 the slice runs as the float64-table one with finite
+    outputs required, else it is not run and the overflow is printed.
+    Returns {suffix: pair_counts of the slice, or None}."""
+    from gibbssampler_tpu_torch import flagship
+    out = {"f64f32": phase_bf16_slice(
+        torch, lk, dev, card, iters=PAIR_ITERS, td="float64", sfx="f64f32",
+        counter=lambda lk: pair_counts(lk, "f64f32"))}
+    scheme, dl0 = flagship.build("gl", "band", table_dtype="float16",
+                                 device=dev, lmax=LMAX)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    _, peaks = f16_sites(torch, lambda: scheme.step(
+        flagship.start_state(scheme, dl0, NCHAINS, gen), gen=gen))
+    top = max(peaks.values())
+    print(f"pairs float16 ASIS band: the largest |value| at each float16 "
+          f"rounding site over one iteration: "
+          f"{ {k: f'{v:.4g}' for k, v in peaks.items()} } (float16's "
+          f"largest finite value {F16_MAX:g}) [{card}]", flush=True)
+    del scheme
+    torch.cuda.empty_cache()
+    if top >= F16_MAX:
+        print(f"pairs float16 ASIS band slice not run: a float16 rounding "
+              f"site reaches {top:.4g} >= {F16_MAX:g} and would round to "
+              f"inf, in the JAX package as in the port (a shared "
+              f"limitation of float16 tables on this configuration) "
+              f"[{card}]", flush=True)
+        out["f16"] = None
+    else:
+        out["f16"] = phase_bf16_slice(
+            torch, lk, dev, card, iters=PAIR_ITERS, td="float16", sfx="f16",
+            counter=lambda lk: pair_counts(lk, "f16"))
+    return out
+
+
+def phase_pairs(torch, lk, dev, card):
+    """The remaining table pairs' phase: (a) the kernels, (b) the
+    transforms, (c) the slices (phase_pair_*).  Returns ((a)'s records,
+    {suffix: the launches of (b) and (c)})."""
+    t0 = time.time()
+    recs = phase_pair_kernels(torch, lk, dev, card)
+    n_b = phase_pair_transforms(torch, lk, dev, card)
+    n_c = phase_pair_slices(torch, lk, dev, card)
+    launches = {sfx: [a + b for a, b in zip(n_b[sfx], n_c[sfx] or (0,) * 4)]
+                for sfx in PAIR_KERNELS}
+    print(f"pairs phase: {time.time() - t0:.1f} s; launches on its paths "
           f"(dense synth, adj, parity synth, adj) {launches} [{card}]",
           flush=True)
     return recs, launches
@@ -4378,6 +4850,10 @@ def main():
     # float64 compute on narrow tables: (a) the kernels, (b) the
     # transforms, (c) the CG solves
     nw_rec, nw_launches = phase_narrow(torch, lk, dev, card)
+    torch.cuda.empty_cache()
+    # the remaining table pairs: float16 and float64 tables under float32
+    # compute: (a) the kernels, (b) the transforms, (c) the slices
+    pr_rec, pr_launches = phase_pairs(torch, lk, dev, card)
     print_shapes("engine sweeps", tally["shapes"])
     checked, new_rec, new_rec64 = phase_new_shapes(torch, lk, dev, card,
                                                    new_shapes)
@@ -4468,6 +4944,22 @@ def main():
                           "legendre_tri_narrow_f64.cu",
                 "replaces": f"gibbssampler_tpu/sht/pallas_legendre.py:{line}",
                 "launches": nw_launches[tdn][i], **recs[key],
+                "by_shape": recs})
+    # the float16-table and float64-table float32 kernels: top-level times
+    # at the band's cut rings (dense) and the GL grid's 257 north rings
+    # (parity), 128 chains
+    for sfx, (_tdn, src, _cnt, _pipe) in PAIR_KERNELS.items():
+        for i, (name, line, key) in enumerate((
+                ("legendre_synth_tri", 52, f"{CUT_RINGS} C{2 * NCHAINS}"),
+                ("legendre_adj_tri", 106, f"{CUT_RINGS} C{2 * NCHAINS}"),
+                ("legendre_synth_par", 52, f"{LMAX + 1} C{2 * NCHAINS}"),
+                ("legendre_adj_par", 106, f"{LMAX + 1} C{2 * NCHAINS}"))):
+            recs = pr_rec[f"{name}_{sfx}"]
+            kernels.append({
+                "name": f"{name}_{sfx}", "route": "cuda",
+                "source": f"gibbssampler_tpu_torch/csrc/{src}",
+                "replaces": f"gibbssampler_tpu/sht/pallas_legendre.py:{line}",
+                "launches": pr_launches[sfx][i], **recs[key],
                 "by_shape": recs})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} not launched by the main path")

@@ -102,9 +102,27 @@
 //   columns (the table read 8 times at C 256, copies one stage ahead).
 // Every launch goes to the caller's stream; each entry point returns the
 // CUDA error code so that a refused launch reaches the wrapper.
+//
+// The float16 mode (LEGENDRE_TABLE_F16 defined: legendre_tri_f16.cu, entry
+// points legendre_*_f16): float16 tables with a float32 batch, the JAX
+// package's table_dtype=float16 under float32 compute.  The same kernels,
+// tiles, ldmatrix reads and plans, on f16 operands: the batch rounded once
+// by cvt.rn.f16x2.f32 and the products by mma.sync m16n8k16 .f16.f16 with
+// float32 accumulation (a product of two float16 values, 11 x 11
+// significand bits, is exact in float32, as one of two bfloat16 values is).
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#ifdef LEGENDRE_TABLE_F16
+#define LEGENDRE_ENTRY(name) name##_f16
+#define LEGENDRE_INFO legendre_tri_f16_info
+#define LEGENDRE_OPERAND "f16"
+#else
+#define LEGENDRE_ENTRY(name) name##_bf16
+#define LEGENDRE_INFO legendre_tri_bf16_info
+#define LEGENDRE_OPERAND "bf16"
+#endif
 
 namespace {
 
@@ -112,18 +130,21 @@ namespace {
 // PTX helpers
 // ---------------------------------------------------------------------------
 
-// two float32 values -> packed bf16x2, each rounded to nearest even; lo in
-// the low half (the lower k of the fragment pair)
+// two float32 values -> packed bf16x2 (f16x2 in the float16 mode), each
+// rounded to nearest even; lo in the low half (the lower k of the fragment
+// pair)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  asm("cvt.rn." LEGENDRE_OPERAND "x2.f32 %0, %1, %2;\n"
+      : "=r"(d) : "f"(hi), "f"(lo));
   return d;
 }
 
-// d += a b, bf16 operands, float32 accumulators
+// d += a b, bf16 operands (f16 in the float16 mode), float32 accumulators
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+  asm("mma.sync.aligned.m16n8k16.row.col.f32." LEGENDRE_OPERAND "."
+      LEGENDRE_OPERAND ".f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
@@ -960,9 +981,10 @@ extern "C" {
 // lam: bf16 (M, L, nr); x[i, c, l] at x + i * sxm + c * sxc + l, float32;
 // ms: null (M = L, row i of degree i) or M int32 degree orders on the device;
 // tile: the ring tile, 80, 96, 128 or 144 (legendre_kernels.bf16_synth_tile)
-int legendre_synth_tri_bf16(const void* lam, const void* x, void* out, int L,
-                            int nr, int C, long long sxm, long long sxc,
-                            const void* ms, int M, int tile, void* stream) {
+int LEGENDRE_ENTRY(legendre_synth_tri)(
+    const void* lam, const void* x, void* out, int L, int nr, int C,
+    long long sxm, long long sxc, const void* ms, int M, int tile,
+    void* stream) {
   switch (tile) {
     case 80:
       return launch_synth<80>(lam, x, out, L, nr, C, sxm, sxc, ms, M, stream);
@@ -981,10 +1003,10 @@ int legendre_synth_tri_bf16(const void* lam, const void* x, void* out, int L,
 
 // g[i, r, c] at g + i * sgm + r * sgr + c * sgc with sgr == 1 or sgc == 1;
 // out[i, c, l] at out + i * som + c * soc + l; ms as above
-int legendre_adj_tri_bf16(const void* lam, const void* g, void* out, int L,
-                          int nr, int C, long long sgm, long long sgr,
-                          long long sgc, long long som, long long soc,
-                          const void* ms, int M, void* stream) {
+int LEGENDRE_ENTRY(legendre_adj_tri)(
+    const void* lam, const void* g, void* out, int L, int nr, int C,
+    long long sgm, long long sgr, long long sgc, long long som, long long soc,
+    const void* ms, int M, void* stream) {
   const auto* lam_ = static_cast<const uint16_t*>(lam);
   const auto* g_ = static_cast<const float*>(g);
   auto* out_ = static_cast<float*>(out);
@@ -1007,10 +1029,10 @@ int legendre_adj_tri_bf16(const void* lam, const void* g, void* out, int L,
 // rings, x, g and the outputs as above over all nr rings; flip selects the
 // opposite reflection parity; tile: the synthesis' ring tile, 128 or 144
 // (legendre_kernels.bf16_par_synth_tile)
-int legendre_synth_par_bf16(const void* lam, const void* x, void* out, int L,
-                            int nr, int C, long long sxm, long long sxc,
-                            const void* ms, int M, int flip, int tile,
-                            void* stream) {
+int LEGENDRE_ENTRY(legendre_synth_par)(
+    const void* lam, const void* x, void* out, int L, int nr, int C,
+    long long sxm, long long sxc, const void* ms, int M, int flip, int tile,
+    void* stream) {
   const float f = flip ? -1.f : 1.f;
   switch (tile) {
     case kParTile0:
@@ -1024,10 +1046,10 @@ int legendre_synth_par_bf16(const void* lam, const void* x, void* out, int L,
   }
 }
 
-int legendre_adj_par_bf16(const void* lam, const void* g, void* out, int L,
-                          int nr, int C, long long sgm, long long sgr,
-                          long long sgc, long long som, long long soc,
-                          const void* ms, int M, int flip, void* stream) {
+int LEGENDRE_ENTRY(legendre_adj_par)(
+    const void* lam, const void* g, void* out, int L, int nr, int C,
+    long long sgm, long long sgr, long long sgc, long long som, long long soc,
+    const void* ms, int M, int flip, void* stream) {
   const auto* lam_ = static_cast<const uint16_t*>(lam);
   const auto* g_ = static_cast<const float*>(g);
   auto* out_ = static_cast<float*>(out);
@@ -1050,7 +1072,7 @@ int legendre_adj_par_bf16(const void* lam, const void* g, void* out, int L,
 // dense adjoint with unit stride on r / c; 6 / 7 the parity synthesis at
 // ring tiles 128 / 144; 8 / 9 the parity adjoint with unit stride on r / c.
 // what: 0 dynamic shared memory (bytes), 1 resident blocks an SM.
-int legendre_tri_bf16_info(int kind, int what) {
+int LEGENDRE_INFO(int kind, int what) {
   switch (kind) {
     case 0: return info<SynthBf16<80>>(synth_tri_bf16<80, false>, what);
     case 1: return info<SynthBf16<96>>(synth_tri_bf16<96, false>, what);

@@ -1,34 +1,45 @@
-// Triangular Legendre contractions of a narrow table (bfloat16 or float32)
-// with a float64 batch, for Hopper (sm_90a): the table read in its own
-// dtype and widened in registers, the batch rounded to the table dtype,
-// the exact products summed in float64.  Plain C interface, loaded with
-// ctypes.
+// Triangular Legendre contractions of a table in another dtype than its
+// batch, for Hopper (sm_90a): a narrow table (bfloat16, float16 or
+// float32) with a float64 batch, or a float64 table with a float32 batch;
+// the table read in its own dtype and widened in registers, the products
+// summed in float64 on the fp64 tensor cores.  Plain C interface, loaded
+// with ctypes.
 //
-// Replaces, for a bfloat16 or float32 table under float64 compute, the
-// Pallas TPU kernels of gibbssampler_tpu/sht/pallas_legendre.py:
+// Replaces, for a bfloat16, float16 or float32 table under float64
+// compute and a float64 table under float32 compute, the Pallas TPU
+// kernels of gibbssampler_tpu/sht/pallas_legendre.py:
 //   legendre_synth_tri (:52, _synth_kernel, pallas_call :76)
 //       out[m, r, c] = sum_{l >= m} lam[m, l, r] x[m, c, l]
 //   legendre_adj_tri   (:106, _adj_kernel, pallas_call :121)
 //       out[m, c, l] = sum_r lam[m, l, r] g[m, r, c],  0 for l < m
-// which the JAX package runs, in this mode, as the einsums of its
+// which the JAX package runs, in these modes, as the einsums of its
 // sht/lcore.py (einsum(lam, b.astype(table_dtype),
-// preferred_element_type=float64)).  Layouts, the m-slab form (ms, M) and
-// the ring-parity mode (a table over the ceil(nr / 2) north rings, the sums
-// over even and odd l - m kept apart and mirrored into the south rings, or
-// g's south rings folded onto the north ones) are those of
+// preferred_element_type=compute dtype)).  Layouts, the m-slab form (ms, M)
+// and the ring-parity mode (a table over the ceil(nr / 2) north rings, the
+// sums over even and odd l - m kept apart and mirrored into the south
+// rings, or g's south rings folded onto the north ones) are those of
 // legendre_tri_f64.cu: lam (M, L, nt) row-major, zero for l < m; x (M, C,
 // L) with unit stride on l; g (M, nr, C) with unit stride on r or on c;
 // synthesis out (M, nr, C) row-major; adjoint out (M, C, L) with unit
-// stride on l, every element written (the zeros of l < m too).
+// stride on l, every element written (the zeros of l < m too); the batch
+// and the output in the batch's type (Narrow<T>::B).
 //
-// The rounding is the JAX package's: a batch value bound for bfloat16 goes
-// float64 -> float32 (__double2float_rn) -> bfloat16 (__float2bfloat16_rn),
-// never in one step, as XLA's and torch's conversions do (one rounding
-// would differ at values such as 1 + 2^-8 + 2^-30); the parity adjoint folds
-// g[r] + f (-1)^(l+m) g[nr-1-r] in float64 and rounds the fold (JAX's
-// U = (Gn + Gs).astype(table_dtype)).  The product of two rounded values is
-// exact in float64, so every output is a float64 sum of exact products; only
-// the order of the sums differs from the plain version's.
+// The rounding is the JAX package's (Narrow<T>::round): a float64 batch
+// value bound for bfloat16 goes float64 -> float32 (__double2float_rn) ->
+// bfloat16 (__float2bfloat16_rn), never in one step, as XLA's and torch's
+// conversions do (one rounding would differ at values such as 1 + 2^-8 +
+// 2^-30); one bound for float16 is rounded once (cvt.rn.f16.f64), as XLA
+// and numpy convert it (two would differ at 1 + 2^-11 + 2^-40); a float32
+// batch value bound for the float64 table is widened exactly.  The parity
+// adjoint folds g[r] + f (-1)^(l+m) g[nr-1-r] in the batch's type and then
+// rounds (widens) the fold (JAX's U = (Gn + Gs).astype(table_dtype)).  The
+// product of two rounded values is exact in float64, so every output of a
+// narrow table is a float64 sum of exact products; only the order of the
+// sums differs from the plain version's.  With the float64 table each
+// float64 sum is rounded once to float32 as it is stored; the parity
+// synthesis rounds its two classes' sums to float32 each and forms north
+// SE + SO and south f (SE - SO) in float32, the JAX package's split
+// synthesis' order.
 //
 // What bounds them: bytes, once the products run on the fp64 tensor cores.
 // At the CG family's C = 16 columns (8 chains x Re/Im), L 513, nr 513, one
@@ -139,6 +150,7 @@
 // serves to time the other parts alone (kernel_ab.py --variant).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -158,14 +170,19 @@ __device__ __forceinline__ int degree(const int* ms, int i) {
   return ms ? __ldg(ms + i) : i;
 }
 
+// Table type T: widen, a table value in float64; round, a batch value (B:
+// float64 for a narrow table, float32 for the float64 one) as the JAX
+// package's astype(T) makes it, in float64.
 template <typename T>
 struct Narrow;
 
 template <>
 struct Narrow<__nv_bfloat16> {
-  static __device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  using B = double;
+  static __device__ __forceinline__ double widen(__nv_bfloat16 v) {
     return __bfloat162float(v);
   }
+  // through float32, as XLA and torch convert float64 to bfloat16
   static __device__ __forceinline__ double round(double v) {
     return static_cast<double>(
         __bfloat162float(__float2bfloat16_rn(__double2float_rn(v))));
@@ -173,18 +190,48 @@ struct Narrow<__nv_bfloat16> {
 };
 
 template <>
+struct Narrow<__half> {
+  using B = double;
+  static __device__ __forceinline__ double widen(__half v) {
+    return __half2float(v);
+  }
+  // one rounding, as XLA (and numpy) convert float64 to float16
+  static __device__ __forceinline__ double round(double v) {
+    unsigned short h;
+    asm("cvt.rn.f16.f64 %0, %1;\n" : "=h"(h) : "d"(v));
+    return __half2float(__ushort_as_half(h));
+  }
+};
+
+template <>
 struct Narrow<float> {
-  static __device__ __forceinline__ float widen(float v) { return v; }
+  using B = double;
+  static __device__ __forceinline__ double widen(float v) { return v; }
   static __device__ __forceinline__ double round(double v) {
     return static_cast<double>(__double2float_rn(v));
+  }
+};
+
+// the wide table: a float32 batch, widened exactly
+template <>
+struct Narrow<double> {
+  using B = float;
+  static __device__ __forceinline__ double widen(double v) { return v; }
+  static __device__ __forceinline__ double round(float v) {
+    return static_cast<double>(v);
   }
 };
 
 // the table element of type T at byte address p (shared memory), in float64
 template <typename T>
 __device__ __forceinline__ double wide(const unsigned char* p) {
-  return static_cast<double>(
-      Narrow<T>::widen(*reinterpret_cast<const T*>(p)));
+  return Narrow<T>::widen(*reinterpret_cast<const T*>(p));
+}
+
+// the batch element of type B at byte address p (shared memory)
+template <typename B>
+__device__ __forceinline__ B ld(const unsigned char* p) {
+  return *reinterpret_cast<const B*>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -214,9 +261,10 @@ __device__ __forceinline__ int shift16(const void* p) {
   return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
 }
 
-// parity of a double's address in units of 8 bytes
-__device__ __forceinline__ int parity(const double* p) {
-  return static_cast<int>(reinterpret_cast<uintptr_t>(p) >> 3) & 1;
+// the elements of type B from the 16-byte boundary below p to p
+template <typename B>
+__device__ __forceinline__ int eshift(const B* p) {
+  return shift16(p) / static_cast<int>(sizeof(B));
 }
 
 // Chunk j of a run of vb valid bytes from p (any alignment): the run lands
@@ -248,23 +296,48 @@ __device__ __forceinline__ void dmma16(double (&d)[4], const double (&a)[4],
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
 }
 
-// dst[j] = src[parity(dst) + j] for j < n (src 16-byte aligned in shared
+// dst[j] = src[eshift(dst) + j] for j < n (src 16-byte aligned in shared
 // memory), or 0 where src is null, by one warp: 16-byte stores along the
-// run, 8-byte ones at its two ends
-__device__ __forceinline__ void store_run(double* dst, const double* src,
-                                          int n, int lane) {
-  const int s = parity(dst);
-  double* base = dst - s;  // 16-byte aligned
-  for (int q = lane; 2 * q < s + n; q += 32) {
-    const double2 v = src ? *reinterpret_cast<const double2*>(src + 2 * q)
-                          : make_double2(0.0, 0.0);
-    const int j = 2 * q - s;  // the run's element at base[2 q]
-    if (j >= 0 && j + 2 <= n) {
-      *reinterpret_cast<double2*>(base + 2 * q) = v;
+// run, element stores at its two ends
+template <typename B>
+__device__ __forceinline__ void store_run(B* dst, const B* src, int n,
+                                          int lane) {
+  constexpr int W = 16 / sizeof(B);  // elements a 16-byte store
+  const int s = eshift(dst);
+  B* base = dst - s;  // 16-byte aligned
+  for (int q = lane; W * q < s + n; q += 32) {
+    const int j = W * q - s;  // the run's element at base[W q]
+    if (j >= 0 && j + W <= n) {
+      *reinterpret_cast<uint4*>(base + W * q) =
+          src ? *reinterpret_cast<const uint4*>(src + W * q)
+              : make_uint4(0, 0, 0, 0);
     } else {
-      if (j >= 0 && j < n) base[2 * q] = v.x;
-      if (j + 1 >= 0 && j + 1 < n) base[2 * q + 1] = v.y;
+#pragma unroll
+      for (int e = 0; e < W; ++e)
+        if (j + e >= 0 && j + e < n) base[W * q + e] = src ? src[W * q + e] : B(0);
     }
+  }
+}
+
+// o[c], o[c + 1] = v0, v1 where c, c + 1 < cv: one store of both where the
+// pair is aligned to its size
+__device__ __forceinline__ void store_pair(double* o, int c, int cv,
+                                           double v0, double v1) {
+  if (c + 1 < cv && shift16(o + c) == 0) {
+    *reinterpret_cast<double2*>(o + c) = make_double2(v0, v1);
+  } else {
+    if (c < cv) o[c] = v0;
+    if (c + 1 < cv) o[c + 1] = v1;
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* o, int c, int cv,
+                                           float v0, float v1) {
+  if (c + 1 < cv && (shift16(o + c) & 7) == 0) {
+    *reinterpret_cast<float2*>(o + c) = make_float2(v0, v1);
+  } else {
+    if (c < cv) o[c] = v0;
+    if (c + 1 < cv) o[c + 1] = v1;
   }
 }
 
@@ -296,13 +369,12 @@ __device__ __forceinline__ void run_ring(K& k, int KT) {
 
 // A build without the stores (LEGENDRE_NARROW_PARTS) still uses every sum,
 // so that the compiler keeps the products: a store that no sum triggers.
-template <int N>
-__device__ __forceinline__ void keep_live(const double (&acc)[N][4],
-                                          double* out) {
+template <int N, typename B>
+__device__ __forceinline__ void keep_live(const double (&acc)[N][4], B* out) {
   double s = 0.0;
 #pragma unroll
   for (int i = 0; i < N; ++i) s += acc[i][0] + acc[i][1] + acc[i][2] + acc[i][3];
-  if (s == 1.2345e-300) out[0] = s;
+  if (s == 1.2345e-300) out[0] = static_cast<B>(s);
 }
 
 // ---------------------------------------------------------------------------
@@ -310,8 +382,10 @@ __device__ __forceinline__ void keep_live(const double (&acc)[N][4],
 // ---------------------------------------------------------------------------
 
 constexpr int kSynMaxWarps = 8;
-constexpr int kSynRows = 32;     // degree rows a stage
 constexpr int kSynDepth = 2;     // stages in flight
+// degree rows a stage: 32, or 16 for a float64 table (whose 32-row stages
+// would take 150 KB at nr 513: one block an SM)
+__host__ __device__ constexpr int syn_rows(int es) { return es == 8 ? 16 : 32; }
 
 // The dense synthesis' plan, the same on host and device: m16 tiles a warp
 // (one, 16 rings, while one block of at most 8 warps holds every ring; else
@@ -319,10 +393,11 @@ constexpr int kSynDepth = 2;     // stages in flight
 // stages the batch again), ring tiles, warps a block, the bytes from one
 // table row's slot to the next (at least the warps' rings and a chunk, 32
 // mod 128), dynamic shared memory: DEPTH + 1 table stages, DEPTH landed x
-// tiles [tc][kSynRows + 2] and B [tc][kSynRows + 4].
+// tiles [tc][rows eb + 16 bytes] and B [tc][rows + 4] doubles (es, eb: the
+// table's and the batch's bytes an element).
 struct SynthNarrowPlan {
   int mt, ntr, warps, rs, smem;
-  __host__ __device__ SynthNarrowPlan(int nr, int tc, int es) {
+  __host__ __device__ SynthNarrowPlan(int nr, int tc, int es, int eb) {
     mt = nr <= 16 * kSynMaxWarps ? 1 : 2;
     const int wt = (nr + 16 * mt - 1) / (16 * mt);
     ntr = (wt + kSynMaxWarps - 1) / kSynMaxWarps;
@@ -331,28 +406,30 @@ struct SynthNarrowPlan {
     if (warps < 1) warps = 1;
     const int span = 16 * mt * warps * es + 16;
     rs = (span + 95) / 128 * 128 + 32;
-    smem = (kSynDepth + 1) * kSynRows * rs +
-           (kSynDepth * (kSynRows + 2) + kSynRows + 4) * tc * 8;
+    const int ks = syn_rows(es);
+    smem = (kSynDepth + 1) * ks * rs + kSynDepth * tc * (ks * eb + 16) +
+           (ks + 4) * tc * 8;
   }
 };
 
 template <typename T, int TC, int MT_>
 struct SynthNarrow {
-  static constexpr int ES = sizeof(T), MT = MT_, NT = TC / 8;
-  static constexpr int KS = kSynRows, DEPTH = kSynDepth;
-  static constexpr int XL = KS + 2;  // doubles a landed x row: its shift, its chunks
+  using B = typename Narrow<T>::B;  // the batch's and the output's type
+  static constexpr int ES = sizeof(T), EB = sizeof(B), MT = MT_, NT = TC / 8;
+  static constexpr int KS = syn_rows(ES), DEPTH = kSynDepth;
+  static constexpr int XL = KS * EB + 16;  // bytes a landed x row: its shift, its chunks
   static constexpr int XS = KS + 4;  // doubles a B row
   static constexpr int THREADS = 32 * kSynMaxWarps;
-  static_assert(KS % 8 == 0 && XL % 2 == 0 && XS % 16 == 4,
+  static_assert(KS % 8 == 0 && XL % 16 == 0 && XS % 16 == 4,
                 "k8 steps, a row's shift the same 8 rows on; 16-byte landing "
                 "rows; B fragment banks");
 
   unsigned char* tb;    // table slots [DEPTH + 1][KS][rs bytes]
-  double* xl;           // landed x [DEPTH][TC][XL]
+  unsigned char* xl;    // landed x [DEPTH][TC][XL bytes]
   double* xb;           // B: x rounded [TC][XS]
   const T* lam;         // lam[0, 0, r_lo]
-  const double* x;      // x[0, c0, 0]
-  double* out;          // out[0, r_lo, c0]
+  const B* x;           // x[0, c0, 0]
+  B* out;               // out[0, r_lo, c0]
   long long sxm, sxc;
   int L, nr, C, rs, nch, R, cv;  // nch: chunks a table row
   int ia, ib, ma, mb, na, nst;   // the row pair, row ia's stages, all stages
@@ -369,7 +446,7 @@ struct SynthNarrow {
   __device__ __forceinline__ const T* row0(const Stage& st) const {
     return lam + (static_cast<long long>(st.ri) * L + st.l0) * nr;
   }
-  __device__ __forceinline__ const double* xrow(const Stage& st) const {
+  __device__ __forceinline__ const B* xrow(const Stage& st) const {
     return x + st.ri * sxm + st.l0;
   }
 
@@ -396,27 +473,28 @@ struct SynthNarrow {
       copy_chunk(ts + k * rs, ok ? src + static_cast<long long>(k) * nr : src,
                  ok ? R * ES : 0, j);
     }
-    double* xs = xl + (q % DEPTH) * TC * XL;
-    const double* xm = xrow(st);
-    for (int e = tid; e < TC * (XL / 2); e += nth) {
-      const int c = e / (XL / 2), j = e - c * (XL / 2);
+    unsigned char* xs = xl + (q % DEPTH) * TC * XL;
+    const B* xm = xrow(st);
+    for (int e = tid; e < TC * (XL / 16); e += nth) {
+      const int c = e / (XL / 16), j = e - c * (XL / 16);
       const bool ok = c < cv;
-      copy_chunk(xs + c * XL, ok ? xm + c * sxc : xm, ok ? 8 * st.nrows : 0,
+      copy_chunk(xs + c * XL, ok ? xm + c * sxc : xm, ok ? EB * st.nrows : 0,
                  j);
     }
   }
 
-  // B[c][k] = x rounded, zero past the slab and the columns
+  // B[c][k] = x rounded (widened), zero past the slab and the columns
   __device__ __forceinline__ void stage(int q) {
     if (!kStaging) return;
     const Stage st = stage_at(q);
-    const double* xs = xl + (q % DEPTH) * TC * XL;
-    const double* xm = xrow(st);
+    const unsigned char* xs = xl + (q % DEPTH) * TC * XL;
+    const B* xm = xrow(st);
     for (int e = tid; e < TC * KS; e += nth) {
       const int c = e / KS, k = e % KS;
       double v = 0.0;
       if (c < cv && k < st.nrows)
-        v = Narrow<T>::round(xs[c * XL + parity(xm + c * sxc) + k]);
+        v = Narrow<T>::round(
+            ld<B>(xs + c * XL + shift16(xm + c * sxc) + k * EB));
       xb[c * XS + k] = v;
     }
   }
@@ -479,18 +557,11 @@ struct SynthNarrow {
         const int mt = i >> 1, h = i & 1;
         const int r = wr0 + 16 * mt + 8 * h + gid;
         if (r >= R) continue;
-        double* o = out + (static_cast<long long>(st.ri) * nr + r) * C;
+        B* o = out + (static_cast<long long>(st.ri) * nr + r) * C;
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const int c = n * 8 + 2 * tig;
-          const double v0 = acc[mt][n][2 * h], v1 = acc[mt][n][2 * h + 1];
-          if (c + 1 < cv && shift16(o + c) == 0) {
-            *reinterpret_cast<double2*>(o + c) = make_double2(v0, v1);
-          } else {
-            if (c < cv) o[c] = v0;
-            if (c + 1 < cv) o[c + 1] = v1;
-          }
-        }
+        for (int n = 0; n < NT; ++n)
+          store_pair(o, n * 8 + 2 * tig, cv, static_cast<B>(acc[mt][n][2 * h]),
+                     static_cast<B>(acc[mt][n][2 * h + 1]));
       }
     }
     zero();
@@ -499,13 +570,14 @@ struct SynthNarrow {
 
 template <typename T, int TC, int MT>
 __global__ void __launch_bounds__(SynthNarrow<T, TC, MT>::THREADS, 2)
-    synth_narrow(const T* __restrict__ lam, const double* __restrict__ x,
-                 double* __restrict__ out, int L, int nr, int C,
-                 long long sxm, long long sxc, const int* __restrict__ ms,
-                 int M) {
+    synth_narrow(const T* __restrict__ lam,
+                 const typename Narrow<T>::B* __restrict__ x,
+                 typename Narrow<T>::B* __restrict__ out, int L, int nr,
+                 int C, long long sxm, long long sxc,
+                 const int* __restrict__ ms, int M) {
   using K = SynthNarrow<T, TC, MT>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const SynthNarrowPlan pl(nr, TC, K::ES);
+  const SynthNarrowPlan pl(nr, TC, K::ES, K::EB);
   const int tile = blockIdx.x % pl.ntr;
   const int c0 = (blockIdx.x / pl.ntr) * TC;
   const int r_lo = tile * nr / pl.ntr;
@@ -514,8 +586,8 @@ __global__ void __launch_bounds__(SynthNarrow<T, TC, MT>::THREADS, 2)
   k.rs = pl.rs;
   k.nch = (k.R * K::ES + 30) / 16;  // chunks of the row at any shift
   k.tb = smem;
-  k.xl = reinterpret_cast<double*>(smem + (K::DEPTH + 1) * K::KS * pl.rs);
-  k.xb = k.xl + K::DEPTH * TC * K::XL;
+  k.xl = smem + (K::DEPTH + 1) * K::KS * pl.rs;
+  k.xb = reinterpret_cast<double*>(k.xl + K::DEPTH * TC * K::XL);
   k.lam = lam + r_lo;
   k.x = x + c0 * sxc;
   k.out = out + static_cast<long long>(r_lo) * C + c0;
@@ -552,41 +624,43 @@ constexpr int kAdjDepth = 2;    // stages in flight
 // KUNIT: g with unit stride on r (else on c)
 template <typename T, int TC, bool KUNIT>
 struct AdjNarrow {
-  static constexpr int ES = sizeof(T);
+  using B = typename Narrow<T>::B;  // g's and the output's type
+  static constexpr int ES = sizeof(T), EB = sizeof(B);
   static constexpr int BM = kAdjRows, KC = kAdjPiece / ES, DEPTH = kAdjDepth;
   static constexpr int THREADS = 32 * kAdjWarps, WR = BM / kAdjWarps;
   static constexpr int MT = WR / 16, NT = TC / 8;
   static constexpr int TW = KC * ES + 16;  // bytes a landed table row
   static constexpr int TCH = TW / 16;      // its chunks
   static constexpr int T_SLOT = BM * TW;   // bytes; DEPTH + 1 slots
-  static constexpr int GW = KUNIT ? KC + 2 : TC + 2;  // doubles a landed g row
-  static constexpr int GCH = GW / 2;       // [c][ring] (KUNIT) : [ring][c]
-  static constexpr int G_TILE = (KUNIT ? TC : KC) * GW;  // doubles
-  static constexpr int US = KC + 4;        // doubles a U row
+  // bytes a landed g row, [c][ring] (KUNIT) : [ring][c], and its chunks
+  static constexpr int GW = (KUNIT ? KC : TC) * EB + 16;
+  static constexpr int GCH = GW / 16;
+  static constexpr int G_TILE = (KUNIT ? TC : KC) * GW;  // bytes
+  // doubles a U row: KC and the padding to 4 mod 16 (B fragment banks)
+  static constexpr int US = (KC + 11) / 16 * 16 + 4;
   static constexpr int G_OFF = (DEPTH + 1) * T_SLOT;     // bytes
-  static constexpr int U_OFF = G_OFF + DEPTH * G_TILE * 8;
+  static constexpr int U_OFF = G_OFF + DEPTH * G_TILE;
   static constexpr int MAIN = U_OFF + TC * US * 8;
-  static constexpr int SO = BM + 4;        // epilogue [c][l - l0] doubles
-  static constexpr int SMEM = MAIN > TC * SO * 8 ? MAIN : TC * SO * 8;
+  static constexpr int SO = BM + 4;        // epilogue [c][l - l0] elements
+  static constexpr int SMEM = MAIN > TC * SO * EB ? MAIN : TC * SO * EB;
   static_assert((KC * ES) % 16 == 0 && KC % 8 == 0 && WR % 16 == 0 &&
-                    GW % 2 == 0 && US % 16 == 4,
+                    GW % 16 == 0 && US % 16 == 4,
                 "a row keeps its shift; k8 steps; 16-byte rows; banks");
 
   unsigned char* sm;
   const T* tab;         // lam[i, l0, 0]
-  const double* gp;     // g[i, 0, c0]
+  const B* gp;          // g[i, 0, c0]
   long long sgr, sgc;   // g's strides
-  int nt, iv, cv, gs0;  // iv: rows l0 + row < L; gs0: gp's address in doubles mod 2
+  int nt, iv, cv;       // iv: rows l0 + row < L
   int tid, lane, wr0;   // wr0: the warp's first row
   int ta[MT][2];        // this lane's rows gid, gid + 8 of each m16 tile in
                         // a slot (bytes), at ring tig
   double acc[MT][NT][4];
 
-  // where a landed g row starts (doubles): from element e of column c
-  // (KUNIT), or of ring e (unit stride on c)
+  // the byte shift of a landed g row: of element e of column c (KUNIT), or
+  // of ring e (unit stride on c)
   __device__ __forceinline__ int gshift(int c, int e) const {
-    return KUNIT ? (gs0 + (c & 1) * static_cast<int>(sgc & 1) + e) & 1
-                 : (gs0 + (e & 1) * static_cast<int>(sgr & 1)) & 1;
+    return KUNIT ? shift16(gp + c * sgc + e) : shift16(gp + e * sgr);
   }
 
   // the lane's rows wr0 + 16 mt + gid (+ 8) at ring tig: row slot, the
@@ -620,37 +694,37 @@ struct AdjNarrow {
       copy_chunk(ts + row * TW, tab + static_cast<long long>(row) * nt + k0,
                  vb, j);
     }
-    double* gn = reinterpret_cast<double*>(sm + G_OFF) + (s % DEPTH) * G_TILE;
+    unsigned char* gn = sm + G_OFF + (s % DEPTH) * G_TILE;
     if constexpr (KUNIT) {
       const int nv = min(nt, k0 + KC) - k0;
       for (int e = tid; e < TC * GCH; e += THREADS) {
         const int c = e / GCH, j = e - c * GCH;
         const bool ok = c < cv;
-        copy_chunk(gn + c * GW, ok ? gp + c * sgc + k0 : gp, ok ? 8 * nv : 0,
+        copy_chunk(gn + c * GW, ok ? gp + c * sgc + k0 : gp, ok ? EB * nv : 0,
                    j);
       }
     } else {
       for (int e = tid; e < KC * GCH; e += THREADS) {
         const int t = e / GCH, j = e - t * GCH, r = k0 + t;
         const bool ok = r < nt;
-        copy_chunk(gn + t * GW, ok ? gp + r * sgr : gp, ok ? 8 * cv : 0, j);
+        copy_chunk(gn + t * GW, ok ? gp + r * sgr : gp, ok ? EB * cv : 0, j);
       }
     }
   }
 
-  // U[c][j] = g[k0 + j, c] rounded, zero past the rings and the columns
+  // U[c][j] = g[k0 + j, c] rounded (widened), zero past the rings and the
+  // columns
   __device__ __forceinline__ void stage(int s) {
     if (!kStaging) return;
-    const double* gn =
-        reinterpret_cast<const double*>(sm + G_OFF) + (s % DEPTH) * G_TILE;
+    const unsigned char* gn = sm + G_OFF + (s % DEPTH) * G_TILE;
     double* U = reinterpret_cast<double*>(sm + U_OFF);
     const int k0 = s * KC;
     for (int e = tid; e < TC * KC; e += THREADS) {
       const int c = e / KC, j = e % KC, r = k0 + j;
-      double v = 0.0;
+      B v = 0;
       if (c < cv && r < nt)
-        v = KUNIT ? gn[c * GW + gshift(c, k0) + j]
-                  : gn[j * GW + gshift(0, r) + c];
+        v = KUNIT ? ld<B>(gn + c * GW + gshift(c, k0) + j * EB)
+                  : ld<B>(gn + j * GW + gshift(0, r) + c * EB);
       U[c * US + j] = Narrow<T>::round(v);
     }
   }
@@ -700,14 +774,14 @@ struct AdjNarrow {
   // memory [c][l - l0] (each column shifted to its run's 16-byte
   // alignment), then whole runs along l, a warp a column, each right after
   // the column's zeros at out[c * soc - zeros ..]
-  __device__ __forceinline__ void finish(double* out, long long soc, int lv,
+  __device__ __forceinline__ void finish(B* out, long long soc, int lv,
                                          int zeros) {
     if (!kStores) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) keep_live(acc[mt], out);
       return;
     }
-    double* so = reinterpret_cast<double*>(sm);
+    B* so = reinterpret_cast<B*>(sm);
     const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -717,11 +791,12 @@ struct AdjNarrow {
         for (int h = 0; h < 4; ++h) {
           const int l = wr0 + 16 * mt + 8 * (h >> 1) + gid;
           const int c = 8 * n + 2 * tig + (h & 1);
-          so[c * SO + parity(out + c * soc) + l] = acc[mt][n][h];
+          so[c * SO + eshift(out + c * soc) + l] =
+              static_cast<B>(acc[mt][n][h]);
         }
     __syncthreads();
     for (int c = tid >> 5; c < cv; c += THREADS / 32) {
-      if (zeros > 0) store_run(out + c * soc - zeros, nullptr, zeros, lane);
+      if (zeros > 0) store_run<B>(out + c * soc - zeros, nullptr, zeros, lane);
       store_run(out + c * soc, so + c * SO, min(BM, lv), lane);
     }
   }
@@ -737,10 +812,11 @@ __host__ __device__ inline int adj_pairs(int L, int P) {
 
 template <typename T, int TC, bool KUNIT>
 __global__ void __launch_bounds__(AdjNarrow<T, TC, KUNIT>::THREADS, 2)
-    adj_narrow(const T* __restrict__ lam, const double* __restrict__ g,
-               double* __restrict__ out, int L, int nr, int C, long long sgm,
-               long long sgr, long long sgc, long long som, long long soc,
-               const int* __restrict__ ms, int M) {
+    adj_narrow(const T* __restrict__ lam,
+               const typename Narrow<T>::B* __restrict__ g,
+               typename Narrow<T>::B* __restrict__ out, int L, int nr, int C,
+               long long sgm, long long sgr, long long sgc, long long som,
+               long long soc, const int* __restrict__ ms, int M) {
   using K = AdjNarrow<T, TC, KUNIT>;
   extern __shared__ __align__(16) unsigned char smem[];
   // (memory row i, degree m, row tile): tile-major over the rows
@@ -770,7 +846,6 @@ __global__ void __launch_bounds__(AdjNarrow<T, TC, KUNIT>::THREADS, 2)
   k.nt = nr;
   k.iv = min(K::BM, L - l0);
   k.cv = min(TC, C - c0);
-  k.gs0 = parity(k.gp);
   k.tid = threadIdx.x;
   k.lane = threadIdx.x & 31;
   k.wr0 = (threadIdx.x >> 5) * K::WR;
@@ -784,10 +859,12 @@ __global__ void __launch_bounds__(AdjNarrow<T, TC, KUNIT>::THREADS, 2)
 // ---------------------------------------------------------------------------
 
 // degree rows of one class a stage: 32 in bfloat16 (its 64-row stages took
-// 0.91x the time of 32-row ones at nr 513, C 16 and 32), 16 in float32
-// (whose 64-row stages need 128-151 KB there: one block an SM, 1.41-1.45x
-// the time)
-__host__ __device__ constexpr int par_kl(int es) { return es == 2 ? 32 : 16; }
+// 0.91x the time of 32-row ones at nr 513, C 16 and 32) and float16, 16 in
+// float32 (whose 64-row stages need 128-151 KB there: one block an SM,
+// 1.41-1.45x the time), 8 in float64
+__host__ __device__ constexpr int par_kl(int es) {
+  return es == 2 ? 32 : (es == 4 ? 16 : 8);
+}
 constexpr int kParDepth = 2;   // stages in flight
 // warps a block at most: two blocks an SM leave each thread 170 registers,
 // which hold both classes' 32 accumulator doubles and a stage's operands
@@ -800,11 +877,11 @@ constexpr int kParMaxWarps = 6;
 // of at most kParMaxWarps warps holds every north ring; else two), ring
 // tiles, warps a block, the bytes from one table row's slot to the next (at
 // least the warps' rings and a chunk, 32 mod 128), dynamic shared memory:
-// DEPTH + 1 table stages, DEPTH landed x tiles [tc][2 KL + 2] and B [tc][2
-// KL + 4].
+// DEPTH + 1 table stages, DEPTH landed x tiles [tc][2 KL eb + 16 bytes] and
+// B [tc][2 KL + 4] doubles.
 struct SynthParNarrowPlan {
   int mt, ntr, warps, rs, smem;
-  __host__ __device__ SynthParNarrowPlan(int nt, int tc, int es) {
+  __host__ __device__ SynthParNarrowPlan(int nt, int tc, int es, int eb) {
     mt = tc == 32 || nt <= 16 * kParMaxWarps ? 1 : 2;
     const int wt = (nt + 16 * mt - 1) / (16 * mt);
     ntr = (wt + kParMaxWarps - 1) / kParMaxWarps;
@@ -814,40 +891,29 @@ struct SynthParNarrowPlan {
     const int span = 16 * mt * warps * es + 16;
     rs = (span + 95) / 128 * 128 + 32;
     const int kl = par_kl(es);
-    smem = (kParDepth + 1) * 2 * kl * rs +
-           (kParDepth * (2 * kl + 2) + 2 * kl + 4) * tc * 8;
+    smem = (kParDepth + 1) * 2 * kl * rs + kParDepth * tc * (2 * kl * eb + 16) +
+           (2 * kl + 4) * tc * 8;
   }
 };
 
-// o[c], o[c + 1] = v0, v1 where c, c + 1 < cv: one 16-byte store where the
-// pair is aligned
-__device__ __forceinline__ void store_pair(double* o, int c, int cv,
-                                           double v0, double v1) {
-  if (c + 1 < cv && shift16(o + c) == 0) {
-    *reinterpret_cast<double2*>(o + c) = make_double2(v0, v1);
-  } else {
-    if (c < cv) o[c] = v0;
-    if (c + 1 < cv) o[c + 1] = v1;
-  }
-}
-
 template <typename T, int TC, int MT_>
 struct SynthParNarrow {
-  static constexpr int ES = sizeof(T), MT = MT_, NT = TC / 8;
+  using B = typename Narrow<T>::B;  // the batch's and the output's type
+  static constexpr int ES = sizeof(T), EB = sizeof(B), MT = MT_, NT = TC / 8;
   static constexpr int KL = par_kl(ES), KS = 2 * KL, DEPTH = kParDepth;
-  static constexpr int XL = KS + 2;  // doubles a landed x row: its shift, its chunks
+  static constexpr int XL = KS * EB + 16;  // bytes a landed x row: its shift, its chunks
   static constexpr int XS = KS + 4;  // doubles a B row: class 0's KL, class 1's
   static constexpr int THREADS = 32 * kParMaxWarps;
-  static_assert(KL % 8 == 0 && XL % 2 == 0 && XS % 16 == 4,
+  static_assert(KL % 8 == 0 && XL % 16 == 0 && XS % 16 == 4,
                 "k8 steps, a stage keeps each class's shifts; 16-byte "
                 "landing rows; B fragment banks");
 
   unsigned char* tb;    // table slots [DEPTH + 1][KS][rs bytes], by class
-  double* xl;           // landed x [DEPTH][TC][XL]
+  unsigned char* xl;    // landed x [DEPTH][TC][XL bytes]
   double* xb;           // B: x rounded [TC][XS]
   const T* lam;         // lam[0, 0, r_lo]
-  const double* x;      // x[0, c0, 0]
-  double* out;          // out[0, 0, c0]
+  const B* x;           // x[0, c0, 0]
+  B* out;               // out[0, 0, c0]
   long long sxm, sxc;
   double f;
   int L, nt, nr, C, rs, nch, r_lo, R, cv;  // nch: chunks a table row
@@ -865,7 +931,7 @@ struct SynthParNarrow {
   __device__ __forceinline__ const T* row0(const Stage& st) const {
     return lam + (static_cast<long long>(st.ri) * L + st.l0) * nt;
   }
-  __device__ __forceinline__ const double* xrow(const Stage& st) const {
+  __device__ __forceinline__ const B* xrow(const Stage& st) const {
     return x + st.ri * sxm + st.l0;
   }
 
@@ -895,28 +961,29 @@ struct SynthParNarrow {
                  ok ? src + static_cast<long long>(k) * nt : src,
                  ok ? R * ES : 0, j);
     }
-    double* xs = xl + (q % DEPTH) * TC * XL;
-    const double* xm = xrow(st);
-    for (int e = tid; e < TC * (XL / 2); e += nth) {
-      const int c = e / (XL / 2), j = e - c * (XL / 2);
+    unsigned char* xs = xl + (q % DEPTH) * TC * XL;
+    const B* xm = xrow(st);
+    for (int e = tid; e < TC * (XL / 16); e += nth) {
+      const int c = e / (XL / 16), j = e - c * (XL / 16);
       const bool ok = c < cv;
-      copy_chunk(xs + c * XL, ok ? xm + c * sxc : xm, ok ? 8 * st.nrows : 0,
+      copy_chunk(xs + c * XL, ok ? xm + c * sxc : xm, ok ? EB * st.nrows : 0,
                  j);
     }
   }
 
-  // B[c][p KL + k] = x[ri, c, l0 + 2 k + p] rounded, zero past the slab and
-  // the columns
+  // B[c][p KL + k] = x[ri, c, l0 + 2 k + p] rounded (widened), zero past
+  // the slab and the columns
   __device__ __forceinline__ void stage(int q) {
     if (!kStaging) return;
     const Stage st = stage_at(q);
-    const double* xs = xl + (q % DEPTH) * TC * XL;
-    const double* xm = xrow(st);
+    const unsigned char* xs = xl + (q % DEPTH) * TC * XL;
+    const B* xm = xrow(st);
     for (int e = tid; e < TC * KS; e += nth) {
       const int c = e / KS, k = e % KS;
       double v = 0.0;
       if (c < cv && k < st.nrows)
-        v = Narrow<T>::round(xs[c * XL + parity(xm + c * sxc) + k]);
+        v = Narrow<T>::round(
+            ld<B>(xs + c * XL + shift16(xm + c * sxc) + k * EB));
       xb[c * XS + (k & 1) * KL + (k >> 1)] = v;
     }
   }
@@ -986,16 +1053,21 @@ struct SynthParNarrow {
         const int r = wr0 + 16 * mt + 8 * h + gid;
         if (r >= R) continue;
         const int rn = r_lo + r;
-        double* on = out + (static_cast<long long>(st.ri) * nr + rn) * C;
-        double* os = out + (static_cast<long long>(st.ri) * nr + nr - 1 - rn) * C;
+        B* on = out + (static_cast<long long>(st.ri) * nr + rn) * C;
+        B* os = out + (static_cast<long long>(st.ri) * nr + nr - 1 - rn) * C;
         const bool south = rn < nr - nt;  // not the equator
+        const B fb = static_cast<B>(f);
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
+          // each class's sums in B, then combined in B (the JAX package's
+          // split synthesis rounds E and O to the compute dtype first)
           const int c = n * 8 + 2 * tig;
-          const double e0 = acc[0][mt][n][2 * h], e1 = acc[0][mt][n][2 * h + 1];
-          const double o0 = acc[1][mt][n][2 * h], o1 = acc[1][mt][n][2 * h + 1];
+          const B e0 = static_cast<B>(acc[0][mt][n][2 * h]);
+          const B e1 = static_cast<B>(acc[0][mt][n][2 * h + 1]);
+          const B o0 = static_cast<B>(acc[1][mt][n][2 * h]);
+          const B o1 = static_cast<B>(acc[1][mt][n][2 * h + 1]);
           store_pair(on, c, cv, e0 + o0, e1 + o1);
-          if (south) store_pair(os, c, cv, f * (e0 - o0), f * (e1 - o1));
+          if (south) store_pair(os, c, cv, fb * (e0 - o0), fb * (e1 - o1));
         }
       }
     }
@@ -1005,14 +1077,15 @@ struct SynthParNarrow {
 
 template <typename T, int TC, int MT>
 __global__ void __launch_bounds__(SynthParNarrow<T, TC, MT>::THREADS, 2)
-    synth_par_narrow(const T* __restrict__ lam, const double* __restrict__ x,
-                     double* __restrict__ out, int L, int nr, int C,
-                     long long sxm, long long sxc, const int* __restrict__ ms,
-                     int M, double f) {
+    synth_par_narrow(const T* __restrict__ lam,
+                     const typename Narrow<T>::B* __restrict__ x,
+                     typename Narrow<T>::B* __restrict__ out, int L, int nr,
+                     int C, long long sxm, long long sxc,
+                     const int* __restrict__ ms, int M, double f) {
   using K = SynthParNarrow<T, TC, MT>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int nt = (nr + 1) / 2;  // the table's rings
-  const SynthParNarrowPlan pl(nt, TC, K::ES);
+  const SynthParNarrowPlan pl(nt, TC, K::ES, K::EB);
   const int tile = blockIdx.x % pl.ntr;
   const int c0 = (blockIdx.x / pl.ntr) * TC;
   K k;
@@ -1021,8 +1094,8 @@ __global__ void __launch_bounds__(SynthParNarrow<T, TC, MT>::THREADS, 2)
   k.rs = pl.rs;
   k.nch = (k.R * K::ES + 30) / 16;  // chunks of the row at any shift
   k.tb = smem;
-  k.xl = reinterpret_cast<double*>(smem + (K::DEPTH + 1) * K::KS * pl.rs);
-  k.xb = k.xl + K::DEPTH * TC * K::XL;
+  k.xl = smem + (K::DEPTH + 1) * K::KS * pl.rs;
+  k.xb = reinterpret_cast<double*>(k.xl + K::DEPTH * TC * K::XL);
   k.lam = lam + k.r_lo;
   k.x = x + c0 * sxc;
   k.out = out + c0;
@@ -1058,7 +1131,8 @@ constexpr int kAdjParRows = 128;  // rows l of each class a block
 // KUNIT: g with unit stride on r (else on c)
 template <typename T, int TC, bool KUNIT>
 struct AdjParNarrow {
-  static constexpr int ES = sizeof(T);
+  using B = typename Narrow<T>::B;  // g's and the output's type
+  static constexpr int ES = sizeof(T), EB = sizeof(B);
   static constexpr int BM = kAdjParRows, KC = kAdjPiece / ES, DEPTH = kAdjDepth;
   static constexpr int THREADS = 32 * kAdjWarps;
   static constexpr int WR = 2 * BM / kAdjWarps;  // rows of a warp, one class
@@ -1066,37 +1140,38 @@ struct AdjParNarrow {
   static constexpr int TW = KC * ES + 16;  // bytes a landed table row
   static constexpr int TCH = TW / 16;      // its chunks
   static constexpr int T_SLOT = 2 * BM * TW;  // bytes; DEPTH + 1 slots
-  static constexpr int GW = KUNIT ? KC + 2 : TC + 2;  // doubles a landed g row
-  static constexpr int GCH = GW / 2;       // [c][ring] (KUNIT) : [ring][c]
-  static constexpr int G_TILE = (KUNIT ? TC : KC) * GW;  // doubles: north, south
-  static constexpr int US = KC + 4;        // doubles a U row
+  // bytes a landed g row, [c][ring] (KUNIT) : [ring][c], and its chunks
+  static constexpr int GW = (KUNIT ? KC : TC) * EB + 16;
+  static constexpr int GCH = GW / 16;
+  static constexpr int G_TILE = (KUNIT ? TC : KC) * GW;  // bytes: north, south
+  // doubles a U row: KC and the padding to 4 mod 16 (B fragment banks)
+  static constexpr int US = (KC + 11) / 16 * 16 + 4;
   static constexpr int G_OFF = (DEPTH + 1) * T_SLOT;     // bytes
-  static constexpr int U_OFF = G_OFF + DEPTH * 2 * G_TILE * 8;
+  static constexpr int U_OFF = G_OFF + DEPTH * 2 * G_TILE;
   static constexpr int MAIN = U_OFF + 2 * TC * US * 8;   // U_p [p][c][ring]
-  static constexpr int SO = 2 * BM + 4;    // epilogue [c][l - l0] doubles
-  static constexpr int SMEM = MAIN > TC * SO * 8 ? MAIN : TC * SO * 8;
+  static constexpr int SO = 2 * BM + 4;    // epilogue [c][l - l0] elements
+  static constexpr int SMEM = MAIN > TC * SO * EB ? MAIN : TC * SO * EB;
   static_assert((KC * ES) % 16 == 0 && KC % 8 == 0 && WR % 16 == 0 &&
-                    GW % 2 == 0 && US % 16 == 4 &&
+                    GW % 16 == 0 && US % 16 == 4 &&
                     kAdjWarps % 2 == 0 && SMEM <= 113 * 1024,
                 "a row keeps its shift; k8 steps; 16-byte rows; banks; "
                 "warps by class; two blocks an SM");
 
   unsigned char* sm;
   const T* tab;         // lam[i, l0, 0]
-  const double* gp;     // g[i, 0, c0]
+  const B* gp;          // g[i, 0, c0]
   long long sgr, sgc;   // g's strides
   double f;
-  int nt, nr, nv, cv, gs0;  // nv: rows l0 + j < L; gs0: gp's address in doubles mod 2
+  int nt, nr, nv, cv;   // nv: rows l0 + j < L
   int tid, lane, cls, wr0;  // the warp's class and first row in it
   int ta[MT][2];        // this lane's rows gid, gid + 8 of each m16 tile in
                         // a slot (bytes), at ring tig
   double acc[MT][NT][4];
 
-  // where a landed g row starts (doubles): from element e of column c
-  // (KUNIT), or of ring e (unit stride on c)
+  // the byte shift of a landed g row: of element e of column c (KUNIT), or
+  // of ring e (unit stride on c)
   __device__ __forceinline__ int gshift(int c, int e) const {
-    return KUNIT ? (gs0 + (c & 1) * static_cast<int>(sgc & 1) + e) & 1
-                 : (gs0 + (e & 1) * static_cast<int>(sgr & 1)) & 1;
+    return KUNIT ? shift16(gp + c * sgc + e) : shift16(gp + e * sgr);
   }
 
   // the lane's rows l0 + 2 (wr0 + 16 mt + gid (+ 8)) + cls at ring tig:
@@ -1139,9 +1214,8 @@ struct AdjParNarrow {
       copy_chunk(ts + ((j & 1) * BM + (j >> 1)) * TW,
                  tab + static_cast<long long>(j) * nt + k0, vb, ch);
     }
-    double* gn =
-        reinterpret_cast<double*>(sm + G_OFF) + (s % DEPTH) * 2 * G_TILE;
-    double* gs = gn + G_TILE;
+    unsigned char* gn = sm + G_OFF + (s % DEPTH) * 2 * G_TILE;
+    unsigned char* gs = gn + G_TILE;
     const int sv = south_rings(k0);
     if constexpr (KUNIT) {
       const int vn = min(nt, k0 + KC) - k0;
@@ -1149,47 +1223,47 @@ struct AdjParNarrow {
       for (int e = tid; e < TC * GCH; e += THREADS) {
         const int c = e / GCH, j = e - c * GCH;
         const bool ok = c < cv;
-        const double* col = ok ? gp + c * sgc : gp;
-        copy_chunk(gn + c * GW, col + (ok ? k0 : 0), ok ? 8 * vn : 0, j);
+        const B* col = ok ? gp + c * sgc : gp;
+        copy_chunk(gn + c * GW, col + (ok ? k0 : 0), ok ? EB * vn : 0, j);
         copy_chunk(gs + c * GW, col + (ok && sv ? slo : 0),
-                   ok ? 8 * sv : 0, j);
+                   ok ? EB * sv : 0, j);
       }
     } else {
       for (int e = tid; e < KC * GCH; e += THREADS) {
         const int t = e / GCH, j = e - t * GCH, r = k0 + t;
         copy_chunk(gn + t * GW, r < nt ? gp + r * sgr : gp,
-                   r < nt ? 8 * cv : 0, j);
+                   r < nt ? EB * cv : 0, j);
         copy_chunk(gs + t * GW, t < sv ? gp + (nr - 1 - r) * sgr : gp,
-                   t < sv ? 8 * cv : 0, j);
+                   t < sv ? EB * cv : 0, j);
       }
     }
   }
 
   // U_p[c][j] = round(g_n + sg_p g_s) at ring k0 + j, sg_p = f for even
-  // l - m, -f for odd (formed in float64, rounded once); zero past the
-  // rings and the columns
+  // l - m, -f for odd (the fold formed in g's type, then rounded or
+  // widened once); zero past the rings and the columns
   __device__ __forceinline__ void stage(int s) {
     if (!kStaging) return;
-    const double* gn = reinterpret_cast<const double*>(sm + G_OFF) +
-                       (s % DEPTH) * 2 * G_TILE;
-    const double* gs = gn + G_TILE;
+    const unsigned char* gn = sm + G_OFF + (s % DEPTH) * 2 * G_TILE;
+    const unsigned char* gs = gn + G_TILE;
     double* U = reinterpret_cast<double*>(sm + U_OFF);
     const int k0 = s * KC, sv = south_rings(k0), slo = nr - k0 - sv;
     for (int e = tid; e < TC * KC; e += THREADS) {
       const int c = e / KC, j = e % KC, r = k0 + j;
       double u = 0.0, v = 0.0;
       if (c < cv && r < nt) {
-        double a, b = 0.0;
+        B a, b = 0;
         if constexpr (KUNIT) {
-          a = gn[c * GW + gshift(c, k0) + j];
-          if (j < sv) b = gs[c * GW + gshift(c, slo) + nr - 1 - r - slo];
+          a = ld<B>(gn + c * GW + gshift(c, k0) + j * EB);
+          if (j < sv)
+            b = ld<B>(gs + c * GW + gshift(c, slo) + (nr - 1 - r - slo) * EB);
         } else {
-          a = gn[j * GW + gshift(0, r) + c];
-          if (j < sv) b = gs[j * GW + gshift(0, nr - 1 - r) + c];
+          a = ld<B>(gn + j * GW + gshift(0, r) + c * EB);
+          if (j < sv) b = ld<B>(gs + j * GW + gshift(0, nr - 1 - r) + c * EB);
         }
-        b *= f;
-        u = Narrow<T>::round(a + b);
-        v = Narrow<T>::round(a - b);
+        b *= static_cast<B>(f);
+        u = Narrow<T>::round(static_cast<B>(a + b));
+        v = Narrow<T>::round(static_cast<B>(a - b));
       }
       U[c * US + j] = u;
       U[(TC + c) * US + j] = v;
@@ -1241,14 +1315,13 @@ struct AdjParNarrow {
   // shared memory [c][l - l0] (each column shifted to its run's 16-byte
   // alignment), then whole runs along l, a warp a column, each right after
   // the column's zeros at out[c * soc - zeros ..]
-  __device__ __forceinline__ void finish(double* out, long long soc,
-                                         int zeros) {
+  __device__ __forceinline__ void finish(B* out, long long soc, int zeros) {
     if (!kStores) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) keep_live(acc[mt], out);
       return;
     }
-    double* so = reinterpret_cast<double*>(sm);
+    B* so = reinterpret_cast<B*>(sm);
     const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -1258,11 +1331,12 @@ struct AdjParNarrow {
         for (int h = 0; h < 4; ++h) {
           const int l = 2 * (wr0 + 16 * mt + 8 * (h >> 1) + gid) + cls;
           const int c = 8 * n + 2 * tig + (h & 1);
-          so[c * SO + parity(out + c * soc) + l] = acc[mt][n][h];
+          so[c * SO + eshift(out + c * soc) + l] =
+              static_cast<B>(acc[mt][n][h]);
         }
     __syncthreads();
     for (int c = tid >> 5; c < cv; c += THREADS / 32) {
-      if (zeros > 0) store_run(out + c * soc - zeros, nullptr, zeros, lane);
+      if (zeros > 0) store_run<B>(out + c * soc - zeros, nullptr, zeros, lane);
       store_run(out + c * soc, so + c * SO, nv, lane);
     }
   }
@@ -1270,11 +1344,12 @@ struct AdjParNarrow {
 
 template <typename T, int TC, bool KUNIT>
 __global__ void __launch_bounds__(AdjParNarrow<T, TC, KUNIT>::THREADS, 2)
-    adj_par_narrow(const T* __restrict__ lam, const double* __restrict__ g,
-                   double* __restrict__ out, int L, int nr, int C,
-                   long long sgm, long long sgr, long long sgc, long long som,
-                   long long soc, const int* __restrict__ ms, int M,
-                   double f) {
+    adj_par_narrow(const T* __restrict__ lam,
+                   const typename Narrow<T>::B* __restrict__ g,
+                   typename Narrow<T>::B* __restrict__ out, int L, int nr,
+                   int C, long long sgm, long long sgr, long long sgc,
+                   long long som, long long soc, const int* __restrict__ ms,
+                   int M, double f) {
   using K = AdjParNarrow<T, TC, KUNIT>;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int P = 2 * K::BM;  // rows l a tile
@@ -1309,7 +1384,6 @@ __global__ void __launch_bounds__(AdjParNarrow<T, TC, KUNIT>::THREADS, 2)
   k.nr = nr;
   k.nv = min(P, L - l0);
   k.cv = min(TC, C - c0);
-  k.gs0 = parity(k.gp);
   k.tid = threadIdx.x;
   k.lane = threadIdx.x & 31;
   k.cls = warp / (kAdjWarps / 2);
@@ -1334,6 +1408,10 @@ cudaError_t allow_smem(K kernel, int bytes) {
 // the column tile of a call at C columns
 inline int col_tile(int C) { return C <= 8 ? 8 : (C <= 16 ? 16 : 32); }
 
+// the batch's type of a table of type T
+template <typename T>
+using Bt = typename Narrow<T>::B;
+
 template <typename T, int TC, int MT>
 int launch_synth(const SynthNarrowPlan& pl, const void* lam, const void* x,
                  void* out, int L, int nr, int C, long long sxm,
@@ -1342,8 +1420,8 @@ int launch_synth(const SynthNarrowPlan& pl, const void* lam, const void* x,
   const cudaError_t e = allow_smem(synth_narrow<T, TC, MT>, pl.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   synth_narrow<T, TC, MT><<<grid, 32 * pl.warps, pl.smem, s>>>(
-      static_cast<const T*>(lam), static_cast<const double*>(x),
-      static_cast<double*>(out), L, nr, C, sxm, sxc, ms, M);
+      static_cast<const T*>(lam), static_cast<const Bt<T>*>(x),
+      static_cast<Bt<T>*>(out), L, nr, C, sxm, sxc, ms, M);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1351,7 +1429,7 @@ template <typename T, int TC>
 int launch_synth(const void* lam, const void* x, void* out, int L, int nr,
                  int C, long long sxm, long long sxc, const int* ms, int M,
                  cudaStream_t s) {
-  const SynthNarrowPlan pl(nr, TC, sizeof(T));
+  const SynthNarrowPlan pl(nr, TC, sizeof(T), sizeof(Bt<T>));
   if (pl.mt == 1)
     return launch_synth<T, TC, 1>(pl, lam, x, out, L, nr, C, sxm, sxc, ms, M,
                                   s);
@@ -1385,8 +1463,8 @@ int launch_adj(const void* lam, const void* g, void* out, int L, int nr,
   const cudaError_t e = allow_smem(adj_narrow<T, TC, KUNIT>, K::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   adj_narrow<T, TC, KUNIT><<<grid, K::THREADS, K::SMEM, s>>>(
-      static_cast<const T*>(lam), static_cast<const double*>(g),
-      static_cast<double*>(out), L, nr, C, sgm, sgr, sgc, som, soc, ms, M);
+      static_cast<const T*>(lam), static_cast<const Bt<T>*>(g),
+      static_cast<Bt<T>*>(out), L, nr, C, sgm, sgr, sgc, som, soc, ms, M);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1431,8 +1509,8 @@ int launch_synth_par(const SynthParNarrowPlan& pl, const void* lam,
   const cudaError_t e = allow_smem(synth_par_narrow<T, TC, MT>, pl.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   synth_par_narrow<T, TC, MT><<<grid, 32 * pl.warps, pl.smem, s>>>(
-      static_cast<const T*>(lam), static_cast<const double*>(x),
-      static_cast<double*>(out), L, nr, C, sxm, sxc, ms, M, f);
+      static_cast<const T*>(lam), static_cast<const Bt<T>*>(x),
+      static_cast<Bt<T>*>(out), L, nr, C, sxm, sxc, ms, M, f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1443,7 +1521,7 @@ int launch_synth_par(const void* lam, const void* x, void* out, int L,
                      int nr, int C, long long sxm, long long sxc,
                      const int* ms, int M, cudaStream_t s, double f) {
   constexpr int MT2 = TC == 32 ? 1 : 2;
-  const SynthParNarrowPlan pl((nr + 1) / 2, TC, sizeof(T));
+  const SynthParNarrowPlan pl((nr + 1) / 2, TC, sizeof(T), sizeof(Bt<T>));
   if (pl.mt == 1)
     return launch_synth_par<T, TC, 1>(pl, lam, x, out, L, nr, C, sxm, sxc,
                                       ms, M, s, f);
@@ -1481,8 +1559,8 @@ int launch_adj_par(const void* lam, const void* g, void* out, int L, int nr,
   const cudaError_t e = allow_smem(adj_par_narrow<T, TC, KUNIT>, K::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   adj_par_narrow<T, TC, KUNIT><<<grid, K::THREADS, K::SMEM, s>>>(
-      static_cast<const T*>(lam), static_cast<const double*>(g),
-      static_cast<double*>(out), L, nr, C, sgm, sgr, sgc, som, soc, ms, M, f);
+      static_cast<const T*>(lam), static_cast<const Bt<T>*>(g),
+      static_cast<Bt<T>*>(out), L, nr, C, sgm, sgr, sgc, som, soc, ms, M, f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1537,7 +1615,7 @@ int blocks_per_sm(K kernel, int threads, int bytes) {
 // parity synthesis and the parity adjoint (nr the output's or g's rings)
 template <typename T, int TC>
 int plan(int kind, int nr) {
-  const SynthNarrowPlan pl(nr, TC, sizeof(T));
+  const SynthNarrowPlan pl(nr, TC, sizeof(T), sizeof(Bt<T>));
   using A = AdjNarrow<T, TC, true>;
   switch (kind) {
     case 0:
@@ -1557,7 +1635,7 @@ int plan(int kind, int nr) {
       return 16 * pl.mt;
   }
   // the parity pair, nr the output's or g's rings
-  const SynthParNarrowPlan pp((nr + 1) / 2, TC, sizeof(T));
+  const SynthParNarrowPlan pp((nr + 1) / 2, TC, sizeof(T), sizeof(Bt<T>));
   constexpr int MT2 = TC == 32 ? 1 : 2;
   using B = AdjParNarrow<T, TC, true>;
   switch (kind) {
@@ -1596,7 +1674,9 @@ int plan(int kind, int nr, int C) {
 }  // namespace
 
 // The entry points, one set per table dtype (suffix bf16f64: bfloat16,
-// f32f64: float32), with the arguments of legendre_tri_f64.cu's:
+// f32f64: float32, f16f64: float16, each with a float64 batch and output;
+// f64f32: float64 with a float32 batch and output), with the arguments of
+// legendre_tri_f64.cu's:
 // x[i, c, l] at x + i * sxm + c * sxc + l; g[i, r, c] at g + i * sgm + r *
 // sgr + c * sgc (unit stride on r or on c); out[i, c, l] at out + i * som +
 // c * soc + l; ms null (M = L, row i of degree i) or M int32 degree orders
@@ -1644,15 +1724,24 @@ int plan(int kind, int nr, int C) {
 extern "C" {
 NARROW_F64_ENTRY_POINTS(bf16f64, __nv_bfloat16)
 NARROW_F64_ENTRY_POINTS(f32f64, float)
+NARROW_F64_ENTRY_POINTS(f16f64, __half)
+NARROW_F64_ENTRY_POINTS(f64f32, double)
 
-// The plan at (nr, C) for a table of es bytes an element (2: bfloat16, 4:
-// float32): kind 0 the dense synthesis' threads << 20 | dynamic shared
-// memory (bytes), 1 its resident blocks an SM on the current card (-1 if
-// refused), 2 its ring tiles, 5 its rings a warp; 3 the dense adjoint's (g
-// with unit stride on r) threads << 20 | bytes, 4 its resident blocks an
-// SM; 6, 7, 8, 9 the parity synthesis' and 10, 11 the parity adjoint's, in
-// the same order (nr the output's or g's rings); -1 for any other kind.
-int legendre_tri_narrow_f64_plan(int kind, int es, int nr, int C) {
-  return es == 2 ? plan<__nv_bfloat16>(kind, nr, C) : plan<float>(kind, nr, C);
+// The plan at (nr, C) of the entry points of table code ``table`` (0:
+// bf16f64, 1: f32f64, 2: f16f64, 3: f64f32): kind 0 the dense synthesis'
+// threads << 20 | dynamic shared memory (bytes), 1 its resident blocks an
+// SM on the current card (-1 if refused), 2 its ring tiles, 5 its rings a
+// warp; 3 the dense adjoint's (g with unit stride on r) threads << 20 |
+// bytes, 4 its resident blocks an SM; 6, 7, 8, 9 the parity synthesis' and
+// 10, 11 the parity adjoint's, in the same order (nr the output's or g's
+// rings); -1 for any other kind or table.
+int legendre_tri_narrow_f64_plan(int kind, int table, int nr, int C) {
+  switch (table) {
+    case 0: return plan<__nv_bfloat16>(kind, nr, C);
+    case 1: return plan<float>(kind, nr, C);
+    case 2: return plan<__half>(kind, nr, C);
+    case 3: return plan<double>(kind, nr, C);
+    default: return -1;
+  }
 }
 }  // extern "C"

@@ -244,7 +244,8 @@ def shard_sht(sht, mesh):
         tab = getattr(sht, name, None)
         if tab is not None:
             setattr(out, name, tab.index_select(0, out._mrow).contiguous())
-    # a split bfloat16 table's float32 equator rows, sliced alike
+    # the compute-dtype equator rows of a split table in another dtype,
+    # sliced alike
     out.eq_rows = {name: row.index_select(0, out._mrow).contiguous()
                    for name, row in sht.eq_rows.items()}
     return out

@@ -37,6 +37,7 @@ from ..harmonics.gridstate import (alm2cl_state, almxfl_state,
                                    variance_expansion_state)
 from ..harmonics.spectra import bin_sum, dl_to_cl_factor, unfold_bins
 from ..ops.model import sum_last_f64
+from ..sht.legendre_kernels import cast_to
 from ..sht.transform import SPIN2_SINGLE_SIGNS
 
 __all__ = ["standard_gamma", "invgamma_dl", "centered_cls_sample",
@@ -538,30 +539,46 @@ def _prepare_tchunks(model, cut, mchunks, w1, dt, nyq: bool = False):
     XLA keeps a bfloat16 product in float32 when W is summed in float32
     (its default excess precision: the product of two bfloat16 values is
     exact in float32) and rounds it to the table dtype when W is summed in
-    float64.  The port does the same (``weighted``)."""
+    float64; a float16 product it rounds to float16 at both.  The port
+    does the same (``weighted``).  A wider (float64) table under float32:
+    W is the JAX package's float64 einsum of the float64 product and the
+    table, rounded once to ``dt``; the tables are held in ``dt``, so the
+    sweep contracts them rounded to it (the JAX package promotes those
+    contractions to float64)."""
     n = float(cut.nphi)
     L = model.lmax + 1
     pos = cut.pos.to(dt)
     td = cut.table_dtype
-    narrow = td != cut.dtype
+    narrow = td.itemsize < cut.dtype.itemsize
     if narrow:
-        w1 = w1.to(td).to(dt)
+        w1 = cast_to(w1, td).to(dt)
 
     def weighted(lam_j):
         """lam_j * w1 as the compiled JAX package forms it."""
         lw = lam_j * w1
-        return lw.to(td).to(dt) if narrow and dt == torch.float64 else lw
+        rounds = dt == torch.float64 or td == torch.float16
+        return cast_to(lw, td).to(dt) if narrow and rounds else lw
+
+    def table(lam):
+        """The chunk's (L, J, nr) slice of ``lam``, in ``dt`` or (a wider
+        table) in the table dtype until W is formed."""
+        return cut.lsel_table(lam, j_idx).to(td if cut.wide else dt)
+
+    def wsum(lam_j):
+        """W = sum_r (lam_j w1) lam_j, rounded to ``dt``."""
+        return torch.einsum("mjr,mkr->mjk", weighted(lam_j), lam_j).to(dt)
     out = []
     for (f, j_idx, seg, gbins, rows) in mchunks:
         # lsel_table gathers a fresh (L, J, nr) tensor: zeroing its Nyquist
         # row leaves the transform's table as it is
         if len(_chunk_comps(model, f)) == 1:
-            lam0_j = cut.lsel_table(cut.lam0, j_idx).to(dt)      # (L, J, r)
+            lam0_j = table(cut.lam0)                              # (L, J, r)
             lnyq = None
             if nyq:
-                lnyq = lam0_j[L - 1].clone()
+                lnyq = lam0_j[L - 1].to(dt, copy=True)
                 lam0_j[L - 1] = 0.0
-            W00 = torch.einsum("mjr,mkr->mjk", weighted(lam0_j), lam0_j)
+            W00 = wsum(lam0_j)
+            lam0_j = lam0_j.to(dt)
             omega = np.full((2, L), 2.0 * n)
             omega[0, 0] = n
             omega[1, 0] = 0.0
@@ -569,16 +586,15 @@ def _prepare_tchunks(model, cut, mchunks, w1, dt, nyq: bool = False):
                         torch.as_tensor(omega, dtype=dt, device=w1.device),
                         lnyq))
         else:
-            lamp_j = cut.lsel_table(cut.lam_p2, j_idx).to(dt)
-            lamm_j = cut.lsel_table(cut.lam_m2, j_idx).to(dt)
+            lamp_j, lamm_j = table(cut.lam_p2), table(cut.lam_m2)
             lnyq = None
             if nyq:
-                lnyq = (lamp_j[L - 1].clone(), lamm_j[L - 1].clone())
+                lnyq = (lamp_j[L - 1].to(dt, copy=True),
+                        lamm_j[L - 1].to(dt, copy=True))
                 lamp_j[L - 1] = 0.0
                 lamm_j[L - 1] = 0.0
-            Wpp = torch.einsum("mjr,mkr->mjk", weighted(lamp_j), lamp_j)
-            Wmm = torch.einsum("mjr,mkr->mjk", weighted(lamm_j), lamm_j)
-            out.append(("s2", lamp_j, lamm_j,
+            Wpp, Wmm = wsum(lamp_j), wsum(lamm_j)
+            out.append(("s2", lamp_j.to(dt), lamm_j.to(dt),
                         n * (Wpp + pos[:, None, None] * Wmm), None, lnyq))
     return out
 
@@ -1207,7 +1223,8 @@ def _singles_t(plan, model, grids, t, alpha, beta, props, lr_vec, log_u,
             S = plan.spt.nslots
             xs = slice(ch.comps[0] * S, (ch.comps[-1] + 1) * S)
             w_sp = plan.w_sp_flat[xs]
-            a_sp = plan.spt.flat_values(gsel, ch.sp_tab, ch.segj)
+            a_sp = plan.spt.flat_values(gsel, ch.sp_tab, ch.segj,
+                                        cm=ch.kind == "s0")
             G = G + torch.einsum("...ix,...jx->...ij", a_sp * w_sp, a_sp)
             rho = rho + torch.einsum("...ix,...x->...i", a_sp,
                                      w_sp * Rp[..., xs])

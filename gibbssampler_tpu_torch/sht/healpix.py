@@ -380,8 +380,10 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
                               self._south_rows(Xre, lo, hi)], dim=-3)
             Xi = torch.stack([Xim[..., lo:hi, :],
                               self._south_rows(Xim, lo, hi)], dim=-3)
-            C = torch.einsum("...krm,rmw->...krw", rnd(Xr), self.cap_cos[c])
-            S = torch.einsum("...krm,rmw->...krw", rnd(Xi), self.cap_sin[c])
+            C = torch.einsum("...krm,rmw->...krw", rnd(Xr),
+                             self.cap_cos[c]).to(self.dtype)
+            S = torch.einsum("...krm,rmw->...krw", rnd(Xi),
+                             self.cap_sin[c]).to(self.dtype)
             # fold: f[j] = C_j - S_j, f[4i-1-j] = C_j + S_j (j < 2i); rows
             # are [lo | reversed(hi)] of width 2w
             row = torch.cat([C - S, (C + S).flip(-1)], dim=-1)
@@ -389,8 +391,8 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
             outs_s.append(row[..., 1, :, :].reshape(batch + (-1,)))
         bre, bim = self._belt_rot(Xre[..., self.belt_sl, :],
                                   Xim[..., self.belt_sl, :])
-        C = torch.matmul(rnd(bre), self.belt_cos)
-        S = torch.matmul(rnd(bim), self.belt_sin)
+        C = torch.matmul(rnd(bre), self.belt_cos).to(self.dtype)
+        S = torch.matmul(rnd(bim), self.belt_sin).to(self.dtype)
         # f[j] = lo_j (j <= nb/2), f[nb - j] = hi_j (j = 1..nb/2 - 1)
         belt = torch.cat([C - S, (C + S)[..., 1:-1].flip(-1)], dim=-1)
         return torch.cat(outs_n + [belt.reshape(batch + (-1,))] + outs_s,
@@ -415,9 +417,9 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
             a = rows[..., :w]
             b = rows[..., w:].flip(-1)
             Cc = torch.einsum("...krw,rmw->...krm", rnd(a + b),
-                              self.cap_cos[c])
+                              self.cap_cos[c]).to(self.dtype)
             Sc = torch.einsum("...krw,rmw->...krm", rnd(a - b),
-                              self.cap_sin[c])
+                              self.cap_sin[c]).to(self.dtype)
             Cn.append(Cc[..., 0, :, :])
             Sn.append(Sc[..., 0, :, :])
             Cs.append(Cc[..., 1, :, :].flip(-2))
@@ -428,8 +430,8 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
         lo_ = belt[..., : self.nbh]
         rev = belt[..., self.nbh - 1:].flip(-1)
         hi_ = F.pad(rev[..., :-1], (1, 1))
-        Cb = torch.matmul(rnd(lo_ + hi_), self.belt_cos.T)
-        Sb = torch.matmul(rnd(lo_ - hi_), self.belt_sin.T)
+        Cb = torch.matmul(rnd(lo_ + hi_), self.belt_cos.T).to(self.dtype)
+        Sb = torch.matmul(rnd(lo_ - hi_), self.belt_sin.T).to(self.dtype)
         # transpose of the phi0 rotation: the complex pair (C - iS) picks up
         # e^{-i m phi0}, which on the (C, +S) pair is a rotation by +phi0
         Cb, Sb = self._belt_rot(Cb, Sb)

@@ -29,19 +29,26 @@ kernels: in terms of l - m the sign does not depend on m.  The split has
 no ell-selected, binned or shared-stack syntheses; those raise, as in the
 JAX package.
 
-Tables narrower than the compute dtype (``table_dtype``: bfloat16 with
-float32 compute; bfloat16 or float32 with float64 compute): every table is
-stored in the table dtype and the kernels run their narrow-table mode
-(``sht.legendre_kernels``: the batch rounded to the table dtype, products
-summed in the compute dtype, an output in the compute dtype), the JAX
+Tables in another dtype than the compute dtype (``table_dtype``, the
+pairs of ``TABLE_PAIRS``): every table is stored in the table dtype and
+the kernels run their mode for the pair (``sht.legendre_kernels``), the JAX
 package's ``einsum(table, g.astype(table_dtype),
-preferred_element_type=dtype)``.  Under the split the JAX package keeps the
-equator row of each half table in the compute dtype; so does the port: the
-narrow half table holds a zero equator row, which the parity kernels
-contract to nothing, and ``eq_rows`` holds the compute-dtype row,
-contracted in the compute dtype by ``_synth_par`` (against the rounded
-grid) and ``_adj_par`` (against the unrounded ring coefficients), as in
-the JAX package.
+preferred_element_type=dtype)``.  A narrower table (bfloat16 or float16
+with float32 compute; bfloat16, float16 or float32 with float64 compute)
+rounds the batch to the table dtype and sums the exact products in the
+compute dtype; float64 -> float16 is one rounding (``legendre_kernels.
+cast_to``; torch's own conversion rounds twice, through float32).  A wider
+table (float64 with float32 compute: ``wide``) widens the batch exactly,
+sums its float64 products in float64 and rounds each output once to the
+compute dtype, here and in every azimuthal product against the float64
+trig matrices (``_round_td`` widens, ``_trig`` keeps float64; each product
+is then rounded by ``.to(dtype)``).  Under the split the JAX package keeps
+the equator row of each half table in the compute dtype; so does the port:
+the half table holds a zero equator row, which the parity kernels contract
+to nothing, and ``eq_rows`` holds the compute-dtype row, contracted in the
+compute dtype by ``_synth_par`` (against the rounded grid) and
+``_adj_par`` (against the unrounded ring coefficients), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -52,16 +59,20 @@ import numpy as np
 import torch
 
 from ..harmonics.gridstate import flat_to_state, state_masks, state_to_flat
-from .legendre_kernels import (legendre_adj_par, legendre_adj_tri,
+from .legendre_kernels import (cast_to, legendre_adj_par, legendre_adj_tri,
                                legendre_synth_par, legendre_synth_tri)
 
 __all__ = ["FlatAlmMethods", "LegendreCore", "grid_symmetric"]
 
 _NO_LSEL = "ell-selected synthesis requires ring_split=False tables"
-# the (table, compute) dtype pairs of tables narrower than the computation
-NARROW_TABLES = ((torch.bfloat16, torch.float32),
-                 (torch.bfloat16, torch.float64),
-                 (torch.float32, torch.float64))
+# the (table, compute) dtype pairs of tables in another dtype than the
+# computation: narrower ones, then the one wider table
+TABLE_PAIRS = ((torch.bfloat16, torch.float32),
+               (torch.float16, torch.float32),
+               (torch.bfloat16, torch.float64),
+               (torch.float16, torch.float64),
+               (torch.float32, torch.float64),
+               (torch.float64, torch.float32))
 
 
 def grid_symmetric(theta) -> bool:
@@ -76,9 +87,9 @@ def grid_symmetric(theta) -> bool:
 
 def resolve_table_dtype(table_dtype, dtype):
     """The operator tables' dtype: None (the compute dtype), the compute
-    dtype itself, a narrower one (``NARROW_TABLES``); each as a torch
-    dtype, its name, or a numpy (ml_dtypes) dtype or type.  Another pair
-    raises NotImplementedError."""
+    dtype itself or another of ``TABLE_PAIRS``; each as a torch dtype, its
+    name, or a numpy (ml_dtypes) dtype or type.  Another pair raises
+    NotImplementedError."""
     if table_dtype is None:
         return dtype
     td = table_dtype
@@ -87,13 +98,13 @@ def resolve_table_dtype(table_dtype, dtype):
         td = getattr(td, "name", None) or getattr(td, "__name__", None)
     if isinstance(td, str):
         td = getattr(torch, td, None)
-    if td == dtype or (td, dtype) in NARROW_TABLES:
+    if td == dtype or (td, dtype) in TABLE_PAIRS:
         return td
     raise NotImplementedError(
         f"table_dtype={table_dtype} with compute dtype {dtype}: the "
-        "port takes tables in the compute dtype, bfloat16 tables with "
-        "float32 compute, or bfloat16 or float32 tables with float64 "
-        "compute")
+        "port takes tables in the compute dtype, bfloat16 or float16 "
+        "tables with float32 compute, bfloat16, float16 or float32 tables "
+        "with float64 compute, or float64 tables with float32 compute")
 
 
 class LegendreCore:
@@ -104,7 +115,12 @@ class LegendreCore:
         self.lmax = lmax
         self.dtype = dtype
         self.table_dtype = resolve_table_dtype(table_dtype, dtype)
-        # split narrow tables: {table name: its compute-dtype equator row}
+        # a table wider than the compute dtype (float64 under float32)
+        self.wide = self.table_dtype.itemsize > dtype.itemsize
+        # the dtype that holds table-dtype values exactly: the wider one
+        self.hold_dtype = self.table_dtype if self.wide else dtype
+        # split tables in another dtype: {table name: its compute-dtype
+        # equator row}
         self.eq_rows = {}
         self.m_block = int(m_block)
         nr = np.asarray(theta).shape[0]
@@ -132,13 +148,21 @@ class LegendreCore:
         theta = np.asarray(theta, dtype=np.float64)
         return theta[: self.nrh + self.has_mid] if self.ring_split else theta
 
+    def _host(self, a, td) -> torch.Tensor:
+        """A float64 host array in dtype ``td`` on the device, rounded once
+        (numpy's float16 conversion: torch's goes through float32)."""
+        a = np.asarray(a)
+        if td == torch.float16:
+            return torch.from_numpy(a.astype(np.float16)).to(self.device)
+        return torch.as_tensor(a, dtype=td, device=self.device)
+
     def _table(self, tab, name: str) -> torch.Tensor:
         """fp64 numpy (L, L, nt) table at ``_table_theta``'s rings ->
         contiguous device tensor in the table dtype, to be stored as
-        attribute ``name``.  A split narrow table's equator row goes to
-        ``eq_rows[name]`` in the compute dtype, and is zero in the table."""
-        t = torch.as_tensor(tab, dtype=self.table_dtype,
-                            device=self.device).contiguous()
+        attribute ``name``.  A split table in another dtype than the
+        compute dtype has its equator row in ``eq_rows[name]`` in the
+        compute dtype, and zero in the table."""
+        t = self._host(tab, self.table_dtype).contiguous()
         if self.ring_split and self.has_mid and self.table_dtype != self.dtype:
             self.eq_rows[name] = torch.as_tensor(
                 np.ascontiguousarray(tab[:, :, -1]), dtype=self.dtype,
@@ -163,27 +187,29 @@ class LegendreCore:
             self.lam_m2 = self._table(lm_, "lam_m2")
 
     def _round_td(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` rounded to the table dtype, in the compute dtype: the JAX
-        package's ``t.astype(table_dtype)`` before a product that it asks
-        for in the compute dtype (the identity for tables in the compute
-        dtype)."""
+        """``t`` as the JAX package's ``t.astype(table_dtype)`` before a
+        product that it asks for in the compute dtype: rounded to a
+        narrower table dtype and held in the compute dtype; widened to a
+        wider one (the product, in float64, is then rounded by
+        ``.to(dtype)``); the identity for tables in the compute dtype."""
         if self.table_dtype == self.dtype:
             return t
-        return t.to(self.table_dtype).to(self.dtype)
+        if self.wide:
+            return t.to(self.table_dtype)
+        return cast_to(t, self.table_dtype).to(self.dtype)
 
     def _trig(self, a) -> torch.Tensor:
         """A host (float64) trig matrix as the azimuthal stages hold it:
         rounded to the table dtype, as the JAX package stores it, and kept
         in the compute dtype, so that a plain product of it with a rounded
         operand forms the JAX package's exact products of table-dtype
-        values."""
-        return torch.as_tensor(np.ascontiguousarray(a),
-                               dtype=self.table_dtype,
-                               device=self.device).to(self.dtype)
+        values; a wider table dtype's matrix is kept in it (float64)."""
+        return self._host(np.ascontiguousarray(a),
+                          self.table_dtype).to(self.hold_dtype)
 
     def _equator_row(self, lam: torch.Tensor):
-        """The compute-dtype equator row (M, L) of the split narrow table
-        ``lam`` (one of this transform's own), or None."""
+        """The compute-dtype equator row (M, L) of the split table ``lam``
+        in another dtype (one of this transform's own), or None."""
         for name, row in self.eq_rows.items():
             if getattr(self, name) is lam:
                 return row
@@ -191,20 +217,22 @@ class LegendreCore:
 
     def _synth_par(self, lam, x, flip, ms=None):
         """The parity synthesis of the (M, C, L) batch view ``x`` over all
-        the grid's rings, with a split narrow table's equator row
-        contracted in the compute dtype against the rounded grid."""
+        the grid's rings, with the equator row of a split table in another
+        dtype contracted in the compute dtype against the grid rounded to
+        the table dtype (held in the compute dtype: a wider table's
+        widening is exact)."""
         out = legendre_synth_par(lam, x, 2 * self.nrh + self.has_mid, flip,
                                  ms)
         mid = self._equator_row(lam)
         if mid is not None:
-            out[:, self.nrh] = torch.einsum("ml,mcl->mc", mid,
-                                            self._round_td(x))
+            out[:, self.nrh] = torch.einsum(
+                "ml,mcl->mc", mid, self._round_td(x).to(self.dtype))
         return out
 
     def _adj_par(self, lam, gk, flip, ms=None):
         """The parity adjoint of the (M, nr, C) view ``gk`` -> (M, C, L),
-        with a split narrow table's equator row added in the compute
-        dtype."""
+        with the equator row of a split table in another dtype added in the
+        compute dtype."""
         out = legendre_adj_par(lam, gk, flip, ms)
         mid = self._equator_row(lam)
         if mid is not None:
@@ -264,11 +292,12 @@ class LegendreCore:
         in the output's layout (the (J, nr, m) table slice and the (..., J,
         c, m) grid columns are small), so the large tensor is written once,
         contiguously, and the bins' segment sums are one matrix product
-        over J.  With narrow tables, as in the JAX package, the grid is
-        rounded to the table dtype, the product is formed in the table
-        dtype (so rounded), and the segment sums, of the segment matrix in
-        the table dtype, are taken in the compute dtype (a matrix product
-        of table-dtype tensors would round its result)."""
+        over J.  With tables in another dtype, as in the JAX package, the
+        grid is rounded to the table dtype, the product is formed in the
+        table dtype (so rounded), and the segment sums, of the segment
+        matrix in the table dtype, are taken in the wider of the two dtypes
+        (a matrix product of narrow tensors would round its result) and
+        rounded to the compute dtype."""
         if self.ring_split:
             raise NotImplementedError(_NO_LSEL)
         if not isinstance(j_idx, torch.Tensor):
@@ -276,17 +305,19 @@ class LegendreCore:
         idx = j_idx.to(g2.device)
         # (J, r, m)
         lamj = self.lsel_table(lam, idx).permute(1, 2, 0).contiguous()
-        gj = g2.to(lam.dtype)[..., idx].movedim(-1, -3)        # (..., J, c, m)
-        # (..., J, c, 1, m) * (J, 1, r, m) -> (..., J, c, r, m)
-        prod = (gj.unsqueeze(-2) * lamj.unsqueeze(-3)).to(self.dtype)
+        gj = cast_to(g2, lam.dtype)[..., idx].movedim(-1, -3)  # (..., J, c, m)
+        # (..., J, c, 1, m) * (J, 1, r, m) -> (..., J, c, r, m), in the
+        # wider dtype
+        sd = self.hold_dtype
+        prod = (gj.unsqueeze(-2) * lamj.unsqueeze(-3)).to(sd)
         if seg is None:
-            return prod
+            return prod.to(self.dtype)
         if not isinstance(seg, torch.Tensor):
             seg = torch.as_tensor(np.asarray(seg))
-        seg = seg.to(dtype=lam.dtype, device=prod.device).to(self.dtype)
+        seg = seg.to(dtype=lam.dtype, device=prod.device).to(sd)
         J = prod.shape[-4]
         out = torch.matmul(seg.T, prod.reshape(prod.shape[:-4] + (J, -1)))
-        return out.reshape(out.shape[:-1] + prod.shape[-3:])
+        return out.reshape(out.shape[:-1] + prod.shape[-3:]).to(self.dtype)
 
     def _lsynth_stack_binned(self, lam: torch.Tensor, g2: torch.Tensor,
                              sel) -> torch.Tensor:

@@ -51,16 +51,23 @@ even and odd l - m apart.  These are the JAX package's split contractions
 ``_ladj_stack_sym``, einsums there).  Layouts, the slab form and the
 outputs are those of the dense kernels.
 
-The narrow-table modes (the JAX package's ``table_dtype`` narrower than
-its compute dtype): lam in bfloat16 with x or g in float32, or lam in
-bfloat16 or float32 with x or g in float64; the output in the batch's
-dtype.  Each is the JAX contraction ``einsum(lam, b.astype(lam.dtype),
-preferred_element_type=b.dtype)``: the batch is rounded to the table
-dtype (to nearest, ties to even; a float64 value bound for bfloat16 is
-rounded to float32 first, as JAX's and torch's conversions do), the
-products of the rounded values are exact in the batch's dtype and are
-summed in it.  The parity adjoint forms its fold g[r] + f (-1)^(l+m)
-g[nr-1-r] in the batch's dtype and rounds the fold, as the JAX package's
+The other table modes (the JAX package's ``table_dtype`` other than its
+compute dtype): lam in bfloat16 or float16 with x or g in float32, lam in
+bfloat16, float16 or float32 with x or g in float64 (narrow tables), or
+lam in float64 with x or g in float32 (the wide table); the output in the
+batch's dtype.  Each is the JAX contraction ``einsum(lam,
+b.astype(lam.dtype), preferred_element_type=b.dtype)``.  A narrow table:
+the batch is rounded to the table dtype (to nearest, ties to even; a
+float64 value bound for bfloat16 is rounded to float32 first, as JAX's
+and torch's conversions do; one bound for float16 is rounded once, as
+JAX's is and torch's is not: ``cast_to``), the products of the rounded
+values are exact in the batch's dtype and are summed in it.  The wide
+table: the batch is widened exactly, the products are summed in float64
+and each output is rounded once to float32; the parity synthesis rounds
+its sums over even and odd l - m to float32 each before it combines them
+in float32, as the JAX package's split synthesis does.  The parity
+adjoint forms its fold g[r] + f (-1)^(l+m) g[nr-1-r] in the batch's dtype
+and then rounds (or widens) the fold, as the JAX package's
 ``U = (Gn + Gs).astype(table_dtype)`` does.  Any other pair of dtypes than
 those of ``_SUFFIX`` raises ``TypeError``.
 
@@ -74,22 +81,28 @@ through a ``cp.async`` ring to the FMA pipes, both parity kernels to the
 fp64 tensor cores), ``legendre_tri_bf16.cu`` the bfloat16-table ones (bf16
 ``mma.sync`` with float32 accumulation; the dense synthesis at the ring
 tile ``bf16_synth_tile(nr)`` picks, the parity synthesis at the ring tile
-``bf16_par_synth_tile(nh)`` picks), ``legendre_tri_narrow_f64.cu`` those of
-a bfloat16 or float32 table with a float64 batch (the table kept in its
-own dtype in shared memory and widened in registers, all four on the fp64
-tensor cores, their plans in ``narrow_plan(nr, C)``, the parity
-synthesis' ring tiles those of ``narrow_par_synth_plan(nh, C)``).  A
+``bf16_par_synth_tile(nh)`` picks), ``legendre_tri_f16.cu`` the
+float16-table ones with a float32 batch (the bfloat16 source in its
+float16 mode: f16 ``mma.sync``), ``legendre_tri_narrow_f64.cu`` those of
+a bfloat16, float16 or float32 table with a float64 batch and those of a
+float64 table with a float32 batch (the table kept in its own dtype in
+shared memory and widened in registers, the batch staged in float64, all
+on the fp64 tensor cores, their plans in ``narrow_plan(nr, C)``, the
+parity synthesis' ring tiles those of ``narrow_par_synth_plan(nh, C)``).  A
 wrapper takes the plain ``torch.einsum`` version only for tensors on the
 CPU; for CUDA tensors it launches its kernel or raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (the parity wrappers
 apart from the dense ones), those of the float64 kernel alone also in
 ``<wrapper>.launches_f64``, those of the bfloat16 one (float32 batch) in
-``<wrapper>.launches_bf16`` and those of the narrow-table float64 ones in
-``<wrapper>.launches_narrow``, and each launch once more by its shape: a
-full-table launch in ``<wrapper>.shapes`` ({(L, nr, C, kernel dtype):
-launches}), a slab launch in ``<wrapper>.slabs`` ({(L, M, nr, C, kernel
-dtype): launches}); the kernel dtype is the table's, or for a float64
-batch on a narrower table the pair (table dtype, torch.float64).
+``<wrapper>.launches_bf16``, those of the float16 one (float32 batch) in
+``<wrapper>.launches_f16``, those of the narrow-table float64 ones in
+``<wrapper>.launches_narrow`` and those of the float64 table with a
+float32 batch in ``<wrapper>.launches_wide``, and each launch once more by
+its shape: a full-table launch in ``<wrapper>.shapes`` ({(L, nr, C,
+kernel dtype): launches}), a slab launch in ``<wrapper>.slabs`` ({(L, M,
+nr, C, kernel dtype): launches}); the kernel dtype is the table's for the
+float32, float64, bfloat16 and float16 kernels, else the pair (table
+dtype, batch dtype).
 """
 
 from __future__ import annotations
@@ -109,7 +122,8 @@ __all__ = ["legendre_synth_tri", "legendre_adj_tri",
            "legendre_synth_par", "legendre_adj_par",
            "legendre_synth_par_plain", "legendre_adj_par_plain",
            "build", "f32_dynamic_smem", "f32_blocks_per_sm",
-           "bf16_dynamic_smem", "bf16_blocks_per_sm", "reset_launch_counts"]
+           "bf16_dynamic_smem", "bf16_blocks_per_sm", "cast_to",
+           "reset_launch_counts"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -117,6 +131,10 @@ _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the entry-point suffixes of csrc/legendre_tri_narrow_f64.cu, in the order
+# of its plan's table codes: a bfloat16, float32 or float16 table with a
+# float64 batch, and a float64 table with a float32 batch
+NARROW_SFX = ("bf16f64", "f32f64", "f16f64", "f64f32")
 # (lam, b, out, L, nr, C, strides, ms, M, stream); ms NULL for the full table
 _SYNTH_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 2 + [_P, _I, _P]
 _ADJ_ARGS = [_P] * 3 + [_I] * 3 + [_LL] * 5 + [_P, _I, _P]
@@ -138,14 +156,16 @@ _LIBS = {
                          "legendre_synth_par_f64": _SYNTH_PAR_ARGS,
                          "legendre_adj_par_f64": _ADJ_PAR_ARGS,
                          "legendre_tri_f64_plan": [_I] * 3},
-    "legendre_tri_bf16": {"legendre_synth_tri_bf16": _SYNTH_PAR_ARGS,
-                          "legendre_adj_tri_bf16": _ADJ_ARGS,
-                          "legendre_synth_par_bf16": _SYNTH_PAR_TILE_ARGS,
-                          "legendre_adj_par_bf16": _ADJ_PAR_ARGS,
-                          "legendre_tri_bf16_info": [_I, _I]},
+    **{f"legendre_tri_{sfx}": {f"legendre_synth_tri_{sfx}": _SYNTH_PAR_ARGS,
+                               f"legendre_adj_tri_{sfx}": _ADJ_ARGS,
+                               f"legendre_synth_par_{sfx}":
+                                   _SYNTH_PAR_TILE_ARGS,
+                               f"legendre_adj_par_{sfx}": _ADJ_PAR_ARGS,
+                               f"legendre_tri_{sfx}_info": [_I, _I]}
+       for sfx in ("bf16", "f16")},
     "legendre_tri_narrow_f64": {
         **{f"legendre_{kind}_{sfx}": args
-           for sfx in ("bf16f64", "f32f64")
+           for sfx in NARROW_SFX
            for kind, args in (("synth_tri", _SYNTH_ARGS),
                               ("adj_tri", _ADJ_ARGS),
                               ("synth_par", _SYNTH_PAR_ARGS),
@@ -156,8 +176,11 @@ _LIBS = {
 _SUFFIX = {(torch.float32, torch.float32): "f32",
            (torch.float64, torch.float64): "f64",
            (torch.bfloat16, torch.float32): "bf16",
+           (torch.float16, torch.float32): "f16",
            (torch.bfloat16, torch.float64): "bf16f64",
-           (torch.float32, torch.float64): "f32f64"}
+           (torch.float32, torch.float64): "f32f64",
+           (torch.float16, torch.float64): "f16f64",
+           (torch.float64, torch.float32): "f64f32"}
 # the ring tiles of the bfloat16 dense synthesis (csrc/legendre_tri_bf16.cu)
 BF16_SYNTH_TILES = (80, 96, 128, 144)
 # the ring tiles of the float32 parity synthesis (csrc/legendre_tri.cu)
@@ -293,22 +316,24 @@ def bf16_par_synth_tile(nh: int) -> int:
     return _fewest_tiles(BF16_PAR_SYNTH_TILES, nh)
 
 
-def bf16_dynamic_smem() -> dict:
-    """Dynamic shared memory (bytes) of each bfloat16-table kernel; builds
-    first."""
+def bf16_dynamic_smem(sfx: str = "bf16") -> dict:
+    """Dynamic shared memory (bytes) of each bfloat16-table kernel (``sfx``
+    "f16": the float16-table ones, the same source in its float16 mode);
+    builds first."""
     if not _fns:
         build()
-    fn = _fns["legendre_tri_bf16_info"]
+    fn = _fns[f"legendre_tri_{sfx}_info"]
     return {kind: fn(k, 0) for k, kind in enumerate(_BF16_KINDS)}
 
 
-def bf16_blocks_per_sm() -> dict:
-    """Resident blocks an SM of each bfloat16-table kernel on the current
-    card (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its threads
-    and dynamic shared memory); builds first."""
+def bf16_blocks_per_sm(sfx: str = "bf16") -> dict:
+    """Resident blocks an SM of each bfloat16-table kernel (``sfx`` "f16":
+    the float16-table ones) on the current card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at its threads and
+    dynamic shared memory); builds first."""
     if not _fns:
         build()
-    fn = _fns["legendre_tri_bf16_info"]
+    fn = _fns[f"legendre_tri_{sfx}_info"]
     return {kind: fn(k, 1) for k, kind in enumerate(_BF16_KINDS)}
 
 
@@ -352,24 +377,25 @@ def narrow_par_synth_plan(nh: int, C: int) -> dict:
 
 
 def narrow_plan(nr: int, C: int) -> dict:
-    """The narrow-table float64 kernels' launches at nr rings (the output's
-    or g's, for the parity pair) and C columns, for each table dtype:
-    threads per block, dynamic shared memory (bytes) and resident blocks
-    an SM on the current card of the dense pair ("synth", "adj") and the
-    parity pair ("synth_par", "adj_par"), and each synthesis' ring tiles and
-    rings a warp (the adjoints with g's unit stride on r); builds first."""
+    """The launches of ``csrc/legendre_tri_narrow_f64.cu``'s kernels at nr
+    rings (the output's or g's, for the parity pair) and C columns, for
+    each of its entry-point suffixes (``NARROW_SFX``): threads per block,
+    dynamic shared memory (bytes) and resident blocks an SM on the current
+    card of the dense pair ("synth", "adj") and the parity pair
+    ("synth_par", "adj_par"), and each synthesis' ring tiles and rings a
+    warp (the adjoints with g's unit stride on r); builds first."""
     if not _fns:
         build()
     fn = _fns["legendre_tri_narrow_f64_plan"]
     plan = {}
-    for dt, es in (("bfloat16", 2), ("float32", 4)):
-        plan[dt] = {}
+    for code, sfx in enumerate(NARROW_SFX):
+        plan[sfx] = {}
         for name, kinds in _NARROW_PLAN_KINDS.items():
-            v = fn(kinds[0], es, nr, C)
-            plan[dt][name] = {"threads": v >> 20, "smem": v & 0xFFFFF}
+            v = fn(kinds[0], code, nr, C)
+            plan[sfx][name] = {"threads": v >> 20, "smem": v & 0xFFFFF}
             for key, k in zip(("blocks_per_sm", "ring_tiles", "warp_rings"),
                               kinds[1:]):
-                plan[dt][name][key] = fn(k, es, nr, C)
+                plan[sfx][name][key] = fn(k, code, nr, C)
     return plan
 
 
@@ -377,7 +403,7 @@ def reset_launch_counts() -> None:
     for fn in (legendre_synth_tri, legendre_adj_tri, legendre_synth_par,
                legendre_adj_par):
         fn.launches = fn.launches_f64 = fn.launches_bf16 = 0
-        fn.launches_narrow = 0
+        fn.launches_f16 = fn.launches_narrow = fn.launches_wide = 0
         fn.shapes = collections.Counter()
         fn.slabs = collections.Counter()
 
@@ -404,42 +430,71 @@ def _dtypes(name: str, lam: torch.Tensor, b: torch.Tensor) -> str:
     except KeyError:
         raise TypeError(f"{name}: dtypes {lam.dtype}, {b.dtype}; the "
                         "kernels take float32 or float64 for both, a "
-                        "bfloat16 table with a float32 batch, or a bfloat16 "
-                        "or float32 table with a float64 batch") from None
+                        "bfloat16 or float16 table with a float32 batch, a "
+                        "bfloat16, float16 or float32 table with a float64 "
+                        "batch, or a float64 table with a float32 batch") \
+            from None
+
+
+def _f16_of_f64(t: torch.Tensor) -> torch.Tensor:
+    """A float64 tensor in float16, rounded once (to nearest, ties to
+    even): rounded to odd in float32 precision on its bits (the 29 low
+    significand bits cleared, the lowest kept one set where any of them
+    was; 24 bits, at least 11 + 2, so that the second rounding cannot land
+    on a tie that the first made; a NaN stays a NaN), then to float16.
+    torch's own conversion rounds to nearest twice, through float32, and
+    misses values such as 1 + 2^-11 + 2^-40."""
+    bits = t.view(torch.int64)
+    low = 2 ** 29 - 1
+    odd = (bits & ~low) | ((bits & low) != 0).to(torch.int64) << 29
+    return odd.view(torch.float64).to(torch.float32).to(torch.float16)
+
+
+def cast_to(t: torch.Tensor, td: torch.dtype) -> torch.Tensor:
+    """``t`` in dtype ``td`` as the JAX package's ``astype`` gives it: one
+    rounding to nearest, ties to even (float64 -> float16 included), but
+    float64 -> bfloat16 through float32, as JAX (ml_dtypes) and torch both
+    convert it."""
+    if t.dtype == torch.float64 and td == torch.float16:
+        return _f16_of_f64(t)
+    return t.to(td)
 
 
 def _round_to(t: torch.Tensor, td: torch.dtype) -> torch.Tensor:
-    """``t`` rounded to ``td`` (to nearest, ties to even; float64 bound for
-    bfloat16 through float32, as torch and JAX convert it), back in
-    ``t``'s dtype."""
-    return t.to(td).to(t.dtype)
+    """``t`` rounded to ``td`` (``cast_to``), back in ``t``'s dtype."""
+    return cast_to(t, td).to(t.dtype)
 
 
 def _plain_operands(name: str, lam: torch.Tensor, b: torch.Tensor):
-    """(lam, b) as the plain versions contract them: a narrow table upcast
-    to the batch's dtype and the batch rounded to the table dtype, so that
-    the einsum in the batch's dtype forms the kernel's exact products
-    (never an einsum on narrow tensors, whose result would be rounded)."""
+    """(lam, b) as the plain versions contract them, both in the wider of
+    their dtypes: a narrow table upcast to the batch's dtype and the batch
+    rounded to the table dtype, so that the einsum in the batch's dtype
+    forms the kernel's exact products (never an einsum on narrow tensors,
+    whose result would be rounded); a wide table as it is and the batch
+    widened (the caller rounds the float64 result to the batch's
+    dtype)."""
     _dtypes(name, lam, b)
-    if lam.dtype != b.dtype:
+    if lam.dtype.itemsize < b.dtype.itemsize:
         return lam.to(b.dtype), _round_to(b, lam.dtype)
-    return lam, b
+    return lam, b.to(lam.dtype)
 
 
 def legendre_synth_tri_plain(lam: torch.Tensor, x: torch.Tensor,
                              ms: torch.Tensor | None = None) -> torch.Tensor:
+    dt = x.dtype
     lam, x = _plain_operands("legendre_synth_tri", lam, x)
     if ms is not None:
         lam = _tri_rows(lam, ms)
-    return torch.einsum("mlr,mcl->mrc", lam, x)
+    return torch.einsum("mlr,mcl->mrc", lam, x).to(dt)
 
 
 def legendre_adj_tri_plain(lam: torch.Tensor, g: torch.Tensor,
                            ms: torch.Tensor | None = None) -> torch.Tensor:
+    dt = g.dtype
     lam, g = _plain_operands("legendre_adj_tri", lam, g)
     if ms is not None:
         lam = _tri_rows(lam, ms)
-    return torch.einsum("mlr,mrc->mcl", lam, g)
+    return torch.einsum("mlr,mrc->mcl", lam, g).to(dt)
 
 
 def _parity_halves(lam: torch.Tensor, ms: torch.Tensor | None):
@@ -459,11 +514,12 @@ def _parity_halves(lam: torch.Tensor, ms: torch.Tensor | None):
 def legendre_synth_par_plain(lam: torch.Tensor, x: torch.Tensor, nr: int,
                              flip: bool = False,
                              ms: torch.Tensor | None = None) -> torch.Tensor:
-    nh = lam.shape[2]
+    nh, dt = lam.shape[2], x.dtype
     lam, x = _plain_operands("legendre_synth_par", lam, x)
     lam_e, lam_o = _parity_halves(lam, ms)
-    se = torch.einsum("mlr,mcl->mrc", lam_e, x)
-    so = torch.einsum("mlr,mcl->mrc", lam_o, x)
+    # each class's sums in the batch's dtype, then combined in it
+    se = torch.einsum("mlr,mcl->mrc", lam_e, x).to(dt)
+    so = torch.einsum("mlr,mcl->mrc", lam_o, x).to(dt)
     south = (so - se if flip else se - so)[:, : nr - nh].flip(1)
     return torch.cat([se + so, south], dim=1)
 
@@ -480,13 +536,13 @@ def legendre_adj_par_plain(lam: torch.Tensor, g: torch.Tensor,
     if flip:
         gs = -gs
     u, v = gn + gs, gn - gs
-    if lam.dtype != g.dtype:
-        # the fold in g's dtype, then rounded (JAX's (Gn + Gs).astype(td))
-        lam, u, v = (lam.to(g.dtype), _round_to(u, lam.dtype),
-                     _round_to(v, lam.dtype))
+    # the fold in g's dtype, then rounded or widened (JAX's
+    # (Gn + Gs).astype(td)); each output is one class's sum
+    v = _plain_operands("legendre_adj_par", lam, v)[1]
+    lam, u = _plain_operands("legendre_adj_par", lam, u)
     lam_e, lam_o = _parity_halves(lam, ms)
     return (torch.einsum("mlr,mrc->mcl", lam_e, u)
-            + torch.einsum("mlr,mrc->mcl", lam_o, v))
+            + torch.einsum("mlr,mrc->mcl", lam_o, v)).to(g.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -553,9 +609,9 @@ def _launch(kind: str, lam: torch.Tensor, b: torch.Tensor,
         tail = [int(flip)]
         if kind == "synth" and sfx == "f32":
             tail.append(f32_par_synth_tile(nt))
-        elif kind == "synth" and sfx == "bf16":
+        elif kind == "synth" and sfx in ("bf16", "f16"):
             tail.append(bf16_par_synth_tile(nt))
-    elif kind == "synth" and sfx == "bf16":
+    elif kind == "synth" and sfx in ("bf16", "f16"):
         tail = [bf16_synth_tile(nt)]
     else:
         tail = []
@@ -578,9 +634,10 @@ def _count(fn, lam: torch.Tensor, b: torch.Tensor, nr: int, C: int,
     fn.launches += 1
     fn.launches_f64 += sfx == "f64"
     fn.launches_bf16 += sfx == "bf16"
-    narrow = sfx in ("bf16f64", "f32f64")
-    fn.launches_narrow += narrow
-    dt = (lam.dtype, b.dtype) if narrow else lam.dtype
+    fn.launches_f16 += sfx == "f16"
+    fn.launches_narrow += sfx in ("bf16f64", "f32f64", "f16f64")
+    fn.launches_wide += sfx == "f64f32"
+    dt = lam.dtype if len(sfx) <= 4 else (lam.dtype, b.dtype)
     if ms is None:
         fn.shapes[(L, nr, C, dt)] += 1
     else:

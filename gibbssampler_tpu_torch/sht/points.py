@@ -117,16 +117,16 @@ class PointSHT(LegendreCore):
         v[r, k] = sum_m Cc cos(m phi_rk) + Cs sin(m phi_rk)."""
         rnd = self._round_td
         v = (torch.einsum("...rm,rmp->...rp", rnd(Cc.to(self.dtype)),
-                          self.cosT)
+                          self.cosT).to(self.dtype)
              + torch.einsum("...rm,rmp->...rp", rnd(Cs.to(self.dtype)),
-                            self.sinT))
+                            self.sinT).to(self.dtype))
         return v * self.valid
 
     def _from_points(self, f):
         """Exact transpose of ``_to_points``: values -> (Sc, Ss) trig sums."""
         S = torch.einsum("...rp,rkp->...rk",
                          self._round_td((f * self.valid).to(self.dtype)),
-                         self.trig)
+                         self.trig).to(self.dtype)
         L = self.lmax + 1
         return S[..., :L], S[..., L:]
 
@@ -238,27 +238,30 @@ class PointSHT(LegendreCore):
         """Per-slot tables of ``flat_values`` from (lam_s, re_trig, im_trig)
         triples, one per map component: lam_s (L, J, S) slot-expanded
         tables; the grid's real part pairs with ``re_trig``, its imaginary
-        part with ``im_trig``.  Returns (J, 2L, ncomp S).  With bfloat16
-        tables each entry is the product of the bfloat16 values, rounded
-        to bfloat16 (the JAX package forms it in bfloat16)."""
+        part with ``im_trig``.  Returns (J, 2L, ncomp S).  With narrow
+        tables each entry is the product of the table-dtype values, rounded
+        to the table dtype (the JAX package forms it in the table dtype); a
+        wider table's products stay in it (float64), whatever ``dtype``."""
         rnd = self._round_td
         tabs = []
         for lam_s, tre, tim in parts:
-            lam_s = lam_s.to(self.dtype)
+            lam_s = lam_s.to(self.hold_dtype)
             tabs.append(torch.stack([rnd(lam_s * tre[:, None, :]),
                                      rnd(lam_s * tim[:, None, :])]))
         tab = torch.stack(tabs, dim=-2)                  # (2, L, J, nc, S)
         J = tab.shape[2]
-        return (tab.permute(2, 0, 1, 3, 4)
-                .reshape(J, 2 * (self.lmax + 1), -1).to(dtype).contiguous())
+        return (tab.permute(2, 0, 1, 3, 4).reshape(J, 2 * (self.lmax + 1), -1)
+                .to(self.table_dtype if self.wide else dtype).contiguous())
 
     def flat_tables_spin0(self, j_idx, dtype=None) -> torch.Tensor:
         """Chain-independent slot tables of ``values_flat_spin0_gsel``:
-        (J, 2L, S)."""
+        (J, 2L, S); the (2 - delta_m0) weights are the grid's
+        (``flat_values(..., cm=True)``), as in the JAX package, which
+        rounds the weighted grid (a float16 value doubled before its
+        rounding to a subnormal is not the doubled rounding)."""
         lam_s = self.lsel_table(self.lam0, j_idx)[..., self.slot_row]
-        cmc = self.cm[:, None]
-        return self._slot_tables([(lam_s, cmc * self.cosF,
-                                   -cmc * self.sinF)], dtype or self.dtype)
+        return self._slot_tables([(lam_s, self.cosF, -self.sinF)],
+                                 dtype or self.dtype)
 
     def flat_tables_spin2(self, sign_p, sign_m, j_idx,
                           dtype=None) -> torch.Tensor:
@@ -269,7 +272,7 @@ class PointSHT(LegendreCore):
         lamp = self.lsel_table(self.lam_p2, j_idx)          # (L, J, r)
         lamm = self.lsel_table(self.lam_m2, j_idx)
         pos = self.pos[:, None, None]
-        lamp, lamm = lamp.to(self.dtype), lamm.to(self.dtype)
+        lamp, lamm = lamp.to(self.hold_dtype), lamm.to(self.hold_dtype)
         # formed in the table dtype in the JAX package: rounded
         La = self._round_td(sign_p * lamp + sign_m * pos * lamm)
         Lb = self._round_td(sign_p * lamp - sign_m * pos * lamm)
@@ -280,16 +283,30 @@ class PointSHT(LegendreCore):
                                  dtype or self.dtype)
 
     def flat_values(self, gsel: torch.Tensor, tab: torch.Tensor,
-                    seg=None) -> torch.Tensor:
+                    seg=None, cm: bool = False) -> torch.Tensor:
         """Per-bin ell-selected values on the flat slot axis from a
         pre-gathered grid selection gsel (..., 2, L, J) and its slot
         tables (J, 2L, ncomp S): (..., nb, ncomp S), the bins being the
-        J ells, or the columns of the (J, nb) segment matrix ``seg``."""
+        J ells, or the columns of the (J, nb) segment matrix ``seg``.
+        ``cm``: the grid weighted by (2 - delta_m0) first (the spin-0
+        tables of ``flat_tables_spin0``)."""
+        if cm:
+            gsel = gsel * self.cm[:, None].to(gsel.dtype)
         g = gsel.reshape(gsel.shape[:-3] + (-1, gsel.shape[-1]))
         if self.table_dtype != self.dtype:
             # the grid rounded to the table dtype, as in the JAX package
             g = self._round_td(g.to(self.dtype))
-        v = torch.einsum("...kj,jkx->...jx", g.to(tab.dtype), tab)
+        if self.wide:
+            # the real and the imaginary part's float64 sums apart, each
+            # rounded to the compute dtype, as the JAX package's two
+            # products
+            g, L = g.to(tab.dtype), self.lmax + 1
+            v = (torch.einsum("...kj,jkx->...jx", g[..., :L, :], tab[:, :L])
+                 .to(self.dtype)
+                 + torch.einsum("...kj,jkx->...jx", g[..., L:, :],
+                                tab[:, L:]).to(self.dtype))
+        else:
+            v = torch.einsum("...kj,jkx->...jx", g.to(tab.dtype), tab)
         if seg is None:
             return v
         seg = torch.as_tensor(seg, dtype=v.dtype, device=v.device)
@@ -298,7 +315,8 @@ class PointSHT(LegendreCore):
     def values_flat_spin0_gsel(self, gsel, j_idx, seg=None):
         """Per-bin ell-selected spin-0 values on the flat slot axis:
         (..., nb, S)."""
-        return self.flat_values(gsel, self.flat_tables_spin0(j_idx), seg)
+        return self.flat_values(gsel, self.flat_tables_spin0(j_idx), seg,
+                                cm=True)
 
     def values_flat_spin2_gsel(self, gsel, sign_p, sign_m, j_idx, seg=None):
         """Per-bin ell-selected spin-2 values on the flat slot axis from a

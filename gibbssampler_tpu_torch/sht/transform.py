@@ -22,13 +22,16 @@ azimuthal stage has the JAX package's three forms (``fft_mode``):
 The ring-domain helpers of the blocked-MH engines (``ring_cs_of_maps``)
 stay "matmul" in every mode, as in the JAX package.
 
-With tables narrower than the compute dtype (``table_dtype``: bfloat16
-under float32, bfloat16 or float32 under float64) the "matmul" and "ct"
-stages are the JAX package's table-dtype products: their DFT, twiddle and
-Cooley-Tukey matrices hold values rounded to the table dtype (kept in the
-compute dtype), and each data operand is rounded to the table dtype just
-before its product (``LegendreCore._round_td``), which runs in the compute
-dtype; "fft" takes no table dtype, in the JAX package and here.
+With tables in another dtype than the compute dtype (``table_dtype``:
+bfloat16 or float16 under float32, bfloat16, float16 or float32 under
+float64, float64 under float32) the "matmul" and "ct" stages are the JAX
+package's table-dtype products: their DFT, twiddle and Cooley-Tukey
+matrices hold values rounded to the table dtype (kept in the wider of the
+two dtypes), and each data operand is rounded to (or, for the float64
+table, widened to) the table dtype just before its product
+(``LegendreCore._round_td``), which runs in the wider dtype and is
+rounded to the compute dtype; "fft" takes no table dtype, in the JAX
+package and here.
 
 On the Gauss-Legendre grid ``analysis`` is the
 exact inverse of ``synthesis`` and ``adjoint_synthesis`` its exact
@@ -76,13 +79,14 @@ class SHT(FlatAlmMethods, LegendreCore):
 
     The JAX package's construction options, with its defaults:
     ``fft_mode`` ("matmul", "fft" or "ct": the module docstring);
-    ``table_dtype`` (None: the compute dtype; bfloat16 with float32
-    compute; bfloat16 or float32 with float64 compute;
-    ``sht.lcore.resolve_table_dtype``); ``m_block`` (the JAX package's
-    wedge m-blocking; stored and passed on to derived transforms, and no
-    value of it changes a result or a launch: the kernels skip the l < m
-    triangle row by row); ``ring_split`` (the north/south parity split,
-    ``sht.lcore``; False on a grid that is not equator-symmetric)."""
+    ``table_dtype`` (None: the compute dtype; bfloat16 or float16 with
+    float32 compute; bfloat16, float16 or float32 with float64 compute;
+    float64 with float32 compute; ``sht.lcore.resolve_table_dtype``);
+    ``m_block`` (the JAX package's wedge m-blocking; stored and passed on
+    to derived transforms, and no value of it changes a result or a
+    launch: the kernels skip the l < m triangle row by row);
+    ``ring_split`` (the north/south parity split, ``sht.lcore``; False on
+    a grid that is not equator-symmetric)."""
 
     def __init__(self, grid: SphereGrid, lmax: int, dtype=torch.float32,
                  spin2: bool = False, device="cuda",
@@ -124,7 +128,8 @@ class SHT(FlatAlmMethods, LegendreCore):
         self.fft_mode = fft_mode
         self._ct = None
         if fft_mode == "ct":
-            self._ct = _ct_setup(grid.nphi, L, self._trig, self._round_td)
+            self._ct = _ct_setup(grid.nphi, L, self._trig, self._round_td,
+                                 dtype)
             if self._ct is None:
                 self.fft_mode = "matmul"
         self.lam_p2 = self.lam_m2 = self.lam_w = self.lam_x = None
@@ -160,8 +165,8 @@ class SHT(FlatAlmMethods, LegendreCore):
         Are, Aim = self._round_td(Are), self._round_td(Aim)
         if self.fft_mode == "ct":
             return _ct_halfspec_to_real(self._ct, Are, Aim)
-        C = torch.matmul(Are, self.dft_cos)
-        S = torch.matmul(Aim, self.dft_sin)
+        C = torch.matmul(Are, self.dft_cos).to(self.dtype)
+        S = torch.matmul(Aim, self.dft_sin).to(self.dtype)
         return self._unfold_half(C - S, C + S)
 
     def _real_to_halfspec(self, maps):
@@ -172,8 +177,9 @@ class SHT(FlatAlmMethods, LegendreCore):
         if self.fft_mode == "ct":
             return _ct_real_to_halfspec(self._ct, self._round_td(maps))
         u, v = self._fold_half(maps)
-        return (torch.matmul(self._round_td(u), self.dft_cos.T),
-                torch.matmul(self._round_td(v), self.dft_sin.T))
+        rnd, dt = self._round_td, self.dtype
+        return (torch.matmul(rnd(u), self.dft_cos.T).to(dt),
+                torch.matmul(rnd(v), self.dft_sin.T).to(dt))
 
     def _ring_ifft_real(self, Fre, Fim):
         """f[.., r, j] = sum_m (2 - delta_m0) (Fre cos(m phi_j) - Fim sin)."""
@@ -324,8 +330,9 @@ class SHT(FlatAlmMethods, LegendreCore):
         (..., nr, L), so that sum_j f a = sum_m (Cc Rc + Cs Rs) for any
         half-spectrum series a with coefficients (Cc, Cs)."""
         u, v = self._fold_half(maps.to(self.dtype))
-        return (torch.matmul(self._round_td(u), self.dft_cos.T),
-                torch.matmul(self._round_td(v), self.dft_sin.T))
+        rnd, dt = self._round_td, self.dtype
+        return (torch.matmul(rnd(u), self.dft_cos.T).to(dt),
+                torch.matmul(rnd(v), self.dft_sin.T).to(dt))
 
     def lsel_grid_spin2_single(self, state: torch.Tensor, which: str):
         """The Legendre-stage input grid of a single-field spin-2 input (the
@@ -434,11 +441,13 @@ class _CT:
     n2 j1); for n ~ 2 lmax about 4x fewer products than the folded DFT.
     ``t`` makes a matrix of host values (rounded to the table dtype),
     ``rnd`` rounds the second stage's operand to the table dtype (the JAX
-    package's ``astype`` between the stages)."""
+    package's ``astype`` between the stages); each matrix product is
+    rounded to the compute dtype ``dtype`` (float64 products of a wider
+    table)."""
 
-    def __init__(self, n, n1, n2, A, L, t, rnd):
+    def __init__(self, n, n1, n2, A, L, t, rnd, dtype):
         self.n, self.n1, self.n2, self.A, self.L = n, n1, n2, A, L
-        self.rnd = rnd
+        self.rnd, self.dtype = rnd, dtype
         w2 = 2.0 * np.pi * (np.arange(A)[:, None] * np.arange(n2)[None, :]) \
             / n2
         self.W2c, self.W2s = t(np.cos(w2)), t(np.sin(w2))       # (A, n2)
@@ -450,7 +459,7 @@ class _CT:
         self.W1c, self.W1s = t(np.cos(w1)), t(np.sin(w1))       # (n1, n1)
 
 
-def _ct_setup(n, L, t, rnd):
+def _ct_setup(n, L, t, rnd, dtype):
     """Pick n = n1 n2 minimizing 4 ceil(L / n1) + 2 n1; None if no useful
     factorization exists."""
     best = None
@@ -463,7 +472,7 @@ def _ct_setup(n, L, t, rnd):
     if best is None or best[0] >= 2 * (n // 2 + 1) * L // n:
         return None
     n1 = best[1]
-    return _CT(n, n1, n // n1, -(-L // n1), L, t, rnd)
+    return _CT(n, n1, n // n1, -(-L // n1), L, t, rnd, dtype)
 
 
 def _ct_halfspec_to_real(ct, Gre, Gim):
@@ -474,13 +483,14 @@ def _ct_halfspec_to_real(ct, Gre, Gim):
     Xre = Gre.reshape(Gre.shape[:-1] + (ct.A, ct.n1))
     Xim = Gim.reshape(Xre.shape)
     # stage 1 over a: (..., a, b) x (a, j2) -> (..., b, j2)
-    e = lambda x, w: torch.matmul(x.transpose(-1, -2), w)
+    e = lambda x, w: torch.matmul(x.transpose(-1, -2), w).to(ct.dtype)
     T1re = e(Xre, ct.W2c) - e(Xim, ct.W2s)
     T1im = e(Xre, ct.W2s) + e(Xim, ct.W2c)
     T2re = ct.rnd(T1re * ct.TWc - T1im * ct.TWs)
     T2im = ct.rnd(T1re * ct.TWs + T1im * ct.TWc)
     # stage 2 over b: (..., b, j2) x (b, j1) -> (..., j1, j2), j = j2 + n2 j1
-    out = (torch.matmul(ct.W1c.T, T2re) - torch.matmul(ct.W1s.T, T2im))
+    out = (torch.matmul(ct.W1c.T, T2re).to(ct.dtype)
+           - torch.matmul(ct.W1s.T, T2im).to(ct.dtype))
     return out.reshape(out.shape[:-2] + (ct.n,))
 
 
@@ -489,12 +499,12 @@ def _ct_real_to_halfspec(ct, maps):
     m < L: the exact transpose of ``_ct_halfspec_to_real``."""
     x = maps.reshape(maps.shape[:-1] + (ct.n1, ct.n2))       # (..., j1, j2)
     # (b, j1) x (..., j1, j2) -> (..., b, j2)
-    Ure = torch.matmul(ct.W1c, x)
-    Uim = -torch.matmul(ct.W1s, x)
+    Ure = torch.matmul(ct.W1c, x).to(ct.dtype)
+    Uim = -torch.matmul(ct.W1s, x).to(ct.dtype)
     Vre = ct.rnd(Ure * ct.TWc + Uim * ct.TWs)
     Vim = ct.rnd(Uim * ct.TWc - Ure * ct.TWs)
     # (..., b, j2) x (j2, a) -> (..., a, b)
-    g = lambda v, w: torch.matmul(v, w.T).transpose(-1, -2)
+    g = lambda v, w: torch.matmul(v, w.T).transpose(-1, -2).to(ct.dtype)
     Cre = g(Vre, ct.W2c) + g(Vim, ct.W2s)
     Cim = g(Vim, ct.W2c) - g(Vre, ct.W2s)
     Cre = Cre.reshape(Cre.shape[:-2] + (ct.A * ct.n1,))[..., : ct.L]

@@ -479,12 +479,27 @@ def test_cuda_bf16_kernels_match_plain(cuda_device, L, nr, C):
     on c, against their plain versions on the card (1e-5 max|ref|: the
     same exact products, float32 sums), the float32 outputs given
     NaN-filled memory; each launch counted in ``launches_bf16`` too."""
+    _cuda_16bit_tables(cuda_device, torch.bfloat16, L, nr, C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,nr,C", BF16_CARD_SHAPES)
+def test_cuda_f16_kernels_match_plain(cuda_device, L, nr, C):
+    """The float16-table kernels (the bfloat16 source in its float16 mode),
+    as ``test_cuda_bf16_kernels_match_plain``: 1e-5 max|ref|, each launch
+    counted in ``launches_f16``."""
+    _cuda_16bit_tables(cuda_device, torch.float16, L, nr, C)
+
+
+def _cuda_16bit_tables(cuda_device, td, L, nr, C):
+    """The kernels of a 16-bit table ``td`` with a float32 batch against
+    their plain versions (``test_cuda_bf16_kernels_match_plain``)."""
     gen = torch.Generator(device=cuda_device).manual_seed(L + nr + C)
     tri = (torch.arange(L, device=cuda_device)[None, :, None]
            >= torch.arange(L, device=cuda_device)[:, None, None])
     nh = (nr + 1) // 2
     tabs = {n_: (torch.randn((L, L, n_), generator=gen, device=cuda_device)
-                 * tri).to(torch.bfloat16).contiguous() for n_ in (nr, nh)}
+                 * tri).to(td).contiguous() for n_ in (nr, nh)}
     x = torch.randn((L, C, L), generator=gen, device=cuda_device)
     g = torch.randn((L, nr, C), generator=gen, device=cuda_device)
     xv, gv = _state_views(x, g)
@@ -517,7 +532,8 @@ def test_cuda_bf16_kernels_match_plain(cuda_device, L, nr, C):
             assert bool(torch.isfinite(out).all())
             assert err <= 1e-5 * float(ref.abs().max()), (
                 kern.__name__, ms is None, args, err)
-    assert sum(f.launches_bf16 for f in (
+    attr = "launches_bf16" if td == torch.bfloat16 else "launches_f16"
+    assert sum(getattr(f, attr) for f in (
         lk.legendre_synth_tri, lk.legendre_adj_tri, lk.legendre_synth_par,
         lk.legendre_adj_par)) == calls
 
@@ -586,17 +602,31 @@ def test_narrow_par_synth_plan(nh, C):
     assert {NARROW_PAR_PLAN[k][0] for k in card} == {1, 2, 3}
 
 
+# float64 values that one rounding to float16 and two (through float32)
+# take to different neighbours, ties and their neighbours, subnormals, the
+# largest finite float16 and the first values that overflow it
+F16_EDGES = (1.0 + 2.0 ** -11 + 2.0 ** -40, 1.0 + 2.0 ** -11 - 2.0 ** -40,
+             -(1.0 + 2.0 ** -11 + 2.0 ** -40), 1.0 + 2.0 ** -11,
+             1.0 + 3 * 2.0 ** -11, 2.0 ** -24, 2.0 ** -25 + 2.0 ** -60,
+             2.0 ** -25, 3 * 2.0 ** -26, 2.0 ** -14 - 2.0 ** -25 + 2.0 ** -50,
+             65504.0, 65519.99, 65520.0, -0.0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("td", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("td", [torch.bfloat16, torch.float32,
+                                torch.float16])
 @pytest.mark.parametrize("L,nr,C", NARROW_CARD_SHAPES)
 def test_cuda_narrow_f64_kernels_match_plain(cuda_device, td, L, nr, C):
-    """The narrow-table float64 kernels (bfloat16 or float32 table, float64
-    batch), dense and parity (flip and not), on the full table and the
-    two-way split's slabs, g with unit stride on r and on c, against their
-    plain versions on the card (1e-12 max|ref|: the same exact products,
-    float64 sums), the float64 outputs given NaN-filled memory; each launch
-    counted in ``launches_narrow`` and under the kernel dtype (td,
-    float64)."""
+    """The narrow-table float64 kernels (bfloat16, float32 or float16
+    table, float64 batch), dense and parity (flip and not), on the full
+    table and the two-way split's slabs, g with unit stride on r and on c,
+    against their plain versions on the card (1e-12 max|ref|: the same
+    exact products, float64 sums), the float64 outputs given NaN-filled
+    memory; each launch counted in ``launches_narrow`` and under the kernel
+    dtype (td, float64).  The batch holds the values whose rounding to the
+    table dtype tells one rounding from two (a float16 table: F16_EDGES but
+    the overflowing ones, which ``test_cuda_f16f64_edge_values_bit_equal``
+    checks)."""
     f64 = torch.float64
     gen = torch.Generator(device=cuda_device).manual_seed(L + nr + C)
     tri = (torch.arange(L, device=cuda_device)[None, :, None]
@@ -608,6 +638,10 @@ def test_cuda_narrow_f64_kernels_match_plain(cuda_device, td, L, nr, C):
     x = torch.randn((L, C, L), generator=gen, dtype=f64, device=cuda_device)
     g = torch.randn((L, nr, C), generator=gen, dtype=f64, device=cuda_device)
     x[L - 1, 0, L - 1] = 1.0 + 2.0 ** -8 + 2.0 ** -30
+    if td == torch.float16:
+        edges = torch.tensor(F16_EDGES[:-3], dtype=f64)
+        x[L - 1, 0, L - len(edges):] = edges
+        g[L - 1, : min(nr, len(edges)), 0] = edges[: min(nr, len(edges))]
     xv, gv = _state_views(x, g)
     lk.reset_launch_counts()
     calls = 0
@@ -645,3 +679,94 @@ def test_cuda_narrow_f64_kernels_match_plain(cuda_device, td, L, nr, C):
     assert sum(v for f in fns for k, v in (*f.shapes.items(),
                                            *f.slabs.items())
                if k[-1] == (td, f64)) == calls
+
+
+@pytest.mark.cuda
+def test_cuda_f16f64_edge_values_bit_equal(cuda_device):
+    """The float16-table float64 kernels on a batch of F16_EDGES (overflow
+    included: the rounded batch holds inf), a table of ones on one row
+    m = 0, so that each output is one product (no sum to reorder): every
+    output equals numpy's float16 rounding of its value, finite or not,
+    and so does the plain version's where that is finite (the plain
+    versions, on the CPU: a BLAS product may turn an inf into a NaN)."""
+    f64 = torch.float64
+    edges = torch.tensor(F16_EDGES, dtype=f64, device=cuda_device)
+    L, C = 1, len(F16_EDGES)
+    lam = torch.ones((L, L, 1), dtype=torch.float16, device=cuda_device)
+    x = edges.reshape(1, C, 1)
+    g = edges.reshape(1, 1, C)
+    with np.errstate(over="ignore"):
+        want = torch.from_numpy(np.asarray(F16_EDGES).astype(np.float16)
+                                .astype(np.float64))
+    lc, xc, gc = lam.cpu(), x.cpu(), g.cpu()
+    for out, ref in (
+            (lk.legendre_synth_tri(lam, x), lk.legendre_synth_tri_plain(lc, xc)),
+            (lk.legendre_adj_tri(lam, g), lk.legendre_adj_tri_plain(lc, gc)),
+            (lk.legendre_synth_par(lam, x, 1),
+             lk.legendre_synth_par_plain(lc, xc, 1)),
+            (lk.legendre_adj_par(lam, g), lk.legendre_adj_par_plain(lc, gc))):
+        a, b = out.reshape(-1).cpu(), ref.reshape(-1)
+        fin = want.isfinite()
+        assert torch.equal(a, want) and torch.equal(b[fin], want[fin]), (
+            a, b, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,nr,C", NARROW_CARD_SHAPES)
+def test_cuda_wide_kernels_match_plain(cuda_device, L, nr, C):
+    """The float64-table kernels with a float32 batch (the narrow source's
+    float64 mode), dense and parity (flip and not), on the full table and
+    the two-way split's slabs, g with unit stride on r and on c, against
+    their plain versions on the card: within one float32 ulp of max|ref|
+    (both round float64 sums of the same products once to float32, the
+    sums in other orders; the parity synthesis rounds each class's sums
+    first and combines them in float32), the float32 outputs given
+    NaN-filled memory; each launch counted in ``launches_wide`` and under
+    the kernel dtype (float64, float32)."""
+    f64, f32 = torch.float64, torch.float32
+    gen = torch.Generator(device=cuda_device).manual_seed(L + nr + C)
+    tri = (torch.arange(L, device=cuda_device)[None, :, None]
+           >= torch.arange(L, device=cuda_device)[:, None, None])
+    nh = (nr + 1) // 2
+    tabs = {n_: (torch.randn((L, L, n_), generator=gen, dtype=f64,
+                             device=cuda_device) * tri).contiguous()
+            for n_ in (nr, nh)}
+    x = torch.randn((L, C, L), generator=gen, dtype=f32, device=cuda_device)
+    g = torch.randn((L, nr, C), generator=gen, dtype=f32, device=cuda_device)
+    xv, gv = _state_views(x, g)
+    lk.reset_launch_counts()
+    calls = 0
+    for ms in [None] + [torch.as_tensor(r, dtype=torch.int32,
+                                        device=cuda_device)
+                        for r in m_rows(L, 2)]:
+        sel = (lambda t: t) if ms is None else (
+            lambda t: t.index_select(0, ms.long()).contiguous())
+        xs = xv if ms is None else sel(xv)
+        gls = [g, gv] if ms is None else [_state_views(x, sel(g))[1]]
+        cases = [(lk.legendre_synth_tri, lk.legendre_synth_tri_plain,
+                  tabs[nr], xs, (), (L, nr, C))]
+        cases += [(lk.legendre_adj_tri, lk.legendre_adj_tri_plain, tabs[nr],
+                   gl, (), (C, L, L)) for gl in gls]
+        for flip in (False, True):
+            cases.append((lk.legendre_synth_par, lk.legendre_synth_par_plain,
+                          tabs[nh], xs, (nr, flip), (L, nr, C)))
+            cases += [(lk.legendre_adj_par, lk.legendre_adj_par_plain,
+                       tabs[nh], gl, (flip,), (C, L, L)) for gl in gls]
+        for kern, plain, lam, b, args, shape in cases:
+            torch.full(shape, float("nan"), dtype=f32, device=cuda_device)
+            out = kern(sel(lam), b, *args, ms)
+            ref = plain(sel(lam), b, *args, ms)
+            torch.cuda.synchronize()
+            calls += 1
+            assert out.dtype == f32
+            err = float((out - ref).abs().max())
+            assert bool(torch.isfinite(out).all())
+            assert err <= torch.finfo(f32).eps * float(ref.abs().max()), (
+                kern.__name__, ms is None, args, err)
+    fns = (lk.legendre_synth_tri, lk.legendre_adj_tri, lk.legendre_synth_par,
+           lk.legendre_adj_par)
+    assert sum(f.launches_wide for f in fns) == calls
+    assert sum(f.launches_narrow + f.launches_f64 for f in fns) == 0
+    assert sum(v for f in fns for k, v in (*f.shapes.items(),
+                                           *f.slabs.items())
+               if k[-1] == (f64, f32)) == calls

@@ -255,30 +255,39 @@ def test_m_block_leaves_results_unchanged(split):
 
 
 def test_table_dtype_takes_the_compute_dtype_and_refuses_others():
-    """None, the compute dtype or its name build the transform; so do the
-    narrow tables under float64 compute (bfloat16 or float32, as a torch
-    dtype, a name or a numpy dtype) on every transform that takes the
-    option; float16 tables, and float64 tables under float32 compute,
-    raise NotImplementedError."""
+    """None, the compute dtype or its name build the transform; so does
+    every other pair the JAX package runs (``sht.lcore.TABLE_PAIRS``):
+    bfloat16 or float16 tables under float32 compute, bfloat16, float16 or
+    float32 tables under float64, and float64 tables under float32, each as
+    a torch dtype, a name or a numpy dtype, on every transform that takes
+    the option, with lam0 stored in the table dtype; a pair that no path of
+    the package supports (an integer or 8-bit float table, a float32 table
+    under float16 compute) raises NotImplementedError."""
     import ml_dtypes
+    from gibbssampler_tpu_torch.sht.lcore import TABLE_PAIRS
     for td in (None, F64, "float64", np.dtype("float64")):
         assert make_sht(6, dtype=F64, table_dtype=td,
                         device="cpu").table_dtype == F64
-    for td, want in ((torch.bfloat16, torch.bfloat16),
-                     ("bfloat16", torch.bfloat16),
-                     (np.dtype(ml_dtypes.bfloat16), torch.bfloat16),
-                     (torch.float32, torch.float32),
-                     ("float32", torch.float32),
-                     (np.float32, torch.float32)):
-        for ts in (make_sht(6, dtype=F64, table_dtype=td, device="cpu"),
-                   make_healpix_sht(2, 4, dtype=F64, table_dtype=td,
-                                    device="cpu"),
-                   PointSHT(np.array([1.0]), np.zeros((1, 2)),
-                            np.ones((1, 2)), 4, dtype=F64, device="cpu",
-                            table_dtype=td)):
-            assert ts.table_dtype == want and ts.lam0.dtype == want
-    for dtype, bad in ((F64, torch.float16), (F64, "float16"),
-                       (torch.float32, F64), (torch.float32, "float64")):
+    assert set(TABLE_PAIRS) == {
+        (torch.bfloat16, torch.float32), (torch.float16, torch.float32),
+        (torch.bfloat16, F64), (torch.float16, F64), (torch.float32, F64),
+        (F64, torch.float32)}
+    numpy_of = {torch.bfloat16: np.dtype(ml_dtypes.bfloat16),
+                torch.float16: np.float16, torch.float32: np.float32,
+                F64: np.dtype("float64")}
+    for want, cd in TABLE_PAIRS:
+        for td in (want, str(want)[6:], numpy_of[want]):
+            for ts in (make_sht(6, dtype=cd, table_dtype=td, device="cpu"),
+                       make_healpix_sht(2, 4, dtype=cd, table_dtype=td,
+                                        device="cpu"),
+                       PointSHT(np.array([1.0]), np.zeros((1, 2)),
+                                np.ones((1, 2)), 4, dtype=cd, device="cpu",
+                                table_dtype=td)):
+                assert ts.table_dtype == want and ts.lam0.dtype == want
+                assert ts.dtype == cd
+    for dtype, bad in ((F64, torch.int32), (torch.float32, "int8"),
+                       (F64, "float8_e4m3fn"), (torch.float16, "float32"),
+                       (torch.float32, "complex64")):
         with pytest.raises(NotImplementedError):
             make_sht(6, dtype=dtype, table_dtype=bad, device="cpu")
         with pytest.raises(NotImplementedError):

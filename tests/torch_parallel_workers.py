@@ -179,6 +179,31 @@ def split_transforms(rank, world, lmax, inputs):
     return res
 
 
+def table_pair_transforms(rank, world, lmax, pairs, inputs):
+    """Spin-2 synthesis and adjoint of the GL transform, dense and
+    ring-split, m-sharded over a (1, world) mesh and unsharded, for each
+    (table dtype, compute dtype) name pair of ``pairs``; ``inputs`` (e,
+    b, q, u) in float64, cast to the compute dtype."""
+    mesh = make_mesh(1, world, device_type="cpu")
+    res = {}
+    for td, cd in pairs:
+        dt = getattr(torch, cd)
+        e, b, q, u = (torch.as_tensor(a).to(dt) for a in inputs)
+        for split in (False, True):
+            sht = make_sht(lmax, dtype=dt, spin2=True, device="cpu",
+                           ring_split=split, table_dtype=td)
+            msh = shard_sht(sht, mesh)
+            key = f"{td}_{cd}_{int(split)}"
+            res[f"{key}_dtype"] = np.array(
+                [str(msh.lam0.dtype) == f"torch.{td}"])
+            for who, tr in (("sharded", msh), ("full", sht)):
+                sq, su = tr.synthesis_spin2_state(e, b)
+                ae, ab = tr.adjoint_synthesis_spin2_state(q, u)
+                for k, v in (("q", sq), ("u", su), ("e", ae), ("b", ab)):
+                    res[f"{key}_{who}_{k}"] = _n(v).astype(np.float64)
+    return res
+
+
 def _scheme(model, spec):
     bins_list = [np.asarray(b) for b in spec["bins"]]
     if spec["scheme"] == "asis":
