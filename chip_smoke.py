@@ -573,16 +573,37 @@ def phase_build(lk, card="card"):
           f"{lk.bf16_dynamic_smem('f16')}, resident blocks an SM: "
           f"{lk.bf16_blocks_per_sm('f16')} [{card}]", flush=True)
     for nr, C in PAIR_DENSE_SHAPES:
+        plan = lk.narrow_plan(nr, C)["f64f32"]
+        sp, ap = plan["synth"], plan["adj"]
+        ws, wa = lk.wide_synth_plan(nr, C), lk.wide_adj_plan(nr, C)
+        check(sp["ring_tiles"] == ws["ring_tiles"]
+              and sp["threads"] == 32 * ws["warps"]
+              and sp["warp_rings"] == ws["warp_rings"]
+              and sp["col_tile"] == ws["col_tile"],
+              f"float64-table dense synthesis plan at nr {nr}, C {C}: {sp}, "
+              f"legendre_kernels.wide_synth_plan {ws}")
+        check(ap["threads"] == 32 * wa["warps"]
+              and ap["col_tile"] == wa["col_tile"] and ap["rows"] == wa["rows"],
+              f"float64-table dense adjoint plan at nr {nr}, C {C}: {ap}, "
+              f"legendre_kernels.wide_adj_plan {wa}")
         print(f"  float64-table float32 kernels' (f64f32) threads, dynamic "
-              f"shared memory (bytes), resident blocks an SM and synthesis "
-              f"ring tiles at nr {nr}, C {C}: "
-              f"{lk.narrow_plan(nr, C)['f64f32']} [{card}]", flush=True)
+              f"shared memory (bytes), resident blocks an SM, synthesis "
+              f"ring tiles and the dense pair's columns a block at nr {nr}, "
+              f"C {C}: {plan} (wide_synth_plan {ws}, wide_adj_plan {wa}) "
+              f"[{card}]", flush=True)
     for nr, C in F64_TIMED:
         print(f"  float64 kernels' threads and dynamic shared memory "
               f"(bytes) at nr {nr}, C {C}: {lk.f64_plan(nr, C)}", flush=True)
     for nr, C in NARROW_DENSE_SHAPES:
         plan = {dt: {k: v for k, v in p.items() if k in ("synth", "adj")}
                 for dt, p in lk.narrow_plan(nr, C).items()}
+        for dt, p in plan.items():
+            es = NARROW_TABLE_BYTES[dt]
+            for kind in ("synth", "adj"):
+                want = lk.narrow_col_tile(kind, es, nr, C)
+                check(p[kind]["col_tile"] == want,
+                      f"narrow-table {dt} {kind} plan at nr {nr}, C {C}: "
+                      f"{p[kind]}, legendre_kernels.narrow_col_tile {want}")
         print(f"  narrow-table float64 dense kernels' threads, dynamic shared "
               f"memory (bytes), resident blocks an SM and synthesis ring "
               f"tiles at nr {nr}, C {C}: {plan} [{card}]", flush=True)
@@ -3878,6 +3899,8 @@ NARROW_SFX = {"bfloat16": "bf16f64", "float32": "f32f64",
               "float16": "f16f64"}
 # against the plain version: the same exact products, float64 sums
 NARROW_TOL = 1e-12
+# the narrow source's table bytes an element by entry-point suffix
+NARROW_TABLE_BYTES = {"bf16f64": 2, "f32f64": 4, "f16f64": 2, "f64f32": 8}
 # the transforms against float64-table ones (max|err| / max|ref|): the
 # table dtype's operator error
 NARROW_TRANSFORM_TOL = {"bfloat16": 2e-2, "float32": 1e-5,
@@ -4481,6 +4504,11 @@ def phase_pair_kernels(torch, lk, dev, card):
                                        rows)
 
         for k, (nr, C) in enumerate(PAIR_DENSE_SHAPES):
+            if wide:
+                plan = lk.narrow_plan(nr, C)["f64f32"]
+                print(f"pairs f64f32 dense plans at nr {nr}, C {C}: "
+                      f"synthesis {plan['synth']}, adjoint {plan['adj']} "
+                      f"[{card}]", flush=True)
             lam = tri_table(torch, L, nr, torch.float64, dev, gen).to(td)
             l32 = lam.float()
             x = x_view(torch.randn((L, C, L), generator=gen, device=dev))

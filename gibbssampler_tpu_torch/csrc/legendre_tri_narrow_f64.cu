@@ -140,12 +140,47 @@
 //   run of l a column through shared memory (store_run), after the zeros
 //   of l < m in the tile that starts at l = m.  112 KB of shared memory at
 //   32 columns in bfloat16, two blocks an SM.
+// Design of the float64 table's dense pair (synth_wide, adj_wide; a
+// float32 batch and output).  The narrow dense pair's 32-column tiles read
+// an 8-byte table once per tile: at the main path's C = 256 (128 chains x
+// Re/Im) the SMs took the table 8 times (4.3 GB at nr 513) and its copies
+// alone took 52-89% of each kernel (PERF.md section 6).  What bounds the
+// pair: at (nr, C) = (513, 256) one call does 2 nr C L(L+1)/2 = 34.6 GFLOP,
+// 0.517 ms at DMMA's 67 TFLOP/s against 0.28 ms for its 945 MB; at (65,
+// 256) the bytes, 0.071 ms (synthesis) and 0.111 ms (adjoint: its (C, M, L)
+// output alone is 270 MB).  Both reach 29-40% of that (PERF.md section 6):
+// their copies do not overlap their products.
+// - Every table double lands by its own 8-byte cp.async at 8 r of its
+//   row's slot, so that rows sit aligned whatever nr's parity, and a lane
+//   reads two fragment values in one 16-byte load.  Copies go DEPTH = 2
+//   stages ahead into DEPTH + 1 table slots.
+// - Synthesis: M = rings, N = columns, K = degrees.  A warp holds 16 rings
+//   x 64 columns (32 at C <= 32; 64 accumulator doubles, 128 registers a
+//   thread); fragment rows gid and gid + 8 are its rings 2 gid and 2 gid +
+//   1.  A block has up to 4 column warps, so that at C = 256 the table
+//   enters the SMs once, and ring warps up to 16 warps in all (one block an
+//   SM); the fewest ring tiles (nr 65: 2 of 3 and 2 warps; 513: 9 of 4),
+//   each of which takes the batch again.  x lands in 16-byte chunks at each
+//   column's shift (8 columns apart share one) and B is read from it in
+//   float32 and widened as it is loaded: no staging pass, one barrier a
+//   stage of 32 degree rows, whose k8 steps are not unrolled (unrolled, the
+//   loads of the next step spill).
+// - Adjoint: M = rows l, N = columns, K = rings.  A block computes 128 rows
+//   l (4 warps of 32) x 128 columns (16 warps, one block an SM; 64 at C <=
+//   64, 32 at C <= 32), in stages of 24 rings (3 k8
+//   steps, rows of 192 bytes: 64 mod 128, so the 16-byte reads of rows gid
+//   and gid + 1 meet no bank twice); the k8 step's degrees tig and tig + 4
+//   are its rings 2 tig and 2 tig + 1, read with U's in one 16-byte load.
+//   The staging pass widens g into U, a thread a column's run of rings.
+//   Blocks are the (m, row tile) pairs m-major, each pair's column tiles
+//   next to each other, so that a pair's table rows and g's row m leave
+//   device memory once; the epilogue is the narrow adjoint's.
 // Every launch goes to the caller's stream; each entry point returns
 // cudaGetLastError() so that a refused launch reaches the wrapper.
 //
 // LEGENDRE_NARROW_PARTS (a bit set, 15 unless nvcc is given -D) keeps the
-// copies (1), staging pass (2), products (4) and stores (8) of all four
-// kernels.
+// copies (1), staging pass (2), products (4) and stores (8) of every
+// kernel (the wide synthesis has no staging pass).
 // A build that leaves a part out computes a wrong result on purpose: it only
 // serves to time the other parts alone (kernel_ab.py --variant).
 
@@ -244,6 +279,15 @@ __device__ __forceinline__ void cp_async16n(void* dst, const void* src,
                                             int n) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(d),
+               "l"(src), "r"(n));
+}
+
+// 8-byte asynchronous copy of the double at src, or 8 zero bytes where n
+// is 0 (src then any valid address); src and dst 8-byte aligned
+__device__ __forceinline__ void cp_async8n(void* dst, const void* src,
+                                           int n) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" :: "r"(d),
                "l"(src), "r"(n));
 }
 
@@ -383,9 +427,7 @@ __device__ __forceinline__ void keep_live(const double (&acc)[N][4], B* out) {
 
 constexpr int kSynMaxWarps = 8;
 constexpr int kSynDepth = 2;     // stages in flight
-// degree rows a stage: 32, or 16 for a float64 table (whose 32-row stages
-// would take 150 KB at nr 513: one block an SM)
-__host__ __device__ constexpr int syn_rows(int es) { return es == 8 ? 16 : 32; }
+constexpr int kSynRows = 32;     // degree rows a stage
 
 // The dense synthesis' plan, the same on host and device: m16 tiles a warp
 // (one, 16 rings, while one block of at most 8 warps holds every ring; else
@@ -406,9 +448,8 @@ struct SynthNarrowPlan {
     if (warps < 1) warps = 1;
     const int span = 16 * mt * warps * es + 16;
     rs = (span + 95) / 128 * 128 + 32;
-    const int ks = syn_rows(es);
-    smem = (kSynDepth + 1) * ks * rs + kSynDepth * tc * (ks * eb + 16) +
-           (ks + 4) * tc * 8;
+    smem = (kSynDepth + 1) * kSynRows * rs +
+           kSynDepth * tc * (kSynRows * eb + 16) + (kSynRows + 4) * tc * 8;
   }
 };
 
@@ -416,7 +457,7 @@ template <typename T, int TC, int MT_>
 struct SynthNarrow {
   using B = typename Narrow<T>::B;  // the batch's and the output's type
   static constexpr int ES = sizeof(T), EB = sizeof(B), MT = MT_, NT = TC / 8;
-  static constexpr int KS = syn_rows(ES), DEPTH = kSynDepth;
+  static constexpr int KS = kSynRows, DEPTH = kSynDepth;
   static constexpr int XL = KS * EB + 16;  // bytes a landed x row: its shift, its chunks
   static constexpr int XS = KS + 4;  // doubles a B row
   static constexpr int THREADS = 32 * kSynMaxWarps;
@@ -849,6 +890,481 @@ __global__ void __launch_bounds__(AdjNarrow<T, TC, KUNIT>::THREADS, 2)
   k.tid = threadIdx.x;
   k.lane = threadIdx.x & 31;
   k.wr0 = (threadIdx.x >> 5) * K::WR;
+  k.init();
+  run_ring(k, (nr + K::KC - 1) / K::KC);
+  k.finish(out + i * som + c0 * soc + l0, soc, L - l0, tile == 0 ? m : 0);
+}
+
+// ---------------------------------------------------------------------------
+// the float64 table's dense pair (Narrow<double>: a float32 batch and
+// output): wide column tiles, every table double by its own 8-byte cp.async
+// ---------------------------------------------------------------------------
+
+constexpr int kWideDepth = 2;      // stages in flight
+// synthesis warps a block at most (16 rings x 64 columns each: 128
+// registers a thread)
+constexpr int kWideSynWarps = 16;
+constexpr int kWideSynRows = 32;   // synthesis degree rows a stage
+constexpr int kWideColWarps = 4;   // synthesis column warps a block at most
+
+// The ring of the wide synthesis, one barrier a stage (it has no staging
+// pass): stage s's copies go DEPTH stages ahead into slot s % (DEPTH + 1)
+// of the table and of x; the barrier of stage kt sees its copies landed
+// and every warp's products of stage kt - 1 done, whose slots the copies
+// of stage kt + DEPTH then take.
+template <class K>
+__device__ __forceinline__ void run_ring1(K& k, int KT) {
+#pragma unroll
+  for (int s = 0; s < K::DEPTH; ++s) {
+    if (s < KT) k.issue(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<K::DEPTH - 1>();
+    __syncthreads();
+    if (kt + K::DEPTH < KT) k.issue(kt + K::DEPTH);
+    cp_async_commit();
+    k.mma(kt);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The wide synthesis' plan, the same on host and device (and in
+// legendre_kernels.wide_synth_plan): n8 tiles a warp (4 at C <= 32, else
+// 8: 64 columns), column warps (enough for C, at most kWideColWarps), ring
+// warps of 16 rings (at most kWideSynWarps in all), the fewest ring tiles
+// of sizes that differ by at most one ring, the ring warps the largest
+// needs, column tiles, the columns a block, the
+// bytes from one degree row's slot to the next (a multiple of 128 and 32: a
+// lane's 16-byte read of rings 2 gid, 2 gid + 1 at degrees tig meets no
+// bank twice), and dynamic shared memory: DEPTH + 1 table stages and DEPTH
+// + 1 landed x tiles [tc][32 rows 4 bytes + 16].
+struct SynthWidePlan {
+  int nt, wn, wr, ntr, nct, tc, rs, smem;
+  __host__ __device__ SynthWidePlan(int nr, int C) {
+    nt = C <= 32 ? 4 : 8;
+    wn = (C + 8 * nt - 1) / (8 * nt);
+    if (wn > kWideColWarps) wn = kWideColWarps;
+    if (wn < 1) wn = 1;
+    const int wmax = kWideSynWarps / wn;
+    ntr = ((nr + 15) / 16 + wmax - 1) / wmax;
+    if (ntr < 1) ntr = 1;
+    wr = ((nr + ntr - 1) / ntr + 15) / 16;
+    if (wr < 1) wr = 1;
+    tc = 8 * nt * wn;
+    nct = (C + tc - 1) / tc;
+    rs = (128 * wr + 63) / 128 * 128 + 32;
+    smem = (kWideDepth + 1) *
+           (kWideSynRows * rs + tc * (kWideSynRows * 4 + 16));
+  }
+};
+
+template <int NT>
+struct SynthWide {
+  static constexpr int KS = kWideSynRows, DEPTH = kWideDepth, CW = 8 * NT;
+  // bytes a landed x column: its shift, its chunks; 4 mod 32 words, so that
+  // the lanes' B reads meet a bank at most twice
+  static constexpr int XL = KS * 4 + 16, XCH = XL / 16;
+  static_assert(KS % 8 == 0 && (KS * 4) % 16 == 0,
+                "k8 steps; a column keeps its shift from stage to stage");
+
+  unsigned char* tb;    // table slots [DEPTH + 1][KS][rs bytes], ring r at 8 r
+  unsigned char* xl;    // landed x [DEPTH + 1][tc][XL bytes]
+  const double* lam;    // lam[0, 0, r_lo]
+  const float* x;       // x[0, c0, 0]
+  float* out;           // out[0, r_lo, c0]
+  long long sxm, sxc;
+  int L, nr, C, rs, tc, R, cv;   // cv: the block's columns < C
+  int ia, ib, ma, mb, na, nst;   // the row pair, row ia's stages, all stages
+  int wr0, wc0;                  // the warp's first ring and first column
+  double acc[NT][4];             // [n8 tile][fragment]
+
+  struct Stage { int ri, l0, nrows; };
+  // stage q: degree rows l0 .. l0 + nrows of row ri's slab
+  __device__ __forceinline__ Stage stage_at(int q) const {
+    const int ri = q < na ? ia : ib;
+    const int l0 = q < na ? ma + KS * q : mb + KS * (q - na);
+    return Stage{ri, l0, min(KS, L - l0)};
+  }
+  __device__ __forceinline__ const double* row0(const Stage& st) const {
+    return lam + (static_cast<long long>(st.ri) * L + st.l0) * nr;
+  }
+  __device__ __forceinline__ const float* xrow(const Stage& st) const {
+    return x + st.ri * sxm + st.l0;
+  }
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) acc[n][h] = 0.0;
+  }
+
+  // the tile's R rings of table rows l0 .. l0 + KS (past the slab: zeros),
+  // a warp a row, each double at 8 r of its row's slot; x[ri, c, l0 ..] for
+  // the block's columns, along l, from each column's start rounded down to
+  // 16 bytes
+  __device__ __forceinline__ void issue(int q) {
+    if (!kCopies) return;
+    const Stage st = stage_at(q);
+    unsigned char* ts = tb + (q % (DEPTH + 1)) * KS * rs;
+    const double* src = row0(st);
+    const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+    for (int k = threadIdx.x >> 5; k < KS; k += nw) {
+      const bool ok = k < st.nrows;
+      const double* row = ok ? src + static_cast<long long>(k) * nr : src;
+      for (int r = lane; r < R; r += 32)
+        cp_async8n(ts + k * rs + 8 * r, ok ? row + r : src, ok ? 8 : 0);
+    }
+    unsigned char* xs = xl + (q % (DEPTH + 1)) * tc * XL;
+    const float* xm = xrow(st);
+    for (int e = threadIdx.x; e < tc * XCH; e += blockDim.x) {
+      const int c = e / XCH, j = e - c * XCH;
+      const bool ok = c < cv;
+      copy_chunk(xs + c * XL, ok ? xm + c * sxc : xm, ok ? 4 * st.nrows : 0,
+                 j);
+    }
+  }
+
+  // The k8 steps that hold rows, the warp's 16 rings x CW columns; then, at
+  // the last stage of a row, its sums to the output.  Fragment rows gid and
+  // gid + 8 are rings 2 gid and 2 gid + 1 of the warp's, so that a lane
+  // reads both at a degree in one 16-byte load; B is read from the landed
+  // float32 x and widened as it is loaded.  The lane's columns wc0 + 8 n +
+  // gid share one shift (8 columns are 32 sxc bytes apart).  The k8 steps
+  // are not unrolled: unrolled, the next step's loads spill.
+  __device__ __forceinline__ void mma(int q) {
+    const Stage st = stage_at(q);
+    const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+    if (wr0 < R && wc0 < cv) {  // uniform across the warp
+      const unsigned char* pa = tb + (q % (DEPTH + 1)) * KS * rs + tig * rs +
+                                8 * (wr0 + 2 * gid);
+      const float* xm = xrow(st) + static_cast<long long>(wc0 + gid) * sxc;
+      const float* xs = reinterpret_cast<const float*>(
+          xl + (q % (DEPTH + 1)) * tc * XL + (wc0 + gid) * XL +
+          shift16(xm)) + tig;
+      const int steps = (st.nrows + 7) / 8;
+#pragma unroll 1
+      for (int kk = 0; kk < KS / 8; ++kk) {
+        if (kk >= steps) break;  // uniform across the warp
+        // rings 2 gid, 2 gid + 1 at degrees tig, tig + 4 of the step
+        const double2 lo = *reinterpret_cast<const double2*>(pa + 8 * kk * rs);
+        const double2 hi =
+            *reinterpret_cast<const double2*>(pa + (8 * kk + 4) * rs);
+        const double a[4] = {lo.x, lo.y, hi.x, hi.y};
+        if (!kProducts) {  // the shared-memory reads stay
+          acc[0][0] += a[0] + a[1] + a[2] + a[3] + xs[8 * kk];
+          continue;
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float* b = xs + n * 8 * (XL / 4) + 8 * kk;
+          dmma16(acc[n], a, b[0], b[4]);
+        }
+      }
+    }
+    if (q != na - 1 && q != nst - 1) return;
+    if (!kStores) {
+      keep_live(acc, out);
+    } else if (wr0 < R && wc0 < cv) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rings 2 gid, 2 gid + 1
+        const int r = wr0 + 2 * gid + h;
+        if (r >= R) continue;
+        float* o = out + (static_cast<long long>(st.ri) * nr + r) * C;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          store_pair(o, wc0 + 8 * n + 2 * tig, cv,
+                     static_cast<float>(acc[n][2 * h]),
+                     static_cast<float>(acc[n][2 * h + 1]));
+      }
+    }
+    zero();
+  }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(32 * kWideSynWarps, 1)
+    synth_wide(const double* __restrict__ lam, const float* __restrict__ x,
+               float* __restrict__ out, int L, int nr, int C, long long sxm,
+               long long sxc, const int* __restrict__ ms, int M) {
+  using K = SynthWide<NT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SynthWidePlan pl(nr, C);
+  const int tile = blockIdx.x % pl.ntr;
+  const int c0 = (blockIdx.x / pl.ntr) * pl.tc;
+  const int r_lo = tile * nr / pl.ntr;
+  K k;
+  k.R = (tile + 1) * nr / pl.ntr - r_lo;
+  k.rs = pl.rs;
+  k.tc = pl.tc;
+  k.tb = smem;
+  k.xl = smem + (K::DEPTH + 1) * K::KS * pl.rs;
+  k.lam = lam + r_lo;
+  k.x = x + c0 * sxc;
+  k.out = out + static_cast<long long>(r_lo) * C + c0;
+  k.sxm = sxm;
+  k.sxc = sxc;
+  k.L = L;
+  k.nr = nr;
+  k.C = C;
+  k.cv = min(pl.tc, C - c0);
+  // rows ia and ib of degrees ma and mb; the middle row of an odd M alone
+  k.ia = blockIdx.y;
+  k.ib = M - 1 - k.ia;
+  k.ma = degree(ms, k.ia);
+  k.mb = degree(ms, k.ib);
+  k.na = (L - k.ma + K::KS - 1) / K::KS;
+  k.nst = k.na + (k.ib > k.ia ? (L - k.mb + K::KS - 1) / K::KS : 0);
+  const int warp = threadIdx.x >> 5;
+  k.wr0 = warp % pl.wr * 16;
+  k.wc0 = warp / pl.wr * K::CW;
+  k.zero();
+  run_ring1(k, k.nst);
+}
+
+constexpr int kWideAdjRows = 128;  // adjoint rows l a block: warps of 32
+constexpr int kWideAdjRings = 24;  // rings a stage: 192 bytes of each row
+
+// the wide adjoint's columns a block / 32 at C columns: 128 columns a block
+// (one block an SM) above 64
+__host__ __device__ inline int adj_wide_c32(int C) {
+  return C <= 32 ? 1 : (C <= 64 ? 2 : 4);
+}
+
+// C32: column warps of 32 columns a block; KUNIT: g with unit stride on r
+// (else on c)
+template <int C32, bool KUNIT>
+struct AdjWide {
+  static constexpr int BM = kWideAdjRows, KC = kWideAdjRings;
+  static constexpr int DEPTH = kWideDepth, MT = 2, NT = 4, TC = 32 * C32;
+  static constexpr int THREADS = 32 * (BM / 32) * C32;
+  static constexpr int TPC = THREADS / TC;  // staging threads a column
+  static constexpr int JT = KC / TPC;       // ... and rings a thread
+  static constexpr int TW = KC * 8;         // bytes a table row's piece
+  static constexpr int T_SLOT = BM * TW;    // bytes; DEPTH + 1 slots
+  // bytes a landed g row, [c][ring] (KUNIT) : [ring][c], and its chunks
+  static constexpr int GW = (KUNIT ? KC : TC) * 4 + 16;
+  static constexpr int GCH = GW / 16;
+  static constexpr int G_TILE = (KUNIT ? TC : KC) * GW;  // bytes
+  static constexpr int US = KC;             // doubles a U row
+  static constexpr int G_OFF = (DEPTH + 1) * T_SLOT;     // bytes
+  static constexpr int U_OFF = G_OFF + DEPTH * G_TILE;
+  static constexpr int MAIN = U_OFF + TC * US * 8;
+  static constexpr int SO = BM + 4;         // epilogue [c][l - l0] floats
+  static constexpr int SMEM = MAIN > TC * SO * 4 ? MAIN : TC * SO * 4;
+  static_assert(KC % 8 == 0 && (KC * 4) % 16 == 0 && TW % 128 == 64 &&
+                    (US * 8) % 128 == 64 && GW % 16 == 0 &&
+                    KC % TPC == 0 && JT % 2 == 0,
+                "k8 steps; a g column keeps its shift; 16-byte A and B "
+                "reads of rows 64 mod 128 bytes apart meet no bank twice; "
+                "the staging pass' rings a thread in pairs");
+
+  unsigned char* sm;
+  const double* tab;    // lam[i, l0, 0]
+  const float* gp;      // g[i, 0, c0]
+  long long sgr, sgc;   // g's strides
+  int nt, iv, cv;       // iv: rows l0 + row < L
+  int tid, lane, wr0, wc0;  // the warp's first row and first column
+  int gsh;              // KUNIT: the byte shift of the thread's column tid / TPC
+  double acc[MT][NT][4];
+
+  // the byte shift of a landed g row: of element e of column c (KUNIT), or
+  // of ring e (unit stride on c)
+  __device__ __forceinline__ int gshift(int c, int e) const {
+    return KUNIT ? shift16(gp + c * sgc + e) : shift16(gp + e * sgr);
+  }
+
+  __device__ __forceinline__ void init() {
+    gsh = KUNIT ? gshift(tid / TPC, 0) : 0;  // the same at every stage
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) acc[mt][n][h] = 0.0;
+  }
+
+  // the rows' rings k0 .. k0 + KC (past nt: zeros; rows past the slab:
+  // none), each double at 8 j of its row's slot; g[r, c] for those rings
+  // (KUNIT: each column's run of rings)
+  __device__ __forceinline__ void issue(int s) {
+    if (!kCopies) return;
+    const int k0 = s * KC;
+    unsigned char* ts = sm + (s % (DEPTH + 1)) * T_SLOT;
+    const int kv = min(KC, nt - k0);
+    for (int e = tid; e < iv * KC; e += THREADS) {
+      const int row = e / KC, j = e - row * KC;
+      const double* src = tab + static_cast<long long>(row) * nt + k0;
+      cp_async8n(ts + row * TW + 8 * j, j < kv ? src + j : src,
+                 j < kv ? 8 : 0);
+    }
+    unsigned char* gn = sm + G_OFF + (s % DEPTH) * G_TILE;
+    if constexpr (KUNIT) {
+      for (int e = tid; e < TC * GCH; e += THREADS) {
+        const int c = e / GCH, j = e - c * GCH;
+        const bool ok = c < cv;
+        copy_chunk(gn + c * GW, ok ? gp + c * sgc + k0 : gp, ok ? 4 * kv : 0,
+                   j);
+      }
+    } else {
+      for (int e = tid; e < KC * GCH; e += THREADS) {
+        const int t = e / GCH, j = e - t * GCH, r = k0 + t;
+        const bool ok = r < nt;
+        copy_chunk(gn + t * GW, ok ? gp + r * sgr : gp, ok ? 4 * cv : 0, j);
+      }
+    }
+  }
+
+  // U[c][j] = g[k0 + j, c] widened, zero past the rings and the columns:
+  // a thread its column c = tid / TPC and JT of the stage's rings
+  __device__ __forceinline__ void stage(int s) {
+    if (!kStaging) return;
+    const unsigned char* gn = sm + G_OFF + (s % DEPTH) * G_TILE;
+    const int k0 = s * KC, c = tid / TPC, j0 = tid % TPC * JT;
+    double* U = reinterpret_cast<double*>(sm + U_OFF) + c * US;
+#pragma unroll
+    for (int j = j0; j < j0 + JT; j += 2) {
+      float v[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (c < cv && k0 + j + h < nt)
+          v[h] = KUNIT ? ld<float>(gn + c * GW + gsh + (j + h) * 4)
+                       : ld<float>(gn + (j + h) * GW + gshift(0, k0 + j + h) +
+                                   c * 4);
+      *reinterpret_cast<double2*>(U + j) = make_double2(v[0], v[1]);
+    }
+  }
+
+  // The k8 steps that hold rings, for the warp's 32 rows x 32 columns (rows
+  // past iv read stale bytes: their sums are never stored).  The step's
+  // logical degrees tig and tig + 4 are its rings 2 tig and 2 tig + 1, so
+  // that a lane reads both of a row, and both of U's, in one 16-byte load.
+  __device__ __forceinline__ void mma(int s) {
+    if (wr0 >= iv || wc0 >= cv) return;  // uniform across the warp
+    const int gid = lane >> 2, tig = lane & 3;
+    const unsigned char* ts =
+        sm + (s % (DEPTH + 1)) * T_SLOT + (wr0 + gid) * TW + 16 * tig;
+    const double* U = reinterpret_cast<const double*>(sm + U_OFF) +
+                      (wc0 + gid) * US + 2 * tig;
+    const int steps = (min(KC, nt - s * KC) + 7) / 8;
+#pragma unroll
+    for (int kk = 0; kk < KC / 8; ++kk) {
+      if (kk >= steps) break;  // uniform across the warp
+      double a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const double2 r0 = *reinterpret_cast<const double2*>(
+            ts + 16 * mt * TW + 64 * kk);
+        const double2 r8 = *reinterpret_cast<const double2*>(
+            ts + (16 * mt + 8) * TW + 64 * kk);
+        a[mt][0] = r0.x;
+        a[mt][1] = r8.x;
+        a[mt][2] = r0.y;
+        a[mt][3] = r8.y;
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {  // B of the warp's n8 column tile n
+        const double2 u =
+            *reinterpret_cast<const double2*>(U + n * 8 * US + 8 * kk);
+        if (!kProducts) {  // the shared-memory reads stay
+          acc[0][n][0] += a[0][0] + a[0][1] + a[0][2] + a[0][3] + a[1][0] +
+                          a[1][1] + a[1][2] + a[1][3] + u.x + u.y;
+          continue;
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) dmma16(acc[mt][n], a[mt], u.x, u.y);
+      }
+    }
+  }
+
+  // out[c * soc + l - l0] for c < cv, l - l0 < min(BM, lv), through shared
+  // memory [c][l - l0] (each column shifted to its run's 16-byte
+  // alignment), then whole runs along l, a warp a column, each right after
+  // the column's zeros at out[c * soc - zeros ..]
+  __device__ __forceinline__ void finish(float* out, long long soc, int lv,
+                                         int zeros) {
+    if (!kStores) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) keep_live(acc[mt], out);
+      return;
+    }
+    float* so = reinterpret_cast<float*>(sm);
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int l = wr0 + 16 * mt + 8 * (h >> 1) + gid;
+          const int c = wc0 + 8 * n + 2 * tig + (h & 1);
+          so[c * SO + eshift(out + c * soc) + l] =
+              static_cast<float>(acc[mt][n][h]);
+        }
+    __syncthreads();
+    for (int c = tid >> 5; c < cv; c += THREADS / 32) {
+      if (zeros > 0) store_run<float>(out + c * soc - zeros, nullptr, zeros, lane);
+      store_run(out + c * soc, so + c * SO, min(BM, lv), lane);
+    }
+  }
+};
+
+// sum over u = 1 .. n of ceil(u / P)
+__device__ __forceinline__ int ceil_sum(int n, int P) {
+  const int q = n / P, r = n - q * P;
+  return P * q * (q + 1) / 2 + r * (q + 1);
+}
+
+// blocks: the (m, row tile) pairs, m-major (full table: those that exist;
+// slab: every (row, tile), those past the row's triangle exiting at once),
+// each pair's column tiles next to each other, so that the table's rows
+// and g's row m leave device memory once
+template <int C32, bool KUNIT>
+__global__ void __launch_bounds__(AdjWide<C32, KUNIT>::THREADS,
+                                  512 / AdjWide<C32, KUNIT>::THREADS)
+    adj_wide(const double* __restrict__ lam, const float* __restrict__ g,
+             float* __restrict__ out, int L, int nr, int C, long long sgm,
+             long long sgr, long long sgc, long long som, long long soc,
+             const int* __restrict__ ms, int M) {
+  using K = AdjWide<C32, KUNIT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nct = (C + K::TC - 1) / K::TC;
+  const int ct = blockIdx.x % nct, p = blockIdx.x / nct;
+  int i, m, tile;
+  if (ms) {
+    const int T = (L + K::BM - 1) / K::BM;
+    i = p / T;
+    tile = p % T;
+    m = degree(ms, i);
+    if (m + K::BM * tile >= L) return;  // uniform across the block
+  } else {  // the largest m whose pairs start at or before p
+    const int all = ceil_sum(L, K::BM);
+    int lo = 0, hi = L - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (all - ceil_sum(L - mid, K::BM) <= p) lo = mid; else hi = mid - 1;
+    }
+    m = i = lo;
+    tile = p - (all - ceil_sum(L - m, K::BM));
+  }
+  const int l0 = m + K::BM * tile;
+  const int c0 = ct * K::TC;
+  K k;
+  k.sm = smem;
+  k.tab = lam + (static_cast<long long>(i) * L + l0) * nr;  // lam[i, l0, 0]
+  k.gp = g + i * sgm + c0 * sgc;                              // g[i, 0, c0]
+  k.sgr = sgr;
+  k.sgc = sgc;
+  k.nt = nr;
+  k.iv = min(K::BM, L - l0);
+  k.cv = min(K::TC, C - c0);
+  k.tid = threadIdx.x;
+  k.lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  k.wr0 = warp % (K::BM / 32) * 32;
+  k.wc0 = warp / (K::BM / 32) * 32;
   k.init();
   run_ring(k, (nr + K::KC - 1) / K::KC);
   k.finish(out + i * som + c0 * soc + l0, soc, L - l0, tile == 0 ? m : 0);
@@ -1437,17 +1953,41 @@ int launch_synth(const void* lam, const void* x, void* out, int L, int nr,
                                 s);
 }
 
+// the float64 table's: ring tiles and column tiles in x, row pairs in y
+template <int NT>
+int launch_synth_wide(const SynthWidePlan& pl, const void* lam,
+                      const void* x, void* out, int L, int nr, int C,
+                      long long sxm, long long sxc, const int* ms, int M,
+                      cudaStream_t s) {
+  const dim3 grid(pl.ntr * pl.nct, (M + 1) / 2);
+  const cudaError_t e = allow_smem(synth_wide<NT>, pl.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  synth_wide<NT><<<grid, 32 * pl.wr * pl.wn, pl.smem, s>>>(
+      static_cast<const double*>(lam), static_cast<const float*>(x),
+      static_cast<float*>(out), L, nr, C, sxm, sxc, ms, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_synth(const void* lam, const void* x, void* out, int L, int nr,
                  int C, long long sxm, long long sxc, const int* ms, int M,
                  cudaStream_t s) {
-  switch (col_tile(C)) {
-    case 8:
-      return launch_synth<T, 8>(lam, x, out, L, nr, C, sxm, sxc, ms, M, s);
-    case 16:
-      return launch_synth<T, 16>(lam, x, out, L, nr, C, sxm, sxc, ms, M, s);
-    default:
-      return launch_synth<T, 32>(lam, x, out, L, nr, C, sxm, sxc, ms, M, s);
+  if constexpr (sizeof(T) == 8) {
+    const SynthWidePlan pl(nr, C);
+    if (pl.nt == 4)
+      return launch_synth_wide<4>(pl, lam, x, out, L, nr, C, sxm, sxc, ms, M,
+                                  s);
+    return launch_synth_wide<8>(pl, lam, x, out, L, nr, C, sxm, sxc, ms, M,
+                                s);
+  } else {
+    switch (col_tile(C)) {
+      case 8:
+        return launch_synth<T, 8>(lam, x, out, L, nr, C, sxm, sxc, ms, M, s);
+      case 16:
+        return launch_synth<T, 16>(lam, x, out, L, nr, C, sxm, sxc, ms, M, s);
+      default:
+        return launch_synth<T, 32>(lam, x, out, L, nr, C, sxm, sxc, ms, M, s);
+    }
   }
 }
 
@@ -1482,21 +2022,67 @@ int launch_adj(const void* lam, const void* g, void* out, int L, int nr,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// the float64 table's: (m, row tile) pairs m-major, each pair's column
+// tiles next to each other, all in x
+template <int C32, bool KUNIT>
+int launch_adj_wide(const void* lam, const void* g, void* out, int L, int nr,
+                    int C, long long sgm, long long sgr, long long sgc,
+                    long long som, long long soc, const int* ms, int M,
+                    cudaStream_t s) {
+  using K = AdjWide<C32, KUNIT>;
+  const int pairs = ms ? M * ((L + K::BM - 1) / K::BM) : adj_pairs(L, K::BM);
+  const int blocks = pairs * ((C + K::TC - 1) / K::TC);
+  const cudaError_t e = allow_smem(adj_wide<C32, KUNIT>, K::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  adj_wide<C32, KUNIT><<<blocks, K::THREADS, K::SMEM, s>>>(
+      static_cast<const double*>(lam), static_cast<const float*>(g),
+      static_cast<float*>(out), L, nr, C, sgm, sgr, sgc, som, soc, ms, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int C32>
+int launch_adj_wide(const void* lam, const void* g, void* out, int L, int nr,
+                    int C, long long sgm, long long sgr, long long sgc,
+                    long long som, long long soc, const int* ms, int M,
+                    cudaStream_t s) {
+  if (sgr == 1)
+    return launch_adj_wide<C32, true>(lam, g, out, L, nr, C, sgm, sgr, sgc,
+                                     som, soc, ms, M, s);
+  if (sgc == 1)
+    return launch_adj_wide<C32, false>(lam, g, out, L, nr, C, sgm, sgr, sgc,
+                                      som, soc, ms, M, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
 int launch_adj(const void* lam, const void* g, void* out, int L, int nr,
                int C, long long sgm, long long sgr, long long sgc,
                long long som, long long soc, const int* ms, int M,
                cudaStream_t s) {
-  switch (col_tile(C)) {
-    case 8:
-      return launch_adj<T, 8>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc,
-                              ms, M, s);
-    case 16:
-      return launch_adj<T, 16>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
-                               soc, ms, M, s);
-    default:
-      return launch_adj<T, 32>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
-                               soc, ms, M, s);
+  if constexpr (sizeof(T) == 8) {
+    switch (adj_wide_c32(C)) {
+      case 1:
+        return launch_adj_wide<1>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
+                                  soc, ms, M, s);
+      case 2:
+        return launch_adj_wide<2>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
+                                  soc, ms, M, s);
+      default:
+        return launch_adj_wide<4>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
+                                  soc, ms, M, s);
+    }
+  } else {
+    switch (col_tile(C)) {
+      case 8:
+        return launch_adj<T, 8>(lam, g, out, L, nr, C, sgm, sgr, sgc, som, soc,
+                                ms, M, s);
+      case 16:
+        return launch_adj<T, 16>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
+                                 soc, ms, M, s);
+      default:
+        return launch_adj<T, 32>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
+                                 soc, ms, M, s);
+    }
   }
 }
 
@@ -1610,29 +2196,79 @@ int blocks_per_sm(K kernel, int threads, int bytes) {
 
 // the plan at (nr, C): kind 0 the dense synthesis' threads << 20 | dynamic
 // shared memory (bytes), 1 its resident blocks an SM, 2 its ring tiles, 5
-// its rings a warp; 3 the dense adjoint's (g with unit stride on r) threads
-// << 20 | bytes, 4 its resident blocks an SM; 6-9 and 10-11 the same of the
+// its rings a warp, 12 its columns a block; 3 the dense adjoint's (g with
+// unit stride on r) threads << 20 | bytes, 4 its resident blocks an SM, 13
+// its columns a block, 14 its rows l a block; 6-9 and 10-11 the same of the
 // parity synthesis and the parity adjoint (nr the output's or g's rings)
-template <typename T, int TC>
-int plan(int kind, int nr) {
-  const SynthNarrowPlan pl(nr, TC, sizeof(T), sizeof(Bt<T>));
-  using A = AdjNarrow<T, TC, true>;
+template <int C32>
+int adj_wide_plan(int kind) {
+  using A = AdjWide<C32, true>;
   switch (kind) {
-    case 0:
-      return 32 * pl.warps << 20 | pl.smem;
-    case 1:
-      return pl.mt == 1 ? blocks_per_sm(synth_narrow<T, TC, 1>,
-                                         32 * pl.warps, pl.smem)
-                        : blocks_per_sm(synth_narrow<T, TC, 2>,
-                                        32 * pl.warps, pl.smem);
-    case 2:
-      return pl.ntr;
     case 3:
       return A::THREADS << 20 | A::SMEM;
     case 4:
-      return blocks_per_sm(adj_narrow<T, TC, true>, A::THREADS, A::SMEM);
+      return blocks_per_sm(adj_wide<C32, true>, A::THREADS, A::SMEM);
+    case 13:
+      return A::TC;
+    default:
+      return A::BM;
+  }
+}
+
+// the float64 table's dense pair: kinds 0-5 and 12-14
+inline int wide_plan(int kind, int nr, int C) {
+  const SynthWidePlan pl(nr, C);
+  const int threads = 32 * pl.wr * pl.wn;
+  switch (kind) {
+    case 0:
+      return threads << 20 | pl.smem;
+    case 1:
+      return pl.nt == 4 ? blocks_per_sm(synth_wide<4>, threads, pl.smem)
+                        : blocks_per_sm(synth_wide<8>, threads, pl.smem);
+    case 2:
+      return pl.ntr;
     case 5:
-      return 16 * pl.mt;
+      return 16;
+    case 12:
+      return pl.tc;
+  }
+  switch (adj_wide_c32(C)) {
+    case 1:
+      return adj_wide_plan<1>(kind);
+    case 2:
+      return adj_wide_plan<2>(kind);
+    default:
+      return adj_wide_plan<4>(kind);
+  }
+}
+
+template <typename T, int TC>
+int plan(int kind, int nr) {
+  if constexpr (sizeof(T) != 8) {
+    const SynthNarrowPlan pl(nr, TC, sizeof(T), sizeof(Bt<T>));
+    using A = AdjNarrow<T, TC, true>;
+    switch (kind) {
+      case 0:
+        return 32 * pl.warps << 20 | pl.smem;
+      case 1:
+        return pl.mt == 1 ? blocks_per_sm(synth_narrow<T, TC, 1>,
+                                           32 * pl.warps, pl.smem)
+                          : blocks_per_sm(synth_narrow<T, TC, 2>,
+                                          32 * pl.warps, pl.smem);
+      case 2:
+        return pl.ntr;
+      case 3:
+        return A::THREADS << 20 | A::SMEM;
+      case 4:
+        return blocks_per_sm(adj_narrow<T, TC, true>, A::THREADS, A::SMEM);
+      case 5:
+        return 16 * pl.mt;
+      case 12:
+      case 13:
+        return TC;
+      case 14:
+        return kAdjRows;
+    }
   }
   // the parity pair, nr the output's or g's rings
   const SynthParNarrowPlan pp((nr + 1) / 2, TC, sizeof(T), sizeof(Bt<T>));
@@ -1661,6 +2297,9 @@ int plan(int kind, int nr) {
 
 template <typename T>
 int plan(int kind, int nr, int C) {
+  if constexpr (sizeof(T) == 8) {
+    if (kind <= 5 || kind >= 12) return wide_plan(kind, nr, C);
+  }
   switch (col_tile(C)) {
     case 8:
       return plan<T, 8>(kind, nr);

@@ -61,42 +61,73 @@ class PhaseTimer:
         }
 
 
+@contextlib.contextmanager
+def _replayed(scheme, name: str, value):
+    """The scheme with its method ``name`` answering ``value`` to every
+    call, then as it was (an instance attribute put back, a class method
+    uncovered again)."""
+    own = vars(scheme)
+    had, old = name in own, own.get(name)
+    setattr(scheme, name, lambda *args, **kw: value)
+    try:
+        yield
+    finally:
+        if had:
+            setattr(scheme, name, old)
+        else:
+            delattr(scheme, name)
+
+
 def step_phase_times(scheme, state, gen: torch.Generator, reps: int = 3):
     """Fenced seconds of the Gibbs sub-steps at ``state``: (a) the CR step
-    alone and (b) the whole iteration over the chain batch, each the least
-    of ``reps`` calls, taken in turns (cr, full, cr, full, ...) after one
-    warm call of each, every call fenced on its own; the C_ell step's
-    share is ``cls = max(full - cr, 0)``.  The least, not the mean: a
-    stall of the host or a neighbour on the card lengthens single calls,
-    and the difference of two means would carry it into ``cls``.
+    alone, (b) the C_ell step alone (``cls``: the iteration with its CR
+    step replaced by a CR draw made once at ``state``, so that everything
+    after the CR step runs on a real draw and nothing of the CR step runs)
+    and (c) the whole iteration over the chain batch, each the least of
+    ``reps`` calls, taken in turns (cr, cls, full, cr, ...) after one warm
+    call of each, every call fenced on its own.  The least, not the mean:
+    a stall of the host or a neighbour on the card lengthens single calls.
+    The C_ell step is timed in calls of its own, not as ``full - cr``: at
+    a ~2 ms C_ell step beside a ~13 ms CR step (lmax 512), host noise
+    zeroed that difference.  The JAX package takes the mean of each and
+    ``cls = max(full - cr, 0)``.
 
     The results are discarded: ``state`` and the scheme are left as they
     were.  Every draw comes from ``gen``, which the caller keeps apart from
     the chains' generator, so the chains do not depend on whether they
     were timed."""
     if hasattr(state, "cl"):
+        method = "_cr"
+
         def cr():
-            return scheme._cr(state.cl, gen=gen)[0]
+            return scheme._cr(state.cl, gen=gen)
     else:
+        method = "_cr_step"
+
         def cr():
             return scheme._cr_step(state.s, scheme.var_cls(state.dl),
-                                   gen=gen)[0]
+                                   gen=gen)
 
     def full():
         return scheme.step(state, gen=gen)[0]
 
-    fns = {"cr": cr, "full": full}
+    drawn = cr()
+    _fence(drawn)
+
+    def cls():
+        with _replayed(scheme, method, drawn):
+            return scheme.step(state, gen=gen)[0]
+
+    fns = {"cr": lambda: cr()[0], "cls": cls, "full": full}
     times = {name: [] for name in fns}
-    for name, fn in fns.items():
+    for fn in fns.values():
         _fence(fn())
     for _ in range(reps):
         for name, fn in fns.items():
             t0 = time.perf_counter()
             _fence(fn())
             times[name].append(time.perf_counter() - t0)
-    out = {name: min(t) for name, t in times.items()}
-    out["cls"] = max(out["full"] - out["cr"], 0.0)
-    return out
+    return {name: min(t) for name, t in times.items()}
 
 
 @contextlib.contextmanager

@@ -88,7 +88,9 @@ a bfloat16, float16 or float32 table with a float64 batch and those of a
 float64 table with a float32 batch (the table kept in its own dtype in
 shared memory and widened in registers, the batch staged in float64, all
 on the fp64 tensor cores, their plans in ``narrow_plan(nr, C)``, the
-parity synthesis' ring tiles those of ``narrow_par_synth_plan(nh, C)``).  A
+parity synthesis' ring tiles those of ``narrow_par_synth_plan(nh, C)``;
+the float64 table's dense pair on wide column tiles, those of
+``wide_synth_plan(nr, C)`` and ``wide_adj_plan(nr, C)``).  A
 wrapper takes the plain ``torch.einsum`` version only for tensors on the
 CPU; for CUDA tensors it launches its kernel or raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (the parity wrappers
@@ -197,10 +199,21 @@ _BF16_KINDS = tuple(f"synth tile {t}" for t in BF16_SYNTH_TILES) + (
     f"synth par tile {t}" for t in BF16_PAR_SYNTH_TILES) + (
     "adj par unit-r g", "adj par unit-c g")
 # legendre_tri_narrow_f64_plan's kinds of each kernel: threads << 20 |
-# dynamic shared memory, resident blocks an SM, and a synthesis' ring tiles
-# and rings a warp
-_NARROW_PLAN_KINDS = {"synth": (0, 1, 2, 5), "adj": (3, 4),
-                      "synth_par": (6, 7, 8, 9), "adj_par": (10, 11)}
+# dynamic shared memory, then its other keys (resident blocks an SM, a
+# synthesis' ring tiles and rings a warp, a dense kernel's columns and an
+# adjoint's rows l a block)
+_NARROW_PLAN_KINDS = {
+    "synth": (0, {"blocks_per_sm": 1, "ring_tiles": 2, "warp_rings": 5,
+                  "col_tile": 12}),
+    "adj": (3, {"blocks_per_sm": 4, "col_tile": 13, "rows": 14}),
+    "synth_par": (6, {"blocks_per_sm": 7, "ring_tiles": 8, "warp_rings": 9}),
+    "adj_par": (10, {"blocks_per_sm": 11})}
+# the float64 table's dense pair (csrc/legendre_tri_narrow_f64.cu): its
+# synthesis' warps a block at most (kWideSynWarps) and column warps
+# (kWideColWarps), its adjoint's rows l a block (kWideAdjRows)
+WIDE_SYNTH_WARPS = 16
+WIDE_COL_WARPS = 4
+WIDE_ADJ_ROWS = 128
 _fns: dict = {}
 _loaded = {"tag": None}  # the build whose entry points are in _fns
 
@@ -355,10 +368,48 @@ def f64_plan(nr: int, C: int) -> dict:
     return plan
 
 
-def narrow_col_tile(C: int) -> int:
-    """The column tile of the narrow-table float64 kernels at C columns:
-    8, 16 or 32, so that the table is read once at every C <= 32."""
+def narrow_col_tile(kind: str, es: int, nr: int, C: int) -> int:
+    """The columns a block of ``kind`` ("synth", "adj", "synth_par" or
+    "adj_par") of ``csrc/legendre_tri_narrow_f64.cu`` on a table of ``es``
+    bytes an element at nr rings and C columns: 8, 16 or 32, so that the
+    table is read once at every C <= 32; the float64 table's dense pair
+    (es 8) takes the wide tiles of ``wide_synth_plan`` and
+    ``wide_adj_plan``."""
+    if es == 8 and kind == "synth":
+        return wide_synth_plan(nr, C)["col_tile"]
+    if es == 8 and kind == "adj":
+        return wide_adj_plan(nr, C)["col_tile"]
     return 8 if C <= 8 else 16 if C <= 16 else 32
+
+
+def wide_synth_plan(nr: int, C: int) -> dict:
+    """The tiles of the float64 table's dense synthesis (float32 batch) at
+    nr rings and C columns, as its launcher picks them (``SynthWidePlan``
+    in ``csrc/legendre_tri_narrow_f64.cu``; phase 2 of chip_smoke.py holds
+    the two equal): warps of 16 rings x 32 columns at C <= 32, else x 64;
+    column warps enough for C, at most WIDE_COL_WARPS; ring warps so that a
+    block holds at most WIDE_SYNTH_WARPS warps; the fewest ring tiles, of
+    sizes that differ by at most one ring.  Returns {"ring_tiles",
+    "warps" (a block), "warp_rings", "col_tile" (columns a block)}."""
+    cw = 32 if C <= 32 else 64
+    wn = max(1, min(-(-C // cw), WIDE_COL_WARPS))
+    tiles = max(1, -(-(-(-nr // 16)) // (WIDE_SYNTH_WARPS // wn)))
+    wr = max(1, -(-(-(-nr // tiles)) // 16))
+    return {"ring_tiles": tiles, "warps": wr * wn, "warp_rings": 16,
+            "col_tile": cw * wn}
+
+
+def wide_adj_plan(nr: int, C: int) -> dict:
+    """The tiles of the float64 table's dense adjoint (float32 batch) at
+    nr rings and C columns, as its launcher picks them (``adj_wide_c32`` in
+    ``csrc/legendre_tri_narrow_f64.cu``; phase 2 of chip_smoke.py holds the
+    two equal): WIDE_ADJ_ROWS rows l a block on 4 warps of 32 rows, times
+    column warps of 32 columns: one at C <= 32, two at C <= 64, else four
+    (one block an SM; the table enters the SMs once per 128 columns).  The
+    same at every nr.  Returns {"rows", "col_tile" (columns a block),
+    "warps" (a block)}."""
+    wn = 1 if C <= 32 else 2 if C <= 64 else 4
+    return {"rows": WIDE_ADJ_ROWS, "col_tile": 32 * wn, "warps": 4 * wn}
 
 
 def narrow_par_synth_plan(nh: int, C: int) -> dict:
@@ -370,7 +421,8 @@ def narrow_par_synth_plan(nh: int, C: int) -> dict:
     and while one block of at most 6 warps holds every ring, else 32; the
     fewest ring tiles of at most 6 warps, of sizes that differ by at most
     one ring.  Returns {"ring_tiles", "warps" (a block), "warp_rings"}."""
-    wr = 16 if narrow_col_tile(C) == 32 or nh <= 16 * 6 else 32
+    wr = 16 if narrow_col_tile("synth_par", 2, 2 * nh, C) == 32 or \
+        nh <= 16 * 6 else 32
     wt = -(-nh // wr)
     tiles = -(-wt // 6)
     return {"ring_tiles": tiles, "warps": -(-wt // tiles), "warp_rings": wr}
@@ -382,20 +434,21 @@ def narrow_plan(nr: int, C: int) -> dict:
     each of its entry-point suffixes (``NARROW_SFX``): threads per block,
     dynamic shared memory (bytes) and resident blocks an SM on the current
     card of the dense pair ("synth", "adj") and the parity pair
-    ("synth_par", "adj_par"), and each synthesis' ring tiles and rings a
-    warp (the adjoints with g's unit stride on r); builds first."""
+    ("synth_par", "adj_par"), each synthesis' ring tiles and rings a warp,
+    and the dense pair's columns a block ("col_tile") and the dense
+    adjoint's rows l a block ("rows") (the adjoints with g's unit stride on
+    r); builds first."""
     if not _fns:
         build()
     fn = _fns["legendre_tri_narrow_f64_plan"]
     plan = {}
     for code, sfx in enumerate(NARROW_SFX):
         plan[sfx] = {}
-        for name, kinds in _NARROW_PLAN_KINDS.items():
-            v = fn(kinds[0], code, nr, C)
-            plan[sfx][name] = {"threads": v >> 20, "smem": v & 0xFFFFF}
-            for key, k in zip(("blocks_per_sm", "ring_tiles", "warp_rings"),
-                              kinds[1:]):
-                plan[sfx][name][key] = fn(k, code, nr, C)
+        for name, (first, kinds) in _NARROW_PLAN_KINDS.items():
+            v = fn(first, code, nr, C)
+            plan[sfx][name] = {"threads": v >> 20, "smem": v & 0xFFFFF,
+                               **{key: fn(k, code, nr, C)
+                                  for key, k in kinds.items()}}
     return plan
 
 

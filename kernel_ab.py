@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the full-table Legendre kernels of two source trees in turns.
 
-    python3 kernel_ab.py OTHER_TREE [--reps 40]
+    python3 kernel_ab.py OTHER_TREE [--reps 40] [--only TEXT]
     python3 kernel_ab.py --variant NAME [--base TREE] [--reps 40]
 
 OTHER_TREE is a directory holding another version of the port's package
@@ -19,10 +19,12 @@ synthesis and parity adjoint at nr 513, C 16 and 32; the bfloat16 parity
 synthesis at nr 1023 too (parity kernels on half tables of ceil(nr / 2)
 rings); the dense pair on bfloat16 and float32 tables with a float64 batch
 ("bfloat16+float64", "float32+float64") at nr 65, C 16 and nr 513, C 16
-and 32, and the parity pair on them at nr 513, C 16 and 32; mean ms per
-call over
+and 32, and the parity pair on them at nr 513, C 16 and 32; the dense pair
+on a float64 table with a float32 batch ("float64+float32") at nr 65 and
+513, C 256, and its parity pair at nr 513, C 256; mean ms per call over
 ``--reps`` launches replayed from one CUDA graph between CUDA events (no
-host time between the launches).  Prints the
+host time between the launches); ``--only TEXT`` keeps the shapes whose
+"<kernel> <dtype>" holds TEXT.  Prints the
 card's name and power limit, one JSON line per run, then one JSON line of
 the mean of each tree's two runs per shape and this tree's ratio to the
 other's.  Needs a CUDA card.
@@ -32,11 +34,12 @@ a temporary directory, with the text patches of VARIANTS[NAME] applied (a
 design variant of one kernel, or the kernel with a part compiled out,
 which computes a wrong result on purpose: its copies, its MMAs or, for
 the bfloat16 dense adjoint and parity synthesis and the narrow-table
-float64 kernels, its staging pass or its stores alone), and times only
-that kernel's SHAPES.  With ``--base TREE`` the variant is made from
+float64 kernels, its staging pass or its stores alone; "wide-*" the
+float64-table dense pair's), and times only that kernel's SHAPES.  With ``--base TREE`` the variant is made from
 TREE's package and timed against TREE instead of this tree (the
 "narrow-par-v1-*" variants patch the first version of the narrow-table
-float64 parity synthesis, which a tree from before its redesign holds).
+float64 parity synthesis, which a tree from before its redesign holds;
+"wide-v1-*" the float64-table dense adjoint's before its redesign).
 """
 
 import json
@@ -63,7 +66,10 @@ SHAPES = tuple((k, dt, C, nr) for dt, C, nr in (
     (k, f"{dt}+float64", C, nr) for dt in ("bfloat16", "float32")
     for C, nr in ((16, 65), (16, 513), (32, 513)) for k in ("synth", "adj")
 ) + tuple((k, f"{dt}+float64", C, 513) for dt in ("bfloat16", "float32")
-          for C in (16, 32) for k in ("synth_par", "adj_par"))
+          for C in (16, 32) for k in ("synth_par", "adj_par")) + tuple(
+    (k, "float64+float32", 256, nr) for nr in (65, 513)
+    for k in ("synth", "adj")) + tuple(
+    (k, "float64+float32", 256, 513) for k in ("synth_par", "adj_par"))
 L = 513
 
 _F32 = "gibbssampler_tpu_torch/csrc/legendre_tri.cu"
@@ -112,6 +118,24 @@ _NARROW_SYNTH = tuple(("synth", f"{dt}+float64") for dt in ("bfloat16",
                                                            "float32"))
 _NARROW_ADJ = tuple(("adj", f"{dt}+float64") for dt in ("bfloat16",
                                                        "float32"))
+# the float64-table float32 dense pair
+_WIDE_SYNTH, _WIDE_ADJ = ("synth", "float64+float32"), ("adj",
+                                                         "float64+float32")
+# the issue of a stage's copies in the wide synthesis' ring, before the
+# products of the stage before, or after them
+_WIDE_RING = ("    cp_async_wait<K::DEPTH - 1>();\n    __syncthreads();\n"
+              "    if (kt + K::DEPTH < KT) k.issue(kt + K::DEPTH);\n"
+              "    cp_async_commit();\n    k.mma(kt);\n")
+_WIDE_RING_LATE = ("    cp_async_wait<K::DEPTH - 1>();\n    __syncthreads();\n"
+                   "    k.mma(kt);\n"
+                   "    if (kt + K::DEPTH < KT) k.issue(kt + K::DEPTH);\n"
+                   "    cp_async_commit();\n")
+# the first version of its adjoint (--base a tree from before its
+# redesign): the (m, row tile) pair in blockIdx.x and the column tile in
+# blockIdx.y swapped, so that a pair's column tiles run next to each other
+_V1_ADJ_KERNEL = "  using K = AdjNarrow<T, TC, KUNIT>;\n  extern __shared__"
+_V1_ADJ_GRID = "  const dim3 grid(blocks, (C + TC - 1) / TC);\n" \
+    "  const cudaError_t e = allow_smem(adj_narrow<T, TC, KUNIT>, K::SMEM);"
 
 
 # ... and the parity pair on them; its synthesis' stage rows by table dtype
@@ -250,6 +274,43 @@ VARIANTS = {
     "narrow-adj-128-rows": (_NARROW_ADJ, [
         (_NARROW, "constexpr int kAdjRows = 256;", "constexpr int kAdjRows = 128;"),
         (_NARROW, "constexpr int kAdjWarps = 8;", "constexpr int kAdjWarps = 4;")]),
+    # the float64-table float32 dense synthesis and adjoint together, each
+    # part alone (LEGENDRE_NARROW_PARTS)
+    **{f"wide-{part}-only": ((_WIDE_SYNTH, _WIDE_ADJ), _narrow_parts(bits))
+       for part, bits in (("copies", 1), ("staging", 2), ("mma", 4),
+                          ("stores", 8))},
+    # its design alternatives: synthesis blocks of at most 2 column warps
+    # (128 columns), stages of 16 degree rows, a stage's copies issued after
+    # the products of the stage before; adjoint blocks of 64 columns above
+    # C 64, stages of 8 or 40 rings; three stages in flight in both
+    "wide-synth-128-columns": ((_WIDE_SYNTH,), [
+        (_NARROW, "constexpr int kWideColWarps = 4;",
+         "constexpr int kWideColWarps = 2;")]),
+    "wide-synth-16-row-stages": ((_WIDE_SYNTH,), [
+        (_NARROW, "constexpr int kWideSynRows = 32;",
+         "constexpr int kWideSynRows = 16;")]),
+    "wide-adj-64-columns": ((_WIDE_ADJ,), [
+        (_NARROW, "return C <= 32 ? 1 : (C <= 64 ? 2 : 4);",
+         "return C <= 32 ? 1 : 2;")]),
+    **{f"wide-adj-{n}-ring-stages": ((_WIDE_ADJ,), [
+        (_NARROW, "constexpr int kWideAdjRings = 24;",
+         f"constexpr int kWideAdjRings = {n};")]) for n in (8, 40)},
+    "wide-3-deep": ((_WIDE_SYNTH, _WIDE_ADJ), [
+        (_NARROW, "constexpr int kWideDepth = 2;",
+         "constexpr int kWideDepth = 3;")]),
+    "wide-synth-late-copies": ((_WIDE_SYNTH,), [
+        (_NARROW, _WIDE_RING, _WIDE_RING_LATE)]),
+    # the first version of its adjoint with a pair's column tiles next to
+    # each other in launch order (blockIdx.x), so that L2 serves the
+    # table's repeats
+    "wide-v1-adj-columns-fastest": ((_WIDE_ADJ,), [
+        (_NARROW, _V1_ADJ_KERNEL, _V1_ADJ_KERNEL.replace(
+            "\n", "\n  const uint3 blockIdx = sizeof(T) == 8 ? make_uint3("
+            "::blockIdx.y, ::blockIdx.x, 0) : ::blockIdx;\n")),
+        (_NARROW, _V1_ADJ_GRID, _V1_ADJ_GRID.replace(
+            "grid(blocks, (C + TC - 1) / TC)",
+            "grid = sizeof(T) == 8 ? dim3((C + TC - 1) / TC, blocks) : "
+            "dim3(blocks, (C + TC - 1) / TC)"))]),
     # the narrow-table float64 parity synthesis and adjoint, each part alone
     **{f"narrow-par-{k}-{part}-only": (sel, _narrow_parts(bits))
        for k, sel in (("synth", _NARROW_SYNTH_PAR), ("adj", _NARROW_ADJ_PAR))
@@ -356,6 +417,8 @@ def main() -> int:
         sel = VARIANTS[variant][0]
         sel = (sel,) if isinstance(sel[0], str) else sel
         shapes = tuple(sh for sh in SHAPES if sh[:2] in sel)
+    only = args[args.index("--only") + 1] if "--only" in args else ""
+    shapes = tuple(sh for sh in shapes if only in f"{sh[0]} {sh[1]}")
     if "--worker" in args:
         root, reps = args[args.index("--worker") + 1], int(args[-1])
         print(json.dumps(time_tree(root, reps, shapes)), flush=True)
@@ -381,7 +444,8 @@ def main() -> int:
                             ("this", this), ("other", other)):
             res = subprocess.run(
                 [sys.executable, os.path.abspath(__file__),
-                 *(("--variant", variant) if variant else ()), "--worker",
+                 *(("--variant", variant) if variant else ()),
+                 *(("--only", only) if only else ()), "--worker",
                  root, str(reps)], cwd=root, capture_output=True, text=True,
                 timeout=600)
             if res.returncode != 0:

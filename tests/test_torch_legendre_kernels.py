@@ -591,7 +591,8 @@ def test_narrow_par_synth_plan(nh, C):
     plan = lk.narrow_par_synth_plan(nh, C)
     tiles, warps, wr = NARROW_PAR_PLAN[(nh, C)]
     assert plan == {"ring_tiles": tiles, "warps": warps, "warp_rings": wr}
-    assert wr == (16 if lk.narrow_col_tile(C) == 32 or nh <= 96 else 32)
+    assert wr == (16 if lk.narrow_col_tile("synth_par", 2, 2 * nh, C) == 32
+                  or nh <= 96 else 32)
     sizes = [(t + 1) * nh // tiles - t * nh // tiles for t in range(tiles)]
     assert sum(sizes) == nh and max(sizes) - min(sizes) <= 1
     assert warps <= 6 and max(sizes) <= warps * wr
@@ -770,3 +771,118 @@ def test_cuda_wide_kernels_match_plain(cuda_device, L, nr, C):
     assert sum(v for f in fns for k, v in (*f.shapes.items(),
                                            *f.slabs.items())
                if k[-1] == (f64, f32)) == calls
+
+
+# (L, nr, C) of the float64 table's dense pair on the card, beyond
+# NARROW_CARD_SHAPES' C <= 40 (wide_synth_plan, wide_adj_plan): the band's
+# nr 65 at C 256 (synthesis: 2 ring tiles of 3 and 2 warps, 4 column warps;
+# adjoint: 2 column tiles of 128), the grid's nr 513 at C 256 (9 ring tiles
+# of 4 warps) with odd slabs of 19 and 18
+# rows, C 64 with two adjoint row tiles of 128 rows l (L 150), a ragged C
+# 200 (one synthesis column tile of 256, 4 ring tiles; adjoint 128 + 72),
+# three adjoint row tiles (L 260) at C 100 (synthesis 2 column warps, 2
+# ring tiles of 5 warps), C 40 (one column warp of 64) and C 16
+WIDE_CARD_SHAPES = [(40, 65, 256), (37, 513, 256), (150, 33, 64),
+                    (33, 200, 200), (260, 130, 100), (21, 17, 40),
+                    (64, 65, 16)]
+
+# ((nr, C): (synthesis ring tiles, warps a block, columns a block; adjoint
+# columns a block)) of the float64 table's dense pair at the main path's
+# shapes (the band's 65 rings, the planckish and HEALPix floors 83, 193,
+# 211, 391, the GL and HEALPix grids 513, 1023, 128 chains) and the card
+# tests' (WIDE_CARD_SHAPES)
+WIDE_PLAN = {(65, 256): (2, 12, 256, 128), (83, 256): (2, 12, 256, 128),
+             (193, 256): (4, 16, 256, 128), (211, 256): (4, 16, 256, 128),
+             (391, 256): (7, 16, 256, 128), (513, 256): (9, 16, 256, 128),
+             (1023, 256): (16, 16, 256, 128), (33, 64): (1, 3, 64, 64),
+             (200, 200): (4, 16, 256, 128), (130, 100): (2, 10, 128, 128),
+             (17, 40): (1, 2, 64, 64), (65, 16): (1, 5, 32, 32),
+             (1, 1): (1, 1, 32, 32), (129, 64): (1, 9, 64, 64),
+             (128, 65): (1, 16, 128, 128), (129, 65): (2, 10, 128, 128)}
+
+
+@pytest.mark.parametrize("nr,C", sorted(WIDE_PLAN))
+def test_wide_dense_plans(nr, C):
+    """The tiles of the float64 table's dense synthesis and adjoint (the
+    pure-Python mirrors of their launchers' plans, held equal to them on
+    the card by chip_smoke.py phase 2): synthesis warps of 16 rings x 32 or
+    64 columns, column warps enough for C (at most 4), at most 16 warps a
+    block, the fewest ring tiles of sizes that differ by at most one ring
+    with idle lanes only in a tile's last ring warp; adjoint blocks of 128
+    rows l x 32, 64 or 128 columns (128 above 64 columns); narrow_col_tile
+    gives the wide tiles for an 8-byte table only.  The card tests reach
+    one and several ring and column tiles."""
+    sp, ap = lk.wide_synth_plan(nr, C), lk.wide_adj_plan(nr, C)
+    tiles, warps, tc, atc = WIDE_PLAN[(nr, C)]
+    assert (sp["ring_tiles"], sp["warps"], sp["col_tile"]) == (tiles, warps,
+                                                               tc)
+    assert sp["warp_rings"] == 16 and warps <= lk.WIDE_SYNTH_WARPS
+    cw = 32 if C <= 32 else 64
+    wn = tc // cw
+    assert 1 <= wn <= lk.WIDE_COL_WARPS and warps % wn == 0
+    assert wn == lk.WIDE_COL_WARPS or tc >= C
+    sizes = [(t + 1) * nr // tiles - t * nr // tiles for t in range(tiles)]
+    wr = warps // wn
+    assert max(sizes) - min(sizes) <= 1 and max(sizes) <= 16 * wr
+    assert 16 * (wr - 1) < max(sizes)
+    assert tiles == 1 or -(-nr // 16) > (tiles - 1) * (16 // wn)
+    assert ap == {"rows": 128, "col_tile": atc, "warps": atc // 8}
+    assert atc == (32 if C <= 32 else 128 if C > 64 else 64)
+    assert lk.narrow_col_tile("synth", 8, nr, C) == tc
+    assert lk.narrow_col_tile("adj", 8, nr, C) == atc
+    for kind in ("synth", "adj", "synth_par", "adj_par"):
+        assert lk.narrow_col_tile(kind, 2, nr, C) == min(max(
+            8, 1 << (C - 1).bit_length()), 32)
+    card = {(nr_, C_) for _, nr_, C_ in WIDE_CARD_SHAPES}
+    assert card <= set(WIDE_PLAN)
+    assert {WIDE_PLAN[k][0] > 1 for k in card} == {False, True}
+    assert {WIDE_PLAN[k][3] for k in card} == {32, 64, 128}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,nr,C", WIDE_CARD_SHAPES)
+def test_cuda_wide_dense_kernels_match_plain(cuda_device, L, nr, C):
+    """The float64 table's dense synthesis and adjoint (float32 batch) at
+    the wide tiles' shapes, on the full table and the two-way split's slabs,
+    g with unit stride on r and on c, against their plain versions on the
+    card: within one float32 ulp of max|ref| (float64 sums of the same
+    exact products in other orders, each rounded once to float32), the
+    float32 outputs given NaN-filled memory; each launch counted in
+    ``launches_wide``."""
+    f64, f32 = torch.float64, torch.float32
+    gen = torch.Generator(device=cuda_device).manual_seed(L + nr + C)
+    tri = (torch.arange(L, device=cuda_device)[None, :, None]
+           >= torch.arange(L, device=cuda_device)[:, None, None])
+    lam = (torch.randn((L, L, nr), generator=gen, dtype=f64,
+                       device=cuda_device) * tri).contiguous()
+    x = torch.randn((L, C, L), generator=gen, dtype=f32, device=cuda_device)
+    g = torch.randn((L, nr, C), generator=gen, dtype=f32, device=cuda_device)
+    xv, gv = _state_views(x, g)
+    lk.reset_launch_counts()
+    calls = 0
+    for ms in [None] + [torch.as_tensor(r, dtype=torch.int32,
+                                        device=cuda_device)
+                        for r in m_rows(L, 2)]:
+        sel = (lambda t: t) if ms is None else (
+            lambda t: t.index_select(0, ms.long()).contiguous())
+        xs = xv if ms is None else sel(xv)
+        gls = [g, gv] if ms is None else [g_ for g_ in (
+            sel(g), _state_views(x, sel(g))[1])]
+        cases = [(lk.legendre_synth_tri, lk.legendre_synth_tri_plain, xs,
+                  (L, nr, C))]
+        cases += [(lk.legendre_adj_tri, lk.legendre_adj_tri_plain, gl,
+                   (C, L, L)) for gl in gls]
+        for kern, plain, b, shape in cases:
+            torch.full(shape, float("nan"), dtype=f32, device=cuda_device)
+            out = kern(sel(lam), b, ms)
+            ref = plain(sel(lam), b, ms)
+            torch.cuda.synchronize()
+            calls += 1
+            assert out.dtype == f32
+            err = float((out - ref).abs().max())
+            assert bool(torch.isfinite(out).all())
+            assert err <= torch.finfo(f32).eps * float(ref.abs().max()), (
+                kern.__name__, ms is None, b.stride(), err)
+    fns = (lk.legendre_synth_tri, lk.legendre_adj_tri)
+    assert sum(f.launches_wide for f in fns) == calls
+    assert sum(f.launches_narrow + f.launches_f64 for f in fns) == 0

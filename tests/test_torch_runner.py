@@ -230,21 +230,24 @@ def test_proposal_from_jax_results(tmp_path):
 
 
 def test_step_phase_times_leave_the_run_alone():
-    """The timing probe leaves the state and the chains' generator as they
-    were, and reports cls = max(full - cr, 0)."""
+    """The timing probe leaves the state, the chains' generator and the
+    scheme's CR step as they were, and reports each sub-step's time, the
+    C_ell step's from calls of its own."""
     sch, dl0, _ = _build(RunConfig(**RESUMES["asis"], dtype="float64"),
                          device=CPU)
     gen = torch.Generator().manual_seed(0)
     state = sch.init_state(dl0, 2, gen)
     before = [t.clone() for t in (state.s, *state.dl)]
     g_state = gen.get_state()
+    cr_step = sch._cr_step
     pt = step_phase_times(sch, state, torch.Generator().manual_seed(1),
                           reps=2)
     for a, b in zip(before, (state.s, *state.dl)):
         assert torch.equal(a, b)
     assert torch.equal(gen.get_state(), g_state)
-    assert pt["full"] > 0 and pt["cr"] > 0
-    assert pt["cls"] == max(pt["full"] - pt["cr"], 0.0)
+    assert sch._cr_step is cr_step
+    assert sorted(pt) == ["cls", "cr", "full"]
+    assert pt["full"] > 0 and pt["cr"] > 0 and pt["cls"] > 0
 
 
 def test_phase_timer_and_profile_trace(tmp_path):
