@@ -20,8 +20,12 @@ non-zero:
    shared memory, resident blocks an SM) of the float64 kernels and of the
    narrow-table float64 kernels (legendre_kernels.narrow_plan) at the
    narrow phase's dense and parity shapes, the parity synthesis' ring
-   tiles held equal to legendre_kernels.narrow_par_synth_plan's, with the
-   card; builds and loads the native
+   tiles held equal to legendre_kernels.narrow_par_synth_plan's, and the
+   float64-table float32 kernels' (f64f32) plans at phase 18's shapes held
+   equal to wide_synth_plan / wide_adj_plan (dense) and
+   wide_par_synth_plan / wide_par_adj_plan (parity; with ptxas's registers
+   and spills of synth_par_wide and adj_par_wide), with the card; builds
+   and loads the native
    table engine (csrc/tables.cpp, g++), failing if it does not load;
 3. compares each kernel with its plain PyTorch version (true float32) on
    the card at the JAX package's Pallas test shapes, a ragged shape, the
@@ -243,8 +247,9 @@ non-zero:
    kernels (csrc/legendre_tri_f16.cu) and the float64-table float32
    kernels (csrc/legendre_tri_narrow_f64.cu, f64f32) against their plain
    versions (<= 1e-5 and one float32 ulp of max|ref|) at L 513, C 256:
-   dense at 65 and 513 rings, parity at 257 north rings (flip and not),
-   slab 0 of each; each timed beside its plain version, the float32
+   dense at 65 and 513 rings, parity at 257 north rings (flip and not;
+   the parity adjoint with g of unit stride on r and on c), slab 0 of
+   each; each timed beside its plain version, the float32
    kernel on the float32 table and torch.einsum on the upcast or widened
    operands, with its bound; (b) GL lmax 512 (dense, ring-split) and
    HEALPix nside 256 spin-2 transforms on float16 and on float64 tables
@@ -270,6 +275,7 @@ imported from this file's directory.
 
 import dataclasses
 import json
+import re
 import os
 import subprocess
 import sys
@@ -591,6 +597,29 @@ def phase_build(lk, card="card"):
               f"ring tiles and the dense pair's columns a block at nr {nr}, "
               f"C {C}: {plan} (wide_synth_plan {ws}, wide_adj_plan {wa}) "
               f"[{card}]", flush=True)
+    report = built["legendre_tri_narrow_f64"][1]
+    for nr, C in PAIR_PAR_SHAPES:
+        plan = lk.narrow_plan(nr, C)["f64f32"]
+        sp, ap = plan["synth_par"], plan["adj_par"]
+        ws = lk.wide_par_synth_plan((nr + 1) // 2, C)
+        wa = lk.wide_par_adj_plan(nr, C)
+        check(sp["ring_tiles"] == ws["ring_tiles"]
+              and sp["threads"] == 32 * ws["warps"]
+              and sp["warp_rings"] == ws["warp_rings"]
+              and sp["col_tile"] == ws["col_tile"],
+              f"float64-table parity synthesis plan at nr {nr}, C {C}: {sp}, "
+              f"legendre_kernels.wide_par_synth_plan {ws}")
+        check(ap["threads"] == 32 * wa["warps"]
+              and ap["col_tile"] == wa["col_tile"] and ap["rows"] == wa["rows"],
+              f"float64-table parity adjoint plan at nr {nr}, C {C}: {ap}, "
+              f"legendre_kernels.wide_par_adj_plan {wa}")
+        print(f"  float64-table float32 parity kernels' (f64f32) threads, "
+              f"dynamic shared memory (bytes), resident blocks an SM, "
+              f"synthesis ring tiles, columns a block and adjoint rows l a "
+              f"block at nr {nr} (nh {(nr + 1) // 2}), C {C}: synthesis {sp}, "
+              f"adjoint {ap} (wide_par_synth_plan {ws}, wide_par_adj_plan "
+              f"{wa}); ptxas {ptxas_usage(report, '_par_wide')} [{card}]",
+              flush=True)
     for nr, C in F64_TIMED:
         print(f"  float64 kernels' threads and dynamic shared memory "
               f"(bytes) at nr {nr}, C {C}: {lk.f64_plan(nr, C)}", flush=True)
@@ -613,6 +642,8 @@ def phase_build(lk, card="card"):
         want = lk.narrow_par_synth_plan((nr + 1) // 2, C)
         for dt, p in plan.items():
             sp = p["synth_par"]
+            if dt == "f64f32":  # the wide parity pair's plan: above
+                continue
             check(sp["ring_tiles"] == want["ring_tiles"]
                   and sp["warp_rings"] == want["warp_rings"]
                   and sp["threads"] == 32 * want["warps"],
@@ -622,6 +653,21 @@ def phase_build(lk, card="card"):
               f"shared memory (bytes), resident blocks an SM and synthesis "
               f"ring tiles at nr {nr} (nh {(nr + 1) // 2}), C {C}: {plan} "
               f"(narrow_par_synth_plan {want}) [{card}]", flush=True)
+
+
+def ptxas_usage(report, marker):
+    """{kernel: ptxas's registers and spill lines} of the entry functions
+    of ``report`` (nvcc -Xptxas -v) whose mangled name holds ``marker``,
+    each named by its name and template arguments."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"([a-z][a-z_]*%s\w*?I(?:L\w\d+E)+)"
+                          % re.escape(marker), ln)
+            name = m.group(1) if m else None
+        elif name and ("spill" in ln or "Used" in ln):
+            out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return out
 
 
 TOLS = {"float32": 1e-5, "float64": 1e-12}
@@ -4470,7 +4516,8 @@ def phase_pair_kernels(torch, lk, dev, card):
     """(a) The four kernels of each pair (PAIR_KERNELS) against their plain
     versions on the card at L 513: the dense pair at PAIR_DENSE_SHAPES, the
     parity pair at PAIR_PAR_SHAPES (flip and not), in the main path's
-    layouts, and slab 0 of the two-way split of each pair at the first
+    layouts (the parity adjoint also with g of unit stride on c, flip not),
+    and slab 0 of the two-way split of each pair at the first
     shape; each timed beside its plain version, the float32 kernel on the
     float32 table and one torch.einsum on the upcast (float16: the table
     in float32 and the batch rounded to float16, in float32) or widened
@@ -4540,6 +4587,11 @@ def phase_pair_kernels(torch, lk, dev, card):
             x = x_view(torch.randn((L, C, L), generator=gen, device=dev))
             g = g_view(torch.randn((L, nr, C), generator=gen, device=dev))
             rx, rg = lift(x), lift(g)
+            if wide:
+                plan = lk.narrow_plan(nr, C)["f64f32"]
+                print(f"pairs f64f32 parity plans at nr {nr}, C {C}: "
+                      f"synthesis {plan['synth_par']}, adjoint "
+                      f"{plan['adj_par']} [{card}]", flush=True)
             for flip in (True, False):
                 key = f"{nr} C{C}" + (" flip" if flip else "")
                 full = mirrored_table(torch, lam.to(ed), nr, flip)
@@ -4548,6 +4600,12 @@ def phase_pair_kernels(torch, lk, dev, card):
                     lambda: torch.einsum("mlr,mcl->mrc", full, rx))
                 one("legendre_adj_par", key, lam, g, (flip,), (C, L, L),
                     l32, lambda: torch.einsum("mlr,mrc->mcl", full, rg))
+                if not flip:  # g with unit stride on c (the views': on r)
+                    gc = g.contiguous()
+                    one("legendre_adj_par", key + " unit-c g", lam, gc,
+                        (flip,), (C, L, L), l32,
+                        lambda: torch.einsum("mlr,mrc->mcl", full, rg))
+                    del gc
                 del full
             if k == 0:
                 ls, l32s = (t.index_select(0, idx).contiguous()

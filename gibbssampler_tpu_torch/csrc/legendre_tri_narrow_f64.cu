@@ -175,12 +175,49 @@
 //   Blocks are the (m, row tile) pairs m-major, each pair's column tiles
 //   next to each other, so that a pair's table rows and g's row m leave
 //   device memory once; the epilogue is the narrow adjoint's.
+// Design of the float64 table's parity pair (synth_par_wide,
+// adj_par_wide): the wide dense pair's blocks with both classes of l - m in
+// one block.  The narrow parity pair's design fed an 8-byte table took the
+// 271 MB half table (nh 257) into the SMs once per 32-column tile, 8 times
+// at C = 256, and the adjoint's copies alone took 86% of its time (PERF.md
+// section 6).  What bounds the pair: at (nh, C) = (257, 256) one call does 2
+// nh C L(L+1)/2 = 17.3 GFLOP, 0.259 ms at DMMA's 67 TFLOP/s, against
+// 0.20-0.24 ms for its bytes: the two weigh nearly equal.  On an H100 (700
+// W) both reach 26% of that (PERF.md section 6): their copies, products and
+// stores add up rather than overlap, in every block shape tried.
+// - Synthesis: M = north rings, N = columns, K = degrees, as synth_wide's
+//   (16 rings x 64 columns a warp, every table double by an 8-byte cp.async,
+//   rows i and M-1-i in one pipeline, B widened from the landed float32 x,
+//   one barrier a stage).  Both classes' sums of 16 x 64 would take 64
+//   accumulator doubles a lane, more than the 128 registers a thread of 16
+//   warps hold, so each warp holds one class' (SE over even l - m, SO over
+//   odd) and a warp of each class covers the same 16 rings x 64 columns:
+//   up to 4 column warps (all of C = 256 a block: the half table enters the
+//   SMs once) x 2 classes x 2 ring warps at C 256 (32 rings, 9 ring tiles
+//   at nh 257, each of which takes x again, mostly from L2).  A stage is 32
+//   degree rows, 16 of each class, put into its slots by class (row k at
+//   slot row (k & 1) 16 + k / 2); a class' k8 step reads its x rows 2 j +
+//   cls from the landed stage.  At the last stage of a row the odd warp
+//   writes its sums, rounded to float32, to shared memory lane by lane (its
+//   partner holds the same fragments), one barrier, and the even warp
+//   writes north SE + SO and, for the rings with a mirror, south f (SE -
+//   SO) from its fragments.
+// - Adjoint: M = rows l, N = columns, K = north rings, as adj_wide's (128
+//   rows l x 128 columns a block above C 64, 64 or 32 below: the table
+//   enters the SMs twice at C 256; 24-ring stages of 192-byte row pieces;
+//   fragment pairs and U's in 16-byte loads), with both classes: rows l0 +
+//   2 i' + p at slot row p 64 + i', 2 warps of 32 rows a class, g's north
+//   rings and their south mirrors landed once for both and folded in the
+//   staging pass into U = widen(g_n + f g_s) and V = widen(g_n - f g_s),
+//   each warp reading its class'.  Blocks are adj_wide's (m, 128-row tile)
+//   pairs; the epilogue writes both classes as one run of l a column, after
+//   the zeros of l < m in the tile that starts at l = m.
 // Every launch goes to the caller's stream; each entry point returns
 // cudaGetLastError() so that a refused launch reaches the wrapper.
 //
 // LEGENDRE_NARROW_PARTS (a bit set, 15 unless nvcc is given -D) keeps the
 // copies (1), staging pass (2), products (4) and stores (8) of every
-// kernel (the wide synthesis has no staging pass).
+// kernel (the wide syntheses have no staging pass).
 // A build that leaves a part out computes a wrong result on purpose: it only
 // serves to time the other parts alone (kernel_ab.py --variant).
 
@@ -247,14 +284,11 @@ struct Narrow<float> {
   }
 };
 
-// the wide table: a float32 batch, widened exactly
+// the wide table: a float32 batch, widened exactly (its kernels, synth_wide
+// and the others below, read it as it is)
 template <>
 struct Narrow<double> {
   using B = float;
-  static __device__ __forceinline__ double widen(double v) { return v; }
-  static __device__ __forceinline__ double round(float v) {
-    return static_cast<double>(v);
-  }
 };
 
 // the table element of type T at byte address p (shared memory), in float64
@@ -1317,10 +1351,35 @@ __device__ __forceinline__ int ceil_sum(int n, int P) {
   return P * q * (q + 1) / 2 + r * (q + 1);
 }
 
-// blocks: the (m, row tile) pairs, m-major (full table: those that exist;
-// slab: every (row, tile), those past the row's triangle exiting at once),
-// each pair's column tiles next to each other, so that the table's rows
-// and g's row m leave device memory once
+// Block b of the (m, row tile of P rows l) pairs, m-major (full table: those
+// that exist; slab: every (row, tile)), each pair's nct column tiles next to
+// each other, so that the table's rows and g's row m leave device memory
+// once: memory row i, degree m, row tile and column tile; false for a slab
+// pair past its row's triangle (the block exits at once).
+__device__ __forceinline__ bool wide_block(int b, int L, int P, int nct,
+                                           const int* ms, int& i, int& m,
+                                           int& tile, int& ct) {
+  ct = b % nct;
+  const int p = b / nct;
+  if (ms) {
+    const int T = (L + P - 1) / P;
+    i = p / T;
+    tile = p % T;
+    m = degree(ms, i);
+    return m + P * tile < L;
+  }
+  // the largest m whose pairs start at or before p
+  const int all = ceil_sum(L, P);
+  int lo = 0, hi = L - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (all - ceil_sum(L - mid, P) <= p) lo = mid; else hi = mid - 1;
+  }
+  m = i = lo;
+  tile = p - (all - ceil_sum(L - m, P));
+  return true;
+}
+
 template <int C32, bool KUNIT>
 __global__ void __launch_bounds__(AdjWide<C32, KUNIT>::THREADS,
                                   512 / AdjWide<C32, KUNIT>::THREADS)
@@ -1330,25 +1389,10 @@ __global__ void __launch_bounds__(AdjWide<C32, KUNIT>::THREADS,
              const int* __restrict__ ms, int M) {
   using K = AdjWide<C32, KUNIT>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int nct = (C + K::TC - 1) / K::TC;
-  const int ct = blockIdx.x % nct, p = blockIdx.x / nct;
-  int i, m, tile;
-  if (ms) {
-    const int T = (L + K::BM - 1) / K::BM;
-    i = p / T;
-    tile = p % T;
-    m = degree(ms, i);
-    if (m + K::BM * tile >= L) return;  // uniform across the block
-  } else {  // the largest m whose pairs start at or before p
-    const int all = ceil_sum(L, K::BM);
-    int lo = 0, hi = L - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) / 2;
-      if (all - ceil_sum(L - mid, K::BM) <= p) lo = mid; else hi = mid - 1;
-    }
-    m = i = lo;
-    tile = p - (all - ceil_sum(L - m, K::BM));
-  }
+  int i, m, tile, ct;
+  if (!wide_block(blockIdx.x, L, K::BM, (C + K::TC - 1) / K::TC, ms, i, m,
+                  tile, ct))
+    return;  // uniform across the block
   const int l0 = m + K::BM * tile;
   const int c0 = ct * K::TC;
   K k;
@@ -1377,10 +1421,8 @@ __global__ void __launch_bounds__(AdjWide<C32, KUNIT>::THREADS,
 // degree rows of one class a stage: 32 in bfloat16 (its 64-row stages took
 // 0.91x the time of 32-row ones at nr 513, C 16 and 32) and float16, 16 in
 // float32 (whose 64-row stages need 128-151 KB there: one block an SM,
-// 1.41-1.45x the time), 8 in float64
-__host__ __device__ constexpr int par_kl(int es) {
-  return es == 2 ? 32 : (es == 4 ? 16 : 8);
-}
+// 1.41-1.45x the time)
+__host__ __device__ constexpr int par_kl(int es) { return es == 2 ? 32 : 16; }
 constexpr int kParDepth = 2;   // stages in flight
 // warps a block at most: two blocks an SM leave each thread 170 registers,
 // which hold both classes' 32 accumulator doubles and a stage's operands
@@ -1910,6 +1952,502 @@ __global__ void __launch_bounds__(AdjParNarrow<T, TC, KUNIT>::THREADS, 2)
 }
 
 // ---------------------------------------------------------------------------
+// the float64 table's parity pair (Narrow<double>: a float32 batch and
+// output): the wide dense pair's blocks with both classes of l - m in one
+// block
+// ---------------------------------------------------------------------------
+
+constexpr int kWideParRows = 32;      // synthesis degree rows a stage, half
+                                      // of each class
+constexpr int kWideParColWarps = 4;   // synthesis column warps a block at most
+constexpr int kWideParAdjRows = 128;  // adjoint rows l a block, half of each
+                                      // class: warps of 32 rows of one class
+constexpr int kWideParAdjRings = 24;  // adjoint rings a stage
+
+// The wide parity synthesis' plan, the same on host and device (and in
+// legendre_kernels.wide_par_synth_plan): n8 tiles a warp (4 at C <= 32, else
+// 8: 64 columns), column warps (enough for C, at most kWideParColWarps), a
+// warp of each class for every 16 rings x those columns (at most
+// kWideSynWarps warps in all), the fewest ring tiles of nh north rings, of
+// sizes that differ by at most one ring, the ring warps the largest needs,
+// column tiles, the columns a block, the bytes from one degree row's slot to
+// the next (as SynthWidePlan's), and dynamic shared memory: DEPTH + 1 table
+// stages and landed x tiles [tc][32 rows 4 bytes + 16], then the odd class's
+// sums handed over at a row's end, [warp pair][4 nt][32 lanes] floats.
+struct SynthParWidePlan {
+  int nt, wn, wr, ntr, nct, tc, rs, smem;
+  __host__ __device__ SynthParWidePlan(int nh, int C) {
+    nt = C <= 32 ? 4 : 8;
+    wn = (C + 8 * nt - 1) / (8 * nt);
+    if (wn > kWideParColWarps) wn = kWideParColWarps;
+    if (wn < 1) wn = 1;
+    const int wmax = kWideSynWarps / (2 * wn);
+    ntr = ((nh + 15) / 16 + wmax - 1) / wmax;
+    if (ntr < 1) ntr = 1;
+    wr = ((nh + ntr - 1) / ntr + 15) / 16;
+    if (wr < 1) wr = 1;
+    tc = 8 * nt * wn;
+    nct = (C + tc - 1) / tc;
+    rs = (128 * wr + 63) / 128 * 128 + 32;
+    smem = (kWideDepth + 1) *
+               (kWideParRows * rs + tc * (kWideParRows * 4 + 16)) +
+           wr * wn * 4 * nt * 32 * 4;
+  }
+};
+
+template <int NT>
+struct SynthParWide {
+  static constexpr int KS = kWideParRows, KL = KS / 2, DEPTH = kWideDepth;
+  static constexpr int CW = 8 * NT;
+  // bytes a landed x column: its shift, its chunks
+  static constexpr int XL = KS * 4 + 16, XCH = XL / 16;
+  static constexpr int HO = 4 * NT * 32;  // floats a warp pair's hand-over
+  static_assert(KL % 8 == 0 && (KS * 4) % 16 == 0,
+                "each class's k8 steps; a column keeps its shift from stage "
+                "to stage");
+
+  unsigned char* tb;    // table slots [DEPTH + 1][KS][rs bytes] by class,
+                        // ring r at 8 r
+  unsigned char* xl;    // landed x [DEPTH + 1][tc][XL bytes]
+  float* ho;            // the warp pair's hand-over [4 NT][32 lanes]
+  const double* lam;    // lam[0, 0, r_lo]
+  const float* x;       // x[0, c0, 0]
+  float* out;           // out[0, 0, c0]
+  long long sxm, sxc;
+  float f;
+  int L, nt, nr, C, rs, tc, r_lo, R, cv;  // cv: the block's columns < C
+  int ia, ib, ma, mb, na, nst;   // the row pair, row ia's stages, all stages
+  int cls, wr0, wc0;             // the warp's class, first ring, first column
+  double acc[NT][4];             // [n8 tile][fragment]
+
+  struct Stage { int ri, l0, nrows; };
+  // stage q: degree rows l0 .. l0 + nrows of row ri's slab (l0 - m even)
+  __device__ __forceinline__ Stage stage_at(int q) const {
+    const int ri = q < na ? ia : ib;
+    const int l0 = q < na ? ma + KS * q : mb + KS * (q - na);
+    return Stage{ri, l0, min(KS, L - l0)};
+  }
+  __device__ __forceinline__ const double* row0(const Stage& st) const {
+    return lam + (static_cast<long long>(st.ri) * L + st.l0) * nt;
+  }
+  __device__ __forceinline__ const float* xrow(const Stage& st) const {
+    return x + st.ri * sxm + st.l0;
+  }
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) acc[n][h] = 0.0;
+  }
+
+  // the tile's R rings of table rows l0 .. l0 + KS (past the slab: zeros),
+  // row k into slot row (k & 1) KL + k / 2, a warp a row, each double at 8 r
+  // of its row's slot; x[ri, c, l0 ..] for the block's columns, along l,
+  // from each column's start rounded down to 16 bytes
+  __device__ __forceinline__ void issue(int q) {
+    if (!kCopies) return;
+    const Stage st = stage_at(q);
+    unsigned char* ts = tb + (q % (DEPTH + 1)) * KS * rs;
+    const double* src = row0(st);
+    const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+    for (int k = threadIdx.x >> 5; k < KS; k += nw) {
+      const bool ok = k < st.nrows;
+      const double* row = ok ? src + static_cast<long long>(k) * nt : src;
+      unsigned char* slot = ts + ((k & 1) * KL + (k >> 1)) * rs;
+      for (int r = lane; r < R; r += 32)
+        cp_async8n(slot + 8 * r, ok ? row + r : src, ok ? 8 : 0);
+    }
+    unsigned char* xs = xl + (q % (DEPTH + 1)) * tc * XL;
+    const float* xm = xrow(st);
+    for (int e = threadIdx.x; e < tc * XCH; e += blockDim.x) {
+      const int c = e / XCH, j = e - c * XCH;
+      const bool ok = c < cv;
+      copy_chunk(xs + c * XL, ok ? xm + c * sxc : xm, ok ? 4 * st.nrows : 0,
+                 j);
+    }
+  }
+
+  // The warp's class' k8 steps that hold rows, its 16 rings x CW columns;
+  // then, at the last stage of a row, the odd class hands its sums, rounded
+  // to float32, to its partner warp of the even class through shared memory
+  // (lane to lane: both hold the same fragments), which writes north SE +
+  // SO and, for the rings r < nr - nt that have a mirror, south f (SE - SO).
+  // Fragment rows gid and gid + 8 are rings 2 gid and 2 gid + 1 of the
+  // warp's, read in one 16-byte load; class row j of the k8 step is the
+  // stage's degree row 2 j + cls, whose x is read from the landed float32 x
+  // and widened as it is loaded.  The k8 steps are not unrolled (as
+  // synth_wide's).
+  __device__ __forceinline__ void mma(int q) {
+    const Stage st = stage_at(q);
+    const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+    const bool live = wr0 < R && wc0 < cv;  // uniform across the warp
+    if (live) {
+      const unsigned char* pa = tb + (q % (DEPTH + 1)) * KS * rs +
+                                (cls * KL + tig) * rs + 8 * (wr0 + 2 * gid);
+      const float* xm = xrow(st) + static_cast<long long>(wc0 + gid) * sxc;
+      const float* xs = reinterpret_cast<const float*>(
+          xl + (q % (DEPTH + 1)) * tc * XL + (wc0 + gid) * XL +
+          shift16(xm)) + 2 * tig + cls;
+      const int steps = ((st.nrows + 1 - cls) / 2 + 7) / 8;
+#pragma unroll 1
+      for (int kk = 0; kk < KL / 8; ++kk) {
+        if (kk >= steps) break;  // uniform across the warp
+        // rings 2 gid, 2 gid + 1 at class rows tig, tig + 4 of the step
+        const double2 lo = *reinterpret_cast<const double2*>(pa + 8 * kk * rs);
+        const double2 hi =
+            *reinterpret_cast<const double2*>(pa + (8 * kk + 4) * rs);
+        const double a[4] = {lo.x, lo.y, hi.x, hi.y};
+        if (!kProducts) {  // the shared-memory reads stay
+          acc[0][0] += a[0] + a[1] + a[2] + a[3] + xs[16 * kk];
+          continue;
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float* b = xs + n * 8 * (XL / 4) + 16 * kk;
+          dmma16(acc[n], a, b[0], b[8]);
+        }
+      }
+    }
+    if (q != na - 1 && q != nst - 1) return;  // uniform across the block
+    if (!kStores) {
+      keep_live(acc, out);
+      zero();
+      return;
+    }
+    if (cls == 1 && live) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          ho[(4 * n + h) * 32 + lane] = static_cast<float>(acc[n][h]);
+    }
+    __syncthreads();  // the hand-over written; read before the next stage's
+    if (cls == 0 && live) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rings 2 gid, 2 gid + 1
+        const int r = wr0 + 2 * gid + h;
+        if (r >= R) continue;
+        const int rn = r_lo + r;
+        float* on = out + (static_cast<long long>(st.ri) * nr + rn) * C;
+        float* os = out + (static_cast<long long>(st.ri) * nr + nr - 1 - rn) * C;
+        const bool south = rn < nr - nt;  // not the equator
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          // each class's sums in float32, then combined in float32 (the JAX
+          // package's split synthesis rounds E and O to the compute dtype
+          // first)
+          const int c = wc0 + 8 * n + 2 * tig;
+          const float e0 = static_cast<float>(acc[n][2 * h]);
+          const float e1 = static_cast<float>(acc[n][2 * h + 1]);
+          const float o0 = ho[(4 * n + 2 * h) * 32 + lane];
+          const float o1 = ho[(4 * n + 2 * h + 1) * 32 + lane];
+          store_pair(on, c, cv, e0 + o0, e1 + o1);
+          if (south) store_pair(os, c, cv, f * (e0 - o0), f * (e1 - o1));
+        }
+      }
+    }
+    zero();
+  }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(32 * kWideSynWarps, 1)
+    synth_par_wide(const double* __restrict__ lam,
+                   const float* __restrict__ x, float* __restrict__ out,
+                   int L, int nr, int C, long long sxm, long long sxc,
+                   const int* __restrict__ ms, int M, double f) {
+  using K = SynthParWide<NT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nt = (nr + 1) / 2;  // the table's rings
+  const SynthParWidePlan pl(nt, C);
+  const int tile = blockIdx.x % pl.ntr;
+  const int c0 = (blockIdx.x / pl.ntr) * pl.tc;
+  // warp: class-major, then column warp, then ring warp
+  const int warp = threadIdx.x >> 5, pairs = pl.wr * pl.wn;
+  const int pair = warp % pairs;
+  K k;
+  k.r_lo = tile * nt / pl.ntr;
+  k.R = (tile + 1) * nt / pl.ntr - k.r_lo;
+  k.rs = pl.rs;
+  k.tc = pl.tc;
+  k.tb = smem;
+  k.xl = smem + (K::DEPTH + 1) * K::KS * pl.rs;
+  k.ho = reinterpret_cast<float*>(k.xl + (K::DEPTH + 1) * pl.tc * K::XL) +
+         pair * K::HO;
+  k.lam = lam + k.r_lo;
+  k.x = x + c0 * sxc;
+  k.out = out + c0;
+  k.sxm = sxm;
+  k.sxc = sxc;
+  k.f = static_cast<float>(f);
+  k.L = L;
+  k.nt = nt;
+  k.nr = nr;
+  k.C = C;
+  k.cv = min(pl.tc, C - c0);
+  // rows ia and ib of degrees ma and mb; the middle row of an odd M alone
+  k.ia = blockIdx.y;
+  k.ib = M - 1 - k.ia;
+  k.ma = degree(ms, k.ia);
+  k.mb = degree(ms, k.ib);
+  k.na = (L - k.ma + K::KS - 1) / K::KS;
+  k.nst = k.na + (k.ib > k.ia ? (L - k.mb + K::KS - 1) / K::KS : 0);
+  k.cls = warp / pairs;
+  k.wr0 = pair % pl.wr * 16;
+  k.wc0 = pair / pl.wr * K::CW;
+  k.zero();
+  run_ring1(k, k.nst);
+}
+
+// C32: column warps of 32 columns a block (adj_wide_c32); KUNIT: g with
+// unit stride on r (else on c)
+template <int C32, bool KUNIT>
+struct AdjParWide {
+  static constexpr int P = kWideParAdjRows, BM = P / 2;  // rows l, of a class
+  static constexpr int KC = kWideParAdjRings, DEPTH = kWideDepth;
+  static constexpr int MT = 2, NT = 4, TC = 32 * C32;
+  static constexpr int THREADS = 32 * (P / 32) * C32;
+  static constexpr int TW = KC * 8;         // bytes a table row's piece
+  static constexpr int T_SLOT = P * TW;     // bytes; DEPTH + 1 slots
+  // bytes a landed g row, [c][ring] (KUNIT) : [ring][c], and its chunks
+  static constexpr int GW = (KUNIT ? KC : TC) * 4 + 16;
+  static constexpr int GCH = GW / 16;
+  static constexpr int G_TILE = (KUNIT ? TC : KC) * GW;  // bytes: north, south
+  static constexpr int US = KC;             // doubles a U or V row
+  static constexpr int G_OFF = (DEPTH + 1) * T_SLOT;     // bytes
+  static constexpr int U_OFF = G_OFF + DEPTH * 2 * G_TILE;
+  static constexpr int MAIN = U_OFF + 2 * TC * US * 8;   // U, V [c][ring]
+  static constexpr int SO = P + 4;          // epilogue [c][l - l0] floats
+  static constexpr int SMEM = MAIN > TC * SO * 4 ? MAIN : TC * SO * 4;
+  static_assert(KC % 8 == 0 && (KC * 4) % 16 == 0 && TW % 128 == 64 &&
+                    (US * 8) % 128 == 64 && GW % 16 == 0 && BM % 32 == 0,
+                "k8 steps; a g column keeps its north shift; 16-byte A and "
+                "B reads of rows 64 mod 128 bytes apart meet no bank twice; "
+                "warps by class");
+
+  unsigned char* sm;
+  const double* tab;    // lam[i, l0, 0]
+  const float* gp;      // g[i, 0, c0]
+  long long sgr, sgc;   // g's strides
+  float f;
+  int nt, nr, nv, cv;   // nv: rows l0 + j < L
+  int tid, lane, cls, wr0, wc0;  // the warp's class, first row in it, first
+                                 // column
+  double acc[MT][NT][4];
+
+  // the byte shift of a landed g row: of element e of column c (KUNIT), or
+  // of ring e (unit stride on c)
+  __device__ __forceinline__ int gshift(int c, int e) const {
+    return KUNIT ? shift16(gp + c * sgc + e) : shift16(gp + e * sgr);
+  }
+
+  // rings with a south mirror: r < nr - nt (the equator of an odd nr has
+  // none); the south rings that a stage at k0 lands: nr - k0 - sv ..
+  __device__ __forceinline__ int south_rings(int k0) const {
+    return max(min(nr - nt, k0 + KC) - k0, 0);
+  }
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) acc[mt][n][h] = 0.0;
+  }
+
+  // the rows' rings k0 .. k0 + KC (past nt: zeros; rows past L: none), row
+  // l0 + j into slot row (j & 1) BM + j / 2, each double at 8 jj of its
+  // slot; g[r, c] and g[nr - 1 - r, c] for those rings (KUNIT: each
+  // column's run of north rings and of their mirrors)
+  __device__ __forceinline__ void issue(int s) {
+    if (!kCopies) return;
+    const int k0 = s * KC;
+    unsigned char* ts = sm + (s % (DEPTH + 1)) * T_SLOT;
+    const int kv = min(KC, nt - k0);
+    for (int e = tid; e < nv * KC; e += THREADS) {
+      const int row = e / KC, jj = e - row * KC;
+      const double* src = tab + static_cast<long long>(row) * nt + k0;
+      cp_async8n(ts + ((row & 1) * BM + (row >> 1)) * TW + 8 * jj,
+                 jj < kv ? src + jj : src, jj < kv ? 8 : 0);
+    }
+    unsigned char* gn = sm + G_OFF + (s % DEPTH) * 2 * G_TILE;
+    unsigned char* gs = gn + G_TILE;
+    const int sv = south_rings(k0);
+    if constexpr (KUNIT) {
+      const int slo = nr - k0 - sv;
+      for (int e = tid; e < TC * GCH; e += THREADS) {
+        const int c = e / GCH, j = e - c * GCH;
+        const bool ok = c < cv;
+        const float* col = ok ? gp + c * sgc : gp;
+        copy_chunk(gn + c * GW, col + (ok ? k0 : 0), ok ? 4 * kv : 0, j);
+        copy_chunk(gs + c * GW, col + (ok && sv ? slo : 0), ok ? 4 * sv : 0,
+                   j);
+      }
+    } else {
+      for (int e = tid; e < KC * GCH; e += THREADS) {
+        const int t = e / GCH, j = e - t * GCH, r = k0 + t;
+        copy_chunk(gn + t * GW, r < nt ? gp + r * sgr : gp,
+                   r < nt ? 4 * cv : 0, j);
+        copy_chunk(gs + t * GW, t < sv ? gp + (nr - 1 - r) * sgr : gp,
+                   t < sv ? 4 * cv : 0, j);
+      }
+    }
+  }
+
+  // U[c][j] = widen(g_n + f g_s), V[c][j] = widen(g_n - f g_s) at ring k0 +
+  // j (the fold formed in float32, then widened), zero past the rings and
+  // the columns: a thread a column's two rings j, j + 1 at a time
+  __device__ __forceinline__ void stage(int s) {
+    if (!kStaging) return;
+    const unsigned char* gn = sm + G_OFF + (s % DEPTH) * 2 * G_TILE;
+    const unsigned char* gs = gn + G_TILE;
+    const int k0 = s * KC, sv = south_rings(k0), slo = nr - k0 - sv;
+    for (int e = tid; e < TC * (KC / 2); e += THREADS) {
+      const int c = e / (KC / 2), j = 2 * (e - c * (KC / 2));
+      double* U = reinterpret_cast<double*>(sm + U_OFF) + c * US;
+      double* V = U + TC * US;
+      const int shn = KUNIT ? gshift(c, k0) : 0;
+      const int shs = KUNIT ? gshift(c, slo) : 0;
+      float u[2] = {0.0f, 0.0f}, v[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = k0 + j + h;
+        if (c < cv && r < nt) {
+          float a, b = 0.0f;
+          if constexpr (KUNIT) {
+            a = ld<float>(gn + c * GW + shn + (j + h) * 4);
+            if (j + h < sv)
+              b = ld<float>(gs + c * GW + shs + (sv - 1 - j - h) * 4);
+          } else {
+            a = ld<float>(gn + (j + h) * GW + gshift(0, r) + c * 4);
+            if (j + h < sv)
+              b = ld<float>(gs + (j + h) * GW + gshift(0, nr - 1 - r) + c * 4);
+          }
+          b *= f;
+          u[h] = a + b;
+          v[h] = a - b;
+        }
+      }
+      *reinterpret_cast<double2*>(U + j) = make_double2(u[0], u[1]);
+      *reinterpret_cast<double2*>(V + j) = make_double2(v[0], v[1]);
+    }
+  }
+
+  // The k8 steps that hold rings, for the warp's 32 rows of its class x 32
+  // columns (rows past L read stale bytes: their sums are never stored), as
+  // adj_wide's: the step's logical degrees tig and tig + 4 are its rings 2
+  // tig and 2 tig + 1, read with U's (V's) in one 16-byte load.
+  __device__ __forceinline__ void mma(int s) {
+    if (wr0 >= (nv + 1 - cls) / 2 || wc0 >= cv) return;  // uniform: the warp
+    const int gid = lane >> 2, tig = lane & 3;
+    const unsigned char* ts = sm + (s % (DEPTH + 1)) * T_SLOT +
+                              (cls * BM + wr0 + gid) * TW + 16 * tig;
+    const double* U = reinterpret_cast<const double*>(sm + U_OFF) +
+                      (cls * TC + wc0 + gid) * US + 2 * tig;
+    const int steps = (min(KC, nt - s * KC) + 7) / 8;
+#pragma unroll
+    for (int kk = 0; kk < KC / 8; ++kk) {
+      if (kk >= steps) break;  // uniform across the warp
+      double a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const double2 r0 = *reinterpret_cast<const double2*>(
+            ts + 16 * mt * TW + 64 * kk);
+        const double2 r8 = *reinterpret_cast<const double2*>(
+            ts + (16 * mt + 8) * TW + 64 * kk);
+        a[mt][0] = r0.x;
+        a[mt][1] = r8.x;
+        a[mt][2] = r0.y;
+        a[mt][3] = r8.y;
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {  // B of the warp's n8 column tile n
+        const double2 u =
+            *reinterpret_cast<const double2*>(U + n * 8 * US + 8 * kk);
+        if (!kProducts) {  // the shared-memory reads stay
+          acc[0][n][0] += a[0][0] + a[0][1] + a[0][2] + a[0][3] + a[1][0] +
+                          a[1][1] + a[1][2] + a[1][3] + u.x + u.y;
+          continue;
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) dmma16(acc[mt][n], a[mt], u.x, u.y);
+      }
+    }
+  }
+
+  // out[c * soc + l - l0] for c < cv, l - l0 < nv, both classes through
+  // shared memory [c][l - l0] (each column shifted to its run's 16-byte
+  // alignment), then whole runs along l, a warp a column, each right after
+  // the column's zeros at out[c * soc - zeros ..]
+  __device__ __forceinline__ void finish(float* out, long long soc,
+                                         int zeros) {
+    if (!kStores) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) keep_live(acc[mt], out);
+      return;
+    }
+    float* so = reinterpret_cast<float*>(sm);
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int l = 2 * (wr0 + 16 * mt + 8 * (h >> 1) + gid) + cls;
+          const int c = wc0 + 8 * n + 2 * tig + (h & 1);
+          so[c * SO + eshift(out + c * soc) + l] =
+              static_cast<float>(acc[mt][n][h]);
+        }
+    __syncthreads();
+    for (int c = tid >> 5; c < cv; c += THREADS / 32) {
+      if (zeros > 0) store_run<float>(out + c * soc - zeros, nullptr, zeros, lane);
+      store_run(out + c * soc, so + c * SO, nv, lane);
+    }
+  }
+};
+
+template <int C32, bool KUNIT>
+__global__ void __launch_bounds__(AdjParWide<C32, KUNIT>::THREADS,
+                                  512 / AdjParWide<C32, KUNIT>::THREADS)
+    adj_par_wide(const double* __restrict__ lam, const float* __restrict__ g,
+                 float* __restrict__ out, int L, int nr, int C, long long sgm,
+                 long long sgr, long long sgc, long long som, long long soc,
+                 const int* __restrict__ ms, int M, double f) {
+  using K = AdjParWide<C32, KUNIT>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int i, m, tile, ct;
+  if (!wide_block(blockIdx.x, L, K::P, (C + K::TC - 1) / K::TC, ms, i, m,
+                  tile, ct))
+    return;  // uniform across the block
+  const int nt = (nr + 1) / 2;  // the table's rings
+  const int l0 = m + K::P * tile;
+  const int c0 = ct * K::TC;
+  const int warp = threadIdx.x >> 5, rw = K::P / 32;  // row warps
+  K k;
+  k.sm = smem;
+  k.tab = lam + (static_cast<long long>(i) * L + l0) * nt;  // lam[i, l0, 0]
+  k.gp = g + i * sgm + c0 * sgc;                              // g[i, 0, c0]
+  k.sgr = sgr;
+  k.sgc = sgc;
+  k.f = static_cast<float>(f);
+  k.nt = nt;
+  k.nr = nr;
+  k.nv = min(K::P, L - l0);
+  k.cv = min(K::TC, C - c0);
+  k.tid = threadIdx.x;
+  k.lane = threadIdx.x & 31;
+  k.cls = warp % rw / (rw / 2);
+  k.wr0 = warp % (rw / 2) * 32;
+  k.wc0 = warp / rw * 32;
+  k.init();
+  run_ring(k, (nt + K::KC - 1) / K::KC);
+  k.finish(out + i * som + c0 * soc + l0, soc, tile == 0 ? m : 0);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -2115,20 +2653,44 @@ int launch_synth_par(const void* lam, const void* x, void* out, int L,
                                       M, s, f);
 }
 
+// the float64 table's: ring tiles and column tiles in x, row pairs in y
+template <int NT>
+int launch_synth_par_wide(const SynthParWidePlan& pl, const void* lam,
+                          const void* x, void* out, int L, int nr, int C,
+                          long long sxm, long long sxc, const int* ms, int M,
+                          cudaStream_t s, double f) {
+  const dim3 grid(pl.ntr * pl.nct, (M + 1) / 2);
+  const cudaError_t e = allow_smem(synth_par_wide<NT>, pl.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  synth_par_wide<NT><<<grid, 64 * pl.wr * pl.wn, pl.smem, s>>>(
+      static_cast<const double*>(lam), static_cast<const float*>(x),
+      static_cast<float*>(out), L, nr, C, sxm, sxc, ms, M, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_synth_par(const void* lam, const void* x, void* out, int L,
                      int nr, int C, long long sxm, long long sxc,
                      const int* ms, int M, cudaStream_t s, double f) {
-  switch (col_tile(C)) {
-    case 8:
-      return launch_synth_par<T, 8>(lam, x, out, L, nr, C, sxm, sxc, ms, M, s,
-                                    f);
-    case 16:
-      return launch_synth_par<T, 16>(lam, x, out, L, nr, C, sxm, sxc, ms, M,
-                                     s, f);
-    default:
-      return launch_synth_par<T, 32>(lam, x, out, L, nr, C, sxm, sxc, ms, M,
-                                     s, f);
+  if constexpr (sizeof(T) == 8) {
+    const SynthParWidePlan pl((nr + 1) / 2, C);
+    if (pl.nt == 4)
+      return launch_synth_par_wide<4>(pl, lam, x, out, L, nr, C, sxm, sxc, ms,
+                                      M, s, f);
+    return launch_synth_par_wide<8>(pl, lam, x, out, L, nr, C, sxm, sxc, ms,
+                                    M, s, f);
+  } else {
+    switch (col_tile(C)) {
+      case 8:
+        return launch_synth_par<T, 8>(lam, x, out, L, nr, C, sxm, sxc, ms, M,
+                                      s, f);
+      case 16:
+        return launch_synth_par<T, 16>(lam, x, out, L, nr, C, sxm, sxc, ms, M,
+                                       s, f);
+      default:
+        return launch_synth_par<T, 32>(lam, x, out, L, nr, C, sxm, sxc, ms, M,
+                                       s, f);
+    }
   }
 }
 
@@ -2164,21 +2726,67 @@ int launch_adj_par(const void* lam, const void* g, void* out, int L, int nr,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// the float64 table's: (m, row tile) pairs m-major, each pair's column
+// tiles next to each other, all in x
+template <int C32, bool KUNIT>
+int launch_adj_par_wide(const void* lam, const void* g, void* out, int L,
+                        int nr, int C, long long sgm, long long sgr,
+                        long long sgc, long long som, long long soc,
+                        const int* ms, int M, cudaStream_t s, double f) {
+  using K = AdjParWide<C32, KUNIT>;
+  const int pairs = ms ? M * ((L + K::P - 1) / K::P) : adj_pairs(L, K::P);
+  const int blocks = pairs * ((C + K::TC - 1) / K::TC);
+  const cudaError_t e = allow_smem(adj_par_wide<C32, KUNIT>, K::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  adj_par_wide<C32, KUNIT><<<blocks, K::THREADS, K::SMEM, s>>>(
+      static_cast<const double*>(lam), static_cast<const float*>(g),
+      static_cast<float*>(out), L, nr, C, sgm, sgr, sgc, som, soc, ms, M, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int C32>
+int launch_adj_par_wide(const void* lam, const void* g, void* out, int L,
+                        int nr, int C, long long sgm, long long sgr,
+                        long long sgc, long long som, long long soc,
+                        const int* ms, int M, cudaStream_t s, double f) {
+  if (sgr == 1)
+    return launch_adj_par_wide<C32, true>(lam, g, out, L, nr, C, sgm, sgr,
+                                          sgc, som, soc, ms, M, s, f);
+  if (sgc == 1)
+    return launch_adj_par_wide<C32, false>(lam, g, out, L, nr, C, sgm, sgr,
+                                           sgc, som, soc, ms, M, s, f);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
 int launch_adj_par(const void* lam, const void* g, void* out, int L, int nr,
                    int C, long long sgm, long long sgr, long long sgc,
                    long long som, long long soc, const int* ms, int M,
                    cudaStream_t s, double f) {
-  switch (col_tile(C)) {
-    case 8:
-      return launch_adj_par<T, 8>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
-                                  soc, ms, M, s, f);
-    case 16:
-      return launch_adj_par<T, 16>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
-                                   soc, ms, M, s, f);
-    default:
-      return launch_adj_par<T, 32>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
-                                   soc, ms, M, s, f);
+  if constexpr (sizeof(T) == 8) {
+    switch (adj_wide_c32(C)) {
+      case 1:
+        return launch_adj_par_wide<1>(lam, g, out, L, nr, C, sgm, sgr, sgc,
+                                      som, soc, ms, M, s, f);
+      case 2:
+        return launch_adj_par_wide<2>(lam, g, out, L, nr, C, sgm, sgr, sgc,
+                                      som, soc, ms, M, s, f);
+      default:
+        return launch_adj_par_wide<4>(lam, g, out, L, nr, C, sgm, sgr, sgc,
+                                      som, soc, ms, M, s, f);
+    }
+  } else {
+    switch (col_tile(C)) {
+      case 8:
+        return launch_adj_par<T, 8>(lam, g, out, L, nr, C, sgm, sgr, sgc, som,
+                                    soc, ms, M, s, f);
+      case 16:
+        return launch_adj_par<T, 16>(lam, g, out, L, nr, C, sgm, sgr, sgc,
+                                     som, soc, ms, M, s, f);
+      default:
+        return launch_adj_par<T, 32>(lam, g, out, L, nr, C, sgm, sgr, sgc,
+                                     som, soc, ms, M, s, f);
+    }
   }
 }
 
@@ -2198,11 +2806,13 @@ int blocks_per_sm(K kernel, int threads, int bytes) {
 // shared memory (bytes), 1 its resident blocks an SM, 2 its ring tiles, 5
 // its rings a warp, 12 its columns a block; 3 the dense adjoint's (g with
 // unit stride on r) threads << 20 | bytes, 4 its resident blocks an SM, 13
-// its columns a block, 14 its rows l a block; 6-9 and 10-11 the same of the
-// parity synthesis and the parity adjoint (nr the output's or g's rings)
+// its columns a block, 14 its rows l a block; 6-9 and 15 the same of the
+// parity synthesis, 10-11 and 16-17 of the parity adjoint (nr the output's
+// or g's rings); -1 for any other kind
 template <int C32>
 int adj_wide_plan(int kind) {
   using A = AdjWide<C32, true>;
+  using B = AdjParWide<C32, true>;
   switch (kind) {
     case 3:
       return A::THREADS << 20 | A::SMEM;
@@ -2210,15 +2820,26 @@ int adj_wide_plan(int kind) {
       return blocks_per_sm(adj_wide<C32, true>, A::THREADS, A::SMEM);
     case 13:
       return A::TC;
-    default:
+    case 14:
       return A::BM;
+    case 10:
+      return B::THREADS << 20 | B::SMEM;
+    case 11:
+      return blocks_per_sm(adj_par_wide<C32, true>, B::THREADS, B::SMEM);
+    case 16:
+      return B::TC;
+    case 17:
+      return B::P;
+    default:
+      return -1;
   }
 }
 
-// the float64 table's dense pair: kinds 0-5 and 12-14
+// the float64 table's kernels
 inline int wide_plan(int kind, int nr, int C) {
   const SynthWidePlan pl(nr, C);
-  const int threads = 32 * pl.wr * pl.wn;
+  const SynthParWidePlan pp((nr + 1) / 2, C);
+  const int threads = 32 * pl.wr * pl.wn, pthreads = 64 * pp.wr * pp.wn;
   switch (kind) {
     case 0:
       return threads << 20 | pl.smem;
@@ -2228,9 +2849,20 @@ inline int wide_plan(int kind, int nr, int C) {
     case 2:
       return pl.ntr;
     case 5:
+    case 9:
       return 16;
     case 12:
       return pl.tc;
+    case 6:
+      return pthreads << 20 | pp.smem;
+    case 7:
+      return pp.nt == 4
+                 ? blocks_per_sm(synth_par_wide<4>, pthreads, pp.smem)
+                 : blocks_per_sm(synth_par_wide<8>, pthreads, pp.smem);
+    case 8:
+      return pp.ntr;
+    case 15:
+      return pp.tc;
   }
   switch (adj_wide_c32(C)) {
     case 1:
@@ -2242,39 +2874,38 @@ inline int wide_plan(int kind, int nr, int C) {
   }
 }
 
+// the narrow tables' kernels
 template <typename T, int TC>
 int plan(int kind, int nr) {
-  if constexpr (sizeof(T) != 8) {
-    const SynthNarrowPlan pl(nr, TC, sizeof(T), sizeof(Bt<T>));
-    using A = AdjNarrow<T, TC, true>;
-    switch (kind) {
-      case 0:
-        return 32 * pl.warps << 20 | pl.smem;
-      case 1:
-        return pl.mt == 1 ? blocks_per_sm(synth_narrow<T, TC, 1>,
-                                           32 * pl.warps, pl.smem)
-                          : blocks_per_sm(synth_narrow<T, TC, 2>,
-                                          32 * pl.warps, pl.smem);
-      case 2:
-        return pl.ntr;
-      case 3:
-        return A::THREADS << 20 | A::SMEM;
-      case 4:
-        return blocks_per_sm(adj_narrow<T, TC, true>, A::THREADS, A::SMEM);
-      case 5:
-        return 16 * pl.mt;
-      case 12:
-      case 13:
-        return TC;
-      case 14:
-        return kAdjRows;
-    }
-  }
+  const SynthNarrowPlan pl(nr, TC, sizeof(T), sizeof(Bt<T>));
+  using A = AdjNarrow<T, TC, true>;
   // the parity pair, nr the output's or g's rings
   const SynthParNarrowPlan pp((nr + 1) / 2, TC, sizeof(T), sizeof(Bt<T>));
   constexpr int MT2 = TC == 32 ? 1 : 2;
   using B = AdjParNarrow<T, TC, true>;
   switch (kind) {
+    case 0:
+      return 32 * pl.warps << 20 | pl.smem;
+    case 1:
+      return pl.mt == 1 ? blocks_per_sm(synth_narrow<T, TC, 1>,
+                                         32 * pl.warps, pl.smem)
+                        : blocks_per_sm(synth_narrow<T, TC, 2>,
+                                        32 * pl.warps, pl.smem);
+    case 2:
+      return pl.ntr;
+    case 3:
+      return A::THREADS << 20 | A::SMEM;
+    case 4:
+      return blocks_per_sm(adj_narrow<T, TC, true>, A::THREADS, A::SMEM);
+    case 5:
+      return 16 * pl.mt;
+    case 12:
+    case 13:
+    case 15:
+    case 16:
+      return TC;
+    case 14:
+      return kAdjRows;
     case 6:
       return 32 * pp.warps << 20 | pp.smem;
     case 7:
@@ -2290,6 +2921,8 @@ int plan(int kind, int nr) {
       return B::THREADS << 20 | B::SMEM;
     case 11:
       return blocks_per_sm(adj_par_narrow<T, TC, true>, B::THREADS, B::SMEM);
+    case 17:
+      return 2 * kAdjParRows;
     default:
       return -1;
   }
@@ -2298,15 +2931,16 @@ int plan(int kind, int nr) {
 template <typename T>
 int plan(int kind, int nr, int C) {
   if constexpr (sizeof(T) == 8) {
-    if (kind <= 5 || kind >= 12) return wide_plan(kind, nr, C);
-  }
-  switch (col_tile(C)) {
-    case 8:
-      return plan<T, 8>(kind, nr);
-    case 16:
-      return plan<T, 16>(kind, nr);
-    default:
-      return plan<T, 32>(kind, nr);
+    return wide_plan(kind, nr, C);
+  } else {
+    switch (col_tile(C)) {
+      case 8:
+        return plan<T, 8>(kind, nr);
+      case 16:
+        return plan<T, 16>(kind, nr);
+      default:
+        return plan<T, 32>(kind, nr);
+    }
   }
 }
 
@@ -2370,10 +3004,11 @@ NARROW_F64_ENTRY_POINTS(f64f32, double)
 // bf16f64, 1: f32f64, 2: f16f64, 3: f64f32): kind 0 the dense synthesis'
 // threads << 20 | dynamic shared memory (bytes), 1 its resident blocks an
 // SM on the current card (-1 if refused), 2 its ring tiles, 5 its rings a
-// warp; 3 the dense adjoint's (g with unit stride on r) threads << 20 |
-// bytes, 4 its resident blocks an SM; 6, 7, 8, 9 the parity synthesis' and
-// 10, 11 the parity adjoint's, in the same order (nr the output's or g's
-// rings); -1 for any other kind or table.
+// warp, 12 its columns a block; 3 the dense adjoint's (g with unit stride
+// on r) threads << 20 | bytes, 4 its resident blocks an SM, 13 its columns
+// a block, 14 its rows l a block; 6, 7, 8, 9, 15 the parity synthesis' and
+// 10, 11, 16, 17 the parity adjoint's, in the same order (nr the output's
+// or g's rings); -1 for any other kind or table.
 int legendre_tri_narrow_f64_plan(int kind, int table, int nr, int C) {
   switch (table) {
     case 0: return plan<__nv_bfloat16>(kind, nr, C);

@@ -88,9 +88,10 @@ a bfloat16, float16 or float32 table with a float64 batch and those of a
 float64 table with a float32 batch (the table kept in its own dtype in
 shared memory and widened in registers, the batch staged in float64, all
 on the fp64 tensor cores, their plans in ``narrow_plan(nr, C)``, the
-parity synthesis' ring tiles those of ``narrow_par_synth_plan(nh, C)``;
-the float64 table's dense pair on wide column tiles, those of
-``wide_synth_plan(nr, C)`` and ``wide_adj_plan(nr, C)``).  A
+narrow tables' parity synthesis' ring tiles those of
+``narrow_par_synth_plan(nh, C)``; the float64 table's kernels on wide
+column tiles, those of ``wide_synth_plan(nr, C)``, ``wide_adj_plan(nr,
+C)``, ``wide_par_synth_plan(nh, C)`` and ``wide_par_adj_plan(nr, C)``).  A
 wrapper takes the plain ``torch.einsum`` version only for tensors on the
 CPU; for CUDA tensors it launches its kernel or raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches`` (the parity wrappers
@@ -200,20 +201,26 @@ _BF16_KINDS = tuple(f"synth tile {t}" for t in BF16_SYNTH_TILES) + (
     "adj par unit-r g", "adj par unit-c g")
 # legendre_tri_narrow_f64_plan's kinds of each kernel: threads << 20 |
 # dynamic shared memory, then its other keys (resident blocks an SM, a
-# synthesis' ring tiles and rings a warp, a dense kernel's columns and an
-# adjoint's rows l a block)
+# synthesis' ring tiles and rings a warp, its columns and an adjoint's rows
+# l a block)
 _NARROW_PLAN_KINDS = {
     "synth": (0, {"blocks_per_sm": 1, "ring_tiles": 2, "warp_rings": 5,
                   "col_tile": 12}),
     "adj": (3, {"blocks_per_sm": 4, "col_tile": 13, "rows": 14}),
-    "synth_par": (6, {"blocks_per_sm": 7, "ring_tiles": 8, "warp_rings": 9}),
-    "adj_par": (10, {"blocks_per_sm": 11})}
+    "synth_par": (6, {"blocks_per_sm": 7, "ring_tiles": 8, "warp_rings": 9,
+                      "col_tile": 15}),
+    "adj_par": (10, {"blocks_per_sm": 11, "col_tile": 16, "rows": 17})}
 # the float64 table's dense pair (csrc/legendre_tri_narrow_f64.cu): its
 # synthesis' warps a block at most (kWideSynWarps) and column warps
 # (kWideColWarps), its adjoint's rows l a block (kWideAdjRows)
 WIDE_SYNTH_WARPS = 16
 WIDE_COL_WARPS = 4
 WIDE_ADJ_ROWS = 128
+# ... and its parity pair's: the synthesis' column warps at most
+# (kWideParColWarps), the adjoint's rows l a block, half of each class
+# (kWideParAdjRows)
+WIDE_PAR_COL_WARPS = 4
+WIDE_PAR_ADJ_ROWS = 128
 _fns: dict = {}
 _loaded = {"tag": None}  # the build whose entry points are in _fns
 
@@ -371,14 +378,17 @@ def f64_plan(nr: int, C: int) -> dict:
 def narrow_col_tile(kind: str, es: int, nr: int, C: int) -> int:
     """The columns a block of ``kind`` ("synth", "adj", "synth_par" or
     "adj_par") of ``csrc/legendre_tri_narrow_f64.cu`` on a table of ``es``
-    bytes an element at nr rings and C columns: 8, 16 or 32, so that the
-    table is read once at every C <= 32; the float64 table's dense pair
-    (es 8) takes the wide tiles of ``wide_synth_plan`` and
-    ``wide_adj_plan``."""
-    if es == 8 and kind == "synth":
-        return wide_synth_plan(nr, C)["col_tile"]
-    if es == 8 and kind == "adj":
-        return wide_adj_plan(nr, C)["col_tile"]
+    bytes an element at nr rings (the output's or g's, for the parity
+    pair) and C columns: 8, 16 or 32, so that the table is read once at
+    every C <= 32; the float64 table's kernels (es 8) take the wide tiles of
+    ``wide_synth_plan``, ``wide_adj_plan``, ``wide_par_synth_plan`` and
+    ``wide_par_adj_plan``."""
+    if es == 8:
+        return {"synth": lambda: wide_synth_plan(nr, C),
+                "adj": lambda: wide_adj_plan(nr, C),
+                "synth_par": lambda: wide_par_synth_plan((nr + 1) // 2, C),
+                "adj_par": lambda: wide_par_adj_plan(nr, C)}[kind]()[
+                    "col_tile"]
     return 8 if C <= 8 else 16 if C <= 16 else 32
 
 
@@ -412,9 +422,44 @@ def wide_adj_plan(nr: int, C: int) -> dict:
     return {"rows": WIDE_ADJ_ROWS, "col_tile": 32 * wn, "warps": 4 * wn}
 
 
+def wide_par_synth_plan(nh: int, C: int) -> dict:
+    """The tiles of the float64 table's parity synthesis (float32 batch) at
+    nh north rings and C columns, as its launcher picks them
+    (``SynthParWidePlan`` in ``csrc/legendre_tri_narrow_f64.cu``; phase 2
+    of chip_smoke.py holds the two equal): warps of one class' sums over 16
+    rings x 32 columns at C <= 32, else x 64, a warp of each class for
+    every 16 rings x those columns; column warps enough for C, at most
+    WIDE_PAR_COL_WARPS (all 256 columns a block at C 256, so that the half
+    table enters the SMs once); ring warps so that a block holds at most
+    WIDE_SYNTH_WARPS warps; the fewest ring tiles, of sizes that differ by
+    at most one ring.  Returns {"ring_tiles", "warps" (a block),
+    "warp_rings", "col_tile" (columns a block)}."""
+    cw = 32 if C <= 32 else 64
+    wn = max(1, min(-(-C // cw), WIDE_PAR_COL_WARPS))
+    wmax = WIDE_SYNTH_WARPS // (2 * wn)
+    tiles = max(1, -(-(-(-nh // 16)) // wmax))
+    wr = max(1, -(-(-(-nh // tiles)) // 16))
+    return {"ring_tiles": tiles, "warps": 2 * wr * wn, "warp_rings": 16,
+            "col_tile": cw * wn}
+
+
+def wide_par_adj_plan(nr: int, C: int) -> dict:
+    """The tiles of the float64 table's parity adjoint (float32 batch) at
+    g's nr rings and C columns, as its launcher picks them
+    (``adj_wide_c32`` in ``csrc/legendre_tri_narrow_f64.cu``; phase 2 of
+    chip_smoke.py holds the two equal): WIDE_PAR_ADJ_ROWS rows l a block,
+    half of each class, on 4 warps of 32 rows of one class, times column
+    warps of 32 columns: one at C <= 32, two at C <= 64, else four (the
+    table enters the SMs once per 128 columns).  The same at every nr.
+    Returns {"rows", "col_tile" (columns a block), "warps" (a block)}."""
+    wn = 1 if C <= 32 else 2 if C <= 64 else 4
+    return {"rows": WIDE_PAR_ADJ_ROWS, "col_tile": 32 * wn,
+            "warps": WIDE_PAR_ADJ_ROWS // 32 * wn}
+
+
 def narrow_par_synth_plan(nh: int, C: int) -> dict:
-    """The ring tiles of the narrow-table float64 parity synthesis at nh
-    north rings and C columns, as its launcher picks them
+    """The ring tiles of the narrow-table float64 parity synthesis (a
+    bfloat16, float16 or float32 table) at nh north rings and C columns, as its launcher picks them
     (``SynthParNarrowPlan`` in ``csrc/legendre_tri_narrow_f64.cu``; phase 2
     of chip_smoke.py holds the two equal): a warp holds 16 rings at 32
     columns (two m16 tiles of both classes' sums would take 128 registers)
@@ -435,9 +480,9 @@ def narrow_plan(nr: int, C: int) -> dict:
     dynamic shared memory (bytes) and resident blocks an SM on the current
     card of the dense pair ("synth", "adj") and the parity pair
     ("synth_par", "adj_par"), each synthesis' ring tiles and rings a warp,
-    and the dense pair's columns a block ("col_tile") and the dense
-    adjoint's rows l a block ("rows") (the adjoints with g's unit stride on
-    r); builds first."""
+    each kernel's columns a block ("col_tile") and each adjoint's rows l a
+    block ("rows") (the adjoints with g's unit stride on r); builds
+    first."""
     if not _fns:
         build()
     fn = _fns["legendre_tri_narrow_f64_plan"]

@@ -35,7 +35,12 @@ design variant of one kernel, or the kernel with a part compiled out,
 which computes a wrong result on purpose: its copies, its MMAs or, for
 the bfloat16 dense adjoint and parity synthesis and the narrow-table
 float64 kernels, its staging pass or its stores alone; "wide-*" the
-float64-table dense pair's), and times only that kernel's SHAPES.  With ``--base TREE`` the variant is made from
+float64-table dense pair's, "wide-par-*" its parity pair's: each part
+alone, "wide-par-{copies,staging,mma,stores}-only", and the alternatives
+"wide-par-synth-128-columns" (two column warps a block), "-synth-3-deep"
+(three stages in flight), "-adj-64-columns", "-adj-256-rows" (128 rows of
+each class x 64 columns)), and times only that kernel's SHAPES.  With
+``--base TREE`` the variant is made from
 TREE's package and timed against TREE instead of this tree (the
 "narrow-par-v1-*" variants patch the first version of the narrow-table
 float64 parity synthesis, which a tree from before its redesign holds;
@@ -121,6 +126,9 @@ _NARROW_ADJ = tuple(("adj", f"{dt}+float64") for dt in ("bfloat16",
 # the float64-table float32 dense pair
 _WIDE_SYNTH, _WIDE_ADJ = ("synth", "float64+float32"), ("adj",
                                                          "float64+float32")
+# ... and its parity pair
+_WIDE_SYNTH_PAR = ("synth_par", "float64+float32")
+_WIDE_ADJ_PAR = ("adj_par", "float64+float32")
 # the issue of a stage's copies in the wide synthesis' ring, before the
 # products of the stage before, or after them
 _WIDE_RING = ("    cp_async_wait<K::DEPTH - 1>();\n    __syncthreads();\n"
@@ -300,6 +308,49 @@ VARIANTS = {
          "constexpr int kWideDepth = 3;")]),
     "wide-synth-late-copies": ((_WIDE_SYNTH,), [
         (_NARROW, _WIDE_RING, _WIDE_RING_LATE)]),
+    # the float64-table float32 parity synthesis and adjoint together,
+    # each part alone (LEGENDRE_NARROW_PARTS)
+    **{f"wide-par-{part}-only": ((_WIDE_SYNTH_PAR, _WIDE_ADJ_PAR),
+                                 _narrow_parts(bits))
+       for part, bits in (("copies", 1), ("staging", 2), ("mma", 4),
+                          ("stores", 8))},
+    # its design alternatives: synthesis blocks of at most 2 column warps
+    # (128 columns, 64 rings: the table enters twice, x half as often),
+    # three synthesis stages in flight; adjoint blocks of 64 columns (the
+    # table enters 4 times), of 256 rows l (128 of each class) x 64 columns
+    "wide-par-synth-128-columns": ((_WIDE_SYNTH_PAR,), [
+        (_NARROW, "constexpr int kWideParColWarps = 4;",
+         "constexpr int kWideParColWarps = 2;")]),
+    "wide-par-synth-3-deep": ((_WIDE_SYNTH_PAR,), [
+        (_NARROW, "constexpr int kWideDepth = 2;",
+         "constexpr int kWideDepth = 3;")]),
+    # ... and, measured for a later redesign: its k8 steps unrolled; blocks
+    # of 8 warps, 128 columns x 32 rings, two an SM (the table enters
+    # twice); adjoint blocks of 64 columns with one stage in flight, two
+    # an SM
+    "wide-par-synth-unrolled": ((_WIDE_SYNTH_PAR,), [
+        (_NARROW, "#pragma unroll 1\n      for (int kk = 0; kk < KL / 8; ++kk) {",
+         "#pragma unroll\n      for (int kk = 0; kk < KL / 8; ++kk) {")]),
+    "wide-par-synth-2-blocks": ((_WIDE_SYNTH_PAR,), [
+        (_NARROW, "constexpr int kWideParColWarps = 4;",
+         "constexpr int kWideParColWarps = 2;"),
+        (_NARROW, "constexpr int kWideSynWarps = 16;",
+         "constexpr int kWideSynWarps = 8;"),
+        (_NARROW, "__launch_bounds__(32 * kWideSynWarps, 1)\n    synth_par_wide(",
+         "__launch_bounds__(32 * kWideSynWarps, 2)\n    synth_par_wide(")]),
+    "wide-par-adj-2-blocks": ((_WIDE_ADJ_PAR,), [
+        (_NARROW, "return C <= 32 ? 1 : (C <= 64 ? 2 : 4);",
+         "return C <= 32 ? 1 : 2;"),
+        (_NARROW, "constexpr int kWideDepth = 2;",
+         "constexpr int kWideDepth = 1;")]),
+    "wide-par-adj-64-columns": ((_WIDE_ADJ_PAR,), [
+        (_NARROW, "return C <= 32 ? 1 : (C <= 64 ? 2 : 4);",
+         "return C <= 32 ? 1 : 2;")]),
+    "wide-par-adj-256-rows": ((_WIDE_ADJ_PAR,), [
+        (_NARROW, "return C <= 32 ? 1 : (C <= 64 ? 2 : 4);",
+         "return C <= 32 ? 1 : 2;"),
+        (_NARROW, "constexpr int kWideParAdjRows = 128;",
+         "constexpr int kWideParAdjRows = 256;")]),
     # the first version of its adjoint with a pair's column tiles next to
     # each other in launch order (blockIdx.x), so that L2 serves the
     # table's repeats

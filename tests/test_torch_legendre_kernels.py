@@ -886,3 +886,125 @@ def test_cuda_wide_dense_kernels_match_plain(cuda_device, L, nr, C):
     fns = (lk.legendre_synth_tri, lk.legendre_adj_tri)
     assert sum(f.launches_wide for f in fns) == calls
     assert sum(f.launches_narrow + f.launches_f64 for f in fns) == 0
+
+
+# (L, nr, C) of the float64 table's parity pair on the card
+# (wide_par_synth_plan, wide_par_adj_plan): the GL grid's nh 257 at C 256
+# (synthesis: 9 ring tiles of 2 ring warps of each class, 4 column warps;
+# adjoint: 2 column tiles of 128) with odd slabs of 19 and 18 rows, a ragged
+# C 200 (one synthesis column tile of 256, 4 ring tiles; adjoint 128 + 72),
+# C 64 with two adjoint row tiles of 128 rows l (L 150), an even nr at C 16
+# (one column warp of 32), three adjoint row tiles (L 260) at an even nr
+# and C 100 (synthesis 2 column warps, 2 ring tiles of 3 ring warps), the
+# band's 65 rings at C 256 (2 ring tiles)
+WIDE_PAR_CARD_SHAPES = [(37, 513, 256), (33, 201, 200), (150, 33, 64),
+                        (21, 18, 16), (260, 130, 100), (40, 65, 256)]
+
+# ((nr, C): (synthesis ring tiles, warps a block, columns a block; adjoint
+# columns a block)) of the float64 table's parity pair at the main path's
+# shapes (the GL grid's 513 rings and the HEALPix grid's 1023, 128 chains;
+# 256 at 1023 rings and C 512) and the card tests' (WIDE_PAR_CARD_SHAPES),
+# nr the output's or g's rings
+WIDE_PAR_PLAN = {
+    (513, 256): (9, 16, 256, 128), (1023, 256): (16, 16, 256, 128),
+    (1024, 512): (16, 16, 256, 128), (201, 200): (4, 16, 256, 128),
+    (33, 64): (1, 4, 64, 64), (18, 16): (1, 2, 32, 32),
+    (130, 100): (2, 12, 128, 128), (65, 256): (2, 16, 256, 128),
+    (1, 1): (1, 2, 32, 32), (2, 65): (1, 4, 128, 128),
+    (129, 64): (1, 10, 64, 64), (257, 33): (2, 10, 64, 64),
+    (64, 257): (1, 16, 256, 128)}
+
+
+@pytest.mark.parametrize("nr,C", sorted(WIDE_PAR_PLAN))
+def test_wide_par_plans(nr, C):
+    """The tiles of the float64 table's parity synthesis and adjoint (the
+    pure-Python mirrors of their launchers' plans, held equal to them on
+    the card by chip_smoke.py phase 2): synthesis warps of one class' sums
+    over 16 rings x 32 or 64 columns, a warp of each class for every 16
+    rings x those columns, column warps enough for C (at most 4: all 256
+    columns a block at C 256, so that the half table enters the SMs once
+    per ring tile), at most 16 warps a block, the fewest ring tiles of the
+    nh north rings, of sizes that differ by at most one ring with idle
+    lanes only in a tile's last ring warp; adjoint blocks of 128 rows l
+    (64 of each class) x 32, 64 or 128 columns (128 above 64 columns: the
+    table enters the SMs twice at C 256); narrow_col_tile gives the wide
+    tiles for an 8-byte table only.  The card tests reach one and several
+    ring, column and row tiles."""
+    nh = (nr + 1) // 2
+    sp, ap = lk.wide_par_synth_plan(nh, C), lk.wide_par_adj_plan(nr, C)
+    tiles, warps, tc, atc = WIDE_PAR_PLAN[(nr, C)]
+    assert (sp["ring_tiles"], sp["warps"], sp["col_tile"]) == (tiles, warps,
+                                                               tc)
+    assert sp["warp_rings"] == 16 and warps <= lk.WIDE_SYNTH_WARPS
+    cw = 32 if C <= 32 else 64
+    wn = tc // cw
+    assert 1 <= wn <= lk.WIDE_PAR_COL_WARPS and warps % (2 * wn) == 0
+    assert wn == lk.WIDE_PAR_COL_WARPS or tc >= C
+    sizes = [(t + 1) * nh // tiles - t * nh // tiles for t in range(tiles)]
+    wr = warps // (2 * wn)
+    assert max(sizes) - min(sizes) <= 1 and max(sizes) <= 16 * wr
+    assert 16 * (wr - 1) < max(sizes)
+    assert tiles == 1 or -(-nh // 16) > (tiles - 1) * (8 // wn)
+    assert ap == {"rows": 128, "col_tile": atc, "warps": atc // 8}
+    assert atc == (32 if C <= 32 else 128 if C > 64 else 64)
+    assert lk.narrow_col_tile("synth_par", 8, nr, C) == tc
+    assert lk.narrow_col_tile("adj_par", 8, nr, C) == atc
+    if C == 256:  # the main path's: the table enters the SMs once per
+        assert (tc, atc) == (256, 128)  # ring tile, twice per row tile
+    card = {(nr_, C_) for _, nr_, C_ in WIDE_PAR_CARD_SHAPES}
+    assert card <= set(WIDE_PAR_PLAN)
+    assert {WIDE_PAR_PLAN[k][0] > 1 for k in card} == {False, True}
+    assert {WIDE_PAR_PLAN[k][3] for k in card} == {32, 64, 128}
+    assert {k[0] % 2 for k in card} == {0, 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,nr,C", WIDE_PAR_CARD_SHAPES)
+def test_cuda_wide_par_kernels_match_plain(cuda_device, L, nr, C):
+    """The float64 table's parity synthesis and adjoint (float32 batch) at
+    the wide parity tiles' shapes, flip and not, on the full table and the
+    two-way split's slabs, g with unit stride on r and on c, against their
+    plain versions on the card: within one float32 ulp of max|ref| (float64
+    sums of the same exact products in other orders, each class's rounded
+    once to float32 before the synthesis combines them; the adjoint's fold
+    formed in float32 and widened), the float32 outputs given NaN-filled
+    memory; each launch counted in ``launches_wide``."""
+    f64, f32 = torch.float64, torch.float32
+    gen = torch.Generator(device=cuda_device).manual_seed(L + nr + C)
+    tri = (torch.arange(L, device=cuda_device)[None, :, None]
+           >= torch.arange(L, device=cuda_device)[:, None, None])
+    lam = (torch.randn((L, L, (nr + 1) // 2), generator=gen, dtype=f64,
+                       device=cuda_device) * tri).contiguous()
+    x = torch.randn((L, C, L), generator=gen, dtype=f32, device=cuda_device)
+    g = torch.randn((L, nr, C), generator=gen, dtype=f32, device=cuda_device)
+    xv, gv = _state_views(x, g)
+    lk.reset_launch_counts()
+    calls = 0
+    for ms in [None] + [torch.as_tensor(r, dtype=torch.int32,
+                                        device=cuda_device)
+                        for r in m_rows(L, 2)]:
+        sel = (lambda t: t) if ms is None else (
+            lambda t: t.index_select(0, ms.long()).contiguous())
+        xs = xv if ms is None else sel(xv)
+        gls = [g, gv] if ms is None else [g_ for g_ in (
+            sel(g), _state_views(x, sel(g))[1])]
+        for flip in (False, True):
+            cases = [(lk.legendre_synth_par, lk.legendre_synth_par_plain, xs,
+                      (nr, flip), (L, nr, C))]
+            cases += [(lk.legendre_adj_par, lk.legendre_adj_par_plain, gl,
+                       (flip,), (C, L, L)) for gl in gls]
+            for kern, plain, b, args, shape in cases:
+                torch.full(shape, float("nan"), dtype=f32,
+                           device=cuda_device)
+                out = kern(sel(lam), b, *args, ms)
+                ref = plain(sel(lam), b, *args, ms)
+                torch.cuda.synchronize()
+                calls += 1
+                assert out.dtype == f32
+                err = float((out - ref).abs().max())
+                assert bool(torch.isfinite(out).all())
+                assert err <= torch.finfo(f32).eps * float(ref.abs().max()), (
+                    kern.__name__, ms is None, flip, b.stride(), err)
+    fns = (lk.legendre_synth_par, lk.legendre_adj_par)
+    assert sum(f.launches_wide for f in fns) == calls
+    assert sum(f.launches_narrow + f.launches_f64 for f in fns) == 0
