@@ -14,6 +14,8 @@ from dataclasses import dataclass, field
 
 import torch
 
+from .trace import tracing
+
 __all__ = ["PhaseTimer", "profile_trace", "step_phase_times"]
 
 
@@ -133,13 +135,15 @@ def step_phase_times(scheme, state, gen: torch.Generator, reps: int = 3):
 @contextlib.contextmanager
 def profile_trace(logdir: str):
     """A ``torch.profiler`` trace of the block (CPU, and CUDA when a card
-    is present), written to ``logdir`` for TensorBoard / Perfetto; yields
-    the profiler.  A profiler that fails to start raises."""
+    is present), written to ``logdir`` for TensorBoard / Perfetto, with the
+    package's spans on (``trace.tracing``: ``gs.gibbs.step``, ``gs.gibbs.cr``,
+    ``gs.op.*``, ``gs.sht.*``, ...); yields the profiler.  A profiler that
+    fails to start raises."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(
             activities=acts,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                str(logdir))) as prof:
+                str(logdir))) as prof, tracing():
         yield prof

@@ -26,6 +26,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..diagnostics import trace
+
 __all__ = ["cg_solve", "CGInfo"]
 
 
@@ -111,7 +113,7 @@ def cg_solve(operator: Callable[[torch.Tensor], torch.Tensor],
 
     if lo is None or not replace_every:
         active = still(i, norm(r))
-        while bool(active.any()):
+        while trace.host_bool("cg.iter", active.any()):
             qp = apply_op(p)
             denom = dot(p, qp)
             alpha = rz / torch.where(denom == 0, 1.0, denom)
@@ -135,7 +137,7 @@ def cg_solve(operator: Callable[[torch.Tensor], torch.Tensor],
     rref = norm(r)
     xb, rb, rbn = x, r, rref
     active = still(i, rref)
-    while bool(active.any()):
+    while trace.host_bool("cg.iter", active.any()):
         qp = apply_op(p)
         denom = dot(p, qp)
         bad = (denom <= 0) | (rz <= 0)
@@ -151,7 +153,7 @@ def cg_solve(operator: Callable[[torch.Tensor], torch.Tensor],
         beta = rz_n / torch.where(rz == 0, 1.0, rz)
         p_n = z + beta[nb] * p
         rref_n = rref
-        if bool(do_repl.any()):
+        if trace.host_bool("cg.replace", do_repl.any()):
             # the true residual at the new iterate; restart from the best
             # (x, true residual) pair of the chains that replace
             rr = b - rep_op(x_n)

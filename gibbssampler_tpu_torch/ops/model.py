@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..diagnostics import trace
 from ..harmonics.gridstate import (almxfl_state, ell_mask_state,
                                    expand_cl_state, nstate)
 from ..harmonics.spectra import device_constant
@@ -165,9 +166,11 @@ class SkyModel:
             out += sht.adjoint_synthesis_spin2_state(field(e), field(e + 1))
         return torch.stack(out, dim=-2)
 
+    @trace.traced("op.synthesis")
     def synthesis(self, s: torch.Tensor) -> torch.Tensor:
         return self._synthesis_with(self.sht, s)
 
+    @trace.traced("op.adjoint")
     def adjoint_synthesis(self, f: torch.Tensor) -> torch.Tensor:
         return self._adjoint_with(self.sht, f)
 
@@ -203,22 +206,27 @@ class SkyModel:
 
     # ---- cut-sky complement operators ------------------------------------
 
+    @trace.traced("op.synthesis_cut")
     def synthesis_cut(self, s: torch.Tensor) -> torch.Tensor:
         """A s restricted to the cut rings (..., nfields, ncut, nphi)."""
         return self._synthesis_with(self.cut_sht, s)
 
+    @trace.traced("op.adjoint_cut")
     def adjoint_synthesis_cut(self, f_cut: torch.Tensor) -> torch.Tensor:
         """A_cut^T f (exact transpose of synthesis_cut)."""
         return self._adjoint_with(self.cut_sht, f_cut)
 
+    @trace.traced("op.synthesis_sp")
     def synthesis_sp(self, s: torch.Tensor) -> torch.Tensor:
         """A s at the sparse hole points (..., nfields, nr_sp, p)."""
         return self._synthesis_with(self.sp_sht, s)
 
+    @trace.traced("op.adjoint_sp")
     def adjoint_synthesis_sp(self, f_sp: torch.Tensor) -> torch.Tensor:
         """A_sp^T f (exact transpose of synthesis_sp)."""
         return self._adjoint_with(self.sp_sht, f_sp)
 
+    @trace.traced("op.synthesis_cut_sp")
     def synthesis_cut_sp(self, s: torch.Tensor):
         """(A_cut s, A_sp s) as one fused pair: the Legendre-stage input
         grids are built once and feed both transforms.  The point values
@@ -238,6 +246,7 @@ class SkyModel:
             ms += sp._spin2_points_from_F(*sp._spin2_F_stacks(ap, am))
         return torch.stack(mc, dim=-3), torch.stack(ms, dim=-3)
 
+    @trace.traced("op.adjoint_cut_sp")
     def adjoint_cut_sp(self, f_cut: torch.Tensor,
                        f_sp: Optional[torch.Tensor]) -> torch.Tensor:
         """A_cut^T f_cut + A_sp^T f_sp, the two contributions summed at
@@ -299,6 +308,7 @@ class SkyModel:
         c1 = self.adjoint_synthesis(n0 * self.d)
         return c0, c1
 
+    @trace.traced("op.loglike_cut")
     def data_loglike_cut(self, u: torch.Tensor,
                          au_cut: Optional[torch.Tensor] = None,
                          au_sp: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -325,6 +335,7 @@ class SkyModel:
             out = out + 0.5 * (self.w_sp * r_sp * r_sp).sum(dim=(-3, -2, -1))
         return out
 
+    @trace.traced("op.loglike_cut_delta")
     def data_loglike_cut_delta(self, u: torch.Tensor, au_cut: torch.Tensor,
                                au_sp: Optional[torch.Tensor], du: torch.Tensor,
                                adu_cut: torch.Tensor,

@@ -35,7 +35,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
-from ..sht.lcore import LegendreCore
+from ..sht.lcore import LegendreCore, legendre_span
 from ..sht.legendre_kernels import legendre_adj_tri, legendre_synth_tri
 
 __all__ = ["make_mesh", "chain_sharding", "chain_seed", "shard_sht",
@@ -171,6 +171,7 @@ class _MSlab:
             t = _all_gather(t, self._mgroup, self._nm).flatten(0, 1)
         return t.index_select(0, self._mpos)
 
+    @legendre_span("synth")
     def _lsynth_stack(self, lam: torch.Tensor, g2: torch.Tensor,
                       flip: bool = False) -> torch.Tensor:
         L = self.lmax + 1
@@ -185,6 +186,7 @@ class _MSlab:
         F = self._gather_rows(F)
         return F.permute(2, 1, 0).reshape(batch + (F.shape[1], L))
 
+    @legendre_span("adj")
     def _ladj_stack(self, lam: torch.Tensor, g: torch.Tensor,
                     flip: bool = False) -> torch.Tensor:
         L = self.lmax + 1

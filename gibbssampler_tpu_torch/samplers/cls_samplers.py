@@ -32,6 +32,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..diagnostics import trace
 from ..harmonics.gridstate import (alm2cl_state, almxfl_state,
                                    expand_cl_state, state_masks,
                                    variance_expansion_state)
@@ -47,6 +48,7 @@ __all__ = ["standard_gamma", "invgamma_dl", "centered_cls_sample",
            "CutMHPlan", "nc_cls_sample_cut", "whiten", "recenter"]
 
 
+@trace.traced("cls.gamma")
 def standard_gamma(alpha: torch.Tensor, gen=None) -> torch.Tensor:
     """Gamma(alpha, 1) variates of alpha's shape for alpha >= 1 (Marsaglia
     & Tsang 2000; the conjugate draw's shapes are all >= 1.5).
@@ -55,14 +57,14 @@ def standard_gamma(alpha: torch.Tensor, gen=None) -> torch.Tensor:
     accept when log U < z^2/2 + d - d v + d log v.  Each round proposes for
     every element still pending (acceptance >= 95%), so a few rounds
     suffice; one host sync per round."""
-    if bool((alpha < 1.0).any()):
+    if trace.host_bool("gamma.alpha", (alpha < 1.0).any()):
         raise ValueError("standard_gamma needs alpha >= 1")
     a = alpha
     d = a - 1.0 / 3.0
     c = 1.0 / torch.sqrt(9.0 * d)
     out = torch.empty_like(a)
     pending = torch.ones_like(a, dtype=torch.bool)
-    while bool(pending.any()):
+    while trace.host_bool("gamma.round", pending.any()):
         z = torch.randn(a.shape, generator=gen, dtype=a.dtype, device=a.device)
         u = torch.rand(a.shape, generator=gen, dtype=a.dtype, device=a.device)
         v = (1.0 + c * z) ** 3
@@ -94,6 +96,7 @@ def invgamma_dl(s_flat: torch.Tensor, bins: np.ndarray, lmax: int,
     return beta / gamma
 
 
+@trace.traced("cls.conjugate")
 def centered_cls_sample(s: torch.Tensor, bins_list: Sequence[np.ndarray],
                         lmax: int, gammas=None, gen=None):
     """Independent binned inverse-gamma draws per field.  s: (...,
@@ -105,6 +108,7 @@ def centered_cls_sample(s: torch.Tensor, bins_list: Sequence[np.ndarray],
                  for f, (bins, g) in enumerate(zip(bins_list, gammas)))
 
 
+@trace.traced("cls.invwishart")
 def invwishart_cls_sample(s: torch.Tensor, lmax: int, lmin: int = 2,
                           chi2=None, normals=None, gen=None) -> torch.Tensor:
     """Per-ell joint draw C_l ~ InvWishart(nu = 2l+1, Psi = S_l), S_l the
@@ -195,6 +199,7 @@ def _dl_tuple_to_var(dl_tuple, bins_list, lmax, dtype):
         for dl, bins in zip(dl_tuple, bins_list)], dim=-2)
 
 
+@trace.traced("cls.whiten")
 def whiten(s, dl_tuple, bins_list, lmax):
     """s_nc = C^-1/2 s (slots with C = 0 stay 0)."""
     var = _dl_tuple_to_var(dl_tuple, bins_list, lmax, s.dtype)
@@ -203,6 +208,7 @@ def whiten(s, dl_tuple, bins_list, lmax):
     return s * inv_sqrt
 
 
+@trace.traced("cls.recenter")
 def recenter(s_nc, dl_tuple, bins_list, lmax):
     """s = C^{1/2} s_nc."""
     var = _dl_tuple_to_var(dl_tuple, bins_list, lmax, s_nc.dtype)
@@ -1047,30 +1053,35 @@ def _sweep(plan, model, grids, t, tv, alpha, beta, dlcat, ll, state, res,
 
     u, au, au_sp = state
     big = list(zip(plan.big_rows, plan.big_fields))
-    for i, (row, f) in enumerate(big):
-        mb = plan.bmask[row]
-        cand = torch.where(mb > 0, props, dlcat)
-        # the exact log-ratio from one synthesis of the move; the residual
-        # moves by the move's maps
-        dll, du, adu, adu_sp = plan.big_dll(tv, dlcat, cand, u, au, au_sp, f)
-        qcorr = (mb * lr_vec).sum(-1)
-        acc = log_u[..., row] < dll + qcorr
-        dlcat = torch.where(acc[..., None], cand, dlcat)
-        ll = torch.where(acc, ll + dll, ll)
-        # what a later big block reads: u on its own field, and the maps
-        if f in plan.big_fields[i + 1:]:
-            u[..., f, :].addcmul_(du[..., f, :], acc.to(dt)[..., None])
-        if i + 1 < len(big):
-            au = _select(acc, au + adu, au)
-            au_sp = _select(acc, None if au_sp is None else au_sp + adu_sp,
-                            au_sp)
-        res = plan.move_residual(res, acc, adu, adu_sp)
-        accs[..., row] = acc.to(dt)
+    with trace.span("mh.big"):
+        for i, (row, f) in enumerate(big):
+            mb = plan.bmask[row]
+            cand = torch.where(mb > 0, props, dlcat)
+            # the exact log-ratio from one synthesis of the move; the
+            # residual moves by the move's maps
+            dll, du, adu, adu_sp = plan.big_dll(tv, dlcat, cand, u, au,
+                                                au_sp, f)
+            qcorr = (mb * lr_vec).sum(-1)
+            acc = log_u[..., row] < dll + qcorr
+            dlcat = torch.where(acc[..., None], cand, dlcat)
+            ll = torch.where(acc, ll + dll, ll)
+            # what a later big block reads: u on its own field, and the
+            # maps
+            if f in plan.big_fields[i + 1:]:
+                u[..., f, :].addcmul_(du[..., f, :], acc.to(dt)[..., None])
+            if i + 1 < len(big):
+                au = _select(acc, au + adu, au)
+                au_sp = _select(acc, None if au_sp is None
+                                else au_sp + adu_sp, au_sp)
+            res = plan.move_residual(res, acc, adu, adu_sp)
+            accs[..., row] = acc.to(dt)
 
     singles = {"table": _singles_t, "coef": _singles_coef,
                "phi": _singles_phi}[plan.engine]
-    dlcat, ll, res, accs = singles(plan, model, grids, t, alpha, beta, props,
-                                   lr_vec, log_u, dlcat, ll, res, accs)
+    with trace.span("mh.singles"):
+        dlcat, ll, res, accs = singles(plan, model, grids, t, alpha, beta,
+                                       props, lr_vec, log_u, dlcat, ll, res,
+                                       accs)
     return dlcat, ll, res, accs
 
 

@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..diagnostics import trace
 from ..harmonics.gridstate import expand_cl_state
 from ..ops.cg import cg_solve
 from ..ops.model import SkyModel, sum_last_f64
@@ -103,6 +104,7 @@ def _batch_shape(var_cls, s_old=None):
     return tuple(shape[:-2])
 
 
+@trace.traced("cr.exact")
 def exact_cr(model: SkyModel, var_cls, bt_ninv_d, noise=None, gen=None):
     """Full-sky exact draw: Sigma = (C^-1 + g b_l^2)^-1 elementwise."""
     inv_cvar = _safe_inv(var_cls)
@@ -154,6 +156,7 @@ def _q_op(model: SkyModel, inv_cvar):
     return lambda x: model.q_apply(x, inv_cvar)
 
 
+@trace.traced("cr.cg")
 def cg_cr(model: SkyModel, var_cls, bt_ninv_d, s_old=None, tol=1e-6,
           maxiter=4000, noise=None, gen=None):
     """Perturbation-optimization CG draw, seeded at zero (``s_old`` is
@@ -169,6 +172,7 @@ def cg_cr(model: SkyModel, var_cls, bt_ninv_d, s_old=None, tol=1e-6,
                      extra=info.iterations.to(x.dtype))
 
 
+@trace.traced("cr.rjpo")
 def rjpo_cr(model: SkyModel, var_cls, bt_ninv_d, s_old, tol=1e-5,
             maxiter=4000, noise=None, gen=None, u=None):
     """RJPO: solve the fluctuated system approximately and Metropolis-
@@ -241,6 +245,7 @@ def _aux_ops(model: SkyModel, var_cls):
     return gap, sigma, fwd, proj
 
 
+@trace.traced("cr.aux")
 def aux_gibbs_cr(model: SkyModel, var_cls, bt_ninv_d, s_old,
                  n_gibbs: int = 1, noise=None, gen=None):
     """Auxiliary-variable Gibbs: augment with the pixel field
@@ -264,6 +269,7 @@ def aux_gibbs_cr(model: SkyModel, var_cls, bt_ninv_d, s_old,
     return s, CRInfo(accept=s.new_ones(batch), extra=s.new_zeros(batch))
 
 
+@trace.traced("cr.overrelax")
 def overrelax_cr(model: SkyModel, var_cls, bt_ninv_d, s_old,
                  alpha: float = -0.995, n_gibbs: int = 1, noise=None,
                  gen=None):
@@ -434,6 +440,7 @@ def mala_log_ratio(model: SkyModel, var_cls, bt_ninv_d, s, s_prop,
             - logq(s_prop, s + tau * ops.sigma * g_s))
 
 
+@trace.traced("cr.mala")
 def mala_cr(model: SkyModel, var_cls, bt_ninv_d, s_old, tau: float = 0.02,
             accept: bool = True, noise=None, gen=None, u=None):
     """Preconditioned MALA: s' = s + tau Sigma grad + sqrt(2 tau Sigma) xi,
@@ -494,6 +501,7 @@ def pcn_log_ratio(model: SkyModel, s, s_prop, exact: bool = True):
     return like.ll(s_prop, like.fwd(s_prop)) - like.ll(s, maps)
 
 
+@trace.traced("cr.pcn")
 def pcn_cr(model: SkyModel, var_cls, bt_ninv_d, s_old, beta: float = 0.1,
            noise=None, gen=None, u=None):
     """Preconditioned Crank-Nicolson step: the prior-reversible proposal

@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from ..diagnostics import trace
 from ..harmonics.gridstate import ell_mask_state, state_masks
 from ..harmonics.spectra import device_constant
 from ..ops.cg import cg_solve
@@ -126,6 +127,7 @@ def _slot_chol_sample(P, b, active, xi=None, gen=None):
     return x * active
 
 
+@trace.traced("cr.exact_joint")
 def exact_joint_cr(model, cl_blocks, bt_ninv_d, xi=None, gen=None):
     """Full-sky exact joint CR draw.
 
@@ -175,6 +177,7 @@ def joint_block_ops(model, cl_blocks, fsky_scale: bool = True):
     return mv(cinv), mv(M), mv(pinv), active
 
 
+@trace.traced("cr.cg_joint")
 def cg_joint_cr(model, cl_blocks, bt_ninv_d, tol=1e-6, maxiter=4000,
                 om0=None, om1=None, gen=None):
     """Masked-sky joint CR draw by block-preconditioned CG on

@@ -15,6 +15,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..diagnostics import trace
 from ..harmonics.gridstate import expand_cl_state, variance_expansion_state
 from ..harmonics.spectra import unfold_bins
 from ..ops.model import SkyModel
@@ -79,6 +80,14 @@ def _make_cr_step(method: str, model: SkyModel, bt_ninv_d, opts: dict):
     raise ValueError(f"unknown CR method {method!r}; one of {CR_METHODS}")
 
 
+def step_span(scheme):
+    """Span ``gibbs.step`` of the scheme's next step, its args that step's
+    index (``scheme.nsteps``, the steps the scheme has taken before)."""
+    i = scheme.nsteps
+    scheme.nsteps = i + 1
+    return trace.span("gibbs.step", lambda: f"step={i}")
+
+
 @dataclass
 class GibbsScheme:
     """Machinery shared by the schemes: prior variance, initial draw,
@@ -97,6 +106,7 @@ class GibbsScheme:
         self.bt_ninv_d = self.model.bt_ninv_d()
         self._cr_step = _make_cr_step(self.cr_method, self.model,
                                       self.bt_ninv_d, self.cr_options)
+        self.nsteps = 0
 
     @property
     def device(self) -> torch.device:
@@ -123,6 +133,7 @@ class GibbsScheme:
         s, _ = self._cr_step(s0, self.var_cls(dl0), gen=gen)
         return GibbsState(s=s, dl=dl0)
 
+    @trace.traced("gibbs.draw")
     def draw_noise_pool(self, nchains: int,
                         gen: torch.Generator | None = None) -> dict:
         """Pre-draw the CR step's Gaussian fields for all chains:
@@ -186,10 +197,14 @@ class CenteredGibbs(GibbsScheme):
         ``u``: MALA accept uniforms (nchains,); ``gammas``: per-field gamma
         variates (nchains, nbins_f).  Whatever is not injected is drawn
         from ``gen``."""
-        s, cr_info = self._cr_step(state.s, self.var_cls(state.dl), noise,
-                                   gen, u)
-        dl = cls_mod.centered_cls_sample(s, self.bins_list, self.lmax,
-                                         gammas=gammas, gen=gen)
+        with step_span(self):
+            with trace.span("gibbs.cr"):
+                s, cr_info = self._cr_step(state.s, self.var_cls(state.dl),
+                                           noise, gen, u)
+            with trace.span("gibbs.cls"):
+                dl = cls_mod.centered_cls_sample(s, self.bins_list,
+                                                 self.lmax, gammas=gammas,
+                                                 gen=gen)
         return GibbsState(s=s, dl=dl), {"dl": dl,
                                         "cr_accept": cr_info.accept}
 
@@ -275,6 +290,7 @@ class _BlockedMHGibbs(GibbsScheme):
         if self.mh_plan is not None:
             self.mh_plan.set_sigma(sig)
 
+    @trace.traced("cls.mh")
     def mh_step(self, dl, s_nc, u_prop=None, u_acc=None, gen=None):
         """The blocked-MH D_ell step given the whitened map: the fast path
         on the plan's engine when eligible, else the direct evaluation."""
@@ -305,12 +321,17 @@ class NonCenteredGibbs(_BlockedMHGibbs):
              u_prop=None, u_acc=None):
         """One iteration of every chain.  Injectable variates as in
         ``ASISGibbs.step`` (no gamma variates: no conjugate draw)."""
-        s, cr_info = self._cr_step(
-            cls_mod.recenter(state.s, state.dl, self.bins_list, self.lmax),
-            self.var_cls(state.dl), noise, gen, u)
-        s_nc = cls_mod.whiten(s, state.dl, self.bins_list, self.lmax)
-        dl, mh_info = self.mh_step(state.dl, s_nc, u_prop=u_prop,
-                                   u_acc=u_acc, gen=gen)
+        with step_span(self):
+            s = cls_mod.recenter(state.s, state.dl, self.bins_list,
+                                 self.lmax)
+            with trace.span("gibbs.cr"):
+                s, cr_info = self._cr_step(s, self.var_cls(state.dl), noise,
+                                           gen, u)
+            with trace.span("gibbs.cls"):
+                s_nc = cls_mod.whiten(s, state.dl, self.bins_list,
+                                      self.lmax)
+                dl, mh_info = self.mh_step(state.dl, s_nc, u_prop=u_prop,
+                                           u_acc=u_acc, gen=gen)
         return GibbsState(s=s_nc, dl=dl), {"dl": dl,
                                            "cr_accept": cr_info.accept,
                                            "mh_accept": mh_info.accept}
@@ -327,14 +348,18 @@ class ASISGibbs(_BlockedMHGibbs):
         ``CenteredGibbs.step``, plus the MH step's ``u_prop`` (nchains,
         n_iter_mh, nbins_total) and ``u_acc`` (nchains, n_iter_mh,
         nblocks) uniforms."""
-        s, cr_info = self._cr_step(state.s, self.var_cls(state.dl), noise,
-                                   gen, u)
-        dl_c = cls_mod.centered_cls_sample(s, self.bins_list, self.lmax,
-                                           gammas=gammas, gen=gen)
-        s_nc = cls_mod.whiten(s, dl_c, self.bins_list, self.lmax)
-        dl, mh_info = self.mh_step(dl_c, s_nc, u_prop=u_prop, u_acc=u_acc,
-                                   gen=gen)
-        s = cls_mod.recenter(s_nc, dl, self.bins_list, self.lmax)
+        with step_span(self):
+            with trace.span("gibbs.cr"):
+                s, cr_info = self._cr_step(state.s, self.var_cls(state.dl),
+                                           noise, gen, u)
+            with trace.span("gibbs.cls"):
+                dl_c = cls_mod.centered_cls_sample(s, self.bins_list,
+                                                   self.lmax, gammas=gammas,
+                                                   gen=gen)
+                s_nc = cls_mod.whiten(s, dl_c, self.bins_list, self.lmax)
+                dl, mh_info = self.mh_step(dl_c, s_nc, u_prop=u_prop,
+                                           u_acc=u_acc, gen=gen)
+                s = cls_mod.recenter(s_nc, dl, self.bins_list, self.lmax)
         return GibbsState(s=s, dl=dl), {"dl": dl,
                                         "cr_accept": cr_info.accept,
                                         "mh_accept": mh_info.accept}
@@ -400,19 +425,27 @@ class PNCPGibbs(_BlockedMHGibbs):
         kept below each field's cut bin, whiten the high multipoles,
         blocked MH, recenter.  Injectable variates as in
         ``ASISGibbs.step``."""
-        s, cr_info = self._cr_step(state.s, self.var_cls(state.dl), noise,
-                                   gen, u)
-        dl_c = cls_mod.centered_cls_sample(s, self.bins_list, self.lmax,
-                                           gammas=gammas, gen=gen)
-        dl = tuple(torch.where(torch.arange(d.shape[-1], device=d.device)
-                               < cb, d, old)
-                   for d, old, cb in zip(dl_c, state.dl, self.cut_bin))
-        var_h = self._var_high(dl, s.dtype)
-        s_pnc = s * torch.where(var_h > 0, 1.0 / torch.sqrt(
-            torch.where(var_h > 0, var_h, 1.0)), 0.0)
-        dl, mh_info = self.mh_step(dl, s_pnc, u_prop=u_prop, u_acc=u_acc,
-                                   gen=gen)
-        s = torch.sqrt(self._var_high(dl, s.dtype)) * s_pnc
+        with step_span(self):
+            with trace.span("gibbs.cr"):
+                s, cr_info = self._cr_step(state.s, self.var_cls(state.dl),
+                                           noise, gen, u)
+            with trace.span("gibbs.cls"):
+                dl_c = cls_mod.centered_cls_sample(s, self.bins_list,
+                                                   self.lmax, gammas=gammas,
+                                                   gen=gen)
+                dl = tuple(torch.where(torch.arange(d.shape[-1],
+                                                    device=d.device)
+                                       < cb, d, old)
+                           for d, old, cb in zip(dl_c, state.dl,
+                                                 self.cut_bin))
+                with trace.span("cls.whiten"):
+                    var_h = self._var_high(dl, s.dtype)
+                    s_pnc = s * torch.where(var_h > 0, 1.0 / torch.sqrt(
+                        torch.where(var_h > 0, var_h, 1.0)), 0.0)
+                dl, mh_info = self.mh_step(dl, s_pnc, u_prop=u_prop,
+                                           u_acc=u_acc, gen=gen)
+                with trace.span("cls.recenter"):
+                    s = torch.sqrt(self._var_high(dl, s.dtype)) * s_pnc
         return GibbsState(s=s, dl=dl), {"dl": dl,
                                         "cr_accept": cr_info.accept,
                                         "mh_accept": mh_info.accept}

@@ -14,8 +14,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..diagnostics import trace
 from ..samplers.cls_samplers import invwishart_cls_sample
 from ..samplers.joint import blocks_to_dl, cg_joint_cr, exact_joint_cr
+from .gibbs import step_span
 
 __all__ = ["JointState", "JointCenteredGibbs"]
 
@@ -43,6 +45,7 @@ class JointCenteredGibbs:
         self.cr_method = cr_method
         self.cr_options = dict(cr_options or {})
         self.bt_ninv_d = model.bt_ninv_d()
+        self.nsteps = 0
 
     @property
     def device(self) -> torch.device:
@@ -76,9 +79,13 @@ class JointCenteredGibbs:
         """One iteration of every chain.  ``noise``: the CR variates as in
         ``_cr``; ``chi2`` / ``normals``: the inverse-Wishart draw's
         variates.  Whatever is not injected is drawn from ``gen``."""
-        s, cr_info = self._cr(state.cl, noise, gen)
-        cl = invwishart_cls_sample(s, self.lmax, lmin=self.lmin, chi2=chi2,
-                                   normals=normals, gen=gen)
+        with step_span(self):
+            with trace.span("gibbs.cr"):
+                s, cr_info = self._cr(state.cl, noise, gen)
+            with trace.span("gibbs.cls"):
+                cl = invwishart_cls_sample(s, self.lmax, lmin=self.lmin,
+                                           chi2=chi2, normals=normals,
+                                           gen=gen)
         return JointState(s=s, cl=cl), {"dl": (blocks_to_dl(cl, self.lmax),),
                                         "cr_accept": cr_info.accept}
 

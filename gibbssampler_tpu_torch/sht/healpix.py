@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..diagnostics import trace
 from .lcore import FlatAlmMethods, LegendreCore
 from .legendre import legendre_table, wigner_d_table
 
@@ -346,9 +347,11 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
         """RING order (..., npix) -> padded layout (zeros on padding)."""
         return maps[..., self._src_of] * self._src_valid
 
+    @trace.traced("sht.rings")
     def _maps_out(self, padded):
         return self.to_ring(padded) if self.layout == "ring" else padded
 
+    @trace.traced("sht.rings")
     def _maps_in(self, maps):
         maps = maps.to(self.dtype)
         return self.from_ring(maps) if self.layout == "ring" else maps
@@ -366,6 +369,7 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
         nr = self.nrings
         return X[..., nr - hi: nr - lo, :].flip(-2)
 
+    @trace.traced("sht.rings")
     def _cos_sin_eval(self, Xre, Xim):
         """padded (..., npadded) = sum_m Xre cos(m phi) - Xim sin(m phi)
         from (..., nrings, L) ring Fourier coefficients (rounded to the
@@ -398,6 +402,7 @@ class HealpixSHT(FlatAlmMethods, LegendreCore):
         return torch.cat(outs_n + [belt.reshape(batch + (-1,))] + outs_s,
                          dim=-1)
 
+    @trace.traced("sht.rings")
     def _cos_sin_adj(self, padded):
         """Transpose of ``_cos_sin_eval``: padded (..., npadded) -> (C, S)
         with C_rm = sum_j f cos(m phi_j), S_rm = sum_j f sin(m phi_j)

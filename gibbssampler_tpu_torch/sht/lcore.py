@@ -58,6 +58,7 @@ import math
 import numpy as np
 import torch
 
+from ..diagnostics import trace
 from ..harmonics.gridstate import flat_to_state, state_masks, state_to_flat
 from .legendre_kernels import (cast_to, legendre_adj_par, legendre_adj_tri,
                                legendre_synth_par, legendre_synth_tri)
@@ -105,6 +106,15 @@ def resolve_table_dtype(table_dtype, dtype):
         "port takes tables in the compute dtype, bfloat16 or float16 "
         "tables with float32 compute, bfloat16, float16 or float32 tables "
         "with float64 compute, or float64 tables with float32 compute")
+
+
+def legendre_span(kind: str):
+    """Span ``sht.legendre`` around a Legendre-stage call, its args the
+    call's kind, rings, batch columns C and table dtype."""
+    return trace.traced("sht.legendre", lambda self, lam, g, *a, **k: (
+        f"kind={kind} nr={2 * self.nrh + self.has_mid} "
+        f"C={math.prod(g.shape[:-2])} "
+        f"table={str(lam.dtype).replace('torch.', '')}"))
 
 
 class LegendreCore:
@@ -251,12 +261,14 @@ class LegendreCore:
 
     # -- state <-> grid packing (reshape + diagonal scale) -----------------
 
+    @trace.traced("sht.pack")
     def _state_grids(self, x: torch.Tensor) -> torch.Tensor:
         """Grid-packed state (..., nstate) -> scaled (..., 2, L, L) grids."""
         L = self.lmax + 1
         g = x.reshape(x.shape[:-1] + (2, L, L)).to(self.dtype)
         return g * self.pack_in
 
+    @trace.traced("sht.pack")
     def _grids_to_state(self, g2: torch.Tensor) -> torch.Tensor:
         """Stacked (..., 2, L, L) true Re/Im grids -> grid-packed state."""
         L = self.lmax + 1
@@ -264,6 +276,7 @@ class LegendreCore:
 
     # -- contraction cores -------------------------------------------------
 
+    @legendre_span("synth")
     def _lsynth_stack(self, lam: torch.Tensor, g2: torch.Tensor,
                       flip: bool = False) -> torch.Tensor:
         """(..., c, L, L) [.., m, l] grids -> F (..., c, nr, L) [.., r, m].
@@ -280,6 +293,7 @@ class LegendreCore:
         nr = out.shape[1]
         return out.permute(2, 1, 0).reshape(batch + (nr, L))
 
+    @legendre_span("lsel")
     def _lsel_F(self, lam: torch.Tensor, g2: torch.Tensor, j_idx,
                 seg=None) -> torch.Tensor:
         """Per-bin Legendre synthesis by an ell gather: (..., c, L, L)
@@ -339,6 +353,7 @@ class LegendreCore:
         seg[np.arange(ls.size), bs] = sel[bs, ls]
         return self._lsel_F(lam, g2, ls, seg)
 
+    @legendre_span("adj")
     def _ladj_stack(self, lam: torch.Tensor, g: torch.Tensor,
                     flip: bool = False) -> torch.Tensor:
         """(..., c, nr, L) [.., r, m] ring grids -> (..., c, L, L) alm grids,
@@ -361,6 +376,7 @@ class LegendreCore:
 
     # -- spin-2 Legendre stages --------------------------------------------
 
+    @trace.traced("sht.pack")
     def _spin2_stacks(self, e_state, b_state):
         """(ap, am) Legendre-stage input stacks of a+ = -(E + iB),
         a- = -(E - iB) (dense tables only)."""
@@ -406,6 +422,7 @@ class LegendreCore:
         am_re, am_im = self._ladj2(self.lam_m2, Cm_re, -Cm_im)
         return ap_re, ap_im, am_re, am_im
 
+    @trace.traced("sht.pack")
     def _spin2_recombine(self, ap_re, ap_im, am_re, am_im):
         """(a+, a-) grids -> (E, B) grid-packed states:
         E = -(a+ + a-)/2, B = i (a+ - a-)/2."""

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..diagnostics import trace
 from .lcore import LegendreCore
 from .legendre import legendre_table, spin2_lambda_tables
 
@@ -112,6 +113,7 @@ class PointSHT(LegendreCore):
 
     # -- azimuthal point stage (exact-transpose pair) ----------------------
 
+    @trace.traced("sht.rings")
     def _to_points(self, Cc, Cs):
         """Half-spectrum coefficients (..., nr, L) -> values (..., nr, p):
         v[r, k] = sum_m Cc cos(m phi_rk) + Cs sin(m phi_rk)."""
@@ -122,6 +124,7 @@ class PointSHT(LegendreCore):
                             self.sinT).to(self.dtype))
         return v * self.valid
 
+    @trace.traced("sht.rings")
     def _from_points(self, f):
         """Exact transpose of ``_to_points``: values -> (Sc, Ss) trig sums."""
         S = torch.einsum("...rp,rkp->...rk",
@@ -159,6 +162,7 @@ class PointSHT(LegendreCore):
         if self.lam_p2 is None:
             raise ValueError("PointSHT built without spin2=True")
 
+    @trace.traced("sht.rings")
     def _spin2_points_from_F(self, Fp_re, Fp_im, Fm_re, Fm_im):
         """(F+, F-) ring Fourier coefficients -> (Q, U) point values (the
         azimuthal assembly of ``SHT._spin2_maps_from_F`` at exact
@@ -176,6 +180,7 @@ class PointSHT(LegendreCore):
         self._require_spin2()
         return self._spin2_points_from_F(*self._spin2_F(e_state, b_state))
 
+    @trace.traced("sht.rings")
     def _spin2_ring_coefs(self, q, u):
         """(Q, U) point values -> (Cp_re, Cp_im, Cm_re, Cm_im) trig-sum
         coefficients C+ = sum (Q+iU) e^{-im phi}, C- = sum (Q+iU)
@@ -282,6 +287,7 @@ class PointSHT(LegendreCore):
                                   (Lb, self.sinF, self.cosF)],
                                  dtype or self.dtype)
 
+    @trace.traced("sht.rings")
     def flat_values(self, gsel: torch.Tensor, tab: torch.Tensor,
                     seg=None, cm: bool = False) -> torch.Tensor:
         """Per-bin ell-selected values on the flat slot axis from a

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..diagnostics import trace
 from .grids import SphereGrid, gauss_legendre_grid
 from .lcore import FlatAlmMethods, LegendreCore
 from .legendre import legendre_table, spin2_lambda_tables
@@ -181,6 +182,7 @@ class SHT(FlatAlmMethods, LegendreCore):
         return (torch.matmul(rnd(u), self.dft_cos.T).to(dt),
                 torch.matmul(rnd(v), self.dft_sin.T).to(dt))
 
+    @trace.traced("sht.rings")
     def _ring_ifft_real(self, Fre, Fim):
         """f[.., r, j] = sum_m (2 - delta_m0) (Fre cos(m phi_j) - Fim sin)."""
         Fre, Fim = self._rot(Fre, Fim, +1)
@@ -190,6 +192,7 @@ class SHT(FlatAlmMethods, LegendreCore):
             return torch.fft.irfft(Fc, n=self.nphi, dim=-1) * self.nphi
         return self._halfspec_to_real(Fre * self.cm, Fim * self.cm)
 
+    @trace.traced("sht.rings")
     def _ring_fft_real(self, maps):
         """G_m = sum_j f e^{-i m phi_j}; returns (Gre, Gim), (..., nr, L)."""
         if self.fft_mode == "fft":
@@ -255,6 +258,7 @@ class SHT(FlatAlmMethods, LegendreCore):
         self._require_spin2()
         return self._spin2_maps_from_F(*self._spin2_F(e_state, b_state))
 
+    @trace.traced("sht.rings")
     def _spin2_maps_from_F(self, Fp_re, Fp_im, Fm_re, Fm_im):
         """(F+, F-) ring Fourier coefficients (..., nr, L) -> (Q, U) maps."""
         Fp_re, Fp_im = self._rot(Fp_re, Fp_im, +1)
@@ -268,6 +272,7 @@ class SHT(FlatAlmMethods, LegendreCore):
         return (self._halfspec_to_real(Are, Aim),
                 self._halfspec_to_real(Bim, -Bre))
 
+    @trace.traced("sht.rings")
     def _spin2_ring_coefs(self, q_maps, u_maps):
         """(Q, U) maps -> unweighted (Cp_re, Cp_im, Cm_re, Cm_im) ring
         coefficients C+ = sum_j (Q + iU) e^{-im phi_j},
@@ -324,6 +329,7 @@ class SHT(FlatAlmMethods, LegendreCore):
         return (torch.as_tensor(pwc, dtype=self.dtype, device=self.device),
                 torch.as_tensor(pws, dtype=self.dtype, device=self.device))
 
+    @trace.traced("sht.rings")
     def ring_cs_of_maps(self, maps: torch.Tensor):
         """(..., nr, nphi) pixel maps -> (Rc, Rs) raw ring sums
         Rc_m = sum_j f cos(m theta_j), Rs_m = sum_j f sin(m theta_j), each
@@ -367,6 +373,7 @@ class SHT(FlatAlmMethods, LegendreCore):
         Fre, Fim = self._rot(F_[..., 0, :, :], F_[..., 1, :, :], +1)
         return self.cm * Fre, -(self.cm * Fim)
 
+    @trace.traced("sht.rings")
     def _spin2_lsel_cs(self, Fp, Fm, sign_p=1.0, sign_m=1.0):
         """Per-bin (F+, F-) stacks (..., nb, 2, nr, L) -> ((Qc, Qs), (Uc,
         Us)) half-spectrum coefficients, the assembly of
